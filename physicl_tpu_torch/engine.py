@@ -8,10 +8,12 @@ thread's exception re-raised, ``get_state()``, ``sim.ts``, ``step.data`` and
 of up to 1024 iterations by :class:`physicl_tpu_torch.ops.pipeline.
 FusedProvider`.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than run
-differently: the generic step tier (the steps' ``apply``), population
-maintenance (mid-run injection/removal, ``auto_shrink``), checkpoints,
-device meshes and the spatial sort.
+Between chunks the engine recycles a continuous source's dead slots
+(:mod:`physicl_tpu_torch.population`). Not ported yet, and refused with
+``NotImplementedError`` rather than run differently: the generic step tier
+(the steps' ``apply``), the rest of population maintenance (mid-run
+injection/removal, ``auto_shrink``), checkpoints, device meshes and the
+spatial sort.
 """
 
 from __future__ import annotations
@@ -211,6 +213,14 @@ class Simulation(threading.Thread):
     after the chunk (None on the CPU), so a rate over the dispatch loop can
     be read on the device's clock, where a late harvest does not skew it.
 
+    ``setup_seconds`` is the host time from ``start()`` to the first
+    dispatch (state build, step setup, prover).
+
+    ``population_log`` lists the run's arena events: ``("capacity-stop",
+    chunk index, iteration, spawn mark)`` where a continuous source finds
+    the arena full, and ``("recycle", chunk index, spawn mark before,
+    spawn mark after)`` where the engine compacts it.
+
     ``sim_state`` is the state of the newest dispatched chunk: each chunk
     writes its own packed buffer, so it is a snapshot that later chunks do
     not overwrite, but on a CUDA device its values are final only once the
@@ -270,6 +280,8 @@ class Simulation(threading.Thread):
         self.ts: List[float] = []
         self.sim_state: Optional[SimState] = None
         self.chunk_log: List[tuple] = []
+        self.population_log: List[tuple] = []
+        self.setup_seconds: Optional[float] = None
         self._host_n_alive = 0
 
     # -- population --------------------------------------------------------
@@ -327,6 +339,16 @@ class Simulation(threading.Thread):
         return self.state_fn(self)
 
     # -- planning ------------------------------------------------------------
+
+    def _population_policies(self):
+        """``(recycle_ok, emit_per_iter)``: a continuous source recycles
+        slots. (No ported step needs stable slot ids, the JAX package's bar
+        to recycling; shrinking, its other slot-moving policy, is not
+        ported: ``auto_shrink=True`` is refused.)"""
+        emit_per_iter = sum(
+            getattr(s, "n_per_step", 0) for s in self.steps.values()
+            if getattr(s, "needs_capacity_headroom", False))
+        return emit_per_iter > 0, emit_per_iter
 
     def _ordered_steps(self) -> List[Step]:
         # insertion order, NOT index order (reference semantics)
@@ -439,14 +461,24 @@ class Simulation(threading.Thread):
     def _drive_fused(self, provider, steps, state: SimState) -> SimState:
         """Pipelined dispatch loop: enqueue chunk k+1 before waiting on
         chunk k's records, keeping up to ``fused_pipeline_depth`` chunks in
-        flight; returns the definitive final state."""
+        flight; returns the definitive final state. Slot recycling needs a
+        fresh alive count, so the pipeline drains before it runs."""
+        from physicl_tpu_torch.population import PopulationManager
+
         depth = max(1, int(self.fused_pipeline_depth))
         pending: deque = deque()
+        pop = PopulationManager(self)
 
         def drain_one():
             return self._harvest_fused(provider, pending.popleft(), steps)
 
         while True:
+            if pop.needs_attention(state, provider):
+                while pending:
+                    done, final_state = drain_one()
+                    if done:
+                        return final_state
+                state = pop.maintain(state, provider)
             inflight = provider.dispatch(state)
             state = inflight.state
             with self._state_lock:
@@ -464,9 +496,11 @@ class Simulation(threading.Thread):
 
     def _run_impl(self) -> None:
         self._check_supported()
+        t0 = time.perf_counter()
         self.start_time = time.time()
         self.ts = []
         self.chunk_log = []
+        self.population_log = []
         self.running = True
         state = self._init_run_state()
         steps = self._ordered_steps()
@@ -474,6 +508,7 @@ class Simulation(threading.Thread):
             s.setup(self)
         provider = self._build_execution(steps, state)
         self.used_fused = True
+        self.setup_seconds = time.perf_counter() - t0
         if self.device.type == "cuda":
             with torch.cuda.device(self.device):
                 self._drive_fused(provider, steps, state)

@@ -1,6 +1,8 @@
-"""Photon-transport toolkit (counterpart of ``physicl_tpu/light.py``, main-path
-subset): constants, the photon model, bulk photon populations, isotropic
-scattering, plain absorption and the sign measurement.
+"""Photon-transport toolkit (counterpart of ``physicl_tpu/light.py``, ported
+subset): constants, the photon model, the Planck spectrum and its samplers,
+bulk photon populations (host or device), the continuous photon source,
+isotropic scattering, plain absorption, and the sign and plane-crossing
+measurements.
 
 Statistical-parity details kept from the JAX package: the inclusive
 ``pcoll >= rand`` collision test and the angle-uniform (not area-uniform)
@@ -11,15 +13,25 @@ are stored and refused by the fused prover with a named code.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from physicl_tpu_torch.engine import MeasureStep, Object, Step
+from physicl_tpu_torch.ops.planck import (
+    icdf_table,
+    planck_gen,
+    poly_icdf_reference,
+)
 from physicl_tpu_torch.state import OBJ_PHOTON
 from physicl_tpu_torch.units import Measurement, raw_code_value
 
 __all__ = [
     "c", "h", "kB", "m_e", "refresh_constants", "PhotonObject",
-    "generate_photon_state", "ScatterDeleteStep", "ScatterIsotropicStep",
-    "ScatterSphericalStep", "ScatterSignMeasureStep",
+    "E_from_wavelength", "wavelength_from_E",
+    "planck_distribution", "planck_probability", "planck_phot_distribution",
+    "planck_cdf", "planck_sample_E", "PlanckSampler", "poly_icdf_reference",
+    "generate_photon_state", "PhotonEmitterStep",
+    "ScatterDeleteStep", "ScatterIsotropicStep",
+    "ScatterSphericalStep", "ScatterMeasureStep", "ScatterSignMeasureStep",
 ]
 
 c = Measurement(np.double(299792458), "m**1 s**-1")
@@ -42,6 +54,12 @@ def _as_code(x):
     return float(raw_code_value(x))
 
 
+def _as_float(x):
+    """SI (unscaled) float: the Planck functions' convention (they unscale
+    their arguments, as the reference does)."""
+    return float(x.__unscaled__()) if isinstance(x, Measurement) else float(x)
+
+
 class PhotonObject(Object):
     """A photon: requires an energy ``E`` and |v| == c."""
 
@@ -57,16 +75,309 @@ class PhotonObject(Object):
             raise Exception("Needs a valid energy.")
 
 
-def generate_photon_state(n, E, v=None, r=None, w=None) -> dict:
-    """Bulk photon population for ``Simulation.add_photons``, as float64
-    numpy arrays exactly as the JAX package's host path makes them.
+def E_from_wavelength(wavelength):
+    """lambda [m] -> E [J]."""
+    return (h * c) / wavelength
+
+
+def wavelength_from_E(E):
+    """E [J] -> lambda [m]."""
+    return (h * c) / E
+
+
+# ---------------------------------------------------------------------------
+# Planck (Wien-form) spectrum: p(E) = 15/(pi^4 kB T) x^3 e^-x, x = E/(kB T).
+# The host math is numpy float64, copied from the JAX package line for line
+# so that its arrays equal the JAX ones exactly.
+# ---------------------------------------------------------------------------
+
+
+def planck_distribution(E, T):
+    """Normalized blackbody density (the reference's Wien-approximation form)."""
+    E_conv = E.__unscaled__() if isinstance(E, Measurement) else E
+    T_conv = T.__unscaled__() if isinstance(T, Measurement) else T
+    kB_conv = kB.__unscaled__()
+    x = E_conv / (kB_conv * T_conv)
+    val = 15.0 / (np.pi ** 4 * kB_conv * T_conv) * x ** 3 * np.exp(-x)
+    return Measurement(val, "J**-1")
+
+
+def _wien_antideriv(x):
+    """Closed-form antiderivative: d/dx [-e^-x (x^3+3x^2+6x+6)] = x^3 e^-x."""
+    return -np.exp(-x) * (x ** 3 + 3 * x ** 2 + 6 * x + 6)
+
+
+def planck_probability(E_min, E_max, T, integrator=None):
+    """Integral of the density over [E_min, E_max] -> (value, abs_error).
+    The default is the exact closed form; ``integrator(fn, a, b)`` takes the
+    reference's call signature instead."""
+    if integrator is not None:
+        return integrator(lambda x: planck_distribution(x, T), E_min, E_max)
+    a, b, T_v = _as_float(E_min), _as_float(E_max), _as_float(T)
+    kT = float(kB.__unscaled__()) * T_v
+    val = 15.0 / np.pi ** 4 * (_wien_antideriv(b / kT) - _wien_antideriv(a / kT))
+    return (float(val), 0.0)
+
+
+_planck_cache: dict = {}
+
+
+def planck_cdf(E_min, E_max, T, bins: int = 1000):
+    """Memoized per-bin CDF of the Wien-form density: ``(E_edges, cdf)`` as
+    float64 arrays; ``E_edges`` has ``bins`` entries and ``cdf[i]`` is the
+    normalized cumulative probability up to edge ``i+1``."""
+    key = (_as_float(E_min), _as_float(E_max), _as_float(T), int(bins))
+    if key in _planck_cache:
+        return _planck_cache[key]
+    a, b, T_v, nb = key
+    kT = float(kB.__unscaled__()) * T_v
+    E = np.linspace(a, b, nb)
+    F = _wien_antideriv(E / kT)
+    gamma = F[1:] - F[:-1]                  # per-bin mass (exact)
+    cdf = np.cumsum(gamma / gamma.sum())
+    _planck_cache[key] = (E, cdf)
+    return E, cdf
+
+
+def planck_phot_distribution(E_min, E_max, T, bins: int = 1000):
+    """Inverse-CDF sample ONE photon energy from numpy's global generator:
+    a draw in mass bin ``x`` returns the bin's lower edge ``E[x]`` (a draw
+    below ``cdf[0]`` returns ``E[0]``)."""
+    E, cdf = planck_cdf(E_min, E_max, T, bins)
+    rand = np.random.rand()
+    idx = int(np.searchsorted(cdf, rand, side="left"))
+    return Measurement(E[min(idx, len(E) - 1)], "J**1")
+
+
+_planck_inv_cache: dict = {}
+_INV_TABLE = 4096
+_planck_poly_cache: dict = {}
+_POLY_SEGS = 32
+_POLY_DEG = 7
+
+
+def _planck_poly_data(E_min, E_max, T, bins):
+    """Memoized piecewise-polynomial inverse-CDF fit: 32 segments with
+    breakpoints warped-uniform in energy (``E_lo + (E_hi-E_lo) t**1.5``),
+    a degree-7 monomial fit each. Returns ``(pb, mids, halves, coeffs,
+    (E_lo, E_hi))`` as float32 scalars (``ops/planck.icdf_table`` packs
+    them for the kernels)."""
+    cache_key = ("data", _as_float(E_min), _as_float(E_max), _as_float(T),
+                 int(bins))
+    if cache_key in _planck_poly_cache:
+        return _planck_poly_cache[cache_key]
+
+    E, cdf = planck_cdf(E_min, E_max, T, bins)
+    probs = np.concatenate([[0.0], cdf])
+    Eb = E[0] + (E[-1] - E[0]) * np.linspace(0.0, 1.0, _POLY_SEGS + 1) ** 1.5
+    pb = np.interp(Eb, E, probs)
+    pb[0], pb[-1] = 0.0, 1.0 + 1e-7
+
+    mids = 0.5 * (pb[1:] + pb[:-1])
+    halves = np.maximum(0.5 * (pb[1:] - pb[:-1]), 1e-12)
+    coeffs = np.zeros((_POLY_SEGS, _POLY_DEG + 1))
+    nodes = np.cos(np.pi * (np.arange(128) + 0.5) / 128)  # Chebyshev nodes
+    for s in range(_POLY_SEGS):
+        # fit on nodes sampled within the segment (well-conditioned even
+        # for near-zero-mass tail segments)
+        ps = mids[s] + halves[s] * nodes
+        ch = np.polynomial.chebyshev.Chebyshev.fit(
+            ps, np.interp(ps, probs, E), _POLY_DEG,
+            domain=[pb[s], pb[s + 1]])
+        coeffs[s] = np.polynomial.chebyshev.cheb2poly(ch.coef)
+
+    data = (
+        [np.float32(x) for x in pb],
+        [np.float32(x) for x in mids],
+        [np.float32(x) for x in halves],
+        [[np.float32(c) for c in row] for row in coeffs],
+        (np.float32(E[0]), np.float32(E[-1])),
+    )
+    _planck_poly_cache[cache_key] = data
+    return data
+
+
+def _planck_inverse_table(E_min, E_max, T, bins):
+    """Memoized inverse-CDF table: probability grid -> energy (host f64)."""
+    key = (_as_float(E_min), _as_float(E_max), _as_float(T), int(bins))
+    if key not in _planck_inv_cache:
+        E, cdf = planck_cdf(E_min, E_max, T, bins)
+        # cdf[i] is cumulative mass up to edge E[i+1]; prepend (0, E[0])
+        probs = np.concatenate([[0.0], cdf])
+        _planck_inv_cache[key] = np.interp(
+            np.linspace(0.0, 1.0, _INV_TABLE), probs, E)
+    return _planck_inv_cache[key]
+
+
+def _torch_device(device) -> torch.device:
+    """``device=True`` means the card; a string or torch.device names one."""
+    return torch.device("cuda" if device is True else device)
+
+
+def _generator(key, seed: int, device) -> torch.Generator:
+    if key is not None:
+        return key
+    g = torch.Generator(device=device)
+    g.manual_seed(int(seed))
+    return g
+
+
+class PlanckSampler:
+    """Blackbody photon-energy sampler (Wien-form density) for every tier:
+
+    * ``sampler(generator, k)``: ``k`` energies from a ``torch.Generator``'s
+      uniforms through the plain inverse CDF, on the generator's device;
+    * ``sampler.icdf(u)``: the inverse CDF over float32 uniforms, the
+      function the transport kernel's ``emit`` op evaluates in-kernel for
+      ``PhotonEmitterStep(E=sampler)``;
+    * ``sampler.sample_device(seed, n, device="cuda")``: the bulk generation
+      kernel ``csrc/planck_gen.cu`` (its plain twin on the CPU).
+
+    Energies are in code units: the SI spectrum times the joule's code
+    factor ``_code``, captured at construction.
+    """
+
+    def __init__(self, E_min, E_max, T, bins: int = 1000):
+        self.E_min = _as_float(E_min)
+        self.E_max = _as_float(E_max)
+        self.T = _as_float(T)
+        self.bins = int(bins)
+        self._code = float(raw_code_value(Measurement(1.0, "J**1")))
+        self._tables = {}  # device -> packed fit table
+
+    @property
+    def data(self):
+        """``_planck_poly_data`` of this sampler's window."""
+        return _planck_poly_data(self.E_min, self.E_max, self.T, self.bins)
+
+    def table(self, device="cpu") -> torch.Tensor:
+        """The packed fit table (``ops/planck.icdf_table``) on ``device``,
+        built once per device."""
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        t = self._tables.get(dev)
+        if t is None:
+            t = self._tables[dev] = torch.from_numpy(
+                icdf_table(self.data)).to(dev)
+        return t
+
+    def _scaled(self, E: torch.Tensor) -> torch.Tensor:
+        if self._code == 1.0:
+            return E
+        return E * torch.tensor(self._code, dtype=torch.float32,
+                                device=E.device)
+
+    def __call__(self, generator: torch.Generator, k):
+        u = torch.rand(int(k), generator=generator, dtype=torch.float32,
+                       device=generator.device)
+        return self.icdf(u)
+
+    def icdf(self, u: torch.Tensor) -> torch.Tensor:
+        return self._scaled(poly_icdf_reference(u, self.table(u.device)))
+
+    def sample_device(self, seed: int, n: int, device="cuda") -> torch.Tensor:
+        dev = _torch_device(device)
+        return planck_gen(int(seed), int(n), self.table(dev), self._code, dev)
+
+
+def planck_sample_E(n, E_min, E_max, T, bins: int = 1000, key=None,
+                    seed: int = 0, device=False,
+                    device_method: str = "auto"):
+    """Sample ``n`` photon energies at once.
+
+    ``key`` is a ``torch.Generator`` (default: one seeded with ``seed`` on
+    the target device). ``device=False`` returns host float64 energies (the
+    lower edge of each sampled CDF bin); ``device=True`` (the card) or a
+    device name returns a float32 tensor there, ready for
+    ``generate_photon_state(..., device=...)``. ``device_method``:
+
+    * "kernel": the bulk generation kernel ``csrc/planck_gen.cu`` on the
+      counter hash keyed on ``seed`` (its plain twin on the CPU);
+    * "auto" (default) == "kernel". The JAX package's "auto" means "poly",
+      its fastest route on the TPU; on the port the hand-written kernel is
+      the route;
+    * "poly": the generator's uniforms through the plain inverse CDF;
+    * "table": exact inverse-CDF table interpolation (the accuracy oracle).
+    """
+    if device is not False and device is not None:
+        dev = _torch_device(device)
+        if device_method == "auto":
+            device_method = "kernel"
+        if device_method == "kernel":
+            if key is not None and seed == 0:
+                # a stable integer seed from the generator's own seed
+                seed = int(key.initial_seed()) & 0x7FFFFFFF
+            table = torch.from_numpy(icdf_table(
+                _planck_poly_data(E_min, E_max, T, bins))).to(dev)
+            return planck_gen(int(seed), int(n), table, 1.0, dev)
+        gen = _generator(key, seed, dev)
+        u = torch.rand(int(n), generator=gen, dtype=torch.float32,
+                       device=dev)
+        if device_method == "poly":
+            return poly_icdf_reference(u, _planck_poly_data(E_min, E_max, T,
+                                                            bins))
+        if device_method != "table":
+            raise ValueError(f"unknown device_method {device_method!r}")
+        table = torch.tensor(_planck_inverse_table(E_min, E_max, T, bins),
+                             dtype=torch.float32, device=dev)
+        x = u * (_INV_TABLE - 1)
+        i0 = torch.floor(x).to(torch.int64)
+        frac = x - i0
+        i0 = i0.clamp(0, _INV_TABLE - 2)
+        return table[i0] * (1 - frac) + table[i0 + 1] * frac
+    gen = _generator(key, seed, "cpu")
+    u = torch.rand(int(n), generator=gen, dtype=torch.float32)
+    E, cdf = planck_cdf(E_min, E_max, T, bins)
+    # lower-edge bin convention, as planck_phot_distribution
+    idx = torch.searchsorted(torch.from_numpy(cdf.astype(np.float32)), u)
+    return E[idx.clamp(0, len(E) - 1).numpy()]
+
+
+def generate_photon_state(n, E, v=None, r=None, device=False,
+                          w=None) -> dict:
+    """Bulk photon population for ``Simulation.add_photons``.
 
     ``E``: scalar or (n,) energies [code units]; ``v``: (3,) or (3, n)
     velocities (default +x at c); ``r``: (3,) or (3, n) positions (default
     origin); ``w``: scalar or (n,) statistical weights.
+
+    ``device=False`` builds float64 numpy arrays exactly as the JAX
+    package's host path does. ``device=True`` (the card) or a device name
+    builds float32 tensors there, with no host staging; ``E`` may then be a
+    tensor, e.g. straight from ``PlanckSampler.sample_device``.
     """
     n = int(n)
     c_val = float(raw_code_value(c))
+    if device is not False and device is not None:
+        dev = _torch_device(device)
+        f32 = torch.float32
+
+        def tensor(x):
+            if isinstance(x, torch.Tensor):
+                return x.to(device=dev, dtype=f32)
+            return torch.as_tensor(np.asarray(raw_code_value(x), np.float64),
+                                   dtype=f32, device=dev)
+
+        def vec3(x):
+            return tensor(x).reshape(3, -1).expand(3, n)
+
+        E_arr = tensor(E).reshape(-1).expand(n)
+        if v is None:
+            v_arr = torch.zeros((3, n), dtype=f32, device=dev)
+            v_arr[0] = c_val
+        else:
+            v_arr = vec3(v)
+        r_arr = (torch.zeros((3, n), dtype=f32, device=dev) if r is None
+                 else vec3(r))
+        out = {"n": n, "E": E_arr, "v": v_arr, "r": r_arr,
+               "otype": OBJ_PHOTON}
+        if w is not None:
+            w_arr = tensor(w).reshape(-1)
+            if w_arr.shape[0] not in (1, n):
+                raise ValueError(f"w must be scalar or length {n}")
+            out["w"] = w_arr.expand(n)
+        return out
     E_flat = np.asarray(raw_code_value(E), np.float64).reshape(-1)
     if E_flat.size not in (1, n):
         raise ValueError(f"E must be scalar or length {n}")
@@ -89,6 +400,43 @@ def generate_photon_state(n, E, v=None, r=None, w=None) -> dict:
             raise ValueError(f"w must be scalar or length {n}")
         out["w"] = np.broadcast_to(w_flat, (n,)).copy()
     return out
+
+
+class PhotonEmitterStep(Step):
+    """Continuous photon source: ``n_per_step`` photons every iteration, in
+    slots ``[n_spawned, n_spawned + n_per_step)``; emission stops when the
+    capacity is full, and the engine recycles dead slots (compaction) when
+    the arena runs short. ``E`` is a constant or a :class:`PlanckSampler`
+    (sampled in-kernel through its inverse CDF); ``v`` defaults to +x at c,
+    ``isotropic=True`` draws angle-uniform directions; ``r`` is the
+    emission point.
+
+    Not ported, and refused by the prover with a named code: polarized
+    sources (``stokes=`` / ``pol_ref=``, code ``emitter-polarized``), any
+    other callable ``E`` (a user function cannot be inlined into the CUDA
+    kernel, code ``emitter-sampler``), and the generic tier's ``apply``.
+    """
+
+    needs_capacity_headroom = True  # slots must stay free for emission
+
+    def __init__(self, n_per_step: int, E=1.0, v=None, r=(0.0, 0.0, 0.0),
+                 isotropic: bool = False, stokes=None, pol_ref=None):
+        self.n_per_step = int(n_per_step)
+        self.E = E
+        self.v = v
+        self.r = np.asarray(raw_code_value(r), np.float64).reshape(3)
+        self.isotropic = isotropic
+        self.stokes = stokes
+        self.pol_ref = pol_ref
+        self._c = None
+
+    def setup(self, sim) -> None:
+        self._c = float(raw_code_value(c))
+
+    def apply(self, state, ctx):
+        raise NotImplementedError("PhotonEmitterStep.apply is the generic "
+                                  "step tier, which is not ported; the "
+                                  "fused tier emits in-kernel")
 
 
 class ScatterDeleteStep(MeasureStep):
@@ -174,4 +522,47 @@ class ScatterSignMeasureStep(MeasureStep):
             if self.measure_n:
                 row.append(records["n"][i])
             row.extend(records["signs"][i])
+            self.data.append(np.array(row))
+
+
+class ScatterMeasureStep(MeasureStep):
+    """Counts photons crossing axis-aligned planes each iteration. A plane
+    is a 3-vector whose non-axis coordinates are NaN; a photon crossed it
+    when ``r - dr <= L <= r`` in either direction. ``data`` rows are ``[t,
+    n, count0, (Esum0,) count1, ...]``.
+
+    ``weighted=True`` reports each plane's weight sum over crossing photons
+    instead of the count, and energy flux as ``sum(w*E)``. ``measure_E=True``
+    with ``measure_E_mode="sum"`` adds each plane's energy sum; the
+    per-photon list mode (the JAX default mode) is refused by the prover
+    (code ``measure-E-list``): it needs stream planes, which are not
+    ported."""
+
+    def __init__(self, out_fn=None, measure_n: bool = True, measure_locs=(),
+                 measure_E: bool = False, measure_E_mode: str = "list",
+                 weighted: bool = False):
+        super().__init__(out_fn)
+        self.measure_locs = list(measure_locs)
+        self.measure_n = measure_n
+        self.measure_E = measure_E
+        self.weighted = bool(weighted)
+        if measure_E_mode not in ("list", "sum"):
+            raise ValueError("measure_E_mode must be 'list' or 'sum'")
+        self.measure_E_mode = measure_E_mode
+        self._axes = []
+        for loc in self.measure_locs:
+            loc = np.asarray(loc, np.double)
+            axis = (0 if not np.isnan(loc[0])
+                    else (1 if not np.isnan(loc[1]) else 2))
+            self._axes.append((axis, float(loc[axis])))
+
+    def collect(self, sim, records) -> None:
+        for i in range(len(records["t"])):
+            row = [records["t"][i]]
+            if self.measure_n:
+                row.append(records["n"][i])
+            for j in range(len(self._axes)):
+                row.append(records[f"count{j}"][i])
+                if self.measure_E:
+                    row.append(float(records[f"Esum{j}"][i]))
             self.data.append(np.array(row))

@@ -1,11 +1,12 @@
 """Build and bind the hand-written CUDA kernels.
 
-``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, at first use, into the git-ignored ``_build/``
-directory next to this package, and loaded with ``ctypes``. The library name
-carries a hash of the sources and flags, so an edited source never loads a
-stale build. Nothing here runs at import time: importing the package needs
-no ``nvcc`` and no card.
+Each ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, at first use, into the git-ignored
+``_build/`` directory next to this package, and loaded with ``ctypes``. All
+sources compile at once (one ``nvcc`` process each, started together). A
+library's name carries a hash of the sources, the shared headers and the
+flags, so an edited source never loads a stale build. Nothing here runs at
+import time: importing the package needs no ``nvcc`` and no card.
 """
 
 from __future__ import annotations
@@ -26,9 +27,34 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
-_lib = None
+_libs = None
 build_seconds = None   # wall time of this process's build (None: not built)
 build_log = ""         # nvcc's output (``-Xptxas -v`` register/spill report)
+
+# the kernel structs of csrc/fused_transport.cu, member for member (every
+# member is 4 bytes wide, so neither side pads)
+MAX_OPS = 16
+MAX_AXES = 16
+_ci, _cf = ctypes.c_int, ctypes.c_float
+
+
+class OpStruct(ctypes.Structure):
+    _fields_ = [("kind", _ci), ("col0", _ci), ("col1", _ci), ("flag", _ci),
+                ("coef", _cf), ("wl_base", _cf), ("c_val", _cf),
+                ("emit_n", _ci), ("emit_row", _ci), ("icdf", _ci),
+                ("emit_E", _cf), ("emit_scale", _cf),
+                ("emit_r", _cf * 3), ("emit_v", _cf * 3),
+                ("ax0", _ci), ("n_ax", _ci)]
+
+
+class AxisStruct(ctypes.Structure):
+    _fields_ = [("axis", _ci), ("L", _cf), ("col", _ci), ("ecol", _ci)]
+
+
+class PlanStruct(ctypes.Structure):
+    _fields_ = [("ops", OpStruct * MAX_OPS), ("axes", AxisStruct * MAX_AXES),
+                ("n_ops", _ci), ("n_cols", _ci), ("n_fcols", _ci),
+                ("const_norm", _ci), ("const_speed", _cf)]
 
 
 def _nvcc() -> str:
@@ -42,79 +68,85 @@ def _nvcc() -> str:
                        "kernels are built from csrc/ at first use")
 
 
-def _sources():
+def _csrc(ext: str):
     return sorted(os.path.join(_CSRC, n) for n in os.listdir(_CSRC)
-                  if n.endswith(".cu"))
+                  if n.endswith(ext))
+
+
+def _bind(libs) -> None:
+    vp, ci, cf, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_longlong)
+    ft = libs["fused_transport"]
+    ft.fused_transport_grid.restype = ci
+    ft.fused_transport_grid.argtypes = [ll, ci, ci, ci,
+                                        ctypes.POINTER(ci)]
+    ft.fused_transport_launch.restype = ci
+    ft.fused_transport_launch.argtypes = [
+        vp, vp, ll, vp, vp, ci, vp, ci, ctypes.c_uint,
+        ctypes.POINTER(PlanStruct), ci, vp, vp, vp, vp]
+    pg = libs["planck_gen"]
+    pg.planck_gen_launch.restype = ci
+    pg.planck_gen_launch.argtypes = [vp, ll, ctypes.c_uint, vp, cf, vp]
 
 
 def load():
-    """Build (once per source hash) and load the kernel library."""
-    global _lib, build_seconds, build_log
+    """Build (once per source hash) and load every kernel library; returns
+    ``{name: ctypes.CDLL}`` keyed by source file stem."""
+    global _libs, build_seconds, build_log
     with _lock:
-        if _lib is not None:
-            return _lib
-        srcs = _sources()
-        h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-        for s in srcs:
-            with open(s, "rb") as f:
+        if _libs is not None:
+            return _libs
+        common = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+        for hdr in _csrc(".cuh"):
+            with open(hdr, "rb") as f:
+                common.update(f.read())
+        jobs = {}
+        for src in _csrc(".cu"):
+            name = os.path.splitext(os.path.basename(src))[0]
+            h = common.copy()
+            with open(src, "rb") as f:
                 h.update(f.read())
-        so = os.path.join(BUILD_DIR, f"libphysicl_kernels_{h.hexdigest()[:12]}.so")
-        if not os.path.exists(so):
+            so = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
+            jobs[name] = (src, so)
+        todo = {n: j for n, j in jobs.items() if not os.path.exists(j[1])}
+        if todo:
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *srcs]
+            nvcc = _nvcc()
             t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{build_log}")
-            os.replace(tmp, so)
+            procs = {}
+            for name, (src, so) in todo.items():
+                tmp = f"{so}.{os.getpid()}.tmp"
+                cmd = [nvcc, *NVCC_FLAGS, "-I", _CSRC, "-Xptxas", "-v",
+                       "-o", tmp, src]
+                procs[name] = (subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True), tmp, so)
+            logs, failed = [], []
+            for name, (proc, tmp, so) in procs.items():
+                out, _ = proc.communicate()
+                logs.append(f"[{name}]\n{out}")
+                if proc.returncode != 0:
+                    failed.append(f"{name} ({proc.returncode})")
+                else:
+                    os.replace(tmp, so)
+            build_log = "\n".join(logs)
+            if failed:
+                raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n"
+                                   f"{build_log}")
             build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(so)
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        pi = ctypes.POINTER(ctypes.c_int)
-        pf = ctypes.POINTER(ctypes.c_float)
-        fn = lib.fused_transport_launch
-        fn.restype = ci
-        fn.argtypes = [vp, vp, ctypes.c_longlong, vp, ci, ctypes.c_uint,
-                       pi, pi, pi, pi, pf, pf, pf,
-                       ci, ci, ci, cf, vp, vp]
-        _lib = lib
-        return lib
+        libs = {name: ctypes.CDLL(so) for name, (_, so) in jobs.items()}
+        _bind(libs)
+        _libs = libs
+        return libs
 
 
-def launch_fused_transport(packed, out, dt_row, seed: int, k_act: int,
-                           plan, rec) -> None:
-    """Enqueue ``fused_transport_kernel`` on the current stream of
-    ``packed``'s device; raises if the launch was refused."""
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+def stream_of(t) -> int:
+    """The current CUDA stream of tensor ``t``'s device, as an int."""
     import torch
 
-    from physicl_tpu_torch.ops.fused import OP_CODES
-
-    lib = load()
-    ops = plan.ops
-    n = len(ops)
-
-    def arr(ctype, vals):
-        return (ctype * max(n, 1))(*vals)
-
-    ci, cf = ctypes.c_int, ctypes.c_float
-    kinds = arr(ci, [OP_CODES[op.kind] for op in ops])
-    col0 = arr(ci, [op.cols[0] if op.cols else -1 for op in ops])
-    col1 = arr(ci, [op.cols[1] if len(op.cols) > 1 else -1 for op in ops])
-    has_wl = arr(ci, [int(op.wl_base is not None) for op in ops])
-    coef = arr(cf, [op.coef for op in ops])
-    wl = arr(cf, [op.wl_base or 0.0 for op in ops])
-    c_val = arr(cf, [op.c_val for op in ops])
-    const = plan.const_norm_speed
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream(packed.device).cuda_stream
-        err = lib.fused_transport_launch(
-            packed.data_ptr(), out.data_ptr(), packed.shape[1],
-            dt_row.data_ptr(), k_act, seed & 0xFFFFFFFF,
-            kinds, col0, col1, has_wl, coef, wl, c_val,
-            n, plan.n_rec_cols, int(const is not None),
-            float(const or 0.0), rec.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_transport launch failed: CUDA error {err}")
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,10 +1,11 @@
 """Fused multi-iteration transport: the plan, the packed state, the CUDA
 kernel's wrapper and its plain PyTorch twin.
 
-Counterpart of ``physicl_tpu/ops/fused.py`` for the main-path ops ``kin``,
-``iso``, plain ``del``, ``sign`` and the column-0 alive count. One chunk
-runs ``k_act`` whole simulation iterations over a packed ``(15, C)``
-float32 state and returns per-iteration int32 record rows ``(chunk, 128)``.
+Counterpart of ``physicl_tpu/ops/fused.py`` for the ops ``kin``, ``iso``,
+plain ``del``, ``sign``, ``emit``, ``cross`` and the column-0 alive count.
+One chunk runs ``k_act`` whole simulation iterations over a packed
+``(15, C)`` float32 state and returns per-iteration int32 and float32
+record rows ``(chunk, 128)`` each.
 
 * On a CUDA tensor :func:`fused_chunk` launches the hand-written kernel
   ``csrc/fused_transport.cu`` (:func:`fused_transport`) or raises.
@@ -21,11 +22,14 @@ kernel.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import List, Optional
 
+import numpy as np
 import torch
 
+from physicl_tpu_torch.ops.planck import TABLE_SIZE, poly_icdf_reference
 from physicl_tpu_torch.state import SimState
 
 # Field planes in the packed (NF, C) state array (same order as the JAX
@@ -39,16 +43,35 @@ _MAX_REC_COLS = 128
 _MASK = 0xFFFFFFFF
 
 # op kinds the CUDA kernel switches on (csrc/fused_transport.cu)
-OP_CODES = {"kin": 0, "del": 1, "iso": 2, "sign": 3}
+OP_CODES = {"kin": 0, "del": 1, "iso": 2, "sign": 3, "emit": 4, "cross": 5}
+MAX_OPS = 16
+MAX_AXES = 16     # crossing planes over all cross ops of a plan
 
 
 @dataclasses.dataclass
 class _Op:
-    kind: str                       # "kin" | "del" | "iso" | "sign"
+    kind: str                       # a key of OP_CODES
     coef: float = 0.0               # folded A*n (del/iso)
     wl_base: Optional[float] = None  # lambda^-4 folding base (iso)
-    c_val: float = 0.0              # |v| of resampled photons (iso)
-    cols: tuple = ()                # sign: (n_col or -1, first sign col)
+    c_val: float = 0.0              # |v| of resampled / emitted photons
+    # sign: (n_col or -1, first sign col); cross: (n_col or -1,)
+    cols: tuple = ()
+    # cross: ((axis, L, col, e_col), ...); col indexes the float records
+    # when weighted (a weight sum), else the int records (a count); e_col
+    # is a float column for the energy sum, or -1
+    axes: tuple = ()
+    weighted: bool = False
+    # emit: photons appear in slots [emit_starts[emit_row, k], +emit_n) each
+    # iteration (host-scheduled from the spawn mark)
+    emit_n: int = 0
+    emit_E: float = 0.0             # constant emitted energy (code units)
+    # sampled energies: ops/planck.icdf_table of a PlanckSampler, and the
+    # code-unit factor applied to its output
+    emit_table: Optional[np.ndarray] = None
+    emit_scale: float = 1.0
+    emit_r: tuple = (0.0, 0.0, 0.0)
+    emit_v: Optional[tuple] = None  # None => isotropic at c_val
+    emit_row: int = 0
 
 
 @dataclasses.dataclass
@@ -66,6 +89,14 @@ class FusedPlan:
     # |dr| == c*dt for every particle: one scalar per iteration replaces the
     # per-photon norm (set by the prover after checking every speed)
     const_norm_speed: Optional[float] = None
+    n_frec_cols: int = 0  # float record columns in use
+    # the kernel's plan struct and the per-device fit tables, built once
+    _cache: dict = dataclasses.field(default_factory=dict, repr=False,
+                                     compare=False)
+
+    @property
+    def n_emit(self) -> int:
+        return sum(1 for op in self.ops if op.kind == "emit")
 
 
 class _HashRng:
@@ -150,17 +181,44 @@ def _check_plan(plan: FusedPlan) -> None:
     for op in plan.ops:
         if op.kind not in OP_CODES:
             raise NotImplementedError(f"fused op {op.kind!r} is not ported")
+    if len(plan.ops) > MAX_OPS:
+        raise ValueError(f"{len(plan.ops)} fused ops exceed the kernel's "
+                         f"{MAX_OPS}")
+    if sum(len(op.axes) for op in plan.ops) > MAX_AXES:
+        raise ValueError(f"crossing planes exceed the kernel's {MAX_AXES}")
+
+
+def _emit_rows(emit_starts, plan: FusedPlan):
+    """Host int32 (n_emit, >= chunk) copy of the emit schedule."""
+    if not plan.n_emit:
+        return None
+    if emit_starts is None:
+        raise ValueError("plan has emit ops but no emit_starts")
+    if isinstance(emit_starts, torch.Tensor):
+        emit_starts = emit_starts.cpu().numpy()
+    rows = np.asarray(emit_starts, np.int64)
+    if rows.ndim != 2 or rows.shape[0] < plan.n_emit \
+            or rows.shape[1] < plan.chunk:
+        raise ValueError(f"emit_starts must be ({plan.n_emit}, chunk), got "
+                         f"{rows.shape}")
+    return rows
 
 
 def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
-                          seed: int, k_act: int, plan: FusedPlan):
+                          seed: int, k_act: int, plan: FusedPlan,
+                          emit_starts=None):
     """Plain PyTorch version of one fused chunk. Returns ``(out, rec,
     rec_f)``: the new packed state (``packed`` is not modified), int32
-    records ``(chunk, 128)`` and zero float records of the same shape.
+    records ``(chunk, 128)`` and float32 records of the same shape.
+    ``emit_starts`` is the ``(n_emit, chunk)`` int32 emit schedule (any
+    device or numpy); plans without emit ops need none.
 
     Runs on any device; :func:`fused_chunk` uses it for CPU tensors only.
+    Float records are plain ``torch.sum``s, so they agree with the kernel's
+    fixed-order sums to rounding, not bitwise.
     """
     _check_plan(plan)
+    starts = _emit_rows(emit_starts, plan)
     dev = packed.device
     C = packed.shape[1]
     f = [packed[i].clone() for i in range(_NF)]
@@ -169,15 +227,29 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                       device=dev)
     rec_f = torch.zeros((plan.chunk, _MAX_REC_COLS), dtype=torch.float32,
                         device=dev)
-    lin = _slot_term(torch.arange(C, dtype=torch.int64, device=dev))
+    gid = torch.arange(C, dtype=torch.int64, device=dev)
+    lin = _slot_term(gid)
     speed = (None if plan.const_norm_speed is None
              else _f32(plan.const_norm_speed).to(dev))
     consts = [(_f32(op.coef).to(dev), _f32(op.c_val).to(dev),
                None if op.wl_base is None else _f32(op.wl_base).to(dev))
               for op in plan.ops]
+    tables = [None if op.emit_table is None
+              else torch.from_numpy(op.emit_table).to(dev)
+              for op in plan.ops]
 
     def count(mask):
         return mask.sum(dtype=torch.int32)
+
+    def fsum(mask, val):
+        return torch.where(mask, val, 0.0).sum()
+
+    def direction(c_val, tu, pu):
+        sin_t, cos_t, sin_p, cos_p = _fast_angles(tu, pu)
+        nx, ny, nz = sin_t * cos_p, sin_t * sin_p, cos_t
+        # 1/sqrt, both correctly rounded: the kernel spells the same
+        cval = c_val * (1.0 / _sqrt_rn(nx * nx + ny * ny + nz * nz))
+        return cval * nx, cval * ny, cval * nz
 
     for k in range(int(k_act)):
         dt = dts[k]
@@ -190,7 +262,8 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
             return _sqrt_rn(f[_DRX] * f[_DRX] + f[_DRY] * f[_DRY]
                             + f[_DRZ] * f[_DRZ])
 
-        for op, (coef, c_val, wl_base) in zip(plan.ops, consts):
+        for op, (coef, c_val, wl_base), table in zip(plan.ops, consts,
+                                                     tables):
             if op.kind == "kin":
                 for d in range(3):
                     dr = f[_VX + d] * dt
@@ -211,12 +284,7 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                 u = rng.uniform()
                 tu, pu = rng.uniform_pair()
                 scatter = (pcoll >= u) & alive
-                sin_t, cos_t, sin_p, cos_p = _fast_angles(tu, pu)
-                nx, ny, nz = sin_t * cos_p, sin_t * sin_p, cos_t
-                # 1/sqrt, both correctly rounded: the kernel spells the same
-                inv = 1.0 / _sqrt_rn(nx * nx + ny * ny + nz * nz)
-                cval = c_val * inv
-                vnew = (cval * nx, cval * ny, cval * nz)
+                vnew = direction(c_val, tu, pu)
                 for d in range(3):
                     old = f[_VX + d]
                     f[_VX + d] = torch.where(scatter, vnew[d], old)
@@ -227,19 +295,104 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                     rec[k, n_col] = count(alive)
                 for d in range(3):
                     rec[k, sx_col + d] = count((f[_VX + d] > 0) & alive)
+            elif op.kind == "emit":
+                start = int(starts[op.emit_row, k])
+                mask = (gid >= start) & (gid < start + op.emit_n)
+                if table is not None:
+                    E_new = poly_icdf_reference(rng.uniform(), table)
+                    if op.emit_scale != 1.0:
+                        E_new = E_new * _f32(op.emit_scale).to(dev)
+                    f[_E] = torch.where(mask, E_new, f[_E])
+                else:
+                    f[_E] = torch.where(mask, _f32(op.emit_E).to(dev), f[_E])
+                for d in range(3):
+                    f[_RX + d] = torch.where(mask, _f32(op.emit_r[d]).to(dev),
+                                             f[_RX + d])
+                    f[_DRX + d] = torch.where(mask, 0.0, f[_DRX + d])
+                    f[_DVX + d] = torch.where(mask, 0.0, f[_DVX + d])
+                if op.emit_v is not None:
+                    vnew = [_f32(x).to(dev) for x in op.emit_v]
+                else:
+                    vnew = direction(c_val, *rng.uniform_pair())
+                for d in range(3):
+                    f[_VX + d] = torch.where(mask, vnew[d], f[_VX + d])
+                f[_W] = torch.where(mask, 1.0, f[_W])
+                alive = alive | mask
+                f[_ALIVE] = alive.to(torch.float32)
+            elif op.kind == "cross":
+                (n_col,) = op.cols
+                if n_col >= 0:
+                    rec[k, n_col] = count(alive)
+                for axis, L, col, e_col in op.axes:
+                    hi = f[_RX + axis]
+                    lo = hi - f[_DRX + axis]
+                    Lv = _f32(L).to(dev)
+                    crossed = (((lo <= Lv) & (Lv <= hi))
+                               | ((lo >= Lv) & (Lv >= hi))) & alive
+                    if op.weighted:
+                        rec_f[k, col] = fsum(crossed, f[_W])
+                    else:
+                        rec[k, col] = count(crossed)
+                    if e_col >= 0:
+                        flux = f[_W] * f[_E] if op.weighted else f[_E]
+                        rec_f[k, e_col] = fsum(crossed, flux)
         rec[k, 0] = count(alive)
     return torch.stack(f), rec, rec_f
 
 
+def _plan_struct(plan: FusedPlan):
+    """The kernel's ``Plan`` struct (ctypes, built once per plan) and the
+    fit tables of its sampled-energy emit ops, concatenated in op order."""
+    if "struct" in plan._cache:
+        return plan._cache["struct"], plan._cache["tables"]
+    from physicl_tpu_torch.ops._build import PlanStruct
+
+    ps = PlanStruct()
+    tables, n_ax = [], 0
+    for i, op in enumerate(plan.ops):
+        o = ps.ops[i]
+        o.kind = OP_CODES[op.kind]
+        o.col0 = op.cols[0] if op.cols else -1
+        o.col1 = op.cols[1] if len(op.cols) > 1 else -1
+        o.coef, o.wl_base, o.c_val = op.coef, op.wl_base or 0.0, op.c_val
+        if op.kind == "iso":
+            o.flag = int(op.wl_base is not None)
+        elif op.kind == "emit":
+            o.flag = int(op.emit_v is None)
+            o.emit_n, o.emit_row, o.emit_E = op.emit_n, op.emit_row, op.emit_E
+            o.emit_scale = op.emit_scale
+            o.emit_r[:] = [float(x) for x in op.emit_r]
+            o.emit_v[:] = [float(x) for x in (op.emit_v or (0.0,) * 3)]
+            o.icdf = -1
+            if op.emit_table is not None:
+                o.icdf = len(tables) * TABLE_SIZE
+                tables.append(op.emit_table)
+        elif op.kind == "cross":
+            o.flag = int(op.weighted)
+            o.ax0, o.n_ax = n_ax, len(op.axes)
+            for axis, L, col, e_col in op.axes:
+                a = ps.axes[n_ax]
+                a.axis, a.L, a.col, a.ecol = axis, L, col, e_col
+                n_ax += 1
+    ps.n_ops = len(plan.ops)
+    ps.n_cols, ps.n_fcols = plan.n_rec_cols, plan.n_frec_cols
+    ps.const_norm = int(plan.const_norm_speed is not None)
+    ps.const_speed = plan.const_norm_speed or 0.0
+    tables = np.concatenate(tables) if tables else None
+    plan._cache["struct"], plan._cache["tables"] = ps, tables
+    return ps, tables
+
+
 def fused_transport(packed: torch.Tensor, out: torch.Tensor,
                     sched: torch.Tensor, seed: int, k_act: int,
-                    plan: FusedPlan):
+                    plan: FusedPlan, emit_starts: torch.Tensor | None = None):
     """Launch ``csrc/fused_transport.cu`` on CUDA tensors: ``k_act``
     iterations of ``plan`` from ``packed`` into ``out`` (which may be
-    ``packed`` itself). Returns ``(rec, rec_f)``. Raises on a CPU tensor, a
-    failed build or a refused launch. ``fused_transport.launches`` counts
-    launches."""
-    from physicl_tpu_torch.ops._build import launch_fused_transport
+    ``packed`` itself). ``emit_starts`` is the ``(n_emit, chunk)`` int32
+    emit schedule on the same device (plans with emit ops only). Returns
+    ``(rec, rec_f)``. Raises on a CPU tensor, a failed build or a refused
+    launch. ``fused_transport.launches`` counts launches."""
+    from physicl_tpu_torch.ops import _build
 
     _check_plan(plan)
     for name, t in (("packed", packed), ("out", out), ("sched", sched)):
@@ -258,13 +411,44 @@ def fused_transport(packed: torch.Tensor, out: torch.Tensor,
         raise ValueError("fused_transport: need 0 <= k_act <= chunk <= "
                          "sched width")
     dev = packed.device
+    starts_ptr, stride = 0, 0
+    if plan.n_emit:
+        if (emit_starts is None or emit_starts.device != dev
+                or emit_starts.dtype != torch.int32
+                or not emit_starts.is_contiguous()
+                or emit_starts.shape[0] < plan.n_emit
+                or emit_starts.shape[1] < plan.chunk):
+            raise ValueError("fused_transport: emit ops need a contiguous "
+                             "int32 (n_emit, chunk) emit_starts on the "
+                             "packed state's device")
+        starts_ptr, stride = emit_starts.data_ptr(), emit_starts.shape[1]
+    struct, tables = _plan_struct(plan)
+    icdf = None
+    if tables is not None:
+        icdf = plan._cache.get(dev)
+        if icdf is None:  # once per device: no copy on the dispatch path
+            icdf = plan._cache[dev] = torch.from_numpy(tables).to(dev)
+    lib = _build.load()["fused_transport"]
+    C, k_act = packed.shape[1], int(k_act)
     rec = torch.zeros((plan.chunk, _MAX_REC_COLS), dtype=torch.int32,
                       device=dev)
     rec_f = torch.zeros((plan.chunk, _MAX_REC_COLS), dtype=torch.float32,
                         device=dev)
     dt_row = sched[0].contiguous()
-    launch_fused_transport(packed, out, dt_row, int(seed), int(k_act),
-                           plan, rec)
+    with torch.cuda.device(dev):
+        grid = ctypes.c_int(0)
+        _build.check(lib.fused_transport_grid(
+            C, k_act, plan.n_rec_cols, plan.n_frec_cols, ctypes.byref(grid)),
+            "fused_transport occupancy query")
+        partials = torch.empty(max(1, grid.value * k_act * plan.n_frec_cols),
+                               dtype=torch.float32, device=dev)
+        err = lib.fused_transport_launch(
+            packed.data_ptr(), out.data_ptr(), C, dt_row.data_ptr(),
+            starts_ptr, stride, 0 if icdf is None else icdf.data_ptr(),
+            k_act, int(seed) & 0xFFFFFFFF, ctypes.byref(struct), grid.value,
+            rec.data_ptr(), rec_f.data_ptr(), partials.data_ptr(),
+            _build.stream_of(packed))
+    _build.check(err, "fused_transport launch")
     fused_transport.launches += 1
     return rec, rec_f
 
@@ -273,17 +457,20 @@ fused_transport.launches = 0
 
 
 def fused_chunk(packed: torch.Tensor, sched: torch.Tensor, seed: int,
-                k_act: int, plan: FusedPlan, out: torch.Tensor | None = None):
+                k_act: int, plan: FusedPlan, out: torch.Tensor | None = None,
+                emit_starts: torch.Tensor | None = None):
     """One fused chunk: ``(out, rec, rec_f)``.
 
     A CPU ``packed`` runs :func:`fused_chunk_reference`; a CUDA ``packed``
     runs :func:`fused_transport` into ``out`` (default: ``packed``, in
     place — the JAX call aliases its state the same way)."""
     if packed.device.type == "cpu":
-        return fused_chunk_reference(packed, sched, seed, k_act, plan)
+        return fused_chunk_reference(packed, sched, seed, k_act, plan,
+                                     emit_starts)
     if out is None:
         out = packed
-    rec, rec_f = fused_transport(packed, out, sched, seed, k_act, plan)
+    rec, rec_f = fused_transport(packed, out, sched, seed, k_act, plan,
+                                 emit_starts)
     return out, rec, rec_f
 
 

@@ -8,9 +8,11 @@ the engine falls back, this prover raises :class:`FusedRefusal` (a
 
 Fusable here: one ``UpdateTimeStep`` whose dt function reads at most
 ``(t, dt)``, plus any mix of ``NewtonianKinematicsStep``, plain
-``ScatterDeleteStep``, ``ScatterIsotropicStep`` and unweighted
-``ScatterSignMeasureStep``, on a photon (or, without photon steps, a
-generic) population, with a t-only or extinction exit.
+``ScatterDeleteStep``, ``ScatterIsotropicStep``, ``PhotonEmitterStep``
+(constant or ``PlanckSampler`` energies), unweighted
+``ScatterSignMeasureStep`` and ``ScatterMeasureStep`` (counts, weight sums,
+energy sums), on a photon (or, without photon steps, a generic) population,
+with a t-only or extinction exit.
 
 The provider serves the engine's pipelined ``dispatch``/``harvest`` pair,
 with the JAX package's record layout and host-replayed clock. Every
@@ -29,13 +31,17 @@ import numpy as np
 import torch
 
 from physicl_tpu_torch.ops import fused as F
+from physicl_tpu_torch.ops.planck import icdf_table
 from physicl_tpu_torch.state import OBJ_PHOTON, SimState
 from physicl_tpu_torch.units import Measurement, raw_code_value
 
 __all__ = ["try_build_fused", "FusedProvider", "FusedRefusal"]
 
-# a block's record tile [chunk][n_cols] int32 lives in shared memory
+# a block's record tiles live in shared memory: [chunk][n_cols] int32 and
+# [chunk][n_fcols][warps] float32 (csrc/fused_transport.cu)
 _MAX_REC_TILE_BYTES = 232_448
+_KERNEL_WARPS = 8
+_EMIT_INACTIVE = -(2 ** 30)  # far-negative start: the window overlaps nothing
 
 
 class FusedRefusal(NotImplementedError):
@@ -109,7 +115,8 @@ class _Inflight:
 
     state: SimState          # post-chunk state (its own packed buffer)
     rec: torch.Tensor        # (K, 128) int32 host copy (pinned on CUDA)
-    ready: Optional[torch.cuda.Event]  # marks the copy done (None on CPU)
+    rec_f: Optional[torch.Tensor]  # (K, 128) float32 host copy, if used
+    ready: Optional[torch.cuda.Event]  # marks the copies done (None on CPU)
     k_act: int
     done_t: bool
     ts: np.ndarray
@@ -142,10 +149,24 @@ class FusedProvider:
         self.dt_h = np.float32(0.0)
         self.comp_h = np.float32(0.0)
         self.n_h = 0
+        self.hwm_h = 0  # host mirror of the device spawn mark
+        self.capacity = 0
         self.chunk_idx = 0
+        self.emit_ops = [op for op in plan.ops if op.kind == "emit"]
         self._synced = False
         self._last_state = None
         self._last_packed = None
+        self._slots = None  # arange(capacity) on the device, for retyping
+        self._full = False  # the last scheduled emission did not fit
+
+    def resync(self, state: SimState) -> None:
+        """Re-read the alive count and spawn mark after an out-of-band state
+        edit that kept the capacity (slot-recycling compaction)."""
+        self._last_state = None
+        self._last_packed = None
+        self.n_h, self.hwm_h = torch.stack(
+            [state.n_alive.to(torch.int64),
+             state.n_spawned.to(torch.int64)]).tolist()
 
     def _host_schedule(self):
         """Replay K iterations of the time stepping on the host (plain
@@ -161,7 +182,11 @@ class FusedProvider:
         dts_before = np.zeros(K, f32)
         comps = np.zeros(K, f32)
         comps_before = np.zeros(K, f32)
+        emit_starts = np.full((max(1, len(self.emit_ops)), K),
+                              _EMIT_INACTIVE, np.int32)
+        hwm_after = np.full(K, self.hwm_h, np.int64)
         t, dt, comp = self.t_h, self.dt_h, self.comp_h
+        hwm = self.hwm_h
         k_act, done_t = K, False
 
         def advance(t, dt, comp):
@@ -188,8 +213,19 @@ class FusedProvider:
             ts[i] = t
             dts_after[i] = dt
             comps[i] = comp
+            for j, op in enumerate(self.emit_ops):
+                # contiguous slots from the spawn mark; stop at capacity
+                if hwm + op.emit_n <= self.capacity:
+                    emit_starts[j, i] = hwm
+                    hwm += op.emit_n
+                    self._full = False
+                elif not self._full:  # emission stops: the arena is full
+                    self._full = True
+                    self.sim.population_log.append(
+                        ("capacity-stop", self.chunk_idx, i, hwm))
+            hwm_after[i] = hwm
         return (ts, ts_before, dts_kin, dts_after, dts_before, k_act,
-                done_t, comps, comps_before)
+                done_t, emit_starts, hwm_after, comps, comps_before)
 
     def dispatch(self, state: SimState) -> _Inflight:
         """Enqueue one chunk and return a handle without waiting for it.
@@ -202,10 +238,12 @@ class FusedProvider:
             self.t_h = np.float32(float(state.t))
             self.dt_h = np.float32(float(state.dt))
             self.comp_h = np.float32(float(state.t_comp))
+            self.hwm_h = int(state.n_spawned)
+            self.capacity = state.capacity
             self._synced = True
 
         (ts, ts_before, dts_kin, dts_after, dts_before, k_act, done_t,
-         comps, comps_before) = self._host_schedule()
+         emit_starts, hwm_after, comps, comps_before) = self._host_schedule()
 
         seed = int(((int(self.sim.seed) * 2_654_435_761
                      + self.chunk_idx * 40_503) & 0xFFFFFFFF) & 0x7FFFFFFF)
@@ -219,36 +257,55 @@ class FusedProvider:
         #              dt after update, dt before update]
         sched = torch.from_numpy(np.stack(
             [dts_kin, ts, ts_before, dts_after, dts_before]))
+        starts = torch.from_numpy(emit_starts) if self.emit_ops else None
         if dev.type == "cuda":
             # from pinned memory: a pageable host-to-device copy would wait
             # for every chunk already queued and serialize the pipeline
             sched = sched.pin_memory().to(dev, non_blocking=True)
+            if starts is not None:
+                starts = starts.pin_memory().to(dev, non_blocking=True)
         out = None if dev.type == "cpu" else torch.empty_like(packed)
-        out, rec, _rec_f = F.fused_chunk(packed, sched, seed, k_act,
-                                         self.plan, out=out)
+        out, rec, rec_f = F.fused_chunk(packed, sched, seed, k_act,
+                                        self.plan, out=out,
+                                        emit_starts=starts)
+        if not self.plan.n_frec_cols:
+            rec_f = None
         ready = None
         if dev.type == "cuda":
-            # start the record transfer now: it lands as soon as the kernel
-            # retires, and harvest() only waits on the event
-            host = torch.empty(rec.shape, dtype=rec.dtype, pin_memory=True)
-            host.copy_(rec, non_blocking=True)
+            # start the record transfers now: they land as soon as the
+            # kernel retires, and harvest() only waits on the event
+            rec = _to_pinned(rec)
+            rec_f = None if rec_f is None else _to_pinned(rec_f)
             # timed, so that a rate can be read on the device's clock
             ready = torch.cuda.Event(enable_timing=True)
             ready.record(torch.cuda.current_stream(dev))
-            rec = host
 
+        hwm_before = self.hwm_h
         if k_act:
             self.t_h = np.float32(ts[k_act - 1])
             self.dt_h = np.float32(dts_after[k_act - 1])
             self.comp_h = np.float32(comps[k_act - 1])
+            self.hwm_h = int(hwm_after[k_act - 1])
 
         new_state = F.unpack_state(out, state).replace(
             t=_scalar(self.t_h, state.t), dt=_scalar(self.dt_h, state.t),
-            t_comp=_scalar(self.comp_h, state.t))
+            t_comp=_scalar(self.comp_h, state.t),
+            n_spawned=_scalar(self.hwm_h, state.n_spawned))
+        if self.hwm_h > hwm_before:
+            # emitted slots are photons in the host-side otype mirror, and
+            # start with zeroed extras planes (the kernel wrote the rest)
+            if self._slots is None or self._slots.device != dev:
+                self._slots = torch.arange(state.capacity, device=dev)
+            emitted = ((self._slots >= hwm_before)
+                       & (self._slots < self.hwm_h))
+            new_state = new_state.replace(
+                otype=torch.where(emitted, OBJ_PHOTON, new_state.otype),
+                extras={k: torch.where(emitted, 0, v)
+                        for k, v in new_state.extras.items()})
         self._last_state = new_state
         self._last_packed = out
         return _Inflight(
-            state=new_state, rec=rec, ready=ready, k_act=k_act,
+            state=new_state, rec=rec, rec_f=rec_f, ready=ready, k_act=k_act,
             done_t=done_t, ts=ts, ts_before=ts_before, dts_after=dts_after,
             dts_before=dts_before, comps=comps, comps_before=comps_before,
             t_opt=np.float32(self.t_h), dt_opt=np.float32(self.dt_h))
@@ -263,6 +320,7 @@ class FusedProvider:
         if inflight.ready is not None:
             inflight.ready.synchronize()
         rec_np = inflight.rec.numpy()
+        recf_np = None if inflight.rec_f is None else inflight.rec_f.numpy()
 
         n_end = rec_np[:, 0]
         n_before = np.concatenate([[self.n_h], n_end[:-1]])
@@ -310,6 +368,16 @@ class FusedProvider:
                     records[f"{uid}/n"] = rec_np[:, m["n_col"]]
                 records[f"{uid}/signs"] = rec_np[:, m["sx_col"]:
                                                  m["sx_col"] + 3]
+            elif m["kind"] == "cross":
+                records[f"{uid}/t"] = t_arr
+                if m["n_col"] >= 0:
+                    records[f"{uid}/n"] = rec_np[:, m["n_col"]]
+                src = recf_np if m["weighted"] else rec_np
+                for j, col in enumerate(m["cnt_cols"]):
+                    records[f"{uid}/count{j}"] = src[:, col]
+                for j, col in enumerate(m["e_cols"]):
+                    if col >= 0:
+                        records[f"{uid}/Esum{j}"] = recf_np[:, col]
         return done, final_state, records, n_valid, stats
 
     def __call__(self, state: SimState):
@@ -319,6 +387,13 @@ class FusedProvider:
         done, final_state, records, n_valid, _ = self.harvest(
             self.dispatch(state))
         return final_state, done, records, np.arange(self.plan.chunk) < n_valid
+
+
+def _to_pinned(t: torch.Tensor) -> torch.Tensor:
+    """Start a device-to-host copy of ``t`` into pinned memory."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
 
 
 def _scalar(x, like: torch.Tensor) -> torch.Tensor:
@@ -331,8 +406,11 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
     """Return a FusedProvider for the sim, or raise :class:`FusedRefusal`."""
     from physicl_tpu_torch.engine import UpdateTimeStep
     from physicl_tpu_torch.light import (
+        PhotonEmitterStep,
+        PlanckSampler,
         ScatterDeleteStep,
         ScatterIsotropicStep,
+        ScatterMeasureStep,
         ScatterSignMeasureStep,
     )
     from physicl_tpu_torch.newton import NewtonianKinematicsStep
@@ -346,15 +424,21 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
     if not codes:
         _no("empty-population", "no initial objects: add particles before "
             "start()")
-    if len(codes) > 1:
-        _no("mixed-species", "a mixed photon/generic population needs the "
-            "otype-gated kernel, which is not ported")
+    if len(codes) > 1 or (codes != {OBJ_PHOTON} and any(
+            type(s) is PhotonEmitterStep for s in steps)):
+        # an emitter turns a non-photon population mixed at its first
+        # emission, as a mixed population is from the start
+        _no("mixed-species", "a mixed photon/generic population (or a "
+            "photon emitter on a non-photon one) needs the otype-gated "
+            "kernel, which is not ported")
     species = codes.pop()
 
     ops: List[F._Op] = []
     rec_map: List[dict] = []
     measure_after_update: Dict[str, bool] = {}
     next_col = 1
+    next_fcol = 0   # float record channels (weight and energy sums)
+    n_axes = 0
     dt_fn = None
     update_seen = False
     update_before_kin = False
@@ -411,36 +495,110 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
             rec_map.append({"uid": uid, "kind": "sign", "n_col": n_col,
                             "sx_col": sx})
             measure_after_update[uid] = update_seen
+        elif type(s) is PhotonEmitterStep:
+            if s.stokes is not None or s.pol_ref is not None:
+                _no("emitter-polarized", "PhotonEmitterStep(stokes=/pol_ref="
+                    ") needs the polarization planes, which are not ported")
+            if callable(s.E) and not isinstance(s.E, PlanckSampler):
+                _no("emitter-sampler", f"PhotonEmitterStep energy sampler "
+                    f"{type(s.E).__name__}: a user callable cannot be "
+                    "inlined into the CUDA kernel; PlanckSampler energies "
+                    "are sampled in-kernel")
+            s.setup(sim)
+            if s.isotropic:
+                emit_v = None
+            elif s.v is None:
+                emit_v = (s._c, 0.0, 0.0)
+            else:
+                emit_v = tuple(float(x) for x in np.asarray(
+                    raw_code_value(s.v), np.float64).reshape(3))
+            sampled = isinstance(s.E, PlanckSampler)
+            ops.append(F._Op(
+                "emit", emit_n=s.n_per_step, c_val=s._c,
+                emit_E=0.0 if sampled else float(raw_code_value(s.E)),
+                emit_table=(icdf_table(s.E.data) if sampled else None),
+                emit_scale=s.E._code if sampled else 1.0,
+                emit_r=tuple(float(x) for x in s.r), emit_v=emit_v,
+                emit_row=sum(1 for o in ops if o.kind == "emit")))
+        elif type(s) is ScatterMeasureStep:
+            if s.measure_E and s.measure_E_mode == "list":
+                _no("measure-E-list", "ScatterMeasureStep(measure_E=True) "
+                    "in list mode captures per-photon energies in stream "
+                    "planes, which are not ported; measure_E_mode='sum' is")
+            n_col = next_col if s.measure_n else -1
+            next_col += 1 if s.measure_n else 0
+            axes, cnt_cols, e_cols = [], [], []
+            for axis, L in s._axes:
+                e_col = -1
+                if s.measure_E:
+                    e_col = next_fcol
+                    next_fcol += 1
+                if s.weighted:  # weight sums live in float record channels
+                    cnt = next_fcol
+                    next_fcol += 1
+                else:
+                    cnt = next_col
+                    next_col += 1
+                axes.append((axis, L, cnt, e_col))
+                cnt_cols.append(cnt)
+                e_cols.append(e_col)
+            n_axes += len(axes)
+            ops.append(F._Op("cross", cols=(n_col,), axes=tuple(axes),
+                             weighted=s.weighted))
+            rec_map.append({"uid": uid, "kind": "cross", "n_col": n_col,
+                            "cnt_cols": cnt_cols, "e_cols": e_cols,
+                            "weighted": s.weighted})
+            measure_after_update[uid] = update_seen
         else:
             _no("unsupported-step", f"{type(s).__name__} has no fused op in "
                 "the port; supported: UpdateTime/NewtonianKinematics/plain "
-                "ScatterDelete/ScatterIsotropic/ScatterSignMeasure")
+                "ScatterDelete/ScatterIsotropic/PhotonEmitter/"
+                "ScatterSignMeasure/ScatterMeasure")
 
     if not update_seen:
         _no("no-update-step", "no UpdateTimeStep: the fused kernel "
             "precomputes the time schedule on the host and needs a dt "
             "function")
-    if next_col > F._MAX_REC_COLS:
+    if next_col > F._MAX_REC_COLS or next_fcol > F._MAX_REC_COLS:
         _no("record-columns", f"measurement channels exceed the record "
-            f"width ({next_col} > {F._MAX_REC_COLS})")
-    if len(ops) > 16:
-        _no("op-count", f"{len(ops)} fused ops exceed the kernel's 16")
+            f"width ({max(next_col, next_fcol)} > {F._MAX_REC_COLS})")
+    if len(ops) > F.MAX_OPS:
+        _no("op-count", f"{len(ops)} fused ops exceed the kernel's "
+            f"{F.MAX_OPS}")
+    if n_axes > F.MAX_AXES:
+        _no("cross-planes", f"{n_axes} crossing planes exceed the kernel's "
+            f"{F.MAX_AXES}")
 
     # const-norm fast path: |dr| = speed * dt, valid iff exactly one
-    # kinematics step precedes every scatter op and every particle moves at
-    # one common speed that each isotropic op's resample speed matches
+    # kinematics step precedes every scatter op, every emitter precedes it
+    # (a photon emitted after kinematics carries dr = 0 until the next
+    # iteration), and every particle, emitted ones included, moves at one
+    # common speed that each isotropic op's resample speed matches
     const_speed = None
     kin_positions = [i for i, op in enumerate(ops) if op.kind == "kin"]
     scatter_positions = [i for i, op in enumerate(ops)
                          if op.kind in ("del", "iso")]
+    emit_positions = [i for i, op in enumerate(ops) if op.kind == "emit"]
     if (len(kin_positions) == 1 and scatter_positions
-            and all(p > kin_positions[0] for p in scatter_positions)):
+            and all(p > kin_positions[0] for p in scatter_positions)
+            and all(p < kin_positions[0] for p in emit_positions)):
         speeds = [float(np.linalg.norm(np.asarray(
             raw_code_value(o.v), np.float64).reshape(3)))
             for o in sim._pending_objects]
         for b in sim._pending_bulk:
-            norms = np.linalg.norm(np.asarray(b["v"], np.float64), axis=0)
-            speeds += [float(norms.min()), float(norms.max())]
+            if isinstance(b["v"], torch.Tensor):
+                # device bulk: reduce on the device, fetch two scalars
+                norms = torch.sqrt((b["v"].to(torch.float32) ** 2).sum(0))
+                speeds += torch.stack([norms.min(),
+                                       norms.max()]).double().tolist()
+            else:
+                norms = np.linalg.norm(np.asarray(b["v"], np.float64),
+                                       axis=0)
+                speeds += [float(norms.min()), float(norms.max())]
+        for op in ops:  # emitted photons join the population at these speeds
+            if op.kind == "emit":
+                speeds.append(op.c_val if op.emit_v is None
+                              else float(np.linalg.norm(op.emit_v)))
         if speeds:
             s0 = speeds[0]
             ok = s0 > 0 and max(abs(s - s0) for s in speeds) <= 1e-4 * s0
@@ -459,6 +617,11 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
             _no("extinction-without-death", "extinction exit but no step can "
                 "remove photons (no ScatterDeleteStep): the run would never "
                 "terminate")
+        if emit_positions:
+            _no("extinction-with-emitter", "extinction exit + "
+                "PhotonEmitterStep: in-kernel emissions past the extinction "
+                "iteration cannot be rolled back; use a t-based exit "
+                "(Simulation(until_t=...)) with emitters")
     else:
         _no("exit-predicate", f"exit predicate "
             f"{getattr(sim.exit, '__name__', repr(sim.exit))} is neither "
@@ -466,11 +629,17 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
             "with Simulation(until_t=...) or Simulation(exit='extinction')")
 
     chunk = int(sim.chunk_steps) if sim.chunk_steps else 1024
-    if chunk * next_col * 4 > _MAX_REC_TILE_BYTES:
-        _no("record-tile", f"chunk {chunk} x {next_col} record columns "
-            "overflows the kernel's shared-memory record tile; lower "
-            "chunk_steps")
+    emit_total = sum(op.emit_n for op in ops if op.kind == "emit")
+    if emit_total:
+        # one chunk's emissions must fit in half the arena, or emission
+        # starves mid-chunk before the engine can recycle slots
+        chunk = max(1, min(chunk, (state.capacity // 2) // emit_total))
+    if chunk * (next_col + next_fcol * _KERNEL_WARPS) * 4 \
+            > _MAX_REC_TILE_BYTES:
+        _no("record-tile", f"chunk {chunk} x ({next_col} int + {next_fcol} "
+            f"x {_KERNEL_WARPS} float) record columns overflows the "
+            "kernel's shared-memory record tiles; lower chunk_steps")
     plan = F.FusedPlan(ops=ops, n_rec_cols=next_col, chunk=chunk,
-                       const_norm_speed=const_speed)
+                       const_norm_speed=const_speed, n_frec_cols=next_fcol)
     return FusedProvider(sim, plan, rec_map, dt_fn, update_before_kin,
                          measure_after_update, sim.exit, exit_mode)

@@ -135,10 +135,13 @@ class SimState:
                         capacity: int | None = None) -> "SimState":
         """Build the state from host ``Object`` instances plus bulk
         populations (:func:`physicl_tpu_torch.light.generate_photon_state`
-        dicts), in the slot order and float32 rounding of the JAX package's
-        host path, then moves it to ``device``. Object attributes beyond the
-        core fields (the JAX package's extras planes) are not carried: no
-        ported step reads them."""
+        dicts, with numpy arrays or tensors), in the slot order and float32
+        rounding of the JAX package's host path: objects first, then each
+        bulk. The arrays are allocated on ``device`` and only the occupied
+        slots are copied there; a bulk built on the device is never staged
+        through the host. Object attributes beyond the core fields (the JAX
+        package's extras planes) are not carried: no ported step reads
+        them."""
         from physicl_tpu_torch.units import raw_code_value
 
         dev = torch.device(device)
@@ -149,39 +152,56 @@ class SimState:
         if cap < n:
             raise ValueError(f"capacity {cap} < object count {n}")
 
-        np_dtype = np.float32
-        vec = {name: np.zeros((3, cap), np_dtype) for name in _VEC}
-        E = np.zeros((cap,), np_dtype)
-        otype = np.zeros((cap,), np.int32)
-        w = np.ones((cap,), np_dtype)
+        f32 = torch.float32
+        vec = {name: torch.zeros((3, cap), dtype=f32, device=dev)
+               for name in _VEC}
+        E = torch.zeros((cap,), dtype=f32, device=dev)
+        otype = torch.zeros((cap,), dtype=torch.int32, device=dev)
+        w = torch.ones((cap,), dtype=f32, device=dev)
+        alive = torch.zeros((cap,), dtype=torch.bool, device=dev)
+        alive[:n] = True
 
-        for i, o in enumerate(objects):
-            for name in vec:
-                vec[name][:, i] = raw_code_value(getattr(o, name)).reshape(3)
-            E[i] = float(raw_code_value(getattr(o, "E", 0.0)))
-            w[i] = float(raw_code_value(getattr(o, "w", 1.0)))
-            otype[i] = getattr(o, "_obj_type_code", OBJ_GENERIC)
+        def put(dst, x):
+            """Copy one source array into a slice of the state: numpy
+            float64 rounds to float32 on the host (as numpy assignment
+            does), a tensor converts where it lies."""
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.ascontiguousarray(
+                    x, dtype=np.float32))
+            dst.copy_(x.to(dtype=dst.dtype))
+
+        if n_obj:
+            host = {name: np.zeros((3, n_obj), np.float32) for name in _VEC}
+            E_o = np.zeros((n_obj,), np.float32)
+            w_o = np.ones((n_obj,), np.float32)
+            t_o = np.zeros((n_obj,), np.int32)
+            for i, o in enumerate(objects):
+                for name in host:
+                    host[name][:, i] = raw_code_value(
+                        getattr(o, name)).reshape(3)
+                E_o[i] = float(raw_code_value(getattr(o, "E", 0.0)))
+                w_o[i] = float(raw_code_value(getattr(o, "w", 1.0)))
+                t_o[i] = getattr(o, "_obj_type_code", OBJ_GENERIC)
+            for name in host:
+                put(vec[name][:, :n_obj], host[name])
+            put(E[:n_obj], E_o)
+            put(w[:n_obj], w_o)
+            otype[:n_obj] = torch.from_numpy(t_o).to(dev)
         off = n_obj
         for b in bulks:
             k = int(b["n"])
             sl = slice(off, off + k)
-            vec["r"][:, sl] = b["r"]
-            vec["v"][:, sl] = b["v"]
-            E[sl] = b["E"]
+            put(vec["r"][:, sl], b["r"])
+            put(vec["v"][:, sl], b["v"])
+            put(E[sl], b["E"])
             if "w" in b:
-                w[sl] = b["w"]
+                put(w[sl], b["w"])
             otype[sl] = int(b["otype"])
             off += k
-        alive = np.zeros((cap,), bool)
-        alive[:n] = True
-
-        def put(x):
-            return torch.from_numpy(x).to(dev)
 
         return SimState(
-            **{name: put(vec[name]) for name in _VEC},
-            E=put(E), alive=put(alive), otype=put(otype), w=put(w),
+            **vec, E=E, alive=alive, otype=otype, w=w,
             t=torch.zeros((), dtype=torch.float32, device=dev),
             dt=torch.zeros((), dtype=torch.float32, device=dev),
             key=SimState.make_key(seed, dev),
-            n_spawned=torch.tensor(n, dtype=torch.int32, device=dev))
+            n_spawned=torch.full((), n, dtype=torch.int32, device=dev))

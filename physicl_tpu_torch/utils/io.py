@@ -3,11 +3,10 @@
 A numpy-only copy of ``physicl_tpu/utils/io.py`` (that module cannot be
 imported without JAX). ``write_rows`` reproduces the reference CSV format
 (", "-joined ``str()`` of each element, physicl/__init__.py:365-378). Dense
-numeric matrices take the native writer built from the JAX package's
-``physicl_tpu/utils/native/fastcsv.cpp`` — read by path, never imported —
-with g++ on first use into the port's git-ignored ``_build/`` directory and
-loaded via ctypes; ragged/object rows, or a missing source or compiler, fall
-back to the Python writer.
+numeric matrices take the native writer built from the port's own copy of
+the C++ source, ``utils/native/fastcsv.cpp``, with g++ on first use into the
+port's git-ignored ``_build/`` directory and loaded via ctypes; ragged/object
+rows, or a missing source or compiler, fall back to the Python writer.
 
 Durability: the reference's ``MeasureStep.terminate`` looped forever asking
 the operator for a new path on IOError (physicl/__init__.py:367-378) — crude,
@@ -36,11 +35,9 @@ __all__ = ["write_rows", "write_matrix", "native_available"]
 # bounded retry-with-backoff schedule for transient write errors (seconds)
 _RETRY_DELAYS = (0.05, 0.2, 0.8)
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_SRC = os.path.join(_REPO, "physicl_tpu", "utils", "native", "fastcsv.cpp")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "_build")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_HERE, "native", "fastcsv.cpp")
+_BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 _SO_PATH = os.path.join(_BUILD_DIR, "libfastcsv.so")
 _lock = threading.Lock()
 _lib = None

@@ -1,4 +1,5 @@
-"""The CUDA kernel ``fused_transport`` against its plain PyTorch twin.
+"""The CUDA kernels ``fused_transport`` and ``planck_gen`` against their
+plain PyTorch twins.
 
 Needs a CUDA device and ``nvcc``: every test here is marked ``cuda`` and
 skips without a device. This file imports neither JAX nor the JAX package,
@@ -8,8 +9,11 @@ imports JAX, hence ``--noconftest``):
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Kernel and twin round every product and sum the same way (the kernel is
-built with ``--fmad=false`` and spells ``1.0f / sqrtf``), so records and
-float planes are asserted bitwise equal.
+built with ``--fmad=false`` and spells ``1.0f / sqrtf``), so int records,
+float planes and Planck energies are asserted bitwise equal. Float records
+(``rec_f``) are sums in another order (the kernel's fixed warp/block tree,
+``torch.sum`` in the twin): equal within rtol 1e-5 + atol 1e-6 * the
+column's largest value, and bitwise equal between two runs of the kernel.
 """
 
 import numpy as np
@@ -17,6 +21,7 @@ import pytest
 import torch
 
 from physicl_tpu_torch.ops import fused as F
+from physicl_tpu_torch.ops import planck as P
 
 pytestmark = pytest.mark.cuda
 
@@ -108,3 +113,104 @@ def test_kernel_refuses_bad_inputs(dev):
                           plan)
     with pytest.raises(ValueError, match="k_act"):
         F.fused_transport(packed, packed, sched, 0, 65, plan)
+
+
+K_B = 1.380649e-23
+
+
+def _planck_table(window=(0.1, 12.0)):
+    """The fit table of the chip_smoke window, built by the port's own
+    host math (no JAX on the card's machine)."""
+    import physicl_tpu_torch.light as light
+
+    kT = K_B * 5778.0
+    return P.icdf_table(light._planck_poly_data(window[0] * kT,
+                                                window[1] * kT, 5778.0,
+                                                2000))
+
+
+@pytest.mark.parametrize("window", [(0.1, 12.0), (0.1, 30.0)], ids=str)
+def test_planck_gen_matches_twin(dev, window):
+    table = _planck_table(window)
+    before = P.planck_gen.launches
+    got = P.planck_gen(99, 300_001, table, 1.0, dev)
+    want = P.planck_gen_reference(99, 300_001, table, 1.0, dev)
+    torch.cuda.synchronize()
+    assert P.planck_gen.launches == before + 1
+    assert torch.equal(got, want) or (
+        torch.equal(torch.isnan(got), torch.isnan(want))
+        and torch.equal(got.nan_to_num(), want.nan_to_num()))
+    scaled = P.planck_gen(99, 1000, table, 100.0, dev)
+    assert torch.equal(scaled, P.planck_gen_reference(99, 1000, table,
+                                                      100.0, dev))
+
+
+def _emit_plan(chunk, sampled, table):
+    """[emit(Planck or const), kin, iso, del, cross] with energy sums, or
+    [emit(const, directed), kin, cross(weighted)]."""
+    if sampled:
+        ops = [F._Op("emit", emit_n=1000, c_val=C_LIGHT, emit_table=table,
+                     emit_scale=1.0, emit_r=(1.0, 2.0, 3.0)),
+               F._Op("kin"),
+               F._Op("iso", coef=1e-7, c_val=C_LIGHT),
+               F._Op("del", coef=1e-8),
+               F._Op("cross", cols=(1,), axes=(
+                   (0, 3e5, 2, 0), (1, -3e5, 3, 1), (2, 1e5, 4, 2)))]
+        return F.FusedPlan(ops=ops, n_rec_cols=5, chunk=chunk,
+                           const_norm_speed=C_LIGHT, n_frec_cols=3)
+    ops = [F._Op("emit", emit_n=500, emit_E=2.0,
+                 emit_v=(0.0, C_LIGHT, 0.0)),
+           F._Op("kin"),
+           F._Op("cross", cols=(-1,), weighted=True,
+                 axes=((1, 3e5, 0, 1), (0, 3e5, 2, 3)))]
+    return F.FusedPlan(ops=ops, n_rec_cols=1, chunk=chunk, n_frec_cols=4)
+
+
+def _emit_schedule(dev, plan, C, first):
+    k = plan.chunk
+    starts = torch.full((1, k), -(2 ** 30), dtype=torch.int32)
+    n = plan.ops[0].emit_n
+    fits = min(k, (C - first) // n)
+    starts[0, :fits] = first + n * torch.arange(fits, dtype=torch.int32)
+    return starts.to(dev)
+
+
+def _close_f(got, want):
+    scale = want.abs().amax(dim=0, keepdim=True)
+    return bool(((got - want).abs() <= 1e-5 * want.abs()
+                 + 1e-6 * scale).all())
+
+
+@pytest.mark.parametrize("sampled", [True, False], ids=["planck", "const"])
+def test_emit_cross_plans_match_twin(dev, sampled):
+    packed, sched = _inputs(dev, seed=6)
+    packed[13, 40000:] = 0.0  # free slots for the emitter
+    plan = _emit_plan(64, sampled, _planck_table() if sampled else None)
+    starts = _emit_schedule(dev, plan, packed.shape[1], 40000)
+    out = torch.empty_like(packed)
+    rec, rec_f = F.fused_transport(packed, out, sched, 4242, 60, plan,
+                                   emit_starts=starts)
+    ref, ref_rec, ref_f = F.fused_chunk_reference(packed, sched, 4242, 60,
+                                                  plan, starts)
+    torch.cuda.synchronize()
+    assert torch.equal(rec, ref_rec)
+    assert torch.equal(out, ref)
+    assert _close_f(rec_f, ref_f)
+    assert rec_f[:60, :plan.n_frec_cols].abs().sum() > 0
+    assert (ref[13] > 0).sum() > (packed[13] > 0).sum()  # emitted
+
+
+def test_rec_f_is_deterministic(dev):
+    """Float records come from a fixed summation order: two runs of the
+    same chunk agree bitwise."""
+    packed, sched = _inputs(dev, C=1 << 18, seed=8)
+    plan = _emit_plan(64, True, _planck_table())
+    starts = _emit_schedule(dev, plan, packed.shape[1], 1 << 17)
+    packed[13, 1 << 17:] = 0.0
+    runs = [F.fused_transport(packed, torch.empty_like(packed), sched, 5,
+                              64, plan, emit_starts=starts)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for rec, rec_f in runs[1:]:
+        assert torch.equal(rec, runs[0][0])
+        assert torch.equal(rec_f, runs[0][1])

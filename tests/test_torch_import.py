@@ -8,6 +8,7 @@ small CPU run through the public API.
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -45,6 +46,68 @@ def test_import_and_run_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+_BLOCKED_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["physicl_tpu"] = None
+import physicl_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(physicl_tpu_torch.__path__,
+                                               "physicl_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(" ".join(sorted(names)))
+"""
+
+
+def test_every_module_imports_with_jax_blocked():
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT_ALL],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    names = set(res.stdout.split())
+    on_disk = {os.path.relpath(p, REPO)[:-3].replace(os.sep, ".")
+               for p in _port_sources() if p.startswith(PKG)}
+    on_disk = {n[:-len(".__init__")] if n.endswith(".__init__") else n
+               for n in on_disk} - {"physicl_tpu_torch"}
+    assert on_disk <= names, on_disk - names
+
+
+def _port_files():
+    return sorted(os.path.join(root, f) for root, _, files in os.walk(PKG)
+                  for f in files
+                  if f.endswith((".py", ".cu", ".cuh", ".cpp", ".h")))
+
+
+# a path component "physicl_tpu" (the JAX package's directory)
+_JAX_TREE = re.compile(r"(^|[/\\])physicl_tpu([/\\]|$)")
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_path_into_the_jax_tree(path):
+    """The port keeps its own copy of whatever it needs from the JAX tree:
+    no code string (docstrings and comments may cite the kernel a file
+    replaces) and no ``#include`` names a path inside ``physicl_tpu/``."""
+    text = open(path).read()
+    if not path.endswith(".py"):
+        for line in text.splitlines():
+            if line.lstrip().startswith("#include"):
+                assert "physicl_tpu/" not in line, line
+        return
+    tree = ast.parse(text, path)
+    docstrings = {id(node.body[0].value) for node in ast.walk(tree)
+                  if isinstance(node, (ast.Module, ast.ClassDef,
+                                       ast.FunctionDef,
+                                       ast.AsyncFunctionDef))
+                  and node.body and isinstance(node.body[0], ast.Expr)
+                  and isinstance(node.body[0].value, ast.Constant)}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docstrings):
+            assert not _JAX_TREE.search(node.value), (
+                f"{path}:{node.lineno} names {node.value!r}")
 
 
 def _port_sources():

@@ -1,0 +1,141 @@
+"""Plane-crossing tallies (``ScatterMeasureStep``): the PyTorch port against
+the JAX package on the CPU, through both packages' fused tiers.
+
+Crossing counts are integer records and the ``data`` rows that carry only
+counts are exactly equal; weight sums and energy sums are float records,
+summed in another order by each package (XLA's reduction, ``torch.sum``;
+on the card, a fixed warp/block tree), so they are held to rtol 1e-5.
+"""
+
+import numpy as np
+import pytest
+
+import physicl_tpu as J
+import physicl_tpu.light  # noqa: F401
+import physicl_tpu.newton  # noqa: F401
+import physicl_tpu_torch as T
+import physicl_tpu_torch.light  # noqa: F401
+import physicl_tpu_torch.newton  # noqa: F401
+from physicl_tpu_torch.ops.pipeline import FusedRefusal
+
+RTOL = 1e-5
+
+
+def _sim(P, t_end, n=100, E=2.5, v=None, r=None, w=None, steps=(), **kw):
+    if P is T:
+        kw["device"] = "cpu"
+    s = P.Simulation(exit=lambda c: c.t >= t_end, seed=4, **kw)
+    s.add_step(0, P.UpdateTimeStep(lambda x: np.double(0.001)))
+    s.add_step(1, P.newton.NewtonianKinematicsStep())
+    for i, st in enumerate(steps, start=2):
+        s.add_step(i, st)
+    s.add_photons(P.light.generate_photon_state(n, E=E, v=v, r=r, w=w))
+    return s
+
+
+def _run_both(make):
+    out = []
+    for P in (J, T):
+        s, meas = make(P)
+        s.start()
+        s.join()
+        assert s.used_fused
+        out.append((s, meas))
+    return out
+
+
+def test_plane_crossing_exact(tmp_path):
+    """tests/test_measure.py:22 on both packages; the CSVs are identical."""
+    def make(P):
+        c_dt = float(P.light.c) * 0.001
+        out = str(tmp_path / f"{P.__name__}.csv")
+        meas = P.light.ScatterMeasureStep(out, True,
+                                          [[2.5 * c_dt, np.nan, np.nan]])
+        return _sim(P, 0.005, steps=[meas]), meas
+
+    (js, jm), (ts, tm) = _run_both(make)
+    assert [list(r) for r in tm.data] == [list(r) for r in jm.data]
+    assert [r[2] for r in tm.data] == [0, 0, 100, 0, 0]
+    assert [r[1] for r in tm.data] == [100] * 5
+    assert ((tmp_path / "physicl_tpu_torch.csv").read_bytes()
+            == (tmp_path / "physicl_tpu.csv").read_bytes())
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2], ids=["x", "y", "z"])
+def test_plane_crossing_each_axis(axis):
+    """tests/test_measure.py:36 on every axis, without the n column."""
+    def make(P):
+        c = float(P.light.c)
+        v = np.zeros((3, 1))
+        v[axis, 0] = c
+        loc = [np.nan] * 3
+        loc[axis] = 1.5 * c * 0.001
+        meas = P.light.ScatterMeasureStep(None, False, [loc])
+        return _sim(P, 0.003, n=50, E=1.0, v=v, steps=[meas]), meas
+
+    (_, jm), (_, tm) = _run_both(make)
+    assert [list(r) for r in tm.data] == [list(r) for r in jm.data]
+    assert [r[1] for r in tm.data] == [0, 50, 0]
+
+
+def test_energy_sum_mode():
+    """tests/test_measure.py:158: 10 photons of E = 2.5 cross once."""
+    def make(P):
+        c_dt = float(P.light.c) * 0.001
+        meas = P.light.ScatterMeasureStep(
+            None, True, [[1.5 * c_dt, np.nan, np.nan]], measure_E=True,
+            measure_E_mode="sum")
+        return _sim(P, 0.003, n=10, steps=[meas]), meas
+
+    (_, jm), (_, tm) = _run_both(make)
+    rows = [(float(r[0]), int(r[1]), int(r[2]), float(r[3]))
+            for r in tm.data]
+    assert rows == [(float(r[0]), int(r[1]), int(r[2]), float(r[3]))
+                    for r in jm.data]
+    assert rows[1][2] == 10 and rows[1][3] == 25.0
+    assert rows[0][3] == 0.0 and rows[2][3] == 0.0
+
+
+@pytest.mark.parametrize("weighted", [False, True],
+                         ids=["counts", "weighted"])
+def test_scattered_beam_tallies(weighted):
+    """A scattering population with spread energies and weights through
+    planes on three axes: counts exact, weight and energy sums within
+    rtol 1e-5 of the JAX package's."""
+    rng = np.random.default_rng(11)
+    n = 4000
+    E = rng.uniform(0.5, 2.0, n)
+    w = rng.uniform(0.2, 1.0, n)
+
+    def make(P):
+        c_dt = float(P.light.c) * 0.001
+        meas = P.light.ScatterMeasureStep(
+            None, True, [[2.5 * c_dt, np.nan, np.nan],
+                         [np.nan, -0.5 * c_dt, np.nan],
+                         [np.nan, np.nan, 0.5 * c_dt]],
+            measure_E=True, measure_E_mode="sum", weighted=weighted)
+        iso = P.light.ScatterIsotropicStep(A=np.double(0.5),
+                                           n=np.double(1e-5))
+        return _sim(P, 0.03, n=n, E=E, w=w, steps=[iso, meas],
+                    chunk_steps=16), meas
+
+    (_, jm), (_, tm) = _run_both(make)
+    got, want = np.asarray(tm.data), np.asarray(jm.data)
+    assert got.shape == want.shape == (30, 2 + 2 * 3)
+    np.testing.assert_array_equal(got[:, :2], want[:, :2])  # t, n
+    counts, esums = slice(2, None, 2), slice(3, None, 2)
+    if weighted:
+        np.testing.assert_allclose(got[:, counts], want[:, counts],
+                                   rtol=RTOL)
+    else:
+        np.testing.assert_array_equal(got[:, counts], want[:, counts])
+    np.testing.assert_allclose(got[:, esums], want[:, esums], rtol=RTOL)
+    assert got[:, counts].sum(axis=0).min() > 0  # every plane was crossed
+
+
+def test_energy_list_mode_refuses():
+    s = _sim(T, 0.003, steps=[T.light.ScatterMeasureStep(
+        None, True, [[1.0, np.nan, np.nan]], measure_E=True)])
+    assert "refused [measure-E-list]" in s.explain_plan()
+    with pytest.raises(FusedRefusal, match="measure-E-list"):
+        s._run_impl()
