@@ -27,42 +27,71 @@ Phases (any failure exits non-zero and prints no result line):
    scattering, two crossing planes with energy sums, emission stopping at
    capacity inside the chunk, record tiles above the 48 KB default shared
    memory), held as in phase 3; prints the grid of both record-tile sizes;
-5. ``planck_gen`` vs twin at 10**7 samples: bitwise equal; quantiles and
+5. ``fused_transport`` vs twin on four media plans at 2**20 slots and 256
+   iterations over 64**3 grids (trilinear voxel n(r) with implicit capture,
+   roulette, deposition, the absorbing box and a weighted sign tally;
+   nearest voxel with analog absorption and deposition; layered r and z;
+   C-expression n(r) with exp/pow/fmin and an A(E) expression): int records
+   equal, planes bitwise (so torch's CUDA exp and pow agree with the
+   kernel's expf and powf), rec_f as in phase 3;
+6. ``fused_transport`` vs twin on the media path's first chunk, as its
+   provider hands it over (10**7 photons, 1024 iterations, the 256**3
+   continuous phantom, 104 KB record tiles), held as in phase 5; prints the
+   grid;
+7. ``planck_gen`` vs twin at 10**7 samples: bitwise equal; quantiles and
    mean against the analytic CDF of the window; times both;
-6. main path: 10**7 photons through ``Simulation`` (the ``bench.py``
+8. main path: 10**7 photons through ``Simulation`` (the ``bench.py``
    steps, chunk_steps=1024, a t-exit of 5000 iterations): checks that the
    run went through the kernel, the +x-share law 0.5 + 0.5 (1 - p)**k and
    finite state, and prints photon-steps/s over the dispatch loop after the
    first chunk, on the device's clock, and over the whole run from
    ``start()``, set-up included;
-7. absorption: plain ``ScatterDeleteStep`` with an extinction exit at
+9. absorption: plain ``ScatterDeleteStep`` with an extinction exit at
    2**20 photons: the alive count follows N (1 - p)**k within 5 binomial
    sigma and the run ends;
-8. Planck source path: 10**7 initial photons from ``sample_device`` and
-   ``generate_photon_state(device="cuda")`` in a 2**24-slot arena, a
-   ``PhotonEmitterStep(8192, E=PlanckSampler, isotropic=True)``,
-   wavelength-dependent isotropic scattering, plain absorption and
-   plane-crossing energy tallies at +-L, 4096 iterations in chunks of 1024:
-   emission stops at capacity in chunk 0 and recycling fires before chunk
-   1; the alive count of the last chunk within 3% of N* = 8192 (1-p)/p, the
-   alive spectrum within 5% of the Planck density, tallies finite and
-   bitwise equal in a second run with the same seed; prints the rates, the
-   set-up time, the device idle share between the first and the last
-   kernel (recycling included, from a torch.profiler trace that must hold
-   the kernels) and the peak memory;
-9. card against CPU: two small ``Simulation``s on the card and on the CPU,
-   where they run the plain twins: an absorption and scattering run
-   (2**16 photons, a t-exit right after the second 64-iteration chunk) and
-   an emitter run with Planck energies, plane tallies and recycling
-   (chunk_steps=32, a 16384-slot arena): equal ``sim.ts``, int records,
-   spawn marks and recycling events, float records and final states
-   within the tolerances above.
+10. Planck source path: 10**7 initial photons from ``sample_device`` and
+    ``generate_photon_state(device="cuda")`` in a 2**24-slot arena, a
+    ``PhotonEmitterStep(8192, E=PlanckSampler, isotropic=True)``,
+    wavelength-dependent isotropic scattering, plain absorption and
+    plane-crossing energy tallies at +-L, 4096 iterations in chunks of
+    1024: emission stops at capacity in chunk 0 and recycling fires before
+    chunk 1; the alive count of the last chunk within 3% of N* = 8192
+    (1-p)/p, the alive spectrum within 5% of the Planck density, tallies
+    finite and bitwise equal in a second run with the same seed; prints the
+    rates, the set-up time, the device idle share between the first and
+    the last kernel (recycling included, from a torch.profiler trace that
+    must hold the kernels) and the peak memory;
+11. exact Beer-Lambert: the media path's beam and phantom under implicit
+    capture alone for 1020 iterations (every photon inside the coverage):
+    4096 photons' weights equal the host's float64 product of 1 - p over
+    their samples (positions replayed in float32 as the kernel moves them)
+    within 2 K 2**-24, and deposits plus the in-flight sum of w E equal
+    N E within (2 K + the records' longest summation chain) 2**-24;
+12. media path: 10**7 photons through ``Simulation`` (scattering and
+    implicit-capture absorption sharing the phantom, roulette, deposition,
+    the absorbing box, a weighted far-face tally with energy sums; 2048
+    iterations in chunks of 1024), run twice: tallies finite, weights in
+    (0, 1] and above the roulette floor, bitwise equal in the second run;
+    prints the rates, set-up (the grid upload included), peak memory, the
+    device idle share (profiled second run) and the kernel's time per
+    chunk against its bound;
+13. card against CPU: small ``Simulation``s on the card and on the CPU,
+    where they run the plain twins: an absorption and scattering run
+    (2**16 photons, a t-exit right after the second 64-iteration chunk),
+    an emitter run with Planck energies, plane tallies and recycling
+    (chunk_steps=32, a 16384-slot arena), and a media run (2**16 photons,
+    a 32**3 trilinear phantom for scattering, a layered field for
+    implicit-capture absorption with roulette): equal ``sim.ts``, int
+    records, spawn marks and recycling events, float records and final
+    states within the tolerances above.
 
 The line before the last two is a JSON object describing each kernel on
-each path: ``fused_transport`` once for the main path and once for the
-Planck source path, each with its path's launch count and the times and
-bound at that path's own shape and plan, and ``planck_gen`` for the Planck
-source path. The last line is ``{"ok": true, "device": {...}}``.
+each path: ``fused_transport`` once each for the main path, the Planck
+source path and the media path, each with its path's launch count and the
+times and bound at that path's own shape and plan (the bound counts the
+fields' corner reads as loads at the load/store issue rate), and
+``planck_gen`` for the Planck source path. The last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 import ctypes
@@ -85,6 +114,8 @@ RTOL_F = 1e-5
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 128 * 132 * 1.98e9
 PEAK_I32 = 64 * 132 * 1.98e9
+# load/store issue: 32 lanes per SM and clock (four 8-lane units)
+PEAK_LD = 32 * 132 * 1.98e9
 
 # Lane-operations per photon-iteration, counted from the kernel source
 # (csrc/fused_transport.cu) for the const-norm path: (float32, int32). The
@@ -113,7 +144,44 @@ OPS_PER_ITER = {
     # per energy sum: select 1, shuffle tree 5 adds; 5 shuffles, column
     # test 1, lane test 2
     "esum": (6, 5 + 1 + 2),
+    # a weighted plane: the plane test, then a weight sum ("esum") where
+    # the count was
+    "plane_w": (5 + 6, 4 + 3 + 2 + 5 + 1 + 2),
+    # weighted sign: three selects and weight sums where the counts were
+    "sign_w": (3 + 3 * 6, 3 * 8 + 3),
+    # absorbing box: six compares, alive logic 6, alive select 1
+    "absorb": (7, 6),
+    # implicit capture on top of "del" without its draw: clip 2, w update 2
+    # and select 1; the draw's hash and test come off
+    "capture": (5 - 3, 3 - 16),
+    # deposition tally: product(s) 2 and select 1, a weight sum ("esum")
+    "dep": (3 + 6, 8),
+    # roulette: uniform 2, two compares, product 1, selects 2; hash 16,
+    # logic 4
+    "roulette": (6, 16 + 4),
+    # a field read through a pointer: the kind and index tests
+    "field": (0, 4),
+    # voxel, trilinear: 3 subtractions, 3 divides (8 each), 6 inside
+    # compares, 3 floors, 6 clamps, 3 converts, 3 clips (2 each), 3 (1 - t),
+    # 8 x (3 products and 1 sum), the outside select; index 4, 8 corner
+    # addresses 3 each, 3 converts back
+    "voxel_tri": (3 + 24 + 6 + 3 + 6 + 3 + 6 + 3 + 32 + 1, 4 + 24 + 3),
+    # voxel, nearest: 3 subtractions, 3 divides, 6 compares, 3 rints, 6
+    # clamps, 3 converts, the select; index 4
+    "voxel_near": (3 + 24 + 6 + 3 + 6 + 3 + 1, 4),
+    # layered: the radius (3 subtractions, 5 for the square sum, sqrt 8) or
+    # an axis select, two range tests and NaN test 3; bisection per level
+    # 1 compare, 4 integer operations
+    "layered_r": (16 + 3, 4),
+    "layered_axis": (3, 4),
+    "layered_level": (1, 4),
+    # one postfix instruction: the load, dispatch and stack move (integer),
+    # the operation (float; a transcendental counted as 20)
+    "ins": (1, 8),
+    "ins_transcendental": (20, 8),
 }
+# lane-loads per field read (gathers, at the SM's load/store issue rate)
+LOADS_PER_FIELD = {"voxel_tri": 8, "voxel_near": 1, "layered": 2}
 # planck_gen per sample: uniform 2, range test 2, half 2, x (sub + divide)
 # 9, Horner 14, clip 4; hash 16, slot term 5, loop 3, five bisection steps
 # of 5 and the table address 5
@@ -131,35 +199,105 @@ PLANCK_DT = 1e-3
 PLANCK_P_DEL = 2e-3      # absorption per iteration
 SPECTRUM_TOL = 0.05      # alive spectrum against the Planck density
 
+MEDIA_N = 10_000_000     # photons of the media path (bench.py's width)
+MEDIA_NV = 256           # voxels per side of the CT-scale phantom
+MEDIA_DT = 1e-3
+MEDIA_ITERS = 2048       # two chunks of 1024
+MEDIA_AS = 0.01          # A_s c dt: ~10-30 scatters across the phantom
+MEDIA_AA = 0.002         # A_a c dt: transmitted weight ~e^-2 at n = 1
+MEDIA_ROULETTE = (0.1, 0.5)
+BL_ITERS = 1020          # Beer-Lambert: every photon stays in the coverage
+BL_CHECKED = 4096        # photons whose weight the host recomputes
+
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
-def bound(n_bytes, f32_ops, i32_ops):
-    """Least time in ms the card could take: the larger of the bytes over
-    the memory rate and the operations over their issue rate (float32 and
-    int32 issue from separate pipes, so each type bounds alone)."""
-    t_bytes = n_bytes / PEAK_BYTES
-    t_ops = max(f32_ops / PEAK_F32, i32_ops / PEAK_I32)
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+def bound_terms(n_bytes, f32_ops, i32_ops, loads=0):
+    """The least time in ms each resource alone would take: the bytes over
+    the memory rate, and the float32, int32 and load/store instructions
+    over their issue rates (separate pipes, so each type bounds alone)."""
+    return {"bytes": n_bytes / PEAK_BYTES * 1e3,
+            "f32": f32_ops / PEAK_F32 * 1e3,
+            "i32": i32_ops / PEAK_I32 * 1e3,
+            "loads": loads / PEAK_LD * 1e3}
+
+
+def bound(n_bytes, f32_ops, i32_ops, loads=0):
+    """Least time in ms the card could take: the largest of bound_terms,
+    and whether bytes or operations set it."""
+    terms = bound_terms(n_bytes, f32_ops, i32_ops, loads)
+    top = max(terms, key=terms.get)
+    return terms[top], "bytes" if top == "bytes" else "operations"
+
+
+def field_cost(fn):
+    """(per-iteration (float32, int32) counts, lane-loads) of one read of a
+    field callable, from its spec."""
+    spec = fn.spec
+    if spec["kind"] == "voxel":
+        key = "voxel_tri" if spec["interp"] == "trilinear" else "voxel_near"
+        return [OPS_PER_ITER["field"], OPS_PER_ITER[key]], \
+            LOADS_PER_FIELD[key]
+    if spec["kind"] == "layered":
+        levels = int(np.ceil(np.log2(max(2, len(spec["values"])))))
+        per = [OPS_PER_ITER["field"],
+               OPS_PER_ITER["layered_r" if spec["axis"] == 3
+                            else "layered_axis"]]
+        per += [OPS_PER_ITER["layered_level"]] * levels
+        return per, LOADS_PER_FIELD["layered"] + levels
+    per = [OPS_PER_ITER["field"]]
+    for code, _ in spec["prog"]:
+        per.append(OPS_PER_ITER["ins_transcendental" if code in (7, 13, 14,
+                                                                 15, 16, 17,
+                                                                 18)
+                                else "ins"])
+    return per, 0
 
 
 def transport_bound(plan, slots, k_act, starts):
-    """bound() of one fused_transport launch of ``plan``: 2 x 60 B per slot,
-    and the lane-operations of its ops over slots x k_act slot-iterations
-    plus the once-per-photon work of the emissions ``starts`` schedules."""
+    """bound() of one fused_transport launch of ``plan``."""
+    return bound(*transport_counts(plan, slots, k_act, starts))
+
+
+def transport_counts(plan, slots, k_act, starts):
+    """(bytes, float32 ops, int32 ops, lane-loads) of one fused_transport
+    launch of ``plan``: 2 x 60 B per slot plus each voxel grid read once,
+    the lane-operations of its ops over slots x k_act slot-iterations plus
+    the once-per-photon work of the emissions ``starts`` schedules, and the
+    fields' gathers as lane-loads at the load/store issue rate."""
     per, once = [OPS_PER_ITER["loop"], OPS_PER_ITER["col0"]], []
+    loads, grids = 0, {}
     for op in plan.ops:
+        for fn in (op.n_fn, op.a_fn):
+            if fn is not None:
+                cost, ld = field_cost(fn)
+                per += cost
+                loads += ld
+                if fn.spec["kind"] == "voxel":
+                    grids[id(fn.spec)] = 4 * fn.spec["flat"].size
         if op.kind == "iso":
             per.append(OPS_PER_ITER["iso" if op.wl_base is None
                                     else "iso_wl"])
+        elif op.kind == "del":
+            per.append(OPS_PER_ITER["del"])
+            if op.implicit_capture:
+                per.append(OPS_PER_ITER["capture"])
+                if op.roulette:
+                    per.append(OPS_PER_ITER["roulette"])
+            if op.cols:
+                per.append(OPS_PER_ITER["dep"])
+        elif op.kind == "sign":
+            per.append(OPS_PER_ITER["sign_w" if op.weighted else "sign"])
         elif op.kind == "emit":
             per.append(OPS_PER_ITER["emit"])
             row = starts[op.emit_row, :k_act]
@@ -169,18 +307,19 @@ def transport_bound(plan, slots, k_act, starts):
             if op.emit_v is None:
                 once.append((OPS_PER_EMITTED["dir"], n))
         elif op.kind == "cross":
-            check(not op.weighted, "no operation count for weighted planes")
             if op.cols[0] >= 0:
                 per.append(OPS_PER_ITER["col0"])
             for axis in op.axes:
-                per.append(OPS_PER_ITER["plane"])
+                per.append(OPS_PER_ITER["plane_w" if op.weighted
+                                        else "plane"])
                 if axis[3] >= 0:
                     per.append(OPS_PER_ITER["esum"])
         else:
             per.append(OPS_PER_ITER[op.kind])
     ops = [sum(p[j] for p in per) * slots * k_act
            + sum(o[j] * n for o, n in once) for j in (0, 1)]
-    return bound(2 * 60 * slots, *ops)
+    return (2 * 60 * slots + sum(grids.values()), *ops,
+            loads * slots * k_act)
 
 
 def random_packed(C, seed):
@@ -285,14 +424,15 @@ def main():
 
     seed = 123_456_789
     # largest plane difference from the twin, per path
-    err = {"main": 0.0, "planck": 0.0, "planck_gen": 0.0}
+    err = {"main": 0.0, "planck": 0.0, "planck_gen": 0.0, "media": 0.0}
     a_E, b_E = planck_window()
     sampler = light.PlanckSampler(a_E, b_E, T_SUN, bins=2000)
 
     def compare(name, packed, sched, K, plan, starts=None, path="main",
-                seed=seed):
+                seed=seed, need_bitwise=False):
         """Kernel (out of place, in place, and once more for rec_f) against
-        the twin on the same inputs; returns the twin's time in ms."""
+        the twin on the same inputs; returns the twin's time in ms.
+        ``need_bitwise``: the planes must equal the twin's bitwise."""
         out = torch.empty_like(packed)
         rec, rec_f = F.fused_transport(packed, out, sched, seed, K, plan,
                                        emit_starts=starts)
@@ -313,6 +453,8 @@ def main():
               f"tolerance (kernel {rec_f[:2, :4].tolist()} twin "
               f"{ref_f[:2, :4].tolist()})")
         bitwise = torch.equal(out, ref)
+        check(bitwise or not need_bitwise, f"{name}: planes not bitwise "
+              "equal to the twin's")
         del ref
         inplace = packed.clone()
         rec2, rec_f2 = F.fused_transport(inplace, inplace, sched, seed, K,
@@ -426,7 +568,7 @@ def main():
         g = ctypes.c_int(0)
         _build.check(lib.fused_transport_grid(
             packed.shape[1], kk, plan_p.n_rec_cols, plan_p.n_frec_cols,
-            ctypes.byref(g)), "occupancy query")
+            int(plan_p.has_fields), ctypes.byref(g)), "occupancy query")
         grids[kk] = g.value
     n_starts = int((starts_p[0, :k_p] > -(2 ** 30)).sum())
     print(f"Planck chunk 0: {packed.shape[1]} slots x {k_p} iterations, ops "
@@ -452,6 +594,94 @@ def main():
           f"{pft['plain_ms']:.1f} ms, bound {pft['bound_ms']:.2f} ms "
           f"({pft['bound_by']}) per chunk [{card}]", flush=True)
     del packed, out, sched_p, starts_p
+
+    phase("fused_transport vs twin on the media plans (2**20 slots, 256 "
+          "iterations, 64**3 grids)")
+    S_vox = 4 * C_LIGHT * MEDIA_DT
+    mpk = torch.from_numpy(media_packed(1 << 20, S_vox, 64, 4)).to(dev)
+    for name, plan in media_plans(F, light, K, S_vox, 64).items():
+        plain_ms = compare(name, mpk, sched, K, plan, None, "media",
+                           need_bitwise=True)
+        out = torch.empty_like(mpk)
+        F.fused_transport(mpk, out, sched, seed, K, plan)
+        ms = cuda_ms(lambda: F.fused_transport(mpk, out, sched, seed, K,
+                                               plan), 5, torch)
+        times[name] = ms
+        print(f"{name} at 2**20 x {K}: kernel {ms:.3f} ms, twin "
+              f"{plain_ms:.3f} ms per chunk [{card}]", flush=True)
+    print("media-expr: planes bitwise equal to the twin on the card, so "
+          "torch's CUDA exp and pow agree bitwise with the kernel's expf and "
+          "powf on these inputs", flush=True)
+    # the launcher's choice of instantiation: [kin, iso, sign] as is, and
+    # with a constant n(r) = 1 field (same results, the field
+    # instantiation), timed in turns
+    bare = plan_of(("kin", "iso", "sign"), K)
+    unit = F.FusedPlan(ops=[
+        F._Op("kin"), F._Op("iso", coef=1e-6, c_val=C_LIGHT,
+                            n_fn=light._compile_variable_n("1.0")),
+        F._Op("sign", cols=(1, 2))], n_rec_cols=5, chunk=K,
+        const_norm_speed=C_LIGHT)
+    outs = [torch.empty_like(mpk) for _ in range(2)]
+    recs = [F.fused_transport(mpk, o, sched, seed, K, p)[0]
+            for o, p in zip(outs, (bare, unit))]
+    torch.cuda.synchronize()
+    check(torch.equal(recs[0], recs[1]) and torch.equal(*outs),
+          "the field instantiation changed a field-free result")
+    turns = {"without": [], "with": []}
+    for name, p in (("without", bare), ("with", unit), ("with", unit),
+                    ("without", bare)):
+        turns[name].append(cuda_ms(lambda: F.fused_transport(
+            mpk, outs[0], sched, seed, K, p), 5, torch))
+    print("kin-iso-sign at 2**20 x 256 through the instantiation without "
+          f"fields: {turns['without'][0]:.3f}, {turns['without'][1]:.3f} ms; "
+          f"with an n(r) = 1 field: {turns['with'][0]:.3f}, "
+          f"{turns['with'][1]:.3f} ms (equal results) [{card}]", flush=True)
+    del mpk, out, outs
+
+    phase("fused_transport vs twin on the media path's first chunk")
+    t0 = time.perf_counter()
+    grid_m = media_grid(MEDIA_NV, 21)
+    n_distinct = int(np.unique(grid_m).size)
+    check(n_distinct > 256 and grid_m.min() >= 0.5 and grid_m.max() <= 3.0,
+          f"phantom: {n_distinct} distinct values in [{grid_m.min()}, "
+          f"{grid_m.max()}]")
+    print(f"phantom: {MEDIA_NV}**3 float32 ({grid_m.nbytes / 2 ** 20:.0f} "
+          f"MiB), {n_distinct} distinct values in [{grid_m.min():.3f}, "
+          f"{grid_m.max():.3f}], built in {time.perf_counter() - t0:.1f} s")
+    sim_m, *_ = media_sim(phys, grid_m, dev)
+    packed, sched_m, seed_m, k_m, plan_m, _ = first_chunk_inputs(sim_m, F)
+    del sim_m
+    tile_m = k_m * (plan_m.n_rec_cols + plan_m.n_frec_cols * 8) * 4
+    g = ctypes.c_int(0)
+    _build.check(lib.fused_transport_grid(
+        packed.shape[1], k_m, plan_m.n_rec_cols, plan_m.n_frec_cols,
+        int(plan_m.has_fields), ctypes.byref(g)), "occupancy query")
+    grid_blocks_m = g.value
+    print(f"media chunk 0: {packed.shape[1]} slots x {k_m} iterations, ops "
+          f"{[op.kind for op in plan_m.ops]}, {plan_m.n_rec_cols} int + "
+          f"{plan_m.n_frec_cols} float record columns = {tile_m} B of record "
+          f"tiles per block; grid {grid_blocks_m} blocks "
+          f"({grid_blocks_m / 132:.2f} per SM)", flush=True)
+    check(tile_m > 48 * 1024 and plan_m.has_fields
+          and [op.kind for op in plan_m.ops]
+          == ["kin", "iso", "del", "absorb", "cross"],
+          "the media chunk no longer covers the path's plan and the "
+          "large-tile launch")
+    mft = {"plain_ms": compare("media-chunk-0", packed, sched_m, k_m, plan_m,
+                               None, "media", seed_m, need_bitwise=True)}
+    out = torch.empty_like(packed)
+    mft["ms"] = cuda_ms(lambda: F.fused_transport(
+        packed, out, sched_m, seed_m, k_m, plan_m), 3, torch)
+    mft["bound_ms"], mft["bound_by"] = transport_bound(
+        plan_m, packed.shape[1], k_m, None)
+    terms = bound_terms(*transport_counts(plan_m, packed.shape[1], k_m,
+                                          None))
+    print(f"media-chunk-0: kernel {mft['ms']:.2f} ms, twin "
+          f"{mft['plain_ms']:.1f} ms, bound {mft['bound_ms']:.2f} ms "
+          f"({mft['bound_by']}; ms per term: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in terms.items())
+          + f") per chunk [{card}]", flush=True)
+    del packed, out, sched_m
 
     phase("planck_gen vs twin (10**7 samples)")
     n_gen = 10_000_000
@@ -568,7 +798,10 @@ def main():
     del sim
 
     planck = planck_path(torch, phys, F, P, sampler, dev, card)
+    beer_lambert(torch, phys, grid_m, dev, card, grid_blocks_m)
+    media = media_path(torch, phys, F, grid_m, dev, card, mft)
     card_vs_cpu(torch, phys, F, sampler, err)
+    media_card_vs_cpu(torch, phys, F, err)
 
     ft_src = {"name": "fused_transport", "route": "cuda",
               "source": "physicl_tpu_torch/csrc/fused_transport.cu",
@@ -578,6 +811,8 @@ def main():
          "max_abs_err": err["main"], **ft, "library_ms": None},
         {**ft_src, "path": "planck", "launches": planck["fused_launches"],
          "max_abs_err": err["planck"], **pft, "library_ms": None},
+        {**ft_src, "path": "media", "launches": media["fused_launches"],
+         "max_abs_err": err["media"], **mft, "library_ms": None},
         {"name": "planck_gen", "route": "cuda",
          "source": "physicl_tpu_torch/csrc/planck_gen.cu",
          "replaces": "physicl_tpu/light.py:332", "path": "planck",
@@ -641,15 +876,21 @@ def planck_sim(phys, sampler, bulk, dev):
 
 def planck_chunk_inputs(phys, F, sampler, dev):
     """The arguments the Planck source path's provider hands the kernel for
-    its first chunk, ``(packed, sched, seed, k_act, plan, emit_starts)``:
-    the path's ``Simulation`` is planned as ``start()`` plans it and its
-    first chunk dispatched once, with ``fused_chunk`` wrapped to record its
-    inputs (the dispatch leaves them unchanged: it writes a fresh buffer)."""
+    its first chunk (``first_chunk_inputs``)."""
     light = phys.light
     E0 = sampler.sample_device(7, PLANCK_N0, device=dev)
     sim, _ = planck_sim(phys, sampler, light.generate_photon_state(
         PLANCK_N0, E=E0, device=dev), dev)
     del E0
+    return first_chunk_inputs(sim, F)
+
+
+def first_chunk_inputs(sim, F):
+    """The arguments a path's provider hands the kernel for its first chunk,
+    ``(packed, sched, seed, k_act, plan, emit_starts)``: the path's
+    ``Simulation`` is planned as ``start()`` plans it and its first chunk
+    dispatched once, with ``fused_chunk`` wrapped to record its inputs (the
+    dispatch leaves them unchanged: it writes a fresh buffer)."""
     state = sim._init_run_state()
     steps = sim._ordered_steps()
     for s in steps:
@@ -671,6 +912,346 @@ def planck_chunk_inputs(phys, F, sampler, dev):
         F.fused_chunk = launch
     check(len(seen) == 1, f"{len(seen)} launches for one chunk")
     return seen[0]
+
+
+def media_grid(n, seed):
+    """The CT-scale phantom: a smooth continuous float32 density in [0.5,
+    3] (a background of 0.5, five Gaussian blobs and a dense rod along z),
+    from ``seed``."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0.0, 1.0, n, dtype=np.float32)
+    g = np.full((n, n, n), 0.5, np.float32)
+    for _ in range(5):
+        c = rng.uniform(0.2, 0.8, 3)
+        sig, a = rng.uniform(0.06, 0.15), rng.uniform(0.5, 1.5)
+        e = [np.exp(-(x - ci) ** 2 / (2 * sig ** 2)).astype(np.float32)
+             for ci in c]
+        g += np.float32(a) * e[0][:, None, None] * e[1][None, :, None] \
+            * e[2][None, None, :]
+    rod = np.exp(-((x[:, None] - 0.6) ** 2 + (x[None, :] - 0.4) ** 2)
+                 / (2 * 0.03 ** 2)).astype(np.float32)
+    g += np.float32(1.5) * rod[:, :, None]
+    np.clip(g, 0.5, 3.0, out=g)
+    return g
+
+
+def media_sim(phys, grid, dev, n=None, iters=None, scatter=True,
+              roulette=MEDIA_ROULETTE, seed=13, chunk=None, del_fn=None,
+              sign=False):
+    """The media path's ``Simulation``: a +x beam at c from x = -0.75 voxel,
+    y and z uniform over the grid's face, through ``voxel_density(grid,
+    spacing=4 c dt, interp="trilinear")``: UpdateTime, kinematics,
+    isotropic scattering and implicit-capture absorption sharing the field
+    (roulette, deposition), the absorbing box one voxel outside the
+    coverage, and a weighted far-face tally with energy sums; ``del_fn``
+    gives absorption another field, ``sign`` adds a weighted sign tally.
+    Returns ``(sim, delete step, far-face tally, sign tally or None,
+    field)``."""
+    import torch
+
+    n = MEDIA_N if n is None else n
+    iters = MEDIA_ITERS if iters is None else iters
+    light = phys.light
+    c_dt = float(light.c) * MEDIA_DT
+    sp = 4 * c_dt
+    nv = grid.shape[0]
+    nfn = light.voxel_density(grid, spacing=sp, interp="trilinear")
+    sim = phys.Simulation(until_t=(iters - 0.5) * MEDIA_DT, seed=seed,
+                          chunk_steps=chunk, device=dev)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(MEDIA_DT)))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    if scatter:
+        sim.add_step(2, light.ScatterIsotropicStep(
+            A=MEDIA_AS / c_dt, variable_n=True, variable_n_fn=nfn))
+    dele = light.ScatterDeleteStep(
+        1.0, MEDIA_AA / c_dt, variable_n=True,
+        variable_n_fn=nfn if del_fn is None else del_fn,
+        implicit_capture=True, roulette=roulette, measure_deposition=True)
+    sim.add_step(3, dele)
+    if scatter:
+        sim.add_step(4, phys.newton.AbsorbingBoundaryStep(
+            ((-sp, nv * sp),) * 3))
+    meas = light.ScatterMeasureStep(
+        None, True, [((nv - 1) * sp, np.nan, np.nan)], weighted=True,
+        measure_E=True, measure_E_mode="sum")
+    sim.add_step(5, meas)
+    if sign:
+        sign = light.ScatterSignMeasureStep(None, True, weighted=True)
+        sim.add_step(6, sign)
+    else:
+        sign = None
+    gen = torch.Generator().manual_seed(seed)
+    yz = torch.rand((2, n), generator=gen, dtype=torch.float64) \
+        * ((nv - 1) * sp)
+    r = torch.cat([torch.full((1, n), -0.75 * sp, dtype=torch.float64), yz])
+    sim.add_photons(light.generate_photon_state(n, E=1.0, r=r, device=dev))
+    return sim, dele, meas, sign, nfn
+
+
+def media_packed(C, S, nv, seed):
+    """Seeded (15, C) packed photons spread over (and a voxel beyond) an
+    nv**3 grid of spacing S, random directions at c, ~90% alive."""
+    rng = np.random.default_rng(seed)
+    p = np.zeros((15, C), np.float32)
+    p[0:3] = rng.uniform(-1.0, nv + 1.0, (3, C)) * S
+    d = rng.normal(size=(3, C))
+    p[6:9] = d / np.linalg.norm(d, axis=0) * C_LIGHT
+    p[12] = rng.uniform(0.5, 2.0, C)
+    p[13] = rng.uniform(size=C) < 0.9
+    p[14] = 1.0
+    return p
+
+
+def media_plans(F, light, chunk, S, nv, seed=0):
+    """Four media plans: trilinear voxel with implicit capture, roulette,
+    deposition, absorb and weighted sign; nearest voxel with analog del and
+    deposition; layered r and z; C expressions for n (exp, pow, fmin) and
+    A(E) (tests/test_torch_cuda.py holds the same plans at 2**16 x 64)."""
+    rng = np.random.default_rng(seed)
+    grid = (1.0 + 2.0 * rng.uniform(size=(nv,) * 3)).astype(np.float32)
+    tri = light.voxel_density(grid, spacing=S, interp="trilinear")
+    near = light.voxel_density(grid, spacing=S, outside=0.5)
+    half = nv * S / 2
+    lay_r = light.layered_density(np.array([0.0, 0.3, 0.6, 2.0]) * half,
+                                  [2.5, 1.0, 0.5], axis="r",
+                                  center=(half, half, half))
+    lay_z = light.layered_density(np.array([0.0, 0.5, 1.2, 2.0]) * half,
+                                  [1.0, 3.0, 2.0], axis="z", outside=0.25)
+    expr = light._compile_variable_n(
+        f"fmin(exp(-fabs(r0[gid] - {half}) / {half}) * 3.0, "
+        f"pow(fabs(r1[gid]) / {half} + 0.5, 1.5)) + 0.25")
+    a_fn = light._compile_field_expr("(1.5 / E[gid]) ** 3 + 0.1 * E[gid]",
+                                     ("E",), "A_fn")
+    c_dt = C_LIGHT * MEDIA_DT
+    a_s, a_a = 0.01 / c_dt, 0.004 / c_dt
+    box = ((-0.5 * S, (nv - 0.5) * S),) * 3
+
+    def plan(ops, n_rec, n_f):
+        return F.FusedPlan(ops=ops, n_rec_cols=n_rec, chunk=chunk,
+                           const_norm_speed=C_LIGHT, n_frec_cols=n_f)
+
+    return {
+        "media-voxel-trilinear-capture": plan([
+            F._Op("kin"),
+            F._Op("iso", coef=a_s, c_val=C_LIGHT, n_fn=tri),
+            F._Op("del", coef=a_a, n_fn=tri, implicit_capture=True,
+                  roulette=(0.7, 0.9), cols=(0,)),
+            F._Op("absorb", bounds=box),
+            F._Op("sign", cols=(1, 1), weighted=True)], 2, 4),
+        "media-voxel-nearest-analog": plan([
+            F._Op("kin"),
+            F._Op("iso", coef=a_s, c_val=C_LIGHT, n_fn=near),
+            F._Op("del", coef=a_a, n_fn=near, cols=(0,)),
+            F._Op("sign", cols=(1, 2))], 5, 1),
+        "media-layered-r-z": plan([
+            F._Op("kin"),
+            F._Op("iso", coef=a_s, c_val=C_LIGHT, n_fn=lay_r),
+            F._Op("del", coef=a_a, n_fn=lay_z),
+            F._Op("sign", cols=(1, 2))], 5, 0),
+        "media-expr": plan([
+            F._Op("kin"),
+            F._Op("iso", coef=a_s, c_val=C_LIGHT, n_fn=expr),
+            F._Op("del", coef=a_a, n_fn=expr, a_fn=a_fn, cols=(0,)),
+            F._Op("sign", cols=(1, 2))], 5, 1),
+    }
+
+
+def record_chain(C, grid_blocks):
+    """The longest chain of float32 additions in one rec_f entry of a
+    launch over C slots: the 5-level warp tree, the tiles a warp's slot
+    accumulates, the 8 warps and the blocks of the second pass."""
+    tiles = -(-C // 256)
+    return 5 + -(-tiles // grid_blocks) + 8 + grid_blocks
+
+
+def beer_lambert(torch, phys, grid, dev, card, grid_blocks):
+    """Phase: exact Beer-Lambert at full size (no scatter, no roulette,
+    BL_ITERS iterations inside the coverage)."""
+    phase(f"exact Beer-Lambert: {MEDIA_N} photons, {MEDIA_NV}**3 trilinear "
+          f"grid, {BL_ITERS} iterations of implicit capture")
+    light = phys.light
+    sim, dele, _, _, nfn = media_sim(phys, grid, dev, iters=BL_ITERS,
+                                     scatter=False, roulette=None)
+    sim.start()
+    sim.join()
+    check(sim.used_fused and len(sim.ts) == BL_ITERS,
+          f"Beer-Lambert run: {len(sim.ts)} iterations")
+    st = sim.sim_state
+    check(int(st.n_alive) == MEDIA_N, "implicit capture killed photons")
+    K = BL_ITERS
+    # host replay of the kernel's float32 kinematics: x += f32(c * dt)
+    c_dt = float(light.c) * MEDIA_DT
+    dr = np.float32(np.float32(float(light.c)) * np.float32(MEDIA_DT))
+    xs = np.empty(K, np.float32)
+    x = np.float32(-0.75 * (4 * c_dt))  # media_sim's start
+    for k in range(K):
+        x = np.float32(x + dr)
+        xs[k] = x
+    idx = np.sort(np.random.default_rng(17).choice(MEDIA_N, BL_CHECKED,
+                                                   replace=False))
+    ti = torch.from_numpy(idx).to(dev)
+    y = st.r[1, ti].cpu()
+    z = st.r[2, ti].cpu()
+    X = torch.from_numpy(xs)[:, None].expand(K, BL_CHECKED).contiguous()
+    n_k = nfn(X, y[None].expand(K, -1).contiguous(),
+              z[None].expand(K, -1).contiguous()).double().numpy()
+    pcoll = (MEDIA_AA / c_dt) * c_dt * n_k
+    w_expect = np.prod(1.0 - np.clip(pcoll, 0.0, 1.0), axis=0)
+    w_got = st.w[ti].double().cpu().numpy()
+    rel = float(np.max(np.abs(w_got / w_expect - 1)))
+    # per iteration the kernel rounds 1 - p and the product once each
+    tol_w = 2 * K * 2.0 ** -24
+    check(rel <= tol_w, f"Beer-Lambert weights off the float64 product by "
+          f"{rel:.3e} > {tol_w:.3e}")
+    dep = float(np.asarray(dele.data, np.float64)[:, 1].sum())
+    inflight = float((st.w.double() * st.E.double())[st.alive].sum())
+    bal = abs((dep + inflight) / MEDIA_N - 1.0)
+    # per photon and iteration dep + w rounds twice; each record is a
+    # float32 sum along a chain of record_chain additions
+    chain = record_chain(st.capacity, grid_blocks)
+    tol_e = (2 * K + chain) * 2.0 ** -24
+    check(bal <= tol_e, f"energy balance off by {bal:.3e} > {tol_e:.3e}")
+    print(f"Beer-Lambert: {BL_CHECKED} photons' weights within {rel:.3e} of "
+          f"the host float64 product (tolerance 2 K 2**-24 = {tol_w:.3e}); "
+          f"mean weight {float(w_got.mean()):.4f} (range "
+          f"{float(w_got.min()):.4f}-{float(w_got.max()):.4f}); energy "
+          f"balance sum(dep) + sum(w E) = N E within {bal:.3e} (tolerance "
+          f"(2 K + {chain}) 2**-24 = {tol_e:.3e}) [{card}]", flush=True)
+    del sim, st
+
+
+def media_path(torch, phys, F, grid, dev, card, mft):
+    """Phase: the media path through ``Simulation`` at full size, run twice
+    (the second profiled); returns its launch count."""
+    phase(f"media path: {MEDIA_N} photons through a {MEDIA_NV}**3 trilinear "
+          f"phantom, {MEDIA_ITERS} iterations")
+
+    def run(profile):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        F.fused_transport.launches = 0
+        t0 = time.perf_counter()
+        sim, dele, meas, _, _ = media_sim(phys, grid, dev)
+        torch.cuda.synchronize()
+        t_pop = time.perf_counter() - t0
+        prof = None
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as prof_ctx
+            prof = prof_ctx(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+            prof.__enter__()
+        t1 = time.perf_counter()
+        sim.start()
+        sim.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        return {"sim": sim, "dep": np.asarray(dele.data),
+                "far": np.asarray(meas.data), "wall": wall, "t_pop": t_pop,
+                "prof": prof, "fused": F.fused_transport.launches,
+                "peak": torch.cuda.max_memory_allocated()}
+
+    r1 = run(False)
+    sim, dep, far = r1["sim"], r1["dep"], r1["far"]
+    print(sim.explain_plan())
+    check(sim.used_fused, "media path did not take the fused tier")
+    check(r1["fused"] >= 2, f"{r1['fused']} kernel launches on the media "
+          "path")
+    chunks = [n for _, n, _ in sim.chunk_log]
+    check(len(sim.ts) == MEDIA_ITERS and dep.shape == (MEDIA_ITERS, 2)
+          and far.shape == (MEDIA_ITERS, 4),
+          f"{len(sim.ts)} iterations, records {dep.shape} {far.shape}")
+    check(bool(np.isfinite(dep).all() and np.isfinite(far).all()),
+          "non-finite tallies")
+    alive = far[:, 1]
+    check(alive[0] == MEDIA_N and alive[-1] < alive[0] and alive[-1] > 0,
+          f"alive counts {alive[0]} .. {alive[-1]}")
+    check(dep[:, 1].min() >= 0 and dep[:, 1].sum() > 0, "no deposition")
+    transmitted, t_energy = far[:, 2].sum(), far[:, 3].sum()
+    check(0 < transmitted < MEDIA_N and abs(t_energy - transmitted)
+          <= 1e-4 * transmitted, f"far-face tally {transmitted} "
+          f"(energy {t_energy}; every photon has E = 1)")
+    st = sim.sim_state
+    w = st.w[st.alive].double()
+    w_min, w_sur = MEDIA_ROULETTE
+    check(bool((w > 0).all() and (w <= 1).all()), "weights outside (0, 1]")
+    check(float(w.min()) >= w_min * (1 - 3 * MEDIA_AA), "roulette left a "
+          f"weight {float(w.min())} below w_min")
+    print(f"media path: {len(sim.ts)} iterations in chunks {chunks}, "
+          f"fused_transport launches {r1['fused']}; alive {int(alive[0])} -> "
+          f"{int(alive[-1])}; deposited {dep[:, 1].sum():.6e}, far-face "
+          f"weight {transmitted:.6e} (energy {t_energy:.6e}); alive weights "
+          f"{float(w.min()):.4f}-{float(w.max()):.4f}")
+    photon_steps = float(alive.sum())
+    first_done, last_done = sim.chunk_log[0][2], sim.chunk_log[-1][2]
+    steady_n = float(alive[chunks[0]:].sum())
+    steady_s = first_done.elapsed_time(last_done) * 1e-3
+    print(f"media path rate: {steady_n / steady_s:.4e} alive photon-steps/s "
+          f"over the dispatch loop after the first chunk, device clock "
+          f"({steady_s * 1e3:.1f} ms); {photon_steps / r1['wall']:.4e} from "
+          f"start() ({r1['wall']:.3f} s wall); set-up {sim.setup_seconds:.3f}"
+          f" s in start() (grid upload included) + {r1['t_pop'] * 1e3:.1f} "
+          f"ms for the bulk; peak memory {r1['peak'] / 2 ** 30:.2f} GiB; "
+          f"kernel {mft['ms']:.2f} ms per chunk against a bound of "
+          f"{mft['bound_ms']:.2f} ms ({mft['bound_by']}) [{card}]",
+          flush=True)
+    out = {"fused_launches": r1["fused"]}
+    del sim, st, w, r1
+
+    r2 = run(True)
+    check(np.array_equal(dep, r2["dep"]) and np.array_equal(far, r2["far"]),
+          "a second run with the same seed gave other tallies")
+    busy, span = device_busy(r2["prof"], torch)
+    print(f"media path device idle share (profiled second run, first to last "
+          f"fused_transport kernel): {1 - busy / span:.4f} ({busy:.1f} ms "
+          f"busy of {span:.1f} ms) [{card}]")
+    print(r2["prof"].key_averages().table(sort_by="cuda_time_total",
+                                          row_limit=8))
+    return out
+
+
+def media_card_vs_cpu(torch, phys, F, err):
+    """Phase: a small media run (2**16 photons, a 32**3 trilinear grid for
+    scattering, a layered z field for absorption) on the card and on the
+    CPU twin."""
+    phase("media Simulation on the card against the CPU twin (2**16 "
+          "photons, 32**3 trilinear grid, layered absorption)")
+    light = phys.light
+    grid = media_grid(32, 5)
+    sp = 4 * float(light.c) * MEDIA_DT
+    runs = {}
+    for where in ("cuda", "cpu"):
+        lay = light.layered_density(np.array([0.0, 8.3, 19.6, 31.0]) * sp,
+                                    [1.0, 2.0, 0.5], axis="z")
+        sim, dele, far, sign, _ = media_sim(
+            phys, grid, where, n=1 << 16, iters=192, chunk=64, seed=6,
+            roulette=(0.4, 0.6), del_fn=lay, sign=True)
+        sim.start()
+        sim.join()
+        st = sim.sim_state
+        runs[where] = (sim, np.asarray(dele.data), np.asarray(far.data),
+                       np.asarray(sign.data), F.pack_state(st).cpu(),
+                       st.alive.cpu())
+    (gs, gd, gf, gsg, gst, ga), (cs, cd, cf, csg, cst, ca) = (runs["cuda"],
+                                                            runs["cpu"])
+    check(len(gs.ts) == 192 and gs.ts == cs.ts, "media run: sim.ts differs")
+    check(np.array_equal(gf[:, :2], cf[:, :2])
+          and np.array_equal(gsg[:, :2], csg[:, :2]),
+          "media run: int records differ")
+    for g, c, what in ((gd, cd, "deposition"), (gf, cf, "far-face"),
+                       (gsg, csg, "weighted sign")):
+        check(np.allclose(g, c, rtol=RTOL_F, atol=RTOL * np.abs(c).max()),
+              f"media run: {what} tallies out of tolerance")
+    check(torch.equal(ga, ca), "media run: alive planes differ")
+    ok, e = close_planes(gst[:, ga], cst[:, ca])
+    err["media"] = max(err["media"], e)
+    check(ok, f"media run: live slots differ (max abs err {e})")
+    print(f"media card == CPU: sim.ts, int records, alive ({int(ga.sum())} "
+          f"of {1 << 16}); live slots bitwise="
+          f"{torch.equal(gst[:, ga], cst[:, ca])}, max abs err {e}; float "
+          f"tallies bitwise={np.array_equal(gd, cd) and np.array_equal(gf, cf)}"
+          , flush=True)
 
 
 def planck_path(torch, phys, F, P, sampler, dev, card):

@@ -230,6 +230,7 @@ class Simulation(threading.Thread):
     def __init__(self, **kwargs):
         threading.Thread.__init__(self)
         self.exit = _default_exit
+        self.bounds = np.zeros(3)  # the reference's box [0, b] per axis
         self.state_fn = lambda x: {
             "objects": len(x.objects),
             "t": x.t,

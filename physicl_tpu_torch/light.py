@@ -1,8 +1,9 @@
 """Photon-transport toolkit (counterpart of ``physicl_tpu/light.py``, ported
 subset): constants, the photon model, the Planck spectrum and its samplers,
 bulk photon populations (host or device), the continuous photon source,
-isotropic scattering, plain absorption, and the sign and plane-crossing
-measurements.
+density fields (C expressions, layered and voxel media), isotropic
+scattering, absorption with implicit capture, roulette and deposition
+tallies, and the sign and plane-crossing measurements.
 
 Statistical-parity details kept from the JAX package: the inclusive
 ``pcoll >= rand`` collision test and the angle-uniform (not area-uniform)
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from physicl_tpu_torch.engine import MeasureStep, Object, Step
+from physicl_tpu_torch.ops import fields as _fields
 from physicl_tpu_torch.ops.planck import (
     icdf_table,
     planck_gen,
@@ -30,6 +32,7 @@ __all__ = [
     "planck_distribution", "planck_probability", "planck_phot_distribution",
     "planck_cdf", "planck_sample_E", "PlanckSampler", "poly_icdf_reference",
     "generate_photon_state", "PhotonEmitterStep",
+    "layered_density", "voxel_density",
     "ScatterDeleteStep", "ScatterIsotropicStep",
     "ScatterSphericalStep", "ScatterMeasureStep", "ScatterSignMeasureStep",
 ]
@@ -439,14 +442,137 @@ class PhotonEmitterStep(Step):
                                   "fused tier emits in-kernel")
 
 
-class ScatterDeleteStep(MeasureStep):
-    """Absorption: a photon is deleted with probability ``pcoll = A*n*|dr|``
-    (inclusive ``pcoll >= u`` test). Plain absorption is ported; the JAX
-    package's extensions are accepted here and refused by the prover."""
+def _compile_field_expr(fn_or_expr, varnames, label):
+    """A user field: a callable is returned as it is (the prover refuses it,
+    code ``field-fn-callable``: the kernel cannot inline Python); a
+    C-expression string over ``<var>[gid]`` in the reference's grammar
+    (physicl/light.py:295-299) becomes a torch callable with the postfix
+    program the kernel interprets (:mod:`physicl_tpu_torch.ops.fields`)."""
+    if callable(fn_or_expr):
+        return fn_or_expr
+    return _fields.compile_expr(fn_or_expr, tuple(varnames), label)
 
-    # options of the JAX step that the port does not implement yet
-    UNPORTED = ("A_fn", "variable_n", "implicit_capture", "roulette",
-                "stretch", "fluorescence", "measure_deposition")
+
+def _compile_variable_n(fn_or_expr):
+    """Number-density field n(r) as a torch callable over (r0, r1, r2)."""
+    return _compile_field_expr(fn_or_expr, ("r0", "r1", "r2"),
+                               "variable_n_fn")
+
+
+def layered_density(edges, values, axis: str = "x",
+                    center=(0.0, 0.0, 0.0), outside: float = 0.0):
+    """Piecewise-constant layered medium as a ``variable_n_fn`` callable:
+    layer ``i`` spans ``edges[i] <= coord < edges[i+1]`` (strictly
+    increasing edges, one value per layer), ``coord`` is x, y, z or
+    ``|r - center|`` (``axis="r"``), and ``outside`` is the density beyond
+    the edge range. The kernel reads edges and values from its auxiliary
+    table and finds the layer by bisection, so the layer count costs
+    log2(layers) per evaluation."""
+    edges = [float(raw_code_value(e)) for e in np.asarray(edges).ravel()]
+    values = [float(raw_code_value(v)) for v in np.asarray(values).ravel()]
+    if len(edges) < 2 or len(values) != len(edges) - 1:
+        raise ValueError(f"need len(values) == len(edges) - 1 >= 1, got "
+                         f"{len(values)} values / {len(edges)} edges")
+    if not all(b > a for a, b in zip(edges, edges[1:])):
+        raise ValueError("edges must be strictly increasing")
+    if axis not in _fields.LAYER_AXES:
+        raise ValueError(f"axis must be 'x', 'y', 'z' or 'r', got {axis!r}")
+    center = tuple(float(raw_code_value(v)) for v in center)
+    spec = {"kind": "layered", "axis": _fields.LAYER_AXES[axis],
+            "edges": np.asarray(edges, np.float32),
+            "values": np.asarray(values, np.float32),
+            "center": center, "outside": float(raw_code_value(outside))}
+    fn = _fields.layered_fn(spec)
+    fn.spec = spec
+    return fn
+
+
+def voxel_density(grid, origin=(0.0, 0.0, 0.0), spacing=1.0,
+                  interp: str = "nearest", outside: float = 0.0,
+                  quantize: int | None = None):
+    """3-D gridded medium (CT phantom / simulation snapshot) as a
+    ``variable_n_fn`` callable: ``grid[ix, iy, iz]`` is the density at
+    ``origin + (ix, iy, iz) * spacing``.
+
+    ``interp="nearest"`` snaps to the closest voxel center (coverage
+    ``origin - spacing/2`` to ``origin + (shape - 1/2) * spacing``);
+    ``"trilinear"`` interpolates the 8 surrounding voxels (coverage the
+    voxel-center hull, at least 2 voxels per axis). Positions outside the
+    coverage read ``outside``.
+
+    Any grid below 2**31 voxels that fits on the card fuses exactly: the
+    kernel reads the flat float32 grid straight from device memory (the JAX
+    package's in-VMEM table caps and codebook tiers do not apply).
+    ``quantize=K`` (2-256) snaps the grid to K quantile-balanced levels
+    first, as declared semantics on every path; the largest snap error is
+    ``fn.quantize_err``.
+    """
+    grid = np.asarray(raw_code_value(grid), np.float32)
+    if grid.ndim != 3:
+        raise ValueError(f"grid must be 3-D (nx, ny, nz), got {grid.shape}")
+    if interp not in ("nearest", "trilinear"):
+        raise ValueError(f"interp must be 'nearest' or 'trilinear', "
+                         f"got {interp!r}")
+    origin = np.asarray(raw_code_value(origin), np.float64).reshape(3)
+    spacing = np.broadcast_to(
+        np.asarray(raw_code_value(spacing), np.float64).ravel(), (3,))
+    if (spacing <= 0).any():
+        raise ValueError("spacing must be positive")
+    nx, ny, nz = grid.shape
+    if interp == "trilinear" and min(grid.shape) < 2:
+        raise ValueError("trilinear interpolation needs at least 2 voxels "
+                         "per axis")
+    outside = float(raw_code_value(outside))
+
+    flat_np = grid.reshape(-1)
+    quantize_err = 0.0
+    if quantize is not None:
+        q = int(raw_code_value(quantize))
+        if not 2 <= q <= 256:
+            raise ValueError(f"quantize must be in [2, 256], got {q}")
+        if np.unique(flat_np).size > q:
+            # quantile-balanced bins (equal voxel mass per level), each
+            # represented by its bin mean (the JAX package's arithmetic)
+            edges = np.unique(np.quantile(
+                flat_np, np.linspace(0.0, 1.0, q + 1)[1:-1]))
+            bins = np.searchsorted(edges, flat_np, side="right")
+            sums = np.bincount(bins, weights=flat_np.astype(np.float64),
+                               minlength=edges.size + 1)
+            cnts = np.bincount(bins, minlength=edges.size + 1)
+            reps = (sums / np.maximum(cnts, 1)).astype(np.float32)
+            snapped = reps[bins]
+            quantize_err = float(np.abs(snapped - flat_np).max())
+            flat_np = snapped
+    spec = {"kind": "voxel", "flat": np.ascontiguousarray(flat_np),
+            "shape": (int(nx), int(ny), int(nz)),
+            "origin": tuple(float(o) for o in origin),
+            "spacing": tuple(float(s) for s in spacing),
+            "outside": outside, "interp": interp}
+    fn = _fields.voxel_fn(spec)
+    fn.spec = spec
+    fn.quantize_err = quantize_err
+    return fn
+
+
+class ScatterDeleteStep(MeasureStep):
+    """Absorption: a photon is deleted with probability
+    ``pcoll = A * A_fn(E) * n(r) * |dr|`` (inclusive ``pcoll >= u`` test);
+    with ``variable_n`` the field ``n(r)`` replaces the constant ``n``.
+
+    * ``implicit_capture=True``: survival biasing, ``w *= 1 - min(pcoll, 1)``
+      with no draw and no death;
+    * ``roulette=(w_min, w_survive)``: a photon whose weight fell below
+      ``w_min`` survives with probability ``w / w_survive`` at weight
+      ``w_survive`` (one uniform per slot, drawn after the weight update);
+    * ``measure_deposition=True``: ``data`` rows ``[t, E_dep]`` per
+      iteration, ``sum(w*E)`` over killed photons (analog) or
+      ``sum(w*min(pcoll,1)*E)`` (implicit capture); CSV through ``out_fn``.
+
+    ``A_fn`` and ``variable_n_fn`` take a C-expression string or a field
+    callable (``layered_density``, ``voxel_density``); a Python callable is
+    refused by the prover (``field-fn-callable``). Not ported, and refused:
+    ``stretch`` (``delete-stretch``) and ``fluorescence``
+    (``delete-fluorescence``)."""
 
     def __init__(self, n, A, A_fn=None, variable_n=False,
                  variable_n_fn=None, implicit_capture=False, roulette=None,
@@ -454,29 +580,62 @@ class ScatterDeleteStep(MeasureStep):
                  stretch_dir=(1.0, 0.0, 0.0), fluorescence=None,
                  fluorescence_edge=None):
         super().__init__(out_fn)
-        self.n = _as_code(n)
-        self.A = _as_code(A)
-        self.A_fn = A_fn
-        self.variable_n = bool(variable_n)
-        self.variable_n_fn = variable_n_fn
-        self.implicit_capture = bool(implicit_capture)
-        self.roulette = roulette
         self.measure_deposition = bool(measure_deposition)
+        if stretch is not None and implicit_capture:
+            raise ValueError("stretch biases the analog kill; "
+                             "implicit_capture has no kill to bias "
+                             "(use one or the other)")
         self.stretch = stretch
         self.stretch_dir = stretch_dir
+        self.n = _as_code(n)
+        self.A = _as_code(A)
+        self._a_fn = (None if A_fn is None else
+                      _compile_field_expr(A_fn, ("E",), "A_fn"))
+        if variable_n and variable_n_fn is None:
+            raise ValueError("variable_n=True requires variable_n_fn")
+        self._n_fn = (_compile_variable_n(variable_n_fn) if variable_n
+                      else None)
+        self.implicit_capture = bool(implicit_capture)
+        if roulette is not None:
+            if not self.implicit_capture:
+                raise ValueError("roulette requires implicit_capture=True "
+                                 "(analog transport kills outright)")
+            w_min, w_survive = (float(roulette[0]), float(roulette[1]))
+            if not (0.0 < w_min <= w_survive):
+                raise ValueError("roulette=(w_min, w_survive) needs "
+                                 "0 < w_min <= w_survive")
+            roulette = (w_min, w_survive)
+        self.roulette = roulette
+        if fluorescence is not None and self.implicit_capture:
+            raise ValueError("fluorescence replaces the analog kill; "
+                             "implicit_capture has no kill to replace "
+                             "(use one or the other)")
+        if fluorescence is None and fluorescence_edge is not None:
+            raise ValueError("fluorescence_edge requires fluorescence=")
         self.fluorescence = fluorescence
         self.fluorescence_edge = fluorescence_edge
 
     @property
     def _coef(self):
-        return self.A * self.n
+        # family convention: variable_n REPLACES the constant n
+        return self.A * (1.0 if self._n_fn is not None else self.n)
+
+    def collect(self, sim, records) -> None:
+        if not self.measure_deposition:
+            return
+        for i in range(len(records["t"])):
+            self.data.append([float(records["t"][i]),
+                              float(records["dep"][i])])
 
 
 class ScatterIsotropicStep(Step):
-    """Isotropic scatter with optional lambda^-4 weighting:
-    ``pcoll = A * n * |dr| * ((h c / E)^-4 if wavelength_dep_scattering)``,
-    resample at |v| = c with theta=2*pi*U, phi=pi*U and
-    ``dv = v_new - v_old``. ``variable_n`` is refused by the prover."""
+    """Isotropic scatter with optional lambda^-4 weighting and variable
+    number density: ``pcoll = A * n(r) * |dr| * ((h c / E)^-4 if
+    wavelength_dep_scattering)``, where ``n(r)`` is the constant ``n`` or,
+    with ``variable_n``, the field ``variable_n_fn`` (C expression,
+    ``layered_density`` or ``voxel_density``; a Python callable is refused
+    as ``field-fn-callable``). Resample at |v| = c with theta=2*pi*U,
+    phi=pi*U and ``dv = v_new - v_old``."""
 
     def __init__(self, **kwargs):
         self.n = _as_code(kwargs.get("n", 1))
@@ -485,6 +644,8 @@ class ScatterIsotropicStep(Step):
             "wavelength_dep_scattering", False)
         self.variable_n = kwargs.get("variable_n", False)
         self.variable_n_fn = kwargs.get("variable_n_fn", None)
+        self._n_fn = (_compile_variable_n(self.variable_n_fn)
+                      if self.variable_n else None)
         self._c = None
         self._coef = None
         self._wl_base = None
@@ -493,13 +654,15 @@ class ScatterIsotropicStep(Step):
         self._c = float(raw_code_value(c))
         hc = float(raw_code_value(h)) * float(raw_code_value(c))
         # fold the static factors in float64 on the host, as the JAX
-        # package does: pcoll = coef * norm * (E * wl_base)^4
+        # package does: pcoll = coef * norm * n(r) * (E * wl_base)^4, where
+        # a variable n(r) replaces the constant n in the fold
+        folded = self.A * (1.0 if self.variable_n else self.n)
         if self.wavelength_dep_scattering:
-            self._wl_base = (1.0 / hc) * (self.A * self.n) ** 0.25
+            self._wl_base = (1.0 / hc) * folded ** 0.25
             self._coef = 1.0
         else:
             self._wl_base = None
-            self._coef = self.A * self.n
+            self._coef = folded
 
 
 ScatterSphericalStep = ScatterIsotropicStep
@@ -508,7 +671,8 @@ ScatterSphericalStep = ScatterIsotropicStep
 class ScatterSignMeasureStep(MeasureStep):
     """Counts alive objects with strictly positive vx/vy/vz each iteration;
     ``data`` rows are ``[t, n, count_x, count_y, count_z]`` (``n`` only with
-    ``measure_n``). ``weighted=True`` is refused by the prover."""
+    ``measure_n``). ``weighted=True`` sums statistical weights instead of
+    counting (the isotropy tally under implicit capture)."""
 
     def __init__(self, out_fn=None, measure_n: bool = True,
                  weighted: bool = False):

@@ -31,10 +31,13 @@ _libs = None
 build_seconds = None   # wall time of this process's build (None: not built)
 build_log = ""         # nvcc's output (``-Xptxas -v`` register/spill report)
 
-# the kernel structs of csrc/fused_transport.cu, member for member (every
-# member is 4 bytes wide, so neither side pads)
+# the kernel structs of csrc/fused_transport.cu, member for member: the
+# grid pointers lead the plan, every other member is 4 bytes wide, so both
+# sides lay them out alike (load() checks the sizes agree)
 MAX_OPS = 16
 MAX_AXES = 16
+MAX_FIELDS = 8
+MAX_PROG = 64
 _ci, _cf = ctypes.c_int, ctypes.c_float
 
 
@@ -44,15 +47,30 @@ class OpStruct(ctypes.Structure):
                 ("emit_n", _ci), ("emit_row", _ci), ("icdf", _ci),
                 ("emit_E", _cf), ("emit_scale", _cf),
                 ("emit_r", _cf * 3), ("emit_v", _cf * 3),
-                ("ax0", _ci), ("n_ax", _ci)]
+                ("ax0", _ci), ("n_ax", _ci),
+                ("nf", _ci), ("af", _ci), ("capture", _ci),
+                ("w_min", _cf), ("w_sur", _cf), ("box", _cf * 6)]
 
 
 class AxisStruct(ctypes.Structure):
     _fields_ = [("axis", _ci), ("L", _cf), ("col", _ci), ("ecol", _ci)]
 
 
+class FieldStruct(ctypes.Structure):
+    _fields_ = [("kind", _ci), ("interp", _ci), ("n", _ci * 3),
+                ("org", _cf * 3), ("sp", _cf * 3), ("outside", _cf),
+                ("axis", _ci), ("ctr", _cf * 3), ("off", _ci), ("len", _ci)]
+
+
+class InsStruct(ctypes.Structure):
+    _fields_ = [("code", _ci), ("val", _cf)]
+
+
 class PlanStruct(ctypes.Structure):
-    _fields_ = [("ops", OpStruct * MAX_OPS), ("axes", AxisStruct * MAX_AXES),
+    _fields_ = [("grids", ctypes.c_void_p * MAX_FIELDS),
+                ("ops", OpStruct * MAX_OPS), ("axes", AxisStruct * MAX_AXES),
+                ("fields", FieldStruct * MAX_FIELDS),
+                ("prog", InsStruct * MAX_PROG),
                 ("n_ops", _ci), ("n_cols", _ci), ("n_fcols", _ci),
                 ("const_norm", _ci), ("const_speed", _cf)]
 
@@ -77,8 +95,14 @@ def _bind(libs) -> None:
     vp, ci, cf, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_longlong)
     ft = libs["fused_transport"]
+    ft.fused_transport_plan_size.restype = ci
+    ft.fused_transport_plan_size.argtypes = []
+    size = ft.fused_transport_plan_size()
+    if size != ctypes.sizeof(PlanStruct):
+        raise RuntimeError(f"fused_transport's Plan is {size} B but the "
+                           f"ctypes mirror is {ctypes.sizeof(PlanStruct)} B")
     ft.fused_transport_grid.restype = ci
-    ft.fused_transport_grid.argtypes = [ll, ci, ci, ci,
+    ft.fused_transport_grid.argtypes = [ll, ci, ci, ci, ci,
                                         ctypes.POINTER(ci)]
     ft.fused_transport_launch.restype = ci
     ft.fused_transport_launch.argtypes = [

@@ -1,11 +1,15 @@
 """Fused multi-iteration transport: the plan, the packed state, the CUDA
 kernel's wrapper and its plain PyTorch twin.
 
-Counterpart of ``physicl_tpu/ops/fused.py`` for the ops ``kin``, ``iso``,
-plain ``del``, ``sign``, ``emit``, ``cross`` and the column-0 alive count.
-One chunk runs ``k_act`` whole simulation iterations over a packed
-``(15, C)`` float32 state and returns per-iteration int32 and float32
-record rows ``(chunk, 128)`` each.
+Counterpart of ``physicl_tpu/ops/fused.py`` for the ops ``kin``, ``iso``
+(with a density field n(r)), ``del`` (with n(r), a cross-section field
+A(E), implicit capture, roulette and the deposition tally), ``sign``
+(counts or weight sums), ``emit``, ``cross``, ``absorb`` and the column-0
+alive count. One chunk runs ``k_act`` whole simulation iterations over a
+packed ``(15, C)`` float32 state and returns per-iteration int32 and
+float32 record rows ``(chunk, 128)`` each. Fields are the callables of
+:mod:`physicl_tpu_torch.ops.fields`: the twin calls them, the kernel
+evaluates their specs.
 
 * On a CUDA tensor :func:`fused_chunk` launches the hand-written kernel
   ``csrc/fused_transport.cu`` (:func:`fused_transport`) or raises.
@@ -24,12 +28,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
-from physicl_tpu_torch.ops.planck import TABLE_SIZE, poly_icdf_reference
+from physicl_tpu_torch.ops import fields as FL
+from physicl_tpu_torch.ops.planck import poly_icdf_reference
 from physicl_tpu_torch.state import SimState
 
 # Field planes in the packed (NF, C) state array (same order as the JAX
@@ -43,9 +48,11 @@ _MAX_REC_COLS = 128
 _MASK = 0xFFFFFFFF
 
 # op kinds the CUDA kernel switches on (csrc/fused_transport.cu)
-OP_CODES = {"kin": 0, "del": 1, "iso": 2, "sign": 3, "emit": 4, "cross": 5}
+OP_CODES = {"kin": 0, "del": 1, "iso": 2, "sign": 3, "emit": 4, "cross": 5,
+            "absorb": 6}
 MAX_OPS = 16
 MAX_AXES = 16     # crossing planes over all cross ops of a plan
+MAX_FIELDS = 8    # distinct field callables of a plan
 
 
 @dataclasses.dataclass
@@ -54,8 +61,16 @@ class _Op:
     coef: float = 0.0               # folded A*n (del/iso)
     wl_base: Optional[float] = None  # lambda^-4 folding base (iso)
     c_val: float = 0.0              # |v| of resampled / emitted photons
-    # sign: (n_col or -1, first sign col); cross: (n_col or -1,)
+    # sign: (n_col or -1, first sign col), float columns when weighted;
+    # cross: (n_col or -1,); del: (deposition float col,) or ()
     cols: tuple = ()
+    # del/iso: density field n(r); del: cross-section field A(E) (field
+    # callables of ops/fields with a kernel spec)
+    n_fn: Optional[Callable] = None
+    a_fn: Optional[Callable] = None
+    implicit_capture: bool = False  # del: w *= 1 - p instead of killing
+    roulette: tuple = ()            # del: (w_min, w_survive) or ()
+    bounds: tuple = ()              # absorb: ((lo, hi) per axis)
     # cross: ((axis, L, col, e_col), ...); col indexes the float records
     # when weighted (a weight sum), else the int records (a count); e_col
     # is a float column for the energy sum, or -1
@@ -97,6 +112,13 @@ class FusedPlan:
     @property
     def n_emit(self) -> int:
         return sum(1 for op in self.ops if op.kind == "emit")
+
+    @property
+    def has_fields(self) -> bool:
+        """The plan evaluates n(r) or A(E) fields (the kernel's field
+        instantiation runs it)."""
+        return any(op.n_fn is not None or op.a_fn is not None
+                   for op in self.ops)
 
 
 class _HashRng:
@@ -177,6 +199,29 @@ def _f32(x: float) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 
 
+def plan_fields(ops):
+    """The distinct field specs the ops use, in first-use order (one kernel
+    field each: ops sharing a callable share its entry and its device
+    grid), and each op's ``(n field, A field)`` indices (-1 = none)."""
+    specs, index, per_op = [], {}, []
+
+    def slot(fn):
+        if fn is None:
+            return -1
+        spec = getattr(fn, "spec", None)
+        if spec is None:
+            raise NotImplementedError("a Python field callable cannot be "
+                                      "inlined into the kernel")
+        if id(spec) not in index:
+            index[id(spec)] = len(specs)
+            specs.append(spec)
+        return index[id(spec)]
+
+    for op in ops:
+        per_op.append((slot(op.n_fn), slot(op.a_fn)))
+    return specs, per_op
+
+
 def _check_plan(plan: FusedPlan) -> None:
     for op in plan.ops:
         if op.kind not in OP_CODES:
@@ -186,6 +231,14 @@ def _check_plan(plan: FusedPlan) -> None:
                          f"{MAX_OPS}")
     if sum(len(op.axes) for op in plan.ops) > MAX_AXES:
         raise ValueError(f"crossing planes exceed the kernel's {MAX_AXES}")
+    specs, _ = plan_fields(plan.ops)
+    if len(specs) > MAX_FIELDS:
+        raise ValueError(f"{len(specs)} fields exceed the kernel's "
+                         f"{MAX_FIELDS}")
+    if sum(len(s["prog"]) for s in specs if s["kind"] == "expr") \
+            > FL.MAX_PROG:
+        raise ValueError(f"expression programs exceed the kernel's "
+                         f"{FL.MAX_PROG} instructions")
 
 
 def _emit_rows(emit_starts, plan: FusedPlan):
@@ -237,6 +290,11 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
     tables = [None if op.emit_table is None
               else torch.from_numpy(op.emit_table).to(dev)
               for op in plan.ops]
+    one = _f32(1.0).to(dev)
+    roulettes = [tuple(_f32(x).to(dev) for x in op.roulette)
+                 for op in plan.ops]
+    boxes = [tuple((_f32(lo).to(dev), _f32(hi).to(dev))
+                   for lo, hi in op.bounds) for op in plan.ops]
 
     def count(mask):
         return mask.sum(dtype=torch.int32)
@@ -262,8 +320,11 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
             return _sqrt_rn(f[_DRX] * f[_DRX] + f[_DRY] * f[_DRY]
                             + f[_DRZ] * f[_DRZ])
 
-        for op, (coef, c_val, wl_base), table in zip(plan.ops, consts,
-                                                     tables):
+        def n_of(op):
+            return op.n_fn(f[_RX], f[_RY], f[_RZ]).to(torch.float32)
+
+        for op, (coef, c_val, wl_base), table, roul, box in zip(
+                plan.ops, consts, tables, roulettes, boxes):
             if op.kind == "kin":
                 for d in range(3):
                     dr = f[_VX + d] * dt
@@ -271,12 +332,40 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                     f[_RX + d] = f[_RX + d] + dr
             elif op.kind == "del":
                 pcoll = coef * dr_norm()
-                u = rng.uniform()
-                hit = (pcoll >= u) & alive
-                alive = alive & ~hit
+                if op.a_fn is not None:  # energy-dependent cross-section
+                    pcoll = pcoll * op.a_fn(f[_E]).to(torch.float32)
+                if op.n_fn is not None:  # variable number density n(r)
+                    pcoll = pcoll * n_of(op)
+                if op.implicit_capture:
+                    # survival biasing: deterministic weight decay, a draw
+                    # only for roulette
+                    p = pcoll.clamp(0.0, 1.0)
+                    if op.cols:  # deposited energy: exact expectation
+                        rec_f[k, op.cols[0]] = fsum(alive, f[_W] * p * f[_E])
+                    f[_W] = torch.where(alive, f[_W] * (one - p), f[_W])
+                    if op.roulette:
+                        w_min, w_sur = roul
+                        u = rng.uniform()
+                        low = alive & (f[_W] < w_min)
+                        kill = low & (u * w_sur >= f[_W])
+                        f[_W] = torch.where(low & ~kill, w_sur, f[_W])
+                        alive = alive & ~kill
+                        f[_ALIVE] = alive.to(torch.float32)
+                else:
+                    u = rng.uniform()
+                    hit = (pcoll >= u) & alive
+                    if op.cols:  # deposited energy: killed photons' w*E
+                        rec_f[k, op.cols[0]] = fsum(hit, f[_W] * f[_E])
+                    alive = alive & ~hit
+                    f[_ALIVE] = alive.to(torch.float32)
+            elif op.kind == "absorb":
+                for d, (lo, hi) in enumerate(box):
+                    alive = alive & (f[_RX + d] >= lo) & (f[_RX + d] <= hi)
                 f[_ALIVE] = alive.to(torch.float32)
             elif op.kind == "iso":
                 pcoll = coef * dr_norm()
+                if op.n_fn is not None:
+                    pcoll = pcoll * n_of(op)
                 if wl_base is not None:
                     base = f[_E] * wl_base
                     b2 = base * base
@@ -294,7 +383,11 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                 if n_col >= 0:
                     rec[k, n_col] = count(alive)
                 for d in range(3):
-                    rec[k, sx_col + d] = count((f[_VX + d] > 0) & alive)
+                    pos = (f[_VX + d] > 0) & alive
+                    if op.weighted:  # sum of w over positive movers
+                        rec_f[k, sx_col + d] = fsum(pos, f[_W])
+                    else:
+                        rec[k, sx_col + d] = count(pos)
             elif op.kind == "emit":
                 start = int(starts[op.emit_row, k])
                 mask = (gid >= start) & (gid < start + op.emit_n)
@@ -340,23 +433,58 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
     return torch.stack(f), rec, rec_f
 
 
-def _plan_struct(plan: FusedPlan):
-    """The kernel's ``Plan`` struct (ctypes, built once per plan) and the
-    fit tables of its sampled-energy emit ops, concatenated in op order."""
-    if "struct" in plan._cache:
-        return plan._cache["struct"], plan._cache["tables"]
+def _set_field(fs, spec, prog, aux):
+    """Fill one kernel ``Field`` from a spec; expression programs append to
+    ``prog`` and layered edges and values to the auxiliary table ``aux``
+    (a list of float32 arrays, offsets in floats)."""
+    fs.kind = FL.KIND_CODES[spec["kind"]]
+    if spec["kind"] == "expr":
+        fs.off, fs.len = len(prog), len(spec["prog"])
+        prog.extend(spec["prog"])
+    elif spec["kind"] == "layered":
+        fs.axis, fs.outside = spec["axis"], spec["outside"]
+        fs.ctr[:] = list(spec["center"])
+        fs.off = sum(a.size for a in aux)
+        fs.len = len(spec["values"])
+        aux += [spec["edges"], spec["values"]]
+    else:
+        fs.interp = int(spec["interp"] == "trilinear")
+        fs.n[:] = list(spec["shape"])
+        fs.org[:] = list(spec["origin"])
+        fs.sp[:] = list(spec["spacing"])
+        fs.outside = spec["outside"]
+
+
+def _plan_struct(plan: FusedPlan, dev: torch.device):
+    """The kernel's ``Plan`` struct (ctypes, built once per plan and device:
+    it holds the device voxel grids' addresses) and the auxiliary float
+    table on ``dev`` (the fit tables of sampled-energy emit ops, then the
+    layered fields' edges and values), or None."""
+    key = ("struct", dev)
+    if key in plan._cache:
+        return plan._cache[key]
     from physicl_tpu_torch.ops._build import PlanStruct
 
     ps = PlanStruct()
-    tables, n_ax = [], 0
+    specs, per_op = plan_fields(plan.ops)
+    aux, prog, grids = [], [], []
+    n_ax = 0
     for i, op in enumerate(plan.ops):
         o = ps.ops[i]
         o.kind = OP_CODES[op.kind]
         o.col0 = op.cols[0] if op.cols else -1
         o.col1 = op.cols[1] if len(op.cols) > 1 else -1
         o.coef, o.wl_base, o.c_val = op.coef, op.wl_base or 0.0, op.c_val
+        o.nf, o.af = per_op[i]
         if op.kind == "iso":
             o.flag = int(op.wl_base is not None)
+        elif op.kind == "del":
+            o.capture = int(op.implicit_capture)
+            o.w_min, o.w_sur = op.roulette or (0.0, 0.0)
+        elif op.kind == "sign":
+            o.flag = int(op.weighted)
+        elif op.kind == "absorb":
+            o.box[:] = [float(x) for lohi in op.bounds for x in lohi]
         elif op.kind == "emit":
             o.flag = int(op.emit_v is None)
             o.emit_n, o.emit_row, o.emit_E = op.emit_n, op.emit_row, op.emit_E
@@ -365,8 +493,8 @@ def _plan_struct(plan: FusedPlan):
             o.emit_v[:] = [float(x) for x in (op.emit_v or (0.0,) * 3)]
             o.icdf = -1
             if op.emit_table is not None:
-                o.icdf = len(tables) * TABLE_SIZE
-                tables.append(op.emit_table)
+                o.icdf = sum(a.size for a in aux)
+                aux.append(op.emit_table)
         elif op.kind == "cross":
             o.flag = int(op.weighted)
             o.ax0, o.n_ax = n_ax, len(op.axes)
@@ -374,13 +502,23 @@ def _plan_struct(plan: FusedPlan):
                 a = ps.axes[n_ax]
                 a.axis, a.L, a.col, a.ecol = axis, L, col, e_col
                 n_ax += 1
+    for i, spec in enumerate(specs):
+        _set_field(ps.fields[i], spec, prog, aux)
+        if spec["kind"] == "voxel":
+            grid = FL.grid_on(spec, dev)  # shared with the twin's callable
+            grids.append(grid)
+            ps.grids[i] = grid.data_ptr()
+    for j, (code, val) in enumerate(prog):
+        ps.prog[j].code, ps.prog[j].val = code, val
     ps.n_ops = len(plan.ops)
     ps.n_cols, ps.n_fcols = plan.n_rec_cols, plan.n_frec_cols
     ps.const_norm = int(plan.const_norm_speed is not None)
     ps.const_speed = plan.const_norm_speed or 0.0
-    tables = np.concatenate(tables) if tables else None
-    plan._cache["struct"], plan._cache["tables"] = ps, tables
-    return ps, tables
+    # once per plan and device: no copy on the dispatch path
+    aux = (torch.from_numpy(np.concatenate(aux).astype(np.float32)).to(dev)
+           if aux else None)
+    plan._cache[key] = (ps, aux, grids)
+    return plan._cache[key]
 
 
 def fused_transport(packed: torch.Tensor, out: torch.Tensor,
@@ -422,12 +560,7 @@ def fused_transport(packed: torch.Tensor, out: torch.Tensor,
                              "int32 (n_emit, chunk) emit_starts on the "
                              "packed state's device")
         starts_ptr, stride = emit_starts.data_ptr(), emit_starts.shape[1]
-    struct, tables = _plan_struct(plan)
-    icdf = None
-    if tables is not None:
-        icdf = plan._cache.get(dev)
-        if icdf is None:  # once per device: no copy on the dispatch path
-            icdf = plan._cache[dev] = torch.from_numpy(tables).to(dev)
+    struct, aux, _ = _plan_struct(plan, dev)
     lib = _build.load()["fused_transport"]
     C, k_act = packed.shape[1], int(k_act)
     rec = torch.zeros((plan.chunk, _MAX_REC_COLS), dtype=torch.int32,
@@ -438,13 +571,14 @@ def fused_transport(packed: torch.Tensor, out: torch.Tensor,
     with torch.cuda.device(dev):
         grid = ctypes.c_int(0)
         _build.check(lib.fused_transport_grid(
-            C, k_act, plan.n_rec_cols, plan.n_frec_cols, ctypes.byref(grid)),
+            C, k_act, plan.n_rec_cols, plan.n_frec_cols,
+            int(plan.has_fields), ctypes.byref(grid)),
             "fused_transport occupancy query")
         partials = torch.empty(max(1, grid.value * k_act * plan.n_frec_cols),
                                dtype=torch.float32, device=dev)
         err = lib.fused_transport_launch(
             packed.data_ptr(), out.data_ptr(), C, dt_row.data_ptr(),
-            starts_ptr, stride, 0 if icdf is None else icdf.data_ptr(),
+            starts_ptr, stride, 0 if aux is None else aux.data_ptr(),
             k_act, int(seed) & 0xFFFFFFFF, ctypes.byref(struct), grid.value,
             rec.data_ptr(), rec_f.data_ptr(), partials.data_ptr(),
             _build.stream_of(packed))

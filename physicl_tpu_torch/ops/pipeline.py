@@ -7,12 +7,15 @@ the engine falls back, this prover raises :class:`FusedRefusal` (a
 ``NotImplementedError``) carrying the same kind of ``(code, detail)`` pair.
 
 Fusable here: one ``UpdateTimeStep`` whose dt function reads at most
-``(t, dt)``, plus any mix of ``NewtonianKinematicsStep``, plain
-``ScatterDeleteStep``, ``ScatterIsotropicStep``, ``PhotonEmitterStep``
-(constant or ``PlanckSampler`` energies), unweighted
-``ScatterSignMeasureStep`` and ``ScatterMeasureStep`` (counts, weight sums,
-energy sums), on a photon (or, without photon steps, a generic) population,
-with a t-only or extinction exit.
+``(t, dt)``, plus any mix of ``NewtonianKinematicsStep``,
+``ScatterDeleteStep`` (density and cross-section fields, implicit capture,
+roulette, deposition tallies), ``ScatterIsotropicStep`` (with a density
+field), ``AbsorbingBoundaryStep``, ``PhotonEmitterStep`` (constant or
+``PlanckSampler`` energies), ``ScatterSignMeasureStep`` (counts or weight
+sums) and ``ScatterMeasureStep`` (counts, weight sums, energy sums), on a
+photon (or, without photon steps, a generic) population, with a t-only or
+extinction exit. Fields are C expressions, layered or voxel media
+(:mod:`physicl_tpu_torch.ops.fields`); a Python callable is refused.
 
 The provider serves the engine's pipelined ``dispatch``/``harvest`` pair,
 with the JAX package's record layout and host-replayed clock. Every
@@ -30,6 +33,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from physicl_tpu_torch.ops import fields as FL
 from physicl_tpu_torch.ops import fused as F
 from physicl_tpu_torch.ops.planck import icdf_table
 from physicl_tpu_torch.state import OBJ_PHOTON, SimState
@@ -42,6 +46,7 @@ __all__ = ["try_build_fused", "FusedProvider", "FusedRefusal"]
 _MAX_REC_TILE_BYTES = 232_448
 _KERNEL_WARPS = 8
 _EMIT_INACTIVE = -(2 ** 30)  # far-negative start: the window overlaps nothing
+_R = ("r0", "r1", "r2")  # the variables of a density field
 
 
 class FusedRefusal(NotImplementedError):
@@ -362,12 +367,15 @@ class FusedProvider:
                      else ts_before)
             if m["kind"] == "ts":
                 records[f"{uid}/ts"] = ts
+            elif m["kind"] == "dep":
+                records[f"{uid}/t"] = t_arr
+                records[f"{uid}/dep"] = recf_np[:, m["col"]]
             elif m["kind"] == "sign":
                 records[f"{uid}/t"] = t_arr
                 if m["n_col"] >= 0:
                     records[f"{uid}/n"] = rec_np[:, m["n_col"]]
-                records[f"{uid}/signs"] = rec_np[:, m["sx_col"]:
-                                                 m["sx_col"] + 3]
+                src = recf_np if m["weighted"] else rec_np
+                records[f"{uid}/signs"] = src[:, m["sx_col"]:m["sx_col"] + 3]
             elif m["kind"] == "cross":
                 records[f"{uid}/t"] = t_arr
                 if m["n_col"] >= 0:
@@ -413,10 +421,39 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
         ScatterMeasureStep,
         ScatterSignMeasureStep,
     )
-    from physicl_tpu_torch.newton import NewtonianKinematicsStep
+    from physicl_tpu_torch.newton import (
+        AbsorbingBoundaryStep,
+        NewtonianKinematicsStep,
+        _static_bounds,
+    )
 
     def _no(code: str, detail: str):
         raise FusedRefusal(code, detail)
+
+    def _field(step, fn, label, varnames):
+        """The kernel-evaluable field callable ``fn``, or a refusal."""
+        if fn is None:
+            return None
+        what = f"{type(step).__name__}'s {label}"
+        spec = getattr(fn, "spec", None)
+        # layered and voxel fields are functions of position only
+        if spec is None or spec.get("vars", _R) != varnames:
+            _no("field-fn-callable", f"{what} is not a field the kernel "
+                "evaluates (a Python callable cannot be inlined); pass a "
+                "C-expression string"
+                + (" over E[gid]" if varnames == ("E",) else ", "
+                   "light.layered_density or light.voxel_density"))
+        if spec["kind"] == "expr":
+            if spec["error"] is not None:
+                _no("field-expr-unsupported", spec["error"])
+            if spec["depth"] > FL.MAX_DEPTH:
+                _no("field-expr-length", f"{what} needs an evaluation stack "
+                    f"of {spec['depth']} > {FL.MAX_DEPTH}")
+        if spec["kind"] == "voxel" and spec["flat"].size > FL.MAX_VOXELS:
+            _no("voxel-grid-size", f"{what} has {spec['flat'].size} "
+                f"voxels; the kernel's flat index is int32 (at most "
+                f"{FL.MAX_VOXELS})")
+        return fn
 
     codes = {int(getattr(o, "_obj_type_code", 0))
              for o in sim._pending_objects}
@@ -471,29 +508,43 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
             kin_seen = True
             ops.append(F._Op("kin"))
         elif type(s) is ScatterDeleteStep:
-            for opt in ScatterDeleteStep.UNPORTED:
-                if getattr(s, opt) not in (None, False):
+            for opt in ("stretch", "fluorescence"):
+                if getattr(s, opt) is not None:
                     _no(f"delete-{opt}", f"ScatterDeleteStep({opt}=...) is "
-                        "not ported; plain absorption is")
-            ops.append(F._Op("del", coef=s._coef))
+                        "not ported")
+            n_fn = _field(s, s._n_fn, "variable_n_fn", _R)
+            a_fn = _field(s, s._a_fn, "A_fn", ("E",))
+            dep_cols = ()
+            if s.measure_deposition:
+                dep_cols = (next_fcol,)   # per-iteration deposited energy
+                next_fcol += 1
+                rec_map.append({"uid": uid, "kind": "dep",
+                                "col": dep_cols[0]})
+                measure_after_update[uid] = update_seen
+            ops.append(F._Op("del", coef=s._coef, n_fn=n_fn, a_fn=a_fn,
+                             implicit_capture=s.implicit_capture,
+                             roulette=tuple(s.roulette or ()),
+                             cols=dep_cols))
         elif type(s) is ScatterIsotropicStep:
-            if s.variable_n:
-                _no("isotropic-variable-n", "ScatterIsotropicStep("
-                    "variable_n=True) is not ported")
             s.setup(sim)
+            n_fn = _field(s, s._n_fn, "variable_n_fn", _R)
             ops.append(F._Op("iso", coef=s._coef, wl_base=s._wl_base,
-                             c_val=s._c))
+                             c_val=s._c, n_fn=n_fn))
+        elif type(s) is AbsorbingBoundaryStep:
+            s.setup(sim)
+            ops.append(F._Op("absorb", bounds=_static_bounds(s, sim)))
         elif type(s) is ScatterSignMeasureStep:
-            if s.weighted:
-                _no("sign-weighted", "ScatterSignMeasureStep(weighted=True) "
-                    "needs float record channels, which are not ported")
             n_col = next_col if s.measure_n else -1
             next_col += 1 if s.measure_n else 0
-            sx = next_col
-            next_col += 3
-            ops.append(F._Op("sign", cols=(n_col, sx)))
+            if s.weighted:  # weight sums live in float record channels
+                sx = next_fcol
+                next_fcol += 3
+            else:
+                sx = next_col
+                next_col += 3
+            ops.append(F._Op("sign", cols=(n_col, sx), weighted=s.weighted))
             rec_map.append({"uid": uid, "kind": "sign", "n_col": n_col,
-                            "sx_col": sx})
+                            "sx_col": sx, "weighted": s.weighted})
             measure_after_update[uid] = update_seen
         elif type(s) is PhotonEmitterStep:
             if s.stokes is not None or s.pol_ref is not None:
@@ -551,9 +602,9 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
             measure_after_update[uid] = update_seen
         else:
             _no("unsupported-step", f"{type(s).__name__} has no fused op in "
-                "the port; supported: UpdateTime/NewtonianKinematics/plain "
-                "ScatterDelete/ScatterIsotropic/PhotonEmitter/"
-                "ScatterSignMeasure/ScatterMeasure")
+                "the port; supported: UpdateTime/NewtonianKinematics/"
+                "AbsorbingBoundary/ScatterDelete/ScatterIsotropic/"
+                "PhotonEmitter/ScatterSignMeasure/ScatterMeasure")
 
     if not update_seen:
         _no("no-update-step", "no UpdateTimeStep: the fused kernel "
@@ -568,6 +619,17 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
     if n_axes > F.MAX_AXES:
         _no("cross-planes", f"{n_axes} crossing planes exceed the kernel's "
             f"{F.MAX_AXES}")
+    specs, _ = F.plan_fields(ops)
+    if len(specs) > F.MAX_FIELDS:
+        _no("field-count", f"{len(specs)} distinct fields exceed the "
+            f"kernel's {F.MAX_FIELDS}")
+    n_prog = sum(len(sp["prog"]) for sp in specs if sp["kind"] == "expr")
+    if n_prog > FL.MAX_PROG:
+        _no("field-expr-length", f"the plan's expression programs hold "
+            f"{n_prog} instructions > the kernel's {FL.MAX_PROG}")
+    for sp in specs:  # the voxel grids go to the device now, in set-up
+        if sp["kind"] == "voxel":
+            FL.grid_on(sp, state.device)
 
     # const-norm fast path: |dr| = speed * dt, valid iff exactly one
     # kinematics step precedes every scatter op, every emitter precedes it
@@ -613,10 +675,10 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
         exit_mode = "t"
     elif hint == "n0" or (hint is None and _probe_extinction(sim.exit)):
         exit_mode = "n0"
-        if not any(op.kind == "del" for op in ops):
+        if not any(op.kind in ("del", "absorb") for op in ops):
             _no("extinction-without-death", "extinction exit but no step can "
-                "remove photons (no ScatterDeleteStep): the run would never "
-                "terminate")
+                "remove photons (no ScatterDelete/AbsorbingBoundary): the "
+                "run would never terminate")
         if emit_positions:
             _no("extinction-with-emitter", "extinction exit + "
                 "PhotonEmitterStep: in-kernel emissions past the extinction "

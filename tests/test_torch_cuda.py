@@ -214,3 +214,36 @@ def test_rec_f_is_deterministic(dev):
     for rec, rec_f in runs[1:]:
         assert torch.equal(rec, runs[0][0])
         assert torch.equal(rec_f, runs[0][1])
+
+
+# -- media plans: fields, implicit capture, roulette, deposition, absorb --
+
+@pytest.mark.parametrize("name", ["media-voxel-trilinear-capture",
+                                  "media-voxel-nearest-analog",
+                                  "media-layered-r-z", "media-expr"])
+def test_media_plans_match_twin(dev, name):
+    """The four media plans ``chip_smoke.py`` holds at 2**20 x 256, here at
+    2**16 x 64 on 16**3 grids."""
+    import physicl_tpu_torch.light as light
+    from chip_smoke import media_packed, media_plans
+
+    S = 4 * C_LIGHT * 0.001
+    packed = torch.from_numpy(media_packed(1 << 16, S, 16, 10)).to(dev)
+    sched = torch.zeros((5, 64), dtype=torch.float32, device=dev)
+    sched[0] = 0.001
+    plan = media_plans(F, light, 64, S, 16)[name]
+    out = torch.empty_like(packed)
+    rec, rec_f = F.fused_transport(packed, out, sched, 77, 60, plan)
+    ref, ref_rec, ref_f = F.fused_chunk_reference(packed, sched, 77, 60,
+                                                  plan)
+    torch.cuda.synchronize()
+    assert torch.equal(rec, ref_rec)
+    assert torch.equal(out, ref)
+    assert _close_f(rec_f, ref_f)
+    if plan.n_frec_cols:
+        assert rec_f[:60, :plan.n_frec_cols].abs().sum() > 0
+    # something happened: scattering moved photons off their directions
+    assert not torch.equal(out[6:9], packed[6:9])
+    if name == "media-voxel-trilinear-capture":
+        w = out[14][out[13] > 0]
+        assert (w < 1).any() and int(rec[59, 0]) < int(rec[0, 0])

@@ -292,29 +292,36 @@ def test_explain_plan_reports_fused():
     assert s.sim_state is None  # planning left no state behind
 
 
+# case -> (refusal code, the step that draws it)
 _REFUSALS = {
-    "sign-weighted": lambda P: P.light.ScatterSignMeasureStep(
-        None, True, weighted=True),
-    "isotropic-variable-n": lambda P: P.light.ScatterIsotropicStep(
-        A=0.001, n=0.001, variable_n=True, variable_n_fn="1.0"),
-    "delete-implicit_capture": lambda P: P.light.ScatterDeleteStep(
-        0.001, 0.001, implicit_capture=True),
-    "delete-measure_deposition": lambda P: P.light.ScatterDeleteStep(
-        0.001, 0.001, measure_deposition=True),
-    "kinematics-acceleration": lambda P: P.newton.NewtonianKinematicsStep(
-        integrate_acceleration=True),
-    "unsupported-step": lambda P: P.Step(),
+    "field-fn-callable-n": ("field-fn-callable",
+                            lambda P: P.light.ScatterIsotropicStep(
+                                A=0.001, n=0.001, variable_n=True,
+                                variable_n_fn=lambda r0, r1, r2: r0 * 0 + 1)),
+    "field-fn-callable-A": ("field-fn-callable",
+                            lambda P: P.light.ScatterDeleteStep(
+                                0.001, 0.001, A_fn=lambda E: E * 0 + 1)),
+    "delete-stretch": ("delete-stretch", lambda P: P.light.ScatterDeleteStep(
+        0.001, 0.001, stretch=0.5)),
+    "delete-fluorescence": ("delete-fluorescence",
+                            lambda P: P.light.ScatterDeleteStep(
+                                0.001, 0.001, fluorescence=(0.5, 0.5))),
+    "kinematics-acceleration": ("kinematics-acceleration",
+                                lambda P: P.newton.NewtonianKinematicsStep(
+                                    integrate_acceleration=True)),
+    "unsupported-step": ("unsupported-step", lambda P: P.Step()),
 }
 
 
 @pytest.mark.filterwarnings(
     "ignore::pytest.PytestUnhandledThreadExceptionWarning")
-@pytest.mark.parametrize("code", sorted(_REFUSALS))
-def test_unported_step_options_refuse(code):
+@pytest.mark.parametrize("case", sorted(_REFUSALS))
+def test_unported_step_options_refuse(case):
     """The refusal surfaces twice: in explain_plan, and re-raised by join()
     from the run thread (which also reports it as the thread's own)."""
+    code, make = _REFUSALS[case]
     s, _ = _build(T, lambda c: c.t >= 0.01, device="cpu")
-    s.add_step(9, _REFUSALS[code](T))
+    s.add_step(9, make(T))
     assert f"refused [{code}]" in s.explain_plan()
     s.start()
     with pytest.raises(FusedRefusal, match=code) as e:
