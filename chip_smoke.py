@@ -38,6 +38,17 @@ Phases (any failure exits non-zero and prints no result line):
    provider hands it over (10**7 photons, 1024 iterations, the 256**3
    continuous phantom, 104 KB record tiles), held as in phase 5; prints the
    grid;
+6a. ``fused_transport`` vs twin on four stream and geometry plans at 2**20
+    slots and 256 iterations in a box of 64 c dt: [kin, iso, reflect,
+    trace(float32, scatter flags)], [kin, iso, periodic, trace(bfloat16,
+    every 4)], [kin, iso, del, scross(weighted), sabsorb(inside),
+    cross(energy capture)] and [kin, iso, sabsorb, scross]: int records
+    equal, planes bitwise, stream buffers bitwise (NaN for NaN) with every
+    row past ceil(k_act / stride) NaN, rec_f as in phase 3;
+6b. the same on the escape path's and the cavity path's first chunks, as
+    their providers hand them over (10**7 photons x 53 iterations with an
+    energy-capture plane; 10**6 photons x 1024 iterations traced every 8th
+    in bfloat16); prints the grid and the stream bytes;
 7. ``planck_gen`` vs twin at 10**7 samples: bitwise equal; quantiles and
    mean against the analytic CDF of the window; times both;
 8. main path: 10**7 photons through ``Simulation`` (the ``bench.py``
@@ -75,6 +86,32 @@ Phases (any failure exits non-zero and prints no result line):
     prints the rates, set-up (the grid upload included), peak memory, the
     device idle share (profiled second run) and the kernel's time per
     chunk against its bound;
+12a. escape path (path A): 10**7 photons from r = 0 with Planck energies
+     (``sample_device``), isotropic scattering (A n c dt = 0.05),
+     absorption (p = 1e-3), a plane at x = R/2 capturing energies in list
+     mode, the shell tally and the escape sphere at R = 32 c dt, 1024
+     iterations in ~20 chunks cut by the 2 GB record budget, run twice (the
+     second profiled): every iteration's energy list is as long as its
+     count, the listed spectrum within 5% of the Planck density, lists and
+     tallies bitwise equal in the second run; prints the rates, set-up,
+     peak memory and idle share; then the photon balance at 2**20 photons
+     without absorption, traced on the card, at R = 32 c dt and off the
+     c dt lattice: N0 = alive + escapes, and the shell crossings equal the
+     escapes but for landings at the seam (r**2 within 64 ulp of R**2),
+     which it counts and prints with the exact landings;
+12b. cavity path (path B): 10**6 photons in a reflecting box of 64 c dt,
+     isotropic scattering with pcoll = 0.3, a bfloat16 trace every 8th
+     iteration with a 1 GiB device hold, 2048 iterations in two chunks,
+     run twice (the second profiled): const-norm off (a reflection precedes
+     scattering), chunk 0 spilled to host, ``as_arrays`` (256, 3, C) with
+     the t row every 8th ``sim.ts``, every traced position inside the box,
+     |v| = c within 1e-6, the last row's x, y, z histograms (16 bins on
+     the bfloat16 grid) flat within 5 binomial sigma on the inner bins and
+     within 5% at the walls (a folded photon's shorter |dr| lowers its
+     collision probability there); prints the rates, peak memory and idle
+     share; then at
+     10**5 photons x 256 iterations the bfloat16 stride-8 trace equals the
+     float32 unstrided trace's every 8th row rounded to nearest even;
 13. card against CPU: small ``Simulation``s on the card and on the CPU,
     where they run the plain twins: an absorption and scattering run
     (2**16 photons, a t-exit right after the second 64-iteration chunk),
@@ -83,13 +120,20 @@ Phases (any failure exits non-zero and prints no result line):
     a 32**3 trilinear phantom for scattering, a layered field for
     implicit-capture absorption with roulette): equal ``sim.ts``, int
     records, spawn marks and recycling events, float records and final
-    states within the tolerances above.
+    states within the tolerances above; and two 2**16-photon runs with
+    every new step (a reflecting box with absorption, two energy-capture
+    planes, a weighted shell tally and a traced path with scatter flags; a
+    periodic box with a central absorber, a shell count and a bfloat16
+    trace every 4th iteration): equal ``sim.ts``, tallies, energy lists and
+    traces.
 
 The line before the last two is a JSON object describing each kernel on
 each path: ``fused_transport`` once each for the main path, the Planck
-source path and the media path, each with its path's launch count and the
-times and bound at that path's own shape and plan (the bound counts the
-fields' corner reads as loads at the load/store issue rate), and
+source path, the media path, the escape path and the cavity path, each
+with its path's launch count and the times and bound at that path's own
+shape and plan (the bound counts the fields' corner reads and the stream
+stores as lane operations at the load/store issue rate, and the stream
+buffer's bytes), and
 ``planck_gen`` for the Planck source path. The last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -124,7 +168,10 @@ PEAK_LD = 32 * 132 * 1.98e9
 # test; a hash is 3 + 12 integer operations; a correctly rounded sqrt or
 # divide is counted as 8 float operations.
 OPS_PER_ITER = {
+    # dt load, hash seed, record row pointers, op dispatch
     "loop": (0, 15),
+    # plans with stream planes: the sample test and the stride counter
+    "stream_row": (0, 3),
     "kin": (6, 0),
     # norm 2, uniform 2, pair 4, test 1, four fast sines 43, nx/ny 2,
     # |n|^2 5, sqrt 8, divide 8, scale 4, selects and dv 9
@@ -179,6 +226,25 @@ OPS_PER_ITER = {
     # the operation (float; a transcendental counted as 20)
     "ins": (1, 8),
     "ins_transcendental": (20, 8),
+    # periodic, per axis: L, r - lo, mod_floor (a divide 8, floor, product,
+    # difference, two compare-selects of 2) and lo + y
+    "periodic": (3 * 17, 0),
+    # reflect, per axis: L, 2L, r - lo, mod_floor 14, the odd test, 2L - y,
+    # a select, lo + y, two wall tests, the r select, negate and select v,
+    # dr 2; logic 2
+    "reflect": (3 * 28, 3 * 2),
+    # sabsorb: 3 differences, 3 squares and 2 sums, R*R, the test; logic 3,
+    # alive select 1
+    "sabsorb": (10, 4),
+    # scross: 6 differences, two squared norms of 5, R*R, 4 compares;
+    # logic 4 and a count 3 (a weighted shell: a weight sum, "esum")
+    "scross": (21, 4 + 3),
+    # one sampled trace: per position plane a select, an address (2) and
+    # the sample test; scatter flags: 3 compares, 2 ors, a select, address
+    "trace": (3, 1 + 3 * 2),
+    "trace_dv": (3 + 1, 2 + 2),
+    # a captured energy per iteration: the select, the test and address
+    "ecap": (1, 3),
 }
 # lane-loads per field read (gathers, at the SM's load/store issue rate)
 LOADS_PER_FIELD = {"voxel_tri": 8, "voxel_near": 1, "layered": 2}
@@ -208,6 +274,21 @@ MEDIA_AA = 0.002         # A_a c dt: transmitted weight ~e^-2 at n = 1
 MEDIA_ROULETTE = (0.1, 0.5)
 BL_ITERS = 1020          # Beer-Lambert: every photon stays in the coverage
 BL_CHECKED = 4096        # photons whose weight the host recomputes
+
+ESC_N = 10_000_000       # escape path: photons (bench.py's width)
+ESC_DT = 1e-3
+ESC_R = 32               # escape radius in c dt
+ESC_ITERS = 1024
+ESC_SCATTER = 0.05       # A n c dt of the isotropic scattering
+ESC_ABSORB = 1e-3        # absorption per iteration
+ESC_CLOSURE_N = 1 << 20  # the photon-balance run (no absorption, traced)
+CAV_N = 1_000_000        # cavity path: photons
+CAV_DT = 1e-3
+CAV_L = 64               # cavity side in c dt
+CAV_ITERS = 2048         # two chunks of 1024
+CAV_PCOLL = 0.3          # isotropic scattering per iteration
+CAV_EVERY = 8            # trace stride
+CAV_HOLD = 1 << 30       # device_hold_bytes: chunk 0 spills
 
 
 def check(cond, msg):
@@ -271,12 +352,18 @@ def transport_bound(plan, slots, k_act, starts):
 
 def transport_counts(plan, slots, k_act, starts):
     """(bytes, float32 ops, int32 ops, lane-loads) of one fused_transport
-    launch of ``plan``: 2 x 60 B per slot plus each voxel grid read once,
-    the lane-operations of its ops over slots x k_act slot-iterations plus
-    the once-per-photon work of the emissions ``starts`` schedules, and the
-    fields' gathers as lane-loads at the load/store issue rate."""
+    launch of ``plan``: 2 x 60 B per slot, each voxel grid read once and the
+    stream buffer written once; the lane-operations of its ops over slots x
+    k_act slot-iterations plus the once-per-photon work of the emissions
+    ``starts`` schedules and of the sampled trace iterations; the fields'
+    gathers and the stream stores as lane-loads at the load/store issue
+    rate."""
     per, once = [OPS_PER_ITER["loop"], OPS_PER_ITER["col0"]], []
+    if plan.n_stream:
+        per.append(OPS_PER_ITER["stream_row"])
     loads, grids = 0, {}
+    stream_elems = plan.n_stream_rows * plan.n_stream * slots
+    sampled = -(-k_act // plan.stream_every)  # trace rows with data
     for op in plan.ops:
         for fn in (op.n_fn, op.a_fn):
             if fn is not None:
@@ -314,12 +401,25 @@ def transport_counts(plan, slots, k_act, starts):
                                         else "plane"])
                 if axis[3] >= 0:
                     per.append(OPS_PER_ITER["esum"])
+                if len(axis) > 4 and axis[4] >= 0:
+                    per.append(OPS_PER_ITER["ecap"])
+        elif op.kind == "scross":
+            per.append(OPS_PER_ITER["scross"])
+            if op.cols[0] >= 0:
+                per.append(OPS_PER_ITER["col0"])
+            if op.weighted:
+                per.append(OPS_PER_ITER["esum"])
+        elif op.kind == "trace":
+            once.append((OPS_PER_ITER["trace"], slots * sampled))
+            if op.stream_scat:
+                once.append((OPS_PER_ITER["trace_dv"], slots * sampled))
         else:
             per.append(OPS_PER_ITER[op.kind])
     ops = [sum(p[j] for p in per) * slots * k_act
            + sum(o[j] * n for o, n in once) for j in (0, 1)]
-    return (2 * 60 * slots + sum(grids.values()), *ops,
-            loads * slots * k_act)
+    elem = 2 if plan.stream_dtype == "bfloat16" else 4
+    return (2 * 60 * slots + sum(grids.values()) + elem * stream_elems,
+            *ops, loads * slots * k_act + stream_elems)
 
 
 def random_packed(C, seed):
@@ -424,7 +524,8 @@ def main():
 
     seed = 123_456_789
     # largest plane difference from the twin, per path
-    err = {"main": 0.0, "planck": 0.0, "planck_gen": 0.0, "media": 0.0}
+    err = {"main": 0.0, "planck": 0.0, "planck_gen": 0.0, "media": 0.0,
+           "escape": 0.0, "cavity": 0.0}
     a_E, b_E = planck_window()
     sampler = light.PlanckSampler(a_E, b_E, T_SUN, bins=2000)
 
@@ -434,15 +535,23 @@ def main():
         the twin on the same inputs; returns the twin's time in ms.
         ``need_bitwise``: the planes must equal the twin's bitwise."""
         out = torch.empty_like(packed)
-        rec, rec_f = F.fused_transport(packed, out, sched, seed, K, plan,
-                                       emit_starts=starts)
+        rec, rec_f, *stream = F.fused_transport(packed, out, sched, seed, K,
+                                                plan, emit_starts=starts)
         torch.cuda.synchronize()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        ref, ref_rec, ref_f = F.fused_chunk_reference(packed, sched, seed,
-                                                      K, plan, starts)
+        ref, ref_rec, ref_f, *ref_stream = F.fused_chunk_reference(
+            packed, sched, seed, K, plan, starts)
         end.record()
         torch.cuda.synchronize()
+        if plan.n_stream:
+            # bit for bit, NaN for NaN; rows past ceil(K / stride) all NaN
+            filled = -(-K // plan.stream_every)
+            check(stream_equal(stream[0], ref_stream[0]),
+                  f"{name}: stream planes differ from the twin's")
+            check(bool(torch.isnan(stream[0][filled:].float()).all()),
+                  f"{name}: stream rows past the last sample are not NaN")
+            del ref_stream
         check(torch.equal(rec, ref_rec), f"{name}: int records differ "
               f"(first rows kernel {rec[:2, :5].tolist()} twin "
               f"{ref_rec[:2, :5].tolist()})")
@@ -457,14 +566,18 @@ def main():
               "equal to the twin's")
         del ref
         inplace = packed.clone()
-        rec2, rec_f2 = F.fused_transport(inplace, inplace, sched, seed, K,
-                                         plan, emit_starts=starts)
+        rec2, rec_f2, *stream2 = F.fused_transport(
+            inplace, inplace, sched, seed, K, plan, emit_starts=starts)
         torch.cuda.synchronize()
         check(torch.equal(inplace, out), f"{name}: in-place launch differs "
               "from out-of-place")
-        check(torch.equal(rec2, rec) and torch.equal(rec_f2, rec_f),
+        check(torch.equal(rec2, rec) and torch.equal(rec_f2, rec_f)
+              and (not plan.n_stream or stream_equal(stream[0], stream2[0])),
               f"{name}: records differ between two kernel runs")
-        print(f"{name}: int records equal, planes bitwise={bitwise}, max "
+        del stream, stream2
+        print(f"{name}: int records equal, planes bitwise={bitwise}"
+              + (", stream planes bitwise (NaN for NaN)" if plan.n_stream
+                 else "") + f", max "
               f"abs err {e}, rec_f within rtol {RTOL_F} and reproducible "
               f"(max |rec_f| {float(rec_f.abs().max()):.6g}), alive after "
               f"{K} iterations {int(ref_rec[K - 1, 0])}", flush=True)
@@ -568,7 +681,7 @@ def main():
         g = ctypes.c_int(0)
         _build.check(lib.fused_transport_grid(
             packed.shape[1], kk, plan_p.n_rec_cols, plan_p.n_frec_cols,
-            int(plan_p.has_fields), ctypes.byref(g)), "occupancy query")
+            plan_p.kernel_variant, ctypes.byref(g)), "occupancy query")
         grids[kk] = g.value
     n_starts = int((starts_p[0, :k_p] > -(2 ** 30)).sum())
     print(f"Planck chunk 0: {packed.shape[1]} slots x {k_p} iterations, ops "
@@ -655,7 +768,7 @@ def main():
     g = ctypes.c_int(0)
     _build.check(lib.fused_transport_grid(
         packed.shape[1], k_m, plan_m.n_rec_cols, plan_m.n_frec_cols,
-        int(plan_m.has_fields), ctypes.byref(g)), "occupancy query")
+        plan_m.kernel_variant, ctypes.byref(g)), "occupancy query")
     grid_blocks_m = g.value
     print(f"media chunk 0: {packed.shape[1]} slots x {k_m} iterations, ops "
           f"{[op.kind for op in plan_m.ops]}, {plan_m.n_rec_cols} int + "
@@ -682,6 +795,33 @@ def main():
           + ", ".join(f"{k} {v:.2f}" for k, v in terms.items())
           + f") per chunk [{card}]", flush=True)
     del packed, out, sched_m
+
+    phase("fused_transport vs twin on the stream and geometry plans (2**20 "
+          "slots, 256 iterations)")
+    L_geo = 64 * C_LIGHT * 0.001
+    gpk = torch.from_numpy(geometry_packed(1 << 20, L_geo, 12)).to(dev)
+    for name, plan in geometry_plans(F, K, L_geo).items():
+        plain_ms = compare(name, gpk, sched, K, plan, None, "escape",
+                           need_bitwise=True)
+        out = torch.empty_like(gpk)
+        F.fused_transport(gpk, out, sched, seed, K, plan)
+        ms = cuda_ms(lambda: F.fused_transport(gpk, out, sched, seed, K,
+                                               plan), 5, torch)
+        times[name] = ms
+        b_ms, b_by = transport_bound(plan, gpk.shape[1], K, None)
+        print(f"{name} at 2**20 x {K}: kernel {ms:.3f} ms, twin "
+              f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), stream "
+              f"{stream_bytes(plan, gpk.shape[1]) / 2 ** 20:.0f} MiB per "
+              f"chunk [{card}]", flush=True)
+    del gpk, out
+
+    eft = path_chunk0(
+        "escape-chunk-0", escape_sim(phys, sampler, ESC_N, dev)[0], F,
+        torch, lib, compare, "escape", card,
+        ["kin", "iso", "del", "cross", "scross", "sabsorb"])
+    cft = path_chunk0(
+        "cavity-chunk-0", cavity_sim(phys, CAV_N, dev)[0], F, torch, lib,
+        compare, "cavity", card, ["kin", "reflect", "iso", "trace"])
 
     phase("planck_gen vs twin (10**7 samples)")
     n_gen = 10_000_000
@@ -800,8 +940,11 @@ def main():
     planck = planck_path(torch, phys, F, P, sampler, dev, card)
     beer_lambert(torch, phys, grid_m, dev, card, grid_blocks_m)
     media = media_path(torch, phys, F, grid_m, dev, card, mft)
+    escape = escape_path(torch, phys, F, sampler, dev, card, eft, light)
+    cavity = cavity_path(torch, phys, F, dev, card, cft)
     card_vs_cpu(torch, phys, F, sampler, err)
     media_card_vs_cpu(torch, phys, F, err)
+    geometry_card_vs_cpu(torch, phys, F, sampler, err)
 
     ft_src = {"name": "fused_transport", "route": "cuda",
               "source": "physicl_tpu_torch/csrc/fused_transport.cu",
@@ -813,6 +956,10 @@ def main():
          "max_abs_err": err["planck"], **pft, "library_ms": None},
         {**ft_src, "path": "media", "launches": media["fused_launches"],
          "max_abs_err": err["media"], **mft, "library_ms": None},
+        {**ft_src, "path": "escape", "launches": escape["fused_launches"],
+         "max_abs_err": err["escape"], **eft, "library_ms": None},
+        {**ft_src, "path": "cavity", "launches": cavity["fused_launches"],
+         "max_abs_err": err["cavity"], **cft, "library_ms": None},
         {"name": "planck_gen", "route": "cuda",
          "source": "physicl_tpu_torch/csrc/planck_gen.cu",
          "replaces": "physicl_tpu/light.py:332", "path": "planck",
@@ -1054,6 +1201,541 @@ def media_plans(F, light, chunk, S, nv, seed=0):
             F._Op("del", coef=a_a, n_fn=expr, a_fn=a_fn, cols=(0,)),
             F._Op("sign", cols=(1, 2))], 5, 1),
     }
+
+
+def geometry_packed(C, L, seed):
+    """Seeded (15, C) packed photons uniform in the box [0, L]**3, random
+    directions at c, energies in [0.5, 2], ~90% alive."""
+    rng = np.random.default_rng(seed)
+    p = np.zeros((15, C), np.float32)
+    p[0:3] = rng.uniform(0.0, L, (3, C))
+    d = rng.normal(size=(3, C))
+    p[6:9] = d / np.linalg.norm(d, axis=0) * C_LIGHT
+    p[12] = rng.uniform(0.5, 2.0, C)
+    p[13] = rng.uniform(size=C) < 0.9
+    p[14] = 1.0
+    return p
+
+
+def geometry_plans(F, chunk, L):
+    """The four stream and geometry plans over the box [0, L]**3 (c dt =
+    L / 64): a reflecting box traced in float32 with scatter flags; a
+    periodic box traced in bfloat16 every 4th iteration; analog absorption,
+    a weighted shell tally, a central absorber and a plane capturing
+    energies; an escape sphere with a counting shell tally
+    (tests/test_torch_cuda.py holds the same plans at 2**16 x 64)."""
+    c_dt = L / 64
+    a_s = 0.05 / c_dt
+    box = ((0.0, L),) * 3
+    h = L / 2
+
+    def plan(ops, n_rec, n_f=0, n_stream=0, every=1, dtype="float32"):
+        return F.FusedPlan(ops=ops, n_rec_cols=n_rec, chunk=chunk,
+                           const_norm_speed=C_LIGHT, n_frec_cols=n_f,
+                           n_stream=n_stream, stream_every=every,
+                           stream_dtype=dtype)
+
+    iso = F._Op("iso", coef=a_s, c_val=C_LIGHT)
+    return {
+        "geom-reflect-trace-f32-dv": plan([
+            F._Op("kin"), iso, F._Op("reflect", bounds=box),
+            F._Op("trace", stream0=0, stream_scat=True)], 1, n_stream=4),
+        "geom-periodic-trace-bf16-every4": plan([
+            F._Op("kin"), iso, F._Op("periodic", bounds=box),
+            F._Op("trace", stream0=0, stream_every=4)], 1, n_stream=3,
+            every=4, dtype="bfloat16"),
+        "geom-del-scross-w-sabsorb-in-cross-ecap": plan([
+            F._Op("kin"), iso, F._Op("del", coef=0.01 / c_dt),
+            F._Op("scross", sphere=(h, h, h, 0.3 * L), cols=(1, 0),
+                  weighted=True),
+            F._Op("sabsorb", sphere=(h, h, h, 0.12 * L), inside=True),
+            F._Op("cross", cols=(2,),
+                  axes=((0, h + 0.37 * c_dt, 3, -1, 0),))], 4, n_f=1,
+            n_stream=1),
+        "geom-sabsorb-scross": plan([
+            F._Op("kin"), iso,
+            F._Op("sabsorb", sphere=(h, h, h, 0.45 * L)),
+            F._Op("scross", sphere=(h, h, h, 0.4 * L), cols=(-1, 1))], 2),
+    }
+
+
+def stream_equal(a, b):
+    """Stream buffers equal bit for bit, every NaN mapped to one pattern
+    (``torch.equal`` is False wherever either side holds a NaN)."""
+    import torch
+
+    width = torch.int16 if a.element_size() == 2 else torch.int32
+
+    def bits(x):
+        return torch.where(torch.isnan(x), float("nan"), x).view(width)
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(bits(a), bits(b)))
+
+
+def stream_bytes(plan, slots):
+    """Bytes of one launch's stream buffer."""
+    elem = 2 if plan.stream_dtype == "bfloat16" else 4
+    return plan.n_stream_rows * plan.n_stream * slots * elem
+
+
+def bf16_bins(torch, L, n):
+    """Edges of n bins over [0, L] on the bfloat16 grid (the values nearest
+    j L / n, j = 1 .. n-1) and each bin's share of a uniform [0, L] once
+    rounded to nearest-even bfloat16: a value rounds up to an edge from
+    half-way below it."""
+    e = torch.tensor([j * L / n for j in range(1, n)]).to(torch.bfloat16)
+    below = (e.view(torch.int16) - 1).view(torch.bfloat16)
+    e, below = e.double().numpy(), below.double().numpy()
+    bounds = np.concatenate([[0.0], (e + below) / 2, [L]])
+    return e, np.diff(bounds) / L
+
+
+def isotropic_v(torch, n, c, gen, dev):
+    """(3, n) float32 directions uniform on the sphere, at speed c."""
+    d = torch.randn((3, n), generator=gen, device=dev)
+    return d / torch.linalg.vector_norm(d, dim=0) * c
+
+
+def escape_sim(phys, sampler, n, dev, seed=17, absorb=True, trace=False,
+               radius=ESC_R):
+    """Path A, escape flux and spectrum from a scattering sphere: n photons
+    from r = 0, isotropic at c, Planck energies from ``sample_device``;
+    UpdateTime, kinematics, isotropic scattering (A n c dt = 0.05),
+    absorption (p = 1e-3 per iteration), a plane at x = R/2 capturing the
+    crossing photons' energies (list mode), the shell tally at R and the
+    escape sphere R = 32 c dt (``radius``, in c dt); 1024 iterations.
+    ``absorb=False`` drops the absorption; ``trace`` adds an unstrided
+    float32 trace held on the card. Returns ``(sim, plane tally, shell
+    tally, trace or None)``."""
+    import torch
+
+    light = phys.light
+    c_dt = float(light.c) * ESC_DT
+    R = radius * c_dt
+    sim = phys.Simulation(until_t=(ESC_ITERS - 0.5) * ESC_DT, seed=seed,
+                          device=dev)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(ESC_DT)))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    sim.add_step(2, light.ScatterIsotropicStep(A=ESC_SCATTER / c_dt, n=1.0))
+    if absorb:
+        sim.add_step(3, light.ScatterDeleteStep(1.0, ESC_ABSORB / c_dt))
+    plane = light.ScatterMeasureStep(None, True, [(R / 2, np.nan, np.nan)],
+                                     measure_E=True)
+    sim.add_step(4, plane)
+    shell = light.SphericalShellMeasureStep(radius=R)
+    sim.add_step(5, shell)
+    sim.add_step(6, phys.newton.AbsorbingSphereStep(R))
+    tr = None
+    if trace:
+        tr = light.TracePathMeasureStep(None)
+        tr.device_hold_bytes = 1 << 36  # keep every chunk on the card
+        sim.add_step(7, tr)
+    E0 = sampler.sample_device(seed, n, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v = isotropic_v(torch, n, float(light.c), gen, dev)
+    sim.add_photons(light.generate_photon_state(n, E=E0, v=v, device=dev))
+    return sim, plane, shell, tr
+
+
+def cavity_sim(phys, n, dev, seed=29, iters=CAV_ITERS, every=CAV_EVERY,
+               dtype="bfloat16", hold=CAV_HOLD):
+    """Path B, traced diffusion in a closed cavity: n photons uniform in
+    [0, L]**3 (L = 64 c dt), isotropic at c; UpdateTime, kinematics, the
+    reflecting box, isotropic scattering with pcoll = 0.3, and a trace
+    every ``every`` iterations in ``dtype`` with ``device_hold_bytes =
+    hold``. Returns ``(sim, trace)``."""
+    import torch
+
+    light = phys.light
+    c_dt = float(light.c) * CAV_DT
+    L = CAV_L * c_dt
+    sim = phys.Simulation(until_t=(iters - 0.5) * CAV_DT, seed=seed,
+                          device=dev)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(CAV_DT)))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    sim.add_step(2, phys.newton.ReflectingBoundaryStep(((0.0, L),) * 3))
+    sim.add_step(3, light.ScatterIsotropicStep(A=CAV_PCOLL / c_dt, n=1.0))
+    tr = light.TracePathMeasureStep(None, trace_every=every,
+                                    trace_dtype=dtype)
+    tr.device_hold_bytes = hold
+    sim.add_step(4, tr)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = torch.rand((3, n), generator=gen, device=dev) * L
+    v = isotropic_v(torch, n, float(light.c), gen, dev)
+    sim.add_photons(light.generate_photon_state(n, E=1.0, r=r, v=v,
+                                                device=dev))
+    return sim, tr
+
+
+def path_chunk0(name, sim, F, torch, lib, compare, path, card, kinds):
+    """Phase: fused_transport against the twin on a path's first chunk, as
+    its provider hands it over; returns the kernel's entry numbers."""
+    import ctypes
+
+    from physicl_tpu_torch.ops import _build
+
+    phase(f"fused_transport vs twin on the {path} path's first chunk")
+    packed, sched, seed, k, plan, _ = first_chunk_inputs(sim, F)
+    del sim
+    check([op.kind for op in plan.ops] == kinds and plan.n_stream,
+          f"{name}: plan {[op.kind for op in plan.ops]} is not the path's")
+    g = ctypes.c_int(0)
+    _build.check(lib.fused_transport_grid(
+        packed.shape[1], k, plan.n_rec_cols, plan.n_frec_cols,
+        plan.kernel_variant, ctypes.byref(g)), "occupancy query")
+    print(f"{name}: {packed.shape[1]} slots x {k} iterations, ops "
+          f"{[op.kind for op in plan.ops]}, const-norm "
+          f"{plan.const_norm_speed is not None}; grid {g.value} blocks "
+          f"({g.value / 132:.2f} per SM); stream {plan.n_stream} planes "
+          f"every {plan.stream_every} in {plan.stream_dtype}, "
+          f"{plan.n_stream_rows} rows = {stream_bytes(plan, packed.shape[1])}"
+          " B per chunk", flush=True)
+    out = {"plain_ms": compare(name, packed, sched, k, plan, None, path,
+                               seed, need_bitwise=True)}
+    res = torch.empty_like(packed)
+    out["ms"] = cuda_ms(lambda: F.fused_transport(packed, res, sched, seed,
+                                                  k, plan), 3, torch)
+    out["bound_ms"], out["bound_by"] = transport_bound(plan, packed.shape[1],
+                                                       k, None)
+    terms = bound_terms(*transport_counts(plan, packed.shape[1], k, None))
+    print(f"{name}: kernel {out['ms']:.2f} ms, twin {out['plain_ms']:.1f} "
+          f"ms, bound {out['bound_ms']:.2f} ms ({out['bound_by']}; ms per "
+          "term: " + ", ".join(f"{t} {v:.2f}" for t, v in terms.items())
+          + f") per chunk [{card}]", flush=True)
+    return out
+
+
+def run_sim(torch, sim, profile=False):
+    """start() and join() ``sim``; returns ``(wall s, profiler or None,
+    peak bytes)``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        prof = prof_ctx(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+        prof.__enter__()
+    t0 = time.perf_counter()
+    sim.start()
+    sim.join()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    return wall, prof, torch.cuda.max_memory_allocated()
+
+
+def steady_rate(sim, per_iter):
+    """Photon-steps/s over the dispatch loop after the first chunk, on the
+    device's clock; ``per_iter`` is the photons each iteration carried."""
+    first_done, last_done = sim.chunk_log[0][2], sim.chunk_log[-1][2]
+    n0 = sim.chunk_log[0][1]
+    steady_s = first_done.elapsed_time(last_done) * 1e-3
+    return float(np.sum(per_iter[n0:])) / steady_s, steady_s
+
+
+def escape_path(torch, phys, F, sampler, dev, card, eft, light):
+    """Phase: path A through ``Simulation`` at 10**7 photons (twice, the
+    second profiled), then the photon balance at 2**20 photons without
+    absorption; returns the first run's launch count."""
+    phase(f"escape path: {ESC_N} photons, Planck energies, R = {ESC_R} c "
+          f"dt, {ESC_ITERS} iterations")
+
+    def run(profile):
+        F.fused_transport.launches = 0
+        t0 = time.perf_counter()
+        sim, plane, shell, _ = escape_sim(phys, sampler, ESC_N, torch.device(
+            dev))
+        torch.cuda.synchronize()
+        t_pop = time.perf_counter() - t0
+        wall, prof, peak = run_sim(torch, sim, profile)
+        return (sim, plane, shell, wall, t_pop, prof, peak,
+                F.fused_transport.launches)
+
+    sim, plane, shell, wall, t_pop, _, peak, launches = run(False)
+    print(sim.explain_plan())
+    check(sim.used_fused and launches >= 19,
+          f"escape path: {launches} kernel launches")
+    chunks = [n for _, n, _ in sim.chunk_log]
+    check(len(sim.ts) == ESC_ITERS and sum(chunks) == ESC_ITERS
+          and len(plane.data) == ESC_ITERS and len(shell.data) == ESC_ITERS,
+          f"escape path: {len(sim.ts)} iterations, chunks {chunks}")
+    counts = np.array([int(r[2]) for r in plane.data])
+    lens = np.array([len(r[3]) for r in plane.data])
+    check(np.array_equal(counts, lens), "escape path: an energy list is not "
+          "as long as its count column")
+    E = np.concatenate([np.asarray(r[3], np.float64) for r in plane.data])
+    spec = density_check(E, light, SPECTRUM_TOL)
+    alive = np.array([int(r[1]) for r in shell.data])
+    esc = np.array([int(r[2]) for r in shell.data])
+    check(ESC_N * 0.99 < alive[0] < ESC_N and alive[-1] < alive[0]
+          and esc.sum() > 0,
+          f"escape path: alive {alive[0]} .. {alive[-1]}, escapes "
+          f"{esc.sum()}")
+    rate, steady_s = steady_rate(sim, alive)
+    print(f"escape path: chunks of {chunks[0]} ({len(chunks)} dispatches), "
+          f"fused_transport launches {launches}; {len(E)} listed energies "
+          f"(each iteration's list as long as its count), spectrum within "
+          f"{spec:.4f} of the Planck density; shell crossings {esc.sum()}, "
+          f"alive {alive[0]} -> {alive[-1]}")
+    slot_rate = sim.sim_state.capacity * sum(chunks[1:]) / steady_s
+    print(f"escape path rate: {rate:.4e} alive photon-steps/s "
+          f"({slot_rate:.4e} slot-steps/s) over the dispatch loop after the "
+          f"first chunk, device clock ({steady_s * 1e3:.1f} ms); "
+          f"{alive.sum() / wall:.4e} from start() "
+          f"({wall:.3f} s wall); set-up {sim.setup_seconds:.3f} s in start()"
+          f" + {t_pop * 1e3:.1f} ms sample_device and generate_photon_state; "
+          f"peak memory {peak / 2 ** 30:.2f} GiB; kernel {eft['ms']:.2f} ms "
+          f"per chunk against a bound of {eft['bound_ms']:.2f} ms "
+          f"({eft['bound_by']}) [{card}]", flush=True)
+    rows = [(r[1], r[2], r[3]) for r in plane.data]
+    shell_rows = np.asarray(shell.data)
+    out = {"fused_launches": launches}
+    del sim, plane, shell, E
+
+    sim2, plane2, shell2, _, _, prof, _, _ = run(True)
+    check(rows == [(r[1], r[2], r[3]) for r in plane2.data]
+          and np.array_equal(shell_rows, np.asarray(shell2.data)),
+          "escape path: a second run with the same seed gave other tallies "
+          "or energy lists")
+    busy, span = device_busy(prof, torch)
+    print(f"escape path device idle share (profiled second run, first to "
+          f"last fused_transport kernel, list compaction included): "
+          f"{1 - busy / span:.4f} ({busy:.1f} ms busy of {span:.1f} ms) "
+          f"[{card}]")
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=10))
+    del sim2, plane2, shell2, prof, rows
+
+    # photon balance: every escape is one outward shell crossing, except
+    # at the seam, where the kernel's float32 r**2 lands on R**2 (counted
+    # without dying, so counted again when the photon moves on) or within
+    # rounding of it (r - dr is recomputed, so a crossing can be missed).
+    # Photons from r = 0 that have not scattered land on the c dt lattice,
+    # at R = 32 c dt; the run is repeated off the lattice, where the seam
+    # is rare and the balance tight
+    for radius in (ESC_R, ESC_R + 0.37):
+        phase(f"escape path photon balance: {ESC_CLOSURE_N} photons without "
+              f"absorption, traced, R = {radius} c dt")
+        sim, _, shell, tr = escape_sim(phys, sampler, ESC_CLOSURE_N,
+                                       torch.device(dev), seed=23,
+                                       absorb=False, trace=True,
+                                       radius=radius)
+        run_sim(torch, sim)
+        esc = int(np.asarray(shell.data)[:, 2].sum())
+        died = ESC_CLOSURE_N - int(sim.sim_state.n_alive)
+        R = np.float32(radius * float(light.c) * ESC_DT)
+        R2 = R * R
+        seam_d = 64 * float(np.spacing(R2))
+        on_sphere = seam = 0
+        for x in tr._pos:
+            b = x.buf[:-(-x.n_valid // x.every), x.p0:x.p0 + 3]
+            # the kernel's float32 r**2 (centre 0), summed left to right
+            r2 = b[:, 0] * b[:, 0] + b[:, 1] * b[:, 1] + b[:, 2] * b[:, 2]
+            on_sphere += int((r2 == float(R2)).sum())
+            seam += int(((r2 - float(R2)).abs() <= seam_d).sum())
+        balance = esc - died
+        check(abs(balance) <= 2 * seam,
+              f"photon balance at R = {radius} c dt: {esc} shell crossings "
+              f"for {died} escapes, {seam} landings at the seam")
+        print(f"escape path balance, R = {radius} c dt: N0 {ESC_CLOSURE_N} "
+              f"= alive {ESC_CLOSURE_N - died} + escapes {died}; shell "
+              f"crossings {esc} = escapes {balance:+d}; landings exactly on "
+              f"r**2 = R**2: {on_sphere}, within 64 ulp of it: {seam}",
+              flush=True)
+        del sim, shell, tr
+    return out
+
+
+def cavity_path(torch, phys, F, dev, card, cft):
+    """Phase: path B through ``Simulation`` at 10**6 photons (twice, the
+    second profiled), then the bfloat16 stride-8 trace against the float32
+    unstrided one at 10**5 photons; returns the first run's launches."""
+    phase(f"cavity path: {CAV_N} photons, reflecting box of {CAV_L} c dt, "
+          f"{CAV_ITERS} iterations traced every {CAV_EVERY} in bfloat16")
+    light = phys.light
+    L = CAV_L * float(light.c) * CAV_DT
+
+    def run(profile):
+        F.fused_transport.launches = 0
+        sim, tr = cavity_sim(phys, CAV_N, torch.device(dev))
+        wall, prof, peak = run_sim(torch, sim, profile)
+        return sim, tr, wall, prof, peak, F.fused_transport.launches
+
+    sim, tr, wall, _, peak, launches = run(False)
+    print(sim.explain_plan())
+    chunks = [n for _, n, _ in sim.chunk_log]
+    check(sim.used_fused and launches >= 2 and chunks[:2] == [1024, 1024],
+          f"cavity path: launches {launches}, chunks {chunks}")
+    check(sim.plan_report.notes[-1].endswith("off"),
+          "cavity path: a reflection before scattering must turn the "
+          "const-norm path off")
+    spilled = [isinstance(x.buf, np.ndarray) for x in tr._pos]
+    check(spilled[0] and not spilled[-1], f"cavity path: spills {spilled}")
+    st = sim.sim_state
+    speed = torch.linalg.vector_norm(st.v[:, :CAV_N].double(), dim=0)
+    v_err = float((speed / float(light.c) - 1).abs().max())
+    check(v_err < 1e-6, f"cavity path: |v| off c by {v_err:.2e}")
+    t_arrays = time.perf_counter()
+    ts, pos, alive, _ = tr.as_arrays()
+    t_arrays = time.perf_counter() - t_arrays
+    C = st.capacity
+    check(pos.shape == (CAV_ITERS // CAV_EVERY, 3, C)
+          and ts == list(np.asarray(sim.ts)[::CAV_EVERY]),
+          f"cavity path: as_arrays {pos.shape}, {len(ts)} sampled times")
+    inside = pos[:, :, :CAV_N]
+    check(bool(alive[:, :CAV_N].all()) and not alive[:, CAV_N:].any(),
+          "cavity path: alive rows wrong")
+    lo, hi = float(inside.min()), float(inside.max())
+    check(lo >= 0.0 and hi <= L * (1 + 2.0 ** -8),
+          f"cavity path: traced positions [{lo}, {hi}] leave [0, {L}] (by "
+          "more than a bfloat16 rounding)")
+    # 16 bins with edges on the bfloat16 grid, each expected to hold the
+    # share of a uniform [0, L] that rounds into it. The two bins at the
+    # walls hold fewer: a photon folded by a wall has |dr| < c dt in that
+    # iteration, and its collision probability is A n |dr| (the JAX
+    # package's semantics, const-norm off), so it keeps its inward
+    # direction more often. They are held to 5% and printed.
+    edges, share = bf16_bins(torch, L, 16)
+    worst, wall_dev = 0.0, []
+    for d in range(3):
+        h = np.bincount(np.searchsorted(edges, inside[-1, d], side="right"),
+                        minlength=16)
+        z = (h - CAV_N * share) / np.sqrt(CAV_N * share * (1 - share))
+        worst = max(worst, float(np.abs(z[1:-1]).max()))
+        wall_dev += [float(h[i] / (CAV_N * share[i]) - 1) for i in (0, 15)]
+    check(worst <= 5.0 and max(abs(w) for w in wall_dev) < 0.05,
+          f"cavity path: last row not flat ({worst:.2f} sigma inside, "
+          f"walls {wall_dev})")
+    rate, steady_s = steady_rate(sim, np.full(len(sim.ts), CAV_N))
+    print(f"cavity path: chunks {chunks}, fused_transport launches "
+          f"{launches}; chunk 0 spilled to host; as_arrays {pos.shape} in "
+          f"{t_arrays:.2f} s; positions in [{lo:.6g}, {hi:.6g}] (box "
+          f"{L:.6g}); last row's x/y/z histograms flat within {worst:.2f} "
+          "binomial sigma on the 14 inner bins, the wall bins off flat by "
+          + ", ".join(f"{w:+.4f}" for w in wall_dev)
+          + f"; |v| = c within {v_err:.2e}")
+    print(f"cavity path rate: {rate:.4e} photon-steps/s over the dispatch "
+          f"loop after the first chunk, device clock ({steady_s * 1e3:.1f} "
+          f"ms); {CAV_N * len(sim.ts) / wall:.4e} from start() ({wall:.3f} s "
+          f"wall); set-up {sim.setup_seconds:.3f} s; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; kernel {cft['ms']:.2f} ms per chunk "
+          f"against a bound of {cft['bound_ms']:.2f} ms ({cft['bound_by']}) "
+          f"[{card}]", flush=True)
+    last = pos[-1].copy()
+    final = F.pack_state(st).clone()
+    out = {"fused_launches": launches}
+    del sim, tr, st, pos, alive, inside
+
+    sim2, tr2, _, prof, _, _ = run(True)
+    check(torch.equal(F.pack_state(sim2.sim_state), final)
+          and np.array_equal(tr2.as_arrays()[1][-1], last, equal_nan=True),
+          "cavity path: a second run with the same seed differs")
+    busy, span = device_busy(prof, torch)
+    print(f"cavity path device idle share (profiled second run, first to "
+          f"last fused_transport kernel, the spill included): "
+          f"{1 - busy / span:.4f} ({busy:.1f} ms busy of {span:.1f} ms) "
+          f"[{card}]")
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=8))
+    del sim2, tr2, final, prof
+
+    phase("cavity path: bfloat16 every 8 against float32 every iteration "
+          "(10**5 photons, 256 iterations)")
+    arrays = {}
+    for every, dtype in ((1, "float32"), (CAV_EVERY, "bfloat16")):
+        sim, tr = cavity_sim(phys, 100_000, torch.device(dev), iters=256,
+                             every=every, dtype=dtype, hold=1 << 36)
+        run_sim(torch, sim)
+        arrays[dtype] = tr.as_arrays()[1]
+    want = torch.from_numpy(arrays["float32"][::CAV_EVERY]).to(
+        torch.bfloat16).float().numpy()
+    check(arrays["bfloat16"].shape == want.shape
+          and np.array_equal(arrays["bfloat16"], want, equal_nan=True),
+          "cavity path: the bfloat16 stride-8 trace is not the rounded "
+          "float32 trace")
+    print(f"cavity path: bfloat16 stride-{CAV_EVERY} trace "
+          f"{arrays['bfloat16'].shape} == round-to-nearest-even of the "
+          "float32 trace's every 8th row, bitwise", flush=True)
+    return out
+
+
+def geometry_card_vs_cpu(torch, phys, F, sampler, err):
+    """Phase: small Simulations with every new step on the card and on the
+    CPU twin: a scattering, absorbing reflecting box with two energy-list
+    planes, a weighted shell tally and a traced path with scatter flags;
+    a periodic box with a central absorber, a counting shell tally and a
+    bfloat16 trace every 4th iteration."""
+    phase("stream and geometry Simulations on the card against the CPU twin "
+          "(2**16 photons)")
+    light = phys.light
+    c_dt = float(light.c) * 0.001
+    L = 24 * c_dt
+    h = L / 2
+    n = 1 << 16
+    for case in ("reflect", "periodic"):
+        runs = {}
+        for where in ("cuda", "cpu"):
+            sim = phys.Simulation(until_t=0.0475, seed=8, chunk_steps=16,
+                                  device=where)
+            sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
+            sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+            sim.add_step(2, light.ScatterIsotropicStep(A=0.1 / c_dt, n=1.0))
+            if case == "reflect":
+                sim.add_step(3, light.ScatterDeleteStep(1.0, 0.01 / c_dt))
+                sim.add_step(4, phys.newton.ReflectingBoundaryStep(
+                    ((0.0, L),) * 3))
+                tally = light.ScatterMeasureStep(
+                    None, True, [(h + 0.37 * c_dt, np.nan, np.nan),
+                                 (np.nan, 0.3 * L, np.nan)], measure_E=True)
+                shell = light.SphericalShellMeasureStep(
+                    radius=0.31 * L, center=(h, h, h), weighted=True)
+                tr = light.TracePathMeasureStep(None, trace_dv=True)
+            else:
+                sim.add_step(4, phys.newton.PeriodicBoundaryStep(
+                    ((0.0, L),) * 3))
+                sim.add_step(3, phys.newton.AbsorbingSphereStep(
+                    0.113 * L, center=(h, h, h), kill_inside=True))
+                tally = None
+                shell = light.SphericalShellMeasureStep(
+                    radius=0.383 * L, center=(h, h, h))
+                tr = light.TracePathMeasureStep(None, trace_every=4,
+                                                trace_dtype="bfloat16")
+            if tally is not None:
+                sim.add_step(5, tally)
+            sim.add_step(6, shell)
+            sim.add_step(7, tr)
+            rng = np.random.default_rng(4)
+            d = rng.normal(size=(3, n))
+            sim.add_photons(light.generate_photon_state(
+                n, E=sampler.sample_device(3, n, device="cpu"),
+                v=d / np.linalg.norm(d, axis=0) * float(light.c),
+                r=rng.uniform(0.1, 0.9, (3, n)) * L, device=where))
+            sim.start()
+            sim.join()
+            runs[where] = (sim, tally and tally.data, np.asarray(shell.data),
+                           tr.as_arrays())
+        (gs, gl, gsh, ga), (cs, cl, csh, ca) = runs["cuda"], runs["cpu"]
+        check(gs.ts == cs.ts and len(gs.ts) == 48,
+              f"{case}: sim.ts differs between card and CPU")
+        if case == "reflect":
+            check(np.array_equal(gsh[:, :2], csh[:, :2])
+                  and np.allclose(gsh[:, 2], csh[:, 2], rtol=RTOL_F,
+                                  atol=0), f"{case}: shell tallies differ")
+            check(all(len(a) == len(b) and all(
+                (x == y) if not isinstance(y, list) else x == y
+                for x, y in zip(a, b)) for a, b in zip(gl, cl)),
+                f"{case}: energy lists or counts differ")
+            n_listed = sum(len(r[3]) + len(r[5]) for r in gl)
+        else:
+            check(np.array_equal(gsh, csh), f"{case}: shell counts differ")
+            n_listed = 0
+        check(ga[0] == ca[0] and np.array_equal(ga[1], ca[1], equal_nan=True)
+              and np.array_equal(ga[2], ca[2])
+              and (ga[3] is None or np.array_equal(ga[3], ca[3])),
+              f"{case}: traces differ between card and CPU")
+        print(f"{case} card == CPU: sim.ts, tallies, {n_listed} listed "
+              f"energies, trace {ga[1].shape} bitwise (NaN for NaN)",
+              flush=True)
 
 
 def record_chain(C, grid_blocks):

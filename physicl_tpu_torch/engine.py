@@ -34,6 +34,20 @@ __all__ = ["Step", "UpdateTimeStep", "MeasureStep", "Object", "Simulation",
            "IndexException", "UntilT", "ExtinctionExit", "PlanReport"]
 
 
+_RECORD_BUDGET_MIN = 256 << 20
+_RECORD_BUDGET_MAX = 2 << 30
+
+
+def _default_record_budget(device: torch.device) -> int:
+    """Per-dispatch stream budget: the card's memory / 8 clamped to [256
+    MB, 2 GB] (two budgets can be in flight, and the state needs the
+    rest); 2 GB on the CPU, where host memory is not the constraint."""
+    if device.type != "cuda":
+        return _RECORD_BUDGET_MAX
+    total = torch.cuda.get_device_properties(device).total_memory
+    return max(_RECORD_BUDGET_MIN, min(_RECORD_BUDGET_MAX, total // 8))
+
+
 class IndexException(Exception):
     """Raised when adding a step at an occupied index."""
 
@@ -221,6 +235,11 @@ class Simulation(threading.Thread):
     the arena full, and ``("recycle", chunk index, spawn mark before,
     spawn mark after)`` where the engine compacts it.
 
+    ``max_record_bytes`` caps one dispatch's stream buffer (trace
+    positions, captured energies): by default the card's memory / 8 clamped
+    to [256 MB, 2 GB], 2 GB on the CPU; assign it to override. Plans with
+    stream planes keep at most 2 chunks in flight beyond the harvested one.
+
     ``sim_state`` is the state of the newest dispatched chunk: each chunk
     writes its own packed buffer, so it is a snapshot that later chunks do
     not overwrite, but on a CUDA device its values are final only once the
@@ -246,6 +265,7 @@ class Simulation(threading.Thread):
         self.fuse = "auto"
         self.fused_pipeline_depth = 4
         self.mesh = None
+        self._max_record_bytes: Optional[int] = None
         # population maintenance is not ported: the JAX default (True)
         # would compact the population, so the port defaults to off and
         # refuses True
@@ -284,6 +304,18 @@ class Simulation(threading.Thread):
         self.population_log: List[tuple] = []
         self.setup_seconds: Optional[float] = None
         self._host_n_alive = 0
+        self._initial_count = 0  # slots of the initial population
+        self._hwm = 0            # spawn mark (trace rows cover [0, hwm))
+
+    @property
+    def max_record_bytes(self) -> int:
+        if self._max_record_bytes is not None:
+            return self._max_record_bytes
+        return _default_record_budget(self.device)
+
+    @max_record_bytes.setter
+    def max_record_bytes(self, v: int) -> None:
+        self._max_record_bytes = int(v)
 
     # -- population --------------------------------------------------------
 
@@ -343,13 +375,17 @@ class Simulation(threading.Thread):
 
     def _population_policies(self):
         """``(recycle_ok, emit_per_iter)``: a continuous source recycles
-        slots. (No ported step needs stable slot ids, the JAX package's bar
-        to recycling; shrinking, its other slot-moving policy, is not
-        ported: ``auto_shrink=True`` is refused.)"""
+        slots unless a step needs stable slot ids (a trace's rows are
+        slots); emission then stops at capacity. (Shrinking, the JAX
+        package's other slot-moving policy, is not ported:
+        ``auto_shrink=True`` is refused.)"""
+        steps = list(self.steps.values())
+        stable_ids = any(getattr(s, "needs_stable_ids", False)
+                         for s in steps)
         emit_per_iter = sum(
-            getattr(s, "n_per_step", 0) for s in self.steps.values()
+            getattr(s, "n_per_step", 0) for s in steps
             if getattr(s, "needs_capacity_headroom", False))
-        return emit_per_iter > 0, emit_per_iter
+        return emit_per_iter > 0 and not stable_ids, emit_per_iter
 
     def _ordered_steps(self) -> List[Step]:
         # insertion order, NOT index order (reference semantics)
@@ -379,6 +415,7 @@ class Simulation(threading.Thread):
             self._pending_objects, self._pending_bulk, device=self.device,
             seed=self.seed, capacity=cap)
         self._host_n_alive = n0
+        self._initial_count = self._hwm = n0
         self.sim_state = state
         return state
 
@@ -440,9 +477,12 @@ class Simulation(threading.Thread):
             raise exc
 
     def _collect_records(self, steps, records, n_valid) -> None:
+        """Hand each step its records trimmed to the valid iterations.
+        Host records are numpy arrays (the trim is a view); stream records
+        take the trim as a bound and copy nothing."""
         for s in steps:
             prefix = f"{s._step_uid}/"
-            local = {k[len(prefix):]: np.asarray(v)[:n_valid]
+            local = {k[len(prefix):]: v[:n_valid]
                      for k, v in records.items() if k.startswith(prefix)}
             if local:
                 s.collect(self, local)
@@ -467,6 +507,9 @@ class Simulation(threading.Thread):
         from physicl_tpu_torch.population import PopulationManager
 
         depth = max(1, int(self.fused_pipeline_depth))
+        if provider.plan.n_stream:
+            # each chunk in flight holds up to max_record_bytes of stream
+            depth = min(depth, 2)
         pending: deque = deque()
         pop = PopulationManager(self)
 

@@ -3,7 +3,8 @@ subset): constants, the photon model, the Planck spectrum and its samplers,
 bulk photon populations (host or device), the continuous photon source,
 density fields (C expressions, layered and voxel media), isotropic
 scattering, absorption with implicit capture, roulette and deposition
-tallies, and the sign and plane-crossing measurements.
+tallies, the sign, plane-crossing (counts, sums, per-photon energy lists)
+and spherical-shell measurements, and path tracing.
 
 Statistical-parity details kept from the JAX package: the inclusive
 ``pcoll >= rand`` collision test and the angle-uniform (not area-uniform)
@@ -15,6 +16,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from typing import Callable, List
 
 from physicl_tpu_torch.engine import MeasureStep, Object, Step
 from physicl_tpu_torch.ops import fields as _fields
@@ -35,6 +38,7 @@ __all__ = [
     "layered_density", "voxel_density",
     "ScatterDeleteStep", "ScatterIsotropicStep",
     "ScatterSphericalStep", "ScatterMeasureStep", "ScatterSignMeasureStep",
+    "SphericalShellMeasureStep", "TracePathMeasureStep",
 ]
 
 c = Measurement(np.double(299792458), "m**1 s**-1")
@@ -693,14 +697,16 @@ class ScatterMeasureStep(MeasureStep):
     """Counts photons crossing axis-aligned planes each iteration. A plane
     is a 3-vector whose non-axis coordinates are NaN; a photon crossed it
     when ``r - dr <= L <= r`` in either direction. ``data`` rows are ``[t,
-    n, count0, (Esum0,) count1, ...]``.
+    n, count0, (E0,) count1, ...]``.
 
     ``weighted=True`` reports each plane's weight sum over crossing photons
     instead of the count, and energy flux as ``sum(w*E)``. ``measure_E=True``
-    with ``measure_E_mode="sum"`` adds each plane's energy sum; the
-    per-photon list mode (the JAX default mode) is refused by the prover
-    (code ``measure-E-list``): it needs stream planes, which are not
-    ported."""
+    adds each plane's energies: in ``measure_E_mode="list"`` (the default,
+    the reference's row format) the list of the crossing photons' energies,
+    ordered by slot, and the row is an object array; in ``"sum"`` their
+    sum. The kernel writes the energies into a stream plane (E where
+    crossed, NaN elsewhere); the engine compacts it on the device and
+    copies only the crossing photons' energies to the host."""
 
     def __init__(self, out_fn=None, measure_n: bool = True, measure_locs=(),
                  measure_E: bool = False, measure_E_mode: str = "list",
@@ -721,12 +727,238 @@ class ScatterMeasureStep(MeasureStep):
             self._axes.append((axis, float(loc[axis])))
 
     def collect(self, sim, records) -> None:
+        lists = self.measure_E and self.measure_E_mode == "list"
+        # per-iteration arrays of the crossing photons' energies
+        E_lists = ([records[f"E{j}"].per_iteration()
+                    for j in range(len(self._axes))] if lists else None)
         for i in range(len(records["t"])):
             row = [records["t"][i]]
             if self.measure_n:
                 row.append(records["n"][i])
             for j in range(len(self._axes)):
                 row.append(records[f"count{j}"][i])
-                if self.measure_E:
+                if lists:
+                    row.append(list(E_lists[j][i]))
+                elif self.measure_E:
                     row.append(float(records[f"Esum{j}"][i]))
+            self.data.append(np.array(row, dtype=object) if lists
+                             else np.array(row))
+
+
+class SphericalShellMeasureStep(MeasureStep):
+    """Counts particles crossing the spherical shell ``|r - center| =
+    radius`` each iteration: the escape-flux counterpart of the plane
+    tally, with its endpoint convention (``|r - dr - c|`` and ``|r - c|``
+    straddle the radius, either direction; a chord that enters and leaves
+    within one step is not counted). ``weighted=True`` sums statistical
+    weights. ``data`` rows ``[t(, n), crossings]``; CSV through
+    ``out_fn``."""
+
+    def __init__(self, out_fn=None, radius=1.0, center=(0.0, 0.0, 0.0),
+                 measure_n: bool = True, weighted: bool = False):
+        super().__init__(out_fn)
+        self.radius = float(raw_code_value(radius))
+        if self.radius <= 0:
+            raise ValueError(f"radius must be positive, got {self.radius}")
+        self.center = tuple(
+            float(x) for x in np.asarray(raw_code_value(center),
+                                         np.float64).reshape(3))
+        self.measure_n = measure_n
+        self.weighted = bool(weighted)
+
+    def collect(self, sim, records) -> None:
+        for i in range(len(records["t"])):
+            row = [records["t"][i]]
+            if self.measure_n:
+                row.append(records["n"][i])
+            row.append(records["count0"][i])
             self.data.append(np.array(row))
+
+
+def _bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
+    """bfloat16 bit patterns (uint16) as the float32 values they encode."""
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+class TracePathMeasureStep(MeasureStep):
+    """Records every object's position each sampled iteration;
+    ``terminate`` builds the reference's t-aligned matrix: first row
+    ``["t", t0, ...]``, then per slot ``[id_info(, freq), r vectors...,
+    NaN padding after death]``.
+
+    The kernel writes the positions into the chunk's stream buffer on the
+    device; each chunk's buffer stays there (one buffer shared by every
+    trace step of the chunk) until the matrix is assembled (``data`` /
+    :meth:`as_arrays` / CSV), except that chunks beyond
+    ``device_hold_bytes`` move to host memory oldest first.
+
+    ``trace_every=k`` samples the iterations that are global multiples of
+    k (the kernel's stream stride is the gcd of every trace step's);
+    ``trace_dtype="bfloat16"`` records rounded positions (8-bit mantissa,
+    float32 range; the transport stays float32) at half the stream bytes;
+    ``trace_dv=True`` adds each slot's scatter-event count after its id
+    (every iteration only). Slots must stay put for the rows to mean one
+    photon each, so a traced run never recycles slots
+    (``needs_stable_ids``)."""
+
+    needs_stable_ids = True
+    device_hold_bytes = 4 << 30
+    _data_override = None
+    _cached_rows = None
+
+    def __init__(self, out_fn=None, trace_type=Object,
+                 id_info_fn: Callable = lambda x: str(type(x)),
+                 trace_dv: bool = False, trace_every: int = 1,
+                 trace_dtype: str = "float32"):
+        super().__init__(out_fn)
+        self.trace_type = trace_type
+        self.id_info_fn = id_info_fn
+        self.trace_dv = trace_dv
+        self.trace_every = int(trace_every)
+        self.trace_dtype = str(trace_dtype)
+        if self.trace_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"trace_dtype {trace_dtype!r} not supported; use 'float32' "
+                "or 'bfloat16'")
+        if self.trace_every < 1:
+            raise ValueError("trace_every must be >= 1")
+        if self.trace_dv and self.trace_every > 1:
+            raise ValueError(
+                "trace_dv counts scatter events at every iteration and is "
+                "incompatible with strided tracing (trace_every > 1)")
+        self._pos: List = []    # per chunk: the stream record (_TraceRaw)
+        self._seen = 0          # valid global iterations consumed
+        self._gidx: List = []   # per chunk: sampled global iterations
+
+    def collect(self, sim, records) -> None:
+        # the chunk's raw stream buffer, trimmed to its valid iterations
+        x = records["traceraw"]
+        n_it = x.n_valid if x.n_valid >= 0 else x.buf.shape[0] * x.every
+        S = self.trace_every
+        if S > 1:
+            # buffer row m holds iteration seen + m * every: keep the rows
+            # on global multiples of trace_every
+            m = np.arange(-(-n_it // x.every))
+            g = self._seen + m * x.every
+            keep = (g % S) == 0
+            x.rows = m[keep]
+            self._gidx.append(g[keep])
+        self._seen += n_it
+        self._pos.append(x)
+        self._maybe_spill()
+
+    @staticmethod
+    def _held(x) -> int:
+        return (x.buf.numel() * x.buf.element_size()
+                if isinstance(x.buf, torch.Tensor) else 0)
+
+    def _maybe_spill(self) -> None:
+        """Move the oldest held chunks to host memory once the held total
+        exceeds ``device_hold_bytes`` (a tensor is held, a numpy array
+        spilled: on the CPU too, so the policy runs the same there)."""
+        total = sum(self._held(x) for x in self._pos)
+        for x in self._pos:
+            if total <= self.device_hold_bytes:
+                break
+            if isinstance(x.buf, torch.Tensor):
+                total -= self._held(x)
+                # through the shared holder: every trace step's record of
+                # this chunk references the same buffer
+                buf = x.buf.cpu()
+                x.hold.arr = (buf.view(torch.int16).numpy().view(np.uint16)
+                              if buf.dtype == torch.bfloat16
+                              else buf.numpy())
+
+    def _chunk_np(self, i):
+        """Chunk i as host arrays: positions (rows, 3, C) float32, alive
+        (rows, C) and scatter flags (rows, C) or None. Only this step's
+        sampled rows and planes leave the device."""
+        x = self._pos[i]
+        buf = x.buf
+        n_it = x.n_valid if x.n_valid >= 0 else buf.shape[0] * x.every
+        rows = (x.rows if x.rows is not None
+                else np.arange(-(-n_it // x.every)))
+        npl = 4 if x.scat else 3
+        if isinstance(buf, torch.Tensor):
+            idx = torch.from_numpy(rows).to(buf.device)
+            sub = buf[idx, x.p0:x.p0 + npl].float().cpu().numpy()
+        else:
+            sub = buf[rows, x.p0:x.p0 + npl]
+            if sub.dtype == np.uint16:  # spilled bfloat16 bits
+                sub = _bf16_bits_to_f32(sub)
+        alive = ~np.isnan(sub[:, 0, :])
+        return sub[:, :3, :], alive, (sub[:, 3, :] if x.scat else None)
+
+    @property
+    def data(self):
+        """The reference's t-aligned trace matrix, assembled on first
+        access after the run (use :meth:`as_arrays` for the dense form)."""
+        if self._data_override is not None:
+            return self._data_override
+        if self._cached_rows is None:
+            self._cached_rows = self._build_rows()
+        return self._cached_rows
+
+    @data.setter
+    def data(self, value):
+        self._data_override = value
+
+    def as_arrays(self):
+        """Dense trace: ``(ts list, positions (T, 3, C) float32, alive (T,
+        C), freq (C,) int64 or None)``. The host assembly point: held
+        chunks are fetched here, one chunk at a time."""
+        if not self._pos:
+            return [], np.zeros((0, 3, 0)), np.zeros((0, 0), bool), None
+        chunks = [self._chunk_np(i) for i in range(len(self._pos))]
+        T = sum(p.shape[0] for p, _, _ in chunks)
+        cmax = max(p.shape[-1] for p, _, _ in chunks)
+        pos = np.zeros((T, 3, cmax), np.float32)
+        alive = np.zeros((T, cmax), bool)
+        freq = None
+        t0 = 0
+        for p, a, scat in chunks:
+            t1 = t0 + p.shape[0]
+            pos[t0:t1, :, :p.shape[-1]] = p
+            alive[t0:t1, :a.shape[-1]] = a
+            if scat is not None:
+                s = np.nan_to_num(scat).sum(axis=0).astype(np.int64)
+                s = np.pad(s, (0, cmax - s.shape[0]))
+                freq = s if freq is None else freq + s
+            t0 = t1
+        if self.trace_every > 1:
+            # strided: the t row carries only the sampled iterations' times
+            g = (np.concatenate(self._gidx)
+                 if self._gidx else np.zeros(0, np.int64))
+            ts = [self._ts[int(i)] for i in g if i < len(self._ts)]
+        else:
+            ts = self._ts
+        return ts, pos, alive, freq
+
+    def _build_rows(self):
+        ts, pos, alive, freq = self.as_arrays()
+        if pos.shape[0] == 0:
+            return [["t"]]
+        T = pos.shape[0]
+        rows: List[list] = [["t"] + list(ts)]
+        for g in range(min(self._n_rows, pos.shape[-1])):
+            info = (self.id_info_fn(self._objs[g])
+                    if g < len(self._objs) else str(g))
+            row = [info]
+            if self.trace_dv:
+                row.append(int(freq[g]) if freq is not None
+                           and g < len(freq) else 0)
+            for ti in range(T):
+                if alive[ti, g]:
+                    row.append(np.array(pos[ti, :, g]))
+                else:
+                    row.extend([np.nan, np.nan, np.nan])
+            rows.append(row)
+        return rows
+
+    def terminate(self, sim) -> None:
+        self._data_override = None
+        self._cached_rows = None
+        self._ts = list(sim.ts)
+        self._n_rows = max(sim._initial_count, getattr(sim, "_hwm", 0))
+        self._objs = list(sim._pending_objects)
+        super().terminate(sim)  # writes CSV (builds rows) only if out_fn set

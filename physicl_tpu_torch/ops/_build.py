@@ -53,7 +53,8 @@ class OpStruct(ctypes.Structure):
 
 
 class AxisStruct(ctypes.Structure):
-    _fields_ = [("axis", _ci), ("L", _cf), ("col", _ci), ("ecol", _ci)]
+    _fields_ = [("axis", _ci), ("L", _cf), ("col", _ci), ("ecol", _ci),
+                ("ecap", _ci)]
 
 
 class FieldStruct(ctypes.Structure):
@@ -72,7 +73,9 @@ class PlanStruct(ctypes.Structure):
                 ("fields", FieldStruct * MAX_FIELDS),
                 ("prog", InsStruct * MAX_PROG),
                 ("n_ops", _ci), ("n_cols", _ci), ("n_fcols", _ci),
-                ("const_norm", _ci), ("const_speed", _cf)]
+                ("const_norm", _ci), ("const_speed", _cf),
+                ("n_stream", _ci), ("stream_every", _ci),
+                ("stream_bf16", _ci)]
 
 
 def _nvcc() -> str:
@@ -107,7 +110,7 @@ def _bind(libs) -> None:
     ft.fused_transport_launch.restype = ci
     ft.fused_transport_launch.argtypes = [
         vp, vp, ll, vp, vp, ci, vp, ci, ctypes.c_uint,
-        ctypes.POINTER(PlanStruct), ci, vp, vp, vp, vp]
+        ctypes.POINTER(PlanStruct), ci, vp, vp, vp, vp, ci, ci, vp]
     pg = libs["planck_gen"]
     pg.planck_gen_launch.restype = ci
     pg.planck_gen_launch.argtypes = [vp, ll, ctypes.c_uint, vp, cf, vp]

@@ -4,10 +4,15 @@ kernel's wrapper and its plain PyTorch twin.
 Counterpart of ``physicl_tpu/ops/fused.py`` for the ops ``kin``, ``iso``
 (with a density field n(r)), ``del`` (with n(r), a cross-section field
 A(E), implicit capture, roulette and the deposition tally), ``sign``
-(counts or weight sums), ``emit``, ``cross``, ``absorb`` and the column-0
-alive count. One chunk runs ``k_act`` whole simulation iterations over a
-packed ``(15, C)`` float32 state and returns per-iteration int32 and
-float32 record rows ``(chunk, 128)`` each. Fields are the callables of
+(counts or weight sums), ``emit``, ``cross`` (with per-photon energy
+capture), ``absorb``, ``reflect``, ``periodic``, ``sabsorb``, ``scross``,
+``trace`` and the column-0 alive count. One chunk runs ``k_act`` whole
+simulation iterations over a packed ``(15, C)`` float32 state and returns
+per-iteration int32 and float32 record rows ``(chunk, 128)`` each, and,
+for plans with stream planes (``trace`` positions, captured energies), a
+``(ceil(chunk / stream_every), n_stream, C)`` stream buffer: row ``m``
+holds iteration ``m * stream_every``, every row at or past
+``ceil(k_act / stream_every)`` is NaN. Fields are the callables of
 :mod:`physicl_tpu_torch.ops.fields`: the twin calls them, the kernel
 evaluates their specs.
 
@@ -35,7 +40,7 @@ import torch
 
 from physicl_tpu_torch.ops import fields as FL
 from physicl_tpu_torch.ops.planck import poly_icdf_reference
-from physicl_tpu_torch.state import SimState
+from physicl_tpu_torch.state import SimState, mod_floor
 
 # Field planes in the packed (NF, C) state array (same order as the JAX
 # package, so packed states compare plane by plane).
@@ -49,10 +54,14 @@ _MASK = 0xFFFFFFFF
 
 # op kinds the CUDA kernel switches on (csrc/fused_transport.cu)
 OP_CODES = {"kin": 0, "del": 1, "iso": 2, "sign": 3, "emit": 4, "cross": 5,
-            "absorb": 6}
+            "absorb": 6, "reflect": 7, "periodic": 8, "sabsorb": 9,
+            "scross": 10, "trace": 11}
+# ops only the kernel's extended instantiation carries (codes >= 7)
+_EXT_OPS = ("reflect", "periodic", "sabsorb", "scross", "trace")
 MAX_OPS = 16
 MAX_AXES = 16     # crossing planes over all cross ops of a plan
 MAX_FIELDS = 8    # distinct field callables of a plan
+_NAN = float("nan")
 
 
 @dataclasses.dataclass
@@ -70,10 +79,21 @@ class _Op:
     a_fn: Optional[Callable] = None
     implicit_capture: bool = False  # del: w *= 1 - p instead of killing
     roulette: tuple = ()            # del: (w_min, w_survive) or ()
-    bounds: tuple = ()              # absorb: ((lo, hi) per axis)
-    # cross: ((axis, L, col, e_col), ...); col indexes the float records
-    # when weighted (a weight sum), else the int records (a count); e_col
-    # is a float column for the energy sum, or -1
+    bounds: tuple = ()              # absorb/reflect/periodic: ((lo, hi), ...)
+    # sabsorb/scross: (cx, cy, cz, R); sabsorb kills entrants instead of
+    # leavers when ``inside``
+    sphere: tuple = ()
+    inside: bool = False
+    # trace: positions in stream planes [stream0, stream0 + 3), and with
+    # stream_scat the scatter-event flags in plane stream0 + 3; sampled
+    # every stream_every-th iteration (the plan's stride divides it)
+    stream0: int = -1
+    stream_scat: bool = False
+    stream_every: int = 1
+    # cross: ((axis, L, col, e_col[, ecap]), ...); col indexes the float
+    # records when weighted (a weight sum), else the int records (a count);
+    # e_col is a float column for the energy sum, or -1; ecap a stream
+    # plane for the crossing photons' energies (NaN elsewhere), or -1
     axes: tuple = ()
     weighted: bool = False
     # emit: photons appear in slots [emit_starts[emit_row, k], +emit_n) each
@@ -105,6 +125,12 @@ class FusedPlan:
     # per-photon norm (set by the prover after checking every speed)
     const_norm_speed: Optional[float] = None
     n_frec_cols: int = 0  # float record columns in use
+    # stream planes per sampled iteration (trace positions, captured
+    # energies), written on iterations k % stream_every == 0 into row
+    # k // stream_every, as float32 or (every trace opted in) bfloat16
+    n_stream: int = 0
+    stream_every: int = 1
+    stream_dtype: str = "float32"
     # the kernel's plan struct and the per-device fit tables, built once
     _cache: dict = dataclasses.field(default_factory=dict, repr=False,
                                      compare=False)
@@ -119,6 +145,24 @@ class FusedPlan:
         instantiation runs it)."""
         return any(op.n_fn is not None or op.a_fn is not None
                    for op in self.ops)
+
+    @property
+    def kernel_variant(self) -> int:
+        """The kernel instantiation the plan runs (``fused_transport_grid``'s
+        ``variant``): bit 0, field code; bit 1, the geometry ops and stream
+        stores of ``_EXT_OPS``."""
+        ext = self.n_stream or any(op.kind in _EXT_OPS for op in self.ops)
+        return int(self.has_fields) | (2 if ext else 0)
+
+    @property
+    def n_stream_rows(self) -> int:
+        """Rows of the stream buffer: ``ceil(chunk / stream_every)``."""
+        return -(-self.chunk // max(1, int(self.stream_every)))
+
+    @property
+    def stream_torch_dtype(self) -> torch.dtype:
+        return (torch.bfloat16 if self.stream_dtype == "bfloat16"
+                else torch.float32)
 
 
 class _HashRng:
@@ -239,6 +283,24 @@ def _check_plan(plan: FusedPlan) -> None:
             > FL.MAX_PROG:
         raise ValueError(f"expression programs exceed the kernel's "
                          f"{FL.MAX_PROG} instructions")
+    if plan.stream_every < 1 or plan.stream_dtype not in ("float32",
+                                                          "bfloat16"):
+        raise ValueError("stream_every must be >= 1 and stream_dtype "
+                         "float32 or bfloat16")
+    for op in plan.ops:
+        planes = ([op.stream0 + d for d in range(3 + op.stream_scat)]
+                  if op.kind == "trace"
+                  else [_axis(ax)[4] for ax in op.axes])
+        if any(p >= plan.n_stream or (op.kind == "trace" and p < 0)
+               for p in planes):
+            raise ValueError(f"{op.kind} writes stream planes {planes} but "
+                             f"the plan has {plan.n_stream}")
+
+
+def _axis(ax) -> tuple:
+    """A cross op's plane as ``(axis, L, col, e_col, ecap)`` (a 4-tuple
+    captures no energies)."""
+    return tuple(ax) if len(ax) == 5 else (*ax, -1)
 
 
 def _emit_rows(emit_starts, plan: FusedPlan):
@@ -262,9 +324,10 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                           emit_starts=None):
     """Plain PyTorch version of one fused chunk. Returns ``(out, rec,
     rec_f)``: the new packed state (``packed`` is not modified), int32
-    records ``(chunk, 128)`` and float32 records of the same shape.
-    ``emit_starts`` is the ``(n_emit, chunk)`` int32 emit schedule (any
-    device or numpy); plans without emit ops need none.
+    records ``(chunk, 128)`` and float32 records of the same shape; plans
+    with stream planes add the stream buffer, ``(out, rec, rec_f,
+    stream)``. ``emit_starts`` is the ``(n_emit, chunk)`` int32 emit
+    schedule (any device or numpy); plans without emit ops need none.
 
     Runs on any device; :func:`fused_chunk` uses it for CPU tensors only.
     Float records are plain ``torch.sum``s, so they agree with the kernel's
@@ -295,6 +358,11 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                  for op in plan.ops]
     boxes = [tuple((_f32(lo).to(dev), _f32(hi).to(dev))
                    for lo, hi in op.bounds) for op in plan.ops]
+    spheres = [tuple(_f32(x).to(dev) for x in op.sphere) for op in plan.ops]
+    every = int(plan.stream_every)
+    stream = (torch.full((plan.n_stream_rows, plan.n_stream, C), _NAN,
+                         dtype=plan.stream_torch_dtype, device=dev)
+              if plan.n_stream else None)
 
     def count(mask):
         return mask.sum(dtype=torch.int32)
@@ -313,6 +381,8 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
         dt = dts[k]
         rng = _HashRng(int(seed), k, lin)
         alive = f[_ALIVE] > 0
+        sample = stream is not None and k % every == 0
+        planes = [None] * plan.n_stream
 
         def dr_norm():
             if speed is not None:
@@ -323,8 +393,8 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
         def n_of(op):
             return op.n_fn(f[_RX], f[_RY], f[_RZ]).to(torch.float32)
 
-        for op, (coef, c_val, wl_base), table, roul, box in zip(
-                plan.ops, consts, tables, roulettes, boxes):
+        for op, (coef, c_val, wl_base), table, roul, box, sph in zip(
+                plan.ops, consts, tables, roulettes, boxes, spheres):
             if op.kind == "kin":
                 for d in range(3):
                     dr = f[_VX + d] * dt
@@ -362,6 +432,59 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                 for d, (lo, hi) in enumerate(box):
                     alive = alive & (f[_RX + d] >= lo) & (f[_RX + d] <= hi)
                 f[_ALIVE] = alive.to(torch.float32)
+            elif op.kind == "periodic":
+                # r folds into [lo, hi) by modulo; v and dr untouched
+                for d, (lo, hi) in enumerate(box):
+                    f[_RX + d] = lo + mod_floor(f[_RX + d] - lo, hi - lo)
+            elif op.kind == "reflect":
+                # triangle-wave fold of any overshoot; an odd fold count
+                # flips the velocity, dr spans old to folded position
+                for d, (lo, hi) in enumerate(box):
+                    L = hi - lo
+                    r0 = f[_RX + d]
+                    y = mod_floor(r0 - lo, 2 * L)
+                    odd = y > L
+                    folded = lo + torch.where(odd, 2 * L - y, y)
+                    outside = (r0 > hi) | (r0 < lo)
+                    r1 = torch.where(outside, folded, r0)
+                    f[_VX + d] = torch.where(outside & odd, -f[_VX + d],
+                                             f[_VX + d])
+                    f[_DRX + d] = r1 - (r0 - f[_DRX + d])
+                    f[_RX + d] = r1
+            elif op.kind == "sabsorb":
+                # kill leavers of the sphere (entrants when ``inside``)
+                cx, cy, cz, R = sph
+                dx, dy, dz = f[_RX] - cx, f[_RY] - cy, f[_RZ] - cz
+                in_s = dx * dx + dy * dy + dz * dz <= R * R
+                alive = alive & (~in_s if op.inside else in_s)
+                f[_ALIVE] = alive.to(torch.float32)
+            elif op.kind == "scross":
+                # the plane tally's endpoint test on |r - c|^2 against R^2
+                n_col, col = op.cols
+                if n_col >= 0:
+                    rec[k, n_col] = count(alive)
+                cx, cy, cz, R = sph
+                dx1, dy1, dz1 = f[_RX] - cx, f[_RY] - cy, f[_RZ] - cz
+                dx0, dy0, dz0 = dx1 - f[_DRX], dy1 - f[_DRY], dz1 - f[_DRZ]
+                r1 = dx1 * dx1 + dy1 * dy1 + dz1 * dz1
+                r0 = dx0 * dx0 + dy0 * dy0 + dz0 * dz0
+                R2 = R * R
+                crossed = (((r0 <= R2) & (R2 <= r1))
+                           | ((r0 >= R2) & (R2 >= r1))) & alive
+                if op.weighted:
+                    rec_f[k, col] = fsum(crossed, f[_W])
+                else:
+                    rec[k, col] = count(crossed)
+            elif op.kind == "trace":
+                # positions where alive, NaN elsewhere; scatter-event flags
+                if sample:
+                    for d in range(3):
+                        planes[op.stream0 + d] = torch.where(
+                            alive, f[_RX + d], _NAN)
+                    if op.stream_scat:
+                        scat = ((f[_DVX] != 0) | (f[_DVY] != 0)
+                                | (f[_DVZ] != 0)) & alive
+                        planes[op.stream0 + 3] = scat.to(torch.float32)
             elif op.kind == "iso":
                 pcoll = coef * dr_norm()
                 if op.n_fn is not None:
@@ -416,7 +539,8 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                 (n_col,) = op.cols
                 if n_col >= 0:
                     rec[k, n_col] = count(alive)
-                for axis, L, col, e_col in op.axes:
+                for ax in op.axes:
+                    axis, L, col, e_col, ecap = _axis(ax)
                     hi = f[_RX + axis]
                     lo = hi - f[_DRX + axis]
                     Lv = _f32(L).to(dev)
@@ -429,7 +553,14 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                     if e_col >= 0:
                         flux = f[_W] * f[_E] if op.weighted else f[_E]
                         rec_f[k, e_col] = fsum(crossed, flux)
+                    if ecap >= 0 and sample:  # E where crossed, NaN else
+                        planes[ecap] = torch.where(crossed, f[_E], _NAN)
         rec[k, 0] = count(alive)
+        if sample:
+            # float32 -> bfloat16 rounds to nearest even, as the kernel
+            stream[k // every] = torch.stack(planes).to(stream.dtype)
+    if stream is not None:
+        return torch.stack(f), rec, rec_f, stream
     return torch.stack(f), rec, rec_f
 
 
@@ -483,8 +614,15 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
             o.w_min, o.w_sur = op.roulette or (0.0, 0.0)
         elif op.kind == "sign":
             o.flag = int(op.weighted)
-        elif op.kind == "absorb":
+        elif op.kind in ("absorb", "reflect", "periodic"):
             o.box[:] = [float(x) for lohi in op.bounds for x in lohi]
+        elif op.kind in ("sabsorb", "scross"):
+            # the sphere lives in box[0..3]
+            o.box[:4] = [float(x) for x in op.sphere]
+            o.flag = int(op.inside if op.kind == "sabsorb" else op.weighted)
+        elif op.kind == "trace":
+            o.col1 = op.stream0   # the first stream plane
+            o.flag = int(op.stream_scat)
         elif op.kind == "emit":
             o.flag = int(op.emit_v is None)
             o.emit_n, o.emit_row, o.emit_E = op.emit_n, op.emit_row, op.emit_E
@@ -498,9 +636,9 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
         elif op.kind == "cross":
             o.flag = int(op.weighted)
             o.ax0, o.n_ax = n_ax, len(op.axes)
-            for axis, L, col, e_col in op.axes:
+            for ax in op.axes:
                 a = ps.axes[n_ax]
-                a.axis, a.L, a.col, a.ecol = axis, L, col, e_col
+                a.axis, a.L, a.col, a.ecol, a.ecap = _axis(ax)
                 n_ax += 1
     for i, spec in enumerate(specs):
         _set_field(ps.fields[i], spec, prog, aux)
@@ -514,6 +652,8 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
     ps.n_cols, ps.n_fcols = plan.n_rec_cols, plan.n_frec_cols
     ps.const_norm = int(plan.const_norm_speed is not None)
     ps.const_speed = plan.const_norm_speed or 0.0
+    ps.n_stream, ps.stream_every = plan.n_stream, plan.stream_every
+    ps.stream_bf16 = int(plan.stream_dtype == "bfloat16")
     # once per plan and device: no copy on the dispatch path
     aux = (torch.from_numpy(np.concatenate(aux).astype(np.float32)).to(dev)
            if aux else None)
@@ -528,8 +668,11 @@ def fused_transport(packed: torch.Tensor, out: torch.Tensor,
     iterations of ``plan`` from ``packed`` into ``out`` (which may be
     ``packed`` itself). ``emit_starts`` is the ``(n_emit, chunk)`` int32
     emit schedule on the same device (plans with emit ops only). Returns
-    ``(rec, rec_f)``. Raises on a CPU tensor, a failed build or a refused
-    launch. ``fused_transport.launches`` counts launches."""
+    ``(rec, rec_f)``, and for plans with stream planes ``(rec, rec_f,
+    stream)`` with a fresh stream buffer (the kernel writes every row, NaN
+    at and past ``ceil(k_act / stream_every)``). Raises on a CPU tensor, a
+    failed build or a refused launch. ``fused_transport.launches`` counts
+    launches."""
     from physicl_tpu_torch.ops import _build
 
     _check_plan(plan)
@@ -567,12 +710,17 @@ def fused_transport(packed: torch.Tensor, out: torch.Tensor,
                       device=dev)
     rec_f = torch.zeros((plan.chunk, _MAX_REC_COLS), dtype=torch.float32,
                         device=dev)
+    stream = None
+    if plan.n_stream:
+        # fresh per launch: trace steps keep earlier chunks' buffers
+        stream = torch.empty((plan.n_stream_rows, plan.n_stream, C),
+                             dtype=plan.stream_torch_dtype, device=dev)
     dt_row = sched[0].contiguous()
     with torch.cuda.device(dev):
         grid = ctypes.c_int(0)
         _build.check(lib.fused_transport_grid(
             C, k_act, plan.n_rec_cols, plan.n_frec_cols,
-            int(plan.has_fields), ctypes.byref(grid)),
+            plan.kernel_variant, ctypes.byref(grid)),
             "fused_transport occupancy query")
         partials = torch.empty(max(1, grid.value * k_act * plan.n_frec_cols),
                                dtype=torch.float32, device=dev)
@@ -581,9 +729,14 @@ def fused_transport(packed: torch.Tensor, out: torch.Tensor,
             starts_ptr, stride, 0 if aux is None else aux.data_ptr(),
             k_act, int(seed) & 0xFFFFFFFF, ctypes.byref(struct), grid.value,
             rec.data_ptr(), rec_f.data_ptr(), partials.data_ptr(),
+            0 if stream is None else stream.data_ptr(),
+            plan.n_stream_rows if plan.n_stream else 0,
+            0 if stream is None else stream.element_size(),
             _build.stream_of(packed))
     _build.check(err, "fused_transport launch")
     fused_transport.launches += 1
+    if stream is not None:
+        return rec, rec_f, stream
     return rec, rec_f
 
 
@@ -593,7 +746,8 @@ fused_transport.launches = 0
 def fused_chunk(packed: torch.Tensor, sched: torch.Tensor, seed: int,
                 k_act: int, plan: FusedPlan, out: torch.Tensor | None = None,
                 emit_starts: torch.Tensor | None = None):
-    """One fused chunk: ``(out, rec, rec_f)``.
+    """One fused chunk: ``(out, rec, rec_f)``, and the stream buffer last
+    for plans with stream planes.
 
     A CPU ``packed`` runs :func:`fused_chunk_reference`; a CUDA ``packed``
     runs :func:`fused_transport` into ``out`` (default: ``packed``, in
@@ -603,9 +757,8 @@ def fused_chunk(packed: torch.Tensor, sched: torch.Tensor, seed: int,
                                      emit_starts)
     if out is None:
         out = packed
-    rec, rec_f = fused_transport(packed, out, sched, seed, k_act, plan,
-                                 emit_starts)
-    return out, rec, rec_f
+    return (out, *fused_transport(packed, out, sched, seed, k_act, plan,
+                                  emit_starts))
 
 
 def pack_state(state: SimState) -> torch.Tensor:

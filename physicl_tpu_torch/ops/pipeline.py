@@ -10,12 +10,20 @@ Fusable here: one ``UpdateTimeStep`` whose dt function reads at most
 ``(t, dt)``, plus any mix of ``NewtonianKinematicsStep``,
 ``ScatterDeleteStep`` (density and cross-section fields, implicit capture,
 roulette, deposition tallies), ``ScatterIsotropicStep`` (with a density
-field), ``AbsorbingBoundaryStep``, ``PhotonEmitterStep`` (constant or
-``PlanckSampler`` energies), ``ScatterSignMeasureStep`` (counts or weight
-sums) and ``ScatterMeasureStep`` (counts, weight sums, energy sums), on a
-photon (or, without photon steps, a generic) population, with a t-only or
-extinction exit. Fields are C expressions, layered or voxel media
+field), ``AbsorbingBoundaryStep``, ``ReflectingBoundaryStep``,
+``PeriodicBoundaryStep``, ``AbsorbingSphereStep``, ``PhotonEmitterStep``
+(constant or ``PlanckSampler`` energies), ``ScatterSignMeasureStep``
+(counts or weight sums), ``ScatterMeasureStep`` (counts, weight sums,
+energy sums or per-photon energy lists), ``SphericalShellMeasureStep`` and
+``TracePathMeasureStep`` (strided, bfloat16), on a photon (or, without
+photon steps, a generic) population, with a t-only or extinction exit.
+Fields are C expressions, layered or voxel media
 (:mod:`physicl_tpu_torch.ops.fields`); a Python callable is refused.
+
+Per-photon outputs (trace positions, captured energies) are stream planes
+of the chunk's stream buffer; the harvest hands them to their steps as
+lazy records (:class:`_TraceRaw`, :class:`_EList`) that honour the engine's
+valid-prefix slice without copying the buffer.
 
 The provider serves the engine's pipelined ``dispatch``/``harvest`` pair,
 with the JAX package's record layout and host-replayed clock. Every
@@ -28,6 +36,7 @@ flight).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -122,6 +131,7 @@ class _Inflight:
     rec: torch.Tensor        # (K, 128) int32 host copy (pinned on CUDA)
     rec_f: Optional[torch.Tensor]  # (K, 128) float32 host copy, if used
     ready: Optional[torch.cuda.Event]  # marks the copies done (None on CPU)
+    stream: Optional[torch.Tensor]  # (rows, n_stream, C) stream buffer
     k_act: int
     done_t: bool
     ts: np.ndarray
@@ -132,6 +142,92 @@ class _Inflight:
     comps_before: np.ndarray
     t_opt: np.float32
     dt_opt: np.float32
+
+
+class _StreamHold:
+    """One chunk's stream buffer, shared by every trace step's record of
+    that chunk: spilling it to host memory (``arr`` reassignment) frees the
+    device copy for all of them at once."""
+
+    __slots__ = ("arr",)
+
+    def __init__(self, arr):
+        self.arr = arr
+
+
+@dataclasses.dataclass
+class _TraceRaw:
+    """Lazy trace record: the chunk's whole stream buffer and this step's
+    planes; the step slices on the host at assembly time."""
+
+    hold: _StreamHold  # shared (ceil(K / every), n_stream, C) buffer
+    p0: int            # positions are planes [p0, p0 + 3)
+    scat: bool         # plane p0 + 3 carries scatter-event flags
+    every: int = 1     # kernel stream stride: row m is iteration m * every
+    n_valid: int = -1  # valid ITERATIONS (-1: untrimmed)
+    rows: object = None  # sampled row indices (set by the trace step)
+
+    @property
+    def buf(self):
+        return self.hold.arr
+
+    def __getitem__(self, sl):
+        """The engine's valid-prefix trim (``v[:n_valid]``): records the
+        bound instead of slicing the buffer."""
+        return dataclasses.replace(self, n_valid=_prefix(
+            sl, self.buf.shape[0] * self.every))
+
+
+_side_streams: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+@dataclasses.dataclass
+class _EList:
+    """Lazy per-photon energy capture of one plane: the chunk's stream
+    buffer (float32, stride 1) holds E where a photon crossed and NaN
+    elsewhere. :meth:`per_iteration` compacts it where it lies."""
+
+    buf: torch.Tensor  # (K, n_stream, C)
+    plane: int
+    ready: Optional[torch.cuda.Event] = None  # the chunk's completion
+    n_valid: int = -1
+
+    def __getitem__(self, sl):
+        """The engine's valid-prefix trim: records the bound."""
+        return dataclasses.replace(self, n_valid=_prefix(sl,
+                                                         self.buf.shape[0]))
+
+    def per_iteration(self) -> List[np.ndarray]:
+        """The crossing photons' energies of each valid iteration, in slot
+        order (row-major over (iteration, slot), as the JAX lists are).
+        One NaN mask per chunk on the buffer's device; only the energies
+        and the per-iteration counts reach the host. On a card this runs
+        on a side stream, so it does not wait for chunks queued behind."""
+        n = self.buf.shape[0] if self.n_valid < 0 else self.n_valid
+        E = self.buf[:n, self.plane, :]
+
+        def compact():
+            mask = ~torch.isnan(E)
+            counts = mask.sum(dim=1).cpu().numpy()
+            return E[mask].cpu().numpy(), counts
+
+        if E.device.type == "cuda":
+            side = _side_streams.get(E.device)
+            if side is None:
+                side = _side_streams[E.device] = torch.cuda.Stream(E.device)
+            if self.ready is not None:
+                side.wait_event(self.ready)
+            with torch.cuda.stream(side):
+                vals, counts = compact()
+        else:
+            vals, counts = compact()
+        return np.split(vals, np.cumsum(counts)[:-1])
+
+
+def _prefix(sl, n: int) -> int:
+    if not (isinstance(sl, slice) and sl.start is None and sl.step is None):
+        raise TypeError("stream records support prefix slicing only")
+    return n if sl.stop is None else min(int(sl.stop), n)
 
 
 class FusedProvider:
@@ -270,9 +366,10 @@ class FusedProvider:
             if starts is not None:
                 starts = starts.pin_memory().to(dev, non_blocking=True)
         out = None if dev.type == "cpu" else torch.empty_like(packed)
-        out, rec, rec_f = F.fused_chunk(packed, sched, seed, k_act,
-                                        self.plan, out=out,
-                                        emit_starts=starts)
+        out, rec, rec_f, *stream = F.fused_chunk(
+            packed, sched, seed, k_act, self.plan, out=out,
+            emit_starts=starts)
+        stream = stream[0] if stream else None
         if not self.plan.n_frec_cols:
             rec_f = None
         ready = None
@@ -291,6 +388,7 @@ class FusedProvider:
             self.dt_h = np.float32(dts_after[k_act - 1])
             self.comp_h = np.float32(comps[k_act - 1])
             self.hwm_h = int(hwm_after[k_act - 1])
+            self.sim._hwm = self.hwm_h
 
         new_state = F.unpack_state(out, state).replace(
             t=_scalar(self.t_h, state.t), dt=_scalar(self.dt_h, state.t),
@@ -310,7 +408,8 @@ class FusedProvider:
         self._last_state = new_state
         self._last_packed = out
         return _Inflight(
-            state=new_state, rec=rec, rec_f=rec_f, ready=ready, k_act=k_act,
+            state=new_state, rec=rec, rec_f=rec_f, ready=ready,
+            stream=stream, k_act=k_act,
             done_t=done_t, ts=ts, ts_before=ts_before, dts_after=dts_after,
             dts_before=dts_before, comps=comps, comps_before=comps_before,
             t_opt=np.float32(self.t_h), dt_opt=np.float32(self.dt_h))
@@ -361,6 +460,8 @@ class FusedProvider:
 
         ts, ts_before = inflight.ts, inflight.ts_before
         records = {}
+        # one holder per chunk: every trace step references the same buffer
+        hold = _StreamHold(inflight.stream)
         for m in self.rec_map:
             uid = m["uid"]
             t_arr = (ts if self.measure_after_update.get(uid, True)
@@ -386,6 +487,15 @@ class FusedProvider:
                 for j, col in enumerate(m["e_cols"]):
                     if col >= 0:
                         records[f"{uid}/Esum{j}"] = recf_np[:, col]
+                for j, p in enumerate(m.get("ecap_planes", ())):
+                    if p >= 0:  # per-photon E capture, compacted in collect
+                        records[f"{uid}/E{j}"] = _EList(
+                            inflight.stream, p, inflight.ready)
+            elif m["kind"] == "trace":
+                # the raw buffer: the step slices at assembly time
+                records[f"{uid}/traceraw"] = _TraceRaw(
+                    hold=hold, p0=m["p0"], scat=m["scat"],
+                    every=self.plan.stream_every)
         return done, final_state, records, n_valid, stats
 
     def __call__(self, state: SimState):
@@ -420,10 +530,15 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
         ScatterIsotropicStep,
         ScatterMeasureStep,
         ScatterSignMeasureStep,
+        SphericalShellMeasureStep,
+        TracePathMeasureStep,
     )
     from physicl_tpu_torch.newton import (
         AbsorbingBoundaryStep,
+        AbsorbingSphereStep,
         NewtonianKinematicsStep,
+        PeriodicBoundaryStep,
+        ReflectingBoundaryStep,
         _static_bounds,
     )
 
@@ -475,6 +590,7 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
     measure_after_update: Dict[str, bool] = {}
     next_col = 1
     next_fcol = 0   # float record channels (weight and energy sums)
+    next_plane = 0  # stream planes (trace positions, captured energies)
     n_axes = 0
     dt_fn = None
     update_seen = False
@@ -533,6 +649,37 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
         elif type(s) is AbsorbingBoundaryStep:
             s.setup(sim)
             ops.append(F._Op("absorb", bounds=_static_bounds(s, sim)))
+        elif type(s) is AbsorbingSphereStep:
+            ops.append(F._Op("sabsorb", sphere=(*s.center, s.radius),
+                             inside=s.kill_inside))
+        elif type(s) is ReflectingBoundaryStep:
+            s.setup(sim)
+            ops.append(F._Op("reflect", bounds=_static_bounds(s, sim)))
+        elif type(s) is PeriodicBoundaryStep:
+            s.setup(sim)
+            ops.append(F._Op("periodic", bounds=_static_bounds(s, sim)))
+        elif type(s) is SphericalShellMeasureStep:
+            n_col = next_col if s.measure_n else -1
+            next_col += 1 if s.measure_n else 0
+            if s.weighted:
+                col = next_fcol
+                next_fcol += 1
+            else:
+                col = next_col
+                next_col += 1
+            ops.append(F._Op("scross", sphere=(*s.center, s.radius),
+                             cols=(n_col, col), weighted=s.weighted))
+            rec_map.append({"uid": uid, "kind": "cross", "n_col": n_col,
+                            "cnt_cols": [col], "e_cols": [],
+                            "weighted": s.weighted})
+            measure_after_update[uid] = update_seen
+        elif type(s) is TracePathMeasureStep:
+            p0 = next_plane
+            next_plane += 3 + (1 if s.trace_dv else 0)
+            ops.append(F._Op("trace", stream0=p0, stream_scat=s.trace_dv,
+                             stream_every=s.trace_every))
+            rec_map.append({"uid": uid, "kind": "trace", "p0": p0,
+                            "scat": s.trace_dv, "every": s.trace_every})
         elif type(s) is ScatterSignMeasureStep:
             n_col = next_col if s.measure_n else -1
             next_col += 1 if s.measure_n else 0
@@ -572,39 +719,42 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
                 emit_r=tuple(float(x) for x in s.r), emit_v=emit_v,
                 emit_row=sum(1 for o in ops if o.kind == "emit")))
         elif type(s) is ScatterMeasureStep:
-            if s.measure_E and s.measure_E_mode == "list":
-                _no("measure-E-list", "ScatterMeasureStep(measure_E=True) "
-                    "in list mode captures per-photon energies in stream "
-                    "planes, which are not ported; measure_E_mode='sum' is")
             n_col = next_col if s.measure_n else -1
             next_col += 1 if s.measure_n else 0
-            axes, cnt_cols, e_cols = [], [], []
+            axes, cnt_cols, e_cols, ecap_planes = [], [], [], []
             for axis, L in s._axes:
-                e_col = -1
-                if s.measure_E:
+                e_col = ecap = -1
+                if s.measure_E and s.measure_E_mode == "sum":
                     e_col = next_fcol
                     next_fcol += 1
+                elif s.measure_E:  # per-photon E capture: one stream plane
+                    ecap = next_plane
+                    next_plane += 1
                 if s.weighted:  # weight sums live in float record channels
                     cnt = next_fcol
                     next_fcol += 1
                 else:
                     cnt = next_col
                     next_col += 1
-                axes.append((axis, L, cnt, e_col))
+                axes.append((axis, L, cnt, e_col, ecap))
                 cnt_cols.append(cnt)
                 e_cols.append(e_col)
+                ecap_planes.append(ecap)
             n_axes += len(axes)
             ops.append(F._Op("cross", cols=(n_col,), axes=tuple(axes),
                              weighted=s.weighted))
             rec_map.append({"uid": uid, "kind": "cross", "n_col": n_col,
                             "cnt_cols": cnt_cols, "e_cols": e_cols,
+                            "ecap_planes": ecap_planes,
                             "weighted": s.weighted})
             measure_after_update[uid] = update_seen
         else:
             _no("unsupported-step", f"{type(s).__name__} has no fused op in "
                 "the port; supported: UpdateTime/NewtonianKinematics/"
-                "AbsorbingBoundary/ScatterDelete/ScatterIsotropic/"
-                "PhotonEmitter/ScatterSignMeasure/ScatterMeasure")
+                "Absorbing/Reflecting/PeriodicBoundary/AbsorbingSphere/"
+                "ScatterDelete/ScatterIsotropic/PhotonEmitter/"
+                "ScatterSignMeasure/ScatterMeasure/SphericalShellMeasure/"
+                "TracePathMeasure")
 
     if not update_seen:
         _no("no-update-step", "no UpdateTimeStep: the fused kernel "
@@ -634,16 +784,21 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
     # const-norm fast path: |dr| = speed * dt, valid iff exactly one
     # kinematics step precedes every scatter op, every emitter precedes it
     # (a photon emitted after kinematics carries dr = 0 until the next
-    # iteration), and every particle, emitted ones included, moves at one
-    # common speed that each isotropic op's resample speed matches
+    # iteration), no reflection lies between them (a fold changes dr), and
+    # every particle, emitted ones included, moves at one common speed that
+    # each isotropic op's resample speed matches
     const_speed = None
     kin_positions = [i for i, op in enumerate(ops) if op.kind == "kin"]
     scatter_positions = [i for i, op in enumerate(ops)
                          if op.kind in ("del", "iso")]
     emit_positions = [i for i, op in enumerate(ops) if op.kind == "emit"]
+    reflect_positions = [i for i, op in enumerate(ops)
+                         if op.kind == "reflect"]
     if (len(kin_positions) == 1 and scatter_positions
             and all(p > kin_positions[0] for p in scatter_positions)
-            and all(p < kin_positions[0] for p in emit_positions)):
+            and all(p < kin_positions[0] for p in emit_positions)
+            and not any(kin_positions[0] < q < p for q in reflect_positions
+                        for p in scatter_positions)):
         speeds = [float(np.linalg.norm(np.asarray(
             raw_code_value(o.v), np.float64).reshape(3)))
             for o in sim._pending_objects]
@@ -696,12 +851,45 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
         # one chunk's emissions must fit in half the arena, or emission
         # starves mid-chunk before the engine can recycle slots
         chunk = max(1, min(chunk, (state.capacity // 2) // emit_total))
+    stream_every, stream_dtype = 1, "float32"
+    if next_plane:
+        # the kernel's stream stride: the gcd of every trace step's period
+        # (a captured energy plane is per iteration, so it forces 1); a
+        # trace step whose period exceeds the stride subsamples on the host
+        periods = [m["every"] for m in rec_map if m["kind"] == "trace"]
+        has_ecap = any(p >= 0 for m in rec_map
+                       for p in m.get("ecap_planes", ()))
+        if has_ecap:
+            periods.append(1)
+        stream_every = math.gcd(*periods)
+        # bfloat16 only when every trace step opts in and no captured
+        # energies share the buffer
+        if not has_ecap and all(s.trace_dtype == "bfloat16" for s in steps
+                                if type(s) is TracePathMeasureStep):
+            stream_dtype = "bfloat16"
+        # one dispatch's stream buffer stays within the record budget
+        elem = 2 if stream_dtype == "bfloat16" else 4
+        row_bytes = max(next_plane * state.capacity * elem, 1)
+        budget = int(sim.max_record_bytes)
+        chunk = max(1, min(chunk, (budget // row_bytes) * stream_every))
+        if stream_every > 1:
+            # chunks are whole multiples of every period, so the sampled
+            # iterations stay global multiples across chunk boundaries
+            period_lcm = math.lcm(*periods)
+            if chunk >= period_lcm:
+                chunk = (chunk // period_lcm) * period_lcm
+            else:  # below one period: sample every iteration instead, and
+                # re-apply the budget at one stream row per iteration
+                stream_every = 1
+                chunk = max(1, min(chunk, budget // row_bytes))
     if chunk * (next_col + next_fcol * _KERNEL_WARPS) * 4 \
             > _MAX_REC_TILE_BYTES:
         _no("record-tile", f"chunk {chunk} x ({next_col} int + {next_fcol} "
             f"x {_KERNEL_WARPS} float) record columns overflows the "
             "kernel's shared-memory record tiles; lower chunk_steps")
     plan = F.FusedPlan(ops=ops, n_rec_cols=next_col, chunk=chunk,
-                       const_norm_speed=const_speed, n_frec_cols=next_fcol)
+                       const_norm_speed=const_speed, n_frec_cols=next_fcol,
+                       n_stream=next_plane, stream_every=stream_every,
+                       stream_dtype=stream_dtype)
     return FusedProvider(sim, plan, rec_map, dt_fn, update_before_kin,
                          measure_after_update, sim.exit, exit_mode)

@@ -15,7 +15,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["SimState", "OBJ_GENERIC", "OBJ_PHOTON", "pad_capacity"]
+__all__ = ["SimState", "OBJ_GENERIC", "OBJ_PHOTON", "pad_capacity",
+           "mod_floor"]
 
 OBJ_GENERIC = 0
 OBJ_PHOTON = 1
@@ -36,6 +37,17 @@ def pad_capacity(n: int) -> int:
     """
     tile = _LANE * _LANE
     return max(tile, ((n + tile - 1) // tile) * tile)
+
+
+def mod_floor(x: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """``x mod L`` (L > 0) spelled out as floor, div, mul, sub, each
+    rounded on its own (the JAX package's ``state.mod_floor``, and the
+    transport kernel's ``mod_floor``), so every path computes the same
+    value. The two guards absorb the 1-ulp cases where the floored
+    quotient lands the remainder at exactly L or just below 0."""
+    y = x - torch.floor(x / L) * L
+    y = torch.where(y < 0, y + L, y)
+    return torch.where(y >= L, y - L, y)
 
 
 @dataclasses.dataclass(frozen=True)

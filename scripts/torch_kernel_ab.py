@@ -1,0 +1,84 @@
+#!/usr/bin/env python3
+"""Time the port's transport kernel from several checkouts, in turns, on one
+GPU: ``python3 scripts/torch_kernel_ab.py OLD NEW NEW OLD``.
+
+Each argument is the root of a checkout holding ``physicl_tpu_torch``. For
+each, in the order given, a fresh process imports that checkout's package,
+builds its kernels (``nvcc`` into that checkout's ``_build/``) and times
+``fused_transport`` on the main path's shape (10**7 photons padded to
+10,010,624 slots, 1024 iterations, [kin, iso, sign] with the const-norm
+path) and on [kin, iso, sign] at 2**20 slots x 256 iterations, with CUDA
+events over 3 and 5 launches after one warm-up launch. Prints one JSON
+object per checkout; run both versions in one call, in turns, so that the
+card and its power limit are the same for both.
+"""
+
+import json
+import subprocess
+import sys
+
+_CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+from physicl_tpu_torch.ops import _build
+from physicl_tpu_torch.ops import fused as F
+
+C_LIGHT = 299792458.0
+dev = torch.device("cuda:0")
+_build.load()
+
+
+def packed(C):
+    rng = np.random.default_rng(2)
+    p = np.zeros((15, C), np.float32)
+    p[0:3] = rng.normal(size=(3, C)) * 1e3
+    d = rng.normal(size=(3, C))
+    p[6:9] = d / np.linalg.norm(d, axis=0) * C_LIGHT
+    p[12] = 1.0
+    p[13] = 1.0
+    p[14] = 1.0
+    return torch.from_numpy(p).to(dev)
+
+
+out = {"root": sys.argv[1]}
+for C, K, reps in ((10_010_624, 1024, 3), (1 << 20, 256, 5)):
+    plan = F.FusedPlan(ops=[F._Op("kin"),
+                            F._Op("iso", coef=1e-6, c_val=C_LIGHT),
+                            F._Op("sign", cols=(1, 2))],
+                       n_rec_cols=5, chunk=K, const_norm_speed=C_LIGHT)
+    pk = packed(C)
+    res = torch.empty_like(pk)
+    sched = torch.zeros((5, K), dtype=torch.float32, device=dev)
+    sched[0] = 0.001
+    F.fused_transport(pk, res, sched, 7, K, plan)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        F.fused_transport(pk, res, sched, 7, K, plan)
+    end.record()
+    torch.cuda.synchronize()
+    out[f"ms_{C}x{K}"] = start.elapsed_time(end) / reps
+    del pk, res
+print(json.dumps(out))
+"""
+
+
+def main(roots):
+    if not roots:
+        sys.exit(__doc__)
+    for root in roots:
+        res = subprocess.run([sys.executable, "-c", _CHILD, root],
+                             capture_output=True, text=True)
+        if res.returncode:
+            sys.exit(f"{root}: exit {res.returncode}\n{res.stderr}")
+        print(res.stdout.strip().splitlines()[-1], flush=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(json.dumps({"card": card}))
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -247,3 +247,37 @@ def test_media_plans_match_twin(dev, name):
     if name == "media-voxel-trilinear-capture":
         w = out[14][out[13] > 0]
         assert (w < 1).any() and int(rec[59, 0]) < int(rec[0, 0])
+
+
+# -- stream planes and the remaining geometry --
+
+@pytest.mark.parametrize("name", ["geom-reflect-trace-f32-dv",
+                                  "geom-periodic-trace-bf16-every4",
+                                  "geom-del-scross-w-sabsorb-in-cross-ecap",
+                                  "geom-sabsorb-scross"])
+@pytest.mark.parametrize("k_act", [60, 64], ids=["k60", "k64"])
+def test_geometry_plans_match_twin(dev, name, k_act):
+    """The four geometry plans ``chip_smoke.py`` holds at 2**20 x 256, here
+    at 2**16 x 64: int records equal, planes and stream buffers bitwise
+    (NaN for NaN), the rows past ceil(k_act / stride) NaN."""
+    from chip_smoke import geometry_packed, geometry_plans, stream_equal
+
+    L = 64 * C_LIGHT * 0.001
+    packed = torch.from_numpy(geometry_packed(1 << 16, L, 12)).to(dev)
+    sched = torch.zeros((5, 64), dtype=torch.float32, device=dev)
+    sched[0] = 0.001
+    plan = geometry_plans(F, 64, L)[name]
+    out = torch.empty_like(packed)
+    got = F.fused_transport(packed, out, sched, 91, k_act, plan)
+    want = F.fused_chunk_reference(packed, sched, 91, k_act, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[1])
+    assert torch.equal(out, want[0])
+    assert _close_f(got[1], want[2])
+    if plan.n_stream:
+        assert stream_equal(got[2], want[3])
+        filled = -(-k_act // plan.stream_every)
+        assert torch.isnan(got[2][filled:].float()).all()
+        assert not torch.isnan(got[2][:filled].float()).all()
+    else:
+        assert len(got) == 2

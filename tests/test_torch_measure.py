@@ -2,9 +2,11 @@
 the JAX package on the CPU, through both packages' fused tiers.
 
 Crossing counts are integer records and the ``data`` rows that carry only
-counts are exactly equal; weight sums and energy sums are float records,
-summed in another order by each package (XLA's reduction, ``torch.sum``;
-on the card, a fixed warp/block tree), so they are held to rtol 1e-5.
+counts are exactly equal, and so are the per-photon energy lists of the
+list mode (the crossing photons' float32 energies in slot order); weight
+sums and energy sums are float records, summed in another order by each
+package (XLA's reduction, ``torch.sum``; on the card, a fixed warp/block
+tree), so they are held to rtol 1e-5.
 """
 
 import numpy as np
@@ -16,7 +18,6 @@ import physicl_tpu.newton  # noqa: F401
 import physicl_tpu_torch as T
 import physicl_tpu_torch.light  # noqa: F401
 import physicl_tpu_torch.newton  # noqa: F401
-from physicl_tpu_torch.ops.pipeline import FusedRefusal
 
 RTOL = 1e-5
 
@@ -133,9 +134,72 @@ def test_scattered_beam_tallies(weighted):
     assert got[:, counts].sum(axis=0).min() > 0  # every plane was crossed
 
 
+def _list_rows_equal(got, want, weighted=False):
+    """List-mode rows: object arrays of t, n, then per plane a count (or a
+    weight sum) and an energy list; t, n, counts and lists exactly equal,
+    weight sums within rtol 1e-5. Returns the number of listed energies."""
+    assert len(got) == len(want) > 0
+    n_lists = 0
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == object and len(a) == len(b)
+        for i, (x, y) in enumerate(zip(a, b)):
+            if isinstance(y, list):
+                assert isinstance(x, list) and x == y
+                assert all(type(e) is np.float32 for e in x)
+                n_lists += len(x)
+            elif weighted and i >= 2:
+                np.testing.assert_allclose(float(x), float(y), rtol=RTOL)
+            else:
+                assert x == y
+    return n_lists
+
+
 def test_energy_list_mode_refuses():
-    s = _sim(T, 0.003, steps=[T.light.ScatterMeasureStep(
-        None, True, [[1.0, np.nan, np.nan]], measure_E=True)])
-    assert "refused [measure-E-list]" in s.explain_plan()
-    with pytest.raises(FusedRefusal, match="measure-E-list"):
-        s._run_impl()
+    """The list mode, refused before stream planes were ported, now fuses:
+    the reference's rows (tests/test_measure.py:259) equal the JAX
+    package's list for list, with empty lists where nothing crossed."""
+    def make(P):
+        c_dt = float(P.light.c) * 0.001
+        meas = P.light.ScatterMeasureStep(
+            None, True, [[1.5 * c_dt, np.nan, np.nan],
+                         [2.5 * c_dt, np.nan, np.nan]], measure_E=True)
+        Es = np.linspace(1.0, 2.0, 32)
+        return _sim(P, 0.004, n=32, E=Es, steps=[meas]), meas
+
+    (js, jm), (ts, tm) = _run_both(make)
+    assert "refused" not in ts.explain_plan()
+    assert ts.plan_report.mode == "fused"
+    assert _list_rows_equal(tm.data, jm.data) == 64
+    assert tm.data[1][3] == [np.float32(e) for e in np.linspace(1, 2, 32)]
+    assert tm.data[0][3] == [] and tm.data[2][3] == []
+
+
+@pytest.mark.parametrize("weighted", [False, True],
+                         ids=["counts", "weighted"])
+def test_energy_list_mode_scattered_beam_matches_jax(weighted):
+    """A scattering, absorbing population through planes on two axes over
+    several chunks: every iteration's list holds the crossing photons'
+    energies in slot order, as long as the count column, equal to the JAX
+    package's lists."""
+    rng = np.random.default_rng(12)
+    n = 3000
+    E = rng.uniform(0.5, 2.0, n)
+    w = rng.uniform(0.2, 1.0, n)
+
+    def make(P):
+        c_dt = float(P.light.c) * 0.001
+        meas = P.light.ScatterMeasureStep(
+            None, True, [[2.37 * c_dt, np.nan, np.nan],
+                         [np.nan, -0.61 * c_dt, np.nan]], measure_E=True,
+            weighted=weighted)
+        iso = P.light.ScatterIsotropicStep(A=np.double(0.5),
+                                           n=np.double(1e-5))
+        dele = P.light.ScatterDeleteStep(np.double(1e-6), np.double(0.5))
+        return _sim(P, 0.03, n=n, E=E, w=w, steps=[iso, dele, meas],
+                    chunk_steps=8), meas
+
+    (js, jm), (ts, tm) = _run_both(make)
+    assert _list_rows_equal(tm.data, jm.data, weighted) > 100
+    for row in tm.data:
+        if not weighted:  # the list is as long as the count column
+            assert len(row[3]) == row[2] and len(row[5]) == row[4]
