@@ -125,10 +125,50 @@ Phases (any failure exits non-zero and prints no result line):
     planes, a weighted shell tally and a traced path with scatter flags; a
     periodic box with a central absorber, a shell count and a bfloat16
     trace every 4th iteration): equal ``sim.ts``, tallies, energy lists and
-    traces.
+    traces;
+14. ``fused_transport`` vs twin on the rotation family and the del
+    variants (``scatter_plans``) at 2**20 slots and 256 iterations: HG (g
+    = 0.9), Rayleigh with lambda**-4, a Mie table (x = 5, 64 knots), cold
+    Compton with sigma_KN and the heating tally, thermal Compton (theta_e =
+    0.01), the refractive plane with and without match_speed, the
+    exponential transform with a weighted sign, fluorescence with an A(E)
+    expression and deposition: int records equal, planes bitwise, rec_f as
+    in phase 3, each timed against its bound;
+15. physics gates on the kernel, one iteration of 2**20 photons that all
+    collide: HG <cos> = g and Rayleigh <cos^2> = 2/5 within 5 sigma, a
+    256-knot Mie table's <cos> within 1e-3 of its g (2**22 photons), the
+    Klein-Nishina E'/E histogram's chi2/dof < 2 against the analytic bin
+    integrals at alpha 0.1, 1 (Kahn) and 10 (Koblinger); thermal Compton
+    at an unsaturated p = 0.3 drifts <E'/E> - 1 within 0.005 of 4 theta_e
+    at alpha = 1e-9 and within 0.008 of 0 at alpha = 4 theta_e; a glass ->
+    air plane reflects within 5 sigma of Fresnel at 30 degrees and all at
+    60 (total internal reflection);
+16. ``fused_transport`` vs twin on the first chunks of the gamma path
+    (10**7 x 1024), the glass slab (10**7 x 80), thermal Comptonization,
+    the exponential transform and fluorescence (10**7 x 1024 each), held
+    as in phase 5, each timed against its bound;
+17. gamma path (benchmarks/run_all.py compton_kn_1e7 with the heating
+    tally): 10**7 photons, 5 chunks of 1024 through ``Simulation``, run
+    twice (the second profiled): deposits plus the photons' energies equal
+    N E0 within 1e-5, |v| = c, deposits bitwise in the second run; prints
+    the rates, peak memory and idle share;
+18. glass-slab path (examples/make_fresnel_nb.py sweep 1): 10**7 photons at
+    45 degrees on a 1.6 c dt slab of n = 1.5, 80 iterations: every photon
+    transmitted or reflected, the transmission within 5 sigma of (1 - R) /
+    (1 + R);
+19. thermal Comptonization and the exponential transform at 10**7 photons
+    x 1024 iterations and Fe K-alpha fluorescence at 10**7 x 40 through
+    ``Simulation``: |v| = c and no photon lost; the weighted transmission
+    within 5 sigma of Beer-Lambert at every iteration; the source and line
+    populations within 5 sigma of the two-rate closed form and the energy
+    budget within 1e-4;
+20. the tissue plan (kin -> fresnel -> hg -> implicit capture -> absorbing
+    box -> weighted plane tally) on the card and on the CPU twin at 2**16
+    photons: equal ``sim.ts`` and alive counts, live slots bitwise.
 
 The line before the last two is a JSON object describing each kernel on
-each path: ``fused_transport`` once each for the main path, the Planck
+each path: ``fused_transport`` once each for the gamma, glass, thermal,
+stretch and fluorescence paths, the main path, the Planck
 source path, the media path, the escape path and the cavity path, each
 with its path's launch count and the times and bound at that path's own
 shape and plan (the bound counts the fields' corner reads and the stream
@@ -245,6 +285,64 @@ OPS_PER_ITER = {
     "trace_dv": (3 + 1, 2 + 2),
     # a captured energy per iteration: the select, the test and address
     "ecap": (1, 3),
+    # hg/rayl/phase per photon-iteration: norm 2, coef 1, uniform 2, the
+    # test 1, three dv zeros 3; two hashes, the pair's index, kind and flag
+    # tests 5
+    "rot": (9, 2 * 16 + 5),
+    # one collision's rotation (scatter_rotate): the pair's halves 4, sin
+    # theta 11, two fast sines 18, their norm 19 and scaling 2, the unit
+    # direction 25, the basis and the rotated direction 30, its
+    # renormalisation 22, v and dv 9; the halves' shifts and masks 6
+    "rotate": (140, 6),
+    # the polar angle: HG 2 products and sums, two divides 16, s*s, the
+    # difference, the clip 2 (isotropic-limit test 2); Rayleigh w 2, the
+    # root's argument 2, sqrt 8, log2 20, exp2 16, 1/a 8, the difference
+    # and the clip 3 (the bit work 12); the phase table x 1, floor 1,
+    # the segment's start and slope 3, + 0 1, the clip 2 (the index and
+    # the cap 4, two loads)
+    "hg_cos": (22, 2),
+    "rayl_cos": (59, 12),
+    "phase_cos": (8, 4),
+    # compton per photon-iteration: alpha 1, u 2, the test 1, three dv
+    # zeros 3; a hash, the azimuth and the tries' indices 8
+    "compton": (7, 16 + 8),
+    # sigma_KN / sigma_T (the branch alpha >= 0.5): log2 20, the closed form
+    # 16 products and sums and four divides 32; the branch tests 4
+    "kn_xsec": (68, 8),
+    # one Kahn try: r1 2, the pair's halves 4, eta_a 2, 1 / eta_a 8, the
+    # branch and its acceptance 8; two hashes, the indices 4
+    "kn_try": (24, 2 * 16 + 4),
+    # cold recoil: E / eta 8, the tally's w (E - E') 2 and its weight sum
+    "recoil": (10 + 6, 8),
+    # thermal per photon-iteration: u 2, the unit direction 25, two radii
+    # (max, log2 20, product, sqrt 8) 60, three fast sines 27, beta 6, its
+    # square 5, |beta| 8, the scale's divide 8 and min 2, beta and b2
+    # scaled 5, gamma 12, beta.n 5, the flux 2, the boost 32, its
+    # renormalisation 22, E1 and alpha1 2, the test 1; five hashes, the
+    # indices and the halves 12
+    "thermal": (246, 5 * 16 + 12),
+    # a thermal collision after its tries: E / eta 8, sin theta 11, two
+    # fast sines 18, the rotation 30, two renormalisations 44, beta.n' 5,
+    # the boost back 32, E' 1, v and dv 9, the tally 2 (and its weight
+    # sum)
+    "thermal_scatter": (160 + 6, 8),
+    # fresnel per photon-iteration: u 2, the axis selects 4, the side tests
+    # 3; a hash, the logic 4
+    "fresnel": (9, 16 + 6),
+    # one crossing: the unit direction 25, cos_i and sin2_t 6, sqrt 8, the
+    # Fresnel coefficients 10 and two divides 16, R 4, the reflection test
+    # 1, s 10, the refracted direction and its norm 25, the outgoing speed
+    # 8, the remainder 4, positions, dr and v 18; the axis selects 6
+    "fresnel_cross": (135, 6),
+    # the exponential transform on top of "del": mu 5 and its divide 8, two
+    # clips 4, the bias 3, the cap 2, the ratio 10, the weight update 2
+    "stretch": (34, 4),
+    # fluorescence on top of "del": y 2, the three tests 3; two hashes,
+    # the logic 6
+    "fluor": (5, 2 * 16 + 6),
+    # one re-emission: cos and sin theta 13, two fast sines 18, the norm 19
+    # and scaling 4, v, dv and E 10; the pair's halves 6
+    "fluor_emit": (64, 6),
 }
 # lane-loads per field read (gathers, at the SM's load/store issue rate)
 LOADS_PER_FIELD = {"voxel_tri": 8, "voxel_near": 1, "layered": 2}
@@ -345,26 +443,66 @@ def field_cost(fn):
     return per, 0
 
 
-def transport_bound(plan, slots, k_act, starts):
+def transport_bound(plan, slots, k_act, starts, events=None):
     """bound() of one fused_transport launch of ``plan``."""
-    return bound(*transport_counts(plan, slots, k_act, starts))
+    return bound(*transport_counts(plan, slots, k_act, starts, events))
 
 
-def transport_counts(plan, slots, k_act, starts):
+def expected_events(plan, packed, alive_steps, dt, cross_p=0.0):
+    """{op index: expected events} of one launch whose alive photon-
+    iterations number ``alive_steps`` (the sum of its column-0 counts): the
+    rotation family's collisions, a compton op's Kahn tries (one per
+    collision: later tries are not counted), fluorescent re-emissions, at
+    the collision probability of the initial live photons' energies; an
+    interface's crossings at ``cross_p`` per photon-iteration. The kernel
+    does this work only for these events, so the bound counts them from
+    the run's data instead of for every slot."""
+    import torch
+
+    from physicl_tpu_torch import light
+
+    live = packed[13] > 0
+    E = packed[12][live].float()
+    events = {}
+    for i, op in enumerate(plan.ops):
+        if op.kind == "fresnel":
+            events[i] = cross_p * alive_steps
+            continue
+        if op.kind not in ("hg", "rayl", "phase", "compton") \
+                and not op.fluor:
+            continue
+        p = torch.full_like(E, op.coef * C_LIGHT * dt)
+        if op.wl_base is not None:
+            p = p * (E * op.wl_base) ** 4
+        if op.kind == "compton" and op.kn_xsec:
+            p = p * light._kn_sigma_ratio(E * op.inv_mec2, fast=True)
+        p = p.clamp(0.0, 1.0)
+        if op.fluor:
+            p = p * op.fluor[0] * (E >= op.fluor[2])
+        events[i] = float(p.double().mean()) * alive_steps
+    return events
+
+
+def transport_counts(plan, slots, k_act, starts, events=None):
     """(bytes, float32 ops, int32 ops, lane-loads) of one fused_transport
     launch of ``plan``: 2 x 60 B per slot, each voxel grid read once and the
     stream buffer written once; the lane-operations of its ops over slots x
     k_act slot-iterations plus the once-per-photon work of the emissions
-    ``starts`` schedules and of the sampled trace iterations; the fields'
-    gathers and the stream stores as lane-loads at the load/store issue
-    rate."""
+    ``starts`` schedules and of the sampled trace iterations, and the work
+    per collision, crossing or re-emission for the ``events``
+    (``expected_events``) of the rotation family; the fields' gathers, the
+    phase tables' reads and the stream stores as lane-loads at the
+    load/store issue rate."""
     per, once = [OPS_PER_ITER["loop"], OPS_PER_ITER["col0"]], []
+    events = events or {}
     if plan.n_stream:
         per.append(OPS_PER_ITER["stream_row"])
     loads, grids = 0, {}
     stream_elems = plan.n_stream_rows * plan.n_stream * slots
     sampled = -(-k_act // plan.stream_every)  # trace rows with data
-    for op in plan.ops:
+    event_loads = 0.0  # the phase tables' reads, per collision
+    for i, op in enumerate(plan.ops):
+        n_ev = events.get(i, 0.0)
         for fn in (op.n_fn, op.a_fn):
             if fn is not None:
                 cost, ld = field_cost(fn)
@@ -377,6 +515,11 @@ def transport_counts(plan, slots, k_act, starts):
                                     else "iso_wl"])
         elif op.kind == "del":
             per.append(OPS_PER_ITER["del"])
+            if op.stretch:
+                per.append(OPS_PER_ITER["stretch"])
+            if op.fluor:
+                per.append(OPS_PER_ITER["fluor"])
+                once.append((OPS_PER_ITER["fluor_emit"], n_ev))
             if op.implicit_capture:
                 per.append(OPS_PER_ITER["capture"])
                 if op.roulette:
@@ -413,13 +556,34 @@ def transport_counts(plan, slots, k_act, starts):
             once.append((OPS_PER_ITER["trace"], slots * sampled))
             if op.stream_scat:
                 once.append((OPS_PER_ITER["trace_dv"], slots * sampled))
+        elif op.kind in ("hg", "rayl", "phase"):
+            per.append(OPS_PER_ITER["rot"])
+            if op.wl_base is not None:
+                per.append((4, 1))
+            once += [(OPS_PER_ITER["rotate"], n_ev),
+                     (OPS_PER_ITER[f"{op.kind}_cos"], n_ev)]
+            if op.kind == "phase":
+                event_loads += 2 * n_ev
+        elif op.kind == "compton":
+            thermal = op.theta_e > 0
+            per.append(OPS_PER_ITER["thermal" if thermal else "compton"])
+            if op.kn_xsec:
+                per.append(OPS_PER_ITER["kn_xsec"])
+            once += [(OPS_PER_ITER["kn_try"], n_ev),
+                     (OPS_PER_ITER["thermal_scatter" if thermal
+                                   else "rotate"], n_ev)]
+            if not thermal:
+                once.append((OPS_PER_ITER["recoil"], n_ev))
+        elif op.kind == "fresnel":
+            per.append(OPS_PER_ITER["fresnel"])
+            once.append((OPS_PER_ITER["fresnel_cross"], n_ev))
         else:
             per.append(OPS_PER_ITER[op.kind])
     ops = [sum(p[j] for p in per) * slots * k_act
            + sum(o[j] * n for o, n in once) for j in (0, 1)]
     elem = 2 if plan.stream_dtype == "bfloat16" else 4
     return (2 * 60 * slots + sum(grids.values()) + elem * stream_elems,
-            *ops, loads * slots * k_act + stream_elems)
+            *ops, loads * slots * k_act + event_loads + stream_elems)
 
 
 def random_packed(C, seed):
@@ -525,7 +689,8 @@ def main():
     seed = 123_456_789
     # largest plane difference from the twin, per path
     err = {"main": 0.0, "planck": 0.0, "planck_gen": 0.0, "media": 0.0,
-           "escape": 0.0, "cavity": 0.0}
+           "escape": 0.0, "cavity": 0.0, "rot": 0.0, "gamma": 0.0,
+           "glass": 0.0, "thermal": 0.0, "stretch": 0.0, "fluor": 0.0}
     a_E, b_E = planck_window()
     sampler = light.PlanckSampler(a_E, b_E, T_SUN, bins=2000)
 
@@ -823,6 +988,23 @@ def main():
         "cavity-chunk-0", cavity_sim(phys, CAV_N, dev)[0], F, torch, lib,
         compare, "cavity", card, ["kin", "reflect", "iso", "trace"])
 
+    rotation_plans(torch, F, light, dev, seed, compare, card, times)
+    physics_gates(torch, F, light, dev, card)
+    gft = path_chunk0(
+        "gamma-chunk-0", gamma_sim(phys, GAMMA_N, dev)[0], F, torch, lib,
+        compare, "gamma", card, ["kin", "compton", "sign"], streams=False)
+    sft = path_chunk0(
+        "glass-chunk-0", glass_sim(phys, GLASS_N, dev)[0], F, torch, lib,
+        compare, "glass", card, ["kin", "fresnel", "fresnel", "cross"],
+        streams=False, cross_p=1.0 / GLASS_ITERS)
+    rft = {case: path_chunk0(
+        f"{case}-chunk-0",
+        run_all_sim(phys, case, RUN_ALL_N, dev, 1024)[0], F, torch, lib,
+        compare, case, card, kinds, streams=False)
+        for case, kinds in (("thermal", ["kin", "compton", "sign"]),
+                            ("stretch", ["kin", "del", "sign"]),
+                            ("fluor", ["kin", "del"]))}
+
     phase("planck_gen vs twin (10**7 samples)")
     n_gen = 10_000_000
     table = sampler.table(dev)
@@ -945,11 +1127,24 @@ def main():
     card_vs_cpu(torch, phys, F, sampler, err)
     media_card_vs_cpu(torch, phys, F, err)
     geometry_card_vs_cpu(torch, phys, F, sampler, err)
+    gamma = gamma_path(torch, phys, F, dev, card, gft)
+    glass = glass_path(torch, phys, F, dev, card, sft)
+    runs = run_all_paths(torch, phys, F, dev, card)
+    tissue_card_vs_cpu(torch, phys, F)
 
     ft_src = {"name": "fused_transport", "route": "cuda",
               "source": "physicl_tpu_torch/csrc/fused_transport.cu",
               "replaces": "physicl_tpu/ops/fused.py:1652"}
-    print(json.dumps({"kernels": [
+    new_paths = [
+        {**ft_src, "path": "gamma", "launches": gamma["fused_launches"],
+         "max_abs_err": err["gamma"], **gft, "library_ms": None},
+        {**ft_src, "path": "glass", "launches": glass["fused_launches"],
+         "max_abs_err": err["glass"], **sft, "library_ms": None}]
+    new_paths += [{**ft_src, "path": case,
+                   "launches": runs[case]["fused_launches"],
+                   "max_abs_err": err[case], **rft[case], "library_ms": None}
+                  for case in ("thermal", "stretch", "fluor")]
+    print(json.dumps({"kernels": new_paths + [
         {**ft_src, "path": "main", "launches": main_launches,
          "max_abs_err": err["main"], **ft, "library_ms": None},
         {**ft_src, "path": "planck", "launches": planck["fused_launches"],
@@ -1259,6 +1454,64 @@ def geometry_plans(F, chunk, L):
     }
 
 
+def scatter_plans(F, light, chunk, L):
+    """One plan per form of the rotation family and the del variants over
+    the box [0, L]**3 (c dt = L / 64; ``geometry_packed`` states): HG with
+    g = 0.9; Rayleigh with lambda**-4; a Mie phase table (x = 5, 64 bins);
+    cold Compton with sigma_KN and the heating tally (alpha = E from 0.5
+    to 2 across Kahn and Koblinger); thermal Compton (theta_e = 0.01); the
+    refractive plane with and without match_speed behind isotropic
+    scattering; the exponential transform with a weighted sign; Fe K-alpha
+    fluorescence with an A(E) expression and deposition
+    (tests/test_torch_cuda.py holds the same plans at 2**16 x 64)."""
+    c_dt = L / 64
+    mu, pdf, _ = light.mie_phase_table(5.0)
+    loc = L / 2 + 0.37 * c_dt
+
+    def plan(ops, n_f=0, weighted=False, const_norm=True):
+        """[kin, *ops, sign]: the ops' float columns first, then the
+        weighted sign's three."""
+        return F.FusedPlan(
+            ops=[F._Op("kin"), *ops,
+                 F._Op("sign", cols=(1, n_f if weighted else 2),
+                       weighted=weighted)],
+            n_rec_cols=2 if weighted else 5, chunk=chunk,
+            const_norm_speed=C_LIGHT if const_norm else None,
+            n_frec_cols=n_f + (3 if weighted else 0))
+
+    iso = F._Op("iso", coef=0.05 / c_dt, c_val=C_LIGHT)
+    return {
+        "rot-hg": plan([F._Op("hg", coef=0.1 / c_dt, c_val=C_LIGHT,
+                              g=0.9)]),
+        # lambda**-4: pcoll = c dt (E wl_base)**4, 0.1 at E = 1
+        "rot-rayl-wl": plan([F._Op("rayl", coef=1.0, c_val=C_LIGHT,
+                                   wl_base=(0.1 / c_dt) ** 0.25)]),
+        "rot-phase-mie": plan([F._Op("phase", coef=0.1 / c_dt, c_val=C_LIGHT,
+                                     phase_knots=light.phase_knots(mu, pdf,
+                                                                   64))]),
+        "rot-compton-kn-dep": plan([F._Op(
+            "compton", coef=0.1 / c_dt, c_val=C_LIGHT, inv_mec2=2.0,
+            kn_xsec=True, kn_tries=12, cols=(0,))], n_f=1),
+        "rot-compton-thermal": plan([F._Op(
+            "compton", coef=0.1 / c_dt, c_val=C_LIGHT, inv_mec2=0.02,
+            kn_tries=12, theta_e=0.01, cols=(0,))], n_f=1),
+        "rot-fresnel": plan([iso, F._Op("fresnel", c_val=C_LIGHT,
+                                        iface=(2, loc, 1.0, 1.5, False))],
+                            const_norm=False),
+        "rot-fresnel-match": plan([iso, F._Op(
+            "fresnel", c_val=C_LIGHT, iface=(2, loc, 1.0, 1.5, True))],
+            const_norm=False),
+        "rot-del-stretch-w": plan([F._Op(
+            "del", coef=0.02 / c_dt, stretch=(0.7, 0.6, 0.0, 0.8),
+            cols=(0,))], n_f=1, weighted=True),
+        "rot-del-fluor-dep": plan([F._Op(
+            "del", coef=0.004 / c_dt, c_val=C_LIGHT,
+            a_fn=light._compile_field_expr("(2.0 / E[gid])**3", ("E",),
+                                           "A_fn"),
+            fluor=(0.34, 0.64, 0.711), cols=(0,))], n_f=1),
+    }
+
+
 def stream_equal(a, b):
     """Stream buffers equal bit for bit, every NaN mapped to one pattern
     (``torch.equal`` is False wherever either side holds a NaN)."""
@@ -1367,9 +1620,13 @@ def cavity_sim(phys, n, dev, seed=29, iters=CAV_ITERS, every=CAV_EVERY,
     return sim, tr
 
 
-def path_chunk0(name, sim, F, torch, lib, compare, path, card, kinds):
+def path_chunk0(name, sim, F, torch, lib, compare, path, card, kinds,
+                streams=True, cross_p=0.0):
     """Phase: fused_transport against the twin on a path's first chunk, as
-    its provider hands it over; returns the kernel's entry numbers."""
+    its provider hands it over; returns the kernel's entry numbers. The
+    bound counts the rotation family's work per expected event
+    (``expected_events``, interface crossings at ``cross_p`` per
+    photon-iteration)."""
     import ctypes
 
     from physicl_tpu_torch.ops import _build
@@ -1377,7 +1634,8 @@ def path_chunk0(name, sim, F, torch, lib, compare, path, card, kinds):
     phase(f"fused_transport vs twin on the {path} path's first chunk")
     packed, sched, seed, k, plan, _ = first_chunk_inputs(sim, F)
     del sim
-    check([op.kind for op in plan.ops] == kinds and plan.n_stream,
+    check([op.kind for op in plan.ops] == kinds
+          and bool(plan.n_stream) == streams,
           f"{name}: plan {[op.kind for op in plan.ops]} is not the path's")
     g = ctypes.c_int(0)
     _build.check(lib.fused_transport_grid(
@@ -1393,11 +1651,15 @@ def path_chunk0(name, sim, F, torch, lib, compare, path, card, kinds):
     out = {"plain_ms": compare(name, packed, sched, k, plan, None, path,
                                seed, need_bitwise=True)}
     res = torch.empty_like(packed)
+    rec = F.fused_transport(packed, res, sched, seed, k, plan)[0]
+    events = expected_events(plan, packed, float(rec[:k, 0].double().sum()),
+                             float(sched[0, 0]), cross_p)
     out["ms"] = cuda_ms(lambda: F.fused_transport(packed, res, sched, seed,
                                                   k, plan), 3, torch)
-    out["bound_ms"], out["bound_by"] = transport_bound(plan, packed.shape[1],
-                                                       k, None)
-    terms = bound_terms(*transport_counts(plan, packed.shape[1], k, None))
+    out["bound_ms"], out["bound_by"] = transport_bound(
+        plan, packed.shape[1], k, None, events)
+    terms = bound_terms(*transport_counts(plan, packed.shape[1], k, None,
+                                          events))
     print(f"{name}: kernel {out['ms']:.2f} ms, twin {out['plain_ms']:.1f} "
           f"ms, bound {out['bound_ms']:.2f} ms ({out['bound_by']}; ms per "
           "term: " + ", ".join(f"{t} {v:.2f}" for t, v in terms.items())
@@ -1736,6 +1998,525 @@ def geometry_card_vs_cpu(torch, phys, F, sampler, err):
         print(f"{case} card == CPU: sim.ts, tallies, {n_listed} listed "
               f"energies, trace {ga[1].shape} bitwise (NaN for NaN)",
               flush=True)
+
+
+def rotation_plans(torch, F, light, dev, seed, compare, card, times):
+    """Phase: fused_transport against the twin on the nine rotation-family
+    and del-variant plans at 2**20 slots x 256 iterations; each timed with
+    its counted bound (collisions at the plans' pcoll, interface crossings
+    at c dt / 2 per box side per photon-iteration)."""
+    C, K = 1 << 20, 256
+    phase(f"fused_transport vs twin on the rotation plans (2**20 slots, {K} "
+          "iterations)")
+    L = 64 * C_LIGHT * 0.001
+    pk = torch.from_numpy(geometry_packed(C, L, 12)).to(dev)
+    sched = torch.zeros((5, K), dtype=torch.float32, device=dev)
+    sched[0] = 0.001
+    for name, plan in scatter_plans(F, light, K, L).items():
+        check(plan.kernel_variant & 4, f"{name}: not the rotation variant")
+        plain_ms = compare(name, pk, sched, K, plan, None, "rot",
+                           need_bitwise=True)
+        out = torch.empty_like(pk)
+        rec, _ = F.fused_transport(pk, out, sched, seed, K, plan)
+        ms = cuda_ms(lambda: F.fused_transport(pk, out, sched, seed, K,
+                                               plan), 5, torch)
+        steps = float(rec[:K, 0].double().sum())
+        events = expected_events(plan, pk, steps, 0.001, cross_p=0.5 / 64)
+        b_ms, b_by = transport_bound(plan, C, K, None, events)
+        times[name] = ms
+        print(f"{name} at 2**20 x {K}: kernel {ms:.3f} ms, twin "
+              f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
+              f"{sum(events.values()):.4g} counted events) [{card}]",
+              flush=True)
+    del pk, out
+
+
+def scatter_once(torch, F, op, n, dev, seed, E=1.0):
+    """n photons in isotropic directions at c through one iteration of
+    [kin, op] on the kernel: (cos theta of each to its incoming
+    direction, the scattered mask (dv != 0), the state after)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d = isotropic_v(torch, n, 1.0, gen, dev)
+    p = torch.zeros((15, n), dtype=torch.float32, device=dev)
+    p[6:9] = d * C_LIGHT
+    p[12], p[13], p[14] = E, 1.0, 1.0
+    plan = F.FusedPlan(ops=[F._Op("kin"), op], n_rec_cols=1, chunk=1,
+                       const_norm_speed=C_LIGHT)
+    sched = torch.zeros((5, 1), dtype=torch.float32, device=dev)
+    sched[0] = 0.001
+    out = torch.empty_like(p)
+    F.fused_transport(p, out, sched, seed, 1, plan)
+    cos = (out[6:9].double() / C_LIGHT * d.double()).sum(0)
+    return cos, (out[9:12] != 0).any(0), out
+
+
+def kn_bins(alpha, edges):
+    """The Klein-Nishina density of eps = E'/E integrated over each bin:
+    f(eps) ~ eps + 1/eps - 1 + cos^2 theta, cos theta = 1 - (1/eps - 1) /
+    alpha, on [1 / (1 + 2 alpha), 1] (Simpson, normalised)."""
+    out = []
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        x = np.linspace(lo, hi, 201)
+        ct = 1 - (1 / x - 1) / alpha
+        f = x + 1 / x - 1 + ct * ct
+        h = (hi - lo) / 200
+        out.append(h / 3 * (f[0] + f[-1] + 4 * f[1:-1:2].sum()
+                            + 2 * f[2:-1:2].sum()))
+    out = np.asarray(out)
+    return out / out.sum()
+
+
+def physics_gates(torch, F, light, dev, card):
+    """Phase: one iteration on the kernel where every photon scatters
+    (pcoll >= 1), except the thermal case: HG <cos> = g, Rayleigh <cos^2> =
+    2/5, the Mie table's <cos> against its g, the Klein-Nishina E'/E
+    histogram against the analytic bin integrals (Kahn at alpha 0.1 and 1,
+    Koblinger at 10), the Kompaneets drift of thermal Compton at an
+    unsaturated p = 0.3; then the Fresnel reflectance at a single glass ->
+    air plane below the critical angle, and total internal reflection
+    beyond it."""
+    phase("physics gates (2**20 photons, one iteration)")
+    n = 1 << 20
+    c_dt = C_LIGHT * 0.001
+    hit = 2.0 / c_dt  # pcoll = 2: every photon collides
+    cos, scat, _ = scatter_once(torch, F, F._Op("hg", coef=hit,
+                                                c_val=C_LIGHT, g=0.9),
+                                n, dev, 1)
+    z = (float(cos.mean()) - 0.9) / (float(cos.std()) / np.sqrt(n))
+    check(bool(scat.all()) and abs(z) < 5, f"HG <cos> off g by {z:.2f} sigma")
+    print(f"HG g = 0.9: <cos theta> = {float(cos.mean()):.6f} ({z:+.2f} "
+          "sigma)")
+    cos, scat, _ = scatter_once(torch, F, F._Op("rayl", coef=hit,
+                                                c_val=C_LIGHT), n, dev, 2)
+    c2 = cos * cos
+    z = (float(c2.mean()) - 0.4) / (float(c2.std()) / np.sqrt(n))
+    check(bool(scat.all()) and abs(z) < 5,
+          f"Rayleigh <cos^2> off 2/5 by {z:.2f} sigma")
+    print(f"Rayleigh: <cos^2 theta> = {float(c2.mean()):.6f} ({z:+.2f} "
+          "sigma)")
+    # 256 knots: the 64-knot table's own mean sits 1.16e-3 below g (the
+    # piecewise-linear inverse CDF's bias), 256 knots 1.5e-5
+    mu, pdf, g = light.mie_phase_table(5.0)
+    cos, scat, _ = scatter_once(
+        torch, F, F._Op("phase", coef=hit, c_val=C_LIGHT,
+                        phase_knots=light.phase_knots(mu, pdf, 256)),
+        4 * n, dev, 3)
+    dev_g = float(cos.mean()) - g
+    check(bool(scat.all()) and abs(dev_g) < 1e-3,
+          f"Mie table <cos> off its g by {dev_g:.2e}")
+    print(f"Mie x = 5 (256 knots, 2**22 photons): <cos theta> = "
+          f"{float(cos.mean()):.6f}, g = {g:.6f} ({dev_g:+.2e})")
+    for alpha in (0.1, 1.0, 10.0):
+        _, scat, out = scatter_once(torch, F, F._Op(
+            "compton", coef=hit, c_val=C_LIGHT, inv_mec2=alpha,
+            kn_tries=12), n, dev, 4)
+        eps = out[12][scat].double().cpu().numpy()
+        edges = np.linspace(1 / (1 + 2 * alpha), 1.0, 51)
+        h = np.histogram(eps, bins=edges)[0]
+        want = kn_bins(alpha, edges) * len(eps)
+        chi2 = float(((h - want) ** 2 / want).sum()) / 49
+        check(chi2 < 2.0 and len(eps) > 0.99 * n,
+              f"Klein-Nishina E'/E at alpha {alpha}: chi2/dof {chi2:.2f}, "
+              f"{len(eps)} scattered")
+        print(f"Klein-Nishina alpha = {alpha} "
+              f"({'Koblinger' if alpha > 2.74 else 'Kahn'}): E'/E "
+              f"histogram chi2/dof {chi2:.3f} over 50 bins, {len(eps)} of "
+              f"{n} scattered")
+    for alpha, want, tol in ((1e-9, 0.04, 0.005), (0.04, 0.0, 0.008)):
+        _, scat, out = scatter_once(torch, F, F._Op(
+            "compton", coef=0.3 / c_dt, c_val=C_LIGHT, inv_mec2=alpha,
+            kn_tries=12, theta_e=0.01), n, dev, 5)
+        drift = float(out[12][scat].double().mean()) - 1.0
+        share = float(scat.double().mean())
+        check(abs(drift - want) < tol and 0.25 < share < 0.35,
+              f"thermal drift at alpha {alpha}: {drift:.5f} (want {want})")
+        print(f"thermal theta_e = 0.01, alpha = {alpha}: <E'/E> - 1 = "
+              f"{drift:+.5f} (Kompaneets 4 theta_e - alpha = {want}), "
+              f"{share:.4f} scattered")
+    for theta in (30.0, 60.0):
+        refl, expect = interface_pass(torch, F, dev, theta, 1.5, 1.0, n)
+        sigma = np.sqrt(max(expect * (1 - expect), 1e-12) / n)
+        check(abs(refl - expect) <= 5 * sigma + 1e-9,
+              f"glass -> air at {theta} degrees: reflected {refl:.6f}, "
+              f"Fresnel {expect:.6f}")
+        print(f"glass -> air at {theta} degrees: reflected share "
+              f"{refl:.6f}, Fresnel {expect:.6f}"
+              + (" (total internal reflection)" if expect == 1 else ""),
+              flush=True)
+
+
+def fresnel_R(theta_deg, n1, n2):
+    """The unpolarised Fresnel reflectance (1 beyond the critical angle)."""
+    ci = np.cos(np.deg2rad(theta_deg))
+    st2 = (n1 / n2) ** 2 * (1 - ci * ci)
+    if st2 > 1:
+        return 1.0
+    ct = np.sqrt(1 - st2)
+    rs = (n1 * ci - n2 * ct) / (n1 * ci + n2 * ct)
+    rp = (n1 * ct - n2 * ci) / (n1 * ct + n2 * ci)
+    return 0.5 * (rs * rs + rp * rp)
+
+
+def interface_pass(torch, F, dev, theta, n1, n2, n):
+    """n photons in medium n1 meet the plane x = 0 at theta in one
+    iteration on the kernel: (reflected share, Fresnel reflectance)."""
+    th = np.deg2rad(theta)
+    c_dt = C_LIGHT * 0.001
+    gen = torch.Generator(device=dev).manual_seed(6)
+    p = torch.zeros((15, n), dtype=torch.float32, device=dev)
+    # start within one step of the plane, never on it
+    p[0] = -(0.01 + 0.98 * torch.rand(n, generator=gen, device=dev)) \
+        * np.cos(th) * c_dt
+    p[6], p[7] = np.cos(th) * C_LIGHT, np.sin(th) * C_LIGHT
+    p[12], p[13], p[14] = 1.0, 1.0, 1.0
+    plan = F.FusedPlan(ops=[F._Op("kin"), F._Op(
+        "fresnel", c_val=C_LIGHT, iface=(0, 0.0, n1, n2, False))],
+        n_rec_cols=1, chunk=1, const_norm_speed=C_LIGHT)
+    sched = torch.zeros((5, 1), dtype=torch.float32, device=dev)
+    sched[0] = 0.001
+    out = torch.empty_like(p)
+    F.fused_transport(p, out, sched, 7, 1, plan)
+    return float((out[6] < 0).double().mean()), fresnel_R(theta, n1, n2)
+
+
+GAMMA_N = 10_000_000     # run_all.py's compton_kn_1e7
+GAMMA_ITERS = 5 * 1024
+GLASS_N = 10_000_000     # examples/make_fresnel_nb.py sweep 1 at 10**7
+GLASS_ITERS = 80
+GLASS_N_IN = 1.5
+GLASS_THICK = 1.6        # slab thickness in c dt
+GLASS_THETA = 45.0
+
+
+def gamma_sim(phys, n, dev, iters=GAMMA_ITERS, seed=0):
+    """The gamma-ray path (benchmarks/run_all.py compton_kn_1e7): n photons
+    at E = 1 along +x, UpdateTime, kinematics, ScatterCompton(A n c dt =
+    1e-3, mec2 = 1, kn_cross_section, measure_deposition), a sign tally;
+    chunks of 1024. Returns ``(sim, compton step, sign tally)``."""
+    light = phys.light
+    c_dt = float(light.c) * 0.001
+    sim = phys.Simulation(until_t=(iters - 0.5) * 0.001, seed=seed,
+                          chunk_steps=1024, device=dev)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    comp = light.ScatterComptonStep(A=0.001 / c_dt, n=1.0, mec2=1.0,
+                                    kn_cross_section=True,
+                                    measure_deposition=True)
+    sim.add_step(2, comp)
+    sign = light.ScatterSignMeasureStep(None, True)
+    sim.add_step(3, sign)
+    sim.add_photons(light.generate_photon_state(n, E=1.0, device=dev))
+    return sim, comp, sign
+
+
+def glass_sim(phys, n, dev, seed=19):
+    """The glass-slab path (examples/make_fresnel_nb.py sweep 1): n photons
+    in air meet a slab of index 1.5 and thickness 1.6 c dt at 45 degrees,
+    starting within one step of its face (never on it); two interfaces and two plane
+    tallies 12.3 c dt beyond each side; 80 iterations. Returns ``(sim,
+    tally)``."""
+    import torch
+
+    light = phys.light
+    c_dt = float(light.c) * 0.001
+    th = np.deg2rad(GLASS_THETA)
+    x0, x1 = 0.37 * c_dt, (0.37 + GLASS_THICK) * c_dt
+    sim = phys.Simulation(until_t=(GLASS_ITERS - 0.5) * 0.001, seed=seed,
+                          device=dev)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    sim.add_step(2, light.RefractiveInterfaceStep(x0, 1.0, GLASS_N_IN,
+                                                  axis=0))
+    sim.add_step(3, light.RefractiveInterfaceStep(x1, GLASS_N_IN, 1.0,
+                                                  axis=0))
+    tally = light.ScatterMeasureStep(
+        None, True, [(x1 + 12.3 * c_dt, np.nan, np.nan),
+                     (x0 - 12.3 * c_dt, np.nan, np.nan)])
+    sim.add_step(4, tally)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = torch.zeros((3, n), dtype=torch.float64, device=dev)
+    r[0] = x0 - (0.01 + 0.98 * torch.rand(
+        n, generator=gen, dtype=torch.float64, device=dev)) \
+        * np.cos(th) * c_dt
+    r[1] = torch.rand(n, generator=gen, dtype=torch.float64,
+                      device=dev) * 100 * c_dt
+    sim.add_photons(light.generate_photon_state(
+        n, E=1.0, r=r, v=(np.cos(th) * C_LIGHT, np.sin(th) * C_LIGHT, 0.0),
+        device=dev))
+    return sim, tally
+
+
+def run_all_sim(phys, case, n, dev, iters):
+    """benchmarks/run_all.py's comptonization_thermal_1e7 and
+    exponential_transform_1e7 (n photons at E = 1 along +x, A n c dt =
+    1e-3; thermal: mec2 = 1e9, theta_e = 0.01 and a sign tally; stretch:
+    the transform b = 0.7 along +x and a weighted sign tally), and the Fe
+    K-alpha fluorescence of examples/make_fluorescence_nb.py (E0 = 20,
+    p(E0) = 0.004, A(E) = (20 / E)**3 as a C expression, Y = 0.34, the line
+    at 6.40 and the edge at 7.11, deposition); ``iters`` iterations.
+    Returns ``(sim, {name: step})``."""
+    light = phys.light
+    c_dt = float(light.c) * 0.001
+    sim = phys.Simulation(until_t=(iters - 0.5) * 0.001, seed=0,
+                          device=dev)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    steps, E0 = {}, 1.0
+    if case == "thermal":
+        sim.add_step(2, light.ScatterComptonStep(
+            A=0.001 / c_dt, n=1.0, mec2=1e9, theta_e=0.01))
+        steps["sign"] = light.ScatterSignMeasureStep(None, True)
+    elif case == "stretch":
+        sim.add_step(2, light.ScatterDeleteStep(1.0, 0.001 / c_dt,
+                                                stretch=0.7))
+        steps["sign"] = light.ScatterSignMeasureStep(None, True,
+                                                     weighted=True)
+    else:
+        E0 = FLUOR_E0
+        steps["dep"] = light.ScatterDeleteStep(
+            n=1.0, A=FLUOR_P / c_dt, A_fn="(20.0 / E[gid])**3",
+            fluorescence=(FLUOR_Y, FLUOR_KA), fluorescence_edge=7.11,
+            measure_deposition=True)
+    sim.add_step(3, steps.get("dep") or steps["sign"])
+    sim.add_photons(light.generate_photon_state(n, E=E0, device=dev))
+    return sim, steps
+
+
+FLUOR_E0, FLUOR_KA, FLUOR_Y, FLUOR_P = 20.0, 6.40, 0.34, 0.004
+RUN_ALL_N = 10_000_000
+FLUOR_K = 40             # the example's iterations
+
+
+def gamma_path(torch, phys, F, dev, card, gft):
+    """Phase: the gamma-ray path through Simulation at 10**7 photons (run
+    twice, the second profiled): the energy balance, the rates, the idle
+    share and the peak memory; returns the first run's launches."""
+    phase(f"gamma path: {GAMMA_N} photons, Compton with sigma_KN and "
+          f"deposition, {GAMMA_ITERS} iterations")
+
+    def run(profile):
+        F.fused_transport.launches = 0
+        sim, comp, sign = gamma_sim(phys, GAMMA_N, torch.device(dev))
+        wall, prof, peak = run_sim(torch, sim, profile)
+        return sim, comp, sign, wall, prof, peak, F.fused_transport.launches
+
+    sim, comp, sign, wall, _, peak, launches = run(False)
+    print(sim.explain_plan())
+    chunks = [n for _, n, _ in sim.chunk_log]
+    check(sim.used_fused and launches >= 5 and chunks[:5] == [1024] * 5,
+          f"gamma path: launches {launches}, chunks {chunks}")
+    dep = np.asarray(comp.data, np.float64)
+    data = np.asarray(sign.data)
+    check(dep.shape == (GAMMA_ITERS, 2) and bool((data[:, 1] == GAMMA_N)
+                                                 .all()),
+          "gamma path: records or photon count wrong")
+    st = sim.sim_state
+    E = st.E[st.alive].double()
+    check(bool(torch.isfinite(E).all() and (E > 0).all() and (E <= 1).all()),
+          "gamma path: energies outside (0, 1]")
+    balance = (dep[:, 1].sum() + float(E.sum())) / GAMMA_N - 1
+    check(abs(balance) < 1e-5, f"gamma path: deposits + sum E off N E0 by "
+          f"{balance:.3e}")
+    speed = torch.linalg.vector_norm(st.v[:, :GAMMA_N].double(), dim=0)
+    v_err = float((speed / C_LIGHT - 1).abs().max())
+    check(v_err < 1e-5, f"gamma path: |v| off c by {v_err:.2e}")
+    rate, steady_s = steady_rate(sim, np.full(len(sim.ts), GAMMA_N))
+    print(f"gamma path: {len(sim.ts)} iterations in chunks {chunks}, "
+          f"fused_transport launches {launches}; deposits + sum E = N E0 "
+          f"within {balance:+.3e}; mean E {float(E.mean()):.6f}; |v| = c "
+          f"within {v_err:.2e}")
+    print(f"gamma path rate: {rate:.4e} photon-steps/s over the dispatch "
+          f"loop after the first chunk, device clock ({steady_s * 1e3:.1f} "
+          f"ms); {GAMMA_N * len(sim.ts) / wall:.4e} from start() "
+          f"({wall:.3f} s wall); set-up {sim.setup_seconds:.3f} s; peak "
+          f"memory {peak / 2 ** 30:.2f} GiB; kernel {gft['ms']:.2f} ms per "
+          f"chunk against a bound of {gft['bound_ms']:.2f} ms "
+          f"({gft['bound_by']}) [{card}]", flush=True)
+    out = {"fused_launches": launches}
+    del sim, st, E, speed
+    sim2, comp2, _, _, prof, _, _ = run(True)
+    check(np.array_equal(dep, np.asarray(comp2.data, np.float64)),
+          "gamma path: a second run with the same seed gave other deposits")
+    busy, span = device_busy(prof, torch)
+    print(f"gamma path device idle share (profiled second run, first to last "
+          f"fused_transport kernel): {1 - busy / span:.4f} ({busy:.1f} ms "
+          f"busy of {span:.1f} ms) [{card}]")
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=6))
+    del sim2, prof
+    return out
+
+
+def glass_path(torch, phys, F, dev, card, sft):
+    """Phase: the glass slab through Simulation at 10**7 photons: every
+    photon ends transmitted or reflected (to 1e-5 of N: a photon landing
+    exactly on a tally plane is counted twice), and the transmission is
+    the incoherent slab's (1 - R) / (1 + R) within 5 binomial sigma."""
+    phase(f"glass-slab path: {GLASS_N} photons, n = {GLASS_N_IN}, "
+          f"{GLASS_THICK} c dt thick, {GLASS_THETA} degrees, {GLASS_ITERS} "
+          "iterations")
+    F.fused_transport.launches = 0
+    sim, tally = glass_sim(phys, GLASS_N, torch.device(dev))
+    wall, _, peak = run_sim(torch, sim)
+    launches = F.fused_transport.launches
+    print(sim.explain_plan())
+    data = np.asarray(tally.data)
+    check(sim.used_fused and launches >= 1 and data.shape[0] == GLASS_ITERS,
+          f"glass path: launches {launches}, rows {data.shape}")
+    trans, refl = int(data[:, 2].sum()), int(data[:, 3].sum())
+    R = fresnel_R(GLASS_THETA, 1.0, GLASS_N_IN)
+    T = (1 - R) / (1 + R)
+    t_meas = trans / GLASS_N
+    sigma = np.sqrt(T * (1 - T) / GLASS_N)
+    # photons left in the slab, less those counted twice: a photon that
+    # lands exactly on a tally plane is counted as it lands and as it
+    # leaves (the endpoint-inclusive test); both are rare
+    left = GLASS_N - trans - refl
+    check(abs(t_meas - T) <= 5 * sigma and abs(left) <= 1e-5 * GLASS_N,
+          f"glass path: transmission {t_meas:.6f} against (1 - R) / (1 + R) "
+          f"= {T:.6f}, {left} photons unaccounted")
+    print(f"glass path: transmitted {trans}, reflected {refl}, N less both "
+          f"{left}; T = {t_meas:.6f} against (1 - R) / (1 + R) = {T:.6f} "
+          f"({(t_meas - T) / sigma:+.2f} sigma), R = {R:.6f}; "
+          f"{GLASS_N * len(sim.ts) / wall:.4e} photon-steps/s from start() "
+          f"({wall:.3f} s wall, one chunk); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; kernel {sft['ms']:.2f} ms against a "
+          f"bound of {sft['bound_ms']:.2f} ms ({sft['bound_by']}) [{card}]",
+          flush=True)
+    return {"fused_launches": launches}
+
+
+def run_all_paths(torch, phys, F, dev, card):
+    """Phase: the one-chunk runs through Simulation at 10**7 photons:
+    thermal Comptonization (1024 iterations: no photon dies, |v| = c,
+    energies finite and positive), the exponential transform (1024
+    iterations: the weighted +x count is N (1 - p)**k within 5 sigma of
+    the transform's own variance at every iteration) and Fe K-alpha
+    fluorescence (40 iterations: the source and line populations within 5
+    sigma of the two-rate closed form, deposits plus the energy in flight
+    equal N E0 within 1e-4); returns each run's launches."""
+    out = {}
+    for case, iters in (("thermal", 1024), ("stretch", 1024),
+                        ("fluor", FLUOR_K)):
+        phase(f"{case} path: {RUN_ALL_N} photons, {iters} iterations")
+        F.fused_transport.launches = 0
+        sim, steps = run_all_sim(phys, case, RUN_ALL_N, torch.device(dev),
+                                 iters)
+        wall, _, peak = run_sim(torch, sim)
+        launches = F.fused_transport.launches
+        check(sim.used_fused and launches >= 1 and len(sim.ts) == iters,
+              f"{case}: launches {launches}, {len(sim.ts)} iterations")
+        st = sim.sim_state
+        alive = st.alive[:RUN_ALL_N]
+        k = np.arange(1, iters + 1)
+        if case == "thermal":
+            data = np.asarray(steps["sign"].data)
+            speed = torch.linalg.vector_norm(st.v[:, :RUN_ALL_N].double(),
+                                             dim=0)
+            E = st.E[:RUN_ALL_N].double()
+            v_err = float((speed / C_LIGHT - 1).abs().max())
+            check(bool((data[:, 1] == RUN_ALL_N).all()) and v_err < 1e-5
+                  and bool(torch.isfinite(E).all() and (E > 0).all()),
+                  f"thermal: |v| off c by {v_err:.2e} or bad energies")
+            what = (f"|v| = c within {v_err:.2e}, mean E'/E "
+                    f"{float(E.mean()):.6f} (1 + 4 theta_e p k = "
+                    f"{1 + 0.04 * 1e-3 * iters:.6f})")
+        elif case == "stretch":
+            W = np.asarray(steps["sign"].data)[:, 2]
+            p, pb = 1e-3, 1e-3 * 0.3
+            mean = RUN_ALL_N * (1 - p) ** k
+            var = RUN_ALL_N * ((1 - p) ** (2 * k) / (1 - pb) ** k
+                               - (1 - p) ** (2 * k))
+            z = np.abs(W - mean) / np.sqrt(var)
+            check(float(z.max()) < 5, f"stretch: weighted transmission off "
+                  f"Beer-Lambert by {float(z.max()):.2f} sigma")
+            what = (f"weighted transmission within {float(z.max()):.2f} "
+                    f"sigma of N (1 - p)**k at every iteration (last "
+                    f"{W[-1]:.6e} against {mean[-1]:.6e}); "
+                    f"{int(alive.sum())} analog survivors")
+        else:
+            E = st.E[:RUN_ALL_N]
+            pA, pB = FLUOR_P, FLUOR_P * (FLUOR_E0 / FLUOR_KA) ** 3
+            nA = RUN_ALL_N * (1 - pA) ** iters
+            nB = (RUN_ALL_N * pA * FLUOR_Y * ((1 - pA) ** iters
+                                             - (1 - pB) ** iters)
+                  / (pB - pA))
+            gotA = int((alive & (E == np.float32(FLUOR_E0))).sum())
+            gotB = int((alive & (E == np.float32(FLUOR_KA))).sum())
+            dep = float(np.asarray(steps["dep"].data, np.float64)[:, 1].sum())
+            budget = (dep + float(E[alive].double().sum())) / (
+                RUN_ALL_N * FLUOR_E0) - 1
+            zA, zB = (gotA - nA) / np.sqrt(nA), (gotB - nB) / np.sqrt(nB)
+            check(abs(zA) < 5 and abs(zB) < 5 and abs(budget) < 1e-4,
+                  f"fluorescence: N_A {gotA} ({zA:+.2f} sigma), N_B {gotB} "
+                  f"({zB:+.2f} sigma), budget {budget:.2e}")
+            what = (f"N_A = {gotA} against {nA:.1f} ({zA:+.2f} sigma), "
+                    f"N_B = {gotB} against {nB:.1f} ({zB:+.2f} sigma); "
+                    f"deposits + energy in flight = N E0 within "
+                    f"{budget:+.2e}")
+        print(f"{case} path: fused_transport launches {launches}; {what}; "
+              f"{RUN_ALL_N * iters / wall:.4e} photon-steps/s from start() "
+              f"({wall:.3f} s wall); peak memory {peak / 2 ** 30:.2f} GiB "
+              f"[{card}]", flush=True)
+        out[case] = {"fused_launches": launches}
+        del sim, st, alive
+    return out
+
+
+def tissue_card_vs_cpu(torch, phys, F):
+    """Phase: the tissue plan (kin -> fresnel -> hg -> implicit-capture
+    absorption -> absorbing box -> a weighted plane tally with energy sums)
+    at 2**16 photons on the card and on the CPU twin."""
+    phase("tissue Simulation on the card against the CPU twin (2**16 "
+          "photons)")
+    light = phys.light
+    c_dt = float(light.c) * 0.001
+    L = 32 * c_dt
+    n = 1 << 16
+    runs = {}
+    for where in ("cuda", "cpu"):
+        sim = phys.Simulation(until_t=0.0635, seed=9, chunk_steps=32,
+                              device=where)
+        sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
+        sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+        sim.add_step(2, light.RefractiveInterfaceStep(0.5 * L + 0.37 * c_dt,
+                                                      1.0, 1.4, axis=2))
+        sim.add_step(3, light.ScatterHenyeyGreensteinStep(
+            A=0.1 / c_dt, n=1.0, g=0.9))
+        dele = light.ScatterDeleteStep(1.0, 0.01 / c_dt,
+                                       implicit_capture=True,
+                                       measure_deposition=True)
+        sim.add_step(4, dele)
+        sim.add_step(5, phys.newton.AbsorbingBoundaryStep(((0.0, L),) * 3))
+        far = light.ScatterMeasureStep(
+            None, True, [(np.nan, np.nan, 0.2 * L)], weighted=True,
+            measure_E=True, measure_E_mode="sum")
+        sim.add_step(6, far)
+        rng = np.random.default_rng(4)
+        d = rng.normal(size=(3, n))
+        sim.add_photons(light.generate_photon_state(
+            n, E=1.0, v=d / np.linalg.norm(d, axis=0) * float(light.c),
+            r=rng.uniform(0.1, 0.9, (3, n)) * L, device=where))
+        sim.start()
+        sim.join()
+        st = sim.sim_state
+        runs[where] = (sim, np.asarray(dele.data), np.asarray(far.data),
+                       F.pack_state(st).cpu(), st.alive.cpu())
+    (gs, gd, gf, gst, ga), (cs, cd, cf, cst, ca) = runs["cuda"], runs["cpu"]
+    check(len(gs.ts) == 64 and gs.ts == cs.ts, "tissue run: sim.ts differs")
+    check(np.array_equal(gf[:, :2], cf[:, :2]), "tissue run: alive counts "
+          "differ")
+    for g, c, what in ((gd, cd, "deposition"), (gf, cf, "far-plane")):
+        check(np.allclose(g, c, rtol=RTOL_F, atol=RTOL * np.abs(c).max()),
+              f"tissue run: {what} tallies out of tolerance")
+    check(torch.equal(ga, ca), "tissue run: alive planes differ")
+    bitwise = torch.equal(gst[:, ga], cst[:, ca])
+    check(bitwise, "tissue run: live slots not bitwise equal")
+    check(gs.plan_report.notes[-1].endswith("off"),
+          "tissue run: an interface before scattering must turn the "
+          "const-norm path off")
+    print(f"tissue card == CPU: sim.ts, alive counts ({int(ga.sum())} of "
+          f"{n}), live slots bitwise; float tallies bitwise="
+          f"{np.array_equal(gd, cd) and np.array_equal(gf, cf)}", flush=True)
 
 
 def record_chain(C, grid_blocks):

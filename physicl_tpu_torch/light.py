@@ -1,8 +1,10 @@
 """Photon-transport toolkit (counterpart of ``physicl_tpu/light.py``, ported
 subset): constants, the photon model, the Planck spectrum and its samplers,
 bulk photon populations (host or device), the continuous photon source,
-density fields (C expressions, layered and voxel media), isotropic
-scattering, absorption with implicit capture, roulette and deposition
+density fields (C expressions, layered and voxel media), isotropic,
+Henyey-Greenstein, Rayleigh, tabulated (Mie) and Compton scattering (cold
+and thermal electrons), the refractive interface, absorption with implicit
+capture, roulette, the exponential transform, fluorescence and deposition
 tallies, the sign, plane-crossing (counts, sums, per-photon energy lists)
 and spherical-shell measurements, and path tracing.
 
@@ -37,7 +39,10 @@ __all__ = [
     "generate_photon_state", "PhotonEmitterStep",
     "layered_density", "voxel_density",
     "ScatterDeleteStep", "ScatterIsotropicStep",
-    "ScatterSphericalStep", "ScatterMeasureStep", "ScatterSignMeasureStep",
+    "ScatterSphericalStep", "ScatterHenyeyGreensteinStep",
+    "ScatterRayleighStep", "ScatterPhaseFunctionStep", "ScatterComptonStep",
+    "RefractiveInterfaceStep", "mie_phase_table", "phase_knots",
+    "ScatterMeasureStep", "ScatterSignMeasureStep",
     "SphericalShellMeasureStep", "TracePathMeasureStep",
 ]
 
@@ -568,15 +573,24 @@ class ScatterDeleteStep(MeasureStep):
     * ``roulette=(w_min, w_survive)``: a photon whose weight fell below
       ``w_min`` survives with probability ``w / w_survive`` at weight
       ``w_survive`` (one uniform per slot, drawn after the weight update);
+    * ``stretch=b`` (0 < b < 1), ``stretch_dir=d``: the exponential
+      transform; the analog kill is biased to ``p (1 - b mu)`` with ``mu``
+      the cosine between ``dr`` and the normalised ``d`` (capped at 7/8
+      where ``p < 1``), survivors carry the likelihood ratio ``(1 - p) /
+      (1 - p')`` and a killed photon deposits ``w E p / p'``;
+    * ``fluorescence=(Y, E_f)``, ``fluorescence_edge=E_edge`` (default
+      ``E_f``): an absorbed photon with ``E >= E_edge`` is re-emitted
+      true-isotropically at ``E_f`` with probability ``Y`` (it deposits
+      ``w (E - E_f)``) instead of dying;
     * ``measure_deposition=True``: ``data`` rows ``[t, E_dep]`` per
       iteration, ``sum(w*E)`` over killed photons (analog) or
       ``sum(w*min(pcoll,1)*E)`` (implicit capture); CSV through ``out_fn``.
 
     ``A_fn`` and ``variable_n_fn`` take a C-expression string or a field
     callable (``layered_density``, ``voxel_density``); a Python callable is
-    refused by the prover (``field-fn-callable``). Not ported, and refused:
-    ``stretch`` (``delete-stretch``) and ``fluorescence``
-    (``delete-fluorescence``)."""
+    refused by the prover (``field-fn-callable``). ``stretch`` and
+    ``fluorescence`` are analog only and exclude each other, as in the JAX
+    package."""
 
     def __init__(self, n, A, A_fn=None, variable_n=False,
                  variable_n_fn=None, implicit_capture=False, roulette=None,
@@ -585,12 +599,20 @@ class ScatterDeleteStep(MeasureStep):
                  fluorescence_edge=None):
         super().__init__(out_fn)
         self.measure_deposition = bool(measure_deposition)
-        if stretch is not None and implicit_capture:
-            raise ValueError("stretch biases the analog kill; "
-                             "implicit_capture has no kill to bias "
-                             "(use one or the other)")
+        if stretch is not None:
+            if implicit_capture:
+                raise ValueError("stretch biases the analog kill; "
+                                 "implicit_capture has no kill to bias "
+                                 "(use one or the other)")
+            b = float(raw_code_value(stretch))
+            if not (0.0 < b < 1.0):
+                raise ValueError(f"stretch must be in (0, 1), got {b}")
+            d = np.asarray(raw_code_value(stretch_dir), np.float64)
+            if d.shape != (3,) or not np.isfinite(d).all() or not d.any():
+                raise ValueError("stretch_dir must be a nonzero 3-vector")
+            d = d / np.linalg.norm(d)
+            stretch = (b, float(d[0]), float(d[1]), float(d[2]))
         self.stretch = stretch
-        self.stretch_dir = stretch_dir
         self.n = _as_code(n)
         self.A = _as_code(A)
         self._a_fn = (None if A_fn is None else
@@ -610,19 +632,52 @@ class ScatterDeleteStep(MeasureStep):
                                  "0 < w_min <= w_survive")
             roulette = (w_min, w_survive)
         self.roulette = roulette
-        if fluorescence is not None and self.implicit_capture:
-            raise ValueError("fluorescence replaces the analog kill; "
-                             "implicit_capture has no kill to replace "
-                             "(use one or the other)")
-        if fluorescence is None and fluorescence_edge is not None:
+        # fluorescent re-emission replaces the analog kill, which implicit
+        # capture and the exponential transform have already reshaped
+        if fluorescence is not None:
+            if self.implicit_capture:
+                raise ValueError("fluorescence replaces the analog kill; "
+                                 "implicit_capture has no kill to replace "
+                                 "(use one or the other)")
+            if self.stretch is not None:
+                raise ValueError("fluorescence + stretch would need the "
+                                 "likelihood ratio threaded through the "
+                                 "re-emit branch; unsupported — pick one")
+            Y = float(raw_code_value(fluorescence[0]))
+            E_f = float(raw_code_value(fluorescence[1]))
+            if not (0.0 < Y <= 1.0):
+                raise ValueError(f"fluorescence yield must be in (0, 1], "
+                                 f"got {Y}")
+            if not (E_f > 0.0):
+                raise ValueError(f"fluorescence line energy must be "
+                                 f"positive, got {E_f}")
+            edge = (E_f if fluorescence_edge is None
+                    else float(raw_code_value(fluorescence_edge)))
+            if edge < E_f:
+                raise ValueError(
+                    f"fluorescence_edge ({edge}) below the line energy "
+                    f"({E_f}) would re-emit photons ABOVE their absorbed "
+                    f"energy (negative deposition)")
+            fluorescence = (Y, E_f, edge)
+        elif fluorescence_edge is not None:
             raise ValueError("fluorescence_edge requires fluorescence=")
         self.fluorescence = fluorescence
-        self.fluorescence_edge = fluorescence_edge
+
+    @property
+    def _c(self):
+        # the re-emission speed, read at plan time so that a code-scale
+        # change after construction is honoured
+        return float(raw_code_value(c))
 
     @property
     def _coef(self):
         # family convention: variable_n REPLACES the constant n
         return self.A * (1.0 if self._n_fn is not None else self.n)
+
+    def apply(self, state, ctx):
+        raise NotImplementedError("ScatterDeleteStep.apply is the generic "
+                                  "step tier, which is not ported; the "
+                                  "fused tier absorbs in-kernel")
 
     def collect(self, sim, records) -> None:
         if not self.measure_deposition:
@@ -670,6 +725,581 @@ class ScatterIsotropicStep(Step):
 
 
 ScatterSphericalStep = ScatterIsotropicStep
+
+
+# ---------------------------------------------------------------------------
+# Anisotropic and energy-changing scatter: the angle samplers, Klein-Nishina
+# and thermal electrons, as float32 torch arithmetic in the JAX package's
+# operation order (physicl_tpu/light.py:1286-1904). ``fast=True`` is the
+# fused kernel's form (polynomial log2/exp2 and sines, no libm
+# transcendental); the libm form is the generic tier's.
+# ---------------------------------------------------------------------------
+
+
+def _scalar_like(x: torch.Tensor, v: float) -> torch.Tensor:
+    """A 0-d float32 tensor holding float32(v) on ``x``'s device."""
+    return torch.tensor(v, dtype=torch.float32, device=x.device)
+
+
+def _hg_direction(d, cos_t, sin_t, cos_p, sin_p):
+    """Rotate the unit direction ``d`` (three component tensors) by the
+    polar angle theta and the azimuth phi around it, on the branch-free
+    orthonormal basis of Duff et al. (2017), robust at +-z."""
+    x, y, z = d
+    sign = torch.where(z >= 0, 1.0, -1.0)
+    a = -1.0 / (sign + z)
+    b = x * y * a
+    e1 = (1.0 + sign * x * x * a, sign * b, -sign * x)
+    e2 = (b, sign + y * y * a, -y)
+    return tuple(cos_t * dd + sin_t * (cos_p * u + sin_p * w)
+                 for dd, u, w in zip((x, y, z), e1, e2))
+
+
+def _rayleigh_cos_theta(u, fast=False):
+    """Exact inverse CDF of the Rayleigh phase function (3/8)(1 + cos^2):
+    Cardano's root ``A - 1/A``, ``A = cbrt(w + sqrt(w^2 + 1))``, ``w = 4u -
+    2``; the cube root as ``2^(log2(.)/3)`` with the polynomial forms when
+    ``fast``, else ``exp(log(.)/3)``."""
+    from physicl_tpu_torch.ops.fused import _c32, _fast_exp2, _fast_log2, \
+        _sqrt_rn
+
+    w = 4.0 * u - 2.0
+    s = _sqrt_rn(w * w + 1.0)
+    if fast:
+        a = _fast_exp2(_fast_log2(w + s) * _c32(1.0 / 3.0))
+    else:
+        a = torch.exp(torch.log(w + s) * _c32(1.0 / 3.0))
+    return (a - 1.0 / a).clamp(-1.0, 1.0)  # a NaN stays NaN, as jnp.clip
+
+
+# Koblinger's direct method is exact (and rejection-free) for alpha >= 1 +
+# sqrt(3); below that Kahn's rejection method takes over, per photon.
+_KOBLINGER_ALPHA = 1.0 + np.sqrt(3.0)
+
+# Chebyshev-node interpolant (degree 12 on [0, 0.55]) of the cancelling
+# bracket (2a(1+a)/(1+2a) - ln(1+2a)) / a^3 (the JAX package's coefficients)
+_KN_BRACKET_COEF = (
+    1.333333331559978, -3.9999989065937434, 9.599886818715182,
+    -21.32866514870082, 45.6125841138609, -94.65335761570726,
+    187.33218719339675, -337.6267278947943, 517.0327212167587,
+    -620.1496910093555, 530.1148157280105, -281.973132286615,
+    69.37461960979472)
+
+
+def _kn_sigma_ratio(alpha, fast=False):
+    """sigma_KN(alpha) / sigma_Thomson in float32: the Taylor series below
+    alpha = 0.01, the cancellation-free bracket polynomial below 0.5, the
+    closed form above (``fast``: ln through the polynomial log2)."""
+    from physicl_tpu_torch.ops.fused import _c32, _fast_log2, _horner
+
+    a = torch.maximum(alpha, _scalar_like(alpha, 1e-6))
+    b = 1.0 + 2.0 * a
+    log_b = _c32(np.log(2.0)) * _fast_log2(b) if fast else torch.log(b)
+    exact = 0.75 * (
+        (1.0 + a) / (a * a * a) * (2.0 * a * (1.0 + a) / b - log_b)
+        + log_b / (2.0 * a)
+        - (1.0 + 3.0 * a) / (b * b))
+    g = _horner(_KN_BRACKET_COEF, a)
+    mid = 0.75 * ((1.0 + a) * g + log_b / (2.0 * a)
+                  - (1.0 + 3.0 * a) / (b * b))
+    a0 = alpha
+    series = 1.0 + a0 * (-2.0 + a0 * (_c32(26.0 / 5.0)
+                                      + a0 * _c32(-133.0 / 10.0)))
+    return torch.where(a0 < _c32(0.01), series,
+                       torch.where(a0 < _c32(0.5), mid, exact))
+
+
+def _kn_try(two_a, b, p_branch_a, r1, r2, r3, eta, cos_t, accepted):
+    """One Kahn rejection try: branch A (eta uniform on [1, 1 + 2a],
+    accepted with 4(1/eta - 1/eta^2)) with probability (1+2a)/(9+2a), else
+    branch B (eta ~ 1/eta^2, accepted with (cos^2 + 1/eta)/2). The first
+    accepted try wins."""
+    br_a = r1 <= p_branch_a
+    eta_a = 1.0 + two_a * r2
+    inv_a = 1.0 / eta_a
+    ok_a = r3 <= 4.0 * (inv_a - inv_a * inv_a)
+    eta_b = b * inv_a
+    cos_b = 1.0 - 2.0 * (1.0 - r2) * inv_a
+    ok_b = r3 <= 0.5 * (cos_b * cos_b + eta_a / b)
+    ok = (br_a & ok_a) | (~br_a & ok_b)
+    take = ok & ~accepted
+    eta = torch.where(take, torch.where(br_a, eta_a, eta_b), eta)
+    cos_t = torch.where(take, torch.where(br_a, 1.0 - 2.0 * r2, cos_b),
+                        cos_t)
+    return eta, cos_t, accepted | ok
+
+
+def _kn_koblinger_tail(alpha, a, two_a, b, u_pick, u_inv, eta, cos_t,
+                       accepted, fast=False):
+    """Koblinger's direct sampling on the lanes with alpha >= 1 + sqrt(3),
+    from the first Kahn try's r1 and r2; the clip of cos theta to [-1, 1]
+    on every lane."""
+    from physicl_tpu_torch.ops.fused import _c32, _fast_exp2, _fast_log2, \
+        _rsqrt_max
+
+    inv_a1 = 1.0 / a
+    inv_a2 = inv_a1 * inv_a1
+    if fast:
+        log2_b = _fast_log2(b)
+        log_b = _c32(np.log(2.0)) * log2_b
+        x1 = _fast_exp2(u_inv * log2_b)               # 1/x piece: b^u
+    else:
+        log_b = torch.log(b)
+        x1 = torch.exp(u_inv * log_b)
+    w1 = (1.0 - 2.0 * inv_a1 - 2.0 * inv_a2) * log_b
+    w2 = (2.0 * inv_a1 + inv_a2) * (two_a / b)
+    inv_b2 = 1.0 / (b * b)
+    w3 = 0.5 * (1.0 - inv_b2)
+    w4 = inv_a2 * two_a
+    t = u_pick * (w1 + w2 + w3 + w4)
+    x2 = b / (b - two_a * u_inv)                      # 1/x^2 piece
+    # 1/x^3 piece in the cancellation-free form (1 - u) + u / b^2
+    x3 = _rsqrt_max((1.0 - u_inv) + u_inv * inv_b2)
+    x4 = 1.0 + two_a * u_inv                          # constant piece
+    x = torch.where(t < w1, x1,
+                    torch.where(t < w1 + w2, x2,
+                                torch.where(t < w1 + w2 + w3, x3, x4)))
+    hi = alpha >= _c32(_KOBLINGER_ALPHA)
+    eta = torch.where(hi, x, eta)
+    cos_t = torch.where(hi, 1.0 - (x - 1.0) * inv_a1, cos_t)
+    return cos_t.clamp(-1.0, 1.0), eta, accepted | hi
+
+
+def _kn_cos_eta(alpha, triples, fast=False):
+    """Sample the Klein-Nishina angle for ``alpha = E / m_e c^2``:
+    ``(cos theta, eta = E / E', accepted)``. ``triples`` are the Kahn
+    tries' ``(r1, r2, r3)``; lanes still unaccepted after every try report
+    ``accepted=False`` (the caller suppresses the scatter). Koblinger's
+    method replaces Kahn's at alpha >= 1 + sqrt(3)."""
+    a = torch.maximum(alpha, _scalar_like(alpha, 1e-9))
+    two_a = 2.0 * a
+    b = 1.0 + two_a
+    eta = torch.ones_like(a)
+    cos_t = torch.ones_like(a)
+    accepted = torch.zeros_like(a, dtype=torch.bool)
+    p_branch_a = b / (b + 8.0)
+    for r1, r2, r3 in triples:
+        eta, cos_t, accepted = _kn_try(two_a, b, p_branch_a, r1, r2, r3,
+                                       eta, cos_t, accepted)
+    return _kn_koblinger_tail(alpha, a, two_a, b, triples[0][0],
+                              triples[0][1], eta, cos_t, accepted, fast=fast)
+
+
+def _gauss3_from_uniform(u4, fast_trig=False):
+    """Three standard normals from four uniforms by Box-Muller (the fourth
+    normal is dropped); ``fast_trig``: polynomial sines and the extracted
+    log (the fused kernel's form)."""
+    from physicl_tpu_torch.ops.fused import _c32, _fast_neg2log, \
+        _fast_sinpi, _sqrt_rn, _wrap1
+
+    tiny = _scalar_like(u4[0], 1e-12)
+    if fast_trig:
+        r1 = _sqrt_rn(_fast_neg2log(torch.maximum(u4[0], tiny)))
+        r2 = _sqrt_rn(_fast_neg2log(torch.maximum(u4[2], tiny)))
+        two_a1 = 2.0 * u4[1]
+        two_a2 = 2.0 * u4[3]
+        cos_a1 = _fast_sinpi(_wrap1(two_a1 + 0.5))
+        sin_a1 = _fast_sinpi(_wrap1(two_a1))
+        cos_a2 = _fast_sinpi(_wrap1(two_a2 + 0.5))
+        return (r1 * cos_a1, r1 * sin_a1, r2 * cos_a2)
+    r1 = _sqrt_rn(-2.0 * torch.log(torch.maximum(u4[0], tiny)))
+    r2 = _sqrt_rn(-2.0 * torch.log(torch.maximum(u4[2], tiny)))
+    a1 = u4[1] * _c32(2 * np.pi)
+    a2 = u4[3] * _c32(2 * np.pi)
+    return (r1 * torch.cos(a1), r1 * torch.sin(a1), r2 * torch.cos(a2))
+
+
+def _aberrate(n, beta, bn, b2, gamma, sign):
+    """Relativistic aberration of the unit direction ``n`` under a boost
+    ``beta`` (``bn = beta . n``, ``b2 = |beta|^2``); ``sign`` -1 boosts into
+    the electron frame, +1 back. Returns ``(n', doppler)`` with ``E' = E
+    doppler``; ``n'`` is not renormalised."""
+    coef = (gamma - 1.0) * bn / torch.maximum(b2, _scalar_like(b2, 1e-20)) \
+        + sign * gamma
+    doppler = gamma * (1.0 + sign * bn)
+    inv = 1.0 / doppler
+    return tuple((n[i] + beta[i] * coef) * inv for i in range(3)), doppler
+
+
+def _sum3(xs):
+    """Python's ``sum`` of three tensors: ((0 + x0) + x1) + x2."""
+    return (0 + xs[0]) + xs[1] + xs[2]
+
+
+def _ic_thermal_scatter(E, n, inv_mec2, theta_e, u4, kn_sample, u_phi,
+                        fast_trig=False):
+    """One inverse-Compton scatter off a thermal electron, exact in the
+    electron's rest frame: a Maxwell electron (per-axis Gaussian, sigma^2 =
+    theta_e, |beta| clipped at 0.9) from ``u4``, the photon boosted into
+    its frame, the Klein-Nishina scatter ``kn_sample(alpha1)`` at the
+    boosted energy with the azimuth ``u_phi``, and the boost back. Returns
+    ``(E', n', alpha1, flux, accepted)``: ``flux = 1 - beta . n`` is the
+    rate factor the caller folds into pcoll."""
+    from physicl_tpu_torch.ops.fused import _c32, _fast_sinpi, _rsqrt_max, \
+        _sqrt_rn, _wrap1
+
+    sq = _sqrt_rn(_scalar_like(E, theta_e))
+    g3 = _gauss3_from_uniform(u4, fast_trig=fast_trig)
+    beta = tuple(g * sq for g in g3)
+    b2 = _sum3([b * b for b in beta])
+    b = _sqrt_rn(b2)
+    # tensor / tensor: torch's ``scalar / tensor`` multiplies by the
+    # reciprocal, which rounds twice
+    scale = torch.minimum(
+        _scalar_like(E, 1.0),
+        _scalar_like(b, 0.9) / torch.maximum(b, _scalar_like(b, 1e-12)))
+    beta = tuple(bc * scale for bc in beta)
+    b2 = b2 * (scale * scale)
+    gamma = 1.0 / _sqrt_rn(torch.maximum(1.0 - b2, _scalar_like(b2, 1e-4)))
+    bn = _sum3([beta[i] * n[i] for i in range(3)])
+    flux = 1.0 - bn
+    n1, dop1 = _aberrate(n, beta, bn, b2, gamma, -1.0)
+    inv_n1 = _rsqrt_max(_sum3([x * x for x in n1]))
+    n1 = tuple(x * inv_n1 for x in n1)
+    E1 = E * dop1
+    alpha1 = E1 * _c32(inv_mec2)
+    cos_t, eta, accepted = kn_sample(alpha1)
+    E1p = E1 / eta
+    sin_t = _sqrt_rn(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    if fast_trig:
+        two_pu = 2.0 * u_phi
+        cos_phi = _fast_sinpi(_wrap1(two_pu + 0.5))
+        sin_phi = _fast_sinpi(_wrap1(two_pu))
+    else:
+        phi = u_phi * _c32(2 * np.pi)
+        cos_phi, sin_phi = torch.cos(phi), torch.sin(phi)
+    n1p = _hg_direction(n1, cos_t, sin_t, cos_phi, sin_phi)
+    inv_n1p = _rsqrt_max(_sum3([x * x for x in n1p]))
+    n1p = tuple(x * inv_n1p for x in n1p)
+    bnp = _sum3([beta[i] * n1p[i] for i in range(3)])
+    n_new, dop2 = _aberrate(n1p, beta, bnp, b2, gamma, 1.0)
+    inv_nn = _rsqrt_max(_sum3([x * x for x in n_new]))
+    n_new = tuple(x * inv_nn for x in n_new)
+    return E1p * dop2, n_new, alpha1, flux, accepted
+
+
+def phase_knots(mu, pdf, bins=64):
+    """The knot table of a tabulated phase function ``pdf(mu)`` over a grid
+    ``mu`` in [-1, 1]: the trapezoid CDF inverted onto ``bins`` uniform
+    segments in u, as float32 segment starts ``m0`` and slopes ``dm`` (the
+    JAX package's ``_tabulated_cos_icdf`` constants). ``cos theta(u) =
+    m0[s] + (u bins - s) dm[s]`` on segment ``s = min(floor(u bins), bins -
+    1)``: the kernel reads them from its auxiliary table."""
+    mu = np.asarray(mu, np.float64)
+    pdf = np.asarray(pdf, np.float64)
+    if mu.ndim != 1 or mu.size < 2 or pdf.shape != mu.shape:
+        raise ValueError("phase_table needs matching 1-D (mu, pdf) arrays "
+                         "with >= 2 points")
+    if not (np.all(np.diff(mu) > 0) and mu[0] >= -1.0 - 1e-9
+            and mu[-1] <= 1.0 + 1e-9):
+        raise ValueError("phase_table mu grid must be strictly increasing "
+                         "within [-1, 1]")
+    if np.any(pdf < 0) or not np.isfinite(pdf).all():
+        raise ValueError("phase_table pdf must be finite and nonnegative")
+    areas = 0.5 * (pdf[1:] + pdf[:-1]) * np.diff(mu)
+    total = areas.sum()
+    if total <= 0:
+        raise ValueError("phase_table pdf integrates to zero")
+    cdf = np.concatenate([[0.0], np.cumsum(areas)]) / total
+    knots = np.interp(np.linspace(0.0, 1.0, int(bins) + 1), cdf, mu)
+    m0 = np.asarray([float(x) for x in knots[:-1]], np.float32)
+    dm = np.asarray([float(b - a) for a, b in zip(knots[:-1], knots[1:])],
+                    np.float32)
+    return m0, dm
+
+
+def phase_icdf(u, m0, dm):
+    """The knot table's inverse CDF on float32 uniforms ``u``: the JAX
+    mask-multiply sum over the segments is this one term (its other terms
+    are +0.0, which the trailing ``+ 0.0`` reproduces for a -0.0)."""
+    nb = int(m0.shape[0])
+    x = u * float(nb)
+    s = torch.clamp(torch.floor(x), max=nb - 1).to(torch.int64)
+    m0_t = torch.from_numpy(m0).to(u.device)
+    dm_t = torch.from_numpy(dm).to(u.device)
+    return (m0_t[s] + (x - s.to(torch.float32)) * dm_t[s]) + 0.0
+
+
+def mie_phase_table(x, m=1.33 + 0.0j, n_mu=361):
+    """Mie scattering phase function of a homogeneous sphere (Bohren &
+    Huffman series) as ``(mu, pdf, g)`` for
+    :class:`ScatterPhaseFunctionStep`: ``x = 2 pi a / lambda`` the size
+    parameter, ``m`` the relative refractive index, ``g`` the asymmetry
+    parameter from the coefficient series. Host numpy, line for line the
+    JAX package's, so arrays and ``g`` are equal."""
+    x = float(x)
+    if x <= 0:
+        raise ValueError(f"size parameter x must be positive, got {x}")
+    m = complex(m)
+    mu = np.linspace(-1.0, 1.0, int(n_mu))
+    N = max(3, int(np.ceil(x + 4.05 * x ** (1.0 / 3.0) + 2)))
+
+    # logarithmic derivative D_n(mx) by downward recurrence (stable)
+    mx = m * x
+    nmx = max(N, int(np.ceil(abs(mx)))) + 16
+    D = np.zeros(nmx + 1, np.complex128)
+    for k in range(nmx, 0, -1):
+        D[k - 1] = k / mx - 1.0 / (D[k] + k / mx)
+
+    # Riccati-Bessel psi, chi by upward recurrence; xi = psi - i*chi
+    psi = np.zeros(N + 1)
+    chi = np.zeros(N + 1)
+    psi_m1, chi_m1 = np.cos(x), -np.sin(x)  # psi_{-1}, chi_{-1}
+    psi[0], chi[0] = np.sin(x), np.cos(x)
+    for k in range(1, N + 1):
+        psi[k] = (2 * k - 1) / x * psi[k - 1] - (psi[k - 2]
+                                                 if k >= 2 else psi_m1)
+        chi[k] = (2 * k - 1) / x * chi[k - 1] - (chi[k - 2]
+                                                 if k >= 2 else chi_m1)
+    xi = psi - 1j * chi
+    n_arr = np.arange(1, N + 1)
+    Dn = D[1:N + 1]
+    fa = Dn / m + n_arr / x
+    fb = Dn * m + n_arr / x
+    a = (fa * psi[1:] - psi[:-1]) / (fa * xi[1:] - xi[:-1])
+    b = (fb * psi[1:] - psi[:-1]) / (fb * xi[1:] - xi[:-1])
+
+    # angular functions pi_n, tau_n and the amplitude sums
+    S1 = np.zeros_like(mu, np.complex128)
+    S2 = np.zeros_like(mu, np.complex128)
+    pi_nm1 = np.zeros_like(mu)   # pi_0
+    pi_n = np.ones_like(mu)      # pi_1
+    for k in range(1, N + 1):
+        tau_n = k * mu * pi_n - (k + 1) * pi_nm1
+        f = (2 * k + 1) / (k * (k + 1))
+        S1 += f * (a[k - 1] * pi_n + b[k - 1] * tau_n)
+        S2 += f * (a[k - 1] * tau_n + b[k - 1] * pi_n)
+        pi_nm1, pi_n = pi_n, ((2 * k + 1) * mu * pi_n
+                              - (k + 1) * pi_nm1) / k
+    pdf = 0.5 * (np.abs(S1) ** 2 + np.abs(S2) ** 2)
+
+    # asymmetry parameter from the coefficient series (BH eq. 4.63)
+    qsca = (2.0 / x ** 2) * np.sum((2 * n_arr + 1)
+                                   * (np.abs(a) ** 2 + np.abs(b) ** 2))
+    g_sum = np.sum(n_arr[:-1] * (n_arr[:-1] + 2) / (n_arr[:-1] + 1)
+                   * np.real(a[:-1] * np.conj(a[1:])
+                             + b[:-1] * np.conj(b[1:])))
+    g_sum += np.sum((2 * n_arr + 1) / (n_arr * (n_arr + 1))
+                    * np.real(a * np.conj(b)))
+    g = (4.0 / (x ** 2 * qsca)) * g_sum
+    return mu, pdf, float(g)
+
+
+class ScatterHenyeyGreensteinStep(Step):
+    """Anisotropic scatter with the Henyey-Greenstein phase function:
+    ``pcoll = A * n(r) * |dr|`` (optional ``variable_n`` and
+    ``wavelength_dep_scattering``, inclusive ``pcoll >= U``), the outgoing
+    direction drawn relative to the incoming one with ``cos theta = (1 + g^2
+    - ((1 - g^2) / (1 - g + 2 g U))^2) / (2 g)`` (``<cos theta> = g``; g = 0
+    is area-uniform) and a uniform azimuth, ``|v|`` renormalised to c."""
+
+    def __init__(self, **kwargs):
+        self.g = float(kwargs.get("g", 0.0))
+        if not -1.0 < self.g < 1.0:
+            raise ValueError(f"g must be in (-1, 1), got {self.g}")
+        self.n = _as_code(kwargs.get("n", 1))
+        self.A = _as_code(kwargs.get("A", 1))
+        self.wavelength_dep_scattering = kwargs.get(
+            "wavelength_dep_scattering", False)
+        self.variable_n = kwargs.get("variable_n", False)
+        self.variable_n_fn = kwargs.get("variable_n_fn", None)
+        self._n_fn = (_compile_variable_n(self.variable_n_fn)
+                      if self.variable_n else None)
+        self._c = None
+        self._coef = None
+        self._wl_base = None
+
+    # pcoll folding is the isotropic family's
+    setup = ScatterIsotropicStep.setup
+
+    def apply(self, state, ctx):
+        raise NotImplementedError(f"{type(self).__name__}.apply is the "
+                                  "generic step tier, which is not ported; "
+                                  "the fused tier scatters in-kernel")
+
+
+class ScatterPhaseFunctionStep(ScatterHenyeyGreensteinStep):
+    """Anisotropic scatter with a user phase function, in the HG family's
+    collision model and rotation: ``phase_table=(mu_grid, pdf)`` (e.g.
+    :func:`mie_phase_table`) becomes a piecewise-linear inverse CDF over
+    ``table_bins`` (default 64) uniform-in-u knots that the kernel reads
+    from its auxiliary table. ``cos_theta_icdf=<callable>`` is stored and
+    refused by the prover (``phase-icdf-callable``: a Python callable cannot
+    be inlined into the CUDA kernel). Unknown options raise."""
+
+    _OPTIONS = {"n", "A", "wavelength_dep_scattering", "variable_n",
+                "variable_n_fn", "cos_theta_icdf", "phase_table",
+                "table_bins"}
+
+    def __init__(self, **kwargs):
+        unknown = set(kwargs) - self._OPTIONS
+        if unknown:
+            raise ValueError(f"unknown option(s) {sorted(unknown)}; "
+                             f"supported: {sorted(self._OPTIONS)}")
+        icdf = kwargs.pop("cos_theta_icdf", None)
+        table = kwargs.pop("phase_table", None)
+        bins = int(kwargs.pop("table_bins", 64))
+        if (icdf is None) == (table is None):
+            raise ValueError("pass exactly one of cos_theta_icdf= or "
+                             "phase_table=(mu_grid, pdf)")
+        self._icdf = None
+        self._knots = None
+        if icdf is not None:
+            if not callable(icdf):
+                raise TypeError("cos_theta_icdf must be a callable "
+                                "u -> cos(theta)")
+            self._icdf = icdf
+        else:
+            self._knots = phase_knots(table[0], table[1], bins)
+        super().__init__(**kwargs)
+
+
+class ScatterRayleighStep(ScatterHenyeyGreensteinStep):
+    """Rayleigh scatter with the dipole phase function (3/8)(1 + cos^2
+    theta) (``<cos^2 theta> = 2/5``), sampled by the closed-form Cardano
+    inverse CDF relative to the incoming direction; options as
+    :class:`ScatterHenyeyGreensteinStep` (``wavelength_dep_scattering`` for
+    the lambda^-4 cross-section)."""
+
+    def __init__(self, **kwargs):
+        kwargs.pop("g", None)  # no anisotropy parameter: the phase is fixed
+        super().__init__(**kwargs)
+
+
+class ScatterComptonStep(ScatterHenyeyGreensteinStep):
+    """Compton scatter off free electrons: the exact Klein-Nishina angle
+    (Kahn's rejection below alpha = 1 + sqrt(3), Koblinger's direct method
+    above, at most ``kn_max_tries`` Kahn tries, default 12) and the recoil
+    ``E' = E / (1 + alpha (1 - cos theta))``, ``alpha = E / m_e c^2``
+    (``mec2`` overrides the rest energy, default m_e c^2 in code units).
+    ``kn_cross_section=True`` multiplies pcoll by sigma_KN / sigma_Thomson.
+
+    ``theta_e`` (kT_e / m_e c^2) or ``T_e`` (Kelvin) scatters off thermal
+    electrons (non-relativistic Maxwell, |beta| <= 0.9; valid for theta_e
+    <= ~0.05, accepted with a RuntimeWarning up to 0.2): the collision rate
+    carries the flux factor ``1 - beta . n`` and the scatter is exact
+    Klein-Nishina in the electron frame, which gives the Kompaneets drift
+    ``<dE/E> = 4 theta_e - alpha``. Keep ``pcoll`` unsaturated (<= ~0.5):
+    where ``pcoll * flux`` clips at 1 the drift falls toward 3 theta_e.
+
+    ``measure_deposition=True``: ``data`` rows ``[t, E_dep]``, the net
+    energy given to electrons, ``sum(w (E - E'))`` over scatters (negative
+    where inverse Compton heats the photons); CSV through ``out_fn``."""
+
+    _ALLOWED_KW = frozenset({"A", "n", "variable_n", "variable_n_fn"})
+
+    def __init__(self, **kwargs):
+        if kwargs.pop("wavelength_dep_scattering", False):
+            raise ValueError(
+                "ScatterComptonStep has no lambda^-4 option; use "
+                "kn_cross_section=True for the physical Klein-Nishina "
+                "energy dependence")
+        self.measure_deposition = bool(kwargs.pop("measure_deposition",
+                                                  False))
+        self.out_fn = kwargs.pop("out_fn", None)
+        self.data = []
+        if "g" in kwargs:
+            raise ValueError(
+                "ScatterComptonStep has no anisotropy parameter g: the "
+                "angular law IS the Klein-Nishina distribution")
+        self.kn_cross_section = bool(kwargs.pop("kn_cross_section", False))
+        self.mec2 = kwargs.pop("mec2", None)
+        self.kn_max_tries = int(kwargs.pop("kn_max_tries", 12))
+        if self.kn_max_tries < 1:
+            raise ValueError("kn_max_tries must be >= 1")
+        theta_e = kwargs.pop("theta_e", None)
+        T_e = kwargs.pop("T_e", None)
+        if theta_e is not None and T_e is not None:
+            raise ValueError("pass theta_e (= kT_e / m_e c^2) OR T_e "
+                             "(Kelvin), not both")
+        self.theta_e = None if theta_e is None else float(theta_e)
+        self.T_e = T_e
+        if self.theta_e is not None:
+            if not 0.0 <= self.theta_e <= 0.2:
+                raise ValueError(
+                    f"theta_e must be in [0, 0.2] (Maxwell electron "
+                    f"sampling validity; ~100 keV), got {self.theta_e}")
+            if self.theta_e > 0.05:
+                import warnings
+
+                warnings.warn(
+                    f"theta_e = {self.theta_e}: above ~0.05 the "
+                    "non-relativistic Maxwell electron draw degrades — "
+                    "P(|beta| > 0.9) grows to O(10%) and the hard clip "
+                    "plus missing Maxwell-Juttner corrections bias the "
+                    "Doppler kernel by O(theta_e)", RuntimeWarning,
+                    stacklevel=2)
+        unknown = set(kwargs) - self._ALLOWED_KW
+        if unknown:
+            raise ValueError(
+                f"ScatterComptonStep: unknown option(s) {sorted(unknown)}; "
+                f"supported: {sorted(self._ALLOWED_KW)} + kn_cross_section/"
+                "mec2/kn_max_tries/theta_e/T_e")
+        super().__init__(**kwargs)
+        self._inv_mec2 = None
+        self._theta_e = None
+
+    def setup(self, sim) -> None:
+        super().setup(sim)
+        mec2 = (_as_code(self.mec2) if self.mec2 is not None
+                else float(raw_code_value(m_e))
+                * float(raw_code_value(c)) ** 2)
+        if mec2 <= 0:
+            raise ValueError("mec2 must be positive")
+        self._inv_mec2 = 1.0 / float(mec2)
+        if self.T_e is not None:
+            kT = _as_code(self.T_e) * float(raw_code_value(kB))
+            self._theta_e = float(kT * self._inv_mec2)
+            if not 0.0 <= self._theta_e <= 0.2:
+                raise ValueError(
+                    f"T_e gives theta_e = {self._theta_e:.3g}; Maxwell "
+                    "electron sampling is valid for theta_e <= 0.2")
+        else:
+            self._theta_e = self.theta_e
+
+    def collect(self, sim, records) -> None:
+        if not self.measure_deposition:
+            return
+        for i in range(len(records["t"])):
+            self.data.append([float(records["t"][i]),
+                              float(records["dep"][i])])
+
+    # CSV at terminate, as every MeasureStep
+    terminate = MeasureStep.terminate
+
+
+class RefractiveInterfaceStep(Step):
+    """Fresnel reflection and Snell refraction at the plane ``r[axis] ==
+    loc`` between media of refractive index ``n_lo`` (``r[axis] < loc``)
+    and ``n_hi``. A photon whose segment ``[r - dr, r]`` crossed the plane
+    is reflected with the unpolarised Fresnel reflectance ``R = (rs^2 +
+    rp^2) / 2`` (``R = 1`` beyond the critical angle) or refracted, by one
+    uniform draw; it moves to the intersection and retraces the rest of its
+    step in the outgoing direction. ``E`` is kept and ``dv`` not marked.
+    ``match_speed=True`` sets the outgoing speed to ``c / n`` of the
+    receiving medium (the rest of the step keeps its time), which turns the
+    const-norm path off."""
+
+    def __init__(self, loc, n_lo, n_hi, axis: int = 2,
+                 match_speed: bool = False):
+        self.loc = _as_code(loc)
+        self.n_lo = float(n_lo)
+        self.n_hi = float(n_hi)
+        if not (self.n_lo > 0.0 and self.n_hi > 0.0):
+            raise ValueError("refractive indices must be positive")
+        self.axis = int(axis)
+        if self.axis not in (0, 1, 2):
+            raise ValueError(f"axis must be 0, 1 or 2, got {axis}")
+        self.match_speed = bool(match_speed)
+        self._c = None
+
+    def setup(self, sim) -> None:
+        self._c = float(raw_code_value(c))
+
+    def apply(self, state, ctx):
+        raise NotImplementedError("RefractiveInterfaceStep.apply is the "
+                                  "generic step tier, which is not ported; "
+                                  "the fused tier refracts in-kernel")
 
 
 class ScatterSignMeasureStep(MeasureStep):

@@ -3,10 +3,13 @@ kernel's wrapper and its plain PyTorch twin.
 
 Counterpart of ``physicl_tpu/ops/fused.py`` for the ops ``kin``, ``iso``
 (with a density field n(r)), ``del`` (with n(r), a cross-section field
-A(E), implicit capture, roulette and the deposition tally), ``sign``
-(counts or weight sums), ``emit``, ``cross`` (with per-photon energy
-capture), ``absorb``, ``reflect``, ``periodic``, ``sabsorb``, ``scross``,
-``trace`` and the column-0 alive count. One chunk runs ``k_act`` whole
+A(E), implicit capture, roulette, the exponential transform, fluorescence
+and the deposition tally), ``sign`` (counts or weight sums), ``emit``,
+``cross`` (with per-photon energy capture), ``absorb``, ``reflect``,
+``periodic``, ``sabsorb``, ``scross``, ``trace``, the rotation family
+``hg``, ``rayl``, ``phase`` and ``compton`` (cold and thermal electrons,
+the Klein-Nishina recoil and its heating tally), ``fresnel`` and the
+column-0 alive count. One chunk runs ``k_act`` whole
 simulation iterations over a packed ``(15, C)`` float32 state and returns
 per-iteration int32 and float32 record rows ``(chunk, 128)`` each, and,
 for plans with stream planes (``trace`` positions, captured energies), a
@@ -55,9 +58,13 @@ _MASK = 0xFFFFFFFF
 # op kinds the CUDA kernel switches on (csrc/fused_transport.cu)
 OP_CODES = {"kin": 0, "del": 1, "iso": 2, "sign": 3, "emit": 4, "cross": 5,
             "absorb": 6, "reflect": 7, "periodic": 8, "sabsorb": 9,
-            "scross": 10, "trace": 11}
-# ops only the kernel's extended instantiation carries (codes >= 7)
+            "scross": 10, "trace": 11, "hg": 12, "rayl": 13, "phase": 14,
+            "compton": 15, "fresnel": 16}
+# ops only the kernel's geometry/stream instantiation carries (codes 7-11)
 _EXT_OPS = ("reflect", "periodic", "sabsorb", "scross", "trace")
+# ops only the kernel's rotation instantiation carries (codes >= 12), which
+# also runs the "del" variants (exponential transform, fluorescence)
+_ROT_OPS = ("hg", "rayl", "phase", "compton", "fresnel")
 MAX_OPS = 16
 MAX_AXES = 16     # crossing planes over all cross ops of a plan
 MAX_FIELDS = 8    # distinct field callables of a plan
@@ -107,6 +114,24 @@ class _Op:
     emit_r: tuple = (0.0, 0.0, 0.0)
     emit_v: Optional[tuple] = None  # None => isotropic at c_val
     emit_row: int = 0
+    # del: exponential transform (b, dx, dy, dz): the kill probability is
+    # biased to p (1 - b mu), mu = dr_hat . d, survivors carry (1-p)/(1-p')
+    stretch: tuple = ()
+    # del: fluorescent re-emission (Y, E_f, E_edge): an absorbed photon with
+    # E >= E_edge re-emits at E_f, true-isotropically at c_val, with
+    # probability Y
+    fluor: tuple = ()
+    g: float = 0.0                  # hg: the anisotropy <cos theta>
+    # phase: the tabulated inverse CDF's knots (light.phase_knots), float32
+    # segment starts m0 and slopes dm over uniform-in-u segments
+    phase_knots: Optional[tuple] = None
+    inv_mec2: float = 0.0           # compton: 1 / (m_e c^2) in code units
+    kn_xsec: bool = False           # compton: pcoll *= sigma_KN / sigma_T
+    kn_tries: int = 12              # compton: Kahn tries
+    theta_e: float = 0.0            # compton: kT_e / m_e c^2 (0 = at rest)
+    # fresnel: (axis, loc, n_lo, n_hi, match_speed); c_val is c for the
+    # c / n outgoing speeds of match_speed
+    iface: tuple = ()
 
 
 @dataclasses.dataclass
@@ -150,9 +175,12 @@ class FusedPlan:
     def kernel_variant(self) -> int:
         """The kernel instantiation the plan runs (``fused_transport_grid``'s
         ``variant``): bit 0, field code; bit 1, the geometry ops and stream
-        stores of ``_EXT_OPS``."""
+        stores of ``_EXT_OPS``; bit 2, the rotation family of ``_ROT_OPS``
+        and the ``del`` variants (exponential transform, fluorescence)."""
         ext = self.n_stream or any(op.kind in _EXT_OPS for op in self.ops)
-        return int(self.has_fields) | (2 if ext else 0)
+        rot = any(op.kind in _ROT_OPS or op.stretch or op.fluor
+                  for op in self.ops)
+        return int(self.has_fields) | (2 if ext else 0) | (4 if rot else 0)
 
     @property
     def n_stream_rows(self) -> int:
@@ -243,6 +271,97 @@ def _f32(x: float) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 
 
+def _c32(x: float) -> float:
+    """``x`` rounded to float32 and back: a Python scalar that a float32
+    tensor op uses exactly (decimal -> float64 -> float32, as numpy and the
+    kernel's ``(float)`` casts of double literals round it)."""
+    return float(np.float32(x))
+
+
+# Chebyshev-node least-squares fit (degree 8) of log2(1 + t) on [0, 1), max
+# abs error 4.9e-8 (the JAX package's coefficients, physicl_tpu/ops/fused.py)
+_LOG2_MANT_COEF = (
+    4.8863580577762396e-08, 1.4426867778259698, -0.7211146144034414,
+    0.4783235448682019, -0.34599601243509254, 0.23923166297596724,
+    -0.1345342542024613, 0.05027750737261643, -0.008874696651710342)
+
+# degree-5 fit of 2^t on [0, 1), max rel error 1.0e-7
+_EXP2_FRAC_COEF = (
+    0.9999998957631349, 0.6931546200033143, 0.24014077009166834,
+    0.05586328265986017, 0.008946214665550255, 0.0018951072913389714)
+
+
+def _horner(coef, t):
+    """``sum coef[i] t^i`` in float32 Horner form, highest degree first,
+    each product and sum rounded on its own."""
+    p = torch.full_like(t, _c32(coef[-1]))
+    for c in coef[-2::-1]:
+        p = p * t + _c32(c)
+    return p
+
+
+def _fast_log2(x):
+    """``log2 x`` for positive normal float32 ``x`` with no transcendental:
+    ``x = m 2^e`` by exponent-field extraction (bit casts), then ``e + log2
+    m`` with the degree-8 mantissa polynomial (abs err ~4.9e-8)."""
+    bits = x.contiguous().view(torch.int32)
+    e = ((bits >> 23) & 0xFF) - 127
+    m_bits = (bits & 0x007FFFFF) | (127 << 23)
+    t = m_bits.view(torch.float32) - 1.0
+    return e.to(torch.float32) + _horner(_LOG2_MANT_COEF, t)
+
+
+def _fast_exp2(x):
+    """``2^x`` for float32 ``x`` in (-126, 127) with no transcendental:
+    ``x = n + f`` (floor and fraction), the degree-5 polynomial of ``2^f``
+    (rel err 1.0e-7) times ``2^n`` built in the exponent field (exact)."""
+    n = torch.floor(x)
+    p = _horner(_EXP2_FRAC_COEF, x - n)
+    # (int32(n) + 127) << 23 with the int32 wrap of the JAX form
+    nb = ((n.to(torch.int64) + 127) << 23) & _MASK
+    nb = torch.where(nb >= 1 << 31, nb - (1 << 32), nb)
+    return p * nb.to(torch.int32).view(torch.float32)
+
+
+def _fast_neg2log(u):
+    """``-2 ln u`` for float32 ``u`` in (0, 1] through :func:`_fast_log2`
+    (abs err ~7e-8 in ln, the Maxwell speed tail kept exact)."""
+    return _c32(-2.0 * np.log(2.0)) * _fast_log2(u)
+
+
+def _kn_triples(rng, tries):
+    """The Klein-Nishina Kahn tries' draws, ``tries`` times a uniform ``r1``
+    then a 16+16-bit pair ``(r2, r3)`` (the JAX fused kernel's
+    ``_kn_triples`` under packed angles)."""
+    triples = []
+    for _ in range(tries):
+        r1 = rng.uniform()
+        r2, r3 = rng.uniform_pair()
+        triples.append((r1, r2, r3))
+    return triples
+
+
+def _kn_cos_eta_fused(alpha, rng, tries):
+    """The fused kernel's Klein-Nishina sampler: the tries' draws, then
+    ``light._kn_cos_eta`` with the polynomial log2/exp2 forms."""
+    from physicl_tpu_torch.light import _kn_cos_eta
+
+    return _kn_cos_eta(alpha, _kn_triples(rng, tries), fast=True)
+
+
+def _rsqrt_max(x):
+    """``rsqrt(max(x, 1e-30))`` as the kernel spells it: ``1 / sqrtf``,
+    both correctly rounded (``torch.maximum`` keeps a NaN, as
+    ``jnp.maximum`` does)."""
+    return 1.0 / _sqrt_rn(torch.maximum(x, _f32(1e-30).to(x.device)))
+
+
+def _unit_dir(f):
+    """Unit velocity direction from the packed planes."""
+    inv_v = _rsqrt_max(f[_VX] * f[_VX] + f[_VY] * f[_VY] + f[_VZ] * f[_VZ])
+    return f[_VX] * inv_v, f[_VY] * inv_v, f[_VZ] * inv_v
+
+
 def plan_fields(ops):
     """The distinct field specs the ops use, in first-use order (one kernel
     field each: ops sharing a callable share its entry and its device
@@ -270,6 +389,11 @@ def _check_plan(plan: FusedPlan) -> None:
     for op in plan.ops:
         if op.kind not in OP_CODES:
             raise NotImplementedError(f"fused op {op.kind!r} is not ported")
+        if op.kind == "phase" and op.phase_knots is None:
+            raise ValueError("a phase op needs its knot table "
+                             "(light.phase_knots)")
+        if op.kind == "compton" and op.kn_tries < 1:
+            raise ValueError("compton needs kn_tries >= 1")
     if len(plan.ops) > MAX_OPS:
         raise ValueError(f"{len(plan.ops)} fused ops exceed the kernel's "
                          f"{MAX_OPS}")
@@ -333,6 +457,8 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
     Float records are plain ``torch.sum``s, so they agree with the kernel's
     fixed-order sums to rounding, not bitwise.
     """
+    from physicl_tpu_torch import light as lt
+
     _check_plan(plan)
     starts = _emit_rows(emit_starts, plan)
     dev = packed.device
@@ -421,6 +547,66 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                         f[_W] = torch.where(low & ~kill, w_sur, f[_W])
                         alive = alive & ~kill
                         f[_ALIVE] = alive.to(torch.float32)
+                elif op.stretch:
+                    # exponential transform: the kill biased by the
+                    # direction cosine, survivors carry the likelihood ratio
+                    u = rng.uniform()
+                    tiny = _f32(1e-30).to(dev)
+                    b, sx, sy, sz = (_c32(x) for x in op.stretch)
+                    mu = ((f[_DRX] * sx + f[_DRY] * sy + f[_DRZ] * sz)
+                          / torch.maximum(dr_norm(), tiny))
+                    p_true = pcoll.clamp(0.0, 1.0)
+                    p_bias = (pcoll * (1.0 - b * mu)).clamp(0.0, 1.0)
+                    # cap saturating biased kills where p_true < 1 (a
+                    # survivor branch must remain): 8x weight at most
+                    p_bias = torch.where(
+                        p_true < 1.0,
+                        torch.minimum(p_bias, _f32(7.0 / 8.0).to(dev)),
+                        p_bias)
+                    hit = (p_bias >= u) & alive
+                    ratio = (1.0 - p_true) / torch.maximum(1.0 - p_bias, tiny)
+                    f[_W] = torch.where(alive & ~hit, f[_W] * ratio, f[_W])
+                    if op.cols:  # killed photons deposit w E p / p'
+                        rec_f[k, op.cols[0]] = fsum(
+                            hit, f[_W] * f[_E]
+                            * (p_true / torch.maximum(p_bias, tiny)))
+                    alive = alive & ~hit
+                    f[_ALIVE] = alive.to(torch.float32)
+                elif op.fluor:
+                    # fluorescence: an absorbed photon above the edge is
+                    # re-emitted at the line energy with probability Y
+                    u = rng.uniform()
+                    hit = (pcoll >= u) & alive
+                    Y, E_f, E_edge = (_c32(x) for x in op.fluor)
+                    y = rng.uniform()
+                    cu, au = rng.uniform_pair()
+                    fluo = hit & (y < Y) & (f[_E] >= E_edge)
+                    killed = hit & ~fluo
+                    if op.cols:  # all of E for a kill, E - E_f re-emitted
+                        rec_f[k, op.cols[0]] = torch.where(
+                            killed, f[_W] * f[_E], torch.where(
+                                fluo, f[_W] * (f[_E] - E_f), 0.0)).sum()
+                    # true isotropic emission: cos theta uniform
+                    cos_t = 2.0 * cu - 1.0
+                    sin_t = _sqrt_rn((1.0 - cos_t * cos_t).clamp_min(0.0))
+                    two_au = 2.0 * au
+                    sin_a = _fast_sinpi(_wrap1(two_au))
+                    cos_a = _fast_sinpi(_wrap1(two_au + 0.5))
+                    n_new = (sin_t * cos_a, sin_t * sin_a, cos_t)
+                    cval = c_val * _rsqrt_max(n_new[0] * n_new[0]
+                                              + n_new[1] * n_new[1]
+                                              + n_new[2] * n_new[2])
+                    for d in range(3):
+                        old = f[_VX + d]
+                        vn = cval * n_new[d]
+                        f[_VX + d] = torch.where(fluo, vn, old)
+                        # dv only where re-emitted: an upstream scatter's
+                        # flags of this iteration survive
+                        f[_DVX + d] = torch.where(fluo, vn - old,
+                                                  f[_DVX + d])
+                    f[_E] = torch.where(fluo, E_f, f[_E])
+                    alive = alive & ~killed
+                    f[_ALIVE] = alive.to(torch.float32)
                 else:
                     u = rng.uniform()
                     hit = (pcoll >= u) & alive
@@ -501,6 +687,153 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                     old = f[_VX + d]
                     f[_VX + d] = torch.where(scatter, vnew[d], old)
                     f[_DVX + d] = torch.where(scatter, vnew[d] - old, 0.0)
+            elif op.kind == "compton" and op.theta_e > 0.0:
+                # thermal electrons: a Maxwell electron, the flux factor on
+                # the collision rate, exact Klein-Nishina in its frame
+                pcoll = coef * dr_norm()
+                if op.n_fn is not None:
+                    pcoll = pcoll * n_of(op)
+                u = rng.uniform()
+                pu = rng.uniform()
+                # the Box-Muller radii take full 24-bit draws, the angles
+                # the halves of one pair: u4 = (r, a1, r, a2)
+                a1, a2 = rng.uniform_pair()
+                u4 = (rng.uniform(), a1, rng.uniform(), a2)
+                E_new, n_new, alpha1, flux, kn_ok = lt._ic_thermal_scatter(
+                    f[_E], _unit_dir(f), op.inv_mec2, op.theta_e, u4,
+                    lambda a: _kn_cos_eta_fused(a, rng, op.kn_tries), pu,
+                    fast_trig=True)
+                pcoll = pcoll * flux
+                if op.kn_xsec:
+                    pcoll = pcoll * lt._kn_sigma_ratio(alpha1, fast=True)
+                scatter = (pcoll >= u) & alive & kn_ok
+                for d in range(3):
+                    old = f[_VX + d]
+                    vn = n_new[d] * c_val
+                    f[_VX + d] = torch.where(scatter, vn, old)
+                    f[_DVX + d] = torch.where(scatter, vn - old, 0.0)
+                if op.cols:  # net energy to the electrons (signed)
+                    rec_f[k, op.cols[0]] = fsum(scatter,
+                                                f[_W] * (f[_E] - E_new))
+                f[_E] = torch.where(scatter, E_new, f[_E])
+            elif op.kind in ("hg", "rayl", "phase", "compton"):
+                # anisotropic scatter: the iso collision model, the new
+                # direction drawn relative to the incoming one; compton
+                # adds the Klein-Nishina angle and the recoil E' = E / eta
+                pcoll = coef * dr_norm()
+                if op.n_fn is not None:
+                    pcoll = pcoll * n_of(op)
+                if wl_base is not None:
+                    base = f[_E] * wl_base
+                    b2 = base * base
+                    pcoll = pcoll * (b2 * b2)
+                eta = None
+                if op.kind == "compton":
+                    alpha = f[_E] * _c32(op.inv_mec2)
+                    if op.kn_xsec:
+                        pcoll = pcoll * lt._kn_sigma_ratio(alpha, fast=True)
+                    u = rng.uniform()
+                    pu = rng.uniform()
+                    cos_t, eta, kn_ok = _kn_cos_eta_fused(alpha, rng,
+                                                          op.kn_tries)
+                    scatter = (pcoll >= u) & alive & kn_ok
+                else:
+                    u = rng.uniform()
+                    cu, pu = rng.uniform_pair()
+                    scatter = (pcoll >= u) & alive
+                if op.kind == "phase":
+                    cos_t = lt.phase_icdf(cu, *op.phase_knots).clamp(-1.0,
+                                                                    1.0)
+                elif op.kind == "rayl":
+                    cos_t = lt._rayleigh_cos_theta(cu, fast=True)
+                elif op.kind == "hg" and abs(op.g) < 1e-7:
+                    cos_t = 2.0 * cu - 1.0  # the exact isotropic limit
+                elif op.kind == "hg":
+                    # the scalar factors in float32, as the JAX trace
+                    # folds them: (1 - g^2), (1 - g), 2g, (1 + g^2). Both
+                    # operands of a divide are tensors: torch divides by a
+                    # scalar (or a CPU scalar tensor) on the card as a
+                    # product with its reciprocal, rounded twice
+                    gg, one = np.float32(op.g), np.float32(1.0)
+                    g2 = gg * gg
+                    s = (torch.full_like(cu, float(one - g2))
+                         / (float(one - gg) + float(gg + gg) * cu))
+                    cos_t = ((float(one + g2) - s * s)
+                             / _f32(gg + gg).to(dev)).clamp(-1.0, 1.0)
+                sin_t = _sqrt_rn((1.0 - cos_t * cos_t).clamp_min(0.0))
+                two_pu = 2.0 * pu
+                sin_p = _fast_sinpi(_wrap1(two_pu))
+                cos_p = _fast_sinpi(_wrap1(two_pu + 0.5))
+                # the azimuth pair normalised, so that the sines' error
+                # cannot leak into the polar angle
+                inv_p = 1.0 / _sqrt_rn(sin_p * sin_p + cos_p * cos_p)
+                sin_p, cos_p = sin_p * inv_p, cos_p * inv_p
+                n_new = lt._hg_direction(_unit_dir(f), cos_t, sin_t, cos_p,
+                                        sin_p)
+                cval = c_val * (1.0 / _sqrt_rn(n_new[0] * n_new[0]
+                                               + n_new[1] * n_new[1]
+                                               + n_new[2] * n_new[2]))
+                for d in range(3):
+                    old = f[_VX + d]
+                    vn = n_new[d] * cval
+                    f[_VX + d] = torch.where(scatter, vn, old)
+                    f[_DVX + d] = torch.where(scatter, vn - old, 0.0)
+                if eta is not None:  # the recoil
+                    E_new = f[_E] / eta
+                    if op.cols:  # heating: w (E - E') over scatters
+                        rec_f[k, op.cols[0]] = fsum(scatter,
+                                                    f[_W] * (f[_E] - E_new))
+                    f[_E] = torch.where(scatter, E_new, f[_E])
+            elif op.kind == "fresnel":
+                # the refractive plane: photons whose segment crossed it
+                # reflect (probability R) or refract, and retrace the rest
+                # of the step from the intersection
+                ax, loc, n_lo, n_hi, match = op.iface
+                loc = _c32(loc)
+                z1 = f[_RX + ax]
+                z0 = z1 - f[_DRX + ax]
+                side0 = z0 >= loc
+                crossed = (side0 != (z1 >= loc)) & alive
+                inv_speed = _rsqrt_max(f[_VX] * f[_VX] + f[_VY] * f[_VY]
+                                       + f[_VZ] * f[_VZ])
+                dd = [f[_VX + i] * inv_speed for i in range(3)]
+                up = ~side0
+                nf = torch.where(up, _c32(n_lo), _c32(n_hi))
+                nt = torch.where(up, _c32(n_hi), _c32(n_lo))
+                cos_i = dd[ax].abs().clamp(0.0, 1.0)
+                sin2_i = 1.0 - cos_i * cos_i
+                mu = nf / nt
+                sin2_t = mu * mu * sin2_i
+                tir = sin2_t > 1.0
+                cos_tr = _sqrt_rn((1.0 - sin2_t).clamp(0.0, 1.0))
+                rs = (nf * cos_i - nt * cos_tr) / (nf * cos_i + nt * cos_tr)
+                rp = (nf * cos_tr - nt * cos_i) / (nf * cos_tr + nt * cos_i)
+                R = torch.where(tir, 1.0,
+                                (0.5 * (rs * rs + rp * rp)).clamp(0.0, 1.0))
+                u = rng.uniform()
+                refl = crossed & (u < R)
+                s = (loc - z0) / torch.where(crossed, z1 - z0, 1.0)
+                seg = dr_norm()
+                sgn = torch.where(dd[ax] >= 0, 1.0, -1.0)
+                d_tr = [mu * dd[i] for i in range(3)]
+                d_tr[ax] = sgn * cos_tr
+                inv_tr = _rsqrt_max(d_tr[0] * d_tr[0] + d_tr[1] * d_tr[1]
+                                    + d_tr[2] * d_tr[2])
+                if match:
+                    speed_out = c_val / torch.where(refl, nf, nt)
+                else:
+                    speed_out = 1.0 / inv_speed
+                rem = (1.0 - s) * seg * speed_out * inv_speed
+                for i in range(3):
+                    d_out = torch.where(refl, -dd[i] if i == ax else dd[i],
+                                        d_tr[i] * inv_tr)
+                    r0 = f[_RX + i] - f[_DRX + i]
+                    r_new = (r0 + s * f[_DRX + i]) + d_out * rem
+                    f[_RX + i] = torch.where(crossed, r_new, f[_RX + i])
+                    f[_DRX + i] = torch.where(crossed, r_new - r0,
+                                              f[_DRX + i])
+                    f[_VX + i] = torch.where(crossed, d_out * speed_out,
+                                             f[_VX + i])
             elif op.kind == "sign":
                 n_col, sx_col = op.cols
                 if n_col >= 0:
@@ -607,11 +940,34 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
         o.col1 = op.cols[1] if len(op.cols) > 1 else -1
         o.coef, o.wl_base, o.c_val = op.coef, op.wl_base or 0.0, op.c_val
         o.nf, o.af = per_op[i]
-        if op.kind == "iso":
+        if op.kind in ("iso", "hg", "rayl", "phase"):
             o.flag = int(op.wl_base is not None)
-        elif op.kind == "del":
+        if op.kind == "del":
             o.capture = int(op.implicit_capture)
             o.w_min, o.w_sur = op.roulette or (0.0, 0.0)
+            # DelVariant: 1 exponential transform, 2 fluorescence; their
+            # parameters in box
+            o.flag = 1 if op.stretch else (2 if op.fluor else 0)
+            params = op.stretch or op.fluor
+            o.box[:len(params)] = [float(x) for x in params]
+        elif op.kind == "hg":
+            # the float32 folds of the JAX trace: 1 - g^2, 1 - g, 2g, 1 + g^2
+            gg, one = np.float32(op.g), np.float32(1.0)
+            o.box[:4] = [float(one - gg * gg), float(one - gg),
+                         float(gg + gg), float(one + gg * gg)]
+            o.flag |= 2 * int(abs(op.g) < 1e-7)  # the isotropic limit
+        elif op.kind == "phase":
+            m0, dm = op.phase_knots
+            o.icdf, o.emit_n = sum(a.size for a in aux), m0.size
+            aux += [m0, dm]
+        elif op.kind == "compton":
+            o.box[:2] = [op.inv_mec2, op.theta_e]
+            o.flag = 2 * int(op.kn_xsec)
+            o.emit_n = op.kn_tries
+        elif op.kind == "fresnel":
+            axis, loc, n_lo, n_hi, match = op.iface
+            o.col1, o.flag = int(axis), int(match)
+            o.box[:3] = [loc, n_lo, n_hi]
         elif op.kind == "sign":
             o.flag = int(op.weighted)
         elif op.kind in ("absorb", "reflect", "periodic"):

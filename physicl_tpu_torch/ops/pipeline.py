@@ -9,8 +9,13 @@ the engine falls back, this prover raises :class:`FusedRefusal` (a
 Fusable here: one ``UpdateTimeStep`` whose dt function reads at most
 ``(t, dt)``, plus any mix of ``NewtonianKinematicsStep``,
 ``ScatterDeleteStep`` (density and cross-section fields, implicit capture,
-roulette, deposition tallies), ``ScatterIsotropicStep`` (with a density
-field), ``AbsorbingBoundaryStep``, ``ReflectingBoundaryStep``,
+roulette, the exponential transform, fluorescence, deposition tallies),
+``ScatterIsotropicStep``, ``ScatterHenyeyGreensteinStep``,
+``ScatterRayleighStep``, ``ScatterPhaseFunctionStep`` (a phase table; a
+callable inverse CDF is refused) and ``ScatterComptonStep`` (cold or
+thermal electrons, the heating tally), each with a density field,
+``RefractiveInterfaceStep``, ``AbsorbingBoundaryStep``,
+``ReflectingBoundaryStep``,
 ``PeriodicBoundaryStep``, ``AbsorbingSphereStep``, ``PhotonEmitterStep``
 (constant or ``PlanckSampler`` energies), ``ScatterSignMeasureStep``
 (counts or weight sums), ``ScatterMeasureStep`` (counts, weight sums,
@@ -526,9 +531,14 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
     from physicl_tpu_torch.light import (
         PhotonEmitterStep,
         PlanckSampler,
+        RefractiveInterfaceStep,
+        ScatterComptonStep,
         ScatterDeleteStep,
+        ScatterHenyeyGreensteinStep,
         ScatterIsotropicStep,
         ScatterMeasureStep,
+        ScatterPhaseFunctionStep,
+        ScatterRayleighStep,
         ScatterSignMeasureStep,
         SphericalShellMeasureStep,
         TracePathMeasureStep,
@@ -597,10 +607,23 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
     update_before_kin = False
     kin_seen = False
 
+    def dep_col(s):
+        """A per-iteration deposition (Compton: heating) float column for a
+        step with ``measure_deposition``, else ``()``."""
+        nonlocal next_fcol
+        if not s.measure_deposition:
+            return ()
+        next_fcol += 1
+        rec_map.append({"uid": s._step_uid, "kind": "dep",
+                        "col": next_fcol - 1})
+        measure_after_update[s._step_uid] = update_seen
+        return (next_fcol - 1,)
+
+    photon_only = (ScatterDeleteStep, ScatterIsotropicStep,
+                   ScatterHenyeyGreensteinStep, RefractiveInterfaceStep)
     for s in steps:
         uid = s._step_uid
-        if (isinstance(s, (ScatterDeleteStep, ScatterIsotropicStep))
-                and species != OBJ_PHOTON):
+        if isinstance(s, photon_only) and species != OBJ_PHOTON:
             _no("photon-only-op", f"{type(s).__name__} acts on photons but "
                 "the population is non-photon")
         if type(s) is UpdateTimeStep:
@@ -624,28 +647,50 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
             kin_seen = True
             ops.append(F._Op("kin"))
         elif type(s) is ScatterDeleteStep:
-            for opt in ("stretch", "fluorescence"):
-                if getattr(s, opt) is not None:
-                    _no(f"delete-{opt}", f"ScatterDeleteStep({opt}=...) is "
-                        "not ported")
             n_fn = _field(s, s._n_fn, "variable_n_fn", _R)
             a_fn = _field(s, s._a_fn, "A_fn", ("E",))
-            dep_cols = ()
-            if s.measure_deposition:
-                dep_cols = (next_fcol,)   # per-iteration deposited energy
-                next_fcol += 1
-                rec_map.append({"uid": uid, "kind": "dep",
-                                "col": dep_cols[0]})
-                measure_after_update[uid] = update_seen
+            dep_cols = dep_col(s)
             ops.append(F._Op("del", coef=s._coef, n_fn=n_fn, a_fn=a_fn,
                              implicit_capture=s.implicit_capture,
                              roulette=tuple(s.roulette or ()),
-                             cols=dep_cols))
+                             stretch=tuple(s.stretch or ()),
+                             fluor=tuple(s.fluorescence or ()),
+                             c_val=s._c, cols=dep_cols))
         elif type(s) is ScatterIsotropicStep:
             s.setup(sim)
             n_fn = _field(s, s._n_fn, "variable_n_fn", _R)
             ops.append(F._Op("iso", coef=s._coef, wl_base=s._wl_base,
                              c_val=s._c, n_fn=n_fn))
+        elif type(s) in (ScatterHenyeyGreensteinStep, ScatterRayleighStep,
+                         ScatterPhaseFunctionStep):
+            kind = {ScatterHenyeyGreensteinStep: "hg",
+                    ScatterRayleighStep: "rayl",
+                    ScatterPhaseFunctionStep: "phase"}[type(s)]
+            if kind == "phase" and s._knots is None:
+                _no("phase-icdf-callable", "ScatterPhaseFunctionStep("
+                    "cos_theta_icdf=<callable>): a Python callable cannot "
+                    "be inlined into the CUDA kernel; pass phase_table="
+                    "(mu_grid, pdf)")
+            s.setup(sim)
+            n_fn = _field(s, s._n_fn, "variable_n_fn", _R)
+            ops.append(F._Op(kind, coef=s._coef, wl_base=s._wl_base,
+                             c_val=s._c, n_fn=n_fn,
+                             g=s.g if kind == "hg" else 0.0,
+                             phase_knots=s._knots if kind == "phase"
+                             else None))
+        elif type(s) is ScatterComptonStep:
+            s.setup(sim)
+            n_fn = _field(s, s._n_fn, "variable_n_fn", _R)
+            ops.append(F._Op("compton", coef=s._coef, n_fn=n_fn, c_val=s._c,
+                             inv_mec2=s._inv_mec2,
+                             kn_xsec=s.kn_cross_section,
+                             kn_tries=s.kn_max_tries,
+                             theta_e=float(s._theta_e or 0.0),
+                             cols=dep_col(s)))
+        elif type(s) is RefractiveInterfaceStep:
+            s.setup(sim)
+            ops.append(F._Op("fresnel", c_val=float(s._c), iface=(
+                s.axis, float(s.loc), s.n_lo, s.n_hi, s.match_speed)))
         elif type(s) is AbsorbingBoundaryStep:
             s.setup(sim)
             ops.append(F._Op("absorb", bounds=_static_bounds(s, sim)))
@@ -752,9 +797,10 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
             _no("unsupported-step", f"{type(s).__name__} has no fused op in "
                 "the port; supported: UpdateTime/NewtonianKinematics/"
                 "Absorbing/Reflecting/PeriodicBoundary/AbsorbingSphere/"
-                "ScatterDelete/ScatterIsotropic/PhotonEmitter/"
-                "ScatterSignMeasure/ScatterMeasure/SphericalShellMeasure/"
-                "TracePathMeasure")
+                "ScatterDelete/ScatterIsotropic/ScatterHenyeyGreenstein/"
+                "ScatterRayleigh/ScatterPhaseFunction/ScatterCompton/"
+                "RefractiveInterface/PhotonEmitter/ScatterSignMeasure/"
+                "ScatterMeasure/SphericalShellMeasure/TracePathMeasure")
 
     if not update_seen:
         _no("no-update-step", "no UpdateTimeStep: the fused kernel "
@@ -782,23 +828,30 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
             FL.grid_on(sp, state.device)
 
     # const-norm fast path: |dr| = speed * dt, valid iff exactly one
-    # kinematics step precedes every scatter op, every emitter precedes it
-    # (a photon emitted after kinematics carries dr = 0 until the next
-    # iteration), no reflection lies between them (a fold changes dr), and
-    # every particle, emitted ones included, moves at one common speed that
-    # each isotropic op's resample speed matches
+    # kinematics step precedes every |dr| consumer (the collision
+    # probability of every scatter op, the interface's step remainder),
+    # every emitter precedes it (a photon emitted after kinematics carries
+    # dr = 0 until the next iteration), no dr modifier (a reflection's fold,
+    # an interface's kink) lies between them, no interface rescales speeds
+    # (match_speed), and every particle, emitted ones included, moves at one
+    # common speed that each resample (scatter, re-emission) matches. The
+    # JAX prover leaves "phase" out of both lists although its op reads
+    # |dr|; the port counts it, as it counts "hg".
     const_speed = None
     kin_positions = [i for i, op in enumerate(ops) if op.kind == "kin"]
     scatter_positions = [i for i, op in enumerate(ops)
-                         if op.kind in ("del", "iso")]
+                         if op.kind in ("del", "iso", "hg", "rayl", "phase",
+                                        "compton", "fresnel")]
     emit_positions = [i for i, op in enumerate(ops) if op.kind == "emit"]
     reflect_positions = [i for i, op in enumerate(ops)
-                         if op.kind == "reflect"]
+                         if op.kind in ("reflect", "fresnel")]
     if (len(kin_positions) == 1 and scatter_positions
             and all(p > kin_positions[0] for p in scatter_positions)
             and all(p < kin_positions[0] for p in emit_positions)
             and not any(kin_positions[0] < q < p for q in reflect_positions
-                        for p in scatter_positions)):
+                        for p in scatter_positions)
+            and not any(op.kind == "fresnel" and op.iface[4]
+                        for op in ops)):
         speeds = [float(np.linalg.norm(np.asarray(
             raw_code_value(o.v), np.float64).reshape(3)))
             for o in sim._pending_objects]
@@ -820,7 +873,9 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
             s0 = speeds[0]
             ok = s0 > 0 and max(abs(s - s0) for s in speeds) <= 1e-4 * s0
             for op in ops:
-                if op.kind == "iso" and abs(op.c_val - s0) > 1e-5 * s0:
+                if ((op.kind in ("iso", "hg", "rayl", "phase", "compton")
+                     or (op.kind == "del" and op.fluor))
+                        and abs(op.c_val - s0) > 1e-5 * s0):
                     ok = False
             if ok:
                 const_speed = s0

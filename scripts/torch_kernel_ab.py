@@ -4,30 +4,42 @@ GPU: ``python3 scripts/torch_kernel_ab.py OLD NEW NEW OLD``.
 
 Each argument is the root of a checkout holding ``physicl_tpu_torch``. For
 each, in the order given, a fresh process imports that checkout's package,
-builds its kernels (``nvcc`` into that checkout's ``_build/``) and times
+builds its kernels (``nvcc`` into a temporary directory) and times
 ``fused_transport`` on the main path's shape (10**7 photons padded to
 10,010,624 slots, 1024 iterations, [kin, iso, sign] with the const-norm
-path) and on [kin, iso, sign] at 2**20 slots x 256 iterations, with CUDA
-events over 3 and 5 launches after one warm-up launch. Prints one JSON
-object per checkout; run both versions in one call, in turns, so that the
-card and its power limit are the same for both.
+path), on [kin, iso, sign] at 2**20 slots x 256 iterations and on
+``chip_smoke.py``'s geometry and rotation plans at that shape (the latter
+only where the checkout has their ops), with CUDA events over 3 and 5
+launches after one warm-up launch, and reads each
+kernel instantiation's registers from ``ptxas -v`` (keyed by its template
+arguments, e.g. ``b0b1b0`` = no fields, geometry/streams, no rotation
+family). Prints one JSON object per checkout; run both versions in one
+call, in turns, so that the card and its power limit are the same for
+both.
 """
 
 import json
+import os
 import subprocess
 import sys
 
 _CHILD = r"""
-import json, sys
+import json, re, shutil, sys, tempfile
 import numpy as np
 import torch
 sys.path.insert(0, sys.argv[1])
+sys.path.append(sys.argv[2])  # chip_smoke.py's plans
+import chip_smoke as cs
+import physicl_tpu_torch.light as light
 from physicl_tpu_torch.ops import _build
 from physicl_tpu_torch.ops import fused as F
 
 C_LIGHT = 299792458.0
 dev = torch.device("cuda:0")
+# a fresh build directory, so that ptxas reports every instantiation
+_build.BUILD_DIR = tempfile.mkdtemp(prefix="kernel_ab_")
 _build.load()
+shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
 
 
 def packed(C):
@@ -42,7 +54,17 @@ def packed(C):
     return torch.from_numpy(p).to(dev)
 
 
-out = {"root": sys.argv[1]}
+out = {"root": sys.argv[1], "registers": {}}
+entry = None
+for line in _build.build_log.splitlines():
+    m = re.search(r"entry function '(\S*fused_transport_kernel\S*)'", line)
+    if m:
+        entry = "".join(re.findall(r"Lb([01])E", m.group(1)))
+        entry = "".join("b" + b for b in entry)
+    m = re.search(r"Used (\d+) registers", line)
+    if m and entry is not None:
+        out["registers"][entry] = int(m.group(1))
+        entry = None
 for C, K, reps in ((10_010_624, 1024, 3), (1 << 20, 256, 5)):
     plan = F.FusedPlan(ops=[F._Op("kin"),
                             F._Op("iso", coef=1e-6, c_val=C_LIGHT),
@@ -61,6 +83,23 @@ for C, K, reps in ((10_010_624, 1024, 3), (1 << 20, 256, 5)):
     torch.cuda.synchronize()
     out[f"ms_{C}x{K}"] = start.elapsed_time(end) / reps
     del pk, res
+L = 64 * C_LIGHT * 0.001
+pk = torch.from_numpy(cs.geometry_packed(1 << 20, L, 12)).to(dev)
+res = torch.empty_like(pk)
+sched = torch.zeros((5, 256), dtype=torch.float32, device=dev)
+sched[0] = 0.001
+plans = dict(cs.geometry_plans(F, 256, L))
+if "hg" in F.OP_CODES:
+    plans.update(cs.scatter_plans(F, light, 256, L))
+for name, plan in plans.items():
+    F.fused_transport(pk, res, sched, 7, 256, plan)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(5):
+        F.fused_transport(pk, res, sched, 7, 256, plan)
+    end.record()
+    torch.cuda.synchronize()
+    out[f"ms_{name}"] = start.elapsed_time(end) / 5
 print(json.dumps(out))
 """
 
@@ -68,8 +107,9 @@ print(json.dumps(out))
 def main(roots):
     if not roots:
         sys.exit(__doc__)
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for root in roots:
-        res = subprocess.run([sys.executable, "-c", _CHILD, root],
+        res = subprocess.run([sys.executable, "-c", _CHILD, root, here],
                              capture_output=True, text=True)
         if res.returncode:
             sys.exit(f"{root}: exit {res.returncode}\n{res.stderr}")

@@ -281,3 +281,34 @@ def test_geometry_plans_match_twin(dev, name, k_act):
         assert not torch.isnan(got[2][:filled].float()).all()
     else:
         assert len(got) == 2
+
+
+# -- the rotation family, the interface and the del variants --
+
+@pytest.mark.parametrize("name", ["rot-hg", "rot-rayl-wl", "rot-phase-mie",
+                                  "rot-compton-kn-dep",
+                                  "rot-compton-thermal", "rot-fresnel",
+                                  "rot-fresnel-match", "rot-del-stretch-w",
+                                  "rot-del-fluor-dep"])
+def test_scatter_plans_match_twin(dev, name):
+    """The nine plans ``chip_smoke.py`` holds at 2**20 x 256, here at 2**16
+    x 64: int records equal, planes bitwise, rec_f within tolerance; the
+    plans run the rotation instantiation."""
+    import physicl_tpu_torch.light as light
+    from chip_smoke import geometry_packed, scatter_plans
+
+    L = 64 * C_LIGHT * 0.001
+    packed = torch.from_numpy(geometry_packed(1 << 16, L, 12)).to(dev)
+    sched = torch.zeros((5, 64), dtype=torch.float32, device=dev)
+    sched[0] = 0.001
+    plan = scatter_plans(F, light, 64, L)[name]
+    assert plan.kernel_variant & 4
+    out = torch.empty_like(packed)
+    rec, rec_f = F.fused_transport(packed, out, sched, 91, 60, plan)
+    ref, ref_rec, ref_f = F.fused_chunk_reference(packed, sched, 91, 60,
+                                                  plan)
+    torch.cuda.synchronize()
+    assert torch.equal(rec, ref_rec)
+    assert torch.equal(out, ref)
+    assert _close_f(rec_f, ref_f)
+    assert not torch.equal(out, packed)

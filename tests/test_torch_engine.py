@@ -301,11 +301,15 @@ _REFUSALS = {
     "field-fn-callable-A": ("field-fn-callable",
                             lambda P: P.light.ScatterDeleteStep(
                                 0.001, 0.001, A_fn=lambda E: E * 0 + 1)),
-    "delete-stretch": ("delete-stretch", lambda P: P.light.ScatterDeleteStep(
-        0.001, 0.001, stretch=0.5)),
-    "delete-fluorescence": ("delete-fluorescence",
-                            lambda P: P.light.ScatterDeleteStep(
-                                0.001, 0.001, fluorescence=(0.5, 0.5))),
+    "phase-icdf-callable": ("phase-icdf-callable",
+                            lambda P: P.light.ScatterPhaseFunctionStep(
+                                A=0.001, cos_theta_icdf=lambda u: 2 * u - 1)),
+    # the port has no polarization planes: the JAX package's polarized
+    # step is a step type the prover does not know
+    "polarized-step": ("unsupported-step",
+                       lambda P: __import__(
+                           "physicl_tpu.polarization").polarization
+                       .ScatterPolarizedRayleighStep(A=0.001)),
     "kinematics-acceleration": ("kinematics-acceleration",
                                 lambda P: P.newton.NewtonianKinematicsStep(
                                     integrate_acceleration=True)),
