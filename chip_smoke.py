@@ -164,11 +164,36 @@ Phases (any failure exits non-zero and prints no result line):
     budget within 1e-4;
 20. the tissue plan (kin -> fresnel -> hg -> implicit capture -> absorbing
     box -> weighted plane tally) on the card and on the CPU twin at 2**16
-    photons: equal ``sim.ts`` and alive counts, live slots bitwise.
+    photons: equal ``sim.ts`` and alive counts, live slots bitwise;
+21. ``fused_transport`` vs twin on the six Lorentz and mixed plans
+    (``lorentz_plans``) at 2**20 slots and 256 iterations over a growing-dt
+    schedule: a species-wide q/m in E and B, per-particle q/m in B, the
+    photon population's q/m = 0 no-op, the push before the update, a mixed
+    population's push, scattering and absorption, and the same with an
+    emitter and per-particle q/m: int records equal, every plane (the
+    extras included) bitwise, each timed against its bound;
+22. the same on the first chunks of the ExB path (10**7 x 256), the mixed
+    path (10**7 x 256) and the record-tile plan (10**7 x 984: the chunk
+    clamped by its 3 int + 7 float record columns);
+23. ExB path (benchmarks/run_all.py lorentz_boris_exb_1e7): 10**7
+    particles from ``generate_particle_state(device=...)``, E = (4, 0, 0),
+    B = (0, 0, 200), q/m = 1, chunks of 256 through ``Simulation`` for the
+    788 iterations nearest a whole number of gyro-turns, run twice (the
+    second profiled): every lane bitwise equal to the others, v within
+    rtol 1e-4 of a float64 host Boris run, the mean velocity within 1% of
+    the ExB drift (0, -0.02, 0); then the mixed path (run_all.py
+    mixed_species_1e7: 5 x 10**6 photons and 5 x 10**6 charges, 1024
+    iterations): photon survivors within 5 sigma of (1 - p)**k with the
+    24-bit uniform's p, no charge dies, charge speeds 1 within rtol 3e-5,
+    photon speeds c; both print the rates, peak memory and idle share;
+24. the record-tile plan at 10**7 photons through ``Simulation``: two
+    chunks of 984 (the clamp in ``explain_plan()``), finite tallies with
+    crossings in both chunks.
 
 The line before the last two is a JSON object describing each kernel on
 each path: ``fused_transport`` once each for the gamma, glass, thermal,
-stretch and fluorescence paths, the main path, the Planck
+stretch and fluorescence paths, the ExB (``lorentz``), mixed and
+record-tile paths, the main path, the Planck
 source path, the media path, the escape path and the cavity path, each
 with its path's launch count and the times and bound at that path's own
 shape and plan (the bound counts the fields' corner reads and the stream
@@ -343,6 +368,21 @@ OPS_PER_ITER = {
     # one re-emission: cos and sin theta 13, two fast sines 18, the norm 19
     # and scaling 4, v, dv and E 10; the pair's halves 6
     "fluor_emit": (64, 6),
+    # lorentz per particle-iteration, the push's own work only: h 1, three v
+    # selects and three dv 6; the dt's address in its schedule row 1 (the
+    # push is `alive` on a plan without an otype plane; with one, "gate")
+    "lorentz": (7, 1),
+    # a constant E: three products, two kicks of three sums
+    "lorentz_E": (9, 0),
+    # a constant B: t 3, v' 12, s = 2 / (1 + |t|^2) 6 and its divide 8, v+
+    # 15
+    "lorentz_B": (44, 0),
+    # per-particle q/m: 0.5 dt (the plane is read once per slot, before
+    # the iterations)
+    "lorentz_qm": (1, 0),
+    # the otype gate of a photon op or a push on a mixed plan: one logic
+    # operation
+    "gate": (0, 1),
 }
 # lane-loads per field read (gathers, at the SM's load/store issue rate)
 LOADS_PER_FIELD = {"voxel_tri": 8, "voxel_near": 1, "layered": 2}
@@ -485,7 +525,8 @@ def expected_events(plan, packed, alive_steps, dt, cross_p=0.0):
 
 def transport_counts(plan, slots, k_act, starts, events=None):
     """(bytes, float32 ops, int32 ops, lane-loads) of one fused_transport
-    launch of ``plan``: 2 x 60 B per slot, each voxel grid read once and the
+    launch of ``plan``: 2 x 60 B per slot, 4 B per extras plane per slot
+    read (and per emitted slot written), each voxel grid read once and the
     stream buffer written once; the lane-operations of its ops over slots x
     k_act slot-iterations plus the once-per-photon work of the emissions
     ``starts`` schedules and of the sampled trace iterations, and the work
@@ -501,6 +542,7 @@ def transport_counts(plan, slots, k_act, starts, events=None):
     stream_elems = plan.n_stream_rows * plan.n_stream * slots
     sampled = -(-k_act // plan.stream_every)  # trace rows with data
     event_loads = 0.0  # the phase tables' reads, per collision
+    n_emitted = 0
     for i, op in enumerate(plan.ops):
         n_ev = events.get(i, 0.0)
         for fn in (op.n_fn, op.a_fn):
@@ -532,6 +574,7 @@ def transport_counts(plan, slots, k_act, starts, events=None):
             per.append(OPS_PER_ITER["emit"])
             row = starts[op.emit_row, :k_act]
             n = int((row > -(2 ** 30)).sum()) * op.emit_n
+            n_emitted += n
             if op.emit_table is not None:
                 once.append((OPS_PER_EMITTED["E"], n))
             if op.emit_v is None:
@@ -577,12 +620,27 @@ def transport_counts(plan, slots, k_act, starts, events=None):
         elif op.kind == "fresnel":
             per.append(OPS_PER_ITER["fresnel"])
             once.append((OPS_PER_ITER["fresnel_cross"], n_ev))
+        elif op.kind == "lorentz":
+            per.append(OPS_PER_ITER["lorentz"])
+            if op.e_const:
+                per.append(OPS_PER_ITER["lorentz_E"])
+            if op.b_const:
+                per.append(OPS_PER_ITER["lorentz_B"])
+            if op.qm_plane >= 0:
+                per.append(OPS_PER_ITER["lorentz_qm"])
         else:
             per.append(OPS_PER_ITER[op.kind])
+        if "otype" in plan.extras and op.kind in (
+                "del", "iso", "hg", "rayl", "phase", "compton", "fresnel",
+                "lorentz"):
+            per.append(OPS_PER_ITER["gate"])
     ops = [sum(p[j] for p in per) * slots * k_act
            + sum(o[j] * n for o, n in once) for j in (0, 1)]
     elem = 2 if plan.stream_dtype == "bfloat16" else 4
-    return (2 * 60 * slots + sum(grids.values()) + elem * stream_elems,
+    # the extras planes: read once, written for the emitted slots
+    extras = 4 * len(plan.extras) * (slots + n_emitted)
+    return (2 * 60 * slots + extras + sum(grids.values())
+            + elem * stream_elems,
             *ops, loads * slots * k_act + event_loads + stream_elems)
 
 
@@ -690,7 +748,8 @@ def main():
     # largest plane difference from the twin, per path
     err = {"main": 0.0, "planck": 0.0, "planck_gen": 0.0, "media": 0.0,
            "escape": 0.0, "cavity": 0.0, "rot": 0.0, "gamma": 0.0,
-           "glass": 0.0, "thermal": 0.0, "stretch": 0.0, "fluor": 0.0}
+           "glass": 0.0, "thermal": 0.0, "stretch": 0.0, "fluor": 0.0,
+           "lorentz": 0.0, "mixed": 0.0, "record-tile": 0.0}
     a_E, b_E = planck_window()
     sampler = light.PlanckSampler(a_E, b_E, T_SUN, bins=2000)
 
@@ -1004,6 +1063,20 @@ def main():
         for case, kinds in (("thermal", ["kin", "compton", "sign"]),
                             ("stretch", ["kin", "del", "sign"]),
                             ("fluor", ["kin", "del"]))}
+    lorentz_plan_phase(torch, F, dev, seed, compare, card, times)
+    exft = path_chunk0(
+        "exb-chunk-0", lorentz_sim(phys, "exb", EXB_N, dev,
+                                   exb_iterations())[0], F, torch, lib,
+        compare, "lorentz", card, ["lorentz", "kin", "sign"], streams=False)
+    mxft = path_chunk0(
+        "mixed-chunk-0", lorentz_sim(phys, "mixed", MIX_N, dev,
+                                     MIX_ITERS)[0], F, torch, lib, compare,
+        "mixed", card, ["lorentz", "kin", "iso", "del", "sign"],
+        streams=False)
+    tlft = path_chunk0(
+        "tile-chunk-0", tile_sim(phys, TILE_N, dev, TILE_ITERS)[0], F, torch,
+        lib, compare, "record-tile", card, ["kin", "iso", "sign", "cross"],
+        streams=False)
 
     phase("planck_gen vs twin (10**7 samples)")
     n_gen = 10_000_000
@@ -1131,6 +1204,7 @@ def main():
     glass = glass_path(torch, phys, F, dev, card, sft)
     runs = run_all_paths(torch, phys, F, dev, card)
     tissue_card_vs_cpu(torch, phys, F)
+    lruns = lorentz_runs(torch, phys, F, dev, card, exft, mxft, tlft)
 
     ft_src = {"name": "fused_transport", "route": "cuda",
               "source": "physicl_tpu_torch/csrc/fused_transport.cu",
@@ -1144,6 +1218,12 @@ def main():
                    "launches": runs[case]["fused_launches"],
                    "max_abs_err": err[case], **rft[case], "library_ms": None}
                   for case in ("thermal", "stretch", "fluor")]
+    new_paths += [{**ft_src, "path": path, "launches":
+                   lruns[run]["fused_launches"], "max_abs_err": err[path],
+                   **entry, "library_ms": None}
+                  for path, run, entry in (("lorentz", "exb", exft),
+                                           ("mixed", "mixed", mxft),
+                                           ("record-tile", "tile", tlft))]
     print(json.dumps({"kernels": new_paths + [
         {**ft_src, "path": "main", "launches": main_launches,
          "max_abs_err": err["main"], **ft, "library_ms": None},
@@ -1512,6 +1592,103 @@ def scatter_plans(F, light, chunk, L):
     }
 
 
+def lorentz_packed(C, extras, photons, seed):
+    """Seeded (15 + len(extras), C) state of a charged (``photons`` = 0),
+    photon (1) or mixed (0.5) population: photons at c and E in [0.5, 2],
+    charges at speeds in [0.1, 0.5] c (so that an ungated photon op would
+    reach them) with E = 0, random directions and positions near the
+    origin, ~95% alive; the "otype" plane marks the
+    photons, the "qm" plane holds q/m in {-2, -1, 0, 1, 3}."""
+    rng = np.random.default_rng(seed)
+    p = np.zeros((15 + len(extras), C), np.float32)
+    p[0:3] = rng.normal(size=(3, C))
+    d = rng.normal(size=(3, C))
+    photon = rng.uniform(size=C) < photons
+    p[6:9] = d / np.linalg.norm(d, axis=0) * np.where(
+        photon, 1.0, rng.uniform(0.1, 0.5, C)) * C_LIGHT
+    p[12] = np.where(photon, rng.uniform(0.5, 2.0, C), 0.0)
+    p[13] = rng.uniform(size=C) < 0.95
+    p[14] = 1.0
+    for j, name in enumerate(extras):
+        p[15 + j] = (photon if name == "otype"
+                     else rng.choice([-2.0, -1.0, 0.0, 1.0, 3.0], C))
+    return p
+
+
+def lorentz_sched(torch, K, dev):
+    """A (5, K) schedule whose dt grows from 1e-3 by half over the chunk:
+    row 0 (kinematics) and row 3 (after the update) hold dt_k, row 4
+    (before the update) dt_(k-1), so a push that took the wrong row would
+    differ."""
+    dt = 1e-3 * (1.0 + 0.5 * torch.arange(K, dtype=torch.float64) / K)
+    s = torch.zeros((5, K), dtype=torch.float32)
+    s[0] = s[3] = dt
+    s[4, 0] = 1e-3
+    s[4, 1:] = dt[:-1]
+    return s.to(dev)
+
+
+def lorentz_plans(F, chunk):
+    """One plan per form of the Boris push and of the mixed population,
+    each ``(plan, photon share of lorentz_packed)``: a species-wide q/m in
+    E and B; per-particle q/m (the "qm" plane) in B; the photon
+    population's q/m = 0 no-op before scattering; the push before the
+    update (schedule row 4); a mixed population's push, scattering and
+    absorption; and the same with an emitter filling the upper half of the
+    slots, per-particle q/m and an E field (tests/test_torch_cuda.py holds
+    the same plans at 2**16 x 64)."""
+    from physicl_tpu_torch.state import OBJ_GENERIC, OBJ_PHOTON
+
+    c_dt = C_LIGHT * 1e-3
+    EB = {"e_const": (4.0, 0.0, 0.0), "b_const": (0.0, 0.0, 200.0)}
+
+    def plan(ops, species=OBJ_GENERIC, extras=()):
+        return F.FusedPlan(ops=[*ops, F._Op("sign", cols=(1, 2))],
+                           n_rec_cols=5, chunk=chunk, species=species,
+                           extras=extras)
+
+    def lor(**kw):
+        return F._Op("lorentz", **kw)
+
+    kin = F._Op("kin")
+    iso = F._Op("iso", coef=0.05 / c_dt, c_val=C_LIGHT)
+    dele = F._Op("del", coef=0.002 / c_dt)
+    emit = F._Op("emit", emit_n=2048, emit_E=1.0, c_val=C_LIGHT)
+    mixed = F.SPECIES_MIXED
+    return {
+        "lor-species-EB": (plan([lor(qm=-1.5, **EB), kin]), 0.0),
+        "lor-qm-B": (plan([lor(qm_plane=15, b_const=(0.3, -0.1, 200.0)),
+                           kin], extras=("qm",)), 0.0),
+        "lor-photon-noop": (plan([lor(), kin, iso], species=OBJ_PHOTON),
+                            1.0),
+        "lor-before-update": (plan([lor(qm=2.0, after_update=False, **EB),
+                                    kin]), 0.0),
+        "mixed": (plan([lor(qm=1.0, b_const=(0.0, 0.0, 200.0)), kin, iso,
+                        dele], species=mixed, extras=("otype",)), 0.5),
+        "mixed-emit-qm": (plan([emit, lor(qm_plane=16, **EB), kin, iso,
+                                dele], species=mixed,
+                               extras=("otype", "qm")), 0.5),
+    }
+
+
+def lorentz_inputs(torch, plan, photons, C, K, dev, seed):
+    """(packed, sched, emit starts or None) for a ``lorentz_plans`` plan;
+    an emitter's plan gets the upper half of the slots dead and generic,
+    filled from C / 2 at its rate."""
+    p = lorentz_packed(C, plan.extras, photons, seed)
+    starts = None
+    if plan.n_emit:
+        p[13, C // 2:] = 0.0
+        p[15 + plan.extras.index("otype"), C // 2:] = 0.0
+        n = plan.ops[0].emit_n
+        starts = torch.full((1, K), -(2 ** 30), dtype=torch.int32)
+        fits = min(K, (C - C // 2) // n)
+        starts[0, :fits] = C // 2 + n * torch.arange(fits,
+                                                     dtype=torch.int32)
+        starts = starts.to(dev)
+    return torch.from_numpy(p).to(dev), lorentz_sched(torch, K, dev), starts
+
+
 def stream_equal(a, b):
     """Stream buffers equal bit for bit, every NaN mapped to one pattern
     (``torch.equal`` is False wherever either side holds a NaN)."""
@@ -1829,7 +2006,7 @@ def cavity_path(torch, phys, F, dev, card, cft):
     chunks = [n for _, n, _ in sim.chunk_log]
     check(sim.used_fused and launches >= 2 and chunks[:2] == [1024, 1024],
           f"cavity path: launches {launches}, chunks {chunks}")
-    check(sim.plan_report.notes[-1].endswith("off"),
+    check("const-norm |dr| = c*dt: off" in sim.plan_report.notes,
           "cavity path: a reflection before scattering must turn the "
           "const-norm path off")
     spilled = [isinstance(x.buf, np.ndarray) for x in tr._pos]
@@ -2511,12 +2688,268 @@ def tissue_card_vs_cpu(torch, phys, F):
     check(torch.equal(ga, ca), "tissue run: alive planes differ")
     bitwise = torch.equal(gst[:, ga], cst[:, ca])
     check(bitwise, "tissue run: live slots not bitwise equal")
-    check(gs.plan_report.notes[-1].endswith("off"),
+    check("const-norm |dr| = c*dt: off" in gs.plan_report.notes,
           "tissue run: an interface before scattering must turn the "
           "const-norm path off")
     print(f"tissue card == CPU: sim.ts, alive counts ({int(ga.sum())} of "
           f"{n}), live slots bitwise; float tallies bitwise="
           f"{np.array_equal(gd, cd) and np.array_equal(gf, cf)}", flush=True)
+
+
+def lorentz_plan_phase(torch, F, dev, seed, compare, card, times):
+    """Phase: fused_transport against the twin on the six ``lorentz_plans``
+    at 2**20 slots x 256 iterations over the growing-dt schedule, each
+    timed with its counted bound."""
+    C, K = 1 << 20, 256
+    phase(f"fused_transport vs twin on the Lorentz and mixed plans (2**20 "
+          f"slots, {K} iterations)")
+    for i, (name, (plan, photons)) in enumerate(lorentz_plans(F, K).items()):
+        check(plan.kernel_variant & 8, f"{name}: not the mixed variant")
+        pk, sched, starts = lorentz_inputs(torch, plan, photons, C, K,
+                                           dev, 40 + i)
+        plain_ms = compare(name, pk, sched, K, plan, starts, "lorentz",
+                           need_bitwise=True)
+        out = torch.empty_like(pk)
+        rec, _ = F.fused_transport(pk, out, sched, seed, K, plan,
+                                   emit_starts=starts)
+        if name == "mixed":  # pure B: the charges keep their speeds
+            ch = (pk[15] == 0) & (pk[13] > 0)
+            s0 = torch.linalg.vector_norm(pk[6:9, ch].double(), dim=0)
+            s1 = torch.linalg.vector_norm(out[6:9, ch].double(), dim=0)
+            check(float((s1 / s0 - 1).abs().max()) < 3e-5,
+                  "mixed: charge speeds drifted in pure B")
+        ms = cuda_ms(lambda: F.fused_transport(pk, out, sched, seed, K, plan,
+                                               emit_starts=starts), 5, torch)
+        events = expected_events(plan, pk, float(rec[:K, 0].double().sum()),
+                                 0.001)
+        b_ms, b_by = transport_bound(plan, C, K, starts, events)
+        times[name] = ms
+        print(f"{name} at 2**20 x {K}: kernel {ms:.3f} ms, twin "
+              f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}) [{card}]",
+              flush=True)
+        del pk, out
+
+
+LOR_DT = 1e-3
+LOR_CHUNK = 256          # run_all.py:27, steady_rate's chunk
+EXB_N = 10_000_000       # run_all.py:530-543 lorentz_boris_exb_1e7
+EXB_E, EXB_B, EXB_V0 = 4.0, 200.0, 1.0
+MIX_N = 10_000_000       # run_all.py:549-566 mixed_species_1e7
+MIX_ITERS = 4 * LOR_CHUNK
+TILE_N = 10_000_000      # the record-tile plan
+TILE_ITERS = 2 * 984
+
+
+def exb_iterations():
+    """Iterations of the ExB run: within its 3rd and 4th chunk, the count
+    whose discrete gyro-phase n * 2 atan(h B) lies nearest a whole number of
+    turns, so that the mean velocity over them is the drift."""
+    theta = 2.0 * np.arctan(0.5 * EXB_B * LOR_DT)
+    n = np.arange(3 * LOR_CHUNK + 1, 4 * LOR_CHUNK + 1)
+    return int(n[np.argmin(np.abs(np.sin(n * theta / 2)))])
+
+
+def boris64(n):
+    """Velocity and position of one ExB particle after n Boris pushes and
+    kinematic steps in float64 on the host."""
+    E, B = np.array([EXB_E, 0.0, 0.0]), np.array([0.0, 0.0, EXB_B])
+    h = 0.5 * LOR_DT
+    t = h * B
+    s = 2.0 / (1.0 + t @ t)
+    v, r = np.array([EXB_V0, 0.0, 0.0]), np.zeros(3)
+    for _ in range(n):
+        v = v + h * E
+        vp = v + np.cross(v, t)
+        v = v + s * np.cross(vp, t) + h * E
+        r = r + v * LOR_DT
+    return v, r
+
+
+def lorentz_sim(phys, case, n, dev, iters, seed=0):
+    """run_all.py's lorentz_boris_exb_1e7 ("exb": n particles from the
+    origin at v = (1, 0, 0) in E = (4, 0, 0), B = (0, 0, 200), q/m = 1, a
+    sign tally) and mixed_species_1e7 ("mixed": n / 2 photons with isotropic
+    scattering and absorption and n / 2 charges at v = (1, 0, 0) pushed by
+    B alone); chunks of 256, ``iters`` iterations. Returns ``(sim, sign
+    tally)``."""
+    light, newton = phys.light, phys.newton
+    sim = phys.Simulation(until_t=(iters - 0.5) * LOR_DT, seed=seed,
+                          chunk_steps=LOR_CHUNK, device=dev)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(LOR_DT)))
+    if case == "exb":
+        sim.add_step(1, newton.LorentzForceStep(
+            E_field=(EXB_E, 0.0, 0.0), B_field=(0.0, 0.0, EXB_B),
+            q_over_m=1.0))
+        sim.add_step(2, newton.NewtonianKinematicsStep())
+        sign = light.ScatterSignMeasureStep(None, True)
+        sim.add_step(3, sign)
+        sim.add_particles(newton.generate_particle_state(
+            n, v=(EXB_V0, 0.0, 0.0), device=dev))
+        return sim, sign
+    sim.add_step(1, newton.LorentzForceStep(B_field=(0.0, 0.0, EXB_B),
+                                            q_over_m=1.0))
+    sim.add_step(2, newton.NewtonianKinematicsStep())
+    sim.add_step(3, light.ScatterIsotropicStep(A=np.double(0.001),
+                                               n=np.double(0.001)))
+    sim.add_step(4, light.ScatterDeleteStep(np.double(1e-9),
+                                            np.double(1e-9)))
+    sign = light.ScatterSignMeasureStep(None, True)
+    sim.add_step(5, sign)
+    sim.add_photons(light.generate_photon_state(n // 2, E=1.0, device=dev))
+    sim.add_particles(newton.generate_particle_state(
+        n // 2, v=(EXB_V0, 0.0, 0.0), device=dev))
+    return sim, sign
+
+
+def tile_sim(phys, n, dev, iters, seed=3):
+    """The record-tile plan: n photons in isotropic directions from a cube
+    of 3000 c dt (so that they cross the planes near its centre in every
+    chunk), isotropic scattering (A n c dt = 1e-3), a weighted sign
+    tally and a weighted two-plane tally with energy sums: 3 int and 7
+    float record columns, whose tiles hold the chunk to 984 iterations.
+    Returns ``(sim, sign, planes)``."""
+    import torch
+
+    light = phys.light
+    c_dt = float(light.c) * LOR_DT
+    sim = phys.Simulation(until_t=(iters - 0.5) * LOR_DT, seed=seed,
+                          device=dev)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(LOR_DT)))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    sim.add_step(2, light.ScatterIsotropicStep(A=0.001 / c_dt, n=1.0))
+    sign = light.ScatterSignMeasureStep(None, True, weighted=True)
+    sim.add_step(3, sign)
+    planes = light.ScatterMeasureStep(
+        None, True, [(0.37 * c_dt, np.nan, np.nan),
+                     (np.nan, -0.61 * c_dt, np.nan)], weighted=True,
+        measure_E=True, measure_E_mode="sum")
+    sim.add_step(4, planes)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = (torch.rand((3, n), generator=gen, device=dev) - 0.5) * 3000 * c_dt
+    sim.add_photons(light.generate_photon_state(
+        n, E=1.0, r=r, v=isotropic_v(torch, n, float(light.c), gen, dev),
+        device=dev))
+    return sim, sign, planes
+
+
+def lorentz_runs(torch, phys, F, dev, card, xft, mft, tft):
+    """Phase: the ExB, mixed and record-tile paths through Simulation at
+    10**7 particles (ExB and mixed run twice, the second profiled for the
+    idle share); returns each first run's launches."""
+    dev = torch.device(dev)
+    out = {}
+    n_exb = exb_iterations()
+    cases = (("exb", EXB_N, n_exb, xft), ("mixed", MIX_N, MIX_ITERS, mft))
+    for case, n, iters, ft in cases:
+        phase(f"{case} path: {n} particles, {iters} iterations in chunks of "
+              f"{LOR_CHUNK}")
+
+        def run(profile):
+            F.fused_transport.launches = 0
+            sim, sign = lorentz_sim(phys, case, n, dev, iters)
+            wall, prof, peak = run_sim(torch, sim, profile)
+            return sim, sign, wall, prof, peak, F.fused_transport.launches
+
+        sim, sign, wall, _, peak, launches = run(False)
+        print(sim.explain_plan())
+        chunks = [k for _, k, _ in sim.chunk_log]
+        check(sim.used_fused and launches >= 4 and len(sim.ts) == iters
+              and chunks[:3] == [LOR_CHUNK] * 3,
+              f"{case}: launches {launches}, chunks {chunks}")
+        st = sim.sim_state
+        alive = st.alive[:n]
+        v, r = st.v[:, :n], st.r[:, :n]
+        data = np.asarray(sign.data)
+        if case == "exb":
+            check(bool(alive.all()) and bool((data[:, 1] == n).all()),
+                  "exb: particles lost")
+            same = bool((v == v[:, :1]).all() and (r == r[:, :1]).all())
+            check(same, "exb: the lanes differ from each other")
+            v64, r64 = boris64(iters)
+            v32 = v[:, 0].double().cpu().numpy()
+            v_err = float(np.linalg.norm(v32 - v64) / np.linalg.norm(v64))
+            mean = r[:, 0].double().cpu().numpy() / (iters * LOR_DT)
+            drift = np.array([0.0, -EXB_E / EXB_B, 0.0])
+            d_err = float(np.abs(mean - drift).max() / (EXB_E / EXB_B))
+            check(v_err < 1e-4 and d_err < 0.01,
+                  f"exb: v off float64 Boris by {v_err:.2e}, mean velocity "
+                  f"off the ExB drift by {d_err:.2e}")
+            what = (f"all {n} lanes bitwise equal; v = {v32.tolist()} "
+                    f"against float64 Boris within {v_err:.2e}; mean "
+                    f"velocity over {iters} steps (whole gyro-turns) "
+                    f"{mean.tolist()} against ExB drift (0, -0.02, 0) within "
+                    f"{d_err:.2e} of |drift|")
+        else:
+            ph = st.otype[:n] == 1
+            k = np.arange(1, iters + 1)
+            # the kill test pcoll >= u on a 24-bit uniform u: a photon dies
+            # with (floor(pcoll 2**24) + 1) 2**-24, so at least 2**-24 (u =
+            # 0) where pcoll = A n c dt is 3e-13
+            p = (np.floor(1e-18 * C_LIGHT * LOR_DT * 2 ** 24) + 1) * 2.0 ** -24
+            expect = (n // 2) * (1 - p) ** k + n // 2
+            sigma = np.sqrt((n // 2) * (1 - (1 - p) ** k) * (1 - p) ** k)
+            z = float(np.max(np.abs(data[:, 1] - expect)
+                             / np.maximum(sigma, 1.0)))
+            charged = int((alive & ~ph).sum())
+            sp_ch = torch.linalg.vector_norm(v[:, alive & ~ph].double(),
+                                             dim=0)
+            sp_ph = torch.linalg.vector_norm(v[:, alive & ph].double(),
+                                             dim=0)
+            e_ch = float((sp_ch / EXB_V0 - 1).abs().max())
+            e_ph = float((sp_ph / C_LIGHT - 1).abs().max())
+            check(z <= 5 and charged == n // 2 and e_ch < 3e-5
+                  and e_ph < 1e-6,
+                  f"mixed: survivors {z:.2f} sigma off (1 - p)**k, "
+                  f"{charged} charges alive, speeds off by {e_ch:.2e} "
+                  f"(charges) and {e_ph:.2e} (photons)")
+            what = (f"survivors within {z:.2f} sigma of (1 - p)**k; all "
+                    f"{charged} charges alive, |v| = 1 within {e_ch:.2e}; "
+                    f"photons |v| = c within {e_ph:.2e}")
+        rate, steady_s = steady_rate(sim, np.full(len(sim.ts), n))
+        print(f"{case} path: {len(sim.ts)} iterations in chunks {chunks}, "
+              f"fused_transport launches {launches}; {what}")
+        print(f"{case} path rate: {rate:.4e} particle-steps/s over the "
+              f"dispatch loop after the first chunk, device clock "
+              f"({steady_s * 1e3:.1f} ms); {n * len(sim.ts) / wall:.4e} from "
+              f"start() ({wall:.3f} s wall); set-up {sim.setup_seconds:.3f} "
+              f"s; peak memory {peak / 2 ** 30:.2f} GiB; kernel "
+              f"{ft['ms']:.2f} ms per chunk against a bound of "
+              f"{ft['bound_ms']:.2f} ms ({ft['bound_by']}) [{card}]",
+              flush=True)
+        out[case] = {"fused_launches": launches}
+        del sim, st, alive, v, r
+        sim2, _, _, prof, _, _ = run(True)
+        busy, span = device_busy(prof, torch)
+        print(f"{case} path device idle share (profiled second run, first to "
+              f"last fused_transport kernel): {1 - busy / span:.4f} "
+              f"({busy:.1f} ms busy of {span:.1f} ms) [{card}]", flush=True)
+        del sim2, prof
+
+    phase(f"record-tile path: {TILE_N} photons, {TILE_ITERS} iterations")
+    F.fused_transport.launches = 0
+    sim, sign, planes = tile_sim(phys, TILE_N, dev, TILE_ITERS)
+    wall, _, peak = run_sim(torch, sim)
+    launches = F.fused_transport.launches
+    text = sim.explain_plan()
+    print(text)
+    chunks = [k for _, k, _ in sim.chunk_log]
+    rows = np.asarray(planes.data, np.float64)
+    check(sim.used_fused and chunks[:2] == [984, 984] and launches >= 2
+          and "chunk 984: float record tiles" in text
+          and rows.shape == (TILE_ITERS, 6) and np.isfinite(rows).all()
+          and rows[:, 2].sum() > 0 and rows[984:, 4].sum() > 0,
+          f"record-tile path: chunks {chunks}, launches {launches}, "
+          f"records {rows.shape}")
+    print(f"record-tile path: chunks {chunks} (clamped from 1024), "
+          f"fused_transport launches {launches}; plane weight sums "
+          f"{rows[:, 2].sum():.6e} and {rows[:, 4].sum():.6e}; "
+          f"{TILE_N * len(sim.ts) / wall:.4e} photon-steps/s from start() "
+          f"({wall:.3f} s wall); peak memory {peak / 2 ** 30:.2f} GiB; "
+          f"kernel {tft['ms']:.2f} ms per chunk against a bound of "
+          f"{tft['bound_ms']:.2f} ms ({tft['bound_by']}) [{card}]",
+          flush=True)
+    out["tile"] = {"fused_launches": launches}
+    return out
 
 
 def record_chain(C, grid_blocks):

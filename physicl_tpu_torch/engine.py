@@ -27,7 +27,8 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from physicl_tpu_torch.state import SimState, pad_capacity
+from physicl_tpu_torch.state import (OBJ_GENERIC, OBJ_PHOTON, SimState,
+                                     pad_capacity)
 from physicl_tpu_torch.units import Measurement, raw_code_value
 
 __all__ = ["Step", "UpdateTimeStep", "MeasureStep", "Object", "Simulation",
@@ -343,6 +344,14 @@ class Simulation(threading.Thread):
             _not_ported("mid-run add_photons (population maintenance)")
         self._pending_bulk.append(bulk)
 
+    def add_particles(self, bulk: Dict[str, Any]) -> None:
+        """Add any bulk population dict: photons
+        (:func:`physicl_tpu_torch.light.generate_photon_state`) or massive
+        and charged particles
+        (:func:`physicl_tpu_torch.newton.generate_particle_state`); its
+        ``otype`` key carries the species. Alias of :meth:`add_photons`."""
+        self.add_photons(bulk)
+
     def remove_obj(self, obj: Object) -> None:
         if self.running:
             _not_ported("mid-run remove_obj (population maintenance)")
@@ -423,16 +432,23 @@ class Simulation(threading.Thread):
         from physicl_tpu_torch.ops.pipeline import try_build_fused
 
         provider = try_build_fused(self, steps, state)
+        plan = provider.plan
+        notes = [f"device: {self.device}",
+                 "population species: " + {
+                     OBJ_PHOTON: "photon", OBJ_GENERIC: "generic"}.get(
+                         plan.species, "mixed (otype-plane dispatch)"),
+                 "const-norm |dr| = c*dt: "
+                 + ("on" if plan.const_norm_speed is not None else "off")]
+        if plan.extras:
+            notes.append("packed per-particle planes: 15 core + "
+                         + " + ".join(plan.extras))
         self.plan_report = PlanReport(
-            mode="fused", chunk=provider.plan.chunk, fuse_setting=self.fuse,
+            mode="fused", chunk=plan.chunk, fuse_setting=self.fuse,
             allow_fuse=True,
             exit_tier=("t-schedule (exit iteration precomputed on host)"
                        if provider.exit_mode == "t"
                        else "extinction (in-kernel alive count)"),
-            notes=[f"device: {self.device}",
-                   "const-norm |dr| = c*dt: "
-                   + ("on" if provider.plan.const_norm_speed is not None
-                      else "off")])
+            notes=notes + provider.notes)
         return provider
 
     def explain_plan(self) -> str:

@@ -75,7 +75,7 @@ class PlanStruct(ctypes.Structure):
                 ("n_ops", _ci), ("n_cols", _ci), ("n_fcols", _ci),
                 ("const_norm", _ci), ("const_speed", _cf),
                 ("n_stream", _ci), ("stream_every", _ci),
-                ("stream_bf16", _ci)]
+                ("stream_bf16", _ci), ("n_extras", _ci), ("otype_x", _ci)]
 
 
 def _nvcc() -> str:
@@ -109,8 +109,8 @@ def _bind(libs) -> None:
                                         ctypes.POINTER(ci)]
     ft.fused_transport_launch.restype = ci
     ft.fused_transport_launch.argtypes = [
-        vp, vp, ll, vp, vp, ci, vp, ci, ctypes.c_uint,
-        ctypes.POINTER(PlanStruct), ci, vp, vp, vp, vp, ci, ci, vp]
+        vp, vp, ll, vp, ci, vp, ci, vp, ci, ctypes.c_uint,
+        ctypes.POINTER(PlanStruct), ci, ci, vp, vp, vp, vp, ci, ci, vp]
     pg = libs["planck_gen"]
     pg.planck_gen_launch.restype = ci
     pg.planck_gen_launch.argtypes = [vp, ll, ctypes.c_uint, vp, cf, vp]

@@ -8,9 +8,12 @@ and the deposition tally), ``sign`` (counts or weight sums), ``emit``,
 ``cross`` (with per-photon energy capture), ``absorb``, ``reflect``,
 ``periodic``, ``sabsorb``, ``scross``, ``trace``, the rotation family
 ``hg``, ``rayl``, ``phase`` and ``compton`` (cold and thermal electrons,
-the Klein-Nishina recoil and its heating tally), ``fresnel`` and the
-column-0 alive count. One chunk runs ``k_act`` whole
-simulation iterations over a packed ``(15, C)`` float32 state and returns
+the Klein-Nishina recoil and its heating tally), ``fresnel``, the Boris
+push ``lorentz`` and the column-0 alive count. One chunk runs ``k_act``
+whole simulation iterations over a packed ``(15 + n_extras, C)`` float32
+state (the core planes, then the plan's extras: the derived ``qm`` plane,
+the ``otype`` plane of a mixed population, whose photon ops act only on
+its photons) and returns
 per-iteration int32 and float32 record rows ``(chunk, 128)`` each, and,
 for plans with stream planes (``trace`` positions, captured energies), a
 ``(ceil(chunk / stream_every), n_stream, C)`` stream buffer: row ``m``
@@ -43,13 +46,15 @@ import torch
 
 from physicl_tpu_torch.ops import fields as FL
 from physicl_tpu_torch.ops.planck import poly_icdf_reference
-from physicl_tpu_torch.state import SimState, mod_floor
+from physicl_tpu_torch.state import OBJ_PHOTON, SimState, mod_floor
 
 # Field planes in the packed (NF, C) state array (same order as the JAX
 # package, so packed states compare plane by plane).
 (_RX, _RY, _RZ, _DRX, _DRY, _DRZ, _VX, _VY, _VZ, _DVX, _DVY, _DVZ, _E,
  _ALIVE, _W) = range(15)
 _NF = 15
+# FusedPlan.species of a population that mixes photons with other particles
+SPECIES_MIXED = -1
 
 _LANE = 128
 _MAX_REC_COLS = 128
@@ -59,13 +64,14 @@ _MASK = 0xFFFFFFFF
 OP_CODES = {"kin": 0, "del": 1, "iso": 2, "sign": 3, "emit": 4, "cross": 5,
             "absorb": 6, "reflect": 7, "periodic": 8, "sabsorb": 9,
             "scross": 10, "trace": 11, "hg": 12, "rayl": 13, "phase": 14,
-            "compton": 15, "fresnel": 16}
+            "compton": 15, "fresnel": 16, "lorentz": 17}
 # ops only the kernel's geometry/stream instantiation carries (codes 7-11)
 _EXT_OPS = ("reflect", "periodic", "sabsorb", "scross", "trace")
-# ops only the kernel's rotation instantiation carries (codes >= 12), which
+# ops only the kernel's rotation instantiation carries (codes 12-16), which
 # also runs the "del" variants (exponential transform, fluorescence)
 _ROT_OPS = ("hg", "rayl", "phase", "compton", "fresnel")
 MAX_OPS = 16
+MAX_EXTRAS = 8    # extras planes (1h's Stokes and frame rows, otype, qm)
 MAX_AXES = 16     # crossing planes over all cross ops of a plan
 MAX_FIELDS = 8    # distinct field callables of a plan
 _NAN = float("nan")
@@ -132,6 +138,15 @@ class _Op:
     # fresnel: (axis, loc, n_lo, n_hi, match_speed); c_val is c for the
     # c / n outgoing speeds of match_speed
     iface: tuple = ()
+    # lorentz: a species-wide q/m, or (qm_plane >= 0) the packed plane of
+    # per-particle q/m; constant fields as 3-tuples (() = none); the dt of
+    # the step's place: after the UpdateTimeStep (sched row 3) or before it
+    # (row 4)
+    qm: float = 0.0
+    qm_plane: int = -1
+    e_const: tuple = ()
+    b_const: tuple = ()
+    after_update: bool = True
 
 
 @dataclasses.dataclass
@@ -156,6 +171,13 @@ class FusedPlan:
     n_stream: int = 0
     stream_every: int = 1
     stream_dtype: str = "float32"
+    # the population the prover saw: OBJ_PHOTON, OBJ_GENERIC or
+    # SPECIES_MIXED (photon ops gated per particle by the "otype" plane)
+    species: int = OBJ_PHOTON
+    # planes packed after the core 15 (pack_state's names: "qm", "otype",
+    # "name:i" rows of a 3-row extras array); the kernel keeps them
+    # read-only except in the slots an emit op fills
+    extras: tuple = ()
     # the kernel's plan struct and the per-device fit tables, built once
     _cache: dict = dataclasses.field(default_factory=dict, repr=False,
                                      compare=False)
@@ -173,14 +195,24 @@ class FusedPlan:
 
     @property
     def kernel_variant(self) -> int:
-        """The kernel instantiation the plan runs (``fused_transport_grid``'s
-        ``variant``): bit 0, field code; bit 1, the geometry ops and stream
+        """The kernel instantiation the plan runs (the ``variant`` that
+        ``fused_transport_grid`` and ``fused_transport_launch`` take; the
+        kernel compiles each op's code only into the instantiations whose
+        bit it needs): bit 0, field code; bit 1, the geometry ops and stream
         stores of ``_EXT_OPS``; bit 2, the rotation family of ``_ROT_OPS``
-        and the ``del`` variants (exponential transform, fluorescence)."""
+        and the ``del`` variants (exponential transform, fluorescence); bit
+        3, the ``lorentz`` op and the extras planes (the otype gate)."""
         ext = self.n_stream or any(op.kind in _EXT_OPS for op in self.ops)
         rot = any(op.kind in _ROT_OPS or op.stretch or op.fluor
                   for op in self.ops)
-        return int(self.has_fields) | (2 if ext else 0) | (4 if rot else 0)
+        mix = self.extras or any(op.kind == "lorentz" for op in self.ops)
+        return (int(self.has_fields) | (2 if ext else 0) | (4 if rot else 0)
+                | (8 if mix else 0))
+
+    @property
+    def n_planes(self) -> int:
+        """Rows of the packed state: the 15 core planes and the extras."""
+        return _NF + len(self.extras)
 
     @property
     def n_stream_rows(self) -> int:
@@ -397,6 +429,17 @@ def _check_plan(plan: FusedPlan) -> None:
     if len(plan.ops) > MAX_OPS:
         raise ValueError(f"{len(plan.ops)} fused ops exceed the kernel's "
                          f"{MAX_OPS}")
+    if len(plan.extras) > MAX_EXTRAS:
+        raise ValueError(f"{len(plan.extras)} extras planes exceed the "
+                         f"kernel's {MAX_EXTRAS}")
+    if (plan.species == SPECIES_MIXED) != ("otype" in plan.extras):
+        raise ValueError("a mixed plan, and only a mixed plan, packs the "
+                         "otype plane")
+    for op in plan.ops:
+        if op.kind == "lorentz" and not (
+                op.qm_plane < 0 or _NF <= op.qm_plane < plan.n_planes):
+            raise ValueError(f"lorentz reads plane {op.qm_plane} of "
+                             f"{plan.n_planes}")
     if sum(len(op.axes) for op in plan.ops) > MAX_AXES:
         raise ValueError(f"crossing planes exceed the kernel's {MAX_AXES}")
     specs, _ = plan_fields(plan.ops)
@@ -463,8 +506,14 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
     starts = _emit_rows(emit_starts, plan)
     dev = packed.device
     C = packed.shape[1]
-    f = [packed[i].clone() for i in range(_NF)]
-    dts = sched[0].to(device=dev, dtype=torch.float32)
+    f = [packed[i].clone() for i in range(plan.n_planes)]
+    # dt at kinematics, after and before the UpdateTimeStep (sched rows 0,
+    # 3, 4)
+    dts, dts_after, dts_before = (sched[i].to(device=dev,
+                                              dtype=torch.float32)
+                                  for i in (0, 3, 4))
+    p_otype = (_NF + plan.extras.index("otype")
+               if plan.species == SPECIES_MIXED else -1)
     rec = torch.zeros((plan.chunk, _MAX_REC_COLS), dtype=torch.int32,
                       device=dev)
     rec_f = torch.zeros((plan.chunk, _MAX_REC_COLS), dtype=torch.float32,
@@ -509,6 +558,12 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
         alive = f[_ALIVE] > 0
         sample = stream is not None and k % every == 0
         planes = [None] * plan.n_stream
+        # the photons of a mixed population (None: every slot's species is
+        # the plan's)
+        is_ph = None if p_otype < 0 else f[p_otype] == OBJ_PHOTON
+
+        def ph_alive():
+            return alive if is_ph is None else alive & is_ph
 
         def dr_norm():
             if speed is not None:
@@ -535,14 +590,15 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                 if op.implicit_capture:
                     # survival biasing: deterministic weight decay, a draw
                     # only for roulette
+                    sel = ph_alive()
                     p = pcoll.clamp(0.0, 1.0)
                     if op.cols:  # deposited energy: exact expectation
-                        rec_f[k, op.cols[0]] = fsum(alive, f[_W] * p * f[_E])
-                    f[_W] = torch.where(alive, f[_W] * (one - p), f[_W])
+                        rec_f[k, op.cols[0]] = fsum(sel, f[_W] * p * f[_E])
+                    f[_W] = torch.where(sel, f[_W] * (one - p), f[_W])
                     if op.roulette:
                         w_min, w_sur = roul
                         u = rng.uniform()
-                        low = alive & (f[_W] < w_min)
+                        low = sel & (f[_W] < w_min)
                         kill = low & (u * w_sur >= f[_W])
                         f[_W] = torch.where(low & ~kill, w_sur, f[_W])
                         alive = alive & ~kill
@@ -551,6 +607,7 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                     # exponential transform: the kill biased by the
                     # direction cosine, survivors carry the likelihood ratio
                     u = rng.uniform()
+                    sel = ph_alive()
                     tiny = _f32(1e-30).to(dev)
                     b, sx, sy, sz = (_c32(x) for x in op.stretch)
                     mu = ((f[_DRX] * sx + f[_DRY] * sy + f[_DRZ] * sz)
@@ -563,9 +620,9 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                         p_true < 1.0,
                         torch.minimum(p_bias, _f32(7.0 / 8.0).to(dev)),
                         p_bias)
-                    hit = (p_bias >= u) & alive
+                    hit = (p_bias >= u) & sel
                     ratio = (1.0 - p_true) / torch.maximum(1.0 - p_bias, tiny)
-                    f[_W] = torch.where(alive & ~hit, f[_W] * ratio, f[_W])
+                    f[_W] = torch.where(sel & ~hit, f[_W] * ratio, f[_W])
                     if op.cols:  # killed photons deposit w E p / p'
                         rec_f[k, op.cols[0]] = fsum(
                             hit, f[_W] * f[_E]
@@ -576,7 +633,7 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                     # fluorescence: an absorbed photon above the edge is
                     # re-emitted at the line energy with probability Y
                     u = rng.uniform()
-                    hit = (pcoll >= u) & alive
+                    hit = (pcoll >= u) & ph_alive()
                     Y, E_f, E_edge = (_c32(x) for x in op.fluor)
                     y = rng.uniform()
                     cu, au = rng.uniform_pair()
@@ -609,7 +666,7 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                     f[_ALIVE] = alive.to(torch.float32)
                 else:
                     u = rng.uniform()
-                    hit = (pcoll >= u) & alive
+                    hit = (pcoll >= u) & ph_alive()
                     if op.cols:  # deposited energy: killed photons' w*E
                         rec_f[k, op.cols[0]] = fsum(hit, f[_W] * f[_E])
                     alive = alive & ~hit
@@ -681,7 +738,7 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                     pcoll = pcoll * (b2 * b2)
                 u = rng.uniform()
                 tu, pu = rng.uniform_pair()
-                scatter = (pcoll >= u) & alive
+                scatter = (pcoll >= u) & ph_alive()
                 vnew = direction(c_val, tu, pu)
                 for d in range(3):
                     old = f[_VX + d]
@@ -706,7 +763,7 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                 pcoll = pcoll * flux
                 if op.kn_xsec:
                     pcoll = pcoll * lt._kn_sigma_ratio(alpha1, fast=True)
-                scatter = (pcoll >= u) & alive & kn_ok
+                scatter = (pcoll >= u) & ph_alive() & kn_ok
                 for d in range(3):
                     old = f[_VX + d]
                     vn = n_new[d] * c_val
@@ -736,11 +793,11 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                     pu = rng.uniform()
                     cos_t, eta, kn_ok = _kn_cos_eta_fused(alpha, rng,
                                                           op.kn_tries)
-                    scatter = (pcoll >= u) & alive & kn_ok
+                    scatter = (pcoll >= u) & ph_alive() & kn_ok
                 else:
                     u = rng.uniform()
                     cu, pu = rng.uniform_pair()
-                    scatter = (pcoll >= u) & alive
+                    scatter = (pcoll >= u) & ph_alive()
                 if op.kind == "phase":
                     cos_t = lt.phase_icdf(cu, *op.phase_knots).clamp(-1.0,
                                                                     1.0)
@@ -793,7 +850,7 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                 z1 = f[_RX + ax]
                 z0 = z1 - f[_DRX + ax]
                 side0 = z0 >= loc
-                crossed = (side0 != (z1 >= loc)) & alive
+                crossed = (side0 != (z1 >= loc)) & ph_alive()
                 inv_speed = _rsqrt_max(f[_VX] * f[_VX] + f[_VY] * f[_VY]
                                        + f[_VZ] * f[_VZ])
                 dd = [f[_VX + i] * inv_speed for i in range(3)]
@@ -834,6 +891,35 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                                               f[_DRX + i])
                     f[_VX + i] = torch.where(crossed, d_out * speed_out,
                                              f[_VX + i])
+            elif op.kind == "lorentz":
+                # the Boris push: half E kick, exact B rotation, half E kick
+                dt_l = dts_after[k] if op.after_update else dts_before[k]
+                if op.qm_plane >= 0:
+                    h = f[op.qm_plane] * (_f32(0.5).to(dev) * dt_l)
+                else:
+                    h = _f32(0.5 * op.qm).to(dev) * dt_l
+                v = [f[_VX], f[_VY], f[_VZ]]
+                if op.e_const:
+                    ev = [_f32(x).to(dev) * h for x in op.e_const]
+                    v = [v[d] + ev[d] for d in range(3)]
+                if op.b_const:
+                    tx, ty, tz = (_f32(x).to(dev) * h for x in op.b_const)
+                    vx, vy, vz = v
+                    vpx = vx + (vy * tz - vz * ty)
+                    vpy = vy + (vz * tx - vx * tz)
+                    vpz = vz + (vx * ty - vy * tx)
+                    s2 = 2.0 / (1.0 + tx * tx + ty * ty + tz * tz)
+                    v = [vx + s2 * (vpy * tz - vpz * ty),
+                         vy + s2 * (vpz * tx - vpx * tz),
+                         vz + s2 * (vpx * ty - vpy * tx)]
+                if op.e_const:
+                    v = [v[d] + ev[d] for d in range(3)]
+                # alive non-photons; a photon keeps v and gets dv = 0
+                push = alive if is_ph is None else alive & ~is_ph
+                for d in range(3):
+                    new = torch.where(push, v[d], f[_VX + d])
+                    f[_DVX + d] = new - f[_VX + d]
+                    f[_VX + d] = new
             elif op.kind == "sign":
                 n_col, sx_col = op.cols
                 if n_col >= 0:
@@ -866,6 +952,15 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                 for d in range(3):
                     f[_VX + d] = torch.where(mask, vnew[d], f[_VX + d])
                 f[_W] = torch.where(mask, 1.0, f[_W])
+                # fresh photons: zeroed extras, and photons in the otype
+                # plane, so that this chunk's photon ops see them
+                for j, name in enumerate(plan.extras):
+                    if name != "otype":
+                        f[_NF + j] = torch.where(mask, 0.0, f[_NF + j])
+                if p_otype >= 0:
+                    f[p_otype] = torch.where(mask, float(OBJ_PHOTON),
+                                             f[p_otype])
+                    is_ph = f[p_otype] == OBJ_PHOTON
                 alive = alive | mask
                 f[_ALIVE] = alive.to(torch.float32)
             elif op.kind == "cross":
@@ -970,6 +1065,16 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
             o.box[:3] = [loc, n_lo, n_hi]
         elif op.kind == "sign":
             o.flag = int(op.weighted)
+        elif op.kind == "lorentz":
+            # LorentzFlag: E 1, B 2, the dt after the update 4; the
+            # species-wide 0.5 q/m rounded to float32 (jnp.float32(0.5 *
+            # qm)), or the q/m plane's index among the extras
+            o.flag = (int(bool(op.e_const)) | 2 * int(bool(op.b_const))
+                      | 4 * int(op.after_update))
+            o.coef = 0.5 * op.qm
+            o.col0 = op.qm_plane - _NF if op.qm_plane >= 0 else -1
+            o.box[:] = [float(x) for x in (op.e_const or (0.0,) * 3)
+                        + (op.b_const or (0.0,) * 3)]
         elif op.kind in ("absorb", "reflect", "periodic"):
             o.box[:] = [float(x) for lohi in op.bounds for x in lohi]
         elif op.kind in ("sabsorb", "scross"):
@@ -1010,6 +1115,9 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
     ps.const_speed = plan.const_norm_speed or 0.0
     ps.n_stream, ps.stream_every = plan.n_stream, plan.stream_every
     ps.stream_bf16 = int(plan.stream_dtype == "bfloat16")
+    ps.n_extras = len(plan.extras)
+    ps.otype_x = (plan.extras.index("otype")
+                  if plan.species == SPECIES_MIXED else -1)
     # once per plan and device: no copy on the dispatch path
     aux = (torch.from_numpy(np.concatenate(aux).astype(np.float32)).to(dev)
            if aux else None)
@@ -1022,8 +1130,12 @@ def fused_transport(packed: torch.Tensor, out: torch.Tensor,
                     plan: FusedPlan, emit_starts: torch.Tensor | None = None):
     """Launch ``csrc/fused_transport.cu`` on CUDA tensors: ``k_act``
     iterations of ``plan`` from ``packed`` into ``out`` (which may be
-    ``packed`` itself). ``emit_starts`` is the ``(n_emit, chunk)`` int32
-    emit schedule on the same device (plans with emit ops only). Returns
+    ``packed`` itself; out of place, the extras planes are copied over
+    first, since the kernel writes them only for the slots an emit op
+    fills). ``sched`` is the ``(5, >= chunk)`` schedule (row 0 the dt at
+    kinematics, rows 3 and 4 the dt after and before the UpdateTimeStep).
+    ``emit_starts`` is the ``(n_emit, chunk)`` int32 emit schedule on the
+    same device (plans with emit ops only). Returns
     ``(rec, rec_f)``, and for plans with stream planes ``(rec, rec_f,
     stream)`` with a fresh stream buffer (the kernel writes every row, NaN
     at and past ``ceil(k_act / stream_every)``). Raises on a CPU tensor, a
@@ -1038,15 +1150,17 @@ def fused_transport(packed: torch.Tensor, out: torch.Tensor,
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"fused_transport: {name} must be contiguous "
                              "float32")
-    if packed.shape != out.shape or packed.shape[0] != _NF:
-        raise ValueError(f"fused_transport: packed/out must be ({_NF}, C), "
-                         f"got {tuple(packed.shape)} / {tuple(out.shape)}")
+    if packed.shape != out.shape or packed.shape[0] != plan.n_planes:
+        raise ValueError(f"fused_transport: packed/out must be "
+                         f"({plan.n_planes}, C), got {tuple(packed.shape)} "
+                         f"/ {tuple(out.shape)}")
     if packed.shape[1] % _LANE:
         raise ValueError("fused_transport: capacity must be a multiple of "
                          f"{_LANE}")
-    if not 0 <= int(k_act) <= plan.chunk <= sched.shape[1]:
+    if not 0 <= int(k_act) <= plan.chunk <= sched.shape[1] \
+            or sched.shape[0] < 5:
         raise ValueError("fused_transport: need 0 <= k_act <= chunk <= "
-                         "sched width")
+                         "sched width and 5 sched rows")
     dev = packed.device
     starts_ptr, stride = 0, 0
     if plan.n_emit:
@@ -1071,19 +1185,22 @@ def fused_transport(packed: torch.Tensor, out: torch.Tensor,
         # fresh per launch: trace steps keep earlier chunks' buffers
         stream = torch.empty((plan.n_stream_rows, plan.n_stream, C),
                              dtype=plan.stream_torch_dtype, device=dev)
-    dt_row = sched[0].contiguous()
+    if plan.extras and out.data_ptr() != packed.data_ptr():
+        out[_NF:].copy_(packed[_NF:])
+    variant = plan.kernel_variant
     with torch.cuda.device(dev):
         grid = ctypes.c_int(0)
         _build.check(lib.fused_transport_grid(
-            C, k_act, plan.n_rec_cols, plan.n_frec_cols,
-            plan.kernel_variant, ctypes.byref(grid)),
+            C, k_act, plan.n_rec_cols, plan.n_frec_cols, variant,
+            ctypes.byref(grid)),
             "fused_transport occupancy query")
         partials = torch.empty(max(1, grid.value * k_act * plan.n_frec_cols),
                                dtype=torch.float32, device=dev)
         err = lib.fused_transport_launch(
-            packed.data_ptr(), out.data_ptr(), C, dt_row.data_ptr(),
-            starts_ptr, stride, 0 if aux is None else aux.data_ptr(),
-            k_act, int(seed) & 0xFFFFFFFF, ctypes.byref(struct), grid.value,
+            packed.data_ptr(), out.data_ptr(), C, sched.data_ptr(),
+            sched.shape[1], starts_ptr, stride,
+            0 if aux is None else aux.data_ptr(), k_act,
+            int(seed) & 0xFFFFFFFF, ctypes.byref(struct), variant, grid.value,
             rec.data_ptr(), rec_f.data_ptr(), partials.data_ptr(),
             0 if stream is None else stream.data_ptr(),
             plan.n_stream_rows if plan.n_stream else 0,
@@ -1117,17 +1234,38 @@ def fused_chunk(packed: torch.Tensor, sched: torch.Tensor, seed: int,
                                   emit_starts))
 
 
-def pack_state(state: SimState) -> torch.Tensor:
-    """SimState -> packed (15, C) float32."""
+def pack_state(state: SimState, extras: tuple = ()) -> torch.Tensor:
+    """SimState -> packed ``(15 + len(extras), C)`` float32. ``extras``
+    names resolve against ``state.extras``: ``"qm"`` packs the derived
+    charge-to-mass ratio ``q / m`` (0 where ``m == 0``, so an uncharged or
+    massless particle is never pushed), ``"otype"`` the species codes of a
+    mixed population, ``"name:i"`` row ``i`` of a 3-row extras array."""
     f32 = torch.float32
-    return torch.cat([state.r, state.dr, state.v, state.dv,
-                      state.E[None].to(f32), state.alive[None].to(f32),
-                      state.w[None].to(f32)], dim=0).contiguous()
+    planes = [state.r, state.dr, state.v, state.dv,
+              state.E[None].to(f32), state.alive[None].to(f32),
+              state.w[None].to(f32)]
+    for name in extras:
+        if name == "qm":
+            q = state.extras["q"].to(f32)
+            m = state.extras["m"].to(f32)
+            safe = torch.where(m != 0, m, torch.ones_like(m))
+            planes.append(torch.where(m != 0, q / safe, 0.0)[None])
+        elif name == "otype":
+            planes.append(state.otype.to(f32)[None])
+        elif ":" in name:
+            base, i = name.rsplit(":", 1)
+            planes.append(state.extras[base][int(i)].to(f32)[None])
+        else:
+            planes.append(state.extras[name].to(f32)[None])
+    return torch.cat(planes, dim=0).contiguous()
 
 
 def unpack_state(packed: torch.Tensor, template: SimState) -> SimState:
-    """Packed (15, C) -> SimState. The vector fields are views of
-    ``packed``, so the state shares its storage."""
+    """Packed ``(15 + n_extras, C)`` -> SimState. The vector fields are
+    views of ``packed``, so the state shares its storage. The extras planes
+    stay with the host's ``template.extras`` and ``otype``: the kernel
+    changes them only in the slots an emit op fills, which the provider
+    retypes and zeroes itself."""
     return template.replace(
         r=packed[_RX:_RX + 3], dr=packed[_DRX:_DRX + 3],
         v=packed[_VX:_VX + 3], dv=packed[_DVX:_DVX + 3],

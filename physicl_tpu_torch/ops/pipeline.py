@@ -20,9 +20,11 @@ thermal electrons, the heating tally), each with a density field,
 (constant or ``PlanckSampler`` energies), ``ScatterSignMeasureStep``
 (counts or weight sums), ``ScatterMeasureStep`` (counts, weight sums,
 energy sums or per-photon energy lists), ``SphericalShellMeasureStep`` and
-``TracePathMeasureStep`` (strided, bfloat16), on a photon (or, without
-photon steps, a generic) population, with a t-only or extinction exit.
-Fields are C expressions, layered or voxel media
+``TracePathMeasureStep`` (strided, bfloat16) and ``LorentzForceStep``
+(constant E and B, a species-wide or per-particle q/m), on a photon, a
+generic (charged; no photon steps) or a mixed population (photon ops
+gated per particle by a packed otype plane), with a t-only or extinction
+exit. Fields are C expressions, layered or voxel media
 (:mod:`physicl_tpu_torch.ops.fields`); a Python callable is refused.
 
 Per-photon outputs (trace positions, captured energies) are stream planes
@@ -240,9 +242,10 @@ class FusedProvider:
 
     def __init__(self, sim, plan: F.FusedPlan, rec_map: List[dict], dt_fn,
                  dt_before_kin: bool, measure_after_update: Dict[str, bool],
-                 exit_fn, exit_mode: str):
+                 exit_fn, exit_mode: str, notes: List[str]):
         self.sim = sim
         self.plan = plan
+        self.notes = list(notes)  # how the prover shaped the plan
         self.rec_map = rec_map
         self.dt_fn = dt_fn
         self.exit_fn = exit_fn
@@ -358,7 +361,7 @@ class FusedProvider:
         if state is self._last_state and self._last_packed is not None:
             packed = self._last_packed
         else:
-            packed = F.pack_state(state)
+            packed = F.pack_state(state, self.plan.extras)
         # sched rows: [dt at kinematics, t after update, t before update,
         #              dt after update, dt before update]
         sched = torch.from_numpy(np.stack(
@@ -525,6 +528,19 @@ def _scalar(x, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), float(x), dtype=like.dtype, device=like.device)
 
 
+def _whole_periods(chunk: int, every: int, periods, budget: int,
+                   row_bytes: int):
+    """``(chunk, stride)`` for a stream of stride ``every``: the chunk cut to
+    whole multiples of every trace period, so that the sampled iterations
+    stay global multiples across chunk boundaries; below one period, every
+    iteration is sampled instead (stride 1) and the stream budget applies
+    at one row per iteration."""
+    period_lcm = math.lcm(*periods)
+    if chunk >= period_lcm:
+        return (chunk // period_lcm) * period_lcm, every
+    return max(1, min(chunk, budget // row_bytes)), 1
+
+
 def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
     """Return a FusedProvider for the sim, or raise :class:`FusedRefusal`."""
     from physicl_tpu_torch.engine import UpdateTimeStep
@@ -546,6 +562,7 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
     from physicl_tpu_torch.newton import (
         AbsorbingBoundaryStep,
         AbsorbingSphereStep,
+        LorentzForceStep,
         NewtonianKinematicsStep,
         PeriodicBoundaryStep,
         ReflectingBoundaryStep,
@@ -580,20 +597,24 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
                 f"{FL.MAX_VOXELS})")
         return fn
 
+    # the population's species, known on the host: photons or generic
+    # (charged) particles run with no per-particle type test; a mixed
+    # population packs its otype codes as an extras plane that gates the
+    # photon ops per particle
     codes = {int(getattr(o, "_obj_type_code", 0))
              for o in sim._pending_objects}
     codes |= {int(b["otype"]) for b in sim._pending_bulk}
     if not codes:
         _no("empty-population", "no initial objects: add particles before "
             "start()")
-    if len(codes) > 1 or (codes != {OBJ_PHOTON} and any(
-            type(s) is PhotonEmitterStep for s in steps)):
+    species = codes.pop() if len(codes) == 1 else F.SPECIES_MIXED
+    if species not in (OBJ_PHOTON, F.SPECIES_MIXED) and any(
+            type(s) is PhotonEmitterStep for s in steps):
         # an emitter turns a non-photon population mixed at its first
-        # emission, as a mixed population is from the start
-        _no("mixed-species", "a mixed photon/generic population (or a "
-            "photon emitter on a non-photon one) needs the otype-gated "
-            "kernel, which is not ported")
-    species = codes.pop()
+        # emission: plan the otype-gated kernel from the start
+        species = F.SPECIES_MIXED
+    # planes packed after the core 15 (F.pack_state's names)
+    extra_names: List[str] = ["otype"] if species == F.SPECIES_MIXED else []
 
     ops: List[F._Op] = []
     rec_map: List[dict] = []
@@ -619,13 +640,21 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
         measure_after_update[s._step_uid] = update_seen
         return (next_fcol - 1,)
 
+    # photon physics: gated per particle on a mixed population, an exact
+    # no-op on a purely non-photon one (refused, as the JAX prover does, so
+    # that a likely mistake does not pass silently). The JAX prover leaves
+    # ScatterPhaseFunctionStep out and fuses it ungated, scattering
+    # non-photons that its generic tier leaves alone; the port refuses it.
     photon_only = (ScatterDeleteStep, ScatterIsotropicStep,
-                   ScatterHenyeyGreensteinStep, RefractiveInterfaceStep)
+                   ScatterHenyeyGreensteinStep, ScatterRayleighStep,
+                   ScatterPhaseFunctionStep, ScatterComptonStep,
+                   RefractiveInterfaceStep, PhotonEmitterStep)
     for s in steps:
         uid = s._step_uid
-        if isinstance(s, photon_only) and species != OBJ_PHOTON:
+        if isinstance(s, photon_only) and species not in (OBJ_PHOTON,
+                                                          F.SPECIES_MIXED):
             _no("photon-only-op", f"{type(s).__name__} acts on photons but "
-                "the population is non-photon")
+                "the population is non-photon (and no emitter adds any)")
         if type(s) is UpdateTimeStep:
             if update_seen:
                 _no("duplicate-update-step", "more than one UpdateTimeStep; "
@@ -646,6 +675,33 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
                     "the packed kernel state")
             kin_seen = True
             ops.append(F._Op("kin"))
+        elif type(s) is LorentzForceStep:
+            if s.q_over_m is None and not (
+                    any(hasattr(o, "q") for o in sim._pending_objects)
+                    and any(hasattr(o, "m") for o in sim._pending_objects)):
+                _no("lorentz-per-particle", "LorentzForceStep(q_over_m=None)"
+                    " needs per-particle q/m extras and no initial object "
+                    "declares q= and m= (newton.ChargedObject)")
+            if species == OBJ_PHOTON:
+                # photons are never pushed, but the step still zeroes dv:
+                # q/m = 0 and no fields leave v as it is and dv = 0
+                ops.append(F._Op("lorentz", after_update=update_seen))
+                continue
+            for fn, const, name in ((s._e_fn, s._e_const, "E_field"),
+                                    (s._b_fn, s._b_const, "B_field")):
+                if fn is not None and const is None:
+                    _no("field-fn-callable", f"LorentzForceStep's {name} is "
+                        "a Python callable, which cannot be inlined into "
+                        "the kernel; pass a constant 3-vector")
+            qm_plane = -1
+            if s.q_over_m is None:  # per-particle q/m: a derived plane
+                if "qm" not in extra_names:
+                    extra_names.append("qm")
+                qm_plane = F._NF + extra_names.index("qm")
+            ops.append(F._Op("lorentz", qm=s.q_over_m or 0.0,
+                             qm_plane=qm_plane, e_const=s._e_const or (),
+                             b_const=s._b_const or (),
+                             after_update=update_seen))
         elif type(s) is ScatterDeleteStep:
             n_fn = _field(s, s._n_fn, "variable_n_fn", _R)
             a_fn = _field(s, s._a_fn, "A_fn", ("E",))
@@ -796,9 +852,10 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
         else:
             _no("unsupported-step", f"{type(s).__name__} has no fused op in "
                 "the port; supported: UpdateTime/NewtonianKinematics/"
-                "Absorbing/Reflecting/PeriodicBoundary/AbsorbingSphere/"
-                "ScatterDelete/ScatterIsotropic/ScatterHenyeyGreenstein/"
-                "ScatterRayleigh/ScatterPhaseFunction/ScatterCompton/"
+                "LorentzForce/Absorbing/Reflecting/PeriodicBoundary/"
+                "AbsorbingSphere/ScatterDelete/ScatterIsotropic/"
+                "ScatterHenyeyGreenstein/ScatterRayleigh/ScatterPhaseFunction/"
+                "ScatterCompton/"
                 "RefractiveInterface/PhotonEmitter/ScatterSignMeasure/"
                 "ScatterMeasure/SphericalShellMeasure/TracePathMeasure")
 
@@ -833,10 +890,11 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
     # every emitter precedes it (a photon emitted after kinematics carries
     # dr = 0 until the next iteration), no dr modifier (a reflection's fold,
     # an interface's kink) lies between them, no interface rescales speeds
-    # (match_speed), and every particle, emitted ones included, moves at one
-    # common speed that each resample (scatter, re-emission) matches. The
-    # JAX prover leaves "phase" out of both lists although its op reads
-    # |dr|; the port counts it, as it counts "hg".
+    # (match_speed), no field push changes them (lorentz, its q/m = 0 form
+    # included, as in the JAX prover), and every particle, emitted ones
+    # included, moves at one common speed that each resample (scatter,
+    # re-emission) matches. The JAX prover leaves "phase" out of both lists
+    # although its op reads |dr|; the port counts it, as it counts "hg".
     const_speed = None
     kin_positions = [i for i, op in enumerate(ops) if op.kind == "kin"]
     scatter_positions = [i for i, op in enumerate(ops)
@@ -850,7 +908,8 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
             and all(p < kin_positions[0] for p in emit_positions)
             and not any(kin_positions[0] < q < p for q in reflect_positions
                         for p in scatter_positions)
-            and not any(op.kind == "fresnel" and op.iface[4]
+            and not any(op.kind == "lorentz"
+                        or (op.kind == "fresnel" and op.iface[4])
                         for op in ops)):
         speeds = [float(np.linalg.norm(np.asarray(
             raw_code_value(o.v), np.float64).reshape(3)))
@@ -928,23 +987,27 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
         budget = int(sim.max_record_bytes)
         chunk = max(1, min(chunk, (budget // row_bytes) * stream_every))
         if stream_every > 1:
-            # chunks are whole multiples of every period, so the sampled
-            # iterations stay global multiples across chunk boundaries
-            period_lcm = math.lcm(*periods)
-            if chunk >= period_lcm:
-                chunk = (chunk // period_lcm) * period_lcm
-            else:  # below one period: sample every iteration instead, and
-                # re-apply the budget at one stream row per iteration
-                stream_every = 1
-                chunk = max(1, min(chunk, budget // row_bytes))
-    if chunk * (next_col + next_fcol * _KERNEL_WARPS) * 4 \
-            > _MAX_REC_TILE_BYTES:
-        _no("record-tile", f"chunk {chunk} x ({next_col} int + {next_fcol} "
-            f"x {_KERNEL_WARPS} float) record columns overflows the "
-            "kernel's shared-memory record tiles; lower chunk_steps")
+            chunk, stream_every = _whole_periods(
+                chunk, stream_every, periods, budget, row_bytes)
+    notes = []
+    # a block's record tiles hold chunk x (int + float x warps) columns of
+    # shared memory: a chunk over the budget is shortened (the chunk seed
+    # follows the chunk index, so parity with the JAX package then needs
+    # its chunk_steps set to the same length)
+    tile_chunk = _MAX_REC_TILE_BYTES // ((next_col + next_fcol
+                                          * _KERNEL_WARPS) * 4)
+    if chunk > tile_chunk:
+        chunk = max(1, tile_chunk)
+        if stream_every > 1:
+            chunk, stream_every = _whole_periods(
+                chunk, stream_every, periods, budget, row_bytes)
+        notes.append(f"chunk {chunk}: float record tiles ({next_col} int + "
+                     f"{next_fcol} float columns x {_KERNEL_WARPS} warps in "
+                     f"{_MAX_REC_TILE_BYTES} B of shared memory)")
     plan = F.FusedPlan(ops=ops, n_rec_cols=next_col, chunk=chunk,
                        const_norm_speed=const_speed, n_frec_cols=next_fcol,
                        n_stream=next_plane, stream_every=stream_every,
-                       stream_dtype=stream_dtype)
+                       stream_dtype=stream_dtype, species=species,
+                       extras=tuple(extra_names))
     return FusedProvider(sim, plan, rec_map, dt_fn, update_before_kin,
-                         measure_after_update, sim.exit, exit_mode)
+                         measure_after_update, sim.exit, exit_mode, notes)

@@ -25,6 +25,8 @@ _LANE = 128
 
 # per-particle fields (scalars and (3, C) vectors), then the scalar clocks
 _VEC = ("r", "dr", "v", "dv", "a")
+# object attributes that are core fields, not extras (``w`` has its plane)
+_CORE = frozenset(_VEC + ("E", "w"))
 _SCALAR_DTYPES = {"t": torch.float32, "dt": torch.float32,
                   "t_comp": torch.float32, "n_spawned": torch.int32}
 
@@ -151,9 +153,14 @@ class SimState:
         rounding of the JAX package's host path: objects first, then each
         bulk. The arrays are allocated on ``device`` and only the occupied
         slots are copied there; a bulk built on the device is never staged
-        through the host. Object attributes beyond the core fields (the JAX
-        package's extras planes) are not carried: no ported step reads
-        them."""
+        through the host.
+
+        Numeric object attributes beyond the core fields, and a bulk's
+        ``"extras"`` dict of ``(k,)`` or ``(3, k)`` arrays, become
+        ``state.extras[name]``: a scalar as a ``(C,)`` plane, a 3-vector as
+        ``(3, C)``, float32, zero in the slots that lack it (the JAX
+        package's rule, e.g. :class:`~physicl_tpu_torch.newton.
+        ChargedObject`'s ``q`` and ``m``)."""
         from physicl_tpu_torch.units import raw_code_value
 
         dev = torch.device(device)
@@ -182,11 +189,33 @@ class SimState:
                     x, dtype=np.float32))
             dst.copy_(x.to(dtype=dst.dtype))
 
+        # extras: first-seen order over the objects' attributes, then the
+        # bulks' dicts; 0 = a (C,) plane, 3 = a (3, C) one
+        extras_dim: Dict[str, int] = {}
+        for o in objects:
+            for name, val in vars(o).items():
+                if name.startswith("_") or name in _CORE:
+                    continue
+                shape = np.asarray(raw_code_value(val), np.float64).shape
+                if shape in ((), (3,)):
+                    extras_dim.setdefault(name, 3 if shape else 0)
+        for b in bulks:
+            for name, arr in b.get("extras", {}).items():
+                ndim = (arr.dim() if isinstance(arr, torch.Tensor)
+                        else np.ndim(arr))
+                extras_dim.setdefault(name, 0 if ndim == 1 else 3)
+        extras = {name: torch.zeros((3, cap) if dim else (cap,), dtype=f32,
+                                    device=dev)
+                  for name, dim in extras_dim.items()}
+
         if n_obj:
             host = {name: np.zeros((3, n_obj), np.float32) for name in _VEC}
             E_o = np.zeros((n_obj,), np.float32)
             w_o = np.ones((n_obj,), np.float32)
             t_o = np.zeros((n_obj,), np.int32)
+            x_o = {name: np.zeros((3, n_obj) if dim else (n_obj,),
+                                  np.float32)
+                   for name, dim in extras_dim.items()}
             for i, o in enumerate(objects):
                 for name in host:
                     host[name][:, i] = raw_code_value(
@@ -194,11 +223,20 @@ class SimState:
                 E_o[i] = float(raw_code_value(getattr(o, "E", 0.0)))
                 w_o[i] = float(raw_code_value(getattr(o, "w", 1.0)))
                 t_o[i] = getattr(o, "_obj_type_code", OBJ_GENERIC)
+                for name, dim in extras_dim.items():
+                    if hasattr(o, name):
+                        val = raw_code_value(getattr(o, name))
+                        if dim:
+                            x_o[name][:, i] = np.asarray(val).reshape(3)
+                        else:
+                            x_o[name][i] = float(val)
             for name in host:
                 put(vec[name][:, :n_obj], host[name])
             put(E[:n_obj], E_o)
             put(w[:n_obj], w_o)
             otype[:n_obj] = torch.from_numpy(t_o).to(dev)
+            for name, arr in x_o.items():
+                put(extras[name][..., :n_obj], arr)
         off = n_obj
         for b in bulks:
             k = int(b["n"])
@@ -209,6 +247,8 @@ class SimState:
             if "w" in b:
                 put(w[sl], b["w"])
             otype[sl] = int(b["otype"])
+            for name, arr in b.get("extras", {}).items():
+                put(extras[name][..., sl], arr)
             off += k
 
         return SimState(
@@ -216,4 +256,5 @@ class SimState:
             t=torch.zeros((), dtype=torch.float32, device=dev),
             dt=torch.zeros((), dtype=torch.float32, device=dev),
             key=SimState.make_key(seed, dev),
-            n_spawned=torch.full((), n, dtype=torch.int32, device=dev))
+            n_spawned=torch.full((), n, dtype=torch.int32, device=dev),
+            extras=extras)

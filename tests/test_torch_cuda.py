@@ -312,3 +312,58 @@ def test_scatter_plans_match_twin(dev, name):
     assert torch.equal(out, ref)
     assert _close_f(rec_f, ref_f)
     assert not torch.equal(out, packed)
+
+
+# -- charged particles and mixed populations --
+
+@pytest.mark.parametrize("name", ["lor-species-EB", "lor-qm-B",
+                                  "lor-photon-noop", "lor-before-update",
+                                  "mixed", "mixed-emit-qm"])
+def test_lorentz_plans_match_twin(dev, name):
+    """The six plans ``chip_smoke.py`` holds at 2**20 x 256, here at 2**16
+    x 64 over a growing-dt schedule: int records equal, every plane (the
+    extras included) bitwise, in place equal to out of place; the plans
+    run the mixed instantiation."""
+    from chip_smoke import lorentz_inputs, lorentz_plans
+
+    plan, photons = lorentz_plans(F, 64)[name]
+    assert plan.kernel_variant & 8
+    packed, sched, starts = lorentz_inputs(torch, plan, photons, 1 << 16,
+                                           64, dev, 5)
+    out = torch.empty_like(packed)
+    rec, _ = F.fused_transport(packed, out, sched, 91, 60, plan,
+                               emit_starts=starts)
+    ref, ref_rec, _ = F.fused_chunk_reference(packed, sched, 91, 60, plan,
+                                              starts)
+    inplace = packed.clone()
+    F.fused_transport(inplace, inplace, sched, 91, 60, plan,
+                      emit_starts=starts)
+    torch.cuda.synchronize()
+    assert torch.equal(rec, ref_rec)
+    assert torch.equal(out, ref) and torch.equal(inplace, ref)
+    assert not torch.equal(out[6:9], packed[6:9])
+    if starts is not None:  # emitted slots became photons
+        half = packed.shape[1] // 2
+        assert bool((out[15, half:half + 2048] == 1).all())
+
+
+def test_record_tile_plan_matches_twin(dev):
+    """The record-tile plan (3 int + 7 float record columns) as its
+    provider hands it over: the chunk clamped to 984, the kernel equal to
+    the twin on chunk 0."""
+    import physicl_tpu_torch as phys
+    from chip_smoke import first_chunk_inputs, tile_sim
+
+    packed, sched, seed, k, plan, _ = first_chunk_inputs(
+        tile_sim(phys, 1 << 16, dev, 1000)[0], F)
+    assert plan.chunk == k == 984
+    assert (plan.n_rec_cols, plan.n_frec_cols) == (3, 7)
+    out = torch.empty_like(packed)
+    rec, rec_f = F.fused_transport(packed, out, sched, seed, k, plan)
+    ref, ref_rec, ref_f = F.fused_chunk_reference(packed, sched, seed, k,
+                                                  plan)
+    torch.cuda.synchronize()
+    assert torch.equal(rec, ref_rec)
+    assert torch.equal(out, ref)
+    assert _close_f(rec_f, ref_f)
+    assert rec_f[:k, :7].abs().sum() > 0

@@ -203,3 +203,86 @@ def test_energy_list_mode_scattered_beam_matches_jax(weighted):
     for row in tm.data:
         if not weighted:  # the list is as long as the count column
             assert len(row[3]) == row[2] and len(row[5]) == row[4]
+
+
+def test_record_tile_clamps_the_chunk():
+    """A weighted sign tally (3 float columns) and a weighted two-plane
+    energy tally (4) overflow the kernel's float record tiles at 1024
+    iterations: 1024 x (3 int + 7 float x 8 warps) x 4 B > 232,448 B. The
+    prover shortens the chunk to 984 and says so; the records equal a JAX
+    run with the same chunk_steps (the chunk seed follows the chunk index,
+    so parity needs the same chunk length), over a chunk boundary.
+    Unscattered photons at dt = 2**-10 (``r + v dt`` exact: XLA's FMA
+    cannot move a crossing) start on both sides of the chunk boundary's
+    crossing iterations; absorption thins them."""
+    rng = np.random.default_rng(13)
+    n = 2000
+    E = rng.uniform(0.5, 2.0, n)
+    w = rng.uniform(0.2, 1.0, n)
+    dt = 2.0 ** -10
+    clamped = 232_448 // ((3 + 7 * 8) * 4)
+    # half along +x from x < 0, half along -y from y > 0, crossing their
+    # planes at iterations spread over [5, 990]
+    start = rng.uniform(5.0, 990.0, n)
+    along_x = np.arange(n) < n // 2
+
+    def make(P):
+        c = float(P.light.c)
+        c_dt = c * dt
+        r = np.zeros((3, n))
+        r[0] = np.where(along_x, -start * c_dt, 0.0)
+        r[1] = np.where(along_x, 0.0, start * c_dt)
+        v = np.zeros((3, n))
+        v[0] = np.where(along_x, c, 0.0)
+        v[1] = np.where(along_x, 0.0, -c)
+        kw = {"device": "cpu"} if P is T else {"chunk_steps": clamped}
+        s = P.Simulation(until_t=(clamped + 7.5) * dt, seed=4, **kw)
+        s.add_step(0, P.UpdateTimeStep(lambda x: np.double(dt)))
+        s.add_step(1, P.newton.NewtonianKinematicsStep())
+        s.add_step(2, P.light.ScatterDeleteStep(np.double(1e-3 / c_dt),
+                                                np.double(1.0)))
+        sign = P.light.ScatterSignMeasureStep(None, True, weighted=True)
+        s.add_step(3, sign)
+        cross = P.light.ScatterMeasureStep(
+            None, True, [[0.5 * c_dt, np.nan, np.nan],
+                         [np.nan, -0.5 * c_dt, np.nan]], measure_E=True,
+            measure_E_mode="sum", weighted=True)
+        s.add_step(4, cross)
+        s.add_photons(P.light.generate_photon_state(n, E=E, w=w, r=r, v=v))
+        return s, (sign, cross)
+
+    (js, (jsign, jcross)), (ts, (tsign, tcross)) = _run_both(make)
+    assert clamped == 984 and ts.plan_report.chunk == clamped
+    assert (f"chunk {clamped}: float record tiles (3 int + 7 float columns"
+            in ts.explain_plan())
+    assert (np.asarray(ts.ts, np.float64).tobytes()
+            == np.asarray(js.ts, np.float64).tobytes())
+    assert len(ts.ts) == clamped + 8
+    assert np.asarray(tcross.data)[clamped:, 2].sum() > 0  # both chunks
+    for got, want in ((tsign.data, jsign.data), (tcross.data, jcross.data)):
+        got, want = np.asarray(got), np.asarray(want)
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got[:, :2], want[:, :2])  # t, n
+        np.testing.assert_allclose(got[:, 2:], want[:, 2:], rtol=RTOL)
+
+
+def test_record_tile_clamp_keeps_whole_trace_periods():
+    """With a trace every 10th iteration the clamped chunk is a whole number
+    of periods (980, not 984), so that the sampled iterations stay global
+    multiples of 10 across chunk boundaries."""
+    from physicl_tpu_torch.ops.pipeline import try_build_fused
+
+    s = T.Simulation(until_t=1.0, seed=0, device="cpu")
+    s.add_step(0, T.UpdateTimeStep(lambda x: np.double(0.001)))
+    s.add_step(1, T.newton.NewtonianKinematicsStep())
+    s.add_step(2, T.light.ScatterSignMeasureStep(None, True, weighted=True))
+    s.add_step(3, T.light.ScatterMeasureStep(
+        None, True, [[1.0, np.nan, np.nan], [np.nan, 1.0, np.nan]],
+        measure_E=True, measure_E_mode="sum", weighted=True))
+    s.add_step(4, T.light.TracePathMeasureStep(None, trace_every=10))
+    s.add_photons(T.light.generate_photon_state(10, E=1.0))
+    steps = s._ordered_steps()
+    for st in steps:
+        st.setup(s)
+    plan = try_build_fused(s, steps, s._init_run_state()).plan
+    assert (plan.chunk, plan.stream_every) == (980, 10)
