@@ -188,13 +188,44 @@ Phases (any failure exits non-zero and prints no result line):
     photon speeds c; both print the rates, peak memory and idle share;
 24. the record-tile plan at 10**7 photons through ``Simulation``: two
     chunks of 984 (the clamp in ``explain_plan()``), finite tallies with
-    crossings in both chunks.
+    crossings in both chunks;
+25. ``fused_transport`` vs twin on the eleven polarized plans
+    (``pol_plans``) at 2**20 slots and 256 iterations: Rayleigh (packed
+    angles), with lambda**-4, with a C-expression n(r); Compton, with
+    sigma_KN and the heating tally; the Stokes tally alone (weighted, local
+    Q and U) and after Rayleigh; a directed polarized source and an
+    isotropic circular one over stale Stokes and frame rows; fluorescence
+    on a polarized population with no polarized op; a mixed photon/charged
+    population: int records equal, every plane (the Stokes and frame rows
+    included) bitwise, rec_f as in phase 3; each printed with its time,
+    bound, grid and the instantiation's registers;
+26. the exact laws of one forced scatter (pcoll = 2) on the kernel at
+    2**20 photons: Rayleigh on unpolarized light Q' = (c**2 - 1) / (1 +
+    c**2), U' = V' = 0, on circular light V' = 2c / (1 + c**2); Compton at
+    alpha = 0.5 Q' = -s**2 / (kappa - s**2) and E' = E / eta; everywhere p
+    <= 1, |e1| = 1 and e1 . d = 0 within 1e-5;
+27. ``fused_transport`` vs twin on the polarized and polarimetry paths'
+    first chunks (10**7 photons x 1024, as their providers hand them over):
+    int records equal, planes bitwise, rec_f as in phase 3, the Stokes and
+    frame rows leading the extras; timed against the bound;
+28. polarized path (benchmarks/run_all.py polarized_rayleigh_1e7): 10**7
+    photons from ``polarized_photon_state(device=...)``, Rayleigh with A = n
+    = 1e-3, 2048 iterations in chunks of 1024, run twice (the second
+    profiled): p <= 1, frames unit and orthogonal to v within 1e-5, |v| = c
+    within 1e-6, finite planes; then the polarimetry path
+    (examples/make_polarimetry_nb.py at 10**7 photons: linear polarization,
+    forced polarized Compton at alpha = 0.5 with the heating tally, the
+    Stokes tally, one chunk of 1024): the mean purity falls from the
+    source's 1 over the first three rows, then rises (the recoil lowers
+    alpha) and stays below 0.97 over the first 12 rows, the last tally row equals the final planes' means within 1e-5,
+    deposits + sum E = N E0 within the records' summation-chain bound; both
+    print the rates, peak memory and idle share.
 
 The line before the last two is a JSON object describing each kernel on
 each path: ``fused_transport`` once each for the gamma, glass, thermal,
 stretch and fluorescence paths, the ExB (``lorentz``), mixed and
-record-tile paths, the main path, the Planck
-source path, the media path, the escape path and the cavity path, each
+record-tile paths, the polarized and polarimetry paths, the main path,
+the Planck source path, the media path, the escape path and the cavity path, each
 with its path's launch count and the times and bound at that path's own
 shape and plan (the bound counts the fields' corner reads and the stream
 stores as lane operations at the load/store issue rate, and the stream
@@ -383,6 +414,31 @@ OPS_PER_ITER = {
     # the otype gate of a photon op or a push on a mixed plan: one logic
     # operation
     "gate": (0, 1),
+    # pol per slot-iteration: pcoll 1, u 2, the test 1, dv zeros 3; the
+    # frame re-orthonormalized for every slot: the unit direction 25, the
+    # projection 11, n2 5, its test 1, 1 / sqrt 17, e1 3; a hash, the
+    # pair's index, the kind and flag tests 5
+    "pol": (7 + 62, 16 + 5),
+    # polc per slot-iteration: alpha 1, pcoll 1, u 2, the test 1, dv zeros
+    # 3, the frame 62; a hash, the azimuth's and the tries' indices 8
+    "polc": (8 + 62, 16 + 8),
+    # one polarized turn (pol_scatter after the angle): r_t 11 and a, b 2,
+    # the bisection's steps (midpoint 1, rotation 6, fv 4, test 1, selects
+    # 3; the first step rotates nothing), its end (rotation 6, phi 1,
+    # renormalisation 22 and 2, the half-angle root 12 and divide 8, signs
+    # 3), the Fano rows and clips 30, the purity clamp 27, sin theta 10,
+    # e2, a, d' and e1' 36, their renormalisations 45, v, dv and the frame
+    # 9; the branch and selects 6
+    "pol_turn_17": (13 + 17 * 15 - 6 + 54 + 57 + 100, 6),
+    "pol_turn_26": (13 + 26 * 15 - 6 + 54 + 57 + 100, 6),
+    # a Compton turn's kappa (a divide and a sum) and its azimuth uniform
+    "polc_kappa": (9 + 2, 16),
+    # polmeas: the weight 2, p 13, three weight sums ("esum") and the
+    # products 3; the count (if any) is "col0"
+    "polmeas": (2 + 13 + 3 * 7, 3 * 8),
+    "polmeas_qu": (2 * 7, 2 * 8),
+    # a polarized source's rows per emitted photon: six stores' selects
+    "emit_pol": (6, 1),
 }
 # lane-loads per field read (gathers, at the SM's load/store issue rate)
 LOADS_PER_FIELD = {"voxel_tri": 8, "voxel_near": 1, "layered": 2}
@@ -508,13 +564,13 @@ def expected_events(plan, packed, alive_steps, dt, cross_p=0.0):
         if op.kind == "fresnel":
             events[i] = cross_p * alive_steps
             continue
-        if op.kind not in ("hg", "rayl", "phase", "compton") \
-                and not op.fluor:
+        if op.kind not in ("hg", "rayl", "phase", "compton", "pol",
+                           "polc") and not op.fluor:
             continue
         p = torch.full_like(E, op.coef * C_LIGHT * dt)
         if op.wl_base is not None:
             p = p * (E * op.wl_base) ** 4
-        if op.kind == "compton" and op.kn_xsec:
+        if op.kind in ("compton", "polc") and op.kn_xsec:
             p = p * light._kn_sigma_ratio(E * op.inv_mec2, fast=True)
         p = p.clamp(0.0, 1.0)
         if op.fluor:
@@ -579,6 +635,8 @@ def transport_counts(plan, slots, k_act, starts, events=None):
                 once.append((OPS_PER_EMITTED["E"], n))
             if op.emit_v is None:
                 once.append((OPS_PER_EMITTED["dir"], n))
+            if op.emit_stokes:
+                once.append((OPS_PER_ITER["emit_pol"], n))
         elif op.kind == "cross":
             if op.cols[0] >= 0:
                 per.append(OPS_PER_ITER["col0"])
@@ -620,6 +678,26 @@ def transport_counts(plan, slots, k_act, starts, events=None):
         elif op.kind == "fresnel":
             per.append(OPS_PER_ITER["fresnel"])
             once.append((OPS_PER_ITER["fresnel_cross"], n_ev))
+        elif op.kind == "pol":
+            per.append(OPS_PER_ITER["pol"])
+            if op.wl_base is not None:
+                per.append((4, 1))
+            once += [(OPS_PER_ITER["pol_turn_17"], n_ev),
+                     (OPS_PER_ITER["rayl_cos"], n_ev), ((0, 16 + 4), n_ev)]
+        elif op.kind == "polc":
+            per.append(OPS_PER_ITER["polc"])
+            if op.kn_xsec:
+                per.append(OPS_PER_ITER["kn_xsec"])
+            once += [(OPS_PER_ITER["kn_try"], n_ev),
+                     (OPS_PER_ITER["pol_turn_26"], n_ev),
+                     (OPS_PER_ITER["polc_kappa"], n_ev),
+                     (OPS_PER_ITER["recoil"], n_ev)]
+        elif op.kind == "polmeas":
+            per.append(OPS_PER_ITER["polmeas"])
+            if op.cols[0] >= 0:
+                per.append(OPS_PER_ITER["col0"])
+            if op.local_qu:
+                per.append(OPS_PER_ITER["polmeas_qu"])
         elif op.kind == "lorentz":
             per.append(OPS_PER_ITER["lorentz"])
             if op.e_const:
@@ -632,13 +710,16 @@ def transport_counts(plan, slots, k_act, starts, events=None):
             per.append(OPS_PER_ITER[op.kind])
         if "otype" in plan.extras and op.kind in (
                 "del", "iso", "hg", "rayl", "phase", "compton", "fresnel",
-                "lorentz"):
+                "lorentz", "pol", "polc"):
             per.append(OPS_PER_ITER["gate"])
     ops = [sum(p[j] for p in per) * slots * k_act
            + sum(o[j] * n for o, n in once) for j in (0, 1)]
     elem = 2 if plan.stream_dtype == "bfloat16" else 4
-    # the extras planes: read once, written for the emitted slots
-    extras = 4 * len(plan.extras) * (slots + n_emitted)
+    # the extras planes: read once, written for the emitted slots, and the
+    # written-back planes for every slot
+    n_wb = sum(1 for name in plan.extras
+               if name.split(":")[0] in plan.extras_writeback)
+    extras = 4 * (len(plan.extras) * (slots + n_emitted) + n_wb * slots)
     return (2 * 60 * slots + extras + sum(grids.values())
             + elem * stream_elems,
             *ops, loads * slots * k_act + event_loads + stream_elems)
@@ -749,7 +830,8 @@ def main():
     err = {"main": 0.0, "planck": 0.0, "planck_gen": 0.0, "media": 0.0,
            "escape": 0.0, "cavity": 0.0, "rot": 0.0, "gamma": 0.0,
            "glass": 0.0, "thermal": 0.0, "stretch": 0.0, "fluor": 0.0,
-           "lorentz": 0.0, "mixed": 0.0, "record-tile": 0.0}
+           "lorentz": 0.0, "mixed": 0.0, "record-tile": 0.0, "pol": 0.0,
+           "polarized": 0.0, "polarimetry": 0.0}
     a_E, b_E = planck_window()
     sampler = light.PlanckSampler(a_E, b_E, T_SUN, bins=2000)
 
@@ -1077,6 +1159,15 @@ def main():
         "tile-chunk-0", tile_sim(phys, TILE_N, dev, TILE_ITERS)[0], F, torch,
         lib, compare, "record-tile", card, ["kin", "iso", "sign", "cross"],
         streams=False)
+    pol_plan_phase(torch, F, light, dev, seed, compare, card, times, lib)
+    pol_law_phase(torch, F, dev, card)
+    pol_grids = {}
+    polft, poift = (path_chunk0(
+        f"{case}-chunk-0", pol_sim(phys, case, n, dev)[0], F, torch, lib,
+        compare, case, card, kinds, streams=False, grids=pol_grids)
+        for case, n, kinds in (("polarized", POL_N, ["kin", "pol"]),
+                               ("polarimetry", POLI_N,
+                                ["kin", "polc", "polmeas"])))
 
     phase("planck_gen vs twin (10**7 samples)")
     n_gen = 10_000_000
@@ -1205,6 +1296,7 @@ def main():
     runs = run_all_paths(torch, phys, F, dev, card)
     tissue_card_vs_cpu(torch, phys, F)
     lruns = lorentz_runs(torch, phys, F, dev, card, exft, mxft, tlft)
+    pruns = pol_paths(torch, phys, F, dev, card, polft, poift, pol_grids)
 
     ft_src = {"name": "fused_transport", "route": "cuda",
               "source": "physicl_tpu_torch/csrc/fused_transport.cu",
@@ -1224,6 +1316,12 @@ def main():
                   for path, run, entry in (("lorentz", "exb", exft),
                                            ("mixed", "mixed", mxft),
                                            ("record-tile", "tile", tlft))]
+    new_paths += [{**ft_src, "path": path, "launches":
+                   pruns[path]["fused_launches"],
+                   "max_abs_err": max(err["pol"], err[path]), **entry,
+                   "library_ms": None}
+                  for path, entry in (("polarized", polft),
+                                      ("polarimetry", poift))]
     print(json.dumps({"kernels": new_paths + [
         {**ft_src, "path": "main", "launches": main_launches,
          "max_abs_err": err["main"], **ft, "library_ms": None},
@@ -1798,10 +1896,11 @@ def cavity_sim(phys, n, dev, seed=29, iters=CAV_ITERS, every=CAV_EVERY,
 
 
 def path_chunk0(name, sim, F, torch, lib, compare, path, card, kinds,
-                streams=True, cross_p=0.0):
+                streams=True, cross_p=0.0, grids=None):
     """Phase: fused_transport against the twin on a path's first chunk, as
-    its provider hands it over; returns the kernel's entry numbers. The
-    bound counts the rotation family's work per expected event
+    its provider hands it over; returns the kernel's entry numbers (and
+    stores the launch's grid in ``grids[path]`` when given). The bound
+    counts the rotation family's work per expected event
     (``expected_events``, interface crossings at ``cross_p`` per
     photon-iteration)."""
     import ctypes
@@ -1812,16 +1911,22 @@ def path_chunk0(name, sim, F, torch, lib, compare, path, card, kinds,
     packed, sched, seed, k, plan, _ = first_chunk_inputs(sim, F)
     del sim
     check([op.kind for op in plan.ops] == kinds
-          and bool(plan.n_stream) == streams,
-          f"{name}: plan {[op.kind for op in plan.ops]} is not the path's")
+          and bool(plan.n_stream) == streams
+          and (not plan.has_pol or plan.extras[:6] == F.POL_ROWS),
+          f"{name}: plan {[op.kind for op in plan.ops]} (extras "
+          f"{plan.extras}) is not the path's")
     g = ctypes.c_int(0)
     _build.check(lib.fused_transport_grid(
         packed.shape[1], k, plan.n_rec_cols, plan.n_frec_cols,
         plan.kernel_variant, ctypes.byref(g)), "occupancy query")
+    if grids is not None:
+        grids[path] = g.value
     print(f"{name}: {packed.shape[1]} slots x {k} iterations, ops "
-          f"{[op.kind for op in plan.ops]}, const-norm "
-          f"{plan.const_norm_speed is not None}; grid {g.value} blocks "
-          f"({g.value / 132:.2f} per SM); stream {plan.n_stream} planes "
+          f"{[op.kind for op in plan.ops]}, {plan.n_rec_cols} int + "
+          f"{plan.n_frec_cols} float record columns, const-norm "
+          f"{plan.const_norm_speed is not None}; variant "
+          f"{plan.kernel_variant} ({kernel_regs(plan.kernel_variant)}); grid "
+          f"{g.value} blocks ({g.value / 132:.2f} per SM); stream {plan.n_stream} planes "
           f"every {plan.stream_every} in {plan.stream_dtype}, "
           f"{plan.n_stream_rows} rows = {stream_bytes(plan, packed.shape[1])}"
           " B per chunk", flush=True)
@@ -3347,6 +3452,426 @@ def card_vs_cpu(torch, phys, F, sampler, err):
           f"mark {gsp}, {len(gs.population_log)} arena events; live slots "
           f"bitwise={torch.equal(gst[:, ga], cst[:, ca])}, max abs err {e}; "
           f"energy sums bitwise={np.array_equal(gx, cx)}", flush=True)
+
+
+# -- polarized transport (kernel 1h) -----------------------------------------
+
+POL_DT = 1e-3
+POL_N = 10_000_000       # run_all.py:391-413 polarized_rayleigh_1e7
+POL_ITERS = 2 * 1024
+POLI_N = 10_000_000      # make_polarimetry_nb.py:154-166 at 10**7 photons
+POLI_ITERS = 1024        # one chunk
+POLI_ALPHA = 0.5
+
+
+def pol_packed(C, extras, seed, photons=1.0):
+    """Seeded (15 + len(extras), C) state of a polarized population: photons
+    at c in random directions with E in [0.5, 2] and w in [0.5, 1], ~95%
+    alive; Stokes vectors in random directions at a random degree (a tenth
+    fully polarized); frames perpendicular to v, a tenth of them zero (the
+    degenerate fallback). With ``photons`` < 1 the rest are charges at [0.1,
+    0.5] c with E = 0, marked in the "otype" plane."""
+    rng = np.random.default_rng(seed)
+    p = np.zeros((15 + len(extras), C), np.float32)
+    p[0:3] = rng.normal(size=(3, C)) * 30 * C_LIGHT * POL_DT
+    d = rng.normal(size=(3, C))
+    d /= np.linalg.norm(d, axis=0)
+    photon = rng.uniform(size=C) < photons
+    p[6:9] = d * np.where(photon, 1.0, rng.uniform(0.1, 0.5, C)) * C_LIGHT
+    p[12] = np.where(photon, rng.uniform(0.5, 2.0, C), 0.0)
+    p[13] = rng.uniform(size=C) < 0.95
+    p[14] = rng.uniform(0.5, 1.0, C)
+    s = rng.normal(size=(3, C))
+    s *= np.where(rng.uniform(size=C) < 0.1, 1.0, rng.uniform(0.0, 1.0, C)) \
+        / np.linalg.norm(s, axis=0)
+    ref = rng.normal(size=(3, C))
+    e1 = ref - (ref * d).sum(0) * d
+    e1 /= np.linalg.norm(e1, axis=0)
+    e1[:, rng.uniform(size=C) < 0.1] = 0.0
+    for j, name in enumerate(extras):
+        base, _, row = name.partition(":")
+        p[15 + j] = (s[int(row)] if base == "stokes" else
+                     e1[int(row)] if base == "pol_ref" else photon)
+    return p
+
+
+def pol_plans(F, light, chunk):
+    """The polarized plans, each ``(plan, photon share of pol_packed)``:
+    Rayleigh (packed angles), with lambda**-4 and with a C-expression n(r);
+    Compton, with sigma_KN and the heating tally; the Stokes tally alone
+    (weighted, local Q and U) and after a Rayleigh scatter; a directed
+    polarized source and an isotropic circular one filling the upper half of
+    the slots over stale Stokes and frame rows; fluorescence on a polarized
+    population with no polarized op; a mixed photon/charged population
+    (tests/test_torch_cuda.py holds the same plans at 2**16 x 64)."""
+    from physicl_tpu_torch.state import OBJ_PHOTON
+
+    c_dt = C_LIGHT * POL_DT
+    both = ("stokes", "pol_ref")
+    rows = F.POL_ROWS
+
+    def plan(ops, extras=rows, wb=both, n_f=0, species=OBJ_PHOTON,
+             sign=True):
+        ops = [F._Op("kin"), *ops] + ([F._Op("sign", cols=(1, 2))]
+                                      if sign else [])
+        return F.FusedPlan(ops=ops, n_rec_cols=5 if sign else 2,
+                           chunk=chunk, const_norm_speed=C_LIGHT,
+                           n_frec_cols=n_f, species=species, extras=extras,
+                           extras_writeback=wb)
+
+    def pol(**kw):
+        kw.setdefault("coef", 0.1 / c_dt)
+        return F._Op("pol", c_val=C_LIGHT, **kw)
+
+    def polc(**kw):
+        return F._Op("polc", coef=0.1 / c_dt, c_val=C_LIGHT, inv_mec2=2.0,
+                     kn_tries=12, **kw)
+
+    def emit(**kw):
+        return F._Op("emit", emit_n=2048, emit_E=1.0, c_val=C_LIGHT, **kw)
+
+    expr = light._compile_variable_n(
+        f"1.0 + 0.5 * sin(r0[gid] / {10 * c_dt}) * cos(r2[gid] / "
+        f"{7 * c_dt})")
+    return {
+        "pol": (plan([pol()]), 1.0),
+        "pol-wl": (plan([pol(coef=1.0, wl_base=(0.1 / c_dt) ** 0.25)]),
+                   1.0),
+        "pol-expr": (plan([pol(n_fn=expr)]), 1.0),
+        "polc": (plan([polc()]), 1.0),
+        "polc-kn-dep": (plan([polc(kn_xsec=True, cols=(0,))], n_f=1), 1.0),
+        "polmeas-w-qu": (plan([F._Op("polmeas", cols=(1, 0), weighted=True,
+                                     local_qu=True)],
+                              extras=rows[:3], wb=(), n_f=5, sign=False),
+                         1.0),
+        "pol-polmeas": (plan([pol(), F._Op("polmeas", cols=(-1, 0))],
+                             n_f=3), 1.0),
+        "emit-pol-directed": (plan([emit(
+            emit_v=(0.6 * C_LIGHT, 0.8 * C_LIGHT, 0.0),
+            emit_stokes=(0.6, 0.0, 0.8), emit_polref=(0.0, 0.0, 1.0)),
+            pol()]), 1.0),
+        "emit-iso-circular": (plan([emit(emit_stokes=(0.0, 0.0, 1.0),
+                                         emit_polref=(0.0, 0.0, 0.0)),
+                                    pol()]), 1.0),
+        "fluor-pol-planes": (plan([F._Op(
+            "del", coef=0.05 / c_dt, c_val=C_LIGHT,
+            fluor=(0.5, 0.8, 0.6))]), 1.0),
+        "mixed-pol": (plan([pol(), F._Op("del", coef=0.01 / c_dt)],
+                           extras=rows + ("otype",),
+                           species=F.SPECIES_MIXED), 0.5),
+    }
+
+
+def pol_inputs(torch, plan, photons, C, K, dev, seed):
+    """(packed, sched, emit starts or None) for a ``pol_plans`` plan; an
+    emitter's plan gets the upper half of the slots dead (their stale
+    Stokes and frame rows kept), filled from C / 2 at its rate."""
+    p = pol_packed(C, plan.extras, seed, photons)
+    starts = None
+    if plan.n_emit:
+        p[13, C // 2:] = 0.0
+        n = plan.ops[1].emit_n
+        starts = torch.full((1, K), -(2 ** 30), dtype=torch.int32)
+        fits = min(K, (C - C // 2) // n)
+        starts[0, :fits] = C // 2 + n * torch.arange(fits,
+                                                     dtype=torch.int32)
+        starts = starts.to(dev)
+    sched = torch.zeros((5, K), dtype=torch.float32)
+    sched[0] = sched[3] = sched[4] = POL_DT
+    return torch.from_numpy(p).to(dev), sched.to(dev), starts
+
+
+def pol_plan_phase(torch, F, light, dev, seed, compare, card, times, lib):
+    """Phase (a): fused_transport against the twin on the eleven polarized
+    plans at 2**20 slots x 256 iterations: int records equal, every plane
+    (the Stokes and frame rows included) bitwise, rec_f within rtol 1e-5;
+    each timed against its bound, with its grid and the instantiation's
+    registers."""
+    import ctypes
+
+    from physicl_tpu_torch.ops import _build
+
+    C, K = 1 << 20, 256
+    phase(f"fused_transport vs twin on the polarized plans (2**20 slots, {K} "
+          "iterations)")
+    for i, (name, (plan, photons)) in enumerate(pol_plans(F, light,
+                                                          K).items()):
+        check(plan.kernel_variant & 24 == 24, f"{name}: not the "
+              "polarization variant")
+        pk, sched, starts = pol_inputs(torch, plan, photons, C, K, dev,
+                                       60 + i)
+        plain_ms = compare(name, pk, sched, K, plan, starts, "pol",
+                           need_bitwise=True)
+        out = torch.empty_like(pk)
+        rec, _ = F.fused_transport(pk, out, sched, seed, K, plan,
+                                   emit_starts=starts)
+        torch.cuda.synchronize()
+        if plan.extras_writeback and not plan.n_emit:
+            check(not torch.equal(out[15:21], pk[15:21]),
+                  f"{name}: no Stokes or frame row changed")
+        ms = cuda_ms(lambda: F.fused_transport(pk, out, sched, seed, K, plan,
+                                               emit_starts=starts), 5, torch)
+        events = expected_events(plan, pk, float(rec[:K, 0].double().sum()),
+                                 POL_DT)
+        b_ms, b_by = transport_bound(plan, C, K, starts, events)
+        g = ctypes.c_int(0)
+        _build.check(lib.fused_transport_grid(
+            C, K, plan.n_rec_cols, plan.n_frec_cols, plan.kernel_variant,
+            ctypes.byref(g)), "occupancy query")
+        times[name] = ms
+        print(f"{name} at 2**20 x {K}: kernel {ms:.3f} ms, twin "
+              f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), grid "
+              f"{g.value} blocks ({g.value / 132:.2f} per SM), variant "
+              f"{plan.kernel_variant} ({kernel_regs(plan.kernel_variant)}) "
+              f"[{card}]", flush=True)
+        del pk, out
+
+
+def kernel_regs(variant):
+    """The ptxas register line of fused_transport's instantiation
+    ``variant`` (its template arguments in the mangled name), or '?'."""
+    from physicl_tpu_torch.ops import _build
+
+    bits = "".join("Lb1E" if variant & (1 << b) else "Lb0E"
+                   for b in range(5))
+    lines = _build.build_log.splitlines()
+    for i, line in enumerate(lines):
+        if "fused_transport_kernel" in line and bits in line:
+            for nxt in lines[i + 1:i + 4]:
+                if "registers" in nxt:
+                    return nxt.split("Used")[-1].strip()
+    return "?"
+
+
+def pol_scatter_once(torch, F, kind, stokes, n, dev, seed, inv_mec2=0.0):
+    """n photons at E = 1 in isotropic directions at c, frames from the
+    generic perpendicular, Stokes ``stokes``, through one iteration of
+    [kin, ``kind``] on the kernel with pcoll = 2 (every photon scatters):
+    (incoming directions, the state after)."""
+    c_dt = C_LIGHT * POL_DT
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d = isotropic_v(torch, n, 1.0, gen, dev)
+    use_z = d[2].abs() < 0.9
+    ref = torch.stack([torch.zeros_like(d[0]),
+                       (~use_z).float(), use_z.float()])
+    e1 = ref - (ref * d).sum(0) * d
+    e1 = e1 / torch.linalg.vector_norm(e1, dim=0)
+    p = torch.zeros((21, n), dtype=torch.float32, device=dev)
+    p[6:9] = d * C_LIGHT
+    p[12], p[13], p[14] = 1.0, 1.0, 1.0
+    p[15:18] = torch.tensor(stokes, dtype=torch.float32,
+                            device=dev)[:, None]
+    p[18:21] = e1
+    op = F._Op(kind, coef=2.0 / c_dt, c_val=C_LIGHT, inv_mec2=inv_mec2,
+               kn_tries=12)
+    plan = F.FusedPlan(ops=[F._Op("kin"), op], n_rec_cols=1, chunk=1,
+                       const_norm_speed=C_LIGHT, extras=F.POL_ROWS,
+                       extras_writeback=("stokes", "pol_ref"))
+    sched = torch.full((5, 1), POL_DT, dtype=torch.float32, device=dev)
+    out = torch.empty_like(p)
+    F.fused_transport(p, out, sched, seed, 1, plan)
+    return d.double(), out.double()
+
+
+def pol_frame_errors(out, torch):
+    """(max purity, max ||e1| - 1|, max |e1 . d|) of a packed state."""
+    d = out[6:9] / torch.linalg.vector_norm(out[6:9], dim=0)
+    e1 = out[18:21]
+    return (float(torch.linalg.vector_norm(out[15:18], dim=0).max()),
+            float((torch.linalg.vector_norm(e1, dim=0) - 1).abs().max()),
+            float((e1 * d).sum(0).abs().max()))
+
+
+def pol_law_phase(torch, F, dev, card):
+    """Phase (b): the exact per-photon laws of one forced scatter (pcoll =
+    2, as make_polarimetry_nb.py) on the kernel at 2**20 photons: pol on
+    unpolarized light gives Q' = (c**2 - 1) / (1 + c**2), U' = V' = 0; on
+    circular light V' = 2c / (1 + c**2); polc at alpha = 0.5 gives Q' =
+    -s**2 / (kappa - s**2) and E' = E / eta, eta = 1 + alpha (1 - c); in
+    every case p <= 1, |e1| = 1 and e1 . d = 0 within 1e-5."""
+    phase("polarization laws (2**20 photons, one forced scatter)")
+    n = 1 << 20
+    worst = {}
+    for case, kind, stokes, inv_mec2 in (
+            ("rayleigh-unpolarized", "pol", (0.0, 0.0, 0.0), 0.0),
+            ("rayleigh-circular", "pol", (0.0, 0.0, 1.0), 0.0),
+            ("compton-unpolarized", "polc", (0.0, 0.0, 0.0), POLI_ALPHA)):
+        d, out = pol_scatter_once(torch, F, kind, stokes, n, dev, 5,
+                                  inv_mec2)
+        # Kahn's tries leave ~1e-4 of the Compton photons unscattered
+        hit = (out[9:12] != 0).any(0)
+        share = float(hit.double().mean())
+        check(share == 1.0 if kind == "pol" else share > 0.999,
+              f"{case}: {share} of the photons scattered")
+        d, out = d[:, hit], out[:, hit]
+        c = (out[6:9] / torch.linalg.vector_norm(out[6:9], dim=0)
+             * d).sum(0)
+        q, u, v = out[15], out[16], out[17]
+        if kind == "pol":
+            want_q = (c * c - 1) / (1 + c * c)
+            want_v = 2 * c / (1 + c * c) * stokes[2]
+            errs = [float((q - want_q).abs().max()),
+                    float(u.abs().max()), float((v - want_v).abs().max())]
+        else:
+            eta = 1 + POLI_ALPHA * (1 - c)
+            kappa = eta + 1 / eta
+            s2 = 1 - c * c
+            errs = [float((q + s2 / (kappa - s2)).abs().max()),
+                    float(u.abs().max()), float(v.abs().max()),
+                    float((out[12] * eta - 1).abs().max())]
+        p_max, n_err, dot = pol_frame_errors(out, torch)
+        law = max(errs)
+        check(law < 1e-5 and p_max <= 1 + 1e-5 and n_err < 1e-5
+              and dot < 1e-5,
+              f"{case}: law off by {errs}, purity {p_max}, |e1| - 1 "
+              f"{n_err}, e1 . d {dot}")
+        worst[case] = law
+        print(f"{case}: {share:.6f} of the photons scattered; law within "
+              f"{law:.2e} "
+              f"({', '.join(f'{e:.2e}' for e in errs)}); max purity "
+              f"{p_max:.8f}; ||e1| - 1| <= {n_err:.2e}; |e1 . d| <= "
+              f"{dot:.2e} [{card}]", flush=True)
+        del d, out, c
+
+
+def pol_sim(phys, case, n, dev, iters=None, seed=0, chunk=1024):
+    """run_all.py:391-413 polarized_rayleigh_1e7 ("polarized": n
+    unpolarized photons along +x, Rayleigh with A = n = 1e-3, chunks of
+    1024) and make_polarimetry_nb.py:154-166 ("polarimetry": n photons
+    linearly polarized along z, forced polarized Compton at alpha = 0.5
+    with the heating tally, the Stokes tally without local Q and U, one
+    chunk). Returns ``(sim, Stokes tally or None, Compton step or
+    None)``."""
+    pol = phys.polarization
+    iters = iters or (POL_ITERS if case == "polarized" else POLI_ITERS)
+    sim = phys.Simulation(until_t=(iters - 0.5) * POL_DT, seed=seed,
+                          chunk_steps=chunk, device=dev)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(POL_DT)))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    if case == "polarized":
+        sim.add_step(2, pol.ScatterPolarizedRayleighStep(
+            A=np.double(0.001), n=np.double(0.001)))
+        sim.add_photons(pol.polarized_photon_state(n, E=1.0, device=dev))
+        return sim, None, None
+    a = np.sqrt(2.0 / (float(phys.light.c) * POL_DT))  # pcoll = 2
+    comp = pol.ScatterPolarizedComptonStep(
+        A=np.double(a), n=np.double(a), mec2=1.0 / POLI_ALPHA,
+        measure_deposition=True)
+    sim.add_step(2, comp)
+    sm = pol.StokesMeasureStep(None, local_qu=False)
+    sim.add_step(3, sm)
+    sim.add_photons(pol.polarized_photon_state(
+        n, E=1.0, stokes=(1.0, 0.0, 0.0), device=dev))
+    return sim, sm, comp
+
+
+def pol_paths(torch, phys, F, dev, card, pft, ift, grids):
+    """Phases (c) and (d): the polarized Rayleigh path and the polarimetry
+    path through Simulation at 10**7 photons (each run twice, the second
+    profiled for the idle share); returns each first run's launches."""
+    out = {}
+    for case, ft in (("polarized", pft), ("polarimetry", ift)):
+        n = POL_N if case == "polarized" else POLI_N
+        iters = POL_ITERS if case == "polarized" else POLI_ITERS
+        phase(f"{case} path: {n} photons, {iters} iterations")
+
+        def run(profile):
+            F.fused_transport.launches = 0
+            sim, sm, comp = pol_sim(phys, case, n, torch.device(dev))
+            wall, prof, peak = run_sim(torch, sim, profile)
+            return sim, sm, comp, wall, prof, peak, F.fused_transport.launches
+
+        sim, sm, comp, wall, _, peak, launches = run(False)
+        text = sim.explain_plan()
+        print(text)
+        # the t-exit on a chunk boundary dispatches an empty last chunk
+        chunks = [k for _, k, _ in sim.chunk_log]
+        check(sim.used_fused and len(sim.ts) == iters
+              and [k for k in chunks if k] == [1024] * (iters // 1024)
+              and launches == len(chunks)
+              and "kernel writes back: stokes, pol_ref" in text,
+              f"{case}: launches {launches}, chunks {chunks}")
+        st = sim.sim_state
+        live = st.alive[:n]
+        stokes, frame, v = (st.extras["stokes"][:, :n],
+                            st.extras["pol_ref"][:, :n], st.v[:, :n])
+        check(bool(live.all()), f"{case}: photons died")
+        finite = bool(torch.isfinite(stokes).all()
+                      and torch.isfinite(frame).all()
+                      and torch.isfinite(v).all())
+        speed = torch.linalg.vector_norm(v.double(), dim=0)
+        d = v.double() / speed
+        e1 = frame.double()
+        purity = torch.linalg.vector_norm(stokes.double(), dim=0)
+        p_max = float(purity.max())
+        n_err = float((torch.linalg.vector_norm(e1, dim=0) - 1).abs().max())
+        dot = float((e1 * d).sum(0).abs().max())
+        v_err = float((speed / C_LIGHT - 1).abs().max())
+        check(finite and p_max <= 1 + 1e-6 and n_err < 1e-5 and dot < 1e-5
+              and v_err < 1e-6,
+              f"{case}: finite {finite}, purity {p_max}, |e1| - 1 {n_err}, "
+              f"e1 . d {dot}, |v| / c - 1 {v_err}")
+        what = (f"max purity {p_max:.8f}, ||e1| - 1| <= {n_err:.2e}, |e1 . "
+                f"d| <= {dot:.2e}, |v| = c within {v_err:.2e}, mean purity "
+                f"{float(purity.mean()):.6f}")
+        if case == "polarimetry":
+            rows = np.asarray(sm.data, np.float64)
+            # the source is pure (p = 1); the first three scatters
+            # depolarize (the Fano matrix's kappa - 2), then the recoil
+            # lowers alpha toward the Thomson limit and the mean purity
+            # recovers: the JAX package's rows at 4096 photons have this
+            # shape (tests/test_torch_polarization.py, case "polarimetry")
+            p_mean = rows[:12, 2]
+            check(rows.shape == (iters, 4) and p_mean[0] > p_mean[1] >
+                  p_mean[2] and bool((np.diff(p_mean[2:]) > 0).all())
+                  and bool((p_mean < 0.97).all()),
+                  f"polarimetry: the mean purity over the first 12 rows does "
+                  f"not fall from 1 for three rows and then rise: "
+                  f"{p_mean.tolist()}")
+            ref = (float(purity.mean()), float(stokes[2].double().mean()))
+            last = rows[-1, 2:4]
+            scale = max(abs(ref[0]), 1e-30)
+            off = [abs(last[j] - ref[j]) / scale for j in range(2)]
+            check(max(off) <= 1e-5, f"polarimetry: the last Stokes row "
+                  f"{last.tolist()} against the final planes' means {ref}")
+            dep = np.asarray(comp.data, np.float64)
+            E = float(st.E[:n].double().sum())
+            chain = record_chain(st.capacity, grids[case])
+            tol = (chain + 2) * 2.0 ** -24 * float(np.abs(dep[:, 1]).sum()) \
+                + n * 2.0 ** -24
+            balance = float(dep[:, 1].sum()) + E - n
+            check(dep.shape == (iters, 2) and abs(balance) <= tol,
+                  f"polarimetry: deposits + sum E - N E0 = {balance:.4e} "
+                  f"beyond {tol:.4e}")
+            what += (f"; purity over the first 12 rows "
+                     f"{np.round(p_mean, 6).tolist()}; last row (p, V) "
+                     f"{last.tolist()} against the planes' {ref} within "
+                     f"{max(off):.2e}; deposits + sum E - N E0 = "
+                     f"{balance:.4e} (allowed {tol:.4e})")
+        print(f"{case} path: {len(sim.ts)} iterations in chunks {chunks}, "
+              f"fused_transport launches {launches}; {what}")
+        if len([k for k in chunks if k]) > 1:
+            rate, steady_s = steady_rate(sim, np.full(len(sim.ts), n))
+            loop = (f"{rate:.4e} photon-steps/s over the dispatch loop "
+                    f"after the first chunk, device clock "
+                    f"({steady_s * 1e3:.1f} ms)")
+        else:  # one chunk: the loop after it is empty
+            loop = (f"one chunk: {n * chunks[0] / ft['ms'] * 1e3:.4e} "
+                    "photon-steps/s in the kernel alone")
+        print(f"{case} path rate: {loop}; {n * len(sim.ts) / wall:.4e} from "
+              f"start() ({wall:.3f} s wall); set-up {sim.setup_seconds:.3f} "
+              f"s; peak memory {peak / 2 ** 30:.2f} GiB; kernel "
+              f"{ft['ms']:.2f} ms per chunk against a bound of "
+              f"{ft['bound_ms']:.2f} ms [{card}]", flush=True)
+        out[case] = {"fused_launches": launches}
+        del sim, st, live, stokes, frame, v, d, e1, purity, speed
+        sim2, _, _, _, prof, _, _ = run(True)
+        busy, span = device_busy(prof, torch)
+        print(f"{case} path device idle share (profiled second run, first to "
+              f"last fused_transport kernel): {1 - busy / span:.4f} "
+              f"({busy:.1f} ms busy of {span:.1f} ms) [{card}]", flush=True)
+        del sim2, prof
+    return out
 
 
 if __name__ == "__main__":

@@ -7,8 +7,10 @@ multi-iteration chunks — on torch tensors. On a CUDA device each chunk is
 one launch of the hand-written kernel ``csrc/fused_transport.cu``, built
 with ``nvcc`` at the first CUDA dispatch (importing the package needs no
 ``nvcc``); on the CPU it is the kernel's plain PyTorch twin, which the
-tests hold draw for draw against the JAX package. The package imports
-``torch`` and never ``jax``.
+tests hold draw for draw against the JAX package. Later slices add the
+Planck source, media, geometry and streams, the scatter family, charged
+particles and polarized transport (:mod:`physicl_tpu_torch.polarization`).
+The package imports ``torch`` and never ``jax``.
 """
 
 from physicl_tpu_torch.units import (
@@ -33,6 +35,7 @@ from physicl_tpu_torch.state import SimState
 
 from physicl_tpu_torch import newton  # noqa: F401
 from physicl_tpu_torch import light  # noqa: F401
+from physicl_tpu_torch import polarization  # noqa: F401
 
 __version__ = "0.1.0"
 
@@ -54,4 +57,5 @@ __all__ = [
     "SimState",
     "newton",
     "light",
+    "polarization",
 ]

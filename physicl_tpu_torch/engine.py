@@ -442,6 +442,11 @@ class Simulation(threading.Thread):
         if plan.extras:
             notes.append("packed per-particle planes: 15 core + "
                          + " + ".join(plan.extras))
+        if plan.extras_writeback:
+            # the Stokes and frame rows come back from the kernel into
+            # sim_state.extras after every chunk
+            notes.append("kernel writes back: "
+                         + ", ".join(plan.extras_writeback))
         self.plan_report = PlanReport(
             mode="fused", chunk=plan.chunk, fuse_setting=self.fuse,
             allow_fuse=True,

@@ -423,10 +423,18 @@ class PhotonEmitterStep(Step):
     ``isotropic=True`` draws angle-uniform directions; ``r`` is the
     emission point.
 
-    Not ported, and refused by the prover with a named code: polarized
-    sources (``stokes=`` / ``pol_ref=``, code ``emitter-polarized``), any
-    other callable ``E`` (a user function cannot be inlined into the CUDA
-    kernel, code ``emitter-sampler``), and the generic tier's ``apply``.
+    Polarized sources: ``stokes=(Q, U, V)`` emits photons carrying that
+    normalized Stokes vector (the population must come from
+    ``polarization.polarized_photon_state``, so that the Stokes planes
+    exist). For a directed source the ``Q > 0`` axis is ``pol_ref``
+    (default: z-hat where possible) projected perpendicular to ``v``; an
+    ``isotropic=True`` source may carry circular polarization (``V``) only,
+    with a zero frame. Default: unpolarized (zeroed Stokes and frame rows).
+
+    Not ported, and refused by the prover with a named code: any callable
+    ``E`` other than a ``PlanckSampler`` (a user function cannot be inlined
+    into the CUDA kernel, code ``emitter-sampler``), and the generic tier's
+    ``apply``.
     """
 
     needs_capacity_headroom = True  # slots must stay free for emission
@@ -438,12 +446,52 @@ class PhotonEmitterStep(Step):
         self.v = v
         self.r = np.asarray(raw_code_value(r), np.float64).reshape(3)
         self.isotropic = isotropic
-        self.stokes = stokes
+        self.stokes = (None if stokes is None else
+                       np.asarray(raw_code_value(stokes),
+                                  np.float64).reshape(3))
         self.pol_ref = pol_ref
+        if self.stokes is not None:
+            deg = float((self.stokes ** 2).sum())
+            if deg > 1.0 + 1e-9:
+                raise ValueError(
+                    f"emitter stokes degree sqrt(Q^2+U^2+V^2) must be <= 1,"
+                    f" got {deg ** 0.5:.6f}")
+            if isotropic and (self.stokes[0] != 0 or self.stokes[1] != 0):
+                raise ValueError(
+                    "isotropic polarized emission supports circular (V) "
+                    "polarization only: linear Q/U has no well-defined "
+                    "transverse frame across random directions; use a "
+                    "directed source (v=...) for linear polarization")
+        elif pol_ref is not None:
+            raise ValueError("pol_ref= without stokes= has no effect; "
+                             "pass the emitted Stokes vector too")
         self._c = None
+        self._emit_e1 = None
 
     def setup(self, sim) -> None:
         self._c = float(raw_code_value(c))
+        if self.stokes is None or self.isotropic:
+            # an isotropic V-only source: a zero frame (any transverse axis
+            # serves pure circular light)
+            self._emit_e1 = ((0.0, 0.0, 0.0) if self.stokes is not None
+                             else None)
+            return
+        vv = (np.array([1.0, 0.0, 0.0]) if self.v is None
+              else np.asarray(raw_code_value(self.v),
+                              np.float64).reshape(3))
+        d = vv / max(np.linalg.norm(vv), 1e-300)
+        ref = (np.asarray(raw_code_value(self.pol_ref),
+                          np.float64).reshape(3)
+               if self.pol_ref is not None
+               else (np.array([0.0, 0.0, 1.0]) if abs(d[2]) < 0.9
+                     else np.array([0.0, 1.0, 0.0])))
+        p = ref - float(ref @ d) * d
+        nrm = float(np.linalg.norm(p))
+        if nrm < 1e-6:
+            raise ValueError(
+                "emitter pol_ref is (near-)parallel to v; the Q-axis must "
+                "have a component perpendicular to the flight direction")
+        self._emit_e1 = tuple(float(x) for x in p / nrm)
 
     def apply(self, state, ctx):
         raise NotImplementedError("PhotonEmitterStep.apply is the generic "

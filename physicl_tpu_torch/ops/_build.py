@@ -38,6 +38,7 @@ MAX_OPS = 16
 MAX_AXES = 16
 MAX_FIELDS = 8
 MAX_PROG = 64
+ROT_STEPS = 27  # the azimuth bisection's rotation table, k = 0 .. 26
 _ci, _cf = ctypes.c_int, ctypes.c_float
 
 
@@ -75,7 +76,9 @@ class PlanStruct(ctypes.Structure):
                 ("n_ops", _ci), ("n_cols", _ci), ("n_fcols", _ci),
                 ("const_norm", _ci), ("const_speed", _cf),
                 ("n_stream", _ci), ("stream_every", _ci),
-                ("stream_bf16", _ci), ("n_extras", _ci), ("otype_x", _ci)]
+                ("stream_bf16", _ci), ("n_extras", _ci), ("otype_x", _ci),
+                ("wb_mask", _ci),
+                ("rot_sd", _cf * ROT_STEPS), ("rot_cd", _cf * ROT_STEPS)]
 
 
 def _nvcc() -> str:

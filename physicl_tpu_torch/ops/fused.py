@@ -9,11 +9,13 @@ and the deposition tally), ``sign`` (counts or weight sums), ``emit``,
 ``periodic``, ``sabsorb``, ``scross``, ``trace``, the rotation family
 ``hg``, ``rayl``, ``phase`` and ``compton`` (cold and thermal electrons,
 the Klein-Nishina recoil and its heating tally), ``fresnel``, the Boris
-push ``lorentz`` and the column-0 alive count. One chunk runs ``k_act``
-whole simulation iterations over a packed ``(15 + n_extras, C)`` float32
-state (the core planes, then the plan's extras: the derived ``qm`` plane,
-the ``otype`` plane of a mixed population, whose photon ops act only on
-its photons) and returns
+push ``lorentz``, the polarized scatters ``pol`` (Rayleigh) and ``polc``
+(Compton), the Stokes tally ``polmeas`` and the column-0 alive count. One
+chunk runs ``k_act`` whole simulation iterations over a packed ``(15 +
+n_extras, C)`` float32 state (the core planes, then the plan's extras: the
+Stokes and frame rows first, at fixed places, then the ``otype`` plane of
+a mixed population, whose photon ops act only on its photons, and the
+derived ``qm`` plane) and returns
 per-iteration int32 and float32 record rows ``(chunk, 128)`` each, and,
 for plans with stream planes (``trace`` positions, captured energies), a
 ``(ceil(chunk / stream_every), n_stream, C)`` stream buffer: row ``m``
@@ -39,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -64,12 +67,22 @@ _MASK = 0xFFFFFFFF
 OP_CODES = {"kin": 0, "del": 1, "iso": 2, "sign": 3, "emit": 4, "cross": 5,
             "absorb": 6, "reflect": 7, "periodic": 8, "sabsorb": 9,
             "scross": 10, "trace": 11, "hg": 12, "rayl": 13, "phase": 14,
-            "compton": 15, "fresnel": 16, "lorentz": 17}
+            "compton": 15, "fresnel": 16, "lorentz": 17, "pol": 18,
+            "polc": 19, "polmeas": 20}
 # ops only the kernel's geometry/stream instantiation carries (codes 7-11)
 _EXT_OPS = ("reflect", "periodic", "sabsorb", "scross", "trace")
 # ops only the kernel's rotation instantiation carries (codes 12-16), which
 # also runs the "del" variants (exponential transform, fluorescence)
 _ROT_OPS = ("hg", "rayl", "phase", "compton", "fresnel")
+# ops only the kernel's polarization instantiation carries (codes 18-20)
+_POL_OPS = ("pol", "polc", "polmeas")
+# the Stokes and frame rows, packed first among the extras: the kernel reads
+# Stokes at extras 0-2 and the frame at 3-5
+POL_ROWS = ("stokes:0", "stokes:1", "stokes:2",
+            "pol_ref:0", "pol_ref:1", "pol_ref:2")
+# azimuth bisection depths: "pol" under packed angles (its 16-bit draw),
+# "polc" (a full-width draw)
+POL_ITERS, POLC_ITERS = 17, 26
 MAX_OPS = 16
 MAX_EXTRAS = 8    # extras planes (1h's Stokes and frame rows, otype, qm)
 MAX_AXES = 16     # crossing planes over all cross ops of a plan
@@ -147,6 +160,13 @@ class _Op:
     e_const: tuple = ()
     b_const: tuple = ()
     after_update: bool = True
+    # emit: a polarized source's Stokes vector and frame (() = unpolarized:
+    # zeroed rows)
+    emit_stokes: tuple = ()
+    emit_polref: tuple = ()
+    # polmeas: <Q> and <U> columns too (cols = (n_col or -1, first float
+    # column of the weight, p, V(, Q, U) sums); ``weighted`` weights by w)
+    local_qu: bool = False
 
 
 @dataclasses.dataclass
@@ -176,8 +196,12 @@ class FusedPlan:
     species: int = OBJ_PHOTON
     # planes packed after the core 15 (pack_state's names: "qm", "otype",
     # "name:i" rows of a 3-row extras array); the kernel keeps them
-    # read-only except in the slots an emit op fills
+    # read-only except in the slots an emit op fills and the planes of
+    # ``extras_writeback``
     extras: tuple = ()
+    # the extras bases ("stokes", "pol_ref") an op mutates: the kernel
+    # stores their rows for every slot, and unpack_state returns them
+    extras_writeback: tuple = ()
     # the kernel's plan struct and the per-device fit tables, built once
     _cache: dict = dataclasses.field(default_factory=dict, repr=False,
                                      compare=False)
@@ -201,13 +225,24 @@ class FusedPlan:
         bit it needs): bit 0, field code; bit 1, the geometry ops and stream
         stores of ``_EXT_OPS``; bit 2, the rotation family of ``_ROT_OPS``
         and the ``del`` variants (exponential transform, fluorescence); bit
-        3, the ``lorentz`` op and the extras planes (the otype gate)."""
+        3, the ``lorentz`` op and the extras planes (the otype gate); bit 4,
+        the polarization ops of ``_POL_OPS``, polarized emission and the
+        write-back of mutated planes (always with bit 3: those plans carry
+        extras)."""
         ext = self.n_stream or any(op.kind in _EXT_OPS for op in self.ops)
         rot = any(op.kind in _ROT_OPS or op.stretch or op.fluor
                   for op in self.ops)
         mix = self.extras or any(op.kind == "lorentz" for op in self.ops)
+        pol = self.has_pol
         return (int(self.has_fields) | (2 if ext else 0) | (4 if rot else 0)
-                | (8 if mix else 0))
+                | (8 if mix or pol else 0) | (16 if pol else 0))
+
+    @property
+    def has_pol(self) -> bool:
+        """The plan runs a polarization op, a polarized emitter or writes
+        extras planes back (the kernel's polarization instantiation)."""
+        return bool(self.extras_writeback) or any(
+            op.kind in _POL_OPS or op.emit_stokes for op in self.ops)
 
     @property
     def n_planes(self) -> int:
@@ -394,6 +429,73 @@ def _unit_dir(f):
     return f[_VX] * inv_v, f[_VY] * inv_v, f[_VZ] * inv_v
 
 
+@functools.lru_cache(maxsize=None)
+def rot_table():
+    """``(sd, cd)``: float32 ``sin`` and ``cos`` of ``2 delta_k = 2 pi /
+    2**k`` for k = 0 .. POLC_ITERS, computed in float64 and rounded once,
+    as the JAX package folds them into its kernel. The bisection rotates
+    its carried double angle by them; the CUDA kernel takes the same table
+    in its plan."""
+    # scalar float64 sines, one per step, exactly as the JAX trace computes
+    # them (a vectorized numpy sine may round differently)
+    two_delta = [2.0 * (np.pi / (1 << k)) for k in range(POLC_ITERS + 1)]
+    return (np.array([np.sin(x) for x in two_delta], np.float32),
+            np.array([np.cos(x) for x in two_delta], np.float32))
+
+
+def _bisect_phi_sincos(u, a, b, iters: int = POLC_ITERS):
+    """``(sin phi, cos phi, sin 2phi, cos 2phi)`` of the polarized azimuth:
+    ``phi + (a/2) sin 2phi + (b/2)(1 - cos 2phi) = 2 pi u`` solved on [0, 2
+    pi] by ``iters`` monotone bisection steps in float32 (the JAX kernel's
+    ``_bisect_phi_sincos``). The pair ``(sin 2 lo, cos 2 lo)`` is carried
+    and rotated by :func:`rot_table`'s constants, so that no step takes a
+    transcendental; the ``b/2`` term is folded into the target. The
+    half-angle pair comes once at the end, from the well-conditioned root
+    and a division by the larger component, with signs from the interval's
+    end."""
+    sd_t, cd_t = rot_table()
+    half = _c32(0.5)
+    ha = half * a
+    hb = half * b
+    target = u * _c32(2.0 * np.pi) - hb
+    lo = torch.zeros_like(u)
+    s2 = torch.zeros_like(u)   # sin 2 lo
+    c2 = torch.ones_like(u)    # cos 2 lo
+    for k in range(iters):
+        mid = lo + _c32(np.pi / (1 << k))
+        if k == 0:  # the rotation by 2 pi is the identity
+            s2_m, c2_m = s2, c2
+        else:
+            sd, cd = float(sd_t[k]), float(cd_t[k])
+            s2_m = s2 * cd + c2 * sd
+            c2_m = c2 * cd - s2 * sd
+        fv = (mid + ha * s2_m) - hb * c2_m
+        go_hi = fv < target
+        lo = torch.where(go_hi, mid, lo)
+        s2 = torch.where(go_hi, s2_m, s2)
+        c2 = torch.where(go_hi, c2_m, c2)
+    # the final midpoint: one more half-interval rotation
+    sd, cd = float(sd_t[iters]), float(cd_t[iters])
+    s2_f = s2 * cd + c2 * sd
+    c2_f = c2 * cd - s2 * sd
+    phi = lo + _c32(np.pi / (1 << iters))
+    inv = _rsqrt_max(s2_f * s2_f + c2_f * c2_f)
+    s2_f = s2_f * inv
+    c2_f = c2_f * inv
+    big_c = c2_f >= 0
+    cp_mag = _sqrt_rn((1.0 + c2_f) * half)
+    sp_mag = _sqrt_rn((1.0 - c2_f) * half)
+    sign_c = torch.where((phi < _c32(0.5 * np.pi))
+                         | (phi > _c32(1.5 * np.pi)), 1.0, -1.0)
+    sign_s = torch.where(phi < _c32(np.pi), 1.0, -1.0)
+    cp_big = sign_c * cp_mag
+    sp_big = sign_s * sp_mag
+    hs2 = s2_f * half
+    cos_p = torch.where(big_c, cp_big, hs2 / torch.where(big_c, 1.0, sp_big))
+    sin_p = torch.where(big_c, hs2 / torch.where(big_c, cp_big, 1.0), sp_big)
+    return sin_p, cos_p, s2_f, c2_f
+
+
 def plan_fields(ops):
     """The distinct field specs the ops use, in first-use order (one kernel
     field each: ops sharing a callable share its entry and its device
@@ -440,6 +542,7 @@ def _check_plan(plan: FusedPlan) -> None:
                 op.qm_plane < 0 or _NF <= op.qm_plane < plan.n_planes):
             raise ValueError(f"lorentz reads plane {op.qm_plane} of "
                              f"{plan.n_planes}")
+    _check_pol(plan)
     if sum(len(op.axes) for op in plan.ops) > MAX_AXES:
         raise ValueError(f"crossing planes exceed the kernel's {MAX_AXES}")
     specs, _ = plan_fields(plan.ops)
@@ -462,6 +565,36 @@ def _check_plan(plan: FusedPlan) -> None:
                for p in planes):
             raise ValueError(f"{op.kind} writes stream planes {planes} but "
                              f"the plan has {plan.n_stream}")
+
+
+def _check_pol(plan: FusedPlan) -> None:
+    """The polarization ops' layout contract with the kernel: the Stokes
+    rows lead the extras, the frame rows follow where an op needs them,
+    and an op that mutates them has them written back."""
+    both = plan.extras[:6] == POL_ROWS
+    for op in plan.ops:
+        if op.kind in ("pol", "polc") or op.emit_stokes:
+            if not both:
+                raise ValueError(f"{op.kind} needs extras {POL_ROWS} first "
+                                 f"(got {plan.extras})")
+            if not {"stokes", "pol_ref"} <= set(plan.extras_writeback):
+                raise ValueError(f"{op.kind} mutates the Stokes and frame "
+                                 "planes: both need write-back")
+            if op.kind == "emit" and (len(op.emit_stokes) != 3
+                                      or len(op.emit_polref) != 3):
+                raise ValueError("a polarized emit needs 3 Stokes and 3 "
+                                 "frame values")
+        if op.kind == "polmeas" and plan.extras[:3] != POL_ROWS[:3]:
+            raise ValueError(f"polmeas needs extras {POL_ROWS[:3]} first")
+        if op.fluor:
+            bases = {n.split(":")[0] for n in plan.extras} & {"stokes",
+                                                              "pol_ref"}
+            if not bases <= set(plan.extras_writeback):
+                raise ValueError("fluorescence zeroes the Stokes and frame "
+                                 "planes: they need write-back")
+    for base in plan.extras_writeback:
+        if not any(n.split(":")[0] == base for n in plan.extras):
+            raise ValueError(f"write-back of {base!r}, which is not packed")
 
 
 def _axis(ax) -> tuple:
@@ -662,6 +795,11 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                         f[_DVX + d] = torch.where(fluo, vn - old,
                                                   f[_DVX + d])
                     f[_E] = torch.where(fluo, E_f, f[_E])
+                    # fluorescence light is unpolarized: the re-emitted
+                    # photons' Stokes and frame rows are zeroed
+                    for j, name in enumerate(plan.extras):
+                        if name.split(":")[0] in ("stokes", "pol_ref"):
+                            f[_NF + j] = torch.where(fluo, 0.0, f[_NF + j])
                     alive = alive & ~killed
                     f[_ALIVE] = alive.to(torch.float32)
                 else:
@@ -841,6 +979,127 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                         rec_f[k, op.cols[0]] = fsum(scatter,
                                                     f[_W] * (f[_E] - E_new))
                     f[_E] = torch.where(scatter, E_new, f[_E])
+            elif op.kind in ("pol", "polc"):
+                # Stokes-polarized scatter: theta from the dipole marginal
+                # (pol) or Klein-Nishina (polc), phi | theta by bisection,
+                # the Fano matrix with kappa = 2 (pol) or eta + 1/eta, the
+                # frame rotated with the direction; every slot keeps its
+                # frame re-orthonormalized against v
+                pcoll = coef * dr_norm()
+                if op.n_fn is not None:
+                    pcoll = pcoll * n_of(op)
+                eta = None
+                if op.kind == "polc":
+                    alpha = f[_E] * _c32(op.inv_mec2)
+                    if op.kn_xsec:
+                        pcoll = pcoll * lt._kn_sigma_ratio(alpha, fast=True)
+                    u = rng.uniform()
+                    pu = rng.uniform()
+                    cos_t, eta, kn_ok = _kn_cos_eta_fused(alpha, rng,
+                                                          op.kn_tries)
+                    kappa = eta + 1.0 / eta
+                    scatter = (pcoll >= u) & ph_alive() & kn_ok
+                else:
+                    if wl_base is not None:
+                        base = f[_E] * wl_base
+                        b2 = base * base
+                        pcoll = pcoll * (b2 * b2)
+                    u = rng.uniform()
+                    cu, pu = rng.uniform_pair()
+                    kappa = _f32(2.0).to(dev)
+                    scatter = (pcoll >= u) & ph_alive()
+                st_p, pr_p = _NF, _NF + 3  # POL_ROWS lead the extras
+                dx, dy, dz = _unit_dir(f)
+                q, u_st, v_st = f[st_p], f[st_p + 1], f[st_p + 2]
+                dot = dx * f[pr_p] + dy * f[pr_p + 1] + dz * f[pr_p + 2]
+                p0 = f[pr_p] - dot * dx
+                p1 = f[pr_p + 1] - dot * dy
+                p2 = f[pr_p + 2] - dot * dz
+                n2 = p0 * p0 + p1 * p1 + p2 * p2
+                inv_n = _rsqrt_max(n2)
+                # a degenerate frame (zero-filled rows of a fresh photon):
+                # z-hat where |dz| < 0.9, else y-hat, orthonormalized
+                use_z = dz.abs() < 0.9
+                cy = torch.where(use_z, 0.0, 1.0)
+                cz = torch.where(use_z, 1.0, 0.0)
+                dotc = dy * cy + dz * cz
+                fb0 = -dotc * dx
+                fb1 = cy - dotc * dy
+                fb2 = cz - dotc * dz
+                inv_fb = _rsqrt_max(fb0 * fb0 + fb1 * fb1 + fb2 * fb2)
+                degen = n2 < _f32(1e-8).to(dev)
+                e1x = torch.where(degen, fb0 * inv_fb, p0 * inv_n)
+                e1y = torch.where(degen, fb1 * inv_fb, p1 * inv_n)
+                e1z = torch.where(degen, fb2 * inv_fb, p2 * inv_n)
+                if op.kind == "pol":
+                    cos_t = lt._rayleigh_cos_theta(cu, fast=True)
+                c2 = cos_t * cos_t
+                s2_ = 1.0 - c2
+                r_t = -s2_ / (kappa - s2_)
+                sin_p, cos_p, sin2p, cos2p = _bisect_phi_sincos(
+                    pu, r_t * q, r_t * u_st,
+                    POL_ITERS if op.kind == "pol" else POLC_ITERS)
+                q_r = q * cos2p + u_st * sin2p
+                u_r = u_st * cos2p - q * sin2p
+                i_new = (kappa - s2_) - s2_ * q_r
+                inv_i = 1.0 / torch.maximum(i_new, _f32(1e-7).to(dev))
+                q_new = ((-s2_ + (1.0 + c2) * q_r) * inv_i).clamp(-1.0, 1.0)
+                u_new = (2.0 * cos_t * u_r * inv_i).clamp(-1.0, 1.0)
+                v_new = (kappa * cos_t * v_st * inv_i).clamp(-1.0, 1.0)
+                # the over-purity clamp near the Mueller null
+                pscale = 1.0 / _sqrt_rn(torch.maximum(
+                    q_new * q_new + u_new * u_new + v_new * v_new, one))
+                q_new = q_new * pscale
+                u_new = u_new * pscale
+                v_new = v_new * pscale
+                sin_t = _sqrt_rn((1.0 - c2).clamp_min(0.0))
+                e2x = dy * e1z - dz * e1y
+                e2y = dz * e1x - dx * e1z
+                e2z = dx * e1y - dy * e1x
+                ax_ = cos_p * e1x + sin_p * e2x
+                ay_ = cos_p * e1y + sin_p * e2y
+                az_ = cos_p * e1z + sin_p * e2z
+                nd = (cos_t * dx + sin_t * ax_, cos_t * dy + sin_t * ay_,
+                      cos_t * dz + sin_t * az_)
+                cval = c_val * _rsqrt_max(nd[0] * nd[0] + nd[1] * nd[1]
+                                          + nd[2] * nd[2])
+                for d in range(3):
+                    old = f[_VX + d]
+                    vn = nd[d] * cval
+                    f[_VX + d] = torch.where(scatter, vn, old)
+                    f[_DVX + d] = torch.where(scatter, vn - old, 0.0)
+                n1 = (cos_t * ax_ - sin_t * dx, cos_t * ay_ - sin_t * dy,
+                      cos_t * az_ - sin_t * dz)
+                inv_e1 = _rsqrt_max(n1[0] * n1[0] + n1[1] * n1[1]
+                                    + n1[2] * n1[2])
+                f[st_p] = torch.where(scatter, q_new, q)
+                f[st_p + 1] = torch.where(scatter, u_new, u_st)
+                f[st_p + 2] = torch.where(scatter, v_new, v_st)
+                for d, e1 in enumerate((e1x, e1y, e1z)):
+                    f[pr_p + d] = torch.where(scatter, n1[d] * inv_e1, e1)
+                if eta is not None:  # the recoil
+                    E_new = f[_E] / eta
+                    if op.cols:  # heating: w (E - E') over scatters
+                        rec_f[k, op.cols[0]] = fsum(scatter,
+                                                    f[_W] * (f[_E] - E_new))
+                    f[_E] = torch.where(scatter, E_new, f[_E])
+            elif op.kind == "polmeas":
+                # weight, degree of polarization, V (and Q, U) sums over
+                # alive particles (not photon-gated); the host divides
+                st_p = _NF
+                n_col, f0 = op.cols
+                if n_col >= 0:
+                    rec[k, n_col] = count(alive)
+                wt = alive.to(torch.float32)
+                if op.weighted:
+                    wt = wt * f[_W]
+                qs, us, vs = f[st_p], f[st_p + 1], f[st_p + 2]
+                pdeg = _sqrt_rn(qs * qs + us * us + vs * vs)
+                sums = [wt, wt * pdeg, wt * vs]
+                if op.local_qu:
+                    sums += [wt * qs, wt * us]
+                for j, x in enumerate(sums):
+                    rec_f[k, f0 + j] = x.sum()
             elif op.kind == "fresnel":
                 # the refractive plane: photons whose segment crossed it
                 # reflect (probability R) or refract, and retrace the rest
@@ -952,11 +1211,18 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                 for d in range(3):
                     f[_VX + d] = torch.where(mask, vnew[d], f[_VX + d])
                 f[_W] = torch.where(mask, 1.0, f[_W])
-                # fresh photons: zeroed extras, and photons in the otype
-                # plane, so that this chunk's photon ops see them
+                # fresh photons: zeroed extras (a polarized source's Stokes
+                # and frame rows instead), and photons in the otype plane,
+                # so that this chunk's photon ops see them
+                fill = {}
+                if op.emit_stokes:
+                    fill = dict(zip(POL_ROWS, (*op.emit_stokes,
+                                               *op.emit_polref)))
                 for j, name in enumerate(plan.extras):
                     if name != "otype":
-                        f[_NF + j] = torch.where(mask, 0.0, f[_NF + j])
+                        f[_NF + j] = torch.where(
+                            mask, _f32(fill.get(name, 0.0)).to(dev),
+                            f[_NF + j])
                 if p_otype >= 0:
                     f[p_otype] = torch.where(mask, float(OBJ_PHOTON),
                                              f[p_otype])
@@ -1065,6 +1331,14 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
             o.box[:3] = [loc, n_lo, n_hi]
         elif op.kind == "sign":
             o.flag = int(op.weighted)
+        elif op.kind == "pol":
+            o.flag = int(op.wl_base is not None)
+        elif op.kind == "polc":
+            o.box[0] = op.inv_mec2
+            o.flag = 2 * int(op.kn_xsec)
+            o.emit_n = op.kn_tries
+        elif op.kind == "polmeas":  # PolmeasFlag: weighted 1, local_qu 2
+            o.flag = int(op.weighted) | 2 * int(op.local_qu)
         elif op.kind == "lorentz":
             # LorentzFlag: E 1, B 2, the dt after the update 4; the
             # species-wide 0.5 q/m rounded to float32 (jnp.float32(0.5 *
@@ -1090,6 +1364,11 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
             o.emit_scale = op.emit_scale
             o.emit_r[:] = [float(x) for x in op.emit_r]
             o.emit_v[:] = [float(x) for x in (op.emit_v or (0.0,) * 3)]
+            # a polarized source: its Stokes vector, then its frame
+            o.capture = int(bool(op.emit_stokes))
+            if op.emit_stokes:
+                o.box[:] = [float(x) for x in (*op.emit_stokes,
+                                               *op.emit_polref)]
             o.icdf = -1
             if op.emit_table is not None:
                 o.icdf = sum(a.size for a in aux)
@@ -1118,6 +1397,10 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
     ps.n_extras = len(plan.extras)
     ps.otype_x = (plan.extras.index("otype")
                   if plan.species == SPECIES_MIXED else -1)
+    ps.wb_mask = sum(1 << j for j, name in enumerate(plan.extras)
+                     if name.split(":")[0] in plan.extras_writeback)
+    if plan.has_pol:
+        ps.rot_sd[:], ps.rot_cd[:] = (t.tolist() for t in rot_table())
     # once per plan and device: no copy on the dispatch path
     aux = (torch.from_numpy(np.concatenate(aux).astype(np.float32)).to(dev)
            if aux else None)
@@ -1260,16 +1543,28 @@ def pack_state(state: SimState, extras: tuple = ()) -> torch.Tensor:
     return torch.cat(planes, dim=0).contiguous()
 
 
-def unpack_state(packed: torch.Tensor, template: SimState) -> SimState:
+def unpack_state(packed: torch.Tensor, template: SimState,
+                 extras: tuple = (), writeback: tuple = ()) -> SimState:
     """Packed ``(15 + n_extras, C)`` -> SimState. The vector fields are
-    views of ``packed``, so the state shares its storage. The extras planes
-    stay with the host's ``template.extras`` and ``otype``: the kernel
+    views of ``packed``, so the state shares its storage. ``writeback``
+    names the 3-row extras bases the kernel mutated (``FusedPlan.
+    extras_writeback``): their rows ``"name:0"`` .. ``"name:2"``, which the
+    prover packs in order among ``extras`` (the plan's packed names),
+    replace ``template.extras[name]`` as a view. Every other extras plane
+    stays with the host's ``template.extras`` and ``otype``: the kernel
     changes them only in the slots an emit op fills, which the provider
     retypes and zeroes itself."""
-    return template.replace(
+    state = template.replace(
         r=packed[_RX:_RX + 3], dr=packed[_DRX:_DRX + 3],
         v=packed[_VX:_VX + 3], dv=packed[_DVX:_DVX + 3],
         E=packed[_E].to(template.E.dtype),
         alive=packed[_ALIVE] > 0,
         w=packed[_W].to(template.w.dtype),
     )
+    if not writeback:
+        return state
+    new_extras = dict(template.extras)
+    for base in writeback:
+        p = _NF + extras.index(f"{base}:0")
+        new_extras[base] = packed[p:p + 3].to(template.extras[base].dtype)
+    return state.replace(extras=new_extras)

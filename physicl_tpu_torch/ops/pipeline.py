@@ -20,8 +20,11 @@ thermal electrons, the heating tally), each with a density field,
 (constant or ``PlanckSampler`` energies), ``ScatterSignMeasureStep``
 (counts or weight sums), ``ScatterMeasureStep`` (counts, weight sums,
 energy sums or per-photon energy lists), ``SphericalShellMeasureStep`` and
-``TracePathMeasureStep`` (strided, bfloat16) and ``LorentzForceStep``
-(constant E and B, a species-wide or per-particle q/m), on a photon, a
+``TracePathMeasureStep`` (strided, bfloat16), ``LorentzForceStep``
+(constant E and B, a species-wide or per-particle q/m), the polarized
+``ScatterPolarizedRayleighStep``, ``ScatterPolarizedComptonStep`` and
+``StokesMeasureStep`` and polarized emitters (Stokes and frame rows as
+extras planes the kernel writes back), on a photon, a
 generic (charged; no photon steps) or a mixed population (photon ops
 gated per particle by a packed otype plane), with a t-only or extinction
 exit. Fields are C expressions, layered or voxel media
@@ -398,20 +401,25 @@ class FusedProvider:
             self.hwm_h = int(hwm_after[k_act - 1])
             self.sim._hwm = self.hwm_h
 
-        new_state = F.unpack_state(out, state).replace(
+        plan = self.plan
+        new_state = F.unpack_state(out, state, plan.extras,
+                                   plan.extras_writeback).replace(
             t=_scalar(self.t_h, state.t), dt=_scalar(self.dt_h, state.t),
             t_comp=_scalar(self.comp_h, state.t),
             n_spawned=_scalar(self.hwm_h, state.n_spawned))
         if self.hwm_h > hwm_before:
             # emitted slots are photons in the host-side otype mirror, and
-            # start with zeroed extras planes (the kernel wrote the rest)
+            # start with zeroed extras planes (the kernel wrote the rest);
+            # written-back planes already hold what the kernel wrote there
+            # (a polarized source's Stokes and frame rows)
             if self._slots is None or self._slots.device != dev:
                 self._slots = torch.arange(state.capacity, device=dev)
             emitted = ((self._slots >= hwm_before)
                        & (self._slots < self.hwm_h))
+            wb = set(plan.extras_writeback)
             new_state = new_state.replace(
                 otype=torch.where(emitted, OBJ_PHOTON, new_state.otype),
-                extras={k: torch.where(emitted, 0, v)
+                extras={k: v if k in wb else torch.where(emitted, 0, v)
                         for k, v in new_state.extras.items()})
         self._last_state = new_state
         self._last_packed = out
@@ -499,6 +507,18 @@ class FusedProvider:
                     if p >= 0:  # per-photon E capture, compacted in collect
                         records[f"{uid}/E{j}"] = _EList(
                             inflight.stream, p, inflight.ready)
+            elif m["kind"] == "polmeas":
+                # the kernel sums weight, p, V (, Q, U): the means divide
+                # by the weight sum, as the JAX package's harvest does
+                records[f"{uid}/t"] = t_arr
+                if m["n_col"] >= 0:
+                    records[f"{uid}/n"] = rec_np[:, m["n_col"]]
+                f0 = m["f0"]
+                denom = np.maximum(recf_np[:, f0], 1e-30)
+                names = ("p_mean", "V_mean") + (("Q_mean", "U_mean")
+                                                if m["local_qu"] else ())
+                for j, name in enumerate(names):
+                    records[f"{uid}/{name}"] = recf_np[:, f0 + 1 + j] / denom
             elif m["kind"] == "trace":
                 # the raw buffer: the step slices at assembly time
                 records[f"{uid}/traceraw"] = _TraceRaw(
@@ -541,6 +561,20 @@ def _whole_periods(chunk: int, every: int, periods, budget: int,
     return max(1, min(chunk, budget // row_bytes)), 1
 
 
+def _population_pol_planes(sim) -> tuple:
+    """The subset of ``("stokes", "pol_ref")`` that any pending source
+    declares (a bulk's ``"extras"`` or an object's attribute). A
+    fluorescent del zeroes each one it finds, so a population that declares
+    only one still packs and writes that one back."""
+    found = set()
+    for b in sim._pending_bulk:
+        found.update(nm for nm in ("stokes", "pol_ref")
+                     if nm in (b.get("extras") or {}))
+    for o in sim._pending_objects:
+        found.update(nm for nm in ("stokes", "pol_ref") if hasattr(o, nm))
+    return tuple(nm for nm in ("stokes", "pol_ref") if nm in found)
+
+
 def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
     """Return a FusedProvider for the sim, or raise :class:`FusedRefusal`."""
     from physicl_tpu_torch.engine import UpdateTimeStep
@@ -567,6 +601,11 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
         PeriodicBoundaryStep,
         ReflectingBoundaryStep,
         _static_bounds,
+    )
+    from physicl_tpu_torch.polarization import (
+        ScatterPolarizedComptonStep,
+        ScatterPolarizedRayleighStep,
+        StokesMeasureStep,
     )
 
     def _no(code: str, detail: str):
@@ -613,8 +652,32 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
         # an emitter turns a non-photon population mixed at its first
         # emission: plan the otype-gated kernel from the start
         species = F.SPECIES_MIXED
-    # planes packed after the core 15 (F.pack_state's names)
-    extra_names: List[str] = ["otype"] if species == F.SPECIES_MIXED else []
+    # the Stokes and frame planes the population declares, and whether it
+    # declares both (what the polarized ops need; from_population zero-fills
+    # the rest: unpolarized, a degenerate frame)
+    declared = _population_pol_planes(sim)
+    has_stokes = declared == ("stokes", "pol_ref")
+    pol_steps = (ScatterPolarizedRayleighStep, ScatterPolarizedComptonStep)
+    # the polarization planes to pack: both for a polarized scatter or
+    # source, Stokes for the tally, and for a fluorescent del (which zeroes
+    # them in re-emitted photons) each plane the population declares
+    pol_bases = set()
+    for s in steps:
+        if type(s) in pol_steps or (type(s) is PhotonEmitterStep
+                                    and s.stokes is not None):
+            pol_bases |= set(declared) if has_stokes else set()
+        elif type(s) is StokesMeasureStep and has_stokes:
+            pol_bases.add("stokes")
+        elif type(s) is ScatterDeleteStep and s.fluorescence:
+            pol_bases |= set(declared)
+    # planes packed after the core 15 (F.pack_state's names): the Stokes
+    # rows, then the frame rows, at the fixed places the kernel reads them
+    # from (F.POL_ROWS), then the otype codes of a mixed population
+    extra_names: List[str] = [f"{b}:{i}" for b in ("stokes", "pol_ref")
+                              if b in pol_bases for i in range(3)]
+    if species == F.SPECIES_MIXED:
+        extra_names.append("otype")
+    pol_wb = set()  # the polarization planes an op mutates: written back
 
     ops: List[F._Op] = []
     rec_map: List[dict] = []
@@ -648,7 +711,15 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
     photon_only = (ScatterDeleteStep, ScatterIsotropicStep,
                    ScatterHenyeyGreensteinStep, ScatterRayleighStep,
                    ScatterPhaseFunctionStep, ScatterComptonStep,
-                   RefractiveInterfaceStep, PhotonEmitterStep)
+                   RefractiveInterfaceStep, PhotonEmitterStep, *pol_steps)
+
+    def need_stokes(step, what):
+        """The polarization-planes refusal: the population must declare
+        both planes (the generic tier raises the instructive error)."""
+        if not has_stokes:
+            _no("polarization-planes", f"{what} but no pending population "
+                "declares 'stokes' + 'pol_ref' extras (polarization."
+                "polarized_photon_state)")
     for s in steps:
         uid = s._step_uid
         if isinstance(s, photon_only) and species not in (OBJ_PHOTON,
@@ -706,6 +777,8 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
             n_fn = _field(s, s._n_fn, "variable_n_fn", _R)
             a_fn = _field(s, s._a_fn, "A_fn", ("E",))
             dep_cols = dep_col(s)
+            if s.fluorescence:  # zeroes the re-emitted photons' planes
+                pol_wb |= set(declared)
             ops.append(F._Op("del", coef=s._coef, n_fn=n_fn, a_fn=a_fn,
                              implicit_capture=s.implicit_capture,
                              roulette=tuple(s.roulette or ()),
@@ -743,6 +816,30 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
                              kn_tries=s.kn_max_tries,
                              theta_e=float(s._theta_e or 0.0),
                              cols=dep_col(s)))
+        elif type(s) in pol_steps:
+            need_stokes(s, type(s).__name__)
+            s.setup(sim)
+            n_fn = _field(s, s._n_fn, "variable_n_fn", _R)
+            pol_wb |= {"stokes", "pol_ref"}
+            if type(s) is ScatterPolarizedRayleighStep:
+                ops.append(F._Op("pol", coef=s._coef, wl_base=s._wl_base,
+                                 c_val=s._c, n_fn=n_fn))
+            else:
+                ops.append(F._Op("polc", coef=s._coef, n_fn=n_fn,
+                                 c_val=s._c, inv_mec2=s._inv_mec2,
+                                 kn_xsec=s.kn_cross_section,
+                                 kn_tries=s.kn_max_tries, cols=dep_col(s)))
+        elif type(s) is StokesMeasureStep:
+            need_stokes(s, "StokesMeasureStep")
+            n_col = next_col if s.measure_n else -1
+            next_col += 1 if s.measure_n else 0
+            f0 = next_fcol
+            next_fcol += 5 if s.local_qu else 3
+            ops.append(F._Op("polmeas", cols=(n_col, f0),
+                             weighted=s.weighted, local_qu=s.local_qu))
+            rec_map.append({"uid": uid, "kind": "polmeas", "n_col": n_col,
+                            "f0": f0, "local_qu": s.local_qu})
+            measure_after_update[uid] = update_seen
         elif type(s) is RefractiveInterfaceStep:
             s.setup(sim)
             ops.append(F._Op("fresnel", c_val=float(s._c), iface=(
@@ -795,9 +892,6 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
                             "sx_col": sx, "weighted": s.weighted})
             measure_after_update[uid] = update_seen
         elif type(s) is PhotonEmitterStep:
-            if s.stokes is not None or s.pol_ref is not None:
-                _no("emitter-polarized", "PhotonEmitterStep(stokes=/pol_ref="
-                    ") needs the polarization planes, which are not ported")
             if callable(s.E) and not isinstance(s.E, PlanckSampler):
                 _no("emitter-sampler", f"PhotonEmitterStep energy sampler "
                     f"{type(s.E).__name__}: a user callable cannot be "
@@ -812,13 +906,20 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
                 emit_v = tuple(float(x) for x in np.asarray(
                     raw_code_value(s.v), np.float64).reshape(3))
             sampled = isinstance(s.E, PlanckSampler)
+            emit_stokes, emit_polref = (), ()
+            if s.stokes is not None:
+                need_stokes(s, "polarized PhotonEmitterStep (stokes=)")
+                pol_wb |= {"stokes", "pol_ref"}
+                emit_stokes = tuple(float(x) for x in s.stokes)
+                emit_polref = tuple(float(x) for x in s._emit_e1)
             ops.append(F._Op(
                 "emit", emit_n=s.n_per_step, c_val=s._c,
                 emit_E=0.0 if sampled else float(raw_code_value(s.E)),
                 emit_table=(icdf_table(s.E.data) if sampled else None),
                 emit_scale=s.E._code if sampled else 1.0,
                 emit_r=tuple(float(x) for x in s.r), emit_v=emit_v,
-                emit_row=sum(1 for o in ops if o.kind == "emit")))
+                emit_row=sum(1 for o in ops if o.kind == "emit"),
+                emit_stokes=emit_stokes, emit_polref=emit_polref))
         elif type(s) is ScatterMeasureStep:
             n_col = next_col if s.measure_n else -1
             next_col += 1 if s.measure_n else 0
@@ -855,7 +956,8 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
                 "LorentzForce/Absorbing/Reflecting/PeriodicBoundary/"
                 "AbsorbingSphere/ScatterDelete/ScatterIsotropic/"
                 "ScatterHenyeyGreenstein/ScatterRayleigh/ScatterPhaseFunction/"
-                "ScatterCompton/"
+                "ScatterCompton/ScatterPolarizedRayleigh/"
+                "ScatterPolarizedCompton/StokesMeasure/"
                 "RefractiveInterface/PhotonEmitter/ScatterSignMeasure/"
                 "ScatterMeasure/SphericalShellMeasure/TracePathMeasure")
 
@@ -899,7 +1001,8 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
     kin_positions = [i for i, op in enumerate(ops) if op.kind == "kin"]
     scatter_positions = [i for i, op in enumerate(ops)
                          if op.kind in ("del", "iso", "hg", "rayl", "phase",
-                                        "compton", "fresnel")]
+                                        "compton", "pol", "polc",
+                                        "fresnel")]
     emit_positions = [i for i, op in enumerate(ops) if op.kind == "emit"]
     reflect_positions = [i for i, op in enumerate(ops)
                          if op.kind in ("reflect", "fresnel")]
@@ -932,7 +1035,8 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
             s0 = speeds[0]
             ok = s0 > 0 and max(abs(s - s0) for s in speeds) <= 1e-4 * s0
             for op in ops:
-                if ((op.kind in ("iso", "hg", "rayl", "phase", "compton")
+                if ((op.kind in ("iso", "hg", "rayl", "phase", "compton",
+                                 "pol", "polc")
                      or (op.kind == "del" and op.fluor))
                         and abs(op.c_val - s0) > 1e-5 * s0):
                     ok = False
@@ -1008,6 +1112,9 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
                        const_norm_speed=const_speed, n_frec_cols=next_fcol,
                        n_stream=next_plane, stream_every=stream_every,
                        stream_dtype=stream_dtype, species=species,
-                       extras=tuple(extra_names))
+                       extras=tuple(extra_names),
+                       extras_writeback=tuple(b for b in ("stokes",
+                                                          "pol_ref")
+                                              if b in pol_wb))
     return FusedProvider(sim, plan, rec_map, dt_fn, update_before_kin,
                          measure_after_update, sim.exit, exit_mode, notes)

@@ -8,12 +8,12 @@ builds its kernels (``nvcc`` into a temporary directory) and times
 ``fused_transport`` on the main path's shape (10**7 photons padded to
 10,010,624 slots, 1024 iterations, [kin, iso, sign] with the const-norm
 path), on [kin, iso, sign] at 2**20 slots x 256 iterations and on
-``chip_smoke.py``'s geometry, rotation and Lorentz plans at that shape (the
-latter two only where the checkout has their ops), with CUDA events over 3
+``chip_smoke.py``'s geometry, rotation, Lorentz and polarized plans at that
+shape (the latter three only where the checkout has their ops), with CUDA events over 3
 and 5 launches after one warm-up launch, and reads each kernel
 instantiation's registers from ``ptxas -v`` (keyed by its template
 arguments, e.g. ``b0b1b0b0`` = no fields, geometry/streams, no rotation
-family, no Lorentz push or extras). Prints one JSON object per checkout; run both versions in one
+family, no Lorentz push or extras; a fifth bit, polarization). Prints one JSON object per checkout; run both versions in one
 call, in turns, so that the card and its power limit are the same for
 both.
 """
@@ -105,6 +105,24 @@ if "lorentz" in F.OP_CODES:
             cs.lorentz_plans(F, 256).items()):
         pk, sched, starts = cs.lorentz_inputs(torch, plan, photons,
                                               1 << 20, 256, dev, 40 + i)
+        res = torch.empty_like(pk)
+
+        def launch():
+            F.fused_transport(pk, res, sched, 7, 256, plan,
+                              emit_starts=starts)
+        launch()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(5):
+            launch()
+        end.record()
+        torch.cuda.synchronize()
+        out[f"ms_{name}"] = start.elapsed_time(end) / 5
+if "pol" in F.OP_CODES:
+    for i, (name, (plan, photons)) in enumerate(
+            cs.pol_plans(F, light, 256).items()):
+        pk, sched, starts = cs.pol_inputs(torch, plan, photons, 1 << 20, 256,
+                                          dev, 60 + i)
         res = torch.empty_like(pk)
 
         def launch():

@@ -367,3 +367,77 @@ def test_record_tile_plan_matches_twin(dev):
     assert torch.equal(out, ref)
     assert _close_f(rec_f, ref_f)
     assert rec_f[:k, :7].abs().sum() > 0
+
+
+# -- polarized transport --
+
+@pytest.mark.parametrize("name", ["pol", "pol-wl", "pol-expr", "polc",
+                                  "polc-kn-dep", "polmeas-w-qu",
+                                  "pol-polmeas", "emit-pol-directed",
+                                  "emit-iso-circular", "fluor-pol-planes",
+                                  "mixed-pol"])
+def test_polarized_plans_match_twin(dev, name):
+    """The eleven plans ``chip_smoke.py`` holds at 2**20 x 256, here at
+    2**16 x 64: int records equal, every plane (the Stokes and frame rows
+    included) bitwise, rec_f within tolerance, in place equal to out of
+    place; the plans run the polarization instantiation."""
+    import physicl_tpu_torch as phys
+    from chip_smoke import pol_inputs, pol_plans
+
+    plan, photons = pol_plans(F, phys.light, 64)[name]
+    assert plan.kernel_variant & 24 == 24
+    packed, sched, starts = pol_inputs(torch, plan, photons, 1 << 16, 64,
+                                       dev, 5)
+    out = torch.empty_like(packed)
+    rec, rec_f = F.fused_transport(packed, out, sched, 91, 60, plan,
+                                   emit_starts=starts)
+    ref, ref_rec, ref_f = F.fused_chunk_reference(packed, sched, 91, 60,
+                                                  plan, starts)
+    inplace = packed.clone()
+    F.fused_transport(inplace, inplace, sched, 91, 60, plan,
+                      emit_starts=starts)
+    torch.cuda.synchronize()
+    assert torch.equal(rec, ref_rec)
+    assert torch.equal(out, ref) and torch.equal(inplace, ref)
+    assert _close_f(rec_f, ref_f)
+    if plan.extras_writeback:
+        assert not torch.equal(out[15:21], packed[15:21])
+
+
+def test_polarized_simulation_card_equals_cpu(dev):
+    """A polarized Simulation (a polarized source, Rayleigh and Compton
+    scatter, the Stokes tally, recycling) on the card and on the CPU twin:
+    equal ``sim.ts``, records and final planes."""
+    import physicl_tpu_torch as phys
+    import physicl_tpu_torch.polarization as pol
+
+    runs = {}
+    for where in ("cuda", "cpu"):
+        c_dt = float(phys.light.c) * 1e-3
+        s = phys.Simulation(until_t=0.0955, seed=4, capacity=8192,
+                            chunk_steps=16, device=where)
+        s.add_step(0, phys.UpdateTimeStep(lambda x: np.double(0.001)))
+        s.add_step(1, phys.light.PhotonEmitterStep(
+            100, E=1.0, stokes=(1.0, 0.0, 0.0)))
+        s.add_step(2, phys.newton.NewtonianKinematicsStep())
+        s.add_step(3, pol.ScatterPolarizedRayleighStep(A=0.1 / c_dt, n=1.0))
+        s.add_step(4, pol.ScatterPolarizedComptonStep(
+            A=0.05 / c_dt, n=1.0, mec2=1.0, measure_deposition=True))
+        s.add_step(5, phys.light.ScatterDeleteStep(0.1 / c_dt, 1.0))
+        meas = pol.StokesMeasureStep(None, weighted=True)
+        s.add_step(6, meas)
+        s.add_photons(pol.polarized_photon_state(2000, E=1.0,
+                                                 stokes=(0.0, 0.6, 0.8)))
+        s.start()
+        s.join()
+        st = s.sim_state
+        runs[where] = (s.ts, np.asarray(meas.data), st.alive.cpu(),
+                       torch.cat([st.v, st.extras["stokes"],
+                                  st.extras["pol_ref"]]).cpu(),
+                       s.population_log)
+    (gt, gm, ga, gp, gl), (ct, cm, ca, cp, cl) = runs["cuda"], runs["cpu"]
+    assert gt == ct and gl == cl and any(e[0] == "recycle" for e in gl)
+    assert torch.equal(ga, ca)
+    assert torch.equal(gp[:, ga], cp[:, ca])
+    np.testing.assert_array_equal(gm[:, :2], cm[:, :2])
+    np.testing.assert_allclose(gm, cm, rtol=1e-5, atol=1e-6)

@@ -304,8 +304,9 @@ _REFUSALS = {
     "phase-icdf-callable": ("phase-icdf-callable",
                             lambda P: P.light.ScatterPhaseFunctionStep(
                                 A=0.001, cos_theta_icdf=lambda u: 2 * u - 1)),
-    # the port has no polarization planes: the JAX package's polarized
-    # step is a step type the prover does not know
+    # the JAX package's polarized step (the port has its own,
+    # physicl_tpu_torch.polarization) is a step type the prover does not
+    # know
     "polarized-step": ("unsupported-step",
                        lambda P: __import__(
                            "physicl_tpu.polarization").polarization
