@@ -146,7 +146,8 @@ Phases (any failure exits non-zero and prints no result line):
 16. ``fused_transport`` vs twin on the first chunks of the gamma path
     (10**7 x 1024), the glass slab (10**7 x 80), thermal Comptonization,
     the exponential transform and fluorescence (10**7 x 1024 each), held
-    as in phase 5, each timed against its bound;
+    as in phase 5 (the gamma and thermal chunks over their first 256
+    iterations, ``TWIN_ITERS``), each timed against its bound;
 17. gamma path (benchmarks/run_all.py compton_kn_1e7 with the heating
     tally): 10**7 photons, 5 chunks of 1024 through ``Simulation``, run
     twice (the second profiled): deposits plus the photons' energies equal
@@ -205,7 +206,8 @@ Phases (any failure exits non-zero and prints no result line):
     alpha = 0.5 Q' = -s**2 / (kappa - s**2) and E' = E / eta; everywhere p
     <= 1, |e1| = 1 and e1 . d = 0 within 1e-5;
 27. ``fused_transport`` vs twin on the polarized and polarimetry paths'
-    first chunks (10**7 photons x 1024, as their providers hand them over):
+    first chunks (10**7 photons x 1024, as their providers hand them over;
+    the polarimetry chunk over its first 256 iterations):
     int records equal, planes bitwise, rec_f as in phase 3, the Stokes and
     frame rows leading the extras; timed against the bound;
 28. polarized path (benchmarks/run_all.py polarized_rayleigh_1e7): 10**7
@@ -219,12 +221,41 @@ Phases (any failure exits non-zero and prints no result line):
     source's 1 over the first three rows, then rises (the recoil lowers
     alpha) and stays below 0.97 over the first 12 rows, the last tally row equals the final planes' means within 1e-5,
     deposits + sum E = N E0 within the records' summation-chain bound; both
-    print the rates, peak memory and idle share.
+    print the rates, peak memory and idle share;
+29. ``fused_transport`` vs twin on the nine kernel 1i plans
+    (``USER_PLANS``) at 2**20 slots and 256 iterations, as their providers
+    hand them over: an ElementwiseStep with t, dt and exp, one with draws
+    (one drawn and never used) and an alive clear, one reading and writing
+    a 1-row and a 3-row extras plane; a ReduceMeasureStep with the alive
+    count; MeshTallyStep on x with path lengths and on r weighted under
+    implicit capture; a KernelStep reading otype on a photon/charge
+    population; run_all.py's weighted tally under implicit capture and
+    roulette; the fluorescence example's A(E) as a torch callable (a
+    recorded field program): int records equal, every plane (the written-
+    back extras included) bitwise, rec_f as in phase 3, each timed against
+    its bound with the instantiation's registers;
+30. the same on the user path's first chunk (10**7 x 1024: kin, iso, a
+    KernelStep drag, an ElementwiseStep decay with a draw, t, dt and a
+    written-back dose, the moments tally) and the spectrum path's (10**7
+    x 60: thermal Compton and two 56-bin spectra, the chunk clamped by
+    117 record columns);
+31. user path (run_all.py kernelstep_drag_fused_1e7 with engine.py's
+    decay and moments examples): 10**7 photons, 2048 iterations in chunks
+    of 1024, run twice (the second profiled): every alive |v| between c
+    (1 - 1e-7)**K and c, E_total = n and the alive photons' dose 0 in
+    every row, the written-back dose plane summing to N0 - n, the
+    survivors within 5 sigma of prod(1 - p_k); then the spectrum path
+    (run_all.py spectrum_56bin_x2_thermal_1e7, cut to 240 iterations):
+    the bins and capture bins sum to n in every row, the last row equals a
+    histogram of the final planes, the energy bins sum to the alive
+    energy within rtol 1e-5; both print the rates, peak memory and idle
+    share.
 
 The line before the last two is a JSON object describing each kernel on
 each path: ``fused_transport`` once each for the gamma, glass, thermal,
 stretch and fluorescence paths, the ExB (``lorentz``), mixed and
-record-tile paths, the polarized and polarimetry paths, the main path,
+record-tile paths, the polarized and polarimetry paths, the user and
+spectrum paths (their ``replaces`` the user ops of kernel 1i), the main path,
 the Planck source path, the media path, the escape path and the cavity path, each
 with its path's launch count and the times and bound at that path's own
 shape and plan (the bound counts the fields' corner reads and the stream
@@ -234,7 +265,6 @@ buffer's bytes), and
 "device": {...}}``.
 """
 
-import ctypes
 import json
 import os
 import subprocess
@@ -248,6 +278,10 @@ K_B = 1.380649e-23
 T_SUN = 5778.0
 RTOL = 1e-6
 RTOL_F = 1e-5
+# the gamma, thermal and polarimetry paths' first chunks are held against
+# the twin over their first 256 iterations (each twin took 70-100 s over
+# the whole chunk)
+TWIN_ITERS = 256
 
 # H100 SXM published peaks: 3.35 TB/s device memory; per SM and clock 128
 # float32 and 64 int32 lane-operations, 132 SMs at 1.98 GHz
@@ -539,6 +573,43 @@ def field_cost(fn):
     return per, 0
 
 
+def user_cost(op):
+    """(float32, int32) lane-operations per slot-iteration of the work a
+    recorded user program asks for (kernel 1i): each operation the user's
+    callable wrote (a correctly rounded divide, root or reciprocal 8, a
+    transcendental 20, an integer power its products), a draw's hash and
+    scale, an alive clear, a record sum ("esum"), the t and dt loads and a
+    reduce's count; loads, constants and stores are register moves, and
+    the interpreter's fetch and dispatch are not the user's work."""
+    from physicl_tpu_torch.ops import record as RC
+
+    f32, i32 = 0, 2
+    for code, _, _, _, y, _ in op.prog.ins:
+        if code in (RC.U_LD, RC.U_T, RC.U_DT, RC.U_CONST, RC.U_ST):
+            continue
+        if code == RC.U_UNIF:
+            f32, i32 = f32 + 2, i32 + 16
+        elif code in (RC.U_SQRT, RC.U_DIV, RC.U_RECIP):
+            f32 += 8
+        elif code in (RC.U_EXP, RC.U_LOG, RC.U_LOG10, RC.U_SIN, RC.U_COS,
+                      RC.U_TAN, RC.U_POW):
+            f32 += 20
+        elif code == RC.U_IPOW:
+            e = abs(int(y))
+            f32 += max(e.bit_length() + bin(e).count("1") - 2, 0) \
+                + (8 if y < 0 else 0)
+        elif code == RC.U_ALIVE:
+            f32, i32 = f32 + 1, i32 + 1
+        elif code == RC.U_ACC:
+            f32, i32 = f32 + OPS_PER_ITER["esum"][0], \
+                i32 + OPS_PER_ITER["esum"][1]
+        else:
+            f32 += 1
+    if op.kind == "reduce" and op.cols[0] >= 0:
+        i32 += OPS_PER_ITER["col0"][1]
+    return f32, i32
+
+
 def transport_bound(plan, slots, k_act, starts, events=None):
     """bound() of one fused_transport launch of ``plan``."""
     return bound(*transport_counts(plan, slots, k_act, starts, events))
@@ -698,6 +769,8 @@ def transport_counts(plan, slots, k_act, starts, events=None):
                 per.append(OPS_PER_ITER["col0"])
             if op.local_qu:
                 per.append(OPS_PER_ITER["polmeas_qu"])
+        elif op.kind in ("custom", "reduce", "kstate"):
+            per.append(user_cost(op))
         elif op.kind == "lorentz":
             per.append(OPS_PER_ITER["lorentz"])
             if op.e_const:
@@ -824,6 +897,12 @@ def main():
     for line in _build.build_log.splitlines():
         if line.startswith("[") or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    # every instantiation's registers and spills (variant bits: fields 1,
+    # geometry and streams 2, rotation family 4, extras 8, polarization 16
+    # and kernel 1i's user programs 32, both only with extras)
+    for v in range(64):
+        if v < 16 or v & 8:
+            print(f"  fused_transport variant {v}: {kernel_regs(v)}")
 
     seed = 123_456_789
     # largest plane difference from the twin, per path
@@ -831,7 +910,8 @@ def main():
            "escape": 0.0, "cavity": 0.0, "rot": 0.0, "gamma": 0.0,
            "glass": 0.0, "thermal": 0.0, "stretch": 0.0, "fluor": 0.0,
            "lorentz": 0.0, "mixed": 0.0, "record-tile": 0.0, "pol": 0.0,
-           "polarized": 0.0, "polarimetry": 0.0}
+           "polarized": 0.0, "polarimetry": 0.0, "user": 0.0,
+           "spectrum": 0.0}
     a_E, b_E = planck_window()
     sampler = light.PlanckSampler(a_E, b_E, T_SUN, bins=2000)
 
@@ -981,14 +1061,9 @@ def main():
     packed, sched_p, seed_p, k_p, plan_p, starts_p = planck_chunk_inputs(
         phys, F, sampler, dev)
     tile = k_p * (plan_p.n_rec_cols + plan_p.n_frec_cols * 8) * 4
-    lib = _build.load()["fused_transport"]
     grids = {}
     for kk in (K, k_p):
-        g = ctypes.c_int(0)
-        _build.check(lib.fused_transport_grid(
-            packed.shape[1], kk, plan_p.n_rec_cols, plan_p.n_frec_cols,
-            plan_p.kernel_variant, ctypes.byref(g)), "occupancy query")
-        grids[kk] = g.value
+        grids[kk] = F.kernel_grid(plan_p, packed.shape[1], kk)
     n_starts = int((starts_p[0, :k_p] > -(2 ** 30)).sum())
     print(f"Planck chunk 0: {packed.shape[1]} slots x {k_p} iterations, ops "
           f"{[op.kind for op in plan_p.ops]}, iso lambda**-4 "
@@ -1071,11 +1146,7 @@ def main():
     packed, sched_m, seed_m, k_m, plan_m, _ = first_chunk_inputs(sim_m, F)
     del sim_m
     tile_m = k_m * (plan_m.n_rec_cols + plan_m.n_frec_cols * 8) * 4
-    g = ctypes.c_int(0)
-    _build.check(lib.fused_transport_grid(
-        packed.shape[1], k_m, plan_m.n_rec_cols, plan_m.n_frec_cols,
-        plan_m.kernel_variant, ctypes.byref(g)), "occupancy query")
-    grid_blocks_m = g.value
+    grid_blocks_m = F.kernel_grid(plan_m, packed.shape[1], k_m)
     print(f"media chunk 0: {packed.shape[1]} slots x {k_m} iterations, ops "
           f"{[op.kind for op in plan_m.ops]}, {plan_m.n_rec_cols} int + "
           f"{plan_m.n_frec_cols} float record columns = {tile_m} B of record "
@@ -1123,51 +1194,63 @@ def main():
 
     eft = path_chunk0(
         "escape-chunk-0", escape_sim(phys, sampler, ESC_N, dev)[0], F,
-        torch, lib, compare, "escape", card,
+        torch, compare, "escape", card,
         ["kin", "iso", "del", "cross", "scross", "sabsorb"])
     cft = path_chunk0(
-        "cavity-chunk-0", cavity_sim(phys, CAV_N, dev)[0], F, torch, lib,
+        "cavity-chunk-0", cavity_sim(phys, CAV_N, dev)[0], F, torch,
         compare, "cavity", card, ["kin", "reflect", "iso", "trace"])
 
     rotation_plans(torch, F, light, dev, seed, compare, card, times)
     physics_gates(torch, F, light, dev, card)
     gft = path_chunk0(
-        "gamma-chunk-0", gamma_sim(phys, GAMMA_N, dev)[0], F, torch, lib,
-        compare, "gamma", card, ["kin", "compton", "sign"], streams=False)
+        "gamma-chunk-0", gamma_sim(phys, GAMMA_N, dev)[0], F, torch,
+        compare, "gamma", card, ["kin", "compton", "sign"], streams=False,
+        twin_iters=TWIN_ITERS)
     sft = path_chunk0(
-        "glass-chunk-0", glass_sim(phys, GLASS_N, dev)[0], F, torch, lib,
+        "glass-chunk-0", glass_sim(phys, GLASS_N, dev)[0], F, torch,
         compare, "glass", card, ["kin", "fresnel", "fresnel", "cross"],
         streams=False, cross_p=1.0 / GLASS_ITERS)
     rft = {case: path_chunk0(
         f"{case}-chunk-0",
-        run_all_sim(phys, case, RUN_ALL_N, dev, 1024)[0], F, torch, lib,
-        compare, case, card, kinds, streams=False)
+        run_all_sim(phys, case, RUN_ALL_N, dev, 1024)[0], F, torch,
+        compare, case, card, kinds, streams=False,
+        twin_iters=TWIN_ITERS if case == "thermal" else None)
         for case, kinds in (("thermal", ["kin", "compton", "sign"]),
                             ("stretch", ["kin", "del", "sign"]),
                             ("fluor", ["kin", "del"]))}
     lorentz_plan_phase(torch, F, dev, seed, compare, card, times)
     exft = path_chunk0(
         "exb-chunk-0", lorentz_sim(phys, "exb", EXB_N, dev,
-                                   exb_iterations())[0], F, torch, lib,
+                                   exb_iterations())[0], F, torch,
         compare, "lorentz", card, ["lorentz", "kin", "sign"], streams=False)
     mxft = path_chunk0(
         "mixed-chunk-0", lorentz_sim(phys, "mixed", MIX_N, dev,
-                                     MIX_ITERS)[0], F, torch, lib, compare,
+                                     MIX_ITERS)[0], F, torch, compare,
         "mixed", card, ["lorentz", "kin", "iso", "del", "sign"],
         streams=False)
     tlft = path_chunk0(
         "tile-chunk-0", tile_sim(phys, TILE_N, dev, TILE_ITERS)[0], F, torch,
-        lib, compare, "record-tile", card, ["kin", "iso", "sign", "cross"],
+        compare, "record-tile", card, ["kin", "iso", "sign", "cross"],
         streams=False)
-    pol_plan_phase(torch, F, light, dev, seed, compare, card, times, lib)
+    pol_plan_phase(torch, F, light, dev, seed, compare, card, times)
     pol_law_phase(torch, F, dev, card)
     pol_grids = {}
     polft, poift = (path_chunk0(
-        f"{case}-chunk-0", pol_sim(phys, case, n, dev)[0], F, torch, lib,
-        compare, case, card, kinds, streams=False, grids=pol_grids)
+        f"{case}-chunk-0", pol_sim(phys, case, n, dev)[0], F, torch,
+        compare, case, card, kinds, streams=False, grids=pol_grids,
+        twin_iters=TWIN_ITERS if case == "polarimetry" else None)
         for case, n, kinds in (("polarized", POL_N, ["kin", "pol"]),
                                ("polarimetry", POLI_N,
                                 ["kin", "polc", "polmeas"])))
+    user_plan_phase(torch, phys, F, dev, compare, card, times)
+    uft = path_chunk0(
+        "user-chunk-0", user_sim(phys, USER_N, dev)[0], F, torch, compare,
+        "user", card, ["kin", "iso", "kstate", "custom", "reduce"],
+        streams=False)
+    spft = path_chunk0(
+        "spectrum-chunk-0", spectrum_sim(phys, SPEC_N, dev)[0], F, torch,
+        compare, "spectrum", card, ["kin", "compton", "reduce", "reduce"],
+        streams=False)
 
     phase("planck_gen vs twin (10**7 samples)")
     n_gen = 10_000_000
@@ -1297,6 +1380,7 @@ def main():
     tissue_card_vs_cpu(torch, phys, F)
     lruns = lorentz_runs(torch, phys, F, dev, card, exft, mxft, tlft)
     pruns = pol_paths(torch, phys, F, dev, card, polft, poift, pol_grids)
+    uruns = user_paths(torch, phys, F, dev, card, uft, spft)
 
     ft_src = {"name": "fused_transport", "route": "cuda",
               "source": "physicl_tpu_torch/csrc/fused_transport.cu",
@@ -1322,6 +1406,12 @@ def main():
                    "library_ms": None}
                   for path, entry in (("polarized", polft),
                                       ("polarimetry", poift))]
+    # kernel 1i: the user ops of the same kernel
+    new_paths += [{**ft_src, "replaces": "physicl_tpu/ops/fused.py:1448",
+                   "path": path, "launches": uruns[path]["fused_launches"],
+                   "max_abs_err": max(err["user"], err[path]), **entry,
+                   "library_ms": None}
+                  for path, entry in (("user", uft), ("spectrum", spft))]
     print(json.dumps({"kernels": new_paths + [
         {**ft_src, "path": "main", "launches": main_launches,
          "max_abs_err": err["main"], **ft, "library_ms": None},
@@ -1895,18 +1985,18 @@ def cavity_sim(phys, n, dev, seed=29, iters=CAV_ITERS, every=CAV_EVERY,
     return sim, tr
 
 
-def path_chunk0(name, sim, F, torch, lib, compare, path, card, kinds,
-                streams=True, cross_p=0.0, grids=None):
+def path_chunk0(name, sim, F, torch, compare, path, card, kinds,
+                streams=True, cross_p=0.0, grids=None, twin_iters=None):
     """Phase: fused_transport against the twin on a path's first chunk, as
     its provider hands it over; returns the kernel's entry numbers (and
     stores the launch's grid in ``grids[path]`` when given). The bound
     counts the rotation family's work per expected event
     (``expected_events``, interface crossings at ``cross_p`` per
-    photon-iteration)."""
-    import ctypes
-
-    from physicl_tpu_torch.ops import _build
-
+    photon-iteration). ``twin_iters`` holds the kernel against the twin on
+    the chunk's first that many iterations only (same inputs; the kernel
+    is still timed on the whole chunk), where the twin takes over a
+    minute: ``plain_ms`` is then the twin's time for those iterations, and
+    the entry says how many (``plain_iters``)."""
     phase(f"fused_transport vs twin on the {path} path's first chunk")
     packed, sched, seed, k, plan, _ = first_chunk_inputs(sim, F)
     del sim
@@ -1915,23 +2005,23 @@ def path_chunk0(name, sim, F, torch, lib, compare, path, card, kinds,
           and (not plan.has_pol or plan.extras[:6] == F.POL_ROWS),
           f"{name}: plan {[op.kind for op in plan.ops]} (extras "
           f"{plan.extras}) is not the path's")
-    g = ctypes.c_int(0)
-    _build.check(lib.fused_transport_grid(
-        packed.shape[1], k, plan.n_rec_cols, plan.n_frec_cols,
-        plan.kernel_variant, ctypes.byref(g)), "occupancy query")
+    grid = F.kernel_grid(plan, packed.shape[1], k)
     if grids is not None:
-        grids[path] = g.value
+        grids[path] = grid
     print(f"{name}: {packed.shape[1]} slots x {k} iterations, ops "
           f"{[op.kind for op in plan.ops]}, {plan.n_rec_cols} int + "
           f"{plan.n_frec_cols} float record columns, const-norm "
           f"{plan.const_norm_speed is not None}; variant "
           f"{plan.kernel_variant} ({kernel_regs(plan.kernel_variant)}); grid "
-          f"{g.value} blocks ({g.value / 132:.2f} per SM); stream {plan.n_stream} planes "
+          f"{grid} blocks ({grid / 132:.2f} per SM); stream {plan.n_stream} planes "
           f"every {plan.stream_every} in {plan.stream_dtype}, "
           f"{plan.n_stream_rows} rows = {stream_bytes(plan, packed.shape[1])}"
           " B per chunk", flush=True)
-    out = {"plain_ms": compare(name, packed, sched, k, plan, None, path,
+    kc = min(k, twin_iters or k)
+    out = {"plain_ms": compare(name, packed, sched, kc, plan, None, path,
                                seed, need_bitwise=True)}
+    if kc < k:
+        out["plain_iters"] = kc
     res = torch.empty_like(packed)
     rec = F.fused_transport(packed, res, sched, seed, k, plan)[0]
     events = expected_events(plan, packed, float(rec[:k, 0].double().sum()),
@@ -3581,16 +3671,12 @@ def pol_inputs(torch, plan, photons, C, K, dev, seed):
     return torch.from_numpy(p).to(dev), sched.to(dev), starts
 
 
-def pol_plan_phase(torch, F, light, dev, seed, compare, card, times, lib):
+def pol_plan_phase(torch, F, light, dev, seed, compare, card, times):
     """Phase (a): fused_transport against the twin on the eleven polarized
     plans at 2**20 slots x 256 iterations: int records equal, every plane
     (the Stokes and frame rows included) bitwise, rec_f within rtol 1e-5;
     each timed against its bound, with its grid and the instantiation's
     registers."""
-    import ctypes
-
-    from physicl_tpu_torch.ops import _build
-
     C, K = 1 << 20, 256
     phase(f"fused_transport vs twin on the polarized plans (2**20 slots, {K} "
           "iterations)")
@@ -3614,14 +3700,11 @@ def pol_plan_phase(torch, F, light, dev, seed, compare, card, times, lib):
         events = expected_events(plan, pk, float(rec[:K, 0].double().sum()),
                                  POL_DT)
         b_ms, b_by = transport_bound(plan, C, K, starts, events)
-        g = ctypes.c_int(0)
-        _build.check(lib.fused_transport_grid(
-            C, K, plan.n_rec_cols, plan.n_frec_cols, plan.kernel_variant,
-            ctypes.byref(g)), "occupancy query")
+        grid = F.kernel_grid(plan, C, K)
         times[name] = ms
         print(f"{name} at 2**20 x {K}: kernel {ms:.3f} ms, twin "
               f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), grid "
-              f"{g.value} blocks ({g.value / 132:.2f} per SM), variant "
+              f"{grid} blocks ({grid / 132:.2f} per SM), variant "
               f"{plan.kernel_variant} ({kernel_regs(plan.kernel_variant)}) "
               f"[{card}]", flush=True)
         del pk, out
@@ -3633,13 +3716,17 @@ def kernel_regs(variant):
     from physicl_tpu_torch.ops import _build
 
     bits = "".join("Lb1E" if variant & (1 << b) else "Lb0E"
-                   for b in range(5))
+                   for b in range(6))
     lines = _build.build_log.splitlines()
     for i, line in enumerate(lines):
         if "fused_transport_kernel" in line and bits in line:
+            spill = ""
             for nxt in lines[i + 1:i + 4]:
+                if "spill" in nxt:
+                    spill = nxt.split(":")[-1].strip()
                 if "registers" in nxt:
-                    return nxt.split("Used")[-1].strip()
+                    regs = nxt.split("Used")[-1].strip()
+                    return f"{regs}; {spill}" if spill else regs
     return "?"
 
 
@@ -3873,6 +3960,375 @@ def pol_paths(torch, phys, F, dev, card, pft, ift, grids):
         del sim2, prof
     return out
 
+
+
+# -- user code (kernel 1i) ----------------------------------------------------
+
+USER_DT = 1e-3
+USER_N = 10_000_000      # run_all.py:208-224 kernelstep_drag_fused_1e7
+USER_ITERS = 2 * 1024
+USER_DRAG = 1e-7         # the drag's loss of speed per iteration
+USER_RATE = 0.1          # the decay's rate 0.1 e^-t per unit time
+SPEC_N = 10_000_000      # run_all.py:468-490 spectrum_56bin_x2_thermal_1e7
+SPEC_ITERS = 4 * 60      # cut from the benchmark's 2048 (the time limit)
+SPEC_EDGES = np.exp(np.linspace(-3.0, 4.0, 57))
+UPLAN_N, UPLAN_K = 1 << 20, 256
+
+
+def drag(state, ctx):
+    """run_all.py:208-224's exponential drag (KernelStep)."""
+    return state.replace(v=state.v * (1.0 - USER_DRAG))
+
+
+def decay(p):
+    """The time-dependent absorber of physicl_tpu/engine.py:258-265
+    (ElementwiseStep) keeping each photon's dose, gated by alive so that a
+    dead photon's dose stays what its death left."""
+    import torch
+
+    u = p.uniform()
+    hit = (u < USER_RATE * torch.exp(-p.t) * p.dt) & p.alive
+    return {"alive": ~hit, "dose": p.extras["dose"] + hit * p.E}
+
+
+def moments(p):
+    """physicl_tpu/engine.py:367-371's moments, with the dose."""
+    r2 = p.rx ** 2 + p.ry ** 2 + p.rz ** 2
+    return {"E_total": p.E, "r2": r2, "dose": p.extras["dose"]}
+
+
+def user_sim(phys, n, dev, iters=USER_ITERS, chunk=1024, seed=0):
+    """The user path: UpdateTimeStep(0.001) -> NewtonianKinematics ->
+    ScatterIsotropic(A = n = 1e-3) -> KernelStep(drag, elementwise=True) ->
+    ElementwiseStep(decay, extras_write=("dose",)) -> ReduceMeasureStep(
+    moments, measure_n=True, extras=("dose",)); n photons at E = 1 along +x
+    with a zero dose plane. Returns ``(sim, reduce step)``."""
+    import torch
+
+    from physicl_tpu_torch.kernels import KernelStep
+
+    light = phys.light
+    sim = phys.Simulation(until_t=(iters - 0.5) * USER_DT, seed=seed,
+                          chunk_steps=chunk, device=dev)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(USER_DT)))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    sim.add_step(2, light.ScatterIsotropicStep(A=np.double(0.001),
+                                               n=np.double(0.001)))
+    sim.add_step(3, KernelStep(drag, elementwise=True))
+    sim.add_step(4, phys.ElementwiseStep(decay, extras_write=("dose",)))
+    red = phys.ReduceMeasureStep(None, moments,
+                                 outputs=("E_total", "r2", "dose"),
+                                 measure_n=True, extras=("dose",))
+    sim.add_step(5, red)
+    bulk = light.generate_photon_state(n, E=1.0, device=dev)
+    bulk["extras"] = {"dose": torch.zeros(n, dtype=torch.float32,
+                                          device=dev)}
+    sim.add_photons(bulk)
+    return sim, red
+
+
+def spectrum_sim(phys, n, dev, iters=SPEC_ITERS, seed=0):
+    """run_all.py:468-490: n photons at E = 1 along +x, thermal Compton (A n
+    c dt = 1e-3, mec2 = 1e9, theta_e = 0.01), a 56-bin count spectrum with
+    the alive count and a 56-bin energy spectrum, both with underflow and
+    overflow (116 float and 1 int record columns). Returns ``(sim, counts,
+    energies)``."""
+    light = phys.light
+    c_dt = float(light.c) * USER_DT
+    sim = phys.Simulation(until_t=(iters - 0.5) * USER_DT, seed=seed,
+                          device=dev)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(USER_DT)))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    sim.add_step(2, light.ScatterComptonStep(
+        A=0.001 / c_dt, n=1.0, mec2=1e9, theta_e=0.01))
+    counts = light.SpectrumMeasureStep(None, edges=SPEC_EDGES,
+                                       measure_n=True, underflow=True,
+                                       overflow=True)
+    energies = light.SpectrumMeasureStep(None, edges=SPEC_EDGES,
+                                         weight="energy", underflow=True,
+                                         overflow=True)
+    sim.add_step(3, counts)
+    sim.add_step(4, energies)
+    sim.add_photons(light.generate_photon_state(n, E=1.0, device=dev))
+    return sim, counts, energies
+
+
+def user_plan_sim(phys, case, dev, n=UPLAN_N, chunk=UPLAN_K, seed=0):
+    """The Simulation of one kernel 1i plan (``USER_PLANS``): n photons in
+    isotropic directions from a cube of 200 c dt, E in [0.5, 2], w in
+    [0.5, 1], with a zero "dose" plane and a 3-row "spin" plane of random
+    values; ``chunk`` iterations of dt = 1e-3."""
+    import torch
+
+    from physicl_tpu_torch.kernels import KernelStep
+
+    light, newton = phys.light, phys.newton
+    c = float(light.c)
+    c_dt = c * USER_DT
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_ph = n // 2 if case == "kstate-mixed" else n
+    sim = phys.Simulation(until_t=(chunk - 0.5) * USER_DT, seed=seed,
+                          chunk_steps=chunk, device=dev)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(USER_DT)))
+    sim.add_step(1, newton.NewtonianKinematicsStep())
+    steps = []
+    if case == "custom":
+        steps.append(light.ScatterIsotropicStep(A=0.02 / c_dt, n=1.0))
+        steps.append(phys.ElementwiseStep(lambda p: {
+            "vx": p.vx * 0.999, "E": p.E * torch.exp(-2.0 * p.dt),
+            "w": torch.sqrt(p.w) / (1.0 + p.t)}))
+    elif case == "custom-draws":
+        def fn(p):
+            u1 = p.uniform()
+            p.uniform()  # drawn and never used: the next draw shifts
+            u3 = p.uniform()
+            kill = (u1 < 0.01) & (p.E > 0.6)
+            return {"alive": ~kill, "vy": torch.where(u3 < 0.5, -p.vy,
+                                                      p.vy)}
+        steps.append(light.ScatterIsotropicStep(A=0.02 / c_dt, n=1.0))
+        steps.append(phys.ElementwiseStep(fn))
+    elif case == "custom-extras":
+        def fn(p):
+            sx, sy, sz = p.extras["spin"]
+            norm = torch.linalg.norm(torch.stack([sx, sy, sz]), dim=0)
+            hit = (p.uniform() < 0.05) & p.alive
+            return {"dose": p.extras["dose"] + torch.where(hit, p.E, 0.0),
+                    "spin": (sy / norm, -sx / norm, sz * 0.99),
+                    "alive": ~hit}
+        steps.append(phys.ElementwiseStep(fn, extras=("spin",),
+                                          extras_write=("dose", "spin")))
+    elif case == "reduce-n":
+        steps.append(light.ScatterIsotropicStep(A=0.02 / c_dt, n=1.0))
+        steps.append(light.ScatterDeleteStep(1.0, 0.002 / c_dt))
+        steps.append(phys.ReduceMeasureStep(None, lambda p: {
+            "E": p.E, "speed": torch.sqrt(p.vx ** 2 + p.vy ** 2
+                                          + p.vz ** 2) / c,
+            "fast": (p.vx > 0) & (p.E > 1.0)},
+            outputs=("E", "speed", "fast"), measure_n=True))
+    elif case == "mesh-x-path":
+        steps.append(light.ScatterIsotropicStep(A=0.02 / c_dt, n=1.0))
+        steps.append(light.MeshTallyStep(
+            None, axis="x", edges=np.linspace(-100, 100, 41) * c_dt,
+            value="pathlength", underflow=True, overflow=True))
+    elif case == "mesh-r-weighted":
+        steps.append(light.ScatterIsotropicStep(A=0.02 / c_dt, n=1.0))
+        steps.append(light.ScatterDeleteStep(1.0, 0.005 / c_dt,
+                                             implicit_capture=True))
+        steps.append(light.MeshTallyStep(
+            None, axis="r", edges=np.linspace(0, 150, 31) * c_dt,
+            center=(10 * c_dt, 0.0, -5 * c_dt), weighted=True,
+            overflow=True, measure_n=True))
+    elif case == "kstate-mixed":
+        def fn(state, ctx):
+            ph = (state.otype == 1).to(torch.float32)
+            slow = 1.0 - 1e-4 * (1.0 - ph)
+            return state.replace(v=state.v * slow,
+                                 w=state.w * (1.0 + 0.01 * ph))
+        steps.append(newton.LorentzForceStep(B_field=(0.0, 0.0, 100.0),
+                                             q_over_m=1.0))
+        steps.append(light.ScatterIsotropicStep(A=0.02 / c_dt, n=1.0))
+        steps.append(KernelStep(fn, elementwise=True))
+    elif case == "reduce-weighted":
+        # run_all.py:494-505 implicit_capture_roulette_1e7's tally
+        steps.append(light.ScatterDeleteStep(
+            np.double(1.0), np.double(0.05 / c_dt), implicit_capture=True,
+            roulette=(0.2, 0.4)))
+        steps.append(phys.ReduceMeasureStep(None, lambda p: {"W": p.w},
+                                            outputs=("W",), measure_n=True))
+    elif case == "fluor-callable":
+        # examples/make_fluorescence_nb.py:57, the A(E) callable in torch
+        steps.append(light.ScatterDeleteStep(
+            n=1.0, A=FLUOR_P / c_dt,
+            A_fn=lambda E: (torch.tensor(20.0) / E) ** 3,
+            fluorescence=(FLUOR_Y, FLUOR_KA), fluorescence_edge=7.11,
+            measure_deposition=True))
+    else:
+        raise KeyError(case)
+    for i, st in enumerate(steps):
+        sim.add_step(2 + i, st)
+    r = (torch.rand((3, n_ph), generator=gen, device=dev) - 0.5) * 200 * c_dt
+    E = (torch.rand(n_ph, generator=gen, device=dev) * 1.5 + 0.5
+         if case != "fluor-callable" else FLUOR_E0)
+    bulk = light.generate_photon_state(
+        n_ph, E=E, r=r, v=isotropic_v(torch, n_ph, c, gen, dev),
+        w=torch.rand(n_ph, generator=gen, device=dev) * 0.5 + 0.5,
+        device=dev)
+    if case == "custom-extras":
+        bulk["extras"] = {
+            "dose": torch.zeros(n_ph, device=dev),
+            "spin": torch.rand((3, n_ph), generator=gen, device=dev) - 0.5}
+    sim.add_photons(bulk)
+    if case == "kstate-mixed":
+        sim.add_particles(newton.generate_particle_state(
+            n - n_ph, v=isotropic_v(torch, n - n_ph, c / 3, gen, dev),
+            device=dev))
+    return sim
+
+
+USER_PLANS = ("custom", "custom-draws", "custom-extras", "reduce-n",
+              "mesh-x-path", "mesh-r-weighted", "kstate-mixed",
+              "reduce-weighted", "fluor-callable")
+
+
+def user_plan_phase(torch, phys, F, dev, compare, card, times):
+    """Phase: fused_transport against the twin on the kernel 1i plans at
+    2**20 slots x 256 iterations, as their providers hand them over (the
+    recorded programs in the user instantiation): int records equal, every
+    plane (the written-back extras included) bitwise, rec_f within rtol
+    1e-5; each timed against its bound, with the instantiation's
+    registers."""
+    phase(f"fused_transport vs twin on the user-code plans (2**20 slots, "
+          f"{UPLAN_K} iterations)")
+    for case in USER_PLANS:
+        packed, sched, seed, k, plan, starts = first_chunk_inputs(
+            user_plan_sim(phys, case, dev), F)
+        user = plan.kernel_variant & 40 == 40
+        check(user or case == "fluor-callable", f"{case}: variant "
+              f"{plan.kernel_variant} is not the user instantiation")
+        plain_ms = compare(case, packed, sched, k, plan, starts, "user",
+                           seed=seed, need_bitwise=True)
+        out = torch.empty_like(packed)
+        rec = F.fused_transport(packed, out, sched, seed, k, plan)[0]
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: F.fused_transport(packed, out, sched, seed, k,
+                                               plan), 5, torch)
+        events = expected_events(plan, packed,
+                                 float(rec[:k, 0].double().sum()), USER_DT)
+        b_ms, b_by = transport_bound(plan, packed.shape[1], k, None, events)
+        times[case] = ms
+        n_ins = sum(len(op.prog.ins) for op in plan.ops
+                    if op.kind in F.USER_OPS)
+        print(f"{case} at 2**20 x {k}: kernel {ms:.3f} ms, twin "
+              f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); ops "
+              f"{[op.kind for op in plan.ops]}, {n_ins} user instructions, "
+              f"extras {plan.extras}, write-back {plan.extras_writeback}, "
+              f"variant {plan.kernel_variant} "
+              f"({kernel_regs(plan.kernel_variant)}) [{card}]", flush=True)
+        del packed, out
+
+
+def user_paths(torch, phys, F, dev, card, uft, sft):
+    """Phases: the user path (10**7 photons x 2048 iterations) and the
+    spectrum path (10**7 x SPEC_ITERS) through Simulation, each run twice
+    (the second profiled), with their physics gates; returns each first
+    run's launches."""
+    dev = torch.device(dev)
+    out = {}
+    for case, n, iters, ft in (("user", USER_N, USER_ITERS, uft),
+                               ("spectrum", SPEC_N, SPEC_ITERS, sft)):
+        phase(f"{case} path: {n} photons, {iters} iterations")
+
+        def run(profile):
+            F.fused_transport.launches = 0
+            built = (user_sim(phys, n, dev) if case == "user"
+                     else spectrum_sim(phys, n, dev))
+            wall, prof, peak = run_sim(torch, built[0], profile)
+            return built, wall, prof, peak, F.fused_transport.launches
+
+        built, wall, _, peak, launches = run(False)
+        sim = built[0]
+        text = sim.explain_plan()
+        print(text)
+        chunks = [k for _, k, _ in sim.chunk_log]
+        check(sim.used_fused and len(sim.ts) == iters
+              and launches == len(chunks) and launches >= 2,
+              f"{case}: launches {launches}, chunks {chunks}")
+        st = sim.sim_state
+        alive = st.alive[:n]
+        if case == "user":
+            what = user_gates(torch, sim, built[1], st, n, iters)
+            per_iter = np.asarray(built[1].data, np.float64)[:, 1]
+        else:
+            what = spectrum_gates(torch, sim, built[1], built[2], st, n)
+            per_iter = np.asarray(built[1].data, np.float64)[:, 1]
+        print(f"{case} path: {len(sim.ts)} iterations in chunks {chunks}, "
+              f"fused_transport launches {launches}; {what}")
+        rate, steady_s = steady_rate(sim, per_iter)
+        print(f"{case} path rate: {rate:.4e} alive photon-steps/s over the "
+              f"dispatch loop after the first chunk, device clock "
+              f"({steady_s * 1e3:.1f} ms); {float(per_iter.sum()) / wall:.4e}"
+              f" from start() ({wall:.3f} s wall); set-up "
+              f"{sim.setup_seconds:.3f} s; peak memory {peak / 2 ** 30:.2f} "
+              f"GiB; kernel {ft['ms']:.2f} ms per chunk against a bound of "
+              f"{ft['bound_ms']:.2f} ms ({ft['bound_by']}) [{card}]",
+              flush=True)
+        out[case] = {"fused_launches": launches}
+        del sim, st, alive, built
+        built2, _, prof, _, _ = run(True)
+        busy, span = device_busy(prof, torch)
+        print(f"{case} path device idle share (profiled second run, first to "
+              f"last fused_transport kernel): {1 - busy / span:.4f} "
+              f"({busy:.1f} ms busy of {span:.1f} ms) [{card}]", flush=True)
+        del built2, prof
+    return out
+
+
+def user_gates(torch, sim, red, st, n, iters):
+    """The user path's laws: every alive |v| between c (1 - 1e-7)**K and c
+    to float32; E_total = n and the alive photons' dose 0 in every row; the
+    written-back dose plane sums to N0 - n; the survivors within 5 sigma of
+    prod(1 - p_k), p_k the 24-bit uniform's chance of u < 0.1 e**-t_k
+    dt."""
+    rows = np.asarray(red.data, np.float64)
+    check(rows.shape == (iters, 5), f"user: rows {rows.shape}")
+    n_rows = rows[:, 1]
+    check(bool((rows[:, 2] == n_rows).all()), "user: E_total differs from "
+          "the alive count")
+    check(bool((rows[:, 4] == 0).all()), "user: alive photons carry dose")
+    alive = st.alive[:n]
+    n_end = int(alive.sum())
+    dose = float(st.extras["dose"].double().sum())
+    check(dose == n - n_end and n_rows[-1] == n_end,
+          f"user: dose sum {dose} against N0 - n = {n - n_end}")
+    speed = torch.linalg.vector_norm(st.v[:, :n][:, alive].double(), dim=0)
+    lo = C_LIGHT * (1 - USER_DRAG) ** iters * (1 - 1e-6)
+    hi = C_LIGHT * (1 + 1e-6)
+    s_lo, s_hi = float(speed.min()), float(speed.max())
+    check(lo <= s_lo and s_hi <= hi, f"user: |v| in [{s_lo}, {s_hi}] "
+          f"outside [{lo}, {hi}]")
+    ts = np.asarray(sim.ts, np.float64)
+    x = (np.float32(USER_RATE) * np.exp(-ts.astype(np.float32))
+         .astype(np.float32) * np.float32(USER_DT)).astype(np.float64)
+    p = np.ceil(x * 2 ** 24) * 2.0 ** -24
+    q = np.cumprod(1 - p)
+    sigma = np.sqrt(n * q * (1 - q))
+    z = float(np.max(np.abs(n_rows - n * q) / np.maximum(sigma, 1.0)))
+    check(z <= 5, f"user: survivors {z:.2f} sigma off prod(1 - p_k)")
+    return (f"E_total = n and alive dose 0 in all {iters} rows; dose plane "
+            f"sum {dose:.0f} = N0 - n; |v| in [{s_lo:.6f}, {s_hi:.6f}] "
+            f"within [{lo:.6f}, {hi:.6f}]; survivors {n_end} within {z:.2f} "
+            "sigma of prod(1 - p_k)")
+
+
+def spectrum_gates(torch, sim, counts, energies, st, n):
+    """The spectrum path's laws: the bins and the capture bins sum to n in
+    every row; the last row equals a histogram of the final planes exactly
+    (the same float32 edges); the energy bins sum to the alive energy
+    within rtol 1e-5."""
+    c = np.asarray(counts.data, np.float64)
+    e = np.asarray(energies.data, np.float64)
+    nb = len(SPEC_EDGES) + 1  # 56 bins, underflow, overflow
+    check(c.shape[1] == 2 + nb and e.shape[1] == 1 + nb,
+          f"spectrum: rows {c.shape} {e.shape}")
+    check(bool((c[:, 2:].sum(1) == c[:, 1]).all()), "spectrum: the bins do "
+          "not sum to n")
+    alive = st.alive[:n]
+    E = st.E[:n][alive]
+    edges = torch.tensor(SPEC_EDGES, dtype=torch.float32, device=E.device)
+    idx = torch.searchsorted(edges, E.contiguous(), right=True)
+    # 0: underflow, 1..56: the bins, 57: overflow
+    hist = torch.bincount(idx, minlength=nb).double().cpu().numpy()
+    want = np.concatenate([hist[1:-1], hist[:1], hist[-1:]])
+    check(bool((c[-1, 2:] == want).all()), "spectrum: the last row differs "
+          "from a histogram of the final planes")
+    total = float(E.double().sum())
+    rel = abs(float(e[-1, 1:].sum()) - total) / total
+    check(rel <= 1e-5, f"spectrum: energy bins {e[-1, 1:].sum()} against "
+          f"the alive energy {total} ({rel:.2e})")
+    return (f"bins + capture bins = n in every row; last row = the final "
+            f"planes' histogram ({int(want.sum())} photons, underflow "
+            f"{int(want[-2])}, overflow {int(want[-1])}); energy bins within "
+            f"{rel:.2e} of the alive energy")
 
 if __name__ == "__main__":
     main()

@@ -9,8 +9,10 @@ with ``nvcc`` at the first CUDA dispatch (importing the package needs no
 ``nvcc``); on the CPU it is the kernel's plain PyTorch twin, which the
 tests hold draw for draw against the JAX package. Later slices add the
 Planck source, media, geometry and streams, the scatter family, charged
-particles and polarized transport (:mod:`physicl_tpu_torch.polarization`).
-The package imports ``torch`` and never ``jax``.
+particles, polarized transport (:mod:`physicl_tpu_torch.polarization`)
+and user code (``ElementwiseStep``, ``ReduceMeasureStep``,
+:class:`physicl_tpu_torch.kernels.KernelStep`), recorded into programs the
+kernel interprets. The package imports ``torch`` and never ``jax``.
 """
 
 from physicl_tpu_torch.units import (
@@ -30,12 +32,16 @@ from physicl_tpu_torch.engine import (
     UntilT,
     ExtinctionExit,
     PlanReport,
+    ParticleView,
+    ElementwiseStep,
+    ReduceMeasureStep,
 )
 from physicl_tpu_torch.state import SimState
 
 from physicl_tpu_torch import newton  # noqa: F401
 from physicl_tpu_torch import light  # noqa: F401
 from physicl_tpu_torch import polarization  # noqa: F401
+from physicl_tpu_torch import kernels  # noqa: F401
 
 __version__ = "0.1.0"
 
@@ -54,8 +60,12 @@ __all__ = [
     "UntilT",
     "ExtinctionExit",
     "PlanReport",
+    "ParticleView",
+    "ElementwiseStep",
+    "ReduceMeasureStep",
     "SimState",
     "newton",
     "light",
     "polarization",
+    "kernels",
 ]

@@ -32,7 +32,8 @@ from physicl_tpu_torch.state import (OBJ_GENERIC, OBJ_PHOTON, SimState,
 from physicl_tpu_torch.units import Measurement, raw_code_value
 
 __all__ = ["Step", "UpdateTimeStep", "MeasureStep", "Object", "Simulation",
-           "IndexException", "UntilT", "ExtinctionExit", "PlanReport"]
+           "IndexException", "UntilT", "ExtinctionExit", "PlanReport",
+           "ParticleView", "ElementwiseStep", "ReduceMeasureStep"]
 
 
 _RECORD_BUDGET_MIN = 256 << 20
@@ -109,6 +110,149 @@ class MeasureStep(Step):
         else:
             rows = self.data
         write_rows(self.out_fn, rows)
+
+
+class ParticleView:
+    """Per-particle elementwise view handed to :class:`ElementwiseStep` and
+    :class:`ReduceMeasureStep` functions: component planes ``rx..rz,
+    drx..drz, vx..vz, dvx..dvz, E``, the weight ``w``, the bool ``alive``
+    mask, the 0-d ``t`` and ``dt`` of the step's place, ``uniform()`` for a
+    per-particle U[0, 1) draw, and ``p.extras["name"]`` for each declared
+    extras plane (one tensor for a scalar plane, a tuple of three for a
+    3-row one). Write elementwise torch code: the fused tier records the
+    function once, at plan time, into a program the transport kernel runs
+    for every particle (:mod:`physicl_tpu_torch.ops.record`)."""
+
+    _FIELDS = ("rx", "ry", "rz", "drx", "dry", "drz",
+               "vx", "vy", "vz", "dvx", "dvy", "dvz", "E", "alive", "w")
+
+    def __init__(self, fields: Dict[str, Any], t, dt, uniform, extras=None):
+        for k, v in fields.items():
+            setattr(self, k, v)
+        self.t = t
+        self.dt = dt
+        self.uniform = uniform
+        self.extras = extras or {}
+
+
+_MISSING_EXTRAS_MSG = (
+    "step declares extras={names} but the population carries no '{name}' "
+    "plane: attach it to the initial population (Object kwargs, bulk "
+    "dict 'extras', or polarization.polarized_photon_state for Stokes "
+    "planes)")
+
+
+def _check_extras_decl(extras, who: str) -> tuple:
+    extras = tuple(extras)
+    if not all(isinstance(n, str) and n for n in extras):
+        raise TypeError(f"{who} extras= must be a tuple of plane names, "
+                        f"got {extras!r}")
+    return extras
+
+
+def _generic_tier(step):
+    raise NotImplementedError(f"{type(step).__name__}.apply is the generic "
+                              "step tier, which is not ported; the fused "
+                              "tier runs this step in the transport kernel")
+
+
+class ElementwiseStep(Step):
+    """User-defined per-particle physics on the fused tier.
+
+    ``fn(p: ParticleView) -> dict`` returns updated fields by name (any
+    subset of ``ParticleView._FIELDS``). The contract that makes it fusable:
+
+    * elementwise over the particle axis: no reductions, gathers or
+      cross-particle mixing, checked when the fn is recorded (a refusal
+      ``elementwise-not-elementwise``; an operation outside the kernel's
+      table is ``elementwise-op-unsupported``, Python control flow on a
+      value ``elementwise-trace``);
+    * only the transport fields, plus extras planes declared with
+      ``extras=("name", ...)`` (``p.extras["name"]``). Planes also listed in
+      ``extras_write=`` may be returned (a scalar plane: one tensor; a
+      3-row plane: three) and are written back into ``sim_state.extras``;
+    * randomness only through ``p.uniform()`` (the kernel's counter hash,
+      draw for draw the JAX package's);
+    * a returned ``alive`` only clears (it is AND-ed with the mask).
+
+    Example, a time-dependent absorber keeping each photon's dose::
+
+        def decay(p):
+            u = p.uniform()
+            hit = (u < 0.1 * torch.exp(-p.t) * p.dt) & p.alive
+            return {"alive": ~hit,
+                    "dose": p.extras["dose"] + hit * p.E}
+
+        sim.add_step(3, ElementwiseStep(decay, extras_write=("dose",)))
+    """
+
+    def __init__(self, fn: Callable[[ParticleView], Dict[str, Any]],
+                 extras: tuple = (), extras_write: tuple = ()):
+        super().__init__()
+        self.fn = fn
+        self.extras_write = _check_extras_decl(extras_write,
+                                               "ElementwiseStep")
+        # writable planes are implicitly readable (one declaration each)
+        self.extras = tuple(dict.fromkeys(
+            _check_extras_decl(extras, "ElementwiseStep")
+            + self.extras_write))
+
+    def apply(self, state, ctx):
+        _generic_tier(self)
+
+
+class ReduceMeasureStep(MeasureStep):
+    """User-defined per-particle measurement on the fused tier, the
+    measurement counterpart of :class:`ElementwiseStep`.
+
+    ``fn(p: ParticleView) -> dict`` returns named per-particle
+    contributions; each iteration records their sums over ALIVE particles
+    in float record columns. ``data`` rows are ``[t(, n), sum_0, sum_1,
+    ...]`` in ``outputs`` order, with CSV via ``out_fn``. Same contract as
+    ElementwiseStep, read-only (``extras=`` planes readable). Example::
+
+        def moments(p):
+            r2 = p.rx ** 2 + p.ry ** 2 + p.rz ** 2
+            return {"E_total": p.E, "r2": r2}
+
+        sim.add_step(4, ReduceMeasureStep(None, moments,
+                                          outputs=("E_total", "r2")))
+    """
+
+    def __init__(self, out_fn=None, fn: Callable[[ParticleView],
+                                                 Dict[str, Any]] = None,
+                 outputs=(), measure_n: bool = False, extras: tuple = ()):
+        super().__init__(out_fn)
+        if fn is None or not outputs:
+            raise ValueError(
+                "ReduceMeasureStep needs fn and a non-empty outputs tuple")
+        self.fn = fn
+        self.extras = _check_extras_decl(extras, "ReduceMeasureStep")
+        self.outputs = tuple(outputs)
+        if {"t", "n"} & set(self.outputs):
+            raise ValueError(
+                "'t' and 'n' are reserved record names; rename the output")
+        self.measure_n = measure_n
+
+    def _contributions(self, view: ParticleView) -> Dict[str, Any]:
+        contrib = self.fn(view)
+        missing = set(self.outputs) - set(contrib)
+        if missing:
+            raise ValueError(
+                f"ReduceMeasureStep fn did not return declared outputs "
+                f"{sorted(missing)}")
+        return contrib
+
+    def apply(self, state, ctx):
+        _generic_tier(self)
+
+    def collect(self, sim: "Simulation", records) -> None:
+        for i in range(len(records["t"])):
+            row = [float(records["t"][i])]
+            if self.measure_n:
+                row.append(int(records["n"][i]))
+            row.extend(float(records[name][i]) for name in self.outputs)
+            self.data.append(row)
 
 
 class Object:

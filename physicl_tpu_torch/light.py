@@ -6,7 +6,8 @@ Henyey-Greenstein, Rayleigh, tabulated (Mie) and Compton scattering (cold
 and thermal electrons), the refractive interface, absorption with implicit
 capture, roulette, the exponential transform, fluorescence and deposition
 tallies, the sign, plane-crossing (counts, sums, per-photon energy lists)
-and spherical-shell measurements, and path tracing.
+and spherical-shell measurements, energy spectra and spatial tallies
+(``ReduceMeasureStep`` histograms), and path tracing.
 
 Statistical-parity details kept from the JAX package: the inclusive
 ``pcoll >= rand`` collision test and the angle-uniform (not area-uniform)
@@ -21,7 +22,12 @@ import torch
 
 from typing import Callable, List
 
-from physicl_tpu_torch.engine import MeasureStep, Object, Step
+from physicl_tpu_torch.engine import (
+    MeasureStep,
+    Object,
+    ReduceMeasureStep,
+    Step,
+)
 from physicl_tpu_torch.ops import fields as _fields
 from physicl_tpu_torch.ops.planck import (
     icdf_table,
@@ -44,6 +50,7 @@ __all__ = [
     "RefractiveInterfaceStep", "mie_phase_table", "phase_knots",
     "ScatterMeasureStep", "ScatterSignMeasureStep",
     "SphericalShellMeasureStep", "TracePathMeasureStep",
+    "SpectrumMeasureStep", "MeshTallyStep",
 ]
 
 c = Measurement(np.double(299792458), "m**1 s**-1")
@@ -500,8 +507,9 @@ class PhotonEmitterStep(Step):
 
 
 def _compile_field_expr(fn_or_expr, varnames, label):
-    """A user field: a callable is returned as it is (the prover refuses it,
-    code ``field-fn-callable``: the kernel cannot inline Python); a
+    """A user field: a callable is returned as it is (the prover records a
+    torch callable into the same expression program, or refuses one it
+    cannot record, code ``field-fn-callable``); a
     C-expression string over ``<var>[gid]`` in the reference's grammar
     (physicl/light.py:295-299) becomes a torch callable with the postfix
     program the kernel interprets (:mod:`physicl_tpu_torch.ops.fields`)."""
@@ -634,9 +642,11 @@ class ScatterDeleteStep(MeasureStep):
       iteration, ``sum(w*E)`` over killed photons (analog) or
       ``sum(w*min(pcoll,1)*E)`` (implicit capture); CSV through ``out_fn``.
 
-    ``A_fn`` and ``variable_n_fn`` take a C-expression string or a field
-    callable (``layered_density``, ``voxel_density``); a Python callable is
-    refused by the prover (``field-fn-callable``). ``stretch`` and
+    ``A_fn`` and ``variable_n_fn`` take a C-expression string, a field
+    callable (``layered_density``, ``voxel_density``) or a torch callable,
+    which the prover records into an expression program (``A_fn(E)``,
+    ``variable_n_fn(r0, r1, r2)``; one it cannot record is refused as
+    ``field-fn-callable``). ``stretch`` and
     ``fluorescence`` are analog only and exclude each other, as in the JAX
     package."""
 
@@ -740,8 +750,8 @@ class ScatterIsotropicStep(Step):
     number density: ``pcoll = A * n(r) * |dr| * ((h c / E)^-4 if
     wavelength_dep_scattering)``, where ``n(r)`` is the constant ``n`` or,
     with ``variable_n``, the field ``variable_n_fn`` (C expression,
-    ``layered_density`` or ``voxel_density``; a Python callable is refused
-    as ``field-fn-callable``). Resample at |v| = c with theta=2*pi*U,
+    ``layered_density``, ``voxel_density`` or a torch callable the prover
+    records). Resample at |v| = c with theta=2*pi*U,
     phi=pi*U and ``dv = v_new - v_old``."""
 
     def __init__(self, **kwargs):
@@ -1451,6 +1461,126 @@ class SphericalShellMeasureStep(MeasureStep):
                 row.append(records["n"][i])
             row.append(records["count0"][i])
             self.data.append(np.array(row))
+
+
+def _histogram_names(edges, underflow, overflow):
+    """Validated float64 edges and the bins' output names."""
+    edges = np.asarray(edges, dtype=np.float64)
+    if edges.ndim != 1 or edges.size < 2:
+        raise ValueError("edges must be a 1-D array of >= 2 bin edges")
+    if not (np.diff(edges) > 0).all():
+        raise ValueError("edges must be strictly increasing")
+    names = tuple(f"bin{i}" for i in range(edges.size - 1))
+    if underflow:
+        names += ("underflow",)
+    if overflow:
+        names += ("overflow",)
+    return edges, names
+
+
+def _binned(coord, val, e, underflow, overflow):
+    """Per-bin contributions: the mask (a count) or ``val`` where the
+    coordinate falls in the bin (lower-edge convention ``e[i] <= coord <
+    e[i+1]``; the capture bins outside the range)."""
+    def put(m):
+        return m if val is None else torch.where(m, val, 0.0)
+
+    out = {f"bin{i}": put((coord >= e[i]) & (coord < e[i + 1]))
+           for i in range(len(e) - 1)}
+    if underflow:
+        out["underflow"] = put(coord < e[0])
+    if overflow:
+        out["overflow"] = put(coord >= e[-1])
+    return out
+
+
+class SpectrumMeasureStep(ReduceMeasureStep):
+    """Per-iteration energy histogram over alive particles, summed in the
+    transport kernel's float record columns (a :class:`ReduceMeasureStep`
+    whose contributions are per-bin masks or masked energies).
+
+    ``edges`` is an increasing 1-D array of bin edges (bin i counts
+    ``edges[i] <= E < edges[i+1]``). ``weight="count"`` tallies photons,
+    ``weight="energy"`` their energies. ``underflow`` / ``overflow`` add
+    capture bins outside the range; ``weighted=True`` multiplies every
+    contribution by the statistical weight ``w``. ``data`` rows are ``[t(,
+    n), bin_0, ..., (underflow,) (overflow,)]``, CSV via ``out_fn``. The
+    record row holds 128 float columns: at most ~120 bins per plan (the
+    prover refuses more as ``record-columns``); counts are integer-exact to
+    2**24 per iteration."""
+
+    def __init__(self, out_fn=None, edges=None, measure_n: bool = False,
+                 weight: str = "count", underflow: bool = False,
+                 overflow: bool = False, weighted: bool = False):
+        edges, names = _histogram_names(edges, underflow, overflow)
+        if weight not in ("count", "energy"):
+            raise ValueError(f"weight must be 'count' or 'energy', "
+                             f"got {weight!r}")
+        self.edges = edges
+        self.weight = weight
+        e = tuple(float(v) for v in edges)
+
+        def contributions(p):
+            val = p.E if weight == "energy" else None
+            if weighted:
+                val = p.w if val is None else val * p.w
+            return _binned(p.E, val, e, underflow, overflow)
+
+        super().__init__(out_fn, contributions, outputs=names,
+                         measure_n=measure_n)
+
+
+class MeshTallyStep(ReduceMeasureStep):
+    """Per-iteration spatial histogram over alive particles, summed in the
+    transport kernel's float record columns: the cell tally or dose map
+    beside :class:`SpectrumMeasureStep`.
+
+    ``axis`` is ``"x"``, ``"y"``, ``"z"`` (slabs) or ``"r"`` (shells of
+    ``|r - center|``); ``edges`` as in SpectrumMeasureStep, with
+    ``underflow`` / ``overflow``. ``value`` is what a particle deposits in
+    its end-of-iteration cell: ``"count"``, ``"energy"`` (``E``) or
+    ``"pathlength"`` (``|dr|``, the track-length estimator); ``weighted``
+    multiplies by ``w``. ``data`` rows ``[t(, n), bin_0, ...]``, CSV via
+    ``out_fn``."""
+
+    def __init__(self, out_fn=None, axis: str = "x", edges=None,
+                 value: str = "count", center=(0.0, 0.0, 0.0),
+                 measure_n: bool = False, weighted: bool = False,
+                 underflow: bool = False, overflow: bool = False):
+        edges, names = _histogram_names(edges, underflow, overflow)
+        if axis not in ("x", "y", "z", "r"):
+            raise ValueError(f"axis must be 'x', 'y', 'z' or 'r', "
+                             f"got {axis!r}")
+        if value not in ("count", "energy", "pathlength"):
+            raise ValueError(f"value must be 'count', 'energy' or "
+                             f"'pathlength', got {value!r}")
+        if axis == "r" and (edges < 0).any():
+            raise ValueError("radial bin edges must be non-negative")
+        self.axis = axis
+        self.value = value
+        self.edges = edges
+        self.center = tuple(float(_as_float(v)) for v in center)
+        e = tuple(float(v) for v in edges)
+        cx, cy, cz = self.center
+
+        def contributions(p):
+            if axis == "r":
+                coord = torch.sqrt((p.rx - cx) ** 2 + (p.ry - cy) ** 2
+                                   + (p.rz - cz) ** 2)
+            else:
+                coord = {"x": p.rx, "y": p.ry, "z": p.rz}[axis]
+            if value == "energy":
+                val = p.E
+            elif value == "pathlength":
+                val = torch.sqrt(p.drx ** 2 + p.dry ** 2 + p.drz ** 2)
+            else:
+                val = None
+            if weighted:
+                val = p.w if val is None else val * p.w
+            return _binned(coord, val, e, underflow, overflow)
+
+        super().__init__(out_fn, contributions, outputs=names,
+                         measure_n=measure_n)
 
 
 def _bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:

@@ -32,8 +32,9 @@ build_seconds = None   # wall time of this process's build (None: not built)
 build_log = ""         # nvcc's output (``-Xptxas -v`` register/spill report)
 
 # the kernel structs of csrc/fused_transport.cu, member for member: the
-# grid pointers lead the plan, every other member is 4 bytes wide, so both
-# sides lay them out alike (load() checks the sizes agree)
+# grid pointers lead the plan, the user-program pointer ends it, every
+# other member is 4 bytes wide, so both sides lay them out alike (load()
+# checks the sizes agree)
 MAX_OPS = 16
 MAX_AXES = 16
 MAX_FIELDS = 8
@@ -78,7 +79,9 @@ class PlanStruct(ctypes.Structure):
                 ("n_stream", _ci), ("stream_every", _ci),
                 ("stream_bf16", _ci), ("n_extras", _ci), ("otype_x", _ci),
                 ("wb_mask", _ci),
-                ("rot_sd", _cf * ROT_STEPS), ("rot_cd", _cf * ROT_STEPS)]
+                ("rot_sd", _cf * ROT_STEPS), ("rot_cd", _cf * ROT_STEPS),
+                ("uwb_mask", _ci), ("user_regs", _ci), ("n_user_ins", _ci),
+                ("user_prog", ctypes.c_void_p)]
 
 
 def _nvcc() -> str:
@@ -100,20 +103,22 @@ def _csrc(ext: str):
 def _bind(libs) -> None:
     vp, ci, cf, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_longlong)
-    ft = libs["fused_transport"]
-    ft.fused_transport_plan_size.restype = ci
-    ft.fused_transport_plan_size.argtypes = []
-    size = ft.fused_transport_plan_size()
-    if size != ctypes.sizeof(PlanStruct):
-        raise RuntimeError(f"fused_transport's Plan is {size} B but the "
-                           f"ctypes mirror is {ctypes.sizeof(PlanStruct)} B")
-    ft.fused_transport_grid.restype = ci
-    ft.fused_transport_grid.argtypes = [ll, ci, ci, ci, ci,
-                                        ctypes.POINTER(ci)]
-    ft.fused_transport_launch.restype = ci
-    ft.fused_transport_launch.argtypes = [
-        vp, vp, ll, vp, ci, vp, ci, vp, ci, ctypes.c_uint,
-        ctypes.POINTER(PlanStruct), ci, ci, vp, vp, vp, vp, ci, ci, vp]
+    # fused_user holds kernel 1i's instantiations of the same kernel
+    for ft in (libs["fused_transport"], libs["fused_user"]):
+        ft.fused_transport_plan_size.restype = ci
+        ft.fused_transport_plan_size.argtypes = []
+        size = ft.fused_transport_plan_size()
+        if size != ctypes.sizeof(PlanStruct):
+            raise RuntimeError(f"fused_transport's Plan is {size} B but the "
+                               f"ctypes mirror is "
+                               f"{ctypes.sizeof(PlanStruct)} B")
+        ft.fused_transport_grid.restype = ci
+        ft.fused_transport_grid.argtypes = [ll, ci, ci, ci, ci, ci,
+                                            ctypes.POINTER(ci)]
+        ft.fused_transport_launch.restype = ci
+        ft.fused_transport_launch.argtypes = [
+            vp, vp, ll, vp, ci, vp, ci, vp, ci, ctypes.c_uint,
+            ctypes.POINTER(PlanStruct), ci, ci, vp, vp, vp, vp, ci, ci, vp]
     pg = libs["planck_gen"]
     pg.planck_gen_launch.restype = ci
     pg.planck_gen_launch.argtypes = [vp, ll, ctypes.c_uint, vp, cf, vp]
@@ -127,15 +132,16 @@ def load():
         if _libs is not None:
             return _libs
         common = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-        for hdr in _csrc(".cuh"):
-            with open(hdr, "rb") as f:
+        # every source may include another (fused_user.cu includes
+        # fused_transport.cu), so each library's name hashes them all
+        for src in _csrc(".cuh") + _csrc(".cu"):
+            with open(src, "rb") as f:
                 common.update(f.read())
         jobs = {}
         for src in _csrc(".cu"):
             name = os.path.splitext(os.path.basename(src))[0]
             h = common.copy()
-            with open(src, "rb") as f:
-                h.update(f.read())
+            h.update(name.encode())
             so = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
             jobs[name] = (src, so)
         todo = {n: j for n, j in jobs.items() if not os.path.exists(j[1])}

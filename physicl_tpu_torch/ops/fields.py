@@ -21,8 +21,9 @@ kernel's field descriptor:
   read straight from a device copy of the flat float32 grid (one upload per
   callable and device, shared by every op that uses the callable).
 
-A Python callable has no spec: the kernel cannot inline it, and the prover
-refuses it (code ``field-fn-callable``).
+A torch callable has no spec: the prover records it into an ``"expr"``
+program (:func:`physicl_tpu_torch.ops.record.record_field`), or refuses one
+it cannot record (code ``field-fn-callable``).
 """
 
 from __future__ import annotations

@@ -61,6 +61,7 @@ SPECIES_MIXED = -1
 
 _LANE = 128
 _MAX_REC_COLS = 128
+KERNEL_BLOCK = 256  # threads per block of csrc/fused_transport.cu
 _MASK = 0xFFFFFFFF
 
 # op kinds the CUDA kernel switches on (csrc/fused_transport.cu)
@@ -68,7 +69,8 @@ OP_CODES = {"kin": 0, "del": 1, "iso": 2, "sign": 3, "emit": 4, "cross": 5,
             "absorb": 6, "reflect": 7, "periodic": 8, "sabsorb": 9,
             "scross": 10, "trace": 11, "hg": 12, "rayl": 13, "phase": 14,
             "compton": 15, "fresnel": 16, "lorentz": 17, "pol": 18,
-            "polc": 19, "polmeas": 20}
+            "polc": 19, "polmeas": 20, "custom": 21, "reduce": 22,
+            "kstate": 23}
 # ops only the kernel's geometry/stream instantiation carries (codes 7-11)
 _EXT_OPS = ("reflect", "periodic", "sabsorb", "scross", "trace")
 # ops only the kernel's rotation instantiation carries (codes 12-16), which
@@ -76,6 +78,10 @@ _EXT_OPS = ("reflect", "periodic", "sabsorb", "scross", "trace")
 _ROT_OPS = ("hg", "rayl", "phase", "compton", "fresnel")
 # ops only the kernel's polarization instantiation carries (codes 18-20)
 _POL_OPS = ("pol", "polc", "polmeas")
+# kernel 1i: recorded user programs (ops/record.py), only in the user
+# instantiation (codes 21-23)
+USER_OPS = ("custom", "reduce", "kstate")
+_POL_BASES = ("stokes", "pol_ref")
 # the Stokes and frame rows, packed first among the extras: the kernel reads
 # Stokes at extras 0-2 and the frame at 3-5
 POL_ROWS = ("stokes:0", "stokes:1", "stokes:2",
@@ -167,6 +173,11 @@ class _Op:
     # polmeas: <Q> and <U> columns too (cols = (n_col or -1, first float
     # column of the weight, p, V(, Q, U) sums); ``weighted`` weights by w)
     local_qu: bool = False
+    # custom/reduce/kstate: the recorded program (ops/record.Program; its
+    # loads and stores name packed planes, a reduce's sums name float
+    # columns); reduce: cols = (n_col or -1, first float column); t and dt
+    # from the schedule rows of ``after_update``
+    prog: object = None
 
 
 @dataclasses.dataclass
@@ -199,8 +210,9 @@ class FusedPlan:
     # read-only except in the slots an emit op fills and the planes of
     # ``extras_writeback``
     extras: tuple = ()
-    # the extras bases ("stokes", "pol_ref") an op mutates: the kernel
-    # stores their rows for every slot, and unpack_state returns them
+    # the extras bases an op mutates ("stokes", "pol_ref" first, then an
+    # ElementwiseStep's extras_write bases): the kernel stores their planes
+    # for every slot, and unpack_state returns them
     extras_writeback: tuple = ()
     # the kernel's plan struct and the per-device fit tables, built once
     _cache: dict = dataclasses.field(default_factory=dict, repr=False,
@@ -227,22 +239,37 @@ class FusedPlan:
         and the ``del`` variants (exponential transform, fluorescence); bit
         3, the ``lorentz`` op and the extras planes (the otype gate); bit 4,
         the polarization ops of ``_POL_OPS``, polarized emission and the
-        write-back of mutated planes (always with bit 3: those plans carry
-        extras)."""
+        write-back of the Stokes and frame planes; bit 5, the recorded user
+        programs of ``USER_OPS`` (kernel 1i) and the write-back of their
+        extras planes. Bits 4 and 5 come only with bit 3 (those plans
+        carry extras, or in bit 5's case take its code paths)."""
         ext = self.n_stream or any(op.kind in _EXT_OPS for op in self.ops)
         rot = any(op.kind in _ROT_OPS or op.stretch or op.fluor
                   for op in self.ops)
         mix = self.extras or any(op.kind == "lorentz" for op in self.ops)
         pol = self.has_pol
+        user = self.has_user
         return (int(self.has_fields) | (2 if ext else 0) | (4 if rot else 0)
-                | (8 if mix or pol else 0) | (16 if pol else 0))
+                | (8 if mix or pol or user else 0) | (16 if pol else 0)
+                | (32 if user else 0))
 
     @property
     def has_pol(self) -> bool:
         """The plan runs a polarization op, a polarized emitter or writes
-        extras planes back (the kernel's polarization instantiation)."""
-        return bool(self.extras_writeback) or any(
+        the Stokes or frame planes back (the kernel's polarization
+        instantiation)."""
+        return bool(set(self.extras_writeback) & set(_POL_BASES)) or any(
             op.kind in _POL_OPS or op.emit_stokes for op in self.ops)
+
+    @property
+    def has_user(self) -> bool:
+        """The plan runs a recorded user program (kernel 1i)."""
+        return any(op.kind in USER_OPS for op in self.ops)
+
+    def plane_mask(self, bases) -> int:
+        """Bit ``j`` for each extras plane ``j`` of one of ``bases``."""
+        return sum(1 << j for j, name in enumerate(self.extras)
+                   if name.split(":")[0] in bases)
 
     @property
     def n_planes(self) -> int:
@@ -260,6 +287,22 @@ class FusedPlan:
                 else torch.float32)
 
 
+def user_program_sizes(ops) -> tuple:
+    """``(instructions, registers)``: of all the ops' user programs, and the
+    largest register file among them (0, 0 without user ops)."""
+    progs = [op.prog for op in ops if op.kind in USER_OPS]
+    return (sum(len(p.ins) for p in progs),
+            max((p.n_regs for p in progs), default=0))
+
+
+def user_smem_bytes(ops) -> int:
+    """Kernel 1i's shared memory per block, ahead of the record tiles: the
+    user programs (8 B an instruction) and a register file per thread
+    (csrc/fused_transport.cu's user_smem_bytes)."""
+    n_ins, n_regs = user_program_sizes(ops)
+    return 8 * n_ins + 4 * KERNEL_BLOCK * n_regs
+
+
 class _HashRng:
     """The JAX emulated chunk's counter hash (``_Rng._hash_bits``) in int64
     with a 32-bit mask after every add and multiply. ``lin`` is the per-slot
@@ -273,7 +316,11 @@ class _HashRng:
 
     def bits(self) -> torch.Tensor:
         self.idx += 1
-        h = (self.h0 ^ ((self.idx * 0x7FEB352D) & _MASK)) + self.lin
+        return self.bits_at(self.idx)
+
+    def bits_at(self, idx: int) -> torch.Tensor:
+        """The hash at draw index ``idx`` (the counter does not move)."""
+        h = (self.h0 ^ ((idx * 0x7FEB352D) & _MASK)) + self.lin
         h = h & _MASK
         for mul in (0x85EBCA6B, 0xC2B2AE35):
             h = h ^ (h >> 16)
@@ -282,7 +329,11 @@ class _HashRng:
         return h ^ (h >> 16)
 
     def uniform(self) -> torch.Tensor:
-        return (self.bits() >> 8).to(torch.float32) * (1.0 / (1 << 24))
+        self.idx += 1
+        return self.uniform_at(self.idx)
+
+    def uniform_at(self, idx: int) -> torch.Tensor:
+        return (self.bits_at(idx) >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
     def uniform_pair(self):
         b = self.bits()
@@ -543,6 +594,7 @@ def _check_plan(plan: FusedPlan) -> None:
             raise ValueError(f"lorentz reads plane {op.qm_plane} of "
                              f"{plan.n_planes}")
     _check_pol(plan)
+    _check_user(plan)
     if sum(len(op.axes) for op in plan.ops) > MAX_AXES:
         raise ValueError(f"crossing planes exceed the kernel's {MAX_AXES}")
     specs, _ = plan_fields(plan.ops)
@@ -597,6 +649,46 @@ def _check_pol(plan: FusedPlan) -> None:
             raise ValueError(f"write-back of {base!r}, which is not packed")
 
 
+def _check_user(plan: FusedPlan) -> None:
+    """Kernel 1i's limits and layout: every program within the kernel's
+    registers, the plan's programs within its instruction buffer, loads of
+    packed planes, stores to the core planes (not ``alive``) or to written-
+    back extras, record sums into the plan's float columns."""
+    from physicl_tpu_torch.ops import record as RC
+
+    total = 0
+    user_planes = plan.plane_mask(plan.extras_writeback)
+    for op in plan.ops:
+        if op.kind not in USER_OPS:
+            continue
+        prog = op.prog
+        if prog is None:
+            raise ValueError(f"{op.kind} needs its recorded program")
+        if prog.n_regs > RC.MAX_REGS:
+            raise ValueError(f"a user program needs {prog.n_regs} registers"
+                             f" > the kernel's {RC.MAX_REGS}")
+        total += len(prog.ins)
+        for code, d, a, b, y, bimm in prog.ins:
+            if max(d, a, b) >= prog.n_regs or (
+                    code == RC.U_SEL and not bimm and y >= prog.n_regs):
+                raise ValueError("a user program names a register past its "
+                                 "file")
+            if code == RC.U_LD and not 0 <= y < plan.n_planes:
+                raise ValueError(f"a user program loads plane {y} of "
+                                 f"{plan.n_planes}")
+            if code == RC.U_ST and not (
+                    (0 <= y < _NF and y != _ALIVE)
+                    or (y >= _NF and (user_planes >> (y - _NF)) & 1)):
+                raise ValueError(f"a user program stores plane {y}, which "
+                                 "is neither a core plane nor written back")
+            if code == RC.U_ACC and not 0 <= y < plan.n_frec_cols:
+                raise ValueError(f"a user program sums into float column "
+                                 f"{y} of {plan.n_frec_cols}")
+    if total > RC.MAX_INS:
+        raise ValueError(f"user programs of {total} instructions exceed the "
+                         f"kernel's {RC.MAX_INS}")
+
+
 def _axis(ax) -> tuple:
     """A cross op's plane as ``(axis, L, col, e_col, ecap)`` (a 4-tuple
     captures no energies)."""
@@ -634,6 +726,7 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
     fixed-order sums to rounding, not bitwise.
     """
     from physicl_tpu_torch import light as lt
+    from physicl_tpu_torch.ops import record as RC
 
     _check_plan(plan)
     starts = _emit_rows(emit_starts, plan)
@@ -645,6 +738,10 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
     dts, dts_after, dts_before = (sched[i].to(device=dev,
                                               dtype=torch.float32)
                                   for i in (0, 3, 4))
+    # rows 1-4: t after and before the UpdateTimeStep, then dt after and
+    # before (the user programs' t and dt)
+    sched_t = [sched[i].to(device=dev, dtype=torch.float32)
+               for i in (1, 2, 3, 4)]
     p_otype = (_NF + plan.extras.index("otype")
                if plan.species == SPECIES_MIXED else -1)
     rec = torch.zeros((plan.chunk, _MAX_REC_COLS), dtype=torch.int32,
@@ -1083,6 +1180,16 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                         rec_f[k, op.cols[0]] = fsum(scatter,
                                                     f[_W] * (f[_E] - E_new))
                     f[_E] = torch.where(scatter, E_new, f[_E])
+            elif op.kind in USER_OPS:
+                # kernel 1i: the recorded program over this iteration's
+                # planes, with t and dt of the op's place (sched rows 1 and
+                # 3 after the UpdateTimeStep, 2 and 4 before it)
+                row = 1 if op.after_update else 2
+                if op.kind == "reduce" and op.cols[0] >= 0:
+                    rec[k, op.cols[0]] = count(alive)
+                alive = RC.run_user_program(
+                    op.prog, f, alive, sched_t[row - 1][k],
+                    sched_t[row + 1][k], rng, rec_f[k])
             elif op.kind == "polmeas":
                 # weight, degree of polarization, V (and Q, U) sums over
                 # alive particles (not photon-gated); the host divides
@@ -1293,6 +1400,8 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
     ps = PlanStruct()
     specs, per_op = plan_fields(plan.ops)
     aux, prog, grids = [], [], []
+    user_words = []  # kernel 1i's programs, concatenated
+    n_user = 0
     n_ax = 0
     for i, op in enumerate(plan.ops):
         o = ps.ops[i]
@@ -1339,6 +1448,16 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
             o.emit_n = op.kn_tries
         elif op.kind == "polmeas":  # PolmeasFlag: weighted 1, local_qu 2
             o.flag = int(op.weighted) | 2 * int(op.local_qu)
+        elif op.kind in USER_OPS:
+            # the program at [icdf, icdf + emit_n) of the plan's buffer,
+            # emit_row draws, flag 1 = t and dt after the UpdateTimeStep;
+            # col0 a reduce's count column
+            words = op.prog.words()
+            o.icdf, o.emit_n = n_user, len(words)
+            o.emit_row = op.prog.n_draws
+            o.flag = int(op.after_update)
+            user_words.append(words)
+            n_user += len(words)
         elif op.kind == "lorentz":
             # LorentzFlag: E 1, B 2, the dt after the update 4; the
             # species-wide 0.5 q/m rounded to float32 (jnp.float32(0.5 *
@@ -1397,8 +1516,20 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
     ps.n_extras = len(plan.extras)
     ps.otype_x = (plan.extras.index("otype")
                   if plan.species == SPECIES_MIXED else -1)
-    ps.wb_mask = sum(1 << j for j, name in enumerate(plan.extras)
-                     if name.split(":")[0] in plan.extras_writeback)
+    # the Stokes and frame planes written back (kPol), and every other
+    # written-back plane (kernel 1i's extras_write)
+    ps.wb_mask = plan.plane_mask(set(plan.extras_writeback)
+                                 & set(_POL_BASES))
+    ps.uwb_mask = plan.plane_mask(set(plan.extras_writeback)
+                                  - set(_POL_BASES))
+    ps.n_user_ins, ps.user_regs = user_program_sizes(plan.ops)
+    user = None
+    if user_words:  # one upload per plan and device (a word pair at least:
+        # a program may be empty, and the kernel needs a buffer)
+        words = np.concatenate(user_words + [np.zeros((1, 2), np.int32)])
+        user = torch.from_numpy(words).to(dev)
+        ps.user_prog = user.data_ptr()
+        grids.append(user)
     if plan.has_pol:
         ps.rot_sd[:], ps.rot_cd[:] = (t.tolist() for t in rot_table())
     # once per plan and device: no copy on the dispatch path
@@ -1457,7 +1588,7 @@ def fused_transport(packed: torch.Tensor, out: torch.Tensor,
                              "packed state's device")
         starts_ptr, stride = emit_starts.data_ptr(), emit_starts.shape[1]
     struct, aux, _ = _plan_struct(plan, dev)
-    lib = _build.load()["fused_transport"]
+    lib = _library(plan)
     C, k_act = packed.shape[1], int(k_act)
     rec = torch.zeros((plan.chunk, _MAX_REC_COLS), dtype=torch.int32,
                       device=dev)
@@ -1472,18 +1603,14 @@ def fused_transport(packed: torch.Tensor, out: torch.Tensor,
         out[_NF:].copy_(packed[_NF:])
     variant = plan.kernel_variant
     with torch.cuda.device(dev):
-        grid = ctypes.c_int(0)
-        _build.check(lib.fused_transport_grid(
-            C, k_act, plan.n_rec_cols, plan.n_frec_cols, variant,
-            ctypes.byref(grid)),
-            "fused_transport occupancy query")
-        partials = torch.empty(max(1, grid.value * k_act * plan.n_frec_cols),
+        grid = kernel_grid(plan, C, k_act)
+        partials = torch.empty(max(1, grid * k_act * plan.n_frec_cols),
                                dtype=torch.float32, device=dev)
         err = lib.fused_transport_launch(
             packed.data_ptr(), out.data_ptr(), C, sched.data_ptr(),
             sched.shape[1], starts_ptr, stride,
             0 if aux is None else aux.data_ptr(), k_act,
-            int(seed) & 0xFFFFFFFF, ctypes.byref(struct), variant, grid.value,
+            int(seed) & 0xFFFFFFFF, ctypes.byref(struct), variant, grid,
             rec.data_ptr(), rec_f.data_ptr(), partials.data_ptr(),
             0 if stream is None else stream.data_ptr(),
             plan.n_stream_rows if plan.n_stream else 0,
@@ -1497,6 +1624,31 @@ def fused_transport(packed: torch.Tensor, out: torch.Tensor,
 
 
 fused_transport.launches = 0
+
+
+def _library(plan: FusedPlan):
+    """The built library holding the plan's instantiation: kernel 1i's
+    sixteen (``csrc/fused_user.cu``) or the other 24."""
+    from physicl_tpu_torch.ops import _build
+
+    return _build.load()["fused_user" if plan.has_user
+                         else "fused_transport"]
+
+
+def kernel_grid(plan: FusedPlan, capacity: int, k_act: int) -> int:
+    """The grid (blocks) a ``fused_transport`` launch of ``plan`` takes on
+    the current CUDA device: the occupancy limit of its instantiation with
+    its shared memory (record tiles, kernel 1i's programs and registers)
+    times the SM count, capped by the tiles."""
+    from physicl_tpu_torch.ops import _build
+
+    lib = _library(plan)
+    grid = ctypes.c_int(0)
+    _build.check(lib.fused_transport_grid(
+        capacity, k_act, plan.n_rec_cols, plan.n_frec_cols,
+        plan.kernel_variant, user_smem_bytes(plan.ops), ctypes.byref(grid)),
+        "fused_transport occupancy query")
+    return grid.value
 
 
 def fused_chunk(packed: torch.Tensor, sched: torch.Tensor, seed: int,
@@ -1547,10 +1699,11 @@ def unpack_state(packed: torch.Tensor, template: SimState,
                  extras: tuple = (), writeback: tuple = ()) -> SimState:
     """Packed ``(15 + n_extras, C)`` -> SimState. The vector fields are
     views of ``packed``, so the state shares its storage. ``writeback``
-    names the 3-row extras bases the kernel mutated (``FusedPlan.
-    extras_writeback``): their rows ``"name:0"`` .. ``"name:2"``, which the
-    prover packs in order among ``extras`` (the plan's packed names),
-    replace ``template.extras[name]`` as a view. Every other extras plane
+    names the extras bases the kernel mutated (``FusedPlan.
+    extras_writeback``): a scalar plane packed as ``"name"``, or the rows
+    ``"name:0"`` .. ``"name:2"`` of a 3-row one (a view where the prover
+    packed them in order, as it does), replace ``template.extras[name]``.
+    Every other extras plane
     stays with the host's ``template.extras`` and ``otype``: the kernel
     changes them only in the slots an emit op fills, which the provider
     retypes and zeroes itself."""
@@ -1565,6 +1718,13 @@ def unpack_state(packed: torch.Tensor, template: SimState,
         return state
     new_extras = dict(template.extras)
     for base in writeback:
-        p = _NF + extras.index(f"{base}:0")
-        new_extras[base] = packed[p:p + 3].to(template.extras[base].dtype)
+        dtype = template.extras[base].dtype
+        if base in extras:  # a scalar plane, packed under its name
+            new_extras[base] = packed[_NF + extras.index(base)].to(dtype)
+            continue
+        rows = [_NF + extras.index(f"{base}:{i}") for i in range(3)]
+        if rows == list(range(rows[0], rows[0] + 3)):
+            new_extras[base] = packed[rows[0]:rows[0] + 3].to(dtype)
+        else:
+            new_extras[base] = packed[rows].to(dtype)
     return state.replace(extras=new_extras)

@@ -28,7 +28,16 @@ extras planes the kernel writes back), on a photon, a
 generic (charged; no photon steps) or a mixed population (photon ops
 gated per particle by a packed otype plane), with a t-only or extinction
 exit. Fields are C expressions, layered or voxel media
-(:mod:`physicl_tpu_torch.ops.fields`); a Python callable is refused.
+(:mod:`physicl_tpu_torch.ops.fields`), or torch callables recorded into
+expression programs.
+
+User code runs in the kernel too (kernel 1i): ``ElementwiseStep``,
+``ReduceMeasureStep`` (and ``light.SpectrumMeasureStep`` /
+``MeshTallyStep``) and ``KernelStep(elementwise=True)`` callables are
+recorded into register programs (:mod:`physicl_tpu_torch.ops.record`);
+their refusals carry the JAX prover's codes (``elementwise-``,
+``reduce-``, ``kernelstep-`` + ``not-elementwise``, ``trace``, ...) and
+the kernel's limits ``user-program-size`` and ``user-program-regs``.
 
 Per-photon outputs (trace positions, captured energies) are stream planes
 of the chunk's stream buffer; the harvest hands them to their steps as
@@ -507,6 +516,12 @@ class FusedProvider:
                     if p >= 0:  # per-photon E capture, compacted in collect
                         records[f"{uid}/E{j}"] = _EList(
                             inflight.stream, p, inflight.ready)
+            elif m["kind"] == "reduce":
+                records[f"{uid}/t"] = t_arr
+                if m["n_col"] >= 0:
+                    records[f"{uid}/n"] = rec_np[:, m["n_col"]]
+                for j, name in enumerate(m["names"]):
+                    records[f"{uid}/{name}"] = recf_np[:, m["f0"] + j]
             elif m["kind"] == "polmeas":
                 # the kernel sums weight, p, V (, Q, U): the means divide
                 # by the weight sum, as the JAX package's harvest does
@@ -575,9 +590,38 @@ def _population_pol_planes(sim) -> tuple:
     return tuple(nm for nm in ("stokes", "pol_ref") if nm in found)
 
 
+_EXTRAS_CORE = {"r", "dr", "v", "dv", "a", "E", "w"}
+
+
+def _population_extras_rows(sim, name: str):
+    """Rows the state assembly gives a pending extras plane (1 for a
+    scalar, 3 for a 3-vector), or None if no pending source declares it."""
+    if name.startswith("_") or name in _EXTRAS_CORE:
+        return None
+    for b in sim._pending_bulk:
+        arr = (b.get("extras") or {}).get(name)
+        if arr is not None:
+            return 1 if arr.ndim == 1 else 3
+    for o in sim._pending_objects:
+        if hasattr(o, name):
+            arr = np.asarray(raw_code_value(getattr(o, name)),
+                             dtype=np.float64)
+            if arr.shape == ():
+                return 1
+            if arr.shape == (3,):
+                return 3
+    return None
+
+
 def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
     """Return a FusedProvider for the sim, or raise :class:`FusedRefusal`."""
-    from physicl_tpu_torch.engine import UpdateTimeStep
+    from physicl_tpu_torch.engine import (
+        ElementwiseStep,
+        ReduceMeasureStep,
+        UpdateTimeStep,
+    )
+    from physicl_tpu_torch.kernels import KernelStep
+    from physicl_tpu_torch.ops import record as RC
     from physicl_tpu_torch.light import (
         PhotonEmitterStep,
         PlanckSampler,
@@ -611,22 +655,41 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
     def _no(code: str, detail: str):
         raise FusedRefusal(code, detail)
 
+    # one recorded field per callable and variables (the callable is kept
+    # in the entry: its id keys it)
+    recorded_fields = {}
+
     def _field(step, fn, label, varnames):
-        """The kernel-evaluable field callable ``fn``, or a refusal."""
+        """The kernel-evaluable field callable ``fn``, or a refusal. A
+        torch callable is recorded into an expression program."""
         if fn is None:
             return None
         what = f"{type(step).__name__}'s {label}"
         spec = getattr(fn, "spec", None)
+        if spec is None and callable(fn):
+            key = (id(fn), varnames)
+            if key not in recorded_fields:
+                try:
+                    recorded_fields[key] = (fn, RC.record_field(
+                        fn, varnames, what))
+                except RC.Refused as e:
+                    _no(e.code, f"{e.detail}; pass a C-expression string"
+                        + (" over E[gid]" if varnames == ("E",) else ", "
+                           "light.layered_density or light.voxel_density"))
+            fn = recorded_fields[key][1]
+            spec = fn.spec
         # layered and voxel fields are functions of position only
         if spec is None or spec.get("vars", _R) != varnames:
             _no("field-fn-callable", f"{what} is not a field the kernel "
-                "evaluates (a Python callable cannot be inlined); pass a "
-                "C-expression string"
+                f"evaluates over {varnames}; pass a C-expression string"
                 + (" over E[gid]" if varnames == ("E",) else ", "
                    "light.layered_density or light.voxel_density"))
         if spec["kind"] == "expr":
             if spec["error"] is not None:
                 _no("field-expr-unsupported", spec["error"])
+            if len(spec["prog"]) > FL.MAX_PROG:
+                _no("field-expr-length", f"{what} needs {len(spec['prog'])} "
+                    f"instructions > the kernel's {FL.MAX_PROG}")
             if spec["depth"] > FL.MAX_DEPTH:
                 _no("field-expr-length", f"{what} needs an evaluation stack "
                     f"of {spec['depth']} > {FL.MAX_DEPTH}")
@@ -678,6 +741,36 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
     if species == F.SPECIES_MIXED:
         extra_names.append("otype")
     pol_wb = set()  # the polarization planes an op mutates: written back
+    user_wb: List[str] = []  # ElementwiseStep extras_write bases, in order
+
+    def view_extras(step):
+        """``(name, first packed plane, rows)`` of a user step's declared
+        extras, packing the planes it needs; a missing one refuses."""
+        entries = []
+        for name in step.extras:
+            rows = _population_extras_rows(sim, name)
+            if rows is None:
+                _no("extras-missing", f"{type(step).__name__} declares "
+                    f"extras={step.extras} but no pending population carries "
+                    f"a '{name}' plane (Object kwargs, a bulk's 'extras')")
+            packed = ([name] if rows == 1
+                      else [f"{name}:{i}" for i in range(rows)])
+            for nm in packed:
+                if nm not in extra_names:
+                    extra_names.append(nm)
+            entries.append((name, F._NF + extra_names.index(packed[0]),
+                            rows))
+        return tuple(entries)
+
+    def recorded(prefix, record, *args, **kw):
+        """A user callable's program, or its refusal: JAX's codes carry the
+        step's prefix, the kernel limits (``user-program-*``) do not."""
+        try:
+            return record(*args, **kw)
+        except RC.Refused as e:
+            code = (e.code if e.code.startswith("user-program")
+                    else f"{prefix}-{e.code}")
+            _no(code, e.detail)
 
     ops: List[F._Op] = []
     rec_map: List[dict] = []
@@ -920,6 +1013,49 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
                 emit_r=tuple(float(x) for x in s.r), emit_v=emit_v,
                 emit_row=sum(1 for o in ops if o.kind == "emit"),
                 emit_stokes=emit_stokes, emit_polref=emit_polref))
+        elif type(s) is ElementwiseStep:
+            # user physics recorded into kernel 1i's program: t and dt of
+            # its place; declared extras pack as planes, extras_write ones
+            # are written back
+            ve = view_extras(s)
+            prog = recorded("elementwise", RC.record_particle_fn, s.fn,
+                            "ElementwiseStep", ve, s.extras_write)
+            user_wb.extend(s.extras_write)
+            ops.append(F._Op("custom", prog=prog, after_update=update_seen))
+        elif isinstance(s, ReduceMeasureStep) and (
+                type(s).apply is ReduceMeasureStep.apply
+                and type(s)._contributions
+                is ReduceMeasureStep._contributions):
+            # per-particle contributions summed over alive particles into
+            # one float column each (subclasses that only configure the
+            # constructor, as light.SpectrumMeasureStep and MeshTallyStep,
+            # are their fn; one that overrides apply or _contributions is
+            # an unsupported step, as in the JAX prover)
+            ve = view_extras(s)
+            n_col = next_col if s.measure_n else -1
+            next_col += 1 if s.measure_n else 0
+            f0 = next_fcol
+            next_fcol += len(s.outputs)
+            prog = recorded("reduce", RC.record_particle_fn, s.fn,
+                            "ReduceMeasureStep", ve, outputs=s.outputs,
+                            f0=f0)
+            ops.append(F._Op("reduce", prog=prog, cols=(n_col, f0),
+                             after_update=update_seen))
+            rec_map.append({"uid": uid, "kind": "reduce", "n_col": n_col,
+                            "f0": f0, "names": s.outputs})
+            measure_after_update[uid] = update_seen
+        elif type(s) is KernelStep and s.elementwise:
+            # a SimState -> SimState map over the kernel's facade; records
+            # reduce across particles (ReduceMeasureStep's job)
+            if s.record_fn is not None:
+                _no("kernelstep-records", "KernelStep(elementwise=True) with "
+                    "record_fn=: records reduce across particles; use "
+                    "ReduceMeasureStep for fused measurement")
+            otype_plane = (F._NF + extra_names.index("otype")
+                           if species == F.SPECIES_MIXED else -1)
+            prog = recorded("kernelstep", RC.record_kernelstep, s.fn,
+                            otype_plane, species)
+            ops.append(F._Op("kstate", prog=prog, after_update=update_seen))
         elif type(s) is ScatterMeasureStep:
             n_col = next_col if s.measure_n else -1
             next_col += 1 if s.measure_n else 0
@@ -959,7 +1095,9 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
                 "ScatterCompton/ScatterPolarizedRayleigh/"
                 "ScatterPolarizedCompton/StokesMeasure/"
                 "RefractiveInterface/PhotonEmitter/ScatterSignMeasure/"
-                "ScatterMeasure/SphericalShellMeasure/TracePathMeasure")
+                "ScatterMeasure/SphericalShellMeasure/TracePathMeasure/"
+                "Elementwise/ReduceMeasure (Spectrum, MeshTally)/"
+                "KernelStep(elementwise=True)")
 
     if not update_seen:
         _no("no-update-step", "no UpdateTimeStep: the fused kernel "
@@ -982,6 +1120,10 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
     if n_prog > FL.MAX_PROG:
         _no("field-expr-length", f"the plan's expression programs hold "
             f"{n_prog} instructions > the kernel's {FL.MAX_PROG}")
+    n_user = F.user_program_sizes(ops)[0]
+    if n_user > RC.MAX_INS:
+        _no("user-program-size", f"the plan's user programs hold {n_user} "
+            f"instructions > the kernel's {RC.MAX_INS}")
     for sp in specs:  # the voxel grids go to the device now, in set-up
         if sp["kind"] == "voxel":
             FL.grid_on(sp, state.device)
@@ -1011,7 +1153,7 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
             and all(p < kin_positions[0] for p in emit_positions)
             and not any(kin_positions[0] < q < p for q in reflect_positions
                         for p in scatter_positions)
-            and not any(op.kind == "lorentz"
+            and not any(op.kind in ("lorentz", "custom")
                         or (op.kind == "fresnel" and op.iface[4])
                         for op in ops)):
         speeds = [float(np.linalg.norm(np.asarray(
@@ -1048,10 +1190,10 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
         exit_mode = "t"
     elif hint == "n0" or (hint is None and _probe_extinction(sim.exit)):
         exit_mode = "n0"
-        if not any(op.kind in ("del", "absorb") for op in ops):
+        if not any(op.kind in ("del", "absorb", "custom") for op in ops):
             _no("extinction-without-death", "extinction exit but no step can "
-                "remove photons (no ScatterDelete/AbsorbingBoundary): the "
-                "run would never terminate")
+                "remove photons (no ScatterDelete/AbsorbingBoundary/"
+                "ElementwiseStep): the run would never terminate")
         if emit_positions:
             _no("extinction-with-emitter", "extinction exit + "
                 "PhotonEmitterStep: in-kernel emissions past the extinction "
@@ -1098,23 +1240,29 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
     # shared memory: a chunk over the budget is shortened (the chunk seed
     # follows the chunk index, so parity with the JAX package then needs
     # its chunk_steps set to the same length)
-    tile_chunk = _MAX_REC_TILE_BYTES // ((next_col + next_fcol
-                                          * _KERNEL_WARPS) * 4)
+    # (kernel 1i's programs and register files come first in it)
+    user_bytes = F.user_smem_bytes(ops)
+    tile_chunk = (_MAX_REC_TILE_BYTES - user_bytes) // (
+        (next_col + next_fcol * _KERNEL_WARPS) * 4)
     if chunk > tile_chunk:
         chunk = max(1, tile_chunk)
         if stream_every > 1:
             chunk, stream_every = _whole_periods(
                 chunk, stream_every, periods, budget, row_bytes)
         notes.append(f"chunk {chunk}: float record tiles ({next_col} int + "
-                     f"{next_fcol} float columns x {_KERNEL_WARPS} warps in "
-                     f"{_MAX_REC_TILE_BYTES} B of shared memory)")
+                     f"{next_fcol} float columns x {_KERNEL_WARPS} warps"
+                     + (f", after {user_bytes} B of user programs and "
+                        "registers," if user_bytes else "")
+                     + f" in {_MAX_REC_TILE_BYTES} B of shared memory)")
     plan = F.FusedPlan(ops=ops, n_rec_cols=next_col, chunk=chunk,
                        const_norm_speed=const_speed, n_frec_cols=next_fcol,
                        n_stream=next_plane, stream_every=stream_every,
                        stream_dtype=stream_dtype, species=species,
                        extras=tuple(extra_names),
-                       extras_writeback=tuple(b for b in ("stokes",
-                                                          "pol_ref")
-                                              if b in pol_wb))
+                       extras_writeback=(
+                           tuple(b for b in ("stokes", "pol_ref")
+                                 if b in pol_wb)
+                           + tuple(dict.fromkeys(b for b in user_wb
+                                                 if b not in pol_wb))))
     return FusedProvider(sim, plan, rec_map, dt_fn, update_before_kin,
                          measure_after_update, sim.exit, exit_mode, notes)

@@ -8,13 +8,15 @@ builds its kernels (``nvcc`` into a temporary directory) and times
 ``fused_transport`` on the main path's shape (10**7 photons padded to
 10,010,624 slots, 1024 iterations, [kin, iso, sign] with the const-norm
 path), on [kin, iso, sign] at 2**20 slots x 256 iterations and on
-``chip_smoke.py``'s geometry, rotation, Lorentz and polarized plans at that
-shape (the latter three only where the checkout has their ops), with CUDA events over 3
-and 5 launches after one warm-up launch, and reads each kernel
-instantiation's registers from ``ptxas -v`` (keyed by its template
+``chip_smoke.py``'s geometry, rotation, Lorentz, polarized and user-code
+(kernel 1i) plans at that shape (the latter four only where the checkout
+has their ops; the user plans as their providers hand them over), with
+CUDA events over 3 and 5 launches after one warm-up launch, and reads each
+kernel instantiation's registers from ``ptxas -v`` (keyed by its template
 arguments, e.g. ``b0b1b0b0`` = no fields, geometry/streams, no rotation
-family, no Lorentz push or extras; a fifth bit, polarization). Prints one JSON object per checkout; run both versions in one
-call, in turns, so that the card and its power limit are the same for
+family, no Lorentz push or extras; a fifth bit, polarization; a sixth, the
+user programs). Prints one JSON object per checkout; run both versions in
+one call, in turns, so that the card and its power limit are the same for
 both.
 """
 
@@ -30,6 +32,7 @@ import torch
 sys.path.insert(0, sys.argv[1])
 sys.path.append(sys.argv[2])  # chip_smoke.py's plans
 import chip_smoke as cs
+import physicl_tpu_torch as phys
 import physicl_tpu_torch.light as light
 from physicl_tpu_torch.ops import _build
 from physicl_tpu_torch.ops import fused as F
@@ -136,6 +139,22 @@ if "pol" in F.OP_CODES:
         end.record()
         torch.cuda.synchronize()
         out[f"ms_{name}"] = start.elapsed_time(end) / 5
+if "custom" in F.OP_CODES:
+    for case in cs.USER_PLANS:
+        pk, sched, seed, k, plan, _ = cs.first_chunk_inputs(
+            cs.user_plan_sim(phys, case, dev), F)
+        res = torch.empty_like(pk)
+
+        def launch():
+            F.fused_transport(pk, res, sched, seed, k, plan)
+        launch()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(5):
+            launch()
+        end.record()
+        torch.cuda.synchronize()
+        out[f"ms_{case}"] = start.elapsed_time(end) / 5
 print(json.dumps(out))
 """
 

@@ -441,3 +441,63 @@ def test_polarized_simulation_card_equals_cpu(dev):
     assert torch.equal(gp[:, ga], cp[:, ca])
     np.testing.assert_array_equal(gm[:, :2], cm[:, :2])
     np.testing.assert_allclose(gm, cm, rtol=1e-5, atol=1e-6)
+
+
+# -- user code (kernel 1i) --
+
+@pytest.mark.parametrize("case", ["custom", "custom-draws", "custom-extras",
+                                  "reduce-n", "mesh-x-path",
+                                  "mesh-r-weighted", "kstate-mixed",
+                                  "reduce-weighted", "fluor-callable"])
+def test_user_plans_match_twin(dev, case):
+    """The nine plans ``chip_smoke.py`` holds at 2**20 x 256 (recorded user
+    programs, the histogram tallies, a recorded A(E) field), here at 2**16
+    x 64 as their providers hand them over: int records equal, every plane
+    (the written-back extras included) bitwise, rec_f within tolerance, in
+    place equal to out of place; the user plans run the user
+    instantiation."""
+    import physicl_tpu_torch as phys
+    from chip_smoke import first_chunk_inputs, user_plan_sim
+
+    packed, sched, seed, k, plan, starts = first_chunk_inputs(
+        user_plan_sim(phys, case, dev, n=1 << 16, chunk=64), F)
+    assert plan.kernel_variant & 40 == 40 or case == "fluor-callable"
+    out = torch.empty_like(packed)
+    rec, rec_f = F.fused_transport(packed, out, sched, seed, k, plan)
+    ref, ref_rec, ref_f = F.fused_chunk_reference(packed, sched, seed, k,
+                                                  plan)
+    inplace = packed.clone()
+    F.fused_transport(inplace, inplace, sched, seed, k, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(rec, ref_rec)
+    assert torch.equal(out, ref) and torch.equal(inplace, ref)
+    assert _close_f(rec_f, ref_f)
+
+
+def test_user_simulation_card_equals_cpu(dev):
+    """The user path (drag, decay with a written-back dose, the moments
+    tally) and the spectrum path at 2**14 photons on the card and on the
+    CPU twin: equal ``sim.ts``, records and final planes."""
+    import physicl_tpu_torch as phys
+    from chip_smoke import spectrum_sim, user_sim
+
+    for build in (lambda where: user_sim(phys, 1 << 14, where, iters=96,
+                                         chunk=32),
+                  lambda where: spectrum_sim(phys, 1 << 14, where,
+                                             iters=70)):
+        runs = {}
+        for where in ("cuda", "cpu"):
+            sim, *tallies = build(torch.device(where))
+            sim.start()
+            sim.join()
+            st = sim.sim_state
+            planes = [st.v, st.E[None]] + [
+                x.reshape(-1, x.shape[-1]) for x in st.extras.values()]
+            runs[where] = (sim.ts, [np.asarray(t.data) for t in tallies],
+                           st.alive.cpu(), torch.cat(planes).cpu())
+        (gt, gm, ga, gp), (ct, cm, ca, cp) = runs["cuda"], runs["cpu"]
+        assert gt == ct
+        assert torch.equal(ga, ca)
+        assert torch.equal(gp, cp)
+        for g, c in zip(gm, cm):
+            np.testing.assert_allclose(g, c, rtol=1e-5, atol=1e-6)

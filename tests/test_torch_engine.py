@@ -294,13 +294,17 @@ def test_explain_plan_reports_fused():
 
 # case -> (refusal code, the step that draws it)
 _REFUSALS = {
+    # a torch callable is recorded into a field program; one that leaves
+    # torch (numpy on the traced values) cannot be
     "field-fn-callable-n": ("field-fn-callable",
                             lambda P: P.light.ScatterIsotropicStep(
                                 A=0.001, n=0.001, variable_n=True,
-                                variable_n_fn=lambda r0, r1, r2: r0 * 0 + 1)),
+                                variable_n_fn=lambda r0, r1, r2:
+                                np.ones_like(np.asarray(r0)))),
     "field-fn-callable-A": ("field-fn-callable",
                             lambda P: P.light.ScatterDeleteStep(
-                                0.001, 0.001, A_fn=lambda E: E * 0 + 1)),
+                                0.001, 0.001,
+                                A_fn=lambda E: np.asarray(E) * 0 + 1)),
     "phase-icdf-callable": ("phase-icdf-callable",
                             lambda P: P.light.ScatterPhaseFunctionStep(
                                 A=0.001, cos_theta_icdf=lambda u: 2 * u - 1)),
