@@ -20,7 +20,17 @@ Phases (any failure exits non-zero and prints no result line):
    records exactly equal, float planes within rtol 1e-6 + atol 1e-6 *
    max|plane|, float records (rec_f) within rtol 1e-5 + atol 1e-6 * the
    column's largest value and bitwise equal between two kernel runs,
-   in-place launch equal to out-of-place; times kernel and twin;
+   in-place launch equal to out-of-place; times kernel and twin. At the
+   main path's shape the plan runs the op-sequence instantiation (variant
+   64, ``fused_seq_kernel``): first the exhaustive check of its reciprocal
+   root (equal to ``1.0f / sqrtf`` on every float32 of [0.5, 2), and every
+   draw pair's squared norm inside that range), then planes and int records
+   bitwise equal to the twin and to the generic variant 0 on the same
+   inputs; prints both instantiations' registers, the SASS instruction
+   counts of their iteration loops (``scripts/sass_loop.py``), their times
+   in turns, the bound (the work the function needs, ``SEQ_OPS``, with
+   its terms) and each one's issue time (the loop's instructions
+   per warp-iteration over 4 x 132 x 1.98e9 issue slots per second);
 4. ``fused_transport`` vs twin on the Planck source path's first chunk: the
    plan, state, schedule, seed and emit starts that the path's own provider
    hands the kernel (2**24 slots, 1024 iterations, lambda**-4 isotropic
@@ -53,13 +63,15 @@ Phases (any failure exits non-zero and prints no result line):
    mean against the analytic CDF of the window; times both;
 8. main path: 10**7 photons through ``Simulation`` (the ``bench.py``
    steps, chunk_steps=1024, a t-exit of 5000 iterations): checks that the
-   run went through the kernel, the +x-share law 0.5 + 0.5 (1 - p)**k and
+   run went through the kernel's op-sequence instantiation for every
+   chunk, the +x-share law 0.5 + 0.5 (1 - p)**k and
    finite state, and prints photon-steps/s over the dispatch loop after the
    first chunk, on the device's clock, and over the whole run from
    ``start()``, set-up included;
 9. absorption: plain ``ScatterDeleteStep`` with an extinction exit at
-   2**20 photons: the alive count follows N (1 - p)**k within 5 binomial
-   sigma and the run ends;
+   2**20 photons, through the [kin, del, sign] op-sequence instantiation
+   (variant 65) for every chunk: the alive count follows N (1 - p)**k
+   within 5 binomial sigma and the run ends;
 10. Planck source path: 10**7 initial photons from ``sample_device`` and
     ``generate_photon_state(device="cuda")`` in a 2**24-slot arena, a
     ``PhotonEmitterStep(8192, E=PlanckSampler, isotropic=True)``,
@@ -258,13 +270,15 @@ record-tile paths, the polarized and polarimetry paths, the user and
 spectrum paths (their ``replaces`` the user ops of kernel 1i), the main path,
 the Planck source path, the media path, the escape path and the cavity path, each
 with its path's launch count and the times and bound at that path's own
-shape and plan (the bound counts the fields' corner reads and the stream
-stores as lane operations at the load/store issue rate, and the stream
-buffer's bytes), and
+shape and plan (the main path's entry also names its instantiation, and
+its bound counts the work the function needs, ``SEQ_OPS``) (the bound
+counts the fields' corner reads and the stream stores as lane operations
+at the load/store issue rate, and the stream buffer's bytes), and
 ``planck_gen`` for the Planck source path. The last line is ``{"ok": true,
 "device": {...}}``.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -290,6 +304,8 @@ PEAK_F32 = 128 * 132 * 1.98e9
 PEAK_I32 = 64 * 132 * 1.98e9
 # load/store issue: 32 lanes per SM and clock (four 8-lane units)
 PEAK_LD = 32 * 132 * 1.98e9
+# instruction issue: four warp-instructions per SM and clock
+PEAK_ISSUE = 4 * 132 * 1.98e9
 
 # Lane-operations per photon-iteration, counted from the kernel source
 # (csrc/fused_transport.cu) for the const-norm path: (float32, int32). The
@@ -476,6 +492,39 @@ OPS_PER_ITER = {
 }
 # lane-loads per field read (gathers, at the SM's load/store issue rate)
 LOADS_PER_FIELD = {"voxel_tri": 8, "voxel_near": 1, "layered": 2}
+# The main path's plans ([kin, iso, sign], [kin, del, sign] in their
+# op-sequence form, whichever instantiation runs them), counted from the
+# work the function needs and nothing of a kernel's bookkeeping (loop,
+# dispatch, record addresses, dt and key loads): per photon-iteration
+# (FMA pipe, ALU pipe, issue only, MUFU) lane-operations. The FMA pipe takes
+# the float32 adds and products and the integer multiplies, at PEAK_F32;
+# the ALU pipe the shifts, logic, integer and float compares, at PEAK_I32;
+# an add or select that either pipe (or a predicate) can do, and a warp
+# vote, count only in the issue total, as do the hardware reciprocal roots
+# (MUFU, which also have a pipe of their own). Every
+# rounding of the reference is one operation, and the products by a power
+# of two (2 tu, the four 4 y of the fast sines, 0.5 y) are exact and not
+# counted.
+SEQ_OPS = {
+    # dr = v dt 3, r + dr 3
+    "kin": (6, 0, 0, 0),
+    # the 16-bit uniforms 2, the wraps 3 and the + 0.5s 2, four fast sines
+    # of 5 (1 - |y|, the product, 0.225 |p|, + 0.775, p times it), n 7
+    # (n0, n1, |n|^2 5), 1 / sqrt correctly rounded 5 (a residual and a
+    # correction for each rounding) and its 2 MUFU, the scale 4, dv 3; two
+    # draws' murmur3 multiplies 4 | two finalizers of 5 shifts and 4
+    # logic ops, the uniforms' bit builds 3, the collision compare against
+    # the pre-shifted threshold 1, the wraps' compares 3 | the draws' key +
+    # slot adds 2, a uniform's shift 1, the three dv selects 3
+    "iso": (2 + 3 + 2 + 20 + 7 + 5 + 4 + 3 + 4, 18 + 3 + 1 + 3, 2 + 1 + 3,
+            2),
+    # one draw: multiplies 2 | finalizer 9, the compare 1, alive && !hit 1
+    # | the key add 1, the alive plane's select 1
+    "del": (2, 9 + 1 + 1, 1 + 1, 0),
+    # the three alive && v > 0 compares | their four ballots (one warp
+    # instruction each: 4 per photon-iteration of issue)
+    "sign": (0, 3, 4, 0),
+}
 # planck_gen per sample: uniform 2, range test 2, half 2, x (sub + divide)
 # 9, Horner 14, clip 4; hash 16, slot term 5, loop 3, five bisection steps
 # of 5 and the table address 5
@@ -610,6 +659,25 @@ def user_cost(op):
     return f32, i32
 
 
+def main_form(plan):
+    """The op sequence of ``plan`` if it has the main path's form (its
+    op-sequence instantiation runs it unless it asks for the generic one or
+    its chunk is too long), else None."""
+    return dataclasses.replace(plan, specialize=True, chunk=1).kernel_seq
+
+
+def seq_terms(plan, slots, k_act):
+    """bound_terms() of a main-form plan from SEQ_OPS, and the time to
+    issue its operations at one instruction each (``issue``) and the MUFU
+    pipe's time (16 lanes per SM and clock)."""
+    per = [sum(SEQ_OPS[k][j] for k in main_form(plan)) * slots * k_act
+           for j in range(4)]
+    terms = bound_terms(2 * 60 * slots, per[0], per[1])
+    terms["issue"] = sum(per) / 32 / PEAK_ISSUE * 1e3
+    terms["mufu"] = per[3] / (PEAK_F32 / 8) * 1e3
+    return terms
+
+
 def transport_bound(plan, slots, k_act, starts, events=None):
     """bound() of one fused_transport launch of ``plan``."""
     return bound(*transport_counts(plan, slots, k_act, starts, events))
@@ -661,6 +729,10 @@ def transport_counts(plan, slots, k_act, starts, events=None):
     (``expected_events``) of the rotation family; the fields' gathers, the
     phase tables' reads and the stream stores as lane-loads at the
     load/store issue rate."""
+    if main_form(plan) is not None:
+        fma, alu = (sum(SEQ_OPS[k][j] for k in main_form(plan)) * slots
+                    * k_act for j in (0, 1))
+        return 2 * 60 * slots, fma, alu, 0
     per, once = [OPS_PER_ITER["loop"], OPS_PER_ITER["col0"]], []
     events = events or {}
     if plan.n_stream:
@@ -900,8 +972,8 @@ def main():
     # every instantiation's registers and spills (variant bits: fields 1,
     # geometry and streams 2, rotation family 4, extras 8, polarization 16
     # and kernel 1i's user programs 32, both only with extras)
-    for v in range(64):
-        if v < 16 or v & 8:
+    for v in range(66):
+        if v < 16 or v & 8 or v >= 64:
             print(f"  fused_transport variant {v}: {kernel_regs(v)}")
 
     seed = 123_456_789
@@ -1037,25 +1109,70 @@ def main():
           "1024 iterations)")
     N, chunk = 10_000_000, 1024
     main_plan = plan_of(("kin", "iso", "sign"), chunk)
+    generic_plan = dataclasses.replace(main_plan, specialize=False)
+    check(main_plan.kernel_variant == 64 and generic_plan.kernel_variant == 0,
+          "the main plan does not select the op-sequence instantiation")
+    near1 = F.rsqrt_near1_check(dev)
+    check(near1["mismatches"] == 0 and near1["out_of_range"] == 0,
+          f"the sequence kernel's reciprocal root: {near1}")
+    print(f"rsqrt_rn_near1: equal to 1.0f / sqrtf on all 2**24 float32 of "
+          f"[0.5, 2); |n|**2 of all 2**32 draw pairs in [{near1['n2_min']}, "
+          f"{near1['n2_max']}]", flush=True)
     pk = torch.from_numpy(random_packed(pad_capacity(N), 2)).to(dev)
     sched_m = dt_sched(chunk)
-    ft = {"plain_ms": compare("kin-iso-sign", pk, sched_m, chunk, main_plan)}
-    out = torch.empty_like(pk)  # out of place, as the engine launches it
-    F.fused_transport(pk, out, sched_m, seed, chunk, main_plan)
-    ft["ms"] = cuda_ms(
-        lambda: F.fused_transport(pk, out, sched_m, seed, chunk, main_plan),
-        3, torch)
+    ft = {"plain_ms": compare("kin-iso-sign", pk, sched_m, chunk, main_plan,
+                              need_bitwise=True)}
+    # out of place, as the engine launches it
+    outs = [torch.empty_like(pk) for _ in range(2)]
+    recs = [F.fused_transport(pk, o, sched_m, seed, chunk, p)[0]
+            for o, p in zip(outs, (main_plan, generic_plan))]
+    torch.cuda.synchronize()
+    check(torch.equal(*outs) and torch.equal(*recs), "the op-sequence "
+          "instantiation differs from the generic variant 0")
+    print("kin-iso-sign: variant 64 (op sequence) bitwise equal to variant 0 "
+          "(generic) in planes and int records", flush=True)
     slots = pk.shape[1]
+    turns = {64: [], 0: []}
+    for p in (main_plan, generic_plan, generic_plan, main_plan):
+        turns[p.kernel_variant].append(cuda_ms(
+            lambda: F.fused_transport(pk, outs[0], sched_m, seed, chunk, p),
+            3, torch))
+    ft["ms"] = float(np.mean(turns[64]))
     ft["bound_ms"], ft["bound_by"] = transport_bound(main_plan, slots, chunk,
                                                      None)
+    terms = seq_terms(main_plan, slots, chunk)
+    print("kin-iso-sign bound from the work the function needs (SEQ_OPS, "
+          "per photon-iteration: FMA pipe, ALU pipe, issue only, MUFU "
+          f"{[sum(SEQ_OPS[k][j] for k in main_form(main_plan)) for j in range(4)]}"
+          "): " + ", ".join(f"{k} {v:.3f} ms" for k, v in terms.items())
+          + " (issue and mufu are not in the bound)", flush=True)
+    loops = main_loops()
+    warp_iters = slots // 32 * chunk
+    for v in (64, 0):
+        lp = loops[v]
+        issue = lp["per_iteration"] * warp_iters / PEAK_ISSUE * 1e3
+        print(f"variant {v} ({kernel_regs(v)}): iteration loop "
+              f"{lp['loop'][0]}-{lp['loop'][1]}, {lp['static']} instructions "
+              f"for {lp['iterations']} iteration(s), "
+              f"{lp['per_iteration']:.1f} per iteration on the fast path "
+              + ("(every switch case: an upper bound on the executed path) "
+                 if v == 0 else f"(+ {lp['window']} in the window loop) ")
+              + f"{lp['classes']}; kernel {turns[v][0]:.3f}, "
+              f"{turns[v][1]:.3f} ms, bound {ft['bound_ms']:.2f} ms "
+              f"({ft['bound_by']}), issue time {issue:.2f} ms [{card}]",
+              flush=True)
+    issue_ms = loops[64]["per_iteration"] * warp_iters / PEAK_ISSUE * 1e3
+    ft["instantiation"] = ("fused_seq_kernel<OpSeq<kin, iso, sign>> "
+                           "(variant 64)")
     # the engine can at best keep this kernel busy back to back: its rate
     # in photons (not padded slots) bounds the main path's rate
     kernel_rate = N * chunk / ft["ms"] * 1e3
     print(f"kin-iso-sign at {slots} slots x {chunk}: kernel {ft['ms']:.2f} "
           f"ms ({kernel_rate:.4e} photon-steps/s), twin "
           f"{ft['plain_ms']:.1f} ms, bound {ft['bound_ms']:.2f} ms "
-          f"({ft['bound_by']}) per chunk [{card}]", flush=True)
-    del pk, out
+          f"({ft['bound_by']}), issue time {issue_ms:.2f} ms per chunk "
+          f"[{card}]", flush=True)
+    del pk, outs, recs
 
     phase("fused_transport vs twin on the Planck source path's first chunk")
     packed, sched_p, seed_p, k_p, plan_p, starts_p = planck_chunk_inputs(
@@ -1126,8 +1243,9 @@ def main():
                     ("without", bare)):
         turns[name].append(cuda_ms(lambda: F.fused_transport(
             mpk, outs[0], sched, seed, K, p), 5, torch))
-    print("kin-iso-sign at 2**20 x 256 through the instantiation without "
-          f"fields: {turns['without'][0]:.3f}, {turns['without'][1]:.3f} ms; "
+    print(f"kin-iso-sign at 2**20 x 256 through its own instantiation "
+          f"(variant {bare.kernel_variant}, no fields): "
+          f"{turns['without'][0]:.3f}, {turns['without'][1]:.3f} ms; "
           f"with an n(r) = 1 field: {turns['with'][0]:.3f}, "
           f"{turns['with'][1]:.3f} ms (equal results) [{card}]", flush=True)
     del mpk, out, outs
@@ -1296,7 +1414,8 @@ def main():
     sim.add_step(3, meas)
     sim.add_photons(light.generate_photon_state(N, E=1.0))
     print(sim.explain_plan())
-    F.fused_transport.launches = P.planck_gen.launches = 0
+    F.fused_transport.launches = F.fused_transport.seq_launches = 0
+    P.planck_gen.launches = 0
     t0 = time.perf_counter()
     sim.start()
     sim.join()
@@ -1306,6 +1425,9 @@ def main():
     check(sim.used_fused, "main path did not take the fused tier")
     check(main_launches >= 4,
           f"only {main_launches} kernel launches on the main path")
+    check(F.fused_transport.seq_launches == main_launches,
+          f"{F.fused_transport.seq_launches} of {main_launches} main-path "
+          "launches ran the op-sequence instantiation")
     data = np.asarray(meas.data)
     n_iter = len(sim.ts)
     check(data.shape == (n_iter, 5), f"records shape {data.shape}")
@@ -1331,7 +1453,8 @@ def main():
     check(rate <= 1.05 * kernel_rate, f"main-path rate {rate:.4e} exceeds "
           f"the kernel-alone rate {kernel_rate:.4e}: timing is broken")
     print(f"main path: {n_iter} iterations in {len(sim.chunk_log)} chunks, "
-          f"fused_transport launches {main_launches}, planck_gen launches "
+          f"fused_transport launches {main_launches} (all of variant 64, the "
+          f"op sequence), planck_gen launches "
           f"{P.planck_gen.launches}, parity err {parity_err:.2e}, wall "
           f"{wall:.2f} s from start() (set-up {sim.setup_seconds:.3f} s) = "
           f"{N * n_iter / wall:.4e} photon-steps/s")
@@ -1351,8 +1474,12 @@ def main():
     meas = light.ScatterSignMeasureStep(None, True)
     sim.add_step(3, meas)
     sim.add_photons(light.generate_photon_state(Na, E=1.0))
+    F.fused_transport.launches = F.fused_transport.seq_launches = 0
     sim.start()
     sim.join()
+    check(F.fused_transport.seq_launches == F.fused_transport.launches > 0,
+          f"{F.fused_transport.seq_launches} of {F.fused_transport.launches} "
+          "extinction-run launches ran the [kin, del, sign] instantiation")
     data = np.asarray(meas.data)
     n = data[:, 1]
     q_k = (1 - pcoll) ** np.arange(1, len(n) + 1)
@@ -1362,8 +1489,9 @@ def main():
     check(n[-1] == 0 and bool((n[:-1] > 0).all()),
           "extinction exit did not stop at the first empty iteration")
     check(len(sim.ts) == len(n), "ts and records disagree")
-    print(f"absorption: extinct after {len(n)} iterations, worst deviation "
-          f"{worst:.2f} sigma", flush=True)
+    print(f"absorption: extinct after {len(n)} iterations in "
+          f"{F.fused_transport.launches} launches of variant 65, worst "
+          f"deviation {worst:.2f} sigma", flush=True)
     del sim
 
     planck = planck_path(torch, phys, F, P, sampler, dev, card)
@@ -3715,11 +3843,10 @@ def kernel_regs(variant):
     ``variant`` (its template arguments in the mangled name), or '?'."""
     from physicl_tpu_torch.ops import _build
 
-    bits = "".join("Lb1E" if variant & (1 << b) else "Lb0E"
-                   for b in range(6))
+    kernel, args = sass_loop().mangled_pattern(variant)
     lines = _build.build_log.splitlines()
     for i, line in enumerate(lines):
-        if "fused_transport_kernel" in line and bits in line:
+        if kernel in line and args in line and "Compiling" in line:
             spill = ""
             for nxt in lines[i + 1:i + 4]:
                 if "spill" in nxt:
@@ -3728,6 +3855,24 @@ def kernel_regs(variant):
                     regs = nxt.split("Used")[-1].strip()
                     return f"{regs}; {spill}" if spill else regs
     return "?"
+
+
+def sass_loop():
+    """scripts/sass_loop.py, the SASS instruction counter."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    import sass_loop as sl
+
+    return sl
+
+
+def main_loops():
+    """{variant: scripts/sass_loop.py's summary} of the main plan's op-
+    sequence instantiation (64) and of the generic variant 0, from the
+    built library's SASS."""
+    sl = sass_loop()
+    funcs = sl.functions(sl.built_sass())
+    return {v: sl.variant_summary(funcs, v) for v in (64, 0)}
 
 
 def pol_scatter_once(torch, F, kind, stokes, n, dev, seed, inv_mec2=0.0):

@@ -16,10 +16,15 @@ namespace physicl {
 // Murmur3 finalizer twice over a (seed ^ iteration ^ draw index) + slot key:
 // the JAX package's emulated-chunk hash (_Rng._hash_bits). lin is the slot
 // term row * 0x85EBCA6B + lane * 0xC2B2AE35 (row = slot >> 7, lane = slot
-// & 127), idx the 1-based draw index.
-__device__ __forceinline__ uint32_t hash_bits(uint32_t h0, uint32_t idx,
-                                              uint32_t lin) {
-  uint32_t h = (h0 ^ (idx * 0x7FEB352Du)) + lin;
+// & 127), idx the 1-based draw index. hash_key depends only on the
+// iteration's h0 and the draw index, so a kernel whose draw indices are
+// compile-time constants computes it once per iteration for every slot;
+// hash_mix is the per-slot finalizer.
+__device__ __forceinline__ uint32_t hash_key(uint32_t h0, uint32_t idx) {
+  return h0 ^ (idx * 0x7FEB352Du);
+}
+
+__device__ __forceinline__ uint32_t hash_mix(uint32_t h) {
   h ^= h >> 16;
   h *= 0x85EBCA6Bu;
   h ^= h >> 13;
@@ -28,6 +33,11 @@ __device__ __forceinline__ uint32_t hash_bits(uint32_t h0, uint32_t idx,
   h ^= h >> 13;
   h ^= h >> 16;
   return h;
+}
+
+__device__ __forceinline__ uint32_t hash_bits(uint32_t h0, uint32_t idx,
+                                              uint32_t lin) {
+  return hash_mix(hash_key(h0, idx) + lin);
 }
 
 __device__ __forceinline__ uint32_t slot_term(long long g) {

@@ -117,8 +117,10 @@ def _bind(libs) -> None:
                                             ctypes.POINTER(ci)]
         ft.fused_transport_launch.restype = ci
         ft.fused_transport_launch.argtypes = [
-            vp, vp, ll, vp, ci, vp, ci, vp, ci, ctypes.c_uint,
+            vp, vp, ll, vp, ci, vp, vp, ci, vp, ci, ctypes.c_uint,
             ctypes.POINTER(PlanStruct), ci, ci, vp, vp, vp, vp, ci, ci, vp]
+        ft.fused_transport_rsqrt_check.restype = ci
+        ft.fused_transport_rsqrt_check.argtypes = [vp, vp]
     pg = libs["planck_gen"]
     pg.planck_gen_launch.restype = ci
     pg.planck_gen_launch.argtypes = [vp, ll, ctypes.c_uint, vp, cf, vp]

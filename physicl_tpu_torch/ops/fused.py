@@ -89,6 +89,14 @@ POL_ROWS = ("stokes:0", "stokes:1", "stokes:2",
 # azimuth bisection depths: "pol" under packed angles (its 16-bit draw),
 # "polc" (a full-width draw)
 POL_ITERS, POLC_ITERS = 17, 26
+# the op-sequence instantiations (csrc/fused_transport.cu, fused_seq_kernel):
+# the kernel variant of each op sequence compiled with its ops fixed
+SEQ_VARIANTS = {("kin", "iso", "sign"): 64, ("kin", "del", "sign"): 65}
+# the dynamic shared memory one block may take (227 KB), and an op-sequence
+# launch's share of it per iteration: a 16 B count row and a 16 B entry
+# (csrc/fused_transport.cu: seq_smem_bytes)
+MAX_SMEM_BYTES = 232_448
+SEQ_SMEM_PER_ITER = 32
 MAX_OPS = 16
 MAX_EXTRAS = 8    # extras planes (1h's Stokes and frame rows, otype, qm)
 MAX_AXES = 16     # crossing planes over all cross ops of a plan
@@ -214,6 +222,10 @@ class FusedPlan:
     # ElementwiseStep's extras_write bases): the kernel stores their planes
     # for every slot, and unpack_state returns them
     extras_writeback: tuple = ()
+    # run an op-sequence instantiation where the plan has its form
+    # (kernel_seq); False runs the same plan through its generic
+    # instantiation, for holding the two against each other
+    specialize: bool = True
     # the kernel's plan struct and the per-device fit tables, built once
     _cache: dict = dataclasses.field(default_factory=dict, repr=False,
                                      compare=False)
@@ -242,7 +254,12 @@ class FusedPlan:
         write-back of the Stokes and frame planes; bit 5, the recorded user
         programs of ``USER_OPS`` (kernel 1i) and the write-back of their
         extras planes. Bits 4 and 5 come only with bit 3 (those plans
-        carry extras, or in bit 5's case take its code paths)."""
+        carry extras, or in bit 5's case take its code paths). A plan of
+        an op-sequence form (:attr:`kernel_seq`) runs that sequence's
+        instantiation instead, ``SEQ_VARIANTS``."""
+        seq = self.kernel_seq
+        if seq is not None:
+            return SEQ_VARIANTS[seq]
         ext = self.n_stream or any(op.kind in _EXT_OPS for op in self.ops)
         rot = any(op.kind in _ROT_OPS or op.stretch or op.fluor
                   for op in self.ops)
@@ -252,6 +269,33 @@ class FusedPlan:
         return (int(self.has_fields) | (2 if ext else 0) | (4 if rot else 0)
                 | (8 if mix or pol or user else 0) | (16 if pol else 0)
                 | (32 if user else 0))
+
+    @property
+    def kernel_seq(self) -> Optional[tuple]:
+        """The op sequence whose compiled instantiation runs this plan, or
+        None (the generic instantiations). Exactly the main path's plans:
+        ``[kin, iso, sign]`` or ``[kin, del, sign]`` (``SEQ_VARIANTS``)
+        with the const-norm |dr| = c dt, ``iso`` without lambda^-4
+        weighting and ``del`` without variants (capture, roulette,
+        stretch, fluorescence, deposition), neither with fields, ``sign``
+        counting (not weighted) with its alive column, and no extras,
+        stream planes or float records; and a chunk whose iterations'
+        shared memory fits a block (at most 7264 iterations: the generic
+        instantiation's tile takes 20 B an iteration, this one 32)."""
+        kinds = tuple(op.kind for op in self.ops)
+        if (not self.specialize or kinds not in SEQ_VARIANTS
+                or self.const_norm_speed is None or self.extras
+                or self.n_stream or self.n_frec_cols
+                or self.chunk * SEQ_SMEM_PER_ITER > MAX_SMEM_BYTES):
+            return None
+        mid, sign = self.ops[1], self.ops[2]
+        if (mid.n_fn is not None or mid.a_fn is not None
+                or mid.wl_base is not None or mid.implicit_capture
+                or mid.roulette or mid.stretch or mid.fluor or mid.cols):
+            return None
+        if sign.weighted or sign.cols[0] < 1:
+            return None
+        return kinds
 
     @property
     def has_pol(self) -> bool:
@@ -285,6 +329,30 @@ class FusedPlan:
     def stream_torch_dtype(self) -> torch.dtype:
         return (torch.bfloat16 if self.stream_dtype == "bfloat16"
                 else torch.float32)
+
+
+def pcoll_row(plan: FusedPlan, sched: torch.Tensor) -> torch.Tensor:
+    """The collision probability of an op-sequence plan's ``iso`` or
+    ``del`` at each of the chunk's iterations: ``coef * (const_speed *
+    dt)`` in float32 on ``sched``'s device, rounded as the kernel and the
+    twin (``dr_norm``) round it. The factors are Python floats already
+    rounded to float32 (a product with a scalar rounds as one with a
+    float32 tensor), so no host-to-device copy waits for queued chunks."""
+    dt = sched[0, :plan.chunk].to(torch.float32)
+    return _c32(plan.ops[1].coef) * (_c32(plan.const_norm_speed) * dt)
+
+
+def scatter_threshold(pcoll: torch.Tensor) -> torch.Tensor:
+    """int32 ``T(pcoll)`` with ``(pcoll >= unit24(b)) == ((b >> 8) <= T)``
+    for every 32-bit draw ``b`` (``unit24(b) = (b >> 8) * 2**-24``):
+    ``floor(pcoll * 2**24)`` for ``0 <= pcoll < 1`` (the product is exact;
+    ``-0.0`` gives 0), ``2**24 - 1`` (every draw) for ``pcoll >= 1``, and
+    -1 (no draw) for a negative ``pcoll`` or NaN."""
+    p = pcoll.to(torch.float32)
+    t = torch.floor(p * float(1 << 24))
+    t = torch.where(p >= 1.0, float((1 << 24) - 1), t)
+    t = torch.where(p >= 0.0, t, -1.0)
+    return t.to(torch.int32)
 
 
 def user_program_sizes(ops) -> tuple:
@@ -1552,9 +1620,13 @@ def fused_transport(packed: torch.Tensor, out: torch.Tensor,
     same device (plans with emit ops only). Returns
     ``(rec, rec_f)``, and for plans with stream planes ``(rec, rec_f,
     stream)`` with a fresh stream buffer (the kernel writes every row, NaN
-    at and past ``ceil(k_act / stream_every)``). Raises on a CPU tensor, a
-    failed build or a refused launch. ``fused_transport.launches`` counts
-    launches."""
+    at and past ``ceil(k_act / stream_every)``). A plan of an op-sequence
+    form (``plan.kernel_seq``) launches that sequence's instantiation, with
+    its per-iteration collision thresholds (:func:`scatter_threshold`).
+    Raises on a CPU tensor, a failed build or a refused launch.
+    ``fused_transport.launches`` counts launches, and
+    ``fused_transport.seq_launches`` those of the op-sequence
+    instantiations among them."""
     from physicl_tpu_torch.ops import _build
 
     _check_plan(plan)
@@ -1602,13 +1674,17 @@ def fused_transport(packed: torch.Tensor, out: torch.Tensor,
     if plan.extras and out.data_ptr() != packed.data_ptr():
         out[_NF:].copy_(packed[_NF:])
     variant = plan.kernel_variant
+    thr = None
+    if plan.kernel_seq is not None:
+        thr = scatter_threshold(pcoll_row(plan, sched)).contiguous()
     with torch.cuda.device(dev):
         grid = kernel_grid(plan, C, k_act)
         partials = torch.empty(max(1, grid * k_act * plan.n_frec_cols),
                                dtype=torch.float32, device=dev)
         err = lib.fused_transport_launch(
             packed.data_ptr(), out.data_ptr(), C, sched.data_ptr(),
-            sched.shape[1], starts_ptr, stride,
+            sched.shape[1], 0 if thr is None else thr.data_ptr(),
+            starts_ptr, stride,
             0 if aux is None else aux.data_ptr(), k_act,
             int(seed) & 0xFFFFFFFF, ctypes.byref(struct), variant, grid,
             rec.data_ptr(), rec_f.data_ptr(), partials.data_ptr(),
@@ -1618,12 +1694,37 @@ def fused_transport(packed: torch.Tensor, out: torch.Tensor,
             _build.stream_of(packed))
     _build.check(err, "fused_transport launch")
     fused_transport.launches += 1
+    if thr is not None:
+        fused_transport.seq_launches += 1
     if stream is not None:
         return rec, rec_f, stream
     return rec, rec_f
 
 
 fused_transport.launches = 0
+fused_transport.seq_launches = 0
+
+
+def rsqrt_near1_check(dev) -> dict:
+    """The card's exhaustive check of the op-sequence instantiations'
+    reciprocal root (``csrc/fused_transport.cu: rsqrt_rn_near1``, the
+    compiler's correctly rounded ``1.0f / sqrtf`` without its range tests):
+    ``mismatches``, the float32 of [0.5, 2) where the two differ in any bit,
+    and ``out_of_range``, the 32-bit draw pairs whose unnormalised
+    direction's squared norm leaves [0.5, 2); both must be 0. ``n2_min`` and
+    ``n2_max`` are the extremes of that squared norm."""
+    from physicl_tpu_torch.ops import _build
+
+    out = torch.tensor([0, 0, -1, 0], dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        _build.check(_build.load()["fused_transport"]
+                     .fused_transport_rsqrt_check(out.data_ptr(),
+                                                  _build.stream_of(out)),
+                     "fused_transport rsqrt check")
+    bad, out_of_range, lo, hi = out.tolist()
+    as_f32 = np.array([lo & _MASK, hi & _MASK], np.uint32).view(np.float32)
+    return {"mismatches": bad, "out_of_range": out_of_range,
+            "n2_min": float(as_f32[0]), "n2_max": float(as_f32[1])}
 
 
 def _library(plan: FusedPlan):

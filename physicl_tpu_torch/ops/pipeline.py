@@ -71,7 +71,7 @@ __all__ = ["try_build_fused", "FusedProvider", "FusedRefusal"]
 
 # a block's record tiles live in shared memory: [chunk][n_cols] int32 and
 # [chunk][n_fcols][warps] float32 (csrc/fused_transport.cu)
-_MAX_REC_TILE_BYTES = 232_448
+_MAX_REC_TILE_BYTES = F.MAX_SMEM_BYTES
 _KERNEL_WARPS = 8
 _EMIT_INACTIVE = -(2 ** 30)  # far-negative start: the window overlaps nothing
 _R = ("r0", "r1", "r2")  # the variables of a density field

@@ -1,23 +1,30 @@
 #!/usr/bin/env python3
 """Time the port's transport kernel from several checkouts, in turns, on one
-GPU: ``python3 scripts/torch_kernel_ab.py OLD NEW NEW OLD``.
+GPU: ``python3 scripts/torch_kernel_ab.py [--dump DIR] OLD NEW NEW OLD``.
 
 Each argument is the root of a checkout holding ``physicl_tpu_torch``. For
 each, in the order given, a fresh process imports that checkout's package,
 builds its kernels (``nvcc`` into a temporary directory) and times
 ``fused_transport`` on the main path's shape (10**7 photons padded to
 10,010,624 slots, 1024 iterations, [kin, iso, sign] with the const-norm
-path), on [kin, iso, sign] at 2**20 slots x 256 iterations and on
-``chip_smoke.py``'s geometry, rotation, Lorentz, polarized and user-code
-(kernel 1i) plans at that shape (the latter four only where the checkout
-has their ops; the user plans as their providers hand them over), with
-CUDA events over 3 and 5 launches after one warm-up launch, and reads each
-kernel instantiation's registers from ``ptxas -v`` (keyed by its template
-arguments, e.g. ``b0b1b0b0`` = no fields, geometry/streams, no rotation
-family, no Lorentz push or extras; a fifth bit, polarization; a sixth, the
-user programs). Prints one JSON object per checkout; run both versions in
-one call, in turns, so that the card and its power limit are the same for
-both.
+path, as the checkout runs it: through the op-sequence instantiation where
+it has one, ``ms_main``, and then also through its generic variant 0,
+``ms_main_generic``), on [kin, iso, sign] and [kin, del, iso, sign] at 2**20
+slots x 256 iterations and on ``chip_smoke.py``'s geometry, rotation,
+Lorentz, polarized and user-code (kernel 1i) plans at that shape (the
+latter four only where the checkout has their ops; the user plans as their
+providers hand them over) and on the Planck source path's first chunk
+(2**24 slots x 1024), with CUDA events over 3 and 5 launches after one
+warm-up launch. It reads each kernel instantiation's registers from
+``ptxas -v`` (keyed by its template arguments, e.g. ``b0b1b0b0`` = no
+fields, geometry/streams, no rotation family, no Lorentz push or extras; a
+fifth bit, polarization; a sixth, the user programs; ``seq:kin-iso-sign``
+an op-sequence instantiation), and counts the iteration loop's SASS
+instructions of variant 0 and, where it exists, 64 (``scripts/
+sass_loop.py`` of this checkout; with ``--dump DIR`` their SASS goes to
+``DIR/<turn>/``). Prints one JSON object per checkout;
+run both versions in one call, in turns, so that the card and its power
+limit are the same for both.
 """
 
 import json
@@ -26,12 +33,14 @@ import subprocess
 import sys
 
 _CHILD = r"""
-import json, re, shutil, sys, tempfile
+import dataclasses, json, os, re, shutil, sys, tempfile
 import numpy as np
 import torch
 sys.path.insert(0, sys.argv[1])
 sys.path.append(sys.argv[2])  # chip_smoke.py's plans
+sys.path.append(os.path.join(sys.argv[2], "scripts"))
 import chip_smoke as cs
+import sass_loop
 import physicl_tpu_torch as phys
 import physicl_tpu_torch.light as light
 from physicl_tpu_torch.ops import _build
@@ -42,7 +51,9 @@ dev = torch.device("cuda:0")
 # a fresh build directory, so that ptxas reports every instantiation
 _build.BUILD_DIR = tempfile.mkdtemp(prefix="kernel_ab_")
 _build.load()
+funcs = sass_loop.functions(sass_loop.built_sass())
 shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
+SEQ = hasattr(F, "SEQ_VARIANTS")
 
 
 def packed(C):
@@ -57,17 +68,43 @@ def packed(C):
     return torch.from_numpy(p).to(dev)
 
 
-out = {"root": sys.argv[1], "registers": {}}
+out = {"root": sys.argv[1], "registers": {}, "sass": {}}
+names = {v: k for k, v in F.OP_CODES.items()}
 entry = None
 for line in _build.build_log.splitlines():
-    m = re.search(r"entry function '(\S*fused_transport_kernel\S*)'", line)
-    if m:
+    m = re.search(r"entry function '(\S*fused_(?:transport|seq)_kernel\S*)'",
+                  line)
+    if m and "fused_seq_kernel" in m.group(1):
+        entry = "seq:" + "-".join(names[int(c)] for c in
+                                  re.findall(r"Li(\d+)E", m.group(1)))
+    elif m:
         entry = "".join(re.findall(r"Lb([01])E", m.group(1)))
         entry = "".join("b" + b for b in entry)
     m = re.search(r"Used (\d+) registers", line)
     if m and entry is not None:
         out["registers"][entry] = int(m.group(1))
         entry = None
+for v in (0, 64) if SEQ else (0,):
+    name, ins = sass_loop.function_for(funcs, v)
+    if len(sys.argv) > 3:
+        os.makedirs(sys.argv[3], exist_ok=True)
+        with open(os.path.join(sys.argv[3], f"variant_{v}.sass"), "w") as f:
+            f.writelines(f"{a:05x} {t}\n" for a, t in ins)
+    out["sass"][v] = sass_loop.variant_summary(funcs, v)
+    del out["sass"][v]["function"]
+
+
+def time_plan(pk, res, sched, K, plan, reps):
+    F.fused_transport(pk, res, sched, 7, K, plan)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        F.fused_transport(pk, res, sched, 7, K, plan)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 for C, K, reps in ((10_010_624, 1024, 3), (1 << 20, 256, 5)):
     plan = F.FusedPlan(ops=[F._Op("kin"),
                             F._Op("iso", coef=1e-6, c_val=C_LIGHT),
@@ -77,15 +114,33 @@ for C, K, reps in ((10_010_624, 1024, 3), (1 << 20, 256, 5)):
     res = torch.empty_like(pk)
     sched = torch.zeros((5, K), dtype=torch.float32, device=dev)
     sched[0] = 0.001
-    F.fused_transport(pk, res, sched, 7, K, plan)
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        F.fused_transport(pk, res, sched, 7, K, plan)
-    end.record()
-    torch.cuda.synchronize()
-    out[f"ms_{C}x{K}"] = start.elapsed_time(end) / reps
+    out[f"ms_{C}x{K}"] = time_plan(pk, res, sched, K, plan, reps)
+    if SEQ:
+        out[f"ms_{C}x{K}_generic"] = time_plan(
+            pk, res, sched, K, dataclasses.replace(plan, specialize=False),
+            reps)
+    if C < 10_000_000:  # the generic variant 0 in both checkouts
+        four = F.FusedPlan(ops=[F._Op("kin"),
+                                F._Op("del", coef=1e-7, c_val=C_LIGHT),
+                                F._Op("iso", coef=1e-6, c_val=C_LIGHT),
+                                F._Op("sign", cols=(1, 2))],
+                           n_rec_cols=5, chunk=K, const_norm_speed=C_LIGHT)
+        out["ms_kin-del-iso-sign"] = time_plan(pk, res, sched, K, four, reps)
     del pk, res
+# the Planck source path's first chunk (2**24 x 1024, a generic plan)
+a_E, b_E = cs.planck_window()
+pk, sched, seed, k, plan, starts = cs.planck_chunk_inputs(
+    phys, F, light.PlanckSampler(a_E, b_E, cs.T_SUN, bins=2000), dev)
+res = torch.empty_like(pk)
+F.fused_transport(pk, res, sched, seed, k, plan, emit_starts=starts)
+start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+start.record()
+for _ in range(3):
+    F.fused_transport(pk, res, sched, seed, k, plan, emit_starts=starts)
+end.record()
+torch.cuda.synchronize()
+out["ms_planck-chunk-0"] = start.elapsed_time(end) / 3
+del pk, res
 L = 64 * C_LIGHT * 0.001
 pk = torch.from_numpy(cs.geometry_packed(1 << 20, L, 12)).to(dev)
 res = torch.empty_like(pk)
@@ -159,13 +214,17 @@ print(json.dumps(out))
 """
 
 
-def main(roots):
-    if not roots:
+def main(args):
+    dump = None
+    if args[:1] == ["--dump"]:
+        dump, args = args[1], args[2:]
+    if not args:
         sys.exit(__doc__)
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    for root in roots:
-        res = subprocess.run([sys.executable, "-c", _CHILD, root, here],
-                             capture_output=True, text=True)
+    for turn, root in enumerate(args):
+        extra = [os.path.join(dump, str(turn))] if dump else []
+        res = subprocess.run([sys.executable, "-c", _CHILD, root, here,
+                              *extra], capture_output=True, text=True)
         if res.returncode:
             sys.exit(f"{root}: exit {res.returncode}\n{res.stderr}")
         print(res.stdout.strip().splitlines()[-1], flush=True)

@@ -16,6 +16,8 @@ float planes and Planck energies are asserted bitwise equal. Float records
 column's largest value, and bitwise equal between two runs of the kernel.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -79,6 +81,78 @@ def test_kernel_matches_twin(dev, kinds, const_norm):
     assert torch.equal(rec, ref_rec)
     assert torch.equal(out, ref)
     assert not rec_f.any()
+
+
+# -- the op-sequence instantiations (variants 64 and 65) ---------------------
+
+def _seq_plan(mid, chunk, coef=1e-6, speed=C_LIGHT):
+    return F.FusedPlan(ops=[F._Op("kin"), F._Op(mid, coef=coef, c_val=C_LIGHT),
+                            F._Op("sign", cols=(1, 2))],
+                       n_rec_cols=5, chunk=chunk, const_norm_speed=speed)
+
+
+# dt rows that make pcoll = dt (coef = const_speed = 1): 0, 2**-25,
+# 1 - 2**-24, 1 and 1.5 in turn
+EDGE_PCOLL = (0.0, 2.0 ** -25, 1 - 2.0 ** -24, 1.0, 1.5)
+
+
+@pytest.mark.parametrize("edge", [False, True], ids=["main", "edge"])
+@pytest.mark.parametrize("mid", ["iso", "del"])
+def test_sequence_kernel_matches_generic_and_twin(dev, mid, edge):
+    """At 2**20 x 256 the op-sequence instantiation gives the generic
+    variant 0's and the twin's planes and int records, bit for bit, on the
+    main plan's schedule and on one whose pcoll hits the threshold's
+    edges."""
+    K = 256
+    packed, sched = _inputs(dev, C=1 << 20, chunk=K, seed=5)
+    if edge:
+        plan = _seq_plan(mid, K, coef=1.0, speed=1.0)
+        if mid == "del":  # every photon dies at pcoll >= 1 - 2**-24
+            row = ([0.0, 2.0 ** -25] * K)[:K - 3] + list(EDGE_PCOLL[2:])
+        else:
+            row = list(EDGE_PCOLL) * (K // 5 + 1)
+        sched[0] = torch.tensor(row[:K], dtype=torch.float32, device=dev)
+    else:
+        plan = _seq_plan(mid, K, coef=1e-6 if mid == "iso" else 1e-8)
+    generic = dataclasses.replace(plan, specialize=False)
+    assert plan.kernel_variant == (64 if mid == "iso" else 65)
+    assert generic.kernel_variant == 0
+    before = F.fused_transport.seq_launches
+    outs = [torch.empty_like(packed) for _ in range(2)]
+    recs = [F.fused_transport(packed, o, sched, 99, K, p)[0]
+            for o, p in zip(outs, (plan, generic))]
+    ref, ref_rec, _ = F.fused_chunk_reference(packed, sched, 99, K, plan)
+    torch.cuda.synchronize()
+    assert F.fused_transport.seq_launches == before + 1
+    assert torch.equal(recs[0], recs[1]) and torch.equal(recs[0], ref_rec)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], ref)
+    assert ref_rec[K - 1, 0] > 0 or mid == "del"
+
+
+@pytest.mark.parametrize("chunk", [7264, 8192])
+def test_long_chunks_launch_and_match_twin(dev, chunk):
+    """The bench plan at 7264 iterations (the most whose op-sequence
+    launch fits a block's 227 KB of shared memory) runs variant 64, and at
+    8192 (which the pipeline allows: 20 B of generic tile an iteration)
+    the generic variant 0; both launch and equal the twin bit for bit."""
+    packed, sched = _inputs(dev, C=1 << 12, chunk=chunk, seed=7)
+    plan = _seq_plan("iso", chunk)
+    assert plan.kernel_variant == (64 if chunk == 7264 else 0)
+    before = F.fused_transport.seq_launches
+    out = torch.empty_like(packed)
+    rec, _ = F.fused_transport(packed, out, sched, 31, chunk, plan)
+    ref, ref_rec, _ = F.fused_chunk_reference(packed, sched, 31, chunk, plan)
+    torch.cuda.synchronize()
+    assert F.fused_transport.seq_launches == before + (chunk == 7264)
+    assert torch.equal(rec, ref_rec) and torch.equal(out, ref)
+
+
+def test_sequence_kernel_reciprocal_root_is_exact(dev):
+    """rsqrt_rn_near1 equals 1.0f / sqrtf on every float32 of [0.5, 2),
+    and every draw pair's squared norm lies there."""
+    got = F.rsqrt_near1_check(dev)
+    assert got["mismatches"] == 0 and got["out_of_range"] == 0, got
+    assert 0.99 < got["n2_min"] <= got["n2_max"] < 1.01
 
 
 def test_kernel_wavelength_weighting_and_in_place(dev):
