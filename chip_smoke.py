@@ -261,7 +261,33 @@ Phases (any failure exits non-zero and prints no result line):
     the bins and capture bins sum to n in every row, the last row equals a
     histogram of the final planes, the energy bins sum to the alive
     energy within rtol 1e-5; both print the rates, peak memory and idle
-    share.
+    share;
+32. the generic step tier on the main path: the ``bench.py`` workload with
+    ``fuse="off"`` (10**7 photons, 1024 iterations in chunks of 256): no
+    ``fused_transport`` launch (the counts, and torch.profiler over a
+    second run of 512 iterations), the state and its generator on the
+    card, ``sim.ts`` byte-identical to the host's float32 Kahan replay,
+    the +x counts of both tiers within 5 sigma of the scatter law (each
+    iteration's n_alive p scatters leave +x half the time) and of each
+    other; prints photon-steps/s over the dispatch loop on the device's
+    clock beside the fused main path's, and the device idle share;
+33. the fallback through a refusal: the same workload for 256
+    iterations with a dt function that reads ``n_objects``
+    (``dt-fn-not-t-only`` in ``explain_plan()``, one RuntimeWarning), run
+    to its end on the generic tier with the same law and clock;
+34. the deep shield (examples/make_split_nb.py's slab: 36 steps deep,
+    p_abs 0.06, p_scat 0.16, importance doubling every 4 steps, 300
+    iterations) at 5 x 10**5 photons in a 2**24-slot arena, in three
+    modes: analog (fused), ``split`` (``ImportanceSplitStep(at="step")``,
+    the generic tier) and ``split_chunk`` (``at="chunk"``, fused in chunks
+    of 8, a boundary op between them): each split pass conserves the
+    weight of the particles it may split (float64 sums of the float32
+    weights) within 1e-6, the split modes take the tier they should
+    (``split_chunk`` launches ``fused_transport``, ``split`` never), a
+    per-band tally (8 photon groups, copies keep their band) equals the
+    plane tally and gives each mode's batch sigma, and the three
+    transmissions agree within 5 combined sigma; prints each mode's wall
+    time and rate.
 
 The line before the last two is a JSON object describing each kernel on
 each path: ``fused_transport`` once each for the gamma, glass, thermal,
@@ -1462,6 +1488,7 @@ def main():
           f"loop after the first chunk ({steady_iters} iterations in "
           f"{steady_s * 1e3:.1f} ms of device time) [{card}]", flush=True)
     del sim, st, speed
+    main_data, main_rate = data, rate
 
     phase("absorption: 2**20 photons, extinction exit")
     Na = 1 << 20
@@ -1509,6 +1536,7 @@ def main():
     lruns = lorentz_runs(torch, phys, F, dev, card, exft, mxft, tlft)
     pruns = pol_paths(torch, phys, F, dev, card, polft, poift, pol_grids)
     uruns = user_paths(torch, phys, F, dev, card, uft, spft)
+    generic_paths(torch, phys, F, P, dev, card, main_data, main_rate)
 
     ft_src = {"name": "fused_transport", "route": "cuda",
               "source": "physicl_tpu_torch/csrc/fused_transport.cu",
@@ -1560,6 +1588,315 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
+
+
+# -- the generic step tier -----------------------------------------------------
+
+GEN_N = 10_000_000       # the bench.py workload's width
+GEN_ITERS = 1024         # four chunks of 256
+GEN_CHUNK = 256
+GEN_PROF_ITERS = 512     # the profiled second run: two chunks
+GEN_FALLBACK_ITERS = 256
+SHIELD_N = 500_000       # deep shield (examples/make_split_nb.py's slab)
+SHIELD_CAP = 1 << 24     # 33x headroom against the example's 21x
+SHIELD_ITERS = 300
+SHIELD_BANDS = 8         # independent photon groups: the batch variance
+SHIELD_WTOL = 1e-6       # split weight conservation (float32 w / n, f64 sums)
+
+
+def host_kahan(dt, n):
+    """``n`` iterations of the float32 Kahan clock on the host."""
+    f32 = np.float32
+    t, comp, out = f32(0), f32(0), np.zeros(n, f32)
+    for i in range(n):
+        y = f32(f32(dt) - comp)
+        t_new = f32(t + y)
+        comp = f32(f32(t_new - t) - y)
+        t = t_new
+        out[i] = t
+    return out
+
+
+def device_idle(prof, torch):
+    """(busy ms, span ms, kernel names) of the card in a profiled window,
+    from its first to its last device activity (kernels, copies, fills)."""
+    acts = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+    check(acts, "no device activity in the trace")
+    lo, hi = min(a[0] for a in acts), max(a[1] for a in acts)
+    busy, end = 0.0, lo
+    for s, e, _ in sorted(acts):
+        s, e = max(s, end), min(e, hi)
+        if e > s:
+            busy += e - s
+            end = e
+    return busy * 1e-6, (hi - lo) * 1e-6, {a[2] for a in acts}
+
+
+def generic_main_sim(phys, n, iters, dev, dt_fn=None, fuse="off"):
+    """The bench.py workload (UpdateTime, kin, iso(A = n = 1e-3), sign) for
+    ``iters`` iterations in chunks of 256."""
+    light = phys.light
+    sim = phys.Simulation(until_t=(iters - 0.5) * 0.001, seed=21,
+                          chunk_steps=GEN_CHUNK, fuse=fuse, device=dev)
+    sim.add_step(0, phys.UpdateTimeStep(dt_fn or (lambda s: np.double(0.001))))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    sim.add_step(2, light.ScatterIsotropicStep(A=np.double(0.001),
+                                               n=np.double(0.001)))
+    meas = light.ScatterSignMeasureStep(None, True)
+    sim.add_step(3, meas)
+    sim.add_photons(light.generate_photon_state(n, E=1.0, device=dev))
+    return sim, meas
+
+
+def plus_x_sigmas(data, n, pcoll):
+    """Largest |+x count - N s_k| / sigma_k over the iterations, with s_k =
+    0.5 + 0.5 (1 - p)**k the +x share after k iterations (each scatter,
+    n_alive * p per iteration on average, leaves +x with probability 1/2)."""
+    k = np.arange(1, len(data) + 1)
+    s = 0.5 + 0.5 * (1 - pcoll) ** k
+    return float(np.max(np.abs(data[:, 2] - n * s)
+                        / np.sqrt(n * s * (1 - s))))
+
+
+def generic_paths(torch, phys, F, P, dev, card, main_data, main_rate):
+    """The generic step tier on the card: the bench.py workload with
+    fuse="off", the fallback through a refusal, and the deep shield."""
+    import warnings
+
+    light = phys.light
+    pcoll = 0.001 * 0.001 * float(light.c) * 0.001
+
+    phase("generic main path: 1e7 photons, fuse='off'")
+    sim, meas = generic_main_sim(phys, GEN_N, GEN_ITERS, dev)
+    plan = sim.explain_plan()
+    check(plan.startswith(f"execution mode: generic (chunk={GEN_CHUNK}"),
+          f"not the generic tier:\n{plan}")
+    F.fused_transport.launches = F.fused_transport.seq_launches = 0
+    P.planck_gen.launches = 0
+    wall, _, peak = run_sim(torch, sim)
+    check(not sim.used_fused, "fuse='off' ran the fused tier")
+    check(F.fused_transport.launches == 0 and P.planck_gen.launches == 0,
+          f"{F.fused_transport.launches} fused_transport launches on the "
+          "generic tier")
+    st = sim.sim_state
+    check(st.r.device.type == "cuda" and st.key.device.type == "cuda",
+          f"state on {st.r.device}, generator on {st.key.device}")
+    data = np.asarray(meas.data)
+    check(data.shape == (GEN_ITERS, 5), f"records shape {data.shape}")
+    check(bool((data[:, 1] == GEN_N).all()), "photons lost")
+    ts_ok = (np.asarray(sim.ts, np.float32).tobytes()
+             == host_kahan(0.001, GEN_ITERS).tobytes())
+    check(ts_ok, "generic sim.ts differs from the host's float32 replay")
+    z_gen = plus_x_sigmas(data, GEN_N, pcoll)
+    z_fused = plus_x_sigmas(main_data[:GEN_ITERS], GEN_N, pcoll)
+    check(z_gen < 5 and z_fused < 5, f"+x counts off the scatter law: "
+          f"generic {z_gen:.2f} sigma, fused {z_fused:.2f} sigma")
+    diff = data[:, 2] - main_data[:GEN_ITERS, 2]
+    k = np.arange(1, GEN_ITERS + 1)
+    s = 0.5 + 0.5 * (1 - pcoll) ** k
+    z_diff = float(np.max(np.abs(diff) / np.sqrt(2 * GEN_N * s * (1 - s))))
+    check(z_diff < 5, f"generic and fused +x counts differ by {z_diff:.2f} "
+          "sigma")
+    check(bool(torch.isfinite(st.r).all() and torch.isfinite(st.v).all()),
+          "non-finite state")
+    rate, steady_s = steady_rate(sim, np.full(GEN_ITERS, GEN_N))
+    print(f"generic main path: {GEN_ITERS} iterations in "
+          f"{len(sim.chunk_log)} chunks of {GEN_CHUNK}, no fused_transport "
+          f"launch, state and generator on {st.r.device}; sim.ts "
+          f"byte-identical to the host replay; +x counts within "
+          f"{z_gen:.2f} sigma of the law (fused main path {z_fused:.2f}, "
+          f"generic - fused {z_diff:.2f}); wall {wall:.2f} s from start(), "
+          f"peak {peak / 2**30:.2f} GiB")
+    print(f"generic main path rate: {rate:.4e} photon-steps/s over the "
+          f"dispatch loop after the first chunk ({steady_s * 1e3:.1f} ms of "
+          f"device time), fused main path {main_rate:.4e} "
+          f"({main_rate / rate:.1f}x) [{card}]", flush=True)
+    del sim, st
+
+    sim, _ = generic_main_sim(phys, GEN_N, GEN_PROF_ITERS, dev)
+    _, prof, _ = run_sim(torch, sim, profile=True)
+    busy, span, names = device_idle(prof, torch)
+    check(not any("fused_transport" in nm for nm in names),
+          "a fused_transport kernel in the generic tier's trace")
+    print(f"generic main path device idle share (profiled second run, "
+          f"{GEN_PROF_ITERS} iterations, first to last device activity): "
+          f"{1 - busy / span:.4f} ({busy:.1f} of {span:.1f} ms busy; "
+          f"{len(names)} distinct kernels, none of them fused_transport) "
+          f"[{card}]", flush=True)
+    del sim, prof
+
+    phase("fallback: a dt function that reads n_objects")
+    sim, meas = generic_main_sim(phys, GEN_N, GEN_FALLBACK_ITERS, dev,
+                                 dt_fn=lambda s: 0.001 + 0 * s.n_objects,
+                                 fuse="auto")
+    plan = sim.explain_plan()
+    check("refused [dt-fn-not-t-only]" in plan, f"no refusal:\n{plan}")
+    F.fused_transport.launches = 0
+    with warnings.catch_warnings(record=True) as record:
+        warnings.simplefilter("always")
+        wall, _, _ = run_sim(torch, sim)
+    warned = [w for w in record if issubclass(w.category, RuntimeWarning)]
+    check(len(warned) == 1 and "dt-fn-not-t-only" in str(warned[0].message),
+          f"fallback warnings: {[str(w.message) for w in warned]}")
+    check(not sim.used_fused and F.fused_transport.launches == 0,
+          "the refused plan ran the fused tier")
+    data = np.asarray(meas.data)
+    check(data.shape == (GEN_FALLBACK_ITERS, 5)
+          and plus_x_sigmas(data, GEN_N, pcoll) < 5,
+          "fallback run: records off the law")
+    check(np.asarray(sim.ts, np.float32).tobytes()
+          == host_kahan(0.001, GEN_FALLBACK_ITERS).tobytes(),
+          "fallback sim.ts differs from the host replay")
+    print(f"fallback: refused [dt-fn-not-t-only], one RuntimeWarning, "
+          f"{GEN_FALLBACK_ITERS} iterations on the generic tier in "
+          f"{wall:.2f} s [{card}]", flush=True)
+    del sim
+
+    return deep_shield(torch, phys, F, dev, card)
+
+
+def shield_sim(phys, mode, dev, n=SHIELD_N, cap=SHIELD_CAP,
+               iters=SHIELD_ITERS, seed=100):
+    """examples/make_split_nb.py's slab: 36 steps deep, p_abs 0.06, p_scat
+    0.16 a step, importance doubling every 4 steps (``split``: at="step",
+    the generic tier; ``split_chunk``: at="chunk" between fused dispatches
+    of 8), transmission tallied (weighted for the split modes) at the exit
+    plane, then killed. The photons carry a ``band`` plane (their index mod
+    SHIELD_BANDS, copied into every split copy), so that a per-band tally
+    gives the batch variance of each mode from one run."""
+    light, torch = phys.light, __import__("torch")
+    c = float(light.c)
+    dt = 0.001
+    step = c * dt
+    L = 36 * step
+    kw = {"chunk_steps": 8} if mode == "split_chunk" else {}
+    s = phys.Simulation(until_t=iters * dt * 0.9999, seed=seed, capacity=cap,
+                        device=dev, **kw)
+    s.add_step(0, phys.UpdateTimeStep(lambda x: np.double(dt)))
+    s.add_step(1, phys.newton.NewtonianKinematicsStep())
+    s.add_step(2, light.ScatterIsotropicStep(n=np.double(1.0),
+                                             A=np.double(0.16 / step)))
+    s.add_step(3, light.ScatterDeleteStep(np.double(1.0),
+                                          np.double(0.06 / step)))
+    split = None
+    if mode != "analog":
+        split = light.ImportanceSplitStep(
+            lambda x, y, z: 2.0 ** torch.floor(
+                torch.clamp(x, 0.0, L) / (4.0 * step)),
+            at="chunk" if mode == "split_chunk" else "step")
+        s.add_step(4, split)
+    weighted = mode != "analog"
+    meas = light.ScatterMeasureStep(None, True, [[np.double(L), np.nan,
+                                                  np.nan]],
+                                    weighted=weighted)
+    s.add_step(5, meas)
+
+    def bands(p):
+        crossed = (((p.rx - p.drx <= L) & (L <= p.rx))
+                   | ((p.rx - p.drx >= L) & (L >= p.rx))) & p.alive
+        val = torch.where(crossed, p.w if weighted else p.w * 0 + 1, 0.0)
+        return {f"b{b}": torch.where(p.extras["band"] == b, val, 0.0)
+                for b in range(SHIELD_BANDS)}
+
+    tally = phys.ReduceMeasureStep(
+        None, bands, outputs=tuple(f"b{b}" for b in range(SHIELD_BANDS)),
+        extras=("band",))
+    s.add_step(6, tally)
+    big = 1e12
+    s.add_step(7, phys.newton.AbsorbingBoundaryStep(
+        ((-10 * step, L), (-big, big), (-big, big))))
+    bulk = light.generate_photon_state(n, E=1.0)
+    bulk["extras"] = {"band": (np.arange(n) % SHIELD_BANDS).astype(
+        np.float32)}
+    s.add_photons(bulk)
+    return s, meas, tally, split
+
+
+def audit_weight(split, torch):
+    """Wrap a split step so that every pass (each iteration at="step",
+    each boundary at="chunk") measures, on the device, how far the split
+    moved the total weight of the particles it may split (the roulette
+    set excluded: its weight is kept in expectation only). Returns a list
+    holding the worst relative change (a device scalar) and the pass
+    count."""
+    worst = [None, 0]
+    orig = split._apply_ratios
+
+    def audited(state, ctx, split_q, roul_q):
+        out = orig(state, ctx, split_q, roul_q)
+        rq = torch.where(state.alive, torch.as_tensor(
+            roul_q, dtype=state.w.dtype, device=state.device), 1.0)
+        keep = state.alive & ~(rq < 1.0) if split.roulette else state.alive
+        slots = torch.arange(state.capacity, device=state.device)
+        copies = (slots >= state.n_spawned) & (slots < out.n_spawned)
+        before = (state.w.double() * keep).sum()
+        after = (out.w.double() * (keep | copies)).sum()
+        rel = (after - before).abs() / before.clamp(min=1e-300)
+        worst[0] = rel if worst[0] is None else torch.maximum(worst[0], rel)
+        worst[1] += 1
+        return out
+
+    split._apply_ratios = audited
+    return worst
+
+
+def deep_shield(torch, phys, F, dev, card):
+    phase("deep shield: analog, split (generic), split_chunk (fused)")
+    res = {}
+    for mode in ("analog", "split", "split_chunk"):
+        sim, meas, tally, split = shield_sim(phys, mode, dev)
+        audit = audit_weight(split, torch) if split is not None else None
+        F.fused_transport.launches = 0
+        with __import__("warnings").catch_warnings():
+            __import__("warnings").simplefilter("ignore", RuntimeWarning)
+            wall, _, peak = run_sim(torch, sim)
+        launches = F.fused_transport.launches
+        rows = np.asarray(meas.data, np.float64)
+        T_tally = rows[:, 2].sum() / SHIELD_N
+        b = np.asarray([row[1:] for row in tally.data], np.float64).sum(0)
+        T_b = b / (SHIELD_N / SHIELD_BANDS)
+        T_mean = float(T_b.mean())
+        sigma = float(T_b.std(ddof=1) / np.sqrt(SHIELD_BANDS))
+        check(abs(T_mean - T_tally) <= 1e-5 * max(T_tally, 1e-30),
+              f"{mode}: band tallies {T_mean:.6e} != plane tally "
+              f"{T_tally:.6e}")
+        check(len(sim.ts) == SHIELD_ITERS, f"{mode}: {len(sim.ts)} "
+              "iterations")
+        steps = float(rows[:, 1].sum())  # alive particle-steps
+        line = (f"deep shield {mode}: T = {T_mean:.4e} +- {sigma:.2e} "
+                f"({SHIELD_BANDS} bands), plane tally {T_tally:.4e}, "
+                f"fused={sim.used_fused}, fused_transport launches "
+                f"{launches}, wall {wall:.2f} s from start(), "
+                f"{steps:.4e} particle-steps = {steps / wall:.4e}/s, peak "
+                f"{peak / 2**30:.2f} GiB")
+        if mode == "analog":
+            check(sim.used_fused and launches > 0, "analog: not fused")
+        elif mode == "split":
+            check(not sim.used_fused and launches == 0,
+                  "split (at='step'): not the generic tier")
+        else:
+            check(sim.used_fused and launches > 0,
+                  "split_chunk: fused_transport did not run")
+        if audit is not None:
+            worst = float(audit[0]) if audit[0] is not None else 0.0
+            check(audit[1] > 0 and worst <= SHIELD_WTOL,
+                  f"{mode}: split changed the weight by {worst:.2e} "
+                  f"(> {SHIELD_WTOL}) over {audit[1]} passes")
+            line += (f"; weight conserved to {worst:.2e} over {audit[1]} "
+                     "passes")
+        print(line + f" [{card}]", flush=True)
+        res[mode] = (T_mean, sigma, wall)
+        del sim
+    for a, b in (("analog", "split"), ("analog", "split_chunk"),
+                 ("split", "split_chunk")):
+        (ta, sa, _), (tb, sb, _) = res[a], res[b]
+        z = abs(ta - tb) / np.hypot(sa, sb)
+        check(z <= 5, f"deep shield: {a} and {b} transmissions differ by "
+              f"{z:.2f} sigma")
+        print(f"deep shield: {a} vs {b}: {z:.2f} combined sigma")
+    return res
 
 
 def device_busy(prof, torch):
@@ -1633,7 +1970,7 @@ def first_chunk_inputs(sim, F):
     steps = sim._ordered_steps()
     for s in steps:
         s.setup(sim)
-    provider = sim._build_execution(steps, state)
+    provider = sim._build_execution(steps, state).provider
     seen = []
     launch = F.fused_chunk
 

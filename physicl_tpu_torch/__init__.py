@@ -12,7 +12,10 @@ Planck source, media, geometry and streams, the scatter family, charged
 particles, polarized transport (:mod:`physicl_tpu_torch.polarization`)
 and user code (``ElementwiseStep``, ``ReduceMeasureStep``,
 :class:`physicl_tpu_torch.kernels.KernelStep`), recorded into programs the
-kernel interprets. The package imports ``torch`` and never ``jax``.
+kernel interprets. Where the fused prover refuses a plan, or with
+``Simulation(fuse="off")``, the run goes to the generic step tier: every
+step's ``apply`` as PyTorch tensor ops in an early-exit chunk loop. The
+package imports ``torch`` and never ``jax``.
 """
 
 from physicl_tpu_torch.units import (
@@ -35,6 +38,7 @@ from physicl_tpu_torch.engine import (
     ParticleView,
     ElementwiseStep,
     ReduceMeasureStep,
+    StepContext,
 )
 from physicl_tpu_torch.state import SimState
 
@@ -63,6 +67,7 @@ __all__ = [
     "ParticleView",
     "ElementwiseStep",
     "ReduceMeasureStep",
+    "StepContext",
     "SimState",
     "newton",
     "light",

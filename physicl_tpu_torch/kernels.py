@@ -5,17 +5,17 @@ of ``physicl_tpu/kernels.py``'s :class:`KernelStep`.
 records ``fn`` once over the kernel's facade state
 (:func:`physicl_tpu_torch.ops.record.record_kernelstep`) into a program the
 transport kernel runs for every particle. Without ``elementwise=True``, or
-with ``record_fn``, the step needs the generic step tier, which is not
-ported: the prover refuses it (codes ``unsupported-step`` and
-``kernelstep-records``). The declarative ``KernelInput`` / ``KernelOutput``
-/ ``KernelProgram`` bridge runs no kernel; it waits for the generic tier.
+with ``record_fn``, the prover refuses it (codes ``unsupported-step`` and
+``kernelstep-records``) and the step runs on the generic step tier, which
+calls ``fn`` on the whole state. The declarative ``KernelInput`` /
+``KernelOutput`` / ``KernelProgram`` bridge is not ported yet.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional
 
-from physicl_tpu_torch.engine import Step, _generic_tier
+from physicl_tpu_torch.engine import Step
 from physicl_tpu_torch.state import SimState
 
 __all__ = ["KernelStep"]
@@ -40,7 +40,12 @@ class KernelStep(Step):
       ``record_fn`` (``kernelstep-records``).
 
     ``state.otype`` reads each particle's species (on a mixed population,
-    the packed otype plane). Example, an exponential drag::
+    the packed otype plane). On the generic tier ``fn`` gets the whole
+    :class:`~physicl_tpu_torch.state.SimState` and the
+    :class:`~physicl_tpu_torch.engine.StepContext` (draws through
+    ``ctx.uniform``); ``record_fn(state) -> {name: value}`` adds record
+    channels, collected into ``data`` as one dict per iteration. Example,
+    an exponential drag::
 
         def drag(state, ctx):
             return state.replace(v=state.v * (1.0 - 1e-7))
@@ -58,7 +63,15 @@ class KernelStep(Step):
         self.data: List = []
 
     def apply(self, state, ctx):
-        _generic_tier(self)
+        prev_alive = state.alive
+        state = self.fn(state, ctx)
+        if self.elementwise:
+            # alive only clears, as in the kernel
+            state = state.replace(alive=prev_alive & state.alive)
+        if self.record_fn is not None:
+            for k, v in self.record_fn(state).items():
+                ctx.record(self, k, v)
+        return state
 
     def collect(self, sim, records):
         n = len(next(iter(records.values()))) if records else 0

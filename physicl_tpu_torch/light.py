@@ -13,6 +13,14 @@ Statistical-parity details kept from the JAX package: the inclusive
 ``pcoll >= rand`` collision test and the angle-uniform (not area-uniform)
 resample ``theta = 2*pi*U, phi = pi*U``. Options outside the ported slice
 are stored and refused by the fused prover with a named code.
+
+The generic step tier's ``apply`` is ported for the emitter, isotropic
+scatter, absorption (``ScatterDeleteStep`` and the independent
+``ScatterDeleteStepReference``), the measures, path tracing and population
+control (``ImportanceSplitStep``, ``WeightWindowStep``), each in the JAX
+package's operation and draw order (:class:`physicl_tpu_torch.engine.
+StepContext`). The anisotropic and energy-changing scatter steps and the
+refractive interface run on the fused tier only (``generic_missing``).
 """
 
 from __future__ import annotations
@@ -44,14 +52,20 @@ __all__ = [
     "planck_cdf", "planck_sample_E", "PlanckSampler", "poly_icdf_reference",
     "generate_photon_state", "PhotonEmitterStep",
     "layered_density", "voxel_density",
-    "ScatterDeleteStep", "ScatterIsotropicStep",
+    "ScatterDeleteStep", "ScatterDeleteStepReference",
+    "ScatterIsotropicStep",
     "ScatterSphericalStep", "ScatterHenyeyGreensteinStep",
     "ScatterRayleighStep", "ScatterPhaseFunctionStep", "ScatterComptonStep",
     "RefractiveInterfaceStep", "mie_phase_table", "phase_knots",
     "ScatterMeasureStep", "ScatterSignMeasureStep",
     "SphericalShellMeasureStep", "TracePathMeasureStep",
     "SpectrumMeasureStep", "MeshTallyStep",
+    "ImportanceSplitStep", "WeightWindowStep",
 ]
+
+# the roadmap item that ports the generic apply these steps still lack
+_SCATTER_FAMILY_GENERIC = ("ROADMAP queue 1 item 4, next: the scatter "
+                           "family's generic apply")
 
 c = Measurement(np.double(299792458), "m**1 s**-1")
 h = Measurement(np.double(6.62607015e-34), "J**1 s**1")
@@ -438,10 +452,11 @@ class PhotonEmitterStep(Step):
     ``isotropic=True`` source may carry circular polarization (``V``) only,
     with a zero frame. Default: unpolarized (zeroed Stokes and frame rows).
 
-    Not ported, and refused by the prover with a named code: any callable
-    ``E`` other than a ``PlanckSampler`` (a user function cannot be inlined
-    into the CUDA kernel, code ``emitter-sampler``), and the generic tier's
-    ``apply``.
+    A callable ``E`` other than a ``PlanckSampler``, ``E(generator, k)
+    -> (k,)`` (as ``PlanckSampler.__call__``), cannot be inlined into the
+    CUDA kernel: the prover refuses it (``emitter-sampler``) and the
+    generic tier runs it. There the emission is a masked write at the spawn
+    mark, skipped (on the device) when the ``k`` slots do not fit.
     """
 
     needs_capacity_headroom = True  # slots must stay free for emission
@@ -501,9 +516,93 @@ class PhotonEmitterStep(Step):
         self._emit_e1 = tuple(float(x) for x in p / nrm)
 
     def apply(self, state, ctx):
-        raise NotImplementedError("PhotonEmitterStep.apply is the generic "
-                                  "step tier, which is not ported; the "
-                                  "fused tier emits in-kernel")
+        if self._c is None:
+            self.setup(None)
+        if self.stokes is not None and (
+                "stokes" not in state.extras
+                or "pol_ref" not in state.extras):
+            raise ValueError(
+                "polarized emitter (stokes=) but the population carries no "
+                "Stokes planes: build the initial population with "
+                "physicl_tpu_torch.polarization.polarized_photon_state(...) "
+                "so the 'stokes'/'pol_ref' extras exist")
+        k = self.n_per_step
+        dtype, dev = state.r.dtype, state.device
+        C = state.capacity
+        start = state.n_spawned
+        if callable(self.E):
+            E_new = torch.as_tensor(self.E(ctx.generator, k), dtype=dtype,
+                                    device=dev)
+        else:
+            E_new = torch.full((k,), float(raw_code_value(self.E)),
+                               dtype=dtype, device=dev)
+        if self.isotropic:
+            u = ctx.uniform((2, k), dtype)
+            theta, phi = u[0] * (2 * np.pi), u[1] * np.pi
+            v_new = torch.stack([
+                torch.sin(theta) * torch.cos(phi),
+                torch.sin(theta) * torch.sin(phi),
+                torch.cos(theta),
+            ]) * self._c
+        elif self.v is None:
+            v_new = torch.zeros((3, k), dtype=dtype, device=dev)
+            v_new[0] = self._c
+        else:
+            v_new = torch.tensor(np.asarray(raw_code_value(self.v),
+                                            np.float64).reshape(3, -1),
+                                 dtype=dtype, device=dev).expand(3, k)
+        fill = {}
+        if self.stokes is not None:
+            fill["stokes"] = self.stokes
+            fill["pol_ref"] = self._emit_e1
+        # slots [start, start + k), written only if they all fit; the gate
+        # stays on the device, so the spawn mark never reaches the host. A
+        # full arena writes k slots' own values back (k <= C: the indices
+        # wrap onto distinct slots). Out of place: a snapshot may hold the
+        # state's planes.
+        fits = start + k <= C
+        idx = (start.long() + torch.arange(k, device=dev)) % C
+
+        def put(dst, src):
+            old = dst.index_select(-1, idx)
+            src = torch.as_tensor(src, dtype=dst.dtype, device=dev)
+            return dst.index_copy(-1, idx, torch.where(fits, src, old))
+
+        extras = {}
+        for name, arr in state.extras.items():
+            val = (np.asarray(fill[name], np.float64)[:, None]
+                   if name in fill else 0.0)
+            extras[name] = put(arr, val)
+        return state.replace(
+            r=put(state.r, self.r[:, None]), v=put(state.v, v_new),
+            dr=put(state.dr, 0.0), dv=put(state.dv, 0.0),
+            E=put(state.E, E_new), alive=put(state.alive, True),
+            otype=put(state.otype, OBJ_PHOTON),
+            # recycled slots may carry a stale weight and stale planes
+            w=put(state.w, 1.0), extras=extras,
+            n_spawned=torch.where(fits, start + k, start).to(torch.int32))
+
+
+def _field_value(fn, value, label: str, like: torch.Tensor) -> torch.Tensor:
+    """A field callable's value on the generic tier, as a tensor of
+    ``like``'s dtype and device. A callable that leaves torch (numpy on
+    the values) or the state's device fails here by name: it is never
+    evaluated quietly on the host while the run is on the card."""
+    if isinstance(value, (bool, int, float)):
+        return torch.full((), float(value), dtype=like.dtype,
+                          device=like.device)
+    if not isinstance(value, torch.Tensor) or value.device != like.device:
+        what = (f"a {value.device} tensor" if isinstance(value, torch.Tensor)
+                else type(value).__name__)
+        raise TypeError(
+            f"{label} callable {getattr(fn, '__qualname__', repr(fn))} "
+            f"returned {what}: a field callable must compute with torch on "
+            f"the state's device ({like.device})")
+    return value.to(like.dtype)
+
+
+def _dr_norm(state) -> torch.Tensor:
+    return torch.sqrt((state.dr * state.dr).sum(dim=0))
 
 
 def _compile_field_expr(fn_or_expr, varnames, label):
@@ -646,7 +745,8 @@ class ScatterDeleteStep(MeasureStep):
     callable (``layered_density``, ``voxel_density``) or a torch callable,
     which the prover records into an expression program (``A_fn(E)``,
     ``variable_n_fn(r0, r1, r2)``; one it cannot record is refused as
-    ``field-fn-callable``). ``stretch`` and
+    ``field-fn-callable`` and runs on the generic tier, which calls it on
+    the planes and fails by name where it leaves torch). ``stretch`` and
     ``fluorescence`` are analog only and exclude each other, as in the JAX
     package."""
 
@@ -733,9 +833,90 @@ class ScatterDeleteStep(MeasureStep):
         return self.A * (1.0 if self._n_fn is not None else self.n)
 
     def apply(self, state, ctx):
-        raise NotImplementedError("ScatterDeleteStep.apply is the generic "
-                                  "step tier, which is not ported; the "
-                                  "fused tier absorbs in-kernel")
+        norm = _dr_norm(state)
+        dtype = norm.dtype
+        pcoll = norm * self._coef
+        if self._a_fn is not None:
+            pcoll = pcoll * _field_value(self._a_fn, self._a_fn(state.E),
+                                         "A_fn", norm)
+        if self._n_fn is not None:
+            pcoll = pcoll * _field_value(
+                self._n_fn, self._n_fn(state.r[0], state.r[1], state.r[2]),
+                "variable_n_fn", norm)
+        sel = (state.otype == OBJ_PHOTON) & state.alive
+        if self.implicit_capture:
+            p = pcoll.clamp(0.0, 1.0)
+            w = torch.where(sel, state.w * (1.0 - p), state.w)
+            if self.measure_deposition:  # the exact expected w*p*E
+                ctx.record(self, "t", state.t)
+                ctx.record(self, "dep", torch.where(
+                    sel, state.w * p * state.E, 0.0).sum())
+            if self.roulette is None:
+                return state.replace(w=w)
+            w_min, w_sur = self.roulette
+            u = ctx.uniform(norm.shape, dtype)
+            low = sel & (w < w_min)
+            # survive with probability w / w_survive at weight w_survive
+            kill = low & (u * w_sur >= w)
+            w = torch.where(low & ~kill, w_sur, w)
+            return state.replace(w=w, alive=state.alive & ~kill)
+        u = ctx.uniform(norm.shape, dtype)
+        if self.stretch is not None:
+            tiny = torch.finfo(dtype).tiny
+            b, dx, dy, dz = self.stretch
+            mu = ((state.dr[0] * dx + state.dr[1] * dy + state.dr[2] * dz)
+                  / norm.clamp(min=tiny))
+            p_true = pcoll.clamp(0.0, 1.0)
+            p_bias = (pcoll * (1.0 - b * mu)).clamp(0.0, 1.0)
+            # cap the biased kill where p_true < 1, so that survivors exist
+            # and the likelihood ratio stays finite
+            p_bias = torch.where(p_true < 1.0, p_bias.clamp(max=7.0 / 8.0),
+                                 p_bias)
+            hit = (p_bias >= u) & sel
+            ratio = (1.0 - p_true) / (1.0 - p_bias).clamp(min=tiny)
+            w = torch.where(sel & ~hit, state.w * ratio, state.w)
+            if self.measure_deposition:
+                ctx.record(self, "t", state.t)
+                ctx.record(self, "dep", torch.where(
+                    hit, state.w * state.E
+                    * (p_true / p_bias.clamp(min=tiny)), 0.0).sum())
+            return state.replace(w=w, alive=state.alive & ~hit)
+        hit = (pcoll >= u) & sel
+        if self.fluorescence is not None:
+            Y, E_f, E_edge = self.fluorescence
+            y = ctx.uniform(norm.shape, dtype)
+            fluo = hit & (y < Y) & (state.E >= E_edge)
+            killed = hit & ~fluo
+            if self.measure_deposition:
+                # re-emission deposits the line deficit, absorption all E
+                ctx.record(self, "t", state.t)
+                ctx.record(self, "dep", torch.where(
+                    killed, state.w * state.E, torch.where(
+                        fluo, state.w * (state.E - E_f), 0.0)).sum())
+            cu = ctx.uniform(norm.shape, dtype)
+            au = ctx.uniform(norm.shape, dtype)
+            # true isotropic (physical emission): cos theta uniform
+            cos_t = 2.0 * cu - 1.0
+            sin_t = torch.sqrt((1.0 - cos_t * cos_t).clamp(min=0.0))
+            phi = au * (2 * np.pi)
+            v_new = torch.stack([sin_t * torch.cos(phi),
+                                 sin_t * torch.sin(phi), cos_t]) * self._c
+            v = torch.where(fluo, v_new, state.v)
+            # dv only on re-emitted lanes: an upstream scatter's flags
+            # this iteration survive
+            dv = torch.where(fluo, v_new - state.v, state.dv)
+            E = torch.where(fluo, E_f, state.E)
+            extras = dict(state.extras)
+            for nm in ("stokes", "pol_ref"):
+                if nm in extras:  # fluorescence light is unpolarized
+                    extras[nm] = torch.where(fluo, 0.0, extras[nm])
+            return state.replace(E=E, v=v, dv=dv, extras=extras,
+                                 alive=state.alive & ~killed)
+        if self.measure_deposition:  # analog: killed photons dump w*E
+            ctx.record(self, "t", state.t)
+            ctx.record(self, "dep", torch.where(
+                hit, state.w * state.E, 0.0).sum())
+        return state.replace(alive=state.alive & ~hit)
 
     def collect(self, sim, records) -> None:
         if not self.measure_deposition:
@@ -743,6 +924,30 @@ class ScatterDeleteStep(MeasureStep):
         for i in range(len(records["t"])):
             self.data.append([float(records["t"][i]),
                               float(records["dep"][i])])
+
+
+class ScatterDeleteStepReference(Step):
+    """Constant-medium absorption written a second, independent way (the
+    JAX package's rebuild through its declarative kernel bridge, the
+    reference's CLProgram twin): kill a photon where ``A * n * |dr| >=
+    rand`` with ``A * n`` folded in float32, ``|dr|`` summed from the three
+    gathered components and one uniform per slot; no deposition tally. It
+    cross-checks :class:`ScatterDeleteStep` statistically and runs on the
+    generic tier (the fused prover refuses it, ``unsupported-step``)."""
+
+    def __init__(self, n, A):
+        self.n = float(raw_code_value(n))
+        self.A = float(raw_code_value(A))
+        # the bridge's float32 constants, multiplied in float32
+        self._an = float(np.float32(self.A) * np.float32(self.n))
+
+    def apply(self, state, ctx):
+        d0, d1, d2 = state.dr[0], state.dr[1], state.dr[2]
+        norm = torch.sqrt(d0 * d0 + d1 * d1 + d2 * d2)
+        rand = ctx.uniform((state.capacity,), torch.float32)
+        valid = state.alive & (state.otype == OBJ_PHOTON)
+        res = valid & (self._an * norm >= rand)
+        return state.replace(alive=state.alive & ~res)
 
 
 class ScatterIsotropicStep(Step):
@@ -780,6 +985,32 @@ class ScatterIsotropicStep(Step):
         else:
             self._wl_base = None
             self._coef = folded
+
+    def apply(self, state, ctx):
+        if self._c is None:
+            self.setup(None)
+        dtype = state.r.dtype
+        norm = _dr_norm(state)
+        pcoll = norm * self._coef
+        if self._n_fn is not None:
+            pcoll = pcoll * _field_value(
+                self._n_fn, self._n_fn(state.r[0], state.r[1], state.r[2]),
+                "variable_n_fn", norm)
+        if self._wl_base is not None:
+            base = state.E * self._wl_base
+            base2 = base * base
+            pcoll = pcoll * (base2 * base2)
+        u3 = ctx.uniform((3,) + tuple(norm.shape), dtype)
+        theta = u3[0] * (2 * np.pi)
+        phi = u3[1] * np.pi
+        scatter = ((pcoll >= u3[2]) & (state.otype == OBJ_PHOTON)
+                   & state.alive)
+        sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+        sin_p, cos_p = torch.sin(phi), torch.cos(phi)
+        v_new = torch.stack([sin_t * cos_p, sin_t * sin_p, cos_t]) * self._c
+        v = torch.where(scatter, v_new, state.v)
+        dv = torch.where(scatter, v_new - state.v, torch.zeros_like(state.v))
+        return state.replace(v=v, dv=dv)
 
 
 ScatterSphericalStep = ScatterIsotropicStep
@@ -1167,13 +1398,10 @@ class ScatterHenyeyGreensteinStep(Step):
         self._coef = None
         self._wl_base = None
 
+    generic_missing = _SCATTER_FAMILY_GENERIC
+
     # pcoll folding is the isotropic family's
     setup = ScatterIsotropicStep.setup
-
-    def apply(self, state, ctx):
-        raise NotImplementedError(f"{type(self).__name__}.apply is the "
-                                  "generic step tier, which is not ported; "
-                                  "the fused tier scatters in-kernel")
 
 
 class ScatterPhaseFunctionStep(ScatterHenyeyGreensteinStep):
@@ -1351,13 +1579,10 @@ class RefractiveInterfaceStep(Step):
         self.match_speed = bool(match_speed)
         self._c = None
 
+    generic_missing = _SCATTER_FAMILY_GENERIC
+
     def setup(self, sim) -> None:
         self._c = float(raw_code_value(c))
-
-    def apply(self, state, ctx):
-        raise NotImplementedError("RefractiveInterfaceStep.apply is the "
-                                  "generic step tier, which is not ported; "
-                                  "the fused tier refracts in-kernel")
 
 
 class ScatterSignMeasureStep(MeasureStep):
@@ -1371,6 +1596,18 @@ class ScatterSignMeasureStep(MeasureStep):
         super().__init__(out_fn)
         self.measure_n = measure_n
         self.weighted = bool(weighted)
+
+    def apply(self, state, ctx):
+        ctx.record(self, "t", state.t)
+        if self.measure_n:
+            ctx.record(self, "n", state.n_alive)
+        pos = (state.v > 0) & state.alive[None, :]
+        if self.weighted:
+            ctx.record(self, "signs",
+                       torch.where(pos, state.w[None, :], 0.0).sum(dim=1))
+        else:
+            ctx.record(self, "signs", pos.sum(dim=1, dtype=torch.int32))
+        return state
 
     def collect(self, sim, records) -> None:
         for i in range(len(records["t"])):
@@ -1414,10 +1651,35 @@ class ScatterMeasureStep(MeasureStep):
                     else (1 if not np.isnan(loc[1]) else 2))
             self._axes.append((axis, float(loc[axis])))
 
+    def apply(self, state, ctx):
+        ctx.record(self, "t", state.t)
+        if self.measure_n:
+            ctx.record(self, "n", state.n_alive)
+        for j, (axis, L) in enumerate(self._axes):
+            hi = state.r[axis]
+            lo = hi - state.dr[axis]
+            crossed = (((lo <= L) & (L <= hi)) | ((lo >= L) & (L >= hi)))
+            crossed = crossed & state.alive
+            if self.weighted:
+                ctx.record(self, f"count{j}",
+                           torch.where(crossed, state.w, 0.0).sum())
+            else:
+                ctx.record(self, f"count{j}",
+                           crossed.sum(dtype=torch.int32))
+            if self.measure_E and self.measure_E_mode == "sum":
+                flux = state.w * state.E if self.weighted else state.E
+                ctx.record(self, f"Esum{j}",
+                           torch.where(crossed, flux, 0.0).sum())
+            elif self.measure_E:
+                ctx.record(self, f"E{j}",
+                           torch.where(crossed, state.E, float("nan")))
+        return state
+
     def collect(self, sim, records) -> None:
         lists = self.measure_E and self.measure_E_mode == "list"
-        # per-iteration arrays of the crossing photons' energies
-        E_lists = ([records[f"E{j}"].per_iteration()
+        # per-iteration arrays of the crossing photons' energies: a stream
+        # record on the fused tier, (iterations, C) arrays on the generic
+        E_lists = ([_per_iteration(records[f"E{j}"])
                     for j in range(len(self._axes))] if lists else None)
         for i in range(len(records["t"])):
             row = [records["t"][i]]
@@ -1431,6 +1693,12 @@ class ScatterMeasureStep(MeasureStep):
                     row.append(float(records[f"Esum{j}"][i]))
             self.data.append(np.array(row, dtype=object) if lists
                              else np.array(row))
+
+
+def _per_iteration(rec) -> List[np.ndarray]:
+    if hasattr(rec, "per_iteration"):
+        return rec.per_iteration()
+    return [row[~np.isnan(row)] for row in np.asarray(rec)]
 
 
 class SphericalShellMeasureStep(MeasureStep):
@@ -1453,6 +1721,28 @@ class SphericalShellMeasureStep(MeasureStep):
                                          np.float64).reshape(3))
         self.measure_n = measure_n
         self.weighted = bool(weighted)
+
+    def apply(self, state, ctx):
+        ctx.record(self, "t", state.t)
+        if self.measure_n:
+            ctx.record(self, "n", state.n_alive)
+        dtype = state.r.dtype
+        c0 = torch.tensor(self.center, dtype=dtype,
+                          device=state.device)[:, None]
+        d1 = state.r - c0
+        d0 = d1 - state.dr
+        r1 = (d1 * d1).sum(dim=0)
+        r0 = (d0 * d0).sum(dim=0)
+        R2 = torch.tensor(self.radius * self.radius, dtype=dtype,
+                          device=state.device)
+        crossed = (((r0 <= R2) & (R2 <= r1))
+                   | ((r0 >= R2) & (R2 >= r1))) & state.alive
+        if self.weighted:
+            ctx.record(self, "count0",
+                       torch.where(crossed, state.w, 0.0).sum())
+        else:
+            ctx.record(self, "count0", crossed.sum(dtype=torch.int32))
+        return state
 
     def collect(self, sim, records) -> None:
         for i in range(len(records["t"])):
@@ -1607,9 +1897,14 @@ class TracePathMeasureStep(MeasureStep):
     ``trace_dv=True`` adds each slot's scatter-event count after its id
     (every iteration only). Slots must stay put for the rows to mean one
     photon each, so a traced run never recycles slots
-    (``needs_stable_ids``)."""
+    (``needs_stable_ids``).
+
+    On the generic tier the step records each iteration's positions, alive
+    mask and scatter flags as device records (``device_records``), which
+    stay on the device under the same hold budget."""
 
     needs_stable_ids = True
+    device_records = ("pos", "alive", "scat")
     device_hold_bytes = 4 << 30
     _data_override = None
     _cached_rows = None
@@ -1634,15 +1929,47 @@ class TracePathMeasureStep(MeasureStep):
             raise ValueError(
                 "trace_dv counts scatter events at every iteration and is "
                 "incompatible with strided tracing (trace_every > 1)")
-        self._pos: List = []    # per chunk: the stream record (_TraceRaw)
+        # per chunk: the stream record (_TraceRaw) of the fused tier, or the
+        # generic tier's (k, 3, C) positions with (k, C) alive masks
+        self._pos: List = []
+        self._alive: List = []
+        self._freq = None       # generic tier: (C,) scatter-event counts
         self._seen = 0          # valid global iterations consumed
         self._gidx: List = []   # per chunk: sampled global iterations
 
+    def apply(self, state, ctx):
+        pos = (state.r.to(torch.bfloat16)
+               if self.trace_dtype == "bfloat16" else state.r)
+        ctx.record(self, "pos", pos)
+        ctx.record(self, "alive", state.alive)
+        if self.trace_dv:
+            scat = (state.dv != 0).any(dim=0) & state.alive
+            ctx.record(self, "scat", scat.to(torch.int32))
+        return state
+
     def collect(self, sim, records) -> None:
+        S = self.trace_every
+        if "traceraw" not in records:
+            # generic tier: device records, trimmed to the valid prefix
+            pos, alive = records["pos"], records["alive"]
+            k = int(pos.shape[0])
+            if S > 1:
+                g = self._seen + np.arange(k)
+                keep = np.flatnonzero((g % S) == 0)
+                self._gidx.append(g[keep])
+                idx = torch.from_numpy(keep).to(pos.device)
+                pos, alive = pos[idx], alive[idx]
+            self._seen += k
+            self._pos.append(pos)
+            self._alive.append(alive)
+            if self.trace_dv and "scat" in records:
+                s = records["scat"].sum(dim=0, dtype=torch.int64)
+                self._freq = s if self._freq is None else self._freq + s
+            self._maybe_spill()
+            return
         # the chunk's raw stream buffer, trimmed to its valid iterations
         x = records["traceraw"]
         n_it = x.n_valid if x.n_valid >= 0 else x.buf.shape[0] * x.every
-        S = self.trace_every
         if S > 1:
             # buffer row m holds iteration seen + m * every: keep the rows
             # on global multiples of trace_every
@@ -1653,35 +1980,50 @@ class TracePathMeasureStep(MeasureStep):
             self._gidx.append(g[keep])
         self._seen += n_it
         self._pos.append(x)
+        self._alive.append(None)
         self._maybe_spill()
 
-    @staticmethod
-    def _held(x) -> int:
-        return (x.buf.numel() * x.buf.element_size()
-                if isinstance(x.buf, torch.Tensor) else 0)
+    def _held(self, i) -> int:
+        x = self._pos[i]
+        if hasattr(x, "buf"):
+            return (x.buf.numel() * x.buf.element_size()
+                    if isinstance(x.buf, torch.Tensor) else 0)
+        return sum(y.numel() * y.element_size()
+                   for y in (x, self._alive[i]) if isinstance(y, torch.Tensor))
 
     def _maybe_spill(self) -> None:
         """Move the oldest held chunks to host memory once the held total
         exceeds ``device_hold_bytes`` (a tensor is held, a numpy array
         spilled: on the CPU too, so the policy runs the same there)."""
-        total = sum(self._held(x) for x in self._pos)
-        for x in self._pos:
+        total = sum(self._held(i) for i in range(len(self._pos)))
+        for i, x in enumerate(self._pos):
             if total <= self.device_hold_bytes:
                 break
-            if isinstance(x.buf, torch.Tensor):
-                total -= self._held(x)
-                # through the shared holder: every trace step's record of
-                # this chunk references the same buffer
-                buf = x.buf.cpu()
-                x.hold.arr = (buf.view(torch.int16).numpy().view(np.uint16)
-                              if buf.dtype == torch.bfloat16
-                              else buf.numpy())
+            held = self._held(i)
+            if not held:
+                continue
+            total -= held
+            if not hasattr(x, "buf"):
+                self._pos[i] = x.float().cpu().numpy()
+                self._alive[i] = self._alive[i].cpu().numpy()
+                continue
+            # through the shared holder: every trace step's record of this
+            # chunk references the same buffer
+            buf = x.buf.cpu()
+            x.hold.arr = (buf.view(torch.int16).numpy().view(np.uint16)
+                          if buf.dtype == torch.bfloat16 else buf.numpy())
 
     def _chunk_np(self, i):
         """Chunk i as host arrays: positions (rows, 3, C) float32, alive
         (rows, C) and scatter flags (rows, C) or None. Only this step's
         sampled rows and planes leave the device."""
         x = self._pos[i]
+        if not hasattr(x, "buf"):  # the generic tier's records
+            alive = self._alive[i]
+            if isinstance(x, torch.Tensor):
+                x = x.float().cpu().numpy()
+                alive = alive.cpu().numpy()
+            return np.asarray(x, np.float32), np.asarray(alive), None
         buf = x.buf
         n_it = x.n_valid if x.n_valid >= 0 else buf.shape[0] * x.every
         rows = (x.rows if x.rows is not None
@@ -1722,7 +2064,11 @@ class TracePathMeasureStep(MeasureStep):
         cmax = max(p.shape[-1] for p, _, _ in chunks)
         pos = np.zeros((T, 3, cmax), np.float32)
         alive = np.zeros((T, cmax), bool)
-        freq = None
+        # scatter-event counts: the generic tier's on the device, the fused
+        # tier's summed from each chunk's flag plane
+        freq = (None if self._freq is None
+                else np.pad(self._freq.cpu().numpy(),
+                            (0, cmax - self._freq.shape[0])))
         t0 = 0
         for p, a, scat in chunks:
             t1 = t0 + p.shape[0]
@@ -1770,3 +2116,197 @@ class TracePathMeasureStep(MeasureStep):
         self._n_rows = max(sim._initial_count, getattr(sim, "_hwm", 0))
         self._objs = list(sim._pending_objects)
         super().terminate(sim)  # writes CSV (builds rows) only if out_fn set
+
+
+# ---------------------------------------------------------------------------
+# Population control: splitting and Russian roulette
+# ---------------------------------------------------------------------------
+
+
+class _SplitBase(Step):
+    """Shared mechanics of particle splitting and Russian roulette.
+
+    A split replaces one particle of weight ``w`` with ``n`` identical
+    particles of weight ``w / n``: total weight is conserved exactly per
+    event. Roulette is the inverse move: survive with probability ``q < 1``
+    carrying ``w / q`` (unbiased in expectation). Copies take contiguous
+    slots ``[n_spawned, n_spawned + k)``, as an emitter's photons do; where
+    the arena is full, copies that do not fit are not made and the
+    survivor keeps the larger share ``w / n_eff`` (total weight still
+    exact). No offset is read to the host: the exclusive prefix sum, the
+    capacity clip and the copies (each slot of the new window gathers from
+    its source particle, one pass a plane, where the JAX package makes
+    ``max_split - 1`` scatter passes with out-of-range writes dropped: the
+    same result) all stay on the device.
+
+    Subclasses give ``_ratios(state) -> (split_q, roul_q)``: ``split_q >=
+    1`` the target copy count (its fraction realized by a Bernoulli draw,
+    capped at ``max_split``) and ``roul_q < 1`` a survival probability.
+
+    ``at="step"`` applies every iteration, on the generic tier (the fused
+    prover refuses data-dependent growth as ``unsupported-step``);
+    ``at="chunk"`` applies once per chunk boundary, between dispatches
+    (:mod:`physicl_tpu_torch.population`), so the transport keeps the
+    fused tier. The draws: one uniform per slot for the split, a second
+    for the roulette (the JAX package's ``fold_in(key, 1)``).
+    """
+
+    needs_capacity_headroom = True  # copies need free slots, as emission
+    n_per_step = 1  # headroom signal only: the growth is data-dependent
+
+    def __init__(self, max_split: int = 8, roulette: bool = True,
+                 at: str = "step"):
+        self.max_split = int(max_split)
+        self.roulette = bool(roulette)
+        if self.max_split < 2:
+            raise ValueError("max_split must be >= 2")
+        if at not in ("step", "chunk"):
+            raise ValueError(f"at must be 'step' or 'chunk', got {at!r}")
+        self.at_boundary = (at == "chunk")
+
+    def _ratios(self, state):
+        raise NotImplementedError
+
+    def boundary_apply(self, state, ctx):
+        """One population-control pass at a chunk boundary."""
+        return self.apply(state, ctx)
+
+    def apply(self, state, ctx):
+        split_q, roul_q = self._ratios(state)
+        return self._apply_ratios(state, ctx, split_q, roul_q)
+
+    def _apply_ratios(self, state, ctx, split_q, roul_q):
+        dtype, dev = state.r.dtype, state.device
+        C = state.capacity
+        alive = state.alive
+        split_q = torch.where(alive, torch.as_tensor(split_q, dtype=dtype,
+                                                     device=dev), 1.0)
+        # split: n = floor(q) + Bernoulli(frac(q)) copies, capped
+        u = ctx.uniform((C,), dtype)
+        n_i = torch.floor(split_q)
+        n = (n_i.to(torch.int32)
+             + (u < (split_q - n_i)).to(torch.int32))
+        extra = torch.where(alive, n.clamp(1, self.max_split) - 1, 0)
+        start = state.n_spawned.to(torch.int64)
+        csum = torch.cumsum(extra, 0)
+        off = start + csum - extra  # exclusive prefix sum
+        # copies that fit the arena: clip(C - off, 0, extra)
+        n_fit = torch.minimum((C - off).clamp(min=0), extra)
+        n_eff = (1 + n_fit).to(dtype)
+        w = state.w / n_eff
+        if self.roulette:
+            roul_q = torch.where(alive, torch.as_tensor(
+                roul_q, dtype=dtype, device=dev), 1.0)
+            do_r = roul_q < 1.0
+            surv = ctx.uniform((C,), dtype) < roul_q
+            alive = torch.where(do_r & ~surv, False, alive)
+            w = torch.where(do_r & surv,
+                            w / roul_q.clamp(min=torch.finfo(dtype).tiny), w)
+        # copy j of particle i goes to slot off[i] + j (dropped at C and
+        # beyond): the copies fill [start, start + total) in particle
+        # order, so each slot of that window gathers from the particle
+        # whose range [off, off + extra) holds it, one pass a plane
+        total = extra.sum()
+        end = off + extra  # non-decreasing
+        slots = torch.arange(C, device=dev)
+        win = (slots >= start) & (slots < torch.clamp(start + total, max=C))
+        src = torch.searchsorted(end, slots, right=True).clamp(max=C - 1)
+
+        def fill(x, val=None):
+            return torch.where(win, x[..., src] if val is None else val, x)
+
+        return state.replace(
+            alive=fill(alive, True), w=fill(w), E=fill(state.E),
+            otype=fill(state.otype),
+            extras={k: fill(v) for k, v in state.extras.items()},
+            n_spawned=torch.clamp(start + total, max=C).to(torch.int32),
+            **{f: fill(getattr(state, f))
+               for f in ("r", "dr", "v", "dv", "a")})
+
+
+class ImportanceSplitStep(_SplitBase):
+    """Geometric importance splitting (MCNP's): a particle that moved into
+    higher importance splits, one that moved down plays Russian roulette.
+
+    ``importance`` is a positive torch callable ``I(rx, ry, rz)`` over the
+    position planes (e.g. ``lambda x, y, z: 2.0 ** torch.floor(x / 0.5)``
+    doubles it every half unit of depth). Each iteration the ratio ``q =
+    I(r) / I(r - dr)`` across the segment just flown gives the split
+    (``q > 1``, capped at ``max_split``) or, with ``roulette=True``, the
+    survival probability (``q < 1``).
+
+    With ``at="chunk"`` the ratio is taken against each particle's position
+    at the previous chunk boundary (a device-resident snapshot, primed from
+    the initial positions and dropped whenever compaction moves slots), so
+    the whole climb across the chunk counts.
+    """
+
+    def __init__(self, importance, max_split: int = 8,
+                 roulette: bool = True, at: str = "step"):
+        super().__init__(max_split=max_split, roulette=roulette, at=at)
+        if not callable(importance):
+            raise TypeError("importance must be a callable I(rx, ry, rz) "
+                            "over position arrays")
+        self.importance = importance
+        self._prev_r = None  # at="chunk": positions at the last boundary
+
+    def _q(self, state, r_prev):
+        tiny = torch.finfo(state.r.dtype).tiny
+        I1 = _field_value(self.importance,
+                          self.importance(state.r[0], state.r[1],
+                                          state.r[2]), "importance",
+                          state.r[0])
+        I0 = _field_value(self.importance,
+                          self.importance(r_prev[0], r_prev[1], r_prev[2]),
+                          "importance", state.r[0])
+        q = I1 / I0.clamp(min=tiny)
+        return q.clamp(min=1.0), q.clamp(min=tiny).clamp(max=1.0)
+
+    def _ratios(self, state):
+        return self._q(state, state.r - state.dr)
+
+    def prime_snapshot(self, state) -> None:
+        """Seed the ``at="chunk"`` snapshot from the initial positions."""
+        if self.at_boundary and self._prev_r is None:
+            self._prev_r = state.r
+
+    def boundary_apply(self, state, ctx):
+        if self._prev_r is None:
+            # first boundary after a reset: snapshot only
+            self._prev_r = state.r
+            return state
+        split_q, roul_q = self._q(state, self._prev_r)
+        state = self._apply_ratios(state, ctx, split_q, roul_q)
+        # copies inherit the source position, so the new r is the next
+        # snapshot for originals and copies alike
+        self._prev_r = state.r
+        return state
+
+
+class WeightWindowStep(_SplitBase):
+    """Weight-window population control (MCNP's WWN): particles heavier
+    than ``w_hi`` split toward ``w_target``, lighter than ``w_lo`` play
+    Russian roulette up toward it (``w_target`` defaults to ``sqrt(w_lo *
+    w_hi)``). Total weight is conserved exactly by splits and in
+    expectation by roulette. ``at="chunk"`` enforces the window between
+    fused dispatches."""
+
+    def __init__(self, w_lo: float, w_hi: float, w_target=None,
+                 max_split: int = 8, at: str = "step"):
+        super().__init__(max_split=max_split, roulette=True, at=at)
+        self.w_lo = float(raw_code_value(w_lo))
+        self.w_hi = float(raw_code_value(w_hi))
+        self.w_target = (float(raw_code_value(w_target))
+                         if w_target is not None
+                         else float(np.sqrt(self.w_lo * self.w_hi)))
+        if not (0.0 < self.w_lo <= self.w_target <= self.w_hi):
+            raise ValueError("need 0 < w_lo <= w_target <= w_hi "
+                             f"(got {self.w_lo}, {self.w_target}, "
+                             f"{self.w_hi})")
+
+    def _ratios(self, state):
+        w = state.w
+        q = w / torch.tensor(self.w_target, dtype=w.dtype, device=w.device)
+        split_q = torch.where(w > self.w_hi, q.clamp(min=1.0), 1.0)
+        roul_q = torch.where(w < self.w_lo, q.clamp(max=1.0), 1.0)
+        return split_q, roul_q

@@ -5,7 +5,9 @@ On the fused tier ``NewtonianKinematicsStep`` is the kernel's ``kin`` op
 (``dr = v * dt; r += dr`` for every slot), ``LorentzForceStep`` its
 ``lorentz`` op (the Boris push), ``AbsorbingBoundaryStep`` its ``absorb``
 op, ``ReflectingBoundaryStep`` its ``reflect`` op, ``PeriodicBoundaryStep``
-its ``periodic`` op and ``AbsorbingSphereStep`` its ``sabsorb`` op.
+its ``periodic`` op and ``AbsorbingSphereStep`` its ``sabsorb`` op. Each
+step's ``apply`` is the same physics as torch ops on the whole state, for
+the generic step tier, in the JAX package's operation order.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 from physicl_tpu_torch.engine import Object, Step
-from physicl_tpu_torch.state import OBJ_GENERIC
+from physicl_tpu_torch.state import OBJ_GENERIC, OBJ_PHOTON, mod_floor
 from physicl_tpu_torch.units import Measurement, raw_code_value
 
 __all__ = ["NewtonianKinematicsStep", "AbsorbingBoundaryStep",
@@ -43,10 +45,21 @@ class NewtonianKinematicsStep(Step):
     """Euler position update: ``dr = v * dt; r += dr`` for every object.
 
     ``integrate_acceleration=True`` (the JAX package's semi-implicit
-    extension) is accepted and refused by the fused prover."""
+    extension: ``dv = a*dt; v += dv; dr = v*dt; r += dr``) runs on the
+    generic tier (the fused prover refuses it: the packed state has no
+    ``a`` plane)."""
 
     def __init__(self, integrate_acceleration: bool = False):
         self.integrate_acceleration = integrate_acceleration
+
+    def apply(self, state, ctx):
+        if self.integrate_acceleration:
+            dv = state.a * state.dt
+            v = state.v + dv
+            dr = v * state.dt
+            return state.replace(dv=dv, v=v, dr=dr, r=state.r + dr)
+        dr = state.v * state.dt
+        return state.replace(dr=dr, r=state.r + dr)
 
 
 def _parse_bounds(bounds):
@@ -79,10 +92,24 @@ class _BoxStep(Step):
         if self.bounds is None:
             self._sim_bounds = sim.bounds
 
+    def _box(self, like):
+        """``(lo, hi)`` as ``(3, 1)`` tensors of ``like``'s dtype."""
+        lo, hi = _parse_bounds(self.bounds if self.bounds is not None
+                               else self._sim_bounds)
+        return (torch.tensor(lo, dtype=like.dtype,
+                             device=like.device)[:, None],
+                torch.tensor(hi, dtype=like.dtype,
+                             device=like.device)[:, None])
+
 
 class AbsorbingBoundaryStep(_BoxStep):
     """Deletes particles outside the box ``lo <= r <= hi`` (inclusive at
     both walls, every axis). ``bounds=None`` uses ``sim.bounds``."""
+
+    def apply(self, state, ctx):
+        lo, hi = self._box(state.r)
+        inside = ((state.r >= lo) & (state.r <= hi)).all(dim=0)
+        return state.replace(alive=state.alive & inside)
 
 
 class ReflectingBoundaryStep(_BoxStep):
@@ -92,6 +119,20 @@ class ReflectingBoundaryStep(_BoxStep):
     of folds, and ``dr`` becomes the straight segment from the old to the
     folded position. ``bounds=None`` uses ``sim.bounds``."""
 
+    def apply(self, state, ctx):
+        lo, hi = self._box(state.r)
+        # y in [0, 2L) is one reflection period; its descending half is a
+        # position reflected an odd number of times
+        L = hi - lo
+        y = mod_floor(state.r - lo, 2 * L)
+        odd = y > L
+        r = lo + torch.where(odd, 2 * L - y, y)
+        outside = (state.r > hi) | (state.r < lo)
+        v = torch.where(outside & odd, -state.v, state.v)
+        r = torch.where(outside, r, state.r)
+        dr = r - (state.r - state.dr)
+        return state.replace(r=r, dr=dr, v=v)
+
 
 class PeriodicBoundaryStep(_BoxStep):
     """Periodic (wrap-around) box: a particle leaving through one face
@@ -100,6 +141,10 @@ class PeriodicBoundaryStep(_BoxStep):
     ``dr`` is left unchanged, so the segment ``[r - dr, r]`` is the
     translated image of the true path. ``bounds=None`` uses ``sim.bounds``.
     """
+
+    def apply(self, state, ctx):
+        lo, hi = self._box(state.r)
+        return state.replace(r=lo + mod_floor(state.r - lo, hi - lo))
 
 
 class AbsorbingSphereStep(Step):
@@ -118,6 +163,16 @@ class AbsorbingSphereStep(Step):
             float(x) for x in np.asarray(raw_code_value(center),
                                          np.float64).reshape(3))
         self.kill_inside = bool(kill_inside)
+
+    def apply(self, state, ctx):
+        c = torch.tensor(self.center, dtype=state.r.dtype,
+                         device=state.device)[:, None]
+        d = state.r - c
+        inside = (d * d).sum(dim=0) <= torch.tensor(
+            self.radius * self.radius, dtype=state.r.dtype,
+            device=state.device)
+        keep = ~inside if self.kill_inside else inside
+        return state.replace(alive=state.alive & keep)
 
 
 class ChargedObject(Object):
@@ -168,16 +223,18 @@ class LorentzForceStep(Step):
     ``v_new = v+ + h E``
 
     ``E_field`` / ``B_field``: constant 3-vectors (Measurements or raw code
-    units); a callable ``(rx, ry, rz) -> 3-tuple`` is accepted and refused
-    by the fused prover (``field-fn-callable``: a Python callable cannot be
-    inlined into the kernel). ``q_over_m``: one charge-to-mass ratio for
-    the species, or None to read per-particle ``q`` / ``m``
-    (:class:`ChargedObject`). Photons and dead particles are never pushed;
-    ``dv`` records the step's velocity change. Pair with
-    :class:`NewtonianKinematicsStep` after this step. The dt is the one the
-    step sees at its place relative to ``UpdateTimeStep``. On the fused tier
-    ``state.a`` keeps its initial value (the packed state has no ``a``
-    plane)."""
+    units), or torch callables ``(rx, ry, rz) -> 3-tuple``, which the fused
+    prover refuses (``field-fn-callable``) and the generic tier evaluates.
+    ``q_over_m``: one charge-to-mass ratio for the species, or None to read
+    per-particle ``q`` / ``m`` (:class:`ChargedObject`; without objects
+    declaring them the fused prover refuses, ``lorentz-per-particle``, and
+    the generic tier reads the ``q`` and ``m`` planes). Photons and dead
+    particles are never pushed; ``dv`` records the step's velocity change
+    and, on the generic tier, ``a`` the effective acceleration ``dv/dt``.
+    Pair with :class:`NewtonianKinematicsStep` after this step. The dt is
+    the one the step sees at its place relative to ``UpdateTimeStep``. On
+    the fused tier ``state.a`` keeps its initial value (the packed state
+    has no ``a`` plane)."""
 
     def __init__(self, E_field=None, B_field=None, q_over_m=None):
         self._e_fn, self._e_const = _field_fn(E_field, "E_field")
@@ -187,6 +244,53 @@ class LorentzForceStep(Step):
         self.q_over_m = None if q_over_m is None else float(q_over_m)
 
     def apply(self, state, ctx):
-        raise NotImplementedError("LorentzForceStep.apply is the generic "
-                                  "step tier, which is not ported; the "
-                                  "fused tier pushes in-kernel")
+        from physicl_tpu_torch.light import _field_value
+
+        dtype = state.v.dtype
+        if self.q_over_m is not None:
+            qm = torch.tensor(self.q_over_m, dtype=dtype,
+                              device=state.device)
+        else:
+            if "q" not in state.extras or "m" not in state.extras:
+                raise ValueError(
+                    "LorentzForceStep(q_over_m=None) needs per-particle "
+                    "charge/mass: add objects with q= and m= kwargs "
+                    "(newton.ChargedObject) or pass q_over_m=")
+            m = state.extras["m"]
+            qm = torch.where(m != 0, state.extras["q"]
+                             / torch.where(m != 0, m, torch.ones_like(m)),
+                             0.0)
+        push = state.alive & (state.otype != OBJ_PHOTON)
+        h = 0.5 * qm * state.dt
+
+        def field(fn, label):
+            comps = fn(state.r[0], state.r[1], state.r[2])
+            return torch.broadcast_tensors(*[
+                _field_value(fn, x, label, state.r[0]) for x in comps])
+
+        if self._e_fn is not None:
+            ef = torch.stack(field(self._e_fn, "E_field"))
+            v = state.v + h * ef
+        else:
+            v = state.v
+        if self._b_fn is not None:
+            tx, ty, tz = [x * h for x in field(self._b_fn, "B_field")]
+            # v' = v- + v- x t
+            vpx = v[0] + (v[1] * tz - v[2] * ty)
+            vpy = v[1] + (v[2] * tx - v[0] * tz)
+            vpz = v[2] + (v[0] * ty - v[1] * tx)
+            s = 2.0 / (1.0 + tx * tx + ty * ty + tz * tz)
+            # v+ = v- + v' x s*t
+            v = torch.stack([
+                v[0] + s * (vpy * tz - vpz * ty),
+                v[1] + s * (vpz * tx - vpx * tz),
+                v[2] + s * (vpx * ty - vpy * tx),
+            ])
+        if self._e_fn is not None:
+            v = v + h * ef
+        v_new = torch.where(push, v, state.v)
+        dv = v_new - state.v
+        nz = state.dt != 0
+        inv_dt = torch.where(nz, 1.0 / torch.where(
+            nz, state.dt, torch.ones_like(state.dt)), 0.0)
+        return state.replace(v=v_new, dv=dv, a=dv * inv_dt)

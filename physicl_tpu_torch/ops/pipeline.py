@@ -1,10 +1,12 @@
 """Fused-pipeline provider: proves a step list fusable, then serves engine
 chunks from :func:`physicl_tpu_torch.ops.fused.fused_chunk`.
 
-Counterpart of ``physicl_tpu/ops/pipeline.py`` for the main path. The port
-has no generic step tier yet, so where the JAX prover returns ``None`` and
-the engine falls back, this prover raises :class:`FusedRefusal` (a
-``NotImplementedError``) carrying the same kind of ``(code, detail)`` pair.
+Counterpart of ``physicl_tpu/ops/pipeline.py``. Where the JAX prover
+returns ``None``, this prover does too, appending the same kind of ``(code,
+detail)`` pair to ``report``; the engine then falls back to the generic
+step tier, as the JAX engine does. The port's kernel also has limits the
+JAX kernel lacks (:func:`is_kernel_limit`): their refusals never fall back,
+and the run stops by name until the kernel lifts the limit.
 
 Fusable here: one ``UpdateTimeStep`` whose dt function reads at most
 ``(t, dt)``, plus any mix of ``NewtonianKinematicsStep``,
@@ -67,7 +69,8 @@ from physicl_tpu_torch.ops.planck import icdf_table
 from physicl_tpu_torch.state import OBJ_PHOTON, SimState
 from physicl_tpu_torch.units import Measurement, raw_code_value
 
-__all__ = ["try_build_fused", "FusedProvider", "FusedRefusal"]
+__all__ = ["try_build_fused", "FusedProvider", "FusedRefusal",
+           "is_kernel_limit"]
 
 # a block's record tiles live in shared memory: [chunk][n_cols] int32 and
 # [chunk][n_fcols][warps] float32 (csrc/fused_transport.cu)
@@ -77,12 +80,47 @@ _EMIT_INACTIVE = -(2 ** 30)  # far-negative start: the window overlaps nothing
 _R = ("r0", "r1", "r2")  # the variables of a density field
 
 
-class FusedRefusal(NotImplementedError):
-    """The step list or an option is outside what the port implements."""
+# the refusal codes the JAX prover returns too (physicl_tpu/ops/pipeline.py)
+# and, for user code, the reasons it prefixes with ``elementwise-``,
+# ``reduce-`` or ``kernelstep-``: the JAX engine runs these plans on its
+# generic scan, and so does the port's. ``dtype`` (a float64 state) joins
+# them: the JAX package's kernel is float32 too, and its float64 runs are
+# generic-scan runs.
+_JAX_CODES = frozenset({
+    "dt-fn-not-t-only", "dtype", "duplicate-update-step", "emitter-sampler",
+    "empty-population", "exit-predicate", "extinction-with-emitter",
+    "extinction-without-death", "extras-missing", "field-fn-gather",
+    "jit-off", "kernelstep-records", "kinematics-acceleration",
+    "lorentz-per-particle", "no-update-step", "photon-only-op",
+    "polarization-planes", "record-columns", "unsupported-step"})
+_JAX_USER_REASONS = frozenset({
+    "concrete", "ctx", "ignored-write", "not-elementwise", "probe-error",
+    "return", "shape", "state", "trace"})
 
-    def __init__(self, code: str, detail: str):
-        super().__init__(f"fused pipeline refused [{code}]: {detail}; the "
-                         "generic step tier is not ported yet")
+
+def is_kernel_limit(code: str) -> bool:
+    """True for a refusal code that only the port's kernel has (the JAX
+    kernel runs the plan): ``op-count``, ``cross-planes``, ``field-count``,
+    ``field-expr-*``, ``voxel-grid-size``, ``field-fn-callable`` (a
+    callable the recorder cannot take), ``phase-icdf-callable``,
+    ``user-program-*`` and ``*-op-unsupported``. Such a refusal does not
+    fall back to the generic tier; ``Simulation(fuse="off")`` asks for
+    that tier explicitly."""
+    prefix, _, reason = code.partition("-")
+    return not (code in _JAX_CODES
+                or (prefix in ("elementwise", "reduce", "kernelstep")
+                    and reason in _JAX_USER_REASONS))
+
+
+class FusedRefusal(NotImplementedError):
+    """The fused prover's refusal ``(code, detail)``. The engine then runs
+    the plan on the generic step tier; it raises this where the refusal is
+    a limit of the port's kernel (:func:`is_kernel_limit`) or the generic
+    tier lacks a step too (``missing`` names either)."""
+
+    def __init__(self, code: str, detail: str, missing: str = ""):
+        super().__init__(f"fused pipeline refused [{code}]: {detail}"
+                         + (f"; {missing}" if missing else ""))
         self.code = code
         self.detail = detail
 
@@ -280,14 +318,24 @@ class FusedProvider:
         self._slots = None  # arange(capacity) on the device, for retyping
         self._full = False  # the last scheduled emission did not fit
 
-    def resync(self, state: SimState) -> None:
+    def resync(self, state: SimState, counts=None) -> None:
         """Re-read the alive count and spawn mark after an out-of-band state
-        edit that kept the capacity (slot-recycling compaction)."""
+        edit that kept the capacity (slot-recycling compaction, boundary
+        population control); ``counts=(n_alive, n_spawned)`` skips the
+        device read where the caller already made it."""
         self._last_state = None
         self._last_packed = None
-        self.n_h, self.hwm_h = torch.stack(
-            [state.n_alive.to(torch.int64),
-             state.n_spawned.to(torch.int64)]).tolist()
+        if counts is None:
+            counts = torch.stack([state.n_alive.to(torch.int64),
+                                  state.n_spawned.to(torch.int64)]).tolist()
+        self.n_h, self.hwm_h = int(counts[0]), int(counts[1])
+
+    def exit_pending(self) -> bool:
+        """True when the next dispatch would run no iteration: a t-exit
+        already satisfied by the host clock (no chunk-boundary population
+        control after the final chunk)."""
+        return (self.exit_mode == "t"
+                and bool(self.exit_fn(_TOnly(self.t_h, self.dt_h))))
 
     def _host_schedule(self):
         """Replay K iterations of the time stepping on the host (plain
@@ -613,8 +661,21 @@ def _population_extras_rows(sim, name: str):
     return None
 
 
-def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
-    """Return a FusedProvider for the sim, or raise :class:`FusedRefusal`."""
+def try_build_fused(sim, steps, state: SimState,
+                    report: Optional[list] = None) -> Optional[FusedProvider]:
+    """Return a FusedProvider for the sim, or None with the refusal's
+    ``(code, detail)`` appended to ``report``; without a ``report`` the
+    refusal is raised as :class:`FusedRefusal`."""
+    try:
+        return _build_fused(sim, steps, state)
+    except FusedRefusal as e:
+        if report is None:
+            raise
+        report.append((e.code, e.detail))
+        return None
+
+
+def _build_fused(sim, steps, state: SimState) -> FusedProvider:
     from physicl_tpu_torch.engine import (
         ElementwiseStep,
         ReduceMeasureStep,
@@ -699,6 +760,9 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
                 f"{FL.MAX_VOXELS})")
         return fn
 
+    if state.r.dtype != torch.float32:
+        _no("dtype", f"state dtype {state.r.dtype}: the transport kernel is "
+            "float32")
     # the population's species, known on the host: photons or generic
     # (charged) particles run with no per-particle type test; a mixed
     # population packs its otype codes as an extras plane that gates the
@@ -815,6 +879,11 @@ def try_build_fused(sim, steps, state: SimState) -> FusedProvider:
                 "polarized_photon_state)")
     for s in steps:
         uid = s._step_uid
+        if getattr(s, "at_boundary", False) and hasattr(s, "boundary_apply"):
+            # chunk-boundary population control (light._SplitBase with
+            # at="chunk"): applied between dispatches by the
+            # PopulationManager, not in the kernel
+            continue
         if isinstance(s, photon_only) and species not in (OBJ_PHOTON,
                                                           F.SPECIES_MIXED):
             _no("photon-only-op", f"{type(s).__name__} acts on photons but "

@@ -41,7 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from physicl_tpu_torch.engine import MeasureStep, Step
+from physicl_tpu_torch.engine import MeasureStep, Step, _generic_missing
 from physicl_tpu_torch.light import (ScatterIsotropicStep, _as_code,
                                      _compile_variable_n, _torch_device,
                                      generate_photon_state)
@@ -232,10 +232,9 @@ def _apply_phase_matrix(v, stokes, pol_ref, scatter, cos_t, u_phi, kappa,
     return v_out, dv, st_out, pr_out
 
 
-def _generic_tier(step):
-    return NotImplementedError(f"{type(step).__name__}.apply is the generic "
-                               "step tier, which is not ported; the fused "
-                               "tier scatters in-kernel")
+# the roadmap item that ports the generic apply of the polarized steps
+_POLARIZED_GENERIC = ("ROADMAP queue 1 item 4, next: the polarized steps' "
+                      "generic apply")
 
 
 def _check_planes(state, names=("stokes", "pol_ref")):
@@ -283,9 +282,11 @@ class ScatterPolarizedRayleighStep(Step):
     # pcoll folding is the scalar scatter family's
     setup = ScatterIsotropicStep.setup
 
+    generic_missing = _POLARIZED_GENERIC
+
     def apply(self, state, ctx):
         _check_planes(state)
-        raise _generic_tier(self)
+        _generic_missing(self)
 
 
 class ScatterPolarizedComptonStep(Step):
@@ -348,9 +349,11 @@ class ScatterPolarizedComptonStep(Step):
             raise ValueError("mec2 must be positive")
         self._inv_mec2 = 1.0 / float(mec2)
 
+    generic_missing = _POLARIZED_GENERIC
+
     def apply(self, state, ctx):
         _check_planes(state)
-        raise _generic_tier(self)
+        _generic_missing(self)
 
     def collect(self, sim, records) -> None:
         if not self.measure_deposition:
@@ -383,11 +386,11 @@ class StokesMeasureStep(MeasureStep):
         self.weighted = bool(weighted)
         self.local_qu = bool(local_qu)
 
+    generic_missing = _POLARIZED_GENERIC
+
     def apply(self, state, ctx):
         _check_planes(state, ("stokes",))
-        raise NotImplementedError("StokesMeasureStep.apply is the generic "
-                                  "step tier, which is not ported; the "
-                                  "fused tier tallies in-kernel")
+        _generic_missing(self)
 
     def collect(self, sim, records) -> None:
         for i in range(len(records["t"])):

@@ -56,12 +56,14 @@ def mod_floor(x: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
 class SimState:
     """Particle state on one device.
 
-    Vector fields are ``(3, C)`` float32, per-particle scalars ``(C,)``,
-    ``alive`` is bool and ``otype`` int32. ``t``/``dt``/``t_comp`` are 0-d
-    float32 tensors (``t_comp`` is the Kahan compensation of the clock) and
-    ``n_spawned`` a 0-d int32 spawn mark. ``key`` is the ``torch.Generator``
-    the generic step tier will draw from; the fused tier draws from its
-    counter hash instead and never touches it. Values are in code units.
+    Vector fields are ``(3, C)`` float32 (float64 for a float64 run),
+    per-particle scalars ``(C,)``, ``alive`` is bool and ``otype`` int32.
+    ``t``/``dt``/``t_comp`` are 0-d tensors of the state's dtype
+    (``t_comp`` is the Kahan compensation of the clock) and ``n_spawned`` a
+    0-d int32 spawn mark. ``key`` is the ``torch.Generator`` the generic
+    step tier draws from (it is mutable: states derived from one another
+    share it); the fused tier draws from its counter hash instead and never
+    touches it. Values are in code units.
     """
 
     r: torch.Tensor
@@ -113,25 +115,26 @@ class SimState:
 
     @staticmethod
     def from_numpy(fields: Dict[str, np.ndarray], device,
-                   seed: int = 0) -> "SimState":
+                   seed: int = 0, dtype=torch.float32) -> "SimState":
         """Build a state from one numpy array per field — the layout that
         ``jax.device_get`` gives for a ``physicl_tpu`` state, so a JAX run's
         state carries across unchanged. ``key`` is not carried (JAX keys and
         torch generators are different streams): a generator seeded with
-        ``seed`` takes its place. ``extras`` is an optional dict of arrays."""
+        ``seed`` takes its place. ``extras`` is an optional dict of arrays.
+        ``dtype`` is the float planes' and clocks' dtype."""
         dev = torch.device(device)
 
         def t(arr, dtype=None):
             # a copy: device_get hands out read-only arrays
             return torch.tensor(np.asarray(arr), device=dev, dtype=dtype)
 
-        kw = {name: t(fields[name], torch.float32)
-              for name in _VEC + ("E", "w")}
+        kw = {name: t(fields[name], dtype) for name in _VEC + ("E", "w")}
         kw["alive"] = t(fields["alive"], torch.bool)
         kw["otype"] = t(fields["otype"], torch.int32)
-        for name, dtype in _SCALAR_DTYPES.items():
+        for name, sdt in _SCALAR_DTYPES.items():
             if name in fields:
-                kw[name] = t(fields[name], dtype).reshape(())
+                sdt = dtype if sdt == torch.float32 else sdt
+                kw[name] = t(fields[name], sdt).reshape(())
         kw["extras"] = {k: t(v) for k, v in
                         (fields.get("extras") or {}).items()}
         return SimState(key=SimState.make_key(seed, dev), **kw)
@@ -146,7 +149,8 @@ class SimState:
 
     @staticmethod
     def from_population(objects, bulks=(), device="cpu", seed: int = 0,
-                        capacity: int | None = None) -> "SimState":
+                        capacity: int | None = None,
+                        dtype=torch.float32) -> "SimState":
         """Build the state from host ``Object`` instances plus bulk
         populations (:func:`physicl_tpu_torch.light.generate_photon_state`
         dicts, with numpy arrays or tensors), in the slot order and float32
@@ -158,9 +162,11 @@ class SimState:
         Numeric object attributes beyond the core fields, and a bulk's
         ``"extras"`` dict of ``(k,)`` or ``(3, k)`` arrays, become
         ``state.extras[name]``: a scalar as a ``(C,)`` plane, a 3-vector as
-        ``(3, C)``, float32, zero in the slots that lack it (the JAX
+        ``(3, C)``, of ``dtype``, zero in the slots that lack it (the JAX
         package's rule, e.g. :class:`~physicl_tpu_torch.newton.
-        ChargedObject`'s ``q`` and ``m``)."""
+        ChargedObject`'s ``q`` and ``m``). ``dtype`` (float32 or float64)
+        is the float planes' and clocks' dtype; host float64 values round
+        to it once."""
         from physicl_tpu_torch.units import raw_code_value
 
         dev = torch.device(device)
@@ -171,7 +177,8 @@ class SimState:
         if cap < n:
             raise ValueError(f"capacity {cap} < object count {n}")
 
-        f32 = torch.float32
+        f32 = dtype
+        np_f = np.float64 if dtype == torch.float64 else np.float32
         vec = {name: torch.zeros((3, cap), dtype=f32, device=dev)
                for name in _VEC}
         E = torch.zeros((cap,), dtype=f32, device=dev)
@@ -182,11 +189,10 @@ class SimState:
 
         def put(dst, x):
             """Copy one source array into a slice of the state: numpy
-            float64 rounds to float32 on the host (as numpy assignment
-            does), a tensor converts where it lies."""
+            float64 rounds to the state's dtype on the host (as numpy
+            assignment does), a tensor converts where it lies."""
             if not isinstance(x, torch.Tensor):
-                x = torch.from_numpy(np.ascontiguousarray(
-                    x, dtype=np.float32))
+                x = torch.from_numpy(np.ascontiguousarray(x, dtype=np_f))
             dst.copy_(x.to(dtype=dst.dtype))
 
         # extras: first-seen order over the objects' attributes, then the
@@ -209,12 +215,11 @@ class SimState:
                   for name, dim in extras_dim.items()}
 
         if n_obj:
-            host = {name: np.zeros((3, n_obj), np.float32) for name in _VEC}
-            E_o = np.zeros((n_obj,), np.float32)
-            w_o = np.ones((n_obj,), np.float32)
+            host = {name: np.zeros((3, n_obj), np_f) for name in _VEC}
+            E_o = np.zeros((n_obj,), np_f)
+            w_o = np.ones((n_obj,), np_f)
             t_o = np.zeros((n_obj,), np.int32)
-            x_o = {name: np.zeros((3, n_obj) if dim else (n_obj,),
-                                  np.float32)
+            x_o = {name: np.zeros((3, n_obj) if dim else (n_obj,), np_f)
                    for name, dim in extras_dim.items()}
             for i, o in enumerate(objects):
                 for name in host:
@@ -253,8 +258,8 @@ class SimState:
 
         return SimState(
             **vec, E=E, alive=alive, otype=otype, w=w,
-            t=torch.zeros((), dtype=torch.float32, device=dev),
-            dt=torch.zeros((), dtype=torch.float32, device=dev),
+            t=torch.zeros((), dtype=dtype, device=dev),
+            dt=torch.zeros((), dtype=dtype, device=dev),
             key=SimState.make_key(seed, dev),
             n_spawned=torch.full((), n, dtype=torch.int32, device=dev),
             extras=extras)

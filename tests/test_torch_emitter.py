@@ -221,13 +221,30 @@ _REFUSALS = {
 
 @pytest.mark.parametrize("code", sorted(_REFUSALS))
 def test_unported_emitters_refuse(code):
+    """Both refusals fall back to the generic tier: the sampler's run
+    completes with the callable's energies in the emitted slots; the
+    polarized source fails there as in the JAX package (no Stokes planes
+    to write)."""
     make, refusal = _REFUSALS[code]
     s = T.Simulation(until_t=0.01, seed=0, device="cpu", capacity=16384)
     s.add_step(0, T.UpdateTimeStep(lambda x: 0.001))
     s.add_step(1, make())
     s.add_photons(T.light.generate_photon_state(10, E=1.0))
-    with pytest.raises(FusedRefusal, match=refusal):
-        s._run_impl()
+    assert f"refused [{refusal}]" in s.explain_plan()
+    with pytest.warns(RuntimeWarning, match=rf"refused \[{refusal}\]"):
+        if code == "emitter-polarized":
+            with pytest.raises(ValueError, match="no Stokes planes"):
+                s._run_impl()
+        else:
+            s._run_impl()
+    assert not s.used_fused
+    if code == "emitter-sampler":
+        E = s.sim_state.E.numpy()
+        assert int(s.sim_state.n_spawned) == 10 + 10 * len(s.ts)
+        assert (E[:10] == 1.0).all()
+        emitted = E[10:int(s.sim_state.n_spawned)]
+        assert ((emitted >= 0) & (emitted < 1)).all()
+        assert len(np.unique(emitted)) == emitted.size
 
 
 @pytest.mark.parametrize("code,kw", [
@@ -250,11 +267,29 @@ def test_emitter_plans_refuse(code, kw):
         assert otype[0] == 0 and (otype[1:101] == 1).all()
         assert bool(s.sim_state.alive[0])
     else:
+        # falls back to the generic tier, where emission never lets the
+        # population die out: one chunk of the plan shows the fallback
         s.add_photons(T.light.generate_photon_state(10, E=1.0))
-        with pytest.raises(FusedRefusal, match=code):
-            s._run_impl()
-    with pytest.raises(NotImplementedError, match="generic step tier"):
-        T.light.PhotonEmitterStep(10).apply(None, None)
+        assert f"refused [{code}]" in s.explain_plan()
+        with pytest.warns(RuntimeWarning, match=rf"refused \[{code}\]"):
+            plan = s._build_execution(s._ordered_steps(),
+                                      s._init_run_state())
+        assert plan.provider is None
+        state, done, _, valid = plan(s.sim_state)
+        assert valid.all() and not bool(done)
+        assert int(state.n_spawned) == 10 + 10 * plan.chunk
+    # the generic apply: ten photons at the spawn mark, +x at c
+    from physicl_tpu_torch.engine import StepContext
+
+    st = T.SimState.from_population(
+        [], [T.light.generate_photon_state(10, E=2.0)], device="cpu")
+    step = T.light.PhotonEmitterStep(10)
+    out = step.apply(st, StepContext(st.key, None))
+    assert int(out.n_spawned) == 20 and out.alive[:20].all()
+    assert not out.alive[20:].any()
+    np.testing.assert_array_equal(out.E[10:20].numpy(), 1.0)
+    np.testing.assert_array_equal(out.v[0, 10:20].numpy(),
+                                  np.float32(float(T.light.c)))
 
 
 def test_device_bulk_population_matches_jax():

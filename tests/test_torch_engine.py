@@ -14,6 +14,8 @@ kernel; both draw from the same counter hash. So:
   tests/test_torch_fused.py), with ``alive`` exactly equal.
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -322,20 +324,71 @@ _REFUSALS = {
 }
 
 
+# case -> what the refused plan does, now that a refusal the JAX prover
+# shares falls back to the generic step tier as in the JAX package:
+# "refused" where the generic tier lacks a step too (start() raises the
+# refusal), "generic" where it runs to completion, or, for a limit of the
+# port's kernel (start() raises it, no fallback), the error the generic tier
+# raises under fuse="off" (a field callable that leaves torch fails by name
+# instead of running on the host; the phase step lacks its apply there)
+_OUTCOMES = {
+    "field-fn-callable-n": ("limit", TypeError,
+                            "variable_n_fn callable .*<lambda> returned "
+                            "ndarray"),
+    "field-fn-callable-A": ("limit", TypeError,
+                            "A_fn callable .*<lambda> returned ndarray"),
+    "phase-icdf-callable": ("limit", NotImplementedError,
+                            "the generic step tier lacks "
+                            "ScatterPhaseFunctionStep"),
+    "polarized-step": "refused",
+    "kinematics-acceleration": "generic",
+    "unsupported-step": "generic",
+}
+
+
+def _one_fallback_warning(record, code):
+    """Exactly one RuntimeWarning, the fallback's, naming ``code``."""
+    warned = [w for w in record if issubclass(w.category, RuntimeWarning)]
+    assert len(warned) == 1 and f"refused [{code}]" in str(warned[0].message)
+
+
 @pytest.mark.filterwarnings(
     "ignore::pytest.PytestUnhandledThreadExceptionWarning")
 @pytest.mark.parametrize("case", sorted(_REFUSALS))
 def test_unported_step_options_refuse(case):
-    """The refusal surfaces twice: in explain_plan, and re-raised by join()
-    from the run thread (which also reports it as the thread's own)."""
+    """The refusal surfaces in explain_plan. Where it is a limit of the
+    port's kernel or the generic tier lacks the step too, join() re-raises
+    it from the run thread (which also reports it as the thread's own);
+    otherwise the run falls back to the generic tier with one
+    RuntimeWarning."""
     code, make = _REFUSALS[case]
     s, _ = _build(T, lambda c: c.t >= 0.01, device="cpu")
     s.add_step(9, make(T))
     assert f"refused [{code}]" in s.explain_plan()
-    s.start()
-    with pytest.raises(FusedRefusal, match=code) as e:
-        s.join()
-    assert isinstance(e.value, NotImplementedError)
+    outcome = _OUTCOMES[case]
+    if outcome == "refused" or outcome[0] == "limit":
+        s.start()
+        with pytest.raises(FusedRefusal, match=code) as e:
+            s.join()
+        assert isinstance(e.value, NotImplementedError)
+        assert not s.used_fused
+        if outcome == "refused":
+            assert "the generic step tier lacks" in str(e.value)
+            return
+        assert "a limit of the port's fused_transport kernel" in str(
+            e.value)
+        # fuse="off" asks for the generic tier, which names what stops it
+        s, _ = _build(T, lambda c: c.t >= 0.01, device="cpu", fuse="off")
+        s.add_step(9, make(T))
+        with pytest.raises(outcome[1], match=outcome[2]):
+            s._run_impl()
+        return
+    with pytest.warns(RuntimeWarning) as record:
+        s._run_impl()
+        assert len(s.ts) == 10
+    _one_fallback_warning(record, code)
+    assert not s.used_fused
+    assert s.explain_plan().startswith("execution mode: generic")
 
 
 @pytest.mark.parametrize("code,kw", [
@@ -343,17 +396,45 @@ def test_unported_step_options_refuse(case):
     ("exit-predicate", {"exit": lambda c: c.t >= 1 and len(c.objects) > 1}),
 ])
 def test_unported_exits_refuse(code, kw):
+    """Both exits fall back to the generic tier. The predicate that reads
+    len(objects) runs host-exact to its end; nothing can die under the
+    extinction exit, so that run would never end, and one chunk of its
+    plan shows the fallback: every iteration valid, no exit."""
     s = T.Simulation(seed=0, device="cpu", **kw)
     s.add_step(0, T.UpdateTimeStep(lambda x: 0.001))
     s.add_step(1, T.newton.NewtonianKinematicsStep())
     s.add_photons(T.light.generate_photon_state(10, E=1.0))
-    with pytest.raises(FusedRefusal, match=code):
-        s._run_impl()
+    assert f"refused [{code}]" in s.explain_plan()
+    with pytest.warns(RuntimeWarning) as record:
+        if code == "exit-predicate":
+            s._run_impl()
+        else:
+            plan = s._build_execution(s._ordered_steps(),
+                                      s._init_run_state())
+    if code == "exit-predicate":
+        assert not s.used_fused and s.chunk_used == 1
+        assert abs(len(s.ts) - 1000) <= 1 and s.ts[-1] >= 1.0
+        assert "host-exact" in str(record[0].message)
+    else:
+        _one_fallback_warning(record, code)
+        assert plan.provider is None and plan.chunk == 1024
+        state, done, _, valid = plan(s.sim_state)
+        assert valid.all() and not bool(done)
+        assert int(state.n_alive) == 10
 
 
 @pytest.mark.parametrize("kw", [{"auto_shrink": True}, {"fuse": "off"},
                                 {"spatial_sort": 2}, {"mesh": object()}])
 def test_unported_simulation_options_refuse(kw):
+    """fuse="off" runs the generic tier (the user's choice: no warning);
+    the others are still refused."""
     s, _ = _build(T, lambda c: c.t >= 0.01, device="cpu", **kw)
+    if kw == {"fuse": "off"}:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            s._run_impl()
+        assert not s.used_fused and len(s.ts) == 10
+        assert "fusion not attempted" in s.explain_plan()
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         s._run_impl()

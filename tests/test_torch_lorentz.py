@@ -307,26 +307,75 @@ _REFUSALS = {
 }
 
 
+# case -> the refused plan's outcome now that a refusal the JAX prover
+# shares falls back to the generic tier: it runs ("generic"), the generic
+# tier lacks the step too ("refused"), or the generic step raises as the JAX
+# package's does (an object without q and m gives the per-particle push
+# nothing to read). A callable E/B field is a limit of the port's kernel
+# (the JAX kernel runs it): refused with no fallback, and run on the
+# generic tier where fuse="off" asks for it ("limit")
+_OUTCOMES = {
+    "lorentz-per-particle": (ValueError, "needs per-particle charge/mass"),
+    "field-fn-callable": "limit",
+    "photon-only-op": "generic",
+    "photon-only-op-phase": "refused",
+}
+
+
 @pytest.mark.parametrize("case", sorted(_REFUSALS))
 def test_charged_plans_refuse(case):
     make, population = _REFUSALS[case]
     code = case.replace("-phase", "")
-    s = T.Simulation(until_t=0.005, seed=0, device="cpu")
-    s.add_step(0, T.UpdateTimeStep(lambda x: np.double(DT)))
-    s.add_step(1, make())
-    s.add_step(2, T.newton.NewtonianKinematicsStep())
-    if population == "objects":
-        s.add_obj(T.Object())
-    else:
-        s.add_particles(T.newton.generate_particle_state(10))
+
+    def sim(fuse="auto"):
+        s = T.Simulation(until_t=0.005, seed=0, device="cpu", fuse=fuse)
+        s.add_step(0, T.UpdateTimeStep(lambda x: np.double(DT)))
+        s.add_step(1, make())
+        s.add_step(2, T.newton.NewtonianKinematicsStep())
+        if population == "objects":
+            s.add_obj(T.Object())
+        else:
+            s.add_particles(T.newton.generate_particle_state(10))
+        return s
+
+    s = sim()
     assert f"refused [{code}]" in s.explain_plan()
-    with pytest.raises(FusedRefusal, match=code):
-        s._run_impl()
+    outcome = _OUTCOMES[case]
+    if outcome in ("refused", "limit"):
+        with pytest.raises(FusedRefusal, match=code):
+            s._run_impl()
+        if outcome == "limit":
+            s = sim(fuse="off")
+            s._run_impl()
+            assert not s.used_fused and len(s.ts) == 5
+        return
+    with pytest.warns(RuntimeWarning, match=rf"refused \[{code}\]"):
+        if outcome == "generic":
+            s._run_impl()
+            assert len(s.ts) == 5
+        else:
+            with pytest.raises(outcome[0], match=outcome[1]):
+                s._run_impl()
+    assert not s.used_fused
 
 
 def test_lorentz_apply_names_the_generic_tier():
-    with pytest.raises(NotImplementedError, match="generic step tier"):
-        T.newton.LorentzForceStep(q_over_m=1.0).apply(None, None)
+    """The generic tier's push: a Boris rotation keeps |v| to rounding, a
+    +x charge in +z B turns toward -y, and a = dv / dt."""
+    from physicl_tpu_torch.engine import StepContext
+
+    state = T.SimState.from_population(
+        [], [T.newton.generate_particle_state(4, v=(1.0, 0.0, 0.0))],
+        device="cpu").replace(dt=torch.tensor(DT))
+    step = T.newton.LorentzForceStep(B_field=(0.0, 0.0, 100.0),
+                                     q_over_m=1.0)
+    out = step.apply(state, StepContext(state.key, None))
+    v = out.v[:, :4]
+    np.testing.assert_allclose(torch.linalg.norm(v, dim=0).numpy(), 1.0,
+                               rtol=1e-6)
+    assert (v[1] < 0).all() and (out.v[:, 4:] == 0).all()
+    np.testing.assert_allclose(out.a.numpy(), (out.dv / DT).numpy(),
+                               rtol=1e-6)
 
 
 # -- the invariants of tests/test_lorentz.py on the twin ---------------------

@@ -45,7 +45,7 @@ import physicl_tpu_torch as T
 import physicl_tpu_torch.light  # noqa: F401
 import physicl_tpu_torch.newton  # noqa: F401
 from physicl_tpu_torch.ops import fields as FL
-from physicl_tpu_torch.ops.pipeline import FusedRefusal
+from physicl_tpu_torch.ops.pipeline import FusedRefusal, is_kernel_limit
 
 DT = 1e-3
 C_DT = float(T.light.c) * DT
@@ -478,13 +478,25 @@ def test_absorb_counts_as_death_for_extinction():
     assert [row[1] for row in sign.data] == [100, 100, 100, 0]
 
 
-def _refusing_sim(step):
-    s = T.Simulation(until_t=0.01, seed=0, device="cpu")
+def _refusing_sim(step, fuse="auto"):
+    s = T.Simulation(until_t=0.01, seed=0, device="cpu", fuse=fuse)
     s.add_step(0, T.UpdateTimeStep(lambda x: np.double(DT)))
     s.add_step(1, T.newton.NewtonianKinematicsStep())
     s.add_step(2, step)
     s.add_photons(T.light.generate_photon_state(10, E=1.0))
     return s
+
+
+# each field refusal is a limit of the port's kernel (the JAX kernel runs
+# these plans), so the run stops by name and does not fall back. With
+# fuse="off" the generic tier calls the field: a layered density as
+# A_fn(E) has the wrong arguments, and an expression outside the grammar
+# raises when evaluated, as in the JAX package; an expression past the
+# kernel's length runs there
+_FIELD_ERRORS = {
+    "field-fn-callable": (TypeError, "missing 2 required positional"),
+    "field-expr-unsupported": (NotImplementedError, "construct 'r0 % 2'"),
+}
 
 
 @pytest.mark.parametrize("code,make", [
@@ -503,20 +515,36 @@ def _refusing_sim(step):
 ])
 def test_field_refusals(code, make):
     s = _refusing_sim(make())
+    assert is_kernel_limit(code)
     assert f"refused [{code}]" in s.explain_plan()
     with pytest.raises(FusedRefusal, match=code):
         s._run_impl()
+    s = _refusing_sim(make(), fuse="off")
+    if code in _FIELD_ERRORS:
+        exc, match = _FIELD_ERRORS[code]
+        with pytest.raises(exc, match=match):
+            s._run_impl()
+    else:
+        s._run_impl()
+        assert len(s.ts) == 10
+    assert not s.used_fused
 
 
 def test_voxel_grid_size_refusal(monkeypatch):
     """The kernel's flat voxel index is int32: a grid of 2**31 voxels or
-    more is refused by name (the limit is lowered here to test it)."""
+    more is refused by name (the limit is lowered here to test it), with
+    no fallback; fuse="off" runs the plan on the generic tier, which reads
+    the grid there."""
     monkeypatch.setattr(FL, "MAX_VOXELS", 63)
     nfn = T.light.voxel_density(np.ones((4, 4, 4)))
     s = _refusing_sim(T.light.ScatterIsotropicStep(
         A=1.0, variable_n=True, variable_n_fn=nfn))
     with pytest.raises(FusedRefusal, match="voxel-grid-size"):
         s._run_impl()
+    s = _refusing_sim(T.light.ScatterIsotropicStep(
+        A=1.0, variable_n=True, variable_n_fn=nfn), fuse="off")
+    s._run_impl()
+    assert not s.used_fused and len(s.ts) == 10
 
 
 def test_shared_field_is_one_kernel_field():

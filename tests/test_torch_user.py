@@ -36,7 +36,7 @@ import physicl_tpu_torch.light  # noqa: F401
 import physicl_tpu_torch.newton  # noqa: F401
 from physicl_tpu_torch.kernels import KernelStep as TKernelStep
 from physicl_tpu_torch.ops import record as RC
-from physicl_tpu_torch.ops.pipeline import FusedRefusal
+from physicl_tpu_torch.ops.pipeline import FusedRefusal, is_kernel_limit
 
 DT = 1e-3
 RTOL = 1e-5
@@ -495,14 +495,54 @@ _REFUSALS = {
 }
 
 
+# the refused cases whose fn fails on the generic tier too, with the error
+# it raises there (as the JAX package's generic scan raises on them); every
+# other refused case runs there to completion
+_GENERIC_ERRORS = {
+    "elementwise-probe-error": (KeyError, "nope"),
+    "elementwise-shape": (RuntimeError, "stack expects each tensor"),
+    "extras-missing": (ValueError, "carries no 'nope' plane"),
+    # ctx.next_key is the JAX package's API; the port's is ctx.uniform
+    "kernelstep-ctx": (AttributeError, "next_key"),
+    "kernelstep-return": (AttributeError, "replace"),
+}
+
+
 @pytest.mark.parametrize("case", sorted(_REFUSALS))
 def test_user_refusals(case):
+    """Each refusal carries its code. A code the JAX prover shares falls
+    back to the generic tier with one RuntimeWarning naming it; a limit of
+    the port's kernel (``*-op-unsupported``, ``user-program-*``: the JAX
+    kernel runs these) is raised with no fallback, and the plan runs on
+    the generic tier where fuse="off" asks for it."""
     make, code_t, code_j = _REFUSALS[case]
     assert _code_T(_refusing(T, make)) == code_t
     if code_j is not None:
         assert _code_J(_refusing(J, make)) == code_j
-    with pytest.raises(FusedRefusal, match=code_t):
-        _refusing(T, make)._run_impl()
+    s = _refusing(T, make)
+    if is_kernel_limit(code_t):
+        assert code_t.endswith("-op-unsupported") or code_t.startswith(
+            "user-program-")
+        with pytest.raises(FusedRefusal, match=code_t):
+            s._run_impl()
+        s = _refusing(T, make)
+        s.fuse = "off"
+        s._run_impl()
+        assert not s.used_fused
+        assert len(s.ts) >= 1 and float(s.sim_state.t) >= s.exit.T
+        return
+    with pytest.warns(RuntimeWarning) as record:
+        if case in _GENERIC_ERRORS:
+            exc, match = _GENERIC_ERRORS[case]
+            with pytest.raises(exc, match=match):
+                s._run_impl()
+        else:
+            s._run_impl()
+            assert len(s.ts) >= 1 and float(s.sim_state.t) >= s.exit.T
+    warned = [w for w in record if issubclass(w.category, RuntimeWarning)]
+    assert len(warned) == 1 and f"refused [{code_t}]" in str(
+        warned[0].message)
+    assert not s.used_fused
 
 
 @pytest.mark.parametrize("code,A_fn", [
