@@ -71,7 +71,9 @@ Phases (any failure exits non-zero and prints no result line):
 9. absorption: plain ``ScatterDeleteStep`` with an extinction exit at
    2**20 photons, through the [kin, del, sign] op-sequence instantiation
    (variant 65) for every chunk: the alive count follows N (1 - p)**k
-   within 5 binomial sigma and the run ends;
+   within 5 binomial sigma and the run ends; at the default
+   ``auto_shrink`` (the capacities before and after printed; the arena
+   empties inside the first chunk, so it keeps its capacity);
 10. Planck source path: 10**7 initial photons from ``sample_device`` and
     ``generate_photon_state(device="cuda")`` in a 2**24-slot arena, a
     ``PhotonEmitterStep(8192, E=PlanckSampler, isotropic=True)``,
@@ -287,13 +289,58 @@ Phases (any failure exits non-zero and prints no result line):
     per-band tally (8 photon groups, copies keep their band) equals the
     plane tally and gives each mode's batch sigma, and the three
     transmissions agree within 5 combined sigma; prints each mode's wall
-    time and rate.
+    time and rate;
+35. ``fused_transport`` vs twin on the recorded plans at 2**20 slots and
+    256 iterations, as their providers hand them over: the magnetic
+    mirror's callable B (three recorded component programs), callable E
+    and B with a constant component, two recorded inverse CDFs
+    (``cos_theta_icdf``: test_phase.py's linear law and an HG law with an
+    integer power and divides), and a plan past every old table limit (17
+    ops, 9 fields, 71 expression instructions): int records equal, planes
+    bitwise; each timed against its bound (a recorded program counted by
+    its own operations, ``prog_ops``; the inverse CDF per collision);
+36. the magnetic mirror (examples/make_lorentz_nb.py:98-112 at 10**7
+    particles, 1000 iterations in chunks of 256) through ``Simulation``:
+    its first chunk (10,010,624 x 256, as its provider hands it over)
+    against the twin, int records equal and planes bitwise, timed against
+    its bound; the fused tier, every particle alive, the relative |v|
+    drift within the constant pure-B gate (3e-5); the rate;
+37. the callable phase function: one forced scatter at 2**20 gives <mu> =
+    a/3 within 5 sigma and |v| = c within 3e-5, 8 iterations at 2**20 give
+    the beam's mean <v_x> / c = (1 - p (1 - a/3))**8 within 5 sigma, then
+    bench.py's workload
+    with ``ScatterPhaseFunctionStep(cos_theta_icdf=linear, a = 0.6)`` for
+    the isotropic scatter (10**7 photons, 1024 iterations in chunks of
+    256): its first chunk against the twin as in 36, then fused through
+    ``Simulation``, the +x share of every iteration's tally within 5
+    binomial sigma of its law (after m scatters the direction density is
+    1/2 + (3/2) (a/3)**m mu, so the share is (1-p)**k + (1 - (1-p)**k) / 2
+    + (3/4) ((1 - p (1 - a/3))**k - (1-p)**k)), and |v| = c; the rate;
+38. the generic scatter family: run_all.py's Compton (:439-450) and
+    polarized Rayleigh (:391-413, linearly polarized, with a Stokes tally)
+    workloads at 10**7 photons x 64 iterations under ``fuse="off"`` and
+    fused: the final direction, energy and Stokes means and the Compton
+    tally's per-iteration counts within 5 combined sigma, the mean purity
+    within 1e-6 of 1 on both tiers (a pure state stays pure); prints both
+    tiers' rates;
+39. shrink: an extinction run of 10**7 photons at the default
+    ``auto_shrink`` (absorption 0.002 per iteration, chunks of 256): a
+    shrink, survivors within 5 sigma of (1 - p)**k; the first chunk
+    launched at each shrunk capacity (its inputs copied as the provider
+    hands them over) against the twin, int records equal and planes
+    bitwise; prints each chunk's capacity, device time and alive
+    photon-steps/s (phase 9, the absorption run, empties its arena inside
+    its first chunk and so never shrinks: it checks that). The rate
+    paths of the earlier phases keep ``auto_shrink=False`` so that their
+    chunk times stay comparable with the earlier PRs' (a shrink launches
+    the later chunks over fewer lanes).
 
 The line before the last two is a JSON object describing each kernel on
 each path: ``fused_transport`` once each for the gamma, glass, thermal,
 stretch and fluorescence paths, the ExB (``lorentz``), mixed and
 record-tile paths, the polarized and polarimetry paths, the user and
-spectrum paths (their ``replaces`` the user ops of kernel 1i), the main path,
+spectrum paths (their ``replaces`` the user ops of kernel 1i), the mirror
+and callable-phase paths, the main path,
 the Planck source path, the media path, the escape path and the cavity path, each
 with its path's launch count and the times and bound at that path's own
 shape and plan (the main path's entry also names its instantiation, and
@@ -830,10 +877,14 @@ def transport_counts(plan, slots, k_act, starts, events=None):
             per.append(OPS_PER_ITER["rot"])
             if op.wl_base is not None:
                 per.append((4, 1))
-            once += [(OPS_PER_ITER["rotate"], n_ev),
-                     (OPS_PER_ITER[f"{op.kind}_cos"], n_ev)]
-            if op.kind == "phase":
-                event_loads += 2 * n_ev
+            once.append((OPS_PER_ITER["rotate"], n_ev))
+            if op.kind == "phase" and op.phase_fn is not None:
+                # a recorded inverse CDF: its program and the clip (2)
+                once.append(((prog_ops(op.phase_fn.spec) + 2, 0), n_ev))
+            else:
+                once.append((OPS_PER_ITER[f"{op.kind}_cos"], n_ev))
+                if op.kind == "phase":
+                    event_loads += 2 * n_ev
         elif op.kind == "compton":
             thermal = op.theta_e > 0
             per.append(OPS_PER_ITER["thermal" if thermal else "compton"])
@@ -871,10 +922,12 @@ def transport_counts(plan, slots, k_act, starts, events=None):
             per.append(user_cost(op))
         elif op.kind == "lorentz":
             per.append(OPS_PER_ITER["lorentz"])
-            if op.e_const:
+            if op.e_const or op.e_fns:
                 per.append(OPS_PER_ITER["lorentz_E"])
-            if op.b_const:
+            if op.b_const or op.b_fns:
                 per.append(OPS_PER_ITER["lorentz_B"])
+            # recorded fields: each component's program at every push
+            per += [(prog_ops(fn.spec), 0) for fn in op.e_fns + op.b_fns]
             if op.qm_plane >= 0:
                 per.append(OPS_PER_ITER["lorentz_qm"])
         else:
@@ -1009,7 +1062,9 @@ def main():
            "glass": 0.0, "thermal": 0.0, "stretch": 0.0, "fluor": 0.0,
            "lorentz": 0.0, "mixed": 0.0, "record-tile": 0.0, "pol": 0.0,
            "polarized": 0.0, "polarimetry": 0.0, "user": 0.0,
-           "spectrum": 0.0}
+           "spectrum": 0.0, "mirror": 0.0, "recorded-E-B": 0.0,
+           "phase-icdf": 0.0, "phase-icdf-hg": 0.0, "wide": 0.0,
+           "shrink": 0.0}
     a_E, b_E = planck_window()
     sampler = light.PlanckSampler(a_E, b_E, T_SUN, bins=2000)
 
@@ -1501,9 +1556,19 @@ def main():
     meas = light.ScatterSignMeasureStep(None, True)
     sim.add_step(3, meas)
     sim.add_photons(light.generate_photon_state(Na, E=1.0))
+    cap0 = pad_capacity(Na)
     F.fused_transport.launches = F.fused_transport.seq_launches = 0
     sim.start()
     sim.join()
+    # at the default auto_shrink; pcoll = 0.3 empties the arena inside the
+    # first chunk, and the host learns the alive count only when it
+    # harvests that chunk, which ends the run: no boundary can shrink it
+    # (the shrink phase below runs a slower absorber)
+    shrinks = [e for e in sim.population_log if e[0] == "shrink"]
+    check(sim.auto_shrink and not shrinks and len(sim.ts) <= 64
+          and sim.sim_state.capacity == cap0,
+          f"absorption: {len(sim.ts)} iterations, capacity "
+          f"{sim.sim_state.capacity}, shrinks {shrinks}")
     check(F.fused_transport.seq_launches == F.fused_transport.launches > 0,
           f"{F.fused_transport.seq_launches} of {F.fused_transport.launches} "
           "extinction-run launches ran the [kin, del, sign] instantiation")
@@ -1518,7 +1583,9 @@ def main():
     check(len(sim.ts) == len(n), "ts and records disagree")
     print(f"absorption: extinct after {len(n)} iterations in "
           f"{F.fused_transport.launches} launches of variant 65, worst "
-          f"deviation {worst:.2f} sigma", flush=True)
+          f"deviation {worst:.2f} sigma; capacity {cap0} before, "
+          f"{sim.sim_state.capacity} after, shrinks (chunk, before, after) "
+          f"{[e[1:] for e in shrinks]}", flush=True)
     del sim
 
     planck = planck_path(torch, phys, F, P, sampler, dev, card)
@@ -1537,6 +1604,12 @@ def main():
     pruns = pol_paths(torch, phys, F, dev, card, polft, poift, pol_grids)
     uruns = user_paths(torch, phys, F, dev, card, uft, spft)
     generic_paths(torch, phys, F, P, dev, card, main_data, main_rate)
+    recorded_plan_phase(torch, phys, F, dev, compare, card, times)
+    mir_ft, mir_launches, _ = mirror_path(torch, phys, F, dev, card, compare)
+    phf_ft, phf_launches, _ = phase_function_path(torch, phys, F, dev, card,
+                                                  compare)
+    generic_scatter_paths(torch, phys, F, dev, card)
+    shrink_path(torch, phys, F, dev, card, compare)
 
     ft_src = {"name": "fused_transport", "route": "cuda",
               "source": "physicl_tpu_torch/csrc/fused_transport.cu",
@@ -1568,6 +1641,12 @@ def main():
                    "max_abs_err": max(err["user"], err[path]), **entry,
                    "library_ms": None}
                   for path, entry in (("user", uft), ("spectrum", spft))]
+    # the recorded fields and inverse CDFs
+    new_paths += [
+        {**ft_src, "path": path, "launches": launches,
+         "max_abs_err": err[path], **entry, "library_ms": None}
+        for path, launches, entry in (("mirror", mir_launches, mir_ft),
+                                      ("phase-icdf", phf_launches, phf_ft))]
     print(json.dumps({"kernels": new_paths + [
         {**ft_src, "path": "main", "launches": main_launches,
          "max_abs_err": err["main"], **ft, "library_ms": None},
@@ -2032,7 +2111,7 @@ def media_sim(phys, grid, dev, n=None, iters=None, scatter=True,
     nv = grid.shape[0]
     nfn = light.voxel_density(grid, spacing=sp, interp="trilinear")
     sim = phys.Simulation(until_t=(iters - 0.5) * MEDIA_DT, seed=seed,
-                          chunk_steps=chunk, device=dev)
+                          chunk_steps=chunk, device=dev, auto_shrink=False)
     sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(MEDIA_DT)))
     sim.add_step(1, phys.newton.NewtonianKinematicsStep())
     if scatter:
@@ -2396,7 +2475,7 @@ def escape_sim(phys, sampler, n, dev, seed=17, absorb=True, trace=False,
     c_dt = float(light.c) * ESC_DT
     R = radius * c_dt
     sim = phys.Simulation(until_t=(ESC_ITERS - 0.5) * ESC_DT, seed=seed,
-                          device=dev)
+                          device=dev, auto_shrink=False)
     sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(ESC_DT)))
     sim.add_step(1, phys.newton.NewtonianKinematicsStep())
     sim.add_step(2, light.ScatterIsotropicStep(A=ESC_SCATTER / c_dt, n=1.0))
@@ -3033,7 +3112,7 @@ def gamma_sim(phys, n, dev, iters=GAMMA_ITERS, seed=0):
     light = phys.light
     c_dt = float(light.c) * 0.001
     sim = phys.Simulation(until_t=(iters - 0.5) * 0.001, seed=seed,
-                          chunk_steps=1024, device=dev)
+                          chunk_steps=1024, device=dev, auto_shrink=False)
     sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
     sim.add_step(1, phys.newton.NewtonianKinematicsStep())
     comp = light.ScatterComptonStep(A=0.001 / c_dt, n=1.0, mec2=1.0,
@@ -3059,7 +3138,7 @@ def glass_sim(phys, n, dev, seed=19):
     th = np.deg2rad(GLASS_THETA)
     x0, x1 = 0.37 * c_dt, (0.37 + GLASS_THICK) * c_dt
     sim = phys.Simulation(until_t=(GLASS_ITERS - 0.5) * 0.001, seed=seed,
-                          device=dev)
+                          device=dev, auto_shrink=False)
     sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
     sim.add_step(1, phys.newton.NewtonianKinematicsStep())
     sim.add_step(2, light.RefractiveInterfaceStep(x0, 1.0, GLASS_N_IN,
@@ -3095,7 +3174,7 @@ def run_all_sim(phys, case, n, dev, iters):
     light = phys.light
     c_dt = float(light.c) * 0.001
     sim = phys.Simulation(until_t=(iters - 0.5) * 0.001, seed=0,
-                          device=dev)
+                          device=dev, auto_shrink=False)
     sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
     sim.add_step(1, phys.newton.NewtonianKinematicsStep())
     steps, E0 = {}, 1.0
@@ -3434,7 +3513,7 @@ def lorentz_sim(phys, case, n, dev, iters, seed=0):
     tally)``."""
     light, newton = phys.light, phys.newton
     sim = phys.Simulation(until_t=(iters - 0.5) * LOR_DT, seed=seed,
-                          chunk_steps=LOR_CHUNK, device=dev)
+                          chunk_steps=LOR_CHUNK, device=dev, auto_shrink=False)
     sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(LOR_DT)))
     if case == "exb":
         sim.add_step(1, newton.LorentzForceStep(
@@ -3473,7 +3552,7 @@ def tile_sim(phys, n, dev, iters, seed=3):
     light = phys.light
     c_dt = float(light.c) * LOR_DT
     sim = phys.Simulation(until_t=(iters - 0.5) * LOR_DT, seed=seed,
-                          device=dev)
+                          device=dev, auto_shrink=False)
     sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(LOR_DT)))
     sim.add_step(1, phys.newton.NewtonianKinematicsStep())
     sim.add_step(2, light.ScatterIsotropicStep(A=0.001 / c_dt, n=1.0))
@@ -4314,7 +4393,7 @@ def pol_sim(phys, case, n, dev, iters=None, seed=0, chunk=1024):
     pol = phys.polarization
     iters = iters or (POL_ITERS if case == "polarized" else POLI_ITERS)
     sim = phys.Simulation(until_t=(iters - 0.5) * POL_DT, seed=seed,
-                          chunk_steps=chunk, device=dev)
+                          chunk_steps=chunk, device=dev, auto_shrink=False)
     sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(POL_DT)))
     sim.add_step(1, phys.newton.NewtonianKinematicsStep())
     if case == "polarized":
@@ -4491,7 +4570,7 @@ def user_sim(phys, n, dev, iters=USER_ITERS, chunk=1024, seed=0):
 
     light = phys.light
     sim = phys.Simulation(until_t=(iters - 0.5) * USER_DT, seed=seed,
-                          chunk_steps=chunk, device=dev)
+                          chunk_steps=chunk, device=dev, auto_shrink=False)
     sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(USER_DT)))
     sim.add_step(1, phys.newton.NewtonianKinematicsStep())
     sim.add_step(2, light.ScatterIsotropicStep(A=np.double(0.001),
@@ -4518,7 +4597,7 @@ def spectrum_sim(phys, n, dev, iters=SPEC_ITERS, seed=0):
     light = phys.light
     c_dt = float(light.c) * USER_DT
     sim = phys.Simulation(until_t=(iters - 0.5) * USER_DT, seed=seed,
-                          device=dev)
+                          device=dev, auto_shrink=False)
     sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(USER_DT)))
     sim.add_step(1, phys.newton.NewtonianKinematicsStep())
     sim.add_step(2, light.ScatterComptonStep(
@@ -4550,7 +4629,7 @@ def user_plan_sim(phys, case, dev, n=UPLAN_N, chunk=UPLAN_K, seed=0):
     gen = torch.Generator(device=dev).manual_seed(seed)
     n_ph = n // 2 if case == "kstate-mixed" else n
     sim = phys.Simulation(until_t=(chunk - 0.5) * USER_DT, seed=seed,
-                          chunk_steps=chunk, device=dev)
+                          chunk_steps=chunk, device=dev, auto_shrink=False)
     sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(USER_DT)))
     sim.add_step(1, newton.NewtonianKinematicsStep())
     steps = []
@@ -4811,6 +4890,545 @@ def spectrum_gates(torch, sim, counts, energies, st, n):
             f"planes' histogram ({int(want.sum())} photons, underflow "
             f"{int(want[-2])}, overflow {int(want[-1])}); energy bins within "
             f"{rel:.2e} of the alive energy")
+
+
+# -- recorded fields and inverse CDFs, the generic scatter family, shrink ------
+
+MIR_N = 10_000_000       # examples/make_lorentz_nb.py:98-112 at 10**7
+MIR_DT = 1e-3
+MIR_UNTIL = 0.9999       # 1000 iterations, as the example
+MIR_L, MIR_B0 = 2.0, 100.0
+MIR_CHUNK = 256          # the Lorentz paths' chunk (run_all.py:27)
+MIR_VTOL = 3e-5          # |v| drift: the constant pure-B phase's gate
+PHF_N = 10_000_000       # bench.py's workload, the phase function for iso
+PHF_ITERS = 1024
+PHF_CHUNK = 256
+PHF_A = 0.6              # tests/test_phase.py's linear law: <mu> = a / 3
+PHF_LAW_N = 1 << 20
+GSC_N = 10_000_000       # run_all.py:439-450 and :391-413 on both tiers
+GSC_ITERS = 64
+GSC_CHUNK = 16
+SHR_N = 10_000_000       # the extinction run at 10**7
+SHR_P = 0.002            # absorption per iteration: shrinks over ~30 chunks
+SHR_CHUNK = 256
+RG_C, RG_K = 1 << 20, 256  # the new plans against the twin
+
+
+def mirror_B(rx, ry, rz):
+    """The example's axial mirror: Bz = B0 (1 + z**2 / L**2), Br = -(r / 2)
+    dBz / dz."""
+    fac = MIR_B0 / (MIR_L * MIR_L)
+    return (-fac * rx * rz, -fac * ry * rz,
+            MIR_B0 * (1.0 + (rz / MIR_L) ** 2))
+
+
+def crossed_EB(torch):
+    """A plan whose E and B are both callable (a constant component among
+    them): ``(E_field, B_field)``."""
+    def E(rx, ry, rz):
+        return (2.0 * torch.cos(rx * 3.0), 0.5, 0 * rz)
+
+    def B(rx, ry, rz):
+        return (ry * 0.5, 1.0 + 0 * rx, 30.0 / (1.0 + rz * rz))
+    return E, B
+
+
+def linear_icdf(u):
+    """tests/test_phase.py's exact inverse CDF of (1 + a mu) / 2."""
+    import torch
+
+    disc = 1.0 - PHF_A * (2.0 - PHF_A - 4.0 * u)
+    return (torch.sqrt(torch.clamp(disc, min=0.0)) - 1.0) / PHF_A
+
+
+def hg_icdf(u):
+    """The Henyey-Greenstein inverse CDF at g = 0.7 as a callable (an
+    integer power and divides)."""
+    g = 0.7
+    s = (1.0 - g * g) / (1.0 - g + 2.0 * g * u)
+    return (1.0 + g * g - s ** 2) / (2.0 * g)
+
+
+def prog_ops(spec):
+    """float32 operations of one evaluation of a recorded expression
+    program: each operation it asks for (a divide or root 8, a
+    transcendental or powf 20, an integer power its products), constants
+    and variables free; the interpreter's fetch and dispatch are not the
+    program's work."""
+    from physicl_tpu_torch.ops import fields as FL
+
+    n = 0
+    for code, val in spec["prog"]:
+        if code in (FL.INS_CONST, FL.INS_VAR):
+            continue
+        if code in (FL.INS_DIV, FL.INS_SQRT):
+            n += 8
+        elif code in (FL.INS_POW, FL.INS_EXP, FL.INS_LOG, FL.INS_LOG10,
+                      FL.INS_SIN, FL.INS_COS, FL.INS_TAN):
+            n += 20
+        elif code == FL.INS_IPOW:
+            e = abs(int(val))
+            n += max(e.bit_length() + bin(e).count("1") - 2, 0) + (
+                8 if val < 0 else 0)
+        else:
+            n += 1
+    return n
+
+
+def mirror_sim(phys, n, dev, iters=None, chunk=MIR_CHUNK, seed=1,
+               fields=None):
+    """The example's bulk mirror run: n particles from the origin with
+    N(0, 1) velocity components (a seeded generator on the card),
+    q/m = 1, dt = 1e-3, until_t 0.9999 (or ``iters`` iterations). Returns
+    ``(sim, initial |v|)``."""
+    import torch
+
+    newton = phys.newton
+    until = MIR_UNTIL if iters is None else (iters - 0.5) * MIR_DT
+    sim = phys.Simulation(until_t=until, seed=seed, chunk_steps=chunk,
+                          device=dev)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(MIR_DT)))
+    E, B = fields or (None, mirror_B)
+    sim.add_step(1, newton.LorentzForceStep(E_field=E, B_field=B,
+                                            q_over_m=1.0))
+    sim.add_step(2, newton.NewtonianKinematicsStep())
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randn((3, n), generator=gen, device=dev)
+    r = None
+    if fields is not None:  # off the origin: the fields vary over the run
+        r = torch.randn((3, n), generator=gen, device=dev) * 0.1
+    sim.add_particles(newton.generate_particle_state(n, v=v, r=r,
+                                                     device=dev))
+    return sim, torch.linalg.vector_norm(v.double(), dim=0)
+
+
+def phase_sim(phys, n, dev, icdf=linear_icdf, iters=PHF_ITERS,
+              chunk=PHF_CHUNK, seed=0, fuse="auto"):
+    """bench.py's workload with ScatterPhaseFunctionStep(A = n = 1e-3,
+    cos_theta_icdf=icdf) in place of the isotropic scatter. Returns
+    ``(sim, sign tally)``."""
+    light = phys.light
+    sim = phys.Simulation(until_t=(iters - 0.5) * 0.001, seed=seed,
+                          chunk_steps=chunk, device=dev, fuse=fuse)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    sim.add_step(2, light.ScatterPhaseFunctionStep(
+        A=np.double(0.001), n=np.double(0.001), cos_theta_icdf=icdf))
+    sign = light.ScatterSignMeasureStep(None, True)
+    sim.add_step(3, sign)
+    sim.add_photons(light.generate_photon_state(n, E=1.0, device=dev))
+    return sim, sign
+
+
+def wide_sim(phys, n, dev, chunk=RG_K):
+    """A plan past every old table limit: 17 ops, 9 distinct fields (eight
+    C-expression densities, an A(E) expression), 71 expression
+    instructions."""
+    light = phys.light
+    c_dt = float(light.c) * 0.001
+    sim = phys.Simulation(until_t=(chunk - 0.5) * 0.001, seed=4,
+                          chunk_steps=chunk, device=dev, auto_shrink=False)
+    steps = [phys.UpdateTimeStep(lambda s: np.double(0.001)),
+             phys.newton.NewtonianKinematicsStep()]
+    for k in range(8):
+        steps.append(light.ScatterIsotropicStep(
+            A=0.002 / c_dt, variable_n=True,
+            variable_n_fn=f"1.0 + 0.25 * cos(r{k % 3}[gid] * {k + 1}e-6)"))
+    steps.append(light.ScatterDeleteStep(
+        np.double(1.0), np.double(0.001 / c_dt),
+        A_fn="pow(E[gid], -1.5) * 0.5 + 0.5"))
+    for g in (0.1, 0.3, 0.5, 0.7, -0.2, -0.4):
+        steps.append(light.ScatterHenyeyGreensteinStep(A=0.002 / c_dt,
+                                                       n=1.0, g=g))
+    steps.append(light.ScatterSignMeasureStep(None, True))
+    for i, st in enumerate(steps):
+        sim.add_step(i, st)
+    sim.add_photons(light.generate_photon_state(n, E=1.0, device=dev))
+    return sim
+
+
+def recorded_plan_phase(torch, phys, F, dev, compare, card, times):
+    """Phase: fused_transport against the twin on the new plans at 2**20
+    slots x 256 iterations, as their providers hand them over (the mirror's
+    recorded B, recorded E and B with a constant component, the two
+    recorded inverse CDFs, the wide plan): int records equal, planes
+    bitwise; each timed against its bound."""
+    phase(f"fused_transport vs twin on the recorded-field and wide plans "
+          f"(2**20 slots, {RG_K} iterations)")
+    sims = {
+        "mirror-B": (lambda: mirror_sim(phys, RG_C, dev, iters=RG_K,
+                                        chunk=RG_K)[0], "mirror"),
+        "recorded-E-B": (lambda: mirror_sim(
+            phys, RG_C, dev, iters=RG_K, chunk=RG_K,
+            fields=crossed_EB(torch))[0], "recorded-E-B"),
+        "phase-icdf-linear": (lambda: phase_sim(
+            phys, RG_C, dev, iters=RG_K, chunk=RG_K)[0], "phase-icdf"),
+        "phase-icdf-hg": (lambda: phase_sim(
+            phys, RG_C, dev, icdf=hg_icdf, iters=RG_K, chunk=RG_K)[0],
+            "phase-icdf-hg"),
+        "wide-17-ops-9-fields": (lambda: wide_sim(phys, RG_C, dev), "wide"),
+    }
+    for name, (make, path) in sims.items():
+        packed, sched, seed, k, plan, _ = first_chunk_inputs(make(), F)
+        check(k == RG_K and plan.has_fields, f"{name}: plan {k} iterations, "
+              f"fields {plan.has_fields}")
+        specs, _ = F.plan_fields(plan.ops)
+        n_ins = sum(len(sp["prog"]) for sp in specs if sp["kind"] == "expr")
+        if name.startswith("wide"):
+            check(len(plan.ops) >= 17 and len(specs) == 9 and n_ins >= 65,
+                  f"{name}: {len(plan.ops)} ops, {len(specs)} fields, "
+                  f"{n_ins} instructions")
+        plain_ms = compare(name, packed, sched, k, plan, None, path, seed,
+                           need_bitwise=True)
+        res = torch.empty_like(packed)
+        rec = F.fused_transport(packed, res, sched, seed, k, plan)[0]
+        ms = cuda_ms(lambda: F.fused_transport(packed, res, sched, seed, k,
+                                               plan), 5, torch)
+        events = expected_events(plan, packed,
+                                 float(rec[:k, 0].double().sum()),
+                                 float(sched[0, 0]))
+        b_ms, b_by = transport_bound(plan, packed.shape[1], k, None, events)
+        times[name] = ms
+        print(f"{name} at 2**20 x {k}: ops {[op.kind for op in plan.ops]}, "
+              f"{len(specs)} fields, {n_ins} expression instructions; "
+              f"variant {plan.kernel_variant} "
+              f"({kernel_regs(plan.kernel_variant)}); kernel {ms:.3f} ms, "
+              f"twin {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}) "
+              f"[{card}]", flush=True)
+        del packed, res
+
+
+def mirror_path(torch, phys, F, dev, card, compare):
+    """Phase: the magnetic mirror at 10**7 particles: its first chunk
+    against the twin, then the run through Simulation: the fused tier with
+    the recorded B; |v| kept to the constant pure-B gate; the rate.
+    Returns the entry, the launches and the rate."""
+    entry = path_chunk0("mirror-chunk-0", mirror_sim(phys, MIR_N, dev)[0],
+                        F, torch, compare, "mirror", card, ["lorentz", "kin"],
+                        streams=False)
+    phase(f"magnetic mirror: {MIR_N} particles in a recorded B(r), "
+          f"{int(MIR_UNTIL / MIR_DT) + 1} iterations in chunks of "
+          f"{MIR_CHUNK}")
+    F.fused_transport.launches = 0
+    sim, v0 = mirror_sim(phys, MIR_N, dev)
+    wall, _, peak = run_sim(torch, sim)
+    launches = F.fused_transport.launches
+    check(sim.used_fused and launches >= 4, f"mirror: fused "
+          f"{sim.used_fused}, launches {launches}\n{sim.explain_plan()}")
+    print(sim.explain_plan())
+    st = sim.sim_state
+    v = torch.linalg.vector_norm(st.v[:, :MIR_N].double(), dim=0)
+    drift = float((v / v0 - 1).abs().max())
+    z = st.r[2, :MIR_N].abs()
+    check(bool(st.alive[:MIR_N].all()) and bool(torch.isfinite(st.r).all()),
+          "mirror: particles lost or non-finite")
+    check(drift <= MIR_VTOL, f"mirror: |v| drifted by {drift:.2e} (the "
+          f"constant pure-B gate {MIR_VTOL:.0e})")
+    rate, steady_s = steady_rate(sim, np.full(len(sim.ts), MIR_N))
+    print(f"mirror path: {len(sim.ts)} iterations, fused_transport launches "
+          f"{launches}; max relative |v| drift {drift:.3e} (gate "
+          f"{MIR_VTOL:.0e}, the constant pure-B phase's); max |z| "
+          f"{float(z.max()):.3f}; rate {rate:.4e} particle-steps/s over the "
+          f"dispatch loop after the first chunk ({steady_s * 1e3:.1f} ms of "
+          f"device time), {MIR_N * len(sim.ts) / wall:.4e} from start() "
+          f"({wall:.2f} s wall, set-up {sim.setup_seconds:.3f} s, peak "
+          f"{peak / 2 ** 30:.2f} GiB); kernel {entry['ms']:.2f} ms per chunk "
+          f"against a bound of {entry['bound_ms']:.2f} ms "
+          f"({entry['bound_by']}) [{card}]", flush=True)
+    del sim, st, v, v0, z
+    return entry, launches, rate
+
+
+def phase_function_path(torch, phys, F, dev, card, compare):
+    """Phase: the forced-scatter law of a recorded inverse CDF, then
+    bench.py's workload with it at 10**7 photons: its first chunk against
+    the twin, then the run through Simulation. Returns the entry, the
+    launches and the rate."""
+    phase(f"callable phase function: one forced scatter and 8 iterations "
+          f"at {PHF_LAW_N} photons")
+    c = float(phys.light.c)
+    sim = phys.Simulation(until_t=0.5 * 0.001, seed=0, device=dev)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    sim.add_step(2, phys.light.ScatterPhaseFunctionStep(
+        A=1.0 / (c * 0.001), n=1.0, cos_theta_icdf=linear_icdf))
+    sim.add_photons(phys.light.generate_photon_state(PHF_LAW_N, E=1.0,
+                                                     device=dev))
+    run_sim(torch, sim)
+    check(sim.used_fused, "the recorded inverse CDF did not fuse")
+    v = sim.sim_state.v[:, :PHF_LAW_N].double()
+    speed = torch.linalg.vector_norm(v, dim=0)
+    mu = v[0] / speed
+    z = abs(float(mu.mean()) - PHF_A / 3) / (float(mu.std())
+                                            / np.sqrt(PHF_LAW_N))
+    s_err = float((speed / c - 1).abs().max())
+    check(z < 5 and s_err < 3e-5, f"phase law: <mu> {float(mu.mean()):.5f} "
+          f"against a/3 = {PHF_A / 3:.5f} ({z:.2f} sigma), |v| off c by "
+          f"{s_err:.2e}")
+    print(f"phase law: one forced scatter of {PHF_LAW_N} photons, <mu> = "
+          f"{float(mu.mean()):.6f} against a/3 = {PHF_A / 3:.6f} "
+          f"({z:.2f} sigma); |v| = c within {s_err:.2e}", flush=True)
+    del sim, v, speed, mu
+    # the beam's mean direction along +x: each scatter multiplies it by
+    # <mu> = a / 3 (an axially symmetric law), so after K iterations it is
+    # (1 - p (1 - a / 3))**K, p the kernel's collision probability (the
+    # 24-bit uniform's floor(pcoll 2**24) + 1 steps of 2**-24)
+    pcoll = float(np.float32(np.float32(0.001 * 0.001)
+                             * np.float32(c * 0.001)))
+    p = (np.floor(pcoll * 2 ** 24) + 1) * 2.0 ** -24
+    sim, _ = phase_sim(phys, PHF_LAW_N, dev, iters=8, chunk=8)
+    run_sim(torch, sim)
+    ux = sim.sim_state.v[0, :PHF_LAW_N].double() / c
+    want = (1 - p * (1 - PHF_A / 3)) ** 8
+    zx = abs(float(ux.mean()) - want) / (float(ux.std())
+                                         / np.sqrt(PHF_LAW_N))
+    check(sim.used_fused and zx < 5, f"phase law: <v_x> / c = "
+          f"{float(ux.mean()):.6f} after 8 iterations against (1 - p (1 - "
+          f"a/3))**8 = {want:.6f} ({zx:.2f} sigma)")
+    print(f"phase law: <v_x> / c = {float(ux.mean()):.6f} after 8 "
+          f"iterations at p = {p:.6f} against (1 - p (1 - a/3))**8 = "
+          f"{want:.6f} ({zx:.2f} sigma)", flush=True)
+    del sim, ux
+
+    entry = path_chunk0("phase-chunk-0", phase_sim(phys, PHF_N, dev)[0], F,
+                        torch, compare, "phase-icdf", card,
+                        ["kin", "phase", "sign"], streams=False)
+    phase(f"callable phase function: {PHF_N} photons x {PHF_ITERS} "
+          "iterations through Simulation")
+    F.fused_transport.launches = 0
+    sim, sign = phase_sim(phys, PHF_N, dev)
+    wall, _, peak = run_sim(torch, sim)
+    launches = F.fused_transport.launches
+    check(sim.used_fused and launches >= 4, f"phase path: fused "
+          f"{sim.used_fused}, launches {launches}")
+    data = np.asarray(sign.data)
+    check(data.shape == (PHF_ITERS, 5) and bool((data[:, 1] == PHF_N).all()),
+          f"phase path: records {data.shape}, photons lost")
+    # the +x share after k iterations: after m >= 1 scatters the direction
+    # density in mu = cos(angle to +x) is 1/2 + (3/2) (a/3)**m mu (the
+    # linear law has Legendre moments 1 and a/3 only, and they multiply
+    # scatter by scatter), so P(v_x > 0) = 1/2 + (3/4) (a/3)**m; summed
+    # over m ~ Binomial(k, p)
+    k = np.arange(1, PHF_ITERS + 1)
+    q0 = (1 - p) ** k
+    share = q0 + 0.5 * (1 - q0) + 0.75 * ((1 - p * (1 - PHF_A / 3)) ** k
+                                          - q0)
+    zs = np.abs(data[:, 2] - PHF_N * share) / np.sqrt(
+        PHF_N * share * (1 - share) + 1)
+    worst = float(zs.max())
+    s_err = float((torch.linalg.vector_norm(
+        sim.sim_state.v[:, :PHF_N].double(), dim=0) / c - 1).abs().max())
+    check(worst < 5 and s_err < 3e-5, f"phase path: +x share off its law "
+          f"by {worst:.2f} sigma at iteration {int(zs.argmax()) + 1} (count "
+          f"{int(data[zs.argmax(), 2])} against "
+          f"{PHF_N * share[zs.argmax()]:.1f}), |v| off c by {s_err:.2e}")
+    rate, steady_s = steady_rate(sim, np.full(PHF_ITERS, PHF_N))
+    print(f"phase path: {PHF_ITERS} iterations in {len(sim.chunk_log)} "
+          f"chunks, fused_transport launches {launches}; the +x share of "
+          f"every iteration within {worst:.2f} binomial sigma of its law "
+          f"(iteration 1: {data[0, 2] / PHF_N:.6f} against {share[0]:.6f}, "
+          f"iteration 16: {data[15, 2] / PHF_N:.6f} against "
+          f"{share[15]:.6f}); |v| = c within {s_err:.2e}; rate "
+          f"{rate:.4e} photon-steps/s over the "
+          f"dispatch loop after the first chunk ({steady_s * 1e3:.1f} ms), "
+          f"{PHF_N * PHF_ITERS / wall:.4e} from start() ({wall:.2f} s wall, "
+          f"peak {peak / 2 ** 30:.2f} GiB); kernel {entry['ms']:.2f} ms per "
+          f"chunk against {entry['bound_ms']:.2f} ms ({entry['bound_by']}) "
+          f"[{card}]", flush=True)
+    del sim
+    return entry, launches, rate
+
+
+def gsc_sim(phys, case, dev, fuse):
+    """run_all.py:439-450 (compton_kn_1e7, with its sign tally) and
+    :391-413 (polarized_rayleigh, with a Stokes tally) on ``fuse``'s tier,
+    GSC_ITERS iterations in chunks of GSC_CHUNK. Returns ``(sim, tally)``."""
+    light, pol = phys.light, phys.polarization
+    sim = phys.Simulation(until_t=(GSC_ITERS - 0.5) * 0.001, seed=0,
+                          chunk_steps=GSC_CHUNK, device=dev, fuse=fuse)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    if case == "compton":
+        sim.add_step(2, light.ScatterComptonStep(
+            A=0.001 / (float(light.c) * 1e-3), n=1.0, mec2=1.0,
+            kn_cross_section=True))
+        tally = light.ScatterSignMeasureStep(None, True)
+        sim.add_photons(light.generate_photon_state(GSC_N, E=1.0,
+                                                    device=dev))
+    else:
+        sim.add_step(2, pol.ScatterPolarizedRayleighStep(
+            A=np.double(0.001), n=np.double(0.001)))
+        tally = pol.StokesMeasureStep(None)
+        # linearly polarized: the Stokes means move with each scatter
+        sim.add_photons(pol.polarized_photon_state(
+            GSC_N, E=1.0, stokes=(1.0, 0.0, 0.0), device=dev))
+    sim.add_step(3, tally)
+    return sim, tally
+
+
+def generic_scatter_paths(torch, phys, F, dev, card):
+    """Phase: the Compton and polarized Rayleigh workloads under
+    fuse="off" at 10**7 photons, held within 5 sigma of the same plan
+    fused; prints both tiers' rates."""
+    out = {}
+    for case in ("compton", "polarized"):
+        phase(f"generic {case} workload: {GSC_N} photons x {GSC_ITERS} "
+              "iterations, fuse='off' against fused")
+        runs = {}
+        for fuse in ("off", "auto"):
+            F.fused_transport.launches = 0
+            sim, tally = gsc_sim(phys, case, dev, fuse)
+            wall, _, peak = run_sim(torch, sim)
+            launches = F.fused_transport.launches
+            check(sim.used_fused == (fuse == "auto")
+                  and (launches > 0) == (fuse == "auto"),
+                  f"{case} {fuse}: fused {sim.used_fused}, launches "
+                  f"{launches}")
+            rate, steady_s = steady_rate(sim, np.full(GSC_ITERS, GSC_N))
+            st = sim.sim_state
+            obs = {"vx": st.v[0, :GSC_N].double() / float(phys.light.c),
+                   "E": st.E[:GSC_N].double()}
+            if case == "polarized":
+                sk = st.extras["stokes"][:, :GSC_N].double()
+                obs.update(Q=sk[0], U=sk[1], V=sk[2],
+                           p=torch.linalg.vector_norm(sk, dim=0))
+            runs[fuse] = ({k: (float(v.mean()), float(v.var()))
+                           for k, v in obs.items()},
+                          np.asarray(tally.data, np.float64), rate, wall,
+                          launches)
+            print(f"{case} ({'generic' if fuse == 'off' else 'fused'}): "
+                  f"rate {rate:.4e} photon-steps/s over the dispatch loop "
+                  f"after the first chunk ({steady_s * 1e3:.1f} ms of device "
+                  f"time), wall {wall:.2f} s, peak {peak / 2 ** 30:.2f} GiB, "
+                  f"fused_transport launches {launches} [{card}]", flush=True)
+            del sim, st, obs
+        (ga, gr, g_rate, _, _), (fa, fr, f_rate, _, _) = runs["off"], \
+            runs["auto"]
+        # the degree of polarization stays 1 to rounding (the dipole matrix
+        # keeps a pure state pure): its spread is rounding, not sampling,
+        # so it is held to 1 and left out of the sigma comparison
+        if case == "polarized":
+            check(1 - ga["p"][0] < 1e-6 and 1 - fa["p"][0] < 1e-6,
+                  f"{case}: mean purity {ga['p'][0]} (generic), "
+                  f"{fa['p'][0]} (fused)")
+        worst, z = 0.0, {}
+        for k in ga:
+            if k == "p":
+                continue
+            se = np.sqrt((ga[k][1] + fa[k][1]) / GSC_N)
+            z[k] = abs(ga[k][0] - fa[k][0]) / max(se, 1e-300)
+            worst = max(worst, z[k])
+        check(gr.shape == fr.shape, f"{case}: tallies {gr.shape} {fr.shape}")
+        if case == "compton":  # n and the +x, +y, +z counts, binomial
+            s_ = fr[:, 2:5] / GSC_N
+            zc = np.abs(gr[:, 2:5] - fr[:, 2:5]) / np.sqrt(
+                2 * GSC_N * s_ * (1 - s_) + 1)
+            worst = max(worst, float(zc.max()))
+            check(bool((gr[:, 1] == GSC_N).all() and (fr[:, 1] == GSC_N)
+                       .all()), f"{case}: photons lost")
+        check(worst < 5, f"{case}: generic and fused differ by {worst:.2f} "
+              "sigma")
+        what = ("final-state means and per-iteration counts"
+                if case == "compton" else "final-state means")
+        print(f"{case}: generic and fused agree within {worst:.2f} sigma "
+              f"({what}; " + ", ".join(f"{k} {v:.2f}" for k, v in z.items())
+              + (f"; purity 1 - {1 - ga['p'][0]:.2e} and 1 - "
+                 f"{1 - fa['p'][0]:.2e}" if case == "polarized" else "")
+              + "); "
+              f"the generic tier at {g_rate:.4e} against the fused "
+              f"{f_rate:.4e} photon-steps/s ({f_rate / g_rate:.1f}x) [{card}]",
+              flush=True)
+        out[case] = {"generic_rate": g_rate, "fused_rate": f_rate,
+                     "fused_launches": runs["auto"][4]}
+    return out
+
+
+def shrink_path(torch, phys, F, dev, card, compare):
+    """Phase: an extinction run at 10**7 photons at the default
+    auto_shrink: the capacity after each shrink, the first chunk at each
+    shrunk capacity against the twin, and each chunk's device time and
+    alive photon-steps/s before and after."""
+    from physicl_tpu_torch.state import pad_capacity
+
+    phase(f"shrink: {SHR_N} photons absorbed at {SHR_P} per iteration, "
+          f"extinction exit, chunks of {SHR_CHUNK}")
+    light = phys.light
+    sim = phys.Simulation(exit="extinction", seed=5, chunk_steps=SHR_CHUNK,
+                          device=dev)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    sim.add_step(2, light.ScatterDeleteStep(
+        np.double(SHR_P / (float(light.c) * 0.001)), np.double(1.0)))
+    meas = light.ScatterSignMeasureStep(None, True)
+    sim.add_step(3, meas)
+    sim.add_photons(light.generate_photon_state(SHR_N, E=1.0, device=dev))
+    check(sim.auto_shrink, "auto_shrink is not the default")
+    # the first launch at each capacity below the start's, its inputs
+    # copied as the provider hands them over (a copy of at most 278,528
+    # slots, on the stream before the launch)
+    cap0, shrunk, launch = pad_capacity(SHR_N), {}, F.fused_chunk
+
+    def recorded(packed, sched, seed, k_act, plan, out=None,
+                 emit_starts=None):
+        cap = packed.shape[1]
+        if cap < cap0 and cap not in shrunk:
+            shrunk[cap] = (packed.clone(), sched.clone(), seed, k_act, plan)
+        return launch(packed, sched, seed, k_act, plan, out=out,
+                      emit_starts=emit_starts)
+
+    F.fused_transport.launches = 0
+    F.fused_chunk = recorded
+    try:
+        wall, _, _ = run_sim(torch, sim)
+    finally:
+        F.fused_chunk = launch
+    launches = F.fused_transport.launches
+    shrinks = [e for e in sim.population_log if e[0] == "shrink"]
+    # the shrink waits for the alive mirror, which lags the pipeline by
+    # the chunks in flight (as in the JAX package)
+    check(sim.used_fused and len(shrinks) >= 1
+          and all(e[3] < e[2] for e in shrinks),
+          f"shrink: {shrinks}, fused {sim.used_fused}")
+    n = np.asarray(meas.data)[:, 1]
+    k = np.arange(1, len(n) + 1)
+    q = (1 - SHR_P) ** k
+    z = float(np.max(np.abs(n - SHR_N * q) / np.sqrt(SHR_N * q * (1 - q)
+                                                     + 1)))
+    check(z < 5 and n[-1] == 0, f"shrink: survivors {z:.2f} sigma off "
+          f"(1 - p)**k, last row {n[-1]}")
+    # chunk i (i >= 1, timed between the events after chunks i - 1 and i)
+    # runs at the capacity of the last shrink before it
+    caps = {e[1]: e[3] for e in shrinks}
+    cap, rows, first = cap0, [], sim.chunk_log[0][1]
+    for i in range(1, len(sim.chunk_log)):
+        cap = caps.get(i, cap)
+        kk = sim.chunk_log[i][1]
+        ms = sim.chunk_log[i - 1][2].elapsed_time(sim.chunk_log[i][2])
+        steps = float(n[first:first + kk].sum())
+        first += kk
+        rows.append((i, cap, kk, ms, steps / max(ms, 1e-9) * 1e3))
+    print(f"shrink: capacities {[(e[1], e[2], e[3]) for e in shrinks]} "
+          f"(chunk index, before, after); survivors within {z:.2f} sigma of "
+          f"(1 - p)**k; extinct after {len(n)} iterations in {launches} "
+          f"launches, wall {wall:.2f} s [{card}]")
+    for i, cap_i, kk, ms, rate in rows:
+        print(f"  chunk {i}: {cap_i} slots, {kk} iterations, {ms:.3f} ms of "
+              f"device time, {rate:.4e} alive photon-steps/s", flush=True)
+    del sim
+    check(sorted(shrunk) == sorted(e[3] for e in shrinks),
+          f"shrink: launches at {sorted(shrunk)} slots, shrinks to "
+          f"{[e[3] for e in shrinks]}")
+    for cap_i, (packed, sched, seed, k_act, plan) in sorted(shrunk.items()):
+        check([op.kind for op in plan.ops] == ["kin", "del", "sign"],
+              f"shrink: plan {[op.kind for op in plan.ops]} at {cap_i}")
+        ms = compare(f"shrink-{cap_i}", packed, sched, k_act, plan, None,
+                     "shrink", seed, need_bitwise=True)
+        print(f"shrink: the first chunk at {cap_i} slots ({k_act} "
+              f"iterations, variant {plan.kernel_variant}) equals the twin "
+              f"(twin {ms:.1f} ms) [{card}]", flush=True)
+    return {"shrinks": shrinks, "chunks": rows, "launches": launches}
+
+
 
 if __name__ == "__main__":
     main()

@@ -41,6 +41,7 @@ from physicl_tpu_torch.engine import (
     StepContext,
 )
 from physicl_tpu_torch.state import SimState
+from physicl_tpu_torch.ops.fused import clear_kernel_cache
 
 from physicl_tpu_torch import newton  # noqa: F401
 from physicl_tpu_torch import light  # noqa: F401
@@ -69,6 +70,7 @@ __all__ = [
     "ReduceMeasureStep",
     "StepContext",
     "SimState",
+    "clear_kernel_cache",
     "newton",
     "light",
     "polarization",

@@ -16,12 +16,12 @@ exception re-raised, ``get_state()``, ``sim.ts``, ``step.data`` and
   that reads ``len(sim.objects)`` or other host values runs it one
   iteration per chunk (host-exact mode).
 
-Between chunks the engine recycles a continuous source's dead slots and
-applies chunk-boundary population control
+Between chunks the engine recycles a continuous source's dead slots,
+shrinks the arena (``auto_shrink``, on by default as in the JAX package)
+and applies chunk-boundary population control
 (:mod:`physicl_tpu_torch.population`). Not ported yet, and refused with
-``NotImplementedError`` rather than run differently: the rest of population
-maintenance (mid-run injection/removal, ``auto_shrink``), checkpoints,
-device meshes and the spatial sort.
+``NotImplementedError`` rather than run differently: mid-run
+injection/removal, checkpoints, device meshes and the spatial sort.
 """
 
 from __future__ import annotations
@@ -698,8 +698,12 @@ class Simulation(threading.Thread):
 
     ``population_log`` lists the run's arena events: ``("capacity-stop",
     chunk index, iteration, spawn mark)`` where a continuous source finds
-    the arena full, and ``("recycle", chunk index, spawn mark before,
-    spawn mark after)`` where the engine compacts it.
+    the arena full, ``("recycle", chunk index, spawn mark before,
+    spawn mark after)`` where the engine compacts it, and ``("shrink",
+    chunk index, capacity before, capacity after)`` where ``auto_shrink``
+    cuts the capacity (under a quarter of the slots alive; not with a
+    user-set ``capacity``, a continuous source or a step that needs stable
+    slot ids).
 
     ``max_record_bytes`` caps one dispatch's stream buffer (trace
     positions, captured energies): by default the card's memory / 8 clamped
@@ -733,10 +737,9 @@ class Simulation(threading.Thread):
         self.fused_pipeline_depth = 4
         self.mesh = None
         self._max_record_bytes: Optional[int] = None
-        # population maintenance is not ported: the JAX default (True)
-        # would compact the population, so the port defaults to off and
-        # refuses True
-        self.auto_shrink = False
+        # compact and cut the capacity when under a quarter of the slots
+        # live (PopulationManager._shrink), as the JAX package does
+        self.auto_shrink = True
         self.spatial_sort = 0
         self.until_t = None
         for attr, val in kwargs.items():
@@ -872,19 +875,21 @@ class Simulation(threading.Thread):
     # -- planning ------------------------------------------------------------
 
     def _population_policies(self):
-        """``(recycle_ok, emit_per_iter)``: a continuous source (an emitter,
-        or a split step, which grows the population) recycles slots unless
-        a step needs stable slot ids (a trace's rows are slots); emission
-        then stops at capacity. (Shrinking, the JAX package's other
-        slot-moving policy, is not ported: ``auto_shrink=True`` is
-        refused.)"""
+        """``(shrink_ok, recycle_ok, emit_per_iter)``: the run shrinks its
+        arena (``auto_shrink``) unless the user sized the capacity, a step
+        needs stable slot ids (a trace's rows are slots) or a continuous
+        source runs; a continuous source (an emitter, or a split step, which
+        grows the population) recycles slots unless a step needs stable slot
+        ids, and emission then stops at capacity."""
         steps = list(self.steps.values())
         stable_ids = any(getattr(s, "needs_stable_ids", False)
                          for s in steps)
         emit_per_iter = sum(
             getattr(s, "n_per_step", 0) for s in steps
             if getattr(s, "needs_capacity_headroom", False))
-        return emit_per_iter > 0 and not stable_ids, emit_per_iter
+        shrink_ok = (bool(self.auto_shrink) and self.capacity is None
+                     and not stable_ids and emit_per_iter == 0)
+        return shrink_ok, emit_per_iter > 0 and not stable_ids, emit_per_iter
 
     def _ordered_steps(self) -> List[Step]:
         # insertion order, NOT index order (reference semantics)
@@ -903,8 +908,6 @@ class Simulation(threading.Thread):
             _not_ported("mesh= (multi-device runs)")
         if int(self.spatial_sort or 0):
             _not_ported("spatial_sort=")
-        if self.auto_shrink:
-            _not_ported("auto_shrink=True (population maintenance)")
 
     def _init_run_state(self) -> SimState:
         n0 = len(self._pending_objects) + sum(
@@ -1136,7 +1139,7 @@ class Simulation(threading.Thread):
                 raise FusedRefusal(*refusals[0], missing="; ".join(lines))
             raise NotImplementedError("; ".join(lines))
 
-        _, emit_per_iter = self._population_policies()
+        _, _, emit_per_iter = self._population_policies()
         exit_fn, exit_tier = self._exit_traced_fn(state)
         exit_traced = exit_fn is not None
         # provisional report before any step's apply runs: a step that

@@ -14,13 +14,14 @@ Statistical-parity details kept from the JAX package: the inclusive
 resample ``theta = 2*pi*U, phi = pi*U``. Options outside the ported slice
 are stored and refused by the fused prover with a named code.
 
-The generic step tier's ``apply`` is ported for the emitter, isotropic
-scatter, absorption (``ScatterDeleteStep`` and the independent
-``ScatterDeleteStepReference``), the measures, path tracing and population
-control (``ImportanceSplitStep``, ``WeightWindowStep``), each in the JAX
-package's operation and draw order (:class:`physicl_tpu_torch.engine.
-StepContext`). The anisotropic and energy-changing scatter steps and the
-refractive interface run on the fused tier only (``generic_missing``).
+Every step's generic-tier ``apply`` (the emitter, isotropic,
+Henyey-Greenstein, Rayleigh, tabulated or callable phase-function and
+Compton scatter, the refractive interface, absorption
+(``ScatterDeleteStep`` and the independent ``ScatterDeleteStepReference``),
+the measures, path tracing and population control (``ImportanceSplitStep``,
+``WeightWindowStep``)) follows the JAX package's operation and draw order
+(:class:`physicl_tpu_torch.engine.StepContext`), with libm
+transcendentals where the fused kernel uses its polynomial forms.
 """
 
 from __future__ import annotations
@@ -50,7 +51,8 @@ __all__ = [
     "E_from_wavelength", "wavelength_from_E",
     "planck_distribution", "planck_probability", "planck_phot_distribution",
     "planck_cdf", "planck_sample_E", "PlanckSampler", "poly_icdf_reference",
-    "generate_photon_state", "PhotonEmitterStep",
+    "generate_photon_state", "generate_photons", "generate_photons_from_E",
+    "PhotonEmitterStep",
     "layered_density", "voxel_density",
     "ScatterDeleteStep", "ScatterDeleteStepReference",
     "ScatterIsotropicStep",
@@ -62,10 +64,6 @@ __all__ = [
     "SpectrumMeasureStep", "MeshTallyStep",
     "ImportanceSplitStep", "WeightWindowStep",
 ]
-
-# the roadmap item that ports the generic apply these steps still lack
-_SCATTER_FAMILY_GENERIC = ("ROADMAP queue 1 item 4, next: the scatter "
-                           "family's generic apply")
 
 c = Measurement(np.double(299792458), "m**1 s**-1")
 h = Measurement(np.double(6.62607015e-34), "J**1 s**1")
@@ -365,6 +363,33 @@ def planck_sample_E(n, E_min, E_max, T, bins: int = 1000, key=None,
     # lower-edge bin convention, as planck_phot_distribution
     idx = torch.searchsorted(torch.from_numpy(cdf.astype(np.float32)), u)
     return E[idx.clamp(0, len(E) - 1).numpy()]
+
+
+def generate_photons_from_E(E) -> List[PhotonObject]:
+    """One +x photon at c per energy in ``E`` (the JAX package's and the
+    reference's host-object constructor)."""
+    return [PhotonObject(E=x, v=c * [1, 0, 0]) for x in E]
+
+
+def generate_photons(n, fn=None, min=0, max=0, bins=-1) -> List[PhotonObject]:
+    """``n`` host photon objects moving along +x at c with ``E = min + (max
+    - min) * sample``; the default sample is ``np.random.power(3)``. ``fn``
+    is a vectorised sampler ``fn(size)`` or the reference's zero-argument
+    scalar one (called once per photon). ``bins`` is accepted and unused,
+    as in the JAX package."""
+    n = int(n)
+    if fn is None:
+        samples = np.random.power(3, size=n)
+    else:
+        try:
+            samples = np.asarray(fn(n), np.double)
+            if samples.shape != (n,):
+                raise TypeError
+        except TypeError:
+            samples = np.array([fn() for _ in range(n)], np.double)
+    return [PhotonObject(E=min + (max - min) * samples[i],
+                         v=Measurement([c, 0, 0], "m**1 s**-1"))
+            for i in range(n)]
 
 
 def generate_photon_state(n, E, v=None, r=None, device=False,
@@ -986,11 +1011,9 @@ class ScatterIsotropicStep(Step):
             self._wl_base = None
             self._coef = folded
 
-    def apply(self, state, ctx):
-        if self._c is None:
-            self.setup(None)
-        dtype = state.r.dtype
-        norm = _dr_norm(state)
+    def _pcoll(self, state, norm):
+        """``A * n(r) * |dr|`` with the optional lambda^-4 weighting (the
+        scatter family's collision probability)."""
         pcoll = norm * self._coef
         if self._n_fn is not None:
             pcoll = pcoll * _field_value(
@@ -1000,6 +1023,14 @@ class ScatterIsotropicStep(Step):
             base = state.E * self._wl_base
             base2 = base * base
             pcoll = pcoll * (base2 * base2)
+        return pcoll
+
+    def apply(self, state, ctx):
+        if self._c is None:
+            self.setup(None)
+        dtype = state.r.dtype
+        norm = _dr_norm(state)
+        pcoll = self._pcoll(state, norm)
         u3 = ctx.uniform((3,) + tuple(norm.shape), dtype)
         theta = u3[0] * (2 * np.pi)
         phi = u3[1] * np.pi
@@ -1023,6 +1054,13 @@ ScatterSphericalStep = ScatterIsotropicStep
 # fused kernel's form (polynomial log2/exp2 and sines, no libm
 # transcendental); the libm form is the generic tier's.
 # ---------------------------------------------------------------------------
+
+
+def _const(v: float, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d tensor holding ``v`` in ``like``'s dtype on its device (a
+    divisor as a tensor: torch divides by a Python scalar on the card as a
+    product with its reciprocal, rounded twice)."""
+    return torch.tensor(v, dtype=like.dtype, device=like.device)
 
 
 def _scalar_like(x: torch.Tensor, v: float) -> torch.Tensor:
@@ -1398,10 +1436,48 @@ class ScatterHenyeyGreensteinStep(Step):
         self._coef = None
         self._wl_base = None
 
-    generic_missing = _SCATTER_FAMILY_GENERIC
-
-    # pcoll folding is the isotropic family's
+    # pcoll folding and the collision probability are the isotropic
+    # family's
     setup = ScatterIsotropicStep.setup
+    _pcoll = ScatterIsotropicStep._pcoll
+
+    def _cos_theta(self, u):
+        """The polar cosine from the uniform ``u`` (the HG inverse CDF; g =
+        0 the exact isotropic limit)."""
+        if abs(self.g) < 1e-7:
+            return 2.0 * u - 1.0
+        g = _const(self.g, u)
+        s = (1.0 - g * g) / (1.0 - g + 2.0 * g * u)
+        return ((1.0 + g * g - s * s) / (2.0 * g)).clamp(-1.0, 1.0)
+
+    def _rotated_velocity(self, state, scatter, cos_t, u_phi):
+        """Rotate each scattering photon's velocity by the polar cosine
+        ``cos_t`` relative to its direction and a uniform azimuth from
+        ``u_phi``, renormalised to |v| = c; returns ``(v, dv)``."""
+        sin_t = torch.sqrt((1.0 - cos_t * cos_t).clamp(min=0.0))
+        phi = u_phi * (2 * np.pi)
+        cos_p, sin_p = torch.cos(phi), torch.sin(phi)
+        v = state.v
+        inv_v = torch.rsqrt((v * v).sum(dim=0).clamp(min=1e-30))
+        d = tuple(v[i] * inv_v for i in range(3))
+        n_new = _hg_direction(d, cos_t, sin_t, cos_p, sin_p)
+        inv_n = torch.rsqrt(_sum3([x * x for x in n_new]))
+        c_val = _const(self._c, inv_n) * inv_n
+        v_new = torch.stack([x * c_val for x in n_new])
+        return (torch.where(scatter, v_new, v),
+                torch.where(scatter, v_new - v, torch.zeros_like(v)))
+
+    def apply(self, state, ctx):
+        if self._c is None:
+            self.setup(None)
+        norm = _dr_norm(state)
+        pcoll = self._pcoll(state, norm)
+        u3 = ctx.uniform((3,) + tuple(norm.shape), norm.dtype)
+        scatter = ((pcoll >= u3[0]) & (state.otype == OBJ_PHOTON)
+                   & state.alive)
+        cos_t = self._cos_theta(u3[1])
+        v, dv = self._rotated_velocity(state, scatter, cos_t, u3[2])
+        return state.replace(v=v, dv=dv)
 
 
 class ScatterPhaseFunctionStep(ScatterHenyeyGreensteinStep):
@@ -1409,9 +1485,11 @@ class ScatterPhaseFunctionStep(ScatterHenyeyGreensteinStep):
     collision model and rotation: ``phase_table=(mu_grid, pdf)`` (e.g.
     :func:`mie_phase_table`) becomes a piecewise-linear inverse CDF over
     ``table_bins`` (default 64) uniform-in-u knots that the kernel reads
-    from its auxiliary table. ``cos_theta_icdf=<callable>`` is stored and
-    refused by the prover (``phase-icdf-callable``: a Python callable cannot
-    be inlined into the CUDA kernel). Unknown options raise."""
+    from its auxiliary table; ``cos_theta_icdf=<callable>``, a torch
+    function ``u -> cos(theta)``, is recorded by the prover into an
+    expression program that the kernel evaluates at the draw (a callable
+    the recorder cannot take is refused, ``field-fn-callable``). Both are
+    clipped to [-1, 1]. Unknown options raise."""
 
     _OPTIONS = {"n", "A", "wavelength_dep_scattering", "variable_n",
                 "variable_n_fn", "cos_theta_icdf", "phase_table",
@@ -1439,6 +1517,12 @@ class ScatterPhaseFunctionStep(ScatterHenyeyGreensteinStep):
             self._knots = phase_knots(table[0], table[1], bins)
         super().__init__(**kwargs)
 
+    def _cos_theta(self, u):
+        if self._knots is not None:
+            return phase_icdf(u, *self._knots).clamp(-1.0, 1.0)
+        return _field_value(self._icdf, self._icdf(u), "cos_theta_icdf",
+                            u).clamp(-1.0, 1.0)
+
 
 class ScatterRayleighStep(ScatterHenyeyGreensteinStep):
     """Rayleigh scatter with the dipole phase function (3/8)(1 + cos^2
@@ -1450,6 +1534,9 @@ class ScatterRayleighStep(ScatterHenyeyGreensteinStep):
     def __init__(self, **kwargs):
         kwargs.pop("g", None)  # no anisotropy parameter: the phase is fixed
         super().__init__(**kwargs)
+
+    def _cos_theta(self, u):
+        return _rayleigh_cos_theta(u)
 
 
 class ScatterComptonStep(ScatterHenyeyGreensteinStep):
@@ -1543,6 +1630,51 @@ class ScatterComptonStep(ScatterHenyeyGreensteinStep):
         else:
             self._theta_e = self.theta_e
 
+    def apply(self, state, ctx):
+        if self._c is None or self._inv_mec2 is None:
+            self.setup(None)
+        norm = _dr_norm(state)
+        pcoll = self._pcoll(state, norm)
+        T = self.kn_max_tries
+        thermal = self._theta_e is not None and self._theta_e > 0.0
+        n_extra = 4 if thermal else 0
+        # u[0] the collision, u[1] the azimuth, (thermal: u[2:6] the
+        # electron,) then the Kahn tries' triples
+        u = ctx.uniform((2 + n_extra + 3 * T,) + tuple(norm.shape),
+                        norm.dtype)
+        triples = [(u[2 + n_extra + 3 * i], u[3 + n_extra + 3 * i],
+                    u[4 + n_extra + 3 * i]) for i in range(T)]
+        photon = (state.otype == OBJ_PHOTON) & state.alive
+        if thermal:
+            v = state.v
+            inv_v = torch.rsqrt((v * v).sum(dim=0).clamp(min=1e-30))
+            nhat = tuple(v[i] * inv_v for i in range(3))
+            E_new, n_new, alpha1, flux, accepted = _ic_thermal_scatter(
+                state.E, nhat, self._inv_mec2, self._theta_e, u[2:6],
+                lambda a1: _kn_cos_eta(a1, triples), u[1])
+            pcoll = pcoll * flux
+            if self.kn_cross_section:
+                pcoll = pcoll * _kn_sigma_ratio(alpha1)
+            scatter = (pcoll >= u[0]) & photon & accepted
+            c_val = _const(self._c, v)
+            v_new = torch.stack([x * c_val for x in n_new])
+            v_out = torch.where(scatter, v_new, v)
+            dv = torch.where(scatter, v_new - v, torch.zeros_like(v))
+        else:
+            alpha = state.E * _const(self._inv_mec2, state.E)
+            if self.kn_cross_section:
+                pcoll = pcoll * _kn_sigma_ratio(alpha)
+            cos_t, eta, accepted = _kn_cos_eta(alpha, triples)
+            scatter = (pcoll >= u[0]) & photon & accepted
+            v_out, dv = self._rotated_velocity(state, scatter, cos_t, u[1])
+            E_new = state.E / eta
+        if self.measure_deposition:
+            ctx.record(self, "t", state.t)
+            ctx.record(self, "dep", torch.where(
+                scatter, state.w * (state.E - E_new), 0.0).sum())
+        return state.replace(v=v_out, dv=dv,
+                             E=torch.where(scatter, E_new, state.E))
+
     def collect(self, sim, records) -> None:
         if not self.measure_deposition:
             return
@@ -1579,10 +1711,64 @@ class RefractiveInterfaceStep(Step):
         self.match_speed = bool(match_speed)
         self._c = None
 
-    generic_missing = _SCATTER_FAMILY_GENERIC
-
     def setup(self, sim) -> None:
         self._c = float(raw_code_value(c))
+
+    def apply(self, state, ctx):
+        if self._c is None:
+            self.setup(None)
+        ax = self.axis
+        r, dr, v = state.r, state.dr, state.v
+        loc = _const(self.loc, r)
+        z1 = r[ax]
+        z0 = z1 - dr[ax]
+        side0 = z0 >= loc
+        crossed = ((side0 != (z1 >= loc)) & (state.otype == OBJ_PHOTON)
+                   & state.alive)
+        inv_speed = torch.rsqrt((v * v).sum(dim=0).clamp(min=1e-30))
+        d = v * inv_speed  # the unit incident direction
+        # the media each crosser sees: from the lo side (going up) or not
+        going_up = ~side0
+        n_lo, n_hi = _const(self.n_lo, r), _const(self.n_hi, r)
+        nf = torch.where(going_up, n_lo, n_hi)
+        nt = torch.where(going_up, n_hi, n_lo)
+        cos_i = d[ax].abs().clamp(0.0, 1.0)
+        sin2_i = 1.0 - cos_i * cos_i
+        mu = nf / nt
+        sin2_t = mu * mu * sin2_i
+        tir = sin2_t > 1.0
+        cos_t = torch.sqrt((1.0 - sin2_t).clamp(0.0, 1.0))
+        rs = (nf * cos_i - nt * cos_t) / (nf * cos_i + nt * cos_t)
+        rp = (nf * cos_t - nt * cos_i) / (nf * cos_t + nt * cos_i)
+        R = torch.where(tir, 1.0, (0.5 * (rs * rs + rp * rp)).clamp(0.0,
+                                                                    1.0))
+        u = ctx.uniform(z1.shape, z1.dtype)
+        reflect = crossed & (u < R)
+        # the segment's intersection with the plane: r0 + s dr
+        dz = z1 - z0
+        s = (loc - z0) / torch.where(crossed, dz, torch.ones_like(dz))
+        r0 = r - dr
+        p = r0 + s * dr
+        seg = torch.sqrt((dr * dr).sum(dim=0))
+        # outgoing unit directions: the mirror, or Snell's bend
+        d_ref = d.clone()
+        d_ref[ax] = -d[ax]
+        sgn = torch.where(d[ax] >= 0, 1.0, -1.0).to(d.dtype)
+        d_tr = mu * d
+        d_tr[ax] = sgn * cos_t
+        d_tr = d_tr * torch.rsqrt((d_tr * d_tr).sum(dim=0).clamp(min=1e-30))
+        d_out = torch.where(reflect, d_ref, d_tr)
+        if self.match_speed:
+            speed_out = _const(self._c, r) / torch.where(reflect, nf, nt)
+        else:
+            speed_out = 1.0 / inv_speed
+        # the rest of the step's time, at the outgoing speed
+        rem = (1.0 - s) * seg * speed_out * inv_speed
+        r_new = p + d_out * rem
+        v_new = d_out * speed_out
+        return state.replace(r=torch.where(crossed, r_new, r),
+                             v=torch.where(crossed, v_new, v),
+                             dr=torch.where(crossed, r_new - r0, dr))
 
 
 class ScatterSignMeasureStep(MeasureStep):

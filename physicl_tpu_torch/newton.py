@@ -194,7 +194,7 @@ def _field_fn(field, name):
     callable ``(rx, ry, rz) -> 3 arrays``; None is no field. Returns
     ``(callable over the position planes or None, the constant as a
     3-tuple or None)``: the prover folds a constant into the kernel's plan
-    and refuses a callable."""
+    and records a callable."""
     if field is None:
         return None, None
     if callable(field):
@@ -224,7 +224,10 @@ class LorentzForceStep(Step):
 
     ``E_field`` / ``B_field``: constant 3-vectors (Measurements or raw code
     units), or torch callables ``(rx, ry, rz) -> 3-tuple``, which the fused
-    prover refuses (``field-fn-callable``) and the generic tier evaluates.
+    prover records into one expression program per component (a Python
+    number is a constant one) that the kernel evaluates at the particle's
+    position; one the recorder cannot take is refused
+    (``field-fn-callable``) and runs under ``fuse="off"``.
     ``q_over_m``: one charge-to-mass ratio for the species, or None to read
     per-particle ``q`` / ``m`` (:class:`ChargedObject`; without objects
     declaring them the fused prover refuses, ``lorentz-per-particle``, and

@@ -35,10 +35,10 @@ build_log = ""         # nvcc's output (``-Xptxas -v`` register/spill report)
 # grid pointers lead the plan, the user-program pointer ends it, every
 # other member is 4 bytes wide, so both sides lay them out alike (load()
 # checks the sizes agree)
-MAX_OPS = 16
-MAX_AXES = 16
-MAX_FIELDS = 8
-MAX_PROG = 64
+MAX_OPS = 32
+MAX_AXES = 32
+MAX_FIELDS = 16
+MAX_PROG = 256
 ROT_STEPS = 27  # the azimuth bisection's rotation table, k = 0 .. 26
 _ci, _cf = ctypes.c_int, ctypes.c_float
 
@@ -51,7 +51,8 @@ class OpStruct(ctypes.Structure):
                 ("emit_r", _cf * 3), ("emit_v", _cf * 3),
                 ("ax0", _ci), ("n_ax", _ci),
                 ("nf", _ci), ("af", _ci), ("capture", _ci),
-                ("w_min", _cf), ("w_sur", _cf), ("box", _cf * 6)]
+                ("w_min", _cf), ("w_sur", _cf), ("box", _cf * 6),
+                ("fld", _ci * 6)]
 
 
 class AxisStruct(ctypes.Structure):

@@ -1,17 +1,18 @@
 """Particle compaction: survivors to the front of the slot arena.
 
-Counterpart of the JAX package's ``ops/compaction.py:compact`` (plain tensor
-work there too: a cumsum and a scatter, no hand-written kernel). The engine
-compacts to recycle the dead slots of a continuous source's arena.
+Counterpart of the JAX package's ``ops/compaction.py`` ``compact`` and
+``compact_shrink`` (plain tensor work there too: a cumsum and a scatter, no
+hand-written kernel). The engine compacts to recycle the dead slots of a
+continuous source's arena, and shrinks the arena when few survive.
 """
 
 from __future__ import annotations
 
 import torch
 
-from physicl_tpu_torch.state import SimState
+from physicl_tpu_torch.state import SimState, pad_capacity
 
-__all__ = ["compact"]
+__all__ = ["compact", "compact_shrink"]
 
 
 def compact(state: SimState) -> SimState:
@@ -42,4 +43,27 @@ def compact(state: SimState) -> SimState:
         w=scatter_last(state.w),
         n_spawned=n_alive.to(torch.int32),
         extras={k: scatter_last(v) for k, v in state.extras.items()},
+    )
+
+
+def compact_shrink(state: SimState, n_alive: int) -> SimState:
+    """Compact, then cut the capacity to the padded survivor count
+    (``pad_capacity(n_alive)``, a host-side decision: the capacity is a
+    shape). Returns ``state`` itself where no shrink is possible."""
+    new_cap = pad_capacity(max(int(n_alive), 1))
+    if new_cap >= state.capacity:
+        return state
+    packed = compact(state)
+    C = state.capacity
+
+    def cut(x: torch.Tensor) -> torch.Tensor:
+        if x.ndim == 0 or x.shape[-1] != C:
+            return x
+        return x[..., :new_cap].contiguous()
+
+    return packed.replace(
+        r=cut(packed.r), dr=cut(packed.dr), v=cut(packed.v),
+        dv=cut(packed.dv), a=cut(packed.a), E=cut(packed.E),
+        alive=cut(packed.alive), otype=cut(packed.otype), w=cut(packed.w),
+        extras={k: cut(v) for k, v in packed.extras.items()},
     )

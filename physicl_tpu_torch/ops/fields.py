@@ -43,8 +43,8 @@ INS_CONST, INS_VAR, INS_NEG, INS_ADD, INS_SUB, INS_MUL, INS_DIV, INS_POW, \
 KIND_CODES = {"expr": 1, "layered": 2, "voxel": 3}
 LAYER_AXES = {"x": 0, "y": 1, "z": 2, "r": 3}
 
-MAX_PROG = 64      # postfix instructions over all expression fields of a plan
-MAX_DEPTH = 8      # evaluation stack of one expression
+MAX_PROG = 256     # postfix instructions over all expression fields of a plan
+MAX_DEPTH = 16     # evaluation stack of one expression
 MAX_IPOW = 1 << 24  # |integer exponent| (held exactly as a float32)
 MAX_VOXELS = 2 ** 31 - 1  # the kernel's flat voxel index is int32
 

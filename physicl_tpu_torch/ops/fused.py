@@ -97,10 +97,10 @@ SEQ_VARIANTS = {("kin", "iso", "sign"): 64, ("kin", "del", "sign"): 65}
 # (csrc/fused_transport.cu: seq_smem_bytes)
 MAX_SMEM_BYTES = 232_448
 SEQ_SMEM_PER_ITER = 32
-MAX_OPS = 16
+MAX_OPS = 32
 MAX_EXTRAS = 8    # extras planes (1h's Stokes and frame rows, otype, qm)
-MAX_AXES = 16     # crossing planes over all cross ops of a plan
-MAX_FIELDS = 8    # distinct field callables of a plan
+MAX_AXES = 32     # crossing planes over all cross ops of a plan
+MAX_FIELDS = 16   # distinct field callables of a plan
 _NAN = float("nan")
 
 
@@ -156,8 +156,10 @@ class _Op:
     fluor: tuple = ()
     g: float = 0.0                  # hg: the anisotropy <cos theta>
     # phase: the tabulated inverse CDF's knots (light.phase_knots), float32
-    # segment starts m0 and slopes dm over uniform-in-u segments
+    # segment starts m0 and slopes dm over uniform-in-u segments; or a
+    # recorded inverse CDF u -> cos theta (a field callable over ("u",))
     phase_knots: Optional[tuple] = None
+    phase_fn: Optional[Callable] = None
     inv_mec2: float = 0.0           # compton: 1 / (m_e c^2) in code units
     kn_xsec: bool = False           # compton: pcoll *= sigma_KN / sigma_T
     kn_tries: int = 12              # compton: Kahn tries
@@ -173,6 +175,10 @@ class _Op:
     qm_plane: int = -1
     e_const: tuple = ()
     b_const: tuple = ()
+    # lorentz: recorded fields E(r) / B(r), one field callable over (r0,
+    # r1, r2) per component (() = the constant, or none)
+    e_fns: tuple = ()
+    b_fns: tuple = ()
     after_update: bool = True
     # emit: a polarized source's Stokes vector and frame (() = unpolarized:
     # zeroed rows)
@@ -186,6 +192,16 @@ class _Op:
     # columns); reduce: cols = (n_col or -1, first float column); t and dt
     # from the schedule rows of ``after_update``
     prog: object = None
+
+    @property
+    def fld_fns(self) -> tuple:
+        """The kernel's ``Op.fld`` callables: a Lorentz op's E and B
+        components, a phase op's recorded inverse CDF first; None where the
+        op reads its constant or table."""
+        if self.kind == "lorentz":
+            return (tuple(self.e_fns) or (None,) * 3) + (
+                tuple(self.b_fns) or (None,) * 3)
+        return (self.phase_fn,) + (None,) * 5
 
 
 @dataclasses.dataclass
@@ -236,9 +252,10 @@ class FusedPlan:
 
     @property
     def has_fields(self) -> bool:
-        """The plan evaluates n(r) or A(E) fields (the kernel's field
-        instantiation runs it)."""
+        """The plan evaluates n(r), A(E), recorded E/B or inverse-CDF
+        fields (the kernel's field instantiation runs it)."""
         return any(op.n_fn is not None or op.a_fn is not None
+                   or any(fn is not None for fn in op.fld_fns)
                    for op in self.ops)
 
     @property
@@ -615,36 +632,46 @@ def _bisect_phi_sincos(u, a, b, iters: int = POLC_ITERS):
     return sin_p, cos_p, s2_f, c2_f
 
 
+def _field_index(ops):
+    """The distinct field specs the ops use, in first-use order (an op's
+    n(r), A(E), then its ``fld_fns``), and a map from each spec's id to its
+    index."""
+    specs, index = [], {}
+    for op in ops:
+        for fn in (op.n_fn, op.a_fn) + op.fld_fns:
+            if fn is None:
+                continue
+            spec = getattr(fn, "spec", None)
+            if spec is None:
+                raise NotImplementedError("a Python field callable cannot "
+                                          "be inlined into the kernel")
+            if id(spec) not in index:
+                index[id(spec)] = len(specs)
+                specs.append(spec)
+    return specs, index
+
+
+def _slot(index, fn) -> int:
+    return -1 if fn is None else index[id(fn.spec)]
+
+
 def plan_fields(ops):
     """The distinct field specs the ops use, in first-use order (one kernel
     field each: ops sharing a callable share its entry and its device
     grid), and each op's ``(n field, A field)`` indices (-1 = none)."""
-    specs, index, per_op = [], {}, []
-
-    def slot(fn):
-        if fn is None:
-            return -1
-        spec = getattr(fn, "spec", None)
-        if spec is None:
-            raise NotImplementedError("a Python field callable cannot be "
-                                      "inlined into the kernel")
-        if id(spec) not in index:
-            index[id(spec)] = len(specs)
-            specs.append(spec)
-        return index[id(spec)]
-
-    for op in ops:
-        per_op.append((slot(op.n_fn), slot(op.a_fn)))
-    return specs, per_op
+    specs, index = _field_index(ops)
+    return specs, [(_slot(index, op.n_fn), _slot(index, op.a_fn))
+                   for op in ops]
 
 
 def _check_plan(plan: FusedPlan) -> None:
     for op in plan.ops:
         if op.kind not in OP_CODES:
             raise NotImplementedError(f"fused op {op.kind!r} is not ported")
-        if op.kind == "phase" and op.phase_knots is None:
+        if op.kind == "phase" and (op.phase_knots is None) == (
+                op.phase_fn is None):
             raise ValueError("a phase op needs its knot table "
-                             "(light.phase_knots)")
+                             "(light.phase_knots) or a recorded inverse CDF")
         if op.kind == "compton" and op.kn_tries < 1:
             raise ValueError("compton needs kn_tries >= 1")
     if len(plan.ops) > MAX_OPS:
@@ -1101,7 +1128,10 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                     u = rng.uniform()
                     cu, pu = rng.uniform_pair()
                     scatter = (pcoll >= u) & ph_alive()
-                if op.kind == "phase":
+                if op.kind == "phase" and op.phase_fn is not None:
+                    cos_t = op.phase_fn(cu).to(torch.float32).clamp(-1.0,
+                                                                    1.0)
+                elif op.kind == "phase":
                     cos_t = lt.phase_icdf(cu, *op.phase_knots).clamp(-1.0,
                                                                     1.0)
                 elif op.kind == "rayl":
@@ -1333,11 +1363,17 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                 else:
                     h = _f32(0.5 * op.qm).to(dev) * dt_l
                 v = [f[_VX], f[_VY], f[_VZ]]
-                if op.e_const:
-                    ev = [_f32(x).to(dev) * h for x in op.e_const]
+                # a recorded field at the particle's position, else the
+                # constant
+                E_val = ([fn(f[_RX], f[_RY], f[_RZ]) for fn in op.e_fns]
+                         or [_f32(x).to(dev) for x in op.e_const])
+                B_val = ([fn(f[_RX], f[_RY], f[_RZ]) for fn in op.b_fns]
+                         or [_f32(x).to(dev) for x in op.b_const])
+                if E_val:
+                    ev = [x * h for x in E_val]
                     v = [v[d] + ev[d] for d in range(3)]
-                if op.b_const:
-                    tx, ty, tz = (_f32(x).to(dev) * h for x in op.b_const)
+                if B_val:
+                    tx, ty, tz = (x * h for x in B_val)
                     vx, vy, vz = v
                     vpx = vx + (vy * tz - vz * ty)
                     vpy = vy + (vz * tx - vx * tz)
@@ -1346,7 +1382,7 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                     v = [vx + s2 * (vpy * tz - vpz * ty),
                          vy + s2 * (vpz * tx - vpx * tz),
                          vz + s2 * (vpx * ty - vpy * tx)]
-                if op.e_const:
+                if E_val:
                     v = [v[d] + ev[d] for d in range(3)]
                 # alive non-photons; a photon keeps v and gets dv = 0
                 push = alive if is_ph is None else alive & ~is_ph
@@ -1466,7 +1502,7 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
     from physicl_tpu_torch.ops._build import PlanStruct
 
     ps = PlanStruct()
-    specs, per_op = plan_fields(plan.ops)
+    specs, index = _field_index(plan.ops)
     aux, prog, grids = [], [], []
     user_words = []  # kernel 1i's programs, concatenated
     n_user = 0
@@ -1477,7 +1513,8 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
         o.col0 = op.cols[0] if op.cols else -1
         o.col1 = op.cols[1] if len(op.cols) > 1 else -1
         o.coef, o.wl_base, o.c_val = op.coef, op.wl_base or 0.0, op.c_val
-        o.nf, o.af = per_op[i]
+        o.nf, o.af = _slot(index, op.n_fn), _slot(index, op.a_fn)
+        o.fld[:] = [_slot(index, fn) for fn in op.fld_fns]
         if op.kind in ("iso", "hg", "rayl", "phase"):
             o.flag = int(op.wl_base is not None)
         if op.kind == "del":
@@ -1494,7 +1531,7 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
             o.box[:4] = [float(one - gg * gg), float(one - gg),
                          float(gg + gg), float(one + gg * gg)]
             o.flag |= 2 * int(abs(op.g) < 1e-7)  # the isotropic limit
-        elif op.kind == "phase":
+        elif op.kind == "phase" and op.phase_knots is not None:
             m0, dm = op.phase_knots
             o.icdf, o.emit_n = sum(a.size for a in aux), m0.size
             aux += [m0, dm]
@@ -1530,7 +1567,8 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
             # LorentzFlag: E 1, B 2, the dt after the update 4; the
             # species-wide 0.5 q/m rounded to float32 (jnp.float32(0.5 *
             # qm)), or the q/m plane's index among the extras
-            o.flag = (int(bool(op.e_const)) | 2 * int(bool(op.b_const))
+            o.flag = (int(bool(op.e_const or op.e_fns))
+                      | 2 * int(bool(op.b_const or op.b_fns))
                       | 4 * int(op.after_update))
             o.coef = 0.5 * op.qm
             o.col0 = op.qm_plane - _NF if op.qm_plane >= 0 else -1
@@ -1768,6 +1806,15 @@ def fused_chunk(packed: torch.Tensor, sched: torch.Tensor, seed: int,
         out = packed
     return (out, *fused_transport(packed, out, sched, seed, k_act, plan,
                                   emit_starts))
+
+
+def clear_kernel_cache() -> None:
+    """The JAX package's ``clear_kernel_cache`` drops compiled chunks keyed
+    on a snapshot of the user callables' state, so that a callable reading
+    a mutated module global is traced again. The port keeps no such cache:
+    every ``start()`` records its callables and builds its plan afresh, and
+    the kernel libraries depend only on the sources. So there is nothing
+    to drop; the function is kept for the JAX package's public surface."""
 
 
 def pack_state(state: SimState, extras: tuple = ()) -> torch.Tensor:

@@ -101,11 +101,10 @@ _JAX_USER_REASONS = frozenset({
 def is_kernel_limit(code: str) -> bool:
     """True for a refusal code that only the port's kernel has (the JAX
     kernel runs the plan): ``op-count``, ``cross-planes``, ``field-count``,
-    ``field-expr-*``, ``voxel-grid-size``, ``field-fn-callable`` (a
-    callable the recorder cannot take), ``phase-icdf-callable``,
-    ``user-program-*`` and ``*-op-unsupported``. Such a refusal does not
-    fall back to the generic tier; ``Simulation(fuse="off")`` asks for
-    that tier explicitly."""
+    ``field-expr-*``, ``field-fn-callable`` (a callable the recorder
+    cannot take), ``user-program-*`` and ``*-op-unsupported``. Such a
+    refusal does not fall back to the generic tier;
+    ``Simulation(fuse="off")`` asks for that tier explicitly."""
     prefix, _, reason = code.partition("-")
     return not (code in _JAX_CODES
                 or (prefix in ("elementwise", "reduce", "kernelstep")
@@ -317,6 +316,15 @@ class FusedProvider:
         self._last_packed = None
         self._slots = None  # arange(capacity) on the device, for retyping
         self._full = False  # the last scheduled emission did not fit
+
+    def invalidate(self) -> None:
+        """The capacity changed (a shrink): drop the packed-state cache and
+        re-read the clock, counts and capacity from the state at the next
+        dispatch, which launches at the new capacity."""
+        self._synced = False
+        self._last_state = None
+        self._last_packed = None
+        self._slots = None
 
     def resync(self, state: SimState, counts=None) -> None:
         """Re-read the alive count and spawn mark after an out-of-band state
@@ -720,24 +728,31 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
     # in the entry: its id keys it)
     recorded_fields = {}
 
-    def _field(step, fn, label, varnames):
+    def _field(step, fn, label, varnames, ncomp=1):
         """The kernel-evaluable field callable ``fn``, or a refusal. A
-        torch callable is recorded into an expression program."""
+        torch callable is recorded into an expression program (with
+        ``ncomp=3``, three: a tuple of field callables comes back)."""
         if fn is None:
             return None
         what = f"{type(step).__name__}'s {label}"
         spec = getattr(fn, "spec", None)
         if spec is None and callable(fn):
-            key = (id(fn), varnames)
+            key = (id(fn), varnames, ncomp)
             if key not in recorded_fields:
                 try:
                     recorded_fields[key] = (fn, RC.record_field(
-                        fn, varnames, what))
+                        fn, varnames, what, ncomp=ncomp))
                 except RC.Refused as e:
-                    _no(e.code, f"{e.detail}; pass a C-expression string"
-                        + (" over E[gid]" if varnames == ("E",) else ", "
-                           "light.layered_density or light.voxel_density"))
+                    _no(e.code, f"{e.detail}; " + {
+                        ("E",): "pass a C-expression string over E[gid]",
+                        ("u",): "pass phase_table=(mu_grid, pdf)",
+                    }.get(varnames, "pass a C-expression string, "
+                          "light.layered_density or light.voxel_density"
+                          if ncomp == 1 else "pass a constant 3-vector"))
             fn = recorded_fields[key][1]
+            if ncomp > 1:
+                return tuple(_field(step, c, f"{label}[{i}]", varnames)
+                             for i, c in enumerate(fn))
             spec = fn.spec
         # layered and voxel fields are functions of position only
         if spec is None or spec.get("vars", _R) != varnames:
@@ -755,9 +770,12 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
                 _no("field-expr-length", f"{what} needs an evaluation stack "
                     f"of {spec['depth']} > {FL.MAX_DEPTH}")
         if spec["kind"] == "voxel" and spec["flat"].size > FL.MAX_VOXELS:
-            _no("voxel-grid-size", f"{what} has {spec['flat'].size} "
+            # the JAX prover's code where its kernel cannot hold a grid
+            # (physicl_tpu/ops/pipeline.py:1156-1172): the generic tier
+            # runs the plan
+            _no("field-fn-gather", f"{what} has {spec['flat'].size} "
                 f"voxels; the kernel's flat index is int32 (at most "
-                f"{FL.MAX_VOXELS})")
+                f"{FL.MAX_VOXELS}); the generic step tier runs the plan")
         return fn
 
     if state.r.dtype != torch.float32:
@@ -920,12 +938,12 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
                 # q/m = 0 and no fields leave v as it is and dv = 0
                 ops.append(F._Op("lorentz", after_update=update_seen))
                 continue
-            for fn, const, name in ((s._e_fn, s._e_const, "E_field"),
-                                    (s._b_fn, s._b_const, "B_field")):
-                if fn is not None and const is None:
-                    _no("field-fn-callable", f"LorentzForceStep's {name} is "
-                        "a Python callable, which cannot be inlined into "
-                        "the kernel; pass a constant 3-vector")
+            # a callable field: recorded, one program per component, and
+            # evaluated at the particle's position
+            e_fns = (_field(s, s._e_fn, "E_field", _R, ncomp=3)
+                     if s._e_const is None else None) or ()
+            b_fns = (_field(s, s._b_fn, "B_field", _R, ncomp=3)
+                     if s._b_const is None else None) or ()
             qm_plane = -1
             if s.q_over_m is None:  # per-particle q/m: a derived plane
                 if "qm" not in extra_names:
@@ -933,8 +951,8 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
                 qm_plane = F._NF + extra_names.index("qm")
             ops.append(F._Op("lorentz", qm=s.q_over_m or 0.0,
                              qm_plane=qm_plane, e_const=s._e_const or (),
-                             b_const=s._b_const or (),
-                             after_update=update_seen))
+                             b_const=s._b_const or (), e_fns=e_fns,
+                             b_fns=b_fns, after_update=update_seen))
         elif type(s) is ScatterDeleteStep:
             n_fn = _field(s, s._n_fn, "variable_n_fn", _R)
             a_fn = _field(s, s._a_fn, "A_fn", ("E",))
@@ -957,18 +975,17 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
             kind = {ScatterHenyeyGreensteinStep: "hg",
                     ScatterRayleighStep: "rayl",
                     ScatterPhaseFunctionStep: "phase"}[type(s)]
-            if kind == "phase" and s._knots is None:
-                _no("phase-icdf-callable", "ScatterPhaseFunctionStep("
-                    "cos_theta_icdf=<callable>): a Python callable cannot "
-                    "be inlined into the CUDA kernel; pass phase_table="
-                    "(mu_grid, pdf)")
+            # a callable inverse CDF u -> cos theta: recorded, and
+            # evaluated at the draw where the table route reads its knots
+            phase_fn = (_field(s, s._icdf, "cos_theta_icdf", ("u",))
+                        if kind == "phase" and s._knots is None else None)
             s.setup(sim)
             n_fn = _field(s, s._n_fn, "variable_n_fn", _R)
             ops.append(F._Op(kind, coef=s._coef, wl_base=s._wl_base,
                              c_val=s._c, n_fn=n_fn,
                              g=s.g if kind == "hg" else 0.0,
                              phase_knots=s._knots if kind == "phase"
-                             else None))
+                             else None, phase_fn=phase_fn))
         elif type(s) is ScatterComptonStep:
             s.setup(sim)
             n_fn = _field(s, s._n_fn, "variable_n_fn", _R)

@@ -1048,14 +1048,18 @@ def record_kernelstep(fn: Callable, otype_plane: int = -1,
 # -- callable scalar fields (the expression program of ops/fields.py) ----------
 
 
-def record_field(fn: Callable, varnames: Tuple[str, ...], label: str):
+def record_field(fn: Callable, varnames: Tuple[str, ...], label: str,
+                 ncomp: int = 1):
     """Record a torch callable ``fn(*varnames)`` (``variable_n_fn(r0, r1,
-    r2)``, ``A_fn(E)``) into the postfix program of
-    :func:`physicl_tpu_torch.ops.fields.compile_expr`; returns a callable
-    with that ``spec`` (its twin runs the program). Raises
-    :class:`Refused`: ``field-fn-callable`` where the callable cannot be
-    recorded, ``field-expr-unsupported`` for an operation the expression
-    program lacks."""
+    r2)``, ``A_fn(E)``, ``cos_theta_icdf(u)``, or with ``ncomp=3`` a
+    ``LorentzForceStep`` field returning three components) into postfix
+    programs of :func:`physicl_tpu_torch.ops.fields.compile_expr`; returns
+    a callable with that ``spec`` (its twin runs the program), or with
+    ``ncomp=3`` a tuple of three such callables, one per component (a
+    component that is a Python number is a one-instruction constant
+    program). Raises :class:`Refused`: ``field-fn-callable`` where the
+    callable cannot be recorded, ``field-expr-unsupported`` for an
+    operation the expression program lacks."""
     from physicl_tpu_torch.ops import fields as FL
 
     codes = {U_NEG: FL.INS_NEG, U_ABS: FL.INS_FABS, U_SQRT: FL.INS_SQRT,
@@ -1069,23 +1073,31 @@ def record_field(fn: Callable, varnames: Tuple[str, ...], label: str):
         examples, inputs = _plane_inputs(
             n, [(i, torch.float32) for i in range(len(varnames))])
 
-        def body(*a):
-            out = fn(*a)
+        def as_plane(out):
             if not isinstance(out, torch.Tensor):
                 out = torch.full((n,), float(out))
-            return [out]
+            return out
 
-        gm = _traced(body, examples, label, "field-fn-callable")
+        def body(*a):
+            out = fn(*a)
+            if ncomp == 1:
+                return [as_plane(out)]
+            comps = (tuple(out) if isinstance(out, (tuple, list))
+                     or (isinstance(out, torch.Tensor) and out.dim() == 2)
+                     else (out,))
+            if len(comps) != ncomp:
+                raise _Contract(f"{label} returns {len(comps)} components, "
+                                f"not {ncomp}")
+            return [as_plane(c) for c in comps]
+
+        try:
+            gm = _traced(body, examples, label, "field-fn-callable")
+        except _Contract as e:
+            raise Refused("field-fn-callable", str(e)) from None
         ssa = _SSA()
         tr = _Translator(gm, inputs, n, ssa)
-        (node,) = tr.run()
-        cs = tr.comps_of(node)
-        if len(cs) != 1:
-            raise Refused("field-fn-callable", f"{label} returns 3 "
-                          "components")
-        prog = []
 
-        def emit(v):
+        def emit(v, prog):
             code, args, y = ssa.defs[v]
             if code == U_LD:
                 prog.append((FL.INS_VAR, float(y)))
@@ -1093,38 +1105,52 @@ def record_field(fn: Callable, varnames: Tuple[str, ...], label: str):
                 prog.append((FL.INS_CONST, y))
             elif code == U_RECIP:
                 prog.append((FL.INS_CONST, 1.0))
-                emit(args[0])
+                emit(args[0], prog)
                 prog.append((FL.INS_DIV, 0.0))
             elif code == U_IPOW:
-                emit(args[0])
+                emit(args[0], prog)
                 prog.append((FL.INS_IPOW, float(y)))
             elif code in codes:
                 for x in args:
-                    emit(x)
+                    emit(x, prog)
                 prog.append((codes[code], 0.0))
             else:
                 name = {v: k for k, v in globals().items()
                         if k.startswith("U_") and isinstance(v, int)}[code]
                 raise Refused("field-expr-unsupported", f"{label}: the "
                               f"expression program has no {name[2:]}")
-        emit(cs[0])
-        return tuple(prog)
+            return prog
+
+        progs = []
+        for node in tr.run():
+            cs = tr.comps_of(node)
+            if len(cs) != 1:
+                raise Refused("field-fn-callable", f"{label} returns "
+                              f"{len(cs)} components where it should "
+                              "return one per slot")
+            progs.append(tuple(emit(cs[0], [])))
+        return tuple(progs)
 
     try:
-        prog = _same_at_sizes(record, label)
+        progs = _same_at_sizes(record, label)
     except Refused as e:
         if e.code == "field-expr-unsupported":
             raise
         raise Refused("field-fn-callable", e.detail) from None
-    spec = {"kind": "expr", "prog": prog, "depth": FL._depth(prog),
-            "vars": tuple(varnames), "error": None,
-            "text": f"<recorded {getattr(fn, '__name__', 'callable')}>"}
+    name = getattr(fn, "__name__", "callable")
+    out = []
+    for i, prog in enumerate(progs):
+        spec = {"kind": "expr", "prog": prog, "depth": FL._depth(prog),
+                "vars": tuple(varnames), "error": None,
+                "text": f"<recorded {name}" + (f"[{i}]>" if ncomp > 1
+                                               else ">")}
 
-    def recorded(*args):
-        return FL.run_program(spec["prog"], args)
+        def recorded(*args, _spec=spec):
+            return FL.run_program(_spec["prog"], args)
 
-    recorded.spec = spec
-    return recorded
+        recorded.spec = spec
+        out.append(recorded)
+    return out[0] if ncomp == 1 else tuple(out)
 
 
 # -- the plain version ------------------------------------------------------------

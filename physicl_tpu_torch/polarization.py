@@ -27,13 +27,13 @@ theta from the exact conditional ``1 + a cos2phi + b sin2phi`` (``a = r
 Q``, ``b = r U``, ``r = -s2 / (kappa - s2)``) by monotone bisection; no
 weight changes.
 
-The steps run on the fused tier: ops ``"pol"``, ``"polc"`` and
+The steps run on the fused tier as ops ``"pol"``, ``"polc"`` and
 ``"polmeas"`` of :mod:`physicl_tpu_torch.ops.fused`, whose CUDA kernel
 keeps the six Stokes and frame rows as extras planes and writes them back
-(``FusedPlan.extras_writeback``). Their ``apply`` is the generic step tier,
-which is not ported: it raises, naming it. :func:`_bisect_phi` and
-:func:`_apply_phase_matrix` are the generic tier's plain torch forms of the
-azimuth inversion and the phase-matrix update, kept as references.
+(``FusedPlan.extras_writeback``), and on the generic step tier through
+their ``apply``: :func:`_bisect_phi` and :func:`_apply_phase_matrix` are
+that tier's torch forms of the azimuth inversion and the phase-matrix
+update, with libm sines where the kernel uses its polynomial forms.
 """
 
 from __future__ import annotations
@@ -41,10 +41,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from physicl_tpu_torch.engine import MeasureStep, Step, _generic_missing
+from physicl_tpu_torch.engine import MeasureStep, Step
 from physicl_tpu_torch.light import (ScatterIsotropicStep, _as_code,
-                                     _compile_variable_n, _torch_device,
+                                     _compile_variable_n, _dr_norm,
+                                     _kn_cos_eta, _kn_sigma_ratio,
+                                     _rayleigh_cos_theta, _torch_device,
                                      generate_photon_state)
+from physicl_tpu_torch.state import OBJ_PHOTON
 from physicl_tpu_torch.units import raw_code_value
 
 __all__ = [
@@ -232,11 +235,6 @@ def _apply_phase_matrix(v, stokes, pol_ref, scatter, cos_t, u_phi, kappa,
     return v_out, dv, st_out, pr_out
 
 
-# the roadmap item that ports the generic apply of the polarized steps
-_POLARIZED_GENERIC = ("ROADMAP queue 1 item 4, next: the polarized steps' "
-                      "generic apply")
-
-
 def _check_planes(state, names=("stokes", "pol_ref")):
     if any(nm not in state.extras for nm in names):
         raise ValueError(_MISSING_PLANES_MSG)
@@ -281,12 +279,24 @@ class ScatterPolarizedRayleighStep(Step):
 
     # pcoll folding is the scalar scatter family's
     setup = ScatterIsotropicStep.setup
-
-    generic_missing = _POLARIZED_GENERIC
+    _pcoll = ScatterIsotropicStep._pcoll
 
     def apply(self, state, ctx):
+        if self._c is None:
+            self.setup(None)
         _check_planes(state)
-        _generic_missing(self)
+        norm = _dr_norm(state)
+        pcoll = self._pcoll(state, norm)
+        u3 = ctx.uniform((3,) + tuple(norm.shape), norm.dtype)
+        scatter = ((pcoll >= u3[0]) & (state.otype == OBJ_PHOTON)
+                   & state.alive)
+        # theta from the dipole marginal (kappa = 2, the Thomson limit of
+        # the Fano matrix); phi | theta in the phase-matrix core
+        v, dv, st, pr = _apply_phase_matrix(
+            state.v, state.extras["stokes"], state.extras["pol_ref"],
+            scatter, _rayleigh_cos_theta(u3[1]), u3[2], 2.0, self._c)
+        return state.replace(v=v, dv=dv, extras={
+            **state.extras, "stokes": st, "pol_ref": pr})
 
 
 class ScatterPolarizedComptonStep(Step):
@@ -349,11 +359,37 @@ class ScatterPolarizedComptonStep(Step):
             raise ValueError("mec2 must be positive")
         self._inv_mec2 = 1.0 / float(mec2)
 
-    generic_missing = _POLARIZED_GENERIC
+    _pcoll = ScatterIsotropicStep._pcoll
 
     def apply(self, state, ctx):
+        if self._c is None or self._inv_mec2 is None:
+            self.setup(None)
         _check_planes(state)
-        _generic_missing(self)
+        norm = _dr_norm(state)
+        pcoll = self._pcoll(state, norm)
+        alpha = state.E * torch.tensor(self._inv_mec2, dtype=norm.dtype,
+                                       device=norm.device)
+        if self.kn_cross_section:
+            pcoll = pcoll * _kn_sigma_ratio(alpha)
+        T = self.kn_max_tries
+        u = ctx.uniform((2 + 3 * T,) + tuple(norm.shape), norm.dtype)
+        triples = [(u[2 + 3 * i], u[3 + 3 * i], u[4 + 3 * i])
+                   for i in range(T)]
+        cos_t, eta, accepted = _kn_cos_eta(alpha, triples)
+        scatter = ((pcoll >= u[0]) & (state.otype == OBJ_PHOTON)
+                   & state.alive & accepted)
+        v, dv, st, pr = _apply_phase_matrix(
+            state.v, state.extras["stokes"], state.extras["pol_ref"],
+            scatter, cos_t, u[1], eta + 1.0 / eta, self._c)
+        E_new = state.E / eta
+        if self.measure_deposition:
+            ctx.record(self, "t", state.t)
+            ctx.record(self, "dep", torch.where(
+                scatter, state.w * (state.E - E_new), 0.0).sum())
+        return state.replace(v=v, dv=dv,
+                             E=torch.where(scatter, E_new, state.E),
+                             extras={**state.extras, "stokes": st,
+                                     "pol_ref": pr})
 
     def collect(self, sim, records) -> None:
         if not self.measure_deposition:
@@ -386,11 +422,27 @@ class StokesMeasureStep(MeasureStep):
         self.weighted = bool(weighted)
         self.local_qu = bool(local_qu)
 
-    generic_missing = _POLARIZED_GENERIC
-
     def apply(self, state, ctx):
         _check_planes(state, ("stokes",))
-        _generic_missing(self)
+        st = state.extras["stokes"]
+        wt = state.alive.to(st.dtype)
+        if self.weighted:
+            wt = wt * state.w
+        denom = wt.sum().clamp(min=1e-30)
+
+        def mean(x):
+            return (x * wt).sum() / denom
+
+        ctx.record(self, "t", state.t)
+        if self.measure_n:
+            ctx.record(self, "n", state.n_alive)
+        p = torch.sqrt(st[0] ** 2 + st[1] ** 2 + st[2] ** 2)
+        ctx.record(self, "p_mean", mean(p))
+        ctx.record(self, "V_mean", mean(st[2]))
+        if self.local_qu:
+            ctx.record(self, "Q_mean", mean(st[0]))
+            ctx.record(self, "U_mean", mean(st[1]))
+        return state
 
     def collect(self, sim, records) -> None:
         for i in range(len(records["t"])):

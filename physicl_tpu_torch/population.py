@@ -1,5 +1,5 @@
 """Population control between chunks: slot recycling for continuous
-sources and chunk-boundary splitting.
+sources, shrinking, and chunk-boundary splitting.
 
 Counterpart of the JAX package's ``population.PopulationManager``:
 
@@ -8,13 +8,16 @@ Counterpart of the JAX package's ``population.PopulationManager``:
   and never reuses one, so when the next chunk could run the arena out and
   at least half of the used slots are dead, the survivors are compacted to
   the front and emission continues behind them;
+* shrink (``Simulation(auto_shrink=True)``, the default): when fewer than
+  a quarter of the slots are alive, the survivors are compacted and the
+  capacity cut to their padded count, so the remaining chunks launch over
+  fewer lanes;
 * boundary splits: ``ImportanceSplitStep`` / ``WeightWindowStep`` with
   ``at="chunk"`` apply once per chunk boundary as torch ops, with a
   generator of their own, so the transport itself keeps the fused tier.
 
-Shrink, mid-run injection and removal are not ported (the engine refuses
-``auto_shrink=True``, ``add_obj``/``add_photons``/``remove_obj`` during a
-run).
+Mid-run injection and removal are not ported (the engine refuses
+``add_obj``/``add_photons``/``remove_obj`` during a run).
 """
 
 from __future__ import annotations
@@ -24,8 +27,8 @@ from typing import Callable, List, Optional
 
 import torch
 
-from physicl_tpu_torch.ops.compaction import compact
-from physicl_tpu_torch.state import SimState
+from physicl_tpu_torch.ops.compaction import compact, compact_shrink
+from physicl_tpu_torch.state import SimState, pad_capacity
 
 __all__ = ["ExecPlan", "PopulationManager"]
 
@@ -54,7 +57,9 @@ class PopulationManager:
 
     def __init__(self, sim, steps: List = ()):
         self.sim = sim
-        self.recycle_ok, self.emit_per_iter = sim._population_policies()
+        self.steps = list(steps)
+        self.shrink_ok, self.recycle_ok, self.emit_per_iter = (
+            sim._population_policies())
         self.split_steps = [s for s in steps
                             if getattr(s, "at_boundary", False)
                             and hasattr(s, "boundary_apply")]
@@ -73,7 +78,7 @@ class PopulationManager:
                 prime(state)
 
     def _reset_split_snapshots(self) -> None:
-        """A slot-moving edit (compaction) invalidates every per-slot
+        """A slot-moving edit (compaction, shrink) invalidates every per-slot
         boundary snapshot: drop it, so the next boundary re-snapshots
         instead of comparing moved slots (one boundary of splitting is
         lost)."""
@@ -94,6 +99,12 @@ class PopulationManager:
         wait until the spawn mark moves or the mirror drops below half."""
         if self.split_steps:
             return True  # boundary control runs at every boundary
+        sim = self.sim
+        # only where compact_shrink would cut the capacity: at the padded
+        # minimum the quarter test can hold for good
+        if (self.shrink_ok and 0 < sim._host_n_alive < state.capacity // 4
+                and pad_capacity(sim._host_n_alive) < state.capacity):
+            return True
         provider = plan.provider
         if not self.recycle_ok or provider is None:
             return False
@@ -109,6 +120,7 @@ class PopulationManager:
         """Run every applicable policy at a chunk boundary; returns the
         (possibly new) state."""
         state = self._recycle(state, plan)
+        state = self._shrink(state, plan)
         return self._apply_boundary_splits(state, plan)
 
     def _recycle(self, state: SimState, plan: ExecPlan) -> SimState:
@@ -137,6 +149,37 @@ class PopulationManager:
         else:
             after, chunk_idx = sim._hwm, len(sim.chunk_log)
         sim.population_log.append(("recycle", chunk_idx, hwm, after))
+        return state
+
+    def _shrink(self, state: SimState, plan: ExecPlan) -> SimState:
+        """Compact and cut the capacity when ``0 < n_alive < capacity //
+        4`` (the JAX package's ``PopulationManager._shrink``): never where
+        a step needs stable slot ids, a continuous source runs, or the user
+        set the capacity (``shrink_ok``), and never with an injection
+        pending (the port has none: mid-run injection is refused). The
+        fused provider then plans its next chunk at the new capacity; the
+        generic tier gets a new chunk function."""
+        sim = self.sim
+        n = sim._host_n_alive
+        if not self.shrink_ok or n == 0 or n >= state.capacity // 4:
+            return state
+        new_state = compact_shrink(state, n)
+        if new_state.capacity == state.capacity:
+            return state
+        self._reset_split_snapshots()
+        before, state = state.capacity, new_state
+        sim._hwm = n  # the survivors are packed at the front
+        with sim._state_lock:
+            sim.sim_state = state
+        if plan.provider is not None:
+            plan.provider.invalidate()
+            chunk_idx = plan.provider.chunk_idx
+        else:
+            plan.chunk_fn = sim._build_chunk_fn(self.steps, plan.exit_fn,
+                                                plan.chunk)
+            chunk_idx = len(sim.chunk_log)
+        sim.population_log.append(("shrink", chunk_idx, before,
+                                   state.capacity))
         return state
 
     def _exit_pending(self, state: SimState, plan: ExecPlan) -> bool:

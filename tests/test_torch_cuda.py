@@ -575,3 +575,69 @@ def test_user_simulation_card_equals_cpu(dev):
         assert torch.equal(gp, cp)
         for g, c in zip(gm, cm):
             np.testing.assert_allclose(g, c, rtol=1e-5, atol=1e-6)
+
+
+# -- recorded fields and inverse CDFs, shrink --
+
+@pytest.mark.parametrize("name", ["mirror-B", "recorded-E-B",
+                                  "phase-icdf-linear", "phase-icdf-hg",
+                                  "wide-17-ops-9-fields"])
+def test_recorded_plans_match_twin(dev, name):
+    """The plans ``chip_smoke.py`` holds at 2**20 x 256 (recorded E / B
+    components, recorded inverse CDFs, a plan past the old table limits),
+    here at 2**16 x 64 as their providers hand them over: bitwise."""
+    import physicl_tpu_torch as phys
+    from chip_smoke import crossed_EB, hg_icdf, mirror_sim, phase_sim, \
+        first_chunk_inputs, wide_sim
+
+    n, k = 1 << 16, 64
+    sim = {"mirror-B": lambda: mirror_sim(phys, n, dev, iters=k,
+                                          chunk=k)[0],
+           "recorded-E-B": lambda: mirror_sim(phys, n, dev, iters=k, chunk=k,
+                                              fields=crossed_EB(torch))[0],
+           "phase-icdf-linear": lambda: phase_sim(phys, n, dev, iters=k,
+                                                  chunk=k)[0],
+           "phase-icdf-hg": lambda: phase_sim(phys, n, dev, icdf=hg_icdf,
+                                              iters=k, chunk=k)[0],
+           "wide-17-ops-9-fields": lambda: wide_sim(phys, n, dev,
+                                                    chunk=k)}[name]()
+    packed, sched, seed, k_act, plan, _ = first_chunk_inputs(sim, F)
+    assert plan.has_fields and plan.kernel_variant & 1
+    out = torch.empty_like(packed)
+    rec, rec_f = F.fused_transport(packed, out, sched, seed, k_act, plan)
+    ref, ref_rec, ref_f = F.fused_chunk_reference(packed, sched, seed,
+                                                  k_act, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(rec, ref_rec)
+    assert torch.equal(out, ref)
+
+
+def test_shrink_card_equals_cpu(dev):
+    """An extinction run at the default auto_shrink on the card and on the
+    CPU twin: the same shrinks, ``sim.ts``, records and final planes."""
+    import physicl_tpu_torch as phys
+
+    runs = {}
+    for where in ("cuda", "cpu"):
+        light = phys.light
+        sim = phys.Simulation(exit="extinction", seed=5, chunk_steps=16,
+                              device=where)
+        sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
+        sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+        sim.add_step(2, light.ScatterIsotropicStep(A=0.001, n=0.001))
+        sim.add_step(3, light.ScatterDeleteStep(
+            np.double(0.02 / (float(light.c) * 0.001)), np.double(1.0)))
+        meas = light.ScatterSignMeasureStep(None, True)
+        sim.add_step(4, meas)
+        sim.add_photons(light.generate_photon_state(1 << 17, E=1.0))
+        sim.start()
+        sim.join()
+        st = sim.sim_state
+        runs[where] = (sim.ts, np.asarray(meas.data),
+                       [e for e in sim.population_log if e[0] == "shrink"],
+                       torch.cat([st.r, st.v, st.alive[None]]).cpu())
+    (gt, gm, gs, gp), (ct, cm, cs, cp) = runs["cuda"], runs["cpu"]
+    assert gs == cs and gs
+    assert gt == ct
+    np.testing.assert_array_equal(gm, cm)
+    assert torch.equal(gp, cp)

@@ -70,9 +70,10 @@ def main_runs(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def extinction_runs():
-    # the JAX default auto_shrink=True compacts the population (moving
-    # slots, hence draws); the port does not maintain populations yet
-    js, jm = _build(J, "extinction", absorb=True, auto_shrink=False)
+    # both at the default auto_shrink=True: the two compact the population
+    # at the same boundaries (tests/test_torch_shrink.py), so the slots,
+    # hence the draws, stay the same
+    js, jm = _build(J, "extinction", absorb=True)
     ts, tm = _build(T, "extinction", absorb=True, device="cpu")
     return _run(js), jm, _run(ts), tm
 
@@ -307,9 +308,12 @@ _REFUSALS = {
                             lambda P: P.light.ScatterDeleteStep(
                                 0.001, 0.001,
                                 A_fn=lambda E: np.asarray(E) * 0 + 1)),
-    "phase-icdf-callable": ("phase-icdf-callable",
+    # a torch inverse CDF is recorded into the kernel
+    # (tests/test_torch_phase.py); one that leaves torch cannot be
+    "phase-icdf-callable": ("field-fn-callable",
                             lambda P: P.light.ScatterPhaseFunctionStep(
-                                A=0.001, cos_theta_icdf=lambda u: 2 * u - 1)),
+                                A=0.001, cos_theta_icdf=lambda u:
+                                np.asarray(u) * 2 - 1)),
     # the JAX package's polarized step (the port has its own,
     # physicl_tpu_torch.polarization) is a step type the prover does not
     # know
@@ -330,16 +334,16 @@ _REFUSALS = {
 # refusal), "generic" where it runs to completion, or, for a limit of the
 # port's kernel (start() raises it, no fallback), the error the generic tier
 # raises under fuse="off" (a field callable that leaves torch fails by name
-# instead of running on the host; the phase step lacks its apply there)
+# instead of running on the host)
 _OUTCOMES = {
     "field-fn-callable-n": ("limit", TypeError,
                             "variable_n_fn callable .*<lambda> returned "
                             "ndarray"),
     "field-fn-callable-A": ("limit", TypeError,
                             "A_fn callable .*<lambda> returned ndarray"),
-    "phase-icdf-callable": ("limit", NotImplementedError,
-                            "the generic step tier lacks "
-                            "ScatterPhaseFunctionStep"),
+    "phase-icdf-callable": ("limit", TypeError,
+                            "cos_theta_icdf callable .*<lambda> returned "
+                            "ndarray"),
     "polarized-step": "refused",
     "kinematics-acceleration": "generic",
     "unsupported-step": "generic",
@@ -427,8 +431,16 @@ def test_unported_exits_refuse(code, kw):
                                 {"spatial_sort": 2}, {"mesh": object()}])
 def test_unported_simulation_options_refuse(kw):
     """fuse="off" runs the generic tier (the user's choice: no warning);
-    the others are still refused."""
+    auto_shrink=True, the default as in the JAX package, runs fused; the
+    others are still refused."""
     s, _ = _build(T, lambda c: c.t >= 0.01, device="cpu", **kw)
+    if kw == {"auto_shrink": True}:
+        assert T.Simulation().auto_shrink is True
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            s._run_impl()
+        assert s.used_fused and len(s.ts) == 10
+        return
     if kw == {"fuse": "off"}:
         with warnings.catch_warnings():
             warnings.simplefilter("error")

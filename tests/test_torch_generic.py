@@ -118,7 +118,7 @@ _TIERS = {"traced": "traced", "extinction": "extinction-probe",
 
 
 def _deterministic(P, case):
-    kw = ({"device": "cpu"} if P is T else {"auto_shrink": False})
+    kw = dict(auto_shrink=False, **({"device": "cpu"} if P is T else {}))
     s = P.Simulation(exit=_EXITS[case], seed=3, chunk_steps=CHUNK,
                      fuse="off", **kw)
     steps, counter = _plan(P, case)
@@ -218,7 +218,7 @@ def test_host_exact_predicate_over_objects_matches_jax():
     from the state every iteration), against the JAX package."""
     runs = []
     for P in (J, T):
-        kw = ({"device": "cpu"} if P is T else {"auto_shrink": False})
+        kw = dict(auto_shrink=False, **({"device": "cpu"} if P is T else {}))
         s = P.Simulation(
             exit=lambda x: all(o.r[0] > 0.5 * L_BOX for o in x.objects),
             seed=1, **kw)
@@ -375,24 +375,32 @@ def test_refusals_run_on_the_generic_tier(name):
         assert (v[1] != 0).all()  # q/m = 0.5 turned every particle
 
 
+class _NoApply(T.Step):
+    """A step that declares it has no generic-tier apply."""
+
+    generic_missing = "a test step without apply"
+
+
 def test_missing_generic_apply_stops_by_name():
-    """HG with a dt the prover refuses: the run falls back, and stops on the
-    step the generic tier lacks; explain_plan shows both."""
+    """A step without apply and a dt the prover refuses: the run falls
+    back, and stops on the step the generic tier lacks; explain_plan shows
+    both. Every step of the port has its apply: a test step declares it has
+    none."""
     s = _base(lambda x: 1e-3 + 0 * x.n_objects)
-    s.add_step(2, T.light.ScatterHenyeyGreensteinStep(A=1.0, g=0.5))
+    s.add_step(2, _NoApply())
     s.add_photons(T.light.generate_photon_state(64, E=1.0))
     text = s.explain_plan()
     assert "refused [dt-fn-not-t-only]" in text
-    assert "lacks ScatterHenyeyGreensteinStep.apply" in text
-    assert "queue 1 item 4" in text
-    with pytest.raises(FusedRefusal, match="queue 1 item 4") as e:
+    assert "lacks _NoApply.apply" in text
+    assert "a test step without apply" in text
+    with pytest.raises(FusedRefusal, match="a test step without apply") as e:
         s._run_impl()
     assert isinstance(e.value, NotImplementedError)
     s = _base(fuse="off")
-    s.add_step(2, T.light.ScatterRayleighStep(A=1.0))
+    s.add_step(2, _NoApply())
     s.add_photons(T.light.generate_photon_state(64, E=1.0))
     with pytest.raises(NotImplementedError,
-                       match="ScatterRayleighStep.apply.*queue 1 item 4"):
+                       match="_NoApply.apply.*a test step without apply"):
         s._run_impl()
 
 
@@ -421,17 +429,21 @@ def test_kernel_limits_do_not_fall_back():
             if not is_kernel_limit(c)} == (jax_codes & port_codes) | {"dtype"}
     for code in ("op-count", "cross-planes", "field-count",
                  "field-expr-length", "field-expr-unsupported",
-                 "voxel-grid-size", "field-fn-callable",
-                 "phase-icdf-callable", "user-program-size",
+                 "field-fn-callable", "user-program-size",
                  "user-program-regs", "elementwise-op-unsupported",
                  "reduce-op-unsupported", "kernelstep-op-unsupported"):
         assert is_kernel_limit(code), code
-    # a 23-term expression: past the kernel's program length
+    # lifted: the kernel evaluates a recorded inverse CDF, and a voxel grid
+    # past its int32 index falls back with the JAX prover's code
+    for code in ("phase-icdf-callable", "voxel-grid-size"):
+        assert code not in port_codes, code
+    assert not is_kernel_limit("field-fn-gather")
+    # a 90-term expression: past the kernel's program length
     for fuse in ("auto", "off"):
         s = _base(fuse=fuse)
         s.add_step(2, T.light.ScatterIsotropicStep(
             A=1.0, variable_n=True,
-            variable_n_fn=" + ".join(["r0[gid] * 2.0"] * 23)))
+            variable_n_fn=" + ".join(["r0[gid] * 2.0"] * 90)))
         s.add_photons(T.light.generate_photon_state(64, E=1.0))
         with warnings.catch_warnings():
             warnings.simplefilter("error")

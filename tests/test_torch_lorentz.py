@@ -10,7 +10,8 @@ every int record row and the ``alive`` and ``otype`` planes are equal, and
 the float32 planes agree within 1e-5 of each plane's largest value (XLA's
 CPU backend contracts the push's multiply-adds into FMAs; the twin, like
 the kernel, rounds each product). The JAX side runs with
-``auto_shrink=False``, the port's only mode.
+``auto_shrink=False`` on both sides (a shrink would reorder the slots
+the final planes are compared by).
 
 The rest holds the invariants of ``tests/test_lorentz.py`` on the twin, the
 refusals, and the extras planes of ``SimState`` against the JAX package's.
@@ -67,7 +68,7 @@ def _build(P, case):
     """(sim, sign step) of one case on package P."""
     c = float(P.light.c)
     N, L = P.newton, P.light
-    kw = {"device": "cpu"} if P is T else {"auto_shrink": False}
+    kw = dict(auto_shrink=False, **({"device": "cpu"} if P is T else {}))
     k = 48
     if case == "varying-dt":
         s = P.Simulation(until_t=0.02, seed=2, **kw)
@@ -232,6 +233,101 @@ def test_lorentz_case_behaviour(runs):
         np.testing.assert_allclose(got, v0, rtol=3e-5)
 
 
+# -- recorded fields ----------------------------------------------------------
+
+def _mirror(xp, L=2.0, B0=100.0):
+    """examples/make_lorentz_nb.py's axial magnetic mirror."""
+    def mirror_B(rx, ry, rz):
+        fac = B0 / (L * L)
+        return (-fac * rx * rz, -fac * ry * rz, B0 * (1.0 + (rz / L) ** 2))
+    return mirror_B
+
+
+def _crossed(xp):
+    """E and B both callable; a Python-number component and a 0 * x one."""
+    def E(rx, ry, rz):
+        return (2.0 * xp.cos(rx * 3.0), 0.5, 0 * rz)
+
+    def B(rx, ry, rz):
+        return (ry * 0.5, 1.0 + 0 * rx, 30.0 / (1.0 + rz * rz))
+    return {"E_field": E, "B_field": B}
+
+
+def _field_sim(P, case):
+    kw = {"device": "cpu"} if P is T else {}
+    s = P.Simulation(until_t=DT * 64 * 0.9999, seed=1, chunk_steps=32,
+                     auto_shrink=False, **kw)
+    xp = torch if P is T else jax.numpy
+    fields = ({"B_field": _mirror(xp)} if case == "mirror"
+              else _crossed(xp))
+    s.add_step(0, P.UpdateTimeStep(lambda x: np.double(DT)))
+    s.add_step(1, P.newton.LorentzForceStep(q_over_m=1.0, **fields))
+    s.add_step(2, P.newton.NewtonianKinematicsStep())
+    rng = np.random.default_rng(0)
+    s.add_particles(P.newton.generate_particle_state(
+        2000, v=rng.normal(size=(3, 2000)),
+        r=rng.normal(size=(3, 2000)) * 0.1))
+    return s
+
+
+@pytest.mark.parametrize("case", ["mirror", "E-and-B"])
+def test_recorded_fields_match_jax(case):
+    """A callable E / B is recorded, one program per component, and
+    evaluated at the particle's position: the port's twin against the JAX
+    package's emulated chunk with the jnp callables, as the constant-field
+    cases above; in the mirror's pure B field the push keeps |v|."""
+    runs = []
+    for P in (J, T):
+        s = _field_sim(P, case)
+        s.start()
+        s.join()
+        assert s.used_fused, s.explain_plan()
+        runs.append(s)
+    js, ts = runs
+    assert (np.asarray(ts.ts, np.float64).tobytes()
+            == np.asarray(js.ts, np.float64).tobytes())
+    for name in ("r", "v"):
+        want = np.asarray(jax.device_get(getattr(js.sim_state, name)))
+        got = getattr(ts.sim_state, name).numpy()
+        for w, g in zip(want, got):
+            assert float(np.abs(g - w).max()) <= RTOL * float(
+                np.abs(w).max()), name
+    if case == "mirror":
+        v0 = np.linalg.norm(np.random.default_rng(0).normal(size=(3, 2000)),
+                            axis=0)
+        v = ts.sim_state.v.numpy()[:, :2000].astype(np.float64)
+        np.testing.assert_allclose(np.linalg.norm(v, axis=0), v0, rtol=3e-5)
+
+
+def test_record_field_three_components():
+    """record_field(ncomp=3): one program per component; a Python number
+    is a one-instruction constant program, 0 * x stays the product (exact
+    as JAX computes it, NaN included); each program's plain run equals the
+    callable."""
+    from physicl_tpu_torch.ops import fields as FL
+    from physicl_tpu_torch.ops import record as RC
+
+    E = _crossed(torch)["E_field"]
+    progs = RC.record_field(E, ("r0", "r1", "r2"), "E_field", ncomp=3)
+    assert len(progs) == 3
+    assert progs[1].spec["prog"] == ((FL.INS_CONST, 0.5),)
+    assert [c for c, _ in progs[2].spec["prog"]] == [
+        FL.INS_VAR, FL.INS_CONST, FL.INS_MUL]
+    x = [torch.from_numpy(np.random.default_rng(i).normal(size=64).astype(
+        np.float32)) for i in range(3)]
+    for fn, want in zip(progs, E(*x)):
+        got = fn(*x)
+        torch.testing.assert_close(got.expand(64), torch.as_tensor(
+            want, dtype=torch.float32).expand(64), rtol=0, atol=0)
+    mirror = RC.record_field(_mirror(torch), ("r0", "r1", "r2"), "B",
+                             ncomp=3)
+    for fn, want in zip(mirror, _mirror(torch)(*x)):
+        torch.testing.assert_close(fn(*x), want, rtol=0, atol=0)
+    with pytest.raises(RC.Refused, match="2 components"):
+        RC.record_field(lambda a, b, c: (a, b), ("r0", "r1", "r2"), "E",
+                        ncomp=3)
+
+
 # -- the state's extras ------------------------------------------------------
 
 def _extras_population(P):
@@ -294,8 +390,11 @@ def test_from_numpy_carries_charges_and_packs_like_jax():
 _REFUSALS = {
     "lorentz-per-particle": (lambda: T.newton.LorentzForceStep(
         B_field=(0, 0, 1.0)), "objects"),
+    # a callable that leaves torch cannot be recorded (a torch one fuses:
+    # test_recorded_fields_match_jax)
     "field-fn-callable": (lambda: T.newton.LorentzForceStep(
-        B_field=lambda rx, ry, rz: (0 * rx, 0 * rx, 1 + 0 * rx),
+        B_field=lambda rx, ry, rz: (0 * rx, 0 * rx,
+                                    np.asarray(rx) * 0 + 1),
         q_over_m=1.0), "objects"),
     "photon-only-op": (lambda: T.light.ScatterIsotropicStep(A=0.001,
                                                             n=0.001),
@@ -311,14 +410,16 @@ _REFUSALS = {
 # shares falls back to the generic tier: it runs ("generic"), the generic
 # tier lacks the step too ("refused"), or the generic step raises as the JAX
 # package's does (an object without q and m gives the per-particle push
-# nothing to read). A callable E/B field is a limit of the port's kernel
-# (the JAX kernel runs it): refused with no fallback, and run on the
-# generic tier where fuse="off" asks for it ("limit")
+# nothing to read). An E/B callable the recorder cannot take is a limit of
+# the port's kernel (the JAX kernel runs it): refused with no fallback; the
+# generic tier, where fuse="off" asks for it, names the callable that left
+# torch ("limit")
 _OUTCOMES = {
     "lorentz-per-particle": (ValueError, "needs per-particle charge/mass"),
-    "field-fn-callable": "limit",
+    "field-fn-callable": ("limit", TypeError,
+                          "B_field callable .*<lambda> returned ndarray"),
     "photon-only-op": "generic",
-    "photon-only-op-phase": "refused",
+    "photon-only-op-phase": "generic",
 }
 
 
@@ -341,13 +442,14 @@ def test_charged_plans_refuse(case):
     s = sim()
     assert f"refused [{code}]" in s.explain_plan()
     outcome = _OUTCOMES[case]
-    if outcome in ("refused", "limit"):
+    if outcome == "refused" or outcome[0] == "limit":
         with pytest.raises(FusedRefusal, match=code):
             s._run_impl()
-        if outcome == "limit":
+        if outcome[0] == "limit":
             s = sim(fuse="off")
-            s._run_impl()
-            assert not s.used_fused and len(s.ts) == 5
+            with pytest.raises(outcome[1], match=outcome[2]):
+                s._run_impl()
+            assert not s.used_fused
         return
     with pytest.warns(RuntimeWarning, match=rf"refused \[{code}\]"):
         if outcome == "generic":

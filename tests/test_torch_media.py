@@ -301,7 +301,7 @@ def media(request):
     case = request.param
     kw = {} if _CASES[case][3] == "t" else {"auto_shrink": False}
     js, jm = _build(J, case, **kw)
-    ts, tm = _build(T, case, device="cpu")
+    ts, tm = _build(T, case, device="cpu", **kw)
     return case, _run(js), jm, _run(ts), tm
 
 
@@ -504,14 +504,14 @@ _FIELD_ERRORS = {
         1.0, 1.0, A_fn=T.light.layered_density([0, 1], [1]))),
     ("field-expr-unsupported", lambda: T.light.ScatterIsotropicStep(
         A=1.0, variable_n=True, variable_n_fn="r0[gid] % 2")),
+    # past the kernel's 256 instructions, and past its 16 stack levels
     ("field-expr-length", lambda: T.light.ScatterIsotropicStep(
         A=1.0, variable_n=True,
-        variable_n_fn=" + ".join(["r0[gid] * 2.0"] * 23))),
+        variable_n_fn=" + ".join(["r0[gid] * 2.0"] * 90))),
     ("field-expr-length", lambda: T.light.ScatterIsotropicStep(
         A=1.0, variable_n=True,
-        variable_n_fn="r0[gid] * (r1[gid] * (r2[gid] * (r0[gid] * (r1[gid]"
-                      " * (r2[gid] * (r0[gid] * (r1[gid] * r2[gid] + 1)))))"
-                      "))")),
+        variable_n_fn="r0[gid] * (" * 16 + "r1[gid] * r2[gid] + 1"
+                      + ")" * 16)),
 ])
 def test_field_refusals(code, make):
     s = _refusing_sim(make())
@@ -532,15 +532,22 @@ def test_field_refusals(code, make):
 
 def test_voxel_grid_size_refusal(monkeypatch):
     """The kernel's flat voxel index is int32: a grid of 2**31 voxels or
-    more is refused by name (the limit is lowered here to test it), with
-    no fallback; fuse="off" runs the plan on the generic tier, which reads
-    the grid there."""
+    more (the limit is lowered here to test it) is refused with the JAX
+    prover's code for a grid its kernel cannot hold, ``field-fn-gather``,
+    and the run falls back to the generic tier with one warning, which
+    reads the grid there; fuse="off" runs it there too."""
     monkeypatch.setattr(FL, "MAX_VOXELS", 63)
     nfn = T.light.voxel_density(np.ones((4, 4, 4)))
     s = _refusing_sim(T.light.ScatterIsotropicStep(
         A=1.0, variable_n=True, variable_n_fn=nfn))
-    with pytest.raises(FusedRefusal, match="voxel-grid-size"):
+    assert not is_kernel_limit("field-fn-gather")
+    with pytest.warns(RuntimeWarning) as record:
         s._run_impl()
+    warned = [w for w in record if issubclass(w.category, RuntimeWarning)]
+    assert len(warned) == 1
+    assert "refused [field-fn-gather]" in str(warned[0].message)
+    assert "flat index is int32" in str(warned[0].message)
+    assert not s.used_fused and len(s.ts) == 10
     s = _refusing_sim(T.light.ScatterIsotropicStep(
         A=1.0, variable_n=True, variable_n_fn=nfn), fuse="off")
     s._run_impl()

@@ -20,7 +20,9 @@ import torch
 
 import jax.numpy as jnp
 
+import physicl_tpu as J
 import physicl_tpu.light as JL
+import physicl_tpu.newton  # noqa: F401
 import physicl_tpu_torch as T
 import physicl_tpu_torch.light as TL
 from physicl_tpu_torch.ops import planck as TP
@@ -176,3 +178,53 @@ def test_device_photon_state_matches_host():
     a = SimState.from_population([], [host], device="cpu")
     b = SimState.from_population([], [dev], device="cpu")
     assert torch.equal(F.pack_state(a), F.pack_state(b))
+
+
+def test_generate_photons_and_from_E():
+    """tests/test_planck.py's contract on the port's host-object
+    constructors."""
+    ph = TL.generate_photons(100, min=1.0, max=2.0)
+    assert len(ph) == 100
+    Es = np.array([float(p.E) for p in ph])
+    assert np.all((Es >= 1.0) & (Es <= 2.0))
+    # the default sampler is power(3): mean 3/4 of the range
+    assert np.isclose(Es.mean(), 1.75, atol=0.05)
+    ph2 = TL.generate_photons_from_E([T.Measurement(1, "J**1"),
+                                      T.Measurement(2, "J**1")])
+    assert len(ph2) == 2
+    assert float(np.linalg.norm(np.asarray(ph2[0].v, np.double))) == float(
+        TL.c)
+    ph = TL.generate_photons(10, fn=lambda: 0.5, min=0.0, max=2.0)
+    assert np.allclose([float(p.E) for p in ph], 1.0)
+    ph = TL.generate_photons(10, fn=lambda size: np.full(size, 0.25),
+                             min=0.0, max=4.0)
+    assert np.allclose([float(p.E) for p in ph], 1.0)
+
+
+def test_generate_photons_run_like_jax():
+    """Objects from either package's constructor, with the same energies,
+    give the same fused run."""
+    rows = []
+    for P in (J, T):
+        objs = P.light.generate_photons_from_E(np.linspace(1.0, 2.0, 64))
+        kw = {"device": "cpu"} if P is T else {}
+        s = P.Simulation(until_t=0.0079, seed=2, **kw)
+        s.add_step(0, P.UpdateTimeStep(lambda x: np.double(0.001)))
+        s.add_step(1, P.newton.NewtonianKinematicsStep())
+        s.add_step(2, P.light.ScatterIsotropicStep(A=0.001, n=0.001))
+        m = P.light.ScatterSignMeasureStep(None, True)
+        s.add_step(3, m)
+        for o in objs:
+            s.add_obj(o)
+        s.start()
+        s.join()
+        rows.append(np.asarray(m.data))
+    np.testing.assert_array_equal(rows[0], rows[1])
+
+
+def test_clear_kernel_cache_is_exported():
+    """The JAX package's cache reset exists on the port's surface; the port
+    records every callable afresh at each start(), so it has nothing to
+    drop and a run after it is the same run."""
+    assert "clear_kernel_cache" in T.__all__
+    assert T.clear_kernel_cache() is None

@@ -6,7 +6,7 @@ Stokes and frame planes).
 
 Both packages run the same ``Simulation`` (same seed, steps and initial
 photons) through their fused tiers: the JAX package's emulated chunk
-(``auto_shrink=False``, the port's only mode), the port's plain twin of its
+(``auto_shrink=False`` on both sides), the port's plain twin of its
 CUDA kernel. The polarized ops draw from the same counter hash in the same
 order, so ``sim.ts`` is byte-identical and every int record row and the
 ``alive`` plane are equal. The float32 planes, ``sim_state.extras``'s
@@ -71,7 +71,7 @@ def _build(P, case):
     """(sim, {name: measure step}) of one case on package P."""
     PP, L, N = _pkg(P), P.light, P.newton
     c_dt = float(L.c) * DT
-    kw = {"device": "cpu"} if P is T else {"auto_shrink": False}
+    kw = dict(auto_shrink=False, **({"device": "cpu"} if P is T else {}))
     k, chunk, cap = 48, 16, None
     if case == "multi-chunk-writeback":
         k, chunk = 96, 32
@@ -396,15 +396,11 @@ def test_polarization_planes_refusal(name):
     refuses it."""
     s = _sim(T, T.light.generate_photon_state(16, E=1.0), [_STEPS[name]()])
     assert "refused [polarization-planes]" in s.explain_plan()
-    if name == "emitter":
-        # the emitter has a generic apply: the run falls back and fails
-        # there by name, as the JAX package's generic scan does
-        with pytest.warns(RuntimeWarning, match="polarization-planes"):
-            with pytest.raises(ValueError, match="no Stokes planes"):
-                s._run_impl()
-        return
-    with pytest.raises(FusedRefusal, match="polarization-planes"):
-        s._run_impl()
+    # every polarized step has a generic apply: the run falls back and
+    # fails there by name, as the JAX package's generic scan does
+    with pytest.warns(RuntimeWarning, match="polarization-planes"):
+        with pytest.raises(ValueError, match="no Stokes planes"):
+            s._run_impl()
 
 
 @pytest.mark.parametrize("name", sorted(_STEPS))
@@ -424,10 +420,18 @@ def test_apply_names_missing_planes_then_the_generic_tier(name):
     with pytest.raises(ValueError, match="no Stokes planes") as e:
         step.apply(bare, None)
     assert str(e.value) == TP._MISSING_PLANES_MSG
+    # with the planes, the generic apply runs (tests/
+    # test_torch_generic_steps.py holds it against the JAX one)
+    from physicl_tpu_torch.engine import StepContext
+
     full = SimState.from_population(
         [], [TP.polarized_photon_state(4, E=1.0)], device="cpu")
-    with pytest.raises(NotImplementedError, match="generic step tier"):
-        step.apply(full, None)
+    step._step_uid = "s0"
+    ctx = StepContext(torch.Generator().manual_seed(0), None, "cpu")
+    out = step.apply(full, ctx)
+    assert set(out.extras) == {"stokes", "pol_ref"}
+    if name == "stokes-measure":
+        assert float(ctx.records["s0/p_mean"]) == pytest.approx(0.0)
 
 
 def test_step_options_match_jax():

@@ -613,7 +613,36 @@ def test_step_options_match_jax():
                                  "ScatterRayleighStep", "ScatterComptonStep",
                                  "RefractiveInterfaceStep"])
 def test_apply_names_the_generic_tier(cls):
+    """Each step's generic-tier apply runs (tests/test_torch_generic_steps.py
+    holds it against the JAX one): a forced scatter turns every photon at
+    |v| = c, and a photon crossing the interface into a denser medium
+    bends toward the normal."""
+    from physicl_tpu_torch.engine import StepContext
+    from physicl_tpu_torch.state import SimState
+
+    C = float(TL.c)
+    c_dt = C * DT
+    bulk = TL.generate_photon_state(
+        256, E=1.0, r=(0.0, 0.0, 0.5 * c_dt),
+        v=(0.6 * C, 0.0, 0.8 * C))
+    state = SimState.from_population([], [bulk], device="cpu")
+    state = state.replace(dr=torch.tensor([0.6, 0.0, 0.8])[:, None].expand(
+        3, state.capacity) * c_dt)
+    kw = {"mec2": 1.0} if cls == "ScatterComptonStep" else {}
     step = (getattr(TL, cls)(0.0, 1.0, 1.5) if cls.startswith("Refr")
-            else getattr(TL, cls)())
-    with pytest.raises(NotImplementedError, match="generic step tier"):
-        step.apply(None, None)
+            else getattr(TL, cls)(A=1.0 / c_dt, n=1.0, **kw))
+    assert step.generic_missing is None
+    gen = torch.Generator().manual_seed(1)
+    out = step.apply(state, StepContext(gen, None, "cpu"))
+    v = out.v[:, :256].double()
+    np.testing.assert_allclose(torch.linalg.norm(v, dim=0).numpy(), C,
+                               rtol=1e-6)
+    if cls.startswith("Refr"):
+        # refracted: sin_t = sin_i / 1.5; reflected (R = 0.044): mirrored
+        up = v[2] > 0
+        np.testing.assert_allclose((v[0] / C)[up].numpy(), 0.4, rtol=1e-6)
+        np.testing.assert_allclose((v[0] / C)[~up].numpy(), 0.6, rtol=1e-6)
+        assert 0 < int((~up).sum()) < 40
+    else:  # Compton: a lane whose 12 Kahn tries all fail keeps its v
+        turned = (out.v[:, :256] != state.v[:, :256]).any(dim=0)
+        assert int(turned.sum()) >= (250 if kw else 256)

@@ -23,7 +23,7 @@ RTOL = 1e-5
 
 
 def _build(P, case, out_fn=None):
-    kw = {"device": "cpu"} if P is T else {"auto_shrink": False}
+    kw = dict(auto_shrink=False, **({"device": "cpu"} if P is T else {}))
     s = P.Simulation(until_t=DT * K * 0.9999, seed=11, chunk_steps=16, **kw)
     L = P.light
     c = float(L.c)

@@ -322,12 +322,13 @@ def test_trace_with_emitter_never_recycles():
 
 
 def test_stable_ids_guard_recycling():
-    """``_population_policies``: an emitter recycles slots unless a step
-    needs stable ids."""
+    """``_population_policies`` (``(shrink_ok, recycle_ok,
+    emit_per_iter)``, the JAX package's triple): an emitter recycles slots
+    unless a step needs stable ids, and never shrinks."""
     s, _ = _sim(T, 10, emitter=True)
-    assert s._population_policies() == (False, 200)
+    assert s._population_policies() == (False, False, 200)
     s.remove_step(6)
-    assert s._population_policies() == (True, 200)
+    assert s._population_policies() == (False, True, 200)
 
 
 def test_collect_records_passes_stream_records_through():
@@ -357,7 +358,7 @@ def test_extinction_trims_the_trace_to_valid_iterations():
     iterations (its sampled count follows them, not the chunk)."""
     rows = {}
     for P in (J, T):
-        kw = {"auto_shrink": False} if P is J else {"device": "cpu"}
+        kw = dict(auto_shrink=False, **({} if P is J else {"device": "cpu"}))
         s = P.Simulation(exit="extinction", seed=2, chunk_steps=16, **kw)
         s.add_step(0, P.UpdateTimeStep(lambda x: np.double(DT)))
         s.add_step(1, P.newton.NewtonianKinematicsStep())

@@ -11,7 +11,8 @@ the int records and the ``alive`` planes are equal, the float planes agree
 within 1e-5 of each plane's largest value and the float records within
 rtol 1e-5 (XLA contracts multiply-adds into FMAs and computes
 transcendentals with its own polynomials). The JAX side runs with
-``auto_shrink=False``, the port's only mode.
+``auto_shrink=False`` on both sides (a shrink would reorder the slots
+the final planes are compared by).
 
 The rest holds the recorded program against a direct call of the torch
 callable, the refusal codes against the JAX prover's, and the draw order.
@@ -61,7 +62,7 @@ def _photons(P, n, seed, extras=None, E=None):
 
 
 def _sim(P, until_iters=K, chunk=16, seed=7):
-    kw = {"device": "cpu"} if P is T else {"auto_shrink": False}
+    kw = dict(auto_shrink=False, **({"device": "cpu"} if P is T else {}))
     return P.Simulation(until_t=DT * until_iters * 0.9999, seed=seed,
                         chunk_steps=chunk, **kw)
 
@@ -548,11 +549,12 @@ def test_user_refusals(case):
 @pytest.mark.parametrize("code,A_fn", [
     ("field-fn-callable", lambda E: np.asarray(E) * 2.0),
     ("field-expr-unsupported", lambda E: torch.where(E > 1.0, E, 1.0)),
-    ("field-expr-length", lambda E: (((((((((E + 1) * E + 1) * E + 1) * E
-                                          + 1) * E + 1) * E + 1) * E + 1)
-                                      * E + 1) + E * (E + 1) * (E + 2)
-                                     * (E + 3) * (E + 4) * (E + 5)
-                                     * (E + 6) * (E + 7) * (E + 8))),
+    # 17 nested sums: past the kernel's 16 stack levels
+    ("field-expr-length", lambda E: E * (E + 1 * (E + 2 * (E + 3 * (E + 4
+                                    * (E + 5 * (E + 6 * (E + 7 * (E + 8
+                                    * (E + 9 * (E + 10 * (E + 11 * (E + 12
+                                    * (E + 13 * (E + 14 * (E + 15 * (E
+                                    + 16 * (E + 17)))))))))))))))))),
 ])
 def test_callable_field_refusals(code, A_fn):
     s = _refusing(T, lambda P: P.light.ScatterDeleteStep(1.0, 1.0,
