@@ -221,7 +221,7 @@ Phases (any failure exits non-zero and prints no result line):
     <= 1, |e1| = 1 and e1 . d = 0 within 1e-5;
 27. ``fused_transport`` vs twin on the polarized and polarimetry paths'
     first chunks (10**7 photons x 1024, as their providers hand them over;
-    the polarimetry chunk over its first 256 iterations):
+    both over their first 256 iterations):
     int records equal, planes bitwise, rec_f as in phase 3, the Stokes and
     frame rows leading the extras; timed against the bound;
 28. polarized path (benchmarks/run_all.py polarized_rayleigh_1e7): 10**7
@@ -248,7 +248,8 @@ Phases (any failure exits non-zero and prints no result line):
     recorded field program): int records equal, every plane (the written-
     back extras included) bitwise, rec_f as in phase 3, each timed against
     its bound with the instantiation's registers;
-30. the same on the user path's first chunk (10**7 x 1024: kin, iso, a
+30. the same on the user path's first chunk (10**7 x 1024, over its first
+    256 iterations: kin, iso, a
     KernelStep drag, an ElementwiseStep decay with a draw, t, dt and a
     written-back dose, the moments tally) and the spectrum path's (10**7
     x 60: thermal Compton and two 56-bin spectra, the chunk clamped by
@@ -333,14 +334,46 @@ Phases (any failure exits non-zero and prints no result line):
     its first chunk and so never shrinks: it checks that). The rate
     paths of the earlier phases keep ``auto_shrink=False`` so that their
     chunk times stay comparable with the earlier PRs' (a shrink launches
-    the later chunks over fewer lanes).
+    the later chunks over fewer lanes);
+40. mid-run injection on the main path: bench.py's 10**7 photons (chunks
+    of 1024, 10 chunks, the default pipeline depth of 4), with 2**20
+    photons (E = 2, built on the card) injected from the measure step's
+    collect after chunk 2: they land where the pipeline next drains, the
+    capacity grows from 10,010,624 to 11,059,200 slots, every launch is
+    variant 64, the run stays fused, every injected photon is alive and
+    the records' alive count steps at that boundary; prints the kernel's
+    time per chunk before and after (CUDA events around each launch), the
+    boundary's cost (``_apply_injections`` synchronized, and the device
+    idle between the kernels around it), photon-steps/s over the dispatch
+    loop; the first chunk at the grown capacity against the twin over its
+    first 256 iterations (bitwise), timed against its bound;
+41. checkpoint: the injected run's state saved (``np.savez_compressed``,
+    the JAX package's format) and restored onto the card: the seconds and
+    bytes; the restored planes equal the saved ones, and the restored run
+    takes the fused tier and continues ``sim.ts``;
+42. mid-run edits on the card against the CPU twin at 2**16 photons (256
+    iterations in chunks of 32): a deterministic injection, a
+    ``remove_obj`` (``auto_shrink=False``), a non-photon injection that
+    falls back to the generic tier (a draw-free plan), and a run restored
+    from a checkpoint: ``sim.ts``, records and final planes bitwise equal;
+43. ``spatial_sort`` on the media path: 10**7 photons at uniform positions
+    and isotropic directions in the 256**3 phantom (the locality-free
+    case), 1024 iterations in chunks of 256, sorted every dispatch and
+    not, twice each: the kernel's time per chunk, the sort's time (CUDA
+    events) and the rates; the alive counts within 5 sigma;
+44. ``KernelProgram.run`` on the card against the CPU on 2**20 photons (no
+    draws): equal outputs and tracked indices;
+45. profiling: ``profiling.trace`` around a fused run at 2**20 photons
+    writes a Chrome trace that names ``fused_seq_kernel``;
+    ``ChunkTimerStep`` rows of a generic run.
 
 The line before the last two is a JSON object describing each kernel on
 each path: ``fused_transport`` once each for the gamma, glass, thermal,
 stretch and fluorescence paths, the ExB (``lorentz``), mixed and
 record-tile paths, the polarized and polarimetry paths, the user and
 spectrum paths (their ``replaces`` the user ops of kernel 1i), the mirror
-and callable-phase paths, the main path,
+and callable-phase paths, the main path after a mid-run injection (its
+first chunk at the grown capacity), the main path,
 the Planck source path, the media path, the escape path and the cavity path, each
 with its path's launch count and the times and bound at that path's own
 shape and plan (the main path's entry also names its instantiation, and
@@ -365,9 +398,9 @@ K_B = 1.380649e-23
 T_SUN = 5778.0
 RTOL = 1e-6
 RTOL_F = 1e-5
-# the gamma, thermal and polarimetry paths' first chunks are held against
-# the twin over their first 256 iterations (each twin took 70-100 s over
-# the whole chunk)
+# the gamma, thermal, polarized, polarimetry and user paths' first chunks
+# are held against the twin over their first 256 iterations (each twin took
+# 20-100 s over the whole chunk)
 TWIN_ITERS = 256
 
 # H100 SXM published peaks: 3.35 TB/s device memory; per SM and clock 128
@@ -1064,7 +1097,7 @@ def main():
            "polarized": 0.0, "polarimetry": 0.0, "user": 0.0,
            "spectrum": 0.0, "mirror": 0.0, "recorded-E-B": 0.0,
            "phase-icdf": 0.0, "phase-icdf-hg": 0.0, "wide": 0.0,
-           "shrink": 0.0}
+           "shrink": 0.0, "main-injected": 0.0}
     a_E, b_E = planck_window()
     sampler = light.PlanckSampler(a_E, b_E, T_SUN, bins=2000)
 
@@ -1437,7 +1470,7 @@ def main():
     polft, poift = (path_chunk0(
         f"{case}-chunk-0", pol_sim(phys, case, n, dev)[0], F, torch,
         compare, case, card, kinds, streams=False, grids=pol_grids,
-        twin_iters=TWIN_ITERS if case == "polarimetry" else None)
+        twin_iters=TWIN_ITERS)
         for case, n, kinds in (("polarized", POL_N, ["kin", "pol"]),
                                ("polarimetry", POLI_N,
                                 ["kin", "polc", "polmeas"])))
@@ -1445,7 +1478,7 @@ def main():
     uft = path_chunk0(
         "user-chunk-0", user_sim(phys, USER_N, dev)[0], F, torch, compare,
         "user", card, ["kin", "iso", "kstate", "custom", "reduce"],
-        streams=False)
+        streams=False, twin_iters=TWIN_ITERS)
     spft = path_chunk0(
         "spectrum-chunk-0", spectrum_sim(phys, SPEC_N, dev)[0], F, torch,
         compare, "spectrum", card, ["kin", "compton", "reduce", "reduce"],
@@ -1610,6 +1643,12 @@ def main():
                                                   compare)
     generic_scatter_paths(torch, phys, F, dev, card)
     shrink_path(torch, phys, F, dev, card, compare)
+    inj_ft, inj_sim = injection_path(torch, phys, F, dev, card, compare)
+    checkpoint_path(torch, phys, F, inj_sim, dev, card)
+    del inj_sim
+    midrun_card_vs_cpu(torch, phys, F, dev)
+    sorted_media_path(torch, phys, F, grid_m, dev, card)
+    bridge_and_profiling(torch, phys, F, dev, card)
 
     ft_src = {"name": "fused_transport", "route": "cuda",
               "source": "physicl_tpu_torch/csrc/fused_transport.cu",
@@ -1647,6 +1686,11 @@ def main():
          "max_abs_err": err[path], **entry, "library_ms": None}
         for path, launches, entry in (("mirror", mir_launches, mir_ft),
                                       ("phase-icdf", phf_launches, phf_ft))]
+    # the main path with 2**20 photons injected mid-run: the first chunk at
+    # the grown capacity (variant 64)
+    new_paths.append({**ft_src, "path": "main-injected",
+                      "max_abs_err": err["main-injected"], **inj_ft,
+                      "library_ms": None})
     print(json.dumps({"kernels": new_paths + [
         {**ft_src, "path": "main", "launches": main_launches,
          "max_abs_err": err["main"], **ft, "library_ms": None},
@@ -5428,6 +5472,522 @@ def shrink_path(torch, phys, F, dev, card, compare):
               f"(twin {ms:.1f} ms) [{card}]", flush=True)
     return {"shrinks": shrinks, "chunks": rows, "launches": launches}
 
+
+# -- mid-run edits, the spatial sort, checkpoints, the kernel bridge and ----
+# -- profiling ----------------------------------------------------------------
+
+INJ_N = 10_000_000       # bench.py's width
+INJ_ADD = 1 << 20        # photons injected from the measure step's collect
+INJ_CHUNK = 1024
+INJ_CHUNKS = 10          # the injection lands after chunk 6 (depth 4)
+TWIN_N = 1 << 16         # the card-against-CPU runs
+TWIN_CHUNK = 32
+TWIN_ITERS_RUN = 256     # eight chunks
+SORT_N = 10_000_000      # the locality-free media case at bench.py's width
+SORT_CHUNK = 256
+SORT_ITERS = 4 * SORT_CHUNK
+BRIDGE_N = 1 << 20
+
+
+def timed_launches(F, torch, keep_cap=None):
+    """Wrap ``F.fused_chunk`` (undo with the returned ``restore``): CUDA
+    events around every launch, ``(capacity, k_act, start, end)`` in
+    ``log``; with ``keep_cap``, a copy of the first launch's inputs at that
+    capacity in ``kept`` (for the twin)."""
+    log, kept, launch = [], {}, F.fused_chunk
+
+    def timed(packed, sched, seed, k_act, plan, out=None, emit_starts=None):
+        cap = packed.shape[1]
+        if cap == keep_cap and not kept:
+            kept["args"] = (packed.clone(), sched.clone(), seed, k_act, plan)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        res = launch(packed, sched, seed, k_act, plan, out=out,
+                     emit_starts=emit_starts)
+        ev1.record()
+        log.append((cap, k_act, ev0, ev1))
+        return res
+
+    def restore():
+        F.fused_chunk = launch
+
+    F.fused_chunk = timed
+    return log, kept, restore
+
+
+def collect_hook(step, at_call, edit):
+    """Run ``edit(sim)`` from ``step.collect`` at its ``at_call``-th call
+    (an instance attribute: the prover still sees the step's type)."""
+    base, calls = step.collect, []
+
+    def collect(sim, records):
+        base(sim, records)
+        calls.append(len(sim.ts))
+        if len(calls) == at_call:
+            edit(sim)
+
+    step.collect = collect
+    return calls
+
+
+def main_plan_sim(phys, n, dev, iters, chunk, seed=0, scatter=True,
+                  dirs=None, **kw):
+    """bench.py's steps (without the scatter with ``scatter=False``): n
+    photons from the origin along +x, or along ``dirs`` (3, n); none with
+    n = 0 (a run to restore)."""
+    light = phys.light
+    sim = phys.Simulation(until_t=(iters - 0.5) * 1e-3, seed=seed,
+                          chunk_steps=chunk, device=dev, auto_shrink=False,
+                          **kw)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    if scatter:
+        sim.add_step(2, light.ScatterIsotropicStep(A=np.double(0.001),
+                                                   n=np.double(0.001)))
+    meas = light.ScatterSignMeasureStep(None, True)
+    sim.add_step(3, meas)
+    kw = {} if dirs is None else {"v": dirs * float(light.c)}
+    if n:
+        sim.add_photons(light.generate_photon_state(n, E=1.0, device=dev,
+                                                    **kw))
+    return sim, meas
+
+
+def injection_path(torch, phys, F, dev, card, compare):
+    """Phase: bench.py's 10**7 photons with 2**20 more injected from the
+    measure step's collect after chunk 2; returns the run's kernels-line
+    entry (the first chunk at the grown capacity) and the finished sim."""
+    from physicl_tpu_torch.population import PopulationManager
+    from physicl_tpu_torch.state import pad_capacity
+
+    phase(f"mid-run injection on the main path: {INJ_N} photons, "
+          f"{INJ_ADD} injected after chunk 2, chunks of {INJ_CHUNK}")
+    light = phys.light
+    cap0, cap1 = pad_capacity(INJ_N), pad_capacity(INJ_N + INJ_ADD)
+    sim, meas = main_plan_sim(phys, INJ_N, dev, INJ_CHUNKS * INJ_CHUNK,
+                              INJ_CHUNK)
+    collect_hook(meas, 2, lambda s: s.add_photons(
+        light.generate_photon_state(INJ_ADD, E=2.0, device=dev)))
+    inj = {}
+    real = PopulationManager._apply_injections
+
+    def watched(self, state, plan):
+        if not self.sim._pending_inject:
+            return real(self, state, plan)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self, state, plan)
+        torch.cuda.synchronize()
+        inj["ms"] = (time.perf_counter() - t0) * 1e3
+        inj["at"] = len(self.sim.ts)
+        return out
+
+    F.fused_transport.launches = F.fused_transport.seq_launches = 0
+    log, kept, restore = timed_launches(F, torch, keep_cap=cap1)
+    PopulationManager._apply_injections = watched
+    try:
+        wall, _, peak = run_sim(torch, sim)
+    finally:
+        PopulationManager._apply_injections = real
+        restore()
+    launches = F.fused_transport.launches
+    check(sim.used_fused, "the injected main path left the fused tier")
+    check(F.fused_transport.seq_launches == launches == len(log),
+          f"{F.fused_transport.seq_launches} of {launches} launches ran "
+          "variant 64")
+    log = [e for e in log if e[1] > 0]  # a t-exit's last launch is empty
+    check(len(log) == INJ_CHUNKS, f"{len(log)} full chunks")
+    st = sim.sim_state
+    n = np.asarray(meas.data)[:, 1]
+    E = st.E[st.alive]
+    n_new = int((E == 2.0).sum())
+    check(st.capacity == cap1 and int(st.n_spawned) == INJ_N + INJ_ADD
+          and n_new == INJ_ADD and int(st.alive.sum()) == INJ_N + INJ_ADD,
+          f"injection: capacity {st.capacity}, spawn mark "
+          f"{int(st.n_spawned)}, {n_new} injected photons alive")
+    at = int(np.argmax(n > INJ_N))
+    check(at == inj.get("at") and n[0] == INJ_N and n[-1] == INJ_N + INJ_ADD
+          and (n[:at] == INJ_N).all() and (n[at:] == INJ_N + INJ_ADD).all(),
+          f"records: the alive count steps at iteration {at}, the "
+          f"injection landed at {inj.get('at')}")
+    speed = torch.linalg.vector_norm(st.v[:, st.alive].double(), dim=0)
+    check(float((speed / C_LIGHT - 1).abs().max()) < 1e-6,
+          "|v| drifted off c")
+    # the first launch of the run is not in the mean: it pays for the
+    # allocations of the first chunk at this size
+    before = [a.elapsed_time(b) for c, _, a, b in log[1:] if c == cap0]
+    after = [a.elapsed_time(b) for c, _, a, b in log if c == cap1]
+    first_after = next(i for i, e in enumerate(log) if e[0] == cap1)
+    gap = log[first_after - 1][3].elapsed_time(log[first_after][2])
+    gaps = [log[i - 1][3].elapsed_time(log[i][2])
+            for i in range(1, len(log)) if i != first_after]
+    rate, steady_s = steady_rate(sim, n)
+    print(f"injection: {INJ_ADD} photons landed at iteration {at} (queued "
+          f"by the collect after chunk 2, applied where the depth-4 "
+          f"pipeline next drained); capacity {cap0} -> {cap1}; "
+          f"fused_transport launches {launches}, all variant 64; "
+          f"kernel per chunk (the first {log[0][2].elapsed_time(log[0][3]):.3f}"
+          f" ms) {np.mean(before):.3f} ms before "
+          f"({[round(x, 3) for x in before]}), {np.mean(after):.3f} ms "
+          f"after ({[round(x, 3) for x in after]}; capacity ratio "
+          f"{cap1 / cap0:.4f}, time ratio "
+          f"{np.mean(after) / np.mean(before):.4f}) [{card}]", flush=True)
+    print(f"injection boundary: {inj['ms']:.3f} ms of host and device time "
+          f"in _apply_injections (synchronized), device idle "
+          f"{gap:.3f} ms between the kernels around it (other boundaries "
+          f"{min(gaps):.3f}-{max(gaps):.3f} ms); "
+          f"{rate:.4e} photon-steps/s over the dispatch loop after the "
+          f"first chunk ({steady_s * 1e3:.1f} ms of device time); wall "
+          f"{wall:.2f} s, peak memory {peak / 2 ** 30:.2f} GiB [{card}]",
+          flush=True)
+    packed, sched, seed, k, plan = kept["args"]
+    check(plan.kernel_variant == 64, f"variant {plan.kernel_variant} at "
+          "the grown capacity")
+    entry = {"plain_ms": compare("injected-chunk", packed, sched,
+                                 min(k, TWIN_ITERS), plan, None,
+                                 "main-injected", seed, need_bitwise=True),
+             "plain_iters": min(k, TWIN_ITERS)}
+    out = torch.empty_like(packed)
+    entry["ms"] = cuda_ms(lambda: F.fused_transport(packed, out, sched, seed,
+                                                    k, plan), 3, torch)
+    entry["bound_ms"], entry["bound_by"] = transport_bound(plan, cap1, k,
+                                                           None)
+    print(f"injected-chunk: the first chunk at {cap1} slots ({k} "
+          f"iterations) equals the twin over {entry['plain_iters']}; "
+          f"kernel {entry['ms']:.2f} ms, twin {entry['plain_ms']:.1f} ms, "
+          f"bound {entry['bound_ms']:.2f} ms ({entry['bound_by']}) "
+          f"[{card}]", flush=True)
+    del packed, sched, out, kept
+    return {**entry, "launches": launches}, sim
+
+
+def midrun_card_vs_cpu(torch, phys, F, dev):
+    """Phase: the injection, a removal, a fallback to the generic tier and
+    a restored run, each on the card and on the CPU twin at 2**16:
+    ``sim.ts``, records and final planes bitwise equal."""
+    import tempfile
+
+    phase(f"mid-run edits and a restore on the card against the CPU "
+          f"({TWIN_N} photons, {TWIN_ITERS_RUN} iterations in chunks of "
+          f"{TWIN_CHUNK})")
+    light = phys.light
+    dirs = np.random.default_rng(41).normal(size=(3, TWIN_N))
+    dirs /= np.linalg.norm(dirs, axis=0)
+    tmp = tempfile.mkdtemp()
+    ck = os.path.join(tmp, "restore.npz")
+    first, _ = main_plan_sim(phys, TWIN_N, dev, TWIN_ITERS_RUN // 2,
+                             TWIN_CHUNK, seed=8)
+    run_sim(torch, first)
+    first.save_checkpoint(ck)
+    del first
+
+    def build(case, where):
+        if case == "restore":
+            sim = phys.Simulation(until_t=(TWIN_ITERS_RUN - 0.5) * 1e-3,
+                                  seed=8, chunk_steps=TWIN_CHUNK,
+                                  device=where, auto_shrink=False)
+            sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
+            sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+            sim.add_step(2, light.ScatterIsotropicStep(A=np.double(0.001),
+                                                       n=np.double(0.001)))
+            meas = light.ScatterSignMeasureStep(None, True)
+            sim.add_step(3, meas)
+            sim.restore_checkpoint(ck)
+            return sim, meas
+        sim, meas = main_plan_sim(
+            phys, TWIN_N, where, TWIN_ITERS_RUN, TWIN_CHUNK, seed=6,
+            scatter=case != "fallback", dirs=dirs)
+        if case == "inject":
+            k = TWIN_N // 16
+            collect_hook(meas, 2, lambda s: s.add_photons(
+                light.generate_photon_state(k, E=2.0, device=where,
+                                            v=dirs[:, :k] * float(light.c))))
+        elif case == "remove":
+            objs = [light.PhotonObject(
+                E=np.double(5.0 + i),
+                v=np.array([float(light.c), 0.0, 0.0])) for i in range(16)]
+            for o in objs:
+                sim.add_obj(o)
+            collect_hook(meas, 2, lambda s: s.remove_obj(objs[3]))
+        else:
+            collect_hook(meas, 2, lambda s: s.add_obj(phys.Object(
+                v=phys.Measurement([5.0, 0, 0], "m**1 s**-1"))))
+        return sim, meas
+
+    for case, fused in (("inject", True), ("remove", True),
+                        ("fallback", False), ("restore", True)):
+        runs = {}
+        for where in (dev, "cpu"):
+            sim, meas = build(case, where)
+            if case == "fallback":
+                import warnings
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")  # the fallback's
+                    sim.start()
+                    sim.join()
+            else:
+                sim.start()
+                sim.join()
+            runs[str(where) if where == "cpu" else "card"] = (
+                sim, np.asarray(meas.data), F.pack_state(sim.sim_state).cpu())
+        (gs, gd, gst), (cs, cd, cst) = runs["card"], runs["cpu"]
+        check(gs.used_fused == cs.used_fused == fused,
+              f"{case}: used_fused card {gs.used_fused}, CPU {cs.used_fused}")
+        check(len(gs.ts) == TWIN_ITERS_RUN and gs.ts == cs.ts,
+              f"{case}: sim.ts differs between card and CPU")
+        check(np.array_equal(gd, cd), f"{case}: records differ")
+        check(gst.shape == cst.shape and torch.equal(gst, cst),
+              f"{case}: final planes not bitwise equal (max abs err "
+              f"{float((gst - cst).abs().max()) if gst.shape == cst.shape else 'shape'})")
+        n = gd[:, 1]
+        print(f"{case} card == CPU: sim.ts, {len(gd)} record rows and the "
+              f"final planes ({gst.shape[1]} slots) bitwise; fused "
+              f"{gs.used_fused}; alive {int(n[0])} -> {int(n[-1])}",
+              flush=True)
+    os.remove(ck)
+    os.rmdir(tmp)
+
+
+def sort_media_sim(phys, grid, dev, sort, seed=31):
+    """The media path's plan with n photons at uniform positions over the
+    phantom and isotropic directions (the locality-free case), SORT_ITERS
+    iterations in chunks of SORT_CHUNK, ``spatial_sort=sort``."""
+    import torch
+
+    light = phys.light
+    n = SORT_N
+    c = float(light.c)
+    c_dt = c * MEDIA_DT
+    sp = 4 * c_dt
+    nv = grid.shape[0]
+    nfn = light.voxel_density(grid, spacing=sp, interp="trilinear")
+    sim = phys.Simulation(until_t=(SORT_ITERS - 0.5) * MEDIA_DT, seed=seed,
+                          chunk_steps=SORT_CHUNK, device=dev,
+                          auto_shrink=False, spatial_sort=sort)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(MEDIA_DT)))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    sim.add_step(2, light.ScatterIsotropicStep(
+        A=MEDIA_AS / c_dt, variable_n=True, variable_n_fn=nfn))
+    sim.add_step(3, light.ScatterDeleteStep(
+        1.0, MEDIA_AA / c_dt, variable_n=True, variable_n_fn=nfn,
+        implicit_capture=True, roulette=MEDIA_ROULETTE,
+        measure_deposition=True))
+    sim.add_step(4, phys.newton.AbsorbingBoundaryStep(((-sp, nv * sp),) * 3))
+    meas = light.ScatterMeasureStep(
+        None, True, [((nv - 1) * sp, np.nan, np.nan)], weighted=True,
+        measure_E=True, measure_E_mode="sum")
+    sim.add_step(5, meas)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = torch.rand((3, n), generator=gen, device=dev) * ((nv - 1) * sp)
+    sim.add_photons(light.generate_photon_state(
+        n, E=1.0, r=r, v=isotropic_v(torch, n, c, gen, dev), device=dev))
+    return sim, meas
+
+
+def sorted_media_path(torch, phys, F, grid, dev, card):
+    """Phase: the locality-free media case with ``spatial_sort=1`` and
+    with it off: the kernel's time per chunk, the sort's time, the rates;
+    the alive counts agree within 5 sigma."""
+    phase(f"spatial_sort on the media path: {SORT_N} photons uniform in the "
+          f"{MEDIA_NV}**3 phantom, isotropic, {SORT_ITERS} iterations in "
+          f"chunks of {SORT_CHUNK}")
+    sorts = []
+
+    def timed_sort(fn):
+        """The sort as the fused loop calls it: the keys, the argsort and
+        the gather of the provider's packed planes (no repack follows)."""
+        def sort(state, pop, provider=None):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(state, pop, provider)
+            b.record()
+            if out is not state:
+                sorts.append((a, b))
+            return out
+
+        return sort
+
+    res = {}
+    for sort in (0, 1, 1, 0):
+        sim, meas = sort_media_sim(phys, grid, dev, sort)
+        sim._maybe_spatial_sort = timed_sort(sim._maybe_spatial_sort)
+        F.fused_transport.launches = 0
+        log, _, restore = timed_launches(F, torch)
+        try:
+            wall, _, peak = run_sim(torch, sim)
+        finally:
+            restore()
+        full = [e for e in log if e[1] > 0]  # the t-exit's last is empty
+        check(sim.used_fused and F.fused_transport.launches == len(log)
+              and len(full) == SORT_ITERS // SORT_CHUNK,
+              f"sort={sort}: fused {sim.used_fused}, {len(full)} of "
+              f"{len(log)} launches full")
+        check((sim._sort_fn is not None) == bool(sort),
+              f"sort={sort}: the sort was {'not ' if sort else ''}set up")
+        data = np.asarray(meas.data)
+        rate, _ = steady_rate(sim, data[:, 1])
+        res.setdefault(sort, []).append({
+            "ms": [a.elapsed_time(b) for _, _, a, b in full],
+            "n": int(data[-1, 1]), "rate": rate, "wall": wall,
+            "peak": peak})
+        del sim
+    n_sorts = len(sorts)
+    # one sort before every chunk; none before the t-exit's empty dispatch
+    check(n_sorts == 2 * (SORT_ITERS // SORT_CHUNK),
+          f"{n_sorts} sorts in the two sorted runs")
+    sort_ms = [a.elapsed_time(b) for a, b in sorts]
+    for sort in (0, 1):
+        for r in res[sort]:
+            print(f"spatial_sort={sort}: kernel per chunk "
+                  f"{[round(x, 2) for x in r['ms']]} ms (mean "
+                  f"{np.mean(r['ms']):.2f}), {r['rate']:.4e} alive "
+                  f"photon-steps/s over the dispatch loop after the first "
+                  f"chunk, wall {r['wall']:.2f} s, alive at the end "
+                  f"{r['n']}, peak memory {r['peak'] / 2 ** 30:.2f} GiB "
+                  f"[{card}]", flush=True)
+    print(f"the sort: median {np.median(sort_ms):.3f} ms a call (the keys, "
+          f"a stable argsort and one gather of the packed planes, which is "
+          f"all it costs the next dispatch; the first call "
+          f"of the process pays the argsort's set-up; {n_sorts} calls: "
+          f"{[round(x, 3) for x in sort_ms]}) [{card}]", flush=True)
+    n0, n1 = res[0][0]["n"], res[1][0]["n"]
+    p = n0 / SORT_N
+    sigma = np.sqrt(2 * SORT_N * p * (1 - p)) + 1
+    check(abs(n1 - n0) <= 5 * sigma, f"alive counts {n0} unsorted, {n1} "
+          f"sorted: {abs(n1 - n0) / sigma:.2f} sigma")
+    check(res[0][0]["n"] == res[0][1]["n"] and res[1][0]["n"]
+          == res[1][1]["n"], "a second run with the same seed gave other "
+          "alive counts")
+    print(f"alive counts sorted {n1}, unsorted {n0}: "
+          f"{abs(n1 - n0) / sigma:.2f} combined sigma", flush=True)
+    return {0: res[0], 1: res[1], "sort_ms": sort_ms}
+
+
+def checkpoint_path(torch, phys, F, sim, dev, card):
+    """Phase: save the injected run's state (11,059,200 slots) and restore
+    it onto the fused tier: seconds, bytes, planes equal after the
+    restore."""
+    import tempfile
+
+    phase(f"checkpoint: save and restore at {sim.sim_state.capacity} slots")
+    tmp = tempfile.mkdtemp()
+    path = os.path.join(tmp, "ck.npz")
+    t0 = time.perf_counter()
+    sim.save_checkpoint(path)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    saved = F.pack_state(sim.sim_state)
+    n0 = int(sim.sim_state.alive.sum())
+    new, meas = main_plan_sim(phys, 0, dev, len(sim.ts) + INJ_CHUNK,
+                              INJ_CHUNK)
+    t0 = time.perf_counter()
+    new.restore_checkpoint(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(torch.equal(F.pack_state(new._restored[0]), saved),
+          "the restored planes differ from the saved ones")
+    del saved
+    F.fused_transport.launches = 0
+    wall, _, _ = run_sim(torch, new)
+    check(new.used_fused and F.fused_transport.launches >= 1
+          and len(new.ts) == len(sim.ts) + INJ_CHUNK and new.ts[:len(sim.ts)]
+          == sim.ts and np.asarray(meas.data)[0, 1] == n0,
+          f"restored run: fused {new.used_fused}, "
+          f"{F.fused_transport.launches} launches, {len(new.ts)} iterations")
+    os.remove(path)
+    os.rmdir(tmp)
+    print(f"checkpoint: {size} bytes ({size / 2 ** 20:.1f} MiB, "
+          f"np.savez_compressed) saved in {save_s:.2f} s, restored to the "
+          f"card in {load_s:.2f} s; the restored run took the fused tier "
+          f"for one chunk of {INJ_CHUNK} ({wall:.2f} s wall, {n0} alive) "
+          f"[{card}]", flush=True)
+    return {"save_s": save_s, "load_s": load_s, "bytes": size}
+
+
+def bridge_and_profiling(torch, phys, F, dev, card):
+    """Phase: KernelProgram.run on the card against the CPU (no draws:
+    equal outputs and tracked indices), then a profiling.trace of a fused
+    run that names the transport kernel, and ChunkTimerStep rows."""
+    import json as _json
+    import tempfile
+
+    from physicl_tpu_torch import kernels as K
+    from physicl_tpu_torch.utils import profiling
+
+    phase(f"KernelProgram on the card against the CPU ({BRIDGE_N} photons)")
+    rng = np.random.default_rng(5)
+    d = rng.normal(size=(3, BRIDGE_N))
+    bulk = phys.light.generate_photon_state(
+        BRIDGE_N, E=rng.uniform(0.5, 2.0, BRIDGE_N),
+        v=d / np.linalg.norm(d, axis=0) * C_LIGHT,
+        r=rng.uniform(-1e6, 1e6, (3, BRIDGE_N)))
+
+    def body(valid, r0, v1, E, A):
+        score = abs(r0) * A + v1 * v1 * 1e-12 + E
+        return {"score": score * valid, "hit": (score > A * 5e5) & valid}
+
+    outs = {}
+    for where in (dev, "cpu"):
+        st = phys.SimState.from_population([], [bulk], device=where)
+        prog = K.KernelProgram(None, "score", body)
+        prog.prep_metadata = [
+            K.KernelInput(name="photons", type="obj_action",
+                          code="type(obj) == PhotonObject"),
+            K.KernelInput(name="r0", type="obj", obj_attr="r[0]"),
+            K.KernelInput(name="v1", type="obj", obj_attr="v[1]"),
+            K.KernelInput(name="E", type="obj", obj_attr="E"),
+            K.KernelInput(name="A", type="const", const_value=0.5),
+            K.KernelInput(name="sel", type="obj_track")]
+        prog.output_metadata = [K.KernelOutput(name="score"),
+                                K.KernelOutput(name="hit", ctype="int")]
+        prog.build_kernel()
+        prog.run(st)
+        t0 = time.perf_counter()
+        out = prog.run(st)
+        outs["cpu" if where == "cpu" else "card"] = (
+            out, prog.sel, time.perf_counter() - t0)
+    (go, gsel, gt), (co, csel, ct) = outs["card"], outs["cpu"]
+    check(all(np.array_equal(go[k], co[k]) for k in co)
+          and np.array_equal(gsel, csel) and 0 < go["hit"].sum() < BRIDGE_N,
+          "KernelProgram: the card's outputs differ from the CPU's")
+    print(f"KernelProgram: outputs and tracked indices equal on the card "
+          f"and the CPU ({int(go['hit'].sum())} hits); run() {gt * 1e3:.2f}"
+          f" ms on the card, {ct * 1e3:.2f} ms on the CPU, host arrays "
+          f"included [{card}]", flush=True)
+
+    phase("profiling: a trace of a fused run and ChunkTimerStep rows")
+    tmp = tempfile.mkdtemp()
+    sim, _ = main_plan_sim(phys, BRIDGE_N, dev, 512, 256)
+    with profiling.trace(tmp) as prof:
+        sim.start()
+        sim.join()
+        torch.cuda.synchronize()
+    files = os.listdir(tmp)
+    check(len(files) == 1, f"trace files {files}")
+    with open(os.path.join(tmp, files[0])) as f:
+        names = {e.get("name", "") for e in _json.load(f)["traceEvents"]}
+    kern = sorted(n for n in names if "fused_seq_kernel" in n)
+    check(sim.used_fused and kern, "the trace names no transport kernel")
+    dev_ms = sum(e.device_time_total for e in prof.key_averages()
+                 if "fused_seq_kernel" in e.key) / 1e3
+    os.remove(os.path.join(tmp, files[0]))
+    os.rmdir(tmp)
+    timer = profiling.ChunkTimerStep()
+    sim, _ = main_plan_sim(phys, BRIDGE_N, dev, 96, 32)
+    sim.add_step(9, timer)
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # [unsupported-step]: generic tier
+        run_sim(torch, sim)
+    check(not sim.used_fused and [r[0] for r in timer.data] == [32] * 3,
+          f"ChunkTimerStep rows {timer.data}")
+    print(f"profiling.trace: {files[0]} names {kern[0][:60]}..., "
+          f"{dev_ms:.2f} ms of device time in it; ChunkTimerStep on the "
+          f"generic tier (unsupported-step, as in the JAX package): "
+          + ", ".join(f"({i}, {w * 1e3:.2f} ms, {r:.4e} photon-steps/s)"
+                      for i, w, r in timer.data) + f" [{card}]", flush=True)
 
 
 if __name__ == "__main__":

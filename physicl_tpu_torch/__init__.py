@@ -14,7 +14,12 @@ and user code (``ElementwiseStep``, ``ReduceMeasureStep``,
 :class:`physicl_tpu_torch.kernels.KernelStep`), recorded into programs the
 kernel interprets. Where the fused prover refuses a plan, or with
 ``Simulation(fuse="off")``, the run goes to the generic step tier: every
-step's ``apply`` as PyTorch tensor ops in an early-exit chunk loop. The
+step's ``apply`` as PyTorch tensor ops in an early-exit chunk loop. Runs
+take mid-run ``add_obj`` / ``add_photons`` / ``remove_obj`` edits and
+``spatial_sort``, checkpoint in the JAX package's format
+(:mod:`physicl_tpu_torch.utils.checkpoint`), and profile through
+:mod:`physicl_tpu_torch.utils.profiling`; ``KernelInput`` /
+``KernelOutput`` / ``KernelProgram`` are the declarative kernel bridge. The
 package imports ``torch`` and never ``jax``.
 """
 
@@ -47,6 +52,12 @@ from physicl_tpu_torch import newton  # noqa: F401
 from physicl_tpu_torch import light  # noqa: F401
 from physicl_tpu_torch import polarization  # noqa: F401
 from physicl_tpu_torch import kernels  # noqa: F401
+from physicl_tpu_torch import utils  # noqa: F401
+from physicl_tpu_torch.kernels import (
+    KernelInput,
+    KernelOutput,
+    KernelProgram,
+)
 
 __version__ = "0.1.0"
 
@@ -75,4 +86,8 @@ __all__ = [
     "light",
     "polarization",
     "kernels",
+    "utils",
+    "KernelInput",
+    "KernelOutput",
+    "KernelProgram",
 ]

@@ -17,11 +17,14 @@ exception re-raised, ``get_state()``, ``sim.ts``, ``step.data`` and
   iteration per chunk (host-exact mode).
 
 Between chunks the engine recycles a continuous source's dead slots,
-shrinks the arena (``auto_shrink``, on by default as in the JAX package)
-and applies chunk-boundary population control
-(:mod:`physicl_tpu_torch.population`). Not ported yet, and refused with
-``NotImplementedError`` rather than run differently: mid-run
-injection/removal, checkpoints, device meshes and the spatial sort.
+shrinks the arena (``auto_shrink``, on by default as in the JAX package),
+applies mid-run ``add_obj`` / ``add_photons`` / ``remove_obj`` edits and
+chunk-boundary population control (:mod:`physicl_tpu_torch.population`),
+and with ``spatial_sort=K`` reorders the population by voxel every K
+dispatches. ``save_checkpoint`` / ``restore_checkpoint`` share the JAX
+package's file format (:mod:`physicl_tpu_torch.utils.checkpoint`). Not
+ported yet, and refused with ``NotImplementedError`` rather than run
+differently: device meshes.
 """
 
 from __future__ import annotations
@@ -66,6 +69,12 @@ class IndexException(Exception):
 
 class _HostOnlyPredicate(Exception):
     """Signals during probing that an exit predicate needs host values."""
+
+
+_MIDRUN_FALLBACK = (
+    "fused pipeline disabled for the rest of the run: a mid-run injection "
+    "broke its proven invariants (another species, or another speed under "
+    "the const-norm rule); continuing on the generic step tier.")
 
 
 def _not_ported(what: str):
@@ -696,6 +705,18 @@ class Simulation(threading.Thread):
     ``setup_seconds`` is the host time from ``start()`` to the first
     dispatch (state build, step setup, prover).
 
+    During a run, ``add_obj`` / ``add_photons`` queue particles that the
+    engine writes into fresh slots at the next chunk boundary (growing the
+    capacity where they do not fit), and ``remove_obj`` queues the removal
+    of an object added with ``add_obj``; where the injected particles break
+    the fused plan's invariants (another species, another speed under the
+    const-norm rule) the run goes on, from that boundary, on the generic
+    tier. ``spatial_sort=K`` reorders the population by the flat index of
+    its nearest voxel of the run's first ``light.voxel_density`` medium
+    every K dispatches (:func:`physicl_tpu_torch.ops.compaction.
+    make_spatial_sort`); it is refused with a warning where a step needs
+    stable slot ids, in host-exact mode, or with no voxel medium.
+
     ``population_log`` lists the run's arena events: ``("capacity-stop",
     chunk index, iteration, spawn mark)`` where a continuous source finds
     the arena full, ``("recycle", chunk index, spawn mark before,
@@ -781,6 +802,19 @@ class Simulation(threading.Thread):
         self._host_n_alive = 0
         self._initial_count = 0  # slots of the initial population
         self._hwm = 0            # spawn mark (trace rows cover [0, hwm))
+        # mid-run edits, applied at the next chunk boundary
+        self._pending_inject: List[tuple] = []
+        self._pending_remove: List[int] = []
+        self._inject_lock = threading.Lock()
+        self._slot_of: Dict[int, int] = {}  # id(obj) -> slot, for remove_obj
+        self._restored = None  # (state, meta) from restore_checkpoint
+        self._restored_run = False  # this run's state came from one
+        # spatial_sort: None until the run resolves it (then the reorder,
+        # or None where it was refused)
+        self._sort_resolved = False
+        self._sort_fn = None
+        self._sort_every = 1
+        self._sort_tick = 0
 
     @property
     def max_record_bytes(self) -> int:
@@ -803,8 +837,12 @@ class Simulation(threading.Thread):
         return _HostObjectsProxy(self)
 
     def add_obj(self, obj: Object) -> None:
+        """Add an object. During a run it is injected at the next chunk
+        boundary (the reference's threaded loop allows it)."""
         if self.running:
-            _not_ported("mid-run add_obj (population maintenance)")
+            with self._inject_lock:
+                self._pending_inject.append(("obj", obj))
+            return
         self._pending_objects.append(obj)
         self._objects_cache = None
 
@@ -814,9 +852,12 @@ class Simulation(threading.Thread):
 
     def add_photons(self, bulk: Dict[str, Any]) -> None:
         """Add a bulk population from
-        :func:`physicl_tpu_torch.light.generate_photon_state`."""
+        :func:`physicl_tpu_torch.light.generate_photon_state`. During a
+        run it is injected at the next chunk boundary."""
         if self.running:
-            _not_ported("mid-run add_photons (population maintenance)")
+            with self._inject_lock:
+                self._pending_inject.append(("bulk", bulk))
+            return
         self._pending_bulk.append(bulk)
         self._objects_cache = None
 
@@ -829,8 +870,25 @@ class Simulation(threading.Thread):
         self.add_photons(bulk)
 
     def remove_obj(self, obj: Object) -> None:
+        """Remove an object. During a run its slot is cleared at the next
+        chunk boundary; only objects added with ``add_obj`` have an
+        identity (bulk particles do not), and removal needs stable slots:
+        it raises ``RuntimeError`` where a shrink, a recycling source or an
+        active spatial sort may move them."""
         if self.running:
-            _not_ported("mid-run remove_obj (population maintenance)")
+            movers = self._slot_movers()
+            if movers:
+                raise RuntimeError(
+                    "Mid-run removal needs stable slots, and "
+                    + " and ".join(movers) + " may move them: disable "
+                    "auto_shrink, continuous sources and spatial_sort, or "
+                    "remove before start().")
+            slot = self._slot_of.get(id(obj))
+            if slot is None:
+                raise ValueError("Object was not added via add_obj().")
+            with self._inject_lock:
+                self._pending_remove.append(slot)
+            return
         self._pending_objects.remove(obj)
         self._objects_cache = None
 
@@ -846,10 +904,24 @@ class Simulation(threading.Thread):
         self.steps.pop(idx)
 
     def save_checkpoint(self, path: str) -> None:
-        _not_ported("save_checkpoint")
+        """Snapshot the simulation's state to an .npz file, in the JAX
+        package's format (:mod:`physicl_tpu_torch.utils.checkpoint`)."""
+        from physicl_tpu_torch.utils.checkpoint import save_checkpoint
+
+        save_checkpoint(self, path)
 
     def restore_checkpoint(self, path: str) -> None:
-        _not_ported("restore_checkpoint")
+        """Resume from a snapshot of either package: the next ``start()``
+        continues from it (its clock, ``sim.ts``, planes and spawn mark,
+        re-padded to this run's capacity) instead of building the state
+        from added objects."""
+        from physicl_tpu_torch.utils.checkpoint import load_checkpoint
+
+        if self.running:
+            raise RuntimeError("Cannot restore while the simulation is "
+                               "running.")
+        self._restored = load_checkpoint(path, self.device)
+        self._objects_cache = None
 
     def get_state(self):
         if self.state_need_lock:
@@ -891,6 +963,119 @@ class Simulation(threading.Thread):
                      and not stable_ids and emit_per_iter == 0)
         return shrink_ok, emit_per_iter > 0 and not stable_ids, emit_per_iter
 
+    def _slot_movers(self) -> List[str]:
+        """What may move slots in this configuration: a shrink, a
+        recycling source, a spatial sort. The sort counts only where it is
+        in effect: once the run has resolved it, only if it was not
+        refused (the JAX package counts a refused sort too)."""
+        shrink_ok, recycle_ok, _ = self._population_policies()
+        sort = (self._sort_fn is not None if self._sort_resolved
+                else int(self.spatial_sort or 0) > 0)
+        return [name for name, on in (("auto_shrink", shrink_ok),
+                                      ("a continuous source", recycle_ok),
+                                      ("spatial_sort", sort)) if on]
+
+    def _inject_into_state(self, state: SimState, items):
+        """Write queued objects and bulks (objects first, then bulks, as
+        the JAX package orders them) into slots ``[hwm, hwm + k)``, with
+        ``hwm`` the larger of the host spawn mark and the state's (a
+        device emitter may have moved it); the capacity grows to
+        ``pad_capacity(hwm + k)`` where they do not fit (new slots zero,
+        as the JAX package pads them). Extras planes the new particles
+        lack are zero in their rows. Returns ``(state, k)``."""
+        objs = [x for kind, x in items if kind == "obj"]
+        bulks = [x for kind, x in items if kind == "bulk"]
+        k = len(objs) + sum(int(b["n"]) for b in bulks)
+        if k == 0:
+            return state, 0
+        dev = state.device
+        sub = SimState.from_population(objs, bulks, device=dev, capacity=k,
+                                       dtype=self.dtype)
+        hwm = max(self._hwm, int(state.n_spawned))
+        cap = state.capacity
+        if hwm + k > cap:
+            new_cap = pad_capacity(hwm + k)
+
+            def grow(x):
+                if x.ndim == 0 or x.shape[-1] != cap:
+                    return x
+                tail = torch.zeros(x.shape[:-1] + (new_cap - cap,),
+                                   dtype=x.dtype, device=dev)
+                return torch.cat([x, tail], dim=-1)
+
+            state = state.replace(
+                r=grow(state.r), dr=grow(state.dr), v=grow(state.v),
+                dv=grow(state.dv), a=grow(state.a), E=grow(state.E),
+                alive=grow(state.alive), otype=grow(state.otype),
+                w=grow(state.w),
+                extras={n: grow(x) for n, x in state.extras.items()})
+
+        def put(dst, src):
+            out = dst.clone()
+            out[..., hwm:hwm + k] = src[..., :k].to(dst.dtype)
+            return out
+
+        extras = {}
+        for name, arr in state.extras.items():
+            src = sub.extras.get(name)
+            if src is None:
+                src = torch.zeros(arr.shape[:-1] + (k,), dtype=arr.dtype,
+                                  device=dev)
+            extras[name] = put(arr, src)
+        for j, o in enumerate(objs):  # identity registry for remove_obj
+            self._slot_of[id(o)] = hwm + j
+        state = state.replace(
+            r=put(state.r, sub.r), dr=put(state.dr, sub.dr),
+            v=put(state.v, sub.v), dv=put(state.dv, sub.dv),
+            a=put(state.a, sub.a), E=put(state.E, sub.E),
+            alive=put(state.alive, sub.alive),
+            otype=put(state.otype, sub.otype), w=put(state.w, sub.w),
+            extras=extras,
+            n_spawned=torch.full((), hwm + k, dtype=torch.int32,
+                                 device=dev))
+        self._pending_objects.extend(objs)
+        self._hwm = hwm + k
+        return state, k
+
+    @staticmethod
+    def _injection_keeps_plan(provider, items) -> bool:
+        """True iff the injected particles keep the fused plan's proven
+        invariants: the plan's species (any species on a mixed plan, whose
+        otype plane gates each particle) and, under the const-norm rule,
+        the common speed within 1e-4. A bulk built on the card is checked
+        there: the min and max of its norms are the only values read."""
+        from physicl_tpu_torch.ops.fused import SPECIES_MIXED
+
+        speed0 = provider.plan.const_norm_speed
+        species = provider.plan.species
+
+        def speed_ok(s):
+            return speed0 is None or abs(s - speed0) <= 1e-4 * speed0
+
+        for kind, x in items:
+            if kind == "obj":
+                if (species != SPECIES_MIXED
+                        and getattr(x, "_obj_type_code", 0) != species):
+                    return False
+                v = np.asarray(raw_code_value(x.v), np.float64).reshape(3)
+                if not speed_ok(float(np.linalg.norm(v))):
+                    return False
+                continue
+            if species != SPECIES_MIXED and int(x["otype"]) != species:
+                return False
+            if speed0 is None:
+                continue
+            v = x["v"]
+            if isinstance(v, torch.Tensor):
+                norms = torch.sqrt((v.to(torch.float32) ** 2).sum(0))
+                lo, hi = torch.stack([norms.min(), norms.max()]).tolist()
+            else:
+                norms = np.linalg.norm(np.asarray(v, np.float64), axis=0)
+                lo, hi = float(norms.min()), float(norms.max())
+            if not (speed_ok(lo) and speed_ok(hi)):
+                return False
+        return True
+
     def _ordered_steps(self) -> List[Step]:
         # insertion order, NOT index order (reference semantics)
         steps = list(self.steps.values())
@@ -906,20 +1091,44 @@ class Simulation(threading.Thread):
                              f"{self.fuse!r}")
         if self.mesh is not None:
             _not_ported("mesh= (multi-device runs)")
-        if int(self.spatial_sort or 0):
-            _not_ported("spatial_sort=")
 
     def _init_run_state(self) -> SimState:
-        n0 = len(self._pending_objects) + sum(
-            int(b["n"]) for b in self._pending_bulk)
-        cap = (self.capacity if self.capacity is not None
-               else pad_capacity(max(n0, 1)))
-        state = SimState.from_population(
-            self._pending_objects, self._pending_bulk, device=self.device,
-            seed=self.seed, capacity=cap, dtype=self.dtype)
+        """Build the initial state from the added objects and bulks, or
+        take a restored checkpoint's: its ``sim.ts`` and initial count,
+        its planes re-padded to this run's capacity (``capacity=`` where
+        set, else the snapshot's, at least its spawn mark, rounded to the
+        16384-slot pad) and its spawn mark clamped to that capacity. A
+        restored state ignores the added population, as the JAX package's
+        does."""
+        self._restored_run = self._restored is not None
+        if self._restored_run:
+            from physicl_tpu_torch.utils.checkpoint import repad_state
+
+            state, meta = self._restored
+            self._restored = None
+            self.ts = list(meta.get("ts", []))
+            self._initial_count = int(meta.get("initial_count", 0))
+            n0 = int(state.n_alive)
+            hwm = int(meta.get("hwm", state.capacity))
+            want = max(self.capacity if self.capacity is not None
+                       else state.capacity, hwm, 1)
+            target = pad_capacity(want)
+            if target != state.capacity:
+                state = repad_state(state, target, hwm=hwm)
+            self._hwm = min(hwm, target)
+        else:
+            n0 = len(self._pending_objects) + sum(
+                int(b["n"]) for b in self._pending_bulk)
+            cap = (self.capacity if self.capacity is not None
+                   else pad_capacity(max(n0, 1)))
+            state = SimState.from_population(
+                self._pending_objects, self._pending_bulk,
+                device=self.device, seed=self.seed, capacity=cap,
+                dtype=self.dtype)
+            self._initial_count = self._hwm = n0
         self._host_n_alive = n0
-        self._initial_count = self._hwm = n0
-        self._host_t = self._host_dt = 0.0
+        self._host_t, self._host_dt = (
+            float(x) for x in torch.stack([state.t, state.dt]).tolist())
         self.sim_state = state
         return state
 
@@ -1059,7 +1268,7 @@ class Simulation(threading.Thread):
         return notes
 
     def _build_execution(self, steps: List[Step], state: SimState,
-                         warn: bool = True):
+                         allow_fuse: bool = True, warn: bool = True):
         """Choose the execution strategy: the fused tier when the prover
         accepts the plan, else the generic tier (chunked when the exit
         predicate evaluates on the device or behaves as extinction, chunk 1
@@ -1068,7 +1277,9 @@ class Simulation(threading.Thread):
         a prover refusal that the JAX engine shares falls back: a limit of
         the port's kernel raises (``Simulation(fuse="off")`` runs such a
         plan on the generic tier), and an error while building or launching
-        a kernel propagates from the dispatch."""
+        a kernel propagates from the dispatch. ``allow_fuse=False`` skips
+        the prover: a mid-run injection broke the fused plan's
+        invariants."""
         from physicl_tpu_torch.ops.pipeline import (
             FusedRefusal,
             is_kernel_limit,
@@ -1078,7 +1289,7 @@ class Simulation(threading.Thread):
 
         refusals: List[tuple] = []
         provider = None
-        if self.fuse == "auto":
+        if allow_fuse and self.fuse == "auto":
             provider = try_build_fused(self, steps, state, report=refusals)
         boundary = [type(s).__name__ for s in steps
                     if getattr(s, "at_boundary", False)]
@@ -1146,7 +1357,7 @@ class Simulation(threading.Thread):
         # raises in the probe iteration leaves the refusals readable
         self.plan_report = PlanReport(
             mode="generic", chunk=-1, fuse_setting=self.fuse,
-            allow_fuse=True, exit_tier=exit_tier, refusals=refusals,
+            allow_fuse=allow_fuse, exit_tier=exit_tier, refusals=refusals,
             notes=["provisional: the generic plan did not finish"])
         # warned before any step's apply runs, so that a step failing on
         # the generic tier still shows why the run went there
@@ -1167,6 +1378,8 @@ class Simulation(threading.Thread):
                 msg = (f"fused pipeline refused [{code}]: {detail} — "
                        "running the generic step tier instead. "
                        "sim.explain_plan() has the full decision.")
+            elif not allow_fuse and self.fuse == "auto":
+                msg = _MIDRUN_FALLBACK + " sim.explain_plan() has details."
             if msg is not None:
                 self._warned_fallback = True
                 warnings.warn(msg, RuntimeWarning, stacklevel=3)
@@ -1183,11 +1396,13 @@ class Simulation(threading.Thread):
             chunk = max(1, min(chunk,
                                (state.capacity // 2) // emit_per_iter))
         self.chunk_used = chunk
+        notes = self._generic_notes(boundary)
+        if not allow_fuse and self.fuse == "auto":
+            notes.insert(0, _MIDRUN_FALLBACK)
         self.plan_report = PlanReport(
             mode="host-exact" if not exit_traced else "generic",
-            chunk=chunk, fuse_setting=self.fuse, allow_fuse=True,
-            exit_tier=exit_tier, refusals=refusals,
-            notes=self._generic_notes(boundary))
+            chunk=chunk, fuse_setting=self.fuse, allow_fuse=allow_fuse,
+            exit_tier=exit_tier, refusals=refusals, notes=notes)
         return ExecPlan(provider=None,
                         chunk_fn=self._build_chunk_fn(steps, exit_fn, chunk),
                         exit_traced=exit_traced, exit_fn=exit_fn,
@@ -1198,7 +1413,7 @@ class Simulation(threading.Thread):
         ``start()`` (plans on a transient state of its own, with its own
         generator, without running) or after."""
         if self.plan_report is None:
-            prior = self.sim_state
+            prior, restored, ts = self.sim_state, self._restored, self.ts
             try:
                 self._check_supported()
                 steps = self._ordered_steps()
@@ -1217,7 +1432,7 @@ class Simulation(threading.Thread):
                         f"the generic tier's probe iteration raised "
                         f"{type(e).__name__}: {e}")
             finally:
-                self.sim_state = prior
+                self.sim_state, self._restored, self.ts = prior, restored, ts
         return self.plan_report.describe()
 
     # -- run loop ------------------------------------------------------------
@@ -1262,12 +1477,83 @@ class Simulation(threading.Thread):
         self._collect_records(steps, records, n_valid)
         return done, final_state
 
-    def _drive_fused(self, plan, pop, steps, state: SimState) -> SimState:
+    def _setup_spatial_sort(self, steps, plan):
+        """The ``spatial_sort=K`` reorder, or None with a warning naming
+        why it cannot apply: ``[stable-ids]`` (a step keeps rows by slot),
+        ``[host-exact]`` (the exit is checked on the host every iteration,
+        where the user sees slot order) or ``[no-voxel-table]`` (no
+        ``light.voxel_density`` medium to key it on). Any voxel medium
+        keys it, whatever its size: the port's kernel reads every grid from
+        device memory (the JAX package refuses grids past its in-VMEM table
+        caps as ``[no-voxel-table]``)."""
+        if int(self.spatial_sort or 0) <= 0:
+            return None
+        if any(getattr(s, "needs_stable_ids", False) for s in steps):
+            warnings.warn(
+                "spatial_sort disabled [stable-ids]: a step needs stable "
+                "particle slots (path tracing records rows by slot id)",
+                RuntimeWarning)
+            return None
+        if not plan.exit_traced:
+            warnings.warn(
+                "spatial_sort disabled [host-exact]: the exit predicate is "
+                "checked on the host every iteration, where sim.objects "
+                "shows slot order", RuntimeWarning)
+            return None
+        spec = next((f.vox_spec for s in steps
+                     for attr in ("variable_n_fn", "_n_fn", "n_fn")
+                     for f in (getattr(s, attr, None),)
+                     if getattr(f, "vox_spec", None) is not None), None)
+        if spec is None:
+            warnings.warn(
+                "spatial_sort disabled [no-voxel-table]: no voxel_density "
+                "medium to key the sort on", RuntimeWarning)
+            return None
+        from physicl_tpu_torch.ops.compaction import make_spatial_sort
+
+        return make_spatial_sort(spec)
+
+    def _note_sort(self) -> None:
+        """Name an active sort in the plan report (again after a re-plan
+        mid-run, which rebuilds the report)."""
+        if self._sort_fn is not None:
+            self.plan_report.notes.append(
+                f"spatial sort: the population is reordered by flat voxel "
+                f"index every {self._sort_every} chunk dispatch(es) (slot "
+                "order is not insertion order)")
+
+    def _maybe_spatial_sort(self, state: SimState, pop,
+                            provider=None) -> SimState:
+        """Every ``spatial_sort``-th dispatch, reorder the population by
+        voxel (device ops only: no drain, no host read). A sort moves
+        slots, so it drops the ``at="chunk"`` split snapshots, as the
+        other slot-moving edits do (the JAX package keeps them, and its
+        next boundary compares other particles' positions). On the fused
+        tier the ``provider`` permutes its packed planes in one gather."""
+        if self._sort_fn is None:
+            return state
+        fire = self._sort_tick % self._sort_every == 0
+        self._sort_tick += 1
+        if not fire:
+            return state
+        from physicl_tpu_torch.ops.compaction import permute_state
+
+        pop._reset_split_snapshots()
+        perm = self._sort_fn.permutation(state)
+        moved = None if provider is None else provider.permute(state, perm)
+        return moved if moved is not None else permute_state(state, perm)
+
+    def _drive_fused(self, plan, pop, steps, state: SimState,
+                     skip_maintain: bool = False):
         """Pipelined dispatch loop: enqueue chunk k+1 before waiting on
         chunk k's records, keeping up to ``fused_pipeline_depth`` chunks in
-        flight; returns the definitive final state. Slot recycling and
-        chunk-boundary population control need a fresh alive count, so the
-        pipeline drains before they run."""
+        flight. Population maintenance needs a fresh alive count, so the
+        pipeline drains before it runs; ``skip_maintain`` skips it at the
+        first boundary, where it just ran. Returns ``(state, finished)``:
+        ``finished`` False means that maintenance replaced the provider (a
+        plan re-proved at a grown capacity, or the generic tier after an
+        injection that broke the plan), and the caller goes on with
+        ``plan``."""
         provider = plan.provider
         depth = max(1, int(self.fused_pipeline_depth))
         if provider.plan.n_stream:
@@ -1279,12 +1565,19 @@ class Simulation(threading.Thread):
             return self._harvest_fused(provider, pending.popleft(), steps)
 
         while True:
-            if pop.needs_attention(state, plan):
+            if not skip_maintain and pop.needs_attention(state, plan):
                 while pending:
                     done, final_state = drain_one()
                     if done:
-                        return final_state
+                        return final_state, True
                 state = pop.maintain(state, plan)
+                if plan.provider is not provider:
+                    return state, False
+            skip_maintain = False
+            if self._sort_fn is not None and not provider.exit_pending():
+                # (no sort before the t-exit's dispatch, which runs no
+                # iteration)
+                state = self._maybe_spatial_sort(state, pop, provider)
             inflight = provider.dispatch(state)
             state = inflight.state
             with self._state_lock:
@@ -1294,11 +1587,11 @@ class Simulation(threading.Thread):
                 while pending:
                     done, final_state = drain_one()
                     if done:
-                        return final_state
+                        return final_state, True
             while len(pending) > depth:
                 done, final_state = drain_one()
                 if done:  # later pending chunks were speculative overshoot
-                    return final_state
+                    return final_state, True
 
     def _fetch(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         """Device tensors to host numpy arrays in one transfer: pinned
@@ -1318,12 +1611,14 @@ class Simulation(threading.Thread):
         ev.synchronize()
         return {k: v.numpy() for k, v in host.items()}
 
-    def _drive_generic(self, plan, pop, steps, state: SimState) -> SimState:
+    def _drive_generic(self, plan, pop, steps, state: SimState,
+                       skip_maintain: bool = False) -> SimState:
         """The generic tier's chunk loop: host-exact exit checks before
         maintenance (so chunk-boundary population control never runs after
-        the final iteration), then maintenance, one chunk, and one batched
-        transfer of ``(valid, done, t, dt, n_alive, n_spawned)`` and the
-        host records."""
+        the final iteration), then maintenance (skipped at the first
+        boundary with ``skip_maintain``: the fused tier's fell back there),
+        the spatial sort, one chunk, and one batched transfer of ``(valid,
+        done, t, dt, n_alive, n_spawned)`` and the host records."""
         dev_keys = plan.chunk_fn.dev_keys
         while True:
             if not plan.exit_traced:
@@ -1331,7 +1626,11 @@ class Simulation(threading.Thread):
                                  self._host_n_alive)
                 if bool(self.exit(view)):
                     break
-            state = pop.maintain(state, plan)
+            if skip_maintain:
+                skip_maintain = False
+            else:
+                state = pop.maintain(state, plan)
+            state = self._maybe_spatial_sort(state, pop)
             state, done, records, valid = plan.chunk_fn(state)
             ready = None
             if state.device.type == "cuda":
@@ -1363,6 +1662,23 @@ class Simulation(threading.Thread):
                 break
         return state
 
+    def _drive(self, plan, pop, steps, state: SimState) -> SimState:
+        """Drive the run across tiers: the fused loop while the plan has a
+        provider (re-entered when maintenance re-proves it), then, after a
+        mid-run fallback, the generic loop, whose first boundary does not
+        maintain again (boundary splits would apply twice); last, the
+        removals queued during the final chunk."""
+        skip_maintain = False
+        while plan.provider is not None:
+            state, finished = self._drive_fused(plan, pop, steps, state,
+                                                skip_maintain)
+            if finished:
+                return pop.flush_removals(state)
+            self._note_sort()
+            skip_maintain = True
+        state = self._drive_generic(plan, pop, steps, state, skip_maintain)
+        return pop.flush_removals(state)
+
     def _run_impl(self) -> None:
         from physicl_tpu_torch.population import PopulationManager
 
@@ -1374,23 +1690,33 @@ class Simulation(threading.Thread):
         self.population_log = []
         self.running = True
         self._objects_cache = None
+        self._sort_resolved = False
         state = self._init_run_state()
+        # identity registry for mid-run remove_obj: the objects hold the
+        # first slots in insertion order (none of them is in a restored
+        # state)
+        self._slot_of = {} if self._restored_run else {
+            id(o): i for i, o in enumerate(self._pending_objects)}
         steps = self._ordered_steps()
         for s in steps:
             s.setup(self)
         plan = self._build_execution(steps, state)
         self.used_fused = plan.provider is not None
+        self._sort_fn = self._setup_spatial_sort(steps, plan)
+        self._sort_every = max(1, int(self.spatial_sort or 0))
+        self._sort_tick = 0
+        self._sort_resolved = True
+        self._note_sort()
         pop = PopulationManager(self, steps)
         # chunk-boundary importance snapshots start from the initial
         # positions on both tiers
         pop.prime_boundary_snapshots(state)
         self.setup_seconds = time.perf_counter() - t0
-        drive = self._drive_fused if self.used_fused else self._drive_generic
         if self.device.type == "cuda":
             with torch.cuda.device(self.device):
-                drive(plan, pop, steps, state)
+                self._drive(plan, pop, steps, state)
         else:
-            drive(plan, pop, steps, state)
+            self._drive(plan, pop, steps, state)
         with self._state_lock:
             for s in steps:
                 s.terminate(self)

@@ -694,7 +694,9 @@ def voxel_density(grid, origin=(0.0, 0.0, 0.0), spacing=1.0,
     package's in-VMEM table caps and codebook tiers do not apply).
     ``quantize=K`` (2-256) snaps the grid to K quantile-balanced levels
     first, as declared semantics on every path; the largest snap error is
-    ``fn.quantize_err``.
+    ``fn.quantize_err``. ``fn.vox_spec`` holds the grid's ``shape``,
+    ``origin`` and ``spacing``, on which ``Simulation(spatial_sort=K)``
+    keys its reorder.
     """
     grid = np.asarray(raw_code_value(grid), np.float32)
     if grid.ndim != 3:
@@ -739,6 +741,8 @@ def voxel_density(grid, origin=(0.0, 0.0, 0.0), spacing=1.0,
             "outside": outside, "interp": interp}
     fn = _fields.voxel_fn(spec)
     fn.spec = spec
+    # the grid's shape, origin and spacing key Simulation(spatial_sort=K)
+    fn.vox_spec = spec
     fn.quantize_err = quantize_err
     return fn
 

@@ -338,6 +338,29 @@ class FusedProvider:
                                   state.n_spawned.to(torch.int64)]).tolist()
         self.n_h, self.hwm_h = int(counts[0]), int(counts[1])
 
+    def permute(self, state: SimState, perm: torch.Tensor):
+        """``state`` with its slots reordered by ``perm`` (the spatial
+        sort), or None where the packed-state cache does not hold it. One
+        gather of the packed planes takes the place of a gather a plane
+        and of the repack the next dispatch would make; the planes outside
+        the pack (``a``, ``otype``, the extras the kernel does not write
+        back) move by a gather each."""
+        if state is not self._last_state or self._last_packed is None:
+            return None
+        from physicl_tpu_torch.ops.compaction import take_slots
+
+        plan = self.plan
+        wb = set(plan.extras_writeback)
+        packed = self._last_packed.index_select(1, perm)
+        template = state.replace(
+            a=take_slots(state.a, perm), otype=take_slots(state.otype, perm),
+            extras={k: v if k in wb else take_slots(v, perm)
+                    for k, v in state.extras.items()})
+        moved = F.unpack_state(packed, template, plan.extras,
+                               plan.extras_writeback)
+        self._last_state, self._last_packed = moved, packed
+        return moved
+
     def exit_pending(self) -> bool:
         """True when the next dispatch would run no iteration: a t-exit
         already satisfied by the host clock (no chunk-boundary population
@@ -632,16 +655,36 @@ def _whole_periods(chunk: int, every: int, periods, budget: int,
     return max(1, min(chunk, budget // row_bytes)), 1
 
 
-def _population_pol_planes(sim) -> tuple:
-    """The subset of ``("stokes", "pol_ref")`` that any pending source
-    declares (a bulk's ``"extras"`` or an object's attribute). A
-    fluorescent del zeroes each one it finds, so a population that declares
-    only one still packs and writes that one back."""
+def _population_sources(sim, state: SimState) -> tuple:
+    """``(objects, bulks)`` that the prover reads the population's
+    species, speeds and planes from: the pending population the state was
+    built from, or, for a run restored from a checkpoint (whose state
+    ignores the pending population), one bulk view per species of the
+    state's live slots. The JAX prover reads the pending population in
+    both cases, and refuses a restored run without one as
+    ``empty-population`` (its generic scan runs it)."""
+    if not sim._restored_run:
+        return sim._pending_objects, sim._pending_bulk
+    bulks = []
+    for code in torch.unique(state.otype[state.alive]).tolist():
+        idx = torch.nonzero(state.alive & (state.otype == code)).flatten()
+        bulks.append({"n": int(idx.numel()), "otype": int(code),
+                      "v": state.v[:, idx],
+                      "extras": {k: x[..., idx]
+                                 for k, x in state.extras.items()}})
+    return [], bulks
+
+
+def _population_pol_planes(objects, bulks) -> tuple:
+    """The subset of ``("stokes", "pol_ref")`` that any source declares (a
+    bulk's ``"extras"`` or an object's attribute). A fluorescent del
+    zeroes each one it finds, so a population that declares only one
+    still packs and writes that one back."""
     found = set()
-    for b in sim._pending_bulk:
+    for b in bulks:
         found.update(nm for nm in ("stokes", "pol_ref")
                      if nm in (b.get("extras") or {}))
-    for o in sim._pending_objects:
+    for o in objects:
         found.update(nm for nm in ("stokes", "pol_ref") if hasattr(o, nm))
     return tuple(nm for nm in ("stokes", "pol_ref") if nm in found)
 
@@ -649,16 +692,16 @@ def _population_pol_planes(sim) -> tuple:
 _EXTRAS_CORE = {"r", "dr", "v", "dv", "a", "E", "w"}
 
 
-def _population_extras_rows(sim, name: str):
-    """Rows the state assembly gives a pending extras plane (1 for a
-    scalar, 3 for a 3-vector), or None if no pending source declares it."""
+def _population_extras_rows(objects, bulks, name: str):
+    """Rows the state assembly gives an extras plane (1 for a scalar, 3
+    for a 3-vector), or None if no source declares it."""
     if name.startswith("_") or name in _EXTRAS_CORE:
         return None
-    for b in sim._pending_bulk:
+    for b in bulks:
         arr = (b.get("extras") or {}).get(name)
         if arr is not None:
             return 1 if arr.ndim == 1 else 3
-    for o in sim._pending_objects:
+    for o in objects:
         if hasattr(o, name):
             arr = np.asarray(raw_code_value(getattr(o, name)),
                              dtype=np.float64)
@@ -785,9 +828,9 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
     # (charged) particles run with no per-particle type test; a mixed
     # population packs its otype codes as an extras plane that gates the
     # photon ops per particle
-    codes = {int(getattr(o, "_obj_type_code", 0))
-             for o in sim._pending_objects}
-    codes |= {int(b["otype"]) for b in sim._pending_bulk}
+    objects, bulks = _population_sources(sim, state)
+    codes = {int(getattr(o, "_obj_type_code", 0)) for o in objects}
+    codes |= {int(b["otype"]) for b in bulks}
     if not codes:
         _no("empty-population", "no initial objects: add particles before "
             "start()")
@@ -800,7 +843,7 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
     # the Stokes and frame planes the population declares, and whether it
     # declares both (what the polarized ops need; from_population zero-fills
     # the rest: unpolarized, a degenerate frame)
-    declared = _population_pol_planes(sim)
+    declared = _population_pol_planes(objects, bulks)
     has_stokes = declared == ("stokes", "pol_ref")
     pol_steps = (ScatterPolarizedRayleighStep, ScatterPolarizedComptonStep)
     # the polarization planes to pack: both for a polarized scatter or
@@ -830,7 +873,7 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
         extras, packing the planes it needs; a missing one refuses."""
         entries = []
         for name in step.extras:
-            rows = _population_extras_rows(sim, name)
+            rows = _population_extras_rows(objects, bulks, name)
             if rows is None:
                 _no("extras-missing", f"{type(step).__name__} declares "
                     f"extras={step.extras} but no pending population carries "
@@ -928,8 +971,8 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
             ops.append(F._Op("kin"))
         elif type(s) is LorentzForceStep:
             if s.q_over_m is None and not (
-                    any(hasattr(o, "q") for o in sim._pending_objects)
-                    and any(hasattr(o, "m") for o in sim._pending_objects)):
+                    any(hasattr(o, "q") for o in objects)
+                    and any(hasattr(o, "m") for o in objects)):
                 _no("lorentz-per-particle", "LorentzForceStep(q_over_m=None)"
                     " needs per-particle q/m extras and no initial object "
                     "declares q= and m= (newton.ChargedObject)")
@@ -1244,8 +1287,8 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
                         for op in ops)):
         speeds = [float(np.linalg.norm(np.asarray(
             raw_code_value(o.v), np.float64).reshape(3)))
-            for o in sim._pending_objects]
-        for b in sim._pending_bulk:
+            for o in objects]
+        for b in bulks:
             if isinstance(b["v"], torch.Tensor):
                 # device bulk: reduce on the device, fetch two scalars
                 norms = torch.sqrt((b["v"].to(torch.float32) ** 2).sum(0))

@@ -1,5 +1,5 @@
 """Population control between chunks: slot recycling for continuous
-sources, shrinking, and chunk-boundary splitting.
+sources, shrinking, mid-run edits and chunk-boundary splitting.
 
 Counterpart of the JAX package's ``population.PopulationManager``:
 
@@ -12,12 +12,22 @@ Counterpart of the JAX package's ``population.PopulationManager``:
   a quarter of the slots are alive, the survivors are compacted and the
   capacity cut to their padded count, so the remaining chunks launch over
   fewer lanes;
+* remove: a mid-run ``remove_obj`` clears its queued slot's alive flag;
+* inject: a mid-run ``add_obj`` / ``add_photons`` writes the queued
+  particles into fresh slots from the spawn mark, growing the capacity
+  where they do not fit, and keeps the fused plan, re-proves it (a grown
+  capacity under a stream or emitter plan, whose chunk depends on it) or
+  falls back to the generic tier for the rest of the run (particles that
+  break the plan's invariants);
 * boundary splits: ``ImportanceSplitStep`` / ``WeightWindowStep`` with
   ``at="chunk"`` apply once per chunk boundary as torch ops, with a
   generator of their own, so the transport itself keeps the fused tier.
 
-Mid-run injection and removal are not ported (the engine refuses
-``add_obj``/``add_photons``/``remove_obj`` during a run).
+Every slot-moving edit (compaction, shrink, injection, the engine's
+spatial sort) drops the ``at="chunk"`` split snapshots. The JAX package's
+multi-process divergence guard belongs to multi-device runs, which the
+port does not have yet; on one process the JAX package runs without it
+too.
 """
 
 from __future__ import annotations
@@ -78,10 +88,10 @@ class PopulationManager:
                 prime(state)
 
     def _reset_split_snapshots(self) -> None:
-        """A slot-moving edit (compaction, shrink) invalidates every per-slot
-        boundary snapshot: drop it, so the next boundary re-snapshots
-        instead of comparing moved slots (one boundary of splitting is
-        lost)."""
+        """A slot-moving edit (compaction, shrink, injection, a spatial
+        sort) invalidates every per-slot boundary snapshot: drop it, so the
+        next boundary re-snapshots instead of comparing moved slots (one
+        boundary of splitting is lost)."""
         for s in self.split_steps:
             if getattr(s, "_prev_r", None) is not None:
                 s._prev_r = None
@@ -97,9 +107,11 @@ class PopulationManager:
         pressure always drains and lets :meth:`maintain` judge on fresh
         counts; when that judgement was "too few dead slots", repeat drains
         wait until the spawn mark moves or the mirror drops below half."""
+        sim = self.sim
+        if sim._pending_inject or sim._pending_remove:
+            return True
         if self.split_steps:
             return True  # boundary control runs at every boundary
-        sim = self.sim
         # only where compact_shrink would cut the capacity: at the padded
         # minimum the quarter test can hold for good
         if (self.shrink_ok and 0 < sim._host_n_alive < state.capacity // 4
@@ -117,17 +129,83 @@ class PopulationManager:
         return False
 
     def maintain(self, state: SimState, plan: ExecPlan) -> SimState:
-        """Run every applicable policy at a chunk boundary; returns the
-        (possibly new) state."""
+        """Run every applicable policy at a chunk boundary, in the JAX
+        package's order; returns the (possibly new) state. ``plan`` is
+        updated in place where an injection re-proves it or falls back."""
         state = self._recycle(state, plan)
         state = self._shrink(state, plan)
+        state = self._apply_removals(state, plan)
+        state = self._apply_injections(state, plan)
         return self._apply_boundary_splits(state, plan)
+
+    def _apply_removals(self, state: SimState,
+                        plan: Optional[ExecPlan] = None) -> SimState:
+        """Clear the alive flag of every queued ``remove_obj`` slot."""
+        sim = self.sim
+        if not sim._pending_remove:
+            return state
+        with sim._inject_lock:
+            slots, sim._pending_remove = sim._pending_remove, []
+        alive = state.alive.clone()
+        alive[torch.tensor(slots, dtype=torch.int64,
+                           device=state.device)] = False
+        state = state.replace(alive=alive)
+        with sim._state_lock:
+            sim.sim_state = state
+            sim._host_n_alive = int(state.n_alive)
+        if plan is not None and plan.provider is not None:
+            plan.provider.resync(state)
+        return state
+
+    def _apply_injections(self, state: SimState, plan: ExecPlan) -> SimState:
+        """Write the queued particles into the state
+        (``Simulation._inject_into_state``), then: keep the fused plan
+        (the provider re-reads clock, counts and capacity at its next
+        dispatch), re-prove it where the capacity grew under a stream or
+        emitter plan (whose chunk the capacity bounds; the new provider
+        continues the chunk index, so its draws do not repeat chunk 0's),
+        or go to the generic tier for the rest of the run where the
+        particles break the plan's invariants. On the generic tier a grown
+        capacity gets a new chunk function."""
+        sim = self.sim
+        if not sim._pending_inject:
+            return state
+        with sim._inject_lock:
+            items, sim._pending_inject = sim._pending_inject, []
+        self._reset_split_snapshots()
+        old_cap = state.capacity
+        state, k_new = sim._inject_into_state(state, items)
+        with sim._state_lock:
+            sim.sim_state = state
+            sim._host_n_alive += k_new
+        provider = plan.provider
+        if provider is None:
+            if state.capacity != old_cap:
+                plan.chunk_fn = sim._build_chunk_fn(self.steps, plan.exit_fn,
+                                                    plan.chunk)
+            return state
+        if not sim._injection_keeps_plan(provider, items):
+            new_plan = sim._build_execution(self.steps, state,
+                                            allow_fuse=False)
+            plan.__dict__.update(new_plan.__dict__)
+            sim.used_fused = False
+        elif state.capacity != old_cap and (provider.plan.n_stream
+                                            or provider.emit_ops):
+            new_plan = sim._build_execution(self.steps, state)
+            if new_plan.provider is not None:
+                new_plan.provider.chunk_idx = provider.chunk_idx
+            plan.__dict__.update(new_plan.__dict__)
+            sim.used_fused = new_plan.provider is not None
+        else:
+            provider.invalidate()
+        return state
 
     def _recycle(self, state: SimState, plan: ExecPlan) -> SimState:
         """Compact when the next chunk could exhaust the arena and fewer
-        than half of the used slots are alive."""
+        than half of the used slots are alive (not with an injection
+        queued: it places its particles itself)."""
         sim = self.sim
-        if not self.recycle_ok:
+        if not self.recycle_ok or sim._pending_inject:
             return state
         provider = plan.provider
         hwm = provider.hwm_h if provider is not None else sim._hwm
@@ -156,12 +234,12 @@ class PopulationManager:
         4`` (the JAX package's ``PopulationManager._shrink``): never where
         a step needs stable slot ids, a continuous source runs, or the user
         set the capacity (``shrink_ok``), and never with an injection
-        pending (the port has none: mid-run injection is refused). The
-        fused provider then plans its next chunk at the new capacity; the
-        generic tier gets a new chunk function."""
+        queued. The fused provider then plans its next chunk at the new
+        capacity; the generic tier gets a new chunk function."""
         sim = self.sim
         n = sim._host_n_alive
-        if not self.shrink_ok or n == 0 or n >= state.capacity // 4:
+        if (not self.shrink_ok or n == 0 or sim._pending_inject
+                or n >= state.capacity // 4):
             return state
         new_state = compact_shrink(state, n)
         if new_state.capacity == state.capacity:
@@ -223,3 +301,8 @@ class PopulationManager:
         if plan.provider is not None:
             plan.provider.resync(state, counts=(n_h, hwm_h))
         return state
+
+    def flush_removals(self, state: SimState) -> SimState:
+        """Removals queued during the final chunk, applied after the loop
+        (the JAX package's single-process branch)."""
+        return self._apply_removals(state)

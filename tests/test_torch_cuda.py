@@ -641,3 +641,142 @@ def test_shrink_card_equals_cpu(dev):
     assert gt == ct
     np.testing.assert_array_equal(gm, cm)
     assert torch.equal(gp, cp)
+
+
+def _midrun_sim(case, where, ck=None):
+    """chip_smoke's card-against-CPU runs at 2**14 photons and 256
+    iterations: an injection, a removal, a non-photon injection (the
+    fallback to the generic tier) or a restore of ``ck``."""
+    import physicl_tpu_torch as phys
+    from chip_smoke import collect_hook, main_plan_sim
+
+    light = phys.light
+    n = 1 << 14
+    dirs = np.random.default_rng(41).normal(size=(3, n))
+    dirs /= np.linalg.norm(dirs, axis=0)
+    if case == "restore":
+        sim, meas = main_plan_sim(phys, 0, where, 256, 32, seed=8)
+        sim.restore_checkpoint(ck)
+        return sim, meas
+    sim, meas = main_plan_sim(phys, n, where, 256, 32, seed=6,
+                              scatter=case != "fallback", dirs=dirs)
+    if case == "inject":
+        collect_hook(meas, 2, lambda s: s.add_photons(
+            light.generate_photon_state(1024, E=2.0, device=where,
+                                        v=dirs[:, :1024] * float(light.c))))
+    elif case == "remove":
+        objs = [light.PhotonObject(E=np.double(5.0 + i),
+                                   v=np.array([float(light.c), 0.0, 0.0]))
+                for i in range(16)]
+        for o in objs:
+            sim.add_obj(o)
+        collect_hook(meas, 2, lambda s: s.remove_obj(objs[3]))
+    else:
+        collect_hook(meas, 2, lambda s: s.add_obj(phys.Object(
+            v=phys.Measurement([5.0, 0, 0], "m**1 s**-1"))))
+    return sim, meas
+
+
+@pytest.mark.parametrize("case", ["inject", "remove", "fallback", "restore"])
+def test_midrun_edits_card_equal_cpu(dev, case, tmp_path):
+    """Mid-run edits and a restored run on the card and on the CPU twin:
+    ``sim.ts``, records and final planes bitwise equal (the fallback's
+    generic part is draw-free)."""
+    import warnings
+
+    import physicl_tpu_torch as phys
+    from chip_smoke import main_plan_sim
+
+    ck = None
+    if case == "restore":
+        ck = str(tmp_path / "ck.npz")
+        first, _ = main_plan_sim(phys, 1 << 14, "cuda", 128, 32, seed=8)
+        first.start()
+        first.join()
+        first.save_checkpoint(ck)
+    runs = {}
+    for where in ("cuda", "cpu"):
+        sim, meas = _midrun_sim(case, where, ck)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the fallback's warning
+            sim.start()
+            sim.join()
+        runs[where] = (sim, np.asarray(meas.data),
+                       F.pack_state(sim.sim_state).cpu())
+    (gs, gd, gp), (cs, cd, cp) = runs["cuda"], runs["cpu"]
+    assert gs.used_fused == cs.used_fused == (case != "fallback")
+    assert gs.ts == cs.ts and len(gs.ts) == 256
+    np.testing.assert_array_equal(gd, cd)
+    assert torch.equal(gp, cp)
+
+
+def test_load_checkpoint_defaults_to_the_card(dev, tmp_path):
+    """load_checkpoint / state_from_checkpoint put the state on the card
+    unless asked for the CPU, as Simulation does."""
+    import physicl_tpu_torch as phys
+    from physicl_tpu_torch.utils import checkpoint as TC
+
+    ck = str(tmp_path / "ck.npz")
+    sim = phys.Simulation(seed=3)
+    sim.add_photons(phys.light.generate_photon_state(1024, E=1.0))
+    sim.save_checkpoint(ck)
+    state, meta = TC.load_checkpoint(ck)
+    assert state.r.device.type == "cuda" and state.key.device.type == "cuda"
+    assert TC.state_from_checkpoint(ck).E.device.type == "cuda"
+    assert TC.load_checkpoint(ck, device="cpu")[0].r.device.type == "cpu"
+    assert meta["seed"] == 3
+
+
+def test_spatial_sort_card_equals_cpu(dev):
+    """make_spatial_sort's permutation on the card equals the CPU's."""
+    from physicl_tpu_torch.ops.compaction import make_spatial_sort
+    from physicl_tpu_torch.state import SimState
+
+    rng = np.random.default_rng(3)
+    C = 1 << 16
+    alive = np.zeros(C, bool)
+    alive[:60000] = rng.uniform(size=60000) < 0.8
+    spec = {"shape": (32, 16, 8), "origin": (-1.0, 0.5, 0.0),
+            "spacing": (0.5, 1.25, 2.0)}
+    fields = {k: rng.uniform(-5, 20, (3, C)).astype(np.float32)
+              for k in ("r", "dr", "v", "dv", "a")}
+    fields.update(E=np.arange(C, dtype=np.float32), alive=alive,
+                  otype=np.ones(C, np.int32), w=np.ones(C, np.float32),
+                  t=np.float32(0.0), dt=np.float32(1e-3),
+                  n_spawned=np.int32(60000))
+    outs = [make_spatial_sort(spec)(SimState.from_numpy(fields, where)).E
+            .cpu() for where in ("cuda", "cpu")]
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_kernel_program_card_equals_cpu(dev):
+    """KernelProgram.run without draws: the card's outputs and tracked
+    indices equal the CPU's."""
+    import physicl_tpu_torch as phys
+    from physicl_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(5)
+    n = 1 << 16
+    bulk = phys.light.generate_photon_state(
+        n, E=rng.uniform(0.5, 2.0, n), r=rng.uniform(-1e6, 1e6, (3, n)))
+
+    def body(valid, r0, E, A):
+        score = abs(r0) * A + E
+        return {"score": score * valid, "hit": (score > A * 5e5) & valid}
+
+    outs = []
+    for where in ("cuda", "cpu"):
+        prog = K.KernelProgram(None, "p", body)
+        prog.prep_metadata = [
+            K.KernelInput(name="r0", type="obj", obj_attr="r[0]"),
+            K.KernelInput(name="E", type="obj", obj_attr="E"),
+            K.KernelInput(name="A", type="const", const_value=0.5),
+            K.KernelInput(name="sel", type="obj_track")]
+        prog.output_metadata = [K.KernelOutput(name="score"),
+                                K.KernelOutput(name="hit", ctype="int")]
+        st = phys.SimState.from_population([], [bulk], device=where)
+        outs.append((prog.build_kernel().run(st), prog.sel))
+    (g, gsel), (c, csel) = outs
+    for k in c:
+        np.testing.assert_array_equal(g[k], c[k])
+    np.testing.assert_array_equal(gsel, csel)

@@ -431,8 +431,10 @@ def test_unported_exits_refuse(code, kw):
                                 {"spatial_sort": 2}, {"mesh": object()}])
 def test_unported_simulation_options_refuse(kw):
     """fuse="off" runs the generic tier (the user's choice: no warning);
-    auto_shrink=True, the default as in the JAX package, runs fused; the
-    others are still refused."""
+    auto_shrink=True, the default as in the JAX package, runs fused;
+    spatial_sort=2 runs fused, unsorted, with one ``[no-voxel-table]``
+    warning (this plan has no voxel medium to key it on); mesh= is still
+    refused."""
     s, _ = _build(T, lambda c: c.t >= 0.01, device="cpu", **kw)
     if kw == {"auto_shrink": True}:
         assert T.Simulation().auto_shrink is True
@@ -447,6 +449,14 @@ def test_unported_simulation_options_refuse(kw):
             s._run_impl()
         assert not s.used_fused and len(s.ts) == 10
         assert "fusion not attempted" in s.explain_plan()
+        return
+    if kw == {"spatial_sort": 2}:
+        with warnings.catch_warnings(record=True) as record:
+            warnings.simplefilter("always")
+            s._run_impl()
+        assert [str(w.message).split(":")[0] for w in record] == [
+            "spatial_sort disabled [no-voxel-table]"]
+        assert s.used_fused and len(s.ts) == 10 and s._sort_fn is None
         return
     with pytest.raises(NotImplementedError, match="not ported"):
         s._run_impl()
