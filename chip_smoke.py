@@ -366,6 +366,30 @@ Phases (any failure exits non-zero and prints no result line):
 45. profiling: ``profiling.trace`` around a fused run at 2**20 photons
     writes a Chrome trace that names ``fused_seq_kernel``;
     ``ChunkTimerStep`` rows of a generic run.
+46. mesh: bench.py's 10**7 photons over an 8-shard mesh on one card
+    (``make_mesh(8, devices=["cuda:0"])``, 5 chunks of 1024): every launch
+    variant 64 over one shard's planes, 8 launches a chunk, the +x law;
+    the chunk time of the 8 launches together against the unsharded
+    chunk of the same run shape (CUDA events around each launch); shard
+    0's first chunk against the twin over its first 256 iterations
+    (bitwise); then, each on the card and on the CPU twin, bitwise
+    (``sim.ts``, records, final planes): the main plan at 2**16 photons,
+    emitter windows straddling shard edges, recycling with absorption on
+    a full arena, a mid-run injection that grows the arena by a shard
+    unit, and a checkpoint written on 8 shards resumed on 4 (equal to the
+    uninterrupted 8-shard run). On a host with several cards, the same
+    five runs with the card side's shards spread over every card, and the
+    main path's chunk time unsharded, over 8 shards on the first card,
+    over 8 shards on every card and over one shard a card (on the first
+    card's clock). ``python3 chip_smoke.py --mesh-cards`` runs the build
+    and these several-card runs alone;
+47. differentiable runs (``functional.scan_steps`` on torch autograd):
+    implicit-capture transmission and dT/dA at 2**20 photons x 100
+    iterations against the closed forms (rtol 1e-4), a checkpointed
+    gradient with roulette draws bitwise equal to the plain one, the
+    card's gradient at 2**16 within 1e-5 of the CPU's, then 10**7 photons
+    x 100 plain and with ``remat``: forward and backward times and
+    ``torch.cuda.max_memory_allocated``, the gradients bitwise equal.
 
 The line before the last two is a JSON object describing each kernel on
 each path: ``fused_transport`` once each for the gamma, glass, thermal,
@@ -373,7 +397,8 @@ stretch and fluorescence paths, the ExB (``lorentz``), mixed and
 record-tile paths, the polarized and polarimetry paths, the user and
 spectrum paths (their ``replaces`` the user ops of kernel 1i), the mirror
 and callable-phase paths, the main path after a mid-run injection (its
-first chunk at the grown capacity), the main path,
+first chunk at the grown capacity), the main path over an 8-shard mesh
+(its ``ms`` the chunk of the 8 launches together), the main path,
 the Planck source path, the media path, the escape path and the cavity path, each
 with its path's launch count and the times and bound at that path's own
 shape and plan (the main path's entry also names its instantiation, and
@@ -1097,7 +1122,7 @@ def main():
            "polarized": 0.0, "polarimetry": 0.0, "user": 0.0,
            "spectrum": 0.0, "mirror": 0.0, "recorded-E-B": 0.0,
            "phase-icdf": 0.0, "phase-icdf-hg": 0.0, "wide": 0.0,
-           "shrink": 0.0, "main-injected": 0.0}
+           "shrink": 0.0, "main-injected": 0.0, "main-mesh": 0.0}
     a_E, b_E = planck_window()
     sampler = light.PlanckSampler(a_E, b_E, T_SUN, bins=2000)
 
@@ -1649,6 +1674,8 @@ def main():
     midrun_card_vs_cpu(torch, phys, F, dev)
     sorted_media_path(torch, phys, F, grid_m, dev, card)
     bridge_and_profiling(torch, phys, F, dev, card)
+    mesh_ft = mesh_path(torch, phys, F, dev, card, compare)
+    functional_path(torch, phys, dev, card)
 
     ft_src = {"name": "fused_transport", "route": "cuda",
               "source": "physicl_tpu_torch/csrc/fused_transport.cu",
@@ -1690,6 +1717,11 @@ def main():
     # the grown capacity (variant 64)
     new_paths.append({**ft_src, "path": "main-injected",
                       "max_abs_err": err["main-injected"], **inj_ft,
+                      "library_ms": None})
+    # the main path over an 8-shard mesh on one card: ms is the chunk of
+    # the 8 launches together, the bound the whole chunk's
+    new_paths.append({**ft_src, "path": "main-mesh8",
+                      "max_abs_err": err["main-mesh"], **mesh_ft,
                       "library_ms": None})
     print(json.dumps({"kernels": new_paths + [
         {**ft_src, "path": "main", "launches": main_launches,
@@ -5990,5 +6022,397 @@ def bridge_and_profiling(torch, phys, F, dev, card):
                       for i, w, r in timer.data) + f" [{card}]", flush=True)
 
 
+# -- one-process mesh and differentiable runs ----------------------------------
+
+MESH_SHARDS = 8          # the JAX tests' 8 virtual devices, on one card
+MESH_N = 10_000_000      # bench.py's width
+MESH_CHUNK = 1024
+MESH_CHUNKS = 5
+MESH_TWIN_N = 1 << 16    # the card-against-CPU mesh runs
+MESH_TWIN_CHUNK = 64
+FN_N = 1 << 20           # the transmission gradient
+FN_N_BIG = 10_000_000
+FN_ITERS = 100
+FN_P = 0.01              # absorption per iteration under implicit capture
+FN_CPU_N = 1 << 16
+
+
+def sim_planes(sim, torch):
+    """The run's final global planes on the host."""
+    st = sim.sim_state
+    return {k: getattr(st, k).cpu() for k in ("r", "v", "E", "w", "alive",
+                                                "otype")}
+
+
+def mesh_card_vs_cpu(torch, phys, dev, devices=None):
+    """The 8-shard main plan, emitter windows across shard edges, recycling
+    with absorption, a mid-run injection that grows the arena and a
+    checkpoint resharded 8 -> 4, each on the card and on the CPU twin:
+    ``sim.ts``, records and final planes bitwise equal. The card side's
+    shards cycle over ``devices`` (default: ``dev`` alone)."""
+    import tempfile
+    from physicl_tpu_torch.parallel import make_mesh
+
+    light = phys.light
+    unit = MESH_SHARDS * 16384
+    dirs = np.random.default_rng(43).normal(size=(3, MESH_TWIN_N))
+    dirs /= np.linalg.norm(dirs, axis=0)
+    tmp = tempfile.mkdtemp()
+    cards = [dev] if devices is None else list(devices)
+
+    def mesh(where, n=MESH_SHARDS):
+        return make_mesh(n, devices=["cpu"] if where == "cpu" else cards)
+
+    def emitter(where, n_emit, n0, iters, chunk, absorb=False):
+        sim = phys.Simulation(until_t=(iters - 0.5) * 1e-3, seed=11,
+                              chunk_steps=chunk, device=where,
+                              capacity=unit, mesh=mesh(where))
+        sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
+        sim.add_step(1, light.PhotonEmitterStep(n_emit, E=2.0))
+        sim.add_step(2, phys.newton.NewtonianKinematicsStep())
+        if absorb:
+            sim.add_step(3, light.ScatterDeleteStep(np.double(0.001),
+                                                    np.double(0.001)))
+        meas = light.ScatterSignMeasureStep(None, True)
+        sim.add_step(4, meas)
+        sim.add_photons(light.generate_photon_state(n0, E=1.0))
+        return sim, meas
+
+    def layered(where, t_end, n_shards, restore=None):
+        c_dt = float(light.c) * 1e-3
+        nfn = light.layered_density(np.array([0.5, 3.5, 6.5]) * c_dt,
+                                    [1.0, 2.0])
+        sim = phys.Simulation(until_t=t_end * 0.9999, seed=0, device=where,
+                              mesh=mesh(where, n_shards))
+        sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
+        sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+        sim.add_step(2, light.ScatterDeleteStep(
+            np.double(1.0), np.double(0.2 / c_dt), variable_n=True,
+            variable_n_fn=nfn, implicit_capture=True))
+        meas = light.ScatterSignMeasureStep(None, True)
+        sim.add_step(3, meas)
+        if restore is None:
+            sim.add_photons(light.generate_photon_state(
+                MESH_TWIN_N, E=1.0, v=dirs * float(light.c)))
+        else:
+            sim.restore_checkpoint(restore)
+        return sim, meas
+
+    def build(case, where):
+        if case == "main":
+            return main_plan_sim(phys, MESH_TWIN_N, where,
+                                 2 * MESH_TWIN_CHUNK, MESH_TWIN_CHUNK,
+                                 seed=5, dirs=dirs, mesh=mesh(where))
+        if case == "emitter-windows":
+            return emitter(where, 3000, 10000, 20, 1024)
+        if case == "recycle":
+            return emitter(where, 8000, 1000, 40, 8, absorb=True)
+        if case == "inject":
+            sim, meas = main_plan_sim(
+                phys, unit - 200, where, 16, 4, seed=6,
+                fused_pipeline_depth=1, mesh=mesh(where))
+            collect_hook(meas, 1, lambda s: s.add_photons(
+                light.generate_photon_state(
+                    MESH_TWIN_N, E=2.0, v=dirs * float(light.c))))
+            return sim, meas
+        # reshard: the card's 8-shard checkpoint resumed on 4 shards
+        return layered(where, 0.008, 4, restore=ck)
+
+    first, _ = layered(dev, 0.004, MESH_SHARDS)
+    run_sim(torch, first)
+    ck = os.path.join(tmp, "mesh8.npz")
+    first.save_checkpoint(ck)
+    ref, _ = layered(dev, 0.008, MESH_SHARDS)
+    run_sim(torch, ref)
+    w_ref = ref.sim_state.w.cpu()
+    del first
+    results = []
+    for case in ("main", "emitter-windows", "recycle", "inject", "reshard"):
+        runs = {}
+        for where in (dev, "cpu"):
+            sim, meas = build(case, where)
+            run_sim(torch, sim)
+            check(sim.used_fused, f"mesh {case} on {where}: not fused")
+            runs[where] = (sim, np.asarray(meas.data))
+        (cs, cd), (hs, hd) = runs[dev], runs["cpu"]
+        check(np.asarray(cs.ts, np.float32).tobytes()
+              == np.asarray(hs.ts, np.float32).tobytes(),
+              f"mesh {case}: sim.ts differs card against CPU")
+        check(np.array_equal(cd, hd), f"mesh {case}: records differ card "
+              f"against CPU (first rows {cd[:2].tolist()} / "
+              f"{hd[:2].tolist()})")
+        a, b = sim_planes(cs, torch), sim_planes(hs, torch)
+        bad = [k for k in a if not torch.equal(a[k], b[k])]
+        check(not bad, f"mesh {case}: planes {bad} differ card against CPU")
+        extra = ""
+        if case == "recycle":
+            n_rec = [e[0] for e in cs.population_log].count("recycle")
+            check(n_rec >= 1 and cs.population_log == hs.population_log,
+                  f"mesh recycle: {cs.population_log}")
+            extra = f", {n_rec} recycles"
+        if case == "inject":
+            check(cs.sim_state.capacity == 2 * unit
+                  and int(cd[-1, 1]) == unit - 200 + MESH_TWIN_N,
+                  f"mesh inject: capacity {cs.sim_state.capacity}")
+            extra = f", capacity {unit} -> {cs.sim_state.capacity}"
+        if case == "reshard":
+            check(torch.equal(a["w"], w_ref), "mesh reshard: the 4-shard "
+                  "resume differs from the uninterrupted 8-shard run")
+            extra = ", equal to the uninterrupted 8-shard run"
+        results.append(f"{case} ({len(cs.ts)} iterations, capacity "
+                       f"{cs.sim_state.capacity}{extra})")
+        del runs, cs, hs
+    os.remove(ck)
+    os.rmdir(tmp)
+    print(f"mesh card against CPU twin, shards on {[str(d) for d in cards]}"
+          ", bitwise (sim.ts, records, planes): " + "; ".join(results),
+          flush=True)
+
+
+def mesh_path(torch, phys, F, dev, card, compare, devices=None):
+    """Phase: bench.py's 10**7 photons over an 8-shard mesh on one card,
+    every launch variant 64, the chunk time of the 8 launches against the
+    unsharded chunk of the same plan (CUDA events around each launch);
+    then the mesh runs on the card against the CPU twin, and with several
+    ``devices`` (default: every card) :func:`mesh_cards`. Returns the
+    kernels-line entry."""
+    from physicl_tpu_torch.parallel import make_mesh
+    from physicl_tpu_torch.state import pad_capacity
+
+    phase(f"mesh: {MESH_N} photons over {MESH_SHARDS} shards on one card, "
+          f"{MESH_CHUNKS} chunks of {MESH_CHUNK}")
+    iters = MESH_CHUNKS * MESH_CHUNK
+    unit = pad_capacity(1) * MESH_SHARDS
+    cap = -(-MESH_N // unit) * unit
+    local = cap // MESH_SHARDS
+
+    def chunk_ms(log, per_chunk):
+        """Per chunk (its launches together), the chunks after the first."""
+        log = [e for e in log if e[1] > 0]  # a t-exit's launch is empty
+        out = [log[i][2].elapsed_time(log[i + per_chunk - 1][3])
+               for i in range(0, len(log), per_chunk)]
+        return out[1:]
+
+    sim, _ = main_plan_sim(phys, MESH_N, dev, iters, MESH_CHUNK)
+    log, _, restore = timed_launches(F, torch)
+    try:
+        run_sim(torch, sim)
+    finally:
+        restore()
+    plain_chunks = chunk_ms(log, 1)
+    del sim
+
+    sim, meas = main_plan_sim(phys, MESH_N, dev, iters, MESH_CHUNK,
+                              mesh=make_mesh(MESH_SHARDS, devices=[dev]))
+    F.fused_transport.launches = F.fused_transport.seq_launches = 0
+    log, kept, restore = timed_launches(F, torch, keep_cap=local)
+    try:
+        wall, _, peak = run_sim(torch, sim)
+    finally:
+        restore()
+    launches = F.fused_transport.launches
+    check(sim.used_fused, "the mesh main path left the fused tier")
+    check(F.fused_transport.seq_launches == launches == len(log)
+          and launches >= MESH_SHARDS * MESH_CHUNKS
+          and launches % MESH_SHARDS == 0,
+          f"{F.fused_transport.seq_launches} of {launches} mesh launches "
+          "ran variant 64")
+    check(all(e[0] == local for e in log), "a launch not over one shard")
+    mesh_chunks = chunk_ms(log, MESH_SHARDS)
+    data = np.asarray(meas.data)
+    n_iter = len(sim.ts)
+    check(n_iter == iters and bool((data[:, 1] == MESH_N).all()),
+          f"mesh: {n_iter} iterations, counts {data[:2, 1]}")
+    pcoll = 0.001 * 0.001 * C_LIGHT * 0.001
+    shares = data[:, 2] / data[:, 1]
+    expect = 0.5 + 0.5 * (1 - pcoll) ** np.arange(1, n_iter + 1)
+    parity = float(np.abs(shares - expect).max())
+    check(parity < 0.02, f"mesh scatter parity {parity}")
+    st = sim.sim_state
+    check(st.capacity == cap and bool(torch.isfinite(st.r).all()),
+          f"mesh capacity {st.capacity}")
+    ratio = np.mean(mesh_chunks) / np.mean(plain_chunks)
+    print(f"mesh: {launches} launches over {len(sim.chunk_log)} chunks, "
+          f"all variant 64 on {local}-slot shards (capacity {cap}); parity "
+          f"err {parity:.2e}; chunk of {MESH_CHUNK} iterations: "
+          f"{np.mean(mesh_chunks):.3f} ms for the 8 launches together "
+          f"({[round(x, 3) for x in mesh_chunks]}) against "
+          f"{np.mean(plain_chunks):.3f} ms unsharded "
+          f"({[round(x, 3) for x in plain_chunks]}), ratio {ratio:.4f}; "
+          f"wall {wall:.2f} s, set-up {sim.setup_seconds:.3f} s, peak "
+          f"memory {peak / 2 ** 30:.2f} GiB [{card}]", flush=True)
+    del sim, st
+    packed, sched, seed, k, plan = kept["args"]
+    entry = {"plain_ms": compare("mesh-shard0", packed, sched,
+                                 min(k, TWIN_ITERS), plan, None, "main-mesh",
+                                 seed, need_bitwise=True),
+             "plain_iters": min(k, TWIN_ITERS), "plain_slots": local,
+             "ms": float(np.mean(mesh_chunks)),
+             "unsharded_ms": float(np.mean(plain_chunks))}
+    entry["bound_ms"], entry["bound_by"] = transport_bound(plan, cap, k,
+                                                           None)
+    print(f"mesh-shard0: shard 0's first chunk ({local} slots) equals the "
+          f"twin over {entry['plain_iters']} iterations; twin "
+          f"{entry['plain_ms']:.1f} ms; bound of the whole chunk "
+          f"{entry['bound_ms']:.2f} ms ({entry['bound_by']}) [{card}]",
+          flush=True)
+    del packed, sched, kept
+    mesh_card_vs_cpu(torch, phys, dev)
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    if len(devices) > 1:
+        mesh_cards(torch, phys, devices, card)
+    return {**entry, "launches": launches}
+
+
+def mesh_cards(torch, phys, cards, card):
+    """Phase, on a host with several cards: the mesh runs of
+    :func:`mesh_card_vs_cpu` with the card side's shards spread over
+    ``cards``, bitwise against the CPU twin; then bench.py's main path
+    (MESH_N photons, MESH_CHUNKS chunks of MESH_CHUNK) unsharded, over
+    8 shards on the first card, over 8 shards on every card and over one
+    shard a card: the time of each chunk after the first on the first
+    card's clock, between the events the engine records after each chunk's
+    records (which wait for every card's launches)."""
+    from physicl_tpu_torch.parallel import make_mesh
+
+    phase(f"mesh over {len(cards)} cards")
+    mesh_card_vs_cpu(torch, phys, cards[0], devices=cards)
+    iters = MESH_CHUNKS * MESH_CHUNK
+    meshes = (("unsharded", None),
+              (f"{MESH_SHARDS} shards on one card",
+               make_mesh(MESH_SHARDS, devices=cards[:1])),
+              (f"{MESH_SHARDS} shards on {len(cards)} cards",
+               make_mesh(MESH_SHARDS, devices=cards)),
+              (f"one shard on each of {len(cards)} cards",
+               make_mesh(devices=cards)))
+    for name, mesh in meshes:
+        sim, meas = main_plan_sim(phys, MESH_N, cards[0], iters, MESH_CHUNK,
+                                  mesh=mesh)
+        run_sim(torch, sim)
+        for d in cards:
+            torch.cuda.synchronize(d)
+        data = np.asarray(meas.data)
+        check(sim.used_fused and len(sim.ts) == iters
+              and bool((data[:, 1] == MESH_N).all()),
+              f"mesh over cards, {name}: {len(sim.ts)} iterations")
+        log = [(n, e) for _, n, e in sim.chunk_log]
+        per = [log[i - 1][1].elapsed_time(log[i][1])
+               for i in range(1, len(log)) if log[i][0] > 0]
+        print(f"mesh over cards, {name}: chunk of {MESH_CHUNK} iterations "
+              f"at {MESH_N} photons {np.mean(per):.3f} ms on the first "
+              f"card's clock between chunk events "
+              f"({[round(x, 3) for x in per]}) [{card}]", flush=True)
+        del sim, meas
+
+
+def functional_path(torch, phys, dev, card):
+    """Phase: differentiable runs on the card. The transmission T = (1 -
+    p)**K of implicit capture and dT/dA = -K c dt (1 - p)**(K - 1) at 2**20
+    photons against the closed form; a checkpointed (remat) gradient with
+    roulette draws equal to the plain one bitwise (the card's generator
+    replayed); the gradient at 2**16 equal to the CPU's within 1e-5; then
+    10**7 photons, plain and remat: forward and backward times and peak
+    memory."""
+    from physicl_tpu_torch import functional as Fn
+    from physicl_tpu_torch.state import SimState
+
+    phase(f"differentiable runs: scan_steps at {FN_N} and {FN_N_BIG} "
+          f"photons, {FN_ITERS} iterations")
+    light = phys.light
+    c_dt = C_LIGHT * 1e-3
+    A0 = FN_P / c_dt
+
+    def run(n, where, remat=False, roulette=None, key=0):
+        st = SimState.from_population(
+            [], [light.generate_photon_state(n, E=1.0, device=where)],
+            device=where)
+        if where != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        A = torch.tensor(A0, dtype=torch.float32, device=where,
+                         requires_grad=True)
+        steps = [phys.UpdateTimeStep(lambda s: 1e-3),
+                 phys.newton.NewtonianKinematicsStep(),
+                 light.ScatterDeleteStep(n=1.0, A=A, implicit_capture=True,
+                                         roulette=roulette)]
+        t0 = time.perf_counter()
+        out = Fn.scan_steps(steps, st, FN_ITERS, key=key, remat=remat)
+        T = (out.w * out.alive).sum() / n
+        if where != "cpu":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        (g,) = torch.autograd.grad(T, A)
+        if where != "cpu":
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated() if where != "cpu" else 0
+        n_alive = int(out.alive.sum())
+        del out, st
+        return float(T.detach()), float(g), t1 - t0, t2 - t1, peak, n_alive
+
+    T_exp = (1 - FN_P) ** FN_ITERS
+    g_exp = -FN_ITERS * c_dt * (1 - FN_P) ** (FN_ITERS - 1)
+    T, g, fwd, bwd, peak, _ = run(FN_N, dev)
+    check(abs(T - T_exp) <= 1e-4 * T_exp and abs(g - g_exp) <= 1e-4
+          * abs(g_exp), f"transmission {T} (closed form {T_exp}), dT/dA "
+          f"{g} (closed form {g_exp})")
+    print(f"functional: {FN_N} photons x {FN_ITERS}: T {T:.7f} (closed "
+          f"form {T_exp:.7f}), dT/dA {g:.6e} (closed form {g_exp:.6e}); "
+          f"forward {fwd * 1e3:.1f} ms, backward {bwd * 1e3:.1f} ms, peak "
+          f"{peak / 2 ** 30:.2f} GiB [{card}]", flush=True)
+    rl = [run(FN_N, dev, remat=r, roulette=(0.5, 1.0), key=7)
+          for r in (False, True)]
+    check(rl[0][1] == rl[1][1] and rl[0][5] == rl[1][5] < FN_N,
+          f"remat with roulette: gradients {rl[0][1]!r} / {rl[1][1]!r}, "
+          f"alive {rl[0][5]} / {rl[1][5]}")
+    gc, gh = run(FN_CPU_N, dev)[1], run(FN_CPU_N, "cpu")[1]
+    check(abs(gc - gh) <= 1e-5 * abs(gh), f"card dT/dA {gc} against the "
+          f"CPU's {gh}")
+    print(f"functional: remat with roulette draws ({rl[0][5]} of {FN_N} "
+          f"alive) gives the plain gradient bitwise ({rl[0][1]:.6e}); at "
+          f"{FN_CPU_N} the card's dT/dA {gc:.7e} against the CPU's "
+          f"{gh:.7e}", flush=True)
+    big = {}
+    for remat in (False, True):
+        big[remat] = run(FN_N_BIG, dev, remat=remat)
+        T, g, fwd, bwd, peak, _ = big[remat]
+        check(abs(g - g_exp) <= 1e-4 * abs(g_exp),
+              f"{FN_N_BIG} photons, remat={remat}: dT/dA {g}")
+        print(f"functional: {FN_N_BIG} photons x {FN_ITERS}, remat={remat}"
+              f": forward {fwd * 1e3:.1f} ms, backward {bwd * 1e3:.1f} ms, "
+              f"torch.cuda.max_memory_allocated {peak / 2 ** 30:.2f} GiB, "
+              f"dT/dA {g:.6e} [{card}]", flush=True)
+    check(big[False][1] == big[True][1], "remat changed the gradient at "
+          f"{FN_N_BIG}: {big[False][1]!r} / {big[True][1]!r}")
+
+
+def mesh_cards_main():
+    """``chip_smoke.py --mesh-cards``, on a host with several cards: the
+    build and :func:`mesh_cards` over every card, nothing else."""
+    import torch
+
+    check(torch.cuda.device_count() > 1, "--mesh-cards needs several cards")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import physicl_tpu_torch as phys
+    from physicl_tpu_torch.ops import _build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(card, flush=True)
+    torch.cuda.set_device(0)
+    phase("build")
+    _build.load()
+    mesh_cards(torch, phys, [torch.device("cuda", i) for i in
+                             range(torch.cuda.device_count())],
+               card.splitlines()[0])
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--mesh-cards"]:
+        mesh_cards_main()
+    else:
+        main()

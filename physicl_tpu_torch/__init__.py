@@ -53,6 +53,7 @@ from physicl_tpu_torch import light  # noqa: F401
 from physicl_tpu_torch import polarization  # noqa: F401
 from physicl_tpu_torch import kernels  # noqa: F401
 from physicl_tpu_torch import utils  # noqa: F401
+from physicl_tpu_torch import functional  # noqa: F401
 from physicl_tpu_torch.kernels import (
     KernelInput,
     KernelOutput,
@@ -87,6 +88,7 @@ __all__ = [
     "polarization",
     "kernels",
     "utils",
+    "functional",
     "KernelInput",
     "KernelOutput",
     "KernelProgram",

@@ -22,9 +22,11 @@ applies mid-run ``add_obj`` / ``add_photons`` / ``remove_obj`` edits and
 chunk-boundary population control (:mod:`physicl_tpu_torch.population`),
 and with ``spatial_sort=K`` reorders the population by voxel every K
 dispatches. ``save_checkpoint`` / ``restore_checkpoint`` share the JAX
-package's file format (:mod:`physicl_tpu_torch.utils.checkpoint`). Not
-ported yet, and refused with ``NotImplementedError`` rather than run
-differently: device meshes.
+package's file format (:mod:`physicl_tpu_torch.utils.checkpoint`).
+``Simulation(mesh=...)`` shards the particle axis over a one-process device
+mesh (:mod:`physicl_tpu_torch.parallel`); a mesh across processes is not
+ported yet, and is refused with ``NotImplementedError`` rather than run
+differently.
 """
 
 from __future__ import annotations
@@ -107,6 +109,8 @@ class StepContext:
     the generator itself.
     """
 
+    n_alive = None   # on a mesh, the global alive count (a 0-d tensor)
+
     def __init__(self, generator: Optional[torch.Generator], sim,
                  device=None):
         self.generator = generator
@@ -134,10 +138,21 @@ class Step:
 
     ``generic_missing`` names the roadmap item that ports a step's generic
     ``apply`` where the port still lacks it; such a step runs only on the
-    fused tier."""
+    fused tier.
+
+    ``mesh_records`` declares a step shard-local on a mesh's generic tier:
+    ``apply`` is a per-particle map, run on each shard with the shard's
+    generator, and each record it makes combines across shards by the rule
+    given for its name (``"once"``, ``"sum"`` or ``"cat"``; see
+    :func:`physicl_tpu_torch.parallel.sharding.sharded_iteration`). The
+    identity ``apply`` here declares it with no records. A subclass that
+    overrides ``apply`` declares again or applies to the gathered global
+    state, as every step does in the JAX package."""
 
     _step_uid: str = ""
     generic_missing: Optional[str] = None
+
+    mesh_records = {}
 
     def setup(self, sim: "Simulation") -> None:
         pass
@@ -177,14 +192,19 @@ class UpdateTimeStep(Step):
     is Kahan-compensated in the state's dtype (``t_comp``): on the generic
     tier three device scalar operations an iteration, on the fused tier the
     same arithmetic replayed on the host, so ``sim.ts`` is bit-identical to
-    the JAX package's on either tier."""
+    the JAX package's on either tier. On a mesh the clock is replicated: it
+    advances once, on the first shard, with ``n_objects`` the global alive
+    count, and the other shards take its scalars."""
+
+    mesh_scalar = True
 
     def __init__(self, fn: Callable[[Any], Any]):
         super().__init__()
         self.fn = fn
 
     def apply(self, state: SimState, ctx: StepContext) -> SimState:
-        dt = _full_like(self.fn(_TracedView(state, ctx.sim)), state.t)
+        dt = _full_like(self.fn(_TracedView(state, ctx.sim, ctx.n_alive)),
+                        state.t)
         # y = dt - comp; t = t + y; comp = (t - t_old) - y: adds and
         # subtracts only, one kernel each, so nothing can contract them
         comp = state.t_comp
@@ -317,6 +337,8 @@ class ElementwiseStep(Step):
         sim.add_step(3, ElementwiseStep(decay, extras_write=("dose",)))
     """
 
+    mesh_records = {}
+
     def __init__(self, fn: Callable[[ParticleView], Dict[str, Any]],
                  extras: tuple = (), extras_write: tuple = ()):
         super().__init__()
@@ -391,6 +413,8 @@ class ReduceMeasureStep(MeasureStep):
         sim.add_step(4, ReduceMeasureStep(None, moments,
                                           outputs=("E_total", "r2")))
     """
+
+    mesh_records = {"t": "once", "*": "sum"}
 
     def __init__(self, out_fn=None, fn: Callable[[ParticleView],
                                                  Dict[str, Any]] = None,
@@ -470,10 +494,13 @@ class _TracedObjectsProxy:
 
 class _TracedView:
     """Device stand-in for the ``Simulation`` passed to user lambdas on the
-    generic tier: ``t``, ``dt`` and ``n_objects`` are 0-d device tensors."""
+    generic tier: ``t``, ``dt`` and ``n_objects`` are 0-d device tensors
+    (``n_alive``, where given, stands for the state's alive count: a mesh's
+    global count)."""
 
-    def __init__(self, state: SimState, sim):
+    def __init__(self, state: SimState, sim, n_alive=None):
         self._state = state
+        self._n_alive = n_alive
         self.bounds = getattr(sim, "bounds", None)
 
     @property
@@ -486,6 +513,8 @@ class _TracedView:
 
     @property
     def n_objects(self):
+        if self._n_alive is not None:
+            return self._n_alive
         return self._state.n_alive
 
     @property
@@ -736,6 +765,25 @@ class Simulation(threading.Thread):
     final only once the chunk has run (reads are stream-ordered, so they
     wait for it). Its ``key`` is the run's generator itself, which the
     generic tier keeps advancing: a snapshot shares it.
+
+    ``mesh`` (:func:`physicl_tpu_torch.parallel.make_mesh`, or any list of
+    devices) shards the particle axis into contiguous spans, one per shard
+    (``make_mesh(8, devices=["cuda:0"])`` puts eight on one card). The
+    capacity pads to ``pad_capacity(1) * len(mesh)`` slots (at start, at a
+    mid-run grow, at a restore), ``auto_shrink`` is off, and the global
+    planes (the initial build, chunk-boundary edits, ``sim_state``) live on
+    the mesh's first device: ``sim_state`` reads assemble them from the
+    shards once per chunk read. The fused tier launches ``fused_transport``
+    on every shard's planes (:meth:`physicl_tpu_torch.ops.pipeline.
+    FusedProvider.dispatch`), drawing what the JAX package's shards draw;
+    on the generic tier a step that declares itself shard-local
+    (``Step.mesh_records``: the built-in per-particle steps) applies shard
+    by shard, each shard with a generator of its own, and any other step
+    to the gathered global planes (:func:`physicl_tpu_torch.parallel.
+    sharding.sharded_iteration`). Recycling compaction, the spatial sort, mid-run
+    edits, boundary splits and checkpoints act on the global planes, and
+    the shards are split again after them. A shard whose kernel fails to
+    build or launch fails the run: a mesh never falls back to one device.
     """
 
     def __init__(self, **kwargs):
@@ -777,6 +825,9 @@ class Simulation(threading.Thread):
                     "'extinction' (run until no objects remain)")
             self.exit = ExtinctionExit()
         self.device = torch.device(self.device)
+        if self.mesh is not None:
+            self._place_on_mesh()
+        self._shard_keys = None  # a mesh run's per-shard generators
 
         self.plan_report: Optional[PlanReport] = None
         self.used_fused = False
@@ -817,6 +868,43 @@ class Simulation(threading.Thread):
         self._sort_tick = 0
 
     @property
+    def sim_state(self):
+        """The newest state (see the class docstring); on a mesh, the
+        global planes assembled from the shards."""
+        st = self._sim_state
+        if st is not None and not isinstance(st, SimState):
+            return st.gather()  # a sharded state
+        return st
+
+    @sim_state.setter
+    def sim_state(self, state) -> None:
+        self._sim_state = state
+
+    def _place_on_mesh(self) -> None:
+        """``mesh`` as a :class:`~physicl_tpu_torch.parallel.Mesh`, and the
+        run's device its first entry (where the global planes live)."""
+        from physicl_tpu_torch.parallel.sharding import as_mesh
+
+        self.mesh = as_mesh(self.mesh)
+        self.device = self.mesh[0]
+
+    def _shard_unit(self) -> int:
+        """The capacity's rounding unit: ``pad_capacity(1)`` slots a shard."""
+        return pad_capacity(1) * (len(self.mesh) if self.mesh is not None
+                                  else 1)
+
+    def _pad_to_unit(self, n: int) -> int:
+        unit = self._shard_unit()
+        return max(unit, ((int(n) + unit - 1) // unit) * unit)
+
+    def _shard(self, state):
+        """``state`` split over the mesh with the run's per-shard
+        generators (a sharded state as it is)."""
+        from physicl_tpu_torch.parallel.sharding import shard_state
+
+        return shard_state(state, self.mesh, keys=self._shard_keys)
+
+    @property
     def max_record_bytes(self) -> int:
         if self._max_record_bytes is not None:
             return self._max_record_bytes
@@ -830,7 +918,7 @@ class Simulation(threading.Thread):
 
     @property
     def objects(self):
-        if self.sim_state is None and not self.running:
+        if self._sim_state is None and not self.running:
             if not self._pending_bulk:
                 return self._pending_objects
             return _PendingPopulation(self)
@@ -920,6 +1008,8 @@ class Simulation(threading.Thread):
         if self.running:
             raise RuntimeError("Cannot restore while the simulation is "
                                "running.")
+        if self.mesh is not None:
+            self._place_on_mesh()
         self._restored = load_checkpoint(path, self.device)
         self._objects_cache = None
 
@@ -959,8 +1049,10 @@ class Simulation(threading.Thread):
         emit_per_iter = sum(
             getattr(s, "n_per_step", 0) for s in steps
             if getattr(s, "needs_capacity_headroom", False))
+        # (never on a mesh: a shrink would break the shards' divisibility)
         shrink_ok = (bool(self.auto_shrink) and self.capacity is None
-                     and not stable_ids and emit_per_iter == 0)
+                     and self.mesh is None and not stable_ids
+                     and emit_per_iter == 0)
         return shrink_ok, emit_per_iter > 0 and not stable_ids, emit_per_iter
 
     def _slot_movers(self) -> List[str]:
@@ -988,13 +1080,17 @@ class Simulation(threading.Thread):
         k = len(objs) + sum(int(b["n"]) for b in bulks)
         if k == 0:
             return state, 0
+        from physicl_tpu_torch.parallel.sharding import as_global
+
+        state = as_global(state)
         dev = state.device
         sub = SimState.from_population(objs, bulks, device=dev, capacity=k,
                                        dtype=self.dtype)
         hwm = max(self._hwm, int(state.n_spawned))
         cap = state.capacity
         if hwm + k > cap:
-            new_cap = pad_capacity(hwm + k)
+            # on a mesh, whole tile-aligned shards
+            new_cap = self._pad_to_unit(hwm + k)
 
             def grow(x):
                 if x.ndim == 0 or x.shape[-1] != cap:
@@ -1090,7 +1186,14 @@ class Simulation(threading.Thread):
             raise ValueError(f"fuse must be 'auto' or 'off', got "
                              f"{self.fuse!r}")
         if self.mesh is not None:
-            _not_ported("mesh= (multi-device runs)")
+            from physicl_tpu_torch.parallel.distributed import (
+                _refuse,
+                is_multiprocess,
+            )
+
+            if is_multiprocess():
+                _refuse("Simulation(mesh=) in a multi-process run")
+            self._place_on_mesh()
 
     def _init_run_state(self) -> SimState:
         """Build the initial state from the added objects and bulks, or
@@ -1112,7 +1215,9 @@ class Simulation(threading.Thread):
             hwm = int(meta.get("hwm", state.capacity))
             want = max(self.capacity if self.capacity is not None
                        else state.capacity, hwm, 1)
-            target = pad_capacity(want)
+            # on a mesh, whole tile-aligned shards: a snapshot of any shard
+            # count resumes on any other
+            target = self._pad_to_unit(want)
             if target != state.capacity:
                 state = repad_state(state, target, hwm=hwm)
             self._hwm = min(hwm, target)
@@ -1121,6 +1226,8 @@ class Simulation(threading.Thread):
                 int(b["n"]) for b in self._pending_bulk)
             cap = (self.capacity if self.capacity is not None
                    else pad_capacity(max(n0, 1)))
+            if self.mesh is not None:
+                cap = self._pad_to_unit(cap)
             state = SimState.from_population(
                 self._pending_objects, self._pending_bulk,
                 device=self.device, seed=self.seed, capacity=cap,
@@ -1165,11 +1272,22 @@ class Simulation(threading.Thread):
     def _run_iteration(self, steps, state: SimState,
                        generator: torch.Generator):
         """One generic-tier iteration: every step's ``apply`` in order
-        (chunk-boundary steps excepted). Returns ``(state, records)``."""
+        (chunk-boundary steps excepted). Returns ``(state, records)``. On
+        a mesh a shard-local step applies shard by shard, each shard
+        drawing from its own generator (``generator`` is unused), any other
+        step to the gathered global planes, and the records combine across
+        shards (:func:`physicl_tpu_torch.parallel.sharding.
+        sharded_iteration`)."""
+        # chunk-boundary steps apply between chunks (PopulationManager)
+        steps = [s for s in steps if not getattr(s, "at_boundary", False)]
+        if self.mesh is not None:
+            from physicl_tpu_torch.parallel.sharding import sharded_iteration
+
+            return sharded_iteration(
+                steps, self._shard(state),
+                lambda g, dev: StepContext(g, self, dev))
         ctx = StepContext(generator, self, state.device)
         for step in steps:
-            if getattr(step, "at_boundary", False):
-                continue  # applied between chunks (PopulationManager)
             state = step.apply(state, ctx)
         return state, ctx.records
 
@@ -1178,9 +1296,16 @@ class Simulation(threading.Thread):
         ``max_record_bytes`` (at most 1024). The record sizes come from one
         probe iteration on a copy of the run's generator, so the run's own
         stream is untouched."""
+        from physicl_tpu_torch.parallel.sharding import as_global
+
+        state = as_global(state)
         probe = torch.Generator(device=state.device)
         probe.set_state(state.key.get_state())
-        _, recs = self._run_iteration(steps, state, probe)
+        steps = [s for s in steps if not getattr(s, "at_boundary", False)]
+        ctx = StepContext(probe, self, state.device)
+        for step in steps:
+            state = step.apply(state, ctx)
+        recs = ctx.records
         bytes_per_iter = sum(torch.as_tensor(v).numel()
                              * torch.as_tensor(v).element_size()
                              for v in recs.values())
@@ -1226,6 +1351,8 @@ class Simulation(threading.Thread):
             return bool(flag["buf"])
 
         def chunk_fn(state: SimState):
+            if self.mesh is not None:
+                state = self._shard(state)
             gen = state.key
             recs: Dict[str, torch.Tensor] = {}
             k = 0
@@ -1255,8 +1382,16 @@ class Simulation(threading.Thread):
         chunk_fn.dev_keys = dev_keys
         return chunk_fn
 
+    def _device_note(self) -> str:
+        if self.mesh is None:
+            return f"device: {self.device}"
+        devs = sorted({str(d) for d in self.mesh})
+        return (f"device: {self.device}; mesh: {len(self.mesh)} shards of "
+                f"contiguous slots over {', '.join(devs)} (global planes "
+                "on the first)")
+
     def _generic_notes(self, boundary: List[str]) -> List[str]:
-        notes = [f"device: {self.device}"]
+        notes = [self._device_note()]
         if boundary:
             notes.append("chunk-boundary population control between chunks: "
                          + ", ".join(boundary))
@@ -1305,7 +1440,7 @@ class Simulation(threading.Thread):
             raise FusedRefusal(*refusals[0], missing=line)
         if provider is not None:
             plan = provider.plan
-            notes = [f"device: {self.device}",
+            notes = [self._device_note(),
                      "population species: " + {
                          OBJ_PHOTON: "photon", OBJ_GENERIC: "generic"}.get(
                              plan.species, "mixed (otype-plane dispatch)"),
@@ -1413,7 +1548,7 @@ class Simulation(threading.Thread):
         ``start()`` (plans on a transient state of its own, with its own
         generator, without running) or after."""
         if self.plan_report is None:
-            prior, restored, ts = self.sim_state, self._restored, self.ts
+            prior, restored, ts = self._sim_state, self._restored, self.ts
             try:
                 self._check_supported()
                 steps = self._ordered_steps()
@@ -1432,7 +1567,7 @@ class Simulation(threading.Thread):
                         f"the generic tier's probe iteration raised "
                         f"{type(e).__name__}: {e}")
             finally:
-                self.sim_state, self._restored, self.ts = prior, restored, ts
+                self._sim_state, self._restored, self.ts = prior, restored, ts
         return self.plan_report.describe()
 
     # -- run loop ------------------------------------------------------------
@@ -1537,8 +1672,12 @@ class Simulation(threading.Thread):
         if not fire:
             return state
         from physicl_tpu_torch.ops.compaction import permute_state
+        from physicl_tpu_torch.parallel.sharding import as_global
 
         pop._reset_split_snapshots()
+        # on a mesh the sort is global: the permutation of the gathered
+        # planes, which the next dispatch splits again
+        state = as_global(state)
         perm = self._sort_fn.permutation(state)
         moved = None if provider is None else provider.permute(state, perm)
         return moved if moved is not None else permute_state(state, perm)
@@ -1692,6 +1831,13 @@ class Simulation(threading.Thread):
         self._objects_cache = None
         self._sort_resolved = False
         state = self._init_run_state()
+        if self.mesh is not None:
+            # each shard's generator for the run (kept across re-splits)
+            from physicl_tpu_torch.parallel.sharding import shard_seed
+
+            self._shard_keys = [
+                SimState.make_key(shard_seed(self.seed, i), d)
+                for i, d in enumerate(self.mesh)]
         # identity registry for mid-run remove_obj: the objects hold the
         # first slots in insertion order (none of them is in a restored
         # state)

@@ -249,6 +249,14 @@ class KernelStep(Step):
         self.elementwise = bool(elementwise)
         self.data: List = []
 
+    @property
+    def mesh_records(self):
+        """Shard-local on a mesh (:func:`physicl_tpu_torch.parallel.
+        sharding.sharded_iteration`) only as an elementwise map that
+        records nothing; a whole-state map, or one whose ``record_fn`` may
+        reduce over the particles, applies to the gathered global state."""
+        return {} if self.elementwise and self.record_fn is None else None
+
     def apply(self, state, ctx):
         prev_alive = state.alive
         state = self.fn(state, ctx)

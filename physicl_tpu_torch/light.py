@@ -43,7 +43,7 @@ from physicl_tpu_torch.ops.planck import (
     planck_gen,
     poly_icdf_reference,
 )
-from physicl_tpu_torch.state import OBJ_PHOTON
+from physicl_tpu_torch.state import OBJ_PHOTON, is_traced
 from physicl_tpu_torch.units import Measurement, raw_code_value
 
 __all__ = [
@@ -81,8 +81,26 @@ def refresh_constants() -> None:
 
 
 def _as_code(x):
-    """Code-unit float of a step constant."""
+    """Code-unit float of a step constant. A tensor that carries a graph
+    (:func:`physicl_tpu_torch.state.is_traced`: a ``grad`` input, a
+    ``vmap`` batch) passes through untouched, so that the step's
+    arithmetic keeps it in the graph; the fused prover refuses a step that
+    holds one (the generic step tier runs it)."""
+    if is_traced(x):
+        return x
+    if isinstance(x, torch.Tensor):
+        return float(x)
     return float(raw_code_value(x))
+
+
+def _host_code(x, what: str) -> float:
+    """Code-unit float of a constant that folds on the host (the
+    Klein-Nishina constants); a tensor that carries a graph is refused, as
+    the JAX package refuses a traced one."""
+    if is_traced(x):
+        raise TypeError(f"{what} folds to a host constant: pass a number, "
+                        "not a tensor that carries a graph")
+    return _as_code(x)
 
 
 def _as_float(x):
@@ -393,12 +411,15 @@ def generate_photons(n, fn=None, min=0, max=0, bins=-1) -> List[PhotonObject]:
 
 
 def generate_photon_state(n, E, v=None, r=None, device=False,
-                          w=None) -> dict:
+                          w=None, extras=None) -> dict:
     """Bulk photon population for ``Simulation.add_photons``.
 
     ``E``: scalar or (n,) energies [code units]; ``v``: (3,) or (3, n)
     velocities (default +x at c); ``r``: (3,) or (3, n) positions (default
-    origin); ``w``: scalar or (n,) statistical weights.
+    origin); ``w``: scalar or (n,) statistical weights. ``extras``: a dict
+    of per-photon planes, each a scalar / (n,) value or a (3,) / (3, n)
+    3-vector, stored as ``state.extras[name]`` (readable by user steps
+    declaring ``extras=("name", ...)``).
 
     ``device=False`` builds float64 numpy arrays exactly as the JAX
     package's host path does. ``device=True`` (the card) or a device name
@@ -407,6 +428,23 @@ def generate_photon_state(n, E, v=None, r=None, device=False,
     """
     n = int(n)
     c_val = float(raw_code_value(c))
+
+    def extras_out(as_tensor):
+        """Each extras value as a (n,) or (3, n) plane (the JAX package's
+        shapes: a scalar or (n,) first, then a 3-vector or (3, n))."""
+        out = {}
+        for name, val in (extras or {}).items():
+            arr = as_tensor(val)
+            if arr.dim() <= 1 and arr.numel() in (1, n):
+                out[name] = arr.reshape(-1).expand(n)
+            elif arr.dim() <= 2 and arr.numel() in (3, 3 * n):
+                out[name] = arr.reshape(3, -1).expand(3, n)
+            else:
+                raise ValueError(
+                    f"extras[{name!r}] must be scalar/({n},) or "
+                    f"(3,)/(3, {n}), got shape {tuple(arr.shape)}")
+        return out
+
     if device is not False and device is not None:
         dev = _torch_device(device)
         f32 = torch.float32
@@ -435,6 +473,8 @@ def generate_photon_state(n, E, v=None, r=None, device=False,
             if w_arr.shape[0] not in (1, n):
                 raise ValueError(f"w must be scalar or length {n}")
             out["w"] = w_arr.expand(n)
+        if extras:
+            out["extras"] = extras_out(tensor)
         return out
     E_flat = np.asarray(raw_code_value(E), np.float64).reshape(-1)
     if E_flat.size not in (1, n):
@@ -457,6 +497,10 @@ def generate_photon_state(n, E, v=None, r=None, device=False,
         if w_flat.size not in (1, n):
             raise ValueError(f"w must be scalar or length {n}")
         out["w"] = np.broadcast_to(w_flat, (n,)).copy()
+    if extras:
+        out["extras"] = {k: v.contiguous().numpy() for k, v in extras_out(
+            lambda x: torch.as_tensor(np.asarray(raw_code_value(x),
+                                                 np.float64))).items()}
     return out
 
 
@@ -779,6 +823,8 @@ class ScatterDeleteStep(MeasureStep):
     ``fluorescence`` are analog only and exclude each other, as in the JAX
     package."""
 
+    mesh_records = {"t": "once", "dep": "sum"}
+
     def __init__(self, n, A, A_fn=None, variable_n=False,
                  variable_n_fn=None, implicit_capture=False, roulette=None,
                  measure_deposition=False, out_fn=None, stretch=None,
@@ -964,6 +1010,8 @@ class ScatterDeleteStepReference(Step):
     cross-checks :class:`ScatterDeleteStep` statistically and runs on the
     generic tier (the fused prover refuses it, ``unsupported-step``)."""
 
+    mesh_records = {}
+
     def __init__(self, n, A):
         self.n = float(raw_code_value(n))
         self.A = float(raw_code_value(A))
@@ -987,6 +1035,8 @@ class ScatterIsotropicStep(Step):
     ``layered_density``, ``voxel_density`` or a torch callable the prover
     records). Resample at |v| = c with theta=2*pi*U,
     phi=pi*U and ``dv = v_new - v_old``."""
+
+    mesh_records = {}
 
     def __init__(self, **kwargs):
         self.n = _as_code(kwargs.get("n", 1))
@@ -1063,7 +1113,10 @@ ScatterSphericalStep = ScatterIsotropicStep
 def _const(v: float, like: torch.Tensor) -> torch.Tensor:
     """A 0-d tensor holding ``v`` in ``like``'s dtype on its device (a
     divisor as a tensor: torch divides by a Python scalar on the card as a
-    product with its reciprocal, rounded twice)."""
+    product with its reciprocal, rounded twice). A tensor parameter (one
+    that carries a graph) keeps it."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype=like.dtype, device=like.device)
     return torch.tensor(v, dtype=like.dtype, device=like.device)
 
 
@@ -1424,6 +1477,8 @@ class ScatterHenyeyGreensteinStep(Step):
     - ((1 - g^2) / (1 - g + 2 g U))^2) / (2 g)`` (``<cos theta> = g``; g = 0
     is area-uniform) and a uniform azimuth, ``|v|`` renormalised to c."""
 
+    mesh_records = {}
+
     def __init__(self, **kwargs):
         self.g = float(kwargs.get("g", 0.0))
         if not -1.0 < self.g < 1.0:
@@ -1565,6 +1620,8 @@ class ScatterComptonStep(ScatterHenyeyGreensteinStep):
 
     _ALLOWED_KW = frozenset({"A", "n", "variable_n", "variable_n_fn"})
 
+    mesh_records = {"t": "once", "dep": "sum"}
+
     def __init__(self, **kwargs):
         if kwargs.pop("wavelength_dep_scattering", False):
             raise ValueError(
@@ -1618,14 +1675,14 @@ class ScatterComptonStep(ScatterHenyeyGreensteinStep):
 
     def setup(self, sim) -> None:
         super().setup(sim)
-        mec2 = (_as_code(self.mec2) if self.mec2 is not None
+        mec2 = (_host_code(self.mec2, "mec2") if self.mec2 is not None
                 else float(raw_code_value(m_e))
                 * float(raw_code_value(c)) ** 2)
         if mec2 <= 0:
             raise ValueError("mec2 must be positive")
         self._inv_mec2 = 1.0 / float(mec2)
         if self.T_e is not None:
-            kT = _as_code(self.T_e) * float(raw_code_value(kB))
+            kT = _host_code(self.T_e, "T_e") * float(raw_code_value(kB))
             self._theta_e = float(kT * self._inv_mec2)
             if not 0.0 <= self._theta_e <= 0.2:
                 raise ValueError(
@@ -1701,6 +1758,8 @@ class RefractiveInterfaceStep(Step):
     ``match_speed=True`` sets the outgoing speed to ``c / n`` of the
     receiving medium (the rest of the step keeps its time), which turns the
     const-norm path off."""
+
+    mesh_records = {}
 
     def __init__(self, loc, n_lo, n_hi, axis: int = 2,
                  match_speed: bool = False):
@@ -1781,6 +1840,8 @@ class ScatterSignMeasureStep(MeasureStep):
     ``measure_n``). ``weighted=True`` sums statistical weights instead of
     counting (the isotropy tally under implicit capture)."""
 
+    mesh_records = {"t": "once", "n": "sum", "signs": "sum"}
+
     def __init__(self, out_fn=None, measure_n: bool = True,
                  weighted: bool = False):
         super().__init__(out_fn)
@@ -1822,6 +1883,9 @@ class ScatterMeasureStep(MeasureStep):
     sum. The kernel writes the energies into a stream plane (E where
     crossed, NaN elsewhere); the engine compacts it on the device and
     copies only the crossing photons' energies to the host."""
+
+    mesh_records = {"t": "once", "n": "sum", "count": "sum",
+                    "Esum": "sum", "E": "cat"}
 
     def __init__(self, out_fn=None, measure_n: bool = True, measure_locs=(),
                  measure_E: bool = False, measure_E_mode: str = "list",
@@ -1899,6 +1963,8 @@ class SphericalShellMeasureStep(MeasureStep):
     within one step is not counted). ``weighted=True`` sums statistical
     weights. ``data`` rows ``[t(, n), crossings]``; CSV through
     ``out_fn``."""
+
+    mesh_records = {"t": "once", "n": "sum", "count": "sum"}
 
     def __init__(self, out_fn=None, radius=1.0, center=(0.0, 0.0, 0.0),
                  measure_n: bool = True, weighted: bool = False):
@@ -2098,6 +2164,8 @@ class TracePathMeasureStep(MeasureStep):
     device_hold_bytes = 4 << 30
     _data_override = None
     _cached_rows = None
+
+    mesh_records = {"pos": "cat", "alive": "cat", "scat": "cat"}
 
     def __init__(self, out_fn=None, trace_type=Object,
                  id_info_fn: Callable = lambda x: str(type(x)),

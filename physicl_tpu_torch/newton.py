@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from physicl_tpu_torch.engine import Object, Step
-from physicl_tpu_torch.state import OBJ_GENERIC, OBJ_PHOTON, mod_floor
+from physicl_tpu_torch.state import (OBJ_GENERIC, OBJ_PHOTON, is_traced,
+                                     mod_floor)
 from physicl_tpu_torch.units import Measurement, raw_code_value
 
 __all__ = ["NewtonianKinematicsStep", "AbsorbingBoundaryStep",
@@ -48,6 +49,8 @@ class NewtonianKinematicsStep(Step):
     extension: ``dv = a*dt; v += dv; dr = v*dt; r += dr``) runs on the
     generic tier (the fused prover refuses it: the packed state has no
     ``a`` plane)."""
+
+    mesh_records = {}
 
     def __init__(self, integrate_acceleration: bool = False):
         self.integrate_acceleration = integrate_acceleration
@@ -106,6 +109,8 @@ class AbsorbingBoundaryStep(_BoxStep):
     """Deletes particles outside the box ``lo <= r <= hi`` (inclusive at
     both walls, every axis). ``bounds=None`` uses ``sim.bounds``."""
 
+    mesh_records = {}
+
     def apply(self, state, ctx):
         lo, hi = self._box(state.r)
         inside = ((state.r >= lo) & (state.r <= hi)).all(dim=0)
@@ -118,6 +123,8 @@ class ReflectingBoundaryStep(_BoxStep):
     one dt folds correctly), the velocity component flips on an odd number
     of folds, and ``dr`` becomes the straight segment from the old to the
     folded position. ``bounds=None`` uses ``sim.bounds``."""
+
+    mesh_records = {}
 
     def apply(self, state, ctx):
         lo, hi = self._box(state.r)
@@ -142,6 +149,8 @@ class PeriodicBoundaryStep(_BoxStep):
     translated image of the true path. ``bounds=None`` uses ``sim.bounds``.
     """
 
+    mesh_records = {}
+
     def apply(self, state, ctx):
         lo, hi = self._box(state.r)
         return state.replace(r=lo + mod_floor(state.r - lo, hi - lo))
@@ -153,6 +162,8 @@ class AbsorbingSphereStep(Step):
     a perfectly absorbing central body. Pair with
     :class:`physicl_tpu_torch.light.SphericalShellMeasureStep` just inside
     the kill radius to tally the escape flux."""
+
+    mesh_records = {}
 
     def __init__(self, radius, center=(0.0, 0.0, 0.0),
                  kill_inside: bool = False):
@@ -239,20 +250,27 @@ class LorentzForceStep(Step):
     the fused tier ``state.a`` keeps its initial value (the packed state
     has no ``a`` plane)."""
 
+    mesh_records = {}
+
     def __init__(self, E_field=None, B_field=None, q_over_m=None):
         self._e_fn, self._e_const = _field_fn(E_field, "E_field")
         self._b_fn, self._b_const = _field_fn(B_field, "B_field")
         if isinstance(q_over_m, Measurement):
             q_over_m = raw_code_value(q_over_m)
-        self.q_over_m = None if q_over_m is None else float(q_over_m)
+        # a tensor that carries a graph (a grad input, a vmap batch) stays
+        # as it is, so that dv / d(q/m) flows; anything else folds to a
+        # host float, as in the JAX package
+        self.q_over_m = (None if q_over_m is None
+                         else q_over_m if is_traced(q_over_m)
+                         else float(q_over_m))
 
     def apply(self, state, ctx):
         from physicl_tpu_torch.light import _field_value
 
         dtype = state.v.dtype
         if self.q_over_m is not None:
-            qm = torch.tensor(self.q_over_m, dtype=dtype,
-                              device=state.device)
+            qm = torch.as_tensor(self.q_over_m, dtype=dtype,
+                                 device=state.device)
         else:
             if "q" not in state.extras or "m" not in state.extras:
                 raise ValueError(

@@ -56,6 +56,7 @@ flight).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, List, Optional
@@ -66,7 +67,7 @@ import torch
 from physicl_tpu_torch.ops import fields as FL
 from physicl_tpu_torch.ops import fused as F
 from physicl_tpu_torch.ops.planck import icdf_table
-from physicl_tpu_torch.state import OBJ_PHOTON, SimState
+from physicl_tpu_torch.state import OBJ_PHOTON, SimState, is_traced
 from physicl_tpu_torch.units import Measurement, raw_code_value
 
 __all__ = ["try_build_fused", "FusedProvider", "FusedRefusal",
@@ -314,7 +315,9 @@ class FusedProvider:
         self._synced = False
         self._last_state = None
         self._last_packed = None
-        self._slots = None  # arange(capacity) on the device, for retyping
+        # per (device, first slot): the global slot ids of the planes a
+        # launch covers, for retyping emitted slots
+        self._slots: Dict[tuple, torch.Tensor] = {}
         self._full = False  # the last scheduled emission did not fit
 
     def invalidate(self) -> None:
@@ -324,7 +327,7 @@ class FusedProvider:
         self._synced = False
         self._last_state = None
         self._last_packed = None
-        self._slots = None
+        self._slots = {}
 
     def resync(self, state: SimState, counts=None) -> None:
         """Re-read the alive count and spawn mark after an out-of-band state
@@ -345,8 +348,9 @@ class FusedProvider:
         and of the repack the next dispatch would make; the planes outside
         the pack (``a``, ``otype``, the extras the kernel does not write
         back) move by a gather each."""
-        if state is not self._last_state or self._last_packed is None:
-            return None
+        if (state is not self._last_state or self._last_packed is None
+                or self.sim.mesh is not None):
+            return None  # (a mesh sorts its gathered global planes)
         from physicl_tpu_torch.ops.compaction import take_slots
 
         plan = self.plan
@@ -449,26 +453,28 @@ class FusedProvider:
                      + self.chunk_idx * 40_503) & 0xFFFFFFFF) & 0x7FFFFFFF)
         self.chunk_idx += 1
 
-        if state is self._last_state and self._last_packed is not None:
-            packed = self._last_packed
-        else:
-            packed = F.pack_state(state, self.plan.extras)
         # sched rows: [dt at kinematics, t after update, t before update,
         #              dt after update, dt before update]
         sched = torch.from_numpy(np.stack(
             [dts_kin, ts, ts_before, dts_after, dts_before]))
-        starts = torch.from_numpy(emit_starts) if self.emit_ops else None
-        if dev.type == "cuda":
-            # from pinned memory: a pageable host-to-device copy would wait
-            # for every chunk already queued and serialize the pipeline
-            sched = sched.pin_memory().to(dev, non_blocking=True)
-            if starts is not None:
-                starts = starts.pin_memory().to(dev, non_blocking=True)
-        out = None if dev.type == "cpu" else torch.empty_like(packed)
-        out, rec, rec_f, *stream = F.fused_chunk(
-            packed, sched, seed, k_act, self.plan, out=out,
-            emit_starts=starts)
-        stream = stream[0] if stream else None
+        hwm_before = self.hwm_h
+        if k_act:
+            self.t_h = np.float32(ts[k_act - 1])
+            self.dt_h = np.float32(dts_after[k_act - 1])
+            self.comp_h = np.float32(comps[k_act - 1])
+            self.hwm_h = int(hwm_after[k_act - 1])
+            self.sim._hwm = self.hwm_h
+        scalars = {"t": self.t_h, "dt": self.dt_h, "t_comp": self.comp_h}
+        if self.sim.mesh is not None:
+            new_state, out, rec, rec_f, stream = self._launch_shards(
+                state, sched, emit_starts, seed, k_act, hwm_before,
+                scalars)
+        else:
+            cached = (self._last_packed if state is self._last_state
+                      else None)
+            new_state, out, rec, rec_f, stream = self._launch(
+                state, sched, emit_starts, seed, k_act, hwm_before,
+                scalars, 0, cached)
         if not self.plan.n_frec_cols:
             rec_f = None
         ready = None
@@ -480,35 +486,6 @@ class FusedProvider:
             # timed, so that a rate can be read on the device's clock
             ready = torch.cuda.Event(enable_timing=True)
             ready.record(torch.cuda.current_stream(dev))
-
-        hwm_before = self.hwm_h
-        if k_act:
-            self.t_h = np.float32(ts[k_act - 1])
-            self.dt_h = np.float32(dts_after[k_act - 1])
-            self.comp_h = np.float32(comps[k_act - 1])
-            self.hwm_h = int(hwm_after[k_act - 1])
-            self.sim._hwm = self.hwm_h
-
-        plan = self.plan
-        new_state = F.unpack_state(out, state, plan.extras,
-                                   plan.extras_writeback).replace(
-            t=_scalar(self.t_h, state.t), dt=_scalar(self.dt_h, state.t),
-            t_comp=_scalar(self.comp_h, state.t),
-            n_spawned=_scalar(self.hwm_h, state.n_spawned))
-        if self.hwm_h > hwm_before:
-            # emitted slots are photons in the host-side otype mirror, and
-            # start with zeroed extras planes (the kernel wrote the rest);
-            # written-back planes already hold what the kernel wrote there
-            # (a polarized source's Stokes and frame rows)
-            if self._slots is None or self._slots.device != dev:
-                self._slots = torch.arange(state.capacity, device=dev)
-            emitted = ((self._slots >= hwm_before)
-                       & (self._slots < self.hwm_h))
-            wb = set(plan.extras_writeback)
-            new_state = new_state.replace(
-                otype=torch.where(emitted, OBJ_PHOTON, new_state.otype),
-                extras={k: v if k in wb else torch.where(emitted, 0, v)
-                        for k, v in new_state.extras.items()})
         self._last_state = new_state
         self._last_packed = out
         return _Inflight(
@@ -517,6 +494,92 @@ class FusedProvider:
             done_t=done_t, ts=ts, ts_before=ts_before, dts_after=dts_after,
             dts_before=dts_before, comps=comps, comps_before=comps_before,
             t_opt=np.float32(self.t_h), dt_opt=np.float32(self.dt_h))
+
+    def _launch(self, state: SimState, sched: torch.Tensor, emit_starts,
+                seed: int, k_act: int, hwm_before: int, scalars: dict,
+                offset: int = 0, packed=None):
+        """Launch one chunk on ``state``'s planes: the kernel on a card, the
+        twin on the CPU. ``offset`` is the planes' first global slot (a
+        shard's; 0 on one device): the emit windows shift into local slots,
+        and the slots emitted into (global ``[hwm_before, hwm_h)``) turn
+        photons with zeroed extras. ``packed`` reuses a shard's packed
+        planes. Returns ``(state, packed out, rec, rec_f, stream)``."""
+        dev = state.device
+        plan = self.plan
+        if packed is None:
+            packed = F.pack_state(state, plan.extras)
+        starts = None
+        if self.emit_ops:
+            # windows straddling the shard's edges are written piecewise;
+            # an inactive row stays far negative
+            starts = torch.from_numpy(np.maximum(
+                emit_starts.astype(np.int64) - offset,
+                _EMIT_INACTIVE).astype(np.int32))
+        if dev.type == "cuda":
+            # from pinned memory: a pageable host-to-device copy would wait
+            # for every chunk already queued and serialize the pipeline
+            sched = sched.pin_memory().to(dev, non_blocking=True)
+            if starts is not None:
+                starts = starts.pin_memory().to(dev, non_blocking=True)
+        out = None if dev.type == "cpu" else torch.empty_like(packed)
+        out, rec, rec_f, *stream = F.fused_chunk(
+            packed, sched, seed, k_act, plan, out=out, emit_starts=starts)
+        new_state = F.unpack_state(out, state, plan.extras,
+                                   plan.extras_writeback).replace(
+            **{k: _scalar(v, state.t) for k, v in scalars.items()},
+            n_spawned=_scalar(self.hwm_h, state.n_spawned))
+        if self.hwm_h > hwm_before:
+            # emitted slots are photons in the host-side otype mirror, and
+            # start with zeroed extras planes (the kernel wrote the rest);
+            # written-back planes already hold what the kernel wrote there
+            # (a polarized source's Stokes and frame rows)
+            slots = self._slots.get((dev, offset))
+            if slots is None or slots.numel() != state.capacity:
+                slots = self._slots[dev, offset] = torch.arange(
+                    offset, offset + state.capacity, device=dev)
+            emitted = (slots >= hwm_before) & (slots < self.hwm_h)
+            wb = set(plan.extras_writeback)
+            new_state = new_state.replace(
+                otype=torch.where(emitted, OBJ_PHOTON, new_state.otype),
+                extras={k: v if k in wb else torch.where(emitted, 0, v)
+                        for k, v in new_state.extras.items()})
+        return new_state, out, rec, rec_f, (stream[0] if stream else None)
+
+    def _launch_shards(self, state, sched, emit_starts, seed: int,
+                       k_act: int, hwm_before: int, scalars: dict):
+        """One chunk over the mesh: :meth:`_launch` on each shard's local
+        planes with the shard's seed (``shard_seed``) and emit windows
+        shifted by ``idx * local capacity`` (the JAX package's
+        ``build_sharded_fused``); the record rows summed in shard order
+        onto the first shard's device (integer rows exactly), the stream
+        planes joined there in global slot order. No fallback: a shard
+        whose kernel fails raises."""
+        from physicl_tpu_torch.parallel.sharding import (
+            ShardedState,
+            reduce_sum,
+            shard_seed,
+        )
+
+        sh = self.sim._shard(state)
+        L = sh.local_capacity
+        cached = (self._last_packed if state is self._last_state
+                  and isinstance(self._last_packed, list) else None)
+        shards, outs, recs, recfs, streams = [], [], [], [], []
+        for idx, st in enumerate(sh.shards):
+            on = (torch.cuda.device(st.device) if st.device.type == "cuda"
+                  else contextlib.nullcontext())
+            with on:
+                res = self._launch(st, sched, emit_starts,
+                                   shard_seed(seed, idx), k_act, hwm_before,
+                                   scalars, idx * L,
+                                   None if cached is None else cached[idx])
+            for acc, x in zip((shards, outs, recs, recfs, streams), res):
+                acc.append(x)
+        dev = sh.device
+        stream = (torch.cat([x.to(dev) for x in streams], dim=-1)
+                  if self.plan.n_stream else None)
+        return (ShardedState(shards, sh.mesh), outs, reduce_sum(recs, dev),
+                reduce_sum(recfs, dev), stream)
 
     def harvest(self, inflight: _Inflight):
         """Wait for a dispatched chunk's records and classify its exit.
@@ -940,6 +1003,16 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
                 "polarized_photon_state)")
     for s in steps:
         uid = s._step_uid
+        # a plan never holds a tensor: a parameter that carries a graph (a
+        # grad input, a vmap batch) sends the plan to the generic tier,
+        # which keeps it in the graph (every other tensor parameter was
+        # folded to a host float by the constructor)
+        traced = sorted(k for k, v in vars(s).items() if is_traced(v))
+        if traced:
+            _no("unsupported-step", f"{type(s).__name__} holds tensor "
+                f"parameters that carry a graph ({', '.join(traced)}): the "
+                "fused kernel takes host constants; the generic step tier "
+                "keeps the graph")
         if getattr(s, "at_boundary", False) and hasattr(s, "boundary_apply"):
             # chunk-boundary population control (light._SplitBase with
             # at="chunk"): applied between dispatches by the

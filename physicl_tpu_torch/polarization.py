@@ -43,6 +43,7 @@ import torch
 
 from physicl_tpu_torch.engine import MeasureStep, Step
 from physicl_tpu_torch.light import (ScatterIsotropicStep, _as_code,
+                                     _host_code,
                                      _compile_variable_n, _dr_norm,
                                      _kn_cos_eta, _kn_sigma_ratio,
                                      _rayleigh_cos_theta, _torch_device,
@@ -259,6 +260,8 @@ class ScatterPolarizedRayleighStep(Step):
     _ALLOWED = {"n", "A", "wavelength_dep_scattering", "variable_n",
                 "variable_n_fn"}
 
+    mesh_records = {}
+
     def __init__(self, **kwargs):
         unknown = set(kwargs) - self._ALLOWED
         if unknown:
@@ -321,6 +324,8 @@ class ScatterPolarizedComptonStep(Step):
                 "kn_max_tries", "kn_cross_section", "measure_deposition",
                 "out_fn"}
 
+    mesh_records = {"t": "once", "dep": "sum"}
+
     def __init__(self, **kwargs):
         unknown = set(kwargs) - self._ALLOWED
         if unknown:
@@ -352,7 +357,7 @@ class ScatterPolarizedComptonStep(Step):
         # code-scale change
         from physicl_tpu_torch.light import c as _c, m_e
 
-        mec2 = (_as_code(self.mec2) if self.mec2 is not None
+        mec2 = (_host_code(self.mec2, "mec2") if self.mec2 is not None
                 else float(raw_code_value(m_e))
                 * float(raw_code_value(_c)) ** 2)
         if mec2 <= 0:
@@ -412,7 +417,9 @@ class StokesMeasureStep(MeasureStep):
     ``data`` rows are ``[t(, n), p_mean, V_mean(, Q_mean, U_mean)]``; CSV
     through ``out_fn``. ``weighted=True`` weights every mean by ``w``.
     Fused op ``"polmeas"``: the kernel sums the weight, p, V (and Q, U)
-    into float record columns and the host divides by the weight sum.
+    into float record columns and the host divides by the weight sum. On a
+    mesh's generic tier it reads the gathered global planes (it declares
+    no ``mesh_records``), so its means are over every shard's particles.
     """
 
     def __init__(self, out_fn=None, measure_n: bool = True,

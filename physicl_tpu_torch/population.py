@@ -24,10 +24,13 @@ Counterpart of the JAX package's ``population.PopulationManager``:
   generator of their own, so the transport itself keeps the fused tier.
 
 Every slot-moving edit (compaction, shrink, injection, the engine's
-spatial sort) drops the ``at="chunk"`` split snapshots. The JAX package's
-multi-process divergence guard belongs to multi-device runs, which the
-port does not have yet; on one process the JAX package runs without it
-too.
+spatial sort) drops the ``at="chunk"`` split snapshots. On a device mesh
+every edit acts on the global planes (gathered from the shards; the next
+chunk splits them again), so a recycling compaction moves live particles
+across shards exactly as the single-device compaction moves them, and a
+split's copies take global free slots. The JAX package's multi-process
+divergence guard belongs to meshes across processes, which the port does
+not have yet; in one process the JAX package runs without it too.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from typing import Callable, List, Optional
 import torch
 
 from physicl_tpu_torch.ops.compaction import compact, compact_shrink
+from physicl_tpu_torch.parallel.sharding import as_global
 from physicl_tpu_torch.state import SimState, pad_capacity
 
 __all__ = ["ExecPlan", "PopulationManager"]
@@ -146,6 +150,7 @@ class PopulationManager:
             return state
         with sim._inject_lock:
             slots, sim._pending_remove = sim._pending_remove, []
+        state = as_global(state)
         alive = state.alive.clone()
         alive[torch.tensor(slots, dtype=torch.int64,
                            device=state.device)] = False
@@ -217,7 +222,7 @@ class PopulationManager:
             return state
         self._recycle_blocked_hwm = None
         self._reset_split_snapshots()
-        state = compact(state)
+        state = compact(as_global(state))
         sim._hwm = sim._host_n_alive
         with sim._state_lock:
             sim.sim_state = state
@@ -283,6 +288,7 @@ class PopulationManager:
             return state
         sim = self.sim
         base = (int(getattr(sim, "seed", 0)) ^ _SPLIT_SEED_SALT) & 0x7FFFFFFF
+        state = as_global(state)
         before = state
         for s in self.split_steps:
             self._split_idx += 1

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 __all__ = ["SimState", "OBJ_GENERIC", "OBJ_PHOTON", "pad_capacity",
-           "mod_floor"]
+           "mod_floor", "is_traced"]
 
 OBJ_GENERIC = 0
 OBJ_PHOTON = 1
@@ -39,6 +39,18 @@ def pad_capacity(n: int) -> int:
     """
     tile = _LANE * _LANE
     return max(tile, ((n + tile - 1) // tile) * tile)
+
+
+def is_traced(x) -> bool:
+    """True for a tensor that carries a graph: one that requires grad, or
+    one that ``torch.func`` wraps (batched under ``vmap``, tracked under
+    ``grad``). Step constructors keep such a parameter as it is (the
+    differentiable functional path, :mod:`physicl_tpu_torch.functional`)
+    and fold any other value to a host float, as the JAX package's
+    constructors keep a tracer and fold a concrete value."""
+    return isinstance(x, torch.Tensor) and (
+        x.requires_grad
+        or torch._C._functorch.is_functorch_wrapped_tensor(x))
 
 
 def mod_floor(x: torch.Tensor, L: torch.Tensor) -> torch.Tensor:

@@ -56,6 +56,8 @@ class ChunkTimerStep(Step):
     ``unsupported-step``, as the JAX prover's), so a run with one takes
     the generic tier in both packages."""
 
+    mesh_records = {"tick": "once"}
+
     def __init__(self):
         super().__init__()
         self.data: List[tuple] = []

@@ -780,3 +780,76 @@ def test_kernel_program_card_equals_cpu(dev):
     for k in c:
         np.testing.assert_array_equal(g[k], c[k])
     np.testing.assert_array_equal(gsel, csel)
+
+
+def _mesh_main(where, n=1 << 16, iters=128, chunk=64):
+    """The main plan over an 8-shard mesh on ``where`` (bench.py's steps,
+    photons in numpy-seeded directions)."""
+    import physicl_tpu_torch as T
+    from physicl_tpu_torch.parallel import make_mesh
+
+    d = np.random.default_rng(9).normal(size=(3, n))
+    v = d / np.linalg.norm(d, axis=0) * C_LIGHT
+    s = T.Simulation(until_t=(iters - 0.5) * 1e-3, seed=5, chunk_steps=chunk,
+                     mesh=make_mesh(8, devices=[where]))
+    s.add_step(0, T.UpdateTimeStep(lambda x: np.double(0.001)))
+    s.add_step(1, T.newton.NewtonianKinematicsStep())
+    s.add_step(2, T.light.ScatterIsotropicStep(A=np.double(0.001),
+                                               n=np.double(0.001)))
+    m = T.light.ScatterSignMeasureStep(None, True)
+    s.add_step(3, m)
+    s.add_photons(T.light.generate_photon_state(n, E=1.0, v=v))
+    s.start()
+    s.join()
+    return s, np.asarray(m.data)
+
+
+def test_mesh_main_plan_card_equals_cpu_twin(dev):
+    """The 8-shard fused main plan: every launch the op-sequence
+    instantiation over one shard's planes, and sim.ts, the records and the
+    final planes bitwise the CPU twin's 8-shard run."""
+    F.fused_transport.launches = F.fused_transport.seq_launches = 0
+    cs, cd = _mesh_main(dev)
+    launches = F.fused_transport.launches
+    hs, hd = _mesh_main("cpu")
+    assert cs.used_fused and hs.used_fused
+    # two chunks, and the t-exit's empty dispatch: 8 launches each
+    assert launches == F.fused_transport.seq_launches == 8 * 3
+    assert np.asarray(cs.ts, np.float32).tobytes() == \
+        np.asarray(hs.ts, np.float32).tobytes()
+    np.testing.assert_array_equal(cd, hd)
+    for k in ("r", "v", "E", "w", "alive"):
+        assert torch.equal(getattr(cs.sim_state, k).cpu(),
+                           getattr(hs.sim_state, k)), k
+
+
+def test_scan_steps_gradient_card_equals_cpu(dev):
+    """functional.scan_steps' dT/dA on the card: the closed form within
+    1e-4 and the CPU's gradient within 1e-5; a checkpointed run with
+    roulette draws gives the plain gradient bitwise (the card's generator
+    replayed in the recomputation)."""
+    import physicl_tpu_torch as T
+    from physicl_tpu_torch import functional as Fn
+    from physicl_tpu_torch.state import SimState
+
+    p, K, n = 0.01, 100, 1 << 16
+    A0 = p / (C_LIGHT * 1e-3)
+
+    def grad(where, remat=False, roulette=None):
+        st = SimState.from_population(
+            [], [T.light.generate_photon_state(n, E=1.0)], device=where)
+        A = torch.tensor(A0, dtype=torch.float32, device=where,
+                         requires_grad=True)
+        steps = [T.UpdateTimeStep(lambda x: 1e-3),
+                 T.newton.NewtonianKinematicsStep(),
+                 T.light.ScatterDeleteStep(n=1.0, A=A, implicit_capture=True,
+                                           roulette=roulette)]
+        out = Fn.scan_steps(steps, st, K, key=3, remat=remat)
+        (g,) = torch.autograd.grad((out.w * out.alive).sum() / n, A)
+        return float(g)
+
+    g_card, g_cpu = grad(dev), grad("cpu")
+    expect = -K * C_LIGHT * 1e-3 * (1 - p) ** (K - 1)
+    assert abs(g_card - expect) <= 1e-4 * abs(expect)
+    assert abs(g_card - g_cpu) <= 1e-5 * abs(g_cpu)
+    assert grad(dev, False, (0.5, 1.0)) == grad(dev, True, (0.5, 1.0))

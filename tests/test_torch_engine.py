@@ -428,13 +428,15 @@ def test_unported_exits_refuse(code, kw):
 
 
 @pytest.mark.parametrize("kw", [{"auto_shrink": True}, {"fuse": "off"},
-                                {"spatial_sort": 2}, {"mesh": object()}])
+                                {"spatial_sort": 2},
+                                {"mesh": ["cpu", "cpu"]}])
 def test_unported_simulation_options_refuse(kw):
     """fuse="off" runs the generic tier (the user's choice: no warning);
     auto_shrink=True, the default as in the JAX package, runs fused;
     spatial_sort=2 runs fused, unsorted, with one ``[no-voxel-table]``
-    warning (this plan has no voxel medium to key it on); mesh= is still
-    refused."""
+    warning (this plan has no voxel medium to key it on); a one-process
+    mesh= runs fused over its shards, and what is still refused is a
+    process group (``init_distributed``)."""
     s, _ = _build(T, lambda c: c.t >= 0.01, device="cpu", **kw)
     if kw == {"auto_shrink": True}:
         assert T.Simulation().auto_shrink is True
@@ -458,5 +460,12 @@ def test_unported_simulation_options_refuse(kw):
             "spatial_sort disabled [no-voxel-table]"]
         assert s.used_fused and len(s.ts) == 10 and s._sort_fn is None
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         s._run_impl()
+    assert s.used_fused and len(s.ts) == 10
+    assert s.sim_state.capacity == 2 * 16384 and len(s.mesh) == 2
+    from physicl_tpu_torch.parallel import init_distributed
+
+    with pytest.raises(NotImplementedError, match="not ported"):
+        init_distributed()
