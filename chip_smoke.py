@@ -389,7 +389,23 @@ Phases (any failure exits non-zero and prints no result line):
     gradient with roulette draws bitwise equal to the plain one, the
     card's gradient at 2**16 within 1e-5 of the CPU's, then 10**7 photons
     x 100 plain and with ``remat``: forward and backward times and
-    ``torch.cuda.max_memory_allocated``, the gradients bitwise equal.
+    ``torch.cuda.max_memory_allocated``, the gradients bitwise equal;
+48. the main path across processes: the script starts itself twice
+    (``--mp-worker card RANK 2 PORT DIR``) as one gloo process group
+    sharing the card, 4 shards a process (8 in all, as phase 46), each
+    loading the kernels this process built: every launch variant 64, both
+    processes' sign records bitwise equal to phase 46's, each process's
+    chunk time on its own clock beside phase 46's, the host time of the
+    records' all-gather a chunk and of the guard's row a boundary; then,
+    across the two processes, each on the card and on the CPU twin at
+    2**16 photons, bitwise: an injection under the divergence guard
+    (issued from a measure step's collect on both, applied at one
+    boundary), recycling on a full arena, the E-list of tagged energies
+    (complete, in slot order) and a shard-local trace; last, global shard
+    4's first chunk (launched by rank 1) against the twin, bitwise. With
+    ``--mesh-cards`` on a host with several cards, the main path also
+    runs with one process a card over NCCL (``--mp-worker cards``), one
+    and two shards a card.
 
 The line before the last two is a JSON object describing each kernel on
 each path: ``fused_transport`` once each for the gamma, glass, thermal,
@@ -398,7 +414,9 @@ record-tile paths, the polarized and polarimetry paths, the user and
 spectrum paths (their ``replaces`` the user ops of kernel 1i), the mirror
 and callable-phase paths, the main path after a mid-run injection (its
 first chunk at the grown capacity), the main path over an 8-shard mesh
-(its ``ms`` the chunk of the 8 launches together), the main path,
+(its ``ms`` the chunk of the 8 launches together), the main path across
+2 processes (``main-mp``: its ``ms`` the mean of the processes' chunks
+on their own clocks, its launches both processes'), the main path,
 the Planck source path, the media path, the escape path and the cavity path, each
 with its path's launch count and the times and bound at that path's own
 shape and plan (the main path's entry also names its instantiation, and
@@ -1122,7 +1140,8 @@ def main():
            "polarized": 0.0, "polarimetry": 0.0, "user": 0.0,
            "spectrum": 0.0, "mirror": 0.0, "recorded-E-B": 0.0,
            "phase-icdf": 0.0, "phase-icdf-hg": 0.0, "wide": 0.0,
-           "shrink": 0.0, "main-injected": 0.0, "main-mesh": 0.0}
+           "shrink": 0.0, "main-injected": 0.0, "main-mesh": 0.0,
+           "main-mp": 0.0}
     a_E, b_E = planck_window()
     sampler = light.PlanckSampler(a_E, b_E, T_SUN, bins=2000)
 
@@ -1674,8 +1693,11 @@ def main():
     midrun_card_vs_cpu(torch, phys, F, dev)
     sorted_media_path(torch, phys, F, grid_m, dev, card)
     bridge_and_profiling(torch, phys, F, dev, card)
-    mesh_ft = mesh_path(torch, phys, F, dev, card, compare)
+    mesh_ft, mesh_data, mesh_plan = mesh_path(torch, phys, F, dev, card,
+                                              compare)
     functional_path(torch, phys, dev, card)
+    mp_ft = mp_path(torch, dev, card, compare, mesh_ft, mesh_data,
+                    mesh_plan)
 
     ft_src = {"name": "fused_transport", "route": "cuda",
               "source": "physicl_tpu_torch/csrc/fused_transport.cu",
@@ -1722,6 +1744,12 @@ def main():
     # the 8 launches together, the bound the whole chunk's
     new_paths.append({**ft_src, "path": "main-mesh8",
                       "max_abs_err": err["main-mesh"], **mesh_ft,
+                      "library_ms": None})
+    # the same over 2 processes sharing the card, 4 shards each: ms is the
+    # mean chunk of a process's 4 launches on its own clock, launches both
+    # processes' together
+    new_paths.append({**ft_src, "path": "main-mp",
+                      "max_abs_err": err["main-mp"], **mp_ft,
                       "library_ms": None})
     print(json.dumps({"kernels": new_paths + [
         {**ft_src, "path": "main", "launches": main_launches,
@@ -6263,7 +6291,7 @@ def mesh_path(torch, phys, F, dev, card, compare, devices=None):
                    for i in range(torch.cuda.device_count())]
     if len(devices) > 1:
         mesh_cards(torch, phys, devices, card)
-    return {**entry, "launches": launches}
+    return {**entry, "launches": launches}, data, plan
 
 
 def mesh_cards(torch, phys, cards, card):
@@ -6388,9 +6416,483 @@ def functional_path(torch, phys, dev, card):
           f"{FN_N_BIG}: {big[False][1]!r} / {big[True][1]!r}")
 
 
+# -- meshes across processes ---------------------------------------------------
+
+MP_WORLD = 2                          # processes sharing the one card
+MP_SHARDS = MESH_SHARDS // MP_WORLD   # shards a process
+MP_TWIN_N = 1 << 16                   # the card-against-CPU runs
+MP_TRACE_N = 3 << 15                  # both processes' spans hold photons
+MP_LIMIT = 300                        # seconds for the workers, all told
+MP_WAIT = 120                         # seconds a collective waits
+MP_GATHER_REPS = 3                    # timed gathers of each kind and size
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_workers(mode, world, out, env_of=None):
+    """Run ``world`` copies of this script as ``--mp-worker`` processes of
+    one process group and return each one's ``rank{r}.json`` from
+    ``out``. Their output is echoed with the rank. A worker that fails, or
+    workers that outlive MP_LIMIT (all are killed), fail the phase."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mp-worker", mode,
+         str(r), str(world), str(port), out],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, **(env_of(r) if env_of else {})))
+        for r in range(world)]
+    outs = []
+    try:
+        deadline = time.monotonic() + MP_LIMIT
+        for p in procs:
+            try:
+                outs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0])
+            except subprocess.TimeoutExpired:
+                check(False, f"{mode} workers ran past {MP_LIMIT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        for line in o.splitlines():
+            print(f"  [rank {r}] {line}", flush=True)
+        check(p.returncode == 0, f"{mode} worker {r} exited "
+              f"{p.returncode}")
+    res = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    return res
+
+
+def host_timer(owner, name, sink):
+    """Wrap ``owner.name`` (undo with the returned function): the host
+    seconds of each call appended to ``sink``."""
+    fn = getattr(owner, name)
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            sink.append(time.perf_counter() - t0)
+
+    setattr(owner, name, timed)
+    return lambda: setattr(owner, name, fn)
+
+
+def chunk_times(log, per_chunk):
+    """Per chunk of ``per_chunk`` launches (the first of its launches'
+    start to the last's end, this process's clock), the chunks after the
+    first; a t-exit's empty launch left out."""
+    log = [e for e in log if e[1] > 0]
+    out = [log[i][2].elapsed_time(log[i + per_chunk - 1][3])
+           for i in range(0, len(log), per_chunk)]
+    return out[1:]
+
+
+def mp_main_run(torch, phys, F, dev, n_shards, keep_cap=None):
+    """bench.py's main path (MESH_N photons, MESH_CHUNKS chunks of
+    MESH_CHUNK) on a pod mesh of ``n_shards`` shards of this process on
+    ``dev``: the launch counts set to 0 just before and read just after,
+    CUDA events around each launch."""
+    from physicl_tpu_torch.ops import pipeline
+    from physicl_tpu_torch.parallel import make_pod_mesh
+    from physicl_tpu_torch.population import PopulationManager
+
+    mesh = make_pod_mesh(devices=[dev] * n_shards)
+    sim, meas = main_plan_sim(phys, MESH_N, dev, MESH_CHUNKS * MESH_CHUNK,
+                              MESH_CHUNK, mesh=mesh)
+    cross, guard = [], []
+    undo = [host_timer(pipeline, "_combine_shards", cross),
+            host_timer(PopulationManager, "check_divergence", guard)]
+    F.fused_transport.launches = F.fused_transport.seq_launches = 0
+    log, kept, restore = timed_launches(F, torch, keep_cap=keep_cap)
+    try:
+        wall, _, peak = run_sim(torch, sim)
+    finally:
+        restore()
+        for u in undo:
+            u()
+    launches = F.fused_transport.launches
+    seq = F.fused_transport.seq_launches
+    check(sim.used_fused, "the main path across processes left the fused "
+          "tier")
+    ev = [e for _, n, e in sim.chunk_log]
+    between = [ev[i - 1].elapsed_time(ev[i]) for i in range(1, len(ev))
+               if sim.chunk_log[i][1] > 0 and ev[i] is not None]
+    return {"records": np.asarray(meas.data), "launches": launches,
+            "seq_launches": seq, "chunks": chunk_times(log, n_shards),
+            "between": between, "wall": wall, "peak": peak,
+            "setup": sim.setup_seconds, "n_iter": len(sim.ts),
+            "shards": len(mesh), "capacity": sim.sim_state.capacity,
+            "records_ms": [x * 1e3 for x in cross],
+            "guard_ms": [x * 1e3 for x in guard]}, kept
+
+
+def mp_scenarios(torch, phys, dev, rank, world, n_shards):
+    """The card against the CPU twin, both across the ``world`` processes
+    (pod meshes of ``n_shards`` shards a process), bitwise: an injection
+    under the divergence guard, issued from a measure step's collect on
+    every process; an emitter recycling on a full arena with absorption;
+    the E-list of tagged energies; a shard-local trace. Returns a summary
+    line and the slowest edit boundary of each case on the card."""
+    from physicl_tpu_torch.parallel import make_pod_mesh
+
+    light = phys.light
+    step_len = C_LIGHT * 1e-3
+    E_tag = (1.0 + np.arange(MP_TWIN_N) * 2.0 ** -16).astype(np.float32)
+
+    def mesh(where):
+        return make_pod_mesh(devices=[where] * n_shards)
+
+    def build(case, where):
+        if case == "inject":
+            sim, meas = main_plan_sim(phys, MP_TWIN_N, where, 16, 4, seed=6,
+                                      fused_pipeline_depth=1,
+                                      mesh=mesh(where))
+            collect_hook(meas, 1, lambda s: s.add_photons(
+                light.generate_photon_state(MP_TWIN_N, E=2.0)))
+            return sim, meas
+        iters = {"recycle": 40, "elist": 6, "trace": 4}[case]
+        sim = phys.Simulation(seed=11, device=where, mesh=mesh(where),
+                              until_t=iters * 1e-3 * 0.9999,
+                              chunk_steps=8 if case == "recycle" else None)
+        sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
+        if case == "recycle":
+            sim.add_step(1, light.PhotonEmitterStep(8000, E=2.0))
+        sim.add_step(2, phys.newton.NewtonianKinematicsStep())
+        if case == "recycle":
+            sim.add_step(3, light.ScatterDeleteStep(np.double(0.001),
+                                                    np.double(0.001)))
+            meas = light.ScatterSignMeasureStep(None, True)
+            sim.add_photons(light.generate_photon_state(1000, E=1.0))
+        elif case == "elist":
+            meas = light.ScatterMeasureStep(
+                None, True, measure_locs=[[2.5 * step_len, np.nan, np.nan]],
+                measure_E=True)
+            sim.add_photons(light.generate_photon_state(MP_TWIN_N,
+                                                        E=E_tag))
+        else:  # trace
+            meas = light.TracePathMeasureStep()
+            x0 = np.arange(MP_TRACE_N, dtype=np.float32)
+            z = np.zeros(MP_TRACE_N, np.float32)
+            sim.add_photons(light.generate_photon_state(
+                MP_TRACE_N, E=1.0, r=np.stack([x0, z, z])))
+        sim.add_step(4, meas)
+        return sim, meas
+
+    def records(case, sim, meas):
+        if case == "trace":
+            _, pos, alive, _ = meas.as_arrays()
+            return [pos, alive]
+        if case == "elist":
+            return [np.array([r[2] for r in meas.data]),
+                    np.asarray(meas.data[2][3], np.float32)]
+        return [np.asarray(meas.data)]
+
+    from physicl_tpu_torch.population import PopulationManager
+
+    notes, boundary = [], {}
+    for case in ("inject", "recycle", "elist", "trace"):
+        runs = {}
+        for where in (dev, "cpu"):
+            sim, meas = build(case, where)
+            spent = []
+            undo = host_timer(PopulationManager, "maintain", spent)
+            try:
+                run_sim(torch, sim)
+            finally:
+                undo()
+            if where == dev and spent:
+                boundary[case] = max(spent) * 1e3
+            check(sim.used_fused, f"across processes, {case} on {where}: "
+                  "not fused")
+            runs[where] = (sim, records(case, sim, meas))
+        (cs, cr), (hs, hr) = runs[dev], runs["cpu"]
+        check(np.asarray(cs.ts, np.float32).tobytes()
+              == np.asarray(hs.ts, np.float32).tobytes(),
+              f"across processes, {case}: sim.ts differs card against CPU")
+        check(all(np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+                  for a, b in zip(cr, hr)),
+              f"across processes, {case}: records differ card against CPU")
+        a, b = sim_planes(cs, torch), sim_planes(hs, torch)
+        bad = [k for k in a if not torch.equal(a[k], b[k])]
+        check(not bad, f"across processes, {case}: planes {bad} differ "
+              "card against CPU")
+        extra = ""
+        if case == "inject":
+            n = cr[0][:, 1].astype(np.int64)
+            check(n[0] == MP_TWIN_N and n[-1] == 2 * MP_TWIN_N
+                  and int((np.diff(n) != 0).sum()) == 1,
+                  f"across processes, inject: counts {np.unique(n)}")
+            extra = f", {MP_TWIN_N} -> {2 * MP_TWIN_N} at one boundary"
+        if case == "recycle":
+            n_rec = [e[0] for e in cs.population_log].count("recycle")
+            check(n_rec >= 1 and cs.population_log == hs.population_log,
+                  f"across processes, recycle: {cs.population_log}")
+            extra = f", {n_rec} recycles"
+        if case == "elist":
+            check(cr[0].tolist() == [0, 0, MP_TWIN_N, 0, 0, 0]
+                  and np.array_equal(cr[1], E_tag),
+                  f"across processes, elist: counts {cr[0].tolist()}")
+            extra = f", {MP_TWIN_N} energies in slot order"
+        if case == "trace":
+            span = cs.sim_state.capacity // world
+            check(runs[dev][1][0].shape[-1] == span
+                  and next(s for s in cs.steps.values()
+                           if hasattr(s, "col0")).col0 == rank * span,
+                  "across processes, trace: not this process's span")
+            extra = f", columns {rank * span}..{(rank + 1) * span - 1}"
+        if case in boundary:
+            extra += (f", slowest edit boundary {boundary[case]:.2f} ms "
+                      "of host")
+        notes.append(f"{case} ({len(cs.ts)} iterations{extra})")
+        del runs, cs, hs
+    return "; ".join(notes), boundary
+
+
+def mp_worker(mode, rank, world, port, out):
+    """``chip_smoke.py --mp-worker MODE RANK WORLD PORT OUT``: one process
+    of a run across processes. ``card``: MP_WORLD processes share cuda:0
+    over gloo, MP_SHARDS shards each; the main path, then
+    :func:`mp_scenarios`. ``cards``: one process a card over NCCL; the
+    main path with one shard and with MESH_SHARDS / world shards a
+    process, :func:`mp_scenarios` with the latter, then
+    :func:`gather_cost`. Loads the kernels the parent built; writes
+    ``rank{r}.json`` (and ``.npz`` records) into ``out``."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import physicl_tpu_torch as phys
+    from physicl_tpu_torch.ops import _build
+    from physicl_tpu_torch.ops import fused as F
+    from physicl_tpu_torch.parallel import distributed as D
+    from physicl_tpu_torch.parallel import init_distributed
+    from physicl_tpu_torch.state import pad_capacity
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    dev = torch.device("cuda", 0 if mode == "card" else rank)
+    torch.cuda.set_device(dev)
+    _build.load()
+    init_distributed(f"localhost:{port}", world, rank, timeout=MP_WAIT)
+    res = {"backend": "nccl" if D.device_collectives() else "gloo",
+           "build_seconds": _build.build_seconds}
+    arrays = {}
+    counts = [MP_SHARDS] if mode == "card" else [1, MESH_SHARDS // world]
+    for k in counts:
+        unit = pad_capacity(1) * k * world
+        local = -(-MESH_N // unit) * unit // (k * world)
+        keep = rank == 1 and mode == "card"
+        run, kept = mp_main_run(torch, phys, F, dev, k,
+                                keep_cap=local if keep else None)
+        arrays[f"main{k}"] = run.pop("records")
+        res[f"main{k}"] = run
+        if kept:
+            packed, sched, seed, k_act, _ = kept["args"]
+            torch.save({"packed": packed.cpu(), "sched": sched.cpu(),
+                        "seed": seed, "k": k_act},
+                       os.path.join(out, "shard_args.pt"))
+        del kept
+        print(f"main path on {k * world} shards ({k} here): "
+              f"{run['launches']} launches, chunks "
+              f"{[round(x, 3) for x in run['chunks']]} ms", flush=True)
+    res["scenarios"], res["boundary_ms"] = mp_scenarios(
+        torch, phys, dev, rank, world, counts[-1])
+    print(res["scenarios"], flush=True)
+    if mode == "cards":
+        res["gather"] = gather_cost(torch, phys, dev, counts[-1])
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def gather_cost(torch, phys, dev, n_shards):
+    """The host ms of assembling the global planes at an edit
+    (``ShardedState.gather``: every process's shards all-gathered) on a pod
+    mesh of ``n_shards`` shards a process, over NCCL (the device group)
+    and staged through host memory over gloo (the path without a card of
+    its own), at MP_TWIN_N and MESH_N photons, MP_GATHER_REPS times
+    each."""
+    from physicl_tpu_torch.parallel import distributed as D
+    from physicl_tpu_torch.parallel import make_pod_mesh, shard_state
+    from physicl_tpu_torch.parallel.sharding import ShardedState
+    from physicl_tpu_torch.state import SimState, pad_capacity
+
+    mesh = make_pod_mesh(devices=[dev] * n_shards)
+    unit = pad_capacity(1) * len(mesh)
+    out = {}
+    for n in (MP_TWIN_N, MESH_N):
+        st = SimState.from_population(
+            [], [phys.light.generate_photon_state(n, E=1.0, device=dev)],
+            device=dev, capacity=-(-n // unit) * unit)
+        sh = shard_state(st, mesh)
+        del st
+        nbytes = sum(sum(x.numel() * x.element_size() for x in (
+            *(getattr(s, f) for f in ("r", "dr", "v", "dv", "a", "E",
+                                      "alive", "otype", "w")),
+            *s.extras.values())) for s in sh.shards)
+        for how in ("nccl", "staged"):
+            group = D._device_group
+            if how == "staged":
+                # what a process without a card of its own takes: the
+                # planes cross through host memory over gloo
+                D._device_group = None
+            times = []
+            try:
+                for _ in range(MP_GATHER_REPS):
+                    torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    g = ShardedState(sh.shards, mesh).gather()
+                    torch.cuda.synchronize(dev)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    del g
+            finally:
+                D._device_group = group
+            out[f"{how}{n}"] = times
+        out[f"bytes{n}"] = nbytes
+        del sh
+        torch.cuda.empty_cache()
+    return out
+
+
+def mp_path(torch, dev, card, compare, mesh_ft, mesh_data, plan):
+    """Phase: bench.py's main path across MP_WORLD processes sharing the
+    card over gloo, MP_SHARDS shards each (8 in all, as phase 46): every
+    launch variant 64 over one shard, the sign records of both processes
+    bitwise equal to phase 46's one-process run; each process's chunk time
+    on its own clock beside phase 46's; then the small runs of
+    :func:`mp_scenarios` on every process; last, the first chunk of rank
+    1's first shard (global shard 4) against the twin. Returns the
+    kernels-line entry."""
+    import shutil
+    import tempfile
+
+    from physicl_tpu_torch.state import pad_capacity
+
+    phase(f"main path across {MP_WORLD} processes on one card: {MESH_N} "
+          f"photons, {MP_SHARDS} shards a process, {MESH_CHUNKS} chunks of "
+          f"{MESH_CHUNK}")
+    out = tempfile.mkdtemp()
+    try:
+        res = spawn_workers("card", MP_WORLD, out,
+                            env_of=lambda r: {"LOCAL_RANK": "0"})
+        main = [r[f"main{MP_SHARDS}"] for r in res]
+        for r, m in enumerate(main):
+            with np.load(os.path.join(out, f"rank{r}.npz")) as z:
+                data = z[f"main{MP_SHARDS}"]
+            check(res[r]["backend"] == "gloo", f"rank {r} backend "
+                  f"{res[r]['backend']}")
+            check(m["seq_launches"] == m["launches"]
+                  and m["launches"] >= MP_SHARDS * MESH_CHUNKS
+                  and m["launches"] % MP_SHARDS == 0,
+                  f"rank {r}: {m['seq_launches']} of {m['launches']} "
+                  "launches ran variant 64")
+            check(np.array_equal(data, mesh_data), f"rank {r}: sign records "
+                  "differ from the one-process 8-shard run's")
+            print(f"main-mp rank {r}: {m['launches']} launches, all variant "
+                  f"64, sign records bitwise equal to phase 46's; chunk of "
+                  f"{MESH_CHUNK} on its own clock "
+                  f"{np.mean(m['chunks']):.3f} ms "
+                  f"({[round(x, 3) for x in m['chunks']]}), between chunk "
+                  f"events {[round(x, 3) for x in m['between']]}; records "
+                  f"across processes at harvest "
+                  f"{np.mean(m['records_ms']):.3f} ms of host a chunk "
+                  f"({len(m['records_ms'])} chunks), the guard's row "
+                  f"{np.mean(m['guard_ms']):.3f} ms a boundary; wall "
+                  f"{m['wall']:.2f} s, set-up {m['setup']:.3f} s, peak "
+                  f"{m['peak'] / 2 ** 30:.2f} GiB [{card}]", flush=True)
+        ms = float(np.mean([x for m in main for x in m["chunks"]]))
+        print(f"main-mp: {ms:.3f} ms a chunk over both processes, against "
+              f"phase 46's {mesh_ft['ms']:.3f} ms (one process, 8 shards) "
+              f"and {mesh_ft['unsharded_ms']:.3f} ms unsharded [{card}]",
+              flush=True)
+        for r in range(MP_WORLD):
+            print(f"main-mp rank {r} on the card against the CPU twin, "
+                  f"bitwise: {res[r]['scenarios']}", flush=True)
+        args = torch.load(os.path.join(out, "shard_args.pt"))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    unit = pad_capacity(1) * MESH_SHARDS
+    cap = -(-MESH_N // unit) * unit
+    local = cap // MESH_SHARDS
+    k = args["k"]
+    entry = {"plain_ms": compare("mp-shard4", args["packed"].to(dev),
+                                 args["sched"].to(dev), min(k, TWIN_ITERS),
+                                 plan, None, "main-mp", args["seed"],
+                                 need_bitwise=True),
+             "plain_iters": min(k, TWIN_ITERS), "plain_slots": local,
+             "ms": ms, "launches": int(sum(m["launches"] for m in main)),
+             "per_process_ms": [float(np.mean(m["chunks"])) for m in main]}
+    entry["bound_ms"], entry["bound_by"] = transport_bound(plan, cap, k,
+                                                           None)
+    return entry
+
+
+def mp_cards(torch, cards, card, mesh_n):
+    """Phase, on a host with several cards: bench.py's main path with one
+    process a card over NCCL (``LOCAL_RANK`` names it), one shard a card
+    and MESH_SHARDS shards in all: each process's chunk times on its own
+    clock, and the records equal on every process; the small runs of
+    :func:`mp_scenarios` on every card against the CPU twin, bitwise; the
+    cost of an edit's gather over NCCL against staging it through the host
+    (:func:`gather_cost`)."""
+    import shutil
+    import tempfile
+
+    phase(f"one process a card over {len(cards)} cards")
+    out = tempfile.mkdtemp()
+    try:
+        res = spawn_workers("cards", len(cards), out,
+                            env_of=lambda r: {"LOCAL_RANK": str(r)})
+        for k in (1, MESH_SHARDS // len(cards)):
+            datas = []
+            for r in range(len(cards)):
+                with np.load(os.path.join(out, f"rank{r}.npz")) as z:
+                    datas.append(z[f"main{k}"])
+            m = [x[f"main{k}"] for x in res]
+            check(all(x["backend"] == "nccl" for x in res), "the "
+                  "processes did not take NCCL")
+            check(all(np.array_equal(d, datas[0]) for d in datas)
+                  and bool((datas[0][:, 1] == mesh_n).all()),
+                  f"one process a card, {k} shards each: records differ")
+            for r, x in enumerate(m):
+                print(f"one process a card, {k * len(cards)} shards: rank "
+                      f"{r} chunk {np.mean(x['chunks']):.3f} ms "
+                      f"({[round(v, 3) for v in x['chunks']]}), between "
+                      f"chunk events {[round(v, 3) for v in x['between']]}"
+                      f"; records across processes at harvest "
+                      f"{np.mean(x['records_ms']):.3f} ms of host a chunk, "
+                      f"the guard's row {np.mean(x['guard_ms']):.3f} ms a "
+                      f"boundary [{card}]", flush=True)
+        for r, x in enumerate(res):
+            print(f"one process a card, rank {r} on its card against the "
+                  f"CPU twin, bitwise: {x['scenarios']}", flush=True)
+            g = x["gather"]
+            for n in (MP_TWIN_N, mesh_n):
+                print(f"one process a card, rank {r}: an edit's gather of "
+                      f"{n} photons' planes ({g[f'bytes{n}']} B a process) "
+                      f"over NCCL {[round(v, 3) for v in g[f'nccl{n}']]} "
+                      f"ms, staged through the host over gloo "
+                      f"{[round(v, 3) for v in g[f'staged{n}']]} ms of host "
+                      f"[{card}]", flush=True)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def mesh_cards_main():
     """``chip_smoke.py --mesh-cards``, on a host with several cards: the
-    build and :func:`mesh_cards` over every card, nothing else."""
+    build, :func:`mesh_cards` over every card and :func:`mp_cards`,
+    nothing else."""
     import torch
 
     check(torch.cuda.device_count() > 1, "--mesh-cards needs several cards")
@@ -6406,13 +6908,17 @@ def mesh_cards_main():
     torch.cuda.set_device(0)
     phase("build")
     _build.load()
-    mesh_cards(torch, phys, [torch.device("cuda", i) for i in
-                             range(torch.cuda.device_count())],
-               card.splitlines()[0])
+    cards = [torch.device("cuda", i) for i in
+             range(torch.cuda.device_count())]
+    mesh_cards(torch, phys, cards, card.splitlines()[0])
+    mp_cards(torch, cards, card.splitlines()[0], MESH_N)
 
 
 if __name__ == "__main__":
     if sys.argv[1:] == ["--mesh-cards"]:
         mesh_cards_main()
+    elif sys.argv[1:2] == ["--mp-worker"]:
+        mode, rank, world, port, out = sys.argv[2:7]
+        mp_worker(mode, int(rank), int(world), int(port), out)
     else:
         main()

@@ -23,10 +23,10 @@ chunk-boundary population control (:mod:`physicl_tpu_torch.population`),
 and with ``spatial_sort=K`` reorders the population by voxel every K
 dispatches. ``save_checkpoint`` / ``restore_checkpoint`` share the JAX
 package's file format (:mod:`physicl_tpu_torch.utils.checkpoint`).
-``Simulation(mesh=...)`` shards the particle axis over a one-process device
-mesh (:mod:`physicl_tpu_torch.parallel`); a mesh across processes is not
-ported yet, and is refused with ``NotImplementedError`` rather than run
-differently.
+``Simulation(mesh=...)`` shards the particle axis over a device mesh
+(:mod:`physicl_tpu_torch.parallel`), in one process or across processes
+(``make_pod_mesh`` after ``init_distributed``: every process runs the same
+script and holds its own shards).
 """
 
 from __future__ import annotations
@@ -784,6 +784,28 @@ class Simulation(threading.Thread):
     edits, boundary splits and checkpoints act on the global planes, and
     the shards are split again after them. A shard whose kernel fails to
     build or launch fails the run: a mesh never falls back to one device.
+
+    A mesh across processes (:func:`physicl_tpu_torch.parallel.
+    make_pod_mesh` after ``init_distributed``) runs the same script on
+    every process (SPMD), each process holding and launching its own shards
+    (``device`` is its first shard's). The records, the exit test and
+    every edit's gathered planes cross processes as collectives on the run
+    thread, in global shard order, so that every process holds the
+    one-process mesh's records bit for bit and takes the same decisions.
+    Mid-run ``add_obj`` / ``add_photons`` / ``remove_obj`` must be issued on
+    every process: with ``divergence_guard=True`` (the default) each chunk
+    boundary all-gathers digests of the queued edits and applies only the
+    prefix that every process has queued alike, so an edit issued at
+    different times applies at one boundary everywhere, and it raises
+    ``RuntimeError`` on every process where the edits differ, or where an
+    edit queued on some processes only stalls ``divergence_patience``
+    boundaries (:meth:`physicl_tpu_torch.population.PopulationManager.
+    check_divergence`); with the guard off a mid-run injection is refused.
+    ``sim_state`` is readable after the run (it is the gathered global
+    state) or, during it, only on the run thread; ``save_checkpoint`` of a
+    run's state is refused there, as in the JAX package, and
+    ``restore_checkpoint`` loads the file on every process, each keeping
+    its span.
     """
 
     def __init__(self, **kwargs):
@@ -805,6 +827,9 @@ class Simulation(threading.Thread):
         self.fuse = "auto"
         self.fused_pipeline_depth = 4
         self.mesh = None
+        # across processes: consensus-gate mid-run edits (population.py)
+        self.divergence_guard = True
+        self.divergence_patience = 256
         self._max_record_bytes: Optional[int] = None
         # compact and cut the capacity when under a quarter of the slots
         # live (PopulationManager._shrink), as the JAX package does
@@ -870,9 +895,17 @@ class Simulation(threading.Thread):
     @property
     def sim_state(self):
         """The newest state (see the class docstring); on a mesh, the
-        global planes assembled from the shards."""
+        global planes assembled from the shards. On a mesh across
+        processes assembling them is a collective, which only the run
+        thread makes during a run (the run leaves the gathered state)."""
         st = self._sim_state
         if st is not None and not isinstance(st, SimState):
+            if (self.running and st.mesh.spans_processes
+                    and threading.current_thread() is not self):
+                raise RuntimeError(
+                    "sim_state of a run whose mesh spans processes is read "
+                    "after the run: assembling it is a collective that "
+                    "every process makes at one point of the run")
             return st.gather()  # a sharded state
         return st
 
@@ -882,11 +915,19 @@ class Simulation(threading.Thread):
 
     def _place_on_mesh(self) -> None:
         """``mesh`` as a :class:`~physicl_tpu_torch.parallel.Mesh`, and the
-        run's device its first entry (where the global planes live)."""
+        run's device its first local shard's (where the global planes
+        live)."""
         from physicl_tpu_torch.parallel.sharding import as_mesh
 
         self.mesh = as_mesh(self.mesh)
-        self.device = self.mesh[0]
+        self.device = self.mesh.local_devices[0]
+
+    def _spans_processes(self) -> bool:
+        from physicl_tpu_torch.parallel.distributed import (
+            mesh_spans_processes,
+        )
+
+        return mesh_spans_processes(self.mesh)
 
     def _shard_unit(self) -> int:
         """The capacity's rounding unit: ``pad_capacity(1)`` slots a shard."""
@@ -1080,6 +1121,15 @@ class Simulation(threading.Thread):
         k = len(objs) + sum(int(b["n"]) for b in bulks)
         if k == 0:
             return state, 0
+        if self._spans_processes() and not self.divergence_guard:
+            raise NotImplementedError(
+                "Mid-run injection on a multi-process mesh requires the "
+                "divergence guard: its consensus gating is what guarantees "
+                "every process applies identical edits at the same chunk "
+                "boundary (the update below is a global SPMD op that must "
+                "execute in lockstep pod-wide). Re-enable "
+                "Simulation(divergence_guard=True) or populate before "
+                "start().")
         from physicl_tpu_torch.parallel.sharding import as_global
 
         state = as_global(state)
@@ -1186,13 +1236,6 @@ class Simulation(threading.Thread):
             raise ValueError(f"fuse must be 'auto' or 'off', got "
                              f"{self.fuse!r}")
         if self.mesh is not None:
-            from physicl_tpu_torch.parallel.distributed import (
-                _refuse,
-                is_multiprocess,
-            )
-
-            if is_multiprocess():
-                _refuse("Simulation(mesh=) in a multi-process run")
             self._place_on_mesh()
 
     def _init_run_state(self) -> SimState:
@@ -1385,7 +1428,15 @@ class Simulation(threading.Thread):
     def _device_note(self) -> str:
         if self.mesh is None:
             return f"device: {self.device}"
-        devs = sorted({str(d) for d in self.mesh})
+        devs = sorted({str(d) for d in self.mesh.local_devices})
+        if self.mesh.spans_processes:
+            n_proc = len(set(self.mesh.owners))
+            return (f"device: {self.device}; mesh: {len(self.mesh)} shards "
+                    f"of contiguous slots over {n_proc} processes, this "
+                    f"one (rank {self.mesh.rank}) holding shards "
+                    f"{self.mesh.local.start}-{self.mesh.local.stop - 1} "
+                    f"on {', '.join(devs)}; records and edits cross "
+                    "processes as collectives")
         return (f"device: {self.device}; mesh: {len(self.mesh)} shards of "
                 f"contiguous slots over {', '.join(devs)} (global planes "
                 "on the first)")
@@ -1704,6 +1755,8 @@ class Simulation(threading.Thread):
             return self._harvest_fused(provider, pending.popleft(), steps)
 
         while True:
+            if not skip_maintain:
+                pop.check_divergence()  # across processes: edits match
             if not skip_maintain and pop.needs_attention(state, plan):
                 while pending:
                     done, final_state = drain_one()
@@ -1768,6 +1821,7 @@ class Simulation(threading.Thread):
             if skip_maintain:
                 skip_maintain = False
             else:
+                pop.check_divergence()  # across processes: edits match
                 state = pop.maintain(state, plan)
             state = self._maybe_spatial_sort(state, pop)
             state, done, records, valid = plan.chunk_fn(state)
@@ -1832,12 +1886,13 @@ class Simulation(threading.Thread):
         self._sort_resolved = False
         state = self._init_run_state()
         if self.mesh is not None:
-            # each shard's generator for the run (kept across re-splits)
+            # each local shard's generator for the run (kept across
+            # re-splits)
             from physicl_tpu_torch.parallel.sharding import shard_seed
 
             self._shard_keys = [
-                SimState.make_key(shard_seed(self.seed, i), d)
-                for i, d in enumerate(self.mesh)]
+                SimState.make_key(shard_seed(self.seed, i), self.mesh[i])
+                for i in self.mesh.local]
         # identity registry for mid-run remove_obj: the objects hold the
         # first slots in insertion order (none of them is in a restored
         # state)
@@ -1863,6 +1918,15 @@ class Simulation(threading.Thread):
                 self._drive(plan, pop, steps, state)
         else:
             self._drive(plan, pop, steps, state)
+        if self._spans_processes() and self._sim_state is not None:
+            # the final global state, gathered once on the run thread (in
+            # lockstep on every process), so that reads after the run make
+            # no collective
+            final = self._sim_state
+            final = final.gather() if not isinstance(final,
+                                                      SimState) else final
+            with self._state_lock:
+                self._sim_state = final
         with self._state_lock:
             for s in steps:
                 s.terminate(self)

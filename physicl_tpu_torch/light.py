@@ -43,6 +43,10 @@ from physicl_tpu_torch.ops.planck import (
     planck_gen,
     poly_icdf_reference,
 )
+from physicl_tpu_torch.parallel.distributed import (
+    local_shard_np,
+    mesh_spans_processes,
+)
 from physicl_tpu_torch.state import OBJ_PHOTON, is_traced
 from physicl_tpu_torch.units import Measurement, raw_code_value
 
@@ -2157,7 +2161,14 @@ class TracePathMeasureStep(MeasureStep):
 
     On the generic tier the step records each iteration's positions, alive
     mask and scatter flags as device records (``device_records``), which
-    stay on the device under the same hold budget."""
+    stay on the device under the same hold budget.
+
+    A mesh across processes traces shard-locally: each process assembles
+    only its contiguous span of the particle axis (rows keep global slot
+    ids; ``col0`` is the global id of local column 0, and CSV paths gain a
+    ``.p{rank}`` suffix), so no stream buffer crosses processes. Mid-run
+    capacity growth is refused there (it would move the spans); size
+    ``capacity=`` for the peak population."""
 
     needs_stable_ids = True
     device_records = ("pos", "alive", "scat")
@@ -2165,7 +2176,7 @@ class TracePathMeasureStep(MeasureStep):
     _data_override = None
     _cached_rows = None
 
-    mesh_records = {"pos": "cat", "alive": "cat", "scat": "cat"}
+    mesh_records = {"pos": "local", "alive": "local", "scat": "local"}
 
     def __init__(self, out_fn=None, trace_type=Object,
                  id_info_fn: Callable = lambda x: str(type(x)),
@@ -2194,6 +2205,13 @@ class TracePathMeasureStep(MeasureStep):
         self._freq = None       # generic tier: (C,) scatter-event counts
         self._seen = 0          # valid global iterations consumed
         self._gidx: List = []   # per chunk: sampled global iterations
+        self._mesh = None       # a mesh across processes: shard-local
+        self.col0 = 0           # set at assembly: global id of column 0
+
+    def setup(self, sim) -> None:
+        mesh = getattr(sim, "mesh", None) if sim is not None else None
+        self._mesh = mesh if mesh_spans_processes(mesh) else None
+
 
     def apply(self, state, ctx):
         pos = (state.r.to(torch.bfloat16)
@@ -2261,27 +2279,33 @@ class TracePathMeasureStep(MeasureStep):
             if not held:
                 continue
             total -= held
+            # this process's span only, on a mesh across processes
             if not hasattr(x, "buf"):
-                self._pos[i] = x.float().cpu().numpy()
-                self._alive[i] = self._alive[i].cpu().numpy()
+                self._pos[i], _ = local_shard_np(x.float(), self._mesh)
+                self._alive[i], _ = local_shard_np(self._alive[i],
+                                                   self._mesh)
                 continue
             # through the shared holder: every trace step's record of this
             # chunk references the same buffer
-            buf = x.buf.cpu()
-            x.hold.arr = (buf.view(torch.int16).numpy().view(np.uint16)
-                          if buf.dtype == torch.bfloat16 else buf.numpy())
+            buf = x.buf
+            if buf.dtype == torch.bfloat16:
+                bits, _ = local_shard_np(buf.view(torch.int16), self._mesh)
+                x.hold.arr = bits.view(np.uint16)
+            else:
+                x.hold.arr, _ = local_shard_np(buf, self._mesh)
 
     def _chunk_np(self, i):
         """Chunk i as host arrays: positions (rows, 3, C) float32, alive
-        (rows, C) and scatter flags (rows, C) or None. Only this step's
-        sampled rows and planes leave the device."""
+        (rows, C) and scatter flags (rows, C) or None, and the global id of
+        column 0 (on a mesh across processes C is this process's span,
+        :func:`~physicl_tpu_torch.parallel.distributed.local_shard_np`).
+        Only this step's sampled rows and planes leave the device."""
         x = self._pos[i]
         if not hasattr(x, "buf"):  # the generic tier's records
-            alive = self._alive[i]
-            if isinstance(x, torch.Tensor):
-                x = x.float().cpu().numpy()
-                alive = alive.cpu().numpy()
-            return np.asarray(x, np.float32), np.asarray(alive), None
+            x, col0 = local_shard_np(
+                x.float() if isinstance(x, torch.Tensor) else x, self._mesh)
+            alive, _ = local_shard_np(self._alive[i], self._mesh)
+            return np.asarray(x, np.float32), np.asarray(alive), None, col0
         buf = x.buf
         n_it = x.n_valid if x.n_valid >= 0 else buf.shape[0] * x.every
         rows = (x.rows if x.rows is not None
@@ -2289,13 +2313,15 @@ class TracePathMeasureStep(MeasureStep):
         npl = 4 if x.scat else 3
         if isinstance(buf, torch.Tensor):
             idx = torch.from_numpy(rows).to(buf.device)
-            sub = buf[idx, x.p0:x.p0 + npl].float().cpu().numpy()
+            sub = buf[idx, x.p0:x.p0 + npl].float()
         else:
             sub = buf[rows, x.p0:x.p0 + npl]
             if sub.dtype == np.uint16:  # spilled bfloat16 bits
                 sub = _bf16_bits_to_f32(sub)
+        sub, col0 = local_shard_np(sub, self._mesh)
         alive = ~np.isnan(sub[:, 0, :])
-        return sub[:, :3, :], alive, (sub[:, 3, :] if x.scat else None)
+        return (sub[:, :3, :], alive, (sub[:, 3, :] if x.scat else None),
+                col0)
 
     @property
     def data(self):
@@ -2318,8 +2344,18 @@ class TracePathMeasureStep(MeasureStep):
         if not self._pos:
             return [], np.zeros((0, 3, 0)), np.zeros((0, 0), bool), None
         chunks = [self._chunk_np(i) for i in range(len(self._pos))]
-        T = sum(p.shape[0] for p, _, _ in chunks)
-        cmax = max(p.shape[-1] for p, _, _ in chunks)
+        col0s = {c[3] for c in chunks}
+        if len(col0s) > 1:
+            # shard-local assembly across processes: the span moved between
+            # chunks (capacity growth re-splits the particle axis), so the
+            # chunks' column blocks no longer align to one global offset
+            raise NotImplementedError(
+                "TracePathMeasureStep on a process-spanning mesh does not "
+                f"support mid-run capacity growth (local spans {col0s}); "
+                "pre-size capacity= for the peak population")
+        self.col0 = col0s.pop()
+        T = sum(p.shape[0] for p, _, _, _ in chunks)
+        cmax = max(p.shape[-1] for p, _, _, _ in chunks)
         pos = np.zeros((T, 3, cmax), np.float32)
         alive = np.zeros((T, cmax), bool)
         # scatter-event counts: the generic tier's on the device, the fused
@@ -2328,7 +2364,7 @@ class TracePathMeasureStep(MeasureStep):
                 else np.pad(self._freq.cpu().numpy(),
                             (0, cmax - self._freq.shape[0])))
         t0 = 0
-        for p, a, scat in chunks:
+        for p, a, scat, _ in chunks:
             t1 = t0 + p.shape[0]
             pos[t0:t1, :, :p.shape[-1]] = p
             alive[t0:t1, :a.shape[-1]] = a
@@ -2352,16 +2388,22 @@ class TracePathMeasureStep(MeasureStep):
             return [["t"]]
         T = pos.shape[0]
         rows: List[list] = [["t"] + list(ts)]
-        for g in range(min(self._n_rows, pos.shape[-1])):
+        # columns are the global slots [col0, col0 + C): the whole
+        # population on one process, this process's span across processes
+        # (rows keep the global slot id; the processes' matrices tile the
+        # whole one)
+        lo = self.col0
+        for g in range(lo, min(self._n_rows, lo + pos.shape[-1])):
+            i = g - lo
             info = (self.id_info_fn(self._objs[g])
                     if g < len(self._objs) else str(g))
             row = [info]
             if self.trace_dv:
-                row.append(int(freq[g]) if freq is not None
-                           and g < len(freq) else 0)
+                row.append(int(freq[i]) if freq is not None
+                           and i < len(freq) else 0)
             for ti in range(T):
-                if alive[ti, g]:
-                    row.append(np.array(pos[ti, :, g]))
+                if alive[ti, i]:
+                    row.append(np.array(pos[ti, :, i]))
                 else:
                     row.extend([np.nan, np.nan, np.nan])
             rows.append(row)
@@ -2373,6 +2415,17 @@ class TracePathMeasureStep(MeasureStep):
         self._ts = list(sim.ts)
         self._n_rows = max(sim._initial_count, getattr(sim, "_hwm", 0))
         self._objs = list(sim._pending_objects)
+        if self._mesh is not None and self.out_fn is not None:
+            # shard-local matrices: every process writes its span, to a
+            # path of its own (the .pN files, joined row-wise, tile the
+            # whole matrix)
+            saved = self.out_fn
+            try:
+                self.out_fn = f"{saved}.p{self._mesh.rank}"
+                super().terminate(sim)
+            finally:
+                self.out_fn = saved
+            return
         super().terminate(sim)  # writes CSV (builds rows) only if out_fn set
 
 

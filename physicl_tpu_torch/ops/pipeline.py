@@ -199,6 +199,10 @@ class _Inflight:
     comps_before: np.ndarray
     t_opt: np.float32
     dt_opt: np.float32
+    # on a mesh: rec / rec_f hold this process's shards' rows, (shards,
+    # K, cols), which harvest() adds in global shard order (across
+    # processes too)
+    mesh: object = None
 
 
 class _StreamHold:
@@ -248,6 +252,7 @@ class _EList:
     plane: int
     ready: Optional[torch.cuda.Event] = None  # the chunk's completion
     n_valid: int = -1
+    mesh: object = None  # the run's mesh: across processes C is this span
 
     def __getitem__(self, sl):
         """The engine's valid-prefix trim: records the bound."""
@@ -278,7 +283,35 @@ class _EList:
                 vals, counts = compact()
         else:
             vals, counts = compact()
+        vals, counts = _join_spans(vals, counts, self.mesh)
         return np.split(vals, np.cumsum(counts)[:-1])
+
+
+def _join_spans(vals: np.ndarray, counts: np.ndarray, mesh):
+    """Every process's compacted energies of a chunk (each process holds
+    its span's, iteration-major), joined so that each iteration lists every
+    process's in rank order: global slot order, as on one process. One
+    all-gather of the counts and one of the values (the lists' lengths
+    differ by process, so this is not :func:`~physicl_tpu_torch.parallel.
+    distributed.fetch_to_every_host`, whose channel has one width). Off a
+    mesh that spans processes, ``(vals, counts)`` as they are."""
+    from physicl_tpu_torch.parallel.distributed import (
+        all_gather_tensors,
+        all_gather_varlen,
+        mesh_spans_processes,
+    )
+
+    if not mesh_spans_processes(mesh):
+        return vals, counts
+    cs = [c.numpy() for (c,) in all_gather_tensors(
+        [torch.from_numpy(np.asarray(counts, np.int64))])]
+    vs = [v.numpy() for v in all_gather_varlen(torch.from_numpy(vals))]
+    parts = [np.split(v, np.cumsum(c)[:-1]) for v, c in zip(vs, cs)]
+    joined = [np.concatenate([p[i] for p in parts])
+              for i in range(len(counts))]
+    out = (np.concatenate(joined) if joined
+           else np.zeros(0, vals.dtype))
+    return out, np.sum(cs, axis=0)
 
 
 def _prefix(sl, n: int) -> int:
@@ -493,7 +526,8 @@ class FusedProvider:
             stream=stream, k_act=k_act,
             done_t=done_t, ts=ts, ts_before=ts_before, dts_after=dts_after,
             dts_before=dts_before, comps=comps, comps_before=comps_before,
-            t_opt=np.float32(self.t_h), dt_opt=np.float32(self.dt_h))
+            t_opt=np.float32(self.t_h), dt_opt=np.float32(self.dt_h),
+            mesh=self.sim.mesh)
 
     def _launch(self, state: SimState, sched: torch.Tensor, emit_starts,
                 seed: int, k_act: int, hwm_before: int, scalars: dict,
@@ -547,16 +581,19 @@ class FusedProvider:
 
     def _launch_shards(self, state, sched, emit_starts, seed: int,
                        k_act: int, hwm_before: int, scalars: dict):
-        """One chunk over the mesh: :meth:`_launch` on each shard's local
-        planes with the shard's seed (``shard_seed``) and emit windows
-        shifted by ``idx * local capacity`` (the JAX package's
-        ``build_sharded_fused``); the record rows summed in shard order
-        onto the first shard's device (integer rows exactly), the stream
-        planes joined there in global slot order. No fallback: a shard
-        whose kernel fails raises."""
+        """One chunk over the mesh: :meth:`_launch` on each of this
+        process's shards' local planes with the shard's seed
+        (``shard_seed`` of its global index) and emit windows shifted by
+        ``idx * local capacity`` (the JAX package's
+        ``build_sharded_fused``). The record rows stay per shard,
+        ``(shards, K, cols)`` over the columns in use, stacked on the first
+        shard's device: :meth:`harvest` adds them in shard order on the
+        host copies (across processes too, so that no collective waits on a
+        chunk at dispatch). The stream planes join this process's span
+        there, in global slot order. No fallback: a shard whose kernel
+        fails raises."""
         from physicl_tpu_torch.parallel.sharding import (
             ShardedState,
-            reduce_sum,
             shard_seed,
         )
 
@@ -565,21 +602,25 @@ class FusedProvider:
         cached = (self._last_packed if state is self._last_state
                   and isinstance(self._last_packed, list) else None)
         shards, outs, recs, recfs, streams = [], [], [], [], []
-        for idx, st in enumerate(sh.shards):
+        for j, st in enumerate(sh.shards):
+            idx = sh.first + j
             on = (torch.cuda.device(st.device) if st.device.type == "cuda"
                   else contextlib.nullcontext())
             with on:
                 res = self._launch(st, sched, emit_starts,
                                    shard_seed(seed, idx), k_act, hwm_before,
                                    scalars, idx * L,
-                                   None if cached is None else cached[idx])
+                                   None if cached is None else cached[j])
             for acc, x in zip((shards, outs, recs, recfs, streams), res):
                 acc.append(x)
         dev = sh.device
         stream = (torch.cat([x.to(dev) for x in streams], dim=-1)
                   if self.plan.n_stream else None)
-        return (ShardedState(shards, sh.mesh), outs, reduce_sum(recs, dev),
-                reduce_sum(recfs, dev), stream)
+        nc = max(1, self.plan.n_rec_cols)
+        nf = max(1, self.plan.n_frec_cols)
+        return (ShardedState(shards, sh.mesh), outs,
+                torch.stack([r[:, :nc].to(dev) for r in recs]),
+                torch.stack([r[:, :nf].to(dev) for r in recfs]), stream)
 
     def harvest(self, inflight: _Inflight):
         """Wait for a dispatched chunk's records and classify its exit.
@@ -590,6 +631,8 @@ class FusedProvider:
         k_act = inflight.k_act
         if inflight.ready is not None:
             inflight.ready.synchronize()
+        if inflight.mesh is not None:
+            _combine_shards(inflight)
         rec_np = inflight.rec.numpy()
         recf_np = None if inflight.rec_f is None else inflight.rec_f.numpy()
 
@@ -657,7 +700,8 @@ class FusedProvider:
                 for j, p in enumerate(m.get("ecap_planes", ())):
                     if p >= 0:  # per-photon E capture, compacted in collect
                         records[f"{uid}/E{j}"] = _EList(
-                            inflight.stream, p, inflight.ready)
+                            inflight.stream, p, inflight.ready,
+                            mesh=inflight.mesh)
             elif m["kind"] == "reduce":
                 records[f"{uid}/t"] = t_arr
                 if m["n_col"] >= 0:
@@ -690,6 +734,28 @@ class FusedProvider:
         done, final_state, records, n_valid, _ = self.harvest(
             self.dispatch(state))
         return final_state, done, records, np.arange(self.plan.chunk) < n_valid
+
+
+def _combine_shards(inflight: _Inflight) -> None:
+    """A chunk's record rows on a mesh: every shard's rows (this process
+    holds its own shards', on the host) added in global shard order
+    (:func:`physicl_tpu_torch.parallel.sharding.reduce_sum`, which
+    all-gathers them first across processes), into the ``(K, 128)`` layout
+    of one device's rows: integer rows exactly, float rows in that fixed
+    order. Every process then reads the same rows, bit for bit those of
+    the one-process mesh."""
+    from physicl_tpu_torch.parallel.sharding import reduce_sum
+
+    cpu = torch.device("cpu")
+    for name in ("rec", "rec_f"):
+        rows = getattr(inflight, name)
+        if rows is None:
+            continue
+        total = reduce_sum(list(rows.unbind(0)), cpu, inflight.mesh)
+        full = torch.zeros((total.shape[0], F._MAX_REC_COLS),
+                           dtype=total.dtype)
+        full[:, :total.shape[1]] = total
+        setattr(inflight, name, full)
 
 
 def _to_pinned(t: torch.Tensor) -> torch.Tensor:

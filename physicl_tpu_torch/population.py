@@ -28,16 +28,24 @@ spatial sort) drops the ``at="chunk"`` split snapshots. On a device mesh
 every edit acts on the global planes (gathered from the shards; the next
 chunk splits them again), so a recycling compaction moves live particles
 across shards exactly as the single-device compaction moves them, and a
-split's copies take global free slots. The JAX package's multi-process
-divergence guard belongs to meshes across processes, which the port does
-not have yet; in one process the JAX package runs without it too.
+split's copies take global free slots. On a mesh across processes the
+gather is an all-gather, after which every process holds the identical
+global planes and takes the same decision from the same inputs (the alive
+count and spawn mark of the records, which every process reads alike), as
+the JAX package's ``compact_on_mesh`` does; each process then keeps its
+span. Mid-run edits are queued per process, so there the divergence guard
+(:meth:`PopulationManager.check_divergence`) releases only the edits that
+every process has queued alike, at the same boundary everywhere.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import warnings
 from typing import Callable, List, Optional
 
+import numpy as np
 import torch
 
 from physicl_tpu_torch.ops.compaction import compact, compact_shrink
@@ -47,6 +55,11 @@ from physicl_tpu_torch.state import SimState, pad_capacity
 __all__ = ["ExecPlan", "PopulationManager"]
 
 _SPLIT_SEED_SALT = 0x5B1177
+
+# Edits per boundary considered for cross-process prefix consensus (the
+# all-gathered row stays fixed-size: 3 + 2*K u64s). A backlog deeper than K
+# simply consents over several boundaries.
+_GUARD_WINDOW = 16
 
 
 @dataclasses.dataclass
@@ -82,6 +95,30 @@ class PopulationManager:
         # (post-drain) alive count showed recycling impossible: suppresses
         # repeat drains until the mark moves or the alive mirror drops
         self._recycle_blocked_hwm = None
+        # SPMD divergence guard (meshes across processes): population
+        # edits must apply identically on every process. Each chunk
+        # boundary all-gathers prefix digests of the queued edits and
+        # releases only the prefix EVERY process has queued alike
+        # (consensus gating): an identical edit issued at different times
+        # is deferred a boundary, not fatal. Divergence raises on every
+        # process: at once for a same-position mismatch, after
+        # divergence_patience stalled boundaries for an edit queued on some
+        # processes only (opt out: Simulation(divergence_guard=False))
+        from physicl_tpu_torch.parallel.distributed import (
+            mesh_spans_processes,
+        )
+
+        self.spmd_guard = (mesh_spans_processes(sim.mesh)
+                           and getattr(sim, "divergence_guard", True))
+        self._boundary_idx = 0
+        # (injects, removes) released for application at this boundary by
+        # the consensus round; _apply_* consume their component
+        self._consensus = (0, 0)
+        self._stall_rounds = 0
+        self._patience = int(getattr(sim, "divergence_patience", 256))
+        # cumulative digest of the edits maintain() applied: consensus
+        # gating keeps it identical on every process
+        self._applied_h = hashlib.blake2b(digest_size=8)
 
     def prime_boundary_snapshots(self, state: SimState) -> None:
         """Seed the ``at="chunk"`` importance snapshots from the initial
@@ -100,6 +137,158 @@ class PopulationManager:
             if getattr(s, "_prev_r", None) is not None:
                 s._prev_r = None
 
+    # -- the divergence guard (meshes across processes) -----------------------
+
+    @staticmethod
+    def _hash_edits(h, items, removes) -> None:
+        """Fold population edits (order, kinds, payload values) into digest
+        ``h``: the JAX package's fields, as float64 bytes. Identical edit
+        sequences give identical digests."""
+        from physicl_tpu_torch.units import raw_code_value
+
+        def f64(x):
+            if isinstance(x, torch.Tensor):
+                x = x.detach().cpu().numpy()
+            return np.ascontiguousarray(np.asarray(x, np.float64)).tobytes()
+
+        h.update(np.int64(len(items)).tobytes())
+        for kind, payload in items:
+            h.update(kind.encode())
+            if kind == "bulk":
+                h.update(np.int64(int(payload["n"])).tobytes())
+                h.update(np.int64(int(payload["otype"])).tobytes())
+                for f in ("r", "v", "E"):
+                    h.update(f64(payload[f]))
+                if "w" in payload:  # statistical weights (presence hashes)
+                    h.update(b"w" + f64(payload["w"]))
+            else:  # "obj"
+                h.update(np.int64(getattr(payload, "_obj_type_code",
+                                          0)).tobytes())
+                for f in ("r", "v", "E"):
+                    h.update(f64(raw_code_value(getattr(payload, f, 0.0))))
+                h.update(f64(raw_code_value(getattr(payload, "w", 1.0))))
+        h.update(np.asarray(sorted(removes), np.int64).tobytes())
+
+    def _note_applied(self, items, removes) -> None:
+        if self.spmd_guard and (items or removes):
+            self._hash_edits(self._applied_h, items, removes)
+
+    def _allgather_row(self, row: np.ndarray) -> np.ndarray:
+        """``row`` (uint64) of every process, one per rank, through one
+        all-gather of its int64 view."""
+        from physicl_tpu_torch.parallel.distributed import all_gather_tensors
+
+        t = torch.from_numpy(row.view(np.int64).copy())
+        return np.stack([r.numpy().view(np.uint64)
+                         for (r,) in all_gather_tensors([t])])
+
+    def check_divergence(self) -> None:
+        """Consensus-gate queued population edits across processes.
+
+        Called once per chunk boundary on EVERY process (the run threads
+        reach boundaries in lockstep, so the collective always pairs).
+        All-gathers the applied-history digest plus per-position prefix
+        digests of the locally queued edits, then releases for application
+        only the prefix every process has queued identically
+        (``self._consensus``); the rest stay queued for a later boundary.
+        An identical edit issued at different times (one process's run
+        crossing the boundary a beat before another's enqueue) is deferred
+        to the boundary where every process has it, so the edit, and any
+        capacity growth or re-plan it brings, lands at one boundary on
+        every process. Divergence raises ``RuntimeError`` on every process:
+        at once when the same queue position holds different edits or the
+        applied histories differ; after ``Simulation(divergence_patience=
+        ...)`` (default 256) consecutive stalled boundaries when an edit
+        was issued on some processes only.
+        """
+        if not self.spmd_guard:
+            return
+        self._boundary_idx += 1
+        sim = self.sim
+        with sim._inject_lock:
+            items = list(sim._pending_inject)
+            removes = list(sim._pending_remove)
+        K = _GUARD_WINDOW
+        inj_pref = []
+        h = hashlib.blake2b(digest_size=8)
+        for it in items[:K]:
+            self._hash_edits(h, [it], [])
+            inj_pref.append(int.from_bytes(h.copy().digest(), "little"))
+        rem_pref = []
+        h = hashlib.blake2b(digest_size=8)
+        for slot in removes[:K]:
+            h.update(np.int64(slot).tobytes())
+            rem_pref.append(int.from_bytes(h.copy().digest(), "little"))
+        row = np.zeros(3 + 2 * K, np.uint64)
+        row[0] = int.from_bytes(self._applied_h.copy().digest(), "little")
+        row[1], row[2] = len(inj_pref), len(rem_pref)
+        row[3:3 + len(inj_pref)] = inj_pref
+        row[3 + K:3 + K + len(rem_pref)] = rem_pref
+        g = self._allgather_row(row)
+        if not (g[:, 0] == g[0, 0]).all():
+            raise RuntimeError(
+                f"multi-host SPMD divergence at chunk boundary "
+                f"{self._boundary_idx}: applied population-edit histories "
+                f"differ across processes (digests "
+                f"{[hex(int(x)) for x in g[:, 0]]}); device state is no "
+                f"longer consistent.")
+        m_inj = int(g[:, 1].min())
+        m_rem = int(g[:, 2].min())
+        # prefix digests are cumulative: position m-1 equal => whole prefix
+        # equal. A mismatch there is the same queue position holding
+        # DIFFERENT edits on different processes: divergence.
+        if m_inj and not (g[:, 2 + m_inj] == g[0, 2 + m_inj]).all():
+            raise RuntimeError(
+                f"multi-host SPMD divergence at chunk boundary "
+                f"{self._boundary_idx}: the first {m_inj} queued "
+                f"injection(s) differ across processes (prefix digests "
+                f"{[hex(int(x)) for x in g[:, 2 + m_inj]]}). Mid-run "
+                f"add_obj / add_photons must be issued identically and in "
+                f"the same order on every process.")
+        if m_rem and not (g[:, 2 + K + m_rem] == g[0, 2 + K + m_rem]).all():
+            raise RuntimeError(
+                f"multi-host SPMD divergence at chunk boundary "
+                f"{self._boundary_idx}: the first {m_rem} queued "
+                f"removal(s) differ across processes. Mid-run remove_obj "
+                f"must be issued identically and in the same order on "
+                f"every process.")
+        self._consensus = (m_inj, m_rem)
+        stalled = ((m_inj == 0 and int(g[:, 1].max()) > 0)
+                   or (m_rem == 0 and int(g[:, 2].max()) > 0))
+        self._stall_rounds = self._stall_rounds + 1 if stalled else 0
+        if self._stall_rounds >= self._patience:
+            counts = [(int(r[1]), int(r[2])) for r in g]
+            raise RuntimeError(
+                f"multi-host SPMD divergence: population edits queued on "
+                f"some processes never appeared on all of them within "
+                f"{self._patience} chunk boundaries (queued (inject, "
+                f"remove) counts per process: {counts}, boundary "
+                f"{self._boundary_idx}). Mid-run add_obj / add_photons / "
+                f"remove_obj must be issued on EVERY process.")
+
+    def _pending_injections(self) -> int:
+        """Injections this boundary applies: the consensus count under the
+        guard (identical on every process), else the local queue's."""
+        return (self._consensus[0] if self.spmd_guard
+                else len(self.sim._pending_inject))
+
+    def _take(self, queue: str, which: int) -> list:
+        """Dequeue the edits this boundary applies: under the guard the
+        consensus prefix (consumed: a second apply without a fresh round
+        releases none), else the whole queue."""
+        sim = self.sim
+        with sim._inject_lock:
+            pending = getattr(sim, queue)
+            if not self.spmd_guard:
+                setattr(sim, queue, [])
+                return pending
+            m = self._consensus[which]
+            c = list(self._consensus)
+            c[which] = 0
+            self._consensus = tuple(c)
+            setattr(sim, queue, pending[m:])
+            return pending[:m]
+
     def needs_attention(self, state: SimState, plan: ExecPlan) -> bool:
         """True when recycling or boundary control may be due at this
         boundary; the fused loop then drains its pipeline first, so that
@@ -112,7 +301,13 @@ class PopulationManager:
         counts; when that judgement was "too few dead slots", repeat drains
         wait until the spawn mark moves or the mirror drops below half."""
         sim = self.sim
-        if sim._pending_inject or sim._pending_remove:
+        if self.spmd_guard:
+            # the consensus counts are all-gathered, identical everywhere:
+            # every process takes the same drain decision (the raw local
+            # queues differ for a while across processes)
+            if self._consensus != (0, 0):
+                return True
+        elif sim._pending_inject or sim._pending_remove:
             return True
         if self.split_steps:
             return True  # boundary control runs at every boundary
@@ -148,8 +343,10 @@ class PopulationManager:
         sim = self.sim
         if not sim._pending_remove:
             return state
-        with sim._inject_lock:
-            slots, sim._pending_remove = sim._pending_remove, []
+        slots = self._take("_pending_remove", 1)
+        if not slots:
+            return state
+        self._note_applied([], slots)
         state = as_global(state)
         alive = state.alive.clone()
         alive[torch.tensor(slots, dtype=torch.int64,
@@ -175,8 +372,10 @@ class PopulationManager:
         sim = self.sim
         if not sim._pending_inject:
             return state
-        with sim._inject_lock:
-            items, sim._pending_inject = sim._pending_inject, []
+        items = self._take("_pending_inject", 0)
+        if not items:
+            return state
+        self._note_applied(items, [])
         self._reset_split_snapshots()
         old_cap = state.capacity
         state, k_new = sim._inject_into_state(state, items)
@@ -210,7 +409,7 @@ class PopulationManager:
         than half of the used slots are alive (not with an injection
         queued: it places its particles itself)."""
         sim = self.sim
-        if not self.recycle_ok or sim._pending_inject:
+        if not self.recycle_ok or self._pending_injections():
             return state
         provider = plan.provider
         hwm = provider.hwm_h if provider is not None else sim._hwm
@@ -243,7 +442,7 @@ class PopulationManager:
         capacity; the generic tier gets a new chunk function."""
         sim = self.sim
         n = sim._host_n_alive
-        if (not self.shrink_ok or n == 0 or sim._pending_inject
+        if (not self.shrink_ok or n == 0 or self._pending_injections()
                 or n >= state.capacity // 4):
             return state
         new_state = compact_shrink(state, n)
@@ -309,6 +508,31 @@ class PopulationManager:
         return state
 
     def flush_removals(self, state: SimState) -> SimState:
-        """Removals queued during the final chunk, applied after the loop
-        (the JAX package's single-process branch)."""
-        return self._apply_removals(state)
+        """Removals queued during the final chunk, applied after the loop.
+
+        Under the guard this runs one final consensus round first (so late
+        removals issued on every process still apply), then audits: edits
+        issued on SOME processes only were applied nowhere, so the state is
+        still identical on every process and that is a ``RuntimeWarning``
+        (lost intent, not corrupted physics), while a mismatch of the
+        applied histories raises."""
+        if not self.spmd_guard:
+            return self._apply_removals(state)
+        self.check_divergence()
+        state = self._apply_removals(state)
+        sim = self.sim
+        with sim._inject_lock:
+            leftover = np.array([len(sim._pending_inject),
+                                 len(sim._pending_remove)], np.uint64)
+        g = self._allgather_row(leftover)
+        if g.sum():
+            counts = [(int(r[0]), int(r[1])) for r in g]
+            warnings.warn(
+                f"multi-host run ended with unapplied population edits "
+                f"(queued (inject, remove) counts per process: {counts}): "
+                f"issued on some processes only, or too late for the last "
+                f"chunk boundary. Applied state is still identical on every "
+                f"process; issue mid-run edits on every process before the "
+                f"run ends to have them take effect.",
+                RuntimeWarning, stacklevel=2)
+        return state

@@ -45,7 +45,19 @@ def jax_key_data(seed: int) -> np.ndarray:
 
 def save_checkpoint(sim, path: str) -> None:
     """Snapshot a Simulation (running or finished; before ``start()``, its
-    pending population) to ``path`` (.npz)."""
+    pending population) to ``path`` (.npz). A run's state on a mesh across
+    processes is refused (``NotImplementedError``), as the JAX package's
+    fetch of it fails there: no process holds the other processes'
+    shards."""
+    from physicl_tpu_torch.parallel.distributed import mesh_spans_processes
+
+    if (getattr(sim, "_sim_state", None) is not None
+            and mesh_spans_processes(getattr(sim, "mesh", None))):
+        raise NotImplementedError(
+            "save_checkpoint of a run on a mesh that spans processes: the "
+            "state's shards live in several processes, and the JAX "
+            "package's save (jax.device_get) cannot fetch them either; "
+            "save before start(), or from a run on one process")
     state = sim.sim_state
     if state is None:
         state = SimState.from_population(sim._pending_objects,

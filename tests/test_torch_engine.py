@@ -430,13 +430,14 @@ def test_unported_exits_refuse(code, kw):
 @pytest.mark.parametrize("kw", [{"auto_shrink": True}, {"fuse": "off"},
                                 {"spatial_sort": 2},
                                 {"mesh": ["cpu", "cpu"]}])
-def test_unported_simulation_options_refuse(kw):
+def test_unported_simulation_options_refuse(kw, monkeypatch):
     """fuse="off" runs the generic tier (the user's choice: no warning);
     auto_shrink=True, the default as in the JAX package, runs fused;
     spatial_sort=2 runs fused, unsorted, with one ``[no-voxel-table]``
     warning (this plan has no voxel medium to key it on); a one-process
-    mesh= runs fused over its shards, and what is still refused is a
-    process group (``init_distributed``)."""
+    mesh= runs fused over its shards, and ``init_distributed`` without a
+    coordinator (no argument, no torchrun variables) says which one it
+    needs."""
     s, _ = _build(T, lambda c: c.t >= 0.01, device="cpu", **kw)
     if kw == {"auto_shrink": True}:
         assert T.Simulation().auto_shrink is True
@@ -467,5 +468,7 @@ def test_unported_simulation_options_refuse(kw):
     assert s.sim_state.capacity == 2 * 16384 and len(s.mesh) == 2
     from physicl_tpu_torch.parallel import init_distributed
 
-    with pytest.raises(NotImplementedError, match="not ported"):
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    monkeypatch.delenv("MASTER_PORT", raising=False)
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
         init_distributed()

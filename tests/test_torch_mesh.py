@@ -90,17 +90,20 @@ def _assert_ts(js, ts):
         np.asarray(js.ts, np.float32).tobytes()
 
 
-def test_mesh_surface():
+def test_mesh_surface(monkeypatch):
     """make_mesh cycles shards over the given devices; shard_state splits
     the particle axis into contiguous spans and replicates the scalars;
-    a single process is not a multi-process run, and a process group
-    stays refused by name."""
+    a single process is not a multi-process run, and init_distributed
+    without a coordinator (no argument, no torchrun variables) says
+    which one it needs."""
     mesh = make_mesh(8, devices=["cpu"])
     assert mesh.size == 8 and mesh.axis_names == (PHOTON_AXIS,)
     assert make_mesh(4, devices=["cpu", "meta"])[3] == torch.device("meta")
     assert make_pod_mesh(devices=["cpu"]) == make_mesh(devices=["cpu"])
     assert not is_multiprocess()
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    monkeypatch.delenv("MASTER_PORT", raising=False)
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
         init_distributed()
     st = SimState.from_population(
         [], [T.light.generate_photon_state(100000, E=1.0)], device="cpu",
