@@ -10,7 +10,13 @@ Phases (any failure exits non-zero and prints no result line):
    limit as ``nvidia-smi`` reports them;
 2. build: builds ``physicl_tpu_torch/csrc/*.cu`` with ``nvcc`` (one process
    per source, all at once) and prints the seconds it took and the
-   compiler's register report;
+   compiler's register report; the kernel 1i plans this script runs
+   (``USER_PLANS``, the user and spectrum paths, the deep shield's band
+   tallies) are planned on the CPU while it runs, and their generated
+   libraries (``ops/codegen.py``) start building after it, one ``nvcc``
+   each, while the phases before 29 run; the main library holds no
+   instantiation with the user bit (its grid query refuses every such
+   variant);
 3. ``fused_transport`` vs twin: the kernel against its plain PyTorch twin on
    the card, at 2**20 slots and 256 iterations for the main-path plans
    ([kin, iso, sign] and [kin, del, iso, sign]) and the Planck-path plans
@@ -236,7 +242,7 @@ Phases (any failure exits non-zero and prints no result line):
     alpha) and stays below 0.97 over the first 12 rows, the last tally row equals the final planes' means within 1e-5,
     deposits + sum E = N E0 within the records' summation-chain bound; both
     print the rates, peak memory and idle share;
-29. ``fused_transport`` vs twin on the nine kernel 1i plans
+29. ``fused_transport`` vs twin on the ten kernel 1i plans
     (``USER_PLANS``) at 2**20 slots and 256 iterations, as their providers
     hand them over: an ElementwiseStep with t, dt and exp, one with draws
     (one drawn and never used) and an alive clear, one reading and writing
@@ -245,15 +251,22 @@ Phases (any failure exits non-zero and prints no result line):
     implicit capture; a KernelStep reading otype on a photon/charge
     population; run_all.py's weighted tally under implicit capture and
     roulette; the fluorescence example's A(E) as a torch callable (a
-    recorded field program): int records equal, every plane (the written-
-    back extras included) bitwise, rec_f as in phase 3, each timed against
-    its bound with the instantiation's registers;
+    recorded field program); an ElementwiseStep past the interpreter's old
+    limits (60 live values, 70 draws, over 1200 instructions): int records
+    equal, every plane (the written-back extras included) bitwise, rec_f as
+    in phase 3, each user plan on its own generated library, each timed
+    against its bound and printed with its build seconds, its
+    instantiation's registers and spills, its blocks per SM and its
+    programs' SASS instructions per photon-iteration
+    (``scripts/sass_loop.py --user``);
 30. the same on the user path's first chunk (10**7 x 1024, over its first
     256 iterations: kin, iso, a
     KernelStep drag, an ElementwiseStep decay with a draw, t, dt and a
     written-back dose, the moments tally) and the spectrum path's (10**7
-    x 60: thermal Compton and two 56-bin spectra, the chunk clamped by
-    117 record columns);
+    x 62: thermal Compton and two 56-bin spectra, the chunk clamped by the
+    record tiles of its 117 columns), each printed with its generated
+    library's build seconds, registers and spills, blocks per SM and SASS
+    instructions per photon-iteration, as in phase 29;
 31. user path (run_all.py kernelstep_drag_fused_1e7 with engine.py's
     decay and moments examples): 10**7 photons, 2048 iterations in chunks
     of 1024, run twice (the second profiled): every alive |v| between c
@@ -427,11 +440,13 @@ at the load/store issue rate, and the stream buffer's bytes), and
 "device": {...}}``.
 """
 
+import ctypes
 import dataclasses
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1118,18 +1133,36 @@ def main():
 
     phase("build")
     t0 = time.perf_counter()
-    _build.load()
+    # the user plans are planned on the CPU while the main libraries
+    # build; their libraries then build while the phases before 29 run
+    main_build = threading.Thread(target=_build.load)
+    main_build.start()
+    sources = user_plan_sources(phys)
+    t_plan = time.perf_counter() - t0
+    main_build.join()
+    _build.load()  # raises here if the build failed
+    _build.start_plan_builds(sources)
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, all sources at "
-          f"once: {_build.build_seconds or 0:.2f} s)")
+          f"once: {_build.build_seconds or 0:.2f} s; {len(sources)} user "
+          f"plans planned on the CPU meanwhile in {t_plan:.2f} s, their "
+          "libraries started now, one nvcc each)")
     for line in _build.build_log.splitlines():
         if line.startswith("[") or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
     # every instantiation's registers and spills (variant bits: fields 1,
-    # geometry and streams 2, rotation family 4, extras 8, polarization 16
-    # and kernel 1i's user programs 32, both only with extras)
+    # geometry and streams 2, rotation family 4, extras 8, polarization 16,
+    # both only with extras); kernel 1i's user bit 32 is in no variant of
+    # the main library: each user plan has its own (phase 29)
     for v in range(66):
-        if v < 16 or v & 8 or v >= 64:
+        if (v < 16 or v & 8 or v >= 64) and not v & 32:
             print(f"  fused_transport variant {v}: {kernel_regs(v)}")
+    refused = [v for v in range(32, 64)
+               if _build.load()["fused_transport"].fused_transport_grid(
+                   1024, 1, 1, 0, v, ctypes.byref(ctypes.c_int(0))) != 0]
+    check(len(refused) == 32, "the main library holds a user variant: "
+          f"{sorted(set(range(32, 64)) - set(refused))}")
+    print("main library: every variant with the user bit refused (kernel 1i "
+          "runs each plan's generated library)", flush=True)
 
     seed = 123_456_789
     # largest plane difference from the twin, per path
@@ -1723,8 +1756,10 @@ def main():
                    "library_ms": None}
                   for path, entry in (("polarized", polft),
                                       ("polarimetry", poift))]
-    # kernel 1i: the user ops of the same kernel
+    # kernel 1i: the user ops of the same kernel, in a library generated
+    # for each plan
     new_paths += [{**ft_src, "replaces": "physicl_tpu/ops/fused.py:1448",
+                   "generated_by": "physicl_tpu_torch/ops/codegen.py",
                    "path": path, "launches": uruns[path]["fused_launches"],
                    "max_abs_err": max(err["user"], err[path]), **entry,
                    "library_ms": None}
@@ -2143,17 +2178,23 @@ def planck_chunk_inputs(phys, F, sampler, dev):
     return first_chunk_inputs(sim, F)
 
 
+def planned(sim):
+    """``(state, provider)`` of ``sim`` planned as ``start()`` plans it (its
+    fused plan is ``provider.plan``)."""
+    state = sim._init_run_state()
+    steps = sim._ordered_steps()
+    for s in steps:
+        s.setup(sim)
+    return state, sim._build_execution(steps, state).provider
+
+
 def first_chunk_inputs(sim, F):
     """The arguments a path's provider hands the kernel for its first chunk,
     ``(packed, sched, seed, k_act, plan, emit_starts)``: the path's
     ``Simulation`` is planned as ``start()`` plans it and its first chunk
     dispatched once, with ``fused_chunk`` wrapped to record its inputs (the
     dispatch leaves them unchanged: it writes a fresh buffer)."""
-    state = sim._init_run_state()
-    steps = sim._ordered_steps()
-    for s in steps:
-        s.setup(sim)
-    provider = sim._build_execution(steps, state).provider
+    state, provider = planned(sim)
     seen = []
     launch = F.fused_chunk
 
@@ -2660,11 +2701,15 @@ def path_chunk0(name, sim, F, torch, compare, path, card, kinds,
           f"{[op.kind for op in plan.ops]}, {plan.n_rec_cols} int + "
           f"{plan.n_frec_cols} float record columns, const-norm "
           f"{plan.const_norm_speed is not None}; variant "
-          f"{plan.kernel_variant} ({kernel_regs(plan.kernel_variant)}); grid "
+          f"{plan.kernel_variant} ({kernel_regs(plan.kernel_variant, plan)}"
+          "); grid "
           f"{grid} blocks ({grid / 132:.2f} per SM); stream {plan.n_stream} planes "
           f"every {plan.stream_every} in {plan.stream_dtype}, "
           f"{plan.n_stream_rows} rows = {stream_bytes(plan, packed.shape[1])}"
           " B per chunk", flush=True)
+    if plan.has_user:
+        print(f"{name}: {user_report(F, plan, packed.shape[1], k)} [{card}]",
+              flush=True)
     kc = min(k, twin_iters or k)
     out = {"plain_ms": compare(name, packed, sched, kc, plan, None, path,
                                seed, need_bitwise=True)}
@@ -4358,13 +4403,16 @@ def pol_plan_phase(torch, F, light, dev, seed, compare, card, times):
         del pk, out
 
 
-def kernel_regs(variant):
+def kernel_regs(variant, plan=None):
     """The ptxas register line of fused_transport's instantiation
-    ``variant`` (its template arguments in the mangled name), or '?'."""
+    ``variant`` (its template arguments in the mangled name), or '?'; a
+    user plan's (``plan`` with user ops) from its own library's build."""
     from physicl_tpu_torch.ops import _build
 
     kernel, args = sass_loop().mangled_pattern(variant)
-    lines = _build.build_log.splitlines()
+    log = (_build.build_log if plan is None or not plan.has_user
+           else user_build(plan).get("log", ""))
+    lines = log.splitlines()
     for i, line in enumerate(lines):
         if kernel in line and args in line and "Compiling" in line:
             spill = ""
@@ -4800,6 +4848,9 @@ def user_plan_sim(phys, case, dev, n=UPLAN_N, chunk=UPLAN_K, seed=0):
             roulette=(0.2, 0.4)))
         steps.append(phys.ReduceMeasureStep(None, lambda p: {"W": p.w},
                                             outputs=("W",), measure_n=True))
+    elif case == "past-limits":
+        steps.append(light.ScatterIsotropicStep(A=0.02 / c_dt, n=1.0))
+        steps.append(phys.ElementwiseStep(past_limits))
     elif case == "fluor-callable":
         # examples/make_fluorescence_nb.py:57, the A(E) callable in torch
         steps.append(light.ScatterDeleteStep(
@@ -4832,7 +4883,91 @@ def user_plan_sim(phys, case, dev, n=UPLAN_N, chunk=UPLAN_K, seed=0):
 
 USER_PLANS = ("custom", "custom-draws", "custom-extras", "reduce-n",
               "mesh-x-path", "mesh-r-weighted", "kstate-mixed",
-              "reduce-weighted", "fluor-callable")
+              "reduce-weighted", "fluor-callable", "past-limits")
+
+
+def past_limits(p):
+    """An ElementwiseStep past the limits of the port's former in-kernel
+    interpreter (48 registers, 64 draws, 1024 instructions a plan): 60
+    values live at once, 70 draws and a chain of 1200 operations, written
+    into dv (which no later step reads: no feedback between iterations)."""
+    vals = [p.E * (i + 1.5) for i in range(60)]
+    total = vals[0]
+    for v in vals[1:]:
+        total = total + v
+    u = p.uniform()
+    for _ in range(69):
+        u = u + p.uniform()
+    x = p.w
+    for i in range(600):
+        x = x * 0.5 + p.E * float(i % 5 + 1)
+    return {"dvx": total / 1860.0, "dvy": u, "dvz": x}
+
+
+def user_plan_sims(phys, dev, n):
+    """``{label: Simulation}`` of every kernel 1i plan this script runs
+    (``USER_PLANS`` but the field-only one, the user and spectrum paths,
+    the deep shield's analog and split_chunk band tallies) at ``n``
+    photons on ``dev``: their generated sources depend on the programs,
+    not on the population."""
+    sims = {case: user_plan_sim(phys, case, dev, n=n, chunk=16)
+            for case in USER_PLANS if case != "fluor-callable"}
+    sims["user"] = user_sim(phys, n, dev, iters=16, chunk=16)[0]
+    sims["spectrum"] = spectrum_sim(phys, n, dev, iters=16)[0]
+    for mode in ("analog", "split_chunk"):
+        sims[f"shield-{mode}"] = shield_sim(phys, mode, dev, n=n,
+                                            cap=4 * n, iters=16)[0]
+    return sims
+
+
+def user_plan_sources(phys):
+    """``{label: generated source}`` of every kernel 1i plan of
+    ``user_plan_sims``, planned on the CPU."""
+    from physicl_tpu_torch.ops import codegen
+
+    sources = {}
+    for name, sim in user_plan_sims(phys, "cpu", 1 << 10).items():
+        plan = planned(sim)[1].plan
+        check(plan.has_user, f"{name}: no user op in {plan.ops}")
+        sources[f"{name} {codegen.plan_label(plan)}"] = codegen.plan_source(
+            plan)
+    return sources
+
+
+def user_build(plan):
+    """``_build.plan_builds``' entry of a user plan's library: its label,
+    build seconds and nvcc log ({} where another process built it)."""
+    from physicl_tpu_torch.ops import _build, codegen
+
+    return _build.plan_builds.get(_build.plan_key(codegen.plan_source(plan)),
+                                  {})
+
+
+def user_report(F, plan, capacity, k_act):
+    """One line on a user plan's generated library: its file, build
+    seconds, the instantiation's registers and spills, the blocks per SM
+    of a launch at ``capacity`` x ``k_act``, and its programs' SASS
+    instructions per photon-iteration (the probe loop,
+    ``scripts/sass_loop.py --user``) against their recorded instructions
+    (what the interpreter decoded one by one)."""
+    sl = sass_loop()
+    lib = F._library(plan)
+    check(os.path.basename(lib._name).startswith("libfused_plan_")
+          and plan.kernel_variant & 40 == 40,
+          f"{[op.kind for op in plan.ops]}: variant {plan.kernel_variant} "
+          f"does not run a generated library ({lib._name})")
+    b = user_build(plan)
+    grid = F.kernel_grid(plan, capacity, k_act)
+    probe = sl.user_summary(sl.functions(sl.library_sass(lib._name)))
+    n_ins = sum(len(op.prog.ins) for op in plan.ops if op.kind in F.USER_OPS)
+    return (f"library {os.path.basename(lib._name)}, built in "
+            + (f"{b['seconds']:.2f} s" if b else "another process")
+            + f"; variant {plan.kernel_variant} "
+            f"({kernel_regs(plan.kernel_variant, plan)}); grid {grid} blocks "
+            f"({grid / 132:.2f} per SM); user programs {n_ins} recorded "
+            f"instructions a photon-iteration, compiled to "
+            f"{probe['per_iteration']} SASS instructions ({probe['votes']} "
+            f"votes; {probe['classes']})")
 
 
 def user_plan_phase(torch, phys, F, dev, compare, card, times):
@@ -4850,6 +4985,9 @@ def user_plan_phase(torch, phys, F, dev, compare, card, times):
         user = plan.kernel_variant & 40 == 40
         check(user or case == "fluor-callable", f"{case}: variant "
               f"{plan.kernel_variant} is not the user instantiation")
+        if user:
+            print(f"{case}: {user_report(F, plan, packed.shape[1], k)} "
+                  f"[{card}]", flush=True)
         plain_ms = compare(case, packed, sched, k, plan, starts, "user",
                            seed=seed, need_bitwise=True)
         out = torch.empty_like(packed)
@@ -4868,7 +5006,8 @@ def user_plan_phase(torch, phys, F, dev, compare, card, times):
               f"{[op.kind for op in plan.ops]}, {n_ins} user instructions, "
               f"extras {plan.extras}, write-back {plan.extras_writeback}, "
               f"variant {plan.kernel_variant} "
-              f"({kernel_regs(plan.kernel_variant)}) [{card}]", flush=True)
+              f"({kernel_regs(plan.kernel_variant, plan)}) [{card}]",
+              flush=True)
         del packed, out
 
 

@@ -7,6 +7,13 @@ sources compile at once (one ``nvcc`` process each, started together). A
 library's name carries a hash of the sources, the shared headers and the
 flags, so an edited source never loads a stale build. Nothing here runs at
 import time: importing the package needs no ``nvcc`` and no card.
+
+A plan with user ops (kernel 1i) runs a library of its own: the source
+``ops/codegen.py`` generates for it, built with the same flags by
+:func:`load_plan` (or started ahead by :func:`start_plan_builds`) into
+``_build/`` under a hash of that source, every ``csrc/`` file and the
+flags, and loaded once per process. Deleting ``_build/`` clears every
+build.
 """
 
 from __future__ import annotations
@@ -32,9 +39,8 @@ build_seconds = None   # wall time of this process's build (None: not built)
 build_log = ""         # nvcc's output (``-Xptxas -v`` register/spill report)
 
 # the kernel structs of csrc/fused_transport.cu, member for member: the
-# grid pointers lead the plan, the user-program pointer ends it, every
-# other member is 4 bytes wide, so both sides lay them out alike (load()
-# checks the sizes agree)
+# grid pointers lead the plan and every other member is 4 bytes wide, so
+# both sides lay them out alike (the binding checks the sizes agree)
 MAX_OPS = 32
 MAX_AXES = 32
 MAX_FIELDS = 16
@@ -81,8 +87,7 @@ class PlanStruct(ctypes.Structure):
                 ("stream_bf16", _ci), ("n_extras", _ci), ("otype_x", _ci),
                 ("wb_mask", _ci),
                 ("rot_sd", _cf * ROT_STEPS), ("rot_cd", _cf * ROT_STEPS),
-                ("uwb_mask", _ci), ("user_regs", _ci), ("n_user_ins", _ci),
-                ("user_prog", ctypes.c_void_p)]
+                ("uwb_mask", _ci)]
 
 
 def _nvcc() -> str:
@@ -101,30 +106,49 @@ def _csrc(ext: str):
                   if n.endswith(ext))
 
 
+def _bind_transport(ft) -> None:
+    """The C interface of a fused_transport library (the main one or a user
+    plan's), after checking its Plan against the ctypes mirror."""
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    ft.fused_transport_plan_size.restype = ci
+    ft.fused_transport_plan_size.argtypes = []
+    size = ft.fused_transport_plan_size()
+    if size != ctypes.sizeof(PlanStruct):
+        raise RuntimeError(f"fused_transport's Plan is {size} B but the "
+                           f"ctypes mirror is {ctypes.sizeof(PlanStruct)} B")
+    ft.fused_transport_grid.restype = ci
+    ft.fused_transport_grid.argtypes = [ll, ci, ci, ci, ci,
+                                        ctypes.POINTER(ci)]
+    ft.fused_transport_launch.restype = ci
+    ft.fused_transport_launch.argtypes = [
+        vp, vp, ll, vp, ci, vp, vp, ci, vp, ci, ctypes.c_uint,
+        ctypes.POINTER(PlanStruct), ci, ci, vp, vp, vp, vp, ci, ci, vp]
+
+
 def _bind(libs) -> None:
-    vp, ci, cf, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_longlong)
-    # fused_user holds kernel 1i's instantiations of the same kernel
-    for ft in (libs["fused_transport"], libs["fused_user"]):
-        ft.fused_transport_plan_size.restype = ci
-        ft.fused_transport_plan_size.argtypes = []
-        size = ft.fused_transport_plan_size()
-        if size != ctypes.sizeof(PlanStruct):
-            raise RuntimeError(f"fused_transport's Plan is {size} B but the "
-                               f"ctypes mirror is "
-                               f"{ctypes.sizeof(PlanStruct)} B")
-        ft.fused_transport_grid.restype = ci
-        ft.fused_transport_grid.argtypes = [ll, ci, ci, ci, ci, ci,
-                                            ctypes.POINTER(ci)]
-        ft.fused_transport_launch.restype = ci
-        ft.fused_transport_launch.argtypes = [
-            vp, vp, ll, vp, ci, vp, vp, ci, vp, ci, ctypes.c_uint,
-            ctypes.POINTER(PlanStruct), ci, ci, vp, vp, vp, vp, ci, ci, vp]
-        ft.fused_transport_rsqrt_check.restype = ci
-        ft.fused_transport_rsqrt_check.argtypes = [vp, vp]
+    vp, cf, ll = ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong
+    ft = libs["fused_transport"]
+    _bind_transport(ft)
+    ft.fused_transport_rsqrt_check.restype = ctypes.c_int
+    ft.fused_transport_rsqrt_check.argtypes = [vp, vp]
     pg = libs["planck_gen"]
-    pg.planck_gen_launch.restype = ci
+    pg.planck_gen_launch.restype = ctypes.c_int
     pg.planck_gen_launch.argtypes = [vp, ll, ctypes.c_uint, vp, cf, vp]
+
+
+def _sources_hash():
+    """sha1 of the flags and every ``csrc/`` source: a library built from
+    them carries its hexdigest (plus its own source's) in its name."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in _csrc(".cuh") + _csrc(".cu"):
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return h
+
+
+def _nvcc_cmd(src: str, out: str) -> list:
+    return [_nvcc(), *NVCC_FLAGS, "-I", _CSRC, "-Xptxas", "-v", "-o", out,
+            src]
 
 
 def load():
@@ -134,12 +158,7 @@ def load():
     with _lock:
         if _libs is not None:
             return _libs
-        common = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-        # every source may include another (fused_user.cu includes
-        # fused_transport.cu), so each library's name hashes them all
-        for src in _csrc(".cuh") + _csrc(".cu"):
-            with open(src, "rb") as f:
-                common.update(f.read())
+        common = _sources_hash()
         jobs = {}
         for src in _csrc(".cu"):
             name = os.path.splitext(os.path.basename(src))[0]
@@ -150,16 +169,13 @@ def load():
         todo = {n: j for n, j in jobs.items() if not os.path.exists(j[1])}
         if todo:
             os.makedirs(BUILD_DIR, exist_ok=True)
-            nvcc = _nvcc()
             t0 = time.perf_counter()
             procs = {}
             for name, (src, so) in todo.items():
                 tmp = f"{so}.{os.getpid()}.tmp"
-                cmd = [nvcc, *NVCC_FLAGS, "-I", _CSRC, "-Xptxas", "-v",
-                       "-o", tmp, src]
                 procs[name] = (subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True), tmp, so)
+                    _nvcc_cmd(src, tmp), stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True), tmp, so)
             logs, failed = [], []
             for name, (proc, tmp, so) in procs.items():
                 out, _ = proc.communicate()
@@ -177,6 +193,105 @@ def load():
         _bind(libs)
         _libs = libs
         return libs
+
+
+# -- the user plans' libraries (kernel 1i) ------------------------------------
+
+_plan_lock = threading.Lock()  # the user plans' own (load() may run beside)
+_plan_libs: dict = {}   # build key -> ctypes.CDLL, loaded in this process
+_plan_jobs: dict = {}   # build key -> _PlanJob, started and not yet loaded
+# build key -> {"label", "seconds", "log"} of each plan this process built:
+# the wall time from its nvcc's start to its end, and nvcc's output (the
+# ``-Xptxas -v`` register and spill report)
+plan_builds: dict = {}
+
+
+class _PlanJob:
+    """One running ``nvcc``: a thread reads its output as it comes (a full
+    pipe would stall the compiler) and notes when it ended."""
+
+    def __init__(self, cmd, tmp, so, label):
+        self.tmp, self.so, self.label = tmp, so, label
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self.out, self.t1 = "", None
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        self.out, _ = self.proc.communicate()
+        self.t1 = time.perf_counter()
+
+
+def plan_key(source: str) -> str:
+    """The build key of a user plan's generated source: a hash of it, every
+    ``csrc/`` file and the flags."""
+    h = _sources_hash()
+    h.update(source.encode())
+    return h.hexdigest()[:16]
+
+
+def plan_path(key: str) -> str:
+    return os.path.join(BUILD_DIR, f"libfused_plan_{key}.so")
+
+
+def _write(path: str, text: str) -> None:
+    """Write through a temporary file and a rename, so that a process that
+    writes the same file at the same time never leaves it half written."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)
+
+
+def start_plan_builds(sources: dict) -> None:
+    """Start one ``nvcc`` for each ``{label: generated source}`` that is
+    neither built nor building, all at once, and return without waiting:
+    :func:`load_plan` waits for its own. Two processes that build the same
+    plan at once each compile into a file of their own and rename it into
+    place."""
+    with _plan_lock:
+        for label, source in sources.items():
+            key = plan_key(source)
+            so = plan_path(key)
+            if key in _plan_libs or key in _plan_jobs or os.path.exists(so):
+                continue
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            cu = os.path.join(BUILD_DIR, f"fused_plan_{key}.cu")
+            _write(cu, source)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            _plan_jobs[key] = _PlanJob(_nvcc_cmd(cu, tmp), tmp, so, label)
+
+
+def load_plan(source: str, label: str):
+    """The loaded library of one user plan's generated source (``label``
+    names the plan): built at first use, or waited for where
+    :func:`start_plan_builds` started it, and loaded once per process.
+    Raises, naming the plan, where ``nvcc`` fails."""
+    key = plan_key(source)
+    with _plan_lock:
+        lib = _plan_libs.get(key)
+        if lib is not None:
+            return lib
+    start_plan_builds({label: source})
+    with _plan_lock:
+        lib = _plan_libs.get(key)
+        if lib is not None:
+            return lib
+        job = _plan_jobs.pop(key, None)
+        if job is not None:
+            job.reader.join()
+            if job.proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({job.proc.returncode}) for "
+                                   f"the user plan {job.label}:\n{job.out}")
+            os.replace(job.tmp, job.so)
+            plan_builds[key] = {"label": job.label,
+                                "seconds": job.t1 - job.t0, "log": job.out}
+        lib = ctypes.CDLL(plan_path(key))
+        _bind_transport(lib)
+        _plan_libs[key] = lib
+        return lib
 
 
 def check(err: int, what: str) -> None:

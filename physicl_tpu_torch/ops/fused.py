@@ -61,7 +61,6 @@ SPECIES_MIXED = -1
 
 _LANE = 128
 _MAX_REC_COLS = 128
-KERNEL_BLOCK = 256  # threads per block of csrc/fused_transport.cu
 _MASK = 0xFFFFFFFF
 
 # op kinds the CUDA kernel switches on (csrc/fused_transport.cu)
@@ -78,8 +77,8 @@ _EXT_OPS = ("reflect", "periodic", "sabsorb", "scross", "trace")
 _ROT_OPS = ("hg", "rayl", "phase", "compton", "fresnel")
 # ops only the kernel's polarization instantiation carries (codes 18-20)
 _POL_OPS = ("pol", "polc", "polmeas")
-# kernel 1i: recorded user programs (ops/record.py), only in the user
-# instantiation (codes 21-23)
+# kernel 1i: recorded user programs (ops/record.py), compiled per plan into
+# the plan's own user instantiation (ops/codegen.py; codes 21-23)
 USER_OPS = ("custom", "reduce", "kstate")
 _POL_BASES = ("stokes", "pol_ref")
 # the Stokes and frame rows, packed first among the extras: the kernel reads
@@ -269,7 +268,8 @@ class FusedPlan:
         3, the ``lorentz`` op and the extras planes (the otype gate); bit 4,
         the polarization ops of ``_POL_OPS``, polarized emission and the
         write-back of the Stokes and frame planes; bit 5, the recorded user
-        programs of ``USER_OPS`` (kernel 1i) and the write-back of their
+        programs of ``USER_OPS`` (kernel 1i), compiled into a library of
+        the plan's own (``ops/codegen.py``), and the write-back of their
         extras planes. Bits 4 and 5 come only with bit 3 (those plans
         carry extras, or in bit 5's case take its code paths). A plan of
         an op-sequence form (:attr:`kernel_seq`) runs that sequence's
@@ -370,22 +370,6 @@ def scatter_threshold(pcoll: torch.Tensor) -> torch.Tensor:
     t = torch.where(p >= 1.0, float((1 << 24) - 1), t)
     t = torch.where(p >= 0.0, t, -1.0)
     return t.to(torch.int32)
-
-
-def user_program_sizes(ops) -> tuple:
-    """``(instructions, registers)``: of all the ops' user programs, and the
-    largest register file among them (0, 0 without user ops)."""
-    progs = [op.prog for op in ops if op.kind in USER_OPS]
-    return (sum(len(p.ins) for p in progs),
-            max((p.n_regs for p in progs), default=0))
-
-
-def user_smem_bytes(ops) -> int:
-    """Kernel 1i's shared memory per block, ahead of the record tiles: the
-    user programs (8 B an instruction) and a register file per thread
-    (csrc/fused_transport.cu's user_smem_bytes)."""
-    n_ins, n_regs = user_program_sizes(ops)
-    return 8 * n_ins + 4 * KERNEL_BLOCK * n_regs
 
 
 class _HashRng:
@@ -745,13 +729,11 @@ def _check_pol(plan: FusedPlan) -> None:
 
 
 def _check_user(plan: FusedPlan) -> None:
-    """Kernel 1i's limits and layout: every program within the kernel's
-    registers, the plan's programs within its instruction buffer, loads of
-    packed planes, stores to the core planes (not ``alive``) or to written-
-    back extras, record sums into the plan's float columns."""
+    """Kernel 1i's layout: loads of packed planes, stores to the core planes
+    (not ``alive``) or to written-back extras, record sums into the plan's
+    float columns, registers within the program's file."""
     from physicl_tpu_torch.ops import record as RC
 
-    total = 0
     user_planes = plan.plane_mask(plan.extras_writeback)
     for op in plan.ops:
         if op.kind not in USER_OPS:
@@ -759,10 +741,6 @@ def _check_user(plan: FusedPlan) -> None:
         prog = op.prog
         if prog is None:
             raise ValueError(f"{op.kind} needs its recorded program")
-        if prog.n_regs > RC.MAX_REGS:
-            raise ValueError(f"a user program needs {prog.n_regs} registers"
-                             f" > the kernel's {RC.MAX_REGS}")
-        total += len(prog.ins)
         for code, d, a, b, y, bimm in prog.ins:
             if max(d, a, b) >= prog.n_regs or (
                     code == RC.U_SEL and not bimm and y >= prog.n_regs):
@@ -779,9 +757,6 @@ def _check_user(plan: FusedPlan) -> None:
             if code == RC.U_ACC and not 0 <= y < plan.n_frec_cols:
                 raise ValueError(f"a user program sums into float column "
                                  f"{y} of {plan.n_frec_cols}")
-    if total > RC.MAX_INS:
-        raise ValueError(f"user programs of {total} instructions exceed the "
-                         f"kernel's {RC.MAX_INS}")
 
 
 def _axis(ax) -> tuple:
@@ -1504,8 +1479,6 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
     ps = PlanStruct()
     specs, index = _field_index(plan.ops)
     aux, prog, grids = [], [], []
-    user_words = []  # kernel 1i's programs, concatenated
-    n_user = 0
     n_ax = 0
     for i, op in enumerate(plan.ops):
         o = ps.ops[i]
@@ -1554,15 +1527,11 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
         elif op.kind == "polmeas":  # PolmeasFlag: weighted 1, local_qu 2
             o.flag = int(op.weighted) | 2 * int(op.local_qu)
         elif op.kind in USER_OPS:
-            # the program at [icdf, icdf + emit_n) of the plan's buffer,
+            # the program is the plan's library's (ops/codegen.py):
             # emit_row draws, flag 1 = t and dt after the UpdateTimeStep;
             # col0 a reduce's count column
-            words = op.prog.words()
-            o.icdf, o.emit_n = n_user, len(words)
             o.emit_row = op.prog.n_draws
             o.flag = int(op.after_update)
-            user_words.append(words)
-            n_user += len(words)
         elif op.kind == "lorentz":
             # LorentzFlag: E 1, B 2, the dt after the update 4; the
             # species-wide 0.5 q/m rounded to float32 (jnp.float32(0.5 *
@@ -1628,14 +1597,6 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
                                  & set(_POL_BASES))
     ps.uwb_mask = plan.plane_mask(set(plan.extras_writeback)
                                   - set(_POL_BASES))
-    ps.n_user_ins, ps.user_regs = user_program_sizes(plan.ops)
-    user = None
-    if user_words:  # one upload per plan and device (a word pair at least:
-        # a program may be empty, and the kernel needs a buffer)
-        words = np.concatenate(user_words + [np.zeros((1, 2), np.int32)])
-        user = torch.from_numpy(words).to(dev)
-        ps.user_prog = user.data_ptr()
-        grids.append(user)
     if plan.has_pol:
         ps.rot_sd[:], ps.rot_cd[:] = (t.tolist() for t in rot_table())
     # once per plan and device: no copy on the dispatch path
@@ -1766,26 +1727,34 @@ def rsqrt_near1_check(dev) -> dict:
 
 
 def _library(plan: FusedPlan):
-    """The built library holding the plan's instantiation: kernel 1i's
-    sixteen (``csrc/fused_user.cu``) or the other 24."""
+    """The built library holding the plan's instantiation: a plan with user
+    ops its own, generated from its programs (``ops/codegen.py``), built at
+    first use and kept with the plan; any other the main one."""
     from physicl_tpu_torch.ops import _build
 
-    return _build.load()["fused_user" if plan.has_user
-                         else "fused_transport"]
+    if not plan.has_user:
+        return _build.load()["fused_transport"]
+    key = ("lib", plan.kernel_variant)
+    if key not in plan._cache:
+        from physicl_tpu_torch.ops import codegen
+
+        plan._cache[key] = _build.load_plan(codegen.plan_source(plan),
+                                            codegen.plan_label(plan))
+    return plan._cache[key]
 
 
 def kernel_grid(plan: FusedPlan, capacity: int, k_act: int) -> int:
     """The grid (blocks) a ``fused_transport`` launch of ``plan`` takes on
     the current CUDA device: the occupancy limit of its instantiation with
-    its shared memory (record tiles, kernel 1i's programs and registers)
-    times the SM count, capped by the tiles."""
+    its record tiles' shared memory times the SM count, capped by the
+    tiles."""
     from physicl_tpu_torch.ops import _build
 
     lib = _library(plan)
     grid = ctypes.c_int(0)
     _build.check(lib.fused_transport_grid(
         capacity, k_act, plan.n_rec_cols, plan.n_frec_cols,
-        plan.kernel_variant, user_smem_bytes(plan.ops), ctypes.byref(grid)),
+        plan.kernel_variant, ctypes.byref(grid)),
         "fused_transport occupancy query")
     return grid.value
 

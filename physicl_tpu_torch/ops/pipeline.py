@@ -39,7 +39,10 @@ User code runs in the kernel too (kernel 1i): ``ElementwiseStep``,
 recorded into register programs (:mod:`physicl_tpu_torch.ops.record`);
 their refusals carry the JAX prover's codes (``elementwise-``,
 ``reduce-``, ``kernelstep-`` + ``not-elementwise``, ``trace``, ...) and
-the kernel's limits ``user-program-size`` and ``user-program-regs``.
+the recorder's limit ``*-op-unsupported`` (an aten operation outside its
+table). Each plan's programs are compiled into a library of its own
+(:mod:`physicl_tpu_torch.ops.codegen`), with no limit on their length,
+registers or draws.
 
 Per-photon outputs (trace positions, captured energies) are stream planes
 of the chunk's stream buffer; the harvest hands them to their steps as
@@ -103,8 +106,8 @@ def is_kernel_limit(code: str) -> bool:
     """True for a refusal code that only the port's kernel has (the JAX
     kernel runs the plan): ``op-count``, ``cross-planes``, ``field-count``,
     ``field-expr-*``, ``field-fn-callable`` (a callable the recorder
-    cannot take), ``user-program-*`` and ``*-op-unsupported``. Such a
-    refusal does not fall back to the generic tier;
+    cannot take) and ``*-op-unsupported``. Such a refusal does not fall
+    back to the generic tier;
     ``Simulation(fuse="off")`` asks for that tier explicitly."""
     prefix, _, reason = code.partition("-")
     return not (code in _JAX_CODES
@@ -1017,14 +1020,12 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
         return tuple(entries)
 
     def recorded(prefix, record, *args, **kw):
-        """A user callable's program, or its refusal: JAX's codes carry the
-        step's prefix, the kernel limits (``user-program-*``) do not."""
+        """A user callable's program, or its refusal, its code with the
+        step's prefix."""
         try:
             return record(*args, **kw)
         except RC.Refused as e:
-            code = (e.code if e.code.startswith("user-program")
-                    else f"{prefix}-{e.code}")
-            _no(code, e.detail)
+            _no(f"{prefix}-{e.code}", e.detail)
 
     ops: List[F._Op] = []
     rec_map: List[dict] = []
@@ -1388,10 +1389,6 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
     if n_prog > FL.MAX_PROG:
         _no("field-expr-length", f"the plan's expression programs hold "
             f"{n_prog} instructions > the kernel's {FL.MAX_PROG}")
-    n_user = F.user_program_sizes(ops)[0]
-    if n_user > RC.MAX_INS:
-        _no("user-program-size", f"the plan's user programs hold {n_user} "
-            f"instructions > the kernel's {RC.MAX_INS}")
     for sp in specs:  # the voxel grids go to the device now, in set-up
         if sp["kind"] == "voxel":
             FL.grid_on(sp, state.device)
@@ -1508,9 +1505,7 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
     # shared memory: a chunk over the budget is shortened (the chunk seed
     # follows the chunk index, so parity with the JAX package then needs
     # its chunk_steps set to the same length)
-    # (kernel 1i's programs and register files come first in it)
-    user_bytes = F.user_smem_bytes(ops)
-    tile_chunk = (_MAX_REC_TILE_BYTES - user_bytes) // (
+    tile_chunk = _MAX_REC_TILE_BYTES // (
         (next_col + next_fcol * _KERNEL_WARPS) * 4)
     if chunk > tile_chunk:
         chunk = max(1, tile_chunk)
@@ -1519,9 +1514,7 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
                 chunk, stream_every, periods, budget, row_bytes)
         notes.append(f"chunk {chunk}: float record tiles ({next_col} int + "
                      f"{next_fcol} float columns x {_KERNEL_WARPS} warps"
-                     + (f", after {user_bytes} B of user programs and "
-                        "registers," if user_bytes else "")
-                     + f" in {_MAX_REC_TILE_BYTES} B of shared memory)")
+                     f" in {_MAX_REC_TILE_BYTES} B of shared memory)")
     plan = F.FusedPlan(ops=ops, n_rec_cols=next_col, chunk=chunk,
                        const_norm_speed=const_speed, n_frec_cols=next_fcol,
                        n_stream=next_plane, stream_every=stream_every,

@@ -1,7 +1,8 @@
 """Kernel 1i's programs: a user's torch callable recorded once, at plan time,
-into a short elementwise register program that ``csrc/fused_transport.cu``
-interprets (the ops ``custom``, ``reduce`` and ``kstate``) and
-:func:`run_user_program`, the plain version, runs with float32 torch ops.
+into an elementwise register program that :mod:`physicl_tpu_torch.ops.codegen`
+compiles per plan into straight-line CUDA C for ``csrc/fused_transport.cu``
+(the ops ``custom``, ``reduce`` and ``kstate``) and :func:`run_user_program`,
+the plain version, runs with float32 torch ops.
 
 Counterpart of the JAX package's tracing of the same callables into its
 fused kernel (``physicl_tpu/ops/fused.py:1448-1569``) and of its plan-time
@@ -23,7 +24,9 @@ inputs of two lengths, and the aten graph is translated:
   a value (which a fake tensor cannot decide) as ``trace``;
 * ``p.uniform()`` is the op's draw ``i`` in Python call order, hashed at the
   op's first draw index plus ``i``; a draw that is never used still counts,
-  as in JAX. ``t`` and ``dt`` are inputs: the program reads the schedule
+  as in JAX. The recorder's placeholder for the draws is sized to the
+  callable (a callable that draws more than it holds is recorded again with
+  one row a draw). ``t`` and ``dt`` are inputs: the program reads the schedule
   row of the op's place relative to ``UpdateTimeStep``;
 * a Python scalar rounds once to float32 where it meets a tensor (JAX's weak
   types); an integer exponent is ``lax.integer_pow``'s repeated products, an
@@ -35,9 +38,8 @@ inputs of two lengths, and the aten graph is translated:
 The program is register code over per-component SSA values: common
 subexpressions merged, unused values dropped, the side effects (plane
 stores, alive clears, float record sums) kept in order, and registers
-assigned by liveness. Its limits are the kernel's: :data:`MAX_INS`
-instructions over a plan, :data:`MAX_REGS` registers and :data:`MAX_DRAWS`
-draws per program (refusals ``user-program-size``, ``user-program-regs``).
+assigned by liveness. Its length, registers and draws have no limit: each
+plan's programs are compiled for it.
 """
 
 from __future__ import annotations
@@ -50,19 +52,14 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-# instruction codes (csrc/fused_transport.cu, enum UserCode)
+# instruction codes (ops/codegen.py turns each into C)
 (U_LD, U_T, U_DT, U_CONST, U_UNIF, U_NEG, U_ABS, U_SQRT, U_EXP, U_LOG,
  U_LOG10, U_SIN, U_COS, U_TAN, U_FLOOR, U_CEIL, U_TRUNC, U_RECIP, U_NOT,
  U_BOOL, U_IPOW, U_ADD, U_SUB, U_MUL, U_DIV, U_POW, U_MIN, U_MAX, U_LT, U_LE,
  U_GT, U_GE, U_EQ, U_NE, U_AND, U_OR, U_XOR, U_SEL, U_ST, U_ALIVE,
  U_ACC) = range(41)
-# bit 7 of the code: operand b is the float immediate in the second word
-U_BIMM = 0x80
-
-MAX_INS = 1024   # instructions over every user program of a plan
-MAX_REGS = 48    # registers of one program (the kernel's per-thread file)
-MAX_DRAWS = 64   # p.uniform() calls of one callable
 ALIVE_PLANE = 13
+DRAW_ROWS = 64   # rows of the draws placeholder, unless a callable draws more
 
 _UNARY = {"neg": U_NEG, "abs": U_ABS, "sqrt": U_SQRT, "exp": U_EXP,
           "log": U_LOG, "log10": U_LOG10, "sin": U_SIN, "cos": U_COS,
@@ -127,19 +124,6 @@ class Program:
     ins: tuple
     n_regs: int
     n_draws: int
-
-    def words(self) -> np.ndarray:
-        """The kernel's encoding, ``(len, 2)`` int32: word 0 is ``code |
-        bimm << 7 | dst << 8 | a << 16 | b << 24``, word 1 the int ``y`` or
-        the float immediate's bits."""
-        out = np.zeros((len(self.ins), 2), np.int64)
-        for i, (code, d, a, b, y, bimm) in enumerate(self.ins):
-            out[i, 0] = code | (U_BIMM if bimm else 0) | d << 8 | a << 16 \
-                | b << 24
-            out[i, 1] = _bits(y) if isinstance(y, float) else int(y)
-        out[:, 0] = np.where(out[:, 0] >= 1 << 31, out[:, 0] - (1 << 32),
-                             out[:, 0])
-        return out.astype(np.int32)
 
     def stores(self) -> List[int]:
         return [y for code, *_, y, _ in self.ins if code == U_ST]
@@ -796,18 +780,6 @@ def _plane_inputs(n, planes):
     return ex, ins
 
 
-def _finish(ssa: _SSA, n_draws: int, label: str) -> Program:
-    prog = _schedule(ssa, n_draws)
-    if prog.n_regs > MAX_REGS:
-        raise Refused("user-program-regs", f"{label} needs {prog.n_regs} "
-                      f"registers > the kernel's {MAX_REGS}")
-    if len(prog.ins) > MAX_INS:
-        raise Refused("user-program-size", f"{label} needs "
-                      f"{len(prog.ins)} instructions > the kernel's "
-                      f"{MAX_INS}")
-    return prog
-
-
 def _same_at_sizes(record, label: str) -> Program:
     """``record(n)`` at both trace sizes; a program that differs depends on
     the particle count."""
@@ -848,14 +820,14 @@ def record_particle_fn(fn: Callable, who: str, view_extras=(),
     label = f"{who} fn"
     rows_of = {name: (p0, rows) for name, p0, rows in view_extras}
 
-    def record(n):
+    def record(n, n_rows=DRAW_ROWS):
         planes = [(i, torch.bool if nm == "alive" else torch.float32)
                   for i, nm in enumerate(fields)]
         for _, p0, rows in view_extras:
             planes += [(p0 + i, torch.float32) for i in range(rows)]
         examples, inputs = _plane_inputs(n, planes)
         examples += [torch.zeros(()), torch.zeros(()),
-                     torch.zeros((MAX_DRAWS, n))]
+                     torch.zeros((n_rows, n))]
         inputs += [_Input("t"), _Input("dt"), _Input("draws")]
         side = {}
 
@@ -870,11 +842,10 @@ def record_particle_fn(fn: Callable, who: str, view_extras=(),
             count = [0]
 
             def uniform():
-                if count[0] >= MAX_DRAWS:
-                    raise Refused("user-program-size", f"{label} draws more "
-                                  f"than the kernel's {MAX_DRAWS} uniforms")
+                # past the placeholder's rows a stand-in row: the count
+                # then sizes the placeholder of a second recording
                 count[0] += 1
-                return draws[count[0] - 1]
+                return draws[min(count[0], n_rows) - 1]
 
             upd = fn(ParticleView(view_f, t, dt, uniform, extras=ex))
             side["n_draws"] = count[0]
@@ -900,6 +871,8 @@ def record_particle_fn(fn: Callable, who: str, view_extras=(),
             return [v for _, _, v in leaves if isinstance(v, torch.Tensor)]
 
         gm = _traced(body, examples, label, "probe-error")
+        if side["n_draws"] > n_rows:
+            return record(n, side["n_draws"])
         ssa = _SSA()
         tr = _Translator(gm, inputs, n, ssa)
         out = iter(tr.run())
@@ -921,7 +894,7 @@ def record_particle_fn(fn: Callable, who: str, view_extras=(),
                          else fields.index(name))
                 if c != ssa.val(U_LD, (), plane):
                     ssa.effects.append((U_ST, c, plane))
-        return _finish(ssa, side["n_draws"], label)
+        return _schedule(ssa, side["n_draws"])
 
     return _same_at_sizes(record, label)
 
@@ -1040,7 +1013,7 @@ def record_kernelstep(fn: Callable, otype_plane: int = -1,
             for i, c in enumerate(cs):
                 if c != ssa.val(U_LD, (), base + i):
                     ssa.effects.append((U_ST, c, base + i))
-        return _finish(ssa, 0, label)
+        return _schedule(ssa, 0)
 
     return _same_at_sizes(record, label)
 
@@ -1158,7 +1131,7 @@ def record_field(fn: Callable, varnames: Tuple[str, ...], label: str,
 
 def run_user_program(prog: Program, f: list, alive: torch.Tensor, t, dt,
                      rng, rec_f_row: Optional[torch.Tensor] = None):
-    """Plain version of the kernel's interpreter over one chunk iteration's
+    """Plain version of a compiled user program over one chunk iteration's
     planes ``f`` (the packed planes as a list of ``(C,)`` float32 tensors;
     stores replace entries), the ``alive`` mask, the 0-d ``t`` and ``dt``
     of the op's place, and the iteration's counter-hash ``rng`` (advanced

@@ -10,6 +10,17 @@ or on a SASS listing made elsewhere (``cuobjdump -sass lib.so``)::
 
     python3 scripts/sass_loop.py --sass FILE 0 --ranges f80-fc0*3,1020-1060
 
+A user plan's library (kernel 1i, generated per plan by
+``physicl_tpu_torch/ops/codegen.py``) also holds ``fused_user_probe``: the
+plan's user programs alone in a loop over iterations. ``--user`` counts
+that loop in a library's listing (``--sass FILE --user``, or ``--lib
+PATH --user``): ``per_iteration`` is the straight-line instructions of the
+programs per photon-iteration without the slow paths of the correctly
+rounded roots and divides, and with the probe loop's own few (the
+counter, the hash seed, the t and dt loads, the branch) and every record
+sum's shuffles (a sum that no lane of the warp feeds is skipped at run
+time, so this bounds the executed count from above).
+
 The iteration loop of a generic instantiation is the smallest loop (a
 backward branch and its target) that holds every warp vote of the function:
 the loop over iterations, with the op loop and its switch inside it.
@@ -222,6 +233,23 @@ def variant_summary(funcs: dict, variant: int, ranges=None) -> dict:
             **summary(ins, ranges, 4 if variant >= 64 else None)}
 
 
+def user_summary(funcs: dict) -> dict:
+    """The loop of a user plan library's ``fused_user_probe`` (the largest
+    backward branch): its instructions per iteration, all and on the fast
+    path, and their classes."""
+    name, ins = next((n, i) for n, i in funcs.items()
+                     if "fused_user_probe" in n)
+    every = loops(ins)
+    if not every:
+        raise ValueError("fused_user_probe has no loop")
+    lo, hi = max(every, key=lambda lp: lp[1] - lp[0])
+    fast = [i for i in range(lo, hi + 1) if i not in slow_blocks(ins, lo, hi)]
+    return {"function": name, "loop": [f"{ins[lo][0]:x}", f"{ins[hi][0]:x}"],
+            "static": hi - lo + 1, "per_iteration": len(fast),
+            "votes": sum(1 for i in fast if opcode(ins[i][1]) == "VOTE"),
+            "classes": count(ins, fast)}
+
+
 def library_sass(path: str) -> str:
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
@@ -239,16 +267,22 @@ def built_sass() -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("variants", type=int, nargs="+")
+    ap.add_argument("variants", type=int, nargs="*")
     ap.add_argument("--sass", help="a cuobjdump -sass listing")
+    ap.add_argument("--lib", help="a built library (default: the main one)")
+    ap.add_argument("--user", action="store_true", help="count a user "
+                    "plan library's fused_user_probe loop")
     ap.add_argument("--ranges", help="hex address ranges a-b,c-d (one "
                     "variant)")
     ap.add_argument("--dump", help="write each variant's SASS here")
     args = ap.parse_args(argv)
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, here)
-    sass = open(args.sass).read() if args.sass else built_sass()
+    sass = (open(args.sass).read() if args.sass
+            else library_sass(args.lib) if args.lib else built_sass())
     funcs = functions(sass)
+    if args.user:
+        print(json.dumps(user_summary(funcs)))
     ranges = None
     if args.ranges:
         ranges = []

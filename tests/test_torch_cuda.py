@@ -17,6 +17,7 @@ column's largest value, and bitwise equal between two runs of the kernel.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -522,20 +523,25 @@ def test_polarized_simulation_card_equals_cpu(dev):
 @pytest.mark.parametrize("case", ["custom", "custom-draws", "custom-extras",
                                   "reduce-n", "mesh-x-path",
                                   "mesh-r-weighted", "kstate-mixed",
-                                  "reduce-weighted", "fluor-callable"])
+                                  "reduce-weighted", "fluor-callable",
+                                  "past-limits"])
 def test_user_plans_match_twin(dev, case):
-    """The nine plans ``chip_smoke.py`` holds at 2**20 x 256 (recorded user
-    programs, the histogram tallies, a recorded A(E) field), here at 2**16
-    x 64 as their providers hand them over: int records equal, every plane
-    (the written-back extras included) bitwise, rec_f within tolerance, in
-    place equal to out of place; the user plans run the user
-    instantiation."""
+    """The ten plans ``chip_smoke.py`` holds at 2**20 x 256 (recorded user
+    programs, the histogram tallies, a recorded A(E) field, a program past
+    the former interpreter's limits), here at 2**16 x 64 as their providers
+    hand them over: int records equal, every plane (the written-back
+    extras included) bitwise, rec_f within tolerance, in place equal to out
+    of place; the user plans run the user instantiation of a library
+    generated for the plan (``ops/codegen.py``)."""
     import physicl_tpu_torch as phys
     from chip_smoke import first_chunk_inputs, user_plan_sim
 
     packed, sched, seed, k, plan, starts = first_chunk_inputs(
         user_plan_sim(phys, case, dev, n=1 << 16, chunk=64), F)
     assert plan.kernel_variant & 40 == 40 or case == "fluor-callable"
+    if plan.has_user:
+        name = os.path.basename(F._library(plan)._name)
+        assert name.startswith("libfused_plan_")
     out = torch.empty_like(packed)
     rec, rec_f = F.fused_transport(packed, out, sched, seed, k, plan)
     ref, ref_rec, ref_f = F.fused_chunk_reference(packed, sched, seed, k,

@@ -429,14 +429,16 @@ def test_kernel_limits_do_not_fall_back():
             if not is_kernel_limit(c)} == (jax_codes & port_codes) | {"dtype"}
     for code in ("op-count", "cross-planes", "field-count",
                  "field-expr-length", "field-expr-unsupported",
-                 "field-fn-callable", "user-program-size",
-                 "user-program-regs", "elementwise-op-unsupported",
+                 "field-fn-callable", "elementwise-op-unsupported",
                  "reduce-op-unsupported", "kernelstep-op-unsupported"):
         assert is_kernel_limit(code), code
-    # lifted: the kernel evaluates a recorded inverse CDF, and a voxel grid
-    # past its int32 index falls back with the JAX prover's code
-    for code in ("phase-icdf-callable", "voxel-grid-size"):
+    # lifted: the kernel evaluates a recorded inverse CDF, a voxel grid
+    # past its int32 index falls back with the JAX prover's code, and each
+    # plan's user programs are compiled for it, of any length
+    for code in ("phase-icdf-callable", "voxel-grid-size",
+                 "user-program-size", "user-program-regs"):
         assert code not in port_codes, code
+    assert "user-program" not in inspect.getsource(TP)
     assert not is_kernel_limit("field-fn-gather")
     # a 90-term expression: past the kernel's program length
     for fuse in ("auto", "off"):

@@ -14,6 +14,10 @@ transcendentals with its own polynomials). The JAX side runs with
 ``auto_shrink=False`` on both sides (a shrink would reorder the slots
 the final planes are compared by).
 
+Three cases sit past the limits the port's interpreter once had (48
+registers, 64 draws, 1024 instructions a plan): each plan's programs are
+compiled for it now (``ops/codegen.py``), so they fuse as in JAX.
+
 The rest holds the recorded program against a direct call of the torch
 callable, the refusal codes against the JAX prover's, and the draw order.
 """
@@ -165,6 +169,15 @@ def _build(P, case):
         steps += [dep, red]
         measures += [dep, red]
         s.add_photons(_photons(P, 2000, 8, E=20.0))
+    elif case in _PAST_LIMITS:
+        # the result in the dose plane (no feedback between iterations)
+        sign = L.ScatterSignMeasureStep(None, True)
+        steps += [L.ScatterIsotropicStep(A=0.05 / (c * DT), n=1.0),
+                  P.ElementwiseStep(_PAST_LIMITS[case],
+                                    extras_write=("dose",)), sign]
+        measures.append(sign)
+        s.add_photons(_photons(P, 1024, 10,
+                               {"dose": np.zeros(1024, np.float32)}))
     elif case == "draw-unused":
         # u1 and u2 are drawn and never used: u3 is the op's third draw
         def fn(p):
@@ -183,6 +196,33 @@ def _build(P, case):
     for i, st in enumerate(steps):
         s.add_step(i, st)
     return s, measures
+
+
+def _many_live(p):
+    """60 values live at once (computed before any is summed)."""
+    vals = [p.E * (i + 1.5) for i in range(60)]
+    total = vals[0]
+    for v in vals[1:]:
+        total = total + v
+    return {"dose": total / 1860.0}
+
+
+def _draws_70(p):
+    return {"dose": sum(p.uniform() for _ in range(70))}
+
+
+def _long_chain(p):
+    """A program of over 1200 instructions: x / 2 + k E, 600 times (the
+    halving is exact, so an FMA of it rounds as the product and sum do)."""
+    x = p.w
+    for i in range(600):
+        x = x * 0.5 + p.E * float(i % 5 + 1)
+    return {"dose": x}
+
+
+# past the port's former kernel limits: registers, draws, instructions
+_PAST_LIMITS = {"past-48-registers": _many_live, "70-draws": _draws_70,
+                "past-1024-instructions": _long_chain}
 
 
 def _state_np(P, s):
@@ -208,7 +248,7 @@ def _run(P, case):
 
 @pytest.mark.parametrize("case", ["user-path", "extras-3row", "kstate-mixed",
                                   "reduce-weighted", "fluor-callable",
-                                  "draw-unused"])
+                                  "draw-unused", *_PAST_LIMITS])
 def test_user_code_matches_jax(case):
     js, jrows = _run(J, case)
     ts, trows = _run(T, case)
@@ -244,6 +284,32 @@ def test_user_plan_uses_the_user_instantiation():
                                            "custom", "reduce"]
     assert plan.kernel_variant == 8 | 32 and not plan.has_pol
     assert plan.extras == ("dose",) and plan.extras_writeback == ("dose",)
+    # the plan's own library instantiates that variant with its three
+    # programs compiled in (ops/codegen.py)
+    from physicl_tpu_torch.ops import codegen as CG
+
+    src = CG.plan_source(plan)
+    assert "#define PHYSICL_USER_PLAN 40\n" in src
+    assert [i for i, _ in CG.user_ops(plan)] == [2, 3, 4]
+    for i in (2, 3, 4):
+        assert f"void user_op_{i}(" in src and f"case {i}:" in src
+
+
+def test_programs_past_the_former_limits():
+    """The three cases above record past the interpreter's old limits: 60
+    live values (48 registers), 70 draws (64; the placeholder is sized to
+    the callable, each draw at its own index) and over 1200 instructions
+    (1024 a plan)."""
+    many = RC.record_particle_fn(_many_live, "ElementwiseStep",
+                                 (("dose", 15, 1),), writable=("dose",))
+    assert many.n_regs >= 60
+    draws = RC.record_particle_fn(_draws_70, "ElementwiseStep",
+                                  (("dose", 15, 1),), writable=("dose",))
+    unifs = [y for code, *_, y, _ in draws.ins if code == RC.U_UNIF]
+    assert draws.n_draws == 70 and unifs == list(range(70))
+    chain = RC.record_particle_fn(_long_chain, "ElementwiseStep",
+                                  (("dose", 15, 1),), writable=("dose",))
+    assert len(chain.ins) > 1200
 
 
 # -- the recorded program against a direct call ------------------------------
@@ -420,14 +486,6 @@ def _branchy(p):
     return {"E": p.E}
 
 
-def _many_live(p):
-    vals = [p.E * (i + 1.5) for i in range(60)]
-    total = vals[0]
-    for v in vals[1:]:
-        total = total + v
-    return {"E": total}
-
-
 # case -> (the port's code, the JAX prover's code or None where the JAX
 # package has none: it fuses, or fails later when it traces the kernel)
 _REFUSALS = {
@@ -489,10 +547,6 @@ _REFUSALS = {
     "kernelstep-records": (
         _ks(lambda s, ctx: s, record_fn=lambda s: {"n": s.E.sum()}),
         "kernelstep-records", "kernelstep-records"),
-    "user-program-regs": (_ew(_many_live), "user-program-regs", None),
-    "user-program-size": (
-        _ew(lambda p: {"E": sum(p.uniform() for _ in range(70))}),
-        "user-program-size", None),
 }
 
 
@@ -513,17 +567,16 @@ _GENERIC_ERRORS = {
 def test_user_refusals(case):
     """Each refusal carries its code. A code the JAX prover shares falls
     back to the generic tier with one RuntimeWarning naming it; a limit of
-    the port's kernel (``*-op-unsupported``, ``user-program-*``: the JAX
-    kernel runs these) is raised with no fallback, and the plan runs on
-    the generic tier where fuse="off" asks for it."""
+    the port's recorder (``*-op-unsupported``: the JAX kernel runs these)
+    is raised with no fallback, and the plan runs on the generic tier
+    where fuse="off" asks for it."""
     make, code_t, code_j = _REFUSALS[case]
     assert _code_T(_refusing(T, make)) == code_t
     if code_j is not None:
         assert _code_J(_refusing(J, make)) == code_j
     s = _refusing(T, make)
     if is_kernel_limit(code_t):
-        assert code_t.endswith("-op-unsupported") or code_t.startswith(
-            "user-program-")
+        assert code_t.endswith("-op-unsupported")
         with pytest.raises(FusedRefusal, match=code_t):
             s._run_impl()
         s = _refusing(T, make)
