@@ -10,13 +10,13 @@ Phases (any failure exits non-zero and prints no result line):
    limit as ``nvidia-smi`` reports them;
 2. build: builds ``physicl_tpu_torch/csrc/*.cu`` with ``nvcc`` (one process
    per source, all at once) and prints the seconds it took and the
-   compiler's register report; the kernel 1i plans this script runs
-   (``USER_PLANS``, the user and spectrum paths, the deep shield's band
-   tallies) are planned on the CPU while it runs, and their generated
-   libraries (``ops/codegen.py``) start building after it, one ``nvcc``
-   each, while the phases before 29 run; the main library holds no
-   instantiation with the user bit (its grid query refuses every such
-   variant);
+   compiler's register report; every plan form this script runs
+   (``form_sources``: the explicit plan lists, the user plans and the
+   paths' plans, planned on the CPU while the main build runs) gets its
+   generated library (``ops/codegen.py:form_source``): one built alone
+   (its seconds printed), then the rest, at most one ``nvcc`` a core,
+   while the first phases run; the main library holds the op-sequence
+   kernels alone (its grid query refuses every other variant);
 3. ``fused_transport`` vs twin: the kernel against its plain PyTorch twin on
    the card, at 2**20 slots and 256 iterations for the main-path plans
    ([kin, iso, sign] and [kin, del, iso, sign]) and the Planck-path plans
@@ -31,8 +31,8 @@ Phases (any failure exits non-zero and prints no result line):
    64, ``fused_seq_kernel``): first the exhaustive check of its reciprocal
    root (equal to ``1.0f / sqrtf`` on every float32 of [0.5, 2), and every
    draw pair's squared norm inside that range), then planes and int records
-   bitwise equal to the twin and to the generic variant 0 on the same
-   inputs; prints both instantiations' registers, the SASS instruction
+   bitwise equal to the twin and to the plan's form library on the same
+   inputs; prints both kernels' registers, the SASS instruction
    counts of their iteration loops (``scripts/sass_loop.py``), their times
    in turns, the bound (the work the function needs, ``SEQ_OPS``, with
    its terms) and each one's issue time (the loop's instructions
@@ -41,8 +41,10 @@ Phases (any failure exits non-zero and prints no result line):
    plan, state, schedule, seed and emit starts that the path's own provider
    hands the kernel (2**24 slots, 1024 iterations, lambda**-4 isotropic
    scattering, two crossing planes with energy sums, emission stopping at
-   capacity inside the chunk, record tiles above the 48 KB default shared
-   memory), held as in phase 3; prints the grid of both record-tile sizes;
+   capacity inside the chunk), held as in phase 3; prints the grid at
+   both chunk lengths, the form's report (``form_report``: build seconds,
+   registers, spills, blocks per SM, the iteration loop's SASS) and the
+   bound's terms;
 5. ``fused_transport`` vs twin on four media plans at 2**20 slots and 256
    iterations over 64**3 grids (trilinear voxel n(r) with implicit capture,
    roulette, deposition, the absorbing box and a weighted sign tally;
@@ -52,8 +54,9 @@ Phases (any failure exits non-zero and prints no result line):
    kernel's expf and powf), rec_f as in phase 3;
 6. ``fused_transport`` vs twin on the media path's first chunk, as its
    provider hands it over (10**7 photons, 1024 iterations, the 256**3
-   continuous phantom, 104 KB record tiles), held as in phase 5; prints the
-   grid;
+   continuous phantom read once an iteration for both scatter and
+   absorption: fewer than 16 global loads in the form kernel's iteration
+   loop), held as in phase 5; prints the grid and the form's report;
 6a. ``fused_transport`` vs twin on four stream and geometry plans at 2**20
     slots and 256 iterations in a box of 64 c dt: [kin, iso, reflect,
     trace(float32, scatter flags)], [kin, iso, periodic, trace(bfloat16,
@@ -194,8 +197,9 @@ Phases (any failure exits non-zero and prints no result line):
     emitter and per-particle q/m: int records equal, every plane (the
     extras included) bitwise, each timed against its bound;
 22. the same on the first chunks of the ExB path (10**7 x 256), the mixed
-    path (10**7 x 256) and the record-tile plan (10**7 x 984: the chunk
-    clamped by its 3 int + 7 float record columns);
+    path (10**7 x 256) and the record-tile plan (10**7 x 1024: 3 int + 7
+    float record columns, whose shared-memory tiles clamped it to 984
+    before the float sums moved to global partials);
 23. ExB path (benchmarks/run_all.py lorentz_boris_exb_1e7): 10**7
     particles from ``generate_particle_state(device=...)``, E = (4, 0, 0),
     B = (0, 0, 200), q/m = 1, chunks of 256 through ``Simulation`` for the
@@ -208,7 +212,7 @@ Phases (any failure exits non-zero and prints no result line):
     24-bit uniform's p, no charge dies, charge speeds 1 within rtol 3e-5,
     photon speeds c; both print the rates, peak memory and idle share;
 24. the record-tile plan at 10**7 photons through ``Simulation``: two
-    chunks of 984 (the clamp in ``explain_plan()``), finite tallies with
+    chunks of 1024 (no clamp in ``explain_plan()``), finite tallies with
     crossings in both chunks;
 25. ``fused_transport`` vs twin on the eleven polarized plans
     (``pol_plans``) at 2**20 slots and 256 iterations: Rayleigh (packed
@@ -219,7 +223,7 @@ Phases (any failure exits non-zero and prints no result line):
     on a polarized population with no polarized op; a mixed photon/charged
     population: int records equal, every plane (the Stokes and frame rows
     included) bitwise, rec_f as in phase 3; each printed with its time,
-    bound, grid and the instantiation's registers;
+    bound, grid and its form kernel's registers;
 26. the exact laws of one forced scatter (pcoll = 2) on the kernel at
     2**20 photons: Rayleigh on unpolarized light Q' = (c**2 - 1) / (1 +
     c**2), U' = V' = 0, on circular light V' = 2c / (1 + c**2); Compton at
@@ -254,26 +258,22 @@ Phases (any failure exits non-zero and prints no result line):
     recorded field program); an ElementwiseStep past the interpreter's old
     limits (60 live values, 70 draws, over 1200 instructions): int records
     equal, every plane (the written-back extras included) bitwise, rec_f as
-    in phase 3, each user plan on its own generated library, each timed
-    against its bound and printed with its build seconds, its
-    instantiation's registers and spills, its blocks per SM and its
-    programs' SASS instructions per photon-iteration
-    (``scripts/sass_loop.py --user``);
+    in phase 3, each timed against its bound and printed with its form
+    library's report (``form_report``);
 30. the same on the user path's first chunk (10**7 x 1024, over its first
     256 iterations: kin, iso, a
     KernelStep drag, an ElementwiseStep decay with a draw, t, dt and a
     written-back dose, the moments tally) and the spectrum path's (10**7
-    x 62: thermal Compton and two 56-bin spectra, the chunk clamped by the
-    record tiles of its 117 columns), each printed with its generated
-    library's build seconds, registers and spills, blocks per SM and SASS
-    instructions per photon-iteration, as in phase 29;
+    x 547, over its first 256 iterations: thermal Compton and two 56-bin
+    spectra, the chunk clamped by its 116 float columns' partials), each
+    printed with its form library's report, as in phase 29;
 31. user path (run_all.py kernelstep_drag_fused_1e7 with engine.py's
     decay and moments examples): 10**7 photons, 2048 iterations in chunks
     of 1024, run twice (the second profiled): every alive |v| between c
     (1 - 1e-7)**K and c, E_total = n and the alive photons' dose 0 in
     every row, the written-back dose plane summing to N0 - n, the
     survivors within 5 sigma of prod(1 - p_k); then the spectrum path
-    (run_all.py spectrum_56bin_x2_thermal_1e7, cut to 240 iterations):
+    (run_all.py spectrum_56bin_x2_thermal_1e7, cut to two chunks of 547):
     the bins and capture bins sum to n in every row, the last row equals a
     histogram of the final planes, the energy bins sum to the alive
     energy within rtol 1e-5; both print the rates, peak memory and idle
@@ -431,12 +431,18 @@ first chunk at the grown capacity), the main path over an 8-shard mesh
 2 processes (``main-mp``: its ``ms`` the mean of the processes' chunks
 on their own clocks, its launches both processes'), the main path,
 the Planck source path, the media path, the escape path and the cavity path, each
-with its path's launch count and the times and bound at that path's own
-shape and plan (the main path's entry also names its instantiation, and
-its bound counts the work the function needs, ``SEQ_OPS``) (the bound
-counts the fields' corner reads and the stream stores as lane operations
-at the load/store issue rate, and the stream buffer's bytes), and
-``planck_gen`` for the Planck source path. The last line is ``{"ok": true,
+with its path's launch count, the times and bound at that path's own
+shape and plan, and its kernel: its ``form`` (the plan's ops and its form
+library's build key, or the op-sequence kernel), the library's build
+seconds (``build_s``), its ``registers`` and ``spills``, its
+``blocks_per_sm`` and, for the paths' first chunks, its iteration loop's
+SASS instructions a photon-iteration; every bound counts the work the
+function needs (``SEQ_OPS``: FMA pipe, ALU pipe, issue only, MUFU), the
+fields' corner reads and the stream stores as lane operations at the
+load/store issue rate, and the stream buffer's bytes; and ``planck_gen``
+for the Planck source path. The line before it lists the form libraries
+the run built (one alone, the rest a core each) and any form built at its
+first launch rather than planned ahead. The last line is ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -471,204 +477,88 @@ PEAK_LD = 32 * 132 * 1.98e9
 # instruction issue: four warp-instructions per SM and clock
 PEAK_ISSUE = 4 * 132 * 1.98e9
 
-# Lane-operations per photon-iteration, counted from the kernel source
-# (csrc/fused_transport.cu) for the const-norm path: (float32, int32). The
-# loop row is the per-iteration bookkeeping (dt load, hash seed, record row
-# pointers, the op dispatch); "count" is one warp vote + popcount + lane-0
-# test; a hash is 3 + 12 integer operations; a correctly rounded sqrt or
-# divide is counted as 8 float operations.
-OPS_PER_ITER = {
-    # dt load, hash seed, record row pointers, op dispatch
-    "loop": (0, 15),
-    # plans with stream planes: the sample test and the stride counter
-    "stream_row": (0, 3),
-    "kin": (6, 0),
-    # norm 2, uniform 2, pair 4, test 1, four fast sines 43, nx/ny 2,
-    # |n|^2 5, sqrt 8, divide 8, scale 4, selects and dv 9
-    "iso": (88, 2 * 16 + 3),
-    # lambda**-4 weighting: base, square, fourth power, product; flag test
-    "iso_wl": (88 + 4, 2 * 16 + 4),
-    # norm 2, uniform 2, test 1, alive select 1; hash 16, alive logic 3
-    "del": (6, 16 + 3),
-    "sign": (3, 4 * 3 + 3),
-    "col0": (0, 3),
-    # every slot: start load and address 3, 64-bit window test 6, draw
-    # indices 2, alive update 3; alive select 1
-    "emit": (1, 14),
-    # per plane: lo 1, two-sided test 4; axis selects 4, logic 3, a count
-    # 3, plane loop 2
-    "plane": (5, 4 + 3 + 3 + 2),
-    # per energy sum: select 1, shuffle tree 5 adds; 5 shuffles, column
-    # test 1, lane test 2
-    "esum": (6, 5 + 1 + 2),
-    # a weighted plane: the plane test, then a weight sum ("esum") where
-    # the count was
-    "plane_w": (5 + 6, 4 + 3 + 2 + 5 + 1 + 2),
-    # weighted sign: three selects and weight sums where the counts were
-    "sign_w": (3 + 3 * 6, 3 * 8 + 3),
-    # absorbing box: six compares, alive logic 6, alive select 1
-    "absorb": (7, 6),
-    # implicit capture on top of "del" without its draw: clip 2, w update 2
-    # and select 1; the draw's hash and test come off
-    "capture": (5 - 3, 3 - 16),
-    # deposition tally: product(s) 2 and select 1, a weight sum ("esum")
-    "dep": (3 + 6, 8),
-    # roulette: uniform 2, two compares, product 1, selects 2; hash 16,
-    # logic 4
-    "roulette": (6, 16 + 4),
-    # a field read through a pointer: the kind and index tests
-    "field": (0, 4),
-    # voxel, trilinear: 3 subtractions, 3 divides (8 each), 6 inside
-    # compares, 3 floors, 6 clamps, 3 converts, 3 clips (2 each), 3 (1 - t),
-    # 8 x (3 products and 1 sum), the outside select; index 4, 8 corner
-    # addresses 3 each, 3 converts back
-    "voxel_tri": (3 + 24 + 6 + 3 + 6 + 3 + 6 + 3 + 32 + 1, 4 + 24 + 3),
-    # voxel, nearest: 3 subtractions, 3 divides, 6 compares, 3 rints, 6
-    # clamps, 3 converts, the select; index 4
-    "voxel_near": (3 + 24 + 6 + 3 + 6 + 3 + 1, 4),
-    # layered: the radius (3 subtractions, 5 for the square sum, sqrt 8) or
-    # an axis select, two range tests and NaN test 3; bisection per level
-    # 1 compare, 4 integer operations
-    "layered_r": (16 + 3, 4),
-    "layered_axis": (3, 4),
-    "layered_level": (1, 4),
-    # one postfix instruction: the load, dispatch and stack move (integer),
-    # the operation (float; a transcendental counted as 20)
-    "ins": (1, 8),
-    "ins_transcendental": (20, 8),
-    # periodic, per axis: L, r - lo, mod_floor (a divide 8, floor, product,
-    # difference, two compare-selects of 2) and lo + y
-    "periodic": (3 * 17, 0),
-    # reflect, per axis: L, 2L, r - lo, mod_floor 14, the odd test, 2L - y,
-    # a select, lo + y, two wall tests, the r select, negate and select v,
-    # dr 2; logic 2
-    "reflect": (3 * 28, 3 * 2),
-    # sabsorb: 3 differences, 3 squares and 2 sums, R*R, the test; logic 3,
-    # alive select 1
-    "sabsorb": (10, 4),
-    # scross: 6 differences, two squared norms of 5, R*R, 4 compares;
-    # logic 4 and a count 3 (a weighted shell: a weight sum, "esum")
-    "scross": (21, 4 + 3),
-    # one sampled trace: per position plane a select, an address (2) and
-    # the sample test; scatter flags: 3 compares, 2 ors, a select, address
-    "trace": (3, 1 + 3 * 2),
-    "trace_dv": (3 + 1, 2 + 2),
-    # a captured energy per iteration: the select, the test and address
-    "ecap": (1, 3),
-    # hg/rayl/phase per photon-iteration: norm 2, coef 1, uniform 2, the
-    # test 1, three dv zeros 3; two hashes, the pair's index, kind and flag
-    # tests 5
-    "rot": (9, 2 * 16 + 5),
-    # one collision's rotation (scatter_rotate): the pair's halves 4, sin
-    # theta 11, two fast sines 18, their norm 19 and scaling 2, the unit
-    # direction 25, the basis and the rotated direction 30, its
-    # renormalisation 22, v and dv 9; the halves' shifts and masks 6
-    "rotate": (140, 6),
-    # the polar angle: HG 2 products and sums, two divides 16, s*s, the
-    # difference, the clip 2 (isotropic-limit test 2); Rayleigh w 2, the
-    # root's argument 2, sqrt 8, log2 20, exp2 16, 1/a 8, the difference
-    # and the clip 3 (the bit work 12); the phase table x 1, floor 1,
-    # the segment's start and slope 3, + 0 1, the clip 2 (the index and
-    # the cap 4, two loads)
-    "hg_cos": (22, 2),
-    "rayl_cos": (59, 12),
-    "phase_cos": (8, 4),
-    # compton per photon-iteration: alpha 1, u 2, the test 1, three dv
-    # zeros 3; a hash, the azimuth and the tries' indices 8
-    "compton": (7, 16 + 8),
-    # sigma_KN / sigma_T (the branch alpha >= 0.5): log2 20, the closed form
-    # 16 products and sums and four divides 32; the branch tests 4
-    "kn_xsec": (68, 8),
-    # one Kahn try: r1 2, the pair's halves 4, eta_a 2, 1 / eta_a 8, the
-    # branch and its acceptance 8; two hashes, the indices 4
-    "kn_try": (24, 2 * 16 + 4),
-    # cold recoil: E / eta 8, the tally's w (E - E') 2 and its weight sum
-    "recoil": (10 + 6, 8),
-    # thermal per photon-iteration: u 2, the unit direction 25, two radii
-    # (max, log2 20, product, sqrt 8) 60, three fast sines 27, beta 6, its
-    # square 5, |beta| 8, the scale's divide 8 and min 2, beta and b2
-    # scaled 5, gamma 12, beta.n 5, the flux 2, the boost 32, its
-    # renormalisation 22, E1 and alpha1 2, the test 1; five hashes, the
-    # indices and the halves 12
-    "thermal": (246, 5 * 16 + 12),
-    # a thermal collision after its tries: E / eta 8, sin theta 11, two
-    # fast sines 18, the rotation 30, two renormalisations 44, beta.n' 5,
-    # the boost back 32, E' 1, v and dv 9, the tally 2 (and its weight
-    # sum)
-    "thermal_scatter": (160 + 6, 8),
-    # fresnel per photon-iteration: u 2, the axis selects 4, the side tests
-    # 3; a hash, the logic 4
-    "fresnel": (9, 16 + 6),
-    # one crossing: the unit direction 25, cos_i and sin2_t 6, sqrt 8, the
-    # Fresnel coefficients 10 and two divides 16, R 4, the reflection test
-    # 1, s 10, the refracted direction and its norm 25, the outgoing speed
-    # 8, the remainder 4, positions, dr and v 18; the axis selects 6
-    "fresnel_cross": (135, 6),
-    # the exponential transform on top of "del": mu 5 and its divide 8, two
-    # clips 4, the bias 3, the cap 2, the ratio 10, the weight update 2
-    "stretch": (34, 4),
-    # fluorescence on top of "del": y 2, the three tests 3; two hashes,
-    # the logic 6
-    "fluor": (5, 2 * 16 + 6),
-    # one re-emission: cos and sin theta 13, two fast sines 18, the norm 19
-    # and scaling 4, v, dv and E 10; the pair's halves 6
-    "fluor_emit": (64, 6),
-    # lorentz per particle-iteration, the push's own work only: h 1, three v
-    # selects and three dv 6; the dt's address in its schedule row 1 (the
-    # push is `alive` on a plan without an otype plane; with one, "gate")
-    "lorentz": (7, 1),
-    # a constant E: three products, two kicks of three sums
-    "lorentz_E": (9, 0),
-    # a constant B: t 3, v' 12, s = 2 / (1 + |t|^2) 6 and its divide 8, v+
-    # 15
-    "lorentz_B": (44, 0),
-    # per-particle q/m: 0.5 dt (the plane is read once per slot, before
-    # the iterations)
-    "lorentz_qm": (1, 0),
-    # the otype gate of a photon op or a push on a mixed plan: one logic
-    # operation
-    "gate": (0, 1),
-    # pol per slot-iteration: pcoll 1, u 2, the test 1, dv zeros 3; the
-    # frame re-orthonormalized for every slot: the unit direction 25, the
-    # projection 11, n2 5, its test 1, 1 / sqrt 17, e1 3; a hash, the
-    # pair's index, the kind and flag tests 5
-    "pol": (7 + 62, 16 + 5),
-    # polc per slot-iteration: alpha 1, pcoll 1, u 2, the test 1, dv zeros
-    # 3, the frame 62; a hash, the azimuth's and the tries' indices 8
-    "polc": (8 + 62, 16 + 8),
-    # one polarized turn (pol_scatter after the angle): r_t 11 and a, b 2,
-    # the bisection's steps (midpoint 1, rotation 6, fv 4, test 1, selects
-    # 3; the first step rotates nothing), its end (rotation 6, phi 1,
-    # renormalisation 22 and 2, the half-angle root 12 and divide 8, signs
-    # 3), the Fano rows and clips 30, the purity clamp 27, sin theta 10,
-    # e2, a, d' and e1' 36, their renormalisations 45, v, dv and the frame
-    # 9; the branch and selects 6
-    "pol_turn_17": (13 + 17 * 15 - 6 + 54 + 57 + 100, 6),
-    "pol_turn_26": (13 + 26 * 15 - 6 + 54 + 57 + 100, 6),
-    # a Compton turn's kappa (a divide and a sum) and its azimuth uniform
-    "polc_kappa": (9 + 2, 16),
-    # polmeas: the weight 2, p 13, three weight sums ("esum") and the
-    # products 3; the count (if any) is "col0"
-    "polmeas": (2 + 13 + 3 * 7, 3 * 8),
-    "polmeas_qu": (2 * 7, 2 * 8),
-    # a polarized source's rows per emitted photon: six stores' selects
-    "emit_pol": (6, 1),
-}
-# lane-loads per field read (gathers, at the SM's load/store issue rate)
-LOADS_PER_FIELD = {"voxel_tri": 8, "voxel_near": 1, "layered": 2}
-# The main path's plans ([kin, iso, sign], [kin, del, sign] in their
-# op-sequence form, whichever instantiation runs them), counted from the
-# work the function needs and nothing of a kernel's bookkeeping (loop,
-# dispatch, record addresses, dt and key loads): per photon-iteration
-# (FMA pipe, ALU pipe, issue only, MUFU) lane-operations. The FMA pipe takes
-# the float32 adds and products and the integer multiplies, at PEAK_F32;
-# the ALU pipe the shifts, logic, integer and float compares, at PEAK_I32;
-# an add or select that either pipe (or a predicate) can do, and a warp
-# vote, count only in the issue total, as do the hardware reciprocal roots
-# (MUFU, which also have a pipe of their own). Every
-# rounding of the reference is one operation, and the products by a power
-# of two (2 tu, the four 4 y of the fast sines, 0.5 y) are exact and not
-# counted.
+# The work each op of a fused chunk needs, counted from the function (the
+# twin's operations) and nothing of a kernel's bookkeeping (loop, dispatch,
+# record addresses and flushes, dt, key and emit-start loads, the stream's
+# stride counter): per photon-iteration, or per event where the key says
+# so, (FMA pipe, ALU pipe, issue only, MUFU) lane-operations. The FMA pipe
+# takes the float32 adds and products and the integer multiplies, at
+# PEAK_F32; the ALU pipe the shifts, logic, integer and float compares,
+# min and max, at PEAK_I32; an add or select that either pipe (or a
+# predicate) can do, a warp vote or shuffle, count only in the issue
+# total; the MUFU column the hardware reciprocals, roots, logarithms and
+# exponentials and the int-float conversions (a pipe of their own, a
+# quarter rate; not in the bound). Every rounding of the reference is one
+# operation; a correctly rounded divide is one MUFU and 4 FMA-pipe
+# operations (the reciprocal's refinement, the quotient, its residual and
+# correction), a square root one MUFU and 3, 1.0f / sqrtf one pair of each
+# and 5; products by a power of two (2 tu, the fast sines' 4 y, 0.5 y,
+# 2**-24) are exact and not counted. A draw is its key + slot add (issue),
+# the murmur3 multiplies (FMA 2) and finalizer (5 shifts and 4 logic, ALU
+# 9); a 24-bit uniform its shift and conversion; a count one vote (issue);
+# a record sum one add per slot (the function's sum over slots; the
+# warp's shuffle tree and the flush are bookkeeping). The main path's
+# plans ([kin, iso, sign], [kin, del, sign]) need "kin", "iso", "del" and
+# "sign" alone, whichever kernel runs them.
+_DRAW = (2, 9, 1, 0)
+_U24 = (0, 1, 0, 1)     # a 24-bit uniform: shift, conversion
+_DIV = (4, 0, 0, 1)
+_SQRT = (3, 0, 0, 1)
+_RSQRT = (5, 0, 0, 2)   # 1.0f / sqrtf
+# fast_sinpi: 1 - |y|, the product, 0.225 |p| + 0.775, p times it
+_SINPI = (5, 0, 0, 0)
+_WRAP = (1, 1, 1, 0)    # wrap1: the compare, the select, the add
+# fast_log2: exponent and mantissa bits, Horner 16, e + p
+_LOG2 = (18, 4, 1, 1)
+_EXP2 = (12, 1, 1, 2)   # fast_exp2: floor, fraction, Horner 10, exponent build
+
+
+def _sum(*terms):
+    """The lane-operation tuples summed column by column (``(k, t)`` for
+    ``k`` times ``t``)."""
+    out = [0, 0, 0, 0]
+    for t in terms:
+        k, t = t if isinstance(t[0], tuple) else (1, t) if len(t) == 4 \
+            else t
+        for j in range(4):
+            out[j] += k * t[j]
+    return tuple(out)
+
+
+# scatter_rotate after the angle: sin theta (1 - c c, max, sqrt), the
+# azimuth's two fast sines with their wraps and + 0.5, their norm (3 and a
+# reciprocal root) and scaling 2, the unit direction (|v|^2 5, max, the
+# reciprocal root, 3 products), the Duff basis (sign compare and select,
+# -1 / (sign + z), x y a 2, e1 6, e2 3), the rotated direction 15, its
+# renormalisation to c_val (5, the reciprocal root, 1) and v, dv 6
+_ROTATE = _sum((2, 1, 0, 0), _SQRT, (2, _SINPI), (2, _WRAP), (1, 0, 0, 0),
+               (3, 0, 0, 0), _RSQRT, (2, 0, 0, 0), (5, 1, 0, 0), _RSQRT,
+               (3, 0, 0, 0), (1, 1, 1, 0), (1, 0, 0, 0), _DIV,
+               (11, 0, 0, 0), (15, 0, 0, 0), (6, 0, 0, 0), _RSQRT,
+               (6, 0, 0, 0))
+# one Kahn try: r1, the pair's halves (2 shifts, 2 conversions), b / (b +
+# 8), eta_a 2, 1 / eta_a, the branch's acceptance test (4 products and
+# sums, the compare); two draws
+_KN_TRY = _sum((2, _DRAW), _U24, (0, 2, 0, 2), (1, 0, 0, 0), _DIV, (2, 0, 0, 0),
+               _DIV, (4, 1, 1, 0))
+# one polarized turn after the angle: r_t (1 - c^2, kappa - s2, the
+# divide, the negation) and a, b 2; the bisection's steps (midpoint 1, the
+# rotation 6, the test's fv 4 and compare, three selects; the first step
+# rotates nothing), its end (the rotation 6, phi 1, the renormalisation 5
+# and reciprocal root, 2, the half-angle root 2 and its divide, the sign
+# tests 3 and selects), the Fano rows 14 and clips 6 (compares), the purity
+# clamp (5, max, reciprocal root, 3), sin theta, e2 9, a, d' and e1' 27,
+# their renormalisations (2 x (5, max, reciprocal root) and 6), v, dv and
+# the frame 9
+def _pol_turn(steps):
+    return _sum((4, 0, 0, 0), _DIV, (2, 0, 0, 0),
+                (steps, (11, 1, 3, 0)), (-6, 0, 0, 0),
+                (9, 0, 0, 0), _RSQRT, (2, 0, 0, 0), _SQRT, _DIV, (0, 3, 2, 0),
+                (14, 6, 0, 0), (5, 1, 0, 0), _RSQRT, (3, 0, 0, 0),
+                (2, 1, 0, 0), _SQRT, (9, 0, 0, 0), (27, 0, 0, 0),
+                (2, (5, 1, 0, 0)), (2, _RSQRT), (6, 0, 0, 0), (9, 0, 0, 0))
+
+
 SEQ_OPS = {
     # dr = v dt 3, r + dr 3
     "kin": (6, 0, 0, 0),
@@ -688,15 +578,213 @@ SEQ_OPS = {
     # the three alive && v > 0 compares | their four ballots (one warp
     # instruction each: 4 per photon-iteration of issue)
     "sign": (0, 3, 4, 0),
+    # |dr| where the speeds are not all c: |dr|^2 5 and its root; then
+    # pcoll = A n |dr| 1 (with the const norm, A n c dt is uniform)
+    "norm": _sum((5, 0, 0, 0), _SQRT, (1, 0, 0, 0)),
+    # a field's value times pcoll
+    "field": (1, 0, 0, 0),
+    # a weighted sign: three alive && v > 0 compares, three selects and
+    # weight sums
+    "sign_w": (3, 3, 3, 0),
+    # the sign's (or any tally's) alive count: one vote
+    "count": (0, 0, 1, 0),
+    # lambda^-4 weighting: base, square, fourth power, product
+    "wl": (4, 0, 0, 0),
+    # implicit capture (in place of "del"'s draw and kill): clip 2, w (1 -
+    # p) 2, the live select
+    "capture": (2, 2, 1, 0),
+    # roulette: a draw and uniform, w < w_min, u w_sur and its compare, the
+    # logic 2 and the weight, alive and plane selects 3
+    "roulette": _sum(_DRAW, _U24, (1, 2, 5, 0)),
+    # a deposition tally: w p E or w E 2, the select, the sum
+    "dep": (3, 0, 1, 0),
+    # the exponential transform on top of "del": mu (3 products, 2 sums,
+    # max, divide), two clips 4, the bias 3, the cap's compare and min 2,
+    # the ratio (2 differences, max, divide), the weight's update and
+    # select, the deposit's p / p' divide and 2 products
+    "stretch": _sum((5, 1, 0, 0), _DIV, (0, 4, 0, 0), (3, 2, 0, 0),
+                    (2, 1, 0, 0), _DIV, (1, 0, 1, 0), _DIV, (2, 0, 0, 0)),
+    # fluorescence on top of "del": the second draw and uniform, y < Y and E
+    # >= edge, the logic 3
+    "fluor": _sum(_DRAW, _U24, (0, 2, 3, 0)),
+    # one re-emission (per event): the pair's draw and halves, cos theta
+    # 2, sin theta (2, max, root), two fast sines with wraps, the norm (5,
+    # max, reciprocal root, 1), v and dv 6, E
+    "fluor_emit": _sum(_DRAW, (0, 2, 0, 2), (2, 0, 0, 0), (2, 1, 0, 0), _SQRT,
+                       (2, _SINPI), (2, _WRAP), (1, 0, 0, 0), (6, 1, 0, 0),
+                       _RSQRT, (6, 0, 1, 0)),
+    # the absorbing box: six compares, the logic 6, the alive plane's
+    # select
+    "absorb": (0, 6, 7, 0),
+    # periodic, per axis: L, r - lo, mod_floor (divide, floor, product,
+    # difference, two compare-selects), lo + y
+    "periodic": _sum((3, (5, 2, 2, 1)), (3, _DIV)),
+    # reflect, per axis: L, 2L, r - lo, mod_floor (as above), the odd
+    # test, 2L - y, lo + y, two wall tests, the r select, the v negation and
+    # select, dr 2
+    "reflect": _sum((3, (9, 6, 5, 1)), (3, _DIV)),
+    # sabsorb: 3 differences, 3 squares and 2 sums, R R, the test, the
+    # logic and the alive plane's select
+    "sabsorb": (9, 1, 2, 0),
+    # scross: 6 differences, two squared norms of 5, R R, 4 compares, the
+    # logic 4; a count (or, weighted, a select and sum)
+    "scross": (17, 4, 4, 0),
+    # a crossing plane: lo, the two-sided test 4, the logic 3; a count (or,
+    # weighted, a select and sum)
+    "plane": (1, 4, 3, 0),
+    # an energy sum on a plane: w E (weighted), the select, the sum
+    "esum": (2, 0, 1, 0),
+    # a captured energy or a trace position (per sampled slot-iteration):
+    # the select (a stream store is a lane-load, below)
+    "stream_put": (0, 0, 1, 0),
+    # a trace's scatter flag: 3 compares, the logic 3, the select
+    "trace_dv": (0, 3, 4, 0),
+    # the rotation family per slot-iteration: a draw and uniform, the
+    # collision test and its logic 2, the three dv selects
+    "rot": _sum(_DRAW, _U24, (0, 1, 5, 0)),
+    # per collision: the pair's draw and halves (2 shifts, 2 conversions)
+    "rot_pair": _sum(_DRAW, (0, 2, 0, 2)),
+    "rotate": _ROTATE,
+    # the polar angle per collision: HG (1 - g^2) / (1 - g + 2g cu) (2 and a
+    # divide), (1 + g^2 - s s) / 2g (2 and a divide), the clip 2; Rayleigh:
+    # w 2, w^2 + 1 2 and its root, log2, / 3, exp2, 1 / a, the difference
+    # and the clip 2; the knot table: x, floor, the cap, start + (x - s)
+    # slope 3, + 0, the clip (the two table reads are lane-loads)
+    "hg_cos": _sum((2, 0, 0, 0), _DIV, (2, 0, 0, 0), _DIV, (0, 2, 0, 0)),
+    "rayl_cos": _sum((4, 0, 0, 0), _SQRT, _LOG2, (1, 0, 0, 0), _EXP2, _DIV,
+                     (1, 2, 0, 0)),
+    "phase_cos": (5, 3, 0, 2),
+    # compton per slot-iteration: alpha 1, a draw and uniform, the test and
+    # its logic, the three dv selects
+    "compton": _sum((1, 0, 0, 0), _DRAW, _U24, (0, 1, 5, 0)),
+    # sigma_KN / sigma_T (the closed form, alpha >= 0.5): max, b 2, log b
+    # (log2 and a product), the closed form 14 products and sums and its 4
+    # divides, the branch tests 2, pcoll times it
+    "kn_xsec": _sum((0, 1, 0, 0), (2, 0, 0, 0), _LOG2, (15, 2, 0, 0),
+                    (4, _DIV)),
+    "kn_try": _KN_TRY,
+    # the cold recoil per collision: the azimuth's uniform, E / eta, w (E -
+    # E'), the heating sum
+    "recoil": _sum(_DRAW, _U24, _DIV, (3, 0, 1, 0)),
+    # thermal per slot-iteration: a draw and uniform (u), the pair and two
+    # uniforms (3 draws, 2 shifts, 4 conversions), the unit direction (5,
+    # max, reciprocal root, 3), two radii (max, log2, product, root each),
+    # three fast sines with wraps and 3 products each, beta^2 5, |beta| (a
+    # root), the scale (max, divide, min), beta and b2 scaled 5, gamma (1 -
+    # b2, max, reciprocal root), beta . n 5, the flux 2, the boost (coef 4
+    # and a divide, the Doppler factor 2 and its reciprocal, 9), its
+    # renormalisation (5, max, reciprocal root, 3), E1 and alpha1 2, the
+    # test and its logic, the three dv selects
+    "thermal": _sum(_DRAW, _U24, (3, _DRAW), (0, 2, 0, 4), (5, 1, 0, 0),
+                    _RSQRT, (3, 0, 0, 0), (2, _sum((1, 1, 0, 0), _LOG2,
+                                                   _SQRT)),
+                    (3, _SINPI), (3, _WRAP), (9, 0, 0, 0), (5, 0, 0, 0),
+                    _SQRT, (0, 2, 0, 0), _DIV, (5, 0, 0, 0), (1, 1, 0, 0),
+                    _RSQRT, (7, 0, 0, 0), (4, 0, 0, 0), _DIV, (2, 0, 0, 0),
+                    _DIV, (9, 0, 0, 0), (5, 1, 0, 0), _RSQRT, (3, 0, 0, 0),
+                    (2, 1, 5, 0)),
+    # a thermal collision after its tries: E / eta, sin theta (2, max,
+    # root), the azimuth's uniform and two fast sines, the rotation 15 and
+    # its renormalisation, beta . n' 5, the boost back (as above) and its
+    # renormalisation, E', v, dv 6, the heating w (E - E') 2 and sum
+    "thermal_scatter": _sum(_DIV, (2, 1, 0, 0), _SQRT, _DRAW, _U24,
+                            (2, _SINPI), (2, _WRAP), (15, 0, 0, 0),
+                            (5, 1, 0, 0), _RSQRT, (3, 0, 0, 0), (5, 0, 0, 0),
+                            (4, 0, 0, 0), _DIV, (2, 0, 0, 0), _DIV,
+                            (9, 0, 0, 0), (5, 1, 0, 0), _RSQRT,
+                            (3, 0, 0, 0), (1, 0, 0, 0), (6, 0, 0, 0),
+                            (3, 0, 1, 0)),
+    # fresnel per slot-iteration: a draw and uniform, z0 1, the side tests
+    # 2 and the logic 2
+    "fresnel": _sum(_DRAW, _U24, (1, 2, 2, 0)),
+    # one crossing: |v| (5, max, reciprocal root), d 3, cos_i (abs, clip
+    # 2), sin2_i 2, mu (divide), sin2_t 2, cos_t (1 - x, clip, root), the
+    # two coefficients (8 and 2 divides), R (4, clip), the reflection test,
+    # s (2 and a divide), the refracted direction 4 and its norm (5, max,
+    # reciprocal root), the outgoing speed (divide, or product), the
+    # remainder 3, positions, dr and v 18, the selects 12
+    "fresnel_cross": _sum((5, 1, 0, 0), _RSQRT, (3, 0, 0, 0), (0, 2, 0, 0),
+                          (2, 0, 0, 0), _DIV, (2, 0, 0, 0), (1, 2, 0, 0),
+                          _SQRT, (8, 0, 0, 0), (2, _DIV), (4, 2, 0, 0),
+                          (0, 1, 0, 0), (2, 0, 0, 0), _DIV, (4, 0, 0, 0),
+                          (5, 1, 0, 0), _RSQRT, _DIV, (3, 0, 0, 0),
+                          (18, 0, 12, 0)),
+    # lorentz per particle-iteration: h 1 (or 2 with a per-particle q/m),
+    # three v selects and three dv; a constant or recorded E: three
+    # products, two kicks of three sums; B: t 3, v' 9, s = 2 / (1 + |t|^2)
+    # (6 and a divide), v+ 9
+    "lorentz": (4, 0, 3, 0),
+    "lorentz_qm": (1, 0, 0, 0),
+    "lorentz_E": (9, 0, 0, 0),
+    "lorentz_B": _sum((27, 0, 0, 0), _DIV),
+    # the otype gate of a photon op or a push on a mixed plan
+    "gate": (0, 0, 1, 0),
+    # the frame re-orthonormalized for every slot (pol, polc): the unit
+    # direction (5, max, reciprocal root, 3), d . e 5, the projection 6,
+    # n2 5, its test, 1 / |p| (max, reciprocal root), e1 3, the selects 3
+    "pol_frame": _sum((5, 1, 0, 0), _RSQRT, (3, 0, 0, 0), (16, 1, 0, 0),
+                      (0, 1, 0, 0), _RSQRT, (3, 0, 3, 0)),
+    # pol per slot-iteration: a draw and uniform, the test and its logic,
+    # the three dv selects
+    "pol": _sum(_DRAW, _U24, (0, 1, 5, 0)),
+    # per collision: the pair's draw and halves, the Rayleigh angle, the
+    # turn (17 bisection steps)
+    "pol_turn_17": _pol_turn(17),
+    "pol_turn_26": _pol_turn(26),
+    # polc per slot-iteration: alpha 1, a draw and uniform, the test and
+    # its logic, the three dv selects
+    "polc": _sum((1, 0, 0, 0), _DRAW, _U24, (0, 1, 5, 0)),
+    # a Compton turn's kappa (a divide and a sum), its azimuth uniform, the
+    # recoil E / eta, w (E - E') 2 and the heating sum
+    "polc_kappa": _sum(_DIV, (1, 0, 0, 0), _DRAW, _U24, _DIV, (3, 0, 1, 0)),
+    # polmeas: the weight (select, product), p (5 and a root), three
+    # products and sums (and two more for <Q> and <U>)
+    "polmeas": _sum((1, 0, 1, 0), (5, 0, 0, 0), _SQRT, (6, 0, 0, 0)),
+    "polmeas_qu": (4, 0, 0, 0),
+    # emit per slot-iteration: the window test (2 compares, the logic), the
+    # alive update and plane select
+    "emit": (0, 2, 3, 0),
+    # per emitted photon: position, dr, dv and w (selects), a directed
+    # velocity 3; a sampled energy (a draw, uniform, the Planck inverse
+    # CDF: five bisection steps (compare, select), x (sub, divide), Horner
+    # 14, the clip 2, the scale); an isotropic direction (iso's pair, sines,
+    # norm, reciprocal root and scale); a polarized source's six rows; an
+    # emitted extras row
+    "emit_slot": (0, 0, 13, 0),
+    "emit_E": _sum(_DRAW, _U24, (0, 5, 5, 0), (1, 0, 0, 0), _DIV,
+                   (15, 2, 0, 0)),
+    "emit_dir": _sum(_DRAW, (2 + 3 + 2 + 20 + 7 + 4, 3 + 3, 0, 0), _RSQRT),
+    "emit_row": (0, 0, 1, 0),
+    # a voxel field, trilinear: 3 differences and 3 divides, 6 inside
+    # compares and the logic, 3 floors, 6 clamps, 3 conversions, 3 clips (2
+    # each) and 3 (1 - t), 8 corners (2 products, a product and a sum), the
+    # outside select; the index (2 multiplies, 2 adds) and 8 corner
+    # offsets (the 8 corner reads are lane-loads)
+    "voxel_tri": _sum((3, 0, 0, 0), (3, _DIV), (0, 6, 5, 0), (0, 0, 0, 3),
+                      (0, 6, 0, 3), (3, 6, 0, 0), (32, 0, 1, 0),
+                      (2, 0, 2, 0), (0, 0, 8, 0)),
+    # nearest: the differences and divides, 6 compares, 3 rounds, 6 clamps,
+    # 3 conversions, the select; the index
+    "voxel_near": _sum((3, 0, 0, 0), (3, _DIV), (0, 6, 5, 0), (0, 0, 0, 3),
+                       (0, 6, 0, 3), (2, 0, 3, 0)),
+    # layered: the radius (3 differences, 5, the root) or the axis's value;
+    # two range tests and the NaN test; per bisection level a compare, the
+    # midpoint and a select 2
+    "layered_r": _sum((8, 0, 0, 0), _SQRT, (0, 3, 1, 0)),
+    "layered_axis": (0, 3, 1, 0),
+    "layered_level": (0, 2, 2, 0),
+    # one postfix instruction of an expression field: its operation (a
+    # transcendental as the compiler expands libm's: 12 and a MUFU); the
+    # interpreter's fetch and dispatch are not the field's work
+    "ins": (1, 0, 0, 0),
+    "ins_transcendental": (12, 2, 1, 1),
 }
+# lane-loads per field read (gathers, at the SM's load/store issue rate)
+LOADS_PER_FIELD = {"voxel_tri": 8, "voxel_near": 1, "layered": 2}
 # planck_gen per sample: uniform 2, range test 2, half 2, x (sub + divide)
 # 9, Horner 14, clip 4; hash 16, slot term 5, loop 3, five bisection steps
 # of 5 and the table address 5
 OPS_PER_SAMPLE = (33, 16 + 5 + 3 + 25 + 5)
-# once per emitted photon, on top of "emit": a sampled energy (the inverse
-# CDF above, its hash and bisection, the scale test) and an isotropic
-# direction (iso's pair, sines, norm, sqrt, divide and scale; one hash)
-OPS_PER_EMITTED = {"E": (33 + 1, 16 + 25 + 5), "dir": (74, 16)}
 
 PLANCK_CAP = 1 << 24     # arena slots of the Planck source path
 PLANCK_N0 = 10_000_000   # initial photons
@@ -763,64 +851,68 @@ def bound(n_bytes, f32_ops, i32_ops, loads=0):
 
 
 def field_cost(fn):
-    """(per-iteration (float32, int32) counts, lane-loads) of one read of a
-    field callable, from its spec."""
+    """(per-read SEQ_OPS tuples, lane-loads) of one read of a field
+    callable, from its spec: the voxel arithmetic and its corner reads, the
+    layered bisection and its table reads, or an expression program's
+    operations (``prog_ops``)."""
     spec = fn.spec
     if spec["kind"] == "voxel":
         key = "voxel_tri" if spec["interp"] == "trilinear" else "voxel_near"
-        return [OPS_PER_ITER["field"], OPS_PER_ITER[key]], \
-            LOADS_PER_FIELD[key]
+        return [SEQ_OPS[key]], LOADS_PER_FIELD[key]
     if spec["kind"] == "layered":
         levels = int(np.ceil(np.log2(max(2, len(spec["values"])))))
-        per = [OPS_PER_ITER["field"],
-               OPS_PER_ITER["layered_r" if spec["axis"] == 3
-                            else "layered_axis"]]
-        per += [OPS_PER_ITER["layered_level"]] * levels
+        per = [SEQ_OPS["layered_r" if spec["axis"] == 3 else "layered_axis"]]
+        per += [SEQ_OPS["layered_level"]] * levels
         return per, LOADS_PER_FIELD["layered"] + levels
-    per = [OPS_PER_ITER["field"]]
-    for code, _ in spec["prog"]:
-        per.append(OPS_PER_ITER["ins_transcendental" if code in (7, 13, 14,
-                                                                 15, 16, 17,
-                                                                 18)
-                                else "ins"])
-    return per, 0
+    return [prog_ops(spec)], 0
 
 
 def user_cost(op):
-    """(float32, int32) lane-operations per slot-iteration of the work a
-    recorded user program asks for (kernel 1i): each operation the user's
-    callable wrote (a correctly rounded divide, root or reciprocal 8, a
-    transcendental 20, an integer power its products), a draw's hash and
-    scale, an alive clear, a record sum ("esum"), the t and dt loads and a
-    reduce's count; loads, constants and stores are register moves, and
-    the interpreter's fetch and dispatch are not the user's work."""
+    """The SEQ_OPS tuple per slot-iteration of the work a recorded user
+    program asks for (kernel 1i): each operation the user's callable wrote
+    (a correctly rounded divide, root or reciprocal as _DIV or _SQRT, a
+    transcendental as "ins_transcendental", an integer power its
+    products, a compare on the ALU pipe, a select issue only), a draw and
+    its uniform, an alive clear, a record sum (its select and add) and a
+    reduce's count; loads, constants and stores are register moves, and t
+    and dt are the schedule's."""
     from physicl_tpu_torch.ops import record as RC
 
-    f32, i32 = 0, 2
+    terms = []
     for code, _, _, _, y, _ in op.prog.ins:
         if code in (RC.U_LD, RC.U_T, RC.U_DT, RC.U_CONST, RC.U_ST):
             continue
         if code == RC.U_UNIF:
-            f32, i32 = f32 + 2, i32 + 16
-        elif code in (RC.U_SQRT, RC.U_DIV, RC.U_RECIP):
-            f32 += 8
+            terms += [_DRAW, _U24]
+        elif code in (RC.U_DIV, RC.U_RECIP):
+            terms.append(_DIV)
+        elif code == RC.U_SQRT:
+            terms.append(_SQRT)
         elif code in (RC.U_EXP, RC.U_LOG, RC.U_LOG10, RC.U_SIN, RC.U_COS,
                       RC.U_TAN, RC.U_POW):
-            f32 += 20
+            terms.append(SEQ_OPS["ins_transcendental"])
         elif code == RC.U_IPOW:
             e = abs(int(y))
-            f32 += max(e.bit_length() + bin(e).count("1") - 2, 0) \
-                + (8 if y < 0 else 0)
+            terms.append((max(e.bit_length() + bin(e).count("1") - 2, 0),
+                          0, 0, 0))
+            if y < 0:
+                terms.append(_DIV)
         elif code == RC.U_ALIVE:
-            f32, i32 = f32 + 1, i32 + 1
+            terms.append((0, 1, 2, 0))
         elif code == RC.U_ACC:
-            f32, i32 = f32 + OPS_PER_ITER["esum"][0], \
-                i32 + OPS_PER_ITER["esum"][1]
+            terms.append((1, 0, 1, 0))
+        elif code == RC.U_SEL:
+            terms.append((0, 1, 1, 0))
+        elif code in (RC.U_LT, RC.U_LE, RC.U_GT, RC.U_GE, RC.U_EQ, RC.U_NE,
+                      RC.U_MIN, RC.U_MAX, RC.U_NOT, RC.U_BOOL, RC.U_AND,
+                      RC.U_OR, RC.U_XOR, RC.U_FLOOR, RC.U_CEIL,
+                      RC.U_TRUNC):
+            terms.append((0, 1, 1, 0))
         else:
-            f32 += 1
+            terms.append((1, 0, 0, 0))
     if op.kind == "reduce" and op.cols[0] >= 0:
-        i32 += OPS_PER_ITER["col0"][1]
-    return f32, i32
+        terms.append(SEQ_OPS["count"])
+    return _sum(*terms) if terms else (0, 0, 0, 0)
 
 
 def main_form(plan):
@@ -830,15 +922,15 @@ def main_form(plan):
     return dataclasses.replace(plan, specialize=True, chunk=1).kernel_seq
 
 
-def seq_terms(plan, slots, k_act):
-    """bound_terms() of a main-form plan from SEQ_OPS, and the time to
-    issue its operations at one instruction each (``issue``) and the MUFU
-    pipe's time (16 lanes per SM and clock)."""
-    per = [sum(SEQ_OPS[k][j] for k in main_form(plan)) * slots * k_act
-           for j in range(4)]
-    terms = bound_terms(2 * 60 * slots, per[0], per[1])
-    terms["issue"] = sum(per) / 32 / PEAK_ISSUE * 1e3
-    terms["mufu"] = per[3] / (PEAK_F32 / 8) * 1e3
+def seq_terms(plan, slots, k_act, starts=None, events=None):
+    """bound_terms() of one launch of ``plan`` from SEQ_OPS, and the time
+    to issue its operations at one instruction each (``issue``) and the
+    MUFU pipe's time (16 lanes per SM and clock)."""
+    n_bytes, fma, alu, loads, issue, mufu = transport_work(
+        plan, slots, k_act, starts, events)
+    terms = bound_terms(n_bytes, fma, alu, loads)
+    terms["issue"] = (fma + alu + issue + mufu) / 32 / PEAK_ISSUE * 1e3
+    terms["mufu"] = mufu / (PEAK_F32 / 8) * 1e3
     return terms
 
 
@@ -883,152 +975,177 @@ def expected_events(plan, packed, alive_steps, dt, cross_p=0.0):
 
 
 def transport_counts(plan, slots, k_act, starts, events=None):
-    """(bytes, float32 ops, int32 ops, lane-loads) of one fused_transport
-    launch of ``plan``: 2 x 60 B per slot, 4 B per extras plane per slot
-    read (and per emitted slot written), each voxel grid read once and the
-    stream buffer written once; the lane-operations of its ops over slots x
-    k_act slot-iterations plus the once-per-photon work of the emissions
+    """(bytes, FMA-pipe ops, ALU-pipe ops, lane-loads) of one
+    fused_transport launch of ``plan`` (``transport_work``)."""
+    return transport_work(plan, slots, k_act, starts, events)[:4]
+
+
+def transport_work(plan, slots, k_act, starts, events=None):
+    """(bytes, FMA-pipe ops, ALU-pipe ops, lane-loads, issue-only ops, MUFU
+    ops) of one fused_transport launch of ``plan``: 2 x 60 B per slot, 4 B
+    per extras plane per slot read (and per emitted slot written, and for
+    the written-back planes), each voxel grid read once and the stream
+    buffer written once; SEQ_OPS of its ops over slots x k_act
+    slot-iterations plus the once-per-photon work of the emissions
     ``starts`` schedules and of the sampled trace iterations, and the work
     per collision, crossing or re-emission for the ``events``
     (``expected_events``) of the rotation family; the fields' gathers, the
     phase tables' reads and the stream stores as lane-loads at the
-    load/store issue rate."""
-    if main_form(plan) is not None:
-        fma, alu = (sum(SEQ_OPS[k][j] for k in main_form(plan)) * slots
-                    * k_act for j in (0, 1))
-        return 2 * 60 * slots, fma, alu, 0
-    per, once = [OPS_PER_ITER["loop"], OPS_PER_ITER["col0"]], []
+    load/store issue rate. A field that an op shares with the op before it
+    (no op between moves the particle: ``ops/codegen.py``) is read once."""
+    form = main_form(plan)
+    if form is not None:
+        per = [SEQ_OPS[k] for k in form]
+        tot = _sum(*per)
+        return (2 * 60 * slots, *(t * slots * k_act for t in tot[:2]), 0,
+                *(t * slots * k_act for t in tot[2:]))
+    per, once = [SEQ_OPS["count"]], []
     events = events or {}
-    if plan.n_stream:
-        per.append(OPS_PER_ITER["stream_row"])
     loads, grids = 0, {}
     stream_elems = plan.n_stream_rows * plan.n_stream * slots
     sampled = -(-k_act // plan.stream_every)  # trace rows with data
     event_loads = 0.0  # the phase tables' reads, per collision
     n_emitted = 0
+    mixed = "otype" in plan.extras
+    shared = field_shares(plan)
     for i, op in enumerate(plan.ops):
         n_ev = events.get(i, 0.0)
-        for fn in (op.n_fn, op.a_fn):
-            if fn is not None:
-                cost, ld = field_cost(fn)
-                per += cost
-                loads += ld
-                if fn.spec["kind"] == "voxel":
-                    grids[id(fn.spec)] = 4 * fn.spec["flat"].size
+        for fn, is_n in ((op.a_fn, False), (op.n_fn, True)):
+            if fn is None:
+                continue
+            per.append(SEQ_OPS["field"])
+            if is_n and shared[i]:
+                continue
+            cost, ld = field_cost(fn)
+            per += cost
+            loads += ld
+            if fn.spec["kind"] == "voxel":
+                grids[id(fn.spec)] = 4 * fn.spec["flat"].size
+        if plan.const_norm_speed is None and op.kind in (
+                "iso", "del", "hg", "rayl", "phase", "compton", "fresnel",
+                "pol", "polc"):
+            per.append(SEQ_OPS["norm"])
+        if mixed and op.kind in ("del", "iso", "hg", "rayl", "phase",
+                                 "compton", "fresnel", "lorentz", "pol",
+                                 "polc"):
+            per.append(SEQ_OPS["gate"])
         if op.kind == "iso":
-            per.append(OPS_PER_ITER["iso" if op.wl_base is None
-                                    else "iso_wl"])
+            per.append(SEQ_OPS["iso"])
+            if op.wl_base is not None:
+                per.append(SEQ_OPS["wl"])
         elif op.kind == "del":
-            per.append(OPS_PER_ITER["del"])
-            if op.stretch:
-                per.append(OPS_PER_ITER["stretch"])
-            if op.fluor:
-                per.append(OPS_PER_ITER["fluor"])
-                once.append((OPS_PER_ITER["fluor_emit"], n_ev))
             if op.implicit_capture:
-                per.append(OPS_PER_ITER["capture"])
+                per.append(SEQ_OPS["capture"])
                 if op.roulette:
-                    per.append(OPS_PER_ITER["roulette"])
+                    per.append(SEQ_OPS["roulette"])
+            else:
+                per.append(SEQ_OPS["del"])
+            if op.stretch:
+                per.append(SEQ_OPS["stretch"])
+            if op.fluor:
+                per.append(SEQ_OPS["fluor"])
+                once.append((SEQ_OPS["fluor_emit"], n_ev))
             if op.cols:
-                per.append(OPS_PER_ITER["dep"])
+                per.append(SEQ_OPS["dep"])
         elif op.kind == "sign":
-            per.append(OPS_PER_ITER["sign_w" if op.weighted else "sign"])
+            per.append(SEQ_OPS["sign_w" if op.weighted else "sign"])
+            if op.weighted and op.cols[0] >= 0:
+                per.append(SEQ_OPS["count"])
         elif op.kind == "emit":
-            per.append(OPS_PER_ITER["emit"])
+            per.append(SEQ_OPS["emit"])
             row = starts[op.emit_row, :k_act]
             n = int((row > -(2 ** 30)).sum()) * op.emit_n
             n_emitted += n
+            once.append((SEQ_OPS["emit_slot"], n))
             if op.emit_table is not None:
-                once.append((OPS_PER_EMITTED["E"], n))
+                once.append((SEQ_OPS["emit_E"], n))
             if op.emit_v is None:
-                once.append((OPS_PER_EMITTED["dir"], n))
-            if op.emit_stokes:
-                once.append((OPS_PER_ITER["emit_pol"], n))
+                once.append((SEQ_OPS["emit_dir"], n))
+            n_rows = len(plan.extras) + (6 if op.emit_stokes else 0)
+            once.append((_sum((n_rows, SEQ_OPS["emit_row"])), n))
         elif op.kind == "cross":
             if op.cols[0] >= 0:
-                per.append(OPS_PER_ITER["col0"])
+                per.append(SEQ_OPS["count"])
             for axis in op.axes:
-                per.append(OPS_PER_ITER["plane_w" if op.weighted
-                                        else "plane"])
+                per.append(SEQ_OPS["plane"])
+                per.append(SEQ_OPS["esum" if op.weighted else "count"])
                 if axis[3] >= 0:
-                    per.append(OPS_PER_ITER["esum"])
+                    per.append(SEQ_OPS["esum"])
                 if len(axis) > 4 and axis[4] >= 0:
-                    per.append(OPS_PER_ITER["ecap"])
+                    once.append((SEQ_OPS["stream_put"], slots * sampled))
         elif op.kind == "scross":
-            per.append(OPS_PER_ITER["scross"])
+            per.append(SEQ_OPS["scross"])
             if op.cols[0] >= 0:
-                per.append(OPS_PER_ITER["col0"])
-            if op.weighted:
-                per.append(OPS_PER_ITER["esum"])
+                per.append(SEQ_OPS["count"])
+            per.append(SEQ_OPS["esum" if op.weighted else "count"])
         elif op.kind == "trace":
-            once.append((OPS_PER_ITER["trace"], slots * sampled))
+            once.append((_sum((3, SEQ_OPS["stream_put"])), slots * sampled))
             if op.stream_scat:
-                once.append((OPS_PER_ITER["trace_dv"], slots * sampled))
+                once.append((SEQ_OPS["trace_dv"], slots * sampled))
         elif op.kind in ("hg", "rayl", "phase"):
-            per.append(OPS_PER_ITER["rot"])
+            per.append(SEQ_OPS["rot"])
             if op.wl_base is not None:
-                per.append((4, 1))
-            once.append((OPS_PER_ITER["rotate"], n_ev))
+                per.append(SEQ_OPS["wl"])
+            once += [(SEQ_OPS["rot_pair"], n_ev), (SEQ_OPS["rotate"], n_ev)]
             if op.kind == "phase" and op.phase_fn is not None:
-                # a recorded inverse CDF: its program and the clip (2)
-                once.append(((prog_ops(op.phase_fn.spec) + 2, 0), n_ev))
+                # a recorded inverse CDF: its program and the clip
+                once.append((_sum(prog_ops(op.phase_fn.spec), (0, 2, 0, 0)),
+                             n_ev))
             else:
-                once.append((OPS_PER_ITER[f"{op.kind}_cos"], n_ev))
+                once.append((SEQ_OPS[f"{op.kind}_cos"], n_ev))
                 if op.kind == "phase":
                     event_loads += 2 * n_ev
         elif op.kind == "compton":
             thermal = op.theta_e > 0
-            per.append(OPS_PER_ITER["thermal" if thermal else "compton"])
+            per.append(SEQ_OPS["thermal" if thermal else "compton"])
             if op.kn_xsec:
-                per.append(OPS_PER_ITER["kn_xsec"])
-            once += [(OPS_PER_ITER["kn_try"], n_ev),
-                     (OPS_PER_ITER["thermal_scatter" if thermal
-                                   else "rotate"], n_ev)]
-            if not thermal:
-                once.append((OPS_PER_ITER["recoil"], n_ev))
+                per.append(SEQ_OPS["kn_xsec"])
+            once.append((SEQ_OPS["kn_try"], n_ev))
+            if thermal:
+                once.append((SEQ_OPS["thermal_scatter"], n_ev))
+            else:
+                once += [(SEQ_OPS["rotate"], n_ev),
+                         (SEQ_OPS["recoil"], n_ev)]
         elif op.kind == "fresnel":
-            per.append(OPS_PER_ITER["fresnel"])
-            once.append((OPS_PER_ITER["fresnel_cross"], n_ev))
+            per.append(SEQ_OPS["fresnel"])
+            once.append((SEQ_OPS["fresnel_cross"], n_ev))
         elif op.kind == "pol":
-            per.append(OPS_PER_ITER["pol"])
+            per += [SEQ_OPS["pol"], SEQ_OPS["pol_frame"]]
             if op.wl_base is not None:
-                per.append((4, 1))
-            once += [(OPS_PER_ITER["pol_turn_17"], n_ev),
-                     (OPS_PER_ITER["rayl_cos"], n_ev), ((0, 16 + 4), n_ev)]
+                per.append(SEQ_OPS["wl"])
+            once += [(SEQ_OPS["rot_pair"], n_ev),
+                     (SEQ_OPS["rayl_cos"], n_ev),
+                     (SEQ_OPS["pol_turn_17"], n_ev)]
         elif op.kind == "polc":
-            per.append(OPS_PER_ITER["polc"])
+            per += [SEQ_OPS["polc"], SEQ_OPS["pol_frame"]]
             if op.kn_xsec:
-                per.append(OPS_PER_ITER["kn_xsec"])
-            once += [(OPS_PER_ITER["kn_try"], n_ev),
-                     (OPS_PER_ITER["pol_turn_26"], n_ev),
-                     (OPS_PER_ITER["polc_kappa"], n_ev),
-                     (OPS_PER_ITER["recoil"], n_ev)]
+                per.append(SEQ_OPS["kn_xsec"])
+            once += [(SEQ_OPS["kn_try"], n_ev),
+                     (SEQ_OPS["pol_turn_26"], n_ev),
+                     (SEQ_OPS["polc_kappa"], n_ev)]
         elif op.kind == "polmeas":
-            per.append(OPS_PER_ITER["polmeas"])
+            per.append(SEQ_OPS["polmeas"])
             if op.cols[0] >= 0:
-                per.append(OPS_PER_ITER["col0"])
+                per.append(SEQ_OPS["count"])
             if op.local_qu:
-                per.append(OPS_PER_ITER["polmeas_qu"])
+                per.append(SEQ_OPS["polmeas_qu"])
         elif op.kind in ("custom", "reduce", "kstate"):
             per.append(user_cost(op))
         elif op.kind == "lorentz":
-            per.append(OPS_PER_ITER["lorentz"])
+            per.append(SEQ_OPS["lorentz"])
             if op.e_const or op.e_fns:
-                per.append(OPS_PER_ITER["lorentz_E"])
+                per.append(SEQ_OPS["lorentz_E"])
             if op.b_const or op.b_fns:
-                per.append(OPS_PER_ITER["lorentz_B"])
+                per.append(SEQ_OPS["lorentz_B"])
             # recorded fields: each component's program at every push
-            per += [(prog_ops(fn.spec), 0) for fn in op.e_fns + op.b_fns]
+            per += [prog_ops(fn.spec) for fn in op.e_fns + op.b_fns]
             if op.qm_plane >= 0:
-                per.append(OPS_PER_ITER["lorentz_qm"])
+                per.append(SEQ_OPS["lorentz_qm"])
         else:
-            per.append(OPS_PER_ITER[op.kind])
-        if "otype" in plan.extras and op.kind in (
-                "del", "iso", "hg", "rayl", "phase", "compton", "fresnel",
-                "lorentz", "pol", "polc"):
-            per.append(OPS_PER_ITER["gate"])
-    ops = [sum(p[j] for p in per) * slots * k_act
-           + sum(o[j] * n for o, n in once) for j in (0, 1)]
+            per.append(SEQ_OPS[op.kind])
+    tot = _sum(*per)
+    ops = [tot[j] * slots * k_act + sum(o[j] * n for o, n in once)
+           for j in range(4)]
     elem = 2 if plan.stream_dtype == "bfloat16" else 4
     # the extras planes: read once, written for the emitted slots, and the
     # written-back planes for every slot
@@ -1036,8 +1153,20 @@ def transport_counts(plan, slots, k_act, starts, events=None):
                if name.split(":")[0] in plan.extras_writeback)
     extras = 4 * (len(plan.extras) * (slots + n_emitted) + n_wb * slots)
     return (2 * 60 * slots + extras + sum(grids.values())
-            + elem * stream_elems,
-            *ops, loads * slots * k_act + event_loads + stream_elems)
+            + elem * stream_elems, ops[0], ops[1],
+            loads * slots * k_act + event_loads + stream_elems, ops[2],
+            ops[3])
+
+
+def field_shares(plan):
+    """Per op, whether its n(r) read is shared with an earlier op's
+    (``ops/codegen.py:plan_form``'s ``nf_shared``)."""
+    from physicl_tpu_torch.ops import codegen
+
+    if main_form(plan) is not None:
+        return [False] * len(plan.ops)
+    i = codegen.OP_FORM.index("nf_shared")
+    return [bool(op[i]) for op in codegen.plan_form(plan)["ops"]]
 
 
 def random_packed(C, seed):
@@ -1131,39 +1260,6 @@ def main():
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
 
-    phase("build")
-    t0 = time.perf_counter()
-    # the user plans are planned on the CPU while the main libraries
-    # build; their libraries then build while the phases before 29 run
-    main_build = threading.Thread(target=_build.load)
-    main_build.start()
-    sources = user_plan_sources(phys)
-    t_plan = time.perf_counter() - t0
-    main_build.join()
-    _build.load()  # raises here if the build failed
-    _build.start_plan_builds(sources)
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, all sources at "
-          f"once: {_build.build_seconds or 0:.2f} s; {len(sources)} user "
-          f"plans planned on the CPU meanwhile in {t_plan:.2f} s, their "
-          "libraries started now, one nvcc each)")
-    for line in _build.build_log.splitlines():
-        if line.startswith("[") or "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
-    # every instantiation's registers and spills (variant bits: fields 1,
-    # geometry and streams 2, rotation family 4, extras 8, polarization 16,
-    # both only with extras); kernel 1i's user bit 32 is in no variant of
-    # the main library: each user plan has its own (phase 29)
-    for v in range(66):
-        if (v < 16 or v & 8 or v >= 64) and not v & 32:
-            print(f"  fused_transport variant {v}: {kernel_regs(v)}")
-    refused = [v for v in range(32, 64)
-               if _build.load()["fused_transport"].fused_transport_grid(
-                   1024, 1, 1, 0, v, ctypes.byref(ctypes.c_int(0))) != 0]
-    check(len(refused) == 32, "the main library holds a user variant: "
-          f"{sorted(set(range(32, 64)) - set(refused))}")
-    print("main library: every variant with the user bit refused (kernel 1i "
-          "runs each plan's generated library)", flush=True)
-
     seed = 123_456_789
     # largest plane difference from the twin, per path
     err = {"main": 0.0, "planck": 0.0, "planck_gen": 0.0, "media": 0.0,
@@ -1207,9 +1303,13 @@ def main():
         ok, e = close_planes(out, ref)
         err[path] = max(err[path], e)
         check(ok, f"{name}: planes out of tolerance (max abs err {e})")
-        check(close_rec_f(rec_f, ref_f), f"{name}: float records out of "
-              f"tolerance (kernel {rec_f[:2, :4].tolist()} twin "
-              f"{ref_f[:2, :4].tolist()})")
+        if not close_rec_f(rec_f, ref_f):
+            over = ((rec_f - ref_f).abs() - RTOL_F * ref_f.abs()
+                    - RTOL * ref_f.abs().amax(dim=0, keepdim=True))
+            k, c = divmod(int(over.argmax()), over.shape[1])
+            check(False, f"{name}: float records out of tolerance (row {k} "
+                  f"column {c}: kernel {float(rec_f[k, c])!r} twin "
+                  f"{float(ref_f[k, c])!r})")
         bitwise = torch.equal(out, ref)
         check(bitwise or not need_bitwise, f"{name}: planes not bitwise "
               "equal to the twin's")
@@ -1238,6 +1338,15 @@ def main():
                for k in kinds]
         return F.FusedPlan(ops=ops, n_rec_cols=5, chunk=chunk,
                            const_norm_speed=C_LIGHT)
+
+    def unit_field_plan(chunk):
+        """[kin, iso, sign] with a constant n(r) = 1 field (the results of
+        the field-free plan, through a form with a field)."""
+        return F.FusedPlan(ops=[
+            F._Op("kin"), F._Op("iso", coef=1e-6, c_val=C_LIGHT,
+                                n_fn=light._compile_variable_n("1.0")),
+            F._Op("sign", cols=(1, 2))], n_rec_cols=5, chunk=chunk,
+            const_norm_speed=C_LIGHT)
 
     def emit_plans(chunk):
         L = 3e6
@@ -1271,6 +1380,67 @@ def main():
         sched[0] = 0.001
         return sched
 
+    phase("build")
+    t0 = time.perf_counter()
+    # every form this script runs is planned on the CPU while the main
+    # libraries build (the op-sequence kernels, planck_gen); one form's
+    # library then builds alone, and the others after it, one nvcc a core,
+    # while the first phases run (a form this list misses builds at its
+    # first launch)
+    main_build = threading.Thread(target=_build.load)
+    main_build.start()
+    L_any = 3e6
+    explicit = [(name, plan) for name, plan in media_plans(
+        F, light, 256, 4 * C_LIGHT * MEDIA_DT, 64).items()]
+    explicit += list(geometry_plans(F, 256, L_any).items())
+    explicit += list(scatter_plans(F, light, 256, L_any).items())
+    explicit += [(n, p) for n, (p, _) in lorentz_plans(F, 256).items()]
+    explicit += [(n, p) for n, (p, _) in pol_plans(F, light, 256).items()]
+    explicit += list(emit_plans(256).items())
+    explicit += list(gate_plans(F, light).items())
+    explicit += [("kin-del-iso-sign", plan_of(("kin", "del", "iso", "sign"),
+                                              256)),
+                 ("kin-iso-sign-form", dataclasses.replace(
+                     plan_of(("kin", "iso", "sign"), 256), specialize=False)),
+                 ("kin-iso(n=1)-sign", unit_field_plan(256))]
+    sources = form_sources(phys, sampler, explicit)
+    t_plan = time.perf_counter() - t0
+    main_build.join()
+    _build.load()  # raises here if the build failed
+    t_main = time.perf_counter() - t0
+    # the media path's form alone; then the rest, the longest sources (the
+    # longest builds) first
+    first = next(((k, v) for k, v in sources.items()
+                  if k.startswith("media [")), next(iter(sources.items())))
+    rest = sorted(((k, v) for k, v in sources.items() if k != first[0]),
+                  key=lambda kv: -len(kv[1]))
+    _build.load_plan(first[1], first[0])
+    alone = _build.plan_builds[_build.plan_key(first[1])]["seconds"]
+    _build.start_plan_builds(dict(rest))
+    build_info = {"main_s": _build.build_seconds or 0.0, "forms": len(sources),
+                  "form_alone_s": alone, "plan_s": t_plan,
+                  "sources": {_build.plan_key(src): label
+                              for label, src in sources.items()}}
+    print(f"build: {t_main:.2f} s to the main libraries (nvcc, all sources "
+          f"at once: {build_info['main_s']:.2f} s); {len(sources)} plan "
+          f"forms planned on the CPU meanwhile in {t_plan:.2f} s; one form "
+          f"({first[0]}) built alone in {alone:.2f} s, the other "
+          f"{len(rest)} started now, at most {os.cpu_count()} nvcc at once")
+    for line in _build.build_log.splitlines():
+        if line.startswith("[") or "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+    for v in (64, 65):
+        print(f"  fused_transport variant {v}: {kernel_regs(v)}")
+    # the main library runs the op-sequence kernels alone: its grid query
+    # refuses every other variant, the form variant (-1) included
+    refused = [v for v in (F.FORM_VARIANT, 0, 1, 31, 40, 63, 66)
+               if _build.load()["fused_transport"].fused_transport_grid(
+                   1024, 1, 5, 0, v, ctypes.byref(ctypes.c_int(0))) != 0]
+    check(len(refused) == 7, "the main library runs a variant other than "
+          f"64 and 65: {refused}")
+    print("main library: every variant but 64 and 65 refused (every other "
+          "plan runs its form's library)", flush=True)
+
     times = {}
     phase("fused_transport vs twin (2**20 slots, 256 iterations)")
     C, K = 1 << 20, 256
@@ -1300,8 +1470,9 @@ def main():
           "1024 iterations)")
     N, chunk = 10_000_000, 1024
     main_plan = plan_of(("kin", "iso", "sign"), chunk)
-    generic_plan = dataclasses.replace(main_plan, specialize=False)
-    check(main_plan.kernel_variant == 64 and generic_plan.kernel_variant == 0,
+    form_plan = dataclasses.replace(main_plan, specialize=False)
+    check(F.kernel_variant(main_plan) == 64
+          and F.kernel_variant(form_plan) == F.FORM_VARIANT,
           "the main plan does not select the op-sequence instantiation")
     near1 = F.rsqrt_near1_check(dev)
     check(near1["mismatches"] == 0 and near1["out_of_range"] == 0,
@@ -1316,16 +1487,16 @@ def main():
     # out of place, as the engine launches it
     outs = [torch.empty_like(pk) for _ in range(2)]
     recs = [F.fused_transport(pk, o, sched_m, seed, chunk, p)[0]
-            for o, p in zip(outs, (main_plan, generic_plan))]
+            for o, p in zip(outs, (main_plan, form_plan))]
     torch.cuda.synchronize()
     check(torch.equal(*outs) and torch.equal(*recs), "the op-sequence "
-          "instantiation differs from the generic variant 0")
-    print("kin-iso-sign: variant 64 (op sequence) bitwise equal to variant 0 "
-          "(generic) in planes and int records", flush=True)
+          "instantiation differs from the plan's form library")
+    print("kin-iso-sign: variant 64 (op sequence) bitwise equal to its form "
+          "library in planes and int records", flush=True)
     slots = pk.shape[1]
-    turns = {64: [], 0: []}
-    for p in (main_plan, generic_plan, generic_plan, main_plan):
-        turns[p.kernel_variant].append(cuda_ms(
+    turns = {64: [], F.FORM_VARIANT: []}
+    for p in (main_plan, form_plan, form_plan, main_plan):
+        turns[F.kernel_variant(p)].append(cuda_ms(
             lambda: F.fused_transport(pk, outs[0], sched_m, seed, chunk, p),
             3, torch))
     ft["ms"] = float(np.mean(turns[64]))
@@ -1337,17 +1508,18 @@ def main():
           f"{[sum(SEQ_OPS[k][j] for k in main_form(main_plan)) for j in range(4)]}"
           "): " + ", ".join(f"{k} {v:.3f} ms" for k, v in terms.items())
           + " (issue and mufu are not in the bound)", flush=True)
-    loops = main_loops()
+    loops = main_loops(F, form_plan)
     warp_iters = slots // 32 * chunk
-    for v in (64, 0):
+    for v in (64, F.FORM_VARIANT):
         lp = loops[v]
         issue = lp["per_iteration"] * warp_iters / PEAK_ISSUE * 1e3
-        print(f"variant {v} ({kernel_regs(v)}): iteration loop "
+        regs = kernel_regs(v) if v == 64 else form_regs(form_plan)
+        print(f"{'variant 64' if v == 64 else 'its form library'} ({regs}): "
+              f"iteration loop "
               f"{lp['loop'][0]}-{lp['loop'][1]}, {lp['static']} instructions "
               f"for {lp['iterations']} iteration(s), "
               f"{lp['per_iteration']:.1f} per iteration on the fast path "
-              + ("(every switch case: an upper bound on the executed path) "
-                 if v == 0 else f"(+ {lp['window']} in the window loop) ")
+              + ("" if v != 64 else f"(+ {lp['window']} in the window loop) ")
               + f"{lp['classes']}; kernel {turns[v][0]:.3f}, "
               f"{turns[v][1]:.3f} ms, bound {ft['bound_ms']:.2f} ms "
               f"({ft['bound_by']}), issue time {issue:.2f} ms [{card}]",
@@ -1355,6 +1527,8 @@ def main():
     issue_ms = loops[64]["per_iteration"] * warp_iters / PEAK_ISSUE * 1e3
     ft["instantiation"] = ("fused_seq_kernel<OpSeq<kin, iso, sign>> "
                            "(variant 64)")
+    seq_info = form_info(F, main_plan, slots, chunk)
+    ft.update(seq_info)
     # the engine can at best keep this kernel busy back to back: its rate
     # in photons (not padded slots) bounds the main path's rate
     kernel_rate = N * chunk / ft["ms"] * 1e3
@@ -1368,7 +1542,7 @@ def main():
     phase("fused_transport vs twin on the Planck source path's first chunk")
     packed, sched_p, seed_p, k_p, plan_p, starts_p = planck_chunk_inputs(
         phys, F, sampler, dev)
-    tile = k_p * (plan_p.n_rec_cols + plan_p.n_frec_cols * 8) * 4
+    tile = k_p * plan_p.n_rec_cols * 4
     grids = {}
     for kk in (K, k_p):
         grids[kk] = F.kernel_grid(plan_p, packed.shape[1], kk)
@@ -1377,13 +1551,18 @@ def main():
           f"{[op.kind for op in plan_p.ops]}, iso lambda**-4 "
           f"{[op.wl_base is not None for op in plan_p.ops if op.kind == 'iso']}"
           f", {plan_p.n_rec_cols} int + {plan_p.n_frec_cols} float record "
-          f"columns = {tile} B of record tiles per block; {n_starts} of {k_p} "
+          f"columns: {tile} B of count tile per block (the float sums in "
+          f"global partials); {n_starts} of {k_p} "
           f"iterations emit; grid {grids[k_p]} blocks (at {K} iterations: "
           f"{grids[K]})", flush=True)
-    check(tile > 48 * 1024 and n_starts < k_p and plan_p.n_frec_cols
+    check(n_starts < k_p and plan_p.n_frec_cols
           and any(op.wl_base is not None for op in plan_p.ops),
-          "the Planck chunk no longer covers the large-tile launch, the "
-          "capacity stop, rec_f and lambda**-4 scattering")
+          "the Planck chunk no longer covers the capacity stop, rec_f and "
+          "lambda**-4 scattering")
+    info = form_info(F, plan_p, packed.shape[1], k_p)
+    loop = form_loop(F, plan_p)
+    print(f"planck-chunk-0: {form_report(plan_p, info, loop)} [{card}]",
+          flush=True)
     pft = {"plain_ms": compare("planck-chunk-0", packed, sched_p, k_p,
                                plan_p, starts_p, "planck", seed_p)}
     out = torch.empty_like(packed)
@@ -1392,9 +1571,14 @@ def main():
         3, torch)
     pft["bound_ms"], pft["bound_by"] = transport_bound(
         plan_p, packed.shape[1], k_p, starts_p)
+    pft.update(info)
+    pft["sass_per_iteration"] = loop["per_iteration"]
+    terms = seq_terms(plan_p, packed.shape[1], k_p, starts_p)
     print(f"planck-chunk-0: kernel {pft['ms']:.2f} ms, twin "
           f"{pft['plain_ms']:.1f} ms, bound {pft['bound_ms']:.2f} ms "
-          f"({pft['bound_by']}) per chunk [{card}]", flush=True)
+          f"({pft['bound_by']}; ms per term: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in terms.items())
+          + f") per chunk [{card}]", flush=True)
     del packed, out, sched_p, starts_p
 
     phase("fused_transport vs twin on the media plans (2**20 slots, 256 "
@@ -1414,28 +1598,25 @@ def main():
     print("media-expr: planes bitwise equal to the twin on the card, so "
           "torch's CUDA exp and pow agree bitwise with the kernel's expf and "
           "powf on these inputs", flush=True)
-    # the launcher's choice of instantiation: [kin, iso, sign] as is, and
-    # with a constant n(r) = 1 field (same results, the field
-    # instantiation), timed in turns
-    bare = plan_of(("kin", "iso", "sign"), K)
-    unit = F.FusedPlan(ops=[
-        F._Op("kin"), F._Op("iso", coef=1e-6, c_val=C_LIGHT,
-                            n_fn=light._compile_variable_n("1.0")),
-        F._Op("sign", cols=(1, 2))], n_rec_cols=5, chunk=K,
-        const_norm_speed=C_LIGHT)
+    # [kin, iso, sign]'s form library (not the op-sequence kernel), and
+    # the form with a constant n(r) = 1 field (same results, a field read
+    # per iteration), timed in turns
+    bare = dataclasses.replace(plan_of(("kin", "iso", "sign"), K),
+                               specialize=False)
+    unit = unit_field_plan(K)
     outs = [torch.empty_like(mpk) for _ in range(2)]
     recs = [F.fused_transport(mpk, o, sched, seed, K, p)[0]
             for o, p in zip(outs, (bare, unit))]
     torch.cuda.synchronize()
     check(torch.equal(recs[0], recs[1]) and torch.equal(*outs),
-          "the field instantiation changed a field-free result")
+          "the n(r) = 1 form changed a field-free result")
     turns = {"without": [], "with": []}
     for name, p in (("without", bare), ("with", unit), ("with", unit),
                     ("without", bare)):
         turns[name].append(cuda_ms(lambda: F.fused_transport(
             mpk, outs[0], sched, seed, K, p), 5, torch))
-    print(f"kin-iso-sign at 2**20 x 256 through its own instantiation "
-          f"(variant {bare.kernel_variant}, no fields): "
+    print(f"kin-iso-sign at 2**20 x 256 through its form library (no "
+          "fields): "
           f"{turns['without'][0]:.3f}, {turns['without'][1]:.3f} ms; "
           f"with an n(r) = 1 field: {turns['with'][0]:.3f}, "
           f"{turns['with'][1]:.3f} ms (equal results) [{card}]", flush=True)
@@ -1454,18 +1635,27 @@ def main():
     sim_m, *_ = media_sim(phys, grid_m, dev)
     packed, sched_m, seed_m, k_m, plan_m, _ = first_chunk_inputs(sim_m, F)
     del sim_m
-    tile_m = k_m * (plan_m.n_rec_cols + plan_m.n_frec_cols * 8) * 4
+    tile_m = k_m * plan_m.n_rec_cols * 4
     grid_blocks_m = F.kernel_grid(plan_m, packed.shape[1], k_m)
     print(f"media chunk 0: {packed.shape[1]} slots x {k_m} iterations, ops "
           f"{[op.kind for op in plan_m.ops]}, {plan_m.n_rec_cols} int + "
-          f"{plan_m.n_frec_cols} float record columns = {tile_m} B of record "
-          f"tiles per block; grid {grid_blocks_m} blocks "
+          f"{plan_m.n_frec_cols} float record columns: {tile_m} B of count "
+          f"tile per block; grid {grid_blocks_m} blocks "
           f"({grid_blocks_m / 132:.2f} per SM)", flush=True)
-    check(tile_m > 48 * 1024 and plan_m.has_fields
-          and [op.kind for op in plan_m.ops]
-          == ["kin", "iso", "del", "absorb", "cross"],
-          "the media chunk no longer covers the path's plan and the "
-          "large-tile launch")
+    shares = field_shares(plan_m)
+    check(plan_m.has_fields and [op.kind for op in plan_m.ops]
+          == ["kin", "iso", "del", "absorb", "cross"] and shares[2]
+          and not shares[1],
+          "the media chunk no longer covers the path's plan (del sharing "
+          "iso's read of the phantom)")
+    info = form_info(F, plan_m, packed.shape[1], k_m)
+    loop = form_loop(F, plan_m)
+    print(f"media-chunk-0: {form_report(plan_m, info, loop)} [{card}]",
+          flush=True)
+    # one trilinear read of the phantom an iteration (8 corner loads), not
+    # one for each of iso and del (16)
+    check(loop["ldg"] < 16, f"media form: {loop['ldg']} global loads in "
+          "the iteration loop")
     mft = {"plain_ms": compare("media-chunk-0", packed, sched_m, k_m, plan_m,
                                None, "media", seed_m, need_bitwise=True)}
     out = torch.empty_like(packed)
@@ -1473,8 +1663,9 @@ def main():
         packed, out, sched_m, seed_m, k_m, plan_m), 3, torch)
     mft["bound_ms"], mft["bound_by"] = transport_bound(
         plan_m, packed.shape[1], k_m, None)
-    terms = bound_terms(*transport_counts(plan_m, packed.shape[1], k_m,
-                                          None))
+    mft.update(info)
+    mft["sass_per_iteration"] = loop["per_iteration"]
+    terms = seq_terms(plan_m, packed.shape[1], k_m, None)
     print(f"media-chunk-0: kernel {mft['ms']:.2f} ms, twin "
           f"{mft['plain_ms']:.1f} ms, bound {mft['bound_ms']:.2f} ms "
           f"({mft['bound_by']}; ms per term: "
@@ -1559,7 +1750,7 @@ def main():
     spft = path_chunk0(
         "spectrum-chunk-0", spectrum_sim(phys, SPEC_N, dev)[0], F, torch,
         compare, "spectrum", card, ["kin", "compton", "reduce", "reduce"],
-        streams=False)
+        streams=False, twin_iters=TWIN_ITERS)
 
     phase("planck_gen vs twin (10**7 samples)")
     n_gen = 10_000_000
@@ -1773,19 +1964,29 @@ def main():
     # the main path with 2**20 photons injected mid-run: the first chunk at
     # the grown capacity (variant 64)
     new_paths.append({**ft_src, "path": "main-injected",
-                      "max_abs_err": err["main-injected"], **inj_ft,
-                      "library_ms": None})
+                      "max_abs_err": err["main-injected"], **seq_info,
+                      **inj_ft, "library_ms": None})
     # the main path over an 8-shard mesh on one card: ms is the chunk of
     # the 8 launches together, the bound the whole chunk's
     new_paths.append({**ft_src, "path": "main-mesh8",
-                      "max_abs_err": err["main-mesh"], **mesh_ft,
-                      "library_ms": None})
+                      "max_abs_err": err["main-mesh"], **seq_info,
+                      **mesh_ft, "library_ms": None})
     # the same over 2 processes sharing the card, 4 shards each: ms is the
     # mean chunk of a process's 4 launches on its own clock, launches both
     # processes' together
     new_paths.append({**ft_src, "path": "main-mp",
-                      "max_abs_err": err["main-mp"], **mp_ft,
+                      "max_abs_err": err["main-mp"], **seq_info, **mp_ft,
                       "library_ms": None})
+    # every form library this run built: alone, and one nvcc a core
+    together = [b["seconds"] for key, b in _build.plan_builds.items()
+                if key in build_info["sources"]][1:]
+    missed = sorted(b["label"] for key, b in _build.plan_builds.items()
+                    if key not in build_info["sources"])
+    print(f"form libraries: {len(_build.plan_builds)} built; one alone in "
+          f"{build_info['form_alone_s']:.2f} s, {len(together)} at up to "
+          f"{os.cpu_count()} at once in {np.mean(together or [0]):.2f} s each "
+          f"(max {max(together or [0]):.2f}); built at their first launch "
+          f"(not planned ahead): {missed}", flush=True)
     print(json.dumps({"kernels": new_paths + [
         {**ft_src, "path": "main", "launches": main_launches,
          "max_abs_err": err["main"], **ft, "library_ms": None},
@@ -1833,6 +2034,12 @@ def host_kahan(dt, n):
         t = t_new
         out[i] = t
     return out
+
+
+def is_transport(name):
+    """Whether a kernel name in a trace is fused_transport's: a form
+    library's kernel, or the main library's op-sequence kernel."""
+    return "fused_form_kernel" in name or "fused_seq_kernel" in name
 
 
 def device_idle(prof, torch):
@@ -1936,7 +2143,7 @@ def generic_paths(torch, phys, F, P, dev, card, main_data, main_rate):
     sim, _ = generic_main_sim(phys, GEN_N, GEN_PROF_ITERS, dev)
     _, prof, _ = run_sim(torch, sim, profile=True)
     busy, span, names = device_idle(prof, torch)
-    check(not any("fused_transport" in nm for nm in names),
+    check(not any(is_transport(nm) for nm in names),
           "a fused_transport kernel in the generic tier's trace")
     print(f"generic main path device idle share (profiled second run, "
           f"{GEN_PROF_ITERS} iterations, first to last device activity): "
@@ -2125,7 +2332,7 @@ def device_busy(prof, torch):
     acts = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
             for e in prof.profiler.kineto_results.events()
             if e.device_type() == torch.autograd.DeviceType.CUDA]
-    kern = [a for a in acts if "fused_transport_kernel" in a[2]]
+    kern = [a for a in acts if is_transport(a[2])]
     check(kern, f"no fused_transport kernel among the {len(acts)} device "
           "activities of the trace")
     lo, hi = min(a[0] for a in kern), max(a[1] for a in kern)
@@ -2700,16 +2907,15 @@ def path_chunk0(name, sim, F, torch, compare, path, card, kinds,
     print(f"{name}: {packed.shape[1]} slots x {k} iterations, ops "
           f"{[op.kind for op in plan.ops]}, {plan.n_rec_cols} int + "
           f"{plan.n_frec_cols} float record columns, const-norm "
-          f"{plan.const_norm_speed is not None}; variant "
-          f"{plan.kernel_variant} ({kernel_regs(plan.kernel_variant, plan)}"
-          "); grid "
+          f"{plan.const_norm_speed is not None}; form library "
+          f"({form_regs(plan)}); grid "
           f"{grid} blocks ({grid / 132:.2f} per SM); stream {plan.n_stream} planes "
           f"every {plan.stream_every} in {plan.stream_dtype}, "
           f"{plan.n_stream_rows} rows = {stream_bytes(plan, packed.shape[1])}"
           " B per chunk", flush=True)
-    if plan.has_user:
-        print(f"{name}: {user_report(F, plan, packed.shape[1], k)} [{card}]",
-              flush=True)
+    info = form_info(F, plan, packed.shape[1], k)
+    loop = form_loop(F, plan)
+    print(f"{name}: {form_report(plan, info, loop)} [{card}]", flush=True)
     kc = min(k, twin_iters or k)
     out = {"plain_ms": compare(name, packed, sched, kc, plan, None, path,
                                seed, need_bitwise=True)}
@@ -2723,8 +2929,9 @@ def path_chunk0(name, sim, F, torch, compare, path, card, kinds,
                                                   k, plan), 3, torch)
     out["bound_ms"], out["bound_by"] = transport_bound(
         plan, packed.shape[1], k, None, events)
-    terms = bound_terms(*transport_counts(plan, packed.shape[1], k, None,
-                                          events))
+    out.update(info)
+    out["sass_per_iteration"] = loop["per_iteration"]
+    terms = seq_terms(plan, packed.shape[1], k, None, events)
     print(f"{name}: kernel {out['ms']:.2f} ms, twin {out['plain_ms']:.1f} "
           f"ms, bound {out['bound_ms']:.2f} ms ({out['bound_by']}; ms per "
           "term: " + ", ".join(f"{t} {v:.2f}" for t, v in terms.items())
@@ -3078,7 +3285,7 @@ def rotation_plans(torch, F, light, dev, seed, compare, card, times):
     sched = torch.zeros((5, K), dtype=torch.float32, device=dev)
     sched[0] = 0.001
     for name, plan in scatter_plans(F, light, K, L).items():
-        check(plan.kernel_variant & 4, f"{name}: not the rotation variant")
+        check(plan.kernel_seq is None, f"{name}: not a form plan")
         plain_ms = compare(name, pk, sched, K, plan, None, "rot",
                            need_bitwise=True)
         out = torch.empty_like(pk)
@@ -3096,6 +3303,42 @@ def rotation_plans(torch, F, light, dev, seed, compare, card, times):
     del pk, out
 
 
+def once_plan(F, op):
+    """[kin, op] for one iteration (``scatter_once``, ``interface_pass``)."""
+    return F.FusedPlan(ops=[F._Op("kin"), op], n_rec_cols=1, chunk=1,
+                       const_norm_speed=C_LIGHT)
+
+
+def pol_once_plan(F, kind, inv_mec2):
+    """[kin, kind] with pcoll = 2 and the Stokes and frame rows
+    (``pol_scatter_once``)."""
+    op = F._Op(kind, coef=2.0 / (C_LIGHT * POL_DT), c_val=C_LIGHT,
+               inv_mec2=inv_mec2, kn_tries=12)
+    return F.FusedPlan(ops=[F._Op("kin"), op], n_rec_cols=1, chunk=1,
+                       const_norm_speed=C_LIGHT, extras=F.POL_ROWS,
+                       extras_writeback=("stokes", "pol_ref"))
+
+
+def gate_plans(F, light):
+    """The one-iteration plans of ``physics_gates`` and ``pol_law_phase``,
+    with their forms' flags (the numbers are placeholders)."""
+    mu, pdf, _ = light.mie_phase_table(5.0)
+    ops = [F._Op("hg", coef=1.0, c_val=C_LIGHT, g=0.9),
+           F._Op("rayl", coef=1.0, c_val=C_LIGHT),
+           F._Op("phase", coef=1.0, c_val=C_LIGHT,
+                 phase_knots=light.phase_knots(mu, pdf, 64)),
+           F._Op("compton", coef=1.0, c_val=C_LIGHT, inv_mec2=1.0,
+                 kn_tries=12),
+           F._Op("compton", coef=1.0, c_val=C_LIGHT, inv_mec2=1.0,
+                 kn_tries=12, theta_e=0.01),
+           F._Op("fresnel", c_val=C_LIGHT, iface=(0, 0.0, 1.5, 1.0, False))]
+    plans = {f"once-{op.kind}{'-thermal' if op.theta_e else ''}":
+             once_plan(F, op) for op in ops}
+    plans.update({f"once-{kind}": pol_once_plan(F, kind, 0.5)
+                  for kind in ("pol", "polc")})
+    return plans
+
+
 def scatter_once(torch, F, op, n, dev, seed, E=1.0):
     """n photons in isotropic directions at c through one iteration of
     [kin, op] on the kernel: (cos theta of each to its incoming
@@ -3105,8 +3348,7 @@ def scatter_once(torch, F, op, n, dev, seed, E=1.0):
     p = torch.zeros((15, n), dtype=torch.float32, device=dev)
     p[6:9] = d * C_LIGHT
     p[12], p[13], p[14] = E, 1.0, 1.0
-    plan = F.FusedPlan(ops=[F._Op("kin"), op], n_rec_cols=1, chunk=1,
-                       const_norm_speed=C_LIGHT)
+    plan = once_plan(F, op)
     sched = torch.zeros((5, 1), dtype=torch.float32, device=dev)
     sched[0] = 0.001
     out = torch.empty_like(p)
@@ -3234,9 +3476,8 @@ def interface_pass(torch, F, dev, theta, n1, n2, n):
         * np.cos(th) * c_dt
     p[6], p[7] = np.cos(th) * C_LIGHT, np.sin(th) * C_LIGHT
     p[12], p[13], p[14] = 1.0, 1.0, 1.0
-    plan = F.FusedPlan(ops=[F._Op("kin"), F._Op(
-        "fresnel", c_val=C_LIGHT, iface=(0, 0.0, n1, n2, False))],
-        n_rec_cols=1, chunk=1, const_norm_speed=C_LIGHT)
+    plan = once_plan(F, F._Op("fresnel", c_val=C_LIGHT,
+                              iface=(0, 0.0, n1, n2, False)))
     sched = torch.zeros((5, 1), dtype=torch.float32, device=dev)
     sched[0] = 0.001
     out = torch.empty_like(p)
@@ -3592,7 +3833,7 @@ def lorentz_plan_phase(torch, F, dev, seed, compare, card, times):
     phase(f"fused_transport vs twin on the Lorentz and mixed plans (2**20 "
           f"slots, {K} iterations)")
     for i, (name, (plan, photons)) in enumerate(lorentz_plans(F, K).items()):
-        check(plan.kernel_variant & 8, f"{name}: not the mixed variant")
+        check(plan.kernel_seq is None, f"{name}: not a form plan")
         pk, sched, starts = lorentz_inputs(torch, plan, photons, C, K,
                                            dev, 40 + i)
         plain_ms = compare(name, pk, sched, K, plan, starts, "lorentz",
@@ -3625,7 +3866,7 @@ EXB_E, EXB_B, EXB_V0 = 4.0, 200.0, 1.0
 MIX_N = 10_000_000       # run_all.py:549-566 mixed_species_1e7
 MIX_ITERS = 4 * LOR_CHUNK
 TILE_N = 10_000_000      # the record-tile plan
-TILE_ITERS = 2 * 984
+TILE_ITERS = 2 * 1024  # two whole chunks
 
 
 def exb_iterations():
@@ -3694,7 +3935,9 @@ def tile_sim(phys, n, dev, iters, seed=3):
     of 3000 c dt (so that they cross the planes near its centre in every
     chunk), isotropic scattering (A n c dt = 1e-3), a weighted sign
     tally and a weighted two-plane tally with energy sums: 3 int and 7
-    float record columns, whose tiles hold the chunk to 984 iterations.
+    float record columns (whose tiles once held the chunk to 984
+    iterations; the float sums now go to global partials, chunks of
+    1024).
     Returns ``(sim, sign, planes)``."""
     import torch
 
@@ -3822,13 +4065,15 @@ def lorentz_runs(torch, phys, F, dev, card, xft, mft, tft):
     print(text)
     chunks = [k for _, k, _ in sim.chunk_log]
     rows = np.asarray(planes.data, np.float64)
-    check(sim.used_fused and chunks[:2] == [984, 984] and launches >= 2
-          and "chunk 984: float record tiles" in text
+    check(sim.used_fused and chunks[:2] == [1024, 1024] and launches >= 2
+          and "record count tile" not in text
+          and "float record partials" not in text
           and rows.shape == (TILE_ITERS, 6) and np.isfinite(rows).all()
-          and rows[:, 2].sum() > 0 and rows[984:, 4].sum() > 0,
+          and rows[:, 2].sum() > 0 and rows[1024:, 4].sum() > 0,
           f"record-tile path: chunks {chunks}, launches {launches}, "
           f"records {rows.shape}")
-    print(f"record-tile path: chunks {chunks} (clamped from 1024), "
+    print(f"record-tile path: chunks {chunks} (984 before the float sums "
+          "left shared memory), "
           f"fused_transport launches {launches}; plane weight sums "
           f"{rows[:, 2].sum():.6e} and {rows[:, 4].sum():.6e}; "
           f"{TILE_N * len(sim.ts) / wall:.4e} photon-steps/s from start() "
@@ -4375,8 +4620,8 @@ def pol_plan_phase(torch, F, light, dev, seed, compare, card, times):
           "iterations)")
     for i, (name, (plan, photons)) in enumerate(pol_plans(F, light,
                                                           K).items()):
-        check(plan.kernel_variant & 24 == 24, f"{name}: not the "
-              "polarization variant")
+        check(plan.has_pol and plan.kernel_seq is None,
+              f"{name}: not a polarized form plan")
         pk, sched, starts = pol_inputs(torch, plan, photons, C, K, dev,
                                        60 + i)
         plain_ms = compare(name, pk, sched, K, plan, starts, "pol",
@@ -4397,24 +4642,27 @@ def pol_plan_phase(torch, F, light, dev, seed, compare, card, times):
         times[name] = ms
         print(f"{name} at 2**20 x {K}: kernel {ms:.3f} ms, twin "
               f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), grid "
-              f"{grid} blocks ({grid / 132:.2f} per SM), variant "
-              f"{plan.kernel_variant} ({kernel_regs(plan.kernel_variant)}) "
-              f"[{card}]", flush=True)
+              f"{grid} blocks ({grid / 132:.2f} per SM), form library "
+              f"({form_regs(plan)}) [{card}]", flush=True)
         del pk, out
 
 
-def kernel_regs(variant, plan=None):
-    """The ptxas register line of fused_transport's instantiation
-    ``variant`` (its template arguments in the mangled name), or '?'; a
-    user plan's (``plan`` with user ops) from its own library's build."""
+def kernel_regs(variant):
+    """The ptxas register line of the main library's op-sequence kernel
+    ``variant`` (64 or 65; its op codes in the mangled name), or '?'."""
     from physicl_tpu_torch.ops import _build
 
     kernel, args = sass_loop().mangled_pattern(variant)
-    log = (_build.build_log if plan is None or not plan.has_user
-           else user_build(plan).get("log", ""))
+    return _regs_in(_build.build_log, lambda line: kernel in line
+                    and args in line)
+
+
+def _regs_in(log, is_entry):
+    """'N registers[; spills]' of the first function in a ptxas ``-v`` log
+    whose 'Compiling entry' line ``is_entry`` accepts, or '?'."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if kernel in line and args in line and "Compiling" in line:
+        if "Compiling" in line and is_entry(line):
             spill = ""
             for nxt in lines[i + 1:i + 4]:
                 if "spill" in nxt:
@@ -4423,6 +4671,80 @@ def kernel_regs(variant, plan=None):
                     regs = nxt.split("Used")[-1].strip()
                     return f"{regs}; {spill}" if spill else regs
     return "?"
+
+
+def form_build(plan):
+    """``_build.plan_builds``' entry of a plan's form library: its label,
+    build seconds and nvcc log ({} where another process built it)."""
+    from physicl_tpu_torch.ops import _build, codegen
+
+    return _build.plan_builds.get(_build.plan_key(codegen.form_source(plan)),
+                                  {})
+
+
+def form_regs(plan):
+    """The ptxas register line of a plan's form kernel."""
+    return _regs_in(form_build(plan).get("log", ""),
+                    lambda line: "fused_form_kernel" in line)
+
+
+def form_ballots(plan):
+    """The warp votes of one iteration of a plan's form kernel: the alive
+    count and every count site of its ops."""
+    n = 1
+    for op in plan.ops:
+        has_n = bool(op.cols) and op.cols[0] >= 0
+        if op.kind == "sign":
+            n += has_n + (0 if op.weighted else 3)
+        elif op.kind == "cross":
+            n += has_n + (0 if op.weighted else len(op.axes))
+        elif op.kind == "scross":
+            n += has_n + (0 if op.weighted else 1)
+        elif op.kind in ("polmeas", "reduce"):
+            n += has_n
+    return n
+
+
+def form_info(F, plan, capacity, k_act):
+    """A kernels-line entry's form fields for a launch of ``plan`` at
+    ``capacity`` x ``k_act``: its form (ops and build key, or the
+    op-sequence kernel), its library's build seconds, the kernel's
+    registers and spills, and the blocks per SM of the launch's grid."""
+    import torch
+
+    from physicl_tpu_torch.ops import _build, codegen
+
+    grid = F.kernel_grid(plan, capacity, k_act)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    if plan.kernel_seq is not None:
+        v = F.kernel_variant(plan)
+        regs = kernel_regs(v)
+        return {"form": f"fused_seq_kernel {list(plan.kernel_seq)} (variant "
+                f"{v})", "build_s": _build.build_seconds,
+                "registers": regs.split(";")[0],
+                "spills": regs.split(";")[1].strip() if ";" in regs else "0",
+                "blocks_per_sm": grid / n_sm}
+    b = form_build(plan)
+    regs = form_regs(plan)
+    return {"form": f"{codegen.plan_label(plan)} "
+            f"{_build.plan_key(codegen.form_source(plan))}",
+            "build_s": b.get("seconds"), "registers": regs.split(";")[0],
+            "spills": regs.split(";")[1].strip() if ";" in regs else "0",
+            "blocks_per_sm": grid / n_sm}
+
+
+def form_report(plan, info, loop):
+    """One line on a plan's form library: its form and build seconds, the
+    kernel's registers and spills, blocks per SM, and its iteration loop's
+    SASS instructions per photon-iteration (``scripts/sass_loop.py``)."""
+    built = (f"built in {info['build_s']:.2f} s" if info["build_s"]
+             else "built by another process")
+    return (f"form {info['form']}, {built}; {info['registers']}, spills "
+            f"{info['spills']}; {info['blocks_per_sm']:.2f} blocks per SM; "
+            f"iteration loop {loop['static']} instructions for "
+            f"{loop['iterations']} iteration(s) ({form_ballots(plan)} votes "
+            f"each), {loop['per_iteration']:.1f} per iteration on the fast "
+            f"path, {loop['ldg']} global loads; {loop['classes']}")
 
 
 def sass_loop():
@@ -4434,13 +4756,20 @@ def sass_loop():
     return sl
 
 
-def main_loops():
-    """{variant: scripts/sass_loop.py's summary} of the main plan's op-
-    sequence instantiation (64) and of the generic variant 0, from the
-    built library's SASS."""
+def main_loops(F, form_plan):
+    """{64: scripts/sass_loop.py's summary of the main plan's op-sequence
+    instantiation, FORM_VARIANT: of its form library's kernel}, from the
+    built libraries' SASS."""
     sl = sass_loop()
-    funcs = sl.functions(sl.built_sass())
-    return {v: sl.variant_summary(funcs, v) for v in (64, 0)}
+    return {64: sl.variant_summary(sl.functions(sl.built_sass()), 64),
+            F.FORM_VARIANT: form_loop(F, form_plan)}
+
+
+def form_loop(F, plan):
+    """scripts/sass_loop.py's summary of a plan's form kernel."""
+    sl = sass_loop()
+    return sl.form_summary(sl.functions(sl.library_sass(
+        F._library(plan)._name)), form_ballots(plan))
 
 
 def pol_scatter_once(torch, F, kind, stokes, n, dev, seed, inv_mec2=0.0):
@@ -4448,7 +4777,6 @@ def pol_scatter_once(torch, F, kind, stokes, n, dev, seed, inv_mec2=0.0):
     generic perpendicular, Stokes ``stokes``, through one iteration of
     [kin, ``kind``] on the kernel with pcoll = 2 (every photon scatters):
     (incoming directions, the state after)."""
-    c_dt = C_LIGHT * POL_DT
     gen = torch.Generator(device=dev).manual_seed(seed)
     d = isotropic_v(torch, n, 1.0, gen, dev)
     use_z = d[2].abs() < 0.9
@@ -4462,11 +4790,7 @@ def pol_scatter_once(torch, F, kind, stokes, n, dev, seed, inv_mec2=0.0):
     p[15:18] = torch.tensor(stokes, dtype=torch.float32,
                             device=dev)[:, None]
     p[18:21] = e1
-    op = F._Op(kind, coef=2.0 / c_dt, c_val=C_LIGHT, inv_mec2=inv_mec2,
-               kn_tries=12)
-    plan = F.FusedPlan(ops=[F._Op("kin"), op], n_rec_cols=1, chunk=1,
-                       const_norm_speed=C_LIGHT, extras=F.POL_ROWS,
-                       extras_writeback=("stokes", "pol_ref"))
+    plan = pol_once_plan(F, kind, inv_mec2)
     sched = torch.full((5, 1), POL_DT, dtype=torch.float32, device=dev)
     out = torch.empty_like(p)
     F.fused_transport(p, out, sched, seed, 1, plan)
@@ -4683,7 +5007,7 @@ USER_ITERS = 2 * 1024
 USER_DRAG = 1e-7         # the drag's loss of speed per iteration
 USER_RATE = 0.1          # the decay's rate 0.1 e^-t per unit time
 SPEC_N = 10_000_000      # run_all.py:468-490 spectrum_56bin_x2_thermal_1e7
-SPEC_ITERS = 4 * 60      # cut from the benchmark's 2048 (the time limit)
+SPEC_ITERS = 2 * 547     # two chunks (the partials' clamp) of its 2048
 SPEC_EDGES = np.exp(np.linspace(-3.0, 4.0, 57))
 UPLAN_N, UPLAN_K = 1 << 20, 256
 
@@ -4920,74 +5244,91 @@ def user_plan_sims(phys, dev, n):
     return sims
 
 
-def user_plan_sources(phys):
-    """``{label: generated source}`` of every kernel 1i plan of
-    ``user_plan_sims``, planned on the CPU."""
+def path_sims(phys, dev, n, sampler):
+    """``{label: Simulation}`` of the other plans this script runs through
+    ``Simulation`` or first-chunk twins that run form libraries (the
+    Planck, media, escape, cavity, gamma, glass, thermal, stretch,
+    fluorescence, ExB, mixed, record-tile, polarized, polarimetry,
+    mirror, phase-function and wide paths, and their variants) at ``n``
+    photons on ``dev``: a plan's form depends on its steps, not on the
+    population's size."""
+    import torch
+
+    light = phys.light
+    sims = {}
+    bulk = light.generate_photon_state(n, E=1.0, device=dev)
+    sims["planck"] = planck_sim(phys, sampler, bulk, dev)[0]
+    grid = media_grid(8, 21)
+    sims["media"] = media_sim(phys, grid, dev, n=n, iters=16)[0]
+    sims["beer-lambert"] = media_sim(phys, grid, dev, n=n, iters=16,
+                                     scatter=False, roulette=None)[0]
+    sp = 4 * float(light.c) * MEDIA_DT
+    lay = light.layered_density(np.array([0.0, 8.3, 19.6, 31.0]) * sp,
+                                [1.0, 2.0, 0.5], axis="z")
+    sims["media-layered"] = media_sim(phys, grid, dev, n=n, iters=16,
+                                      roulette=(0.4, 0.6), del_fn=lay,
+                                      sign=True)[0]
+    sims["escape"] = escape_sim(phys, sampler, n, dev)[0]
+    sims["escape-closure"] = escape_sim(phys, sampler, n, dev,
+                                        absorb=False, trace=True)[0]
+    for every, dtype in ((CAV_EVERY, "bfloat16"), (1, "float32")):
+        sims[f"cavity-{dtype}"] = cavity_sim(phys, n, dev, iters=16,
+                                             every=every, dtype=dtype)[0]
+    sims["gamma"] = gamma_sim(phys, n, dev, iters=16)[0]
+    sims["glass"] = glass_sim(phys, n, dev)[0]
+    for case in ("thermal", "stretch", "fluor"):
+        sims[case] = run_all_sim(phys, case, n, dev, 16)[0]
+    for case in ("exb", "mixed"):
+        sims[case] = lorentz_sim(phys, case, n, dev, 16)[0]
+    sims["record-tile"] = tile_sim(phys, n, dev, 16)[0]
+    for case in ("polarized", "polarimetry"):
+        sims[case] = pol_sim(phys, case, n, dev, iters=16)[0]
+    sims["mirror"] = mirror_sim(phys, n, dev, iters=16, chunk=16)[0]
+    sims["recorded-E-B"] = mirror_sim(phys, n, dev, iters=16, chunk=16,
+                                      fields=crossed_EB(torch))[0]
+    sims["phase-icdf"] = phase_sim(phys, n, dev, iters=16, chunk=16)[0]
+    sims["phase-icdf-hg"] = phase_sim(phys, n, dev, icdf=hg_icdf, iters=16,
+                                      chunk=16)[0]
+    sims["wide"] = wide_sim(phys, n, dev, chunk=16)
+    return sims
+
+
+def form_sources(phys, sampler, plans=()):
+    """``{label: generated source}`` of every form this script runs: the
+    plans of ``user_plan_sims`` and ``path_sims``, planned on the CPU, and
+    ``plans`` (explicit FusedPlans); labelled by their first plan and
+    deduplicated by source (plans that differ only in numbers share it)."""
     from physicl_tpu_torch.ops import codegen
 
+    sims = {**user_plan_sims(phys, "cpu", 1 << 10),
+            **path_sims(phys, "cpu", 1 << 10, sampler)}
+    found = [(name, planned(sim)[1].plan) for name, sim in sims.items()]
     sources = {}
-    for name, sim in user_plan_sims(phys, "cpu", 1 << 10).items():
-        plan = planned(sim)[1].plan
-        check(plan.has_user, f"{name}: no user op in {plan.ops}")
-        sources[f"{name} {codegen.plan_label(plan)}"] = codegen.plan_source(
-            plan)
+    for name, plan in found + list(plans):
+        if plan.kernel_seq is None:
+            src = codegen.form_source(plan)
+            if src not in sources.values():
+                sources[f"{name} {codegen.plan_label(plan)}"] = src
     return sources
-
-
-def user_build(plan):
-    """``_build.plan_builds``' entry of a user plan's library: its label,
-    build seconds and nvcc log ({} where another process built it)."""
-    from physicl_tpu_torch.ops import _build, codegen
-
-    return _build.plan_builds.get(_build.plan_key(codegen.plan_source(plan)),
-                                  {})
-
-
-def user_report(F, plan, capacity, k_act):
-    """One line on a user plan's generated library: its file, build
-    seconds, the instantiation's registers and spills, the blocks per SM
-    of a launch at ``capacity`` x ``k_act``, and its programs' SASS
-    instructions per photon-iteration (the probe loop,
-    ``scripts/sass_loop.py --user``) against their recorded instructions
-    (what the interpreter decoded one by one)."""
-    sl = sass_loop()
-    lib = F._library(plan)
-    check(os.path.basename(lib._name).startswith("libfused_plan_")
-          and plan.kernel_variant & 40 == 40,
-          f"{[op.kind for op in plan.ops]}: variant {plan.kernel_variant} "
-          f"does not run a generated library ({lib._name})")
-    b = user_build(plan)
-    grid = F.kernel_grid(plan, capacity, k_act)
-    probe = sl.user_summary(sl.functions(sl.library_sass(lib._name)))
-    n_ins = sum(len(op.prog.ins) for op in plan.ops if op.kind in F.USER_OPS)
-    return (f"library {os.path.basename(lib._name)}, built in "
-            + (f"{b['seconds']:.2f} s" if b else "another process")
-            + f"; variant {plan.kernel_variant} "
-            f"({kernel_regs(plan.kernel_variant, plan)}); grid {grid} blocks "
-            f"({grid / 132:.2f} per SM); user programs {n_ins} recorded "
-            f"instructions a photon-iteration, compiled to "
-            f"{probe['per_iteration']} SASS instructions ({probe['votes']} "
-            f"votes; {probe['classes']})")
 
 
 def user_plan_phase(torch, phys, F, dev, compare, card, times):
     """Phase: fused_transport against the twin on the kernel 1i plans at
     2**20 slots x 256 iterations, as their providers hand them over (the
-    recorded programs in the user instantiation): int records equal, every
-    plane (the written-back extras included) bitwise, rec_f within rtol
-    1e-5; each timed against its bound, with the instantiation's
-    registers."""
+    recorded programs compiled into each form's library): int records
+    equal, every plane (the written-back extras included) bitwise, rec_f
+    within rtol 1e-5; each timed against its bound, with its library's
+    report (``form_report``)."""
     phase(f"fused_transport vs twin on the user-code plans (2**20 slots, "
           f"{UPLAN_K} iterations)")
     for case in USER_PLANS:
         packed, sched, seed, k, plan, starts = first_chunk_inputs(
             user_plan_sim(phys, case, dev), F)
-        user = plan.kernel_variant & 40 == 40
-        check(user or case == "fluor-callable", f"{case}: variant "
-              f"{plan.kernel_variant} is not the user instantiation")
-        if user:
-            print(f"{case}: {user_report(F, plan, packed.shape[1], k)} "
-                  f"[{card}]", flush=True)
+        check(plan.has_user or case == "fluor-callable",
+              f"{case}: no user op in {[op.kind for op in plan.ops]}")
+        info = form_info(F, plan, packed.shape[1], k)
+        print(f"{case}: {form_report(plan, info, form_loop(F, plan))} "
+              f"[{card}]", flush=True)
         plain_ms = compare(case, packed, sched, k, plan, starts, "user",
                            seed=seed, need_bitwise=True)
         out = torch.empty_like(packed)
@@ -5005,9 +5346,8 @@ def user_plan_phase(torch, phys, F, dev, compare, card, times):
               f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); ops "
               f"{[op.kind for op in plan.ops]}, {n_ins} user instructions, "
               f"extras {plan.extras}, write-back {plan.extras_writeback}, "
-              f"variant {plan.kernel_variant} "
-              f"({kernel_regs(plan.kernel_variant, plan)}) [{card}]",
-              flush=True)
+              f"form library ({info['registers']}; {info['spills']}) "
+              f"[{card}]", flush=True)
         del packed, out
 
 
@@ -5193,29 +5533,37 @@ def hg_icdf(u):
 
 
 def prog_ops(spec):
-    """float32 operations of one evaluation of a recorded expression
-    program: each operation it asks for (a divide or root 8, a
-    transcendental or powf 20, an integer power its products), constants
-    and variables free; the interpreter's fetch and dispatch are not the
+    """The SEQ_OPS tuple of one evaluation of a recorded expression
+    program: each operation it asks for (a divide as _DIV, a root as
+    _SQRT, a transcendental or powf as "ins_transcendental", an integer
+    power its products, min and max on the ALU pipe), constants and
+    variables free; the interpreter's fetch and dispatch are not the
     program's work."""
     from physicl_tpu_torch.ops import fields as FL
 
-    n = 0
+    terms = []
     for code, val in spec["prog"]:
         if code in (FL.INS_CONST, FL.INS_VAR):
             continue
-        if code in (FL.INS_DIV, FL.INS_SQRT):
-            n += 8
+        if code == FL.INS_DIV:
+            terms.append(_DIV)
+        elif code == FL.INS_SQRT:
+            terms.append(_SQRT)
         elif code in (FL.INS_POW, FL.INS_EXP, FL.INS_LOG, FL.INS_LOG10,
                       FL.INS_SIN, FL.INS_COS, FL.INS_TAN):
-            n += 20
+            terms.append(SEQ_OPS["ins_transcendental"])
         elif code == FL.INS_IPOW:
             e = abs(int(val))
-            n += max(e.bit_length() + bin(e).count("1") - 2, 0) + (
-                8 if val < 0 else 0)
+            terms.append((max(e.bit_length() + bin(e).count("1") - 2, 0),
+                          0, 0, 0))
+            if val < 0:
+                terms.append(_DIV)
+        elif code in (FL.INS_MIN, FL.INS_MAX, FL.INS_FLOOR, FL.INS_CEIL,
+                      FL.INS_FABS):
+            terms.append((0, 1, 0, 0))
         else:
-            n += 1
-    return n
+            terms.append((1, 0, 0, 0))
+    return _sum(*terms) if terms else (0, 0, 0, 0)
 
 
 def mirror_sim(phys, n, dev, iters=None, chunk=MIR_CHUNK, seed=1,
@@ -5334,8 +5682,7 @@ def recorded_plan_phase(torch, phys, F, dev, compare, card, times):
         times[name] = ms
         print(f"{name} at 2**20 x {k}: ops {[op.kind for op in plan.ops]}, "
               f"{len(specs)} fields, {n_ins} expression instructions; "
-              f"variant {plan.kernel_variant} "
-              f"({kernel_regs(plan.kernel_variant)}); kernel {ms:.3f} ms, "
+              f"form library ({form_regs(plan)}); kernel {ms:.3f} ms, "
               f"twin {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}) "
               f"[{card}]", flush=True)
         del packed, res
@@ -5667,7 +6014,7 @@ def shrink_path(torch, phys, F, dev, card, compare):
         ms = compare(f"shrink-{cap_i}", packed, sched, k_act, plan, None,
                      "shrink", seed, need_bitwise=True)
         print(f"shrink: the first chunk at {cap_i} slots ({k_act} "
-              f"iterations, variant {plan.kernel_variant}) equals the twin "
+              f"iterations, variant {F.kernel_variant(plan)}) equals the twin "
               f"(twin {ms:.1f} ms) [{card}]", flush=True)
     return {"shrinks": shrinks, "chunks": rows, "launches": launches}
 
@@ -5841,8 +6188,8 @@ def injection_path(torch, phys, F, dev, card, compare):
           f"{wall:.2f} s, peak memory {peak / 2 ** 30:.2f} GiB [{card}]",
           flush=True)
     packed, sched, seed, k, plan = kept["args"]
-    check(plan.kernel_variant == 64, f"variant {plan.kernel_variant} at "
-          "the grown capacity")
+    check(F.kernel_variant(plan) == 64, f"variant {F.kernel_variant(plan)} "
+          "at the grown capacity")
     entry = {"plain_ms": compare("injected-chunk", packed, sched,
                                  min(k, TWIN_ITERS), plan, None,
                                  "main-injected", seed, need_bitwise=True),

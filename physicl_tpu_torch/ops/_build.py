@@ -8,12 +8,14 @@ library's name carries a hash of the sources, the shared headers and the
 flags, so an edited source never loads a stale build. Nothing here runs at
 import time: importing the package needs no ``nvcc`` and no card.
 
-A plan with user ops (kernel 1i) runs a library of its own: the source
-``ops/codegen.py`` generates for it, built with the same flags by
-:func:`load_plan` (or started ahead by :func:`start_plan_builds`) into
-``_build/`` under a hash of that source, every ``csrc/`` file and the
-flags, and loaded once per process. Deleting ``_build/`` clears every
-build.
+Every plan outside the main path's op-sequence form runs a library of its
+form's own: the source ``ops/codegen.py`` generates for it, built with the
+same flags by :func:`load_plan` (or started ahead by
+:func:`start_plan_builds`) into ``_build/`` under a hash of that source,
+every ``csrc/`` file and the flags, and loaded once per process. The main
+libraries and the form libraries build through the same jobs: at most one
+``nvcc`` per CPU core runs at a time, each into a temporary file renamed
+into place. Deleting ``_build/`` clears every build.
 """
 
 from __future__ import annotations
@@ -151,6 +153,71 @@ def _nvcc_cmd(src: str, out: str) -> list:
             src]
 
 
+# -- the build jobs ------------------------------------------------------------
+
+_job_lock = threading.Lock()
+_jobs: dict = {}        # build key -> _Job, started and not yet finished
+# at most one nvcc per CPU core at a time (one nvcc of a form library takes
+# a core and ~1 GB); the others wait their turn in their own threads
+_slots = threading.BoundedSemaphore(max(1, os.cpu_count() or 1))
+
+
+class _Job:
+    """One ``nvcc`` into ``so`` (through a temporary file of this process):
+    a thread waits for a free slot, starts the compiler, reads its output as
+    it comes (a full pipe would stall it) and notes when it started and
+    ended."""
+
+    def __init__(self, src, so, label):
+        self.so, self.label = so, label
+        self.tmp = f"{so}.{os.getpid()}.tmp"
+        self.cmd = _nvcc_cmd(src, self.tmp)
+        self.out, self.rc, self.t0, self.t1 = "", None, None, None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        with _slots:
+            self.t0 = time.perf_counter()
+            try:
+                proc = subprocess.Popen(self.cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True)
+                self.out, _ = proc.communicate()
+                self.rc = proc.returncode
+            except OSError as e:  # no nvcc
+                self.out, self.rc = str(e), -1
+            self.t1 = time.perf_counter()
+
+
+def _start(key, src, so, label) -> None:
+    """Start the job that builds ``so`` from ``src`` unless it is built or
+    building (call with ``_job_lock`` held)."""
+    if key in _jobs or os.path.exists(so):
+        return
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    _jobs[key] = _Job(src, so, label)
+
+
+def _finish(key):
+    """Wait for the job ``key`` if this process started it, rename its
+    output into place and return it (None: nothing was building). Raises,
+    naming its label and quoting nvcc, where the build failed."""
+    with _job_lock:
+        job = _jobs.get(key)
+    if job is None:
+        return None
+    job.thread.join()
+    with _job_lock:
+        if _jobs.get(key) is not job:  # another thread finished it
+            return job
+        del _jobs[key]
+        if job.rc != 0:
+            raise RuntimeError(f"nvcc failed ({job.rc}) for {job.label}:\n"
+                               f"{job.out}")
+        os.replace(job.tmp, job.so)
+    return job
+
+
 def load():
     """Build (once per source hash) and load every kernel library; returns
     ``{name: ctypes.CDLL}`` keyed by source file stem."""
@@ -159,73 +226,41 @@ def load():
         if _libs is not None:
             return _libs
         common = _sources_hash()
-        jobs = {}
-        for src in _csrc(".cu"):
-            name = os.path.splitext(os.path.basename(src))[0]
-            h = common.copy()
-            h.update(name.encode())
-            so = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
-            jobs[name] = (src, so)
-        todo = {n: j for n, j in jobs.items() if not os.path.exists(j[1])}
-        if todo:
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            t0 = time.perf_counter()
-            procs = {}
-            for name, (src, so) in todo.items():
-                tmp = f"{so}.{os.getpid()}.tmp"
-                procs[name] = (subprocess.Popen(
-                    _nvcc_cmd(src, tmp), stdout=subprocess.PIPE,
-                    stderr=subprocess.STDOUT, text=True), tmp, so)
-            logs, failed = [], []
-            for name, (proc, tmp, so) in procs.items():
-                out, _ = proc.communicate()
-                logs.append(f"[{name}]\n{out}")
-                if proc.returncode != 0:
-                    failed.append(f"{name} ({proc.returncode})")
-                else:
-                    os.replace(tmp, so)
-            build_log = "\n".join(logs)
-            if failed:
-                raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n"
-                                   f"{build_log}")
-            build_seconds = time.perf_counter() - t0
-        libs = {name: ctypes.CDLL(so) for name, (_, so) in jobs.items()}
+        libs = {}
+        with _job_lock:
+            for src in _csrc(".cu"):
+                name = os.path.splitext(os.path.basename(src))[0]
+                h = common.copy()
+                h.update(name.encode())
+                so = os.path.join(BUILD_DIR,
+                                  f"lib{name}_{h.hexdigest()[:12]}.so")
+                libs[name] = so
+                _start(("main", name), src, so, name)
+        done = [job for job in (_finish(("main", name)) for name in libs)
+                if job is not None]
+        if done:
+            build_seconds = (max(j.t1 for j in done)
+                             - min(j.t0 for j in done))
+            build_log = "\n".join(f"[{os.path.basename(j.label)}]\n{j.out}"
+                                   for j in done)
+        libs = {name: ctypes.CDLL(so) for name, so in libs.items()}
         _bind(libs)
         _libs = libs
         return libs
 
 
-# -- the user plans' libraries (kernel 1i) ------------------------------------
+# -- the form libraries -------------------------------------------------------
 
-_plan_lock = threading.Lock()  # the user plans' own (load() may run beside)
+_plan_lock = threading.Lock()
 _plan_libs: dict = {}   # build key -> ctypes.CDLL, loaded in this process
-_plan_jobs: dict = {}   # build key -> _PlanJob, started and not yet loaded
-# build key -> {"label", "seconds", "log"} of each plan this process built:
+# build key -> {"label", "seconds", "log"} of each form this process built:
 # the wall time from its nvcc's start to its end, and nvcc's output (the
 # ``-Xptxas -v`` register and spill report)
 plan_builds: dict = {}
 
 
-class _PlanJob:
-    """One running ``nvcc``: a thread reads its output as it comes (a full
-    pipe would stall the compiler) and notes when it ended."""
-
-    def __init__(self, cmd, tmp, so, label):
-        self.tmp, self.so, self.label = tmp, so, label
-        self.t0 = time.perf_counter()
-        self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True)
-        self.out, self.t1 = "", None
-        self.reader = threading.Thread(target=self._read, daemon=True)
-        self.reader.start()
-
-    def _read(self):
-        self.out, _ = self.proc.communicate()
-        self.t1 = time.perf_counter()
-
-
 def plan_key(source: str) -> str:
-    """The build key of a user plan's generated source: a hash of it, every
+    """The build key of a form's generated source: a hash of it, every
     ``csrc/`` file and the flags."""
     h = _sources_hash()
     h.update(source.encode())
@@ -246,46 +281,40 @@ def _write(path: str, text: str) -> None:
 
 
 def start_plan_builds(sources: dict) -> None:
-    """Start one ``nvcc`` for each ``{label: generated source}`` that is
-    neither built nor building, all at once, and return without waiting:
-    :func:`load_plan` waits for its own. Two processes that build the same
-    plan at once each compile into a file of their own and rename it into
-    place."""
-    with _plan_lock:
+    """Start one ``nvcc`` job for each ``{label: generated source}`` that
+    is neither built nor building and return without waiting (the jobs
+    share the CPU cores, see :class:`_Job`): :func:`load_plan` waits for
+    its own. Two processes that build the same form at once each compile
+    into a file of their own and rename it into place."""
+    with _job_lock:
         for label, source in sources.items():
             key = plan_key(source)
             so = plan_path(key)
-            if key in _plan_libs or key in _plan_jobs or os.path.exists(so):
+            if key in _plan_libs or key in _jobs or os.path.exists(so):
                 continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             cu = os.path.join(BUILD_DIR, f"fused_plan_{key}.cu")
             _write(cu, source)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            _plan_jobs[key] = _PlanJob(_nvcc_cmd(cu, tmp), tmp, so, label)
+            _start(key, cu, so, label)
 
 
 def load_plan(source: str, label: str):
-    """The loaded library of one user plan's generated source (``label``
-    names the plan): built at first use, or waited for where
+    """The loaded library of one form's generated source (``label`` names
+    the plan): built at first use, or waited for where
     :func:`start_plan_builds` started it, and loaded once per process.
-    Raises, naming the plan, where ``nvcc`` fails."""
+    Raises, naming the plan and quoting ``nvcc``, where the build fails."""
     key = plan_key(source)
     with _plan_lock:
         lib = _plan_libs.get(key)
         if lib is not None:
             return lib
     start_plan_builds({label: source})
+    job = _finish(key)
     with _plan_lock:
         lib = _plan_libs.get(key)
         if lib is not None:
             return lib
-        job = _plan_jobs.pop(key, None)
         if job is not None:
-            job.reader.join()
-            if job.proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({job.proc.returncode}) for "
-                                   f"the user plan {job.label}:\n{job.out}")
-            os.replace(job.tmp, job.so)
             plan_builds[key] = {"label": job.label,
                                 "seconds": job.t1 - job.t0, "log": job.out}
         lib = ctypes.CDLL(plan_path(key))

@@ -1,14 +1,37 @@
-"""Kernel 1i's code generator: a plan's recorded user programs
-(:mod:`physicl_tpu_torch.ops.record`) as straight-line CUDA C, compiled
-with ``csrc/fused_transport.cu`` into a library of the plan's own
+"""The transport kernel's code generator: each plan's form compiled into a
+library of its own.
+
+A plan's **form** is its structure: the op kinds in order, every flag and
+boolean an op body tests, which record columns each op has, each field's
+kind and which field each op reads, the norm, the stream, the extras and
+their write-back masks, and the user ops' recorded programs. Its
+**numbers** (coefficients, boxes, column indices, plane locations, field
+geometry and grids, tables) stay in the runtime ``Plan``
+(``ops/fused.py:_plan_struct``). :func:`form_source` emits one translation
+unit per form: ``struct Form``, the form as ``constexpr`` tables of
+``csrc/plan.cuh``'s ``OpForm``, ``AxisForm`` and ``FieldForm``, with the
+user ops' programs, compiled with ``csrc/fused_transport.cu``'s
+``fused_form_kernel<Form>`` (whose iteration body folds over the op
+indices, so the dispatch, the flag tests, the fields' kind tests and the
+draw indices are compile-time constants). Plans that differ only in
+numbers share one source, one build key and one library
 (``ops/fused.py:_library`` builds it through
-:func:`physicl_tpu_torch.ops._build.load_plan`).
+:func:`physicl_tpu_torch.ops._build.load_plan`). The JAX package traces
+each plan's ops into its kernel (``physicl_tpu/ops/fused.py:_kernel``): the
+port compiles each plan's form.
 
-Counterpart of the JAX package's tracing of each user callable into its
-fused kernel (``physicl_tpu/ops/fused.py:1448-1569``): the port records the
-torch callable at plan time and compiles the recording per plan.
+Two facts the emitter derives from the form:
 
-Each program becomes one device function over a slot's planes:
+* each op's first draw index (``OpForm::draw0``): the draws every op
+  before it makes per iteration, in the twin's order
+  (:func:`draw_counts`);
+* a shared field read (``OpForm::nf_shared``): an op whose n(r) is the
+  same field as the last n(r) read, with no op between them that moves the
+  particle (``kin``, ``reflect``, ``periodic``, ``fresnel``, ``emit`` or a
+  user op), reuses that read: the same function of the same inputs.
+
+Kernel 1i's user programs (:mod:`physicl_tpu_torch.ops.record`) become
+straight-line CUDA C, one device function per program:
 
 * one ``const float`` local per instruction, an SSA value, so that the
   compiler keeps the program's values in the SM's registers;
@@ -17,20 +40,11 @@ Each program becomes one device function over a slot's planes:
   program order, so a load after a store reads the new value;
 * draw ``i`` as ``unit24(hash_bits(h0, idx0 + i + 1, lin))``;
 * an alive clear updating ``alive`` and ``f[13]``; a record sum through
-  ``user_sum`` (alive-masked; skipped where no lane of the warp adds
-  anything but 0);
+  ``user_sum`` (alive-masked) into the kernel's record accumulator;
 * every operation the function the plain version
   (:func:`~physicl_tpu_torch.ops.record.run_user_program`) matches:
   ``expf``, ``logf``, ``powf``, ``ipow``, ``nan_min``, ... Built with
   ``--fmad=false``, the planes stay bitwise equal to it.
-
-The translation unit defines ``PHYSICL_USER_PLAN`` (the plan's kernel
-variant), includes ``fused_transport.cu``, which then instantiates that
-variant alone, and defines ``user_op`` (case ``o`` runs op ``o``'s program)
-and ``fused_user_probe`` (the programs alone in an iteration loop, never
-launched, whose SASS ``scripts/sass_loop.py`` counts). The source depends
-only on the plan's op kinds, its user ops' programs and its variant, so
-plans that share them share a library.
 """
 
 from __future__ import annotations
@@ -39,12 +53,13 @@ import math
 
 import numpy as np
 
+from physicl_tpu_torch.ops import fused as F
 from physicl_tpu_torch.ops import record as RC
 
 _NF = 15          # core planes: f[0..14]
-_MAX_EXTRAS = 8   # extras planes: x[0..7] (csrc/fused_transport.cu)
+_MAX_EXTRAS = 8   # extras planes: x[0..7] (csrc/plan.cuh)
 _ARGS = ("float* f, float* x, bool& alive, float t, float dt, uint32_t h0, "
-         "uint32_t idx0, uint32_t lin, float* frow")
+         "uint32_t idx0, uint32_t lin, Acc& acc")
 
 _UNARY = {RC.U_NEG: "-{a}", RC.U_ABS: "fabsf({a})", RC.U_SQRT: "sqrtf({a})",
           RC.U_EXP: "expf({a})", RC.U_LOG: "logf({a})",
@@ -88,12 +103,14 @@ def _plane(p: int) -> str:
 
 
 def program_c(prog: RC.Program, name: str) -> str:
-    """The device function ``name`` that runs ``prog`` on one slot: its
-    parameters are the slot's planes ``f`` and extras ``x``, its ``alive``
-    flag, ``t`` and ``dt`` of the op's place, the iteration's hash seed
-    ``h0``, the op's first draw index ``idx0``, the slot term ``lin`` and
-    the warp's float record row ``frow``."""
-    out = [f"__device__ __forceinline__ void {name}({_ARGS}) {{"]
+    """The device function template ``name<Acc>`` that runs ``prog`` on one
+    slot: its parameters are the slot's planes ``f`` and extras ``x``, its
+    ``alive`` flag, ``t`` and ``dt`` of the op's place, the iteration's hash
+    seed ``h0``, the op's first draw index ``idx0``, the slot term ``lin``
+    and the record accumulator ``acc`` that ``user_sum(acc, col, v)``
+    adds to."""
+    out = ["template <class Acc>",
+           f"__device__ __forceinline__ void {name}({_ARGS}) {{"]
     cur = {}  # register -> the local that holds its value
     for i, (code, d, a, b, y, bimm) in enumerate(prog.ins):
         va = cur.get(a)
@@ -105,7 +122,7 @@ def program_c(prog: RC.Program, name: str) -> str:
             out.append("  f[13] = alive ? 1.0f : 0.0f;")
             continue
         if code == RC.U_ACC:
-            out.append(f"  user_sum(frow, {int(y)}, alive ? {va} : 0.0f);")
+            out.append(f"  user_sum(acc, {int(y)}, alive ? {va} : 0.0f);")
             continue
         if code == RC.U_LD:
             expr = ("alive ? 1.0f : 0.0f" if y == RC.ALIVE_PLANE
@@ -140,87 +157,224 @@ def program_c(prog: RC.Program, name: str) -> str:
     return "\n".join(out)
 
 
+# the ops that move a particle, which end a shared field read (codes of
+# ops/fused.py:OP_CODES, csrc/plan.cuh: OpKind)
+_K = F.OP_CODES
+_MOVERS = {_K[k] for k in ("kin", "reflect", "periodic", "fresnel", "emit",
+                           "custom", "reduce", "kstate")}
+# the ops whose n(r) (Op::nf) is read at the particle's position
+_N_READERS = {_K[k] for k in ("iso", "del", "hg", "rayl", "phase",
+                              "compton", "pol", "polc")}
+_USER = {_K[k] for k in ("custom", "reduce", "kstate")}
+# OpForm's members in order (csrc/plan.cuh)
+OP_FORM = ("kind", "flag", "capture", "roulette", "col0", "axis", "nf", "af",
+           "fld", "icdf", "scale", "thermal", "n", "ax0", "n_ax", "draw0",
+           "nf_shared")
+
+
 def user_ops(plan) -> list:
     """``[(op index, op)]`` of the plan's user ops."""
-    from physicl_tpu_torch.ops import fused as F
-
     return [(i, op) for i, op in enumerate(plan.ops)
             if op.kind in F.USER_OPS]
 
 
+def _struct(plan, ps):
+    """The plan's ``PlanStruct`` (``ops/fused.py:_plan_struct``): the one
+    given, or the CPU one."""
+    if ps is not None:
+        return ps
+    import torch
+
+    return F._plan_struct(plan, torch.device("cpu"))[0]
+
+
+def draw_count(o) -> int:
+    """Draws one op (an ``OpStruct``) makes per iteration, in the twin's
+    order: iso a uniform and a pair; del one uniform (implicit capture:
+    only with roulette; fluorescence: a uniform, a uniform and a pair); the
+    hg, rayl and phase scatters a uniform and a pair; compton a uniform and
+    an azimuth (thermal: then a pair and two uniforms) and a uniform and a
+    pair per Kahn try; fresnel one; emit one for a sampled energy and one
+    for an isotropic direction; pol two; polc two and the Kahn tries; a
+    user op its program's draws."""
+    k = o.kind
+    if k == _K["iso"] or k in (_K["hg"], _K["rayl"], _K["phase"],
+                               _K["pol"]):
+        return 2
+    if k == _K["del"]:
+        if o.capture:
+            return int(o.w_sur > 0.0)
+        return 3 if o.flag == 2 else 1
+    if k == _K["compton"]:
+        return (5 if o.box[1] > 0.0 else 2) + 2 * o.emit_n
+    if k == _K["polc"]:
+        return 2 + 2 * o.emit_n
+    if k == _K["fresnel"]:
+        return 1
+    if k == _K["emit"]:
+        return int(o.icdf >= 0) + int(o.flag != 0)
+    if k in _USER:
+        return o.emit_row
+    return 0
+
+
+def draw_counts(plan, ps=None) -> list:
+    """Each op's draws per iteration (:func:`draw_count`)."""
+    ps = _struct(plan, ps)
+    return [draw_count(ps.ops[i]) for i in range(ps.n_ops)]
+
+
+def plan_form(plan, ps=None) -> dict:
+    """The plan's form: ``ops`` (one ``OpForm`` tuple per op, members as
+    :data:`OP_FORM`), ``axes`` (``(axis, ecol, ecap)`` per crossing
+    plane), ``fields`` (``(kind, interp, axis)`` per field) and the
+    plan-level constants, read from its ``PlanStruct`` (``ps``, or the CPU
+    one), so that the form and the launch's ``form_matches`` agree by
+    construction."""
+    ps = _struct(plan, ps)
+    n_fields = len(F._field_index(plan.ops)[0])
+    ops, draw, last_read = [], 0, {}
+    qm = -1
+    for i in range(ps.n_ops):
+        o = ps.ops[i]
+        k = o.kind
+        shared = 0
+        if k in _N_READERS and o.nf >= 0:
+            shared = int(last_read.get(o.nf, False))
+            last_read[o.nf] = True
+        if k in _MOVERS:
+            last_read = {}
+        if k == _K["lorentz"]:
+            col0 = o.col0
+            if o.col0 >= 0:
+                qm = o.col0
+        else:
+            col0 = int(o.col0 >= 0)
+        ops.append((
+            k, o.flag, o.capture,
+            int(k == _K["del"] and o.w_sur > 0.0), col0,
+            o.col1 if k == _K["fresnel"] else 0, o.nf, o.af,
+            tuple(o.fld), int(k == _K["emit"] and o.icdf >= 0),
+            int(k == _K["emit"] and o.emit_scale != 1.0),
+            int(k == _K["compton"] and o.box[1] > 0.0),
+            (o.emit_n if k in (_K["compton"], _K["polc"])
+             else o.emit_row if k in _USER else 0),
+            o.ax0 if k == _K["cross"] else 0,
+            o.n_ax if k == _K["cross"] else 0, draw, shared))
+        draw += draw_count(o)
+    n_ax = sum(op[OP_FORM.index("n_ax")] for op in ops)
+    axes = [(ps.axes[a].axis, int(ps.axes[a].ecol >= 0),
+             int(ps.axes[a].ecap >= 0)) for a in range(n_ax)]
+    fields = []
+    for i in range(n_fields):
+        fd = ps.fields[i]
+        fields.append((fd.kind, fd.interp if fd.kind == 3 else 0,
+                       fd.axis if fd.kind == 2 else 0))
+    return {"ops": ops, "axes": axes, "fields": fields,
+            "kCols": ps.n_cols, "kFcols": ps.n_fcols,
+            "kConstNorm": ps.const_norm, "kStream": int(ps.n_stream > 0),
+            "kStreamBf16": ps.stream_bf16, "kExtras": ps.n_extras,
+            "kOtype": ps.otype_x, "kQm": qm, "kWb": ps.wb_mask,
+            "kUwb": ps.uwb_mask}
+
+
 def plan_label(plan) -> str:
-    """How a build names the plan: its ops and variant."""
-    kinds = ",".join(op.kind for op in plan.ops)
-    return f"[{kinds}] variant {plan.kernel_variant}"
+    """How a build names the plan: its ops."""
+    return "[" + ",".join(op.kind for op in plan.ops) + "]"
 
 
-def plan_source(plan) -> str:
-    """The translation unit of ``plan``'s library (a plan with user ops)."""
-    ops = user_ops(plan)
-    if not ops:
-        raise ValueError("a plan without user ops runs the main library")
-    variant = plan.kernel_variant
+def _op_c(op: tuple) -> str:
+    vals = []
+    for name, v in zip(OP_FORM, op):
+        vals.append("{" + ", ".join(str(x) for x in v) + "}"
+                    if name == "fld" else str(v))
+    return "{" + ", ".join(vals) + "}"
+
+
+def form_struct(plan, ps=None, form=None, users=True) -> str:
+    """``struct Form``: the plan's form (:func:`plan_form`) as the
+    ``constexpr`` tables and constants that ``csrc/fused_transport.cu``'s
+    form kernel and ``csrc/plan.cuh``'s ``form_matches`` read, and (with
+    ``users``) each user op's program as ``Form::user``."""
+    form = form or plan_form(plan, ps)
+    kinds = [op.kind for op in plan.ops]
+    n_ax, n_fld = len(form["axes"]), len(form["fields"])
+    parts = ["struct Form {", f"  static constexpr int kN = {len(kinds)};",
+             "  // " + ", ".join(OP_FORM),
+             "  static constexpr OpForm kOp[kN] = {"]
+    parts += [f"      {_op_c(op)},  // {i}: {kinds[i]}"
+              for i, op in enumerate(form["ops"])]
+    parts += ["  };", f"  static constexpr int kNAx = {n_ax};",
+              f"  static constexpr AxisForm kAx[{max(1, n_ax)}] = {{"
+              + ", ".join("{" + ", ".join(map(str, a)) + "}"
+                          for a in form["axes"] or [(0, 0, 0)]) + "};",
+              f"  static constexpr int kNFld = {n_fld};",
+              f"  static constexpr FieldForm kFld[{max(1, n_fld)}] = {{"
+              + ", ".join("{" + ", ".join(map(str, f)) + "}"
+                          for f in form["fields"] or [(0, 0, 0)]) + "};"]
+    parts += [f"  static constexpr int {name} = {form[name]};"
+              for name in ("kCols", "kFcols", "kConstNorm", "kStream",
+                           "kStreamBf16", "kExtras", "kOtype", "kQm", "kWb",
+                           "kUwb")]
+    for i, _ in (user_ops(plan) if users else ()):
+        args = _ARGS.replace("Acc", "R")
+        parts += [
+            "  template <class R>",
+            "  static __device__ __forceinline__ void user(",
+            f"      std::integral_constant<int, {i}>, {args}) {{",
+            f"    user_op_{i}(f, x, alive, t, dt, h0, idx0, lin, acc);",
+            "  }"]
+    parts.append("};")
+    return "\n".join(parts)
+
+
+def form_source(plan, ps=None) -> str:
+    """The translation unit of the plan's form library (``ps``: its
+    ``PlanStruct``, or the CPU one): ``struct Form`` and its user
+    programs, compiled with ``fused_transport.cu``, and the library's
+    ``fused_transport_grid`` and ``fused_transport_launch`` for that form
+    alone. Depends only on the form, so plans that differ in numbers share
+    it."""
+    if plan.kernel_seq is not None:
+        raise ValueError("a plan of the main path's op-sequence form runs "
+                         "the main library")
+    form = plan_form(plan, ps)
     parts = [
-        "// Generated by physicl_tpu_torch/ops/codegen.py: kernel 1i's user "
-        "programs of one",
-        f"// plan, {plan_label(plan)}, compiled with fused_transport.cu.",
-        f"#define PHYSICL_USER_PLAN {variant}",
+        "// Generated by physicl_tpu_torch/ops/codegen.py: the form library "
+        "of a plan",
+        f"// {plan_label(plan)}, compiled with fused_transport.cu.",
+        "#define PHYSICL_FORM 1",
         '#include "fused_transport.cu"', "", "namespace {", ""]
-    for i, op in ops:
+    users = user_ops(plan)
+    for i, op in users:
         parts.append(f"// op {i}: {op.kind}, {len(op.prog.ins)} "
                      f"instructions, {op.prog.n_draws} draws")
         parts += [program_c(op.prog, f"user_op_{i}"), ""]
-    call = "(f, x, alive, t, dt, h0, idx0, lin, frow)"
-    parts.append(f"__device__ __forceinline__ void user_op(int o, {_ARGS}) "
-                 "{")
-    parts.append("  switch (o) {")
-    parts += [f"    case {i}: user_op_{i}{call}; break;" for i, _ in ops]
-    parts += ["    default: break;", "  }", "}", "", "}  // namespace", ""]
-    # the probe: the programs in plan order, each at its draw offset among
-    # the user ops (the kernel's other ops draw between them; the offset
-    # changes no instruction)
-    body, idx0 = [], 0
-    for i, op in ops:
-        row = 1 if op.after_update else 2
-        body.append(f"    user_op_{i}(f, x, alive, sched[{row} * k_act + k], "
-                    f"sched[{row + 2} * k_act + k], h0, {idx0}u, lin, frow);")
-        idx0 += op.prog.n_draws
-    parts += [
-        "// The plan's user programs alone, k_act iterations over one slot a",
-        "// thread: scripts/sass_loop.py counts the instructions of its loop",
-        "// (the programs' own per photon-iteration). Never launched.",
-        "__global__ void __launch_bounds__(kBlock)",
-        "fused_user_probe(float* planes, long long C, const float* sched, "
-        "int k_act,",
-        "                 uint32_t seed, float* frow) {",
-        "  const long long g = (long long)blockIdx.x * blockDim.x + "
-        "threadIdx.x;",
-        "  float f[kNF], x[kMaxExtras];",
-        "#pragma unroll",
-        "  for (int p = 0; p < kNF; ++p) f[p] = planes[p * C + g];",
-        "#pragma unroll",
-        "  for (int p = 0; p < kMaxExtras; ++p) x[p] = planes[(kNF + p) * C "
-        "+ g];",
-        "  const uint32_t lin = physicl::slot_term(g);",
-        "  bool alive = f[13] > 0.0f;",
-        "#pragma unroll 1",
-        "  for (int k = 0; k < k_act; ++k) {",
-        "    // the planes opaque to the compiler at every iteration's start "
-        "(no",
-        "    // instruction), so that no program's work leaves the loop",
-        "#pragma unroll",
-        '    for (int p = 0; p < kNF; ++p) asm volatile("" : "+f"(f[p]));',
-        "#pragma unroll",
-        "    for (int p = 0; p < kMaxExtras; ++p) "
-        'asm volatile("" : "+f"(x[p]));',
-        "    const uint32_t h0 = seed ^ ((uint32_t)k * 0x9E3779B9u);",
-        *body,
-        "  }",
-        "#pragma unroll",
-        "  for (int p = 0; p < kNF; ++p) planes[p * C + g] = f[p];",
-        "#pragma unroll",
-        "  for (int p = 0; p < kMaxExtras; ++p) planes[(kNF + p) * C + g] = "
-        "x[p];",
-        "}", ""]
+    parts += form_struct(plan, ps, form).splitlines()
+    parts += ["", "}  // namespace", "",
+              'extern "C" int fused_transport_grid(long long capacity, '
+              "int k_act, int n_cols,",
+              "                                    int n_fcols, int variant, "
+              "int* grid_out) {",
+              "  return form_grid<Form>(capacity, k_act, n_cols, n_fcols, "
+              "variant, grid_out);", "}", "",
+              'extern "C" int fused_transport_launch(',
+              "    const void* packed_in, void* packed_out, long long "
+              "capacity,",
+              "    const void* sched, int sched_stride, const void* thr,",
+              "    const void* emit_starts, int emit_stride, const void* aux, "
+              "int k_act,",
+              "    unsigned int seed, const physicl::Plan* plan, int variant, "
+              "int grid,",
+              "    void* rec, void* rec_f, void* partials, void* stream_buf, "
+              "int n_srows,",
+              "    int stream_elem, void* stream) {",
+              "  return form_launch<Form>(packed_in, packed_out, capacity, "
+              "sched, sched_stride,",
+              "                           thr, emit_starts, emit_stride, aux, "
+              "k_act, seed, plan,",
+              "                           variant, grid, rec, rec_f, partials, "
+              "stream_buf,",
+              "                           n_srows, stream_elem, stream);",
+              "}", ""]
     return "\n".join(parts)
-

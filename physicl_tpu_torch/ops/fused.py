@@ -63,22 +63,17 @@ _LANE = 128
 _MAX_REC_COLS = 128
 _MASK = 0xFFFFFFFF
 
-# op kinds the CUDA kernel switches on (csrc/fused_transport.cu)
+# op kinds of the CUDA kernel (csrc/plan.cuh: OpKind)
 OP_CODES = {"kin": 0, "del": 1, "iso": 2, "sign": 3, "emit": 4, "cross": 5,
             "absorb": 6, "reflect": 7, "periodic": 8, "sabsorb": 9,
             "scross": 10, "trace": 11, "hg": 12, "rayl": 13, "phase": 14,
             "compton": 15, "fresnel": 16, "lorentz": 17, "pol": 18,
             "polc": 19, "polmeas": 20, "custom": 21, "reduce": 22,
             "kstate": 23}
-# ops only the kernel's geometry/stream instantiation carries (codes 7-11)
-_EXT_OPS = ("reflect", "periodic", "sabsorb", "scross", "trace")
-# ops only the kernel's rotation instantiation carries (codes 12-16), which
-# also runs the "del" variants (exponential transform, fluorescence)
-_ROT_OPS = ("hg", "rayl", "phase", "compton", "fresnel")
-# ops only the kernel's polarization instantiation carries (codes 18-20)
+# the polarization ops (codes 18-20)
 _POL_OPS = ("pol", "polc", "polmeas")
-# kernel 1i: recorded user programs (ops/record.py), compiled per plan into
-# the plan's own user instantiation (ops/codegen.py; codes 21-23)
+# kernel 1i: recorded user programs (ops/record.py), compiled into the
+# plan's form library (ops/codegen.py; codes 21-23)
 USER_OPS = ("custom", "reduce", "kstate")
 _POL_BASES = ("stokes", "pol_ref")
 # the Stokes and frame rows, packed first among the extras: the kernel reads
@@ -89,13 +84,20 @@ POL_ROWS = ("stokes:0", "stokes:1", "stokes:2",
 # "polc" (a full-width draw)
 POL_ITERS, POLC_ITERS = 17, 26
 # the op-sequence instantiations (csrc/fused_transport.cu, fused_seq_kernel):
-# the kernel variant of each op sequence compiled with its ops fixed
+# the main library's variant of each op sequence compiled with its ops
+# fixed; every other plan runs its form's library, whose launch takes
+# variant FORM_VARIANT
 SEQ_VARIANTS = {("kin", "iso", "sign"): 64, ("kin", "del", "sign"): 65}
+FORM_VARIANT = -1
 # the dynamic shared memory one block may take (227 KB), and an op-sequence
 # launch's share of it per iteration: a 16 B count row and a 16 B entry
-# (csrc/fused_transport.cu: seq_smem_bytes)
+# (csrc/fused_transport.cu: seq_smem_bytes); a form launch takes a 4 B count
+# per int record column and iteration (form_smem_bytes)
 MAX_SMEM_BYTES = 232_448
 SEQ_SMEM_PER_ITER = 32
+# the float sums' partials: a [k_act][n_fcols] float32 slice per warp of the
+# launch; at most 132 SMs x 8 blocks x 8 warps on an H100
+MAX_WARP_SLICES = 132 * 8 * 8
 MAX_OPS = 32
 MAX_EXTRAS = 8    # extras planes (1h's Stokes and frame rows, otype, qm)
 MAX_AXES = 32     # crossing planes over all cross ops of a plan
@@ -238,8 +240,8 @@ class FusedPlan:
     # for every slot, and unpack_state returns them
     extras_writeback: tuple = ()
     # run an op-sequence instantiation where the plan has its form
-    # (kernel_seq); False runs the same plan through its generic
-    # instantiation, for holding the two against each other
+    # (kernel_seq); False runs the same plan through its form library, for
+    # holding the two against each other
     specialize: bool = True
     # the kernel's plan struct and the per-device fit tables, built once
     _cache: dict = dataclasses.field(default_factory=dict, repr=False,
@@ -252,53 +254,24 @@ class FusedPlan:
     @property
     def has_fields(self) -> bool:
         """The plan evaluates n(r), A(E), recorded E/B or inverse-CDF
-        fields (the kernel's field instantiation runs it)."""
+        fields."""
         return any(op.n_fn is not None or op.a_fn is not None
                    or any(fn is not None for fn in op.fld_fns)
                    for op in self.ops)
 
     @property
-    def kernel_variant(self) -> int:
-        """The kernel instantiation the plan runs (the ``variant`` that
-        ``fused_transport_grid`` and ``fused_transport_launch`` take; the
-        kernel compiles each op's code only into the instantiations whose
-        bit it needs): bit 0, field code; bit 1, the geometry ops and stream
-        stores of ``_EXT_OPS``; bit 2, the rotation family of ``_ROT_OPS``
-        and the ``del`` variants (exponential transform, fluorescence); bit
-        3, the ``lorentz`` op and the extras planes (the otype gate); bit 4,
-        the polarization ops of ``_POL_OPS``, polarized emission and the
-        write-back of the Stokes and frame planes; bit 5, the recorded user
-        programs of ``USER_OPS`` (kernel 1i), compiled into a library of
-        the plan's own (``ops/codegen.py``), and the write-back of their
-        extras planes. Bits 4 and 5 come only with bit 3 (those plans
-        carry extras, or in bit 5's case take its code paths). A plan of
-        an op-sequence form (:attr:`kernel_seq`) runs that sequence's
-        instantiation instead, ``SEQ_VARIANTS``."""
-        seq = self.kernel_seq
-        if seq is not None:
-            return SEQ_VARIANTS[seq]
-        ext = self.n_stream or any(op.kind in _EXT_OPS for op in self.ops)
-        rot = any(op.kind in _ROT_OPS or op.stretch or op.fluor
-                  for op in self.ops)
-        mix = self.extras or any(op.kind == "lorentz" for op in self.ops)
-        pol = self.has_pol
-        user = self.has_user
-        return (int(self.has_fields) | (2 if ext else 0) | (4 if rot else 0)
-                | (8 if mix or pol or user else 0) | (16 if pol else 0)
-                | (32 if user else 0))
-
-    @property
     def kernel_seq(self) -> Optional[tuple]:
-        """The op sequence whose compiled instantiation runs this plan, or
-        None (the generic instantiations). Exactly the main path's plans:
+        """The op sequence whose compiled instantiation in the main library
+        runs this plan, or None (the plan's form library). Exactly the main
+        path's plans:
         ``[kin, iso, sign]`` or ``[kin, del, sign]`` (``SEQ_VARIANTS``)
         with the const-norm |dr| = c dt, ``iso`` without lambda^-4
         weighting and ``del`` without variants (capture, roulette,
         stretch, fluorescence, deposition), neither with fields, ``sign``
         counting (not weighted) with its alive column, and no extras,
         stream planes or float records; and a chunk whose iterations'
-        shared memory fits a block (at most 7264 iterations: the generic
-        instantiation's tile takes 20 B an iteration, this one 32)."""
+        shared memory fits a block (at most 7264 iterations: 32 B an
+        iteration; the form library takes longer chunks)."""
         kinds = tuple(op.kind for op in self.ops)
         if (not self.specialize or kinds not in SEQ_VARIANTS
                 or self.const_norm_speed is None or self.extras
@@ -317,8 +290,7 @@ class FusedPlan:
     @property
     def has_pol(self) -> bool:
         """The plan runs a polarization op, a polarized emitter or writes
-        the Stokes or frame planes back (the kernel's polarization
-        instantiation)."""
+        the Stokes or frame planes back."""
         return bool(set(self.extras_writeback) & set(_POL_BASES)) or any(
             op.kind in _POL_OPS or op.emit_stokes for op in self.ops)
 
@@ -1621,8 +1593,10 @@ def fused_transport(packed: torch.Tensor, out: torch.Tensor,
     stream)`` with a fresh stream buffer (the kernel writes every row, NaN
     at and past ``ceil(k_act / stream_every)``). A plan of an op-sequence
     form (``plan.kernel_seq``) launches that sequence's instantiation, with
-    its per-iteration collision thresholds (:func:`scatter_threshold`).
-    Raises on a CPU tensor, a failed build or a refused launch.
+    its per-iteration collision thresholds (:func:`scatter_threshold`);
+    every other plan its form's library (:func:`_library`), built at its
+    first launch. Raises on a CPU tensor, a failed build or a refused
+    launch.
     ``fused_transport.launches`` counts launches, and
     ``fused_transport.seq_launches`` those of the op-sequence
     instantiations among them."""
@@ -1672,13 +1646,14 @@ def fused_transport(packed: torch.Tensor, out: torch.Tensor,
                              dtype=plan.stream_torch_dtype, device=dev)
     if plan.extras and out.data_ptr() != packed.data_ptr():
         out[_NF:].copy_(packed[_NF:])
-    variant = plan.kernel_variant
+    variant = kernel_variant(plan)
     thr = None
     if plan.kernel_seq is not None:
         thr = scatter_threshold(pcoll_row(plan, sched)).contiguous()
     with torch.cuda.device(dev):
         grid = kernel_grid(plan, C, k_act)
-        partials = torch.empty(max(1, grid * k_act * plan.n_frec_cols),
+        # each warp's [k_act][n_fcols] slice (the kernel's 8 warps a block)
+        partials = torch.empty(max(1, grid * 8 * k_act * plan.n_frec_cols),
                                dtype=torch.float32, device=dev)
         err = lib.fused_transport_launch(
             packed.data_ptr(), out.data_ptr(), C, sched.data_ptr(),
@@ -1726,35 +1701,43 @@ def rsqrt_near1_check(dev) -> dict:
             "n2_min": float(as_f32[0]), "n2_max": float(as_f32[1])}
 
 
+def kernel_variant(plan: FusedPlan) -> int:
+    """The ``variant`` a launch of ``plan`` passes: its op sequence's
+    (``SEQ_VARIANTS``) in the main library, or ``FORM_VARIANT`` in its form
+    library."""
+    seq = plan.kernel_seq
+    return FORM_VARIANT if seq is None else SEQ_VARIANTS[seq]
+
+
 def _library(plan: FusedPlan):
-    """The built library holding the plan's instantiation: a plan with user
-    ops its own, generated from its programs (``ops/codegen.py``), built at
-    first use and kept with the plan; any other the main one."""
+    """The built library that runs the plan: the main one for an
+    op-sequence plan (``kernel_seq``), else its form's own, generated from
+    its structure (``ops/codegen.py:form_source``), built at its first
+    launch and kept with the plan. A failed build raises, naming the plan
+    and quoting ``nvcc``."""
     from physicl_tpu_torch.ops import _build
 
-    if not plan.has_user:
+    if plan.kernel_seq is not None:
         return _build.load()["fused_transport"]
-    key = ("lib", plan.kernel_variant)
-    if key not in plan._cache:
+    if "lib" not in plan._cache:
         from physicl_tpu_torch.ops import codegen
 
-        plan._cache[key] = _build.load_plan(codegen.plan_source(plan),
-                                            codegen.plan_label(plan))
-    return plan._cache[key]
+        plan._cache["lib"] = _build.load_plan(
+            codegen.form_source(plan), f"the plan {codegen.plan_label(plan)}")
+    return plan._cache["lib"]
 
 
 def kernel_grid(plan: FusedPlan, capacity: int, k_act: int) -> int:
     """The grid (blocks) a ``fused_transport`` launch of ``plan`` takes on
-    the current CUDA device: the occupancy limit of its instantiation with
-    its record tiles' shared memory times the SM count, capped by the
-    tiles."""
+    the current CUDA device: the occupancy limit of its kernel with its
+    count tile's shared memory times the SM count, capped by the tiles."""
     from physicl_tpu_torch.ops import _build
 
     lib = _library(plan)
     grid = ctypes.c_int(0)
     _build.check(lib.fused_transport_grid(
         capacity, k_act, plan.n_rec_cols, plan.n_frec_cols,
-        plan.kernel_variant, ctypes.byref(grid)),
+        kernel_variant(plan), ctypes.byref(grid)),
         "fused_transport occupancy query")
     return grid.value
 

@@ -76,10 +76,10 @@ from physicl_tpu_torch.units import Measurement, raw_code_value
 __all__ = ["try_build_fused", "FusedProvider", "FusedRefusal",
            "is_kernel_limit"]
 
-# a block's record tiles live in shared memory: [chunk][n_cols] int32 and
-# [chunk][n_fcols][warps] float32 (csrc/fused_transport.cu)
+# a block's count tile lives in shared memory: [chunk][n_cols] int32
+# (csrc/fused_transport.cu: form_smem_bytes; the float sums go to global
+# partials)
 _MAX_REC_TILE_BYTES = F.MAX_SMEM_BYTES
-_KERNEL_WARPS = 8
 _EMIT_INACTIVE = -(2 ** 30)  # far-negative start: the window overlaps nothing
 _R = ("r0", "r1", "r2")  # the variables of a density field
 
@@ -1501,20 +1501,31 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
             chunk, stream_every = _whole_periods(
                 chunk, stream_every, periods, budget, row_bytes)
     notes = []
-    # a block's record tiles hold chunk x (int + float x warps) columns of
-    # shared memory: a chunk over the budget is shortened (the chunk seed
-    # follows the chunk index, so parity with the JAX package then needs
-    # its chunk_steps set to the same length)
-    tile_chunk = _MAX_REC_TILE_BYTES // (
-        (next_col + next_fcol * _KERNEL_WARPS) * 4)
+    # a block's count tile holds chunk x n_cols int32 of shared memory: a
+    # chunk over the budget is shortened (the chunk seed follows the chunk
+    # index, so parity with the JAX package then needs its chunk_steps set
+    # to the same length)
+    tile_chunk = _MAX_REC_TILE_BYTES // (next_col * 4)
     if chunk > tile_chunk:
         chunk = max(1, tile_chunk)
         if stream_every > 1:
             chunk, stream_every = _whole_periods(
                 chunk, stream_every, periods, budget, row_bytes)
-        notes.append(f"chunk {chunk}: float record tiles ({next_col} int + "
-                     f"{next_fcol} float columns x {_KERNEL_WARPS} warps"
-                     f" in {_MAX_REC_TILE_BYTES} B of shared memory)")
+        notes.append(f"chunk {chunk}: record count tile ({next_col} int "
+                     f"columns in {_MAX_REC_TILE_BYTES} B of shared "
+                     "memory)")
+    # the float sums' partials, a [chunk][n_fcols] slice per warp of the
+    # launch, stay within the record budget
+    part_budget = int(sim.max_record_bytes)
+    part_chunk = part_budget // max(1, F.MAX_WARP_SLICES * next_fcol * 4)
+    if next_fcol and chunk > part_chunk:
+        chunk = max(1, part_chunk)
+        if stream_every > 1:
+            chunk, stream_every = _whole_periods(
+                chunk, stream_every, periods, budget, row_bytes)
+        notes.append(f"chunk {chunk}: float record partials ({next_fcol} "
+                     f"float columns x {F.MAX_WARP_SLICES} warp slices in "
+                     f"{part_budget} B)")
     plan = F.FusedPlan(ops=ops, n_rec_cols=next_col, chunk=chunk,
                        const_norm_speed=const_speed, n_frec_cols=next_fcol,
                        n_stream=next_plane, stream_every=stream_every,

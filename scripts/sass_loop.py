@@ -3,41 +3,40 @@
 
 On a machine with the CUDA toolkit (the kernels build at first use)::
 
-    python3 scripts/sass_loop.py 0 64          # variants 0 and 64
-    python3 scripts/sass_loop.py --dump DIR 0  # also write each function's SASS
+    python3 scripts/sass_loop.py 64 65          # the op-sequence variants
+    python3 scripts/sass_loop.py --dump DIR 64  # also write each one's SASS
+    python3 scripts/sass_loop.py --lib _build/libfused_plan_KEY.so --ballots 5
 
 or on a SASS listing made elsewhere (``cuobjdump -sass lib.so``)::
 
-    python3 scripts/sass_loop.py --sass FILE 0 --ranges f80-fc0*3,1020-1060
+    python3 scripts/sass_loop.py --sass FILE 64 --ranges f80-fc0*3,1020-1060
 
-A user plan's library (kernel 1i, generated per plan by
-``physicl_tpu_torch/ops/codegen.py``) also holds ``fused_user_probe``: the
-plan's user programs alone in a loop over iterations. ``--user`` counts
-that loop in a library's listing (``--sass FILE --user``, or ``--lib
-PATH --user``): ``per_iteration`` is the straight-line instructions of the
-programs per photon-iteration without the slow paths of the correctly
-rounded roots and divides, and with the probe loop's own few (the
-counter, the hash seed, the t and dt loads, the branch) and every record
-sum's shuffles (a sum that no lane of the warp feeds is skipped at run
-time, so this bounds the executed count from above).
+``--lib`` with no variant counts a form library's ``fused_form_kernel``
+(every plan outside the main path's op-sequence form runs one, generated
+per plan form by ``physicl_tpu_torch/ops/codegen.py``): its iteration loop
+is the smallest loop (a backward branch and its target) that holds every
+warp vote of the function; ``--ballots`` gives the form's votes per
+iteration (the alive count and its other count sites,
+``chip_smoke.form_ballots``), so that ``iterations`` is the number of
+iterations the loop's body holds and ``per_iteration`` its fast path over
+them. ``ldg`` counts the global loads in the loop (a trilinear field read
+is eight, the dt one).
 
-The iteration loop of a generic instantiation is the smallest loop (a
-backward branch and its target) that holds every warp vote of the function:
-the loop over iterations, with the op loop and its switch inside it.
-``static`` counts every instruction in it, every switch case included, so
-it bounds the executed path from above; ``--ranges`` counts only the given
-address ranges (hex, end inclusive, ``*n`` for a range run n times), as
-when the executed path through the switch is traced by hand. The iteration
-loop of an op-sequence instantiation is the loop without inner loops that
-holds the most warp votes: its body is straight-line code for
-``iterations`` iterations (the unrolled body; four ballots an iteration,
-the sign's), and ``window`` counts the instructions of the enclosing
-32-iteration window loop outside it (the count flush, and the remainder
-iterations of a window that is not a multiple of the unrolling). ``fast_path`` leaves out
-the blocks around the out-of-line calls of correctly rounded square roots
-and divides (their slow paths, for arguments out of the fast path's range),
-and ``per_iteration`` is ``fast_path / iterations``. Classes are by opcode
-(``CLASSES``), but for the counter hash's own instructions (``_HASH``). Prints one JSON object per variant.
+The iteration loop of an op-sequence instantiation is the loop without
+inner loops that holds the most warp votes: its body is straight-line code
+for ``iterations`` iterations (the unrolled body; four ballots an
+iteration, the sign's), and ``window`` counts the instructions of the
+enclosing 32-iteration window loop outside it (the count flush, and the
+remainder iterations of a window that is not a multiple of the
+unrolling). ``static`` counts every instruction of a loop;
+``fast_path`` leaves out the blocks around the out-of-line calls of
+correctly rounded square roots and divides (their slow paths, for
+arguments out of the fast path's range), and ``per_iteration`` is
+``fast_path / iterations``; ``--ranges`` counts only the given address
+ranges (hex, end inclusive, ``*n`` for a range run n times), as when an
+executed path is traced by hand. Classes are by opcode (``CLASSES``), but
+for the counter hash's own instructions (``_HASH``). Prints one JSON
+object per kernel.
 """
 
 from __future__ import annotations
@@ -109,17 +108,12 @@ def functions(sass: str) -> dict:
 
 
 def mangled_pattern(variant: int) -> str:
-    """A substring of the mangled name of variant's kernel: the generic
-    instantiations' six bool template arguments, or the op-sequence
-    instantiations' op codes (physicl_tpu_torch/ops/fused.py:OP_CODES)."""
-    if variant >= 64:
-        from physicl_tpu_torch.ops import fused as F
+    """A substring of the mangled name of op-sequence variant's kernel (64
+    or 65): its op codes (physicl_tpu_torch/ops/fused.py:OP_CODES)."""
+    from physicl_tpu_torch.ops import fused as F
 
-        seq = {v: k for k, v in F.SEQ_VARIANTS.items()}[variant]
-        return ("fused_seq_kernel", "".join(f"Li{F.OP_CODES[k]}E"
-                                            for k in seq))
-    return ("fused_transport_kernel", "".join(
-        "Lb1E" if variant & (1 << b) else "Lb0E" for b in range(6)))
+    seq = {v: k for k, v in F.SEQ_VARIANTS.items()}[variant]
+    return ("fused_seq_kernel", "".join(f"Li{F.OP_CODES[k]}E" for k in seq))
 
 
 def function_for(funcs: dict, variant: int):
@@ -143,10 +137,11 @@ def loops(ins):
 
 
 def iteration_loop(ins, innermost=False):
-    """(start, end) of the smallest loop holding every warp vote (or, with
-    ``innermost``, of the loop without inner loops that holds the most
-    votes: the unrolled body, not its remainder), and of the smallest loop
-    around that one (None if there is none)."""
+    """(start, end) of the smallest loop holding every warp vote (where the
+    compiler peeled a copy of it, the smallest of those holding the most
+    votes; or, with ``innermost``, of the loop without inner loops that
+    holds the most votes: the unrolled body, not its remainder), and of the
+    smallest loop around that one (None if there is none)."""
     votes = [i for i, (_, t) in enumerate(ins) if opcode(t) == "VOTE"]
     if not votes:
         raise ValueError("no warp vote: not a fused_transport kernel")
@@ -160,21 +155,30 @@ def iteration_loop(ins, innermost=False):
     else:
         inside = [lp for lp in every
                   if lp[0] <= min(votes) and max(votes) <= lp[1]]
+        if not inside:
+            # the compiler peeled a copy of the loop (the block's first
+            # tile): the smallest of the loops that hold the most votes
+            inside = every
     if not inside:
         raise ValueError("no loop holds the warp votes")
+    n_votes = {lp: sum(lp[0] <= v <= lp[1] for v in votes) for lp in inside}
     if innermost:
-        body = max(inside, key=lambda lp: sum(lp[0] <= v <= lp[1]
-                                              for v in votes))
+        body = max(inside, key=n_votes.get)
     else:
-        body = min(inside, key=lambda lp: lp[1] - lp[0])
+        most = max(n_votes.values())
+        body = min((lp for lp in inside if n_votes[lp] == most),
+                   key=lambda lp: lp[1] - lp[0])
     outer = [lp for lp in loops(ins) if lp[0] <= body[0] and body[1] <= lp[1]
              and lp != body]
     return body, (min(outer, key=lambda lp: lp[1] - lp[0]) if outer else None)
 
 
 def slow_blocks(ins, lo, hi):
-    """Indices in [lo, hi] of the blocks around each out-of-line call (from
-    the branch before it to the unconditional branch after it)."""
+    """Indices in [lo, hi] of the blocks around each out-of-line call: from
+    the predicated branch that skips it to that branch's target (the
+    structured layout, ``BSSY`` / ``BSYNC``), or else from the branch before
+    it to the unconditional branch after it."""
+    index = {a: i for i, (a, _) in enumerate(ins)}
     skip = set()
     for i in range(lo, hi + 1):
         if opcode(ins[i][1]) != "CALL":
@@ -182,6 +186,12 @@ def slow_blocks(ins, lo, hi):
         a = i
         while a > lo and opcode(ins[a - 1][1]) != "BRA":
             a -= 1
+        m = _BRA.match(ins[a - 1][1]) if a > lo else None
+        target = index.get(int(m.group(1), 16)) if m else None
+        if (m and ins[a - 1][1].startswith("@") and target is not None
+                and i < target <= hi):
+            skip.update(range(a, target))
+            continue
         b = i
         while b < hi and not (opcode(ins[b][1]) == "BRA"
                               and not ins[b][1].startswith("@")):
@@ -198,56 +208,51 @@ def count(ins, idx) -> dict:
     return dict(sorted(out.items()))
 
 
-def summary(ins, ranges=None, ballots=None) -> dict:
-    """The loop's counts (``static``, ``fast_path``, ``per_iteration`` and
-    the fast path's classes, the window loop's own instructions), or the
-    counts over ``ranges`` [(start address, end address, times)].
-    ``ballots``: the warp votes per iteration of an op-sequence
-    instantiation, whose iteration loop is then the innermost one with a
+def summary(ins, ranges=None, ballots=None, innermost=False) -> dict:
+    """The loop's counts (``static``, ``fast_path``, ``per_iteration``, its
+    global loads and the fast path's classes, the window loop's own
+    instructions), or the counts over ``ranges`` [(start address, end
+    address, times)]. ``ballots``: the warp votes per iteration, which
+    give the iterations the loop holds; ``innermost`` (the op-sequence
+    instantiations): the iteration loop is the innermost one with a
     vote."""
     if ranges:
         idx = [i for lo, hi, n in ranges for _ in range(n)
                for i, (a, _) in enumerate(ins) if lo <= a <= hi]
         return {"ranges": [f"{lo:x}-{hi:x}*{n}" for lo, hi, n in ranges],
                 "executed": len(idx), "classes": count(ins, idx)}
-    (lo, hi), outer = iteration_loop(ins, innermost=ballots is not None)
+    (lo, hi), outer = iteration_loop(ins, innermost=innermost)
     fast = [i for i in range(lo, hi + 1) if i not in slow_blocks(ins, lo, hi)]
     n_iter = 1
     if ballots:
-        n_iter = sum(1 for i in range(lo, hi + 1)
-                     if opcode(ins[i][1]) == "VOTE") // ballots
+        n_iter = max(1, sum(1 for i in range(lo, hi + 1)
+                            if opcode(ins[i][1]) == "VOTE") // ballots)
     out = {"loop": [f"{ins[lo][0]:x}", f"{ins[hi][0]:x}"],
            "iterations": n_iter, "static": hi - lo + 1,
            "fast_path": len(fast), "per_iteration": len(fast) / n_iter,
+           "ldg": sum(1 for i in range(lo, hi + 1)
+                      if opcode(ins[i][1]) == "LDG"),
            "classes": count(ins, fast)}
-    if ballots and outer is not None:
+    if innermost and outer is not None:
         out["window"] = sum(1 for i in range(outer[0], outer[1] + 1)
                             if not lo <= i <= hi)
     return out
 
 
 def variant_summary(funcs: dict, variant: int, ranges=None) -> dict:
-    """summary() of ``variant``'s kernel in the listing ``funcs``."""
+    """summary() of op-sequence ``variant``'s kernel in the listing
+    ``funcs``."""
     name, ins = function_for(funcs, variant)
     return {"variant": variant, "function": name,
-            **summary(ins, ranges, 4 if variant >= 64 else None)}
+            **summary(ins, ranges, 4, innermost=True)}
 
 
-def user_summary(funcs: dict) -> dict:
-    """The loop of a user plan library's ``fused_user_probe`` (the largest
-    backward branch): its instructions per iteration, all and on the fast
-    path, and their classes."""
+def form_summary(funcs: dict, ballots: int = 1, ranges=None) -> dict:
+    """summary() of a form library's ``fused_form_kernel``, with
+    ``ballots`` warp votes per iteration."""
     name, ins = next((n, i) for n, i in funcs.items()
-                     if "fused_user_probe" in n)
-    every = loops(ins)
-    if not every:
-        raise ValueError("fused_user_probe has no loop")
-    lo, hi = max(every, key=lambda lp: lp[1] - lp[0])
-    fast = [i for i in range(lo, hi + 1) if i not in slow_blocks(ins, lo, hi)]
-    return {"function": name, "loop": [f"{ins[lo][0]:x}", f"{ins[hi][0]:x}"],
-            "static": hi - lo + 1, "per_iteration": len(fast),
-            "votes": sum(1 for i in fast if opcode(ins[i][1]) == "VOTE"),
-            "classes": count(ins, fast)}
+                     if "fused_form_kernel" in n)
+    return {"function": name, **summary(ins, ranges, ballots)}
 
 
 def library_sass(path: str) -> str:
@@ -270,19 +275,17 @@ def main(argv=None):
     ap.add_argument("variants", type=int, nargs="*")
     ap.add_argument("--sass", help="a cuobjdump -sass listing")
     ap.add_argument("--lib", help="a built library (default: the main one)")
-    ap.add_argument("--user", action="store_true", help="count a user "
-                    "plan library's fused_user_probe loop")
+    ap.add_argument("--ballots", type=int, default=1, help="a form's warp "
+                    "votes per iteration")
     ap.add_argument("--ranges", help="hex address ranges a-b,c-d (one "
-                    "variant)")
-    ap.add_argument("--dump", help="write each variant's SASS here")
+                    "kernel)")
+    ap.add_argument("--dump", help="write each kernel's SASS here")
     args = ap.parse_args(argv)
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, here)
     sass = (open(args.sass).read() if args.sass
             else library_sass(args.lib) if args.lib else built_sass())
     funcs = functions(sass)
-    if args.user:
-        print(json.dumps(user_summary(funcs)))
     ranges = None
     if args.ranges:
         ranges = []
@@ -290,13 +293,18 @@ def main(argv=None):
             span, _, times = r.partition("*")
             lo, hi = (int(x, 16) for x in span.split("-"))
             ranges.append((lo, hi, int(times or 1)))
-    for v in args.variants:
+    kernels = {f"variant_{v}": v for v in args.variants}
+    if not kernels:
+        kernels = {"form": None}
+    for label, v in kernels.items():
         if args.dump:
-            _, ins = function_for(funcs, v)
+            _, ins = (function_for(funcs, v) if v is not None else next(
+                (n, i) for n, i in funcs.items() if "fused_form_kernel" in n))
             os.makedirs(args.dump, exist_ok=True)
-            with open(os.path.join(args.dump, f"variant_{v}.sass"), "w") as f:
+            with open(os.path.join(args.dump, f"{label}.sass"), "w") as f:
                 f.writelines(f"{a:05x} {t}\n" for a, t in ins)
-        print(json.dumps(variant_summary(funcs, v, ranges)))
+        print(json.dumps(variant_summary(funcs, v, ranges) if v is not None
+                         else form_summary(funcs, args.ballots, ranges)))
 
 
 if __name__ == "__main__":

@@ -8,8 +8,8 @@ builds its kernels (``nvcc`` into a temporary directory) and times
 ``fused_transport`` on the main path's shape (10**7 photons padded to
 10,010,624 slots, 1024 iterations, [kin, iso, sign] with the const-norm
 path, as the checkout runs it: through the op-sequence instantiation where
-it has one, ``ms_main``, and then also through its generic variant 0,
-``ms_main_generic``), on [kin, iso, sign] and [kin, del, iso, sign] at 2**20
+it has one, ``ms_main``, and then also through its generic variant 0 or,
+since the form libraries, its form's library, ``ms_main_generic``), on [kin, iso, sign] and [kin, del, iso, sign] at 2**20
 slots x 256 iterations and on ``chip_smoke.py``'s geometry, rotation,
 Lorentz, polarized and user-code (kernel 1i) plans at that shape (the
 latter four only where the checkout has their ops; the user plans as their
@@ -20,7 +20,7 @@ warm-up launch. It reads each kernel instantiation's registers from
 fields, geometry/streams, no rotation family, no Lorentz push or extras; a
 fifth bit, polarization; a sixth, the user programs; ``seq:kin-iso-sign``
 an op-sequence instantiation), and counts the iteration loop's SASS
-instructions of variant 0 and, where it exists, 64 (``scripts/
+instructions of variant 0 (in the checkouts that have it) and 64 (``scripts/
 sass_loop.py`` of this checkout; with ``--dump DIR`` their SASS goes to
 ``DIR/<turn>/``). Prints one JSON object per checkout;
 run both versions in one call, in turns, so that the card and its power
@@ -85,7 +85,10 @@ for line in _build.build_log.splitlines():
         out["registers"][entry] = int(m.group(1))
         entry = None
 for v in (0, 64) if SEQ else (0,):
-    name, ins = sass_loop.function_for(funcs, v)
+    try:  # variant 0 is in the checkouts before the form libraries only
+        name, ins = sass_loop.function_for(funcs, v)
+    except (KeyError, ValueError):
+        continue
     if len(sys.argv) > 3:
         os.makedirs(sys.argv[3], exist_ok=True)
         with open(os.path.join(sys.argv[3], f"variant_{v}.sass"), "w") as f:

@@ -2,8 +2,8 @@
 CPU, where there is no ``nvcc``.
 
 * The generated translation unit is deterministic, and its build key
-  (``ops/_build.py:plan_key``) changes with the program, the variant and
-  the ``csrc/`` sources.
+  (``ops/_build.py:plan_key``) changes with the program, the plan's form
+  and the ``csrc/`` sources.
 * The emitted program bodies, compiled for the host with ``g++`` (host
   stand-ins for ``__int_as_float``, ``nan_min``, ``nan_max``, ``ipow`` and
   the record sum; ``csrc/sampling.cuh``'s own ``hash_bits`` and ``unit24``)
@@ -81,18 +81,20 @@ inline float ipow(float x, int y) {
   return neg ? 1.0f / acc : acc;
 }
 // the warp's record sum: here one slot's value into a float64 column sum
-inline void user_sum(float*, int col, float v) { g_acc[col] += v; }
+struct HostAcc {};
+inline void user_sum(HostAcc&, int col, float v) { g_acc[col] += v; }
 
 template <class Fn>
 void run_slots(Fn fn, int n, float* f, float* x, uint8_t* alive, float t,
                float dt, uint32_t h0, uint32_t idx0, double* acc) {
   std::memset(g_acc, 0, sizeof g_acc);
+  HostAcc host_acc;
   for (int g = 0; g < n; ++g) {
     float fl[15], xl[8];
     for (int p = 0; p < 15; ++p) fl[p] = f[p * n + g];
     for (int p = 0; p < 8; ++p) xl[p] = x[p * n + g];
     bool a = alive[g] != 0;
-    fn(fl, xl, a, t, dt, h0, idx0, slot_term(g), nullptr);
+    fn(fl, xl, a, t, dt, h0, idx0, slot_term(g), host_acc);
     for (int p = 0; p < 15; ++p) f[p * n + g] = fl[p];
     for (int p = 0; p < 8; ++p) x[p * n + g] = xl[p];
     alive[g] = a;
@@ -114,7 +116,7 @@ def _host_library(progs: dict, tmp):
         parts.append(
             f'extern "C" void run_{name}(int n, float* f, float* x, '
             "uint8_t* alive, float t, float dt, uint32_t h0, uint32_t idx0, "
-            f"double* acc) {{ run_slots(prog_{name}, n, f, x, alive, t, dt, "
+            f"double* acc) {{ run_slots(prog_{name}<HostAcc>, n, f, x, alive, t, dt, "
             "h0, idx0, acc); }")
     src = os.path.join(tmp, "programs.cpp")
     with open(src, "w") as f:
@@ -369,29 +371,31 @@ def _user_plan(fn=None, seed=0):
 
 def test_source_is_deterministic_and_keyed():
     a, b = _user_plan(), _user_plan(seed=3)
-    src = CG.plan_source(a)
-    assert src == CG.plan_source(b)
-    assert _build.plan_key(src) == _build.plan_key(CG.plan_source(b))
-    assert f"#define PHYSICL_USER_PLAN {a.kernel_variant}\n" in src
+    src = CG.form_source(a)
+    assert src == CG.form_source(b)
+    assert _build.plan_key(src) == _build.plan_key(CG.form_source(b))
+    assert "#define PHYSICL_FORM 1\n" in src
     assert '#include "fused_transport.cu"' in src
     for i, _ in CG.user_ops(a):
-        assert f"case {i}: user_op_{i}(" in src
+        assert (f"std::integral_constant<int, {i}>" in src
+                and f"user_op_{i}(f, x, alive" in src)
     # another program
     import chip_smoke as cs
 
     def decay2(p):
         return cs.decay(p) | {"E": p.E * 0.5}
 
-    other = CG.plan_source(_user_plan(decay2))
+    other = CG.form_source(_user_plan(decay2))
     assert other != src and _build.plan_key(other) != _build.plan_key(src)
-    # another variant of the same programs (stream planes: bit 1)
-    streamed = dataclasses.replace(a, n_stream=1)
-    assert streamed.kernel_variant == a.kernel_variant | 2
-    assert _build.plan_key(CG.plan_source(streamed)) != _build.plan_key(src)
+    # another form of the same programs (stream planes)
+    streamed = dataclasses.replace(a, n_stream=1, _cache={})
+    assert CG.plan_form(streamed)["kStream"] == 1
+    assert CG.plan_form(a)["kStream"] == 0
+    assert _build.plan_key(CG.form_source(streamed)) != _build.plan_key(src)
 
 
 def test_build_key_follows_the_csrc_sources(tmp_path, monkeypatch):
-    src = CG.plan_source(_user_plan())
+    src = CG.form_source(_user_plan())
     key = _build.plan_key(src)
     copy = tmp_path / "csrc"
     shutil.copytree(_build._CSRC, copy)
@@ -454,7 +458,7 @@ def _fake_nvcc(tmp, fail=False):
 def _fresh_build_dir(monkeypatch, tmp, nvcc):
     monkeypatch.setenv("NVCC", nvcc)
     monkeypatch.setattr(_build, "BUILD_DIR", os.path.join(tmp, "_build"))
-    for name in ("_plan_libs", "_plan_jobs", "plan_builds"):
+    for name in ("_plan_libs", "_jobs", "plan_builds"):
         monkeypatch.setattr(_build, name, {})
 
 
@@ -465,7 +469,7 @@ def test_plan_library_builds_once_and_loads(tmp_path, monkeypatch):
     from the cache in the process and from the file after."""
     tmp = str(tmp_path)
     _fresh_build_dir(monkeypatch, tmp, _fake_nvcc(tmp))
-    src = CG.plan_source(_user_plan())
+    src = CG.form_source(_user_plan())
     key = _build.plan_key(src)
     _build.start_plan_builds({"user": src, "again": src})
     lib = _build.load_plan(src, "user")
@@ -488,8 +492,9 @@ def test_failed_plan_build_raises_naming_the_plan(tmp_path, monkeypatch):
     tmp = str(tmp_path)
     _fresh_build_dir(monkeypatch, tmp, _fake_nvcc(tmp, fail=True))
     plan = _user_plan()
-    with pytest.raises(RuntimeError, match=r"nvcc failed \(2\) for the user "
-                       r"plan \[kin,iso,kstate,custom,reduce\] variant 40"):
+    with pytest.raises(RuntimeError, match=r"nvcc failed \(2\) for the "
+                       r"plan \[kin,iso,kstate,custom,reduce\]:\n"
+                       r"error: the stand-in fails"):
         F._library(plan)
     assert not os.path.exists(_build.plan_path(
-        _build.plan_key(CG.plan_source(plan))))
+        _build.plan_key(CG.form_source(plan))))

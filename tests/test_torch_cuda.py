@@ -100,8 +100,8 @@ EDGE_PCOLL = (0.0, 2.0 ** -25, 1 - 2.0 ** -24, 1.0, 1.5)
 @pytest.mark.parametrize("edge", [False, True], ids=["main", "edge"])
 @pytest.mark.parametrize("mid", ["iso", "del"])
 def test_sequence_kernel_matches_generic_and_twin(dev, mid, edge):
-    """At 2**20 x 256 the op-sequence instantiation gives the generic
-    variant 0's and the twin's planes and int records, bit for bit, on the
+    """At 2**20 x 256 the op-sequence instantiation gives the form
+    library's and the twin's planes and int records, bit for bit, on the
     main plan's schedule and on one whose pcoll hits the threshold's
     edges."""
     K = 256
@@ -116,8 +116,8 @@ def test_sequence_kernel_matches_generic_and_twin(dev, mid, edge):
     else:
         plan = _seq_plan(mid, K, coef=1e-6 if mid == "iso" else 1e-8)
     generic = dataclasses.replace(plan, specialize=False)
-    assert plan.kernel_variant == (64 if mid == "iso" else 65)
-    assert generic.kernel_variant == 0
+    assert F.kernel_variant(plan) == (64 if mid == "iso" else 65)
+    assert F.kernel_variant(generic) == F.FORM_VARIANT
     before = F.fused_transport.seq_launches
     outs = [torch.empty_like(packed) for _ in range(2)]
     recs = [F.fused_transport(packed, o, sched, 99, K, p)[0]
@@ -134,11 +134,12 @@ def test_sequence_kernel_matches_generic_and_twin(dev, mid, edge):
 def test_long_chunks_launch_and_match_twin(dev, chunk):
     """The bench plan at 7264 iterations (the most whose op-sequence
     launch fits a block's 227 KB of shared memory) runs variant 64, and at
-    8192 (which the pipeline allows: 20 B of generic tile an iteration)
-    the generic variant 0; both launch and equal the twin bit for bit."""
+    8192 (which the pipeline allows: 20 B of count tile an iteration) its
+    form library; both launch and equal the twin bit for bit."""
     packed, sched = _inputs(dev, C=1 << 12, chunk=chunk, seed=7)
     plan = _seq_plan("iso", chunk)
-    assert plan.kernel_variant == (64 if chunk == 7264 else 0)
+    assert F.kernel_variant(plan) == (64 if chunk == 7264
+                                      else F.FORM_VARIANT)
     before = F.fused_transport.seq_launches
     out = torch.empty_like(packed)
     rec, _ = F.fused_transport(packed, out, sched, 31, chunk, plan)
@@ -368,7 +369,7 @@ def test_geometry_plans_match_twin(dev, name, k_act):
 def test_scatter_plans_match_twin(dev, name):
     """The nine plans ``chip_smoke.py`` holds at 2**20 x 256, here at 2**16
     x 64: int records equal, planes bitwise, rec_f within tolerance; the
-    plans run the rotation instantiation."""
+    plans run their form libraries."""
     import physicl_tpu_torch.light as light
     from chip_smoke import geometry_packed, scatter_plans
 
@@ -377,7 +378,7 @@ def test_scatter_plans_match_twin(dev, name):
     sched = torch.zeros((5, 64), dtype=torch.float32, device=dev)
     sched[0] = 0.001
     plan = scatter_plans(F, light, 64, L)[name]
-    assert plan.kernel_variant & 4
+    assert F.kernel_variant(plan) == F.FORM_VARIANT
     out = torch.empty_like(packed)
     rec, rec_f = F.fused_transport(packed, out, sched, 91, 60, plan)
     ref, ref_rec, ref_f = F.fused_chunk_reference(packed, sched, 91, 60,
@@ -398,11 +399,11 @@ def test_lorentz_plans_match_twin(dev, name):
     """The six plans ``chip_smoke.py`` holds at 2**20 x 256, here at 2**16
     x 64 over a growing-dt schedule: int records equal, every plane (the
     extras included) bitwise, in place equal to out of place; the plans
-    run the mixed instantiation."""
+    run their form libraries."""
     from chip_smoke import lorentz_inputs, lorentz_plans
 
     plan, photons = lorentz_plans(F, 64)[name]
-    assert plan.kernel_variant & 8
+    assert F.kernel_variant(plan) == F.FORM_VARIANT
     packed, sched, starts = lorentz_inputs(torch, plan, photons, 1 << 16,
                                            64, dev, 5)
     out = torch.empty_like(packed)
@@ -424,14 +425,16 @@ def test_lorentz_plans_match_twin(dev, name):
 
 def test_record_tile_plan_matches_twin(dev):
     """The record-tile plan (3 int + 7 float record columns) as its
-    provider hands it over: the chunk clamped to 984, the kernel equal to
-    the twin on chunk 0."""
+    provider hands it over: its chunk no longer clamped (1024: the float
+    sums live in global partials, not in shared-memory tiles, which held
+    it to 984), the kernel equal to the twin on chunk 0 (the run's 1000
+    iterations)."""
     import physicl_tpu_torch as phys
     from chip_smoke import first_chunk_inputs, tile_sim
 
     packed, sched, seed, k, plan, _ = first_chunk_inputs(
         tile_sim(phys, 1 << 16, dev, 1000)[0], F)
-    assert plan.chunk == k == 984
+    assert plan.chunk == 1024 and k == 1000
     assert (plan.n_rec_cols, plan.n_frec_cols) == (3, 7)
     out = torch.empty_like(packed)
     rec, rec_f = F.fused_transport(packed, out, sched, seed, k, plan)
@@ -455,12 +458,12 @@ def test_polarized_plans_match_twin(dev, name):
     """The eleven plans ``chip_smoke.py`` holds at 2**20 x 256, here at
     2**16 x 64: int records equal, every plane (the Stokes and frame rows
     included) bitwise, rec_f within tolerance, in place equal to out of
-    place; the plans run the polarization instantiation."""
+    place; the plans run their form libraries."""
     import physicl_tpu_torch as phys
     from chip_smoke import pol_inputs, pol_plans
 
     plan, photons = pol_plans(F, phys.light, 64)[name]
-    assert plan.kernel_variant & 24 == 24
+    assert plan.has_pol and F.kernel_variant(plan) == F.FORM_VARIANT
     packed, sched, starts = pol_inputs(torch, plan, photons, 1 << 16, 64,
                                        dev, 5)
     out = torch.empty_like(packed)
@@ -531,14 +534,14 @@ def test_user_plans_match_twin(dev, case):
     the former interpreter's limits), here at 2**16 x 64 as their providers
     hand them over: int records equal, every plane (the written-back
     extras included) bitwise, rec_f within tolerance, in place equal to out
-    of place; the user plans run the user instantiation of a library
-    generated for the plan (``ops/codegen.py``)."""
+    of place; the user plans run their form libraries, generated for
+    each form (``ops/codegen.py``)."""
     import physicl_tpu_torch as phys
     from chip_smoke import first_chunk_inputs, user_plan_sim
 
     packed, sched, seed, k, plan, starts = first_chunk_inputs(
         user_plan_sim(phys, case, dev, n=1 << 16, chunk=64), F)
-    assert plan.kernel_variant & 40 == 40 or case == "fluor-callable"
+    assert plan.has_user or case == "fluor-callable"
     if plan.has_user:
         name = os.path.basename(F._library(plan)._name)
         assert name.startswith("libfused_plan_")
@@ -608,7 +611,7 @@ def test_recorded_plans_match_twin(dev, name):
            "wide-17-ops-9-fields": lambda: wide_sim(phys, n, dev,
                                                     chunk=k)}[name]()
     packed, sched, seed, k_act, plan, _ = first_chunk_inputs(sim, F)
-    assert plan.has_fields and plan.kernel_variant & 1
+    assert plan.has_fields
     out = torch.empty_like(packed)
     rec, rec_f = F.fused_transport(packed, out, sched, seed, k_act, plan)
     ref, ref_rec, ref_f = F.fused_chunk_reference(packed, sched, seed,

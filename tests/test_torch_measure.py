@@ -205,13 +205,23 @@ def test_energy_list_mode_scattered_beam_matches_jax(weighted):
             assert len(row[3]) == row[2] and len(row[5]) == row[4]
 
 
+N_COUNTING = 14  # counting sign tallies: 4 int record columns each
+
+
+def _counting_signs(P):
+    return [P.light.ScatterSignMeasureStep(None, True)
+            for _ in range(N_COUNTING)]
+
+
 def test_record_tile_clamps_the_chunk():
-    """A weighted sign tally (3 float columns) and a weighted two-plane
-    energy tally (4) overflow the kernel's float record tiles at 1024
-    iterations: 1024 x (3 int + 7 float x 8 warps) x 4 B > 232,448 B. The
-    prover shortens the chunk to 984 and says so; the records equal a JAX
-    run with the same chunk_steps (the chunk seed follows the chunk index,
-    so parity needs the same chunk length), over a chunk boundary.
+    """The kernel's count tile, [chunk][n_cols] int32 of shared memory (the
+    float sums go to global partials), bounds the chunk: a weighted sign
+    tally, a weighted two-plane energy tally (float columns, which no
+    longer count) and fourteen counting sign tallies (59 int columns)
+    overflow it at 1024 iterations: 1024 x 59 x 4 B > 232,448 B. The
+    prover shortens the chunk to 984 and says so; the records equal a
+    JAX run with the same chunk_steps (the chunk seed follows the chunk
+    index, so parity needs the same chunk length), over a chunk boundary.
     Unscattered photons at dt = 2**-10 (``r + v dt`` exact: XLA's FMA
     cannot move a crossing) start on both sides of the chunk boundary's
     crossing iterations; absorption thins them."""
@@ -220,7 +230,7 @@ def test_record_tile_clamps_the_chunk():
     E = rng.uniform(0.5, 2.0, n)
     w = rng.uniform(0.2, 1.0, n)
     dt = 2.0 ** -10
-    clamped = 232_448 // ((3 + 7 * 8) * 4)
+    clamped = 232_448 // (59 * 4)
     # half along +x from x < 0, half along -y from y > 0, crossing their
     # planes at iterations spread over [5, 990]
     start = rng.uniform(5.0, 990.0, n)
@@ -248,17 +258,23 @@ def test_record_tile_clamps_the_chunk():
                          [np.nan, -0.5 * c_dt, np.nan]], measure_E=True,
             measure_E_mode="sum", weighted=True)
         s.add_step(4, cross)
+        counts = _counting_signs(P)
+        for i, st in enumerate(counts, start=5):
+            s.add_step(i, st)
         s.add_photons(P.light.generate_photon_state(n, E=E, w=w, r=r, v=v))
-        return s, (sign, cross)
+        return s, (sign, cross, counts[-1])
 
-    (js, (jsign, jcross)), (ts, (tsign, tcross)) = _run_both(make)
+    (js, (jsign, jcross, jcount)), (ts, (tsign, tcross, tcount)) = \
+        _run_both(make)
     assert clamped == 984 and ts.plan_report.chunk == clamped
-    assert (f"chunk {clamped}: float record tiles (3 int + 7 float columns"
+    assert (f"chunk {clamped}: record count tile (59 int columns"
             in ts.explain_plan())
     assert (np.asarray(ts.ts, np.float64).tobytes()
             == np.asarray(js.ts, np.float64).tobytes())
     assert len(ts.ts) == clamped + 8
     assert np.asarray(tcross.data)[clamped:, 2].sum() > 0  # both chunks
+    np.testing.assert_array_equal(np.asarray(tcount.data),
+                                  np.asarray(jcount.data))
     for got, want in ((tsign.data, jsign.data), (tcross.data, jcross.data)):
         got, want = np.asarray(got), np.asarray(want)
         assert got.shape == want.shape
@@ -280,9 +296,12 @@ def test_record_tile_clamp_keeps_whole_trace_periods():
         None, True, [[1.0, np.nan, np.nan], [np.nan, 1.0, np.nan]],
         measure_E=True, measure_E_mode="sum", weighted=True))
     s.add_step(4, T.light.TracePathMeasureStep(None, trace_every=10))
+    for i, st in enumerate(_counting_signs(T), start=5):
+        s.add_step(i, st)
     s.add_photons(T.light.generate_photon_state(10, E=1.0))
     steps = s._ordered_steps()
     for st in steps:
         st.setup(s)
     plan = try_build_fused(s, steps, s._init_run_state()).plan
+    assert plan.n_rec_cols == 59
     assert (plan.chunk, plan.stream_every) == (980, 10)

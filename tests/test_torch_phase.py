@@ -123,7 +123,7 @@ def test_recorded_icdf_is_a_kernel_field():
     plan = try_build_fused(s, steps, state).plan
     op = next(o for o in plan.ops if o.kind == "phase")
     assert op.phase_knots is None and op.phase_fn.spec["vars"] == ("u",)
-    assert plan.has_fields and plan.kernel_variant & 1
+    assert plan.has_fields
     ps, _, _ = TF._plan_struct(plan, torch.device("cpu"))
     i = [o.kind for o in plan.ops].index("phase")
     assert ps.ops[i].fld[0] == 0 and list(ps.ops[i].fld[1:]) == [-1] * 5

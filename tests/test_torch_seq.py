@@ -6,11 +6,11 @@ The CUDA kernel runs the main path's plans, ``[kin, iso, sign]`` and
 compile time (``FusedPlan.kernel_seq``, variants 64 and 65), which test a
 collision as ``(b >> 8) <= T`` with ``T = scatter_threshold(pcoll)`` per
 iteration instead of ``pcoll >= unit24(b)``. The kernel itself is held
-against the twin and the generic variant 0 on the card
+against the twin and the plan's form library on the card
 (tests/test_torch_cuda.py, ``chip_smoke.py``); here:
 
 * the bench.py plan selects variant 64 and the extinction plan 65, and
-  every near miss keeps its generic instantiation;
+  every near miss runs its form library (``FORM_VARIANT``);
 * ``T(pcoll)`` agrees with the float compare for every 24-bit draw;
 * the host's per-iteration ``pcoll`` is the twin's, bit for bit, and the
   integer test on the twin's draws picks exactly the photons the twin and
@@ -66,10 +66,11 @@ def _plan(sim):
                          ids=["bench", "extinction"])
 def test_main_plans_select_the_sequence_instantiation(absorb, seq, variant):
     plan = _plan(_sim(absorb))
-    assert plan.kernel_seq == seq and plan.kernel_variant == variant
+    assert plan.kernel_seq == seq and TF.kernel_variant(plan) == variant
     assert TF.SEQ_VARIANTS[seq] == variant
     generic = dataclasses.replace(plan, specialize=False)
-    assert generic.kernel_seq is None and generic.kernel_variant == 0
+    assert generic.kernel_seq is None
+    assert TF.kernel_variant(generic) == TF.FORM_VARIANT
 
 
 def _main(**kw):
@@ -142,27 +143,33 @@ NEAR_MISSES = {
 
 @pytest.mark.parametrize("name", sorted(NEAR_MISSES))
 def test_near_misses_keep_their_generic_instantiation(name):
+    """A near miss runs its form's library, the same one as with
+    ``specialize=False``."""
+    from physicl_tpu_torch.ops import codegen as CG
+
     plan = NEAR_MISSES[name]()
     assert plan.kernel_seq is None
-    generic = dataclasses.replace(plan, specialize=False).kernel_variant
-    assert plan.kernel_variant == generic < 64
+    assert TF.kernel_variant(plan) == TF.FORM_VARIANT
+    generic = dataclasses.replace(plan, specialize=False)
+    assert CG.form_source(generic) == CG.form_source(plan)
 
 
 def test_the_bench_form_alone_selects_it():
-    assert _main().kernel_variant == 64
-    assert _main(ops=[TF._Op("kin"), _del(), TF._Op("sign", cols=(1, 2))]
-                 ).kernel_variant == 65
-    assert _main(chunk=7264).kernel_variant == 64
+    assert TF.kernel_variant(_main()) == 64
+    assert TF.kernel_variant(_main(ops=[TF._Op("kin"), _del(),
+                                        TF._Op("sign", cols=(1, 2))])) == 65
+    assert TF.kernel_variant(_main(chunk=7264)) == 64
 
 
 def test_bench_plan_at_chunk_8192_keeps_the_generic_instantiation():
-    """The pipeline sizes a chunk by the generic record tile (20 B an
+    """The pipeline sizes a chunk by the form kernel's count tile (20 B an
     iteration for the bench plan's five columns), so chunk_steps = 8192
     stays 8192; the op-sequence launch would need 256 KB of shared memory
-    there, so the plan selects the generic variant 0, which fits."""
+    there, so the plan runs its form library, which fits."""
     plan = _plan(_sim(chunk=8192))
     assert plan.chunk == 8192 and plan.n_rec_cols == 5
-    assert plan.kernel_seq is None and plan.kernel_variant == 0
+    assert plan.kernel_seq is None
+    assert TF.kernel_variant(plan) == TF.FORM_VARIANT
     assert 8192 * plan.n_rec_cols * 4 <= TF.MAX_SMEM_BYTES
 
 

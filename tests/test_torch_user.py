@@ -282,17 +282,19 @@ def test_user_plan_uses_the_user_instantiation():
     plan = try_build_fused(s, steps, state).plan
     assert [op.kind for op in plan.ops] == ["kin", "iso", "kstate",
                                            "custom", "reduce"]
-    assert plan.kernel_variant == 8 | 32 and not plan.has_pol
+    assert plan.has_user and not plan.has_pol
     assert plan.extras == ("dose",) and plan.extras_writeback == ("dose",)
-    # the plan's own library instantiates that variant with its three
-    # programs compiled in (ops/codegen.py)
+    # the plan's form library compiles its three programs in
+    # (ops/codegen.py), each the body of its op's Form::user
     from physicl_tpu_torch.ops import codegen as CG
 
-    src = CG.plan_source(plan)
-    assert "#define PHYSICL_USER_PLAN 40\n" in src
+    src = CG.form_source(plan)
+    assert "#define PHYSICL_FORM 1\n" in src
+    assert CG.plan_form(plan)["kExtras"] == 1
     assert [i for i, _ in CG.user_ops(plan)] == [2, 3, 4]
     for i in (2, 3, 4):
-        assert f"void user_op_{i}(" in src and f"case {i}:" in src
+        assert (f"void user_op_{i}(" in src
+                and f"std::integral_constant<int, {i}>" in src)
 
 
 def test_programs_past_the_former_limits():
