@@ -773,9 +773,8 @@ SEQ_OPS = {
     "layered_r": _sum((8, 0, 0, 0), _SQRT, (0, 3, 1, 0)),
     "layered_axis": (0, 3, 1, 0),
     "layered_level": (0, 2, 2, 0),
-    # one postfix instruction of an expression field: its operation (a
-    # transcendental as the compiler expands libm's: 12 and a MUFU); the
-    # interpreter's fetch and dispatch are not the field's work
+    # one instruction of an expression field: its operation (a
+    # transcendental as the compiler expands libm's: 12 and a MUFU)
     "ins": (1, 0, 0, 0),
     "ins_transcendental": (12, 2, 1, 1),
 }
@@ -1133,12 +1132,14 @@ def transport_work(plan, slots, k_act, starts, events=None):
             per.append(user_cost(op))
         elif op.kind == "lorentz":
             per.append(SEQ_OPS["lorentz"])
-            if op.e_const or op.e_fns:
+            if op.e_const or op.e_fn is not None:
                 per.append(SEQ_OPS["lorentz_E"])
-            if op.b_const or op.b_fns:
+            if op.b_const or op.b_fn is not None:
                 per.append(SEQ_OPS["lorentz_B"])
-            # recorded fields: each component's program at every push
-            per += [prog_ops(fn.spec) for fn in op.e_fns + op.b_fns]
+            # recorded fields: each field's program (its three components
+            # at once) at every push
+            per += [prog_ops(fn.spec) for fn in (op.e_fn, op.b_fn)
+                    if fn is not None]
             if op.qm_plane >= 0:
                 per.append(SEQ_OPS["lorentz_qm"])
         else:
@@ -1269,6 +1270,7 @@ def main():
            "polarized": 0.0, "polarimetry": 0.0, "user": 0.0,
            "spectrum": 0.0, "mirror": 0.0, "recorded-E-B": 0.0,
            "phase-icdf": 0.0, "phase-icdf-hg": 0.0, "wide": 0.0,
+           "past-caps": 0.0,
            "shrink": 0.0, "main-injected": 0.0, "main-mesh": 0.0,
            "main-mp": 0.0}
     a_E, b_E = planck_window()
@@ -1390,30 +1392,33 @@ def main():
     main_build = threading.Thread(target=_build.load)
     main_build.start()
     L_any = 3e6
-    explicit = [(name, plan) for name, plan in media_plans(
-        F, light, 256, 4 * C_LIGHT * MEDIA_DT, 64).items()]
+    # in the order the phases first launch them
+    explicit = [("kin-del-iso-sign", plan_of(("kin", "del", "iso", "sign"),
+                                             256)),
+                ("kin-iso-sign-form", dataclasses.replace(
+                    plan_of(("kin", "iso", "sign"), 256), specialize=False)),
+                ("kin-iso(n=1)-sign", unit_field_plan(256))]
+    explicit += list(emit_plans(256).items())
+    explicit += list(media_plans(F, light, 256, 4 * C_LIGHT * MEDIA_DT,
+                                 64).items())
     explicit += list(geometry_plans(F, 256, L_any).items())
     explicit += list(scatter_plans(F, light, 256, L_any).items())
+    explicit += list(gate_plans(F, light).items())
     explicit += [(n, p) for n, (p, _) in lorentz_plans(F, 256).items()]
     explicit += [(n, p) for n, (p, _) in pol_plans(F, light, 256).items()]
-    explicit += list(emit_plans(256).items())
-    explicit += list(gate_plans(F, light).items())
-    explicit += [("kin-del-iso-sign", plan_of(("kin", "del", "iso", "sign"),
-                                              256)),
-                 ("kin-iso-sign-form", dataclasses.replace(
-                     plan_of(("kin", "iso", "sign"), 256), specialize=False)),
-                 ("kin-iso(n=1)-sign", unit_field_plan(256))]
     sources = form_sources(phys, sampler, explicit)
     t_plan = time.perf_counter() - t0
     main_build.join()
     _build.load()  # raises here if the build failed
     t_main = time.perf_counter() - t0
-    # the media path's form alone; then the rest, the longest sources (the
-    # longest builds) first
+    # the media path's form alone; then the rest: the three longest sources
+    # (the longest builds) first, the others in the order the phases first
+    # launch them
     first = next(((k, v) for k, v in sources.items()
                   if k.startswith("media [")), next(iter(sources.items())))
-    rest = sorted(((k, v) for k, v in sources.items() if k != first[0]),
-                  key=lambda kv: -len(kv[1]))
+    rest = [(k, v) for k, v in sources.items() if k != first[0]]
+    longest = sorted(rest, key=lambda kv: -len(kv[1]))[:3]
+    rest = longest + [kv for kv in rest if kv not in longest]
     _build.load_plan(first[1], first[0])
     alone = _build.plan_builds[_build.plan_key(first[1])]["seconds"]
     _build.start_plan_builds(dict(rest))
@@ -3193,6 +3198,50 @@ def cavity_path(torch, phys, F, dev, card, cft):
     return out
 
 
+def geometry_twin_sim(phys, case, where, sampler, n=1 << 16):
+    """geometry_card_vs_cpu's Simulation of ``case`` ("reflect" or
+    "periodic") on ``where``. Returns ``(sim, tally or None, shell,
+    trace)``."""
+    light = phys.light
+    c_dt = float(light.c) * 0.001
+    L = 24 * c_dt
+    h = L / 2
+    sim = phys.Simulation(until_t=0.0475, seed=8, chunk_steps=16,
+                          device=where)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    sim.add_step(2, light.ScatterIsotropicStep(A=0.1 / c_dt, n=1.0))
+    if case == "reflect":
+        sim.add_step(3, light.ScatterDeleteStep(1.0, 0.01 / c_dt))
+        sim.add_step(4, phys.newton.ReflectingBoundaryStep(((0.0, L),) * 3))
+        tally = light.ScatterMeasureStep(
+            None, True, [(h + 0.37 * c_dt, np.nan, np.nan),
+                         (np.nan, 0.3 * L, np.nan)], measure_E=True)
+        shell = light.SphericalShellMeasureStep(
+            radius=0.31 * L, center=(h, h, h), weighted=True)
+        tr = light.TracePathMeasureStep(None, trace_dv=True)
+    else:
+        sim.add_step(4, phys.newton.PeriodicBoundaryStep(((0.0, L),) * 3))
+        sim.add_step(3, phys.newton.AbsorbingSphereStep(
+            0.113 * L, center=(h, h, h), kill_inside=True))
+        tally = None
+        shell = light.SphericalShellMeasureStep(radius=0.383 * L,
+                                                center=(h, h, h))
+        tr = light.TracePathMeasureStep(None, trace_every=4,
+                                        trace_dtype="bfloat16")
+    if tally is not None:
+        sim.add_step(5, tally)
+    sim.add_step(6, shell)
+    sim.add_step(7, tr)
+    rng = np.random.default_rng(4)
+    d = rng.normal(size=(3, n))
+    sim.add_photons(light.generate_photon_state(
+        n, E=sampler.sample_device(3, n, device="cpu"),
+        v=d / np.linalg.norm(d, axis=0) * float(light.c),
+        r=rng.uniform(0.1, 0.9, (3, n)) * L, device=where))
+    return sim, tally, shell, tr
+
+
 def geometry_card_vs_cpu(torch, phys, F, sampler, err):
     """Phase: small Simulations with every new step on the card and on the
     CPU twin: a scattering, absorbing reflecting box with two energy-list
@@ -3201,49 +3250,11 @@ def geometry_card_vs_cpu(torch, phys, F, sampler, err):
     bfloat16 trace every 4th iteration."""
     phase("stream and geometry Simulations on the card against the CPU twin "
           "(2**16 photons)")
-    light = phys.light
-    c_dt = float(light.c) * 0.001
-    L = 24 * c_dt
-    h = L / 2
-    n = 1 << 16
     for case in ("reflect", "periodic"):
         runs = {}
         for where in ("cuda", "cpu"):
-            sim = phys.Simulation(until_t=0.0475, seed=8, chunk_steps=16,
-                                  device=where)
-            sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
-            sim.add_step(1, phys.newton.NewtonianKinematicsStep())
-            sim.add_step(2, light.ScatterIsotropicStep(A=0.1 / c_dt, n=1.0))
-            if case == "reflect":
-                sim.add_step(3, light.ScatterDeleteStep(1.0, 0.01 / c_dt))
-                sim.add_step(4, phys.newton.ReflectingBoundaryStep(
-                    ((0.0, L),) * 3))
-                tally = light.ScatterMeasureStep(
-                    None, True, [(h + 0.37 * c_dt, np.nan, np.nan),
-                                 (np.nan, 0.3 * L, np.nan)], measure_E=True)
-                shell = light.SphericalShellMeasureStep(
-                    radius=0.31 * L, center=(h, h, h), weighted=True)
-                tr = light.TracePathMeasureStep(None, trace_dv=True)
-            else:
-                sim.add_step(4, phys.newton.PeriodicBoundaryStep(
-                    ((0.0, L),) * 3))
-                sim.add_step(3, phys.newton.AbsorbingSphereStep(
-                    0.113 * L, center=(h, h, h), kill_inside=True))
-                tally = None
-                shell = light.SphericalShellMeasureStep(
-                    radius=0.383 * L, center=(h, h, h))
-                tr = light.TracePathMeasureStep(None, trace_every=4,
-                                                trace_dtype="bfloat16")
-            if tally is not None:
-                sim.add_step(5, tally)
-            sim.add_step(6, shell)
-            sim.add_step(7, tr)
-            rng = np.random.default_rng(4)
-            d = rng.normal(size=(3, n))
-            sim.add_photons(light.generate_photon_state(
-                n, E=sampler.sample_device(3, n, device="cpu"),
-                v=d / np.linalg.norm(d, axis=0) * float(light.c),
-                r=rng.uniform(0.1, 0.9, (3, n)) * L, device=where))
+            sim, tally, shell, tr = geometry_twin_sim(phys, case, where,
+                                                      sampler)
             sim.start()
             sim.join()
             runs[where] = (sim, tally and tally.data, np.asarray(shell.data),
@@ -3768,40 +3779,46 @@ def run_all_paths(torch, phys, F, dev, card):
     return out
 
 
+def tissue_twin_sim(phys, where, n=1 << 16):
+    """tissue_card_vs_cpu's Simulation on ``where``. Returns ``(sim,
+    deposition, far plane)``."""
+    light = phys.light
+    c_dt = float(light.c) * 0.001
+    L = 32 * c_dt
+    sim = phys.Simulation(until_t=0.0635, seed=9, chunk_steps=32,
+                          device=where)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    sim.add_step(2, light.RefractiveInterfaceStep(0.5 * L + 0.37 * c_dt,
+                                                  1.0, 1.4, axis=2))
+    sim.add_step(3, light.ScatterHenyeyGreensteinStep(A=0.1 / c_dt, n=1.0,
+                                                      g=0.9))
+    dele = light.ScatterDeleteStep(1.0, 0.01 / c_dt, implicit_capture=True,
+                                   measure_deposition=True)
+    sim.add_step(4, dele)
+    sim.add_step(5, phys.newton.AbsorbingBoundaryStep(((0.0, L),) * 3))
+    far = light.ScatterMeasureStep(
+        None, True, [(np.nan, np.nan, 0.2 * L)], weighted=True,
+        measure_E=True, measure_E_mode="sum")
+    sim.add_step(6, far)
+    rng = np.random.default_rng(4)
+    d = rng.normal(size=(3, n))
+    sim.add_photons(light.generate_photon_state(
+        n, E=1.0, v=d / np.linalg.norm(d, axis=0) * float(light.c),
+        r=rng.uniform(0.1, 0.9, (3, n)) * L, device=where))
+    return sim, dele, far
+
+
 def tissue_card_vs_cpu(torch, phys, F):
     """Phase: the tissue plan (kin -> fresnel -> hg -> implicit-capture
     absorption -> absorbing box -> a weighted plane tally with energy sums)
     at 2**16 photons on the card and on the CPU twin."""
     phase("tissue Simulation on the card against the CPU twin (2**16 "
           "photons)")
-    light = phys.light
-    c_dt = float(light.c) * 0.001
-    L = 32 * c_dt
     n = 1 << 16
     runs = {}
     for where in ("cuda", "cpu"):
-        sim = phys.Simulation(until_t=0.0635, seed=9, chunk_steps=32,
-                              device=where)
-        sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
-        sim.add_step(1, phys.newton.NewtonianKinematicsStep())
-        sim.add_step(2, light.RefractiveInterfaceStep(0.5 * L + 0.37 * c_dt,
-                                                      1.0, 1.4, axis=2))
-        sim.add_step(3, light.ScatterHenyeyGreensteinStep(
-            A=0.1 / c_dt, n=1.0, g=0.9))
-        dele = light.ScatterDeleteStep(1.0, 0.01 / c_dt,
-                                       implicit_capture=True,
-                                       measure_deposition=True)
-        sim.add_step(4, dele)
-        sim.add_step(5, phys.newton.AbsorbingBoundaryStep(((0.0, L),) * 3))
-        far = light.ScatterMeasureStep(
-            None, True, [(np.nan, np.nan, 0.2 * L)], weighted=True,
-            measure_E=True, measure_E_mode="sum")
-        sim.add_step(6, far)
-        rng = np.random.default_rng(4)
-        d = rng.normal(size=(3, n))
-        sim.add_photons(light.generate_photon_state(
-            n, E=1.0, v=d / np.linalg.norm(d, axis=0) * float(light.c),
-            r=rng.uniform(0.1, 0.9, (3, n)) * L, device=where))
+        sim, dele, far = tissue_twin_sim(phys, where, n)
         sim.start()
         sim.join()
         st = sim.sim_state
@@ -4397,6 +4414,30 @@ def planck_path(torch, phys, F, P, sampler, dev, card):
     return out
 
 
+def emitter_twin_sim(phys, sampler, where):
+    """card_vs_cpu's emitter Simulation on ``where``: Planck energies,
+    plane tallies, recycling at chunk_steps=32. Returns ``(sim, cross,
+    sign)``."""
+    light = phys.light
+    sim = phys.Simulation(until_t=0.1995, seed=2, capacity=16384,
+                          chunk_steps=32, device=where)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
+    sim.add_step(1, light.PhotonEmitterStep(500, E=sampler, isotropic=True))
+    sim.add_step(2, phys.newton.NewtonianKinematicsStep())
+    sim.add_step(3, light.ScatterDeleteStep(np.double(0.001),
+                                            np.double(0.001)))
+    c_dt = float(light.c) * 0.001
+    cross = light.ScatterMeasureStep(
+        None, True, [(2.5 * c_dt, np.nan, np.nan),
+                     (np.nan, -1.5 * c_dt, np.nan)],
+        measure_E=True, measure_E_mode="sum")
+    sim.add_step(4, cross)
+    sign = light.ScatterSignMeasureStep(None, True)
+    sim.add_step(5, sign)
+    sim.add_photons(light.generate_photon_state(100, E=1.0))
+    return sim, cross, sign
+
+
 def card_vs_cpu(torch, phys, F, sampler, err):
     light = phys.light
     phase("Simulation on the card against the CPU twin (2**16 photons, "
@@ -4435,23 +4476,7 @@ def card_vs_cpu(torch, phys, F, sampler, err):
           "energies, plane tallies, recycling at chunk_steps=32)")
     runs = {}
     for where in ("cuda", "cpu"):
-        sim = phys.Simulation(until_t=0.1995, seed=2, capacity=16384,
-                              chunk_steps=32, device=where)
-        sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
-        sim.add_step(1, light.PhotonEmitterStep(500, E=sampler,
-                                                isotropic=True))
-        sim.add_step(2, phys.newton.NewtonianKinematicsStep())
-        sim.add_step(3, light.ScatterDeleteStep(np.double(0.001),
-                                                np.double(0.001)))
-        c_dt = float(light.c) * 0.001
-        cross = light.ScatterMeasureStep(
-            None, True, [(2.5 * c_dt, np.nan, np.nan),
-                         (np.nan, -1.5 * c_dt, np.nan)],
-            measure_E=True, measure_E_mode="sum")
-        sim.add_step(4, cross)
-        sign = light.ScatterSignMeasureStep(None, True)
-        sim.add_step(5, sign)
-        sim.add_photons(light.generate_photon_state(100, E=1.0))
+        sim, cross, sign = emitter_twin_sim(phys, sampler, where)
         sim.start()
         sim.join()
         st = sim.sim_state
@@ -5230,12 +5255,12 @@ def past_limits(p):
 
 def user_plan_sims(phys, dev, n):
     """``{label: Simulation}`` of every kernel 1i plan this script runs
-    (``USER_PLANS`` but the field-only one, the user and spectrum paths,
+    (``USER_PLANS``, the field-only one included, the user and spectrum paths,
     the deep shield's analog and split_chunk band tallies) at ``n``
     photons on ``dev``: their generated sources depend on the programs,
     not on the population."""
     sims = {case: user_plan_sim(phys, case, dev, n=n, chunk=16)
-            for case in USER_PLANS if case != "fluor-callable"}
+            for case in USER_PLANS}
     sims["user"] = user_sim(phys, n, dev, iters=16, chunk=16)[0]
     sims["spectrum"] = spectrum_sim(phys, n, dev, iters=16)[0]
     for mode in ("analog", "split_chunk"):
@@ -5290,21 +5315,56 @@ def path_sims(phys, dev, n, sampler):
     sims["phase-icdf-hg"] = phase_sim(phys, n, dev, icdf=hg_icdf, iters=16,
                                       chunk=16)[0]
     sims["wide"] = wide_sim(phys, n, dev, chunk=16)
+    sims["past-caps"] = past_caps_sim(phys, n, dev, chunk=16)[0]
+    return sims
+
+
+def twin_sims(phys, sampler, n):
+    """``{label: Simulation}`` of the plans that the card-against-CPU and
+    mesh phases run (the geometry, tissue and emitter twins, the generic
+    scatter workloads fused, the forced phase law, the mesh's emitter,
+    recycling and layered runs, the mid-run fallback's first chunks) at
+    ``n`` photons on the CPU: their forms do not depend on the size or the
+    mesh."""
+    dirs = np.random.default_rng(43).normal(size=(3, n))
+    dirs /= np.linalg.norm(dirs, axis=0)
+    sims = {f"geometry-{case}": geometry_twin_sim(phys, case, "cpu",
+                                                  sampler, n)[0]
+            for case in ("reflect", "periodic")}
+    sims["tissue"] = tissue_twin_sim(phys, "cpu", n)[0]
+    sims["emitter-twin"] = emitter_twin_sim(phys, sampler, "cpu")[0]
+    for case in ("compton", "polarized"):
+        sims[f"gsc-{case}"] = gsc_sim(phys, case, "cpu", "auto", n)[0]
+    sims["phase-law"] = phase_law_sim(phys, "cpu", n)
+    sims["emitter-windows"] = emitter_sign_sim(phys, "cpu", 3000, n, 20,
+                                               1024)[0]
+    sims["emitter-recycle"] = emitter_sign_sim(phys, "cpu", 8000, n, 40, 8,
+                                               absorb=True)[0]
+    sims["layered-capture"] = layered_capture_sim(phys, "cpu", 0.004,
+                                                  dirs)[0]
+    sims["fallback"] = main_plan_sim(phys, n, "cpu", 16, 16,
+                                     scatter=False)[0]
     return sims
 
 
 def form_sources(phys, sampler, plans=()):
-    """``{label: generated source}`` of every form this script runs: the
-    plans of ``user_plan_sims`` and ``path_sims``, planned on the CPU, and
-    ``plans`` (explicit FusedPlans); labelled by their first plan and
+    """``{label: generated source}`` of every form this script runs, in
+    about the order its phases first launch them: ``plans`` (explicit
+    FusedPlans), then the plans of ``path_sims``, ``user_plan_sims`` and
+    ``twin_sims``, planned on the CPU; labelled by their first plan and
     deduplicated by source (plans that differ only in numbers share it)."""
     from physicl_tpu_torch.ops import codegen
 
-    sims = {**user_plan_sims(phys, "cpu", 1 << 10),
-            **path_sims(phys, "cpu", 1 << 10, sampler)}
+    sims = {**path_sims(phys, "cpu", 1 << 10, sampler),
+            **user_plan_sims(phys, "cpu", 1 << 10),
+            **twin_sims(phys, sampler, 1 << 10)}
     found = [(name, planned(sim)[1].plan) for name, sim in sims.items()]
+    # the past-caps plan with its Plan in a device buffer too
+    found += [(f"{name}-plan-buffer", dataclasses.replace(
+        plan, plan_buffer=True, _cache={})) for name, plan in found
+        if name == "past-caps"]
     sources = {}
-    for name, plan in found + list(plans):
+    for name, plan in list(plans) + found:
         if plan.kernel_seq is None:
             src = codegen.form_source(plan)
             if src not in sources.values():
@@ -5533,36 +5593,35 @@ def hg_icdf(u):
 
 
 def prog_ops(spec):
-    """The SEQ_OPS tuple of one evaluation of a recorded expression
-    program: each operation it asks for (a divide as _DIV, a root as
-    _SQRT, a transcendental or powf as "ins_transcendental", an integer
-    power its products, min and max on the ALU pipe), constants and
-    variables free; the interpreter's fetch and dispatch are not the
-    program's work."""
-    from physicl_tpu_torch.ops import fields as FL
+    """The SEQ_OPS tuple of one evaluation of an expression field's program
+    (all its outputs): each operation it asks for (a divide or reciprocal
+    as _DIV, a root as _SQRT, a transcendental or powf as
+    "ins_transcendental", an integer power its products, min, max, the
+    roundings, abs, compares, selects and logic on the ALU pipe, the rest
+    on the FMA pipe), loads, constants and stores free."""
+    from physicl_tpu_torch.ops import record as RC
 
     terms = []
-    for code, val in spec["prog"]:
-        if code in (FL.INS_CONST, FL.INS_VAR):
+    for code, _, _, _, y, _ in spec["prog"].ins:
+        if code in (RC.U_CONST, RC.U_LD, RC.U_ST):
             continue
-        if code == FL.INS_DIV:
+        if code in (RC.U_DIV, RC.U_RECIP):
             terms.append(_DIV)
-        elif code == FL.INS_SQRT:
+        elif code == RC.U_SQRT:
             terms.append(_SQRT)
-        elif code in (FL.INS_POW, FL.INS_EXP, FL.INS_LOG, FL.INS_LOG10,
-                      FL.INS_SIN, FL.INS_COS, FL.INS_TAN):
+        elif code in (RC.U_POW, RC.U_EXP, RC.U_LOG, RC.U_LOG10, RC.U_SIN,
+                      RC.U_COS, RC.U_TAN):
             terms.append(SEQ_OPS["ins_transcendental"])
-        elif code == FL.INS_IPOW:
-            e = abs(int(val))
+        elif code == RC.U_IPOW:
+            e = abs(int(y))
             terms.append((max(e.bit_length() + bin(e).count("1") - 2, 0),
                           0, 0, 0))
-            if val < 0:
+            if y < 0:
                 terms.append(_DIV)
-        elif code in (FL.INS_MIN, FL.INS_MAX, FL.INS_FLOOR, FL.INS_CEIL,
-                      FL.INS_FABS):
-            terms.append((0, 1, 0, 0))
-        else:
+        elif code in (RC.U_ADD, RC.U_SUB, RC.U_MUL, RC.U_NEG):
             terms.append((1, 0, 0, 0))
+        else:
+            terms.append((0, 1, 0, 0))
     return _sum(*terms) if terms else (0, 0, 0, 0)
 
 
@@ -5638,12 +5697,88 @@ def wide_sim(phys, n, dev, chunk=RG_K):
     return sim
 
 
+PAST_CAPS = "past-caps-40-ops-40-planes-20-fields"
+PAST_TWIN_K = 64  # the past-caps plan's iterations held against its twin
+
+
+def past_caps_expr():
+    """A density string of 600 field instructions: 90 sine terms and a
+    product nested 24 deep (past the interpreter's former 256 instructions
+    and 16 stack levels); its value stays within [1, 1.01] for |r| below
+    10^7."""
+    terms = [f"1e-4 * fabs(sin(r{k % 3}[gid] * {k + 1}e-7 + {k}.5))"
+             for k in range(90)]
+    nest = "".join(f"(1.0 + 1e-9 * r{k % 3}[gid] * " for k in range(24))
+    return "1.0 + " + " + ".join(terms) + " + 1e-3 * " + nest + "1.0" \
+        + ")" * 24
+
+
+def past_caps_sim(phys, n, dev, chunk=RG_K):
+    """A plan past the port's former kernel caps (32 ops, 32 crossing
+    planes, 16 fields, 256 expression instructions): 40 ops, 40 crossing
+    planes, 20 distinct fields. kin; 17 iso with string densities (one of
+    them ``past_caps_expr``); a del with a string n(r) and a recorded
+    ``torch.where`` A(E); 17 hg, one with a string n(r); a rayl; two
+    crossing tallies of 20 planes each; a sign. Photons start within 3 c dt
+    of the origin with energies in (0.5, 2). Returns ``(sim, sign,
+    tallies)``."""
+    import torch
+
+    light = phys.light
+    c_dt = float(light.c) * 0.001
+    sim = phys.Simulation(until_t=(chunk - 0.5) * 0.001, seed=6,
+                          chunk_steps=chunk, device=dev, auto_shrink=False)
+    steps = [phys.UpdateTimeStep(lambda s: np.double(0.001)),
+             phys.newton.NewtonianKinematicsStep()]
+    for k in range(17):
+        n_r = (past_caps_expr() if k == 0 else
+               f"1.0 + 0.25 * cos(r{k % 3}[gid] * {k + 1}e-6)")
+        steps.append(light.ScatterIsotropicStep(
+            A=0.01 / c_dt, variable_n=True, variable_n_fn=n_r))
+    steps.append(light.ScatterDeleteStep(
+        np.double(1.0), np.double(0.01 / c_dt), variable_n=True,
+        variable_n_fn="1.0 + 0.5 * sin(r2[gid] * 1e-6)",
+        A_fn=lambda E: torch.where(E > 1.0, E, 1.0)))
+    for k in range(17):
+        if k == 0:
+            steps.append(light.ScatterHenyeyGreensteinStep(
+                A=0.01 / c_dt, g=0.3, variable_n=True,
+                variable_n_fn="fmax(0.5, 1.0 - r0[gid] * 1e-8)"))
+        else:
+            steps.append(light.ScatterHenyeyGreensteinStep(
+                A=0.01 / c_dt, n=1.0, g=0.05 * k - 0.4))
+    steps.append(light.ScatterRayleighStep(A=0.01 / c_dt, n=1.0))
+    tallies = []
+    for axis in (0, 1):
+        locs = []
+        for j in range(20):
+            loc = [np.nan] * 3
+            loc[axis] = (j - 9.5) * 0.4 * c_dt
+            locs.append(tuple(loc))
+        tallies.append(light.ScatterMeasureStep(None, True, locs))
+    steps += tallies
+    sign = light.ScatterSignMeasureStep(None, True)
+    steps.append(sign)
+    for i, st in enumerate(steps):
+        sim.add_step(i, st)
+    rng = np.random.default_rng(9)
+    sim.add_photons(light.generate_photon_state(
+        n, E=rng.uniform(0.5, 2.0, n), r=rng.uniform(-3, 3, (3, n)) * c_dt,
+        device=dev))
+    return sim, sign, tallies
+
+
 def recorded_plan_phase(torch, phys, F, dev, compare, card, times):
-    """Phase: fused_transport against the twin on the new plans at 2**20
+    """Phase: fused_transport against the twin on the field plans at 2**20
     slots x 256 iterations, as their providers hand them over (the mirror's
     recorded B, recorded E and B with a constant component, the two
-    recorded inverse CDFs, the wide plan): int records equal, planes
-    bitwise; each timed against its bound."""
+    recorded inverse CDFs, the wide plan, the plan past the former caps,
+    held against its twin over its first PAST_TWIN_K iterations (the twin
+    of 40 ops takes ~30 s over 256 on the card), and that plan with its
+    Plan in a device buffer, held against the parameter route's kernel
+    over every iteration): int records equal, planes bitwise, float
+    records within rtol 1e-5; each timed against its bound, with its form
+    library's build seconds, registers, stack frame and spills."""
     phase(f"fused_transport vs twin on the recorded-field and wide plans "
           f"(2**20 slots, {RG_K} iterations)")
     sims = {
@@ -5658,21 +5793,50 @@ def recorded_plan_phase(torch, phys, F, dev, compare, card, times):
             phys, RG_C, dev, icdf=hg_icdf, iters=RG_K, chunk=RG_K)[0],
             "phase-icdf-hg"),
         "wide-17-ops-9-fields": (lambda: wide_sim(phys, RG_C, dev), "wide"),
+        PAST_CAPS: (lambda: past_caps_sim(phys, RG_C, dev)[0], "past-caps"),
+        PAST_CAPS + "-plan-buffer": (None, "past-caps"),
     }
+    past = None
     for name, (make, path) in sims.items():
-        packed, sched, seed, k, plan, _ = first_chunk_inputs(make(), F)
+        if make is None:  # the same plan and inputs, its Plan in a buffer
+            packed, sched, seed, k, plan, ref = past
+            plan = dataclasses.replace(plan, plan_buffer=True, _cache={})
+        else:
+            packed, sched, seed, k, plan, _ = first_chunk_inputs(make(), F)
         check(k == RG_K and plan.has_fields, f"{name}: plan {k} iterations, "
               f"fields {plan.has_fields}")
         specs, _ = F.plan_fields(plan.ops)
-        n_ins = sum(len(sp["prog"]) for sp in specs if sp["kind"] == "expr")
+        n_ins = sum(len(sp["prog"].ins) for sp in specs
+                    if sp["kind"] == "expr")
         if name.startswith("wide"):
             check(len(plan.ops) >= 17 and len(specs) == 9 and n_ins >= 65,
                   f"{name}: {len(plan.ops)} ops, {len(specs)} fields, "
                   f"{n_ins} instructions")
-        plain_ms = compare(name, packed, sched, k, plan, None, path, seed,
-                           need_bitwise=True)
-        res = torch.empty_like(packed)
-        rec = F.fused_transport(packed, res, sched, seed, k, plan)[0]
+        if name == PAST_CAPS:
+            n_ax = sum(len(op.axes) for op in plan.ops)
+            longest = max(len(sp["prog"].ins) for sp in specs)
+            check((len(plan.ops), n_ax, len(specs)) == (40, 40, 20)
+                  and longest >= 560 and not plan.plan_buffer,
+                  f"{name}: {len(plan.ops)} ops, {n_ax} planes, "
+                  f"{len(specs)} fields, longest program {longest}")
+        if make is None:
+            res = torch.empty_like(packed)
+            rec = F.fused_transport(packed, res, sched, seed, k, plan)[0]
+            check(torch.equal(res, ref[0]) and torch.equal(rec, ref[1]),
+                  f"{name}: the buffer route differs from the parameter "
+                  "route")
+            plain_ms = float("nan")
+            print(f"{name}: int records and planes bitwise equal to the "
+                  f"parameter route's over {k} iterations", flush=True)
+        else:
+            kc = PAST_TWIN_K if name == PAST_CAPS else k
+            plain_ms = compare(name, packed, sched, kc, plan, None, path,
+                               seed, need_bitwise=True)
+            res = torch.empty_like(packed)
+            rec = F.fused_transport(packed, res, sched, seed, k, plan)[0]
+            if name == PAST_CAPS:
+                past = (packed, sched, seed, k, plan, (res.clone(),
+                                                       rec.clone()))
         ms = cuda_ms(lambda: F.fused_transport(packed, res, sched, seed, k,
                                                plan), 5, torch)
         events = expected_events(plan, packed,
@@ -5680,12 +5844,16 @@ def recorded_plan_phase(torch, phys, F, dev, compare, card, times):
                                  float(sched[0, 0]))
         b_ms, b_by = transport_bound(plan, packed.shape[1], k, None, events)
         times[name] = ms
+        build = form_build(plan).get("seconds", float("nan"))
         print(f"{name} at 2**20 x {k}: ops {[op.kind for op in plan.ops]}, "
               f"{len(specs)} fields, {n_ins} expression instructions; "
-              f"form library ({form_regs(plan)}); kernel {ms:.3f} ms, "
-              f"twin {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}) "
-              f"[{card}]", flush=True)
+              f"form library ({form_regs(plan)}; built in {build:.2f} s); "
+              f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms"
+              + (f" over {PAST_TWIN_K} iterations" if name == PAST_CAPS
+                 else "") + f", bound {b_ms:.3f} ms ({b_by}) [{card}]",
+              flush=True)
         del packed, res
+    del past
 
 
 def mirror_path(torch, phys, F, dev, card, compare):
@@ -5729,6 +5897,19 @@ def mirror_path(torch, phys, F, dev, card, compare):
     return entry, launches, rate
 
 
+def phase_law_sim(phys, dev, n=PHF_LAW_N):
+    """One forced scatter (A c dt = 1) of ``n`` photons along +x through the
+    recorded linear inverse CDF."""
+    c = float(phys.light.c)
+    sim = phys.Simulation(until_t=0.5 * 0.001, seed=0, device=dev)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    sim.add_step(2, phys.light.ScatterPhaseFunctionStep(
+        A=1.0 / (c * 0.001), n=1.0, cos_theta_icdf=linear_icdf))
+    sim.add_photons(phys.light.generate_photon_state(n, E=1.0, device=dev))
+    return sim
+
+
 def phase_function_path(torch, phys, F, dev, card, compare):
     """Phase: the forced-scatter law of a recorded inverse CDF, then
     bench.py's workload with it at 10**7 photons: its first chunk against
@@ -5737,13 +5918,7 @@ def phase_function_path(torch, phys, F, dev, card, compare):
     phase(f"callable phase function: one forced scatter and 8 iterations "
           f"at {PHF_LAW_N} photons")
     c = float(phys.light.c)
-    sim = phys.Simulation(until_t=0.5 * 0.001, seed=0, device=dev)
-    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
-    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
-    sim.add_step(2, phys.light.ScatterPhaseFunctionStep(
-        A=1.0 / (c * 0.001), n=1.0, cos_theta_icdf=linear_icdf))
-    sim.add_photons(phys.light.generate_photon_state(PHF_LAW_N, E=1.0,
-                                                     device=dev))
+    sim = phase_law_sim(phys, dev)
     run_sim(torch, sim)
     check(sim.used_fused, "the recorded inverse CDF did not fuse")
     v = sim.sim_state.v[:, :PHF_LAW_N].double()
@@ -5829,10 +6004,11 @@ def phase_function_path(torch, phys, F, dev, card, compare):
     return entry, launches, rate
 
 
-def gsc_sim(phys, case, dev, fuse):
+def gsc_sim(phys, case, dev, fuse, n=GSC_N):
     """run_all.py:439-450 (compton_kn_1e7, with its sign tally) and
     :391-413 (polarized_rayleigh, with a Stokes tally) on ``fuse``'s tier,
-    GSC_ITERS iterations in chunks of GSC_CHUNK. Returns ``(sim, tally)``."""
+    GSC_ITERS iterations in chunks of GSC_CHUNK, at ``n`` photons. Returns
+    ``(sim, tally)``."""
     light, pol = phys.light, phys.polarization
     sim = phys.Simulation(until_t=(GSC_ITERS - 0.5) * 0.001, seed=0,
                           chunk_steps=GSC_CHUNK, device=dev, fuse=fuse)
@@ -5843,15 +6019,14 @@ def gsc_sim(phys, case, dev, fuse):
             A=0.001 / (float(light.c) * 1e-3), n=1.0, mec2=1.0,
             kn_cross_section=True))
         tally = light.ScatterSignMeasureStep(None, True)
-        sim.add_photons(light.generate_photon_state(GSC_N, E=1.0,
-                                                    device=dev))
+        sim.add_photons(light.generate_photon_state(n, E=1.0, device=dev))
     else:
         sim.add_step(2, pol.ScatterPolarizedRayleighStep(
             A=np.double(0.001), n=np.double(0.001)))
         tally = pol.StokesMeasureStep(None)
         # linearly polarized: the Stokes means move with each scatter
         sim.add_photons(pol.polarized_photon_state(
-            GSC_N, E=1.0, stokes=(1.0, 0.0, 0.0), device=dev))
+            n, E=1.0, stokes=(1.0, 0.0, 0.0), device=dev))
     sim.add_step(3, tally)
     return sim, tally
 
@@ -6558,6 +6733,52 @@ def sim_planes(sim, torch):
                                                 "otype")}
 
 
+def emitter_sign_sim(phys, where, n_emit, n0, iters, chunk, absorb=False,
+                     **kw):
+    """A constant-energy emitter of ``n_emit`` photons an iteration over
+    ``n0`` initial photons, kinematics, an absorption (``absorb``) and a
+    sign tally, ``iters`` iterations in chunks of ``chunk``; ``kw`` to
+    Simulation (a mesh, a capacity). Returns ``(sim, sign)``."""
+    light = phys.light
+    sim = phys.Simulation(until_t=(iters - 0.5) * 1e-3, seed=11,
+                          chunk_steps=chunk, device=where, **kw)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
+    sim.add_step(1, light.PhotonEmitterStep(n_emit, E=2.0))
+    sim.add_step(2, phys.newton.NewtonianKinematicsStep())
+    if absorb:
+        sim.add_step(3, light.ScatterDeleteStep(np.double(0.001),
+                                                np.double(0.001)))
+    meas = light.ScatterSignMeasureStep(None, True)
+    sim.add_step(4, meas)
+    sim.add_photons(light.generate_photon_state(n0, E=1.0))
+    return sim, meas
+
+
+def layered_capture_sim(phys, where, t_end, dirs, restore=None, **kw):
+    """Implicit-capture absorption in a layered density with a sign tally
+    until ``t_end``: photons along ``dirs`` (3, n) from the origin, or the
+    checkpoint ``restore``; ``kw`` to Simulation (a mesh). Returns ``(sim,
+    sign)``."""
+    light = phys.light
+    c_dt = float(light.c) * 1e-3
+    nfn = light.layered_density(np.array([0.5, 3.5, 6.5]) * c_dt,
+                                [1.0, 2.0])
+    sim = phys.Simulation(until_t=t_end * 0.9999, seed=0, device=where, **kw)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    sim.add_step(2, light.ScatterDeleteStep(
+        np.double(1.0), np.double(0.2 / c_dt), variable_n=True,
+        variable_n_fn=nfn, implicit_capture=True))
+    meas = light.ScatterSignMeasureStep(None, True)
+    sim.add_step(3, meas)
+    if restore is None:
+        sim.add_photons(light.generate_photon_state(
+            dirs.shape[1], E=1.0, v=dirs * float(light.c)))
+    else:
+        sim.restore_checkpoint(restore)
+    return sim, meas
+
+
 def mesh_card_vs_cpu(torch, phys, dev, devices=None):
     """The 8-shard main plan, emitter windows across shard edges, recycling
     with absorption, a mid-run injection that grows the arena and a
@@ -6578,39 +6799,13 @@ def mesh_card_vs_cpu(torch, phys, dev, devices=None):
         return make_mesh(n, devices=["cpu"] if where == "cpu" else cards)
 
     def emitter(where, n_emit, n0, iters, chunk, absorb=False):
-        sim = phys.Simulation(until_t=(iters - 0.5) * 1e-3, seed=11,
-                              chunk_steps=chunk, device=where,
-                              capacity=unit, mesh=mesh(where))
-        sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
-        sim.add_step(1, light.PhotonEmitterStep(n_emit, E=2.0))
-        sim.add_step(2, phys.newton.NewtonianKinematicsStep())
-        if absorb:
-            sim.add_step(3, light.ScatterDeleteStep(np.double(0.001),
-                                                    np.double(0.001)))
-        meas = light.ScatterSignMeasureStep(None, True)
-        sim.add_step(4, meas)
-        sim.add_photons(light.generate_photon_state(n0, E=1.0))
-        return sim, meas
+        return emitter_sign_sim(phys, where, n_emit, n0, iters, chunk,
+                                absorb, capacity=unit, mesh=mesh(where))
 
     def layered(where, t_end, n_shards, restore=None):
-        c_dt = float(light.c) * 1e-3
-        nfn = light.layered_density(np.array([0.5, 3.5, 6.5]) * c_dt,
-                                    [1.0, 2.0])
-        sim = phys.Simulation(until_t=t_end * 0.9999, seed=0, device=where,
-                              mesh=mesh(where, n_shards))
-        sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(0.001)))
-        sim.add_step(1, phys.newton.NewtonianKinematicsStep())
-        sim.add_step(2, light.ScatterDeleteStep(
-            np.double(1.0), np.double(0.2 / c_dt), variable_n=True,
-            variable_n_fn=nfn, implicit_capture=True))
-        meas = light.ScatterSignMeasureStep(None, True)
-        sim.add_step(3, meas)
-        if restore is None:
-            sim.add_photons(light.generate_photon_state(
-                MESH_TWIN_N, E=1.0, v=dirs * float(light.c)))
-        else:
-            sim.restore_checkpoint(restore)
-        return sim, meas
+        return layered_capture_sim(phys, where, t_end, dirs,
+                                   mesh=mesh(where, n_shards),
+                                   restore=restore)
 
     def build(case, where):
         if case == "main":

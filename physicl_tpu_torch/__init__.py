@@ -11,8 +11,9 @@ tests hold draw for draw against the JAX package. Later slices add the
 Planck source, media, geometry and streams, the scatter family, charged
 particles, polarized transport (:mod:`physicl_tpu_torch.polarization`)
 and user code (``ElementwiseStep``, ``ReduceMeasureStep``,
-:class:`physicl_tpu_torch.kernels.KernelStep`), recorded into programs the
-kernel interprets. Where the fused prover refuses a plan, or with
+:class:`physicl_tpu_torch.kernels.KernelStep`), recorded into programs that
+each plan's form library compiles to straight-line code, as it compiles
+the fields (C-expression strings and recorded torch callables). Where the fused prover refuses a plan, or with
 ``Simulation(fuse="off")``, the run goes to the generic step tier: every
 step's ``apply`` as PyTorch tensor ops in an early-exit chunk loop. Runs
 take mid-run ``add_obj`` / ``add_photons`` / ``remove_obj`` edits and

@@ -1,8 +1,9 @@
 // The transport kernel's plan (fused_transport.cu): the runtime Plan that
-// every launch passes as a __grid_constant__ parameter, the op and field
-// codes, and a plan's form (the structure a form library is compiled for)
-// with form_matches, the launch's check that a Plan has the form its
-// library was compiled for.
+// every launch passes as a __grid_constant__ parameter (or, past the
+// parameter room, in a device buffer), the op and field codes, and a plan's
+// form (the structure a form library is compiled for) with form_matches,
+// the launch's check that a Plan has the form its library was compiled
+// for.
 //
 // Plain C++17 with no CUDA type, so that a host compiler builds it too
 // (tests/test_torch_form.py builds form_matches with g++).
@@ -20,22 +21,14 @@
 
 namespace physicl {
 
-constexpr int kMaxOps = 32;
-constexpr int kMaxAxes = 32;
-constexpr int kMaxFields = 16;
-constexpr int kMaxProg = 256;
-constexpr int kMaxDepth = 16;
 constexpr int kMaxExtras = 8;  // the Stokes and frame rows, otype and qm
 constexpr int kRotSteps = 27;  // the azimuth bisection: 26 steps and the last
 
 // Mirrored member for member by physicl_tpu_torch/ops/_build.py (ctypes):
 // the grid pointers lead Plan and every other member is 4 bytes wide, so the
-// layouts agree (fused_transport_plan_size lets the binding check). The
-// Plan is a __grid_constant__ kernel parameter of about 9 KB, above the
-// classic 4 KB parameter limit: CUDA 12.1 and later take up to 32,764 B of
-// parameters on sm_70 and newer. Most ops reuse members under per-kind
-// meanings: see the comments, and physicl_tpu_torch/ops/fused.py:
-// _plan_struct.
+// layouts agree (fused_transport_plan_dims lets the binding check). Most ops
+// reuse members under per-kind meanings: see the comments, and
+// physicl_tpu_torch/ops/fused.py:_plan_struct.
 struct Op {
   int kind;
   int col0;        // sign/cross: n column (-1 = none); del/compton:
@@ -79,9 +72,10 @@ struct Op {
                    // 1 / m_e c^2, theta_e (0 = electrons at rest);
                    // fresnel: loc, n_lo, n_hi; lorentz: E, then B; emit:
                    // a polarized source's Stokes vector, then its frame
-  int fld[6];      // lorentz: the recorded field of each E, then B
-                   // component (-1 = the constant in box); phase: fld[0]
-                   // the recorded inverse CDF (-1 = the knot table)
+  int fld[2];      // lorentz: the recorded E field, then the recorded B
+                   // field (three components each; -1 = the constant in
+                   // box); phase: fld[0] the recorded inverse CDF (-1 = the
+                   // knot table)
 };
 
 struct Axis {
@@ -102,22 +96,28 @@ struct Field {
   float outside;   // voxel/layered: value outside the coverage
   int axis;        // layered: 0, 1, 2 = x, y, z; 3 = |r - ctr|
   float ctr[3];    // layered: centre of the radial layers
-  int off;         // expr: first instruction in prog; layered: edges in aux
-  int len;         // expr: instructions; layered: layers (len + 1 edges,
+  int off;         // expr: its first constant in fk; layered: edges in aux
+  int len;         // expr: its constants; layered: layers (len + 1 edges,
                    // then len values)
+  int shape;       // expr: the hash of its program's shape (opcodes,
+                   // registers, integer exponents, outputs: everything but
+                   // the constants, ops/codegen.py:field_shape); else 0
 };
 
-struct Ins {
-  int code;   // FieldIns
-  float val;  // constant, variable index or integer exponent
-};
-
-struct Plan {
-  const float* grids[kMaxFields];  // voxel fields: the device grid
-  Op ops[kMaxOps];
-  Axis axes[kMaxAxes];
-  Field fields[kMaxFields];
-  Ins prog[kMaxProg];
+// A plan's tables sized for it: kOps ops, kAxes crossing planes, kFields
+// fields and kK expression-field constants (each at least 1). A form
+// library is compiled for its plan's sizes (FormPlan<Form>, which its
+// translation unit names in PHYSICL_PLAN_DIMS); the main library for the
+// op-sequence plans' (3 ops, no plane, no field).
+template <int kOps, int kAxes, int kFields, int kK>
+struct PlanT {
+  const float* grids[kFields];  // voxel fields: the device grid
+  Op ops[kOps];
+  Axis axes[kAxes];
+  Field fields[kFields];
+  float fk[kK];     // the expression fields' constants, read by the field
+                    // functions a form library generates at constant
+                    // indices
   int n_ops;
   int n_cols;       // int record columns in use (col 0 = alive count)
   int n_fcols;      // float record columns in use
@@ -140,8 +140,11 @@ struct Plan {
                     // every slot
 };
 
-static_assert(sizeof(Plan) < 32000, "Plan must leave room for the other "
-                                    "kernel parameters under 32,764 B");
+// A Plan of at most this many bytes is a __grid_constant__ kernel
+// parameter (CUDA 12.1 and later take up to 32,764 B of parameters on
+// sm_70 and newer; the rest is the launch's other arguments); a larger one
+// goes to a device buffer (ops/codegen.py: PLAN_PARAM_BYTES).
+constexpr int kPlanParamBytes = 32000;
 
 enum OpKind : int {
   OP_KIN = 0, OP_DEL = 1, OP_ISO = 2, OP_SIGN = 3, OP_EMIT = 4, OP_CROSS = 5,
@@ -168,13 +171,6 @@ constexpr int kKnXsec = 2;
 
 enum FieldKind : int { FIELD_EXPR = 1, FIELD_LAYERED = 2, FIELD_VOXEL = 3 };
 
-// postfix instructions (physicl_tpu_torch/ops/fields.py, INS_*)
-enum FieldIns : int {
-  INS_CONST = 0, INS_VAR, INS_NEG, INS_ADD, INS_SUB, INS_MUL, INS_DIV,
-  INS_POW, INS_IPOW, INS_MIN, INS_MAX, INS_SQRT, INS_FABS, INS_EXP, INS_LOG,
-  INS_LOG10, INS_SIN, INS_COS, INS_TAN, INS_FLOOR, INS_CEIL
-};
-
 // A plan's form: everything an op body tests, as compile-time constants of
 // the form's own library (physicl_tpu_torch/ops/codegen.py emits a struct
 // Form of these tables per form). The plan's numbers (coefficients, boxes,
@@ -189,7 +185,7 @@ struct OpForm {
   int col0;      // col0 >= 0 (0 or 1); lorentz: the q/m extras plane or -1
   int axis;      // fresnel: the axis (Op::col1); else 0
   int nf, af;    // Op::nf, Op::af
-  int fld[6];    // Op::fld
+  int fld[2];    // Op::fld
   int icdf;      // emit: Op::icdf >= 0 (sampled energies)
   int scale;     // emit: emit_scale != 1
   int thermal;   // compton: theta_e = box[1] > 0
@@ -212,17 +208,13 @@ struct FieldForm {
   int kind;    // Field::kind
   int interp;  // voxel: Field::interp; else 0
   int axis;    // layered: Field::axis; else 0
+  int shape;   // expr: Field::shape; else 0
 };
 
 namespace form_detail {
 
-__host__ __device__ constexpr bool same6(const int* a, const int* b) {
-  return a[0] == b[0] && a[1] == b[1] && a[2] == b[2] && a[3] == b[3] &&
-         a[4] == b[4] && a[5] == b[5];
-}
-
-template <class Form, std::size_t kI>
-__host__ __device__ bool op_matches(const Plan& p) {
+template <class Form, std::size_t kI, class P>
+__host__ __device__ bool op_matches(const P& p) {
   constexpr OpForm o = Form::kOp[kI];
   const Op& q = p.ops[kI];
   const bool emit = o.kind == OP_EMIT;
@@ -235,7 +227,7 @@ __host__ __device__ bool op_matches(const Plan& p) {
          (o.kind == OP_LORENTZ ? q.col0 == o.col0
                                : (q.col0 >= 0) == (o.col0 != 0)) &&
          (o.kind != OP_FRESNEL || q.col1 == o.axis) && q.nf == o.nf &&
-         q.af == o.af && same6(q.fld, o.fld) &&
+         q.af == o.af && q.fld[0] == o.fld[0] && q.fld[1] == o.fld[1] &&
          (!emit || (q.icdf >= 0) == (o.icdf != 0)) &&
          (!emit || (q.emit_scale != 1.0f) == (o.scale != 0)) &&
          (o.kind != OP_COMPTON || (q.box[1] > 0.0f) == (o.thermal != 0)) &&
@@ -243,25 +235,29 @@ __host__ __device__ bool op_matches(const Plan& p) {
          (!cross || (q.ax0 == o.ax0 && q.n_ax == o.n_ax));
 }
 
-template <class Form, std::size_t kI>
-__host__ __device__ bool axis_matches(const Plan& p) {
+template <class Form, std::size_t kI, class P>
+__host__ __device__ bool axis_matches(const P& p) {
   constexpr AxisForm a = Form::kAx[kI];
   const Axis& q = p.axes[kI];
   return q.axis == a.axis && (q.ecol >= 0) == (a.ecol != 0) &&
          (q.ecap >= 0) == (a.ecap != 0);
 }
 
-template <class Form, std::size_t kI>
-__host__ __device__ bool field_matches(const Plan& p) {
+template <class Form, std::size_t kI, class P>
+__host__ __device__ bool field_matches(const P& p) {
   constexpr FieldForm f = Form::kFld[kI];
+  constexpr int k0 = Form::kFk[kI], nk = Form::kFk[kI + 1] - k0;
   const Field& q = p.fields[kI];
   return q.kind == f.kind &&
          (f.kind != FIELD_VOXEL || q.interp == f.interp) &&
-         (f.kind != FIELD_LAYERED || q.axis == f.axis);
+         (f.kind != FIELD_LAYERED || q.axis == f.axis) &&
+         (f.kind != FIELD_EXPR ||
+          (q.shape == f.shape && q.off == k0 && q.len == nk));
 }
 
-template <class Form, std::size_t... kO, std::size_t... kA, std::size_t... kF>
-__host__ __device__ bool all_match(const Plan& p, std::index_sequence<kO...>,
+template <class Form, class P, std::size_t... kO, std::size_t... kA,
+          std::size_t... kF>
+__host__ __device__ bool all_match(const P& p, std::index_sequence<kO...>,
                                    std::index_sequence<kA...>,
                                    std::index_sequence<kF...>) {
   return (op_matches<Form, kO>(p) && ... && true) &&
@@ -271,13 +267,24 @@ __host__ __device__ bool all_match(const Plan& p, std::index_sequence<kO...>,
 
 }  // namespace form_detail
 
+template <int kN>
+constexpr int at_least_1 = kN > 0 ? kN : 1;
+
+// The Plan type of a form: its tables sized for its ops, planes, fields and
+// expression-field constants (Form::kFk[kNFld] of them).
+template <class Form>
+using FormPlan = PlanT<at_least_1<Form::kN>, at_least_1<Form::kNAx>,
+                       at_least_1<Form::kNFld>,
+                       at_least_1<Form::kFk[Form::kNFld]>>;
+
 // True when the runtime Plan has exactly the structure Form was compiled
 // for: the op kinds in order and every member an op body tests, the planes
-// of each cross op, the fields' kinds, the record columns, the norm, the
-// stream, the extras and their write-back masks. A launch of a form's
-// library refuses any other Plan (cudaErrorInvalidValue).
+// of each cross op, the fields' kinds and the expression fields' shapes and
+// constant ranges, the record columns, the norm, the stream, the extras and
+// their write-back masks. A launch of a form's library refuses any other
+// Plan (cudaErrorInvalidValue).
 template <class Form>
-__host__ __device__ bool form_matches(const Plan& p) {
+__host__ __device__ bool form_matches(const FormPlan<Form>& p) {
   return p.n_ops == Form::kN && p.n_cols == Form::kCols &&
          p.n_fcols == Form::kFcols && p.const_norm == Form::kConstNorm &&
          (p.n_stream > 0) == (Form::kStream != 0) &&

@@ -683,8 +683,9 @@ def _compile_field_expr(fn_or_expr, varnames, label):
     torch callable into the same expression program, or refuses one it
     cannot record, code ``field-fn-callable``); a
     C-expression string over ``<var>[gid]`` in the reference's grammar
-    (physicl/light.py:295-299) becomes a torch callable with the postfix
-    program the kernel interprets (:mod:`physicl_tpu_torch.ops.fields`)."""
+    (physicl/light.py:295-299) becomes a torch callable with the field
+    program each plan's form library compiles
+    (:mod:`physicl_tpu_torch.ops.fields`)."""
     if callable(fn_or_expr):
         return fn_or_expr
     return _fields.compile_expr(fn_or_expr, tuple(varnames), label)

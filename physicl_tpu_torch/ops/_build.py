@@ -40,14 +40,14 @@ _libs = None
 build_seconds = None   # wall time of this process's build (None: not built)
 build_log = ""         # nvcc's output (``-Xptxas -v`` register/spill report)
 
-# the kernel structs of csrc/fused_transport.cu, member for member: the
-# grid pointers lead the plan and every other member is 4 bytes wide, so
-# both sides lay them out alike (the binding checks the sizes agree)
-MAX_OPS = 32
-MAX_AXES = 32
-MAX_FIELDS = 16
-MAX_PROG = 256
+# the kernel structs of csrc/plan.cuh, member for member: the grid
+# pointers lead the plan and every other member is 4 bytes wide, so both
+# sides lay them out alike (the binding checks the sizes agree)
 ROT_STEPS = 27  # the azimuth bisection's rotation table, k = 0 .. 26
+# the main library's Plan sizes (ops, crossing planes, fields, field
+# constants): the op-sequence plans' 3 ops (csrc/fused_transport.cu,
+# PHYSICL_PLAN_DIMS)
+MAIN_PLAN_DIMS = (3, 1, 1, 1)
 _ci, _cf = ctypes.c_int, ctypes.c_float
 
 
@@ -60,7 +60,7 @@ class OpStruct(ctypes.Structure):
                 ("ax0", _ci), ("n_ax", _ci),
                 ("nf", _ci), ("af", _ci), ("capture", _ci),
                 ("w_min", _cf), ("w_sur", _cf), ("box", _cf * 6),
-                ("fld", _ci * 6)]
+                ("fld", _ci * 2)]
 
 
 class AxisStruct(ctypes.Structure):
@@ -71,25 +71,34 @@ class AxisStruct(ctypes.Structure):
 class FieldStruct(ctypes.Structure):
     _fields_ = [("kind", _ci), ("interp", _ci), ("n", _ci * 3),
                 ("org", _cf * 3), ("sp", _cf * 3), ("outside", _cf),
-                ("axis", _ci), ("ctr", _cf * 3), ("off", _ci), ("len", _ci)]
+                ("axis", _ci), ("ctr", _cf * 3), ("off", _ci), ("len", _ci),
+                ("shape", _ci)]
 
 
-class InsStruct(ctypes.Structure):
-    _fields_ = [("code", _ci), ("val", _cf)]
+_plan_types: dict = {}
 
 
-class PlanStruct(ctypes.Structure):
-    _fields_ = [("grids", ctypes.c_void_p * MAX_FIELDS),
-                ("ops", OpStruct * MAX_OPS), ("axes", AxisStruct * MAX_AXES),
-                ("fields", FieldStruct * MAX_FIELDS),
-                ("prog", InsStruct * MAX_PROG),
-                ("n_ops", _ci), ("n_cols", _ci), ("n_fcols", _ci),
-                ("const_norm", _ci), ("const_speed", _cf),
-                ("n_stream", _ci), ("stream_every", _ci),
-                ("stream_bf16", _ci), ("n_extras", _ci), ("otype_x", _ci),
-                ("wb_mask", _ci),
-                ("rot_sd", _cf * ROT_STEPS), ("rot_cd", _cf * ROT_STEPS),
-                ("uwb_mask", _ci)]
+def plan_struct_type(dims):
+    """The ctypes mirror of ``csrc/plan.cuh``'s ``PlanT`` with table sizes
+    ``dims`` = (ops, crossing planes, fields, field constants), each at
+    least 1 (one class per sizes; its ``dims`` attribute names them)."""
+    dims = tuple(max(1, int(d)) for d in dims)
+    cls = _plan_types.get(dims)
+    if cls is None:
+        n_ops, n_axes, n_fields, n_k = dims
+        cls = type("PlanStruct", (ctypes.Structure,), {"_fields_": [
+            ("grids", ctypes.c_void_p * n_fields),
+            ("ops", OpStruct * n_ops), ("axes", AxisStruct * n_axes),
+            ("fields", FieldStruct * n_fields), ("fk", _cf * n_k),
+            ("n_ops", _ci), ("n_cols", _ci), ("n_fcols", _ci),
+            ("const_norm", _ci), ("const_speed", _cf),
+            ("n_stream", _ci), ("stream_every", _ci),
+            ("stream_bf16", _ci), ("n_extras", _ci), ("otype_x", _ci),
+            ("wb_mask", _ci),
+            ("rot_sd", _cf * ROT_STEPS), ("rot_cd", _cf * ROT_STEPS),
+            ("uwb_mask", _ci)], "dims": dims})
+        _plan_types[dims] = cls
+    return cls
 
 
 def _nvcc() -> str:
@@ -109,22 +118,26 @@ def _csrc(ext: str):
 
 
 def _bind_transport(ft) -> None:
-    """The C interface of a fused_transport library (the main one or a user
-    plan's), after checking its Plan against the ctypes mirror."""
+    """The C interface of a fused_transport library (the main one or a
+    form's), after checking its Plan against the ctypes mirror of its
+    sizes; ``ft.plan_dims`` keeps the sizes."""
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    ft.fused_transport_plan_size.restype = ci
-    ft.fused_transport_plan_size.argtypes = []
-    size = ft.fused_transport_plan_size()
-    if size != ctypes.sizeof(PlanStruct):
-        raise RuntimeError(f"fused_transport's Plan is {size} B but the "
-                           f"ctypes mirror is {ctypes.sizeof(PlanStruct)} B")
+    ft.fused_transport_plan_dims.restype = ci
+    ft.fused_transport_plan_dims.argtypes = [ctypes.POINTER(ci)]
+    dims = (ci * 4)()
+    size = ft.fused_transport_plan_dims(dims)
+    ft.plan_dims = tuple(dims)
+    mirror = ctypes.sizeof(plan_struct_type(ft.plan_dims))
+    if size != mirror:
+        raise RuntimeError(f"fused_transport's Plan {ft.plan_dims} is {size}"
+                           f" B but the ctypes mirror is {mirror} B")
     ft.fused_transport_grid.restype = ci
     ft.fused_transport_grid.argtypes = [ll, ci, ci, ci, ci,
                                         ctypes.POINTER(ci)]
     ft.fused_transport_launch.restype = ci
     ft.fused_transport_launch.argtypes = [
-        vp, vp, ll, vp, ci, vp, vp, ci, vp, ci, ctypes.c_uint,
-        ctypes.POINTER(PlanStruct), ci, ci, vp, vp, vp, vp, ci, ci, vp]
+        vp, vp, ll, vp, ci, vp, vp, ci, vp, ci, ctypes.c_uint, vp, vp, ci,
+        ci, vp, vp, vp, vp, ci, ci, vp]
 
 
 def _bind(libs) -> None:

@@ -45,10 +45,25 @@ straight-line CUDA C, one device function per program:
   (:func:`~physicl_tpu_torch.ops.record.run_user_program`) matches:
   ``expf``, ``logf``, ``powf``, ``ipow``, ``nan_min``, ... Built with
   ``--fmad=false``, the planes stay bitwise equal to it.
+
+The expression fields (``ops/fields.py``: a C-expression string or a
+recorded torch callable; n(r), A(E), an inverse CDF, a Lorentz op's E or B
+with three outputs) become one straight-line device function each
+(:func:`field_c`, ``Form::field``), as the JAX kernel traces the callable
+into its body: the same instructions and C functions as the user
+programs, the variables as arguments, and the constants read from the
+runtime ``Plan``'s ``fk`` at constant indices (a constant-bank operand of
+the instruction), so that plans that differ only in a field's numbers
+share a source. The program's shape (``ops/fields.py:field_layout``) is
+part of the form: ``FieldForm::shape``, checked by ``form_matches``. The
+``Plan`` itself is sized for the plan (``PHYSICL_PLAN_DIMS``: ops,
+crossing planes, fields, field constants); past :data:`PLAN_PARAM_BYTES`
+it goes to a device buffer (:func:`plan_in_buffer`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -57,6 +72,9 @@ from physicl_tpu_torch.ops import fused as F
 from physicl_tpu_torch.ops import record as RC
 
 _NF = 15          # core planes: f[0..14]
+# a Plan of at most this many bytes is a kernel parameter; a larger one goes
+# to a device buffer (csrc/plan.cuh: kPlanParamBytes)
+PLAN_PARAM_BYTES = 32000
 _MAX_EXTRAS = 8   # extras planes: x[0..7] (csrc/plan.cuh)
 _ARGS = ("float* f, float* x, bool& alive, float t, float dt, uint32_t h0, "
          "uint32_t idx0, uint32_t lin, Acc& acc")
@@ -102,6 +120,29 @@ def _plane(p: int) -> str:
     raise ValueError(f"a user program names plane {p}")
 
 
+def _pure_c(ins, cur, lit) -> str:
+    """The C expression of one pure instruction (``record._pure``'s
+    codes) over the locals ``cur`` (register -> local); ``lit(y)`` spells
+    a constant."""
+    code, _, a, b, y, bimm = ins
+    va = cur.get(a)
+    if code == RC.U_CONST:
+        return lit(y)
+    if code == RC.U_IPOW:
+        return f"ipow({va}, {int(y)})"
+    if code == RC.U_SEL:
+        # (cond, false register, true register in y), or with a constant
+        # false value (cond, true register, the immediate)
+        if bimm:
+            return f"{va} != 0.0f ? {cur[b]} : {lit(y)}"
+        return f"{va} != 0.0f ? {cur[y]} : {cur[b]}"
+    if code in _UNARY:
+        return _UNARY[code].format(a=va)
+    if code in _BINARY:
+        return _BINARY[code].format(a=va, b=lit(y) if bimm else cur[b])
+    raise ValueError(f"program code {code}")
+
+
 def program_c(prog: RC.Program, name: str) -> str:
     """The device function template ``name<Acc>`` that runs ``prog`` on one
     slot: its parameters are the slot's planes ``f`` and extras ``x``, its
@@ -112,7 +153,8 @@ def program_c(prog: RC.Program, name: str) -> str:
     out = ["template <class Acc>",
            f"__device__ __forceinline__ void {name}({_ARGS}) {{"]
     cur = {}  # register -> the local that holds its value
-    for i, (code, d, a, b, y, bimm) in enumerate(prog.ins):
+    for i, ins in enumerate(prog.ins):
+        code, d, a, _, y, _ = ins
         va = cur.get(a)
         if code == RC.U_ST:
             out.append(f"  {_plane(y)} = {va};")
@@ -131,26 +173,49 @@ def program_c(prog: RC.Program, name: str) -> str:
             expr = "t"
         elif code == RC.U_DT:
             expr = "dt"
-        elif code == RC.U_CONST:
-            expr = _lit(y)
         elif code == RC.U_UNIF:
             expr = f"unit24(hash_bits(h0, idx0 + {int(y) + 1}u, lin))"
-        elif code == RC.U_IPOW:
-            expr = f"ipow({va}, {int(y)})"
-        elif code == RC.U_SEL:
-            # (cond, false register, true register in y), or with a
-            # constant false value (cond, true register, the immediate)
-            if bimm:
-                expr = f"{va} != 0.0f ? {cur[b]} : {_lit(y)}"
-            else:
-                expr = f"{va} != 0.0f ? {cur[y]} : {cur[b]}"
-        elif code in _UNARY:
-            expr = _UNARY[code].format(a=va)
-        elif code in _BINARY:
-            expr = _BINARY[code].format(a=va,
-                                        b=_lit(y) if bimm else cur[b])
         else:
-            raise ValueError(f"user program code {code}")
+            expr = _pure_c(ins, cur, _lit)
+        out.append(f"  const float v{i} = {expr};")
+        cur[d] = f"v{i}"
+    out.append("}")
+    return "\n".join(out)
+
+
+_VARS = ("a", "b", "c")
+
+
+def field_c(spec: dict, name: str, k0: int) -> str:
+    """The device function ``name`` of an expression field (``ops/
+    fields.py``): ``(plan, a, b, c) -> value``, or with three outputs
+    ``(plan, a, b, c, out)`` filling ``out[0..2]``; variable ``i`` is
+    argument ``i``. One ``const float`` local an instruction, each the
+    function the plain version (``ops/record.py:run_field``) matches; its
+    constants are read from ``plan.fk`` at ``k0`` on, in the order of
+    ``ops/fields.py:field_layout``."""
+    n_out = spec["n_out"]
+    sig = "const Plan& plan, float a, float b, float c"
+    out = [f"__device__ __forceinline__ "
+           f"{'float' if n_out == 1 else 'void'} {name}("
+           f"{sig}{'' if n_out == 1 else ', float* out'}) {{"]
+    k = [k0]
+
+    def lit(_):
+        k[0] += 1
+        return f"plan.fk[{k[0] - 1}]"
+
+    cur = {}
+    for i, ins in enumerate(spec["prog"].ins):
+        code, d, a, _, y, _ = ins
+        if code == RC.U_ST:
+            out.append(f"  return {cur[a]};" if n_out == 1
+                       else f"  out[{int(y)}] = {cur[a]};")
+            continue
+        if code == RC.U_LD:
+            expr = _VARS[y]
+        else:
+            expr = _pure_c(ins, cur, lit)
         out.append(f"  const float v{i} = {expr};")
         cur[d] = f"v{i}"
     out.append("}")
@@ -224,12 +289,23 @@ def draw_counts(plan, ps=None) -> list:
     return [draw_count(ps.ops[i]) for i in range(ps.n_ops)]
 
 
+def plan_in_buffer(plan, ps=None) -> bool:
+    """Whether the plan's form kernel takes its ``Plan`` from a device
+    buffer: where the Plan is past the parameter room
+    (:data:`PLAN_PARAM_BYTES`), or the plan asks for it
+    (``FusedPlan.plan_buffer``)."""
+    return bool(plan.plan_buffer) or \
+        ctypes.sizeof(_struct(plan, ps)) > PLAN_PARAM_BYTES
+
+
 def plan_form(plan, ps=None) -> dict:
     """The plan's form: ``ops`` (one ``OpForm`` tuple per op, members as
     :data:`OP_FORM`), ``axes`` (``(axis, ecol, ecap)`` per crossing
-    plane), ``fields`` (``(kind, interp, axis)`` per field) and the
-    plan-level constants, read from its ``PlanStruct`` (``ps``, or the CPU
-    one), so that the form and the launch's ``form_matches`` agree by
+    plane), ``fields`` (``(kind, interp, axis, shape)`` per field),
+    ``fk`` (each field's first constant in ``Plan::fk``, and their
+    number last), ``dims`` (the Plan's table sizes) and the plan-level
+    constants, read from its ``PlanStruct`` (``ps``, or the CPU one), so
+    that the form and the launch's ``form_matches`` agree by
     construction."""
     ps = _struct(plan, ps)
     n_fields = len(F._field_index(plan.ops)[0])
@@ -265,12 +341,17 @@ def plan_form(plan, ps=None) -> dict:
     n_ax = sum(op[OP_FORM.index("n_ax")] for op in ops)
     axes = [(ps.axes[a].axis, int(ps.axes[a].ecol >= 0),
              int(ps.axes[a].ecap >= 0)) for a in range(n_ax)]
-    fields = []
+    fields, fk = [], [0]
     for i in range(n_fields):
         fd = ps.fields[i]
+        expr = fd.kind == 1
         fields.append((fd.kind, fd.interp if fd.kind == 3 else 0,
-                       fd.axis if fd.kind == 2 else 0))
-    return {"ops": ops, "axes": axes, "fields": fields,
+                       fd.axis if fd.kind == 2 else 0,
+                       fd.shape if expr else 0))
+        fk.append(fk[-1] + (fd.len if expr else 0))
+    return {"ops": ops, "axes": axes, "fields": fields, "fk": fk,
+            "dims": type(ps).dims, "kPlanInBuffer": int(plan_in_buffer(
+                plan, ps)),
             "kCols": ps.n_cols, "kFcols": ps.n_fcols,
             "kConstNorm": ps.const_norm, "kStream": int(ps.n_stream > 0),
             "kStreamBf16": ps.stream_bf16, "kExtras": ps.n_extras,
@@ -291,11 +372,18 @@ def _op_c(op: tuple) -> str:
     return "{" + ", ".join(vals) + "}"
 
 
-def form_struct(plan, ps=None, form=None, users=True) -> str:
+def expr_fields(plan) -> list:
+    """``[(field index, spec)]`` of the plan's expression fields."""
+    specs = F._field_index(plan.ops)[0]
+    return [(j, sp) for j, sp in enumerate(specs) if sp["kind"] == "expr"]
+
+
+def form_struct(plan, ps=None, form=None, bodies=True) -> str:
     """``struct Form``: the plan's form (:func:`plan_form`) as the
     ``constexpr`` tables and constants that ``csrc/fused_transport.cu``'s
     form kernel and ``csrc/plan.cuh``'s ``form_matches`` read, and (with
-    ``users``) each user op's program as ``Form::user``."""
+    ``bodies``) each user op's program as ``Form::user`` and each
+    expression field's function as ``Form::field``."""
     form = form or plan_form(plan, ps)
     kinds = [op.kind for op in plan.ops]
     n_ax, n_fld = len(form["axes"]), len(form["fields"])
@@ -311,12 +399,26 @@ def form_struct(plan, ps=None, form=None, users=True) -> str:
               f"  static constexpr int kNFld = {n_fld};",
               f"  static constexpr FieldForm kFld[{max(1, n_fld)}] = {{"
               + ", ".join("{" + ", ".join(map(str, f)) + "}"
-                          for f in form["fields"] or [(0, 0, 0)]) + "};"]
+                          for f in form["fields"] or [(0, 0, 0, 0)]) + "};",
+              "  // each field's first constant in Plan::fk, then their "
+              "number",
+              f"  static constexpr int kFk[{n_fld + 1}] = {{"
+              + ", ".join(map(str, form["fk"])) + "};"]
     parts += [f"  static constexpr int {name} = {form[name]};"
               for name in ("kCols", "kFcols", "kConstNorm", "kStream",
                            "kStreamBf16", "kExtras", "kOtype", "kQm", "kWb",
-                           "kUwb")]
-    for i, _ in (user_ops(plan) if users else ()):
+                           "kUwb", "kPlanInBuffer")]
+    for j, sp in (expr_fields(plan) if bodies else ()):
+        one = sp["n_out"] == 1
+        parts += [
+            f"  static __device__ __forceinline__ "
+            f"{'float' if one else 'void'} field(",
+            f"      std::integral_constant<int, {j}>, const Plan& plan, "
+            "float a, float b,",
+            f"      float c{'' if one else ', float* out'}) {{",
+            f"    {'return ' if one else ''}field_{j}(plan, a, b, c"
+            f"{'' if one else ', out'});", "  }"]
+    for i, _ in (user_ops(plan) if bodies else ()):
         args = _ARGS.replace("Acc", "R")
         parts += [
             "  template <class R>",
@@ -344,9 +446,14 @@ def form_source(plan, ps=None) -> str:
         "of a plan",
         f"// {plan_label(plan)}, compiled with fused_transport.cu.",
         "#define PHYSICL_FORM 1",
+        "// the Plan's tables: ops, crossing planes, fields, field constants",
+        "#define PHYSICL_PLAN_DIMS " + ", ".join(map(str, form["dims"])),
         '#include "fused_transport.cu"', "", "namespace {", ""]
-    users = user_ops(plan)
-    for i, op in users:
+    for j, sp in expr_fields(plan):
+        parts.append(f"// field {j}: {len(sp['prog'].ins)} instructions, "
+                     f"{sp['n_out']} output(s)")
+        parts += [field_c(sp, f"field_{j}", form["fk"][j]), ""]
+    for i, op in user_ops(plan):
         parts.append(f"// op {i}: {op.kind}, {len(op.prog.ins)} "
                      f"instructions, {op.prog.n_draws} draws")
         parts += [program_c(op.prog, f"user_op_{i}"), ""]
@@ -364,17 +471,18 @@ def form_source(plan, ps=None) -> str:
               "    const void* sched, int sched_stride, const void* thr,",
               "    const void* emit_starts, int emit_stride, const void* aux, "
               "int k_act,",
-              "    unsigned int seed, const physicl::Plan* plan, int variant, "
-              "int grid,",
-              "    void* rec, void* rec_f, void* partials, void* stream_buf, "
-              "int n_srows,",
-              "    int stream_elem, void* stream) {",
+              "    unsigned int seed, const Plan* plan, const void* plan_dev,",
+              "    int variant, int grid, void* rec, void* rec_f, void* "
+              "partials,",
+              "    void* stream_buf, int n_srows, int stream_elem, void* "
+              "stream) {",
               "  return form_launch<Form>(packed_in, packed_out, capacity, "
               "sched, sched_stride,",
               "                           thr, emit_starts, emit_stride, aux, "
               "k_act, seed, plan,",
-              "                           variant, grid, rec, rec_f, partials, "
-              "stream_buf,",
-              "                           n_srows, stream_elem, stream);",
+              "                           plan_dev, variant, grid, rec, "
+              "rec_f, partials,",
+              "                           stream_buf, n_srows, stream_elem, "
+              "stream);",
               "}", ""]
     return "\n".join(parts)

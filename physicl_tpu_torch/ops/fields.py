@@ -1,19 +1,30 @@
-"""Density and cross-section fields: what the transport kernel evaluates for
-``variable_n_fn`` (n(r)) and ``A_fn`` (A(E)).
+"""Density, cross-section and force fields: what the transport kernel
+evaluates for ``variable_n_fn`` (n(r)), ``A_fn`` (A(E)), a recorded
+``cos_theta_icdf`` and a recorded E or B of ``LorentzForceStep``.
 
 Three kinds, each a torch callable (the plain version the kernel's twin
 calls, as the JAX emulated chunk calls the JAX callables) carrying a
 ``spec`` dict that :mod:`physicl_tpu_torch.ops.fused` turns into the
 kernel's field descriptor:
 
-* ``"expr"``: a C-expression string over ``r0/r1/r2[gid]`` or ``E[gid]``
-  in the reference's grammar (the JAX package's ``_EXPR_NS``), compiled to
-  a short postfix program that the kernel interprets from its plan. The
-  program folds literals exactly as Python and JAX evaluate the string: a
-  subtree made only of literals is one Python value (double or int) that
-  rounds to float32 where it meets an array; a function call is a float32
-  operation even on literals; an integer exponent (``x ** 2``,
-  ``pow(x, 2)``) is ``lax.integer_pow``'s repeated products.
+* ``"expr"``: a field program in the recorder's IR
+  (:class:`physicl_tpu_torch.ops.record.Program`: one SSA register code,
+  variable ``i`` a load of plane ``i``, output ``j`` a store to ``j``),
+  from a torch callable (:func:`physicl_tpu_torch.ops.record.
+  record_field`, every code the recorder has, selects and comparisons
+  included; a Lorentz field one program with three outputs) or a
+  C-expression string over ``r0/r1/r2[gid]`` or ``E[gid]`` in the
+  reference's grammar (the JAX package's ``_EXPR_NS``,
+  :func:`compile_expr`). The string folds literals exactly as Python and
+  JAX evaluate it: a subtree made only of literals is one Python value
+  (double or int) that rounds to float32 where it meets an array; a
+  function call is a float32 operation even on literals; an integer
+  exponent (``x ** 2``, ``pow(x, 2)``) is ``lax.integer_pow``'s repeated
+  products. :mod:`physicl_tpu_torch.ops.codegen` compiles each program to
+  straight-line C in its plan's form library, the program's shape
+  (:func:`field_layout`) in the form and its constants in the runtime
+  ``Plan``; its plain version is :func:`physicl_tpu_torch.ops.record.
+  run_field`.
 * ``"layered"``: piecewise-constant layers along x, y, z or the radius
   (``light.layered_density``); edges and values ride in the kernel's
   auxiliary table and the kernel finds the layer by bisection.
@@ -22,50 +33,42 @@ kernel's field descriptor:
   callable and device, shared by every op that uses the callable).
 
 A torch callable has no spec: the prover records it into an ``"expr"``
-program (:func:`physicl_tpu_torch.ops.record.record_field`), or refuses one
-it cannot record (code ``field-fn-callable``).
+program, or refuses one it cannot record (code ``field-fn-callable``).
 """
 
 from __future__ import annotations
 
 import ast
 import re
+import zlib
 
 import numpy as np
 import torch
 
-# postfix instruction codes (csrc/fused_transport.cu, enum FieldIns)
-INS_CONST, INS_VAR, INS_NEG, INS_ADD, INS_SUB, INS_MUL, INS_DIV, INS_POW, \
-    INS_IPOW, INS_MIN, INS_MAX, INS_SQRT, INS_FABS, INS_EXP, INS_LOG, \
-    INS_LOG10, INS_SIN, INS_COS, INS_TAN, INS_FLOOR, INS_CEIL = range(21)
+from physicl_tpu_torch.ops import record as RC
 
-# field kinds (csrc/fused_transport.cu, enum FieldKind)
+# field kinds (csrc/plan.cuh, enum FieldKind)
 KIND_CODES = {"expr": 1, "layered": 2, "voxel": 3}
 LAYER_AXES = {"x": 0, "y": 1, "z": 2, "r": 3}
 
-MAX_PROG = 256     # postfix instructions over all expression fields of a plan
-MAX_DEPTH = 16     # evaluation stack of one expression
 MAX_IPOW = 1 << 24  # |integer exponent| (held exactly as a float32)
 MAX_VOXELS = 2 ** 31 - 1  # the kernel's flat voxel index is int32
 
 _GID_RE = re.compile(r"\[\s*gid\s*\]")
 _CONSTS = {"M_PI": np.pi, "M_E": np.e}
-_UNARY = {"sqrt": INS_SQRT, "fabs": INS_FABS, "exp": INS_EXP, "log": INS_LOG,
-          "log10": INS_LOG10, "sin": INS_SIN, "cos": INS_COS, "tan": INS_TAN,
-          "floor": INS_FLOOR, "ceil": INS_CEIL}
-_BINARY = {"fmin": INS_MIN, "fmax": INS_MAX}
-_BINOPS = {ast.Add: INS_ADD, ast.Sub: INS_SUB, ast.Mult: INS_MUL,
-           ast.Div: INS_DIV}
+_UNARY = {"sqrt": RC.U_SQRT, "fabs": RC.U_ABS, "exp": RC.U_EXP,
+          "log": RC.U_LOG, "log10": RC.U_LOG10, "sin": RC.U_SIN,
+          "cos": RC.U_COS, "tan": RC.U_TAN, "floor": RC.U_FLOOR,
+          "ceil": RC.U_CEIL}
+_BINARY = {"fmin": RC.U_MIN, "fmax": RC.U_MAX}
+_BINOPS = {ast.Add: RC.U_ADD, ast.Sub: RC.U_SUB, ast.Mult: RC.U_MUL,
+           ast.Div: RC.U_DIV}
 _NOT_LITERAL = object()
+_sqrt_rn = RC._sqrt_rn
 
 
 def _f32(x) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
-
-
-def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 square root (the kernel's ``sqrtf``)."""
-    return torch.sqrt(x.double()).float()
 
 
 class _Unsupported(Exception):
@@ -116,69 +119,70 @@ def _int_exponent(node):
     return None
 
 
-def _emit(node, varnames, prog):
+def _emit(node, varnames, ssa) -> int:
+    """The SSA value of ``node``, its operands in the string's order (an
+    operation of a literal and a variable keeps its operands as written)."""
     v = _literal(node)
     if v is not _NOT_LITERAL:
-        prog.append((INS_CONST, float(np.float32(v))))
-        return
+        return ssa.const(v)
     if isinstance(node, ast.Name):
-        prog.append((INS_VAR, float(varnames.index(node.id))))
-    elif isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.USub):
-        _emit(node.operand, varnames, prog)
-        prog.append((INS_NEG, 0.0))
-    elif isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.UAdd):
-        _emit(node.operand, varnames, prog)
-    elif isinstance(node, ast.BinOp) and isinstance(node.op, ast.Pow):
-        _emit_pow(node.left, node.right, varnames, prog)
-    elif isinstance(node, ast.BinOp) and type(node.op) in _BINOPS:
-        _emit(node.left, varnames, prog)
-        _emit(node.right, varnames, prog)
-        prog.append((_BINOPS[type(node.op)], 0.0))
-    elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
-          and not node.keywords):
+        return ssa.val(RC.U_LD, (), varnames.index(node.id))
+    if isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.USub):
+        return ssa.val(RC.U_NEG, (_emit(node.operand, varnames, ssa),))
+    if isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.UAdd):
+        return _emit(node.operand, varnames, ssa)
+    if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Pow):
+        return _emit_pow(node.left, node.right, varnames, ssa)
+    if isinstance(node, ast.BinOp) and type(node.op) in _BINOPS:
+        a = _emit(node.left, varnames, ssa)
+        return ssa.val(_BINOPS[type(node.op)],
+                       (a, _emit(node.right, varnames, ssa)))
+    if (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+            and not node.keywords):
         name, args = node.func.id, node.args
         if name == "pow" and len(args) == 2:
-            _emit_pow(args[0], args[1], varnames, prog)
-        elif name in _UNARY and len(args) == 1:
-            _emit(args[0], varnames, prog)
-            prog.append((_UNARY[name], 0.0))
-        elif name in _BINARY and len(args) == 2:
-            _emit(args[0], varnames, prog)
-            _emit(args[1], varnames, prog)
-            prog.append((_BINARY[name], 0.0))
-        else:
-            raise _Unsupported(f"call {ast.unparse(node)!r}")
-    else:
-        raise _Unsupported(f"construct {ast.unparse(node)!r}")
+            return _emit_pow(args[0], args[1], varnames, ssa)
+        if name in _UNARY and len(args) == 1:
+            return ssa.val(_UNARY[name], (_emit(args[0], varnames, ssa),))
+        if name in _BINARY and len(args) == 2:
+            a = _emit(args[0], varnames, ssa)
+            return ssa.val(_BINARY[name], (a, _emit(args[1], varnames, ssa)))
+        raise _Unsupported(f"call {ast.unparse(node)!r}")
+    raise _Unsupported(f"construct {ast.unparse(node)!r}")
 
 
-def _emit_pow(base, exponent, varnames, prog):
+def _emit_pow(base, exponent, varnames, ssa) -> int:
     y = _int_exponent(exponent)
-    _emit(base, varnames, prog)
+    x = _emit(base, varnames, ssa)
     if y is not None:
-        prog.append((INS_IPOW, float(y)))
-    else:
-        _emit(exponent, varnames, prog)
-        prog.append((INS_POW, 0.0))
+        return ssa.val(RC.U_IPOW, (x,), y)
+    return ssa.val(RC.U_POW, (x, _emit(exponent, varnames, ssa)))
 
 
-def _depth(prog) -> int:
-    sp = deepest = 0
-    for code, _ in prog:
-        if code in (INS_CONST, INS_VAR):
-            sp += 1
-        elif code in (INS_ADD, INS_SUB, INS_MUL, INS_DIV, INS_POW, INS_MIN,
-                      INS_MAX):
-            sp -= 1
-        deepest = max(deepest, sp)
-    return deepest
+def expr_field(prog, varnames, text, n_out=1, error=None):
+    """A torch callable over ``varnames`` that runs the field program
+    ``prog`` (:func:`physicl_tpu_torch.ops.record.run_field`; ``n_out``
+    outputs), with its ``spec`` of kind ``"expr"``. With ``error`` set
+    (a construct outside the IR) it raises ``NotImplementedError`` when
+    called, and the prover refuses it (``field-expr-unsupported``)."""
+    spec = {"kind": "expr", "prog": prog, "n_out": n_out,
+            "vars": tuple(varnames), "error": error, "text": text}
+
+    def fn(*args):
+        if error is not None:
+            raise NotImplementedError(error)
+        return RC.run_field(prog, args, n_out)
+
+    fn.spec = spec
+    return fn
 
 
 def compile_expr(expr, varnames, label):
     """A C-expression string -> a torch callable over ``varnames`` with a
-    ``spec`` of kind ``"expr"``. Unknown symbols raise ``ValueError`` (as
-    in the JAX package); a construct outside the grammar is kept as
-    ``spec["error"]`` and refused by the prover (``field-expr-unsupported``)."""
+    ``spec`` of kind ``"expr"``: its field program, one output. Unknown
+    symbols raise ``ValueError`` (as in the JAX package); a construct
+    outside the grammar is kept as ``spec["error"]`` and refused by the
+    prover (``field-expr-unsupported``)."""
     text = _GID_RE.sub("", str(expr))
     tree = ast.parse(text.strip(), mode="eval")
     known = set(_CONSTS) | set(_UNARY) | set(_BINARY) | {"pow"}
@@ -187,65 +191,32 @@ def compile_expr(expr, varnames, label):
                 else node.attr if isinstance(node, ast.Attribute) else None)
         if name is not None and name not in known and name not in varnames:
             raise ValueError(f"{label}: unknown symbol {name!r}")
-    prog, error = [], None
+    ssa, error = RC._SSA(), None
     try:
-        _emit(tree.body, list(varnames), prog)
+        ssa.effects.append((RC.U_ST, _emit(tree.body, list(varnames), ssa),
+                            0))
     except _Unsupported as e:
-        prog, error = [], f"{label}: {e}"
-    spec = {"kind": "expr", "prog": tuple(prog), "depth": _depth(prog),
-            "vars": tuple(varnames), "error": error, "text": text}
-
-    def fn(*args):
-        if error is not None:
-            raise NotImplementedError(error)
-        return run_program(spec["prog"], args)
-
-    fn.spec = spec
-    return fn
+        ssa, error = RC._SSA(), f"{label}: {e}"
+    prog = RC._schedule(ssa, 0)
+    return expr_field(prog, varnames, text, error=error)
 
 
-def _ipow(x: torch.Tensor, y: int) -> torch.Tensor:
-    """``lax.integer_pow``: binary exponentiation, 1/x^|y| for y < 0."""
-    if y == 0:
-        return torch.ones_like(x)
-    neg, y = y < 0, abs(y)
-    acc = None
-    while y > 0:
-        if y & 1:
-            acc = x if acc is None else acc * x
-        y >>= 1
-        if y > 0:
-            x = x * x
-    return _f32(1.0).to(acc.device) / acc if neg else acc
-
-
-_TORCH_UNARY = {INS_FABS: torch.abs, INS_EXP: torch.exp, INS_LOG: torch.log,
-                INS_LOG10: torch.log10, INS_SIN: torch.sin,
-                INS_COS: torch.cos, INS_TAN: torch.tan,
-                INS_FLOOR: torch.floor, INS_CEIL: torch.ceil,
-                INS_SQRT: _sqrt_rn, INS_NEG: torch.neg}
-_TORCH_BINARY = {INS_ADD: torch.add, INS_SUB: torch.sub, INS_MUL: torch.mul,
-                 INS_DIV: torch.div, INS_POW: torch.pow,
-                 INS_MIN: torch.minimum, INS_MAX: torch.maximum}
-
-
-def run_program(prog, args) -> torch.Tensor:
-    """Plain version of the kernel's postfix interpreter, in float32."""
-    like = args[0]
-    st = []
-    for code, val in prog:
-        if code == INS_CONST:
-            st.append(_f32(val).to(like.device))
-        elif code == INS_VAR:
-            st.append(args[int(val)].to(torch.float32))
-        elif code == INS_IPOW:
-            st.append(_ipow(st.pop(), int(val)))
-        elif code in _TORCH_UNARY:
-            st.append(_TORCH_UNARY[code](st.pop()))
+def field_layout(spec: dict):
+    """``(shape, constants)`` of an expression field: its shape hash (an
+    int32 of its outputs and every instruction's opcode, registers, load
+    and store indices and integer exponent: everything but the constants)
+    and its constants as float32 values, one for each ``U_CONST``
+    instruction and each immediate operand, in program order (the order in
+    which ``ops/codegen.py:field_c`` reads them from the Plan)."""
+    shape, consts = [spec["n_out"]], []
+    for code, d, a, b, y, bimm in spec["prog"].ins:
+        if code == RC.U_CONST or bimm:
+            consts.append(float(np.float32(y)))
+            shape.append((code, d, a, b, bimm))
         else:
-            b = st.pop()
-            st.append(_TORCH_BINARY[code](st.pop(), b))
-    return st.pop().expand(like.shape)
+            shape.append((code, d, a, b, y))
+    h = zlib.crc32(repr(shape).encode()) & 0x7FFFFFFF
+    return h, consts
 
 
 def _on(spec: dict, key: str, device) -> torch.Tensor:

@@ -98,10 +98,7 @@ SEQ_SMEM_PER_ITER = 32
 # the float sums' partials: a [k_act][n_fcols] float32 slice per warp of the
 # launch; at most 132 SMs x 8 blocks x 8 warps on an H100
 MAX_WARP_SLICES = 132 * 8 * 8
-MAX_OPS = 32
 MAX_EXTRAS = 8    # extras planes (1h's Stokes and frame rows, otype, qm)
-MAX_AXES = 32     # crossing planes over all cross ops of a plan
-MAX_FIELDS = 16   # distinct field callables of a plan
 _NAN = float("nan")
 
 
@@ -176,10 +173,10 @@ class _Op:
     qm_plane: int = -1
     e_const: tuple = ()
     b_const: tuple = ()
-    # lorentz: recorded fields E(r) / B(r), one field callable over (r0,
-    # r1, r2) per component (() = the constant, or none)
-    e_fns: tuple = ()
-    b_fns: tuple = ()
+    # lorentz: recorded fields E(r) / B(r), each one field callable over
+    # (r0, r1, r2) with three outputs (None = the constant, or none)
+    e_fn: Optional[Callable] = None
+    b_fn: Optional[Callable] = None
     after_update: bool = True
     # emit: a polarized source's Stokes vector and frame (() = unpolarized:
     # zeroed rows)
@@ -197,12 +194,11 @@ class _Op:
     @property
     def fld_fns(self) -> tuple:
         """The kernel's ``Op.fld`` callables: a Lorentz op's E and B
-        components, a phase op's recorded inverse CDF first; None where the
-        op reads its constant or table."""
+        fields, a phase op's recorded inverse CDF first; None where the op
+        reads its constant or table."""
         if self.kind == "lorentz":
-            return (tuple(self.e_fns) or (None,) * 3) + (
-                tuple(self.b_fns) or (None,) * 3)
-        return (self.phase_fn,) + (None,) * 5
+            return (self.e_fn, self.b_fn)
+        return (self.phase_fn, None)
 
 
 @dataclasses.dataclass
@@ -243,6 +239,11 @@ class FusedPlan:
     # (kernel_seq); False runs the same plan through its form library, for
     # holding the two against each other
     specialize: bool = True
+    # hand the form kernel its Plan in a device buffer even where the Plan
+    # fits the kernel's parameters (a Plan past them always goes there:
+    # ops/codegen.py:plan_in_buffer), for holding the two routes against
+    # each other
+    plan_buffer: bool = False
     # the kernel's plan struct and the per-device fit tables, built once
     _cache: dict = dataclasses.field(default_factory=dict, repr=False,
                                      compare=False)
@@ -630,9 +631,6 @@ def _check_plan(plan: FusedPlan) -> None:
                              "(light.phase_knots) or a recorded inverse CDF")
         if op.kind == "compton" and op.kn_tries < 1:
             raise ValueError("compton needs kn_tries >= 1")
-    if len(plan.ops) > MAX_OPS:
-        raise ValueError(f"{len(plan.ops)} fused ops exceed the kernel's "
-                         f"{MAX_OPS}")
     if len(plan.extras) > MAX_EXTRAS:
         raise ValueError(f"{len(plan.extras)} extras planes exceed the "
                          f"kernel's {MAX_EXTRAS}")
@@ -646,16 +644,12 @@ def _check_plan(plan: FusedPlan) -> None:
                              f"{plan.n_planes}")
     _check_pol(plan)
     _check_user(plan)
-    if sum(len(op.axes) for op in plan.ops) > MAX_AXES:
-        raise ValueError(f"crossing planes exceed the kernel's {MAX_AXES}")
-    specs, _ = plan_fields(plan.ops)
-    if len(specs) > MAX_FIELDS:
-        raise ValueError(f"{len(specs)} fields exceed the kernel's "
-                         f"{MAX_FIELDS}")
-    if sum(len(s["prog"]) for s in specs if s["kind"] == "expr") \
-            > FL.MAX_PROG:
-        raise ValueError(f"expression programs exceed the kernel's "
-                         f"{FL.MAX_PROG} instructions")
+    for op in plan.ops:
+        for fn, n_out in zip(op.fld_fns, (3, 3) if op.kind == "lorentz"
+                             else (1, 1)):
+            if fn is not None and fn.spec.get("n_out", 1) != n_out:
+                raise ValueError(f"{op.kind} needs fields of {n_out} "
+                                 "outputs")
     if plan.stream_every < 1 or plan.stream_dtype not in ("float32",
                                                           "bfloat16"):
         raise ValueError("stream_every must be >= 1 and stream_dtype "
@@ -1312,10 +1306,12 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                 v = [f[_VX], f[_VY], f[_VZ]]
                 # a recorded field at the particle's position, else the
                 # constant
-                E_val = ([fn(f[_RX], f[_RY], f[_RZ]) for fn in op.e_fns]
-                         or [_f32(x).to(dev) for x in op.e_const])
-                B_val = ([fn(f[_RX], f[_RY], f[_RZ]) for fn in op.b_fns]
-                         or [_f32(x).to(dev) for x in op.b_const])
+                E_val = (list(op.e_fn(f[_RX], f[_RY], f[_RZ]))
+                         if op.e_fn is not None
+                         else [_f32(x).to(dev) for x in op.e_const])
+                B_val = (list(op.b_fn(f[_RX], f[_RY], f[_RZ]))
+                         if op.b_fn is not None
+                         else [_f32(x).to(dev) for x in op.b_const])
                 if E_val:
                     ev = [x * h for x in E_val]
                     v = [v[d] + ev[d] for d in range(3)]
@@ -1416,14 +1412,16 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
     return torch.stack(f), rec, rec_f
 
 
-def _set_field(fs, spec, prog, aux):
-    """Fill one kernel ``Field`` from a spec; expression programs append to
-    ``prog`` and layered edges and values to the auxiliary table ``aux``
-    (a list of float32 arrays, offsets in floats)."""
+def _set_field(fs, spec, fk, aux):
+    """Fill one kernel ``Field`` from a spec; an expression field's
+    constants append to ``fk`` (its shape goes to ``shape``: the program is
+    the form library's) and layered edges and values to the auxiliary
+    table ``aux`` (a list of float32 arrays, offsets in floats)."""
     fs.kind = FL.KIND_CODES[spec["kind"]]
     if spec["kind"] == "expr":
-        fs.off, fs.len = len(prog), len(spec["prog"])
-        prog.extend(spec["prog"])
+        fs.shape, consts = FL.field_layout(spec)
+        fs.off, fs.len = len(fk), len(consts)
+        fk.extend(consts)
     elif spec["kind"] == "layered":
         fs.axis, fs.outside = spec["axis"], spec["outside"]
         fs.ctr[:] = list(spec["center"])
@@ -1439,18 +1437,24 @@ def _set_field(fs, spec, prog, aux):
 
 
 def _plan_struct(plan: FusedPlan, dev: torch.device):
-    """The kernel's ``Plan`` struct (ctypes, built once per plan and device:
-    it holds the device voxel grids' addresses) and the auxiliary float
-    table on ``dev`` (the fit tables of sampled-energy emit ops, then the
-    layered fields' edges and values), or None."""
+    """The kernel's ``Plan`` struct (ctypes, sized for the plan's ops,
+    crossing planes, fields and expression-field constants; built once per
+    plan and device: it holds the device voxel grids' addresses), the
+    auxiliary float table on ``dev`` (the fit tables of sampled-energy emit
+    ops, then the layered fields' edges and values) or None, and the
+    grids."""
     key = ("struct", dev)
     if key in plan._cache:
         return plan._cache[key]
-    from physicl_tpu_torch.ops._build import PlanStruct
+    from physicl_tpu_torch.ops._build import plan_struct_type
 
-    ps = PlanStruct()
     specs, index = _field_index(plan.ops)
-    aux, prog, grids = [], [], []
+    n_k = sum(len(FL.field_layout(sp)[1]) for sp in specs
+              if sp["kind"] == "expr")
+    ps = plan_struct_type((len(plan.ops), sum(len(op.axes)
+                                              for op in plan.ops),
+                           len(specs), n_k))()
+    aux, fk, grids = [], [], []
     n_ax = 0
     for i, op in enumerate(plan.ops):
         o = ps.ops[i]
@@ -1508,8 +1512,8 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
             # LorentzFlag: E 1, B 2, the dt after the update 4; the
             # species-wide 0.5 q/m rounded to float32 (jnp.float32(0.5 *
             # qm)), or the q/m plane's index among the extras
-            o.flag = (int(bool(op.e_const or op.e_fns))
-                      | 2 * int(bool(op.b_const or op.b_fns))
+            o.flag = (int(bool(op.e_const) or op.e_fn is not None)
+                      | 2 * int(bool(op.b_const) or op.b_fn is not None)
                       | 4 * int(op.after_update))
             o.coef = 0.5 * op.qm
             o.col0 = op.qm_plane - _NF if op.qm_plane >= 0 else -1
@@ -1547,13 +1551,12 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
                 a.axis, a.L, a.col, a.ecol, a.ecap = _axis(ax)
                 n_ax += 1
     for i, spec in enumerate(specs):
-        _set_field(ps.fields[i], spec, prog, aux)
+        _set_field(ps.fields[i], spec, fk, aux)
         if spec["kind"] == "voxel":
             grid = FL.grid_on(spec, dev)  # shared with the twin's callable
             grids.append(grid)
             ps.grids[i] = grid.data_ptr()
-    for j, (code, val) in enumerate(prog):
-        ps.prog[j].code, ps.prog[j].val = code, val
+    ps.fk[:len(fk)] = fk
     ps.n_ops = len(plan.ops)
     ps.n_cols, ps.n_fcols = plan.n_rec_cols, plan.n_frec_cols
     ps.const_norm = int(plan.const_norm_speed is not None)
@@ -1634,6 +1637,11 @@ def fused_transport(packed: torch.Tensor, out: torch.Tensor,
         starts_ptr, stride = emit_starts.data_ptr(), emit_starts.shape[1]
     struct, aux, _ = _plan_struct(plan, dev)
     lib = _library(plan)
+    if lib.plan_dims != type(struct).dims:
+        raise RuntimeError(f"fused_transport: the library's Plan sizes "
+                           f"{lib.plan_dims} are not the plan's "
+                           f"{type(struct).dims}")
+    plan_dev = _plan_buffer(plan, struct, dev)
     C, k_act = packed.shape[1], int(k_act)
     rec = torch.zeros((plan.chunk, _MAX_REC_COLS), dtype=torch.int32,
                       device=dev)
@@ -1660,7 +1668,8 @@ def fused_transport(packed: torch.Tensor, out: torch.Tensor,
             sched.shape[1], 0 if thr is None else thr.data_ptr(),
             starts_ptr, stride,
             0 if aux is None else aux.data_ptr(), k_act,
-            int(seed) & 0xFFFFFFFF, ctypes.byref(struct), variant, grid,
+            int(seed) & 0xFFFFFFFF, ctypes.addressof(struct),
+            0 if plan_dev is None else plan_dev.data_ptr(), variant, grid,
             rec.data_ptr(), rec_f.data_ptr(), partials.data_ptr(),
             0 if stream is None else stream.data_ptr(),
             plan.n_stream_rows if plan.n_stream else 0,
@@ -1699,6 +1708,23 @@ def rsqrt_near1_check(dev) -> dict:
     as_f32 = np.array([lo & _MASK, hi & _MASK], np.uint32).view(np.float32)
     return {"mismatches": bad, "out_of_range": out_of_range,
             "n2_min": float(as_f32[0]), "n2_max": float(as_f32[1])}
+
+
+def _plan_buffer(plan: FusedPlan, struct, dev):
+    """The device copy of the plan's ``Plan`` where its form library takes
+    it from a buffer (``ops/codegen.py:plan_in_buffer``), made once per
+    plan and device; else None."""
+    if plan.kernel_seq is not None:
+        return None
+    from physicl_tpu_torch.ops import codegen
+
+    if not codegen.plan_in_buffer(plan, struct):
+        return None
+    key = ("plan_dev", dev)
+    if key not in plan._cache:
+        plan._cache[key] = torch.frombuffer(
+            bytearray(bytes(struct)), dtype=torch.uint8).to(dev)
+    return plan._cache[key]
 
 
 def kernel_variant(plan: FusedPlan) -> int:

@@ -104,8 +104,8 @@ _JAX_USER_REASONS = frozenset({
 
 def is_kernel_limit(code: str) -> bool:
     """True for a refusal code that only the port's kernel has (the JAX
-    kernel runs the plan): ``op-count``, ``cross-planes``, ``field-count``,
-    ``field-expr-*``, ``field-fn-callable`` (a callable the recorder
+    kernel runs the plan): ``field-expr-unsupported`` (a string construct
+    outside the field IR), ``field-fn-callable`` (a callable the recorder
     cannot take) and ``*-op-unsupported``. Such a refusal does not fall
     back to the generic tier;
     ``Simulation(fuse="off")`` asks for that tier explicitly."""
@@ -905,8 +905,8 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
 
     def _field(step, fn, label, varnames, ncomp=1):
         """The kernel-evaluable field callable ``fn``, or a refusal. A
-        torch callable is recorded into an expression program (with
-        ``ncomp=3``, three: a tuple of field callables comes back)."""
+        torch callable is recorded into one field program of ``ncomp``
+        outputs."""
         if fn is None:
             return None
         what = f"{type(step).__name__}'s {label}"
@@ -925,25 +925,16 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
                           "light.layered_density or light.voxel_density"
                           if ncomp == 1 else "pass a constant 3-vector"))
             fn = recorded_fields[key][1]
-            if ncomp > 1:
-                return tuple(_field(step, c, f"{label}[{i}]", varnames)
-                             for i, c in enumerate(fn))
             spec = fn.spec
         # layered and voxel fields are functions of position only
-        if spec is None or spec.get("vars", _R) != varnames:
+        if spec is None or spec.get("vars", _R) != varnames \
+                or spec.get("n_out", 1) != ncomp:
             _no("field-fn-callable", f"{what} is not a field the kernel "
                 f"evaluates over {varnames}; pass a C-expression string"
                 + (" over E[gid]" if varnames == ("E",) else ", "
                    "light.layered_density or light.voxel_density"))
-        if spec["kind"] == "expr":
-            if spec["error"] is not None:
-                _no("field-expr-unsupported", spec["error"])
-            if len(spec["prog"]) > FL.MAX_PROG:
-                _no("field-expr-length", f"{what} needs {len(spec['prog'])} "
-                    f"instructions > the kernel's {FL.MAX_PROG}")
-            if spec["depth"] > FL.MAX_DEPTH:
-                _no("field-expr-length", f"{what} needs an evaluation stack "
-                    f"of {spec['depth']} > {FL.MAX_DEPTH}")
+        if spec["kind"] == "expr" and spec["error"] is not None:
+            _no("field-expr-unsupported", spec["error"])
         if spec["kind"] == "voxel" and spec["flat"].size > FL.MAX_VOXELS:
             # the JAX prover's code where its kernel cannot hold a grid
             # (physicl_tpu/ops/pipeline.py:1156-1172): the generic tier
@@ -1033,7 +1024,6 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
     next_col = 1
     next_fcol = 0   # float record channels (weight and energy sums)
     next_plane = 0  # stream planes (trace positions, captured energies)
-    n_axes = 0
     dt_fn = None
     update_seen = False
     update_before_kin = False
@@ -1121,12 +1111,12 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
                 # q/m = 0 and no fields leave v as it is and dv = 0
                 ops.append(F._Op("lorentz", after_update=update_seen))
                 continue
-            # a callable field: recorded, one program per component, and
-            # evaluated at the particle's position
-            e_fns = (_field(s, s._e_fn, "E_field", _R, ncomp=3)
-                     if s._e_const is None else None) or ()
-            b_fns = (_field(s, s._b_fn, "B_field", _R, ncomp=3)
-                     if s._b_const is None else None) or ()
+            # a callable field: recorded, one program of three outputs,
+            # and evaluated at the particle's position
+            e_fn = (_field(s, s._e_fn, "E_field", _R, ncomp=3)
+                    if s._e_const is None else None)
+            b_fn = (_field(s, s._b_fn, "B_field", _R, ncomp=3)
+                    if s._b_const is None else None)
             qm_plane = -1
             if s.q_over_m is None:  # per-particle q/m: a derived plane
                 if "qm" not in extra_names:
@@ -1134,8 +1124,8 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
                 qm_plane = F._NF + extra_names.index("qm")
             ops.append(F._Op("lorentz", qm=s.q_over_m or 0.0,
                              qm_plane=qm_plane, e_const=s._e_const or (),
-                             b_const=s._b_const or (), e_fns=e_fns,
-                             b_fns=b_fns, after_update=update_seen))
+                             b_const=s._b_const or (), e_fn=e_fn,
+                             b_fn=b_fn, after_update=update_seen))
         elif type(s) is ScatterDeleteStep:
             n_fn = _field(s, s._n_fn, "variable_n_fn", _R)
             a_fn = _field(s, s._a_fn, "A_fn", ("E",))
@@ -1347,7 +1337,6 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
                 cnt_cols.append(cnt)
                 e_cols.append(e_col)
                 ecap_planes.append(ecap)
-            n_axes += len(axes)
             ops.append(F._Op("cross", cols=(n_col,), axes=tuple(axes),
                              weighted=s.weighted))
             rec_map.append({"uid": uid, "kind": "cross", "n_col": n_col,
@@ -1375,20 +1364,7 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
     if next_col > F._MAX_REC_COLS or next_fcol > F._MAX_REC_COLS:
         _no("record-columns", f"measurement channels exceed the record "
             f"width ({max(next_col, next_fcol)} > {F._MAX_REC_COLS})")
-    if len(ops) > F.MAX_OPS:
-        _no("op-count", f"{len(ops)} fused ops exceed the kernel's "
-            f"{F.MAX_OPS}")
-    if n_axes > F.MAX_AXES:
-        _no("cross-planes", f"{n_axes} crossing planes exceed the kernel's "
-            f"{F.MAX_AXES}")
     specs, _ = F.plan_fields(ops)
-    if len(specs) > F.MAX_FIELDS:
-        _no("field-count", f"{len(specs)} distinct fields exceed the "
-            f"kernel's {F.MAX_FIELDS}")
-    n_prog = sum(len(sp["prog"]) for sp in specs if sp["kind"] == "expr")
-    if n_prog > FL.MAX_PROG:
-        _no("field-expr-length", f"the plan's expression programs hold "
-            f"{n_prog} instructions > the kernel's {FL.MAX_PROG}")
     for sp in specs:  # the voxel grids go to the device now, in set-up
         if sp["kind"] == "voxel":
             FL.grid_on(sp, state.device)

@@ -1,8 +1,10 @@
-"""Kernel 1i's programs: a user's torch callable recorded once, at plan time,
-into an elementwise register program that :mod:`physicl_tpu_torch.ops.codegen`
-compiles per plan into straight-line CUDA C for ``csrc/fused_transport.cu``
-(the ops ``custom``, ``reduce`` and ``kstate``) and :func:`run_user_program`,
-the plain version, runs with float32 torch ops.
+"""Kernel 1i's programs and the recorded fields: a user's torch callable
+recorded once, at plan time, into an elementwise register program that
+:mod:`physicl_tpu_torch.ops.codegen` compiles per plan into straight-line
+CUDA C for ``csrc/fused_transport.cu`` (the ops ``custom``, ``reduce`` and
+``kstate``, and a field callable: :func:`record_field`) and
+:func:`run_user_program` / :func:`run_field`, the plain versions, run with
+float32 torch ops.
 
 Counterpart of the JAX package's tracing of the same callables into its
 fused kernel (``physicl_tpu/ops/fused.py:1448-1569``) and of its plan-time
@@ -1018,29 +1020,23 @@ def record_kernelstep(fn: Callable, otype_plane: int = -1,
     return _same_at_sizes(record, label)
 
 
-# -- callable scalar fields (the expression program of ops/fields.py) ----------
+# -- callable fields (the field programs of ops/fields.py) ---------------------
 
 
 def record_field(fn: Callable, varnames: Tuple[str, ...], label: str,
                  ncomp: int = 1):
     """Record a torch callable ``fn(*varnames)`` (``variable_n_fn(r0, r1,
     r2)``, ``A_fn(E)``, ``cos_theta_icdf(u)``, or with ``ncomp=3`` a
-    ``LorentzForceStep`` field returning three components) into postfix
-    programs of :func:`physicl_tpu_torch.ops.fields.compile_expr`; returns
-    a callable with that ``spec`` (its twin runs the program), or with
-    ``ncomp=3`` a tuple of three such callables, one per component (a
-    component that is a Python number is a one-instruction constant
-    program). Raises :class:`Refused`: ``field-fn-callable`` where the
-    callable cannot be recorded, ``field-expr-unsupported`` for an
-    operation the expression program lacks."""
+    ``LorentzForceStep`` field returning three components) into one field
+    program of :mod:`physicl_tpu_torch.ops.fields`: the recorder's own
+    instructions (selects and comparisons included), variable ``i`` a load
+    of plane ``i``, output ``j`` a store to ``j`` (a component that is a
+    Python number a constant). The callable is traced once, so the
+    components' shared subexpressions are computed once. Returns a field
+    callable with that ``spec`` (its plain version runs the program).
+    Raises :class:`Refused` with code ``field-fn-callable`` where the
+    callable cannot be recorded."""
     from physicl_tpu_torch.ops import fields as FL
-
-    codes = {U_NEG: FL.INS_NEG, U_ABS: FL.INS_FABS, U_SQRT: FL.INS_SQRT,
-             U_EXP: FL.INS_EXP, U_LOG: FL.INS_LOG, U_LOG10: FL.INS_LOG10,
-             U_SIN: FL.INS_SIN, U_COS: FL.INS_COS, U_TAN: FL.INS_TAN,
-             U_FLOOR: FL.INS_FLOOR, U_CEIL: FL.INS_CEIL, U_ADD: FL.INS_ADD,
-             U_SUB: FL.INS_SUB, U_MUL: FL.INS_MUL, U_DIV: FL.INS_DIV,
-             U_POW: FL.INS_POW, U_MIN: FL.INS_MIN, U_MAX: FL.INS_MAX}
 
     def record(n):
         examples, inputs = _plane_inputs(
@@ -1069,61 +1065,21 @@ def record_field(fn: Callable, varnames: Tuple[str, ...], label: str,
             raise Refused("field-fn-callable", str(e)) from None
         ssa = _SSA()
         tr = _Translator(gm, inputs, n, ssa)
-
-        def emit(v, prog):
-            code, args, y = ssa.defs[v]
-            if code == U_LD:
-                prog.append((FL.INS_VAR, float(y)))
-            elif code == U_CONST:
-                prog.append((FL.INS_CONST, y))
-            elif code == U_RECIP:
-                prog.append((FL.INS_CONST, 1.0))
-                emit(args[0], prog)
-                prog.append((FL.INS_DIV, 0.0))
-            elif code == U_IPOW:
-                emit(args[0], prog)
-                prog.append((FL.INS_IPOW, float(y)))
-            elif code in codes:
-                for x in args:
-                    emit(x, prog)
-                prog.append((codes[code], 0.0))
-            else:
-                name = {v: k for k, v in globals().items()
-                        if k.startswith("U_") and isinstance(v, int)}[code]
-                raise Refused("field-expr-unsupported", f"{label}: the "
-                              f"expression program has no {name[2:]}")
-            return prog
-
-        progs = []
-        for node in tr.run():
+        for j, node in enumerate(tr.run()):
             cs = tr.comps_of(node)
             if len(cs) != 1:
                 raise Refused("field-fn-callable", f"{label} returns "
                               f"{len(cs)} components where it should "
                               "return one per slot")
-            progs.append(tuple(emit(cs[0], [])))
-        return tuple(progs)
+            ssa.effects.append((U_ST, cs[0], j))
+        return _schedule(ssa, 0)
 
     try:
-        progs = _same_at_sizes(record, label)
+        prog = _same_at_sizes(record, label)
     except Refused as e:
-        if e.code == "field-expr-unsupported":
-            raise
         raise Refused("field-fn-callable", e.detail) from None
     name = getattr(fn, "__name__", "callable")
-    out = []
-    for i, prog in enumerate(progs):
-        spec = {"kind": "expr", "prog": prog, "depth": FL._depth(prog),
-                "vars": tuple(varnames), "error": None,
-                "text": f"<recorded {name}" + (f"[{i}]>" if ncomp > 1
-                                               else ">")}
-
-        def recorded(*args, _spec=spec):
-            return FL.run_program(_spec["prog"], args)
-
-        recorded.spec = spec
-        out.append(recorded)
-    return out[0] if ncomp == 1 else tuple(out)
+    return FL.expr_field(prog, varnames, f"<recorded {name}>", n_out=ncomp)
 
 
 # -- the plain version ------------------------------------------------------------
@@ -1152,11 +1108,9 @@ def run_user_program(prog: Program, f: list, alive: torch.Tensor, t, dt,
         dev, torch.float32).expand(C)
     regs: List[Optional[torch.Tensor]] = [None] * prog.n_regs
     base = rng.idx
-    from physicl_tpu_torch.ops import fields as FL
-
-    for code, d, a, b, y, bimm in prog.ins:
+    for ins in prog.ins:
+        code, d, a, _, y, _ = ins
         va = regs[a]
-        vb = full(y) if bimm and code != U_SEL else regs[b]
         if code == U_ST:
             f[y] = va
             continue
@@ -1173,38 +1127,95 @@ def run_user_program(prog: Program, f: list, alive: torch.Tensor, t, dt,
             v = t
         elif code == U_DT:
             v = dt
-        elif code == U_CONST:
-            v = full(y)
         elif code == U_UNIF:
             v = rng.uniform_at(base + y + 1)
-        elif code == U_NEG:
-            v = -va
-        elif code == U_ABS:
-            v = va.abs()
-        elif code == U_SQRT:
-            v = FL._sqrt_rn(va)
-        elif code == U_RECIP:
-            v = torch.div(one, va)
-        elif code == U_NOT:
-            v = (va == 0).to(torch.float32)
-        elif code == U_BOOL:
-            v = (va != 0).to(torch.float32)
-        elif code == U_IPOW:
-            v = FL._ipow(va, int(y))
-        elif code == U_SEL:
-            if bimm:
-                v = torch.where(va != 0, regs[b], full(y))
-            else:
-                v = torch.where(va != 0, regs[y], regs[b])
-        elif code in _TWIN_UNARY:
-            v = _TWIN_UNARY[code](va)
-        elif code in _TWIN_BINARY:
-            v = _TWIN_BINARY[code](va, vb)
         else:
-            raise ValueError(f"user program code {code}")
+            v = _pure(ins, regs, full, one)
         regs[d] = v
     rng.idx = base + prog.n_draws
     return alive
+
+
+def _pure(ins, regs, full, one) -> torch.Tensor:
+    """The value of one pure instruction (every code but the loads, draws,
+    stores, alive clears and record sums) over the registers ``regs``:
+    the operation its generated C (ops/codegen.py) matches, in float32;
+    ``full(y)`` a constant as a full-length tensor, ``one`` 1.0 so."""
+    code, _, a, b, y, bimm = ins
+    va = regs[a]
+    if code == U_CONST:
+        return full(y)
+    if code == U_NEG:
+        return -va
+    if code == U_ABS:
+        return va.abs()
+    if code == U_SQRT:
+        return _sqrt_rn(va)
+    if code == U_RECIP:
+        return torch.div(one, va)
+    if code == U_NOT:
+        return (va == 0).to(torch.float32)
+    if code == U_BOOL:
+        return (va != 0).to(torch.float32)
+    if code == U_IPOW:
+        return _ipow(va, int(y))
+    if code == U_SEL:
+        if bimm:
+            return torch.where(va != 0, regs[b], full(y))
+        return torch.where(va != 0, regs[y], regs[b])
+    if code in _TWIN_UNARY:
+        return _TWIN_UNARY[code](va)
+    if code in _TWIN_BINARY:
+        return _TWIN_BINARY[code](va, full(y) if bimm else regs[b])
+    raise ValueError(f"program code {code}")
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root (the kernel's ``sqrtf``)."""
+    return torch.sqrt(x.double()).float()
+
+
+def _ipow(x: torch.Tensor, y: int) -> torch.Tensor:
+    """``lax.integer_pow``: binary exponentiation, 1/x^|y| for y < 0."""
+    if y == 0:
+        return torch.ones_like(x)
+    neg, y = y < 0, abs(y)
+    acc = None
+    while y > 0:
+        if y & 1:
+            acc = x if acc is None else acc * x
+        y >>= 1
+        if y > 0:
+            x = x * x
+    return torch.ones_like(acc) / acc if neg else acc
+
+
+def run_field(prog: Program, args, n_out: int = 1):
+    """Plain version of a field program (:func:`record_field`,
+    ``ops/fields.py:compile_expr``) over the variables ``args`` (tensors of
+    one shape, or broadcastable to one), in float32: the output, or a tuple
+    of ``n_out`` outputs."""
+    args = [torch.as_tensor(x).to(torch.float32) for x in args]
+    shape = torch.broadcast_shapes(*(x.shape for x in args))
+    dev = args[0].device
+    args = [x.expand(shape) for x in args]
+
+    def full(x):
+        return torch.full((), float(x), dtype=torch.float32,
+                          device=dev).expand(shape)
+
+    one = full(1.0)
+    regs: List[Optional[torch.Tensor]] = [None] * prog.n_regs
+    out: List[Optional[torch.Tensor]] = [None] * n_out
+    for ins in prog.ins:
+        code, d, a, _, y, _ = ins
+        if code == U_ST:
+            out[y] = regs[a]
+        elif code == U_LD:
+            regs[d] = args[y]
+        else:
+            regs[d] = _pure(ins, regs, full, one)
+    return out[0] if n_out == 1 else tuple(out)
 
 
 def _cmp(fn):

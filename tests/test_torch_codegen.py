@@ -1,4 +1,5 @@
-"""Kernel 1i's code generator (``physicl_tpu_torch/ops/codegen.py``) on the
+"""The transport kernel's code generator (``physicl_tpu_torch/ops/
+codegen.py``): kernel 1i's user programs and the expression fields, on the
 CPU, where there is no ``nvcc``.
 
 * The generated translation unit is deterministic, and its build key
@@ -17,6 +18,13 @@ CPU, where there is no ``nvcc``.
   ``alive`` equal, record sums within rtol 1e-5 (the host sums in float64,
   torch in float32); a single instruction bitwise, a transcendental one
   (exp, log, log10, sin, cos, tan, pow) within 2 ulp.
+* The emitted field functions (``codegen.field_c``: straight-line C, the
+  constants read from the Plan's ``fk``), built with ``g++`` against a
+  host Plan stand-in, against the plain version ``ops/record.py:run_field``
+  on 2**10 seeded points with the same tolerances: a field per instruction
+  code a field can use, three outputs included; ``chip_smoke.py``'s
+  ``mirror_B``, ``crossed_EB``, ``linear_icdf`` and ``hg_icdf``; and
+  ``wide_sim``'s strings.
 """
 
 import ctypes
@@ -420,7 +428,11 @@ def test_literals_are_exact():
 # -- building a plan's library (a stand-in compiler on the CPU) ------------------
 
 _STUB = r"""
-extern "C" int fused_transport_plan_size() { return PLAN_SIZE; }
+extern "C" int fused_transport_plan_dims(int* d) {
+  const int dims[4] = {PLAN_DIMS};
+  for (int i = 0; i < 4; ++i) d[i] = dims[i];
+  return PLAN_SIZE;
+}
 extern "C" int fused_transport_grid(long long, int, int, int, int, int* g) {
   *g = 1;
   return 0;
@@ -429,17 +441,19 @@ extern "C" int fused_transport_launch() { return 0; }
 """
 
 
-def _fake_nvcc(tmp, fail=False):
+def _fake_nvcc(tmp, fail=False, plan=None):
     """A stand-in for ``nvcc`` that logs each call and copies a host stub
-    library (the C interface, the Plan's size) to its ``-o`` path, or
-    fails."""
+    library (the C interface, the Plan's sizes: ``plan``'s) to its ``-o``
+    path, or fails."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no host C++ compiler (g++)")
+    ps = type(F._plan_struct(plan, torch.device("cpu"))[0]) if plan \
+        else _build.plan_struct_type(_build.MAIN_PLAN_DIMS)
     stub = os.path.join(tmp, "stub.cpp")
     with open(stub, "w") as f:
-        f.write(_STUB.replace("PLAN_SIZE",
-                              str(ctypes.sizeof(_build.PlanStruct))))
+        f.write(_STUB.replace("PLAN_SIZE", str(ctypes.sizeof(ps))).replace(
+            "PLAN_DIMS", ", ".join(map(str, ps.dims))))
     so = os.path.join(tmp, "libstub.so")
     subprocess.run([gxx, "-shared", "-fPIC", "-o", so, stub], check=True)
     script = os.path.join(tmp, "nvcc")
@@ -468,7 +482,7 @@ def test_plan_library_builds_once_and_loads(tmp_path, monkeypatch):
     its own), its seconds and log are kept, and the same source loads
     from the cache in the process and from the file after."""
     tmp = str(tmp_path)
-    _fresh_build_dir(monkeypatch, tmp, _fake_nvcc(tmp))
+    _fresh_build_dir(monkeypatch, tmp, _fake_nvcc(tmp, plan=_user_plan()))
     src = CG.form_source(_user_plan())
     key = _build.plan_key(src)
     _build.start_plan_builds({"user": src, "again": src})
@@ -498,3 +512,223 @@ def test_failed_plan_build_raises_naming_the_plan(tmp_path, monkeypatch):
         F._library(plan)
     assert not os.path.exists(_build.plan_path(
         _build.plan_key(CG.form_source(plan))))
+
+
+# -- the expression fields -----------------------------------------------------
+
+_FIELD_HARNESS = r"""
+#include <math.h>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#define __device__
+#define __forceinline__ inline
+inline float __int_as_float(uint32_t b) {
+  float v;
+  std::memcpy(&v, &b, 4);
+  return v;
+}
+inline float nan_min(float a, float b) {
+  return (std::isnan(a) || std::isnan(b)) ? a + b : fminf(a, b);
+}
+inline float nan_max(float a, float b) {
+  return (std::isnan(a) || std::isnan(b)) ? a + b : fmaxf(a, b);
+}
+inline float ipow(float x, int y) {
+  if (y == 0) return 1.0f;
+  const bool neg = y < 0;
+  unsigned u = neg ? (unsigned)(-y) : (unsigned)y;
+  float acc = 0.0f;
+  bool have = false;
+  while (u) {
+    if (u & 1u) {
+      acc = have ? acc * x : x;
+      have = true;
+    }
+    u >>= 1;
+    if (u) x = x * x;
+  }
+  return neg ? 1.0f / acc : acc;
+}
+// the runtime Plan's field constants
+struct Plan {
+  const float* fk;
+};
+"""
+
+
+def _field_library(specs: dict, tmp):
+    """``g++``-built shared library of ``{name: expression field spec}``:
+    ``run_<name>(n, a, b, c, fk, out)`` evaluates the emitted function at
+    every point, its constants from ``fk``, its outputs into ``out``
+    ((n_out, n))."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no host C++ compiler (g++)")
+    parts = [_FIELD_HARNESS]
+    for name, spec in specs.items():
+        parts.append(CG.field_c(spec, f"field_{name}", 0))
+        call = ("out[g] = field_{0}(p, a[g], b[g], c[g]);"
+                if spec["n_out"] == 1 else
+                "float o[3]; field_{0}(p, a[g], b[g], c[g], o); "
+                "for (int j = 0; j < 3; ++j) out[j * n + g] = o[j];")
+        parts.append(
+            f'extern "C" void run_{name}(int n, const float* a, '
+            "const float* b, const float* c, const float* fk, float* out) "
+            "{ Plan p{fk}; for (int g = 0; g < n; ++g) { "
+            + call.format(name) + " } }")
+    src = os.path.join(tmp, "fields.cpp")
+    with open(src, "w") as f:
+        f.write("\n".join(parts))
+    so = os.path.join(tmp, "libfields.so")
+    subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-o", so, src], check=True, capture_output=True,
+                   text=True)
+    return ctypes.CDLL(so)
+
+
+def _field_both(lib, name, spec, pts):
+    """(host outputs, plain outputs), each (n_out, n) float32, of field
+    ``name`` at the points ``pts`` ((3, n) float32)."""
+    from physicl_tpu_torch.ops import fields as FL
+
+    n = pts.shape[1]
+    fk = np.array(FL.field_layout(spec)[1] or [0.0], np.float32)
+    out = np.zeros((spec["n_out"], n), np.float32)
+    pts = np.ascontiguousarray(pts, np.float32)
+    vp = ctypes.c_void_p
+    getattr(lib, f"run_{name}")(
+        ctypes.c_int(n), vp(pts[0].ctypes.data), vp(pts[1].ctypes.data),
+        vp(pts[2].ctypes.data), vp(fk.ctypes.data), vp(out.ctypes.data))
+    args = [torch.from_numpy(pts[i].copy())
+            for i in range(len(spec["vars"]))]
+    want = RC.run_field(spec["prog"], args, spec["n_out"])
+    want = torch.stack(list(want)) if spec["n_out"] > 1 else want[None]
+    return out, want.numpy()
+
+
+def _field_code_spec(case):
+    """A field around the instruction ``case`` (a ``U_*`` name a field can
+    use, or the select's immediate form, or three outputs) over (a, b, c)
+    = (x, y, z)."""
+    from physicl_tpu_torch.ops import fields as FL
+
+    ld = lambda d, v: (RC.U_LD, d, 0, 0, v, False)  # noqa: E731
+    st = lambda a, j=0: (RC.U_ST, 0, a, 0, j, False)  # noqa: E731
+    n_out = 1
+    if case == "U_SEL-imm":
+        ins = [ld(0, 0), ld(1, 1), (RC.U_LT, 2, 0, 1, 0, False),
+               (RC.U_SEL, 3, 2, 1, -2.5, True), st(3)]
+    elif case == "three-outputs":
+        ins = [ld(0, 0), ld(1, 1), ld(2, 2), (RC.U_MUL, 3, 0, 1, 0, False),
+               (RC.U_ADD, 4, 3, 2, 0, False), (RC.U_CONST, 5, 0, 0, 0.5,
+                                               False),
+               st(4, 0), st(5, 1), st(0, 2)]
+        n_out = 3
+    else:
+        code = _CODES[case]
+        if code == RC.U_SEL:
+            ins = [ld(0, 0), ld(1, 1), (RC.U_LT, 2, 0, 1, 0, False),
+                   (RC.U_SEL, 3, 2, 0, 1, False), st(3)]
+        elif code == RC.U_LD:
+            ins = [ld(0, 2), st(0)]
+        elif code in (RC.U_CONST, RC.U_ST):
+            ins = [(RC.U_CONST, 0, 0, 0, -3.25e-30, False), st(0)]
+        elif code == RC.U_IPOW:
+            ins = [ld(0, 0), (RC.U_IPOW, 1, 0, 0, -3, False),
+                   (RC.U_IPOW, 2, 0, 0, 7, False),
+                   (RC.U_ADD, 3, 1, 2, 0, False), st(3)]
+        elif code in CG._UNARY:
+            ins = [ld(0, 0), (RC.U_SUB, 1, 0, 0, 1.0, True),
+                   (code, 2, 1 if code not in (
+                       RC.U_SQRT, RC.U_LOG, RC.U_LOG10) else 0, 0, 0,
+                    False), st(2)]
+        else:  # a binary operation: a register and an immediate operand
+            ins = [ld(0, 0), ld(1, 1), (code, 2, 0, 1, 0, False),
+                   (code, 3, 2, 0, 1.0, True), st(3)]
+    prog = RC.Program(tuple(ins), 6, 0)
+    return FL.expr_field(prog, ("r0", "r1", "r2"), case,
+                         n_out=n_out).spec
+
+
+_FIELD_CODES = sorted(name for name, code in _CODES.items() if code not in (
+    RC.U_T, RC.U_DT, RC.U_UNIF, RC.U_ALIVE, RC.U_ACC)) + ["U_SEL-imm",
+                                                         "three-outputs"]
+
+
+@pytest.fixture(scope="module")
+def field_code_lib(tmp_path_factory):
+    specs = {case.replace("-", "_"): _field_code_spec(case)
+             for case in _FIELD_CODES}
+    return (_field_library(specs, str(tmp_path_factory.mktemp("fcodes"))),
+            specs)
+
+
+@pytest.mark.parametrize("case", _FIELD_CODES)
+def test_field_instruction_matches_plain_version(field_code_lib, case):
+    lib, specs = field_code_lib
+    name = case.replace("-", "_")
+    planes, _ = _inputs(seed=3)
+    pts = planes[[0, 12, 1]]
+    got, want = _field_both(lib, name, specs[name], pts)
+    if _CODES.get(case) in _TRANSCENDENTAL:
+        assert _ulps(got, want) <= 2
+    else:
+        assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def _smoke_fields():
+    """``{name: spec}``: chip_smoke.py's recorded fields (the mirror's
+    B(r), the crossed E and B, the two inverse CDFs) and wide_sim's
+    strings, recorded and compiled as the prover does."""
+    import chip_smoke as cs
+
+    R = ("r0", "r1", "r2")
+    E, B = cs.crossed_EB(torch)
+    specs = {
+        "mirror_B": RC.record_field(cs.mirror_B, R, "B", ncomp=3).spec,
+        "crossed_E": RC.record_field(E, R, "E", ncomp=3).spec,
+        "crossed_B": RC.record_field(B, R, "B", ncomp=3).spec,
+        "linear_icdf": RC.record_field(cs.linear_icdf, ("u",), "u").spec,
+        "hg_icdf": RC.record_field(cs.hg_icdf, ("u",), "u").spec}
+    plan = cs.planned(cs.wide_sim(T, N, "cpu", chunk=16))[1].plan
+    for j, sp in CG.expr_fields(plan):
+        specs[f"wide_{j}"] = sp
+    assert sum(k.startswith("wide") for k in specs) == 9
+    assert all(sp["kind"] == "expr" and sp["error"] is None
+               for sp in specs.values())
+    return specs
+
+
+@pytest.fixture(scope="module")
+def smoke_field_lib(tmp_path_factory):
+    torch.set_num_threads(1)
+    specs = _smoke_fields()
+    return (_field_library(specs, str(tmp_path_factory.mktemp("sfields"))),
+            specs)
+
+
+@pytest.mark.parametrize("name", [
+    "mirror_B", "crossed_E", "crossed_B", "linear_icdf", "hg_icdf",
+    *[f"wide_{j}" for j in range(9)]])
+def test_smoke_fields_match_plain_version(smoke_field_lib, name):
+    """Each field at 2**10 seeded points (positions within 100 c dt, draws
+    in [0, 1), energies in (0.5, 3)): within 1e-6 of each value plus 1e-6
+    of the output's largest."""
+    lib, specs = smoke_field_lib
+    spec = specs[name]
+    rng = np.random.default_rng(11)
+    c_dt = float(T.light.c) * 1e-3
+    if spec["vars"] == ("u",):
+        pts = np.zeros((3, N), np.float32)
+        pts[0] = rng.uniform(0, 1, N)
+    elif spec["vars"] == ("E",):
+        pts = np.zeros((3, N), np.float32)
+        pts[0] = rng.uniform(0.5, 3.0, N)
+    else:
+        pts = (rng.uniform(-100, 100, (3, N)) * c_dt).astype(np.float32)
+        if name.startswith(("mirror", "crossed")):
+            pts = rng.normal(size=(3, N)).astype(np.float32)
+    got, want = _field_both(lib, name, spec, pts)
+    scale = np.abs(want).max(axis=1, keepdims=True)
+    assert np.all(np.abs(got - want) <= 1e-6 * np.abs(want) + 1e-6 * scale)

@@ -590,14 +590,20 @@ def test_user_simulation_card_equals_cpu(dev):
 
 @pytest.mark.parametrize("name", ["mirror-B", "recorded-E-B",
                                   "phase-icdf-linear", "phase-icdf-hg",
-                                  "wide-17-ops-9-fields"])
+                                  "wide-17-ops-9-fields", "past-caps",
+                                  "past-caps-plan-buffer"])
 def test_recorded_plans_match_twin(dev, name):
     """The plans ``chip_smoke.py`` holds at 2**20 x 256 (recorded E / B
-    components, recorded inverse CDFs, a plan past the old table limits),
-    here at 2**16 x 64 as their providers hand them over: bitwise."""
+    fields, recorded inverse CDFs, a plan past the 16-op table limits, the
+    plan past the former 32 ops, 32 planes, 16 fields and 256 field
+    instructions, and that plan with its Plan in a device buffer), here at
+    2**16 x 64 (the past-caps plan x 32) as their providers hand them
+    over: bitwise."""
+    import dataclasses
+
     import physicl_tpu_torch as phys
     from chip_smoke import crossed_EB, hg_icdf, mirror_sim, phase_sim, \
-        first_chunk_inputs, wide_sim
+        first_chunk_inputs, past_caps_sim, wide_sim
 
     n, k = 1 << 16, 64
     sim = {"mirror-B": lambda: mirror_sim(phys, n, dev, iters=k,
@@ -609,9 +615,14 @@ def test_recorded_plans_match_twin(dev, name):
            "phase-icdf-hg": lambda: phase_sim(phys, n, dev, icdf=hg_icdf,
                                               iters=k, chunk=k)[0],
            "wide-17-ops-9-fields": lambda: wide_sim(phys, n, dev,
-                                                    chunk=k)}[name]()
+                                                    chunk=k),
+           "past-caps": lambda: past_caps_sim(phys, n, dev, chunk=32)[0],
+           "past-caps-plan-buffer": lambda: past_caps_sim(
+               phys, n, dev, chunk=32)[0]}[name]()
     packed, sched, seed, k_act, plan, _ = first_chunk_inputs(sim, F)
     assert plan.has_fields
+    if name.endswith("plan-buffer"):
+        plan = dataclasses.replace(plan, plan_buffer=True, _cache={})
     out = torch.empty_like(packed)
     rec, rec_f = F.fused_transport(packed, out, sched, seed, k_act, plan)
     ref, ref_rec, ref_f = F.fused_chunk_reference(packed, sched, seed,

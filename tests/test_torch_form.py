@@ -96,7 +96,7 @@ PLAN_NAMES = sorted(
         "cavity-bfloat16", "cavity-float32", "gamma", "glass", "thermal",
         "stretch", "fluor", "exb", "mixed", "record-tile", "polarized",
         "polarimetry", "mirror", "recorded-E-B", "phase-icdf",
-        "phase-icdf-hg", "wide")])
+        "phase-icdf-hg", "wide", "past-caps")])
 
 
 @pytest.mark.parametrize("name", PLAN_NAMES)
@@ -196,6 +196,72 @@ def test_numbers_share_a_source_and_build_key():
         assert _build.plan_key(other) == _build.plan_key(src), name
 
 
+def _field_plans(B0, L, g):
+    """The mirror's plan with a recorded B(r) of strength B0 and length L,
+    and the callable phase function's with an HG inverse CDF at g."""
+    def B(rx, ry, rz):
+        fac = B0 / (L * L)
+        return (-fac * rx * rz, -fac * ry * rz, B0 * (1.0 + (rz / L) ** 2))
+
+    def icdf(u):
+        s = (1.0 - g * g) / (1.0 - g + 2.0 * g * u)
+        return (1.0 + g * g - s ** 2) / (2.0 * g)
+
+    mirror = cs.mirror_sim(T, N, "cpu", iters=16, chunk=16,
+                           fields=(None, B))[0]
+    phase = cs.phase_sim(T, N, "cpu", icdf=icdf, iters=16, chunk=16)[0]
+    return [cs.planned(sim)[1].plan for sim in (mirror, phase)]
+
+
+def test_field_constants_share_a_source_and_build_key():
+    """Recorded fields that differ only in their constants (a sweep over
+    B0 and L, over g) share one source and build key: the program's shape
+    is the form's, its constants are the runtime Plan's (``fk``)."""
+    base = _field_plans(100.0, 2.0, 0.7)
+    for other in (_field_plans(250.0, 3.0, 0.3), _field_plans(80.0, 1.5,
+                                                               -0.45)):
+        for a, b in zip(base, other):
+            src = CG.form_source(a)
+            assert CG.form_source(b) == src
+            assert _build.plan_key(CG.form_source(b)) == _build.plan_key(src)
+            fa, fb = _struct(a), _struct(b)
+            assert fa.fields[0].shape == fb.fields[0].shape
+            assert list(fa.fk) != list(fb.fk)
+    # a field of another shape (one more operation) gives another source
+    def B2(rx, ry, rz):
+        return (rx * 0.5, ry * 0.5, rz * 0.5 + 1.0)
+
+    def B3(rx, ry, rz):
+        return (rx * 0.5, ry * 0.5, (rz * 0.5 + 1.0) * 2.0)
+
+    srcs = [CG.form_source(cs.planned(cs.mirror_sim(
+        T, N, "cpu", iters=16, chunk=16, fields=(None, B))[0])[1].plan)
+        for B in (B2, B3)]
+    assert srcs[0] != srcs[1]
+
+
+def test_a_plan_past_the_parameter_room_takes_the_buffer_route():
+    """The Plan is sized for its plan: 260 ops make it larger than a
+    kernel parameter may be (``codegen.PLAN_PARAM_BYTES``), and its form
+    takes the Plan from a device buffer; a small plan keeps the parameter
+    unless it asks for the buffer (``plan_buffer``), which is part of the
+    form."""
+    base = _base()
+    big = dataclasses.replace(base, ops=[F._Op("kin")] + [
+        F._Op("absorb", bounds=((-1.0, 1.0),) * 3)] * 259, n_rec_cols=1,
+        n_frec_cols=0, const_norm_speed=None, _cache={})
+    ps = _struct(big)
+    assert type(ps).dims == (260, 1, 1, 1)
+    assert ctypes.sizeof(ps) > CG.PLAN_PARAM_BYTES
+    assert CG.plan_in_buffer(big)
+    assert "kPlanInBuffer = 1;" in CG.form_source(big)
+    assert "#define PHYSICL_PLAN_DIMS 260, 1, 1, 1" in CG.form_source(big)
+    assert not CG.plan_in_buffer(base)
+    forced = dataclasses.replace(base, plan_buffer=True, _cache={})
+    assert CG.plan_in_buffer(forced)
+    assert CG.form_source(forced) != CG.form_source(base)
+
+
 @pytest.mark.parametrize("name", sorted(STRUCTURE))
 def test_each_change_of_structure_gives_another_source(name):
     base = _base()
@@ -236,6 +302,7 @@ _MATCH_PLANS = (
      "list:media-voxel-nearest-analog", "list:geom-periodic-trace-bf16-every4"]
     + ["path:planck", "path:media", "path:user", "path:spectrum",
        "path:escape-closure", "path:mirror", "path:phase-icdf", "path:wide",
+       "path:past-caps", "path:recorded-E-B",
        "path:kstate-mixed", "path:record-tile"])
 
 
@@ -250,9 +317,12 @@ def match_lib(tmp_path_factory):
     parts = ["#include \"plan.cuh\"", "using namespace physicl;"]
     for i, name in enumerate(_MATCH_PLANS):
         parts += [f"namespace f{i} {{",
-                  CG.form_struct(plans[name], users=False), "}",
-                  f'extern "C" int matches_{i}(const Plan* p) '
-                  f"{{ return form_matches<f{i}::Form>(*p); }}"]
+                  CG.form_struct(plans[name], bodies=False), "}",
+                  f'extern "C" int matches_{i}(const void* p) {{',
+                  f"  using P = FormPlan<f{i}::Form>;",
+                  f"  return form_matches<f{i}::Form>(*(const P*)p);", "}",
+                  f'extern "C" int size_{i}() {{',
+                  f"  return (int)sizeof(FormPlan<f{i}::Form>);", "}"]
     tmp = str(tmp_path_factory.mktemp("form_matches"))
     src = os.path.join(tmp, "matches.cpp")
     with open(src, "w") as f:
@@ -265,6 +335,16 @@ def match_lib(tmp_path_factory):
     for i in range(len(_MATCH_PLANS)):
         getattr(lib, f"matches_{i}").argtypes = [ctypes.c_void_p]
     return lib, plans
+
+
+def test_form_plan_has_the_plans_own_sizes(match_lib):
+    """Each form's Plan type (``FormPlan<Form>``, the tables sized for its
+    ops, planes, fields and field constants) is as large as the plan's
+    ctypes struct."""
+    lib, plans = match_lib
+    for i, name in enumerate(_MATCH_PLANS):
+        ps = _struct(plans[name])
+        assert getattr(lib, f"size_{i}")() == ctypes.sizeof(ps), name
 
 
 def _struct(plan):
@@ -335,6 +415,18 @@ def _axis_mut(member):
 
 def _field_mut(member):
     def apply(ps):
+        n_fields = len(ps.fields)
+        if member in ("shape", "constants"):
+            j = next((j for j in range(n_fields)
+                      if ps.fields[j].kind == 1), None)
+            if j is None:
+                return None
+            fd = ps.fields[j]
+            if member == "shape":
+                fd.shape ^= 1
+            else:
+                fd.len += 1
+            return ps
         i = next((i for i in range(ps.n_ops)
                   for f in (ps.ops[i].nf, ps.ops[i].af) if f >= 0), None)
         if i is None:
@@ -386,6 +478,8 @@ MUTATIONS = {
     "field-kind": _field_mut("kind"),
     "field-interp": _field_mut("interp"),
     "field-layered-axis": _field_mut("axis"),
+    "field-shape": _field_mut("shape"),
+    "field-constants": _field_mut("constants"),
     "n-ops": _plan_level("n_ops", lambda ps: setattr(ps, "n_ops",
                                                      ps.n_ops - 1)),
     "n-cols": _plan_level("n_cols", lambda ps: setattr(ps, "n_cols",
@@ -440,6 +534,7 @@ def test_form_matches_accepts_each_plans_own_struct(match_lib):
         ps.rot_sd[3] = 0.25
         ps.axes[0].L += 1.0
         ps.fields[0].outside = 9.0
+        ps.fk[0] = ps.fk[0] + 0.5  # an expression field's constant
         return ps
     assert _check_each(lib, plans, numbers, True) == len(_MATCH_PLANS)
 

@@ -427,38 +427,87 @@ def test_kernel_limits_do_not_fall_back():
     port_codes = set(re.findall(literal, inspect.getsource(TP)))
     assert {c for c in port_codes
             if not is_kernel_limit(c)} == (jax_codes & port_codes) | {"dtype"}
-    for code in ("op-count", "cross-planes", "field-count",
-                 "field-expr-length", "field-expr-unsupported",
-                 "field-fn-callable", "elementwise-op-unsupported",
-                 "reduce-op-unsupported", "kernelstep-op-unsupported"):
+    for code in ("field-expr-unsupported", "field-fn-callable",
+                 "elementwise-op-unsupported", "reduce-op-unsupported",
+                 "kernelstep-op-unsupported"):
         assert is_kernel_limit(code), code
     # lifted: the kernel evaluates a recorded inverse CDF, a voxel grid
-    # past its int32 index falls back with the JAX prover's code, and each
-    # plan's user programs are compiled for it, of any length
+    # past its int32 index falls back with the JAX prover's code, each
+    # plan's user programs are compiled for it, of any length, and so are
+    # its fields, into a Plan sized for its ops, planes and fields
     for code in ("phase-icdf-callable", "voxel-grid-size",
-                 "user-program-size", "user-program-regs"):
+                 "user-program-size", "user-program-regs", "op-count",
+                 "cross-planes", "field-count", "field-expr-length"):
         assert code not in port_codes, code
     assert "user-program" not in inspect.getsource(TP)
     assert not is_kernel_limit("field-fn-gather")
-    # a 90-term expression: past the kernel's program length
+    # a string construct outside the field IR (a modulo)
     for fuse in ("auto", "off"):
         s = _base(fuse=fuse)
         s.add_step(2, T.light.ScatterIsotropicStep(
-            A=1.0, variable_n=True,
-            variable_n_fn=" + ".join(["r0[gid] * 2.0"] * 90)))
+            A=1.0, variable_n=True, variable_n_fn="r0[gid] % 2.0 + 1.0"))
         s.add_photons(T.light.generate_photon_state(64, E=1.0))
         with warnings.catch_warnings():
             warnings.simplefilter("error")
-            if fuse == "off":
-                s._run_impl()
-                assert not s.used_fused and abs(len(s.ts) - 20) <= 1
+            if fuse == "off":  # the generic tier evaluates the field
+                with pytest.raises(NotImplementedError, match="construct"):
+                    s._run_impl()
+                assert not s.used_fused
                 continue
             with pytest.raises(FusedRefusal,
-                               match=r"field-expr-length.*a limit of the "
-                                     r"port's fused_transport kernel"):
+                               match=r"field-expr-unsupported.*a limit of "
+                                     r"the port's fused_transport kernel"):
                 s._run_impl()
         assert s.plan_report.mode == "unsupported"
         assert "Simulation(fuse='off') runs the plan" in s.explain_plan()
+
+
+def _ninety_terms(P, n=1024):
+    """A 90-term density (past the former 256-instruction program) on a
+    scattering run with a sign tally."""
+    kw = {"device": "cpu"} if P is T else {}
+    c_dt = float(P.light.c) * 1e-3
+    s = P.Simulation(until_t=0.0315, seed=2, auto_shrink=False, **kw)
+    s.add_step(0, P.UpdateTimeStep(lambda x: np.double(1e-3)))
+    s.add_step(1, P.newton.NewtonianKinematicsStep())
+    s.add_step(2, P.light.ScatterIsotropicStep(
+        A=0.002 / (180 * c_dt * c_dt), variable_n=True,
+        variable_n_fn=" + ".join(["r0[gid] * 2.0"] * 90)))
+    m = P.light.ScatterSignMeasureStep(None, True)
+    s.add_step(3, m)
+    s.add_photons(P.light.generate_photon_state(
+        n, E=1.0, r=np.random.default_rng(3).uniform(1, 2, (3, n)) * c_dt))
+    return s, m
+
+
+def test_former_length_limit_fuses_and_matches_jax():
+    """The 90-term expression the kernel once refused (field-expr-length)
+    fuses with no warning and matches the JAX package: sim.ts and the sign
+    rows equal, the alive plane equal, the live planes within 1e-4 of each
+    plane's max."""
+    runs = []
+    for P in (J, T):
+        s, m = _ninety_terms(P)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            s.start()
+            s.join()
+        assert s.used_fused
+        runs.append((s, m))
+    (js, jm), (ts, tm) = runs
+    assert (np.asarray(ts.ts, np.float64).tobytes()
+            == np.asarray(js.ts, np.float64).tobytes())
+    assert len(tm.data) == len(jm.data) > 0
+    for a, b in zip(tm.data, jm.data):
+        np.testing.assert_array_equal(a, b)
+    live = np.asarray(js.sim_state.alive)
+    np.testing.assert_array_equal(ts.sim_state.alive.numpy(), live)
+    for nm in ("r", "v", "E", "w"):
+        want = np.asarray(getattr(js.sim_state, nm))[..., live]
+        got = getattr(ts.sim_state, nm).numpy()[..., live]
+        for w, g in zip(np.atleast_2d(want), np.atleast_2d(got)):
+            scale = max(float(np.abs(w).max(initial=0.0)), 1e-30)
+            assert float(np.abs(g - w).max(initial=0.0)) <= 1e-4 * scale, nm
 
 
 def test_kernel_build_failure_does_not_fall_back(monkeypatch):

@@ -272,7 +272,7 @@ def _field_sim(P, case):
 
 @pytest.mark.parametrize("case", ["mirror", "E-and-B"])
 def test_recorded_fields_match_jax(case):
-    """A callable E / B is recorded, one program per component, and
+    """A callable E / B is recorded, one program of three outputs, and
     evaluated at the particle's position: the port's twin against the JAX
     package's emulated chunk with the jnp callables, as the constant-field
     cases above; in the mirror's pure B field the push keeps |v|."""
@@ -300,29 +300,34 @@ def test_recorded_fields_match_jax(case):
 
 
 def test_record_field_three_components():
-    """record_field(ncomp=3): one program per component; a Python number
-    is a one-instruction constant program, 0 * x stays the product (exact
-    as JAX computes it, NaN included); each program's plain run equals the
-    callable."""
-    from physicl_tpu_torch.ops import fields as FL
+    """record_field(ncomp=3): one program with three outputs (the callable
+    traced once); a Python number is a constant output, 0 * x stays the
+    product (exact as JAX computes it, NaN included); the program's plain
+    run equals the callable; the mirror's shared subexpressions are
+    computed once."""
     from physicl_tpu_torch.ops import record as RC
 
     E = _crossed(torch)["E_field"]
-    progs = RC.record_field(E, ("r0", "r1", "r2"), "E_field", ncomp=3)
-    assert len(progs) == 3
-    assert progs[1].spec["prog"] == ((FL.INS_CONST, 0.5),)
-    assert [c for c, _ in progs[2].spec["prog"]] == [
-        FL.INS_VAR, FL.INS_CONST, FL.INS_MUL]
+    fn = RC.record_field(E, ("r0", "r1", "r2"), "E_field", ncomp=3)
+    prog = fn.spec["prog"]
+    assert fn.spec["n_out"] == 3
+    assert [ins[4] for ins in prog.ins if ins[0] == RC.U_ST] == [0, 1, 2]
+    const = {ins[1]: ins[4] for ins in prog.ins if ins[0] == RC.U_CONST}
+    st = {ins[4]: ins[2] for ins in prog.ins if ins[0] == RC.U_ST}
+    assert const[st[1]] == 0.5
+    codes = [ins[0] for ins in prog.ins]
+    assert codes.count(RC.U_COS) == 1 and RC.U_MUL in codes
     x = [torch.from_numpy(np.random.default_rng(i).normal(size=64).astype(
         np.float32)) for i in range(3)]
-    for fn, want in zip(progs, E(*x)):
-        got = fn(*x)
+    for got, want in zip(fn(*x), E(*x)):
         torch.testing.assert_close(got.expand(64), torch.as_tensor(
             want, dtype=torch.float32).expand(64), rtol=0, atol=0)
     mirror = RC.record_field(_mirror(torch), ("r0", "r1", "r2"), "B",
                              ncomp=3)
-    for fn, want in zip(mirror, _mirror(torch)(*x)):
-        torch.testing.assert_close(fn(*x), want, rtol=0, atol=0)
+    for got, want in zip(mirror(*x), _mirror(torch)(*x)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # the three components' loads are shared: one load of each variable
+    assert [ins[0] for ins in mirror.spec["prog"].ins].count(RC.U_LD) == 3
     with pytest.raises(RC.Refused, match="2 components"):
         RC.record_field(lambda a, b, c: (a, b), ("r0", "r1", "r2"), "E",
                         ncomp=3)

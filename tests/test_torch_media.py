@@ -45,6 +45,7 @@ import physicl_tpu_torch as T
 import physicl_tpu_torch.light  # noqa: F401
 import physicl_tpu_torch.newton  # noqa: F401
 from physicl_tpu_torch.ops import fields as FL
+from physicl_tpu_torch.ops import record as RC
 from physicl_tpu_torch.ops.pipeline import FusedRefusal, is_kernel_limit
 
 DT = 1e-3
@@ -172,7 +173,8 @@ def test_expression_values_match_jax(name):
     jf = J.light._compile_variable_n(expr)
     tf = T.light._compile_variable_n(expr)
     assert tf.spec["kind"] == "expr" and tf.spec["error"] is None
-    assert len(tf.spec["prog"]) <= FL.MAX_PROG
+    # one straight-line program, its output stored last
+    assert tf.spec["n_out"] == 1 and tf.spec["prog"].ins[-1][0] == RC.U_ST
     pts = np.random.default_rng(7).uniform(-3, 3, (3, 20000)).astype(
         np.float32)
     got, want = _eval_both(jf, tf, pts)
@@ -491,8 +493,7 @@ def _refusing_sim(step, fuse="auto"):
 # these plans), so the run stops by name and does not fall back. With
 # fuse="off" the generic tier calls the field: a layered density as
 # A_fn(E) has the wrong arguments, and an expression outside the grammar
-# raises when evaluated, as in the JAX package; an expression past the
-# kernel's length runs there
+# raises when evaluated, as in the JAX package
 _FIELD_ERRORS = {
     "field-fn-callable": (TypeError, "missing 2 required positional"),
     "field-expr-unsupported": (NotImplementedError, "construct 'r0 % 2'"),
@@ -504,14 +505,6 @@ _FIELD_ERRORS = {
         1.0, 1.0, A_fn=T.light.layered_density([0, 1], [1]))),
     ("field-expr-unsupported", lambda: T.light.ScatterIsotropicStep(
         A=1.0, variable_n=True, variable_n_fn="r0[gid] % 2")),
-    # past the kernel's 256 instructions, and past its 16 stack levels
-    ("field-expr-length", lambda: T.light.ScatterIsotropicStep(
-        A=1.0, variable_n=True,
-        variable_n_fn=" + ".join(["r0[gid] * 2.0"] * 90))),
-    ("field-expr-length", lambda: T.light.ScatterIsotropicStep(
-        A=1.0, variable_n=True,
-        variable_n_fn="r0[gid] * (" * 16 + "r1[gid] * r2[gid] + 1"
-                      + ")" * 16)),
 ])
 def test_field_refusals(code, make):
     s = _refusing_sim(make())
@@ -520,14 +513,69 @@ def test_field_refusals(code, make):
     with pytest.raises(FusedRefusal, match=code):
         s._run_impl()
     s = _refusing_sim(make(), fuse="off")
-    if code in _FIELD_ERRORS:
-        exc, match = _FIELD_ERRORS[code]
-        with pytest.raises(exc, match=match):
-            s._run_impl()
-    else:
+    exc, match = _FIELD_ERRORS[code]
+    with pytest.raises(exc, match=match):
         s._run_impl()
-        assert len(s.ts) == 10
     assert not s.used_fused
+
+
+def _long_sim(P, n_r, n=1024):
+    """A density string through a whole run: 64 iterations of kinematics,
+    an isotropic scatter at ~2% a step and a sign tally, photons starting
+    inside (1, 3)^3 c dt."""
+    kw = {"device": "cpu"} if P is T else {}
+    s = P.Simulation(until_t=64 * DT * 0.9999, seed=5, chunk_steps=32,
+                     auto_shrink=False, **kw)
+    s.add_step(0, P.UpdateTimeStep(lambda x: np.double(DT)))
+    s.add_step(1, P.newton.NewtonianKinematicsStep())
+    s.add_step(2, P.light.ScatterIsotropicStep(A=0.02 / C_DT, variable_n=True,
+                                               variable_n_fn=n_r))
+    m = P.light.ScatterSignMeasureStep(None, True)
+    s.add_step(3, m)
+    r = np.random.default_rng(4).uniform(1, 3, (3, n)) * C_DT
+    s.add_photons(P.light.generate_photon_state(n, E=1.0, r=r))
+    return s, m
+
+
+# former kernel limits, lifted: past the interpreter's 256 instructions
+# (90 terms) and past its 16 stack levels (16 nested products)
+_LONG = {
+    "90-terms": " + ".join(f"r{k % 3}[gid] * {1.0 / (90 * C_DT)!r}"
+                           for k in range(90)),
+    "16-deep": "(1.0 + r0[gid] * 1e-7 * " * 16
+               + "(r1[gid] * r2[gid] * 1e-12 + 1.0)" + ")" * 16,
+}
+
+
+@pytest.mark.parametrize("name", sorted(_LONG))
+def test_lifted_field_limits_match_jax(name):
+    """A string past the former program length or stack depth fuses (its
+    form library compiles it to straight-line code; the twin runs its
+    program) and the run matches the JAX package: sim.ts and the sign rows
+    equal, the alive plane equal, the live planes within 1e-4 of each
+    plane's max."""
+    ts, tm = _long_sim(T, _LONG[name])
+    spec = T.light._compile_variable_n(_LONG[name]).spec
+    assert spec["error"] is None
+    ts.start()
+    ts.join()
+    assert ts.used_fused, ts.explain_plan()
+    js, jm = _long_sim(J, _LONG[name])
+    js.start()
+    js.join()
+    assert (np.asarray(ts.ts, np.float64).tobytes()
+            == np.asarray(js.ts, np.float64).tobytes())
+    assert len(tm.data) == len(jm.data) > 0
+    for a, b in zip(tm.data, jm.data):
+        np.testing.assert_array_equal(a, b)
+    live = np.asarray(js.sim_state.alive)
+    np.testing.assert_array_equal(ts.sim_state.alive.numpy(), live)
+    for nm in ("r", "v", "E", "w"):
+        want = np.asarray(getattr(js.sim_state, nm))[..., live]
+        got = getattr(ts.sim_state, nm).numpy()[..., live]
+        for w, g in zip(np.atleast_2d(want), np.atleast_2d(got)):
+            scale = max(float(np.abs(w).max(initial=0.0)), 1e-30)
+            assert float(np.abs(g - w).max(initial=0.0)) <= 1e-4 * scale, nm
 
 
 def test_voxel_grid_size_refusal(monkeypatch):

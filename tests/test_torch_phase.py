@@ -3,7 +3,8 @@
 ``ScatterPhaseFunctionStep(cos_theta_icdf=<torch callable>)``: the prover
 records the callable into an expression program over ``u``
 (``ops/record.py:record_field``), which the kernel evaluates at the draw
-where the table route reads its knots, clipped to [-1, 1] as the JAX
+where the table route reads its knots (its form library's straight-line
+field function, ``ops/codegen.py:field_c``), clipped to [-1, 1] as the JAX
 kernel clips it (``physicl_tpu/ops/fused.py:1023-1026``). Both packages run
 the same ``Simulation`` (the JAX package's emulated chunk with the jnp
 callable, the port's plain twin with the torch one): ``sim.ts`` is
@@ -14,9 +15,10 @@ and the float32 planes agree within 1e-4 of each plane's largest value
 ``fuse="off"``, where the first moment of one forced scatter holds on both
 tiers within 5 sigma.
 
-The wider tables (32 ops, 32 crossing planes, 16 fields, 256 expression
-instructions over 16 stack levels): a plan past each of the old limits (17
-ops, 9 fields, 65 instructions) fuses and matches the JAX package the same
+Plan tables sized for each plan: a plan past each of the first limits (17
+ops, 9 fields, 65 instructions) and one past the later 32 ops, 32 crossing
+planes, 16 fields and 256 expression instructions (40, 40, 20, a 600-term
+string and a ``torch.where`` A(E)) fuse and match the JAX package the same
 way.
 """
 
@@ -26,6 +28,7 @@ import torch
 
 import jax.numpy as jnp
 
+import chip_smoke as cs
 import physicl_tpu as J
 import physicl_tpu.light  # noqa: F401
 import physicl_tpu.newton  # noqa: F401
@@ -34,6 +37,7 @@ import physicl_tpu_torch.light  # noqa: F401
 import physicl_tpu_torch.newton  # noqa: F401
 from physicl_tpu_torch.ops import fused as TF
 from physicl_tpu_torch.ops import fields as FL
+from physicl_tpu_torch.ops import record as RC
 
 DT = 2.0 ** -10  # c dt is exact: no FMA drift in r + v * dt
 TOL = 1e-4
@@ -126,12 +130,12 @@ def test_recorded_icdf_is_a_kernel_field():
     assert plan.has_fields
     ps, _, _ = TF._plan_struct(plan, torch.device("cpu"))
     i = [o.kind for o in plan.ops].index("phase")
-    assert ps.ops[i].fld[0] == 0 and list(ps.ops[i].fld[1:]) == [-1] * 5
-    prog = [(ps.prog[j].code, ps.prog[j].val)
-            for j in range(ps.fields[0].len)]
-    assert prog == [(c, float(np.float32(v))) for c, v in
-                    op.phase_fn.spec["prog"]]
-    assert FL.INS_IPOW in [c for c, _ in prog]
+    assert ps.ops[i].fld[0] == 0 and ps.ops[i].fld[1] == -1
+    shape, consts = FL.field_layout(op.phase_fn.spec)
+    fd = ps.fields[0]
+    assert (fd.kind, fd.shape, fd.off, fd.len) == (1, shape, 0, len(consts))
+    assert list(ps.fk[:fd.len]) == consts
+    assert RC.U_IPOW in [ins[0] for ins in op.phase_fn.spec["prog"].ins]
 
 
 def _first_moment(P, fuse, icdf, n=1 << 14):
@@ -221,9 +225,13 @@ def test_wide_plan_fuses_and_matches_jax():
         st.setup(ts)
     plan = try_build_fused(ts, steps, state).plan
     specs, _ = TF.plan_fields(plan.ops)
-    n_ins = sum(len(sp["prog"]) for sp in specs)
+    n_ins = sum(len(sp["prog"].ins) for sp in specs)
     assert len(plan.ops) >= 17 and len(specs) == 9 and n_ins >= 65
-    assert len(plan.ops) <= TF.MAX_OPS and n_ins <= FL.MAX_PROG
+    # the kernel's Plan is sized for the plan: its ops, no crossing plane,
+    # its fields and their constants
+    ps = TF._plan_struct(plan, torch.device("cpu"))[0]
+    n_k = sum(len(FL.field_layout(sp)[1]) for sp in specs)
+    assert type(ps).dims == (len(plan.ops), 1, 9, n_k)
     ts, tm = _wide(T)
     ts.start()
     ts.join()
@@ -231,3 +239,88 @@ def test_wide_plan_fuses_and_matches_jax():
     js.start()
     js.join()
     _same_run(js, jm, ts, tm)
+
+
+# -- a plan past the later caps ------------------------------------------------
+
+def _past_caps(P, xp, n=4096):
+    """40 ops, 40 crossing planes, 20 distinct fields: kin; 17 iso with
+    string densities (one of them ``past_caps_expr``); a del with a string
+    n(r) and a ``where`` A(E); 17 hg, one with a string n(r); a rayl; two
+    crossing tallies of 20 planes each; a sign."""
+    c = float(P.light.c)
+    kw = {"device": "cpu"} if P is T else {}
+    s = P.Simulation(until_t=16 * DT * 0.9999, seed=6, chunk_steps=8,
+                     auto_shrink=False, **kw)
+    steps = [P.UpdateTimeStep(lambda x: np.double(DT)),
+             P.newton.NewtonianKinematicsStep()]
+    for k in range(17):
+        n_r = (cs.past_caps_expr() if k == 0 else
+               f"1.0 + 0.25 * cos(r{k % 3}[gid] * {k + 1}e-6)")
+        steps.append(P.light.ScatterIsotropicStep(
+            A=0.01 / (c * DT), variable_n=True, variable_n_fn=n_r))
+    steps.append(P.light.ScatterDeleteStep(
+        np.double(1.0), np.double(0.01 / (c * DT)), variable_n=True,
+        variable_n_fn="1.0 + 0.5 * sin(r2[gid] * 1e-6)",
+        A_fn=lambda E: xp.where(E > 1.0, E, 1.0)))
+    for k in range(17):
+        if k == 0:
+            steps.append(P.light.ScatterHenyeyGreensteinStep(
+                A=0.01 / (c * DT), g=0.3, variable_n=True,
+                variable_n_fn="fmax(0.5, 1.0 - r0[gid] * 1e-8)"))
+        else:
+            steps.append(P.light.ScatterHenyeyGreensteinStep(
+                A=0.01 / (c * DT), n=1.0, g=0.05 * k - 0.4))
+    steps.append(P.light.ScatterRayleighStep(A=0.01 / (c * DT), n=1.0))
+    tallies = []
+    for axis in (0, 1):
+        locs = []
+        for j in range(20):
+            loc = [np.nan] * 3
+            loc[axis] = (j - 9.5) * 0.4 * c * DT
+            locs.append(tuple(loc))
+        tallies.append(P.light.ScatterMeasureStep(None, True, locs))
+    steps += tallies
+    m = P.light.ScatterSignMeasureStep(None, True)
+    steps.append(m)
+    for i, st in enumerate(steps):
+        s.add_step(i, st)
+    rng = np.random.default_rng(9)
+    s.add_photons(P.light.generate_photon_state(
+        n, E=rng.uniform(0.5, 2.0, n),
+        r=rng.uniform(-3, 3, (3, n)) * c * DT))
+    return s, m, tallies
+
+
+def test_past_caps_plan_fuses_and_matches_jax():
+    """A plan past the kernel's former 32 ops, 32 crossing planes, 16
+    fields and 256 expression instructions over 16 stack levels, with a
+    recorded ``torch.where``: the prover fuses it (a Plan sized for it) and
+    it matches the JAX package: sim.ts, the sign rows and every plane's
+    count row equal, the planes within 1e-4 of each plane's max."""
+    from physicl_tpu_torch.ops.pipeline import try_build_fused
+
+    ts, tm, tt = _past_caps(T, torch)
+    state = ts._init_run_state()
+    steps = ts._ordered_steps()
+    for st in steps:
+        st.setup(ts)
+    plan = try_build_fused(ts, steps, state).plan
+    specs, _ = TF.plan_fields(plan.ops)
+    n_ax = sum(len(op.axes) for op in plan.ops)
+    longest = max(len(sp["prog"].ins) for sp in specs)
+    assert (len(plan.ops), n_ax, len(specs)) == (40, 40, 20)
+    assert 560 <= longest <= 700, longest
+    where = next(op.a_fn for op in plan.ops if op.a_fn is not None)
+    assert RC.U_SEL in [ins[0] for ins in where.spec["prog"].ins]
+    ts.start()
+    ts.join()
+    js, jm, jt = _past_caps(J, jnp)
+    js.start()
+    js.join()
+    _same_run(js, jm, ts, tm)
+    for a, b in zip(tt, jt):
+        assert len(a.data) == len(b.data) > 0
+        for x, y in zip(a.data, b.data):
+            np.testing.assert_array_equal(np.asarray(x, np.float64),
+                                          np.asarray(y, np.float64))

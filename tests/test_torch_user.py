@@ -603,18 +603,67 @@ def test_user_refusals(case):
 
 @pytest.mark.parametrize("code,A_fn", [
     ("field-fn-callable", lambda E: np.asarray(E) * 2.0),
-    ("field-expr-unsupported", lambda E: torch.where(E > 1.0, E, 1.0)),
-    # 17 nested sums: past the kernel's 16 stack levels
-    ("field-expr-length", lambda E: E * (E + 1 * (E + 2 * (E + 3 * (E + 4
-                                    * (E + 5 * (E + 6 * (E + 7 * (E + 8
-                                    * (E + 9 * (E + 10 * (E + 11 * (E + 12
-                                    * (E + 13 * (E + 14 * (E + 15 * (E
-                                    + 16 * (E + 17)))))))))))))))))),
 ])
 def test_callable_field_refusals(code, A_fn):
     s = _refusing(T, lambda P: P.light.ScatterDeleteStep(1.0, 1.0,
                                                          A_fn=A_fn))
     assert _code_T(s) == code
+
+
+def _nested_17(xp):
+    """17 nested sums: past the former interpreter's 16 stack levels."""
+    return lambda E: E * (E + 1 * (E + 2 * (E + 3 * (E + 4 * (E + 5 * (
+        E + 6 * (E + 7 * (E + 8 * (E + 9 * (E + 10 * (E + 11 * (E + 12 * (
+            E + 13 * (E + 14 * (E + 15 * (E + 16 * (E + 17))))))))))))))))) \
+        * 1e-15
+
+
+# recorded A(E) callables the former interpreter refused: a select
+# (field-expr-unsupported) and a nesting past its stack (field-expr-length)
+_LIFTED_A = {
+    "where": lambda xp: (lambda E: xp.where(E > 1.0, E, 1.0)),
+    "nested-17": _nested_17,
+}
+
+
+@pytest.mark.parametrize("name", sorted(_LIFTED_A))
+def test_lifted_callable_fields_match_jax(name):
+    """The A(E) callable records into one field program (its select kept)
+    and fuses; the run matches the JAX package: sim.ts and the sign rows
+    equal, the alive plane equal, the live planes within 1e-4 of each
+    plane's max."""
+    runs = []
+    for P in (J, T):
+        s = _sim(P)
+        c = float(P.light.c)
+        s.add_step(0, P.UpdateTimeStep(lambda x: np.double(DT)))
+        s.add_step(1, P.newton.NewtonianKinematicsStep())
+        s.add_step(2, P.light.ScatterIsotropicStep(A=0.02 / (c * DT),
+                                                   n=1.0))
+        s.add_step(3, P.light.ScatterDeleteStep(
+            1.0, 0.02 / (c * DT), A_fn=_LIFTED_A[name](_np(P))))
+        m = P.light.ScatterSignMeasureStep(None, True)
+        s.add_step(4, m)
+        s.add_photons(_photons(P, 2048, 5))
+        s.start()
+        s.join()
+        assert s.used_fused, s.explain_plan()
+        runs.append((s, np.asarray(m.data, np.float64)))
+    (js, jrow), (ts, trow) = runs
+    assert (np.asarray(js.ts, np.float64).tobytes()
+            == np.asarray(ts.ts, np.float64).tobytes())
+    np.testing.assert_array_equal(trow, jrow)
+    jst, tst = _state_np(J, js), _state_np(T, ts)
+    assert np.array_equal(jst["alive"], tst["alive"])
+    live = jst["alive"]
+    for k in ("r", "v", "E", "w"):
+        want, got = jst[k][..., live], tst[k][..., live]
+        for w, g in zip(np.atleast_2d(want), np.atleast_2d(got)):
+            scale = max(float(np.abs(w).max(initial=0.0)), 1e-30)
+            assert float(np.abs(g - w).max(initial=0.0)) <= 1e-4 * scale, k
+    if name == "where":
+        fn = RC.record_field(_LIFTED_A[name](torch), ("E",), "A_fn")
+        assert RC.U_SEL in [ins[0] for ins in fn.spec["prog"].ins]
 
 
 def test_contract_errors_raise_as_in_jax():
