@@ -588,6 +588,15 @@ SEQ_OPS = {
     "sign_w": (3, 3, 3, 0),
     # the sign's (or any tally's) alive count: one vote
     "count": (0, 0, 1, 0),
+    # a binned reduce (a histogram tally, csrc/binned.cuh): a level of the
+    # search, its compare and the next node (2i + 1 + the compare; the
+    # table read a lane-load); the column: n - 1, the NaN and alive tests
+    # and their logic, the two capture tests and their selects; the one
+    # add a slot makes into its bin's sum (one sum a slot: the grouping is
+    # the kernel's bookkeeping)
+    "bin_level": (1, 1, 0, 0),
+    "bin_column": (1, 5, 2, 0),
+    "bin_sum": (1, 0, 0, 0),
     # lambda^-4 weighting: base, square, fourth power, product
     "wl": (4, 0, 0, 0),
     # implicit capture (in place of "del"'s draw and kill): clip 2, w (1 -
@@ -911,7 +920,27 @@ def user_cost(op):
             terms.append((1, 0, 0, 0))
     if op.kind == "reduce" and op.cols[0] >= 0:
         terms.append(SEQ_OPS["count"])
+    if getattr(op, "bins", None) is not None:
+        # a binned reduce (its table reads are lane-loads: transport_work)
+        terms += [(op.bins.levels, SEQ_OPS["bin_level"]),
+                  SEQ_OPS["bin_column"], SEQ_OPS["bin_sum"]]
     return _sum(*terms) if terms else (0, 0, 0, 0)
+
+
+def mask_cost(op):
+    """The SEQ_OPS tuple per slot-iteration of a binned reduce counted as
+    the per-mask program that the tally recorded before it was binned
+    (the earlier count, which charges every column's mask and sum as work
+    the function needs): the coordinate and value, two compares and an and a
+    bin and a compare a capture bin (each compare and logic op (0, 1, 1,
+    0), as user_cost counts them), a select a column for a value, and a
+    record sum a column."""
+    b = op.bins
+    n_bins, n_cols = len(b.edges) - 1, b.n_cols
+    base = user_cost(dataclasses.replace(op, bins=None))
+    n_logic = 2 * n_bins + b.underflow + b.overflow + n_bins
+    return _sum(base, (n_logic + (0 if b.count else n_cols), (0, 1, 1, 0)),
+                (n_cols, (1, 0, 1, 0)))
 
 
 def main_form(plan):
@@ -933,9 +962,11 @@ def seq_terms(plan, slots, k_act, starts=None, events=None):
     return terms
 
 
-def transport_bound(plan, slots, k_act, starts, events=None):
+def transport_bound(plan, slots, k_act, starts, events=None,
+                    per_mask=False):
     """bound() of one fused_transport launch of ``plan``."""
-    return bound(*transport_counts(plan, slots, k_act, starts, events))
+    return bound(*transport_counts(plan, slots, k_act, starts, events,
+                                   per_mask))
 
 
 def expected_events(plan, packed, alive_steps, dt, cross_p=0.0):
@@ -973,13 +1004,15 @@ def expected_events(plan, packed, alive_steps, dt, cross_p=0.0):
     return events
 
 
-def transport_counts(plan, slots, k_act, starts, events=None):
+def transport_counts(plan, slots, k_act, starts, events=None,
+                     per_mask=False):
     """(bytes, FMA-pipe ops, ALU-pipe ops, lane-loads) of one
     fused_transport launch of ``plan`` (``transport_work``)."""
-    return transport_work(plan, slots, k_act, starts, events)[:4]
+    return transport_work(plan, slots, k_act, starts, events, per_mask)[:4]
 
 
-def transport_work(plan, slots, k_act, starts, events=None):
+def transport_work(plan, slots, k_act, starts, events=None,
+                   per_mask=False):
     """(bytes, FMA-pipe ops, ALU-pipe ops, lane-loads, issue-only ops, MUFU
     ops) of one fused_transport launch of ``plan``: 2 x 60 B per slot, 4 B
     per extras plane per slot read (and per emitted slot written, and for
@@ -991,7 +1024,10 @@ def transport_work(plan, slots, k_act, starts, events=None):
     (``expected_events``) of the rotation family; the fields' gathers, the
     phase tables' reads and the stream stores as lane-loads at the
     load/store issue rate. A field that an op shares with the op before it
-    (no op between moves the particle: ``ops/codegen.py``) is read once."""
+    (no op between moves the particle: ``ops/codegen.py``) is read once.
+    A binned reduce counts its search, its column and one sum a slot
+    (``user_cost``), or with ``per_mask`` its masks and a sum a column
+    (``mask_cost``: the count before the tallies were binned)."""
     form = main_form(plan)
     if form is not None:
         per = [SEQ_OPS[k] for k in form]
@@ -1129,7 +1165,12 @@ def transport_work(plan, slots, k_act, starts, events=None):
             if op.local_qu:
                 per.append(SEQ_OPS["polmeas_qu"])
         elif op.kind in ("custom", "reduce", "kstate"):
-            per.append(user_cost(op))
+            if op.bins is not None and per_mask:
+                per.append(mask_cost(op))
+            else:
+                per.append(user_cost(op))
+                if op.bins is not None:
+                    loads += op.bins.levels  # the search's table reads
         elif op.kind == "lorentz":
             per.append(SEQ_OPS["lorentz"])
             if op.e_const or op.e_fn is not None:
@@ -1312,6 +1353,13 @@ def main():
             check(False, f"{name}: float records out of tolerance (row {k} "
                   f"column {c}: kernel {float(rec_f[k, c])!r} twin "
                   f"{float(ref_f[k, c])!r})")
+        for op in plan.ops:
+            b = op.bins
+            if b is not None and b.count:
+                # a binned count: integers below 2**24, exact in any order
+                cs_ = slice(op.cols[1], op.cols[1] + b.n_cols)
+                check(torch.equal(rec_f[:K, cs_], ref_f[:K, cs_]),
+                      f"{name}: count bins differ from the twin's")
         bitwise = torch.equal(out, ref)
         check(bitwise or not need_bitwise, f"{name}: planes not bitwise "
               "equal to the twin's")
@@ -1756,6 +1804,7 @@ def main():
         "spectrum-chunk-0", spectrum_sim(phys, SPEC_N, dev)[0], F, torch,
         compare, "spectrum", card, ["kin", "compton", "reduce", "reduce"],
         streams=False, twin_iters=TWIN_ITERS)
+    binned_phase(torch, phys, F, dev, card, times)
 
     phase("planck_gen vs twin (10**7 samples)")
     n_gen = 10_000_000
@@ -2934,6 +2983,14 @@ def path_chunk0(name, sim, F, torch, compare, path, card, kinds,
                                                   k, plan), 3, torch)
     out["bound_ms"], out["bound_by"] = transport_bound(
         plan, packed.shape[1], k, None, events)
+    if any(op.bins is not None for op in plan.ops):
+        # the bound as counted before the tallies were binned
+        out["bound_per_mask_ms"] = transport_bound(
+            plan, packed.shape[1], k, None, events, per_mask=True)[0]
+        print(f"{name}: bound {out['bound_ms']:.2f} ms for the binned "
+              f"function (search, value, one sum a slot) against "
+              f"{out['bound_per_mask_ms']:.2f} ms counted per mask",
+              flush=True)
     out.update(info)
     out["sass_per_iteration"] = loop["per_iteration"]
     terms = seq_terms(plan, packed.shape[1], k, None, events)
@@ -5263,6 +5320,8 @@ def user_plan_sims(phys, dev, n):
             for case in USER_PLANS}
     sims["user"] = user_sim(phys, n, dev, iters=16, chunk=16)[0]
     sims["spectrum"] = spectrum_sim(phys, n, dev, iters=16)[0]
+    sims["binned-edges"] = binned_edge_sim(phys, max(n, 1 << 10), dev,
+                                           iters=16)
     for mode in ("analog", "split_chunk"):
         sims[f"shield-{mode}"] = shield_sim(phys, mode, dev, n=n,
                                             cap=4 * n, iters=16)[0]
@@ -5399,6 +5458,9 @@ def user_plan_phase(torch, phys, F, dev, compare, card, times):
         events = expected_events(plan, packed,
                                  float(rec[:k, 0].double().sum()), USER_DT)
         b_ms, b_by = transport_bound(plan, packed.shape[1], k, None, events)
+        if any(op.bins is not None for op in plan.ops):
+            b_by += (", %.3f ms counted per mask" % transport_bound(
+                plan, packed.shape[1], k, None, events, per_mask=True)[0])
         times[case] = ms
         n_ins = sum(len(op.prog.ins) for op in plan.ops
                     if op.kind in F.USER_OPS)
@@ -5409,6 +5471,137 @@ def user_plan_phase(torch, phys, F, dev, compare, card, times):
               f"form library ({info['registers']}; {info['spills']}) "
               f"[{card}]", flush=True)
         del packed, out
+
+
+BIN_N, BIN_K = 1 << 20, 64
+BIN_MESH_EDGES = np.linspace(-100, 100, 41)  # x c dt: mesh-x-path's
+
+
+def binned_edge_values(edges):
+    """A histogram tally's hard coordinates: each float32 edge and the
+    float32 values either side of it, +-inf and NaN."""
+    e32 = np.unique(np.asarray(edges, np.float32))
+    return np.concatenate([e32, np.nextafter(e32, np.float32(-np.inf)),
+                           np.nextafter(e32, np.float32(np.inf)),
+                           np.array([np.inf, -np.inf, np.nan], np.float32)])
+
+
+def binned_edges_population(n, c_dt, seed=0):
+    """(E, x) of ``binned_edge_sim``'s photons: the edge values of the
+    spectrum (``SPEC_EDGES``) and of the mesh (``BIN_MESH_EDGES`` c dt),
+    repeated over the first half of the photons in another order for each,
+    and uniform values over the edges and past them for the rest."""
+    rng = np.random.default_rng(seed)
+    half = n // 2
+    out = []
+    for edges in (SPEC_EDGES, BIN_MESH_EDGES * c_dt):
+        vals = binned_edge_values(edges)
+        hard = vals[rng.integers(0, vals.size, half)]
+        lo, hi = float(edges[0]), float(edges[-1])
+        pad = 0.1 * (hi - lo)
+        soft = rng.uniform(lo - pad, hi + pad, n - half).astype(np.float32)
+        out.append(np.concatenate([hard, soft]))
+    return out
+
+
+def binned_edge_sim(phys, n, dev, iters=BIN_K, seed=0):
+    """Free streaming with a 56-bin count spectrum (the spectrum path's
+    edges) and a 40-slab count mesh tally on x (mesh-x-path's), both with
+    underflow and overflow: n photons (a few slots of the padded capacity
+    dead) moving along y at c, so that their energies and x stay where
+    ``binned_edges_population`` puts them: on the float32 edges, just
+    below and above them, at +-inf and NaN, and spread over the edges."""
+    light = phys.light
+    c = float(light.c)
+    c_dt = c * USER_DT
+    sim = phys.Simulation(until_t=(iters - 0.5) * USER_DT, seed=seed,
+                          chunk_steps=iters, device=dev, auto_shrink=False)
+    sim.add_step(0, phys.UpdateTimeStep(lambda s: np.double(USER_DT)))
+    sim.add_step(1, phys.newton.NewtonianKinematicsStep())
+    sim.add_step(2, light.SpectrumMeasureStep(
+        None, edges=SPEC_EDGES, measure_n=True, underflow=True,
+        overflow=True))
+    sim.add_step(3, light.MeshTallyStep(
+        None, axis="x", edges=BIN_MESH_EDGES * c_dt, underflow=True,
+        overflow=True))
+    n_ph = n - 1000
+    E, x = binned_edges_population(n_ph, c_dt, seed)
+    r = np.zeros((3, n_ph), np.float32)
+    r[0] = x
+    v = np.zeros((3, n_ph), np.float64)
+    v[1] = c
+    sim.add_photons(light.generate_photon_state(n_ph, E=E, r=r, v=v,
+                                                device=dev))
+    return sim
+
+
+def binned_phase(torch, phys, F, dev, card, times):
+    """Phase: the binned reduce on its hard coordinates at 2**20 slots x
+    BIN_K iterations (``binned_edge_sim``): the kernel against the twin
+    (int records equal, the count bins exactly, the planes bit for bit with
+    NaN for NaN: x and E hold NaNs), twice (the same bits), and every row's
+    bins against a numpy histogram of the coordinates with the float32
+    edges (NaN in no bin); its form's registers, blocks per SM and SASS;
+    timed against its bound."""
+    phase(f"binned reduce on the float32 edges, +-inf and NaN (2**20 slots, "
+          f"{BIN_K} iterations)")
+    packed, sched, seed, k, plan, starts = first_chunk_inputs(
+        binned_edge_sim(phys, BIN_N, dev), F)
+    binned = [op for op in plan.ops if op.bins is not None]
+    check([op.kind for op in plan.ops] == ["kin", "reduce", "reduce"]
+          and len(binned) == 2 and all(op.bins.count for op in binned),
+          f"binned-edges: plan {[op.kind for op in plan.ops]}")
+    info = form_info(F, plan, packed.shape[1], k)
+    print(f"binned-edges: {form_report(plan, info, form_loop(F, plan))} "
+          f"[{card}]", flush=True)
+    out, out2 = torch.empty_like(packed), torch.empty_like(packed)
+    rec, rec_f = F.fused_transport(packed, out, sched, seed, k, plan)[:2]
+    rec2, rec_f2 = F.fused_transport(packed, out2, sched, seed, k, plan)[:2]
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    ref, ref_rec, ref_f = F.fused_chunk_reference(packed, sched, seed, k,
+                                                  plan, starts)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    check(torch.equal(rec, ref_rec) and torch.equal(rec_f, ref_f),
+          "binned-edges: records differ from the twin's")
+    check(stream_equal(out, ref), "binned-edges: planes differ from the "
+          "twin's")
+    check(torch.equal(rec, rec2) and torch.equal(rec_f, rec_f2)
+          and stream_equal(out, out2), "binned-edges: two runs differ")
+    del ref, out2
+    alive = (packed[13] > 0).cpu().numpy()
+    got = rec_f[:k].cpu().numpy()
+    for op, plane in zip(binned, (12, 0)):
+        b = op.bins
+        c = packed[plane].cpu().numpy()[alive]
+        c = c[~np.isnan(c)]
+        nb = len(b.edges) - 1
+        cnt = np.searchsorted(np.asarray(b.edges, np.float32), c,
+                              side="right")
+        hist = np.bincount(cnt, minlength=nb + 2).astype(np.float32)
+        want = np.concatenate([hist[1:-1], hist[:1], hist[-1:]])
+        cols = got[:, op.cols[1]:op.cols[1] + b.n_cols]
+        check(bool((cols == want[None]).all()),
+              f"binned-edges: plane {plane}'s bins differ from the "
+              "histogram of its coordinates")
+    n_alive = int(alive.sum())
+    check(bool((rec[:k, 0] == n_alive).all()), "binned-edges: photons lost")
+    ms = cuda_ms(lambda: F.fused_transport(packed, out, sched, seed, k,
+                                           plan), 5, torch)
+    b_ms, b_by = transport_bound(plan, packed.shape[1], k, None, {})
+    m_ms = transport_bound(plan, packed.shape[1], k, None, {},
+                           per_mask=True)[0]
+    times["binned-edges"] = ms
+    print(f"binned-edges at 2**20 x {k}: records and planes equal to the "
+          f"twin's, two runs bit for bit; every row's bins equal a histogram "
+          f"of the coordinates ({n_alive} alive, NaN in no bin, +inf in "
+          f"overflow, -inf in underflow); kernel {ms:.3f} ms, twin "
+          f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; {m_ms:.3f} ms "
+          f"counted per mask) [{card}]", flush=True)
+    del packed, out
 
 
 def user_paths(torch, phys, F, dev, card, uft, sft):

@@ -42,7 +42,8 @@ struct Op {
                    // del: DelVariant; emit: isotropic; sign/cross/scross:
                    // weighted (float columns); sabsorb: kill inside; trace:
                    // scatter-flag plane; fresnel: match_speed; lorentz:
-                   // LorentzFlag bits; user ops: bit 0 after the update
+                   // LorentzFlag bits; user ops: bit 0 after the update,
+                   // kUserBinned a binned reduce
   float coef;      // folded A*n (del and the scatter family); lorentz:
                    // 0.5 q/m in float32
   float wl_base;
@@ -117,7 +118,8 @@ struct PlanT {
   Field fields[kFields];
   float fk[kK];     // the expression fields' constants, read by the field
                     // functions a form library generates at constant
-                    // indices
+                    // indices; then each binned reduce's (its program's
+                    // and its search table)
   int n_ops;
   int n_cols;       // int record columns in use (col 0 = alive count)
   int n_fcols;      // float record columns in use
@@ -155,6 +157,10 @@ enum OpKind : int {
   OP_KSTATE = 23
 };
 
+// Op::flag bit of a binned reduce (a histogram tally: binned.cuh; its
+// edges, columns and constants' place in fk are the form's); bit 0 of a
+// user op is "after the update"
+constexpr int kUserBinned = 2;
 // Op::flag bits of a "polmeas": weight by w, the <Q> and <U> columns
 enum PolmeasFlag : int { kPolWeighted = 1, kPolLocalQU = 2 };
 // Op::flag bits of a "lorentz": a constant E field, a constant B field, the
@@ -209,6 +215,12 @@ struct FieldForm {
   int interp;  // voxel: Field::interp; else 0
   int axis;    // layered: Field::axis; else 0
   int shape;   // expr: Field::shape; else 0
+};
+
+// a binned reduce's search table (binned.cuh): its place in the Plan's fk,
+// its length, and its place in the block's shared copy
+struct BinTab {
+  int fk, n, sm;
 };
 
 namespace form_detail {
@@ -271,11 +283,10 @@ template <int kN>
 constexpr int at_least_1 = kN > 0 ? kN : 1;
 
 // The Plan type of a form: its tables sized for its ops, planes, fields and
-// expression-field constants (Form::kFk[kNFld] of them).
+// constants (Form::kNK: the expression fields', then the binned reduces').
 template <class Form>
 using FormPlan = PlanT<at_least_1<Form::kN>, at_least_1<Form::kNAx>,
-                       at_least_1<Form::kNFld>,
-                       at_least_1<Form::kFk[Form::kNFld]>>;
+                       at_least_1<Form::kNFld>, at_least_1<Form::kNK>>;
 
 // True when the runtime Plan has exactly the structure Form was compiled
 // for: the op kinds in order and every member an op body tests, the planes

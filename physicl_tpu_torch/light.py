@@ -2045,13 +2045,58 @@ def _binned(coord, val, e, underflow, overflow):
     return out
 
 
+class Binning:
+    """A histogram tally's structure, which the fused prover lowers to
+    kernel 1i's binned reduce (one bin index and one grouped sum a slot,
+    ``ops/pipeline.py``) in place of a sum per output: the coordinate
+    ``coord`` (``"E"``, ``"rx"``, ``"ry"``, ``"rz"``, or ``"r"`` for ``|r -
+    center|``), the value a particle adds (``None`` for a count, ``"E"``,
+    ``"w"``, ``"Ew"``, ``"dr"`` for ``|dr|``, ``"drw"``), the float64
+    ``edges`` and the capture bins. :meth:`contributions` is the step's
+    function (per-bin masks, as the JAX package's step returns them), built
+    on :meth:`coord_value`, which the prover records."""
+
+    def __init__(self, coord, value, edges, underflow, overflow,
+                 center=(0.0, 0.0, 0.0)):
+        self.coord = coord
+        self.value = value
+        self.edges = tuple(float(v) for v in edges)
+        self.underflow = bool(underflow)
+        self.overflow = bool(overflow)
+        self.center = tuple(float(v) for v in center)
+
+    def coord_value(self, p):
+        """``(coordinate, value or None)`` of a ``ParticleView``: the
+        operations of the JAX package's contributions, in its order."""
+        if self.coord == "r":
+            cx, cy, cz = self.center
+            coord = torch.sqrt((p.rx - cx) ** 2 + (p.ry - cy) ** 2
+                               + (p.rz - cz) ** 2)
+        else:
+            coord = getattr(p, self.coord)
+        val = None
+        if self.value in ("E", "Ew"):
+            val = p.E
+        elif self.value in ("dr", "drw"):
+            val = torch.sqrt(p.drx ** 2 + p.dry ** 2 + p.drz ** 2)
+        if self.value in ("w", "Ew", "drw"):
+            val = p.w if val is None else val * p.w
+        return coord, val
+
+    def contributions(self, p):
+        coord, val = self.coord_value(p)
+        return _binned(coord, val, self.edges, self.underflow, self.overflow)
+
+
 class SpectrumMeasureStep(ReduceMeasureStep):
     """Per-iteration energy histogram over alive particles, summed in the
     transport kernel's float record columns (a :class:`ReduceMeasureStep`
-    whose contributions are per-bin masks or masked energies).
+    whose contributions are per-bin masks or masked energies; the fused
+    tier runs it as a binned reduce, :class:`Binning`).
 
     ``edges`` is an increasing 1-D array of bin edges (bin i counts
-    ``edges[i] <= E < edges[i+1]``). ``weight="count"`` tallies photons,
+    ``edges[i] <= E < edges[i+1]``, the edges rounded to float32 as the
+    comparisons round them). ``weight="count"`` tallies photons,
     ``weight="energy"`` their energies. ``underflow`` / ``overflow`` add
     capture bins outside the range; ``weighted=True`` multiplies every
     contribution by the statistical weight ``w``. ``data`` rows are ``[t(,
@@ -2069,22 +2114,19 @@ class SpectrumMeasureStep(ReduceMeasureStep):
                              f"got {weight!r}")
         self.edges = edges
         self.weight = weight
-        e = tuple(float(v) for v in edges)
-
-        def contributions(p):
-            val = p.E if weight == "energy" else None
-            if weighted:
-                val = p.w if val is None else val * p.w
-            return _binned(p.E, val, e, underflow, overflow)
-
-        super().__init__(out_fn, contributions, outputs=names,
+        value = "E" if weight == "energy" else None
+        if weighted:
+            value = "w" if value is None else "Ew"
+        self.binning = Binning("E", value, edges, underflow, overflow)
+        super().__init__(out_fn, self.binning.contributions, outputs=names,
                          measure_n=measure_n)
 
 
 class MeshTallyStep(ReduceMeasureStep):
     """Per-iteration spatial histogram over alive particles, summed in the
     transport kernel's float record columns: the cell tally or dose map
-    beside :class:`SpectrumMeasureStep`.
+    beside :class:`SpectrumMeasureStep` (a binned reduce on the fused tier,
+    :class:`Binning`).
 
     ``axis`` is ``"x"``, ``"y"``, ``"z"`` (slabs) or ``"r"`` (shells of
     ``|r - center|``); ``edges`` as in SpectrumMeasureStep, with
@@ -2111,26 +2153,12 @@ class MeshTallyStep(ReduceMeasureStep):
         self.value = value
         self.edges = edges
         self.center = tuple(float(_as_float(v)) for v in center)
-        e = tuple(float(v) for v in edges)
-        cx, cy, cz = self.center
-
-        def contributions(p):
-            if axis == "r":
-                coord = torch.sqrt((p.rx - cx) ** 2 + (p.ry - cy) ** 2
-                                   + (p.rz - cz) ** 2)
-            else:
-                coord = {"x": p.rx, "y": p.ry, "z": p.rz}[axis]
-            if value == "energy":
-                val = p.E
-            elif value == "pathlength":
-                val = torch.sqrt(p.drx ** 2 + p.dry ** 2 + p.drz ** 2)
-            else:
-                val = None
-            if weighted:
-                val = p.w if val is None else val * p.w
-            return _binned(coord, val, e, underflow, overflow)
-
-        super().__init__(out_fn, contributions, outputs=names,
+        val = {"count": None, "energy": "E", "pathlength": "dr"}[value]
+        if weighted:
+            val = "w" if val is None else val + "w"
+        self.binning = Binning("r" + axis if axis != "r" else "r", val,
+                               edges, underflow, overflow, self.center)
+        super().__init__(out_fn, self.binning.contributions, outputs=names,
                          measure_n=measure_n)
 
 

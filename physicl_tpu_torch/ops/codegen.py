@@ -46,6 +46,14 @@ straight-line CUDA C, one device function per program:
   ``expf``, ``logf``, ``powf``, ``ipow``, ``nan_min``, ... Built with
   ``--fmad=false``, the planes stay bitwise equal to it.
 
+A histogram tally's reduce (``light.SpectrumMeasureStep``,
+``MeshTallyStep``: ``_Op.bins``) is a **binned reduce** (:func:`binned_c`):
+its program computes the coordinate (and the value) with its constants
+read from the ``Plan``'s ``fk``, and hands them to the kernel's
+``FormRec::binned`` with the op's ``BinForm`` (``csrc/binned.cuh``: the
+edges, the capture bins, the columns, the edges' search table in ``fk``),
+which takes one bin index a slot and one sum per distinct bin of a warp.
+
 The expression fields (``ops/fields.py``: a C-expression string or a
 recorded torch callable; n(r), A(E), an inverse CDF, a Lorentz op's E or B
 with three outputs) become one straight-line device function each
@@ -186,6 +194,28 @@ def program_c(prog: RC.Program, name: str) -> str:
 _VARS = ("a", "b", "c")
 
 
+def _fk_body(prog: RC.Program, load, k0: int):
+    """The straight-line body of a program whose constants are read from
+    ``plan.fk`` from ``k0`` on (in ``ops/fields.py:field_layout`` order):
+    its lines, one ``const float`` local an instruction (``load(y)`` a
+    load's expression), and its outputs ``{j: local}``."""
+    lines, outs, cur, k = [], {}, {}, [k0]
+
+    def lit(_):
+        k[0] += 1
+        return f"plan.fk[{k[0] - 1}]"
+
+    for i, ins in enumerate(prog.ins):
+        code, d, a, _, y, _ = ins
+        if code == RC.U_ST:
+            outs[int(y)] = cur[a]
+            continue
+        expr = load(y) if code == RC.U_LD else _pure_c(ins, cur, lit)
+        lines.append(f"  const float v{i} = {expr};")
+        cur[d] = f"v{i}"
+    return lines, outs
+
+
 def field_c(spec: dict, name: str, k0: int) -> str:
     """The device function ``name`` of an expression field (``ops/
     fields.py``): ``(plan, a, b, c) -> value``, or with three outputs
@@ -196,30 +226,45 @@ def field_c(spec: dict, name: str, k0: int) -> str:
     ``ops/fields.py:field_layout``."""
     n_out = spec["n_out"]
     sig = "const Plan& plan, float a, float b, float c"
+    lines, outs = _fk_body(spec["prog"], lambda y: _VARS[y], k0)
     out = [f"__device__ __forceinline__ "
            f"{'float' if n_out == 1 else 'void'} {name}("
-           f"{sig}{'' if n_out == 1 else ', float* out'}) {{"]
-    k = [k0]
-
-    def lit(_):
-        k[0] += 1
-        return f"plan.fk[{k[0] - 1}]"
-
-    cur = {}
-    for i, ins in enumerate(spec["prog"].ins):
-        code, d, a, _, y, _ = ins
-        if code == RC.U_ST:
-            out.append(f"  return {cur[a]};" if n_out == 1
-                       else f"  out[{int(y)}] = {cur[a]};")
-            continue
-        if code == RC.U_LD:
-            expr = _VARS[y]
-        else:
-            expr = _pure_c(ins, cur, lit)
-        out.append(f"  const float v{i} = {expr};")
-        cur[d] = f"v{i}"
+           f"{sig}{'' if n_out == 1 else ', float* out'}) {{", *lines]
+    out += ([f"  return {outs[0]};"] if n_out == 1 else
+            [f"  out[{j}] = {outs[j]};" for j in range(n_out)])
     out.append("}")
     return "\n".join(out)
+
+
+def bin_form(op, k0: int, sm: int) -> str:
+    """The ``BinForm`` (``csrc/binned.cuh``) of a binned reduce whose
+    constants start at ``fk[k0]`` and whose search table sits at ``sm`` in
+    the block's shared copy."""
+    b = op.bins
+    n_prog = len(F.bin_constants(op)) - ((1 << b.levels) - 1)
+    return (f"BinForm<{len(b.edges)}, {int(b.underflow)}, "
+            f"{int(b.overflow)}, {int(b.count)}, {k0}, {n_prog}, "
+            f"{op.cols[1]}, {sm}>")
+
+
+def binned_c(op, name: str, bform: str, k0: int) -> str:
+    """The device function template ``name<Acc>`` of a binned reduce (a
+    histogram tally, ``ops/fused.py:Bins``): ``(plan, f, x, alive, acc)``;
+    its program's coordinate (and value) from the slot's planes, its
+    constants read from ``plan.fk`` from ``k0`` on, handed to
+    ``acc.binned<bform>``, which takes the bin index and the sum
+    (``csrc/fused_transport.cu``: ``FormRec::binned``)."""
+    def load(y):
+        return "alive ? 1.0f : 0.0f" if y == RC.ALIVE_PLANE else _plane(y)
+
+    lines, outs = _fk_body(op.prog, load, k0)
+    value = "1.0f" if op.bins.count else outs[1]
+    return "\n".join([
+        "template <class Acc>",
+        f"__device__ __forceinline__ void {name}(const Plan& plan, "
+        "const float* f, const float* x, bool alive, Acc& acc) {", *lines,
+        f"  acc.template binned<{bform}>(alive, {outs[0]}, {value});",
+        "}"])
 
 
 # the ops that move a particle, which end a shared field read (codes of
@@ -303,10 +348,13 @@ def plan_form(plan, ps=None) -> dict:
     :data:`OP_FORM`), ``axes`` (``(axis, ecol, ecap)`` per crossing
     plane), ``fields`` (``(kind, interp, axis, shape)`` per field),
     ``fk`` (each field's first constant in ``Plan::fk``, and their
-    number last), ``dims`` (the Plan's table sizes) and the plan-level
-    constants, read from its ``PlanStruct`` (``ps``, or the CPU one), so
-    that the form and the launch's ``form_matches`` agree by
-    construction."""
+    number last), the binned reduces (``bins``: ``{op index: (BinForm,
+    first constant in fk)}``; ``kBinTab``, ``kBinEdges``, ``kBinRow``:
+    their search tables and shared memory), ``kNK`` (every constant in
+    ``fk``), ``dims`` (the
+    Plan's table sizes) and the plan-level constants, read from its
+    ``PlanStruct`` (``ps``, or the CPU one), so that the form and the
+    launch's ``form_matches`` agree by construction."""
     ps = _struct(plan, ps)
     n_fields = len(F._field_index(plan.ops)[0])
     ops, draw, last_read = [], 0, {}
@@ -349,7 +397,20 @@ def plan_form(plan, ps=None) -> dict:
                        fd.axis if fd.kind == 2 else 0,
                        fd.shape if expr else 0))
         fk.append(fk[-1] + (fd.len if expr else 0))
+    # the binned reduces: their BinForm and first constant in fk, their
+    # search tables' (place in fk, length, place in the block's shared
+    # copy), and the shared copy's size
+    bins, tabs, n_k = {}, [], fk[-1]
+    for i, k0 in F.bin_offsets(plan.ops, fk[-1]).items():
+        op = plan.ops[i]
+        n_tab, sm = (1 << op.bins.levels) - 1, sum(t[1] for t in tabs)
+        bins[i] = (bin_form(op, k0, sm), k0)
+        n_k = k0 + len(F.bin_constants(op))
+        tabs.append((n_k - n_tab, n_tab, sm))
+    edges, row = F.bin_smem_floats(plan.ops)
     return {"ops": ops, "axes": axes, "fields": fields, "fk": fk,
+            "kNK": n_k, "bins": bins, "kBinTab": tabs, "kBinEdges": edges,
+            "kBinRow": row,
             "dims": type(ps).dims, "kPlanInBuffer": int(plan_in_buffer(
                 plan, ps)),
             "kCols": ps.n_cols, "kFcols": ps.n_fcols,
@@ -403,11 +464,18 @@ def form_struct(plan, ps=None, form=None, bodies=True) -> str:
               "  // each field's first constant in Plan::fk, then their "
               "number",
               f"  static constexpr int kFk[{n_fld + 1}] = {{"
-              + ", ".join(map(str, form["fk"])) + "};"]
+              + ", ".join(map(str, form["fk"])) + "};",
+              "  // the binned reduces' search tables: place in fk, length, "
+              "place in bin_smem",
+              f"  static constexpr int kNBinTab = {len(form['kBinTab'])};",
+              f"  static constexpr BinTab kBinTab[{max(1, len(form['kBinTab']))}]"
+              " = {" + ", ".join("{" + ", ".join(map(str, t)) + "}"
+                                 for t in form["kBinTab"] or [(0, 0, 0)])
+              + "};"]
     parts += [f"  static constexpr int {name} = {form[name]};"
-              for name in ("kCols", "kFcols", "kConstNorm", "kStream",
-                           "kStreamBf16", "kExtras", "kOtype", "kQm", "kWb",
-                           "kUwb", "kPlanInBuffer")]
+              for name in ("kNK", "kBinEdges", "kBinRow", "kCols", "kFcols",
+                           "kConstNorm", "kStream", "kStreamBf16", "kExtras",
+                           "kOtype", "kQm", "kWb", "kUwb", "kPlanInBuffer")]
     for j, sp in (expr_fields(plan) if bodies else ()):
         one = sp["n_out"] == 1
         parts += [
@@ -418,13 +486,16 @@ def form_struct(plan, ps=None, form=None, bodies=True) -> str:
             f"      float c{'' if one else ', float* out'}) {{",
             f"    {'return ' if one else ''}field_{j}(plan, a, b, c"
             f"{'' if one else ', out'});", "  }"]
+    binned = form["bins"]
     for i, _ in (user_ops(plan) if bodies else ()):
         args = _ARGS.replace("Acc", "R")
         parts += [
             "  template <class R>",
             "  static __device__ __forceinline__ void user(",
-            f"      std::integral_constant<int, {i}>, {args}) {{",
-            f"    user_op_{i}(f, x, alive, t, dt, h0, idx0, lin, acc);",
+            f"      std::integral_constant<int, {i}>, const Plan& plan, "
+            f"{args}) {{",
+            f"    binned_op_{i}(plan, f, x, alive, acc);" if i in binned
+            else f"    user_op_{i}(f, x, alive, t, dt, h0, idx0, lin, acc);",
             "  }"]
     parts.append("};")
     return "\n".join(parts)
@@ -446,14 +517,26 @@ def form_source(plan, ps=None) -> str:
         "of a plan",
         f"// {plan_label(plan)}, compiled with fused_transport.cu.",
         "#define PHYSICL_FORM 1",
-        "// the Plan's tables: ops, crossing planes, fields, field constants",
+        "// the Plan's tables: ops, crossing planes, fields, constants",
         "#define PHYSICL_PLAN_DIMS " + ", ".join(map(str, form["dims"])),
         '#include "fused_transport.cu"', "", "namespace {", ""]
     for j, sp in expr_fields(plan):
         parts.append(f"// field {j}: {len(sp['prog'].ins)} instructions, "
                      f"{sp['n_out']} output(s)")
         parts += [field_c(sp, f"field_{j}", form["fk"][j]), ""]
+    binned = form["bins"]
     for i, op in user_ops(plan):
+        if i in binned:
+            b = op.bins
+            parts.append(
+                f"// op {i}: reduce, binned: {b.n_cols} float columns from "
+                f"{op.cols[1]} ({len(b.edges) - 1} bins"
+                + (", underflow" if b.underflow else "")
+                + (", overflow" if b.overflow else "")
+                + f"), {'a count' if b.count else 'a value'}; "
+                f"{len(op.prog.ins)} instructions")
+            parts += [binned_c(op, f"binned_op_{i}", *binned[i]), ""]
+            continue
         parts.append(f"// op {i}: {op.kind}, {len(op.prog.ins)} "
                      f"instructions, {op.prog.n_draws} draws")
         parts += [program_c(op.prog, f"user_op_{i}"), ""]

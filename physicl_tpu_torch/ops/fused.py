@@ -75,6 +75,9 @@ _POL_OPS = ("pol", "polc", "polmeas")
 # kernel 1i: recorded user programs (ops/record.py), compiled into the
 # plan's form library (ops/codegen.py; codes 21-23)
 USER_OPS = ("custom", "reduce", "kstate")
+# Op::flag bit of a binned reduce (csrc/plan.cuh: kUserBinned; bit 0 is a
+# user op's "after the update")
+USER_BINNED = 2
 _POL_BASES = ("stokes", "pol_ref")
 # the Stokes and frame rows, packed first among the extras: the kernel reads
 # Stokes at extras 0-2 and the frame at 3-5
@@ -100,6 +103,52 @@ SEQ_SMEM_PER_ITER = 32
 MAX_WARP_SLICES = 132 * 8 * 8
 MAX_EXTRAS = 8    # extras planes (1h's Stokes and frame rows, otype, qm)
 _NAN = float("nan")
+
+
+@dataclasses.dataclass(frozen=True)
+class Bins:
+    """A binned reduce's bins (kernel 1i: ``light.SpectrumMeasureStep`` and
+    ``MeshTallyStep``, lowered by the prover): ``edges`` the float32
+    values the reference's comparisons use (its float64 edges rounded once
+    to float32, as a float32 coordinate compared with a Python float rounds
+    them), the capture bins, and ``count`` (each slot adds 1; else its
+    value, the op program's second output). Its float columns: the bins,
+    then underflow, then overflow."""
+
+    edges: tuple
+    underflow: bool = False
+    overflow: bool = False
+    count: bool = True
+
+    @property
+    def n_cols(self) -> int:
+        return len(self.edges) - 1 + self.underflow + self.overflow
+
+    @property
+    def levels(self) -> int:
+        """The search's depth: the least L with 2**L - 1 >= the edges."""
+        return len(self.edges).bit_length()
+
+    def search_table(self) -> np.ndarray:
+        """The edges in the kernel's search order (``csrc/binned.cuh``):
+        a complete binary search tree of ``2**levels - 1`` nodes laid out
+        level by level (node i's children 2i + 1 and 2i + 2), its in-order
+        sequence the edges, then NaN (which no coordinate is at or above);
+        float32."""
+        n = (1 << self.levels) - 1
+        ordered = np.full(n, np.nan, np.float32)
+        ordered[:len(self.edges)] = self.edges
+        table = np.empty(n, np.float32)
+        nxt = iter(ordered)
+
+        def walk(i):
+            if i < n:
+                walk(2 * i + 1)
+                table[i] = next(nxt)
+                walk(2 * i + 2)
+
+        walk(0)
+        return table
 
 
 @dataclasses.dataclass
@@ -190,6 +239,10 @@ class _Op:
     # columns); reduce: cols = (n_col or -1, first float column); t and dt
     # from the schedule rows of ``after_update``
     prog: object = None
+    # reduce: a histogram tally's bins (``Bins``): ``prog`` then computes
+    # the coordinate (and the value, unless a count) as outputs 0 (and 1),
+    # and each slot adds into its bin's column only (a binned reduce)
+    bins: Optional[Bins] = None
 
     @property
     def fld_fns(self) -> tuple:
@@ -707,6 +760,9 @@ def _check_user(plan: FusedPlan) -> None:
         prog = op.prog
         if prog is None:
             raise ValueError(f"{op.kind} needs its recorded program")
+        if op.bins is not None:
+            _check_binned(plan, op)
+            continue
         for code, d, a, b, y, bimm in prog.ins:
             if max(d, a, b) >= prog.n_regs or (
                     code == RC.U_SEL and not bimm and y >= prog.n_regs):
@@ -723,6 +779,56 @@ def _check_user(plan: FusedPlan) -> None:
             if code == RC.U_ACC and not 0 <= y < plan.n_frec_cols:
                 raise ValueError(f"a user program sums into float column "
                                  f"{y} of {plan.n_frec_cols}")
+
+
+def _check_binned(plan: FusedPlan, op: _Op) -> None:
+    """A binned reduce's program computes its outputs (the coordinate, and
+    the value unless a count) from packed planes, without draws or effects;
+    its edges are at least two and non-decreasing in float32, and its
+    columns within the plan's float columns."""
+    from physicl_tpu_torch.ops import record as RC
+
+    bins, n_out = op.bins, 1 + (not op.bins.count)
+    if op.kind != "reduce":
+        raise ValueError(f"{op.kind} cannot bin: only a reduce does")
+    stores = []
+    for code, d, a, b, y, bimm in op.prog.ins:
+        if code in (RC.U_ALIVE, RC.U_ACC, RC.U_UNIF, RC.U_T, RC.U_DT):
+            raise ValueError("a binned reduce's program computes its "
+                             "coordinate and value only")
+        if code == RC.U_LD and not 0 <= y < plan.n_planes:
+            raise ValueError(f"a binned reduce loads plane {y} of "
+                             f"{plan.n_planes}")
+        if code == RC.U_ST:
+            stores.append(y)
+    if sorted(stores) != list(range(n_out)):
+        raise ValueError(f"a binned reduce's program stores outputs "
+                         f"{stores}, not 0..{n_out - 1}")
+    e = np.asarray(bins.edges, np.float32)
+    if e.size < 2 or not (np.diff(e) >= 0).all():
+        raise ValueError("a binned reduce needs >= 2 non-decreasing edges")
+    if not 0 <= op.cols[1] <= plan.n_frec_cols - bins.n_cols:
+        raise ValueError(f"a binned reduce's {bins.n_cols} columns from "
+                         f"{op.cols[1]} pass the plan's {plan.n_frec_cols}")
+
+
+def bin_smem_floats(ops) -> tuple:
+    """``(edges, row)``: the floats of shared memory a block's binned
+    reduces take (``csrc/fused_transport.cu``: ``bin_smem``): each op's
+    search table, and the widest op's row of columns; each warp then takes
+    64 staging words and that row."""
+    binned = [op.bins for op in ops if op.bins is not None]
+    if not binned:
+        return 0, 0
+    edges = sum((1 << b.levels) - 1 for b in binned)
+    return edges, max(b.n_cols for b in binned)
+
+
+def bin_smem_bytes(ops) -> int:
+    """The bytes of static shared memory a block's binned reduces take
+    (the 8 warps of a 256-thread block)."""
+    edges, row = bin_smem_floats(ops)
+    return 4 * (edges + (8 * (64 + row) if row else 0))
 
 
 def _axis(ax) -> tuple:
@@ -1226,9 +1332,13 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
                 row = 1 if op.after_update else 2
                 if op.kind == "reduce" and op.cols[0] >= 0:
                     rec[k, op.cols[0]] = count(alive)
-                alive = RC.run_user_program(
-                    op.prog, f, alive, sched_t[row - 1][k],
-                    sched_t[row + 1][k], rng, rec_f[k])
+                if op.bins is not None:
+                    RC.run_binned(op.bins, op.prog, f, alive,
+                                  rec_f[k, op.cols[1]:])
+                else:
+                    alive = RC.run_user_program(
+                        op.prog, f, alive, sched_t[row - 1][k],
+                        sched_t[row + 1][k], rng, rec_f[k])
             elif op.kind == "polmeas":
                 # weight, degree of polarization, V (and Q, U) sums over
                 # alive particles (not photon-gated); the host divides
@@ -1412,16 +1522,40 @@ def fused_chunk_reference(packed: torch.Tensor, sched: torch.Tensor,
     return torch.stack(f), rec, rec_f
 
 
-def _set_field(fs, spec, fk, aux):
+def bin_constants(op: _Op) -> list:
+    """A binned reduce's constants in ``Plan::fk``: its program's (in
+    ``ops/fields.py:field_layout`` order, as ``ops/codegen.py:binned_c``
+    reads them), then its edges' search table (``Bins.search_table``)."""
+    spec = {"n_out": 1 + (not op.bins.count), "prog": op.prog}
+    return (FL.field_layout(spec)[1]
+            + [float(x) for x in op.bins.search_table()])
+
+
+def bin_offsets(ops, k0: int) -> dict:
+    """``{op index: first constant in Plan::fk}`` of the binned reduces,
+    whose constants (:func:`bin_constants`) follow the expression fields'
+    ``k0`` in op order: where ``_plan_struct`` writes them and where the
+    form library (``ops/codegen.py:plan_form``) reads them, a constant of
+    the form."""
+    out = {}
+    for i, op in enumerate(ops):
+        if op.bins is not None:
+            out[i] = k0
+            k0 += len(bin_constants(op))
+    return out
+
+
+def _set_field(fs, spec, n_fk, aux):
     """Fill one kernel ``Field`` from a spec; an expression field's
-    constants append to ``fk`` (its shape goes to ``shape``: the program is
-    the form library's) and layered edges and values to the auxiliary
-    table ``aux`` (a list of float32 arrays, offsets in floats)."""
+    constants start at ``fk[n_fk]`` (its shape goes to ``shape``: the
+    program is the form library's) and layered edges and values append to
+    the auxiliary table ``aux`` (a list of float32 arrays, offsets in
+    floats). Returns the next field's first constant."""
     fs.kind = FL.KIND_CODES[spec["kind"]]
     if spec["kind"] == "expr":
         fs.shape, consts = FL.field_layout(spec)
-        fs.off, fs.len = len(fk), len(consts)
-        fk.extend(consts)
+        fs.off, fs.len = n_fk, len(consts)
+        n_fk += len(consts)
     elif spec["kind"] == "layered":
         fs.axis, fs.outside = spec["axis"], spec["outside"]
         fs.ctr[:] = list(spec["center"])
@@ -1434,6 +1568,7 @@ def _set_field(fs, spec, fk, aux):
         fs.org[:] = list(spec["origin"])
         fs.sp[:] = list(spec["spacing"])
         fs.outside = spec["outside"]
+    return n_fk
 
 
 def _plan_struct(plan: FusedPlan, dev: torch.device):
@@ -1449,12 +1584,16 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
     from physicl_tpu_torch.ops._build import plan_struct_type
 
     specs, index = _field_index(plan.ops)
-    n_k = sum(len(FL.field_layout(sp)[1]) for sp in specs
-              if sp["kind"] == "expr")
+    fk = []
+    for sp in specs:
+        if sp["kind"] == "expr":
+            fk.extend(FL.field_layout(sp)[1])
+    for i in bin_offsets(plan.ops, len(fk)):
+        fk.extend(bin_constants(plan.ops[i]))
     ps = plan_struct_type((len(plan.ops), sum(len(op.axes)
                                               for op in plan.ops),
-                           len(specs), n_k))()
-    aux, fk, grids = [], [], []
+                           len(specs), len(fk)))()
+    aux, grids = [], []
     n_ax = 0
     for i, op in enumerate(plan.ops):
         o = ps.ops[i]
@@ -1508,6 +1647,9 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
             # col0 a reduce's count column
             o.emit_row = op.prog.n_draws
             o.flag = int(op.after_update)
+            if op.bins is not None:
+                # its constants in fk (bin_offsets) are the form's
+                o.flag |= USER_BINNED
         elif op.kind == "lorentz":
             # LorentzFlag: E 1, B 2, the dt after the update 4; the
             # species-wide 0.5 q/m rounded to float32 (jnp.float32(0.5 *
@@ -1550,8 +1692,9 @@ def _plan_struct(plan: FusedPlan, dev: torch.device):
                 a = ps.axes[n_ax]
                 a.axis, a.L, a.col, a.ecol, a.ecap = _axis(ax)
                 n_ax += 1
+    n_fk = 0
     for i, spec in enumerate(specs):
-        _set_field(ps.fields[i], spec, fk, aux)
+        n_fk = _set_field(ps.fields[i], spec, n_fk, aux)
         if spec["kind"] == "voxel":
             grid = FL.grid_on(spec, dev)  # shared with the twin's callable
             grids.append(grid)

@@ -1295,11 +1295,23 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
             next_col += 1 if s.measure_n else 0
             f0 = next_fcol
             next_fcol += len(s.outputs)
-            prog = recorded("reduce", RC.record_particle_fn, s.fn,
-                            "ReduceMeasureStep", ve, outputs=s.outputs,
-                            f0=f0)
+            binning = getattr(s, "binning", None)
+            if binning is not None and s.fn == binning.contributions:
+                # a histogram tally (SpectrumMeasureStep, MeshTallyStep):
+                # its coordinate and value recorded, one bin a slot
+                prog = recorded("reduce", RC.record_binned, binning,
+                                type(s).__name__)
+                bins = F.Bins(tuple(float(np.float32(e))
+                                    for e in binning.edges),
+                              binning.underflow, binning.overflow,
+                              binning.value is None)
+            else:
+                prog = recorded("reduce", RC.record_particle_fn, s.fn,
+                                "ReduceMeasureStep", ve, outputs=s.outputs,
+                                f0=f0)
+                bins = None
             ops.append(F._Op("reduce", prog=prog, cols=(n_col, f0),
-                             after_update=update_seen))
+                             after_update=update_seen, bins=bins))
             rec_map.append({"uid": uid, "kind": "reduce", "n_col": n_col,
                             "f0": f0, "names": s.outputs})
             measure_after_update[uid] = update_seen
@@ -1481,15 +1493,16 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
     # chunk over the budget is shortened (the chunk seed follows the chunk
     # index, so parity with the JAX package then needs its chunk_steps set
     # to the same length)
-    tile_chunk = _MAX_REC_TILE_BYTES // (next_col * 4)
+    # (less the binned reduces' share, F.bin_smem_bytes)
+    tile_bytes = _MAX_REC_TILE_BYTES - F.bin_smem_bytes(ops)
+    tile_chunk = tile_bytes // (next_col * 4)
     if chunk > tile_chunk:
         chunk = max(1, tile_chunk)
         if stream_every > 1:
             chunk, stream_every = _whole_periods(
                 chunk, stream_every, periods, budget, row_bytes)
         notes.append(f"chunk {chunk}: record count tile ({next_col} int "
-                     f"columns in {_MAX_REC_TILE_BYTES} B of shared "
-                     "memory)")
+                     f"columns in {tile_bytes} B of shared memory)")
     # the float sums' partials, a [chunk][n_fcols] slice per warp of the
     # launch, stay within the record budget
     part_budget = int(sim.max_record_bytes)

@@ -807,12 +807,15 @@ def _leaves(name, val, rows, n):
 
 
 def record_particle_fn(fn: Callable, who: str, view_extras=(),
-                       writable=(), outputs=None, f0: int = 0) -> Program:
+                       writable=(), outputs=None, f0: int = 0,
+                       sink: int = U_ACC) -> Program:
     """Record a ``ParticleView`` callable: an ``ElementwiseStep`` body
     (``outputs`` None: its returned fields and ``writable`` extras become
     plane stores, ``alive`` an alive clear) or a ``ReduceMeasureStep``'s
     contributions (``outputs`` the declared names: record sums into float
-    columns ``f0, f0 + 1, ...``). ``view_extras`` are the declared extras
+    columns ``f0, f0 + 1, ...``; with ``sink=U_ST`` stores to outputs
+    ``f0, f0 + 1, ...`` instead, as a field program's, which
+    :func:`record_binned` takes). ``view_extras`` are the declared extras
     as ``(name, first packed plane, rows)``. Raises :class:`Refused` or,
     for a broken contract, ``ValueError`` as the JAX package does when it
     traces the fn."""
@@ -887,7 +890,7 @@ def record_particle_fn(fn: Callable, who: str, view_extras=(),
                               "expected")
             c = cs[0]
             if outputs is not None:
-                ssa.effects.append((U_ACC, c, f0 + j))
+                ssa.effects.append((sink, c, f0 + j))
             elif name == "alive":
                 if c != ssa.val(U_LD, (), ALIVE_PLANE):
                     ssa.effects.append((U_ALIVE, c, 0))
@@ -899,6 +902,22 @@ def record_particle_fn(fn: Callable, who: str, view_extras=(),
         return _schedule(ssa, side["n_draws"])
 
     return _same_at_sizes(record, label)
+
+
+def record_binned(binning, who: str) -> Program:
+    """Record a histogram tally's coordinate and value
+    (``light.Binning.coord_value``) into one program of one output (the
+    coordinate, for a count) or two (then the value): output ``j`` a store
+    to ``j``, as a field program's. The binned reduce's kernel code and
+    :func:`run_binned` take the bin index and the sum from there."""
+
+    def fn(p):
+        coord, val = binning.coord_value(p)
+        return {"coord": coord} if val is None else {"coord": coord,
+                                                     "value": val}
+
+    names = ("coord",) if binning.value is None else ("coord", "value")
+    return record_particle_fn(fn, who, outputs=names, sink=U_ST)
 
 
 _KSTATE_OUT = ("r", "dr", "v", "dv", "E", "w", "alive")
@@ -1134,6 +1153,47 @@ def run_user_program(prog: Program, f: list, alive: torch.Tensor, t, dt,
         regs[d] = v
     rng.idx = base + prog.n_draws
     return alive
+
+
+def bin_columns(coord: torch.Tensor, alive: torch.Tensor,
+                edges: torch.Tensor, underflow: bool,
+                overflow: bool) -> torch.Tensor:
+    """Each slot's column among a binned tally's (the bins, then
+    underflow, then overflow), or -1: the comparisons of the reference's
+    masks against the float32 ``edges`` (``coord >= e[i] and coord <
+    e[i+1]``, ``coord < e[0]``, ``coord >= e[-1]``), as the number of
+    edges at or below the coordinate. A NaN coordinate, a dead slot, and a
+    coordinate outside the edges without its capture bin fall in none."""
+    n_e = edges.numel()
+    n = torch.searchsorted(edges, coord.contiguous(), right=True)
+    col = n - 1
+    col = torch.where(n == 0, n_e - 1 if underflow else -1, col)
+    col = torch.where(n == n_e, n_e - 1 + int(underflow) if overflow
+                      else -1, col)
+    return torch.where(alive & ~torch.isnan(coord), col, -1)
+
+
+def run_binned(bins, prog: Program, f: list, alive: torch.Tensor,
+               rec_f_row: torch.Tensor) -> None:
+    """Plain version of a binned reduce (``ops/fused.py:Bins``) over one
+    chunk iteration's planes ``f``: the coordinate and value program
+    (:func:`record_binned`), each slot's column (:func:`bin_columns`), and
+    the values (1 for a count) added into their columns of ``rec_f_row``
+    (the op's ``bins.n_cols`` columns, written whole) by ``index_add_`` in
+    float64, then rounded once: a float32 sum in slot order would drift
+    from the kernel's and the reference's tree-ordered sums by ~n ulp."""
+    planes = list(f)
+    planes[ALIVE_PLANE] = alive.to(torch.float32)
+    out = run_field(prog, planes, 1 if bins.count else 2)
+    coord = out if bins.count else out[0]
+    edges = torch.tensor(bins.edges, dtype=torch.float32,
+                         device=alive.device)
+    col = bin_columns(coord, alive, edges, bins.underflow, bins.overflow)
+    keep = col >= 0
+    val = (torch.ones_like(coord) if bins.count else out[1])[keep]
+    rec_f_row[:bins.n_cols] = torch.zeros(
+        bins.n_cols, dtype=torch.float64, device=alive.device).index_add_(
+            0, col[keep], val.double()).float()
 
 
 def _pure(ins, regs, full, one) -> torch.Tensor:

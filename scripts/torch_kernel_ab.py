@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's transport kernel from several checkouts, in turns, on one
-GPU: ``python3 scripts/torch_kernel_ab.py [--dump DIR] OLD NEW NEW OLD``.
+GPU: ``python3 scripts/torch_kernel_ab.py [--dump DIR] [--skip A,B] OLD NEW
+NEW OLD`` (``--skip``: user plans of ``chip_smoke.USER_PLANS`` not to time,
+e.g. ``past-limits``, whose build takes minutes in each turn).
 
 Each argument is the root of a checkout holding ``physicl_tpu_torch``. For
 each, in the order given, a fresh process imports that checkout's package,
@@ -197,8 +199,11 @@ if "pol" in F.OP_CODES:
         end.record()
         torch.cuda.synchronize()
         out[f"ms_{name}"] = start.elapsed_time(end) / 5
+SKIP = set(filter(None, os.environ.get("KERNEL_AB_SKIP", "").split(",")))
 if "custom" in F.OP_CODES:
     for case in cs.USER_PLANS:
+        if case in SKIP:
+            continue
         pk, sched, seed, k, plan, _ = cs.first_chunk_inputs(
             cs.user_plan_sim(phys, case, dev), F)
         res = torch.empty_like(pk)
@@ -218,16 +223,19 @@ print(json.dumps(out))
 
 
 def main(args):
-    dump = None
+    dump, env = None, dict(os.environ)
     if args[:1] == ["--dump"]:
         dump, args = args[1], args[2:]
+    if args[:1] == ["--skip"]:
+        env["KERNEL_AB_SKIP"], args = args[1], args[2:]
     if not args:
         sys.exit(__doc__)
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for turn, root in enumerate(args):
         extra = [os.path.join(dump, str(turn))] if dump else []
         res = subprocess.run([sys.executable, "-c", _CHILD, root, here,
-                              *extra], capture_output=True, text=True)
+                              *extra], capture_output=True, text=True,
+                             env=env)
         if res.returncode:
             sys.exit(f"{root}: exit {res.returncode}\n{res.stderr}")
         print(res.stdout.strip().splitlines()[-1], flush=True)

@@ -10,7 +10,10 @@ CPU, where there is no ``nvcc``.
   the record sum; ``csrc/sampling.cuh``'s own ``hash_bits`` and ``unit24``)
   on 2**10 slots, against the plain version ``ops/record.py:
   run_user_program``: every program of ``chip_smoke.py``'s ``USER_PLANS``,
-  the user path and the spectrum path, and a program per instruction code
+  the user path and the spectrum path (a histogram tally's binned reduce
+  through ``test_torch_binned.py``'s harness, against ``run_binned``:
+  each slot's column equal, counts exactly, sums within rtol 1e-5), and a
+  program per instruction code
   (the select's two operand forms, an alive clear before a record sum, a
   load after a store). Tolerances: the plan programs' planes within 1e-6
   of each value plus 1e-6 of the plane's largest (``chip_smoke.py``'s plane
@@ -307,12 +310,23 @@ def _plans():
 
 @pytest.fixture(scope="module")
 def plan_lib(tmp_path_factory):
+    """The plans' user programs in one host library; their binned reduces
+    (``binned_c``, the histogram tallies) in another
+    (``test_torch_binned.host_library``)."""
+    from test_torch_binned import host_library
+
     plans = _plans()
-    progs = {f"{name.replace('-', '_')}_{i}": op.prog
-             for name, plan in plans.items()
-             for i, op in CG.user_ops(plan)}
+    progs, binned = {}, {}
+    for name, plan in plans.items():
+        for i, op in CG.user_ops(plan):
+            key = f"{name.replace('-', '_')}_{i}"
+            if op.bins is None:
+                progs[key] = op.prog
+            else:
+                binned[key] = (plan, i)
     return (_host_library(progs, str(tmp_path_factory.mktemp("plans"))),
-            progs, plans)
+            progs, plans,
+            host_library(binned, str(tmp_path_factory.mktemp("binned"))))
 
 
 def _plan_inputs(plan, seed):
@@ -343,12 +357,15 @@ def _plan_inputs(plan, seed):
     "mesh-r-weighted", "kstate-mixed", "reduce-weighted", "past-limits",
     "user-path", "spectrum-path"])
 def test_plan_programs_match_plain_version(plan_lib, name):
-    lib, progs, plans = plan_lib
+    lib, progs, plans, binned_lib = plan_lib
     plan = plans[name]
     idx0 = 0
     for i, op in CG.user_ops(plan):
         key = f"{name.replace('-', '_')}_{i}"
         planes, alive = _plan_inputs(plan, seed=i)
+        if op.bins is not None:
+            _check_binned(binned_lib, key, op, planes, alive)
+            continue
         got, got_alive, got_acc = _run_host(lib, key, planes, alive, idx0)
         want, want_alive, want_acc = _run_twin(progs[key], planes, alive,
                                                idx0)
@@ -359,6 +376,31 @@ def test_plan_programs_match_plain_version(plan_lib, name):
         np.testing.assert_allclose(got_acc, want_acc, rtol=1e-5, atol=1e-6,
                                    err_msg=key)
         idx0 += op.prog.n_draws
+
+
+def _check_binned(lib, key, op, planes, alive):
+    """A binned reduce's generated function (``binned_c``) against the
+    plain version (``record.run_binned``): each slot's column equal,
+    counts exactly, sums within rtol 1e-5."""
+    from test_torch_binned import run_host
+
+    cols, sums = run_host(lib, key, planes, alive)
+    f = [torch.from_numpy(p.copy()) for p in planes]
+    al = torch.from_numpy(alive.copy())
+    f[13] = al.float()
+    out = RC.run_field(op.prog, f, 1 + (not op.bins.count))
+    coord = out if op.bins.count else out[0]
+    want = RC.bin_columns(coord, al, torch.tensor(op.bins.edges),
+                          op.bins.underflow, op.bins.overflow)
+    assert np.array_equal(cols, want.numpy()), key
+    row = torch.zeros(128)
+    RC.run_binned(op.bins, op.prog, f, al, row)
+    nc, c0 = op.bins.n_cols, op.cols[1]
+    if op.bins.count:
+        assert np.array_equal(sums[c0:c0 + nc], row[:nc].double().numpy())
+    else:
+        np.testing.assert_allclose(sums[c0:c0 + nc], row[:nc].numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=key)
 
 
 # -- the generated translation unit and its build key -------------------------

@@ -91,7 +91,8 @@ PLAN_NAMES = sorted(
     + [f"path:{k}" for k in (
         "custom", "custom-draws", "custom-extras", "reduce-n", "mesh-x-path",
         "mesh-r-weighted", "kstate-mixed", "reduce-weighted", "past-limits",
-        "user", "spectrum", "shield-analog", "shield-split_chunk", "planck",
+        "user", "spectrum", "binned-edges", "shield-analog",
+        "shield-split_chunk", "planck",
         "media", "beer-lambert", "media-layered", "escape", "escape-closure",
         "cavity-bfloat16", "cavity-float32", "gamma", "glass", "thermal",
         "stretch", "fluor", "exb", "mixed", "record-tile", "polarized",
@@ -444,6 +445,20 @@ def _field_mut(member):
     return apply
 
 
+def _binned_mut(binned):
+    """A reduce's binned bit flipped: on the first binned reduce (a
+    histogram tally's, ``binned``) or on the first that sums each output."""
+    def apply(ps):
+        i = next((i for i in range(ps.n_ops)
+                  if ps.ops[i].kind == F.OP_CODES["reduce"]
+                  and bool(ps.ops[i].flag & F.USER_BINNED) == binned), None)
+        if i is None:
+            return None
+        ps.ops[i].flag ^= F.USER_BINNED
+        return ps
+    return apply
+
+
 MUTATIONS = {
     "op-kind": _op_mutation(None, _set("kind", delta=1)),
     "op-flag": _op_mutation(None, _set("flag", delta=8)),
@@ -472,6 +487,8 @@ MUTATIONS = {
                                _set("emit_row", delta=1)),
     "cross-planes": _op_mutation(["cross"], _set("n_ax", delta=-1)),
     "cross-first-plane": _op_mutation(["cross"], _set("ax0", delta=1)),
+    "binned-to-sums": _binned_mut(True),
+    "sums-to-binned": _binned_mut(False),
     "plane-axis": _axis_mut("axis"),
     "plane-energy-sum": _axis_mut("ecol"),
     "plane-energy-capture": _axis_mut("ecap"),
