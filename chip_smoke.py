@@ -278,6 +278,26 @@ Phases (any failure exits non-zero and prints no result line):
     histogram of the final planes, the energy bins sum to the alive
     energy within rtol 1e-5; both print the rates, peak memory and idle
     share;
+31a. ``fused_transport`` vs twin on the widened instruction table's group
+    plans (``OPS_PLANS``) at 2**20 slots and 256 iterations: group A's
+    libm functions (and erfinv), group B's binary functions, group B's
+    unary and ternary ones, each op one ElementwiseStep drawing its
+    operands in its domain and storing its value in a plane of its own,
+    then a ReduceMeasureStep summing each op's plane; and the string
+    grammar's constructs, one ScatterIsotropicStep a string: over their
+    first 64 iterations, int records equal, every plane bitwise (a plane
+    that differs names its op), rec_f as in phase 3; each kernel timed
+    over all 256 against its bound, printed with its form
+    library's report, then run through Simulation for its launch; then
+    the lattice path's first chunk (10**7 x 1024, over its first 256
+    iterations), as phase 30;
+31b. lattice path (a checkerboard density string, an absorber through
+    -expm1 outside a soft sigmoid aperture of hypot, observables through
+    atan2, erfc and tanh): 10**7 photons, 3 chunks of 1024, run twice (the
+    second profiled): the reduce's and the sign tally's alive counts equal
+    and never rising, some absorbed, the observables finite, in range and
+    the last row equal to the final planes'; the rate, peak memory and
+    idle share;
 32. the generic step tier on the main path: the ``bench.py`` workload with
     ``fuse="off"`` (10**7 photons, 1024 iterations in chunks of 256): no
     ``fused_transport`` launch (the counts, and torch.profiler over a
@@ -424,7 +444,9 @@ The line before the last two is a JSON object describing each kernel on
 each path: ``fused_transport`` once each for the gamma, glass, thermal,
 stretch and fluorescence paths, the ExB (``lorentz``), mixed and
 record-tile paths, the polarized and polarimetry paths, the user and
-spectrum paths (their ``replaces`` the user ops of kernel 1i), the mirror
+spectrum paths (their ``replaces`` the user ops of kernel 1i), the
+widened table's four group plans (their launch through Simulation) and
+the lattice path (``replaces`` kernel 1i's user ops too), the mirror
 and callable-phase paths, the main path after a mid-run injection (its
 first chunk at the grown capacity), the main path over an 8-shard mesh
 (its ``ms`` the chunk of the 8 launches together), the main path across
@@ -787,6 +809,44 @@ SEQ_OPS = {
     "ins": (1, 0, 0, 0),
     "ins_transcendental": (12, 2, 1, 1),
 }
+# the libm functions of kernel 1i's and the fields' widened instruction
+# table, per call, as the float32 algorithm asks for them on its fast path
+# (estimates from the algorithms, not measured: the range reduction, the
+# polynomial's degree in FMAs, the compares and selects, the hardware
+# exponentials, logarithms, reciprocals and roots on the MUFU pipe); the
+# instructions that are one IEEE operation (rintf, copysignf, the isnan
+# and signbit tests) are ALU operations
+LIBM_COST = {
+    "U_ATAN": (13, 4, 1, 1),     # 1 / x past 1, degree 8 in x**2
+    "U_ASIN": (11, 3, 1, 1),     # sqrt((1 - x) / 2) past 0.5, degree 5
+    "U_ACOS": (12, 3, 1, 1),     # asin's, and pi / 2 less it
+    "U_SINH": (10, 3, 1, 2),     # degree 4 below 1; e**x and its inverse
+    "U_COSH": (8, 2, 1, 2),      # e**x and its inverse
+    "U_TANH": (8, 3, 1, 2),      # degree 5 below 0.55; 1 - 2 / (e**2x + 1)
+    "U_ASINH": (16, 3, 1, 2),    # log1p of x + x**2 / (1 + sqrt(1 + x**2))
+    "U_ACOSH": (14, 2, 1, 2),    # log(x + sqrt(x**2 - 1))
+    "U_ATANH": (18, 2, 1, 2),    # log1p(2 x / (1 - x)) / 2
+    "U_EXP2": (2, 2, 1, 1),      # ex2 with its subnormal scaling
+    "U_EXPM1": (12, 3, 1, 1),    # reduction, degree 5, ex2
+    "U_LOG2": (2, 2, 1, 1),      # lg2 with its subnormal scaling
+    "U_LOG1P": (14, 3, 1, 1),    # degree 8, lg2
+    "U_ERF": (10, 2, 1, 1),      # degree 6 below 1; else degree 8 and ex2
+    "U_ERFC": (20, 3, 1, 2),     # a reciprocal, degree 9, e**-x**2
+    "U_LGAMMA": (24, 4, 2, 2),   # Stirling past 3 (log, reciprocal, degree 4)
+    "U_ATAN2": (14, 6, 1, 1),    # y / x, atan's degree 8, the quadrant
+    "U_FMOD": (10, 6, 2, 1),     # quotient estimate, truncation, correction
+    "U_NEXTAFTER": (0, 4, 2, 0),  # the bits, one up or down, the zeros
+    "U_ROUND": (0, 1, 0, 0), "U_COPYSIGN": (0, 1, 0, 0),
+    "U_ISNAN": (0, 1, 0, 0), "U_SIGNBIT": (0, 1, 0, 0),
+}
+
+
+def libm_cost(code):
+    """``LIBM_COST``'s tuple of an instruction code, or None."""
+    from physicl_tpu_torch.ops import record as RC
+
+    return next((t for name, t in LIBM_COST.items()
+                 if getattr(RC, name) == code), None)
 # lane-loads per field read (gathers, at the SM's load/store issue rate)
 LOADS_PER_FIELD = {"voxel_tri": 8, "voxel_near": 1, "layered": 2}
 # planck_gen per sample: uniform 2, range test 2, half 2, x (sub + divide)
@@ -878,8 +938,10 @@ def field_cost(fn):
 def user_cost(op):
     """The SEQ_OPS tuple per slot-iteration of the work a recorded user
     program asks for (kernel 1i): each operation the user's callable wrote
-    (a correctly rounded divide, root or reciprocal as _DIV or _SQRT, a
-    transcendental as "ins_transcendental", an integer power its
+    (a correctly rounded divide, root or reciprocal as _DIV or _SQRT, an
+    rsqrt as _RSQRT, exp, log, log10, sin, cos, tan and pow as
+    "ins_transcendental", the widened table's libm functions each as
+    LIBM_COST gives it, an integer power its
     products, a compare on the ALU pipe, a select issue only), a draw and
     its uniform, an alive clear, a record sum (its select and add) and a
     reduce's count; loads, constants and stores are register moves, and t
@@ -896,9 +958,13 @@ def user_cost(op):
             terms.append(_DIV)
         elif code == RC.U_SQRT:
             terms.append(_SQRT)
+        elif code == RC.U_RSQRT:
+            terms.append(_RSQRT)
         elif code in (RC.U_EXP, RC.U_LOG, RC.U_LOG10, RC.U_SIN, RC.U_COS,
                       RC.U_TAN, RC.U_POW):
             terms.append(SEQ_OPS["ins_transcendental"])
+        elif libm_cost(code) is not None:
+            terms.append(libm_cost(code))
         elif code == RC.U_IPOW:
             e = abs(int(y))
             terms.append((max(e.bit_length() + bin(e).count("1") - 2, 0),
@@ -1311,17 +1377,19 @@ def main():
            "polarized": 0.0, "polarimetry": 0.0, "user": 0.0,
            "spectrum": 0.0, "mirror": 0.0, "recorded-E-B": 0.0,
            "phase-icdf": 0.0, "phase-icdf-hg": 0.0, "wide": 0.0,
-           "past-caps": 0.0,
+           "past-caps": 0.0, "ops-libm": 0.0, "ops-binary": 0.0,
+           "ops-composite": 0.0, "ops-strings": 0.0, "lattice": 0.0,
            "shrink": 0.0, "main-injected": 0.0, "main-mesh": 0.0,
            "main-mp": 0.0}
     a_E, b_E = planck_window()
     sampler = light.PlanckSampler(a_E, b_E, T_SUN, bins=2000)
 
     def compare(name, packed, sched, K, plan, starts=None, path="main",
-                seed=seed, need_bitwise=False):
+                seed=seed, need_bitwise=False, row_names=None):
         """Kernel (out of place, in place, and once more for rec_f) against
         the twin on the same inputs; returns the twin's time in ms.
-        ``need_bitwise``: the planes must equal the twin's bitwise."""
+        ``need_bitwise``: the planes must equal the twin's bitwise; a row
+        that differs is named from ``row_names`` ({packed row: name})."""
         out = torch.empty_like(packed)
         rec, rec_f, *stream = F.fused_transport(packed, out, sched, seed, K,
                                                 plan, emit_starts=starts)
@@ -1361,8 +1429,11 @@ def main():
                 check(torch.equal(rec_f[:K, cs_], ref_f[:K, cs_]),
                       f"{name}: count bins differ from the twin's")
         bitwise = torch.equal(out, ref)
+        differ = [row_names.get(i, i) for i in range(out.shape[0])
+                  if not torch.equal(out[i], ref[i])] if row_names else []
         check(bitwise or not need_bitwise, f"{name}: planes not bitwise "
-              "equal to the twin's")
+              "equal to the twin's" + (f" (rows of {differ})" if differ
+                                       else ""))
         del ref
         inplace = packed.clone()
         rec2, rec_f2, *stream2 = F.fused_transport(
@@ -1805,6 +1876,11 @@ def main():
         compare, "spectrum", card, ["kin", "compton", "reduce", "reduce"],
         streams=False, twin_iters=TWIN_ITERS)
     binned_phase(torch, phys, F, dev, card, times)
+    ops = ops_plan_phase(torch, phys, F, dev, compare, card, times)
+    lft = path_chunk0(
+        "lattice-chunk-0", lattice_sim(phys, LAT_N, dev)[0], F, torch,
+        compare, "lattice", card, ["kin", "iso", "custom", "reduce", "sign"],
+        streams=False, twin_iters=TWIN_ITERS)
 
     phase("planck_gen vs twin (10**7 samples)")
     n_gen = 10_000_000
@@ -1958,6 +2034,7 @@ def main():
     lruns = lorentz_runs(torch, phys, F, dev, card, exft, mxft, tlft)
     pruns = pol_paths(torch, phys, F, dev, card, polft, poift, pol_grids)
     uruns = user_paths(torch, phys, F, dev, card, uft, spft)
+    lat = lattice_path(torch, phys, F, dev, card, lft)
     generic_paths(torch, phys, F, P, dev, card, main_data, main_rate)
     recorded_plan_phase(torch, phys, F, dev, compare, card, times)
     mir_ft, mir_launches, _ = mirror_path(torch, phys, F, dev, card, compare)
@@ -2009,6 +2086,17 @@ def main():
                    "max_abs_err": max(err["user"], err[path]), **entry,
                    "library_ms": None}
                   for path, entry in (("user", uft), ("spectrum", spft))]
+    # the widened instruction table: the group plans (their one launch
+    # through Simulation) and the lattice path
+    new_paths += [{**ft_src, "replaces": "physicl_tpu/ops/fused.py:1448",
+                   "generated_by": "physicl_tpu_torch/ops/codegen.py",
+                   "path": case, "max_abs_err": err[case], **ops[case],
+                   "library_ms": None} for case in OPS_PLANS]
+    new_paths.append({**ft_src, "replaces": "physicl_tpu/ops/fused.py:1448",
+                      "generated_by": "physicl_tpu_torch/ops/codegen.py",
+                      "path": "lattice", "launches": lat["fused_launches"],
+                      "max_abs_err": err["lattice"], **lft,
+                      "library_ms": None})
     # the recorded fields and inverse CDFs
     new_paths += [
         {**ft_src, "path": path, "launches": launches,
@@ -5313,9 +5401,10 @@ def past_limits(p):
 def user_plan_sims(phys, dev, n):
     """``{label: Simulation}`` of every kernel 1i plan this script runs
     (``USER_PLANS``, the field-only one included, the user and spectrum paths,
-    the deep shield's analog and split_chunk band tallies) at ``n``
-    photons on ``dev``: their generated sources depend on the programs,
-    not on the population."""
+    the deep shield's analog and split_chunk band tallies, the widened
+    table's group plans and the lattice path) at ``n`` photons on ``dev``:
+    their generated sources depend on the programs, not on the
+    population."""
     sims = {case: user_plan_sim(phys, case, dev, n=n, chunk=16)
             for case in USER_PLANS}
     sims["user"] = user_sim(phys, n, dev, iters=16, chunk=16)[0]
@@ -5325,6 +5414,9 @@ def user_plan_sims(phys, dev, n):
     for mode in ("analog", "split_chunk"):
         sims[f"shield-{mode}"] = shield_sim(phys, mode, dev, n=n,
                                             cap=4 * n, iters=16)[0]
+    for case in OPS_PLANS:
+        sims[case] = ops_plan_sim(phys, case, dev, n=n, chunk=16)
+    sims["lattice"] = lattice_sim(phys, n, dev, iters=16, chunk=16)[0]
     return sims
 
 
@@ -5728,6 +5820,417 @@ def spectrum_gates(torch, sim, counts, energies, st, n):
             f"{rel:.2e} of the alive energy")
 
 
+# -- kernel 1i's widened instruction table and the string grammar ------------
+
+OPS_K = 256              # the group plans' iterations (2**20 slots)
+OPS_TWIN_K = 64          # ... of which the twin holds the first
+LAT_N = 10_000_000       # the lattice path: bench.py's width
+LAT_CHUNK = 1024
+LAT_ITERS = 3 * LAT_CHUNK
+LAT_CELL = 50.0          # checkerboard cell, in c dt
+LAT_R, LAT_EPS = 200.0, 10.0  # the soft aperture's radius and edge, c dt
+LAT_SIGMA = 100.0        # the transverse observable's width, in c dt
+LAT_MU = 2e-3            # absorption per c dt outside the aperture
+# the planes an ElementwiseStep may write, one op's value each: the core
+# transport planes (no kinematics and no scatter reads them in these
+# plans) and eight extras
+OPS_PLANES = ("rx", "ry", "rz", "drx", "dry", "drz", "vx", "vy", "vz",
+              "dvx", "dvy", "dvz", "E", "w") + tuple(f"x{i}"
+                                                    for i in range(8))
+
+
+def _span(u, lo, hi):
+    """A draw ``u`` in [0, 1) mapped onto [lo, hi)."""
+    return u * (hi - lo) + lo
+
+
+def ops_groups(torch):
+    """``{group: {op: fn(p)}}``: every function of kernel 1i's widened table
+    (ops/record.py), one ElementwiseStep callable an op, each drawing its
+    operands from ``p.uniform()`` in the op's domain so that every value it
+    stores is finite. Group A's libm functions (and erfinv, XLA's
+    polynomial in the program), group B's binary functions, group B's
+    unary and ternary ones."""
+    import torch.nn.functional as Fn
+
+    nan, inf = float("nan"), float("inf")
+    U = lambda p: p.uniform()  # noqa: E731
+    libm = {
+        "atan": lambda p: torch.atan(_span(U(p), -20, 20)),
+        "asin": lambda p: torch.asin(_span(U(p), -1, 1)),
+        "acos": lambda p: torch.acos(_span(U(p), -1, 1)),
+        "sinh": lambda p: torch.sinh(_span(U(p), -10, 10)),
+        "cosh": lambda p: torch.cosh(_span(U(p), -10, 10)),
+        "tanh": lambda p: torch.tanh(_span(U(p), -5, 5)),
+        "asinh": lambda p: torch.asinh(_span(U(p), -1e4, 1e4)),
+        "acosh": lambda p: torch.acosh(_span(U(p), 1, 1e3)),
+        "atanh": lambda p: torch.atanh(_span(U(p), -0.999, 0.999)),
+        "exp2": lambda p: torch.exp2(_span(U(p), -30, 30)),
+        "expm1": lambda p: torch.expm1(_span(U(p), -10, 10)),
+        "log2": lambda p: torch.log2(U(p) + 1e-6),
+        "log1p": lambda p: torch.log1p(_span(U(p), -0.999, 99)),
+        "erf": lambda p: torch.erf(_span(U(p), -4, 4)),
+        "erfc": lambda p: torch.erfc(_span(U(p), -8, 8)),
+        "lgamma": lambda p: torch.lgamma(_span(U(p), 0.05, 20)),
+        "rsqrt": lambda p: torch.rsqrt(U(p) + 1e-6),
+        "round": lambda p: torch.round(_span(U(p), -50, 50)),
+        "isnan": lambda p: torch.isnan(torch.where(
+            (u := U(p)) < 0.1, nan, u)) * 1.0,
+        "signbit": lambda p: torch.signbit(U(p) - 0.5) * 1.0,
+        "erfinv": lambda p: torch.erfinv(_span(U(p), -0.9999, 0.9999)),
+    }
+
+    def divisor(p):  # in [-3.1, -0.1) or [0.1, 3.1): never 0
+        u = U(p)
+        return torch.where(u < 0.5, u * 6 - 3.1, u * 6 - 2.9)
+
+    binary = {
+        "atan2": lambda p: torch.atan2(U(p) - 0.5, U(p) - 0.5),
+        "fmod": lambda p: torch.fmod(_span(U(p), -50, 50), divisor(p)),
+        "copysign": lambda p: torch.copysign(U(p) * 10, U(p) - 0.5),
+        "nextafter": lambda p: torch.nextafter(U(p), U(p)),
+        "remainder": lambda p: _span(U(p), -50, 50) % divisor(p),
+        "floor_divide": lambda p: _span(U(p), -50, 50) // divisor(p),
+        "div_trunc": lambda p: torch.div(_span(U(p), -50, 50), divisor(p),
+                                         rounding_mode="trunc"),
+        "logaddexp": lambda p: torch.logaddexp(_span(U(p), -10, 10),
+                                               _span(U(p), -10, 10)),
+        "xlogy": lambda p: torch.xlogy(torch.where(
+            (u := U(p)) < 0.1, 0.0, u * 10 - 1), U(p) + 1e-3),
+        "hypot": lambda p: torch.hypot(_span(U(p), -500, 500),
+                                       _span(U(p), -5, 5)),
+        "fmax": lambda p: torch.fmax(U(p) - 0.5, torch.where(
+            (u := U(p)) < 0.1, nan, u - 0.5)),
+        "fmin": lambda p: torch.fmin(U(p) - 0.5, torch.where(
+            (u := U(p)) < 0.1, nan, u - 0.5)),
+        "heaviside": lambda p: torch.heaviside(torch.where(
+            (u := U(p)) < 0.1, 0.0, u - 0.5), U(p)),
+        "add_alpha": lambda p: torch.add(U(p), U(p), alpha=2.5),
+        "sub_alpha": lambda p: torch.sub(U(p), U(p), alpha=0.5),
+    }
+    composite = {
+        "sign": lambda p: torch.sign(torch.where(
+            (u := U(p)) < 0.1, 0.0, u - 0.5)),
+        "frac": lambda p: torch.frac(_span(U(p), -50, 50)),
+        "sigmoid": lambda p: torch.sigmoid(_span(U(p), -20, 20)),
+        "relu": lambda p: torch.relu(U(p) - 0.5),
+        "softplus": lambda p: Fn.softplus(_span(U(p), -30, 30)),
+        "silu": lambda p: Fn.silu(_span(U(p), -10, 10)),
+        "nan_to_num": lambda p: torch.nan_to_num(torch.log(U(p) - 0.1)),
+        "deg2rad": lambda p: torch.deg2rad(_span(U(p), -360, 360)),
+        "rad2deg": lambda p: torch.rad2deg(_span(U(p), -3.5, 3.5)),
+        "ndtr": lambda p: torch.special.ndtr(_span(U(p), -10, 10)),
+        "sinc": lambda p: torch.sinc(torch.where(
+            (u := U(p)) < 0.05, 0.0, _span(u, -5, 5))),
+        "logit": lambda p: torch.logit(_span(U(p), 0.001, 0.999)),
+        "logit_eps": lambda p: torch.logit(U(p), eps=0.01),
+        "round_decimals": lambda p: torch.round(U(p) * 10, decimals=2),
+        "isinf": lambda p: torch.isinf(torch.where(
+            (u := U(p)) < 0.1, inf, u)) * 1.0,
+        "lerp": lambda p: torch.lerp(U(p) * 10, _span(U(p), -5, 5),
+                                     _span(U(p), -0.5, 1.5)),
+        "addcmul": lambda p: torch.addcmul(U(p), U(p), U(p), value=0.5),
+        "addcdiv": lambda p: torch.addcdiv(U(p), U(p), U(p) + 0.5,
+                                           value=2.0),
+        "xlog1py": lambda p: torch.special.xlog1py(_span(U(p), -1, 3),
+                                                   U(p) * 10),
+    }
+    return {"ops-libm": libm, "ops-binary": binary,
+            "ops-composite": composite}
+
+
+def ops_strings(c_dt):
+    """``{construct: density string}``: one field a construct of the string
+    grammar (ops/fields.py), each an n(r) in [1, 2] over positions within
+    ~100 c dt, cells of 10 c dt."""
+    L = repr(10 * c_dt)
+    return {
+        "modulo": f"1.0 + (r0[gid] % {L}) / {L}",
+        "floor-divide": f"1.0 + 0.05 * fabs(r1[gid] // {L})",
+        "lt-le": f"1.0 + (r0[gid] < 0) * 0.5 + (r1[gid] <= 0) * 0.25",
+        "gt-ge": f"1.0 + (r2[gid] > 0) * 0.5 + (r0[gid] >= {L}) * 0.25",
+        "eq-ne": f"1.0 + (floor(r2[gid] / {L}) == 0) * 0.5 + "
+                 f"(floor(r1[gid] / {L}) != 1) * 0.25",
+        "and-or": "1.0 + ((r0[gid] > 0) & (r1[gid] < 0)) * 0.5 + "
+                  "((r2[gid] > 0) | (r0[gid] < 0)) * 0.25",
+        "xor-invert": "1.0 + ((r0[gid] > 0) ^ (r2[gid] > 0)) * 0.5 + "
+                      "~(r1[gid] > 0) * 0.25",
+        "true-false": "True + (r2[gid] < 0) * 0.5 + False",
+        "bool-sum-product": "1.0 + ((r0[gid] > 0) + (r1[gid] > 0)) * 0.5 "
+                            "+ ((r1[gid] > 0) * (r2[gid] > 0)) * 0.25",
+        "int-from-bool": "1.0 + ((r0[gid] > 0) + 1) % 2 * 0.5 + "
+                         "((r1[gid] > 0) * 3) // 2 * 0.125",
+        "checkerboard": f"1.0 + 0.5 * ((floor(r0[gid] / {L}) + "
+                        f"floor(r1[gid] / {L})) % 2 == 0)",
+    }
+
+
+def ops_plan_sim(phys, case, dev, n=1 << 20, chunk=OPS_K, seed=0):
+    """The Simulation of one group plan of the widened table: 2**20 photons
+    (positions within 100 c dt, isotropic directions, E in [0.5, 2], the
+    extras x0..x7 zero); ``chunk`` iterations of dt = 1e-3. An op group
+    (``ops_groups``): one ElementwiseStep an op, storing its value in its
+    own plane (``OPS_PLANES``), then a ReduceMeasureStep summing each op's
+    plane (one float column an op) with the alive count. The strings
+    (``ops-strings``): kinematics, one ScatterIsotropicStep a construct
+    (A c dt = 0.01, n its string) and a sign tally."""
+    import torch
+
+    light = phys.light
+    c = float(light.c)
+    c_dt = c * USER_DT
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sim = phys.Simulation(until_t=(chunk - 0.5) * USER_DT, seed=seed,
+                          chunk_steps=chunk, device=dev, auto_shrink=False)
+    steps = [phys.UpdateTimeStep(lambda s: np.double(USER_DT))]
+    if case == "ops-strings":
+        steps.append(phys.newton.NewtonianKinematicsStep())
+        for expr in ops_strings(c_dt).values():
+            steps.append(light.ScatterIsotropicStep(
+                A=0.01 / c_dt, variable_n=True, variable_n_fn=expr))
+        steps.append(light.ScatterSignMeasureStep(None, True))
+    else:
+        ops = ops_groups(torch)[case]
+        planes = dict(zip(ops, OPS_PLANES))
+
+        def step(fn, plane):
+            if plane.startswith("x"):
+                return phys.ElementwiseStep(lambda p: {plane: fn(p)},
+                                            extras_write=(plane,))
+            return phys.ElementwiseStep(lambda p: {plane: fn(p)})
+
+        steps += [step(fn, planes[op]) for op, fn in ops.items()]
+        extras = tuple(pl for pl in planes.values() if pl.startswith("x"))
+
+        def sums(p):
+            return {op: (p.extras[pl] if pl.startswith("x")
+                         else getattr(p, pl)) for op, pl in planes.items()}
+
+        steps.append(phys.ReduceMeasureStep(None, sums, outputs=tuple(ops),
+                                            measure_n=True, extras=extras))
+    for i, st in enumerate(steps):
+        sim.add_step(i, st)
+    r = (torch.rand((3, n), generator=gen, device=dev) - 0.5) * 200 * c_dt
+    bulk = light.generate_photon_state(
+        n, E=torch.rand(n, generator=gen, device=dev) * 1.5 + 0.5, r=r,
+        v=isotropic_v(torch, n, c, gen, dev), device=dev)
+    bulk["extras"] = {f"x{i}": torch.zeros(n, device=dev) for i in range(8)}
+    sim.add_photons(bulk)
+    return sim
+
+
+def lattice_sim(phys, n, dev, iters=LAT_ITERS, chunk=LAT_CHUNK, seed=0):
+    """The lattice path (the rod lattices and grid phantoms of shielding and
+    CT users): UpdateTimeStep(1e-3) -> NewtonianKinematics ->
+    ScatterIsotropic(A = 1e-3, n(r) a checkerboard string of 1e-3 and
+    1.5e-3, cells of LAT_CELL c dt) -> an ElementwiseStep absorber (kill
+    with probability -expm1(-mu |v| dt) outside a soft aperture,
+    sigmoid((R - hypot(rx, ry)) / eps)) -> a ReduceMeasureStep of
+    cos(2 atan2(vy, vx)), erfc(hypot(rx, ry) / (sqrt 2 sigma)) and tanh(E)
+    with the alive count -> ScatterSignMeasure; n photons from N(0, 150 c
+    dt) per axis in isotropic directions, E in [0.5, 2]. Returns ``(sim,
+    reduce, sign)``."""
+    import torch
+
+    light = phys.light
+    c = float(light.c)
+    c_dt = c * USER_DT
+    mu = LAT_MU / c_dt
+    R, eps, sigma = LAT_R * c_dt, LAT_EPS * c_dt, LAT_SIGMA * c_dt
+    cell = repr(LAT_CELL * c_dt)
+
+    def absorber(p):
+        speed = torch.sqrt(p.vx * p.vx + p.vy * p.vy + p.vz * p.vz)
+        open_ = torch.sigmoid((R - torch.hypot(p.rx, p.ry)) / eps)
+        kill = -torch.expm1(-mu * speed * p.dt) * (1.0 - open_)
+        return {"alive": ~((p.uniform() < kill) & p.alive)}
+
+    def observables(p):
+        return {"aniso": torch.cos(2.0 * torch.atan2(p.vy, p.vx)),
+                "core": torch.erfc(torch.hypot(p.rx, p.ry)
+                                   / (np.sqrt(2.0) * sigma)),
+                "tanhE": torch.tanh(p.E)}
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sim = phys.Simulation(until_t=(iters - 0.5) * USER_DT, seed=seed,
+                          chunk_steps=chunk, device=dev, auto_shrink=False)
+    red = phys.ReduceMeasureStep(None, observables,
+                                 outputs=("aniso", "core", "tanhE"),
+                                 measure_n=True)
+    sign = light.ScatterSignMeasureStep(None, True)
+    steps = [phys.UpdateTimeStep(lambda s: np.double(USER_DT)),
+             phys.newton.NewtonianKinematicsStep(),
+             light.ScatterIsotropicStep(
+                 A=np.double(1e-3), variable_n=True,
+                 variable_n_fn=f"1e-3 * (1.0 + 0.5 * ((floor(r0[gid] / "
+                               f"{cell}) + floor(r1[gid] / {cell})) % 2 "
+                               "== 0))"),
+             phys.ElementwiseStep(absorber), red, sign]
+    for i, st in enumerate(steps):
+        sim.add_step(i, st)
+    sim.add_photons(light.generate_photon_state(
+        n, E=torch.rand(n, generator=gen, device=dev) * 1.5 + 0.5,
+        r=torch.randn((3, n), generator=gen, device=dev) * 150 * c_dt,
+        v=isotropic_v(torch, n, c, gen, dev), device=dev))
+    return sim, red, sign
+
+
+OPS_PLANS = ("ops-libm", "ops-binary", "ops-composite", "ops-strings")
+
+
+def ops_plan_phase(torch, phys, F, dev, compare, card, times):
+    """Phase: fused_transport against the twin on the widened table's group
+    plans at 2**20 slots x OPS_K iterations, as their providers hand them
+    over, the twin over the first OPS_TWIN_K: int records equal, every
+    plane bitwise (a plane that differs names its op), rec_f within rtol
+    1e-5 (a column an op); the kernel timed over all OPS_K, each timed
+    against its bound with its form library's registers and stack frame,
+    then run through Simulation (one chunk) for its launches. A plan that
+    fails to build or launch fails the run: nothing falls back."""
+    phase(f"fused_transport vs twin on the widened table's group plans "
+          f"(2**20 slots, {OPS_K} iterations)")
+    out = {}
+    for case in OPS_PLANS:
+        packed, sched, seed, k, plan, _ = first_chunk_inputs(
+            ops_plan_sim(phys, case, dev), F)
+        kinds = [op.kind for op in plan.ops]
+        if case == "ops-strings":
+            specs, _ = F.plan_fields(plan.ops)
+            check(len(specs) == len(ops_strings(1.0)) and "custom" not in
+                  kinds, f"{case}: {len(specs)} fields, ops {kinds}")
+            names = None
+        else:
+            ops = ops_groups(torch)[case]
+            check(kinds.count("custom") == len(ops),
+                  f"{case}: ops {kinds}")
+            rows = list(phys.engine.ParticleView._FIELDS) + list(
+                plan.extras)  # the packed rows: core planes, then extras
+            names = {rows.index(pl): op for op, pl in zip(ops, OPS_PLANES)}
+        info = form_info(F, plan, packed.shape[1], k)
+        print(f"{case}: {form_report(plan, info, form_loop(F, plan))} "
+              f"[{card}]", flush=True)
+        plain_ms = compare(case, packed, sched, OPS_TWIN_K, plan, None,
+                           case, seed=seed, need_bitwise=True,
+                           row_names=names)
+        res = torch.empty_like(packed)
+        rec = F.fused_transport(packed, res, sched, seed, k, plan)[0]
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: F.fused_transport(packed, res, sched, seed, k,
+                                               plan), 5, torch)
+        events = expected_events(plan, packed,
+                                 float(rec[:k, 0].double().sum()), USER_DT)
+        b_ms, b_by = transport_bound(plan, packed.shape[1], k, None, events)
+        del packed, res
+        F.fused_transport.launches = 0
+        sim = ops_plan_sim(phys, case, dev)
+        sim.start()
+        sim.join()
+        launches = F.fused_transport.launches
+        # one chunk, and the empty one a t-exit on a boundary dispatches
+        check(sim.used_fused and launches == len(sim.chunk_log) <= 2
+              and len(sim.ts) == k,
+              f"{case}: fused {sim.used_fused}, {launches} launches, "
+              f"chunks {[c for _, c, _ in sim.chunk_log]}, {len(sim.ts)} "
+              "iterations")
+        del sim
+        n_ins = sum(len(op.prog.ins) for op in plan.ops
+                    if op.kind in F.USER_OPS) + sum(
+            len(sp["prog"].ins) for sp in F.plan_fields(plan.ops)[0]
+            if sp["kind"] == "expr")
+        times[case] = ms
+        out[case] = {"ms": ms, "plain_ms": plain_ms,
+                     "plain_iters": OPS_TWIN_K, "bound_ms": b_ms,
+                     "bound_by": b_by, "launches": launches, **info}
+        print(f"{case} at 2**20 x {k}: kernel {ms:.3f} ms, twin "
+              f"{plain_ms:.3f} ms over {OPS_TWIN_K} iterations, bound "
+              f"{b_ms:.3f} ms ({b_by}); "
+              f"{len(plan.ops)} ops, {n_ins} program instructions; "
+              f"through Simulation: {launches} launches [{card}]",
+              flush=True)
+    return out
+
+
+def lattice_gates(torch, sim, red, sign, n, iters):
+    """The lattice path's laws: every row's alive count the same in the
+    reduce and the sign tally, never rising, some photons absorbed and
+    some left; each observable finite and within its range (|cos 2 phi| <= 1,
+    erfc in [0, 2], tanh E in [tanh 0.5, tanh 2] a photon); the last row's
+    observables equal to the final planes' within rtol 1e-4."""
+    rows = np.asarray(red.data, np.float64)
+    srow = np.asarray(sign.data, np.float64)
+    check(rows.shape == (iters, 5) and srow.shape[0] == iters,
+          f"lattice: rows {rows.shape} {srow.shape}")
+    nr = rows[:, 1]
+    check(bool((nr == srow[:, 1]).all()), "lattice: the reduce's alive "
+          "count differs from the sign tally's")
+    check(bool((np.diff(nr) <= 0).all()) and 0 < nr[-1] < nr[0] <= n,
+          f"lattice: alive counts {nr[0]} -> {nr[-1]} of {n}")
+    check(bool(np.isfinite(rows).all()), "lattice: non-finite observables")
+    check(bool((np.abs(rows[:, 2]) <= nr).all()
+               and (rows[:, 3] >= 0).all() and (rows[:, 3] <= 2 * nr).all()
+               and (rows[:, 4] >= np.tanh(0.5) * nr * (1 - 1e-5)).all()
+               and (rows[:, 4] <= np.tanh(2.0) * nr * (1 + 1e-5)).all()),
+          "lattice: an observable outside its range")
+    st = sim.sim_state
+    alive = st.alive[:n]
+    v, r, E = st.v[:, :n][:, alive], st.r[:, :n][:, alive], st.E[:n][alive]
+    sigma = LAT_SIGMA * C_LIGHT * USER_DT
+    want = [float(torch.cos(2.0 * torch.atan2(v[1], v[0])).double().sum()),
+            float(torch.erfc(torch.hypot(r[0], r[1]) / (np.sqrt(2.0) * sigma))
+                  .double().sum()),
+            float(torch.tanh(E).double().sum())]
+    worst = max(abs(rows[-1, 2 + j] - w) / max(float(nr[-1]), 1.0)
+                for j, w in enumerate(want))
+    check(worst <= 1e-4, f"lattice: last row's observables {rows[-1, 2:]} "
+          f"against the final planes' {want}")
+    return (f"alive {int(nr[0])} -> {int(nr[-1])} (the reduce's and the "
+            f"sign tally's counts equal, never rising); observables finite "
+            f"and in range; the last row within {worst:.1e} a photon of the "
+            "final planes'")
+
+
+def lattice_path(torch, phys, F, dev, card, lft):
+    """Phase: the lattice path through Simulation at 10**7 photons, twice
+    (the second profiled): its laws, the rate over the dispatch loop, the
+    device idle share. Returns the first run's launches."""
+    phase(f"lattice path: {LAT_N} photons, {LAT_ITERS} iterations in chunks "
+          f"of {LAT_CHUNK}")
+
+    def run(profile):
+        F.fused_transport.launches = 0
+        built = lattice_sim(phys, LAT_N, dev)
+        wall, prof, peak = run_sim(torch, built[0], profile)
+        return built, wall, prof, peak, F.fused_transport.launches
+
+    (sim, red, sign), wall, _, peak, launches = run(False)
+    print(sim.explain_plan())
+    chunks = [k for _, k, _ in sim.chunk_log]
+    check(sim.used_fused and len(sim.ts) == LAT_ITERS
+          and launches == len(chunks) >= LAT_ITERS // LAT_CHUNK,
+          f"lattice: launches {launches}, chunks {chunks}")
+    what = lattice_gates(torch, sim, red, sign, LAT_N, LAT_ITERS)
+    per_iter = np.asarray(sign.data, np.float64)[:, 1]
+    rate, steady_s = steady_rate(sim, per_iter)
+    print(f"lattice path: {len(sim.ts)} iterations in chunks {chunks}, "
+          f"fused_transport launches {launches}; {what}", flush=True)
+    print(f"lattice path rate: {rate:.4e} alive photon-steps/s over the "
+          f"dispatch loop after the first chunk, device clock "
+          f"({steady_s * 1e3:.1f} ms); {float(per_iter.sum()) / wall:.4e} "
+          f"from start() ({wall:.3f} s wall); set-up "
+          f"{sim.setup_seconds:.3f} s; peak memory {peak / 2 ** 30:.2f} GiB; "
+          f"kernel {lft['ms']:.2f} ms per chunk against a bound of "
+          f"{lft['bound_ms']:.2f} ms ({lft['bound_by']}) [{card}]",
+          flush=True)
+    del sim, red, sign
+    built2, _, prof, _, _ = run(True)
+    busy, span = device_busy(prof, torch)
+    print(f"lattice path device idle share (profiled second run, first to "
+          f"last fused_transport kernel): {1 - busy / span:.4f} "
+          f"({busy:.1f} ms busy of {span:.1f} ms) [{card}]", flush=True)
+    del built2, prof
+    return {"fused_launches": launches, "rate": rate}
+
+
 # -- recorded fields and inverse CDFs, the generic scatter family, shrink ------
 
 MIR_N = 10_000_000       # examples/make_lorentz_nb.py:98-112 at 10**7
@@ -5788,8 +6291,9 @@ def hg_icdf(u):
 def prog_ops(spec):
     """The SEQ_OPS tuple of one evaluation of an expression field's program
     (all its outputs): each operation it asks for (a divide or reciprocal
-    as _DIV, a root as _SQRT, a transcendental or powf as
-    "ins_transcendental", an integer power its products, min, max, the
+    as _DIV, a root as _SQRT, an rsqrt as _RSQRT, exp, log, log10, sin, cos,
+    tan or powf as "ins_transcendental", the widened table's libm
+    functions as LIBM_COST, an integer power its products, min, max, the
     roundings, abs, compares, selects and logic on the ALU pipe, the rest
     on the FMA pipe), loads, constants and stores free."""
     from physicl_tpu_torch.ops import record as RC
@@ -5802,9 +6306,13 @@ def prog_ops(spec):
             terms.append(_DIV)
         elif code == RC.U_SQRT:
             terms.append(_SQRT)
+        elif code == RC.U_RSQRT:
+            terms.append(_RSQRT)
         elif code in (RC.U_POW, RC.U_EXP, RC.U_LOG, RC.U_LOG10, RC.U_SIN,
                       RC.U_COS, RC.U_TAN):
             terms.append(SEQ_OPS["ins_transcendental"])
+        elif libm_cost(code) is not None:
+            terms.append(libm_cost(code))
         elif code == RC.U_IPOW:
             e = abs(int(y))
             terms.append((max(e.bit_length() + bin(e).count("1") - 2, 0),

@@ -313,9 +313,16 @@ class ElementwiseStep(Step):
 
     * elementwise over the particle axis: no reductions, gathers or
       cross-particle mixing, checked when the fn is recorded (a refusal
-      ``elementwise-not-elementwise``; an operation outside the kernel's
-      table is ``elementwise-op-unsupported``, Python control flow on a
-      value ``elementwise-trace``);
+      ``elementwise-not-elementwise``; Python control flow on a value
+      ``elementwise-trace``). The kernel's table holds jnp's elementwise
+      float32 functions (arithmetic, ``%`` and ``//``, comparisons and
+      logic, ``torch.where``, the libm functions from ``atan`` to
+      ``lgamma``, ``erfinv``, ``sigmoid``, ``softplus``, ``hypot``,
+      ``logaddexp``, ``lerp``, ``nan_to_num``, ...: ``ops/record.py``),
+      each as the jnp function computes it; one outside it (``digamma``,
+      ``special.i0`` / ``i0e`` / ``i1``, ``ndtri``, integer bitwise and
+      shift ops, a float64 cast) is ``elementwise-op-unsupported``,
+      naming it, and stops the run (``fuse="off"`` runs it generically);
     * only the transport fields, plus extras planes declared with
       ``extras=("name", ...)`` (``p.extras["name"]``). Planes also listed in
       ``extras_write=`` may be returned (a scalar plane: one tensor; a

@@ -94,7 +94,18 @@ _UNARY = {RC.U_NEG: "-{a}", RC.U_ABS: "fabsf({a})", RC.U_SQRT: "sqrtf({a})",
           RC.U_FLOOR: "floorf({a})", RC.U_CEIL: "ceilf({a})",
           RC.U_TRUNC: "truncf({a})", RC.U_RECIP: "1.0f / {a}",
           RC.U_NOT: "{a} == 0.0f ? 1.0f : 0.0f",
-          RC.U_BOOL: "{a} != 0.0f ? 1.0f : 0.0f"}
+          RC.U_BOOL: "{a} != 0.0f ? 1.0f : 0.0f",
+          RC.U_ATAN: "atanf({a})", RC.U_ASIN: "asinf({a})",
+          RC.U_ACOS: "acosf({a})", RC.U_SINH: "sinhf({a})",
+          RC.U_COSH: "coshf({a})", RC.U_TANH: "tanhf({a})",
+          RC.U_ASINH: "asinhf({a})", RC.U_ACOSH: "acoshf({a})",
+          RC.U_ATANH: "atanhf({a})", RC.U_EXP2: "exp2f({a})",
+          RC.U_EXPM1: "expm1f({a})", RC.U_LOG2: "log2f({a})",
+          RC.U_LOG1P: "log1pf({a})", RC.U_ERF: "erff({a})",
+          RC.U_ERFC: "erfcf({a})", RC.U_LGAMMA: "lgammaf({a})",
+          RC.U_RSQRT: "1.0f / sqrtf({a})", RC.U_ROUND: "rintf({a})",
+          RC.U_ISNAN: "isnan({a}) ? 1.0f : 0.0f",
+          RC.U_SIGNBIT: "signbit({a}) ? 1.0f : 0.0f"}
 _BINARY = {RC.U_ADD: "{a} + {b}", RC.U_SUB: "{a} - {b}",
            RC.U_MUL: "{a} * {b}", RC.U_DIV: "{a} / {b}",
            RC.U_POW: "powf({a}, {b})", RC.U_MIN: "nan_min({a}, {b})",
@@ -107,7 +118,10 @@ _BINARY = {RC.U_ADD: "{a} + {b}", RC.U_SUB: "{a} - {b}",
            RC.U_NE: "{a} != {b} ? 1.0f : 0.0f",
            RC.U_AND: "{a} != 0.0f && {b} != 0.0f ? 1.0f : 0.0f",
            RC.U_OR: "{a} != 0.0f || {b} != 0.0f ? 1.0f : 0.0f",
-           RC.U_XOR: "({a} != 0.0f) != ({b} != 0.0f) ? 1.0f : 0.0f"}
+           RC.U_XOR: "({a} != 0.0f) != ({b} != 0.0f) ? 1.0f : 0.0f",
+           RC.U_ATAN2: "atan2f({a}, {b})", RC.U_FMOD: "fmodf({a}, {b})",
+           RC.U_COPYSIGN: "copysignf({a}, {b})",
+           RC.U_NEXTAFTER: "nextafterf({a}, {b})"}
 
 
 def _lit(y) -> str:

@@ -52,6 +52,7 @@ KIND_CODES = {"expr": 1, "layered": 2, "voxel": 3}
 LAYER_AXES = {"x": 0, "y": 1, "z": 2, "r": 3}
 
 MAX_IPOW = 1 << 24  # |integer exponent| (held exactly as a float32)
+EXACT_INT = 1 << 24  # |integer value| of a string's integer arithmetic
 MAX_VOXELS = 2 ** 31 - 1  # the kernel's flat voxel index is int32
 
 _GID_RE = re.compile(r"\[\s*gid\s*\]")
@@ -60,9 +61,22 @@ _UNARY = {"sqrt": RC.U_SQRT, "fabs": RC.U_ABS, "exp": RC.U_EXP,
           "log": RC.U_LOG, "log10": RC.U_LOG10, "sin": RC.U_SIN,
           "cos": RC.U_COS, "tan": RC.U_TAN, "floor": RC.U_FLOOR,
           "ceil": RC.U_CEIL}
+# the functions of a boolean or an integer that keep its kind (jnp.abs,
+# floor, ceil, minimum, maximum); the others give a float
+_KIND_KEEPING = {"fabs", "floor", "ceil", "fmin", "fmax"}
 _BINARY = {"fmin": RC.U_MIN, "fmax": RC.U_MAX}
 _BINOPS = {ast.Add: RC.U_ADD, ast.Sub: RC.U_SUB, ast.Mult: RC.U_MUL,
            ast.Div: RC.U_DIV}
+_LOGIC = {ast.BitAnd: RC.U_AND, ast.BitOr: RC.U_OR, ast.BitXor: RC.U_XOR}
+_CMPOPS = {ast.Lt: RC.U_LT, ast.LtE: RC.U_LE, ast.Gt: RC.U_GT,
+           ast.GtE: RC.U_GE, ast.Eq: RC.U_EQ, ast.NotEq: RC.U_NE}
+_LITERAL_NODES = (ast.Constant, ast.UnaryOp, ast.BinOp, ast.BoolOp,
+                  ast.Compare, ast.IfExp, ast.operator, ast.unaryop,
+                  ast.boolop, ast.cmpop, ast.expr_context)
+_RANK = {"b": 0, "i": 1, "f": 2}  # a boolean, an integer, a float
+_SYMBOLS = {ast.BitAnd: "&", ast.BitOr: "|", ast.BitXor: "^",
+            ast.LShift: "<<", ast.RShift: ">>", ast.MatMult: "@"}
+_INT32 = 2 ** 31
 _NOT_LITERAL = object()
 _sqrt_rn = RC._sqrt_rn
 
@@ -72,105 +86,245 @@ def _f32(x) -> torch.Tensor:
 
 
 class _Unsupported(Exception):
-    pass
+    """A construct the reference evaluates and the kernel's field programs
+    do not: the prover refuses it (``field-expr-unsupported``)."""
+
+
+class _Raise(Exception):
+    """A construct the reference's ``eval`` over jnp raises on: ``exc``
+    the exception it raises."""
+
+    def __init__(self, exc, msg):
+        super().__init__(msg)
+        self.exc = exc
 
 
 def _literal(node):
-    """The Python value of a literal-only subtree (evaluated as Python
-    evaluates it, in double or int), or ``_NOT_LITERAL``."""
-    if isinstance(node, ast.Constant):
-        if isinstance(node.value, bool) or not isinstance(
-                node.value, (int, float)):
-            raise _Unsupported(f"constant {node.value!r}")
-        return node.value
-    if isinstance(node, ast.Name) and node.id in _CONSTS:
-        return _CONSTS[node.id]
-    if isinstance(node, ast.UnaryOp) and isinstance(node.op,
-                                                    (ast.USub, ast.UAdd)):
-        v = _literal(node.operand)
-        if v is _NOT_LITERAL:
-            return v
-        return -v if isinstance(node.op, ast.USub) else +v
-    if isinstance(node, ast.BinOp) and (type(node.op) in _BINOPS
-                                        or isinstance(node.op, ast.Pow)):
-        a, b = _literal(node.left), _literal(node.right)
-        if a is _NOT_LITERAL or b is _NOT_LITERAL:
+    """The Python value of a literal-only subtree (no variable and no
+    call: Python evaluates it, in bool, int or float), or
+    ``_NOT_LITERAL``."""
+    for sub in ast.walk(node):
+        if not (isinstance(sub, _LITERAL_NODES) or (
+                isinstance(sub, ast.Name) and sub.id in _CONSTS)):
             return _NOT_LITERAL
-        try:
-            v = {ast.Add: lambda: a + b, ast.Sub: lambda: a - b,
-                 ast.Mult: lambda: a * b, ast.Div: lambda: a / b,
-                 ast.Pow: lambda: a ** b}[type(node.op)]()
-        except (ArithmeticError, ValueError) as e:
-            raise _Unsupported(f"literal subexpression: {e}") from None
-        if not isinstance(v, (int, float)):
-            raise _Unsupported(f"literal subexpression value {v!r}")
-        return v
-    return _NOT_LITERAL
+    try:
+        v = eval(compile(ast.Expression(node), "<literal>", "eval"),
+                 {"__builtins__": {}}, dict(_CONSTS))
+    except (ArithmeticError, ValueError, TypeError) as e:
+        raise _Raise(type(e), f"literal subexpression "
+                     f"{ast.unparse(node)!r}: {e}") from None
+    if not isinstance(v, (bool, int, float)):
+        raise _Unsupported(f"literal subexpression value {v!r}")
+    return v
 
 
-def _int_exponent(node):
-    """A literal-only exponent that is a Python int (``lax.integer_pow``),
-    else None."""
-    v = _literal(node)
-    if isinstance(v, int) and not isinstance(v, bool):
-        if abs(v) > MAX_IPOW:
-            raise _Unsupported(f"integer exponent {v} beyond {MAX_IPOW}")
-        return v
-    return None
+class _Val:
+    """A value of the field program: its SSA number, its kind (``"b"``
+    a boolean held as 0.0 / 1.0, ``"i"`` an integer held exactly, ``"f"``
+    a float32) and, for an integer, a bound on its magnitude."""
+
+    def __init__(self, vid, kind="f", bound=0):
+        self.vid, self.kind, self.bound = vid, kind, bound
 
 
-def _emit(node, varnames, ssa) -> int:
-    """The SSA value of ``node``, its operands in the string's order (an
-    operation of a literal and a variable keeps its operands as written)."""
-    v = _literal(node)
-    if v is not _NOT_LITERAL:
-        return ssa.const(v)
-    if isinstance(node, ast.Name):
-        return ssa.val(RC.U_LD, (), varnames.index(node.id))
-    if isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.USub):
-        return ssa.val(RC.U_NEG, (_emit(node.operand, varnames, ssa),))
-    if isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.UAdd):
-        return _emit(node.operand, varnames, ssa)
-    if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Pow):
-        return _emit_pow(node.left, node.right, varnames, ssa)
-    if isinstance(node, ast.BinOp) and type(node.op) in _BINOPS:
-        a = _emit(node.left, varnames, ssa)
-        return ssa.val(_BINOPS[type(node.op)],
-                       (a, _emit(node.right, varnames, ssa)))
-    if (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
-            and not node.keywords):
+class _Compiler:
+    """A C-expression string's AST -> SSA values, with the kinds jnp
+    gives them: a boolean meets arithmetic as 0 or 1 (``b + b`` is or,
+    ``b * b`` and), an integer (a boolean with an integer, ``%`` or
+    ``//``) stays exact below 2**24, and a float wins. Operands stay in
+    the string's order (an operation of a literal and a variable keeps its
+    operands as written)."""
+
+    def __init__(self, varnames):
+        self.varnames = list(varnames)
+        self.ssa = RC._SSA()
+
+    def const(self, v) -> _Val:
+        """A Python literal where it meets an array (a weak type)."""
+        if isinstance(v, bool):
+            return _Val(self.ssa.const(float(v)), "b", 1)
+        if isinstance(v, int):
+            if not -_INT32 <= v < _INT32:
+                raise _Raise(OverflowError, f"the integer {v} does not fit "
+                             "int32")
+            return _Val(self.ssa.const(v), "i", abs(v))
+        return _Val(self.ssa.const(v))
+
+    def int_val(self, vid, bound) -> _Val:
+        if bound > EXACT_INT:
+            raise _Unsupported(f"an integer value up to {bound}, past "
+                               f"2**24 (the kernel holds integers in "
+                               "float32)")
+        return _Val(vid, "i", bound)
+
+    def emit(self, node) -> _Val:
+        v = _literal(node)
+        if v is not _NOT_LITERAL:
+            return self.const(v)
+        ssa = self.ssa
+        if isinstance(node, ast.Name):
+            return _Val(ssa.val(RC.U_LD, (), self.varnames.index(node.id)))
+        if isinstance(node, ast.UnaryOp):
+            return self.unary(node)
+        if isinstance(node, ast.BinOp):
+            if isinstance(node.op, ast.Pow):
+                return self.pow(node.left, node.right)
+            return self.binop(node.op, self.emit(node.left),
+                              self.emit(node.right))
+        if isinstance(node, ast.Compare):
+            if len(node.ops) > 1:
+                raise _Raise(ValueError, f"chained comparison "
+                             f"{ast.unparse(node)!r}: the truth value of "
+                             "an array is ambiguous")
+            op = type(node.ops[0])
+            if op not in _CMPOPS:
+                raise _Unsupported(f"comparison {ast.unparse(node)!r}")
+            a = self.emit(node.left)
+            b = self.emit(node.comparators[0])
+            return _Val(ssa.val(_CMPOPS[op], (a.vid, b.vid)), "b", 1)
+        if isinstance(node, ast.BoolOp):
+            # Python's and / or: an array's truth value raises
+            for sub in node.values[:-1]:
+                v = _literal(sub)
+                if v is _NOT_LITERAL:
+                    raise _Raise(ValueError, f"{ast.unparse(node)!r}: the "
+                                 "truth value of an array is ambiguous")
+                if bool(v) != isinstance(node.op, ast.And):
+                    return self.const(v)
+            return self.emit(node.values[-1])
+        if isinstance(node, ast.IfExp):
+            v = _literal(node.test)
+            if v is _NOT_LITERAL:
+                raise _Raise(ValueError, f"{ast.unparse(node)!r}: the truth "
+                             "value of an array is ambiguous")
+            return self.emit(node.body if v else node.orelse)
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+                and not node.keywords):
+            return self.call(node)
+        raise _Unsupported(f"construct {ast.unparse(node)!r}")
+
+    def unary(self, node) -> _Val:
+        x = self.emit(node.operand)
+        if isinstance(node.op, ast.UAdd):
+            return x
+        if isinstance(node.op, ast.Not):
+            raise _Raise(ValueError, f"{ast.unparse(node)!r}: the truth "
+                         "value of an array is ambiguous")
+        if isinstance(node.op, ast.USub):
+            if x.kind == "b":
+                raise _Raise(TypeError, f"{ast.unparse(node)!r}: neg does "
+                             "not accept dtype bool")
+            return _Val(self.ssa.val(RC.U_NEG, (x.vid,)), x.kind, x.bound)
+        # ~: a boolean's not; an integer's is a bitwise op
+        if x.kind == "f":
+            raise _Raise(TypeError, f"{ast.unparse(node)!r}: not does not "
+                         "accept dtype float32")
+        if x.kind == "i":
+            raise _Unsupported(f"integer bitwise op {ast.unparse(node)!r}")
+        return _Val(self.ssa.val(RC.U_NOT, (x.vid,)), "b", 1)
+
+    def binop(self, op, a: _Val, b: _Val) -> _Val:
+        ssa = self.ssa
+        t = type(op)
+        text = _SYMBOLS.get(t, t.__name__)
+        kinds = {a.kind, b.kind}
+        kind = max(kinds, key=_RANK.get)
+        if t in _LOGIC:
+            if "f" in kinds:
+                raise _Raise(TypeError, f"{text} does not accept dtype "
+                             "float32")
+            if "i" in kinds:
+                raise _Unsupported(f"integer bitwise op {text}")
+            return _Val(ssa.val(_LOGIC[t], (a.vid, b.vid)), "b", 1)
+        if t is ast.Div:
+            return _Val(ssa.val(RC.U_DIV, (a.vid, b.vid)))
+        if t in (ast.Mod, ast.FloorDiv):
+            if kind == "f":
+                fn = RC._remainder if t is ast.Mod else RC._floor_divide
+                return _Val(fn(ssa, a.vid, b.vid))
+            if t is ast.Mod:
+                return self.int_val(RC._remainder(ssa, a.vid, b.vid, True),
+                                    max(b.bound, 1))
+            if not (ssa.is_const(b.vid) and ssa.defs[b.vid][2] != 0.0):
+                raise _Unsupported("integer floor division by a value that "
+                                   "may be 0 (XLA's result is "
+                                   "implementation-defined)")
+            return self.int_val(RC._floor_divide(ssa, a.vid, b.vid),
+                                a.bound)
+        if t not in _BINOPS:
+            if "f" in kinds and t in (ast.LShift, ast.RShift):
+                raise _Raise(TypeError, f"{text} does not accept dtype "
+                             "float32")
+            raise _Unsupported(f"operator {text}")
+        if kinds == {"b"}:
+            if t is ast.Sub:
+                raise _Raise(TypeError, "sub does not accept dtype bool")
+            # jnp.add of booleans is or, jnp.multiply and
+            code = RC.U_OR if t is ast.Add else RC.U_AND
+            return _Val(ssa.val(code, (a.vid, b.vid)), "b", 1)
+        vid = ssa.val(_BINOPS[t], (a.vid, b.vid))
+        if kind == "i":
+            return self.int_val(vid, a.bound * b.bound if t is ast.Mult
+                                else a.bound + b.bound)
+        return _Val(vid)
+
+    def call(self, node) -> _Val:
         name, args = node.func.id, node.args
         if name == "pow" and len(args) == 2:
-            return _emit_pow(args[0], args[1], varnames, ssa)
+            return self.pow(args[0], args[1])
         if name in _UNARY and len(args) == 1:
-            return ssa.val(_UNARY[name], (_emit(args[0], varnames, ssa),))
+            x = self.emit(args[0])
+            vid = self.ssa.val(_UNARY[name], (x.vid,))
+            if name in _KIND_KEEPING and x.kind != "f":
+                return _Val(vid, x.kind, x.bound)
+            return _Val(vid)
         if name in _BINARY and len(args) == 2:
-            a = _emit(args[0], varnames, ssa)
-            return ssa.val(_BINARY[name], (a, _emit(args[1], varnames, ssa)))
+            a = self.emit(args[0])
+            b = self.emit(args[1])
+            vid = self.ssa.val(_BINARY[name], (a.vid, b.vid))
+            kind = max((a.kind, b.kind), key=_RANK.get)
+            return _Val(vid, kind, max(a.bound, b.bound))
         raise _Unsupported(f"call {ast.unparse(node)!r}")
-    raise _Unsupported(f"construct {ast.unparse(node)!r}")
+
+    def pow(self, base, exponent) -> _Val:
+        """``jnp.power``: an exponent that is a Python int (or bool) is
+        ``lax.integer_pow``'s repeated products (of a boolean or an
+        integer an integer, and never a negative power); a float one, or
+        a float or boolean array, ``powf`` of floats."""
+        e = _literal(exponent)
+        x = self.emit(base)
+        if isinstance(e, int):
+            if abs(e) > MAX_IPOW:
+                raise _Unsupported(f"integer exponent {e} beyond {MAX_IPOW}")
+            vid = self.ssa.val(RC.U_IPOW, (x.vid,), int(e))
+            if x.kind == "f":
+                return _Val(vid)
+            if e < 0:
+                raise _Raise(TypeError, "integers cannot be raised to "
+                             f"negative powers ({e})")
+            return self.int_val(vid, max(x.bound, 1) ** e)
+        y = self.emit(exponent)
+        if "i" in (x.kind, y.kind) or (x.kind, y.kind) == ("b", "b"):
+            raise _Unsupported("a power of an integer or to an integer "
+                               "array")
+        return _Val(self.ssa.val(RC.U_POW, (x.vid, y.vid)))
 
 
-def _emit_pow(base, exponent, varnames, ssa) -> int:
-    y = _int_exponent(exponent)
-    x = _emit(base, varnames, ssa)
-    if y is not None:
-        return ssa.val(RC.U_IPOW, (x,), y)
-    return ssa.val(RC.U_POW, (x, _emit(exponent, varnames, ssa)))
-
-
-def expr_field(prog, varnames, text, n_out=1, error=None):
+def expr_field(prog, varnames, text, n_out=1, error=None, raises=None):
     """A torch callable over ``varnames`` that runs the field program
     ``prog`` (:func:`physicl_tpu_torch.ops.record.run_field`; ``n_out``
-    outputs), with its ``spec`` of kind ``"expr"``. With ``error`` set
-    (a construct outside the IR) it raises ``NotImplementedError`` when
-    called, and the prover refuses it (``field-expr-unsupported``)."""
+    outputs), with its ``spec`` of kind ``"expr"``. With ``error`` set it
+    raises when called: ``raises`` (the reference's own exception for a
+    construct its ``eval`` rejects, which the prover raises too) or
+    ``NotImplementedError`` (a construct the kernel's programs lack, which
+    the prover refuses: ``field-expr-unsupported``)."""
     spec = {"kind": "expr", "prog": prog, "n_out": n_out,
-            "vars": tuple(varnames), "error": error, "text": text}
+            "vars": tuple(varnames), "error": error, "raises": raises,
+            "text": text}
 
     def fn(*args):
         if error is not None:
-            raise NotImplementedError(error)
+            raise (raises or NotImplementedError)(error)
         return RC.run_field(prog, args, n_out)
 
     fn.spec = spec
@@ -179,10 +333,21 @@ def expr_field(prog, varnames, text, n_out=1, error=None):
 
 def compile_expr(expr, varnames, label):
     """A C-expression string -> a torch callable over ``varnames`` with a
-    ``spec`` of kind ``"expr"``: its field program, one output. Unknown
-    symbols raise ``ValueError`` (as in the JAX package); a construct
-    outside the grammar is kept as ``spec["error"]`` and refused by the
-    prover (``field-expr-unsupported``)."""
+    ``spec`` of kind ``"expr"``: its field program, one output. The
+    grammar is what the reference's ``eval`` over jnp evaluates (the JAX
+    package's ``_EXPR_NS``): numbers, ``M_PI``, ``M_E``, ``True`` and
+    ``False``; ``+ - * / % // **`` (``%`` and ``//`` as ``jnp.remainder``
+    and ``jnp.floor_divide``), one comparison ``< <= > >= == !=``, ``& |
+    ^ ~`` of booleans, unary ``+ -``; the functions ``sqrt fabs exp log
+    log10 sin cos tan floor ceil fmin fmax pow``. Literal subtrees fold as
+    Python folds them; a boolean meets arithmetic as jnp promotes it.
+    Unknown symbols raise ``ValueError`` (as in the JAX package); a
+    construct that the reference's ``eval`` raises on (a chained
+    comparison, ``x if c else y`` or ``and`` on an array, ``-`` of a
+    boolean, ``~`` or ``&`` of a float) raises its exception when the
+    field is called or planned; one the kernel lacks (integer bitwise ops,
+    integers past 2**24) is refused by the prover
+    (``field-expr-unsupported``)."""
     text = _GID_RE.sub("", str(expr))
     tree = ast.parse(text.strip(), mode="eval")
     known = set(_CONSTS) | set(_UNARY) | set(_BINARY) | {"pow"}
@@ -191,14 +356,15 @@ def compile_expr(expr, varnames, label):
                 else node.attr if isinstance(node, ast.Attribute) else None)
         if name is not None and name not in known and name not in varnames:
             raise ValueError(f"{label}: unknown symbol {name!r}")
-    ssa, error = RC._SSA(), None
+    comp, error, raises = _Compiler(varnames), None, None
     try:
-        ssa.effects.append((RC.U_ST, _emit(tree.body, list(varnames), ssa),
-                            0))
+        comp.ssa.effects.append((RC.U_ST, comp.emit(tree.body).vid, 0))
     except _Unsupported as e:
-        ssa, error = RC._SSA(), f"{label}: {e}"
-    prog = RC._schedule(ssa, 0)
-    return expr_field(prog, varnames, text, error=error)
+        comp.ssa, error = RC._SSA(), f"{label}: {e}"
+    except _Raise as e:
+        comp.ssa, error, raises = RC._SSA(), f"{label}: {e}", e.exc
+    prog = RC._schedule(comp.ssa, 0)
+    return expr_field(prog, varnames, text, error=error, raises=raises)
 
 
 def field_layout(spec: dict):

@@ -36,13 +36,18 @@ expression programs.
 User code runs in the kernel too (kernel 1i): ``ElementwiseStep``,
 ``ReduceMeasureStep`` (and ``light.SpectrumMeasureStep`` /
 ``MeshTallyStep``) and ``KernelStep(elementwise=True)`` callables are
-recorded into register programs (:mod:`physicl_tpu_torch.ops.record`);
-their refusals carry the JAX prover's codes (``elementwise-``,
-``reduce-``, ``kernelstep-`` + ``not-elementwise``, ``trace``, ...) and
-the recorder's limit ``*-op-unsupported`` (an aten operation outside its
-table). Each plan's programs are compiled into a library of its own
-(:mod:`physicl_tpu_torch.ops.codegen`), with no limit on their length,
-registers or draws.
+recorded into register programs (:mod:`physicl_tpu_torch.ops.record`:
+jnp's elementwise float32 functions, each as jnp computes it); their
+refusals carry the JAX prover's codes (``elementwise-``, ``reduce-``,
+``kernelstep-`` + ``not-elementwise``, ``trace``, ...) and the
+recorder's limit ``*-op-unsupported`` (an op not yet in its table:
+``digamma``, ``special.i0`` / ``i0e`` / ``i1``, ``ndtri``, integer
+bitwise and shift ops, float64 casts). A field string takes the
+reference's ``eval`` grammar (``ops/fields.py``: ``%``, ``//``, one
+comparison, boolean logic, ``True`` / ``False``); what that ``eval``
+raises on, the prover raises too. Each plan's programs are compiled into
+a library of its own (:mod:`physicl_tpu_torch.ops.codegen`), with no limit
+on their length, registers or draws.
 
 Per-photon outputs (trace positions, captured energies) are stream planes
 of the chunk's stream buffer; the harvest hands them to their steps as
@@ -105,10 +110,14 @@ _JAX_USER_REASONS = frozenset({
 def is_kernel_limit(code: str) -> bool:
     """True for a refusal code that only the port's kernel has (the JAX
     kernel runs the plan): ``field-expr-unsupported`` (a string construct
-    outside the field IR), ``field-fn-callable`` (a callable the recorder
-    cannot take) and ``*-op-unsupported``. Such a refusal does not fall
-    back to the generic tier;
-    ``Simulation(fuse="off")`` asks for that tier explicitly."""
+    the reference evaluates and the field programs lack: integer bitwise
+    ops, integers past 2**24, an integer floor division by a value that
+    may be 0), ``field-fn-callable`` (a callable the recorder cannot take)
+    and ``*-op-unsupported`` (an op not yet in the instruction table:
+    ``digamma``, ``special.i0`` / ``i0e`` / ``i1``, ``ndtri``, integer
+    bitwise and shift ops, float64 casts). Such a refusal does not fall
+    back to the generic tier; ``Simulation(fuse="off")`` asks for that
+    tier explicitly."""
     prefix, _, reason = code.partition("-")
     return not (code in _JAX_CODES
                 or (prefix in ("elementwise", "reduce", "kernelstep")
@@ -934,6 +943,10 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
                 + (" over E[gid]" if varnames == ("E",) else ", "
                    "light.layered_density or light.voxel_density"))
         if spec["kind"] == "expr" and spec["error"] is not None:
+            if spec.get("raises") is not None:
+                # the reference's eval raises on the string: an error, as
+                # when the JAX kernel traces it
+                raise spec["raises"](spec["error"])
             _no("field-expr-unsupported", spec["error"])
         if spec["kind"] == "voxel" and spec["flat"].size > FL.MAX_VOXELS:
             # the JAX prover's code where its kernel cannot hold a grid

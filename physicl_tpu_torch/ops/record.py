@@ -37,6 +37,26 @@ inputs of two lengths, and the aten graph is translated:
   a tensor is torch's ``reciprocal(x) * c``; bool times float is 0.0 or the
   float, as in torch.
 
+The instruction table is jnp's elementwise float32 functions. Group A, an
+instruction each, a CUDA libm function in the kernel and torch's own op
+on the card in the twin (the same function there): ``atan``, ``asin``,
+``acos``, ``atan2``, ``sinh``, ``cosh``, ``tanh``, ``asinh``, ``acosh``,
+``atanh``, ``exp2``, ``expm1``, ``log2``, ``log1p``, ``erf``, ``erfc``,
+``lgamma``, ``fmod``, ``round`` (``rintf``), ``copysign``, ``nextafter``,
+``isnan``, ``signbit``, and ``rsqrt`` as ``1.0f / sqrtf``. Group B,
+lowered to the instructions in the order of the jnp function it stands
+for (:func:`_lower`): ``remainder`` / ``%`` and ``floor_divide`` / ``//``
+/ ``div(rounding_mode=)`` (``lax.rem``, then the sign fix), ``sign``,
+``frac``, ``sigmoid``, ``silu``, ``relu``, ``softplus``, ``logaddexp``,
+``xlogy``, ``special.xlog1py``, ``hypot``, ``fmax`` / ``fmin``, ``lerp``,
+``addcmul`` / ``addcdiv``, ``add`` / ``sub`` with ``alpha``,
+``heaviside``, ``nan_to_num``, ``isinf``, ``deg2rad`` / ``rad2deg``,
+``special.ndtr`` (jnp's form, taken before torch decomposes it),
+``sinc``, ``logit`` and ``erfinv`` (XLA's polynomial). Left to port, and
+refused as ``op-unsupported`` naming the op: ``digamma``, ``special.i0``
+/ ``i0e`` / ``i1``, ``ndtri``, integer bitwise and shift ops and casts to
+float64.
+
 The program is register code over per-component SSA values: common
 subexpressions merged, unused values dropped, the side effects (plane
 stores, alive clears, float record sums) kept in order, and registers
@@ -54,29 +74,40 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-# instruction codes (ops/codegen.py turns each into C)
+# instruction codes (ops/codegen.py turns each into C); the libm codes
+# from U_ATAN on came after the first 41, whose numbers stay as they were
 (U_LD, U_T, U_DT, U_CONST, U_UNIF, U_NEG, U_ABS, U_SQRT, U_EXP, U_LOG,
  U_LOG10, U_SIN, U_COS, U_TAN, U_FLOOR, U_CEIL, U_TRUNC, U_RECIP, U_NOT,
  U_BOOL, U_IPOW, U_ADD, U_SUB, U_MUL, U_DIV, U_POW, U_MIN, U_MAX, U_LT, U_LE,
  U_GT, U_GE, U_EQ, U_NE, U_AND, U_OR, U_XOR, U_SEL, U_ST, U_ALIVE,
- U_ACC) = range(41)
+ U_ACC, U_ATAN, U_ASIN, U_ACOS, U_SINH, U_COSH, U_TANH, U_ASINH, U_ACOSH,
+ U_ATANH, U_EXP2, U_EXPM1, U_LOG2, U_LOG1P, U_ERF, U_ERFC, U_LGAMMA,
+ U_RSQRT, U_ROUND, U_ISNAN, U_SIGNBIT, U_ATAN2, U_FMOD, U_COPYSIGN,
+ U_NEXTAFTER) = range(65)
 ALIVE_PLANE = 13
 DRAW_ROWS = 64   # rows of the draws placeholder, unless a callable draws more
 
 _UNARY = {"neg": U_NEG, "abs": U_ABS, "sqrt": U_SQRT, "exp": U_EXP,
           "log": U_LOG, "log10": U_LOG10, "sin": U_SIN, "cos": U_COS,
           "tan": U_TAN, "floor": U_FLOOR, "ceil": U_CEIL, "trunc": U_TRUNC,
-          "reciprocal": U_RECIP}
+          "reciprocal": U_RECIP, "atan": U_ATAN, "asin": U_ASIN,
+          "acos": U_ACOS, "sinh": U_SINH, "cosh": U_COSH, "tanh": U_TANH,
+          "asinh": U_ASINH, "acosh": U_ACOSH, "atanh": U_ATANH,
+          "exp2": U_EXP2, "expm1": U_EXPM1, "log2": U_LOG2,
+          "log1p": U_LOG1P, "erf": U_ERF, "erfc": U_ERFC,
+          "lgamma": U_LGAMMA, "rsqrt": U_RSQRT}
 _BINARY = {"add": U_ADD, "sub": U_SUB, "mul": U_MUL, "div": U_DIV,
            "true_divide": U_DIV, "minimum": U_MIN, "maximum": U_MAX,
            "lt": U_LT, "le": U_LE, "gt": U_GT, "ge": U_GE, "eq": U_EQ,
            "ne": U_NE, "bitwise_and": U_AND, "bitwise_or": U_OR,
            "bitwise_xor": U_XOR, "logical_and": U_AND, "logical_or": U_OR,
-           "logical_xor": U_XOR}
+           "logical_xor": U_XOR, "atan2": U_ATAN2, "arctan2": U_ATAN2,
+           "fmod": U_FMOD, "copysign": U_COPYSIGN,
+           "nextafter": U_NEXTAFTER}
 _COMMUTATIVE = {U_ADD, U_MUL, U_MIN, U_MAX, U_EQ, U_NE, U_AND, U_OR, U_XOR}
 _FLIPPED = {U_LT: U_GT, U_GT: U_LT, U_LE: U_GE, U_GE: U_LE}
 _LOGIC = {U_LT, U_LE, U_GT, U_GE, U_EQ, U_NE, U_AND, U_OR, U_XOR, U_NOT,
-          U_BOOL}
+          U_BOOL, U_ISNAN, U_SIGNBIT}
 # operations over the particle axis (refused when they reach it)
 _REDUCTIONS = {"sum", "mean", "amax", "amin", "max", "min", "prod", "any",
                "all", "var", "std", "norm", "linalg_vector_norm", "cumsum",
@@ -166,6 +197,25 @@ class _SSA:
                 code, a, b = _FLIPPED[code], b, a
         return self.val(code, (a, b))
 
+    def op(self, code, *args) -> int:
+        """An instruction of a lowered function (:func:`_lower`): a select
+        on a constant condition is its branch, and an exact operation
+        (:data:`_EXACT`) of constants is its constant, the value the kernel
+        would compute bit for bit."""
+        if code == U_SEL and self.is_const(args[0]):
+            return args[1] if self.defs[args[0]][2] != 0 else args[2]
+        if code in _EXACT and all(self.is_const(a) for a in args):
+            regs = [torch.tensor([self.defs[a][2]], dtype=torch.float32)
+                    for a in args]
+            ins = ((U_SEL, 0, 0, 2, 1, False) if code == U_SEL
+                   else (code, 0, 0, len(args) - 1, 0, False))
+            v = _pure(ins, regs, lambda y: torch.tensor([float(y)]),
+                      torch.ones(1))
+            return self.const(float(v[0]))
+        if len(args) == 2:
+            return self.binary(code, *args)
+        return self.val(code, args)
+
 
 def _uses(code, args, ssa) -> List[int]:
     """The operands that need a register: operand b of a binary operation
@@ -176,6 +226,241 @@ def _uses(code, args, ssa) -> List[int]:
     if len(args) == 2:
         return [args[0]] + ([] if ssa.is_const(args[1]) else [args[1]])
     return list(args)
+
+
+# -- jnp's elementwise functions over the instructions ------------------------
+
+# the codes whose value the twin computes bit for bit as the kernel does
+# (IEEE operations, roundings, compares, selects): constants fold through
+# them
+_EXACT = {U_NEG, U_ABS, U_NOT, U_BOOL, U_ADD, U_SUB, U_MUL, U_DIV, U_MIN,
+          U_MAX, U_LT, U_LE, U_GT, U_GE, U_EQ, U_NE, U_AND, U_OR, U_XOR,
+          U_SEL, U_FLOOR, U_CEIL, U_TRUNC, U_ROUND, U_ISNAN, U_SIGNBIT,
+          U_FMOD, U_COPYSIGN, U_SQRT}
+_INF = float("inf")
+_F32_MAX = float(np.finfo(np.float32).max)
+# XLA's erf_inv for float32 (M. Giles' single-precision approximation):
+# the coefficients for w < 5, then for w >= 5
+_ERFINV = ((2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+            -4.39150654e-06, 0.00021858087, -0.00125372503,
+            -0.00417768164, 0.246640727, 1.50140941),
+           (-0.000200214257, 0.000100950558, 0.00134934322,
+            -0.00367342844, 0.00573950773, -0.0076224613, 0.00943887047,
+            1.00167406, 2.83297682))
+
+
+def _sign(s: _SSA, x: int) -> int:
+    """``lax.sign``: 1, -1, or ``x`` itself (a zero keeps its sign, NaN
+    stays NaN)."""
+    z = s.const(0.0)
+    return s.op(U_SEL, s.op(U_GT, x, z), s.const(1.0),
+                s.op(U_SEL, s.op(U_LT, x, z), s.const(-1.0), x))
+
+
+def _round_away(s: _SSA, x: int) -> int:
+    """``lax.round`` (half away from zero): the truncation, plus the sign
+    where the fraction (exact) is at least a half."""
+    t = s.op(U_TRUNC, x)
+    half = s.op(U_GE, s.op(U_ABS, s.op(U_SUB, x, t)), s.const(0.5))
+    return s.op(U_SEL, half, s.op(U_ADD, t, s.op(U_COPYSIGN, s.const(1.0),
+                                                 x)), t)
+
+
+def _nonzero_divisor(s: _SSA, b: int) -> int:
+    """An integer divisor that jnp replaces by 1 where it is 0."""
+    if s.is_const(b) and s.defs[b][2] != 0.0:
+        return b
+    return s.op(U_SEL, s.op(U_EQ, b, s.const(0.0)), s.const(1.0), b)
+
+
+def _remainder(s: _SSA, a: int, b: int, ints: bool = False) -> int:
+    """``jnp.remainder``: ``lax.rem`` (fmodf), plus the divisor where the
+    remainder is nonzero and its sign differs from the divisor's; an
+    integer divisor of 0 reads 1."""
+    if ints:
+        b = _nonzero_divisor(s, b)
+    z = s.const(0.0)
+    tm = s.op(U_FMOD, a, b)
+    fix = s.op(U_AND, s.op(U_NE, s.op(U_LT, tm, z), s.op(U_LT, b, z)),
+               s.op(U_NE, tm, z))
+    return s.op(U_SEL, fix, s.op(U_ADD, tm, b), tm)
+
+
+def _floor_divide(s: _SSA, a: int, b: int) -> int:
+    """``jnp.floor_divide`` of floats (``_float_divmod``): ``(a - rem) /
+    b``, less 1 where the remainder's sign differs from the divisor's,
+    rounded half away from zero. Integers divided by a nonzero integer
+    give the integer floor division, exactly."""
+    mod = s.op(U_FMOD, a, b)
+    div = s.op(U_DIV, s.op(U_SUB, a, mod), b)
+    ind = s.op(U_AND, s.op(U_NE, mod, s.const(0.0)),
+               s.op(U_NE, _sign(s, b), _sign(s, mod)))
+    div = s.op(U_SEL, ind, s.op(U_SUB, div, s.const(1.0)), div)
+    return _round_away(s, div)
+
+
+def _logaddexp(s: _SSA, a: int, b: int) -> int:
+    """``jnp.logaddexp``: ``max + log1p(exp(-|a - b|))``, ``a + b`` where
+    the difference is NaN."""
+    delta = s.op(U_SUB, a, b)
+    tail = s.op(U_LOG1P, s.op(U_EXP, s.op(U_NEG, s.op(U_ABS, delta))))
+    return s.op(U_SEL, s.op(U_ISNAN, delta), s.op(U_ADD, a, b),
+                s.op(U_ADD, s.op(U_MAX, a, b), tail))
+
+
+def _hypot(s: _SSA, a: int, b: int) -> int:
+    """``jnp.hypot``: ``hi * sqrt(1 + (lo / hi)**2)`` of the magnitudes,
+    ``hi`` where it is 0, inf where either is inf."""
+    a, b = s.op(U_ABS, a), s.op(U_ABS, b)
+    inf = s.const(_INF)
+    is_inf = s.op(U_OR, s.op(U_EQ, a, inf), s.op(U_EQ, b, inf))
+    hi, lo = s.op(U_MAX, a, b), s.op(U_MIN, a, b)
+    zero = s.op(U_EQ, hi, s.const(0.0))
+    q = s.op(U_DIV, lo, s.op(U_SEL, zero, s.const(1.0), hi))
+    r = s.op(U_MUL, hi, s.op(U_SQRT, s.op(U_ADD, s.op(U_MUL, q, q),
+                                          s.const(1.0))))
+    return s.op(U_SEL, is_inf, inf, s.op(U_SEL, zero, hi, r))
+
+
+def _erfinv(s: _SSA, x: int) -> int:
+    """XLA's ``erf_inv`` (``jax.scipy.special.erfinv``): ``w = -log1p(-x
+    x)``, a polynomial of degree 8 in ``w - 2.5`` or ``sqrt(w) - 3``,
+    times ``x``; ``x`` inf at |x| = 1."""
+    w = s.op(U_NEG, s.op(U_LOG1P, s.op(U_MUL, x, s.op(U_NEG, x))))
+    lt = s.op(U_LT, w, s.const(5.0))
+    w = s.op(U_SEL, lt, s.op(U_SUB, w, s.const(2.5)),
+             s.op(U_SUB, s.op(U_SQRT, w), s.const(3.0)))
+
+    def coef(i):
+        return s.op(U_SEL, lt, s.const(_ERFINV[0][i]),
+                    s.const(_ERFINV[1][i]))
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV[0])):
+        p = s.op(U_ADD, coef(i), s.op(U_MUL, p, w))
+    one = s.op(U_EQ, s.op(U_ABS, x), s.const(1.0))
+    return s.op(U_SEL, one, s.op(U_MUL, x, s.const(_INF)),
+                s.op(U_MUL, p, x))
+
+
+def _sigmoid(s: _SSA, x: int) -> int:
+    """``lax.logistic``: ``1 / (1 + exp(-x))``."""
+    return s.op(U_DIV, s.const(1.0), s.op(U_ADD, s.op(U_EXP, s.op(
+        U_NEG, x)), s.const(1.0)))
+
+
+def _lower(s: _SSA, name: str, xs: Sequence[int], opt: dict) -> int:
+    """One component of the jnp function ``name`` (the aten name of its
+    torch counterpart) of the components ``xs``, over the instructions, in
+    the order of the jnp function: ``opt`` its options (alpha, value,
+    beta, eps, decimals, nan/posinf/neginf, ints)."""
+    c = s.const
+    x = xs[0]
+    if name == "isnan":
+        return s.op(U_ISNAN, x)
+    if name == "signbit":
+        return s.op(U_SIGNBIT, x)
+    if name == "isinf":
+        return s.op(U_EQ, s.op(U_ABS, x), c(_INF))
+    if name == "isposinf":
+        return s.op(U_EQ, x, c(_INF))
+    if name == "isneginf":
+        return s.op(U_EQ, x, c(-_INF))
+    if name == "round":
+        d = int(opt.get("decimals", 0))
+        if d == 0:
+            return s.op(U_ROUND, x)
+        f = c(10.0 ** d)
+        return s.op(U_DIV, s.op(U_ROUND, s.op(U_MUL, x, f)), f)
+    if name in ("sign", "sgn"):
+        return _sign(s, x)
+    if name == "frac":
+        return s.op(U_SUB, x, s.op(U_TRUNC, x))
+    if name == "sigmoid":
+        return _sigmoid(s, x)
+    if name == "silu":
+        return s.op(U_MUL, x, _sigmoid(s, x))
+    if name == "relu":
+        return s.op(U_MAX, x, c(0.0))
+    if name == "softplus":
+        beta = opt.get("beta", 1.0)
+        if beta == 1.0:
+            return _logaddexp(s, x, c(0.0))
+        return s.op(U_DIV, _logaddexp(s, s.op(U_MUL, x, c(beta)), c(0.0)),
+                    c(beta))
+    if name == "erfinv":
+        return _erfinv(s, x)
+    if name == "deg2rad":
+        return s.op(U_MUL, x, c(np.pi / 180))
+    if name == "rad2deg":
+        return s.op(U_MUL, x, c(180 / np.pi))
+    if name == "sinc":
+        z = s.op(U_EQ, x, c(0.0))
+        pix = s.op(U_MUL, c(np.pi), x)
+        safe = s.op(U_SEL, z, c(1.0), pix)
+        return s.op(U_SEL, z, c(1.0), s.op(U_DIV, s.op(U_SIN, safe), safe))
+    if name == "logit":
+        eps = opt.get("eps")
+        if eps is not None:
+            x = s.op(U_MIN, s.op(U_MAX, x, c(eps)), c(1.0 - _f32(eps)))
+        return s.op(U_LOG, s.op(U_DIV, x, s.op(U_SUB, c(1.0), x)))
+    if name == "nan_to_num":
+        out = s.op(U_SEL, s.op(U_ISNAN, x), c(opt.get("nan") or 0.0), x)
+        pos, neg = opt.get("posinf"), opt.get("neginf")
+        out = s.op(U_SEL, s.op(U_EQ, out, c(_INF)),
+                   c(_F32_MAX if pos is None else pos), out)
+        return s.op(U_SEL, s.op(U_EQ, out, c(-_INF)),
+                    c(-_F32_MAX if neg is None else neg), out)
+    y = xs[1]
+    if name == "remainder":
+        return _remainder(s, x, y, opt.get("ints", False))
+    if name == "floor_divide":
+        return _floor_divide(s, x, y)
+    if name == "trunc_divide":
+        return s.op(U_TRUNC, s.op(U_DIV, x, y))
+    if name == "logaddexp":
+        return _logaddexp(s, x, y)
+    if name in ("xlogy", "special_xlog1py"):
+        return s.op(U_SEL, s.op(U_NE, x, c(0.0)), s.op(
+            U_MUL, x, s.op(U_LOG if name == "xlogy" else U_LOG1P, y)),
+            c(0.0))
+    if name == "hypot":
+        return _hypot(s, x, y)
+    if name in ("fmax", "fmin"):
+        cmp = U_GT if name == "fmax" else U_LT
+        return s.op(U_SEL, s.op(U_OR, s.op(cmp, x, y), s.op(U_ISNAN, y)),
+                    x, y)
+    if name == "heaviside":
+        z = c(0.0)
+        return s.op(U_SEL, s.op(U_LT, x, z), z,
+                    s.op(U_SEL, s.op(U_GT, x, z), c(1.0), y))
+    w = xs[2] if len(xs) > 2 else None
+    if name == "lerp":
+        # torch's lerp: from the start for |w| < 0.5, else from the end
+        d = s.op(U_SUB, y, x)
+        return s.op(U_SEL, s.op(U_LT, s.op(U_ABS, w), c(0.5)),
+                    s.op(U_ADD, x, s.op(U_MUL, w, d)),
+                    s.op(U_SUB, y, s.op(U_MUL, d, s.op(U_SUB, c(1.0), w))))
+    if name in ("addcmul", "addcdiv"):
+        v = opt.get("value", 1)
+        t = y if v == 1 else s.op(U_MUL, c(v), y)
+        return s.op(U_ADD, x, s.op(U_MUL if name == "addcmul" else U_DIV,
+                                   t, w))
+    raise ValueError(name)
+
+
+# the torch functions (their aten names) lowered over the instructions
+# (:func:`_lower`), with their operand count
+_LOWERED = {"isnan": 1, "signbit": 1, "isinf": 1, "isposinf": 1,
+            "isneginf": 1, "round": 1, "sign": 1, "sgn": 1, "frac": 1,
+            "sigmoid": 1, "silu": 1, "relu": 1, "softplus": 1, "erfinv": 1,
+            "deg2rad": 1, "rad2deg": 1, "sinc": 1, "logit": 1,
+            "nan_to_num": 1, "remainder": 2, "floor_divide": 2,
+            "logaddexp": 2, "xlogy": 2, "special_xlog1py": 2, "hypot": 2,
+            "fmax": 2, "fmin": 2, "heaviside": 2, "lerp": 3, "addcmul": 3,
+            "addcdiv": 3,
+            # torch.div(rounding_mode="trunc")
+            "trunc_divide": 2}
 
 
 def _schedule(ssa: _SSA, n_draws: int) -> Program:
@@ -438,8 +723,16 @@ class _Translator:
             cs = self.comps_of(args[0])
             self.set(node, [ssa.val(U_NOT, (c,)) for c in cs], "b")
             return
+        if name == "div" and kw.get("rounding_mode") is not None:
+            mode = kw["rounding_mode"]
+            self.lowered(node, "floor_divide" if mode == "floor"
+                         else "trunc_divide", args, kw, kind)
+            return
         if name in _BINARY or name == "rsub":
             self.binary(node, name, args, kw, kind)
+            return
+        if name in _LOWERED:
+            self.lowered(node, name, args, kw, kind)
             return
         if name == "pow":
             self.pow(node, over, args, kind)
@@ -568,11 +861,7 @@ class _Translator:
 
     def binary(self, node, name, args, kw, kind):
         ssa = self.ssa
-        if kw.get("alpha", 1) != 1:
-            raise Refused("op-unsupported", f"aten.{name} with alpha")
-        if kw.get("rounding_mode") is not None:
-            raise Refused("op-unsupported", f"aten.{name} with rounding_mode"
-                          f"={kw['rounding_mode']!r}")
+        alpha = kw.get("alpha", 1)
         a, b = args[0], args[1]
         code = U_SUB if name == "rsub" else _BINARY[name]
         if name == "rsub":
@@ -585,11 +874,49 @@ class _Translator:
         if code in (U_AND, U_OR, U_XOR):
             ca = [c if ka == "b" else ssa.val(U_BOOL, (c,)) for c in ca]
             cb = [c if kb == "b" else ssa.val(U_BOOL, (c,)) for c in cb]
+        if alpha != 1:  # torch.add / sub / rsub: a + alpha * b
+            cb = [ssa.op(U_MUL, c, ssa.const(alpha)) for c in cb]
+        if code == U_FMOD and kind == "i":
+            cb = [_nonzero_divisor(ssa, c) for c in cb]
         (ca, cb), _ = self.broadcast(ca, cb)
         cs = [ssa.binary(code, x, y) for x, y in zip(ca, cb)]
         if kind == "b" and code not in _LOGIC:
             cs = [ssa.val(U_BOOL, (c,)) for c in cs]  # bool + bool: or
         self.set(node, cs, kind)
+
+    def lowered(self, node, name, args, kw, kind):
+        """A jnp function over the instructions (:func:`_lower`), per
+        component: its operands, broadcast, and its options."""
+        xs = list(args[:_LOWERED[name]])
+        rest = list(args[len(xs):])
+
+        def arg(key, default=None):
+            return rest.pop(0) if rest else kw.get(key, default)
+
+        opt = {"ints": kind == "i"}
+        if name == "round":
+            opt["decimals"] = arg("decimals", 0)
+            if opt["decimals"] < 0:
+                raise Refused("op-unsupported", f"aten.round with decimals="
+                              f"{opt['decimals']} (below 0)")
+        elif name == "softplus":
+            opt["beta"] = float(arg("beta", 1.0))  # the threshold is moot
+        elif name == "logit":
+            opt["eps"] = arg("eps")
+        elif name == "nan_to_num":
+            for key in ("nan", "posinf", "neginf"):
+                opt[key] = arg(key)
+        elif name in ("addcmul", "addcdiv"):
+            opt["value"] = arg("value", 1)
+        cs, _ = self.broadcast(*[self.comps_of(x) for x in xs])
+        if name in ("floor_divide", "trunc_divide") and opt["ints"] and not \
+                all(self.ssa.is_const(c) and self.ssa.defs[c][2] != 0.0
+                    for c in cs[1]):
+            raise Refused("op-unsupported", f"aten.{node.target} of integers "
+                          "by a value that may be 0 (an integer division by "
+                          "zero has no float32 value)")
+        self.set(node, [_lower(self.ssa, name, comp, opt)
+                        for comp in zip(*cs)], kind)
 
     def pow(self, node, over, args, kind):
         ssa = self.ssa
@@ -744,10 +1071,31 @@ class _Contract(ValueError):
     package raises it when it traces the fn (an error, not a refusal)."""
 
 
+def _ndtr(x):
+    """``jax.scipy.special.ndtr``'s form (torch's own traces as ``0.5 (1 +
+    erf(x / sqrt 2))``): ``erf`` near 0, ``erfc`` in the tails."""
+    h = float(np.float32(0.5) * np.sqrt(2.0, dtype=np.float32))
+    w = x * h
+    z = torch.abs(w)
+    return 0.5 * torch.where(z < h, 1.0 + torch.erf(w), torch.where(
+        w > 0.0, 2.0 - torch.erfc(z), torch.erfc(z)))
+
+
+class _JnpForms(torch.overrides.TorchFunctionMode):
+    """While a callable is traced: the torch functions whose aten
+    decomposition is not the jnp function's form, in that form."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.special.ndtr:
+            return _ndtr(*args, **(kwargs or {}))
+        return func(*args, **(kwargs or {}))
+
+
 def _make_fx(body, examples):
     from torch.fx.experimental.proxy_tensor import make_fx
 
-    return make_fx(body, tracing_mode="fake")(*examples)
+    with _JnpForms():
+        return make_fx(body, tracing_mode="fake")(*examples)
 
 
 def _traced(body, examples, label: str, fail: str):
@@ -786,7 +1134,11 @@ def _same_at_sizes(record, label: str) -> Program:
     """``record(n)`` at both trace sizes; a program that differs depends on
     the particle count."""
     progs = [record(n) for n in _SIZES]
-    if progs[0] != progs[1]:
+    # compared by their constants' bits (a NaN constant equals itself)
+    keys = [tuple(tuple(_bits(v) if isinstance(v, float) else v for v in ins)
+                  for ins in prog.ins) + (prog.n_regs, prog.n_draws)
+            for prog in progs]
+    if keys[0] != keys[1]:
         raise Refused("not-elementwise", f"{label} depends on the population "
                       "capacity: its program changes with the particle "
                       "count (inside the kernel the count is one tile)")
@@ -1282,13 +1634,31 @@ def _cmp(fn):
     return lambda a, b: fn(a, b).to(torch.float32)
 
 
+def _bit(fn):
+    return lambda a: fn(a).to(torch.float32)
+
+
+# each code's libm function on the card is torch's own op there (the
+# kernel's expf, atanf, erff, lgammaf, ... of a float32); rsqrt is a
+# correctly rounded square root's reciprocal, as U_RSQRT's C
 _TWIN_UNARY = {U_EXP: torch.exp, U_LOG: torch.log, U_LOG10: torch.log10,
                U_SIN: torch.sin, U_COS: torch.cos, U_TAN: torch.tan,
                U_FLOOR: torch.floor, U_CEIL: torch.ceil,
-               U_TRUNC: torch.trunc}
+               U_TRUNC: torch.trunc, U_ATAN: torch.atan, U_ASIN: torch.asin,
+               U_ACOS: torch.acos, U_SINH: torch.sinh, U_COSH: torch.cosh,
+               U_TANH: torch.tanh, U_ASINH: torch.asinh,
+               U_ACOSH: torch.acosh, U_ATANH: torch.atanh,
+               U_EXP2: torch.exp2, U_EXPM1: torch.expm1, U_LOG2: torch.log2,
+               U_LOG1P: torch.log1p, U_ERF: torch.erf, U_ERFC: torch.erfc,
+               U_LGAMMA: torch.lgamma, U_ROUND: torch.round,
+               U_RSQRT: lambda a: torch.div(torch.ones_like(a),
+                                            _sqrt_rn(a)),
+               U_ISNAN: _bit(torch.isnan), U_SIGNBIT: _bit(torch.signbit)}
 _TWIN_BINARY = {
     U_ADD: torch.add, U_SUB: torch.sub, U_MUL: torch.mul, U_DIV: torch.div,
     U_POW: torch.pow, U_MIN: torch.minimum, U_MAX: torch.maximum,
+    U_ATAN2: torch.atan2, U_FMOD: torch.fmod, U_COPYSIGN: torch.copysign,
+    U_NEXTAFTER: torch.nextafter,
     U_LT: _cmp(torch.lt), U_LE: _cmp(torch.le), U_GT: _cmp(torch.gt),
     U_GE: _cmp(torch.ge), U_EQ: _cmp(torch.eq), U_NE: _cmp(torch.ne),
     U_AND: lambda a, b: ((a != 0) & (b != 0)).to(torch.float32),

@@ -10,7 +10,9 @@ CPU, where there is no ``nvcc``.
   the record sum; ``csrc/sampling.cuh``'s own ``hash_bits`` and ``unit24``)
   on 2**10 slots, against the plain version ``ops/record.py:
   run_user_program``: every program of ``chip_smoke.py``'s ``USER_PLANS``,
-  the user path and the spectrum path (a histogram tally's binned reduce
+  its widened table's three op groups (every new code and lowered
+  function), the lattice path, the user path and the spectrum path (a
+  histogram tally's binned reduce
   through ``test_torch_binned.py``'s harness, against ``run_binned``:
   each slot's column equal, counts exactly, sums within rtol 1e-5), and a
   program per instruction code
@@ -20,14 +22,19 @@ CPU, where there is no ``nvcc``.
   gate: glibc's and torch's float32 transcendentals may differ by an ulp),
   ``alive`` equal, record sums within rtol 1e-5 (the host sums in float64,
   torch in float32); a single instruction bitwise, a transcendental one
-  (exp, log, log10, sin, cos, tan, pow) within 2 ulp.
+  (exp, log, log10, sin, cos, tan, pow, and the libm functions of the
+  widened table: atan ... lgamma, atan2) within 2 ulp; every code of the
+  table is in glibc, so each is built here (``rsqrt`` is ``1.0f /
+  sqrtf``, ``erfinv`` a recorded polynomial: no host stand-in).
 * The emitted field functions (``codegen.field_c``: straight-line C, the
   constants read from the Plan's ``fk``), built with ``g++`` against a
   host Plan stand-in, against the plain version ``ops/record.py:run_field``
   on 2**10 seeded points with the same tolerances: a field per instruction
   code a field can use, three outputs included; ``chip_smoke.py``'s
-  ``mirror_B``, ``crossed_EB``, ``linear_icdf`` and ``hg_icdf``; and
-  ``wide_sim``'s strings.
+  ``mirror_B``, ``crossed_EB``, ``linear_icdf`` and ``hg_icdf``;
+  ``wide_sim``'s strings; the string grammar's constructs of its
+  ``ops-strings`` plan (``%``, ``//``, comparisons, boolean logic,
+  booleans promoted) and the lattice path's checkerboard.
 """
 
 import ctypes
@@ -185,7 +192,13 @@ def _inputs(seed=0):
 # -- a program per instruction code ------------------------------------------
 
 _TRANSCENDENTAL = {RC.U_EXP, RC.U_LOG, RC.U_LOG10, RC.U_SIN, RC.U_COS,
-                   RC.U_TAN, RC.U_POW}
+                   RC.U_TAN, RC.U_POW, RC.U_ATAN, RC.U_ASIN, RC.U_ACOS,
+                   RC.U_SINH, RC.U_COSH, RC.U_TANH, RC.U_ASINH, RC.U_ACOSH,
+                   RC.U_ATANH, RC.U_EXP2, RC.U_EXPM1, RC.U_LOG2, RC.U_LOG1P,
+                   RC.U_ERF, RC.U_ERFC, RC.U_LGAMMA, RC.U_ATAN2}
+# codes whose NaN (a negative operand) has no one sign bit across libms:
+# their programs take the plane as it is, not less 1
+_POSITIVE = (RC.U_SQRT, RC.U_LOG, RC.U_LOG10, RC.U_RSQRT)
 _CODES = {name: code for name, code in vars(RC).items()
           if name.startswith("U_") and isinstance(code, int)}
 
@@ -245,13 +258,17 @@ def _code_program(case) -> RC.Program:
     if code in CG._UNARY:
         ins = [ld(0, 12), (RC.U_SUB, 1, 0, 0, 1.0, True), (code, 2, 0, 0, 0,
                False), st(2, 14), (code, 3, 1, 0, 0, False), st(3, 3)]
-        if code in (RC.U_SQRT, RC.U_LOG, RC.U_LOG10):
+        if code in _POSITIVE:
             ins = ins[:1] + ins[2:4]
         return RC.Program(tuple(ins), 4, 0)
-    # a binary operation: both operands registers, and b an immediate
-    ins = [ld(0, 12), ld(1, 0), (code, 2, 0, 1, 0, False), st(2, 14),
+    # a binary operation: both operands registers, and b an immediate (a
+    # remainder's divisor nonzero, E: fmodf(x, 0)'s NaN has no one sign
+    # bit)
+    fmod = code == RC.U_FMOD
+    ins = [ld(0, 12), ld(1, 0), (code, 2, int(fmod), int(not fmod), 0,
+                                 False), st(2, 14),
            (code, 3, 0, 0, 1.0, True), st(3, 3),
-           (code, 4, 1, 0, 0.0, True), st(4, 15)]
+           (code, 4, 1, 0, 0.75 if fmod else 0.0, True), st(4, 15)]
     return RC.Program(tuple(ins), 5, 0)
 
 
@@ -305,6 +322,10 @@ def _plans():
             for case in cs.USER_PLANS if case != "fluor-callable"}
     sims["user-path"] = cs.user_sim(T, N, "cpu", iters=16, chunk=16)[0]
     sims["spectrum-path"] = cs.spectrum_sim(T, N, "cpu", iters=16)[0]
+    for case in cs.OPS_PLANS[:3]:  # the widened table's op groups
+        sims[case] = cs.ops_plan_sim(T, case, "cpu", n=N, chunk=16)
+    sims["lattice-path"] = cs.lattice_sim(T, N, "cpu", iters=16,
+                                          chunk=16)[0]
     return {name: cs.planned(sim)[1].plan for name, sim in sims.items()}
 
 
@@ -355,7 +376,8 @@ def _plan_inputs(plan, seed):
 @pytest.mark.parametrize("name", [
     "custom", "custom-draws", "custom-extras", "reduce-n", "mesh-x-path",
     "mesh-r-weighted", "kstate-mixed", "reduce-weighted", "past-limits",
-    "user-path", "spectrum-path"])
+    "user-path", "spectrum-path", "ops-libm", "ops-binary",
+    "ops-composite", "lattice-path"])
 def test_plan_programs_match_plain_version(plan_lib, name):
     lib, progs, plans, binned_lib = plan_lib
     plan = plans[name]
@@ -682,8 +704,7 @@ def _field_code_spec(case):
                    (RC.U_ADD, 3, 1, 2, 0, False), st(3)]
         elif code in CG._UNARY:
             ins = [ld(0, 0), (RC.U_SUB, 1, 0, 0, 1.0, True),
-                   (code, 2, 1 if code not in (
-                       RC.U_SQRT, RC.U_LOG, RC.U_LOG10) else 0, 0, 0,
+                   (code, 2, 1 if code not in _POSITIVE else 0, 0, 0,
                     False), st(2)]
         else:  # a binary operation: a register and an immediate operand
             ins = [ld(0, 0), ld(1, 1), (code, 2, 0, 1, 0, False),
@@ -737,6 +758,16 @@ def _smoke_fields():
     for j, sp in CG.expr_fields(plan):
         specs[f"wide_{j}"] = sp
     assert sum(k.startswith("wide") for k in specs) == 9
+    # the string grammar's constructs (the strings plan's fields) and the
+    # lattice path's checkerboard
+    plan = cs.planned(cs.ops_plan_sim(T, "ops-strings", "cpu", n=N,
+                                      chunk=16))[1].plan
+    for j, sp in CG.expr_fields(plan):
+        specs[f"strings_{j}"] = sp
+    assert sum(k.startswith("strings") for k in specs) == 11
+    plan = cs.planned(cs.lattice_sim(T, N, "cpu", iters=16,
+                                     chunk=16)[0])[1].plan
+    specs["lattice_n"] = CG.expr_fields(plan)[0][1]
     assert all(sp["kind"] == "expr" and sp["error"] is None
                for sp in specs.values())
     return specs
@@ -752,7 +783,8 @@ def smoke_field_lib(tmp_path_factory):
 
 @pytest.mark.parametrize("name", [
     "mirror_B", "crossed_E", "crossed_B", "linear_icdf", "hg_icdf",
-    *[f"wide_{j}" for j in range(9)]])
+    *[f"wide_{j}" for j in range(9)], *[f"strings_{j}" for j in range(11)],
+    "lattice_n"])
 def test_smoke_fields_match_plain_version(smoke_field_lib, name):
     """Each field at 2**10 seeded points (positions within 100 c dt, draws
     in [0, 1), energies in (0.5, 3)): within 1e-6 of each value plus 1e-6

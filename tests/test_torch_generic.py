@@ -441,16 +441,19 @@ def test_kernel_limits_do_not_fall_back():
         assert code not in port_codes, code
     assert "user-program" not in inspect.getsource(TP)
     assert not is_kernel_limit("field-fn-gather")
-    # a string construct outside the field IR (a modulo)
+    # a string construct outside the field IR (an integer bitwise op,
+    # which the reference evaluates)
     for fuse in ("auto", "off"):
         s = _base(fuse=fuse)
         s.add_step(2, T.light.ScatterIsotropicStep(
-            A=1.0, variable_n=True, variable_n_fn="r0[gid] % 2.0 + 1.0"))
+            A=1.0, variable_n=True,
+            variable_n_fn="(((r0[gid] > 0) * 3) & 1) + 1.0"))
         s.add_photons(T.light.generate_photon_state(64, E=1.0))
         with warnings.catch_warnings():
             warnings.simplefilter("error")
             if fuse == "off":  # the generic tier evaluates the field
-                with pytest.raises(NotImplementedError, match="construct"):
+                with pytest.raises(NotImplementedError,
+                                   match="integer bitwise"):
                     s._run_impl()
                 assert not s.used_fused
                 continue
@@ -460,6 +463,52 @@ def test_kernel_limits_do_not_fall_back():
                 s._run_impl()
         assert s.plan_report.mode == "unsupported"
         assert "Simulation(fuse='off') runs the plan" in s.explain_plan()
+
+
+def _modulo_sim(P, fuse):
+    """A modulo density (the field IR once refused it) under implicit
+    capture, which draws nothing: the deterministic plan of this file's
+    first tests with a ScatterDeleteStep reading ``r0 % 2 + 1``."""
+    kw = {"device": "cpu"} if P is T else {}
+    s = P.Simulation(until_t=40 * DT * 0.9999, seed=0, chunk_steps=CHUNK,
+                     fuse=fuse, auto_shrink=False, **kw)
+    s.add_step(0, P.UpdateTimeStep(lambda x: np.double(DT)))
+    s.add_step(1, P.newton.NewtonianKinematicsStep())
+    s.add_step(2, P.light.ScatterDeleteStep(
+        1.0, 0.01 / C_DT, variable_n=True,
+        variable_n_fn="r0[gid] % 2.0 + 1.0", implicit_capture=True))
+    m = P.light.ScatterSignMeasureStep(None, True, weighted=True)
+    s.add_step(3, m)
+    rng = np.random.default_rng(2)
+    d = rng.normal(size=(3, 512))
+    s.add_photons(P.light.generate_photon_state(
+        512, E=1.0, r=rng.uniform(0, 8, (3, 512)) * C_DT,
+        v=d / np.linalg.norm(d, axis=0) * C_LIGHT))
+    return s, m
+
+
+@pytest.mark.parametrize("fuse", ["auto", "off"])
+def test_modulo_field_runs_on_both_tiers(fuse):
+    """``r0[gid] % 2.0 + 1.0``, refused on both tiers before jnp's
+    remainder joined the field IR, runs on each and matches the JAX
+    package on the same tier: sim.ts equal, the weighted sign rows within
+    rtol 1e-5, the weights within 1e-5 of their largest."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        ts, tm = _modulo_sim(T, fuse)
+        ts.start()
+        ts.join()
+    assert ts.used_fused == (fuse == "auto")
+    js, jm = _modulo_sim(J, fuse)
+    js.start()
+    js.join()
+    assert (np.asarray(ts.ts, np.float64).tobytes()
+            == np.asarray(js.ts, np.float64).tobytes())
+    np.testing.assert_allclose(np.asarray(tm.data), np.asarray(jm.data),
+                               rtol=1e-5, atol=0)
+    w_t, w_j = ts.sim_state.w.numpy(), np.asarray(js.sim_state.w)
+    assert float(np.abs(w_t - w_j).max()) <= 1e-5 * float(w_j.max())
+    assert float(w_j.min()) < 0.9  # the field attenuated the weights
 
 
 def _ninety_terms(P, n=1024):

@@ -164,6 +164,17 @@ _EXPRS = {
     "float-pow": ("pow(fabs(r1[gid]) + 1.0, 0.5) + fabs(r2[gid]) ** 1.5", 1),
     "trig-log": ("log(fabs(r2[gid]) + 1) * sin(r0[gid]) * cos(r1[gid]) "
                  "+ log10(fabs(r0[gid]) + 2) + tan(r1[gid] * 0.1)", 1),
+    # jnp.remainder and jnp.floor_divide, a comparison promoted where it
+    # meets arithmetic, booleans combined, an integer from a boolean
+    "mod-floordiv": ("r0[gid] % 0.7 - r1[gid] // 0.3 + (r2[gid] % -2) "
+                     "* (7 // 2) + 2 % (fabs(r0[gid]) + 0.5)", 0),
+    "compare-logic": ("((r0[gid] > 0) & (r1[gid] <= 0.5)) * 2.0 + "
+                      "(~(r2[gid] == 1.0) | (r0[gid] != r1[gid])) * 0.25 "
+                      "+ ((r1[gid] < 0) ^ True) + (r2[gid] >= 0) * 3", 0),
+    "checkerboard": ("1e-3 * (1.0 + 0.5 * ((floor(r0[gid] / 0.05) + "
+                     "floor(r1[gid] / 0.05)) % 2 == 0))", 0),
+    "int-from-bool": ("((r0[gid] > 0) + 1) % 2 * 0.5 + ((r1[gid] < 0) * -3)"
+                      " // 2 + (r2[gid] > 1) ** 2", 0),
 }
 
 
@@ -199,10 +210,24 @@ def test_expression_grammar_errors():
         T.light._compile_variable_n("r3[gid] * 2")
     with pytest.raises(ValueError, match="unknown symbol 'hypot'"):
         T.light._compile_variable_n("hypot(r0[gid], 1.0)")
-    fn = T.light._compile_variable_n("r0[gid] % 2.0")
-    assert fn.spec["error"] is not None
-    with pytest.raises(NotImplementedError):
+    # an integer bitwise op: the reference evaluates it, the kernel's
+    # field programs have no such instruction
+    fn = T.light._compile_variable_n("((r0[gid] > 0) * 3) & 1")
+    assert fn.spec["error"] is not None and fn.spec["raises"] is None
+    with pytest.raises(NotImplementedError, match="integer bitwise"):
         fn(torch.zeros(3), torch.zeros(3), torch.zeros(3))
+    # what the reference's eval over jnp raises on raises as it does
+    for expr, exc in (("0 < r0[gid] < 1", ValueError),
+                      ("-(r0[gid] > 0)", TypeError),
+                      ("~r0[gid]", TypeError),
+                      ("2**40 * r0[gid]", OverflowError)):
+        fn = T.light._compile_variable_n(expr)
+        assert fn.spec["raises"] is exc, expr
+        with pytest.raises(exc):
+            fn(torch.zeros(3), torch.zeros(3), torch.zeros(3))
+        x = jnp.zeros(3, jnp.float32)
+        with pytest.raises(exc):
+            J.light._compile_variable_n(expr)(x, x, x)
 
 
 # ---------------------------------------------------------------------------
@@ -496,15 +521,18 @@ def _refusing_sim(step, fuse="auto"):
 # raises when evaluated, as in the JAX package
 _FIELD_ERRORS = {
     "field-fn-callable": (TypeError, "missing 2 required positional"),
-    "field-expr-unsupported": (NotImplementedError, "construct 'r0 % 2'"),
+    "field-expr-unsupported": (NotImplementedError,
+                               "integer bitwise op &"),
 }
 
 
 @pytest.mark.parametrize("code,make", [
     ("field-fn-callable", lambda: T.light.ScatterDeleteStep(
         1.0, 1.0, A_fn=T.light.layered_density([0, 1], [1]))),
+    # an integer bitwise op (the reference evaluates it; the kernel's
+    # field programs hold no integer bit operations)
     ("field-expr-unsupported", lambda: T.light.ScatterIsotropicStep(
-        A=1.0, variable_n=True, variable_n_fn="r0[gid] % 2")),
+        A=1.0, variable_n=True, variable_n_fn="((r0[gid] > 0) * 3) & 1")),
 ])
 def test_field_refusals(code, make):
     s = _refusing_sim(make())
@@ -517,6 +545,89 @@ def test_field_refusals(code, make):
     with pytest.raises(exc, match=match):
         s._run_impl()
     assert not s.used_fused
+
+
+def _metre_sim(P, n_r, fuse="auto", n=1024):
+    """A density string over positions of a few metres: dt = 2**-30 (c dt
+    ~ 0.28 m; v dt is exact, so XLA's contraction of r + v dt moves no
+    position), 64 iterations of kinematics, then on the fused tier an
+    isotropic scatter of A = 0.05 per metre, and on the generic tier
+    (``fuse="off"``, which draws from another stream in each package)
+    implicit capture of A = 0.05 per metre, which draws nothing; a
+    weighted sign tally. Photons start inside (0, 4)^3 m in isotropic
+    directions: a modulo of 2 m cuts the paths far from the ulps the two
+    packages' positions may differ by."""
+    kw = {"device": "cpu"} if P is T else {}
+    dt = 2.0 ** -30
+    s = P.Simulation(until_t=64 * dt * 0.9999, seed=5, chunk_steps=32,
+                     auto_shrink=False, fuse=fuse, **kw)
+    s.add_step(0, P.UpdateTimeStep(lambda x: np.double(dt)))
+    s.add_step(1, P.newton.NewtonianKinematicsStep())
+    if fuse == "auto":
+        s.add_step(2, P.light.ScatterIsotropicStep(
+            A=0.05, variable_n=True, variable_n_fn=n_r))
+    else:
+        s.add_step(2, P.light.ScatterDeleteStep(
+            1.0, 0.05, variable_n=True, variable_n_fn=n_r,
+            implicit_capture=True))
+    m = P.light.ScatterSignMeasureStep(None, True, weighted=True)
+    s.add_step(3, m)
+    rng = np.random.default_rng(4)
+    d = rng.normal(size=(3, n))
+    s.add_photons(P.light.generate_photon_state(
+        n, E=1.0, r=rng.uniform(0, 4, (3, n)),
+        v=d / np.linalg.norm(d, axis=0) * float(P.light.c)))
+    return s, m
+
+
+def _same_runs(ts, tm, js, jm, tol=1e-4, rtol=0.0):
+    """sim.ts equal, the sign rows equal (within ``rtol`` for weight
+    sums), the alive plane equal, the live planes within ``tol`` of each
+    plane's max."""
+    assert (np.asarray(ts.ts, np.float64).tobytes()
+            == np.asarray(js.ts, np.float64).tobytes())
+    assert len(tm.data) == len(jm.data) > 0
+    for a, b in zip(tm.data, jm.data):
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=0)
+    live = np.asarray(js.sim_state.alive)
+    np.testing.assert_array_equal(ts.sim_state.alive.numpy(), live)
+    for nm in ("r", "v", "E", "w"):
+        want = np.asarray(getattr(js.sim_state, nm))[..., live]
+        got = getattr(ts.sim_state, nm).numpy()[..., live]
+        for w, g in zip(np.atleast_2d(want), np.atleast_2d(got)):
+            scale = max(float(np.abs(w).max(initial=0.0)), 1e-30)
+            assert float(np.abs(g - w).max(initial=0.0)) <= tol * scale, nm
+
+
+# strings the port's field IR refused before it took jnp's remainder,
+# floor division, comparisons and boolean logic: a checkerboard and a
+# lattice of rods, as shielding and CT phantoms are written
+_FORMERLY_REFUSED = {
+    "modulo": "r0[gid] % 2",
+    "checkerboard": "1.0 + 0.5 * ((floor(r0[gid] / 0.5) + floor(r1[gid] "
+                    "/ 0.5)) % 2 == 0)",
+    "rods": "0.2 + 1.5 * (((r0[gid] % 1.0) < 0.3) & ((r1[gid] // 1.0) "
+            "!= 2) | ~(r2[gid] < 3.5))",
+}
+
+
+@pytest.mark.parametrize("fuse", ["auto", "off"])
+@pytest.mark.parametrize("name", sorted(_FORMERLY_REFUSED))
+def test_formerly_refused_strings_match_jax(name, fuse):
+    """The strings run on both tiers (the fused kernel's twin, and the
+    generic tier calling the field) and match the JAX package on the same
+    tier: sim.ts equal, weight sums within rtol 1e-5, the rest as
+    ``_same_runs``."""
+    expr = _FORMERLY_REFUSED[name]
+    assert T.light._compile_variable_n(expr).spec["error"] is None
+    ts, tm = _metre_sim(T, expr, fuse)
+    ts.start()
+    ts.join()
+    assert ts.used_fused == (fuse == "auto"), ts.explain_plan()
+    js, jm = _metre_sim(J, expr, fuse)
+    js.start()
+    js.join()
+    _same_runs(ts, tm, js, jm, rtol=1e-5)
 
 
 def _long_sim(P, n_r, n=1024):
@@ -563,19 +674,7 @@ def test_lifted_field_limits_match_jax(name):
     js, jm = _long_sim(J, _LONG[name])
     js.start()
     js.join()
-    assert (np.asarray(ts.ts, np.float64).tobytes()
-            == np.asarray(js.ts, np.float64).tobytes())
-    assert len(tm.data) == len(jm.data) > 0
-    for a, b in zip(tm.data, jm.data):
-        np.testing.assert_array_equal(a, b)
-    live = np.asarray(js.sim_state.alive)
-    np.testing.assert_array_equal(ts.sim_state.alive.numpy(), live)
-    for nm in ("r", "v", "E", "w"):
-        want = np.asarray(getattr(js.sim_state, nm))[..., live]
-        got = getattr(ts.sim_state, nm).numpy()[..., live]
-        for w, g in zip(np.atleast_2d(want), np.atleast_2d(got)):
-            scale = max(float(np.abs(w).max(initial=0.0)), 1e-30)
-            assert float(np.abs(g - w).max(initial=0.0)) <= 1e-4 * scale, nm
+    _same_runs(ts, tm, js, jm)
 
 
 def test_voxel_grid_size_refusal(monkeypatch):

@@ -169,6 +169,27 @@ def _build(P, case):
         steps += [dep, red]
         measures += [dep, red]
         s.add_photons(_photons(P, 2000, 8, E=20.0))
+    elif case == "elementwise-atan2":
+        # once refused as elementwise-op-unsupported: the azimuth of v
+        # weighted into the dose plane (no feedback between iterations)
+        sign = L.ScatterSignMeasureStep(None, True)
+        steps += [L.ScatterIsotropicStep(A=0.05 / (c * DT), n=1.0),
+                  P.ElementwiseStep(lambda p: {
+                      "dose": p.extras["dose"]
+                      + xp.arctan2(p.vy, p.vx) * p.E},
+                      extras_write=("dose",)), sign]
+        measures.append(sign)
+        s.add_photons(_photons(P, 2048, 11,
+                               {"dose": np.zeros(2048, np.float32)}))
+    elif case == "reduce-erf":
+        # once refused as reduce-op-unsupported
+        erf = torch.erf if P is T else jax.scipy.special.erf
+        red = P.ReduceMeasureStep(None, lambda p: {"x": erf(p.E - 1.0)},
+                                  outputs=("x",), measure_n=True)
+        steps += [L.ScatterIsotropicStep(A=0.05 / (c * DT), n=1.0),
+                  L.ScatterDeleteStep(1.0, 0.01 / (c * DT)), red]
+        measures.append(red)
+        s.add_photons(_photons(P, 2048, 12))
     elif case in _PAST_LIMITS:
         # the result in the dose plane (no feedback between iterations)
         sign = L.ScatterSignMeasureStep(None, True)
@@ -248,7 +269,8 @@ def _run(P, case):
 
 @pytest.mark.parametrize("case", ["user-path", "extras-3row", "kstate-mixed",
                                   "reduce-weighted", "fluor-callable",
-                                  "draw-unused", *_PAST_LIMITS])
+                                  "draw-unused", "elementwise-atan2",
+                                  "reduce-erf", *_PAST_LIMITS])
 def test_user_code_matches_jax(case):
     js, jrows = _run(J, case)
     ts, trows = _run(T, case)
@@ -503,9 +525,10 @@ _REFUSALS = {
         _ew(lambda p: {"E": p.E / p.E.shape[0]}),
         "elementwise-not-elementwise", "elementwise-not-elementwise"),
     "elementwise-trace": (_ew(_branchy), "elementwise-trace", None),
+    # the ops the kernel has no instruction for yet (ROADMAP.md section 3)
     "elementwise-op-unsupported": (
-        _ew(lambda p: {"E": torch.atan2(p.vy, p.vx)},
-            lambda p: {"E": jnp.arctan2(p.vy, p.vx)}),
+        _ew(lambda p: {"E": torch.digamma(p.E)},
+            lambda p: {"E": jax.scipy.special.digamma(p.E)}),
         "elementwise-op-unsupported", None),
     "elementwise-probe-error": (
         _ew(lambda p: {"E": p.extras["nope"]}, extras=("dose",)),
@@ -521,9 +544,14 @@ _REFUSALS = {
              lambda p: {"x": p.E * 0 + jnp.sum(p.E)}),
         "reduce-not-elementwise", "reduce-not-elementwise"),
     "reduce-op-unsupported": (
-        _red(lambda p: {"x": torch.erf(p.E)},
-             lambda p: {"x": jax.scipy.special.erf(p.E)}),
+        _red(lambda p: {"x": torch.special.i0(p.E)},
+             lambda p: {"x": jax.scipy.special.i0(p.E)}),
         "reduce-op-unsupported", None),
+    "kernelstep-op-unsupported": (
+        _ks(lambda s, ctx: s.replace(E=torch.special.ndtri(s.E * 0.25)),
+            lambda s, ctx: s.replace(
+                E=jax.scipy.special.ndtri(s.E * 0.25))),
+        "kernelstep-op-unsupported", None),
     "kernelstep-ctx": (
         _ks(lambda s, ctx: s.replace(E=s.E * ctx.next_key())),
         "kernelstep-ctx", "kernelstep-ctx"),
