@@ -281,16 +281,20 @@ Phases (any failure exits non-zero and prints no result line):
 31a. ``fused_transport`` vs twin on the widened instruction table's group
     plans (``OPS_PLANS``) at 2**20 slots and 256 iterations: group A's
     libm functions (and erfinv), group B's binary functions, group B's
-    unary and ternary ones, each op one ElementwiseStep drawing its
-    operands in its domain and storing its value in a plane of its own,
-    then a ReduceMeasureStep summing each op's plane; and the string
-    grammar's constructs, one ScatterIsotropicStep a string: over their
-    first 64 iterations, int records equal, every plane bitwise (a plane
-    that differs names its op), rec_f as in phase 3; each kernel timed
-    over all 256 against its bound, printed with its form
-    library's report, then run through Simulation for its launch; then
-    the lattice path's first chunk (10**7 x 1024, over its first 256
-    iterations), as phase 30;
+    unary and ternary ones, the typed values (``ops-typed``: int32 and
+    int64 arithmetic past 2**24 and across the int32 wrap, the bitwise
+    ops, shifts at edge amounts, conversions that saturate or meet NaN,
+    float64 casts and double libm) and group C's special functions
+    (``ops-special``), each op one ElementwiseStep drawing its operands in
+    its domain and storing its value in a plane of its own, then a
+    ReduceMeasureStep summing each op's plane; and the string grammar's
+    constructs, one ScatterIsotropicStep a string: over their first 64
+    iterations, int records equal, every plane bitwise (a plane that
+    differs names its op), rec_f as in phase 3; each kernel timed over all
+    256 against its bound, printed with its form library's report, then
+    run through Simulation for its launch; then the lattice path's first
+    chunk (10**7 x 1024, over its first 256 iterations), as phase 30, and
+    the voxel-index path's (over its first 64);
 31b. lattice path (a checkerboard density string, an absorber through
     -expm1 outside a soft sigmoid aperture of hypot, observables through
     atan2, erfc and tanh): 10**7 photons, 3 chunks of 1024, run twice (the
@@ -298,6 +302,14 @@ Phases (any failure exits non-zero and prints no result line):
     and never rising, some absorbed, the observables finite, in range and
     the last row equal to the final planes'; the rate, peak memory and
     idle share;
+31c. voxel-index path (a 512**3 phantom's linear voxel index from r as
+    int64, its bits ``idx & 1`` and ``(idx >> 9) & 1`` tallied in a
+    ReduceMeasureStep, a detector energy smeared by ``sigma * ndtri(u)``
+    of a draw, a weight ``i0e`` of the azimuth): 10**7 photons, 3 chunks
+    of 1024, run twice (the second profiled): the tallied bits equal to
+    the host's recomputation from the harvested planes, the smear's mean
+    and variance within their statistical bounds, the weights in range;
+    the rate, peak memory and idle share;
 32. the generic step tier on the main path: the ``bench.py`` workload with
     ``fuse="off"`` (10**7 photons, 1024 iterations in chunks of 256): no
     ``fused_transport`` launch (the counts, and torch.profiler over a
@@ -445,8 +457,9 @@ each path: ``fused_transport`` once each for the gamma, glass, thermal,
 stretch and fluorescence paths, the ExB (``lorentz``), mixed and
 record-tile paths, the polarized and polarimetry paths, the user and
 spectrum paths (their ``replaces`` the user ops of kernel 1i), the
-widened table's four group plans (their launch through Simulation) and
-the lattice path (``replaces`` kernel 1i's user ops too), the mirror
+widened table's six group plans (their launch through Simulation), the
+lattice path and the voxel-index path (``replaces`` kernel 1i's user ops
+too), the mirror
 and callable-phase paths, the main path after a mid-run injection (its
 first chunk at the grown capacity), the main path over an 8-shard mesh
 (its ``ms`` the chunk of the 8 launches together), the main path across
@@ -841,6 +854,66 @@ LIBM_COST = {
 }
 
 
+# the typed values' instructions (ops/record.py's int32, int64 and float64
+# types), per lane (estimates from the instructions each compiles to, not
+# measured): an int32 add, subtract, negation, logic op, min or max one
+# ALU-pipe operation, a multiply one FMA-pipe IMAD, a division by a
+# constant its multiply-high, shift and sign fix, a remainder that and the
+# product back, a guarded shift its range test, select and shift; an int64
+# operation its int32 parts (twice, a multiply 4 IMADs, a shift 5); a
+# conversion between an integer and a float, or float32 and float64, one on
+# the conversion pipe (the MUFU column; two for a 64-bit integer); a bitcast
+# a move; a float64 operation at 64 lanes per SM and clock, 2 in the FMA
+# column (so a divide 8 DFMAs and a reciprocal, a root 7 and one);
+# float64 libm functions the typical count of their polynomials
+_INT_COST = {"U_ADD": (0, 1, 0, 0), "U_SUB": (0, 1, 0, 0),
+             "U_NEG": (0, 1, 0, 0), "U_ABS": (0, 2, 0, 0),
+             "U_MUL": (1, 0, 0, 0), "U_DIV": (1, 2, 0, 0),
+             "U_FMOD": (2, 3, 0, 0), "U_MIN": (0, 1, 0, 0),
+             "U_MAX": (0, 1, 0, 0), "U_BAND": (0, 1, 0, 0),
+             "U_BOR": (0, 1, 0, 0), "U_BXOR": (0, 1, 0, 0),
+             "U_BNOT": (0, 1, 0, 0), "U_SHL": (0, 3, 0, 0),
+             "U_SHR": (0, 3, 0, 0)}
+_F64_COST = {"U_DIV": (16, 0, 0, 1), "U_RECIP": (16, 0, 0, 1),
+             "U_SQRT": (14, 0, 0, 1), "U_RSQRT": (30, 0, 0, 2)}
+_F64_LIBM = (44, 4, 2, 0)
+
+
+def typed_cost(code, t, ta):
+    """The SEQ_OPS tuple of one typed instruction of type ``t`` (its operand
+    ``ta``): a conversion, a bitcast, an integer or a float64 operation;
+    None for a float32 one."""
+    from physicl_tpu_torch.ops import record as RC
+
+    name = next(n for n in dir(RC) if n.startswith("U_")
+                and getattr(RC, n) == code)
+    if code == RC.U_CVT:
+        return (0, 0, 0, 2 if RC.I64 in (t, ta) else 1)
+    if code == RC.U_BITCAST:
+        return (0, 0, 1, 0)
+    if t in RC.INT_BITS:
+        if code == RC.U_IPOW:
+            return None
+        one = _INT_COST.get(name, (0, 1, 1, 0))
+        if t == RC.I32:
+            return one
+        return {"U_MUL": (4, 0, 0, 0), "U_SHL": (0, 5, 0, 0),
+                "U_SHR": (0, 5, 0, 0)}.get(name, _sum((2, one)))
+    if t == RC.F64:
+        if name in _F64_COST:
+            return _F64_COST[name]
+        if code in (RC.U_ADD, RC.U_SUB, RC.U_MUL, RC.U_NEG, RC.U_ABS,
+                    RC.U_MIN, RC.U_MAX, RC.U_FLOOR, RC.U_CEIL, RC.U_TRUNC,
+                    RC.U_ROUND):
+            return (2, 0, 0, 0)
+        if code in (RC.U_CONST, RC.U_SEL, RC.U_IPOW):
+            return None
+        return _F64_LIBM
+    if ta in RC.INT_BITS or ta == RC.F64:  # a compare of typed operands
+        return (0, 2 if ta in (RC.I64, RC.F64) else 1, 1, 0)
+    return None
+
+
 def libm_cost(code):
     """``LIBM_COST``'s tuple of an instruction code, or None."""
     from physicl_tpu_torch.ops import record as RC
@@ -949,10 +1022,14 @@ def user_cost(op):
     from physicl_tpu_torch.ops import record as RC
 
     terms = []
-    for code, _, _, _, y, _ in op.prog.ins:
+    for (code, _, _, _, y, _), t, (ta, _) in zip(
+            op.prog.ins, op.prog.type_list(), op.prog.operand_types()):
         if code in (RC.U_LD, RC.U_T, RC.U_DT, RC.U_CONST, RC.U_ST):
             continue
-        if code == RC.U_UNIF:
+        typed = typed_cost(code, t, ta)
+        if typed is not None:
+            terms.append(typed)
+        elif code == RC.U_UNIF:
             terms += [_DRAW, _U24]
         elif code in (RC.U_DIV, RC.U_RECIP):
             terms.append(_DIV)
@@ -1379,6 +1456,7 @@ def main():
            "phase-icdf": 0.0, "phase-icdf-hg": 0.0, "wide": 0.0,
            "past-caps": 0.0, "ops-libm": 0.0, "ops-binary": 0.0,
            "ops-composite": 0.0, "ops-strings": 0.0, "lattice": 0.0,
+           "ops-typed": 0.0, "ops-special": 0.0, "voxel-index": 0.0,
            "shrink": 0.0, "main-injected": 0.0, "main-mesh": 0.0,
            "main-mp": 0.0}
     a_E, b_E = planck_window()
@@ -1717,8 +1795,15 @@ def main():
         ms = cuda_ms(lambda: F.fused_transport(mpk, out, sched, seed, K,
                                                plan), 5, torch)
         times[name] = ms
+        # alive photon-iterations: the mean of the first and the last
+        # iteration's alive counts (the plans' records do not all count
+        # them), times K
+        alive = 0.5 * float(mpk[13].sum() + out[13].sum()) * K
+        events = expected_events(plan, mpk, alive, MEDIA_DT)
+        b_ms, b_by = transport_bound(plan, mpk.shape[1], K, None, events)
         print(f"{name} at 2**20 x {K}: kernel {ms:.3f} ms, twin "
-              f"{plain_ms:.3f} ms per chunk [{card}]", flush=True)
+              f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}) per chunk "
+              f"[{card}]", flush=True)
     print("media-expr: planes bitwise equal to the twin on the card, so "
           "torch's CUDA exp and pow agree bitwise with the kernel's expf and "
           "powf on these inputs", flush=True)
@@ -1881,6 +1966,10 @@ def main():
         "lattice-chunk-0", lattice_sim(phys, LAT_N, dev)[0], F, torch,
         compare, "lattice", card, ["kin", "iso", "custom", "reduce", "sign"],
         streams=False, twin_iters=TWIN_ITERS)
+    vft = path_chunk0(
+        "voxel-index-chunk-0", voxel_sim(phys, VOX_N, dev)[0], F, torch,
+        compare, "voxel-index", card, ["kin", "iso", "custom", "reduce"],
+        streams=False, twin_iters=VOX_TWIN_K)
 
     phase("planck_gen vs twin (10**7 samples)")
     n_gen = 10_000_000
@@ -2035,6 +2124,7 @@ def main():
     pruns = pol_paths(torch, phys, F, dev, card, polft, poift, pol_grids)
     uruns = user_paths(torch, phys, F, dev, card, uft, spft)
     lat = lattice_path(torch, phys, F, dev, card, lft)
+    vox = voxel_path(torch, phys, F, dev, card, vft)
     generic_paths(torch, phys, F, P, dev, card, main_data, main_rate)
     recorded_plan_phase(torch, phys, F, dev, compare, card, times)
     mir_ft, mir_launches, _ = mirror_path(torch, phys, F, dev, card, compare)
@@ -2096,6 +2186,12 @@ def main():
                       "generated_by": "physicl_tpu_torch/ops/codegen.py",
                       "path": "lattice", "launches": lat["fused_launches"],
                       "max_abs_err": err["lattice"], **lft,
+                      "library_ms": None})
+    # typed values: the voxel-index path
+    new_paths.append({**ft_src, "replaces": "physicl_tpu/ops/fused.py:1448",
+                      "generated_by": "physicl_tpu_torch/ops/codegen.py",
+                      "path": "voxel-index", "launches": vox["fused_launches"],
+                      "max_abs_err": err["voxel-index"], **vft,
                       "library_ms": None})
     # the recorded fields and inverse CDFs
     new_paths += [
@@ -5417,6 +5513,7 @@ def user_plan_sims(phys, dev, n):
     for case in OPS_PLANS:
         sims[case] = ops_plan_sim(phys, case, dev, n=n, chunk=16)
     sims["lattice"] = lattice_sim(phys, n, dev, iters=16, chunk=16)[0]
+    sims["voxel-index"] = voxel_sim(phys, n, dev, iters=16, chunk=16)[0]
     return sims
 
 
@@ -5935,8 +6032,97 @@ def ops_groups(torch):
         "xlog1py": lambda p: torch.special.xlog1py(_span(U(p), -1, 3),
                                                    U(p) * 10),
     }
-    return {"ops-libm": libm, "ops-binary": binary,
-            "ops-composite": composite}
+    groups = {"ops-libm": libm, "ops-binary": binary,
+              "ops-composite": composite}
+    groups.update(ops_typed_groups(torch))
+    return groups
+
+
+I32_MIN = -(1 << 31)
+
+
+def ops_typed_groups(torch):
+    """``{"ops-typed": ..., "ops-special": ...}``: the typed values (int32
+    and int64 arithmetic past 2**24 and across the int32 wrap, the bitwise
+    ops, shifts at edge amounts, conversions that saturate or meet NaN,
+    float64 casts and double libm) and group C's special functions, one
+    ElementwiseStep callable an op, its operands from ``p.uniform()`` (a
+    full-range int32 from a draw's 24 bits spread by a product)."""
+    import torch.nn.functional as Fn
+
+    nan = float("nan")
+    U = lambda p: p.uniform()  # noqa: E731
+
+    def i32(p):  # an int32 over the whole range: a draw's bits spread
+        return (U(p) * 16777216.0).int() * -1640531535
+
+    typed = {
+        "i32-add-wrap": lambda p: i32(p) + i32(p),
+        "i32-mul-wrap": lambda p: i32(p) * (U(p) * 4096.0).int(),
+        "i32-past-2-24": lambda p: (i32(p) % 16777259) * 128 + 3,
+        "i32-floordiv": lambda p: i32(p) // 7 + i32(p) // -3,
+        "i32-mod": lambda p: i32(p) % -13 + (U(p) * 64).int() % 5,
+        "i64-mul": lambda p: i32(p).long() * i32(p).long() * 3,
+        "i64-past-2-53": lambda p: (i32(p).long() << 22) + i32(p),
+        "i64-floordiv": lambda p: (i32(p).long() * 65537) // -1 + i32(
+            p).long() // 1000003,
+        "bitwise": lambda p: (i32(p) & i32(p)) ^ (i32(p) | 0x0F0F0F0F),
+        "bnot": lambda p: ~i32(p) + ~(i32(p).long() << 9),
+        "shl-edges": lambda p: i32(p) << (i32(p) & 63) - 8,
+        "shr-edges": lambda p: i32(p) >> (i32(p) & 63) - 8,
+        "i64-shifts": lambda p: (i32(p).long() << (i32(p).long() & 127) - 16)
+        + (i32(p).long() * 4097 >> (i32(p).long() & 127) - 16),
+        "cvt-saturate": lambda p: (_span(U(p), -5e9, 5e9)).int()
+        + torch.where((u := U(p)) < 0.1, nan, u * 3e19 - 1.5e19).long(),
+        "i64-to-f32": lambda p: (i32(p).long() * 2147483648 + i32(p)).float(),
+        "abs-neg-min": lambda p: torch.where(U(p) < 0.2, I32_MIN,
+                                             i32(p)).abs() - (-i32(p)),
+        "f64-log": lambda p: (U(p).double() * 1e-3 + 1.0).log() * 1e3,
+        "f64-exp": lambda p: (_span(U(p), -20, 20).double()).exp(),
+        "f64-pow-sin": lambda p: torch.float_power(U(p) * 10, 1.7)
+        + torch.sin(U(p).to(torch.float64) * 100),
+        "f64-sqrt-div": lambda p: (U(p).double() * 3).sqrt() / 7
+        + (U(p).double() - 0.5).atan2(U(p).double() - 0.5),
+        "bitcast": lambda p: (U(p).view(torch.int32) >> 3)
+        + (U(p).double().view(torch.int64) >> 40),
+        "i32-ipow": lambda p: ((U(p) * 65536).int() + 1) ** 3
+        + ((U(p) * 4096).long() - 2048) ** 5,
+    }
+    special = {
+        "digamma": lambda p: torch.digamma(_span(U(p), 0.05, 30)),
+        # the reflection: within 0.4 of a negative half-integer (no pole)
+        "digamma-negative": lambda p: torch.digamma(
+            -torch.floor(U(p) * 7) - 0.5 + (U(p) - 0.5) * 0.8),
+        "polygamma": lambda p: torch.polygamma(1, _span(U(p), 0.05, 30)),
+        "zeta": lambda p: torch.special.zeta(_span(U(p), 1.1, 12),
+                                             _span(U(p), 0.05, 50)),
+        "i0": lambda p: torch.special.i0(_span(U(p), -30, 30)),
+        "i0e": lambda p: torch.special.i0e(_span(U(p), -80, 80)),
+        "i1": lambda p: torch.special.i1(_span(U(p), -30, 30)),
+        "i1e": lambda p: torch.special.i1e(_span(U(p), -80, 80)),
+        "modified_bessel_i0": lambda p: torch.special.modified_bessel_i0(
+            _span(U(p), -10, 10)),
+        "modified_bessel_i1": lambda p: torch.special.modified_bessel_i1(
+            _span(U(p), -10, 10)),
+        "ndtri": lambda p: torch.special.ndtri(U(p) * 0.999999 + 5e-7),
+        "log_ndtr": lambda p: torch.special.log_ndtr(_span(U(p), -40, 10)),
+        "entr": lambda p: torch.special.entr(U(p) * 5),
+        "mvlgamma": lambda p: torch.mvlgamma(_span(U(p), 1.6, 40), 4),
+        "logaddexp2": lambda p: torch.logaddexp2(_span(U(p), -40, 40),
+                                                 _span(U(p), -40, 40)),
+        "ldexp": lambda p: torch.ldexp(_span(U(p), -3, 3),
+                                       (U(p) * 200).int() - 100),
+        "frexp": lambda p: (lambda m, e: m + e)(*torch.frexp(_span(
+            U(p), -1e6, 1e6))),
+        "gelu": lambda p: Fn.gelu(_span(U(p), -8, 8)),
+        "gelu-tanh": lambda p: Fn.gelu(_span(U(p), -8, 8),
+                                       approximate="tanh"),
+        "elu": lambda p: Fn.elu(_span(U(p), -8, 8), 0.7),
+        "logsigmoid": lambda p: Fn.logsigmoid(_span(U(p), -40, 40)),
+    }
+    return {"ops-typed": {k: (lambda f: lambda p: f(p).float())(f)
+                          for k, f in typed.items()},
+            "ops-special": special}
 
 
 def ops_strings(c_dt):
@@ -6075,7 +6261,8 @@ def lattice_sim(phys, n, dev, iters=LAT_ITERS, chunk=LAT_CHUNK, seed=0):
     return sim, red, sign
 
 
-OPS_PLANS = ("ops-libm", "ops-binary", "ops-composite", "ops-strings")
+OPS_PLANS = ("ops-libm", "ops-binary", "ops-composite", "ops-strings",
+             "ops-typed", "ops-special")
 
 
 def ops_plan_phase(torch, phys, F, dev, compare, card, times):
@@ -6231,6 +6418,160 @@ def lattice_path(torch, phys, F, dev, card, lft):
     return {"fused_launches": launches, "rate": rate}
 
 
+VOX_N = 10_000_000       # the voxel-index path: bench.py's width
+VOX_CHUNK = 1024
+VOX_ITERS = 3 * VOX_CHUNK
+VOX_TWIN_K = 64          # iterations of the first chunk the twin holds
+VOX_NV = 512             # voxels per side of the CT phantom (512**3)
+VOX_H = 2.0              # voxel side, in c dt
+VOX_SIGMA = 0.05         # the detector's energy resolution (E units)
+VOX_SCATTER = 0.01       # A n c dt of the isotropic scattering
+
+
+def voxel_index(torch, rx, ry, rz, c_dt):
+    """A 512**3 phantom's linear voxel index of a position, as int64: each
+    axis's voxel (truncated, clamped to the phantom), then ``(ix * 512 +
+    iy) * 512 + iz`` (up to 1.34e8, past float32's exact integers)."""
+    h, half = VOX_H * c_dt, VOX_NV * VOX_H * c_dt / 2
+
+    def axis(x):
+        return ((x + half) / h).long().clamp(0, VOX_NV - 1)
+
+    return (axis(rx) * VOX_NV + axis(ry)) * VOX_NV + axis(rz)
+
+
+def voxel_sim(phys, n, dev, iters=VOX_ITERS, chunk=VOX_CHUNK, seed=0):
+    """The voxel-index path (the CT and detector users' tallies, as they
+    write them): UpdateTimeStep(1e-3) -> NewtonianKinematics ->
+    ScatterIsotropic (A n c dt = VOX_SCATTER) -> an ElementwiseStep
+    detector (an energy smear ``sigma * ndtri(u)`` of a draw into extras
+    ``dE``, a weight ``i0e`` of the azimuth into ``wt``) -> a
+    ReduceMeasureStep of the phantom voxel index's bits ``idx & 1`` and
+    ``(idx >> 9) & 1`` (int64), the smear's sum and sum of squares and
+    the weights, with the alive count; n photons uniform in the 512**3
+    phantom of VOX_H c dt voxels, isotropic, E in [0.5, 2]. Returns ``(sim,
+    reduce)``."""
+    import torch
+
+    light = phys.light
+    c = float(light.c)
+    c_dt = c * USER_DT
+
+    def detector(p):
+        u = p.uniform() * (1.0 - 2.0 ** -23) + 2.0 ** -24  # in (0, 1)
+        return {"dE": VOX_SIGMA * torch.special.ndtri(u),
+                "wt": torch.special.i0e(torch.atan2(p.vy, p.vx))}
+
+    def tally(p):
+        idx = voxel_index(torch, p.rx, p.ry, p.rz, c_dt)
+        dE = p.extras["dE"]
+        return {"bit0": (idx & 1).float(), "bit9": ((idx >> 9) & 1).float(),
+                "dE": dE, "dE2": dE * dE, "wt": p.extras["wt"] * p.w}
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sim = phys.Simulation(until_t=(iters - 0.5) * USER_DT, seed=seed,
+                          chunk_steps=chunk, device=dev, auto_shrink=False)
+    red = phys.ReduceMeasureStep(None, tally, outputs=(
+        "bit0", "bit9", "dE", "dE2", "wt"), measure_n=True,
+        extras=("dE", "wt"))
+    steps = [phys.UpdateTimeStep(lambda s: np.double(USER_DT)),
+             phys.newton.NewtonianKinematicsStep(),
+             light.ScatterIsotropicStep(A=VOX_SCATTER / c_dt, n=1.0),
+             phys.ElementwiseStep(detector, extras_write=("dE", "wt")),
+             red]
+    for i, st in enumerate(steps):
+        sim.add_step(i, st)
+    half = VOX_NV * VOX_H * c_dt / 2
+    bulk = light.generate_photon_state(
+        n, E=torch.rand(n, generator=gen, device=dev) * 1.5 + 0.5,
+        r=(torch.rand((3, n), generator=gen, device=dev) * 2 - 1) * half,
+        v=isotropic_v(torch, n, c, gen, dev), device=dev)
+    bulk["extras"] = {k: torch.zeros(n, device=dev) for k in ("dE", "wt")}
+    sim.add_photons(bulk)
+    return sim, red
+
+
+def voxel_gates(torch, sim, red, n, iters):
+    """The voxel-index path's laws: the last row's bit tallies equal to
+    the host's recomputation from the harvested planes (the index in
+    float32 and int64 on the host, over the alive photons), exactly; the
+    smear's mean within 5 sigma / sqrt(n) of 0 and its variance within 5
+    sigma**2 sqrt(2 / n) of sigma**2 (the last row); the weights in
+    (i0e(pi) w, w]; the alive count n on every row (nothing absorbs)."""
+    rows = np.asarray(red.data, np.float64)
+    check(rows.shape == (iters, 7) and bool((rows[:, 1] == n).all()),
+          f"voxel: rows {rows.shape}, alive {rows[:, 1].min()} of {n}")
+    st = sim.sim_state
+    alive = st.alive[:n].cpu().numpy()
+    r = st.r[:, :n].cpu().numpy()[:, alive]
+    c_dt = np.float32(C_LIGHT * USER_DT)
+    h = np.float32(VOX_H) * c_dt
+    half = np.float32(VOX_NV * VOX_H / 2) * c_dt
+    ax = [np.clip(np.trunc((x + half) / h).astype(np.int64), 0, VOX_NV - 1)
+          for x in r]
+    idx = (ax[0] * VOX_NV + ax[1]) * VOX_NV + ax[2]
+    want = [float((idx & 1).sum()), float(((idx >> 9) & 1).sum())]
+    check(rows[-1, 2:4].tolist() == want, f"voxel: bit tallies "
+          f"{rows[-1, 2:4].tolist()} against the host's {want}")
+    m = rows[-1, 1]
+    mean = rows[-1, 4] / m
+    var = rows[-1, 5] / m - mean * mean
+    check(abs(mean) <= 5 * VOX_SIGMA / np.sqrt(m)
+          and abs(var - VOX_SIGMA ** 2) <= 5 * VOX_SIGMA ** 2
+          * np.sqrt(2 / m), f"voxel: smear mean {mean:.3e}, variance "
+          f"{var:.6e} against {VOX_SIGMA ** 2:.6e}")
+    w = st.w[:n].cpu().numpy()[alive]
+    check(float(np.i0(np.pi) * np.exp(-np.pi)) * w.sum() * (1 - 1e-5)
+          <= rows[-1, 6] <= w.sum() * (1 + 1e-5),
+          f"voxel: weight sum {rows[-1, 6]} of {w.sum()}")
+    return (f"bit tallies {want} equal to the host's; smear mean "
+            f"{mean:.3e} (bound {5 * VOX_SIGMA / np.sqrt(m):.1e}), variance "
+            f"{var:.6e} against {VOX_SIGMA ** 2:.6e} (bound "
+            f"{5 * VOX_SIGMA ** 2 * np.sqrt(2 / m):.1e})")
+
+
+def voxel_path(torch, phys, F, dev, card, vft):
+    """Phase: the voxel-index path through Simulation at 10**7 photons,
+    twice (the second profiled): its laws, the rate over the dispatch
+    loop, the device idle share. Returns the first run's launches."""
+    phase(f"voxel-index path: {VOX_N} photons, {VOX_ITERS} iterations in "
+          f"chunks of {VOX_CHUNK}")
+
+    def run(profile):
+        F.fused_transport.launches = 0
+        built = voxel_sim(phys, VOX_N, dev)
+        wall, prof, peak = run_sim(torch, built[0], profile)
+        return built, wall, prof, peak, F.fused_transport.launches
+
+    (sim, red), wall, _, peak, launches = run(False)
+    print(sim.explain_plan())
+    chunks = [k for _, k, _ in sim.chunk_log]
+    check(sim.used_fused and len(sim.ts) == VOX_ITERS
+          and launches == len(chunks) >= VOX_ITERS // VOX_CHUNK,
+          f"voxel: launches {launches}, chunks {chunks}")
+    what = voxel_gates(torch, sim, red, VOX_N, VOX_ITERS)
+    per_iter = np.asarray(red.data, np.float64)[:, 1]
+    rate, steady_s = steady_rate(sim, per_iter)
+    print(f"voxel-index path: {len(sim.ts)} iterations in chunks {chunks}, "
+          f"fused_transport launches {launches}; {what}", flush=True)
+    print(f"voxel-index path rate: {rate:.4e} photon-steps/s over the "
+          f"dispatch loop after the first chunk, device clock "
+          f"({steady_s * 1e3:.1f} ms); {float(per_iter.sum()) / wall:.4e} "
+          f"from start() ({wall:.3f} s wall); set-up "
+          f"{sim.setup_seconds:.3f} s; peak memory {peak / 2 ** 30:.2f} GiB; "
+          f"kernel {vft['ms']:.2f} ms per chunk against a bound of "
+          f"{vft['bound_ms']:.2f} ms ({vft['bound_by']}) [{card}]",
+          flush=True)
+    del sim, red
+    built2, _, prof, _, _ = run(True)
+    busy, span = device_busy(prof, torch)
+    print(f"voxel-index path device idle share (profiled second run, first "
+          f"to last fused_transport kernel): {1 - busy / span:.4f} "
+          f"({busy:.1f} ms busy of {span:.1f} ms) [{card}]", flush=True)
+    del built2, prof
+    return {"fused_launches": launches, "rate": rate}
+
+
 # -- recorded fields and inverse CDFs, the generic scatter family, shrink ------
 
 MIR_N = 10_000_000       # examples/make_lorentz_nb.py:98-112 at 10**7
@@ -6299,10 +6640,15 @@ def prog_ops(spec):
     from physicl_tpu_torch.ops import record as RC
 
     terms = []
-    for code, _, _, _, y, _ in spec["prog"].ins:
+    prog = spec["prog"]
+    for (code, _, _, _, y, _), t, (ta, _) in zip(
+            prog.ins, prog.type_list(), prog.operand_types()):
         if code in (RC.U_CONST, RC.U_LD, RC.U_ST):
             continue
-        if code in (RC.U_DIV, RC.U_RECIP):
+        typed = typed_cost(code, t, ta)
+        if typed is not None:
+            terms.append(typed)
+        elif code in (RC.U_DIV, RC.U_RECIP):
             terms.append(_DIV)
         elif code == RC.U_SQRT:
             terms.append(_SQRT)

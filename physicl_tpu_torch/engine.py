@@ -315,13 +315,15 @@ class ElementwiseStep(Step):
       cross-particle mixing, checked when the fn is recorded (a refusal
       ``elementwise-not-elementwise``; Python control flow on a value
       ``elementwise-trace``). The kernel's table holds jnp's elementwise
-      float32 functions (arithmetic, ``%`` and ``//``, comparisons and
-      logic, ``torch.where``, the libm functions from ``atan`` to
-      ``lgamma``, ``erfinv``, ``sigmoid``, ``softplus``, ``hypot``,
-      ``logaddexp``, ``lerp``, ``nan_to_num``, ...: ``ops/record.py``),
-      each as the jnp function computes it; one outside it (``digamma``,
-      ``special.i0`` / ``i0e`` / ``i1``, ``ndtri``, integer bitwise and
-      shift ops, a float64 cast) is ``elementwise-op-unsupported``,
+      functions (arithmetic, ``%`` and ``//``, comparisons and logic,
+      ``torch.where``, the libm functions from ``atan`` to ``lgamma``,
+      ``erfinv``, ``sigmoid``, ``softplus``, ``hypot``, ``logaddexp``,
+      ``lerp``, ``nan_to_num``, the special functions from ``digamma``
+      to ``ndtri``, ...: ``ops/record.py``), each as the jnp function
+      computes it, on float32, int32, int64 (exact, wrapping, with ``& |
+      ^ ~ << >>``) and float64 values; one outside it
+      (``special.gammainc``, ``erfcx``, ``bessel_j0``, an integer ``//``
+      by a value that may be 0, ...) is ``elementwise-op-unsupported``,
       naming it, and stops the run (``fuse="off"`` runs it generically);
     * only the transport fields, plus extras planes declared with
       ``extras=("name", ...)`` (``p.extras["name"]``). Planes also listed in

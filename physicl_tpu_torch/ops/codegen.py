@@ -33,8 +33,11 @@ Two facts the emitter derives from the form:
 Kernel 1i's user programs (:mod:`physicl_tpu_torch.ops.record`) become
 straight-line CUDA C, one device function per program:
 
-* one ``const float`` local per instruction, an SSA value, so that the
-  compiler keeps the program's values in the SM's registers;
+* one ``const`` local per instruction, an SSA value of the program's type
+  (``float``, ``int``, ``long long`` or ``double``), so that the compiler
+  keeps the program's values in the SM's registers; integer arithmetic in
+  two's complement through the unsigned type, conversions, guarded
+  shifts and the typed helpers in ``csrc/typed.cuh``;
 * plane loads and stores at constant indices of ``f[]`` (the 15 core
   planes; plane 13 reads the ``alive`` flag) and ``x[]`` (the extras), in
   program order, so a load after a store reads the new value;
@@ -61,8 +64,9 @@ with three outputs) become one straight-line device function each
 into its body: the same instructions and C functions as the user
 programs, the variables as arguments, and the constants read from the
 runtime ``Plan``'s ``fk`` at constant indices (a constant-bank operand of
-the instruction), so that plans that differ only in a field's numbers
-share a source. The program's shape (``ops/fields.py:field_layout``) is
+the instruction; an integer or float64 constant from its bits' 16-bit
+chunks, ``ops/fields.py:fk_slots``), so that plans that differ only in a
+field's numbers share a source. The program's shape (``ops/fields.py:field_layout``) is
 part of the form: ``FieldForm::shape``, checked by ``form_matches``. The
 ``Plan`` itself is sized for the plan (``PHYSICL_PLAN_DIMS``: ops,
 crossing planes, fields, field constants); past :data:`PLAN_PARAM_BYTES`
@@ -73,9 +77,12 @@ from __future__ import annotations
 
 import ctypes
 import math
+import re
+import struct
 
 import numpy as np
 
+from physicl_tpu_torch.ops import fields as FL
 from physicl_tpu_torch.ops import fused as F
 from physicl_tpu_torch.ops import record as RC
 
@@ -124,14 +131,56 @@ _BINARY = {RC.U_ADD: "{a} + {b}", RC.U_SUB: "{a} - {b}",
            RC.U_NEXTAFTER: "nextafterf({a}, {b})"}
 
 
-def _lit(y) -> str:
-    """A float32 constant as C: an exact hexadecimal literal, or its bits
-    where it is not finite."""
+# the C types of the program's value types
+_CTYPE = {RC.F32: "float", RC.I32: "int", RC.I64: "long long",
+          RC.F64: "double"}
+# an integer instruction (two's complement: the sums and products in the
+# unsigned type, a negation too; a division and remainder by a nonzero
+# constant, by -1 the remainder 0; the shifts guarded in csrc/typed.cuh)
+_INT = {RC.U_NEG: "({T})(({U})0 - ({U}){a})",
+        RC.U_ABS: "{a} < 0 ? ({T})(({U})0 - ({U}){a}) : {a}",
+        RC.U_ADD: "({T})(({U}){a} + ({U}){b})",
+        RC.U_SUB: "({T})(({U}){a} - ({U}){b})",
+        RC.U_MUL: "({T})(({U}){a} * ({U}){b})",
+        RC.U_DIV: "{a} / {b}", RC.U_FMOD: "{b} == -1 ? ({T})0 : {a} % {b}",
+        RC.U_MIN: "{a} < {b} ? {a} : {b}", RC.U_MAX: "{a} > {b} ? {a} : {b}",
+        RC.U_BAND: "{a} & {b}", RC.U_BOR: "{a} | {b}", RC.U_BXOR: "{a} ^ {b}",
+        RC.U_BNOT: "~{a}", RC.U_SHL: "shl({a}, {b})",
+        RC.U_SHR: "shr({a}, {b})"}
+_UNSIGNED = {RC.I32: "unsigned", RC.I64: "unsigned long long"}
+_BITCAST = {(RC.F32, RC.I32): "f32_as_i32", (RC.I32, RC.F32): "i32_as_f32",
+            (RC.F64, RC.I64): "f64_as_i64", (RC.I64, RC.F64): "i64_as_f64"}
+
+
+def _lit(y, t=RC.F32) -> str:
+    """A constant of type ``t`` as C: a float an exact hexadecimal literal,
+    or its bits where it is not finite; an integer a decimal one."""
+    if t in RC.INT_BITS:
+        v = int(y)
+        if v == -(1 << (RC.INT_BITS[t] - 1)):
+            return ("(-2147483647 - 1)" if t == RC.I32
+                    else "(-9223372036854775807LL - 1)")
+        text = f"{v}" + ("LL" if t == RC.I64 else "")
+        return f"({text})" if v < 0 else text
+    if t == RC.F64:
+        v = float(y)
+        if math.isfinite(v):
+            return f"({v.hex()})" if math.copysign(1.0, v) < 0 else v.hex()
+        bits = struct.unpack("<q", struct.pack("<d", v))[0]
+        return f"i64_as_f64({bits}LL)"
     v = float(np.float32(y))
     if math.isfinite(v):
         text = f"{v.hex()}f"
         return f"({text})" if math.copysign(1.0, v) < 0 else text
     return f"__int_as_float({RC._bits(v) & 0xFFFFFFFF:#010x})"
+
+
+def _double(template: str) -> str:
+    """A float32 function's C for float64: ``expf`` -> ``exp``, ``1.0f /``
+    -> ``1.0 /``, ``nan_min`` -> ``nan_min_f64``."""
+    return re.sub(r"\b([a-z][a-z0-9]*)f\(", r"\1(", template).replace(
+        "1.0f /", "1.0 /").replace("nan_min(", "nan_min_f64(").replace(
+        "nan_max(", "nan_max_f64(")
 
 
 def _plane(p: int) -> str:
@@ -142,26 +191,39 @@ def _plane(p: int) -> str:
     raise ValueError(f"a user program names plane {p}")
 
 
-def _pure_c(ins, cur, lit) -> str:
+def _pure_c(ins, cur, lit, t=RC.F32, ta=RC.F32, timm=RC.F32) -> str:
     """The C expression of one pure instruction (``record._pure``'s
-    codes) over the locals ``cur`` (register -> local); ``lit(y)`` spells
-    a constant."""
+    codes) of type ``t`` over the locals ``cur`` (register -> local);
+    ``ta`` its operand a's type, ``timm`` its constant's; ``lit(y, t)``
+    spells a constant."""
     code, _, a, b, y, bimm = ins
     va = cur.get(a)
     if code == RC.U_CONST:
-        return lit(y)
+        return lit(y, t)
+    if code == RC.U_CVT:
+        if t in RC.INT_BITS and ta in (RC.F32, RC.F64):
+            return f"trunc_{t_name(t)}({va})"
+        return f"({_CTYPE[t]}){va}"
+    if code == RC.U_BITCAST:
+        return f"{_BITCAST[(ta, t)]}({va})"
     if code == RC.U_IPOW:
-        return f"ipow({va}, {int(y)})"
+        fn = "ipow" if t == RC.F32 else f"ipow_{t_name(t)}"
+        return f"{fn}({va}, {int(y)})"
     if code == RC.U_SEL:
         # (cond, false register, true register in y), or with a constant
         # false value (cond, true register, the immediate)
         if bimm:
-            return f"{va} != 0.0f ? {cur[b]} : {lit(y)}"
+            return f"{va} != 0.0f ? {cur[b]} : {lit(y, t)}"
         return f"{va} != 0.0f ? {cur[y]} : {cur[b]}"
+    vb = lit(y, timm) if bimm else cur.get(b)
+    if t in RC.INT_BITS and code in _INT:
+        return _INT[code].format(a=va, b=vb, T=_CTYPE[t], U=_UNSIGNED[t])
     if code in _UNARY:
-        return _UNARY[code].format(a=va)
+        text = _UNARY[code]
+        return (_double(text) if t == RC.F64 else text).format(a=va)
     if code in _BINARY:
-        return _BINARY[code].format(a=va, b=lit(y) if bimm else cur[b])
+        text = _BINARY[code]
+        return (_double(text) if t == RC.F64 else text).format(a=va, b=vb)
     raise ValueError(f"program code {code}")
 
 
@@ -175,7 +237,8 @@ def program_c(prog: RC.Program, name: str) -> str:
     out = ["template <class Acc>",
            f"__device__ __forceinline__ void {name}({_ARGS}) {{"]
     cur = {}  # register -> the local that holds its value
-    for i, ins in enumerate(prog.ins):
+    for i, (ins, t, (ta, timm)) in enumerate(zip(
+            prog.ins, prog.type_list(), prog.operand_types())):
         code, d, a, _, y, _ = ins
         va = cur.get(a)
         if code == RC.U_ST:
@@ -198,8 +261,8 @@ def program_c(prog: RC.Program, name: str) -> str:
         elif code == RC.U_UNIF:
             expr = f"unit24(hash_bits(h0, idx0 + {int(y) + 1}u, lin))"
         else:
-            expr = _pure_c(ins, cur, _lit)
-        out.append(f"  const float v{i} = {expr};")
+            expr = _pure_c(ins, cur, _lit, t, ta, timm)
+        out.append(f"  const {_CTYPE[t]} v{i} = {expr};")
         cur[d] = f"v{i}"
     out.append("}")
     return "\n".join(out)
@@ -211,30 +274,40 @@ _VARS = ("a", "b", "c")
 def _fk_body(prog: RC.Program, load, k0: int):
     """The straight-line body of a program whose constants are read from
     ``plan.fk`` from ``k0`` on (in ``ops/fields.py:field_layout`` order):
-    its lines, one ``const float`` local an instruction (``load(y)`` a
+    its lines, one ``const`` local an instruction (``load(y)`` a
     load's expression), and its outputs ``{j: local}``."""
     lines, outs, cur, k = [], {}, {}, [k0]
 
-    def lit(_):
-        k[0] += 1
-        return f"plan.fk[{k[0] - 1}]"
+    def lit(_, t=RC.F32):
+        n = len(FL.fk_slots(0, t))
+        k[0] += n
+        if t == RC.F32:
+            return f"plan.fk[{k[0] - 1}]"
+        return f"fk_{t_name(t)}(plan.fk + {k[0] - n})"
 
-    for i, ins in enumerate(prog.ins):
+    for i, (ins, t, (ta, timm)) in enumerate(zip(
+            prog.ins, prog.type_list(), prog.operand_types())):
         code, d, a, _, y, _ = ins
         if code == RC.U_ST:
             outs[int(y)] = cur[a]
             continue
-        expr = load(y) if code == RC.U_LD else _pure_c(ins, cur, lit)
-        lines.append(f"  const float v{i} = {expr};")
+        expr = (load(y) if code == RC.U_LD
+                else _pure_c(ins, cur, lit, t, ta, timm))
+        lines.append(f"  const {_CTYPE[t]} v{i} = {expr};")
         cur[d] = f"v{i}"
     return lines, outs
+
+
+def t_name(t: str) -> str:
+    """A typed value's suffix in ``csrc/typed.cuh``'s helper names."""
+    return {RC.I32: "i32", RC.I64: "i64", RC.F64: "f64"}[t]
 
 
 def field_c(spec: dict, name: str, k0: int) -> str:
     """The device function ``name`` of an expression field (``ops/
     fields.py``): ``(plan, a, b, c) -> value``, or with three outputs
     ``(plan, a, b, c, out)`` filling ``out[0..2]``; variable ``i`` is
-    argument ``i``. One ``const float`` local an instruction, each the
+    argument ``i``. One ``const`` local an instruction, each the
     function the plain version (``ops/record.py:run_field``) matches; its
     constants are read from ``plan.fk`` at ``k0`` on, in the order of
     ``ops/fields.py:field_layout``."""

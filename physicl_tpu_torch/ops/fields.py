@@ -17,10 +17,13 @@ kernel's field descriptor:
   reference's grammar (the JAX package's ``_EXPR_NS``,
   :func:`compile_expr`). The string folds literals exactly as Python and
   JAX evaluate it: a subtree made only of literals is one Python value
-  (double or int) that rounds to float32 where it meets an array; a
-  function call is a float32 operation even on literals; an integer
-  exponent (``x ** 2``, ``pow(x, 2)``) is ``lax.integer_pow``'s repeated
-  products. :mod:`physicl_tpu_torch.ops.codegen` compiles each program to
+  (double or int) that rounds to float32 where it meets a float array and
+  is an int32 where it meets an integer; a function call is a float32
+  operation even on literals; an integer exponent (``x ** 2``, ``pow(x,
+  2)``) is ``lax.integer_pow``'s repeated products; integers are int32
+  values, as jnp's ``eval`` gives them with x64 off, and wrap. A typed
+  constant takes its bits' 16-bit chunks in the ``Plan``'s ``fk``
+  (:func:`fk_slots`). :mod:`physicl_tpu_torch.ops.codegen` compiles each program to
   straight-line C in its plan's form library, the program's shape
   (:func:`field_layout`) in the form and its constants in the runtime
   ``Plan``; its plain version is :func:`physicl_tpu_torch.ops.record.
@@ -40,6 +43,7 @@ from __future__ import annotations
 
 import ast
 import re
+import struct
 import zlib
 
 import numpy as np
@@ -52,7 +56,6 @@ KIND_CODES = {"expr": 1, "layered": 2, "voxel": 3}
 LAYER_AXES = {"x": 0, "y": 1, "z": 2, "r": 3}
 
 MAX_IPOW = 1 << 24  # |integer exponent| (held exactly as a float32)
-EXACT_INT = 1 << 24  # |integer value| of a string's integer arithmetic
 MAX_VOXELS = 2 ** 31 - 1  # the kernel's flat voxel index is int32
 
 _GID_RE = re.compile(r"\[\s*gid\s*\]")
@@ -68,6 +71,9 @@ _BINARY = {"fmin": RC.U_MIN, "fmax": RC.U_MAX}
 _BINOPS = {ast.Add: RC.U_ADD, ast.Sub: RC.U_SUB, ast.Mult: RC.U_MUL,
            ast.Div: RC.U_DIV}
 _LOGIC = {ast.BitAnd: RC.U_AND, ast.BitOr: RC.U_OR, ast.BitXor: RC.U_XOR}
+_LOGIC_INT = {ast.BitAnd: RC.U_BAND, ast.BitOr: RC.U_BOR,
+              ast.BitXor: RC.U_BXOR}
+_SHIFTS = {ast.LShift: RC.U_SHL, ast.RShift: RC.U_SHR}
 _CMPOPS = {ast.Lt: RC.U_LT, ast.LtE: RC.U_LE, ast.Gt: RC.U_GT,
            ast.GtE: RC.U_GE, ast.Eq: RC.U_EQ, ast.NotEq: RC.U_NE}
 _LITERAL_NODES = (ast.Constant, ast.UnaryOp, ast.BinOp, ast.BoolOp,
@@ -119,21 +125,20 @@ def _literal(node):
 
 
 class _Val:
-    """A value of the field program: its SSA number, its kind (``"b"``
-    a boolean held as 0.0 / 1.0, ``"i"`` an integer held exactly, ``"f"``
-    a float32) and, for an integer, a bound on its magnitude."""
+    """A value of the field program: its SSA number and its kind (``"b"``
+    a boolean held as 0.0 / 1.0, ``"i"`` an int32, ``"f"`` a float32)."""
 
-    def __init__(self, vid, kind="f", bound=0):
-        self.vid, self.kind, self.bound = vid, kind, bound
+    def __init__(self, vid, kind="f"):
+        self.vid, self.kind = vid, kind
 
 
 class _Compiler:
     """A C-expression string's AST -> SSA values, with the kinds jnp
     gives them: a boolean meets arithmetic as 0 or 1 (``b + b`` is or,
-    ``b * b`` and), an integer (a boolean with an integer, ``%`` or
-    ``//``) stays exact below 2**24, and a float wins. Operands stay in
-    the string's order (an operation of a literal and a variable keeps its
-    operands as written)."""
+    ``b * b`` and), an integer (a boolean with an integer, ``%``, ``//``,
+    ``& | ^ ~ << >>``) is an int32 that wraps, and a float wins. Operands
+    stay in the string's order (an operation of a literal and a variable
+    keeps its operands as written)."""
 
     def __init__(self, varnames):
         self.varnames = list(varnames)
@@ -142,20 +147,23 @@ class _Compiler:
     def const(self, v) -> _Val:
         """A Python literal where it meets an array (a weak type)."""
         if isinstance(v, bool):
-            return _Val(self.ssa.const(float(v)), "b", 1)
+            return _Val(self.ssa.const(float(v)), "b")
         if isinstance(v, int):
             if not -_INT32 <= v < _INT32:
                 raise _Raise(OverflowError, f"the integer {v} does not fit "
                              "int32")
-            return _Val(self.ssa.const(v), "i", abs(v))
+            # its float32 constant too, where a float meets it (in the
+            # literal's place in the program)
+            self.ssa.const(v)
+            return _Val(self.ssa.const(v, RC.I32), "i")
         return _Val(self.ssa.const(v))
 
-    def int_val(self, vid, bound) -> _Val:
-        if bound > EXACT_INT:
-            raise _Unsupported(f"an integer value up to {bound}, past "
-                               f"2**24 (the kernel holds integers in "
-                               "float32)")
-        return _Val(vid, "i", bound)
+    def to(self, v: _Val, kind: str) -> int:
+        """``v``'s SSA value as ``kind`` (a boolean's 0.0 / 1.0 is already
+        a float; an integer converts)."""
+        if v.kind == kind or (kind == "f" and v.kind == "b"):
+            return v.vid
+        return self.ssa.cvt(v.vid, RC.F32 if kind == "f" else RC.I32)
 
     def emit(self, node) -> _Val:
         v = _literal(node)
@@ -181,7 +189,10 @@ class _Compiler:
                 raise _Unsupported(f"comparison {ast.unparse(node)!r}")
             a = self.emit(node.left)
             b = self.emit(node.comparators[0])
-            return _Val(ssa.val(_CMPOPS[op], (a.vid, b.vid)), "b", 1)
+            kind = max(a.kind, b.kind, key=_RANK.get)
+            kind = "f" if kind == "b" else kind
+            return _Val(ssa.val(_CMPOPS[op], (self.to(a, kind),
+                                              self.to(b, kind))), "b")
         if isinstance(node, ast.BoolOp):
             # Python's and / or: an array's truth value raises
             for sub in node.values[:-1]:
@@ -214,14 +225,14 @@ class _Compiler:
             if x.kind == "b":
                 raise _Raise(TypeError, f"{ast.unparse(node)!r}: neg does "
                              "not accept dtype bool")
-            return _Val(self.ssa.val(RC.U_NEG, (x.vid,)), x.kind, x.bound)
-        # ~: a boolean's not; an integer's is a bitwise op
+            return _Val(self.ssa.val(RC.U_NEG, (x.vid,)), x.kind)
+        # ~: a boolean's not, an integer's bitwise not
         if x.kind == "f":
             raise _Raise(TypeError, f"{ast.unparse(node)!r}: not does not "
                          "accept dtype float32")
         if x.kind == "i":
-            raise _Unsupported(f"integer bitwise op {ast.unparse(node)!r}")
-        return _Val(self.ssa.val(RC.U_NOT, (x.vid,)), "b", 1)
+            return _Val(self.ssa.val(RC.U_BNOT, (x.vid,)), "i")
+        return _Val(self.ssa.val(RC.U_NOT, (x.vid,)), "b")
 
     def binop(self, op, a: _Val, b: _Val) -> _Val:
         ssa = self.ssa
@@ -229,44 +240,39 @@ class _Compiler:
         text = _SYMBOLS.get(t, t.__name__)
         kinds = {a.kind, b.kind}
         kind = max(kinds, key=_RANK.get)
-        if t in _LOGIC:
+        if t in _LOGIC or t in _SHIFTS:
             if "f" in kinds:
                 raise _Raise(TypeError, f"{text} does not accept dtype "
                              "float32")
-            if "i" in kinds:
-                raise _Unsupported(f"integer bitwise op {text}")
-            return _Val(ssa.val(_LOGIC[t], (a.vid, b.vid)), "b", 1)
+            if t in _LOGIC and kinds == {"b"}:
+                return _Val(ssa.val(_LOGIC[t], (a.vid, b.vid)), "b")
+            code = _LOGIC_INT.get(t) or _SHIFTS[t]
+            return _Val(ssa.val(code, (self.to(a, "i"), self.to(b, "i"))),
+                        "i")
         if t is ast.Div:
-            return _Val(ssa.val(RC.U_DIV, (a.vid, b.vid)))
+            return _Val(ssa.val(RC.U_DIV, (self.to(a, "f"), self.to(b, "f"))))
         if t in (ast.Mod, ast.FloorDiv):
             if kind == "f":
                 fn = RC._remainder if t is ast.Mod else RC._floor_divide
-                return _Val(fn(ssa, a.vid, b.vid))
+                return _Val(fn(ssa, self.to(a, "f"), self.to(b, "f")))
+            ai, bi = self.to(a, "i"), self.to(b, "i")
             if t is ast.Mod:
-                return self.int_val(RC._remainder(ssa, a.vid, b.vid, True),
-                                    max(b.bound, 1))
-            if not (ssa.is_const(b.vid) and ssa.defs[b.vid][2] != 0.0):
+                return _Val(RC._remainder(ssa, ai, bi, True), "i")
+            if not (ssa.is_const(bi) and ssa.defs[bi][2] != 0):
                 raise _Unsupported("integer floor division by a value that "
                                    "may be 0 (XLA's result is "
                                    "implementation-defined)")
-            return self.int_val(RC._floor_divide(ssa, a.vid, b.vid),
-                                a.bound)
+            return _Val(RC._int_divide(ssa, ai, bi, True), "i")
         if t not in _BINOPS:
-            if "f" in kinds and t in (ast.LShift, ast.RShift):
-                raise _Raise(TypeError, f"{text} does not accept dtype "
-                             "float32")
             raise _Unsupported(f"operator {text}")
         if kinds == {"b"}:
             if t is ast.Sub:
                 raise _Raise(TypeError, "sub does not accept dtype bool")
             # jnp.add of booleans is or, jnp.multiply and
             code = RC.U_OR if t is ast.Add else RC.U_AND
-            return _Val(ssa.val(code, (a.vid, b.vid)), "b", 1)
-        vid = ssa.val(_BINOPS[t], (a.vid, b.vid))
-        if kind == "i":
-            return self.int_val(vid, a.bound * b.bound if t is ast.Mult
-                                else a.bound + b.bound)
-        return _Val(vid)
+            return _Val(ssa.val(code, (a.vid, b.vid)), "b")
+        return _Val(ssa.val(_BINOPS[t], (self.to(a, kind),
+                                         self.to(b, kind))), kind)
 
     def call(self, node) -> _Val:
         name, args = node.func.id, node.args
@@ -274,35 +280,38 @@ class _Compiler:
             return self.pow(args[0], args[1])
         if name in _UNARY and len(args) == 1:
             x = self.emit(args[0])
-            vid = self.ssa.val(_UNARY[name], (x.vid,))
             if name in _KIND_KEEPING and x.kind != "f":
-                return _Val(vid, x.kind, x.bound)
-            return _Val(vid)
+                if x.kind == "i" and name != "fabs":
+                    return x  # jnp.floor / ceil of an integer
+                return _Val(self.ssa.val(_UNARY[name], (x.vid,)), x.kind)
+            return _Val(self.ssa.val(_UNARY[name], (self.to(x, "f"),)))
         if name in _BINARY and len(args) == 2:
             a = self.emit(args[0])
             b = self.emit(args[1])
-            vid = self.ssa.val(_BINARY[name], (a.vid, b.vid))
             kind = max((a.kind, b.kind), key=_RANK.get)
-            return _Val(vid, kind, max(a.bound, b.bound))
+            if kind == "b":
+                return _Val(self.ssa.val(_BINARY[name], (a.vid, b.vid)), "b")
+            return _Val(self.ssa.val(_BINARY[name], (self.to(a, kind),
+                                                     self.to(b, kind))), kind)
         raise _Unsupported(f"call {ast.unparse(node)!r}")
 
     def pow(self, base, exponent) -> _Val:
         """``jnp.power``: an exponent that is a Python int (or bool) is
         ``lax.integer_pow``'s repeated products (of a boolean or an
-        integer an integer, and never a negative power); a float one, or
-        a float or boolean array, ``powf`` of floats."""
+        integer an int32 that wraps, and never a negative power); a float
+        one, or a float or boolean array, ``powf`` of floats."""
         e = _literal(exponent)
         x = self.emit(base)
         if isinstance(e, int):
             if abs(e) > MAX_IPOW:
                 raise _Unsupported(f"integer exponent {e} beyond {MAX_IPOW}")
-            vid = self.ssa.val(RC.U_IPOW, (x.vid,), int(e))
             if x.kind == "f":
-                return _Val(vid)
+                return _Val(self.ssa.val(RC.U_IPOW, (x.vid,), int(e)))
             if e < 0:
                 raise _Raise(TypeError, "integers cannot be raised to "
                              f"negative powers ({e})")
-            return self.int_val(vid, max(x.bound, 1) ** e)
+            return _Val(self.ssa.val(RC.U_IPOW, (self.to(x, "i"),), int(e)),
+                        "i")
         y = self.emit(exponent)
         if "i" in (x.kind, y.kind) or (x.kind, y.kind) == ("b", "b"):
             raise _Unsupported("a power of an integer or to an integer "
@@ -338,16 +347,16 @@ def compile_expr(expr, varnames, label):
     package's ``_EXPR_NS``): numbers, ``M_PI``, ``M_E``, ``True`` and
     ``False``; ``+ - * / % // **`` (``%`` and ``//`` as ``jnp.remainder``
     and ``jnp.floor_divide``), one comparison ``< <= > >= == !=``, ``& |
-    ^ ~`` of booleans, unary ``+ -``; the functions ``sqrt fabs exp log
-    log10 sin cos tan floor ceil fmin fmax pow``. Literal subtrees fold as
-    Python folds them; a boolean meets arithmetic as jnp promotes it.
-    Unknown symbols raise ``ValueError`` (as in the JAX package); a
-    construct that the reference's ``eval`` raises on (a chained
-    comparison, ``x if c else y`` or ``and`` on an array, ``-`` of a
-    boolean, ``~`` or ``&`` of a float) raises its exception when the
-    field is called or planned; one the kernel lacks (integer bitwise ops,
-    integers past 2**24) is refused by the prover
-    (``field-expr-unsupported``)."""
+    ^ ~`` of booleans and of int32 values, ``<< >>`` of int32 values,
+    unary ``+ -``; the functions ``sqrt fabs exp log log10 sin cos tan
+    floor ceil fmin fmax pow``. Literal subtrees fold as Python folds
+    them; a boolean meets arithmetic as jnp promotes it. Unknown symbols
+    raise ``ValueError`` (as in the JAX package); a construct that the
+    reference's ``eval`` raises on (a chained comparison, ``x if c else
+    y`` or ``and`` on an array, ``-`` of a boolean, ``~`` or ``&`` of a
+    float) raises its exception when the field is called or planned; one
+    the kernel lacks (an integer floor division by a value that may be 0)
+    is refused by the prover (``field-expr-unsupported``)."""
     text = _GID_RE.sub("", str(expr))
     tree = ast.parse(text.strip(), mode="eval")
     known = set(_CONSTS) | set(_UNARY) | set(_BINARY) | {"pow"}
@@ -358,7 +367,8 @@ def compile_expr(expr, varnames, label):
             raise ValueError(f"{label}: unknown symbol {name!r}")
     comp, error, raises = _Compiler(varnames), None, None
     try:
-        comp.ssa.effects.append((RC.U_ST, comp.emit(tree.body).vid, 0))
+        comp.ssa.effects.append((RC.U_ST, RC._to_float(
+            comp.ssa, comp.emit(tree.body).vid), 0))
     except _Unsupported as e:
         comp.ssa, error = RC._SSA(), f"{label}: {e}"
     except _Raise as e:
@@ -374,15 +384,33 @@ def field_layout(spec: dict):
     and its constants as float32 values, one for each ``U_CONST``
     instruction and each immediate operand, in program order (the order in
     which ``ops/codegen.py:field_c`` reads them from the Plan)."""
+    prog = spec["prog"]
     shape, consts = [spec["n_out"]], []
-    for code, d, a, b, y, bimm in spec["prog"].ins:
-        if code == RC.U_CONST or bimm:
-            consts.append(float(np.float32(y)))
-            shape.append((code, d, a, b, bimm))
+    for (code, d, a, b, y, bimm), t, (_, timm) in zip(
+            prog.ins, prog.type_list(), prog.operand_types()):
+        typed = (t,) if t != RC.F32 else ()
+        if timm is not None:
+            consts.extend(fk_slots(y, timm))
+            shape.append((code, d, a, b, bimm) + typed
+                         + ((timm,) if timm != t else ()))
         else:
-            shape.append((code, d, a, b, y))
+            shape.append((code, d, a, b, y) + typed)
     h = zlib.crc32(repr(shape).encode()) & 0x7FFFFFFF
     return h, consts
+
+
+def fk_slots(y, t: str) -> list:
+    """A constant of type ``t`` in ``Plan::fk``: a float32 one slot; an
+    integer or a float64 its bits' 16-bit chunks, high first, each an
+    exact float (``csrc/typed.cuh``: ``fk_i32``, ``fk_i64``, ``fk_f64``)."""
+    if t == RC.F32:
+        return [float(np.float32(y))]
+    if t == RC.F64:
+        bits, n = struct.unpack("<Q", struct.pack("<d", float(y)))[0], 4
+    else:
+        n = RC.INT_BITS[t] // 16
+        bits = int(y) & ((1 << (16 * n)) - 1)
+    return [float((bits >> (16 * (n - 1 - j))) & 0xFFFF) for j in range(n)]
 
 
 def _on(spec: dict, key: str, device) -> torch.Tensor:

@@ -110,14 +110,15 @@ _JAX_USER_REASONS = frozenset({
 def is_kernel_limit(code: str) -> bool:
     """True for a refusal code that only the port's kernel has (the JAX
     kernel runs the plan): ``field-expr-unsupported`` (a string construct
-    the reference evaluates and the field programs lack: integer bitwise
-    ops, integers past 2**24, an integer floor division by a value that
-    may be 0), ``field-fn-callable`` (a callable the recorder cannot take)
-    and ``*-op-unsupported`` (an op not yet in the instruction table:
-    ``digamma``, ``special.i0`` / ``i0e`` / ``i1``, ``ndtri``, integer
-    bitwise and shift ops, float64 casts). Such a refusal does not fall
-    back to the generic tier; ``Simulation(fuse="off")`` asks for that
-    tier explicitly."""
+    the reference evaluates and the field programs lack: an integer floor
+    division by a value that may be 0), ``field-fn-callable`` (a callable
+    the recorder cannot take) and ``*-op-unsupported`` (an op outside the
+    instruction table: ``special.gammainc`` / ``gammaincc`` and
+    ``bessel_j0`` / ``j1``, which jnp iterates; ``special.erfcx`` and the
+    torch-only special functions, which jnp lacks; an integer ``//`` by a
+    value that may be 0; a float32 form in float64). Such a refusal does
+    not fall back to the generic tier; ``Simulation(fuse="off")`` asks for
+    that tier explicitly."""
     prefix, _, reason = code.partition("-")
     return not (code in _JAX_CODES
                 or (prefix in ("elementwise", "reduce", "kernelstep")

@@ -13,9 +13,21 @@ probes (``physicl_tpu/ops/pipeline.py:_probe_kernelstep``,
 here. The callable is traced with ``make_fx`` in fake mode over per-particle
 inputs of two lengths, and the aten graph is translated:
 
-* a value is a float32 or a bool per particle (a bool held as 0.0 / 1.0),
-  with 1 or 3 components (the ``KernelStep`` facade's ``r``, ``dr``, ``v``
-  and ``dv``); a scalar (``t``, ``dt``, a constant) has 1 component.
+* a value is a float32, an int32, an int64, a float64 or a bool per
+  particle (a bool held as float32 0.0 / 1.0), with 1 or 3 components (the
+  ``KernelStep`` facade's ``r``, ``dr``, ``v`` and ``dv``); a scalar
+  (``t``, ``dt``, a constant) has 1 component. Each SSA value has its
+  type (:data:`F32`, :data:`I32`, :data:`I64`, :data:`F64`), the C
+  declaration and the twin's torch dtype follow it. An operation takes its
+  operands in torch's promoted dtype: ``.int()`` int32, ``.long()`` and
+  a Python int int64, ``.double()`` float64; integer ``+ - * neg abs min
+  max``, ``& | ^ ~`` and the compares stay in the integer type and wrap
+  in two's complement, ``<<`` and ``>>`` give 0 or the sign past the
+  width (as torch and XLA), ``//`` and ``%`` by a nonzero constant are
+  exact (``//`` by a value that may be 0 is refused: XLA's result is
+  implementation-defined); a float converts to an integer truncated,
+  saturating, NaN 0 (``cvt.rzi``), an integer to a float rounded to
+  nearest; a plane store and a record sum round once to float32.
   Operations over the component axis (``x[0]``, ``unbind``, ``stack``,
   ``sum(0)``, ``amax(0)``, ``linalg.norm(dim=0)``) are elementwise per
   particle;
@@ -30,8 +42,8 @@ inputs of two lengths, and the aten graph is translated:
   callable (a callable that draws more than it holds is recorded again with
   one row a draw). ``t`` and ``dt`` are inputs: the program reads the schedule
   row of the op's place relative to ``UpdateTimeStep``;
-* a Python scalar rounds once to float32 where it meets a tensor (JAX's weak
-  types); an integer exponent is ``lax.integer_pow``'s repeated products, an
+* a Python scalar takes the tensor's type where it meets one (a float32
+  rounded once: JAX's weak types); an integer exponent is ``lax.integer_pow``'s repeated products, an
   exponent of 0.5 a square root (torch's ``pow``), any other ``powf``; a
   tensor divided by a tensor or a scalar is a division, a scalar divided by
   a tensor is torch's ``reciprocal(x) * c``; bool times float is 0.0 or the
@@ -52,10 +64,20 @@ for (:func:`_lower`): ``remainder`` / ``%`` and ``floor_divide`` / ``//``
 ``addcmul`` / ``addcdiv``, ``add`` / ``sub`` with ``alpha``,
 ``heaviside``, ``nan_to_num``, ``isinf``, ``deg2rad`` / ``rad2deg``,
 ``special.ndtr`` (jnp's form, taken before torch decomposes it),
-``sinc``, ``logit`` and ``erfinv`` (XLA's polynomial). Left to port, and
-refused as ``op-unsupported`` naming the op: ``digamma``, ``special.i0``
-/ ``i0e`` / ``i1``, ``ndtri``, integer bitwise and shift ops and casts to
-float64.
+``sinc``, ``logit`` and ``erfinv`` (XLA's polynomial). Group C, lowered
+the same way (:func:`_lower_special`): ``digamma`` / ``special.psi`` and
+``polygamma`` of a Python int (XLA's Lanczos form and Hurwitz-zeta
+series), ``special.zeta``, ``special.i0`` / ``i0e`` / ``i1`` / ``i1e`` /
+``modified_bessel_i0`` / ``i1`` (Cephes' float32 Chebyshev series),
+``special.ndtri``, ``log_ndtr`` and ``entr``, ``mvlgamma``,
+``logaddexp2``, ``ldexp`` and ``frexp`` (jnp's bits), and ``F.gelu``
+(both forms), ``F.elu`` and ``F.logsigmoid`` (``jax.nn``'s); in float64
+the ones whose form is float32's (coefficient tables) are refused. Refused
+as ``op-unsupported`` naming the op, with no jnp counterpart this
+straight-line program can run: ``special.gammainc`` / ``gammaincc``
+(jnp's ``while_loop``), ``special.bessel_j0`` / ``j1`` (jnp's
+recurrence), ``special.erfcx`` and torch-only functions such as
+``bessel_y0`` and ``modified_bessel_k0`` (no jnp function).
 
 The program is register code over per-component SSA values: common
 subexpressions merged, unused values dropped, the side effects (plane
@@ -67,6 +89,7 @@ plan's programs are compiled for it.
 from __future__ import annotations
 
 import dataclasses
+import math
 import operator
 import struct
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -83,8 +106,14 @@ import torch
  U_ACC, U_ATAN, U_ASIN, U_ACOS, U_SINH, U_COSH, U_TANH, U_ASINH, U_ACOSH,
  U_ATANH, U_EXP2, U_EXPM1, U_LOG2, U_LOG1P, U_ERF, U_ERFC, U_LGAMMA,
  U_RSQRT, U_ROUND, U_ISNAN, U_SIGNBIT, U_ATAN2, U_FMOD, U_COPYSIGN,
- U_NEXTAFTER) = range(65)
+ U_NEXTAFTER, U_CVT, U_BAND, U_BOR, U_BXOR, U_BNOT, U_SHL, U_SHR,
+ U_BITCAST) = range(73)
 ALIVE_PLANE = 13
+# value types: float32 (a bool too, as 0.0 / 1.0), int32, int64, float64
+F32, I32, I64, F64 = "f", "i", "l", "d"
+DTYPES = {F32: torch.float32, I32: torch.int32, I64: torch.int64,
+          F64: torch.float64}
+INT_BITS = {I32: 32, I64: 64}
 DRAW_ROWS = 64   # rows of the draws placeholder, unless a callable draws more
 
 _UNARY = {"neg": U_NEG, "abs": U_ABS, "sqrt": U_SQRT, "exp": U_EXP,
@@ -106,6 +135,9 @@ _BINARY = {"add": U_ADD, "sub": U_SUB, "mul": U_MUL, "div": U_DIV,
            "nextafter": U_NEXTAFTER}
 _COMMUTATIVE = {U_ADD, U_MUL, U_MIN, U_MAX, U_EQ, U_NE, U_AND, U_OR, U_XOR}
 _FLIPPED = {U_LT: U_GT, U_GT: U_LT, U_LE: U_GE, U_GE: U_LE}
+_COMPARES = {U_LT, U_LE, U_GT, U_GE, U_EQ, U_NE}
+# the integers a float32 holds exactly
+EXACT_F32 = 1 << 24
 _LOGIC = {U_LT, U_LE, U_GT, U_GE, U_EQ, U_NE, U_AND, U_OR, U_XOR, U_NOT,
           U_BOOL, U_ISNAN, U_SIGNBIT}
 # operations over the particle axis (refused when they reach it)
@@ -122,6 +154,8 @@ _GATHERS = {"index", "index_select", "gather", "take", "take_along_dim",
             "split", "chunk", "split_with_sizes"}
 _IDENTITY = {"clone", "alias", "detach", "lift_fresh_copy", "contiguous",
              "positive"}
+_SHIFTS = {"__lshift__", "__rshift__", "bitwise_left_shift",
+           "bitwise_right_shift"}
 _FACTORIES = {"scalar_tensor", "full", "zeros", "ones", "full_like",
               "zeros_like", "ones_like", "new_full", "new_zeros", "new_ones"}
 
@@ -147,55 +181,153 @@ def _bits(x: float) -> int:
     return struct.unpack("<i", struct.pack("<f", x))[0]
 
 
+def wrap_int(v: int, t: str) -> int:
+    """``v`` in two's complement of type ``t`` (int32 or int64)."""
+    n = INT_BITS[t]
+    v &= (1 << n) - 1
+    return v - (1 << n) if v >> (n - 1) else v
+
+
 @dataclasses.dataclass(frozen=True)
 class Program:
     """A recorded program: instructions ``(code, dst, a, b, y, bimm)`` with
     ``y`` an int (plane, draw, exponent, record column or the select's true
-    register) or the float immediate of a ``bimm`` operand or a constant;
-    the registers and the draws it takes."""
+    register), the immediate of a ``bimm`` operand or a constant (a float,
+    or an int of an integer type), or a conversion's target type; the
+    registers and the draws it takes; ``types`` each instruction's value
+    type (:data:`F32` ... :data:`F64`; empty: all float32)."""
 
     ins: tuple
     n_regs: int
     n_draws: int
+    types: tuple = ()
 
     def stores(self) -> List[int]:
         return [y for code, *_, y, _ in self.ins if code == U_ST]
+
+    def type_list(self) -> tuple:
+        return self.types or (F32,) * len(self.ins)
+
+    def typed(self) -> bool:
+        """Whether a value is an integer or a float64."""
+        return any(t != F32 for t in self.types)
+
+    def operand_types(self) -> List[Tuple[str, Optional[str]]]:
+        """Per instruction, the type of its operand ``a`` and of its
+        constant (a ``U_CONST``'s value or a ``bimm`` operand: a select's
+        has the select's type, a binary operation's its operand's), or
+        None."""
+        reg_t: Dict[int, str] = {}
+        out = []
+        for (code, d, a, _, _, bimm), t in zip(self.ins, self.type_list()):
+            ta = reg_t.get(a, F32)
+            imm = (t if code in (U_CONST, U_SEL) else ta) if (
+                code == U_CONST or bimm) else None
+            out.append((ta, imm))
+            if code not in (U_ST, U_ALIVE, U_ACC):
+                reg_t[d] = t
+        return out
 
 
 # -- SSA over scalar components -----------------------------------------------
 
 
 class _SSA:
-    """Per-component values: ``defs[vid] = (code, args, y)``; pure values
-    are merged by key. Effects (stores, alive clears, record sums) are kept
-    in order."""
+    """Per-component values: ``defs[vid] = (code, args, y)`` and
+    ``ty[vid]`` its type; pure values are merged by key. Effects (stores,
+    alive clears, record sums) are kept in order."""
 
     def __init__(self):
         self.defs: List[tuple] = []
+        self.ty: List[str] = []
         self.memo: Dict[tuple, int] = {}
         self.effects: List[tuple] = []
+        # an integer read from a plane (a float32 that holds an exact
+        # integer, as the otype plane): its float32 load
+        self.exact: Dict[int, int] = {}
 
-    def val(self, code, args=(), y=0) -> int:
-        key = (code, tuple(args), _bits(y) if isinstance(y, float) else y)
+    def result_type(self, code, args) -> str:
+        """An instruction's type, from its operands': a compare, a logic
+        op or a test is a bool (float32); a select has its values' type;
+        a load, t, dt and a draw are float32; the rest their operand's."""
+        if code in _LOGIC or not args:
+            return F32
+        return self.ty[args[1] if code == U_SEL else args[0]]
+
+    def val(self, code, args=(), y=0, t=None) -> int:
+        t = self.result_type(code, args) if t is None else t
+        if isinstance(y, float):
+            ky = (struct.pack("<d", y) if t == F64 and code == U_CONST
+                  else _bits(y))
+        else:
+            ky = y
+        key = (code, tuple(args), ky, t)
         vid = self.memo.get(key)
         if vid is None:
             vid = self.memo[key] = len(self.defs)
             self.defs.append((code, tuple(args), y))
+            self.ty.append(t)
         return vid
 
-    def const(self, x) -> int:
-        return self.val(U_CONST, (), _f32(x))
+    def const(self, x, t=F32) -> int:
+        """A constant of type ``t``: a float32 rounds once, an integer
+        wraps."""
+        if t == F32:
+            v = _f32(x)
+        elif t == F64:
+            v = float(x)
+        else:
+            v = wrap_int(int(x), t)
+        return self.val(U_CONST, (), v, t)
+
+    def like(self, a, x) -> int:
+        """The constant ``x`` in ``a``'s type."""
+        return self.const(x, self.ty[a])
 
     def is_const(self, vid) -> bool:
         return self.defs[vid][0] == U_CONST
 
+    def plane_int(self, v, t) -> int:
+        """The float32 load ``v`` of an integer plane as type ``t``."""
+        c = self.cvt(v, t)
+        self.exact[c] = v
+        return c
+
+    def float_of(self, a):
+        """``a`` as an exact float32 (an integer plane's load, or a small
+        integer constant), or None."""
+        if a in self.exact:
+            return self.exact[a]
+        if self.is_const(a) and self.ty[a] in INT_BITS and abs(
+                self.defs[a][2]) <= EXACT_F32:
+            return self.const(float(self.defs[a][2]))
+        return None
+
     def binary(self, code, a, b) -> int:
+        if code in _COMPARES and (a in self.exact or b in self.exact):
+            # an integer plane compared with another or a small constant:
+            # the same answer from the float32 loads, with no conversion
+            fa, fb = self.float_of(a), self.float_of(b)
+            if fa is not None and fb is not None:
+                a, b = fa, fb
         if self.is_const(a) and not self.is_const(b):
             if code in _COMMUTATIVE:
                 a, b = b, a
             elif code in _FLIPPED:
                 code, a, b = _FLIPPED[code], b, a
         return self.val(code, (a, b))
+
+    def cvt(self, a, t) -> int:
+        """``a`` converted to type ``t`` (a constant folded)."""
+        if self.ty[a] == t:
+            return a
+        if t == F32 and a in self.exact:
+            return self.exact[a]
+        if self.is_const(a):
+            v = _convert(torch.tensor([self.defs[a][2]],
+                                      dtype=DTYPES[self.ty[a]]), t)
+            return self.const(v.item(), t)
+        return self.val(U_CVT, (a,), t, t)
 
     def op(self, code, *args) -> int:
         """An instruction of a lowered function (:func:`_lower`): a select
@@ -205,13 +337,14 @@ class _SSA:
         if code == U_SEL and self.is_const(args[0]):
             return args[1] if self.defs[args[0]][2] != 0 else args[2]
         if code in _EXACT and all(self.is_const(a) for a in args):
-            regs = [torch.tensor([self.defs[a][2]], dtype=torch.float32)
-                    for a in args]
+            regs = [torch.tensor([self.defs[a][2]],
+                                 dtype=DTYPES[self.ty[a]]) for a in args]
             ins = ((U_SEL, 0, 0, 2, 1, False) if code == U_SEL
                    else (code, 0, 0, len(args) - 1, 0, False))
-            v = _pure(ins, regs, lambda y: torch.tensor([float(y)]),
-                      torch.ones(1))
-            return self.const(float(v[0]))
+            t = self.result_type(code, args)
+            v = _pure(ins, regs, lambda y, tt=F32: torch.tensor(
+                [y], dtype=DTYPES[tt]), torch.ones(1), t)
+            return self.const(v[0].item(), t)
         if len(args) == 2:
             return self.binary(code, *args)
         return self.val(code, args)
@@ -236,8 +369,10 @@ def _uses(code, args, ssa) -> List[int]:
 _EXACT = {U_NEG, U_ABS, U_NOT, U_BOOL, U_ADD, U_SUB, U_MUL, U_DIV, U_MIN,
           U_MAX, U_LT, U_LE, U_GT, U_GE, U_EQ, U_NE, U_AND, U_OR, U_XOR,
           U_SEL, U_FLOOR, U_CEIL, U_TRUNC, U_ROUND, U_ISNAN, U_SIGNBIT,
-          U_FMOD, U_COPYSIGN, U_SQRT}
+          U_FMOD, U_COPYSIGN, U_SQRT, U_CVT, U_BAND, U_BOR, U_BXOR, U_BNOT,
+          U_SHL, U_SHR, U_BITCAST}
 _INF = float("inf")
+_NAN = float("nan")
 _F32_MAX = float(np.finfo(np.float32).max)
 # XLA's erf_inv for float32 (M. Giles' single-precision approximation):
 # the coefficients for w < 5, then for w >= 5
@@ -252,34 +387,34 @@ _ERFINV = ((2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
 def _sign(s: _SSA, x: int) -> int:
     """``lax.sign``: 1, -1, or ``x`` itself (a zero keeps its sign, NaN
     stays NaN)."""
-    z = s.const(0.0)
-    return s.op(U_SEL, s.op(U_GT, x, z), s.const(1.0),
-                s.op(U_SEL, s.op(U_LT, x, z), s.const(-1.0), x))
+    z = s.like(x, 0)
+    return s.op(U_SEL, s.op(U_GT, x, z), s.like(x, 1),
+                s.op(U_SEL, s.op(U_LT, x, z), s.like(x, -1), x))
 
 
 def _round_away(s: _SSA, x: int) -> int:
     """``lax.round`` (half away from zero): the truncation, plus the sign
     where the fraction (exact) is at least a half."""
     t = s.op(U_TRUNC, x)
-    half = s.op(U_GE, s.op(U_ABS, s.op(U_SUB, x, t)), s.const(0.5))
-    return s.op(U_SEL, half, s.op(U_ADD, t, s.op(U_COPYSIGN, s.const(1.0),
+    half = s.op(U_GE, s.op(U_ABS, s.op(U_SUB, x, t)), s.like(x, 0.5))
+    return s.op(U_SEL, half, s.op(U_ADD, t, s.op(U_COPYSIGN, s.like(x, 1.0),
                                                  x)), t)
 
 
 def _nonzero_divisor(s: _SSA, b: int) -> int:
     """An integer divisor that jnp replaces by 1 where it is 0."""
-    if s.is_const(b) and s.defs[b][2] != 0.0:
+    if s.is_const(b) and s.defs[b][2] != 0:
         return b
-    return s.op(U_SEL, s.op(U_EQ, b, s.const(0.0)), s.const(1.0), b)
+    return s.op(U_SEL, s.op(U_EQ, b, s.like(b, 0)), s.like(b, 1), b)
 
 
 def _remainder(s: _SSA, a: int, b: int, ints: bool = False) -> int:
-    """``jnp.remainder``: ``lax.rem`` (fmodf), plus the divisor where the
-    remainder is nonzero and its sign differs from the divisor's; an
-    integer divisor of 0 reads 1."""
+    """``jnp.remainder``: ``lax.rem`` (fmodf, or the integer remainder),
+    plus the divisor where the remainder is nonzero and its sign differs
+    from the divisor's; an integer divisor of 0 reads 1."""
     if ints:
         b = _nonzero_divisor(s, b)
-    z = s.const(0.0)
+    z = s.like(a, 0)
     tm = s.op(U_FMOD, a, b)
     fix = s.op(U_AND, s.op(U_NE, s.op(U_LT, tm, z), s.op(U_LT, b, z)),
                s.op(U_NE, tm, z))
@@ -289,21 +424,38 @@ def _remainder(s: _SSA, a: int, b: int, ints: bool = False) -> int:
 def _floor_divide(s: _SSA, a: int, b: int) -> int:
     """``jnp.floor_divide`` of floats (``_float_divmod``): ``(a - rem) /
     b``, less 1 where the remainder's sign differs from the divisor's,
-    rounded half away from zero. Integers divided by a nonzero integer
-    give the integer floor division, exactly."""
+    rounded half away from zero."""
     mod = s.op(U_FMOD, a, b)
     div = s.op(U_DIV, s.op(U_SUB, a, mod), b)
-    ind = s.op(U_AND, s.op(U_NE, mod, s.const(0.0)),
+    ind = s.op(U_AND, s.op(U_NE, mod, s.like(a, 0.0)),
                s.op(U_NE, _sign(s, b), _sign(s, mod)))
-    div = s.op(U_SEL, ind, s.op(U_SUB, div, s.const(1.0)), div)
+    div = s.op(U_SEL, ind, s.op(U_SUB, div, s.like(a, 1.0)), div)
     return _round_away(s, div)
 
 
-def _logaddexp(s: _SSA, a: int, b: int) -> int:
+def _int_divide(s: _SSA, a: int, b: int, floor: bool) -> int:
+    """Integer division by a nonzero constant ``b``: ``lax.div`` (towards
+    zero; by -1 a negation, which wraps), and for ``jnp.floor_divide`` 1
+    less where the signs differ and the remainder is nonzero."""
+    if s.defs[b][2] == -1:
+        return s.op(U_NEG, a)
+    q = s.op(U_DIV, a, b)
+    if not floor:
+        return q
+    ind = s.op(U_AND, s.op(U_NE, _sign(s, a), _sign(s, b)),
+               s.op(U_NE, s.op(U_FMOD, a, b), s.like(a, 0)))
+    return s.op(U_SEL, ind, s.op(U_SUB, q, s.like(a, 1)), q)
+
+
+def _logaddexp(s: _SSA, a: int, b: int, base2: bool = False) -> int:
     """``jnp.logaddexp``: ``max + log1p(exp(-|a - b|))``, ``a + b`` where
-    the difference is NaN."""
+    the difference is NaN; ``jnp.logaddexp2``: ``max + log1p(exp2(-|a -
+    b|)) / ln 2``."""
     delta = s.op(U_SUB, a, b)
-    tail = s.op(U_LOG1P, s.op(U_EXP, s.op(U_NEG, s.op(U_ABS, delta))))
+    tail = s.op(U_LOG1P, s.op(U_EXP2 if base2 else U_EXP,
+                              s.op(U_NEG, s.op(U_ABS, delta))))
+    if base2:
+        tail = s.op(U_MUL, s.like(a, 1 / np.log(2)), tail)
     return s.op(U_SEL, s.op(U_ISNAN, delta), s.op(U_ADD, a, b),
                 s.op(U_ADD, s.op(U_MAX, a, b), tail))
 
@@ -312,13 +464,13 @@ def _hypot(s: _SSA, a: int, b: int) -> int:
     """``jnp.hypot``: ``hi * sqrt(1 + (lo / hi)**2)`` of the magnitudes,
     ``hi`` where it is 0, inf where either is inf."""
     a, b = s.op(U_ABS, a), s.op(U_ABS, b)
-    inf = s.const(_INF)
+    inf = s.like(a, _INF)
     is_inf = s.op(U_OR, s.op(U_EQ, a, inf), s.op(U_EQ, b, inf))
     hi, lo = s.op(U_MAX, a, b), s.op(U_MIN, a, b)
-    zero = s.op(U_EQ, hi, s.const(0.0))
-    q = s.op(U_DIV, lo, s.op(U_SEL, zero, s.const(1.0), hi))
+    zero = s.op(U_EQ, hi, s.like(a, 0.0))
+    q = s.op(U_DIV, lo, s.op(U_SEL, zero, s.like(a, 1.0), hi))
     r = s.op(U_MUL, hi, s.op(U_SQRT, s.op(U_ADD, s.op(U_MUL, q, q),
-                                          s.const(1.0))))
+                                          s.like(a, 1.0))))
     return s.op(U_SEL, is_inf, inf, s.op(U_SEL, zero, hi, r))
 
 
@@ -345,17 +497,340 @@ def _erfinv(s: _SSA, x: int) -> int:
 
 def _sigmoid(s: _SSA, x: int) -> int:
     """``lax.logistic``: ``1 / (1 + exp(-x))``."""
-    return s.op(U_DIV, s.const(1.0), s.op(U_ADD, s.op(U_EXP, s.op(
-        U_NEG, x)), s.const(1.0)))
+    return s.op(U_DIV, s.like(x, 1.0), s.op(U_ADD, s.op(U_EXP, s.op(
+        U_NEG, x)), s.like(x, 1.0)))
+
+
+# -- group C: XLA's and jnp's float32 forms of the special functions --------
+
+# the Lanczos approximation XLA's digamma uses (g = 7, 8 terms)
+_LANCZOS_G = 7.0
+_LANCZOS_BASE = 0.99999999999980993227684700473478
+_LANCZOS = (676.520368121885098567009190444019,
+            -1259.13921672240287047156078755283,
+            771.3234287776530788486528258894,
+            -176.61502916214059906584551354,
+            12.507343278686904814458936853,
+            -0.13857109526572011689554707,
+            9.984369578019570859563e-6,
+            1.50563273514931155834e-7)
+# (2k)! / B_2k, k = 12 down to 1: XLA's Hurwitz zeta (Euler-Maclaurin)
+_ZETA = (-7.1661652561756670113e18, 1.8152105401943546773e17,
+         -4.5979787224074726105e15, 1.1646782814350067249e14,
+         -2.950130727918164224e12, 7.47242496e10,
+         -1.8924375803183791606e9, 47900160.0, -1209600.0, 30240.0,
+         -720.0, 12.0)
+# Cephes' float32 Chebyshev coefficients: exp(-x) I0(x) and exp(-x) I1(x)
+# / x on [0, 8], their sqrt(x)-scaled forms on [8, inf)
+# (jax/_src/lax/special.py:_i0e_impl32, XLA's chlo.bessel_i1e)
+_I0E = ((-1.30002500998624804212E-8, 6.04699502254191894932E-8,
+         -2.67079385394061173391E-7, 1.11738753912010371815E-6,
+         -4.41673835845875056359E-6, 1.64484480707288970893E-5,
+         -5.75419501008210370398E-5, 1.88502885095841655729E-4,
+         -5.76375574538582365885E-4, 1.63947561694133579842E-3,
+         -4.32430999505057594430E-3, 1.05464603945949983183E-2,
+         -2.37374148058994688156E-2, 4.93052842396707084878E-2,
+         -9.49010970480476444210E-2, 1.71620901522208775349E-1,
+         -3.04682672343198398683E-1, 6.76795274409476084995E-1),
+        (3.39623202570838634515E-9, 2.26666899049817806459E-8,
+         2.04891858946906374183E-7, 2.89137052083475648297E-6,
+         6.88975834691682398426E-5, 3.36911647825569408990E-3,
+         8.04490411014108831608E-1))
+_I1E = ((9.38153738649577178388E-9, -4.44505912879632808065E-8,
+         2.00329475355213526229E-7, -8.56872026469545474066E-7,
+         3.47025130813767847674E-6, -1.32731636560394358279E-5,
+         4.78156510755005422638E-5, -1.61760815825896745588E-4,
+         5.12285956168575772895E-4, -1.51357245063125314899E-3,
+         4.15642294431288815669E-3, -1.05640848946261981558E-2,
+         2.47264490306265168283E-2, -5.29459812080949914269E-2,
+         1.02643658689847095384E-1, -1.76416518357834055153E-1,
+         2.52587186443633654823E-1),
+        (-3.83538038596423702205E-9, -2.63146884688951950684E-8,
+         -2.51223623787020892529E-7, -3.88256480887769039346E-6,
+         -1.10588938762623716291E-4, -9.76109749136146840777E-3,
+         7.78576235018280120474E-1))
+# jax.scipy.special.ndtri's rational approximations (Cephes)
+_NDTRI = {
+    "p0": (-5.99633501014107895267E1, 9.80010754185999661536E1,
+           -5.66762857469070293439E1, 1.39312609387279679503E1,
+           -1.23916583867381258016E0),
+    "q0": (1.0, 1.95448858338141759834E0, 4.67627912898881538453E0,
+           8.63602421390890590575E1, -2.25462687854119370527E2,
+           2.00260212380060660359E2, -8.20372256168333339912E1,
+           1.59056225126211695515E1, -1.18331621121330003142E0),
+    "p1": (4.05544892305962419923E0, 3.15251094599893866154E1,
+           5.71628192246421288162E1, 4.40805073893200834700E1,
+           1.46849561928858024014E1, 2.18663306850790267539E0,
+           -1.40256079171354495875E-1, -3.50424626827848203418E-2,
+           -8.57456785154685413611E-4),
+    "q1": (1.0, 1.57799883256466749731E1, 4.53907635128879210584E1,
+           4.13172038254672030440E1, 1.50425385692907503408E1,
+           2.50464946208309415979E0, -1.42182922854787788574E-1,
+           -3.80806407691578277194E-2, -9.33259480895457427372E-4),
+    "p2": (3.23774891776946035970E0, 6.91522889068984211695E0,
+           3.93881025292474443415E0, 1.33303460815807542389E0,
+           2.01485389549179081538E-1, 1.23716634817820021358E-2,
+           3.01581553508235416007E-4, 2.65806974686737550832E-6,
+           6.23974539184983293730E-9),
+    "q2": (1.0, 6.02427039364742014255E0, 3.67983563856160859403E0,
+           1.37702099489081330271E0, 2.16236993594496635890E-1,
+           1.34204006088543189037E-2, 3.28014464682127739104E-4,
+           2.89247864745380683936E-6, 6.79019408009981274425E-9)}
+
+
+def _chebyshev(s: _SSA, x: int, coefs) -> int:
+    """``evaluate_chebyshev_polynomial``: Clenshaw's ``b0 = x b1 - b2 +
+    c``, then ``0.5 (b0 - b2)``."""
+    z = s.like(x, 0.0)
+    b0 = b1 = b2 = z
+    for c in coefs:
+        b2, b1 = b1, b0
+        b0 = s.op(U_ADD, s.op(U_SUB, s.op(U_MUL, x, b1), b2), s.like(x, c))
+    return s.op(U_MUL, s.like(x, 0.5), s.op(U_SUB, b0, b2))
+
+
+def _polyval(s: _SSA, coefs, x: int) -> int:
+    """``jnp.polyval``: Horner's ``y x + c`` from the leading
+    coefficient."""
+    y = s.like(x, coefs[0])
+    for c in coefs[1:]:
+        y = s.op(U_ADD, s.op(U_MUL, y, x), s.like(x, c))
+    return y
+
+
+def _digamma(s: _SSA, x: int) -> int:
+    """XLA's digamma: the Lanczos form ``log(t) + A'(z) / A(z) - g / t``
+    at ``z = x - 1`` (``t = z + g + 0.5``, ``log(t)`` as ``log(g + 0.5) +
+    log1p(z / (g + 0.5))``); below 0.5 the reflection ``digamma(1 - x) -
+    pi cot(pi x)`` (``x`` shifted by whole periods into [-0.5, 0.5]); NaN
+    at the poles (0 and the negative integers)."""
+    c = lambda v: s.like(x, v)  # noqa: E731
+    half, one = c(0.5), c(1.0)
+    reflect = s.op(U_LT, x, half)
+    z = s.op(U_SEL, reflect, s.op(U_NEG, x), s.op(U_SUB, x, one))
+    a, ap = c(_LANCZOS_BASE), c(0.0)
+    for i, k in enumerate(_LANCZOS):
+        zt = s.op(U_ADD, z, c(i + 1))
+        ap = s.op(U_SUB, ap, s.op(U_DIV, c(k), s.op(U_MUL, zt, zt)))
+        a = s.op(U_ADD, a, s.op(U_DIV, c(k), zt))
+    lph = c(_LANCZOS_G + 0.5)
+    t = s.op(U_ADD, lph, z)
+    log_t = s.op(U_ADD, c(np.log(_LANCZOS_G + 0.5)),
+                 s.op(U_LOG1P, s.op(U_DIV, z, lph)))
+    dg = s.op(U_SUB, s.op(U_ADD, log_t, s.op(U_DIV, ap, a)),
+              s.op(U_DIV, c(_LANCZOS_G), t))
+    red = s.op(U_ADD, x, s.op(U_ABS, s.op(U_FLOOR, s.op(U_ADD, x, half))))
+    pix = s.op(U_MUL, c(np.pi), red)
+    refl = s.op(U_SUB, dg, s.op(U_DIV, s.op(U_MUL, c(np.pi),
+                                            s.op(U_COS, pix)),
+                                s.op(U_SIN, pix)))
+    dg = s.op(U_SEL, reflect, refl, dg)
+    pole = s.op(U_AND, s.op(U_LE, x, c(0.0)),
+                s.op(U_EQ, x, s.op(U_FLOOR, x)))
+    return s.op(U_SEL, pole, c(_NAN), dg)
+
+
+def _zeta(s: _SSA, x: int, q: int) -> int:
+    """XLA's Hurwitz zeta ``zeta(x, q)``: the first 10 terms ``(q +
+    k)**-x``, then Euler-Maclaurin's tail at ``a = q + 10`` with 12
+    Bernoulli terms by Horner; the first sum alone where the tail is below
+    its epsilon; NaN for x < 1 and for q <= 0 with x not an integer, at the
+    poles (integer q <= 0) inf for even integer x and NaN else, inf at x =
+    1."""
+    c = lambda v: s.like(x, v)  # noqa: E731
+    one, zero = c(1.0), c(0.0)
+    neg_x = s.op(U_NEG, x)
+    a = q
+    initial = s.op(U_POW, q, neg_x)
+    for _ in range(9):
+        a = s.op(U_ADD, a, one)
+        initial = s.op(U_ADD, initial, s.op(U_POW, a, neg_x))
+    a = s.op(U_ADD, a, one)
+    neg_power = s.op(U_POW, a, neg_x)
+    tail = s.op(U_DIV, s.op(U_MUL, neg_power, a), s.op(U_SUB, x, one))
+    total = s.op(U_ADD, initial, tail)
+    a_inv2 = s.op(U_DIV, one, s.op(U_MUL, a, a))
+    horner = zero
+    for i in range(11):
+        factor = s.op(U_MUL, s.op(U_ADD, x, c(21.0 - 2 * i)),
+                      s.op(U_ADD, x, c(22.0 - 2 * i)))
+        horner = s.op(U_MUL, factor, s.op(U_MUL, a_inv2, s.op(
+            U_ADD, horner, s.op(U_DIV, one, c(_ZETA[i])))))
+    total = s.op(U_ADD, total, s.op(U_MUL, neg_power, s.op(
+        U_ADD, c(0.5), s.op(U_MUL, s.op(U_DIV, x, a), s.op(
+            U_ADD, s.op(U_DIV, one, c(_ZETA[11])), horner)))))
+    eps = c(float(np.finfo(np.float32).eps) if s.ty[x] == F32
+            else float(np.finfo(np.float64).eps))
+    out = s.op(U_SEL, s.op(U_LT, s.op(U_ABS, neg_power), s.op(
+        U_MUL, s.op(U_ABS, initial), eps)), initial, total)
+    nan, inf = c(_NAN), c(_INF)
+    out = s.op(U_SEL, s.op(U_LT, x, one), nan, out)
+    q_le0 = s.op(U_LE, q, zero)
+    x_int = s.op(U_EQ, x, s.op(U_FLOOR, x))
+    out = s.op(U_SEL, s.op(U_AND, q_le0, s.op(U_NOT, x_int)), nan, out)
+    pole = s.op(U_AND, q_le0, s.op(U_EQ, q, s.op(U_FLOOR, q)))
+    even = s.op(U_AND, x_int, s.op(U_EQ, s.op(U_FMOD, x, c(2.0)), zero))
+    out = s.op(U_SEL, pole, s.op(U_SEL, even, inf, nan), out)
+    return s.op(U_SEL, s.op(U_EQ, x, one), inf, out)
+
+
+def _polygamma(s: _SSA, n: int, x: int) -> int:
+    """XLA's polygamma of a Python int ``n``: ``(2 (n % 2) - 1) exp(
+    lgamma(n + 1)) zeta(n + 1, x)``; digamma for n = 0; NaN for n < 0."""
+    if n < 0:
+        return s.like(x, _NAN)
+    if n == 0:
+        return _digamma(s, x)
+    np1 = s.like(x, float(n + 1))
+    # (2 (n % 2) - 1) exp(lgamma(n + 1)): the sign times n!, a constant
+    # (a libm function of a constant the kernel's compiler would fold)
+    coef = s.like(x, (2.0 * (n % 2) - 1.0) * math.factorial(n))
+    return s.op(U_MUL, coef, _zeta(s, np1, x))
+
+
+def _i0e(s: _SSA, x: int) -> int:
+    """``lax.bessel_i0e`` (``_i0e_impl32``): of |x|, Chebyshev in ``x / 2 -
+    2`` up to 8, in ``32 / x - 2`` over sqrt(x) past it."""
+    x = s.op(U_ABS, x)
+    le8 = _chebyshev(s, s.op(U_SUB, s.op(U_MUL, s.like(x, 0.5), x),
+                             s.like(x, 2.0)), _I0E[0])
+    gt8 = s.op(U_DIV, _chebyshev(s, s.op(U_SUB, s.op(
+        U_DIV, s.like(x, 32.0), x), s.like(x, 2.0)), _I0E[1]),
+        s.op(U_SQRT, x))
+    return s.op(U_SEL, s.op(U_LE, x, s.like(x, 8.0)), le8, gt8)
+
+
+def _i1e(s: _SSA, x: int) -> int:
+    """XLA's ``chlo.bessel_i1e`` (Cephes' i1ef): of z = |x|, z times a
+    Chebyshev series in ``z / 2 - 2`` up to 8, one in ``32 / z - 2`` over
+    sqrt(z) past it; times sign(x)."""
+    z = s.op(U_ABS, x)
+    le8 = s.op(U_MUL, z, _chebyshev(s, s.op(U_SUB, s.op(
+        U_MUL, s.like(x, 0.5), z), s.like(x, 2.0)), _I1E[0]))
+    gt8 = s.op(U_DIV, _chebyshev(s, s.op(U_SUB, s.op(
+        U_DIV, s.like(x, 32.0), z), s.like(x, 2.0)), _I1E[1]),
+        s.op(U_SQRT, z))
+    return s.op(U_MUL, _sign(s, x),
+                s.op(U_SEL, s.op(U_LE, z, s.like(x, 8.0)), le8, gt8))
+
+
+def _ndtr_ssa(s: _SSA, x: int) -> int:
+    """``jax.scipy.special.ndtr``: ``erf`` near 0, ``erfc`` in the tails
+    (:func:`_ndtr`'s form)."""
+    h = s.like(x, float(np.float32(0.5) * np.sqrt(2.0, dtype=np.float32)))
+    w = s.op(U_MUL, x, h)
+    z = s.op(U_ABS, w)
+    y = s.op(U_SEL, s.op(U_LT, z, h), s.op(U_ADD, s.op(U_ERF, w),
+                                           s.like(x, 1.0)),
+             s.op(U_SEL, s.op(U_GT, w, s.like(x, 0.0)),
+                  s.op(U_SUB, s.like(x, 2.0), s.op(U_ERFC, z)),
+                  s.op(U_ERFC, z)))
+    return s.op(U_MUL, y, s.like(x, 0.5))
+
+
+def _ndtri(s: _SSA, p: int) -> int:
+    """``jax.scipy.special.ndtri`` (Cephes): ``p`` past 1 - e**-2
+    complemented; above e**-2 a rational function of ``(p - 0.5)**2``,
+    else of ``1 / z``, ``z = sqrt(-2 log p)`` (the p2 / q2 pair for z >=
+    8); the sign restored; -inf at 0, inf at 1."""
+    c = lambda v: s.like(p, v)  # noqa: E731
+    mcp = s.op(U_SEL, s.op(U_GT, p, c(-np.expm1(-2.0))),
+               s.op(U_SUB, c(1.0), p), p)
+    san = s.op(U_SEL, s.op(U_EQ, mcp, c(0.0)), c(0.5), mcp)
+    w = s.op(U_SUB, san, c(0.5))
+    ww = s.op(U_MUL, w, w)
+    big = s.op(U_ADD, w, s.op(U_MUL, s.op(U_MUL, w, ww), s.op(
+        U_DIV, _polyval(s, _NDTRI["p0"], ww), _polyval(s, _NDTRI["q0"], ww))))
+    big = s.op(U_MUL, big, c(-np.sqrt(2.0 * np.pi)))
+    z = s.op(U_SQRT, s.op(U_MUL, c(-2.0), s.op(U_LOG, san)))
+    first = s.op(U_SUB, z, s.op(U_DIV, s.op(U_LOG, z), z))
+    inv = s.op(U_DIV, c(1.0), z)
+
+    def second(pk, qk):
+        return s.op(U_DIV, s.op(U_DIV, _polyval(s, _NDTRI[pk], inv),
+                                _polyval(s, _NDTRI[qk], inv)), z)
+
+    x = s.op(U_SEL, s.op(U_GT, san, c(np.exp(-2.0))), big, s.op(
+        U_SEL, s.op(U_GE, z, c(8.0)), s.op(U_SUB, first, second("p2", "q2")),
+        s.op(U_SUB, first, second("p1", "q1"))))
+    x = s.op(U_SEL, s.op(U_GT, p, c(1.0 - np.exp(-2.0))), x,
+             s.op(U_NEG, x))
+    return s.op(U_SEL, s.op(U_EQ, p, c(0.0)), c(-_INF), s.op(
+        U_SEL, s.op(U_EQ, p, c(1.0)), c(_INF), x))
+
+
+def _log_ndtr(s: _SSA, x: int) -> int:
+    """``jax.scipy.special.log_ndtr`` (series order 3): ``-ndtr(-x)`` past
+    5, ``log(ndtr(x))`` past -10, else the asymptotic series ``-x**2 / 2
+    - log(-x) - log(2 pi) / 2 + log(1 - 1 / x**2 + 3 / x**4 - 15 /
+    x**6)``."""
+    c = lambda v: s.like(x, v)  # noqa: E731
+    lo, hi = c(-10.0), c(5.0)
+    upper = s.op(U_NEG, _ndtr_ssa(s, s.op(U_NEG, x)))
+    middle = s.op(U_LOG, _ndtr_ssa(s, s.op(U_MAX, x, lo)))
+    xl = s.op(U_MIN, x, lo)
+    x2 = s.op(U_MUL, xl, xl)
+    log_scale = s.op(U_SUB, s.op(U_SUB, s.op(U_MUL, c(-0.5), x2), s.op(
+        U_LOG, s.op(U_NEG, xl))), c(0.5 * np.log(2.0 * np.pi)))
+    x4 = s.op(U_MUL, x2, x2)
+    odd = s.op(U_ADD, s.op(U_DIV, c(1.0), x2),
+               s.op(U_DIV, c(15.0), s.op(U_MUL, x4, x2)))
+    even = s.op(U_DIV, c(3.0), x4)
+    series = s.op(U_SUB, s.op(U_ADD, c(1.0), even), odd)
+    lower = s.op(U_ADD, log_scale, s.op(U_LOG, series))
+    return s.op(U_SEL, s.op(U_GT, x, hi), upper,
+                s.op(U_SEL, s.op(U_GT, x, lo), middle, lower))
+
+
+def _frexp(s: _SSA, x: int) -> Tuple[int, int]:
+    """``jnp.frexp`` of a float32: the mantissa in [0.5, 1) with ``x``'s
+    sign and the int32 exponent, from the bits (a subnormal scaled by
+    2**23 first); ``x`` and 0 for 0, inf and NaN."""
+    i = I32
+    tiny = s.op(U_LT, s.op(U_ABS, x), s.like(x, float(
+        np.finfo(np.float32).tiny)))
+    x1 = s.val(U_BITCAST, (s.op(U_SEL, tiny, s.op(
+        U_MUL, x, s.like(x, float(1 << 23))), x),), i, i)
+    x2 = s.op(U_SEL, tiny, s.const(-23, i), s.const(0, i))
+    x2 = s.op(U_ADD, x2, s.op(U_ADD, s.op(U_SUB, s.op(
+        U_BAND, s.op(U_SHR, x1, s.const(23, i)), s.const(0xFF, i)),
+        s.const(127, i)), s.const(1, i)))
+    x1 = s.op(U_BAND, x1, s.const(~(0xFF << 23), i))
+    x1 = s.op(U_BOR, x1, s.const(126 << 23, i))
+    m = s.val(U_BITCAST, (x1,), F32, F32)
+    cond = s.op(U_OR, s.op(U_OR, s.op(U_EQ, s.op(U_ABS, x), s.like(
+        x, _INF)), s.op(U_ISNAN, x)), s.op(U_EQ, x, s.like(x, 0.0)))
+    return (s.op(U_SEL, cond, x, m),
+            s.op(U_SEL, cond, s.const(0, i), x2))
+
+
+def _ldexp(s: _SSA, x: int, e: int) -> int:
+    """``jnp.ldexp``: the exponent ``e`` as a float added to frexp's, the
+    mantissa doubled while it is positive, times ``2.0 ** e``; ``x`` where
+    it is 0 or inf."""
+    m, fe = _frexp(s, x)
+    ef = s.op(U_ADD, s.cvt(fe, F32), s.cvt(e, F32))
+    pos = s.op(U_GT, ef, s.like(x, 0.0))
+    m = s.op(U_SEL, pos, s.op(U_MUL, m, s.like(x, 2.0)), m)
+    ef = s.op(U_SEL, pos, s.op(U_SUB, ef, s.like(x, 1.0)), ef)
+    out = s.op(U_MUL, m, s.op(U_POW, s.like(x, 2.0), ef))
+    keep = s.op(U_OR, s.op(U_EQ, s.op(U_ABS, x), s.like(x, _INF)),
+                s.op(U_EQ, x, s.like(x, 0.0)))
+    return s.op(U_SEL, keep, x, out)
 
 
 def _lower(s: _SSA, name: str, xs: Sequence[int], opt: dict) -> int:
     """One component of the jnp function ``name`` (the aten name of its
     torch counterpart) of the components ``xs``, over the instructions, in
     the order of the jnp function: ``opt`` its options (alpha, value,
-    beta, eps, decimals, nan/posinf/neginf, ints)."""
-    c = s.const
+    beta, eps, decimals, nan/posinf/neginf, approximate, p, n); constants
+    in the type of the first component."""
     x = xs[0]
+    if s.ty[x] in INT_BITS:
+        return _lower_int(s, name, xs)
+    c = lambda v: s.like(x, v)  # noqa: E731
+    if name in _GROUP_C:
+        return _lower_special(s, name, xs, opt)
     if name == "isnan":
         return s.op(U_ISNAN, x)
     if name == "signbit":
@@ -407,10 +882,11 @@ def _lower(s: _SSA, name: str, xs: Sequence[int], opt: dict) -> int:
     if name == "nan_to_num":
         out = s.op(U_SEL, s.op(U_ISNAN, x), c(opt.get("nan") or 0.0), x)
         pos, neg = opt.get("posinf"), opt.get("neginf")
+        big = _F32_MAX if s.ty[x] == F32 else float(np.finfo(np.float64).max)
         out = s.op(U_SEL, s.op(U_EQ, out, c(_INF)),
-                   c(_F32_MAX if pos is None else pos), out)
+                   c(big if pos is None else pos), out)
         return s.op(U_SEL, s.op(U_EQ, out, c(-_INF)),
-                    c(-_F32_MAX if neg is None else neg), out)
+                    c(-big if neg is None else neg), out)
     y = xs[1]
     if name == "remainder":
         return _remainder(s, x, y, opt.get("ints", False))
@@ -449,6 +925,101 @@ def _lower(s: _SSA, name: str, xs: Sequence[int], opt: dict) -> int:
     raise ValueError(name)
 
 
+def _lower_int(s: _SSA, name: str, xs: Sequence[int]) -> int:
+    """The functions of :data:`_INT_LOWERED` of integers, as jnp computes
+    them in the integer type: a test of a float property is false, a
+    rounding the value, a division by a nonzero constant exact."""
+    x = xs[0]
+    if name in ("isnan", "isinf", "isposinf", "isneginf"):
+        return s.const(0.0)
+    if name == "signbit":
+        return s.op(U_LT, x, s.like(x, 0))
+    if name in ("round", "nan_to_num"):
+        return x
+    if name in ("sign", "sgn"):
+        return _sign(s, x)
+    if name == "relu":
+        return s.op(U_MAX, x, s.like(x, 0))
+    y = xs[1]
+    if name == "remainder":
+        return _remainder(s, x, y, True)
+    if name in ("floor_divide", "trunc_divide"):
+        return _int_divide(s, x, y, name == "floor_divide")
+    if name in ("fmax", "fmin"):
+        return s.op(U_MAX if name == "fmax" else U_MIN, x, y)
+    raise ValueError(name)
+
+
+def _lower_special(s: _SSA, name: str, xs: Sequence[int], opt: dict) -> int:
+    """Group C (:data:`_GROUP_C`): XLA's, ``jax.scipy.special``'s,
+    ``jnp``'s and ``jax.nn``'s forms, in their order."""
+    x = xs[0]
+    c = lambda v: s.like(x, v)  # noqa: E731
+    if name == "digamma":
+        return _digamma(s, x)
+    if name == "polygamma":
+        return _polygamma(s, int(opt["n"]), x)
+    if name == "special_zeta":
+        return _zeta(s, x, xs[1])
+    if name in ("i0", "special_modified_bessel_i0"):
+        return s.op(U_MUL, s.op(U_EXP, s.op(U_ABS, x)), _i0e(s, x))
+    if name == "special_i0e":
+        return _i0e(s, x)
+    if name in ("special_i1", "special_modified_bessel_i1"):
+        return s.op(U_MUL, s.op(U_EXP, s.op(U_ABS, x)), _i1e(s, x))
+    if name == "special_i1e":
+        return _i1e(s, x)
+    if name == "special_ndtri":
+        return _ndtri(s, x)
+    if name == "special_log_ndtr":
+        return _log_ndtr(s, x)
+    if name == "special_entr":
+        xlogx = s.op(U_SEL, s.op(U_NE, x, c(0.0)),
+                     s.op(U_MUL, x, s.op(U_LOG, x)), c(0.0))
+        return s.op(U_SEL, s.op(U_LT, x, c(0.0)), c(-_INF),
+                    s.op(U_NEG, xlogx))
+    if name == "mvlgamma":
+        # multigammaln: sum_i lgamma(a - i / 2) + 0.25 d (d - 1) log(pi)
+        d = int(opt["p"])
+        k = s.op(U_MUL, s.op(U_MUL, c(0.25), c(d)), s.op(U_SUB, c(d),
+                                                         c(1.0)))
+        total = s.op(U_LGAMMA, x)
+        for i in range(1, d):
+            total = s.op(U_ADD, total, s.op(U_LGAMMA, s.op(U_SUB, x,
+                                                           c(i / 2))))
+        # log(pi) a constant (a libm function of a constant the kernel's
+        # compiler would fold)
+        return s.op(U_ADD, total, s.op(U_MUL, k, c(np.log(np.pi))))
+    if name == "logaddexp2":
+        return _logaddexp(s, x, xs[1], base2=True)
+    if name == "ldexp":
+        return _ldexp(s, x, xs[1])
+    if name == "gelu":
+        if opt.get("approximate", "none") == "tanh":
+            cube = s.val(U_IPOW, (x,), 3)
+            inner = s.op(U_MUL, c(np.sqrt(2 / np.pi)), s.op(
+                U_ADD, x, s.op(U_MUL, c(0.044715), cube)))
+            cdf = s.op(U_MUL, c(0.5), s.op(U_ADD, c(1.0),
+                                           s.op(U_TANH, inner)))
+            return s.op(U_MUL, x, cdf)
+        return s.op(U_MUL, s.op(U_MUL, c(0.5), x), s.op(U_ERFC, s.op(
+            U_MUL, s.op(U_NEG, x), c(np.sqrt(0.5)))))
+    if name == "elu":
+        alpha, scale, in_scale = (opt.get(k, 1.0) for k in (
+            "alpha", "scale", "input_scale"))
+        pos = s.op(U_GT, x, c(0.0))
+        xn = x if in_scale == 1 else s.op(U_MUL, x, c(in_scale))
+        neg = s.op(U_MUL, c(alpha), s.op(U_EXPM1, s.op(U_SEL, pos, c(0.0),
+                                                       xn)))
+        if scale != 1:
+            return s.op(U_SEL, pos, s.op(U_MUL, x, c(scale)),
+                        s.op(U_MUL, neg, c(scale)))
+        return s.op(U_SEL, pos, x, neg)
+    if name == "log_sigmoid_forward":
+        return s.op(U_NEG, _logaddexp(s, s.op(U_NEG, x), c(0.0)))
+    raise ValueError(name)
+
+
 # the torch functions (their aten names) lowered over the instructions
 # (:func:`_lower`), with their operand count
 _LOWERED = {"isnan": 1, "signbit": 1, "isinf": 1, "isposinf": 1,
@@ -460,7 +1031,29 @@ _LOWERED = {"isnan": 1, "signbit": 1, "isinf": 1, "isposinf": 1,
             "fmax": 2, "fmin": 2, "heaviside": 2, "lerp": 3, "addcmul": 3,
             "addcdiv": 3,
             # torch.div(rounding_mode="trunc")
-            "trunc_divide": 2}
+            "trunc_divide": 2,
+            # group C
+            "digamma": 1, "special_zeta": 2, "i0": 1, "special_i0e": 1,
+            "special_i1": 1, "special_i1e": 1,
+            "special_modified_bessel_i0": 1, "special_modified_bessel_i1": 1,
+            "special_ndtri": 1, "special_log_ndtr": 1, "special_entr": 1,
+            "mvlgamma": 1, "logaddexp2": 2, "ldexp": 2, "gelu": 1, "elu": 1,
+            "log_sigmoid_forward": 1}
+_GROUP_C = {"digamma", "polygamma", "special_zeta", "i0", "special_i0e",
+            "special_i1", "special_i1e", "special_modified_bessel_i0",
+            "special_modified_bessel_i1", "special_ndtri",
+            "special_log_ndtr", "special_entr", "mvlgamma", "logaddexp2",
+            "ldexp", "gelu", "elu", "log_sigmoid_forward"}
+# the lowered functions jnp computes in an integer type
+_INT_LOWERED = {"isnan", "isinf", "isposinf", "isneginf", "signbit",
+                "round", "nan_to_num", "sign", "sgn", "relu", "remainder",
+                "floor_divide", "trunc_divide", "fmax", "fmin"}
+# the lowered functions whose form is float32's (coefficient tables and
+# cutoffs): refused in float64, where jnp's form differs
+_F32_FORMS = {"erfinv", "digamma", "polygamma", "special_zeta", "i0",
+              "special_i0e", "special_i1", "special_i1e",
+              "special_modified_bessel_i0", "special_modified_bessel_i1",
+              "special_ndtri", "special_log_ndtr", "ldexp"}
 
 
 def _schedule(ssa: _SSA, n_draws: int) -> Program:
@@ -500,11 +1093,12 @@ def _schedule(ssa: _SSA, n_draws: int) -> Program:
     reg: Dict[int, int] = {}
     free: List[int] = []
     n_regs = 0
-    ins = []
+    ins, types = [], []
     for i, (kind, item) in enumerate(order):
         if kind == "e":
             code, v, y = item
             ins.append((code, 0, reg[v], 0, y, False))
+            types.append(F32)
             if last[item[1]] == i:
                 free.append(reg[v])
             continue
@@ -539,7 +1133,9 @@ def _schedule(ssa: _SSA, n_draws: int) -> Program:
         elif len(args) == 1:
             a = reg[args[0]]
         ins.append((code, d, a, b, y, bimm))
-    return Program(tuple(ins), max(n_regs, 1), n_draws)
+        types.append(ssa.ty[item])
+    return Program(tuple(ins), max(n_regs, 1), n_draws,
+                   tuple(types) if any(t != F32 for t in types) else ())
 
 
 # -- the aten graph -> SSA ------------------------------------------------------
@@ -558,14 +1154,19 @@ class _Input:
 
 
 def _kind_of(dtype) -> str:
-    if dtype == torch.bool:
-        return "b"
-    if dtype == torch.float32:
-        return "f"
-    if dtype in (torch.int32, torch.int64, torch.int16, torch.int8,
-                 torch.uint8):
-        return "i"
-    return "?"
+    """A value's kind: ``"b"`` a bool (a float32 0.0 or 1.0 in its
+    register), ``"f"`` float32, ``"d"`` float64, ``"i"`` int32, ``"l"``
+    int64; ``"?"`` another dtype."""
+    return _KINDS.get(dtype, "?")
+
+
+_KINDS = {torch.bool: "b", torch.float32: "f", torch.float64: "d",
+          torch.int32: "i", torch.int64: "l"}
+# a kind's register type
+_REG = {"b": F32, "f": F32, "i": I32, "l": I64, "d": F64}
+# the kinds of the typed paths: bools and float32 keep the float32 paths
+_TYPED = {"i", "l", "d"}
+_BITCASTS = {("f", "i"), ("i", "f"), ("d", "l"), ("l", "d")}
 
 
 def _name(target) -> Tuple[str, str]:
@@ -579,9 +1180,24 @@ def _name(target) -> Tuple[str, str]:
     return str(target), ""
 
 
+def _to_float(ssa: _SSA, c: int) -> int:
+    """A value leaving the program (a plane store, a record sum), rounded
+    once to float32."""
+    return ssa.cvt(c, F32)
+
+
+def _to_alive(ssa: _SSA, c: int) -> int:
+    """An alive clear's operand: a bool, a float32, or another type's
+    nonzero test."""
+    return c if ssa.ty[c] == F32 else ssa.op(U_BOOL, c)
+
+
 class _Translator:
     """One aten graph to SSA values. ``n`` is the traced particle count: a
-    value of shape ``()`` or ``(n,)`` has 1 component, ``(3, n)`` three."""
+    value of shape ``()`` or ``(n,)`` has 1 component, ``(3, n)`` three.
+    Each value has a kind (:func:`_kind_of`, from the node's dtype); an
+    operation with an integer or float64 operand or value takes its
+    operands in torch's promoted dtype (:meth:`to`) and computes in it."""
 
     def __init__(self, gm, inputs: Sequence[_Input], n: int, ssa: _SSA):
         self.gm = gm
@@ -608,6 +1224,47 @@ class _Translator:
         if isinstance(x, torch.fx.Node):
             return self.kinds[x]
         return "b" if isinstance(x, bool) else "f"
+
+    def typed(self, *xs, kinds=()) -> bool:
+        """Whether an operand or a kind is an integer or a float64."""
+        return any(k in _TYPED for k in kinds) or any(
+            isinstance(x, torch.fx.Node) and self.kinds.get(x) in _TYPED
+            for x in xs)
+
+    def to(self, x, kind) -> List[int]:
+        """The components of ``x`` (a node or a Python scalar) as ``kind``:
+        a scalar a constant of that kind, a value converted (to a bool, its
+        nonzero test)."""
+        ssa = self.ssa
+        if not isinstance(x, torch.fx.Node):
+            if not isinstance(x, (bool, int, float)):
+                raise Refused("op-unsupported", f"operand {x!r}")
+            if kind == "b":
+                return [ssa.const(1.0 if x else 0.0)]
+            return [ssa.const(x, _REG[kind])]
+        cs = self.comps_of(x)
+        if self.kinds[x] == kind:
+            return cs
+        if kind == "b":
+            return [ssa.op(U_BOOL, c) for c in cs]
+        return [ssa.cvt(c, _REG[kind]) for c in cs]
+
+    def promoted(self, *xs) -> str:
+        """The kind of torch's common dtype of the operands (a Python
+        scalar and a 0-dim value promote as torch promotes them)."""
+        protos = []
+        for x in xs:
+            if isinstance(x, torch.fx.Node):
+                val = x.meta.get("val")
+                protos.append(torch.empty((1,) if val.dim() else (),
+                                          dtype=val.dtype))
+            else:
+                protos.append(x)
+        dt = protos[0].dtype if len(protos) == 1 else torch.result_type(
+            *protos[:2])
+        for p in protos[2:]:
+            dt = torch.result_type(torch.empty((1,), dtype=dt), p)
+        return _kind_of(dt)
 
     def ncomp(self, node) -> int:
         val = node.meta.get("val")
@@ -664,13 +1321,22 @@ class _Translator:
         return out
 
     def leaf(self, inp: _Input, c) -> int:
+        """A plane (an integer plane's float32 converted where an integer
+        operation needs it), ``t``, ``dt`` or a constant of the input's
+        kind."""
+        ssa = self.ssa
         if inp.role == "plane":
-            return self.ssa.val(U_LD, (), int(c))
+            v = ssa.val(U_LD, (), int(c))
+            return v if inp.kind in ("b", "f") else ssa.plane_int(
+                v, _REG[inp.kind])
         if inp.role == "t":
-            return self.ssa.val(U_T)
+            return ssa.val(U_T)
         if inp.role == "dt":
-            return self.ssa.val(U_DT)
-        return self.ssa.const(c)
+            return ssa.val(U_DT)
+        if inp.kind in _TYPED:
+            return ssa.const(int(c) if inp.kind != "d" else c,
+                             _REG[inp.kind])
+        return ssa.const(c)
 
     def set(self, node, comps, kind):
         self.vals[node] = comps
@@ -680,7 +1346,9 @@ class _Translator:
         ssa = self.ssa
         if node.target is operator.getitem:
             seq, i = node.args
-            self.set(node, list(self.vals[seq][i]), self.kinds[seq])
+            k = self.kinds[seq]
+            self.set(node, list(self.vals[seq][i]),
+                     k[i] if isinstance(k, list) else k)
             return
         name, over = _name(node.target)
         args, kw = node.args, node.kwargs
@@ -690,9 +1358,16 @@ class _Translator:
         if name == "select" and args[0] is self.draws_node:
             self.set(node, [ssa.val(U_UNIF, (), int(args[2]))], "f")
             return
+        if name == "frexp":
+            self.frexp(node, args[0])
+            return
+        if name == "log_sigmoid_forward":
+            self.lowered(node, name, args, kw, self.kind_of(args[0]))
+            return
         if kind == "?":
             raise Refused("op-unsupported", f"aten.{name} gives dtype "
-                          f"{val.dtype} (a value is float32 or bool)")
+                          f"{val.dtype} (a value is float32, float64, int32, "
+                          "int64 or bool)")
         if name in _IDENTITY:
             src = args[0]
             self.vals[node] = self.vals[src]
@@ -701,27 +1376,30 @@ class _Translator:
         if name == "_to_copy":
             self.convert(node, args[0], kw.get("dtype"))
             return
+        if name == "view" and over == "dtype":
+            self.bitcast(node, args[0], kind)
+            return
         if name in _FACTORIES:
-            self.factory(node, name, args, kw)
+            self.factory(node, name, args, kw, kind)
             return
         if name in _UNARY:
-            (x,) = args[:1]
-            cs = self.comps_of(x)
-            if self.kind_of(x) != "f" and name not in ("abs", "neg"):
-                cs = [ssa.val(U_BOOL, (c,)) if self.kind_of(x) == "b" else c
-                      for c in cs]
-            self.set(node, [ssa.val(_UNARY[name], (c,)) for c in cs],
-                     "f" if kind == "f" else self.kind_of(x))
+            self.unary(node, name, args[0], kind)
             return
         if name == "square":
-            cs = self.comps_of(args[0])
+            cs = self.to(args[0], kind)
             self.set(node, [ssa.binary(U_MUL, c, c) for c in cs], kind)
             return
         if name in ("bitwise_not", "logical_not"):
-            if self.kind_of(args[0]) == "i":
-                raise Refused("op-unsupported", f"aten.{name} on integers")
-            cs = self.comps_of(args[0])
+            x = args[0]
+            if name == "bitwise_not" and self.kind_of(x) in ("i", "l"):
+                self.set(node, [ssa.op(U_BNOT, c) for c in self.to(x, kind)],
+                         kind)
+                return
+            cs = self.comps_of(x)
             self.set(node, [ssa.val(U_NOT, (c,)) for c in cs], "b")
+            return
+        if name in _SHIFTS:
+            self.shift(node, name, args, kind)
             return
         if name == "div" and kw.get("rounding_mode") is not None:
             mode = kw["rounding_mode"]
@@ -731,33 +1409,19 @@ class _Translator:
         if name in _BINARY or name == "rsub":
             self.binary(node, name, args, kw, kind)
             return
-        if name in _LOWERED:
+        if name in _LOWERED or name == "polygamma":
             self.lowered(node, name, args, kw, kind)
             return
         if name == "pow":
             self.pow(node, over, args, kind)
             return
         if name in ("clamp", "clamp_min", "clamp_max"):
-            lo = args[1] if len(args) > 1 else kw.get("min")
-            hi = args[2] if len(args) > 2 else kw.get("max")
-            if name == "clamp_max":
-                lo, hi = None, args[1]
-            cs = self.comps_of(args[0])
-            if lo is not None:
-                cl = self.comps_of(lo)
-                (cs, cl), _ = self.broadcast(cs, cl)
-                cs = [ssa.binary(U_MAX, a, b) for a, b in zip(cs, cl)]
-            if hi is not None:
-                ch = self.comps_of(hi)
-                (cs, ch), _ = self.broadcast(cs, ch)
-                cs = [ssa.binary(U_MIN, a, b) for a, b in zip(cs, ch)]
-            self.set(node, cs, "f")
+            self.clamp(node, name, args, kw, kind)
             return
         if name == "where":
             cond, a, b = (args + (None,) * 3)[:3]
-            cc, ca, cb = (self.comps_of(cond), self.comps_of(a),
-                          self.comps_of(b))
-            (cc, ca, cb), _ = self.broadcast(cc, ca, cb)
+            (cc, ca, cb), _ = self.broadcast(
+                self.to(cond, "b"), self.to(a, kind), self.to(b, kind))
             self.set(node, [ssa.val(U_SEL, (c, x, y))
                             for c, x, y in zip(cc, ca, cb)], kind)
             return
@@ -787,9 +1451,7 @@ class _Translator:
             if len(seq) != 3 or any(self.rank(s) > 1 for s in seq):
                 raise Refused("op-unsupported", f"aten.stack of {len(seq)} "
                               "values (a value has 1 or 3 components)")
-            # bools are 0.0 / 1.0 and ints exact in the registers: a
-            # promotion to float changes no value
-            self.set(node, [self.comps_of(s)[0] for s in seq], kind)
+            self.set(node, [self.to(s, kind)[0] for s in seq], kind)
             return
         if name == "expand":
             self.ncomp(node)
@@ -814,12 +1476,13 @@ class _Translator:
 
     def constant(self, node, t: torch.Tensor):
         """A tensor the callable made from literals: a scalar becomes a
-        constant (rounded to float32); any other shape is refused where it
-        is used."""
+        constant of its kind (a float32 rounded once); any other shape is
+        refused where it is used."""
         kind = _kind_of(t.dtype)
         if t.numel() == 1 and kind != "?":
-            self.set(node, [self.ssa.const(float(t.reshape(()).item()))],
-                     kind)
+            v = t.reshape(()).item()
+            self.set(node, self.to(v, kind) if kind in _TYPED
+                     else [self.ssa.const(float(v))], kind)
         else:
             self.vals[node] = _Input("forbidden", why=f"a constant tensor of "
                                      f"shape {tuple(t.shape)} and dtype "
@@ -827,21 +1490,40 @@ class _Translator:
             self.kinds[node] = "f"
 
     def convert(self, node, x, dtype):
-        cs = self.comps_of(x)
+        """``.to(dtype)``: to a float, an integer (a float truncated
+        towards 0, saturating, NaN 0), a float64 or a bool."""
         src = self.kind_of(x)
-        if dtype is None or dtype == torch.float32:
+        dst = _kind_of(dtype) if dtype is not None else (
+            src if src in _TYPED else "f")
+        if dst == "?":
+            raise Refused("op-unsupported", f"aten._to_copy to {dtype} (a "
+                          "value is float32, float64, int32, int64 or bool)")
+        if src in _TYPED or dst in _TYPED:
+            self.set(node, self.to(x, dst), dst)
+            return
+        cs = self.comps_of(x)
+        if dst == "f":
             self.set(node, cs, "f")
-        elif dtype == torch.bool:
+        else:
             self.set(node, cs if src == "b" else
                      [self.ssa.val(U_BOOL, (c,)) for c in cs], "b")
-        elif _kind_of(dtype) == "i":
-            self.set(node, cs if src != "f" else
-                     [self.ssa.val(U_TRUNC, (c,)) for c in cs], "i")
-        else:
-            raise Refused("op-unsupported", f"aten._to_copy to {dtype} (a "
-                          "value is float32 or bool)")
 
-    def factory(self, node, name, args, kw):
+    def bitcast(self, node, x, kind):
+        """``.view(dtype)`` between float32 and int32, or float64 and
+        int64: the same bits."""
+        src = self.kind_of(x)
+        if src == kind:
+            self.set(node, self.comps_of(x), kind)
+            return
+        if (src, kind) not in _BITCASTS:
+            raise Refused("op-unsupported", f"aten.view from {src!r} to "
+                          f"{kind!r} (a bitcast between float32 and int32, "
+                          "or float64 and int64)")
+        t = _REG[kind]
+        self.set(node, [self.ssa.val(U_BITCAST, (c,), t, t)
+                        for c in self.comps_of(x)], kind)
+
+    def factory(self, node, name, args, kw, kind):
         k = self.ncomp(node)
         if name == "scalar_tensor":
             v = args[0]
@@ -853,11 +1535,38 @@ class _Translator:
             v = 0.0
         else:
             v = 1.0
-        dt = kw.get("dtype")
-        kind = "b" if dt == torch.bool else "f"
+        if kind in _TYPED:
+            self.set(node, self.to(int(v) if kind != "d" else v, kind) * k,
+                     kind)
+            return
         if kind == "b":
             v = 1.0 if v else 0.0
-        self.set(node, [self.ssa.const(float(v))] * k, kind)
+        self.set(node, [self.ssa.const(float(v))] * k, kind if kind == "b"
+                 else "f")
+
+    def unary(self, node, name, x, kind):
+        ssa = self.ssa
+        code = _UNARY[name]
+        if not self.typed(x, kinds=(kind,)):
+            cs = self.comps_of(x)
+            if self.kind_of(x) != "f" and name not in ("abs", "neg"):
+                cs = [ssa.val(U_BOOL, (c,)) if self.kind_of(x) == "b" else c
+                      for c in cs]
+            self.set(node, [ssa.val(code, (c,)) for c in cs],
+                     "f" if kind == "f" else self.kind_of(x))
+            return
+        if kind in ("i", "l"):
+            cs = self.to(x, kind)
+            if name in ("floor", "ceil", "trunc"):
+                self.set(node, cs, kind)
+                return
+            if name not in ("abs", "neg"):
+                raise Refused("op-unsupported", f"aten.{name} of integers")
+            self.set(node, [ssa.op(code, c) for c in cs], kind)
+            return
+        if kind != "d":
+            raise Refused("op-unsupported", f"aten.{name} giving {kind!r}")
+        self.set(node, [ssa.val(code, (c,)) for c in self.to(x, kind)], kind)
 
     def binary(self, node, name, args, kw, kind):
         ssa = self.ssa
@@ -866,34 +1575,67 @@ class _Translator:
         code = U_SUB if name == "rsub" else _BINARY[name]
         if name == "rsub":
             a, b = b, a
-        ka, kb = self.kind_of(a), self.kind_of(b)
-        if code in (U_AND, U_OR, U_XOR) and name.startswith("bitwise") \
-                and "i" in (ka, kb):
-            raise Refused("op-unsupported", f"aten.{name} on integers")
-        ca, cb = self.comps_of(a), self.comps_of(b)
         if code in (U_AND, U_OR, U_XOR):
-            ca = [c if ka == "b" else ssa.val(U_BOOL, (c,)) for c in ca]
-            cb = [c if kb == "b" else ssa.val(U_BOOL, (c,)) for c in cb]
-        if alpha != 1:  # torch.add / sub / rsub: a + alpha * b
-            cb = [ssa.op(U_MUL, c, ssa.const(alpha)) for c in cb]
-        if code == U_FMOD and kind == "i":
-            cb = [_nonzero_divisor(ssa, c) for c in cb]
+            if name.startswith("bitwise") and kind in ("i", "l"):
+                code = {U_AND: U_BAND, U_OR: U_BOR, U_XOR: U_BXOR}[code]
+                ca, cb = self.to(a, kind), self.to(b, kind)
+            else:
+                ca, cb = self.to(a, "b"), self.to(b, "b")
+        elif code in _LOGIC:
+            ck = self.promoted(a, b)
+            ca, cb = self.to(a, ck), self.to(b, ck)
+        else:
+            ca, cb = self.to(a, kind), self.to(b, kind)
+            if alpha != 1:  # torch.add / sub / rsub: a + alpha * b
+                cb = [ssa.op(U_MUL, c, ssa.const(alpha, _REG[kind]))
+                      for c in cb]
+            if code == U_FMOD and kind in ("i", "l"):
+                cb = [_nonzero_divisor(ssa, c) for c in cb]
         (ca, cb), _ = self.broadcast(ca, cb)
         cs = [ssa.binary(code, x, y) for x, y in zip(ca, cb)]
         if kind == "b" and code not in _LOGIC:
             cs = [ssa.val(U_BOOL, (c,)) for c in cs]  # bool + bool: or
         self.set(node, cs, kind)
 
+    def shift(self, node, name, args, kind):
+        """``<<`` and ``>>`` of integers (as torch and XLA: 0, or the sign,
+        past the width)."""
+        if kind not in ("i", "l"):
+            raise Refused("op-unsupported", f"aten.{name} giving {kind!r}")
+        code = U_SHL if "lshift" in name or "left" in name else U_SHR
+        ca, cb = self.to(args[0], kind), self.to(args[1], kind)
+        (ca, cb), _ = self.broadcast(ca, cb)
+        self.set(node, [self.ssa.binary(code, x, y) for x, y in zip(ca, cb)],
+                 kind)
+
+    def clamp(self, node, name, args, kw, kind):
+        ssa = self.ssa
+        lo = args[1] if len(args) > 1 else kw.get("min")
+        hi = args[2] if len(args) > 2 else kw.get("max")
+        if name == "clamp_max":
+            lo, hi = None, args[1]
+        cs = self.to(args[0], kind)
+        if lo is not None:
+            (cs, cl), _ = self.broadcast(cs, self.to(lo, kind))
+            cs = [ssa.binary(U_MAX, a, b) for a, b in zip(cs, cl)]
+        if hi is not None:
+            (cs, ch), _ = self.broadcast(cs, self.to(hi, kind))
+            cs = [ssa.binary(U_MIN, a, b) for a, b in zip(cs, ch)]
+        self.set(node, cs, kind)
+
     def lowered(self, node, name, args, kw, kind):
         """A jnp function over the instructions (:func:`_lower`), per
         component: its operands, broadcast, and its options."""
-        xs = list(args[:_LOWERED[name]])
-        rest = list(args[len(xs):])
+        if name == "polygamma":
+            xs, rest = [args[1]], []
+        else:
+            xs = list(args[:_LOWERED[name]])
+            rest = list(args[len(xs):])
 
         def arg(key, default=None):
             return rest.pop(0) if rest else kw.get(key, default)
 
-        opt = {"ints": kind == "i"}
+        opt = {}
         if name == "round":
             opt["decimals"] = arg("decimals", 0)
             if opt["decimals"] < 0:
@@ -908,40 +1650,75 @@ class _Translator:
                 opt[key] = arg(key)
         elif name in ("addcmul", "addcdiv"):
             opt["value"] = arg("value", 1)
-        cs, _ = self.broadcast(*[self.comps_of(x) for x in xs])
-        if name in ("floor_divide", "trunc_divide") and opt["ints"] and not \
-                all(self.ssa.is_const(c) and self.ssa.defs[c][2] != 0.0
-                    for c in cs[1]):
+        elif name == "polygamma":
+            opt["n"] = int(args[0])
+        elif name == "mvlgamma":
+            opt["p"] = int(arg("p"))
+        elif name == "gelu":
+            opt["approximate"] = arg("approximate", "none")
+        elif name == "elu":
+            for key in ("alpha", "scale", "input_scale"):
+                opt[key] = float(arg(key, 1.0))
+        ssa = self.ssa
+        ck = self.promoted(*xs) if kind == "b" else kind
+        if ck in ("i", "l") and name not in _INT_LOWERED:
+            raise Refused("op-unsupported", f"aten.{name} of integers")
+        if ck == "d" and name in _F32_FORMS:
+            raise Refused("op-unsupported", f"aten.{name} in float64 (its "
+                          "jnp form here is float32's)")
+        if name == "ldexp":  # the exponent keeps its kind
+            cs = [self.to(xs[0], ck), self.comps_of(xs[1])]
+        else:
+            cs = [self.to(x, ck) for x in xs]
+        cs, _ = self.broadcast(*cs)
+        if name in ("floor_divide", "trunc_divide") and ck in (
+                "i", "l") and not all(ssa.is_const(c) and ssa.defs[c][2] != 0
+                                      for c in cs[1]):
             raise Refused("op-unsupported", f"aten.{node.target} of integers "
-                          "by a value that may be 0 (an integer division by "
-                          "zero has no float32 value)")
-        self.set(node, [_lower(self.ssa, name, comp, opt)
-                        for comp in zip(*cs)], kind)
+                          "by a value that may be 0 (XLA's result is "
+                          "implementation-defined)")
+        comps = [_lower(ssa, name, comp, opt) for comp in zip(*cs)]
+        if name == "log_sigmoid_forward":  # (output, buffer)
+            self.vals[node], self.kinds[node] = [comps, comps], [kind, kind]
+            return
+        self.set(node, comps, kind)
+
+    def frexp(self, node, x):
+        """``torch.frexp``: (mantissa, int32 exponent), ``jnp.frexp``'s
+        bits."""
+        if self.kind_of(x) == "d":
+            raise Refused("op-unsupported", "aten.frexp in float64 (its jnp "
+                          "form here is float32's)")
+        outs = [_frexp(self.ssa, c) for c in self.to(x, "f")]
+        self.vals[node] = [[m for m, _ in outs], [e for _, e in outs]]
+        self.kinds[node] = ["f", "i"]
 
     def pow(self, node, over, args, kind):
+        """A power: an integer exponent ``lax.integer_pow``'s products (of
+        integers, which wrap), a float one ``pow`` in the value's float
+        type."""
         ssa = self.ssa
         base, ex = args[0], args[1]
-        if over == "Scalar":  # c ** x
-            cb, ce = [ssa.const(float(base))], self.comps_of(ex)
-            (cb, ce), _ = self.broadcast(cb, ce)
-            self.set(node, [ssa.val(U_POW, (x, y)) for x, y in zip(cb, ce)],
-                     "f")
-            return
-        cs = self.comps_of(base)
-        if isinstance(ex, bool) or not isinstance(ex, (int, float,
-                                                       torch.fx.Node)):
+        ints = kind in ("i", "l")
+        if over != "Scalar" and (isinstance(ex, bool) or not isinstance(
+                ex, (int, float, torch.fx.Node))):
             raise Refused("op-unsupported", f"aten.pow with exponent {ex!r}")
-        if isinstance(ex, int):
-            if abs(ex) > 1 << 24:
+        if isinstance(ex, int) and over != "Scalar":
+            if abs(ex) > 1 << 24 or (ints and ex < 0):
                 raise Refused("op-unsupported", f"integer exponent {ex}")
-            self.set(node, [ssa.val(U_IPOW, (c,), int(ex)) for c in cs], "f")
-        elif isinstance(ex, float) and ex == 0.5:
-            self.set(node, [ssa.val(U_SQRT, (c,)) for c in cs], "f")
-        else:
-            ce = self.comps_of(ex)
-            (cs, ce), _ = self.broadcast(cs, ce)
-            self.set(node, [ssa.binary(U_POW, x, y) for x, y in zip(cs, ce)],
-                     "f")
+            self.set(node, [ssa.val(U_IPOW, (c,), int(ex))
+                            for c in self.to(base, kind)], kind)
+            return
+        if ints:
+            raise Refused("op-unsupported", "aten.pow of integers to an "
+                          "integer tensor")
+        if isinstance(ex, float) and ex == 0.5 and over != "Scalar":
+            self.set(node, [ssa.val(U_SQRT, (c,))
+                            for c in self.to(base, kind)], kind)
+            return
+        (cb, ce), _ = self.broadcast(self.to(base, kind), self.to(ex, kind))
+        self.set(node, [ssa.val(U_POW, (x, y)) for x, y in zip(cb, ce)],
+                 kind)
 
     def reduce(self, node, name, over, args, kw, kind):
         ssa = self.ssa
@@ -957,12 +1734,14 @@ class _Translator:
         if part:
             raise Refused("not-elementwise", f"aten.{name} over the particle "
                           "axis (a cross-particle reduction)")
+        typed = self.typed(x, kinds=(kind,))
         if not comp:
-            self.set(node, list(self.comps_of(x)), kind)
+            self.set(node, self.to(x, kind) if typed and kind != "b"
+                     else list(self.comps_of(x)), kind)
             return
         if keep:
             raise Refused("op-unsupported", f"aten.{name} with keepdim")
-        cs = self.comps_of(x)
+        cs = self.to(x, kind) if typed and kind != "b" else self.comps_of(x)
         if name == "sum":
             v = ssa.binary(U_ADD, ssa.binary(U_ADD, cs[0], cs[1]), cs[2])
         elif name in ("amax", "max") and over in ("default", "dim"):
@@ -975,7 +1754,7 @@ class _Translator:
                 U_ADD, sq[0], sq[1]), sq[2]),))
         elif name in ("any", "all"):
             bs = [c if self.kind_of(x) == "b" else ssa.val(U_BOOL, (c,))
-                  for c in cs]
+                  for c in self.comps_of(x)]
             code = U_OR if name == "any" else U_AND
             v = ssa.binary(code, ssa.binary(code, bs[0], bs[1]), bs[2])
         else:
@@ -1135,8 +1914,10 @@ def _same_at_sizes(record, label: str) -> Program:
     the particle count."""
     progs = [record(n) for n in _SIZES]
     # compared by their constants' bits (a NaN constant equals itself)
-    keys = [tuple(tuple(_bits(v) if isinstance(v, float) else v for v in ins)
-                  for ins in prog.ins) + (prog.n_regs, prog.n_draws)
+    keys = [tuple(tuple(struct.pack("<d", v) if isinstance(v, float) else v
+                        for v in ins)
+                  for ins in prog.ins) + (prog.n_regs, prog.n_draws,
+                                          prog.types)
             for prog in progs]
     if keys[0] != keys[1]:
         raise Refused("not-elementwise", f"{label} depends on the population "
@@ -1242,15 +2023,15 @@ def record_particle_fn(fn: Callable, who: str, view_extras=(),
                               "expected")
             c = cs[0]
             if outputs is not None:
-                ssa.effects.append((sink, c, f0 + j))
+                ssa.effects.append((sink, _to_float(ssa, c), f0 + j))
             elif name == "alive":
                 if c != ssa.val(U_LD, (), ALIVE_PLANE):
-                    ssa.effects.append((U_ALIVE, c, 0))
+                    ssa.effects.append((U_ALIVE, _to_alive(ssa, c), 0))
             else:
                 plane = (rows_of[name][0] + i if name in writable
                          else fields.index(name))
                 if c != ssa.val(U_LD, (), plane):
-                    ssa.effects.append((U_ST, c, plane))
+                    ssa.effects.append((U_ST, _to_float(ssa, c), plane))
         return _schedule(ssa, side["n_draws"])
 
     return _same_at_sizes(record, label)
@@ -1380,12 +2161,12 @@ def record_kernelstep(fn: Callable, otype_plane: int = -1,
             cs = tr.comps_of(node)
             if nm == "alive":
                 if cs[0] != ssa.val(U_LD, (), ALIVE_PLANE):
-                    ssa.effects.append((U_ALIVE, cs[0], 0))
+                    ssa.effects.append((U_ALIVE, _to_alive(ssa, cs[0]), 0))
                 continue
             base = {"r": 0, "dr": 3, "v": 6, "dv": 9, "E": 12, "w": 14}[nm]
             for i, c in enumerate(cs):
                 if c != ssa.val(U_LD, (), base + i):
-                    ssa.effects.append((U_ST, c, base + i))
+                    ssa.effects.append((U_ST, _to_float(ssa, c), base + i))
         return _schedule(ssa, 0)
 
     return _same_at_sizes(record, label)
@@ -1442,7 +2223,7 @@ def record_field(fn: Callable, varnames: Tuple[str, ...], label: str,
                 raise Refused("field-fn-callable", f"{label} returns "
                               f"{len(cs)} components where it should "
                               "return one per slot")
-            ssa.effects.append((U_ST, cs[0], j))
+            ssa.effects.append((U_ST, _to_float(ssa, cs[0]), j))
         return _schedule(ssa, 0)
 
     try:
@@ -1470,16 +2251,16 @@ def run_user_program(prog: Program, f: list, alive: torch.Tensor, t, dt,
     C = alive.shape[0]
     dev = alive.device
 
-    def full(x):
-        return torch.full((), float(x), dtype=torch.float32,
-                          device=dev).expand(C)
+    def full(x, t=F32):
+        return torch.full((), x if t != F32 else float(x),
+                          dtype=DTYPES[t], device=dev).expand(C)
 
     one = full(1.0)
     t, dt = t.to(dev, torch.float32).expand(C), dt.to(
         dev, torch.float32).expand(C)
     regs: List[Optional[torch.Tensor]] = [None] * prog.n_regs
     base = rng.idx
-    for ins in prog.ins:
+    for ins, ty in zip(prog.ins, prog.type_list()):
         code, d, a, _, y, _ = ins
         va = regs[a]
         if code == U_ST:
@@ -1501,7 +2282,7 @@ def run_user_program(prog: Program, f: list, alive: torch.Tensor, t, dt,
         elif code == U_UNIF:
             v = rng.uniform_at(base + y + 1)
         else:
-            v = _pure(ins, regs, full, one)
+            v = _pure(ins, regs, full, one, ty)
         regs[d] = v
     rng.idx = base + prog.n_draws
     return alive
@@ -1548,43 +2329,120 @@ def run_binned(bins, prog: Program, f: list, alive: torch.Tensor,
             0, col[keep], val.double()).float()
 
 
-def _pure(ins, regs, full, one) -> torch.Tensor:
+def _pure(ins, regs, full, one, t=F32) -> torch.Tensor:
     """The value of one pure instruction (every code but the loads, draws,
-    stores, alive clears and record sums) over the registers ``regs``:
-    the operation its generated C (ops/codegen.py) matches, in float32;
-    ``full(y)`` a constant as a full-length tensor, ``one`` 1.0 so."""
+    stores, alive clears and record sums) of type ``t`` over the registers
+    ``regs``: the operation its generated C (ops/codegen.py) matches, in
+    the torch dtype of its type; ``full(y, t)`` a constant as a
+    full-length tensor, ``one`` float32 1.0 so."""
     code, _, a, b, y, bimm = ins
     va = regs[a]
     if code == U_CONST:
-        return full(y)
-    if code == U_NEG:
-        return -va
-    if code == U_ABS:
-        return va.abs()
-    if code == U_SQRT:
-        return _sqrt_rn(va)
-    if code == U_RECIP:
-        return torch.div(one, va)
+        return full(y, t)
+    if code == U_CVT:
+        return _convert(va, t)
+    if code == U_BITCAST:
+        return va.contiguous().view(DTYPES[t])
+    if code == U_SEL:
+        if bimm:
+            return torch.where(va != 0, regs[b], full(y, t))
+        return torch.where(va != 0, regs[y], regs[b])
     if code == U_NOT:
         return (va == 0).to(torch.float32)
     if code == U_BOOL:
         return (va != 0).to(torch.float32)
     if code == U_IPOW:
         return _ipow(va, int(y))
-    if code == U_SEL:
-        if bimm:
-            return torch.where(va != 0, regs[b], full(y))
-        return torch.where(va != 0, regs[y], regs[b])
+    if t in INT_BITS and code not in _LOGIC:
+        return _pure_int(code, va, full(y, t) if bimm else regs[b], t)
+    if code == U_NEG:
+        return -va
+    if code == U_ABS:
+        return va.abs()
+    if code == U_SQRT:
+        return _sqrt_rn(va) if t == F32 else _sqrt_f64(va)
+    if code == U_RECIP:
+        return torch.div(one if t == F32 else full(1.0, t), va)
+    if code == U_RSQRT and t == F64:
+        return torch.div(full(1.0, t), _sqrt_f64(va))
     if code in _TWIN_UNARY:
         return _TWIN_UNARY[code](va)
     if code in _TWIN_BINARY:
-        return _TWIN_BINARY[code](va, full(y) if bimm else regs[b])
+        vb = regs[b]
+        if bimm:  # a compare's immediate has its operand's type
+            vb = full(y, _TYPE_OF[va.dtype])
+        return _TWIN_BINARY[code](va, vb)
     raise ValueError(f"program code {code}")
+
+
+_TYPE_OF = {v: k for k, v in DTYPES.items()}
+
+
+def _pure_int(code, va, vb, t) -> torch.Tensor:
+    """An integer instruction of type ``t``: two's complement, wrapping;
+    a division by a nonzero constant and a remainder towards 0 (by -1 the
+    remainder 0); a shift past the width 0 (``<<``) or the sign
+    (``>>``), as XLA and torch define them."""
+    n = INT_BITS[t]
+    if code == U_NEG:
+        return -va
+    if code == U_ABS:
+        return va.abs()
+    if code == U_BNOT:
+        return torch.bitwise_not(va)
+    if code in (U_ADD, U_SUB, U_MUL, U_MIN, U_MAX, U_BAND, U_BOR, U_BXOR):
+        return _INT_BINARY[code](va, vb)
+    if code == U_DIV:
+        return torch.div(va, vb, rounding_mode="trunc")
+    if code == U_FMOD:
+        m1 = vb == -1
+        return torch.where(m1, torch.zeros_like(va),
+                           torch.fmod(va, torch.where(m1, 1, vb)))
+    ok = (vb >= 0) & (vb < n)
+    if code == U_SHL:
+        return torch.where(ok, torch.bitwise_left_shift(
+            va, torch.where(ok, vb, 0)), torch.zeros_like(va))
+    if code == U_SHR:
+        return torch.bitwise_right_shift(va, torch.where(ok, vb, n - 1))
+    raise ValueError(f"integer program code {code}")
+
+
+_INT_BINARY = {U_ADD: torch.add, U_SUB: torch.sub, U_MUL: torch.mul,
+               U_MIN: torch.minimum, U_MAX: torch.maximum,
+               U_BAND: torch.bitwise_and, U_BOR: torch.bitwise_or,
+               U_BXOR: torch.bitwise_xor}
+
+
+def _convert(x: torch.Tensor, t: str) -> torch.Tensor:
+    """``x`` converted to type ``t`` as the kernel's C converts it: a
+    float to an integer truncated towards 0, saturating at the type's
+    range, NaN 0 (``cvt.rzi``); an integer or float64 to a float rounded
+    to nearest; an integer narrowed by its low bits."""
+    dst = DTYPES[t]
+    if x.dtype == dst:
+        return x
+    if t in INT_BITS and x.is_floating_point():
+        n = INT_BITS[t]
+        xd = torch.nan_to_num(x.double(), nan=0.0)
+        big, small = xd >= 2.0 ** (n - 1), xd < -2.0 ** (n - 1)
+        out = torch.where(big | small, 0.0, xd).trunc().to(dst)
+        out = torch.where(big, (1 << (n - 1)) - 1, out)
+        return torch.where(small, -(1 << (n - 1)), out)
+    return x.to(dst)
 
 
 def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root (the kernel's ``sqrtf``)."""
     return torch.sqrt(x.double()).float()
+
+
+def _sqrt_f64(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float64 square root (the kernel's ``sqrt``):
+    torch's on the card; on the CPU numpy's, as torch's vectorized one
+    misses by an ulp."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    return torch.from_numpy(np.sqrt(x.contiguous().numpy()))
 
 
 def _ipow(x: torch.Tensor, y: int) -> torch.Tensor:
@@ -1612,21 +2470,21 @@ def run_field(prog: Program, args, n_out: int = 1):
     dev = args[0].device
     args = [x.expand(shape) for x in args]
 
-    def full(x):
-        return torch.full((), float(x), dtype=torch.float32,
-                          device=dev).expand(shape)
+    def full(x, t=F32):
+        return torch.full((), x if t != F32 else float(x),
+                          dtype=DTYPES[t], device=dev).expand(shape)
 
     one = full(1.0)
     regs: List[Optional[torch.Tensor]] = [None] * prog.n_regs
     out: List[Optional[torch.Tensor]] = [None] * n_out
-    for ins in prog.ins:
+    for ins, ty in zip(prog.ins, prog.type_list()):
         code, d, a, _, y, _ = ins
         if code == U_ST:
             out[y] = regs[a]
         elif code == U_LD:
             regs[d] = args[y]
         else:
-            regs[d] = _pure(ins, regs, full, one)
+            regs[d] = _pure(ins, regs, full, one, ty)
     return out[0] if n_out == 1 else tuple(out)
 
 

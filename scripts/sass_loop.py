@@ -222,7 +222,8 @@ def summary(ins, ranges=None, ballots=None, innermost=False) -> dict:
         return {"ranges": [f"{lo:x}-{hi:x}*{n}" for lo, hi, n in ranges],
                 "executed": len(idx), "classes": count(ins, idx)}
     (lo, hi), outer = iteration_loop(ins, innermost=innermost)
-    fast = [i for i in range(lo, hi + 1) if i not in slow_blocks(ins, lo, hi)]
+    slow = slow_blocks(ins, lo, hi)
+    fast = [i for i in range(lo, hi + 1) if i not in slow]
     n_iter = 1
     if ballots:
         n_iter = max(1, sum(1 for i in range(lo, hi + 1)

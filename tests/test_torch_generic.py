@@ -441,19 +441,20 @@ def test_kernel_limits_do_not_fall_back():
         assert code not in port_codes, code
     assert "user-program" not in inspect.getsource(TP)
     assert not is_kernel_limit("field-fn-gather")
-    # a string construct outside the field IR (an integer bitwise op,
-    # which the reference evaluates)
+    # a string construct outside the field IR (an integer floor division
+    # by a value that may be 0, which the reference evaluates)
     for fuse in ("auto", "off"):
         s = _base(fuse=fuse)
         s.add_step(2, T.light.ScatterIsotropicStep(
             A=1.0, variable_n=True,
-            variable_n_fn="(((r0[gid] > 0) * 3) & 1) + 1.0"))
+            variable_n_fn="(((r0[gid] > 0) * 3) // ((r1[gid] > 0) * 1)) "
+                          "+ 1.0"))
         s.add_photons(T.light.generate_photon_state(64, E=1.0))
         with warnings.catch_warnings():
             warnings.simplefilter("error")
             if fuse == "off":  # the generic tier evaluates the field
                 with pytest.raises(NotImplementedError,
-                                   match="integer bitwise"):
+                                   match="integer floor division"):
                     s._run_impl()
                 assert not s.used_fused
                 continue

@@ -210,11 +210,12 @@ def test_expression_grammar_errors():
         T.light._compile_variable_n("r3[gid] * 2")
     with pytest.raises(ValueError, match="unknown symbol 'hypot'"):
         T.light._compile_variable_n("hypot(r0[gid], 1.0)")
-    # an integer bitwise op: the reference evaluates it, the kernel's
-    # field programs have no such instruction
-    fn = T.light._compile_variable_n("((r0[gid] > 0) * 3) & 1")
+    # an integer floor division by a value that may be 0: the reference
+    # evaluates it, XLA's result there is implementation-defined
+    fn = T.light._compile_variable_n("((r0[gid] > 0) * 3) // "
+                                     "((r1[gid] > 0) * 1)")
     assert fn.spec["error"] is not None and fn.spec["raises"] is None
-    with pytest.raises(NotImplementedError, match="integer bitwise"):
+    with pytest.raises(NotImplementedError, match="integer floor division"):
         fn(torch.zeros(3), torch.zeros(3), torch.zeros(3))
     # what the reference's eval over jnp raises on raises as it does
     for expr, exc in (("0 < r0[gid] < 1", ValueError),
@@ -522,17 +523,18 @@ def _refusing_sim(step, fuse="auto"):
 _FIELD_ERRORS = {
     "field-fn-callable": (TypeError, "missing 2 required positional"),
     "field-expr-unsupported": (NotImplementedError,
-                               "integer bitwise op &"),
+                               "integer floor division by a value"),
 }
 
 
 @pytest.mark.parametrize("code,make", [
     ("field-fn-callable", lambda: T.light.ScatterDeleteStep(
         1.0, 1.0, A_fn=T.light.layered_density([0, 1], [1]))),
-    # an integer bitwise op (the reference evaluates it; the kernel's
-    # field programs hold no integer bit operations)
+    # an integer floor division by a value that may be 0 (the reference
+    # evaluates it; XLA's result there is implementation-defined)
     ("field-expr-unsupported", lambda: T.light.ScatterIsotropicStep(
-        A=1.0, variable_n=True, variable_n_fn="((r0[gid] > 0) * 3) & 1")),
+        A=1.0, variable_n=True,
+        variable_n_fn="((r0[gid] > 0) * 3) // ((r1[gid] > 0) * 1)")),
 ])
 def test_field_refusals(code, make):
     s = _refusing_sim(make())

@@ -525,10 +525,12 @@ _REFUSALS = {
         _ew(lambda p: {"E": p.E / p.E.shape[0]}),
         "elementwise-not-elementwise", "elementwise-not-elementwise"),
     "elementwise-trace": (_ew(_branchy), "elementwise-trace", None),
-    # the ops the kernel has no instruction for yet (ROADMAP.md section 3)
+    # the ops the kernel has no instruction for (ROADMAP.md section 3:
+    # jnp iterates the incomplete gammas with a while loop; jnp has no
+    # erfcx)
     "elementwise-op-unsupported": (
-        _ew(lambda p: {"E": torch.digamma(p.E)},
-            lambda p: {"E": jax.scipy.special.digamma(p.E)}),
+        _ew(lambda p: {"E": torch.special.gammainc(p.E, p.w + 1.0)},
+            lambda p: {"E": jax.scipy.special.gammainc(p.E, p.w + 1.0)}),
         "elementwise-op-unsupported", None),
     "elementwise-probe-error": (
         _ew(lambda p: {"E": p.extras["nope"]}, extras=("dose",)),
@@ -544,13 +546,11 @@ _REFUSALS = {
              lambda p: {"x": p.E * 0 + jnp.sum(p.E)}),
         "reduce-not-elementwise", "reduce-not-elementwise"),
     "reduce-op-unsupported": (
-        _red(lambda p: {"x": torch.special.i0(p.E)},
-             lambda p: {"x": jax.scipy.special.i0(p.E)}),
+        _red(lambda p: {"x": torch.special.gammaincc(p.E, p.w + 1.0)},
+             lambda p: {"x": jax.scipy.special.gammaincc(p.E, p.w + 1.0)}),
         "reduce-op-unsupported", None),
     "kernelstep-op-unsupported": (
-        _ks(lambda s, ctx: s.replace(E=torch.special.ndtri(s.E * 0.25)),
-            lambda s, ctx: s.replace(
-                E=jax.scipy.special.ndtri(s.E * 0.25))),
+        _ks(lambda s, ctx: s.replace(E=torch.special.erfcx(s.E * 0.25))),
         "kernelstep-op-unsupported", None),
     "kernelstep-ctx": (
         _ks(lambda s, ctx: s.replace(E=s.E * ctx.next_key())),
