@@ -284,8 +284,12 @@ Phases (any failure exits non-zero and prints no result line):
     unary and ternary ones, the typed values (``ops-typed``: int32 and
     int64 arithmetic past 2**24 and across the int32 wrap, the bitwise
     ops, shifts at edge amounts, conversions that saturate or meet NaN,
-    float64 casts and double libm) and group C's special functions
-    (``ops-special``), each op one ElementwiseStep drawing its operands in
+    float64 casts and double libm), group C's special functions
+    (``ops-special``) and the incomplete gammas' loops with Cephes' j0 /
+    j1 on their hard inputs (``ops-loops``: a <= 0, x < 0, x = 0, x near
+    a, both sides of the switch, tiny and large a, NaN, inf, a lane at the
+    continued fraction's 2000-term cap in the first four iterations),
+    each op one ElementwiseStep drawing its operands in
     its domain and storing its value in a plane of its own, then a
     ReduceMeasureStep summing each op's plane; and the string grammar's
     constructs, one ScatterIsotropicStep a string: over their first 64
@@ -293,8 +297,13 @@ Phases (any failure exits non-zero and prints no result line):
     differs names its op), rec_f as in phase 3; each kernel timed over all
     256 against its bound, printed with its form library's report, then
     run through Simulation for its launch; then the lattice path's first
-    chunk (10**7 x 1024, over its first 256 iterations), as phase 30, and
-    the voxel-index path's (over its first 64);
+    chunk (10**7 x 1024, over its first 256 iterations), as phase 30, the
+    voxel-index path's and the aperture path's (over their first 64); each
+    bound counts a branched arm (``ops/record.py:branched_arms``) on the
+    lanes that took it and a loop's body times each lane's iterations, from
+    the twin's lane counts (``ops/record.py:lane_tally``; the iterations
+    past the twin's at the mean of its later half, ``lane_weights``), and
+    prints the count with every arm and loop body once beside it;
 31b. lattice path (a checkerboard density string, an absorber through
     -expm1 outside a soft sigmoid aperture of hypot, observables through
     atan2, erfc and tanh): 10**7 photons, 3 chunks of 1024, run twice (the
@@ -310,6 +319,15 @@ Phases (any failure exits non-zero and prints no result line):
     the host's recomputation from the harvested planes, the smear's mean
     and variance within their statistical bounds, the weights in range;
     the rate, peak memory and idle share;
+31d. aperture path (the main path's steps, then a pinhole's Airy weight
+    ``(2 J1(x) / x)**2`` of the exit angle, x in [0, 40], past 30 where
+    jnp's float32 ``bessel_jn`` fails, and a counting pixel's ``gammainc(K,
+    lambda(E))`` with its complement ``gammaincc`` in extras, tallied with
+    ``bessel_j0(x)**2`` by a ReduceMeasureStep): 10**7 photons, 3 chunks of
+    1024, run twice (the second profiled): ``pdet + pmiss = 1`` within
+    2e-6 a photon and in the row sums, the weights in [0, 1], the last row
+    against scipy in float64 on the final planes within 1e-5 a photon; the
+    rate, peak memory and idle share;
 32. the generic step tier on the main path: the ``bench.py`` workload with
     ``fuse="off"`` (10**7 photons, 1024 iterations in chunks of 256): no
     ``fused_transport`` launch (the counts, and torch.profiler over a
@@ -457,9 +475,10 @@ each path: ``fused_transport`` once each for the gamma, glass, thermal,
 stretch and fluorescence paths, the ExB (``lorentz``), mixed and
 record-tile paths, the polarized and polarimetry paths, the user and
 spectrum paths (their ``replaces`` the user ops of kernel 1i), the
-widened table's six group plans (their launch through Simulation), the
-lattice path and the voxel-index path (``replaces`` kernel 1i's user ops
-too), the mirror
+widened table's seven group plans (their launch through Simulation), the
+lattice path, the voxel-index path and the aperture path (``replaces``
+kernel 1i's user ops too; ``bound_all_arms_ms`` the bound with every arm
+and loop body counted once), the mirror
 and callable-phase paths, the main path after a mid-run injection (its
 first chunk at the grown capacity), the main path over an 8-shard mesh
 (its ``ms`` the chunk of the 8 launches together), the main path across
@@ -991,11 +1010,11 @@ def bound(n_bytes, f32_ops, i32_ops, loads=0):
     return terms[top], "bytes" if top == "bytes" else "operations"
 
 
-def field_cost(fn):
+def field_cost(fn, weights=None):
     """(per-read SEQ_OPS tuples, lane-loads) of one read of a field
     callable, from its spec: the voxel arithmetic and its corner reads, the
     layered bisection and its table reads, or an expression program's
-    operations (``prog_ops``)."""
+    operations (``prog_ops``, with the lanes ``weights`` counts)."""
     spec = fn.spec
     if spec["kind"] == "voxel":
         key = "voxel_tri" if spec["interp"] == "trilinear" else "voxel_near"
@@ -1005,10 +1024,41 @@ def field_cost(fn):
         per = [SEQ_OPS["layered_r" if spec["axis"] == 3 else "layered_axis"]]
         per += [SEQ_OPS["layered_level"]] * levels
         return per, LOADS_PER_FIELD["layered"] + levels
-    return [prog_ops(spec)], 0
+    return [prog_ops(spec, weights)], 0
 
 
-def user_cost(op):
+def lane_weights(tally, scale=1.0):
+    """``{id(program): per-instruction weight}`` from the twin's lane
+    counts (``ops/record.py:lane_tally``, a program's runs in order): the
+    lanes that ran each instruction (a branched arm's the lanes that took
+    it, a loop body's the lanes of each iteration, summed) over the lanes
+    the program ran on. ``scale`` (the timed iterations over the twin's)
+    stands the twin's runs for a longer timed run: the runs past the twin's
+    count at the mean of its later half, so work that the data puts only in
+    the first iterations counts once, as the timed run does it."""
+    out = {}
+    for key, runs in (tally or {}).items():
+        lanes = sum(c for c, _ in runs)
+        counts = [sum(col) for col in zip(*(cs for _, cs in runs))]
+        late = runs[len(runs) // 2:]
+        more = (scale - 1.0) * len(runs) / len(late)
+        lanes += more * sum(c for c, _ in late)
+        counts = [c + more * sum(col) for c, col in zip(
+            counts, zip(*(cs for _, cs in late)))]
+        out[key] = [c / max(lanes, 1) for c in counts]
+    return out
+
+
+def _weighted(prog, weights, i, term):
+    """``term`` of instruction ``i`` of ``prog`` times its lane weight
+    (``lane_weights``; 1 for every instruction where ``weights`` has none
+    for the program: every arm, and a loop body once, the all-arms
+    count)."""
+    w = (weights or {}).get(id(prog))
+    return term if w is None else (w[i], term)
+
+
+def user_cost(op, weights=None):
     """The SEQ_OPS tuple per slot-iteration of the work a recorded user
     program asks for (kernel 1i): each operation the user's callable wrote
     (a correctly rounded divide, root or reciprocal as _DIV or _SQRT, an
@@ -1018,13 +1068,26 @@ def user_cost(op):
     products, a compare on the ALU pipe, a select issue only), a draw and
     its uniform, an alive clear, a record sum (its select and add) and a
     reduce's count; loads, constants and stores are register moves, and t
-    and dt are the schedule's."""
+    and dt are the schedule's. A fused multiply-add is one FMA-pipe
+    operation; a loop's test a compare and a branch an iteration, its
+    carried values' moves free. With ``weights`` (``lane_weights``) each
+    instruction counts on the lanes that ran it: a branched arm's where its
+    select took it, a loop body's times each lane's iterations; without,
+    every arm and a loop body once (the all-arms count)."""
     from physicl_tpu_torch.ops import record as RC
 
     terms = []
-    for (code, _, _, _, y, _), t, (ta, _) in zip(
-            op.prog.ins, op.prog.type_list(), op.prog.operand_types()):
-        if code in (RC.U_LD, RC.U_T, RC.U_DT, RC.U_CONST, RC.U_ST):
+    prog = op.prog
+    for i, ((code, _, _, _, y, _), t, (ta, _)) in enumerate(zip(
+            prog.ins, prog.type_list(), prog.operand_types())):
+        if code in (RC.U_LD, RC.U_T, RC.U_DT, RC.U_CONST, RC.U_ST,
+                    RC.U_CARRY, RC.U_SET, RC.U_END):
+            continue
+        n0 = len(terms)
+        if code == RC.U_LOOP:
+            terms.append((0, 1, 1, 0))
+            terms[n0:] = [_weighted(prog, weights, i + 1, x)
+                          for x in terms[n0:]]
             continue
         typed = typed_cost(code, t, ta)
         if typed is not None:
@@ -1061,6 +1124,7 @@ def user_cost(op):
             terms.append((0, 1, 1, 0))
         else:
             terms.append((1, 0, 0, 0))
+        terms[n0:] = [_weighted(prog, weights, i, x) for x in terms[n0:]]
     if op.kind == "reduce" and op.cols[0] >= 0:
         terms.append(SEQ_OPS["count"])
     if getattr(op, "bins", None) is not None:
@@ -1093,12 +1157,12 @@ def main_form(plan):
     return dataclasses.replace(plan, specialize=True, chunk=1).kernel_seq
 
 
-def seq_terms(plan, slots, k_act, starts=None, events=None):
+def seq_terms(plan, slots, k_act, starts=None, events=None, weights=None):
     """bound_terms() of one launch of ``plan`` from SEQ_OPS, and the time
     to issue its operations at one instruction each (``issue``) and the
     MUFU pipe's time (16 lanes per SM and clock)."""
     n_bytes, fma, alu, loads, issue, mufu = transport_work(
-        plan, slots, k_act, starts, events)
+        plan, slots, k_act, starts, events, weights=weights)
     terms = bound_terms(n_bytes, fma, alu, loads)
     terms["issue"] = (fma + alu + issue + mufu) / 32 / PEAK_ISSUE * 1e3
     terms["mufu"] = mufu / (PEAK_F32 / 8) * 1e3
@@ -1106,10 +1170,11 @@ def seq_terms(plan, slots, k_act, starts=None, events=None):
 
 
 def transport_bound(plan, slots, k_act, starts, events=None,
-                    per_mask=False):
-    """bound() of one fused_transport launch of ``plan``."""
+                    per_mask=False, weights=None):
+    """bound() of one fused_transport launch of ``plan`` (``weights``: the
+    programs' lane weights, ``lane_weights``)."""
     return bound(*transport_counts(plan, slots, k_act, starts, events,
-                                   per_mask))
+                                   per_mask, weights))
 
 
 def expected_events(plan, packed, alive_steps, dt, cross_p=0.0):
@@ -1148,14 +1213,15 @@ def expected_events(plan, packed, alive_steps, dt, cross_p=0.0):
 
 
 def transport_counts(plan, slots, k_act, starts, events=None,
-                     per_mask=False):
+                     per_mask=False, weights=None):
     """(bytes, FMA-pipe ops, ALU-pipe ops, lane-loads) of one
     fused_transport launch of ``plan`` (``transport_work``)."""
-    return transport_work(plan, slots, k_act, starts, events, per_mask)[:4]
+    return transport_work(plan, slots, k_act, starts, events, per_mask,
+                          weights)[:4]
 
 
 def transport_work(plan, slots, k_act, starts, events=None,
-                   per_mask=False):
+                   per_mask=False, weights=None):
     """(bytes, FMA-pipe ops, ALU-pipe ops, lane-loads, issue-only ops, MUFU
     ops) of one fused_transport launch of ``plan``: 2 x 60 B per slot, 4 B
     per extras plane per slot read (and per emitted slot written, and for
@@ -1170,7 +1236,9 @@ def transport_work(plan, slots, k_act, starts, events=None,
     (no op between moves the particle: ``ops/codegen.py``) is read once.
     A binned reduce counts its search, its column and one sum a slot
     (``user_cost``), or with ``per_mask`` its masks and a sum a column
-    (``mask_cost``: the count before the tallies were binned)."""
+    (``mask_cost``: the count before the tallies were binned). With
+    ``weights`` (``lane_weights``, from the twin) a user or field program's
+    branched arms and loop bodies count on the lanes that ran them."""
     form = main_form(plan)
     if form is not None:
         per = [SEQ_OPS[k] for k in form]
@@ -1194,7 +1262,7 @@ def transport_work(plan, slots, k_act, starts, events=None,
             per.append(SEQ_OPS["field"])
             if is_n and shared[i]:
                 continue
-            cost, ld = field_cost(fn)
+            cost, ld = field_cost(fn, weights)
             per += cost
             loads += ld
             if fn.spec["kind"] == "voxel":
@@ -1267,7 +1335,8 @@ def transport_work(plan, slots, k_act, starts, events=None,
             once += [(SEQ_OPS["rot_pair"], n_ev), (SEQ_OPS["rotate"], n_ev)]
             if op.kind == "phase" and op.phase_fn is not None:
                 # a recorded inverse CDF: its program and the clip
-                once.append((_sum(prog_ops(op.phase_fn.spec), (0, 2, 0, 0)),
+                once.append((_sum(prog_ops(op.phase_fn.spec, weights),
+                                  (0, 2, 0, 0)),
                              n_ev))
             else:
                 once.append((SEQ_OPS[f"{op.kind}_cos"], n_ev))
@@ -1311,7 +1380,7 @@ def transport_work(plan, slots, k_act, starts, events=None,
             if op.bins is not None and per_mask:
                 per.append(mask_cost(op))
             else:
-                per.append(user_cost(op))
+                per.append(user_cost(op, weights))
                 if op.bins is not None:
                     loads += op.bins.levels  # the search's table reads
         elif op.kind == "lorentz":
@@ -1322,7 +1391,7 @@ def transport_work(plan, slots, k_act, starts, events=None,
                 per.append(SEQ_OPS["lorentz_B"])
             # recorded fields: each field's program (its three components
             # at once) at every push
-            per += [prog_ops(fn.spec) for fn in (op.e_fn, op.b_fn)
+            per += [prog_ops(fn.spec, weights) for fn in (op.e_fn, op.b_fn)
                     if fn is not None]
             if op.qm_plane >= 0:
                 per.append(SEQ_OPS["lorentz_qm"])
@@ -1457,6 +1526,7 @@ def main():
            "past-caps": 0.0, "ops-libm": 0.0, "ops-binary": 0.0,
            "ops-composite": 0.0, "ops-strings": 0.0, "lattice": 0.0,
            "ops-typed": 0.0, "ops-special": 0.0, "voxel-index": 0.0,
+           "ops-loops": 0.0, "aperture": 0.0,
            "shrink": 0.0, "main-injected": 0.0, "main-mesh": 0.0,
            "main-mp": 0.0}
     a_E, b_E = planck_window()
@@ -1970,6 +2040,11 @@ def main():
         "voxel-index-chunk-0", voxel_sim(phys, VOX_N, dev)[0], F, torch,
         compare, "voxel-index", card, ["kin", "iso", "custom", "reduce"],
         streams=False, twin_iters=VOX_TWIN_K)
+    aft = path_chunk0(
+        "aperture-chunk-0", aperture_sim(phys, AP_N, dev)[0], F, torch,
+        compare, "aperture", card, ["kin", "iso", "sign", "custom",
+                                    "reduce"],
+        streams=False, twin_iters=AP_TWIN_K)
 
     phase("planck_gen vs twin (10**7 samples)")
     n_gen = 10_000_000
@@ -2125,6 +2200,7 @@ def main():
     uruns = user_paths(torch, phys, F, dev, card, uft, spft)
     lat = lattice_path(torch, phys, F, dev, card, lft)
     vox = voxel_path(torch, phys, F, dev, card, vft)
+    ape = aperture_path(torch, phys, F, dev, card, aft)
     generic_paths(torch, phys, F, P, dev, card, main_data, main_rate)
     recorded_plan_phase(torch, phys, F, dev, compare, card, times)
     mir_ft, mir_launches, _ = mirror_path(torch, phys, F, dev, card, compare)
@@ -2192,6 +2268,12 @@ def main():
                       "generated_by": "physicl_tpu_torch/ops/codegen.py",
                       "path": "voxel-index", "launches": vox["fused_launches"],
                       "max_abs_err": err["voxel-index"], **vft,
+                      "library_ms": None})
+    # the incomplete gammas' loops and Cephes' j0 / j1: the aperture path
+    new_paths.append({**ft_src, "replaces": "physicl_tpu/ops/fused.py:1448",
+                      "generated_by": "physicl_tpu_torch/ops/codegen.py",
+                      "path": "aperture", "launches": ape["fused_launches"],
+                      "max_abs_err": err["aperture"], **aft,
                       "library_ms": None})
     # the recorded fields and inverse CDFs
     new_paths += [
@@ -3155,8 +3237,9 @@ def path_chunk0(name, sim, F, torch, compare, path, card, kinds,
     loop = form_loop(F, plan)
     print(f"{name}: {form_report(plan, info, loop)} [{card}]", flush=True)
     kc = min(k, twin_iters or k)
-    out = {"plain_ms": compare(name, packed, sched, kc, plan, None, path,
-                               seed, need_bitwise=True)}
+    out = {"plain_ms": twin_tallied(compare, name, packed, sched, kc, plan,
+                                    path, seed, k)}
+    weights = compare.weights
     if kc < k:
         out["plain_iters"] = kc
     res = torch.empty_like(packed)
@@ -3166,7 +3249,9 @@ def path_chunk0(name, sim, F, torch, compare, path, card, kinds,
     out["ms"] = cuda_ms(lambda: F.fused_transport(packed, res, sched, seed,
                                                   k, plan), 3, torch)
     out["bound_ms"], out["bound_by"] = transport_bound(
-        plan, packed.shape[1], k, None, events)
+        plan, packed.shape[1], k, None, events, weights=weights)
+    out["bound_all_arms_ms"] = transport_bound(
+        plan, packed.shape[1], k, None, events)[0]
     if any(op.bins is not None for op in plan.ops):
         # the bound as counted before the tallies were binned
         out["bound_per_mask_ms"] = transport_bound(
@@ -3177,12 +3262,33 @@ def path_chunk0(name, sim, F, torch, compare, path, card, kinds,
               flush=True)
     out.update(info)
     out["sass_per_iteration"] = loop["per_iteration"]
-    terms = seq_terms(plan, packed.shape[1], k, None, events)
+    terms = seq_terms(plan, packed.shape[1], k, None, events, weights)
     print(f"{name}: kernel {out['ms']:.2f} ms, twin {out['plain_ms']:.1f} "
           f"ms, bound {out['bound_ms']:.2f} ms ({out['bound_by']}; ms per "
           "term: " + ", ".join(f"{t} {v:.2f}" for t, v in terms.items())
-          + f") per chunk [{card}]", flush=True)
+          + f"; every arm and loop body once: "
+          f"{out['bound_all_arms_ms']:.2f} ms) per chunk [{card}]",
+          flush=True)
     return out
+
+
+def twin_tallied(compare, name, packed, sched, k, plan, path, seed,
+                 k_timed, row_names=None):
+    """``compare`` (kernel against twin, bitwise, over ``k`` iterations)
+    with the twin's lane counts recorded (``ops/record.py:lane_tally``);
+    returns the twin's ms and leaves the programs' lane weights over the
+    ``k_timed`` iterations the kernel is timed over (``lane_weights``) in
+    ``compare.weights``."""
+    from physicl_tpu_torch.ops import record as RC
+
+    RC.lane_tally = {}
+    try:
+        ms = compare(name, packed, sched, k, plan, None, path, seed=seed,
+                     need_bitwise=True, row_names=row_names)
+        compare.weights = lane_weights(RC.lane_tally, k_timed / k)
+    finally:
+        RC.lane_tally = None
+    return ms
 
 
 def run_sim(torch, sim, profile=False):
@@ -5514,6 +5620,7 @@ def user_plan_sims(phys, dev, n):
         sims[case] = ops_plan_sim(phys, case, dev, n=n, chunk=16)
     sims["lattice"] = lattice_sim(phys, n, dev, iters=16, chunk=16)[0]
     sims["voxel-index"] = voxel_sim(phys, n, dev, iters=16, chunk=16)[0]
+    sims["aperture"] = aperture_sim(phys, n, dev, iters=16, chunk=16)[0]
     return sims
 
 
@@ -6035,7 +6142,59 @@ def ops_groups(torch):
     groups = {"ops-libm": libm, "ops-binary": binary,
               "ops-composite": composite}
     groups.update(ops_typed_groups(torch))
+    groups["ops-loops"] = ops_loop_group(torch)
     return groups
+
+
+def ops_loop_group(torch):
+    """The ``ops-loops`` group: the incomplete gammas (a bounded loop on
+    each side of their switch) and Cephes' j0 / j1, one ElementwiseStep
+    an op, on the hard inputs of ``tests/test_torch_loops.py``: a < 0, x
+    < 0, x = 0, x within 1e-3 of a, x below 1, tiny a, NaN a and inf x
+    among moderate (a, x) on every iteration; a to 3e4 with x within 3
+    sqrt(a) of it, and a lane in a thousand at the continued fraction's
+    2000-term cap (a = 1e8), in the first four iterations only (the twin
+    runs a loop to its slowest lane; the bound counts them in 4 of the
+    timed iterations, ``lane_weights``); j0 / j1 over [-60, 60] with
+    signed zeros. A NaN result is stored as 0.5 (every stored value
+    finite)."""
+    U = lambda p: p.uniform()  # noqa: E731
+    where = torch.where
+
+    def operands(p):
+        u, v, w = U(p), U(p), U(p)
+        early = p.t < 4.5 * USER_DT
+        a = _span(v, 0.1, 30)
+        x = _span(w, 0, 60)
+        a = where(u < 0.05, -a, a)
+        x = where((u >= 0.05) & (u < 0.1), -x, x)
+        x = where((u >= 0.1) & (u < 0.15), 0.0, x)
+        x = where((u >= 0.15) & (u < 0.3), a * (1.0 + (w - 0.5) * 2e-3), x)
+        x = where((u >= 0.3) & (u < 0.4), w, x)
+        a = where((u >= 0.4) & (u < 0.45), torch.exp(v * -60.0), a)
+        a = where((u >= 0.45) & (u < 0.46), float("nan"), a)
+        x = where((u >= 0.46) & (u < 0.47), float("inf"), x)
+        big = early & (u >= 0.5) & (u < 0.6)
+        a = where(big, v * 3e4 + 1e3, a)
+        x = where(big, a + (w - 0.5) * 6.0 * torch.sqrt(a), x)
+        cap = early & (u >= 0.999)
+        a = where(cap, 1e8, a)
+        x = where(cap, 1e8 + 8.0 + w * 16.0, x)
+        return a, x
+
+    def arg(p):
+        u, v = U(p), U(p)
+        return where(v < 0.03, (u - 0.5) * 0.0, _span(u, -60, 60))
+
+    def finite(y):
+        return torch.nan_to_num(y, nan=0.5)
+
+    return {
+        "gammainc": lambda p: finite(torch.special.gammainc(*operands(p))),
+        "gammaincc": lambda p: finite(torch.special.gammaincc(*operands(p))),
+        "bessel_j0": lambda p: torch.special.bessel_j0(arg(p)),
+        "bessel_j1": lambda p: torch.special.bessel_j1(arg(p)),
+    }
 
 
 I32_MIN = -(1 << 31)
@@ -6262,7 +6421,7 @@ def lattice_sim(phys, n, dev, iters=LAT_ITERS, chunk=LAT_CHUNK, seed=0):
 
 
 OPS_PLANS = ("ops-libm", "ops-binary", "ops-composite", "ops-strings",
-             "ops-typed", "ops-special")
+             "ops-typed", "ops-special", "ops-loops")
 
 
 def ops_plan_phase(torch, phys, F, dev, compare, card, times):
@@ -6296,9 +6455,8 @@ def ops_plan_phase(torch, phys, F, dev, compare, card, times):
         info = form_info(F, plan, packed.shape[1], k)
         print(f"{case}: {form_report(plan, info, form_loop(F, plan))} "
               f"[{card}]", flush=True)
-        plain_ms = compare(case, packed, sched, OPS_TWIN_K, plan, None,
-                           case, seed=seed, need_bitwise=True,
-                           row_names=names)
+        plain_ms = twin_tallied(compare, case, packed, sched, OPS_TWIN_K,
+                                plan, case, seed, k, row_names=names)
         res = torch.empty_like(packed)
         rec = F.fused_transport(packed, res, sched, seed, k, plan)[0]
         torch.cuda.synchronize()
@@ -6306,7 +6464,9 @@ def ops_plan_phase(torch, phys, F, dev, compare, card, times):
                                                plan), 5, torch)
         events = expected_events(plan, packed,
                                  float(rec[:k, 0].double().sum()), USER_DT)
-        b_ms, b_by = transport_bound(plan, packed.shape[1], k, None, events)
+        b_ms, b_by = transport_bound(plan, packed.shape[1], k, None, events,
+                                     weights=compare.weights)
+        all_ms = transport_bound(plan, packed.shape[1], k, None, events)[0]
         del packed, res
         F.fused_transport.launches = 0
         sim = ops_plan_sim(phys, case, dev)
@@ -6327,10 +6487,12 @@ def ops_plan_phase(torch, phys, F, dev, compare, card, times):
         times[case] = ms
         out[case] = {"ms": ms, "plain_ms": plain_ms,
                      "plain_iters": OPS_TWIN_K, "bound_ms": b_ms,
-                     "bound_by": b_by, "launches": launches, **info}
+                     "bound_by": b_by, "bound_all_arms_ms": all_ms,
+                     "launches": launches, **info}
         print(f"{case} at 2**20 x {k}: kernel {ms:.3f} ms, twin "
               f"{plain_ms:.3f} ms over {OPS_TWIN_K} iterations, bound "
-              f"{b_ms:.3f} ms ({b_by}); "
+              f"{b_ms:.3f} ms ({b_by}; every arm and loop body once: "
+              f"{all_ms:.3f} ms); "
               f"{len(plan.ops)} ops, {n_ins} program instructions; "
               f"through Simulation: {launches} launches [{card}]",
               flush=True)
@@ -6572,6 +6734,176 @@ def voxel_path(torch, phys, F, dev, card, vft):
     return {"fused_launches": launches, "rate": rate}
 
 
+AP_N = 10_000_000        # the aperture path: bench.py's width
+AP_CHUNK = 1024
+AP_ITERS = 3 * AP_CHUNK
+AP_TWIN_K = 64           # iterations of the first chunk the twin holds
+AP_XMAX = 40.0           # the pinhole's k a: x = k a sin(theta) in [0, 40]
+AP_K = 5.0               # the counting pixel's threshold (photoelectrons)
+AP_GAIN = 4.0            # its mean photoelectrons per unit of E
+AP_EXTRAS = ("airy", "pdet", "pmiss")
+AP_OUTPUTS = ("airy", "pdet", "pmiss", "j0sq")
+
+
+def aperture_steps(phys, c_dt):
+    """The aperture path's steps (the imaging users' pinhole and photon-
+    counting pixel, as they write them): the main path's
+    (UpdateTimeStep(1e-3) -> NewtonianKinematics -> ScatterIsotropic(A = n =
+    1e-3) -> ScatterSignMeasure), then an ElementwiseStep writing a
+    pinhole's Airy weight ``(2 J1(x) / x)**2`` (x = AP_XMAX sin theta of
+    the exit direction, 1 at x = 0) and a counting pixel's detection
+    probability ``gammainc(K, lambda)`` with its complement ``gammaincc``
+    (lambda = AP_GAIN E) into extras, then a ReduceMeasureStep tallying
+    those and ``bessel_j0(x)**2`` with the alive count. Returns ``(steps,
+    reduce)``."""
+    import torch
+
+    light = phys.light
+    c = float(light.c)
+
+    def exit_x(p):
+        return AP_XMAX * torch.sqrt(p.vx * p.vx + p.vy * p.vy) / c
+
+    def pinhole(p):
+        x = exit_x(p)
+        airy = torch.where(x > 0, (2.0 * torch.special.bessel_j1(x) / x) ** 2,
+                           1.0)
+        lam = AP_GAIN * p.E
+        k = torch.full_like(lam, AP_K)
+        return {"airy": airy, "pdet": torch.special.gammainc(k, lam),
+                "pmiss": torch.special.gammaincc(k, lam)}
+
+    def tally(p):
+        return {"airy": p.extras["airy"], "pdet": p.extras["pdet"],
+                "pmiss": p.extras["pmiss"],
+                "j0sq": torch.special.bessel_j0(exit_x(p)) ** 2}
+
+    red = phys.ReduceMeasureStep(None, tally, outputs=AP_OUTPUTS,
+                                 measure_n=True, extras=AP_EXTRAS)
+    return [phys.UpdateTimeStep(lambda s: np.double(USER_DT)),
+            phys.newton.NewtonianKinematicsStep(),
+            light.ScatterIsotropicStep(A=np.double(1e-3), n=np.double(1e-3)),
+            light.ScatterSignMeasureStep(None, True),
+            phys.ElementwiseStep(pinhole, extras_write=AP_EXTRAS), red], red
+
+
+def aperture_sim(phys, n, dev, iters=AP_ITERS, chunk=AP_CHUNK, seed=0):
+    """The aperture path: ``aperture_steps`` on n photons from N(0, 150 c
+    dt) per axis in isotropic directions (x spans 0-40, past 30 where jnp's
+    ``bessel_jn`` fails in float32), E in [0.5, 2] (lambda in [2, 8], both
+    sides of the incomplete gammas' switch at K = 5). Returns ``(sim,
+    reduce)``."""
+    import torch
+
+    light = phys.light
+    c = float(light.c)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sim = phys.Simulation(until_t=(iters - 0.5) * USER_DT, seed=seed,
+                          chunk_steps=chunk, device=dev, auto_shrink=False)
+    steps, red = aperture_steps(phys, c * USER_DT)
+    for i, st in enumerate(steps):
+        sim.add_step(i, st)
+    bulk = light.generate_photon_state(
+        n, E=torch.rand(n, generator=gen, device=dev) * 1.5 + 0.5,
+        r=torch.randn((3, n), generator=gen, device=dev) * 150 * c * USER_DT,
+        v=isotropic_v(torch, n, c, gen, dev), device=dev)
+    bulk["extras"] = {k: torch.zeros(n, device=dev) for k in AP_EXTRAS}
+    sim.add_photons(bulk)
+    return sim, red
+
+
+def aperture_truth(v, E, alive, c):
+    """The aperture tally's sums (airy, pdet, pmiss, j0sq) over the alive
+    photons of planes ``v`` (3, n) and ``E``, in float64 by scipy."""
+    import scipy.special as ss
+
+    v = np.asarray(v, np.float64)[:, alive]
+    x = AP_XMAX * np.sqrt(v[0] ** 2 + v[1] ** 2) / c
+    with np.errstate(all="ignore"):
+        airy = np.where(x > 0, (2.0 * ss.j1(x) / x) ** 2, 1.0)
+    lam = AP_GAIN * np.asarray(E, np.float64)[alive]
+    return np.array([airy.sum(), ss.gammainc(AP_K, lam).sum(),
+                     ss.gammaincc(AP_K, lam).sum(), (ss.j0(x) ** 2).sum()])
+
+
+def aperture_gates(torch, sim, red, n, iters):
+    """The aperture path's laws: ``pdet + pmiss = 1`` within 2e-6 for
+    every alive photon (and the row sums to the alive count within 2e-6 a
+    photon), the weights in range (airy, pdet, pmiss and j0sq in [0, 1]),
+    the alive count n on every row (nothing absorbs), and the last row
+    against scipy in float64 on the final planes within 1e-5 a photon."""
+    rows = np.asarray(red.data, np.float64)
+    check(rows.shape == (iters, 2 + len(AP_OUTPUTS))
+          and bool((rows[:, 1] == n).all()),
+          f"aperture: rows {rows.shape}, alive {rows[:, 1].min()} of {n}")
+    m = rows[:, 1]
+    check(bool(np.isfinite(rows).all()), "aperture: non-finite tallies")
+    check(bool((np.abs(rows[:, 3] + rows[:, 4] - m) <= 2e-6 * m).all()),
+          "aperture: pdet + pmiss sums off the alive count")
+    check(bool(((rows[:, 2:] >= 0) & (rows[:, 2:] <= m[:, None] * (1 + 1e-6))
+                ).all()), "aperture: a weight outside [0, 1]")
+    st = sim.sim_state
+    alive = st.alive[:n]
+    x = st.extras
+    pd, pm = x["pdet"][:n][alive], x["pmiss"][:n][alive]
+    worst = float((pd.double() + pm.double() - 1.0).abs().max())
+    check(worst <= 2e-6, f"aperture: pdet + pmiss - 1 reaches {worst:.2e}")
+    for k in AP_EXTRAS:
+        w = x[k][:n][alive]
+        check(bool(((w >= 0) & (w <= 1)).all()), f"aperture: {k} outside "
+              "[0, 1]")
+    want = aperture_truth(st.v[:, :n].cpu().numpy(), st.E[:n].cpu().numpy(),
+                          alive.cpu().numpy(), C_LIGHT)
+    err = float(np.abs(rows[-1, 2:] - want).max() / max(m[-1], 1.0))
+    check(err <= 1e-5, f"aperture: last row {rows[-1, 2:]} against scipy's "
+          f"{want} ({err:.2e} a photon)")
+    return (f"pdet + pmiss within {worst:.1e} of 1 a photon, weights in "
+            f"[0, 1], the last row within {err:.1e} a photon of scipy in "
+            "float64")
+
+
+def aperture_path(torch, phys, F, dev, card, aft):
+    """Phase: the aperture path through Simulation at 10**7 photons,
+    twice (the second profiled): its laws, the rate over the dispatch
+    loop, the device idle share. Returns the first run's launches."""
+    phase(f"aperture path: {AP_N} photons, {AP_ITERS} iterations in chunks "
+          f"of {AP_CHUNK}")
+
+    def run(profile):
+        F.fused_transport.launches = 0
+        built = aperture_sim(phys, AP_N, dev)
+        wall, prof, peak = run_sim(torch, built[0], profile)
+        return built, wall, prof, peak, F.fused_transport.launches
+
+    (sim, red), wall, _, peak, launches = run(False)
+    print(sim.explain_plan())
+    chunks = [k for _, k, _ in sim.chunk_log]
+    check(sim.used_fused and len(sim.ts) == AP_ITERS
+          and launches == len(chunks) >= AP_ITERS // AP_CHUNK,
+          f"aperture: launches {launches}, chunks {chunks}")
+    what = aperture_gates(torch, sim, red, AP_N, AP_ITERS)
+    per_iter = np.asarray(red.data, np.float64)[:, 1]
+    rate, steady_s = steady_rate(sim, per_iter)
+    print(f"aperture path: {len(sim.ts)} iterations in chunks {chunks}, "
+          f"fused_transport launches {launches}; {what}", flush=True)
+    print(f"aperture path rate: {rate:.4e} photon-steps/s over the "
+          f"dispatch loop after the first chunk, device clock "
+          f"({steady_s * 1e3:.1f} ms); {float(per_iter.sum()) / wall:.4e} "
+          f"from start() ({wall:.3f} s wall); set-up "
+          f"{sim.setup_seconds:.3f} s; peak memory {peak / 2 ** 30:.2f} GiB; "
+          f"kernel {aft['ms']:.2f} ms per chunk against a bound of "
+          f"{aft['bound_ms']:.2f} ms ({aft['bound_by']}; all arms counted "
+          f"{aft['bound_all_arms_ms']:.2f}) [{card}]", flush=True)
+    del sim, red
+    built2, _, prof, _, _ = run(True)
+    busy, span = device_busy(prof, torch)
+    print(f"aperture path device idle share (profiled second run, first "
+          f"to last fused_transport kernel): {1 - busy / span:.4f} "
+          f"({busy:.1f} ms busy of {span:.1f} ms) [{card}]", flush=True)
+    del built2, prof
+    return {"fused_launches": launches, "rate": rate}
+
+
 # -- recorded fields and inverse CDFs, the generic scatter family, shrink ------
 
 MIR_N = 10_000_000       # examples/make_lorentz_nb.py:98-112 at 10**7
@@ -6629,21 +6961,28 @@ def hg_icdf(u):
     return (1.0 + g * g - s ** 2) / (2.0 * g)
 
 
-def prog_ops(spec):
+def prog_ops(spec, weights=None):
     """The SEQ_OPS tuple of one evaluation of an expression field's program
     (all its outputs): each operation it asks for (a divide or reciprocal
     as _DIV, a root as _SQRT, an rsqrt as _RSQRT, exp, log, log10, sin, cos,
     tan or powf as "ins_transcendental", the widened table's libm
     functions as LIBM_COST, an integer power its products, min, max, the
-    roundings, abs, compares, selects and logic on the ALU pipe, the rest
-    on the FMA pipe), loads, constants and stores free."""
+    roundings, abs, compares, selects and logic on the ALU pipe, a fused
+    multiply-add and the rest on the FMA pipe, a loop's test a compare an
+    iteration), loads, constants, stores and a loop's moves free; with
+    ``weights`` on the lanes that ran each (``user_cost``)."""
     from physicl_tpu_torch.ops import record as RC
 
     terms = []
     prog = spec["prog"]
-    for (code, _, _, _, y, _), t, (ta, _) in zip(
-            prog.ins, prog.type_list(), prog.operand_types()):
-        if code in (RC.U_CONST, RC.U_LD, RC.U_ST):
+    for i, ((code, _, _, _, y, _), t, (ta, _)) in enumerate(zip(
+            prog.ins, prog.type_list(), prog.operand_types())):
+        if code in (RC.U_CONST, RC.U_LD, RC.U_ST, RC.U_CARRY, RC.U_SET,
+                    RC.U_END):
+            continue
+        n0 = len(terms)
+        if code == RC.U_LOOP:
+            terms.append(_weighted(prog, weights, i + 1, (0, 1, 0, 0)))
             continue
         typed = typed_cost(code, t, ta)
         if typed is not None:
@@ -6665,10 +7004,11 @@ def prog_ops(spec):
                           0, 0, 0))
             if y < 0:
                 terms.append(_DIV)
-        elif code in (RC.U_ADD, RC.U_SUB, RC.U_MUL, RC.U_NEG):
+        elif code in (RC.U_ADD, RC.U_SUB, RC.U_MUL, RC.U_NEG, RC.U_FMA):
             terms.append((1, 0, 0, 0))
         else:
             terms.append((0, 1, 0, 0))
+        terms[n0:] = [_weighted(prog, weights, i, x) for x in terms[n0:]]
     return _sum(*terms) if terms else (0, 0, 0, 0)
 
 

@@ -319,11 +319,13 @@ class ElementwiseStep(Step):
       ``torch.where``, the libm functions from ``atan`` to ``lgamma``,
       ``erfinv``, ``sigmoid``, ``softplus``, ``hypot``, ``logaddexp``,
       ``lerp``, ``nan_to_num``, the special functions from ``digamma``
-      to ``ndtri``, ...: ``ops/record.py``), each as the jnp function
-      computes it, on float32, int32, int64 (exact, wrapping, with ``& |
-      ^ ~ << >>``) and float64 values; one outside it
-      (``special.gammainc``, ``erfcx``, ``bessel_j0``, an integer ``//``
-      by a value that may be 0, ...) is ``elementwise-op-unsupported``,
+      to ``ndtri``, ``special.gammainc`` / ``gammaincc`` through a bounded
+      loop, ``bessel_j0`` / ``j1``, ...: ``ops/record.py``), each as the
+      jnp function computes it (the Bessel functions as torch does), on
+      float32, int32, int64 (exact, wrapping, with ``& | ^ ~ << >>``) and
+      float64 values; one outside it (``special.erfcx``, ``bessel_y0``,
+      an integer ``//`` by a value that may be 0, ...) is
+      ``elementwise-op-unsupported``,
       naming it, and stops the run (``fuse="off"`` runs it generically);
     * only the transport fields, plus extras planes declared with
       ``extras=("name", ...)`` (``p.extras["name"]``). Planes also listed in

@@ -46,8 +46,18 @@ straight-line CUDA C, one device function per program:
   ``user_sum`` (alive-masked) into the kernel's record accumulator;
 * every operation the function the plain version
   (:func:`~physicl_tpu_torch.ops.record.run_user_program`) matches:
-  ``expf``, ``logf``, ``powf``, ``ipow``, ``nan_min``, ... Built with
-  ``--fmad=false``, the planes stay bitwise equal to it.
+  ``expf``, ``logf``, ``powf``, ``ipow``, ``nan_min``, ... and a lowered
+  function's fused multiply-add as ``__fmaf_rn``. Built with
+  ``--fmad=false``, the planes stay bitwise equal to it;
+* a bounded loop as a ``for`` over its cap that a lane leaves when its
+  condition clears, its carried values mutable locals updated together
+  after the body;
+* a select whose arm (the instructions only that operand needs) holds a
+  libm call or at least ``record.ARM_MIN`` instructions as an ``if`` /
+  ``else`` on its condition with each arm inside
+  (:func:`~physicl_tpu_torch.ops.record.branched_arms`),
+  so that a warp none of whose lanes takes an arm skips it; loads, draws,
+  stores, alive clears, record sums and loops stay where they are.
 
 A histogram tally's reduce (``light.SpectrumMeasureStep``,
 ``MeshTallyStep``: ``_Op.bins``) is a **binned reduce** (:func:`binned_c`):
@@ -215,6 +225,10 @@ def _pure_c(ins, cur, lit, t=RC.F32, ta=RC.F32, timm=RC.F32) -> str:
         if bimm:
             return f"{va} != 0.0f ? {cur[b]} : {lit(y, t)}"
         return f"{va} != 0.0f ? {cur[y]} : {cur[b]}"
+    if code == RC.U_FMA:
+        # (a, b, the addend's register in y), or its immediate
+        return (f"__fmaf_rn({va}, {cur[b]}, "
+                f"{lit(y, t) if bimm else cur[y]})")
     vb = lit(y, timm) if bimm else cur.get(b)
     if t in RC.INT_BITS and code in _INT:
         return _INT[code].format(a=va, b=vb, T=_CTYPE[t], U=_UNSIGNED[t])
@@ -227,43 +241,138 @@ def _pure_c(ins, cur, lit, t=RC.F32, ta=RC.F32, timm=RC.F32) -> str:
     raise ValueError(f"program code {code}")
 
 
+def _body_c(prog: RC.Program, lit, pinned):
+    """The C statements of a program body: one ``const`` local an
+    instruction (``pinned(ins, cur)``: the line of a load's, draw's, t's,
+    dt's or effect's instruction, or None to leave it out; ``lit(y, t)``
+    spells a constant), a loop as a ``for`` over its cap that a lane leaves
+    when its condition clears (its carried values mutable locals, updated
+    together after the body), and each branched select's arms
+    (``record.branched_arms``) inside an ``if`` / ``else`` on its
+    condition."""
+    n = len(prog.ins)
+    text = [[] for _ in range(n)]
+    sel = {}
+    cur = {}   # register -> the local that holds its value
+    ctype_of = {}  # local -> its C type
+    sets = []
+    for i, (ins, t, (ta, timm)) in enumerate(zip(
+            prog.ins, prog.type_list(), prog.operand_types())):
+        code, d, a, b, y, bimm = ins
+        ctype = _CTYPE[t]
+        if code == RC.U_LOOP:
+            text[i] = [f"for (int it{i} = 0; it{i} < {int(y)}; ++it{i}) {{",
+                       f"  if ({cur[a]} == 0.0f) break;"]
+            continue
+        if code == RC.U_SET:
+            sets.append((cur[d], cur[a]))
+            continue
+        if code == RC.U_END:
+            # the next values together: a carried value that another's
+            # update reads is copied first
+            dsts = {dst for dst, _ in sets}
+            lines, renamed = [], {}
+            for k, (_, src) in enumerate(sets):
+                if src in dsts and src not in renamed:
+                    renamed[src] = f"n{i}_{k}"
+                    lines.append(f"  const {ctype_of[src]} n{i}_{k} = "
+                                 f"{src};")
+            lines += [f"  {dst} = {renamed.get(src, src)};"
+                      for dst, src in sets]
+            text[i] = lines + ["}"]
+            sets = []
+            continue
+        if code == RC.U_CARRY:
+            text[i] = [f"{ctype} v{i} = {cur[a]};"]
+            cur[d] = f"v{i}"
+            ctype_of[cur[d]] = ctype
+            continue
+        line = pinned(ins, cur)
+        if line is not None:
+            if isinstance(line, tuple):  # a value: (expression,)
+                text[i] = [f"const {ctype} v{i} = {line[0]};"]
+                cur[d] = f"v{i}"
+                ctype_of[cur[d]] = ctype
+            else:  # the statements of an effect
+                text[i] = list(line)
+            continue
+        spelled = []
+
+        def lit_once(yv, tt=RC.F32):
+            spelled.append(lit(yv, tt))
+            return spelled[-1]
+
+        text[i] = [f"const {ctype} v{i} = "
+                   f"{_pure_c(ins, cur, lit_once, t, ta, timm)};"]
+        if code == RC.U_SEL:  # (cond, true, false) for a branch
+            sel[i] = (cur[a], cur[b] if bimm else cur[y],
+                      spelled[-1] if bimm else cur[b], ctype)
+        cur[d] = f"v{i}"
+        ctype_of[cur[d]] = ctype
+    branched, owner = RC.branched_arms(prog), RC.arm_owner(prog)
+    members = {}
+    for i in range(n):
+        members.setdefault(owner.get(i), []).append(i)
+    out = []
+
+    def emit(key, pad):
+        for i in members.get(key, ()):
+            if i in branched:
+                cond, tv, fv, ctype = sel[i]
+                out.append(f"{pad}{ctype} v{i};")
+                out.append(f"{pad}if ({cond} != 0.0f) {{")
+                emit((i, True), pad + "  ")
+                out.append(f"{pad}  v{i} = {tv};")
+                out.append(f"{pad}}} else {{")
+                emit((i, False), pad + "  ")
+                out.append(f"{pad}  v{i} = {fv};")
+                out.append(f"{pad}}}")
+                continue
+            code = prog.ins[i][0]
+            if code == RC.U_END:
+                pad = pad[:-2]
+                out.extend(f"{pad}{ln}" for ln in text[i])
+                continue
+            out.extend(f"{pad}{ln}" for ln in text[i])
+            if code == RC.U_LOOP:
+                pad += "  "
+
+    emit(None, "  ")
+    return out
+
+
 def program_c(prog: RC.Program, name: str) -> str:
     """The device function template ``name<Acc>`` that runs ``prog`` on one
     slot: its parameters are the slot's planes ``f`` and extras ``x``, its
     ``alive`` flag, ``t`` and ``dt`` of the op's place, the iteration's hash
     seed ``h0``, the op's first draw index ``idx0``, the slot term ``lin``
     and the record accumulator ``acc`` that ``user_sum(acc, col, v)``
-    adds to."""
-    out = ["template <class Acc>",
-           f"__device__ __forceinline__ void {name}({_ARGS}) {{"]
-    cur = {}  # register -> the local that holds its value
-    for i, (ins, t, (ta, timm)) in enumerate(zip(
-            prog.ins, prog.type_list(), prog.operand_types())):
+    adds to. Its loops and branched arms as :func:`_body_c` writes them."""
+
+    def pinned(ins, cur):
         code, d, a, _, y, _ = ins
         va = cur.get(a)
         if code == RC.U_ST:
-            out.append(f"  {_plane(y)} = {va};")
-            continue
+            return [f"{_plane(y)} = {va};"]
         if code == RC.U_ALIVE:
-            out.append(f"  alive = alive && {va} != 0.0f;")
-            out.append("  f[13] = alive ? 1.0f : 0.0f;")
-            continue
+            return [f"alive = alive && {va} != 0.0f;",
+                    "f[13] = alive ? 1.0f : 0.0f;"]
         if code == RC.U_ACC:
-            out.append(f"  user_sum(acc, {int(y)}, alive ? {va} : 0.0f);")
-            continue
+            return [f"user_sum(acc, {int(y)}, alive ? {va} : 0.0f);"]
         if code == RC.U_LD:
-            expr = ("alive ? 1.0f : 0.0f" if y == RC.ALIVE_PLANE
-                    else _plane(y))
-        elif code == RC.U_T:
-            expr = "t"
-        elif code == RC.U_DT:
-            expr = "dt"
-        elif code == RC.U_UNIF:
-            expr = f"unit24(hash_bits(h0, idx0 + {int(y) + 1}u, lin))"
-        else:
-            expr = _pure_c(ins, cur, _lit, t, ta, timm)
-        out.append(f"  const {_CTYPE[t]} v{i} = {expr};")
-        cur[d] = f"v{i}"
+            return ("alive ? 1.0f : 0.0f" if y == RC.ALIVE_PLANE
+                    else _plane(y)),
+        if code == RC.U_T:
+            return "t",
+        if code == RC.U_DT:
+            return "dt",
+        if code == RC.U_UNIF:
+            return f"unit24(hash_bits(h0, idx0 + {int(y) + 1}u, lin))",
+        return None
+
+    out = ["template <class Acc>",
+           f"__device__ __forceinline__ void {name}({_ARGS}) {{"]
+    out += _body_c(prog, _lit, pinned)
     out.append("}")
     return "\n".join(out)
 
@@ -272,11 +381,12 @@ _VARS = ("a", "b", "c")
 
 
 def _fk_body(prog: RC.Program, load, k0: int):
-    """The straight-line body of a program whose constants are read from
-    ``plan.fk`` from ``k0`` on (in ``ops/fields.py:field_layout`` order):
-    its lines, one ``const`` local an instruction (``load(y)`` a
-    load's expression), and its outputs ``{j: local}``."""
-    lines, outs, cur, k = [], {}, {}, [k0]
+    """The body of a program whose constants are read from ``plan.fk``
+    from ``k0`` on (in ``ops/fields.py:field_layout`` order): its lines,
+    one ``const`` local an instruction (``load(y)`` a load's expression;
+    loops and branched arms as :func:`_body_c` writes them), and its
+    outputs ``{j: local}``."""
+    outs, k = {}, [k0]
 
     def lit(_, t=RC.F32):
         n = len(FL.fk_slots(0, t))
@@ -285,16 +395,16 @@ def _fk_body(prog: RC.Program, load, k0: int):
             return f"plan.fk[{k[0] - 1}]"
         return f"fk_{t_name(t)}(plan.fk + {k[0] - n})"
 
-    for i, (ins, t, (ta, timm)) in enumerate(zip(
-            prog.ins, prog.type_list(), prog.operand_types())):
-        code, d, a, _, y, _ = ins
+    def pinned(ins, cur):
+        code, _, a, _, y, _ = ins
         if code == RC.U_ST:
             outs[int(y)] = cur[a]
-            continue
-        expr = (load(y) if code == RC.U_LD
-                else _pure_c(ins, cur, lit, t, ta, timm))
-        lines.append(f"  const {_CTYPE[t]} v{i} = {expr};")
-        cur[d] = f"v{i}"
+            return []
+        if code == RC.U_LD:
+            return load(y),
+        return None
+
+    lines = _body_c(prog, lit, pinned)
     return lines, outs
 
 

@@ -113,10 +113,9 @@ def is_kernel_limit(code: str) -> bool:
     the reference evaluates and the field programs lack: an integer floor
     division by a value that may be 0), ``field-fn-callable`` (a callable
     the recorder cannot take) and ``*-op-unsupported`` (an op outside the
-    instruction table: ``special.gammainc`` / ``gammaincc`` and
-    ``bessel_j0`` / ``j1``, which jnp iterates; ``special.erfcx`` and the
-    torch-only special functions, which jnp lacks; an integer ``//`` by a
-    value that may be 0; a float32 form in float64). Such a refusal does
+    instruction table: ``special.erfcx`` and the torch-only special
+    functions, which jnp lacks; an integer ``//`` by a value that may be
+    0; a float32 form in float64). Such a refusal does
     not fall back to the generic tier; ``Simulation(fuse="off")`` asks for
     that tier explicitly."""
     prefix, _, reason = code.partition("-")

@@ -70,35 +70,52 @@ the same way (:func:`_lower_special`): ``digamma`` / ``special.psi`` and
 series), ``special.zeta``, ``special.i0`` / ``i0e`` / ``i1`` / ``i1e`` /
 ``modified_bessel_i0`` / ``i1`` (Cephes' float32 Chebyshev series),
 ``special.ndtri``, ``log_ndtr`` and ``entr``, ``mvlgamma``,
-``logaddexp2``, ``ldexp`` and ``frexp`` (jnp's bits), and ``F.gelu``
-(both forms), ``F.elu`` and ``F.logsigmoid`` (``jax.nn``'s); in float64
-the ones whose form is float32's (coefficient tables) are refused. Refused
-as ``op-unsupported`` naming the op, with no jnp counterpart this
-straight-line program can run: ``special.gammainc`` / ``gammaincc``
-(jnp's ``while_loop``), ``special.bessel_j0`` / ``j1`` (jnp's
-recurrence), ``special.erfcx`` and torch-only functions such as
-``bessel_y0`` and ``modified_bessel_k0`` (no jnp function).
+``logaddexp2``, ``ldexp`` and ``frexp`` (jnp's bits), ``F.gelu`` (both
+forms), ``F.elu`` and ``F.logsigmoid`` (``jax.nn``'s), ``special.gammainc``
+/ ``gammaincc`` (jnp's ``igamma`` / ``igammac``: the series and the
+continued fraction each a bounded loop, :meth:`_SSA.loop`) and
+``special.bessel_j0`` / ``j1`` (Cephes' form as torch computes it, not
+jnp's recurrence: :func:`_bessel_j`); in float64 the ones whose form is
+float32's (coefficient tables, float32's epsilon) are refused. Refused as
+``op-unsupported`` naming the op, with no jnp counterpart:
+``special.erfcx`` and torch-only functions such as ``bessel_y0`` and
+``modified_bessel_k0``.
 
 The program is register code over per-component SSA values: common
 subexpressions merged, unused values dropped, the side effects (plane
 stores, alive clears, float record sums) kept in order, and registers
-assigned by liveness. Its length, registers and draws have no limit: each
-plan's programs are compiled for it.
+assigned by liveness. A libm function of constants is folded on the host
+to its correctly rounded value (:func:`fold_libm`), as XLA's constant
+folding does. The lowered functions' Horner and Clenshaw steps are
+float32 fused multiply-adds (``U_FMA``, rounded once; the twin computes it
+exactly, :func:`fma_f32`); the user's own ``a * b + c`` stays a product
+and a sum. A bounded loop (``U_CARRY`` ... ``U_END``) carries values
+through a body of pure instructions while a lane's condition holds, at
+most a static number of iterations: per lane in the kernel, over the whole
+tensor with a disabled lane's values kept by select in the twin
+(:func:`_run_loop`), which gives jnp's ``while_loop`` values. Its length,
+registers and draws have no limit: each plan's programs are compiled for
+it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import heapq
 import math
 import operator
 import struct
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import mpmath
 import numpy as np
 import torch
 
 # instruction codes (ops/codegen.py turns each into C); the libm codes
-# from U_ATAN on came after the first 41, whose numbers stay as they were
+# from U_ATAN on came after the first 41, whose numbers stay as they were;
+# U_FMA is a float32 fused multiply-add, U_CARRY ... U_END a bounded loop
+# (:meth:`_SSA.loop`), U_OUT a loop's result in the SSA only
 (U_LD, U_T, U_DT, U_CONST, U_UNIF, U_NEG, U_ABS, U_SQRT, U_EXP, U_LOG,
  U_LOG10, U_SIN, U_COS, U_TAN, U_FLOOR, U_CEIL, U_TRUNC, U_RECIP, U_NOT,
  U_BOOL, U_IPOW, U_ADD, U_SUB, U_MUL, U_DIV, U_POW, U_MIN, U_MAX, U_LT, U_LE,
@@ -107,7 +124,7 @@ import torch
  U_ATANH, U_EXP2, U_EXPM1, U_LOG2, U_LOG1P, U_ERF, U_ERFC, U_LGAMMA,
  U_RSQRT, U_ROUND, U_ISNAN, U_SIGNBIT, U_ATAN2, U_FMOD, U_COPYSIGN,
  U_NEXTAFTER, U_CVT, U_BAND, U_BOR, U_BXOR, U_BNOT, U_SHL, U_SHR,
- U_BITCAST) = range(73)
+ U_BITCAST, U_FMA, U_CARRY, U_LOOP, U_SET, U_END, U_OUT) = range(79)
 ALIVE_PLANE = 13
 # value types: float32 (a bool too, as 0.0 / 1.0), int32, int64, float64
 F32, I32, I64, F64 = "f", "i", "l", "d"
@@ -221,10 +238,10 @@ class Program:
         out = []
         for (code, d, a, _, _, bimm), t in zip(self.ins, self.type_list()):
             ta = reg_t.get(a, F32)
-            imm = (t if code in (U_CONST, U_SEL) else ta) if (
+            imm = (t if code in (U_CONST, U_SEL, U_FMA) else ta) if (
                 code == U_CONST or bimm) else None
             out.append((ta, imm))
-            if code not in (U_ST, U_ALIVE, U_ACC):
+            if code not in (U_ST, U_ALIVE, U_ACC, U_LOOP, U_SET, U_END):
                 reg_t[d] = t
         return out
 
@@ -245,6 +262,10 @@ class _SSA:
         # an integer read from a plane (a float32 that holds an exact
         # integer, as the otype plane): its float32 load
         self.exact: Dict[int, int] = {}
+        # the bounded loops: (carried values, U_LOOP value, cap, the
+        # condition's place among the carried)
+        self.loops: List[tuple] = []
+        self._in_body = False
 
     def result_type(self, code, args) -> str:
         """An instruction's type, from its operands': a compare, a logic
@@ -256,6 +277,11 @@ class _SSA:
 
     def val(self, code, args=(), y=0, t=None) -> int:
         t = self.result_type(code, args) if t is None else t
+        if code in _LIBM_FOLD and args and all(self.is_const(a)
+                                               for a in args):
+            v = fold_libm(code, [self.defs[a][2] for a in args], t)
+            if v is not None:
+                return self.const(v, t)
         if isinstance(y, float):
             ky = (struct.pack("<d", y) if t == F64 and code == U_CONST
                   else _bits(y))
@@ -340,6 +366,7 @@ class _SSA:
             regs = [torch.tensor([self.defs[a][2]],
                                  dtype=DTYPES[self.ty[a]]) for a in args]
             ins = ((U_SEL, 0, 0, 2, 1, False) if code == U_SEL
+                   else (U_FMA, 0, 0, 1, 2, False) if code == U_FMA
                    else (code, 0, 0, len(args) - 1, 0, False))
             t = self.result_type(code, args)
             v = _pure(ins, regs, lambda y, tt=F32: torch.tensor(
@@ -349,13 +376,49 @@ class _SSA:
             return self.binary(code, *args)
         return self.val(code, args)
 
+    def loop(self, inits: Sequence[int], body: Callable, cap: int,
+             cond: int = 0) -> List[int]:
+        """A bounded loop: carried values starting at ``inits`` (the
+        ``cond``-th a float32 bool, the lane's enable), ``body(carried)``
+        their next values (pure values only: no store, alive clear or
+        record sum), at most ``cap`` iterations. A lane runs the body while
+        its condition holds and keeps its values once it is disabled, as
+        jnp's ``while_loop`` does with its ``enabled`` selects; the twin
+        runs the whole tensor until no lane is enabled. Returns the
+        carried values after the loop."""
+        if self._in_body:
+            raise Refused("op-unsupported", "a loop inside a loop's body")
+        lid = len(self.loops)
+        carried = [self.val(U_CARRY, (v,), (lid, j), self.ty[v])
+                   for j, v in enumerate(inits)]
+        n_eff = len(self.effects)
+        self._in_body = True
+        try:
+            new = list(body(list(carried)))
+        finally:
+            self._in_body = False
+        if len(self.effects) != n_eff or len(new) != len(carried) or any(
+                self.ty[v] != self.ty[c] for v, c in zip(new, carried)):
+            raise ValueError("a loop body makes an effect or changes its "
+                             "carried values' number or types")
+        node = self.val(U_LOOP, tuple(new), (lid, int(cap), cond), F32)
+        self.loops.append((tuple(carried), node, int(cap), cond))
+        return [self.val(U_OUT, (node,), j, self.ty[c])
+                for j, c in enumerate(carried)]
 
-def _uses(code, args, ssa) -> List[int]:
-    """The operands that need a register: operand b of a binary operation
-    and the false value of a select may be a constant's immediate."""
+
+def _uses(code, args, ssa, y=None) -> List[int]:
+    """The operands that need a register: operand b of a binary operation,
+    the false value of a select and the addend of a fused multiply-add may
+    be a constant's immediate; a loop needs its carried values too."""
     if code == U_SEL:
         cond, tv, fv = args
         return [cond, tv] + ([] if ssa.is_const(fv) else [fv])
+    if code == U_FMA:
+        a, b, c = args
+        return [a, b] + ([] if ssa.is_const(c) else [c])
+    if code == U_LOOP:
+        return list(args) + list(ssa.loops[y[0]][0])
     if len(args) == 2:
         return [args[0]] + ([] if ssa.is_const(args[1]) else [args[1]])
     return list(args)
@@ -370,7 +433,110 @@ _EXACT = {U_NEG, U_ABS, U_NOT, U_BOOL, U_ADD, U_SUB, U_MUL, U_DIV, U_MIN,
           U_MAX, U_LT, U_LE, U_GT, U_GE, U_EQ, U_NE, U_AND, U_OR, U_XOR,
           U_SEL, U_FLOOR, U_CEIL, U_TRUNC, U_ROUND, U_ISNAN, U_SIGNBIT,
           U_FMOD, U_COPYSIGN, U_SQRT, U_CVT, U_BAND, U_BOR, U_BXOR, U_BNOT,
-          U_SHL, U_SHR, U_BITCAST}
+          U_SHL, U_SHR, U_BITCAST, U_FMA}
+# the libm codes: a call whose arguments are all constants is folded on
+# the host to its correctly rounded value (fold_libm), as XLA's constant
+# folding does, so the kernel and the twin read one constant
+_LIBM_FOLD = {U_EXP, U_LOG, U_LOG10, U_SIN, U_COS, U_TAN, U_POW, U_ATAN,
+              U_ASIN, U_ACOS, U_SINH, U_COSH, U_TANH, U_ASINH, U_ACOSH,
+              U_ATANH, U_EXP2, U_EXPM1, U_LOG2, U_LOG1P, U_ERF, U_ERFC,
+              U_LGAMMA, U_ATAN2}
+# float64 ulps within which a float64 result is refined (it may lie on
+# either side of the nearest rounding boundary of float32)
+_FOLD_ULPS = 4
+
+
+def _lgamma64(x: float) -> float:
+    try:
+        return math.lgamma(x)
+    except ValueError:  # a pole
+        return _INF
+
+
+_NP_LIBM = {U_EXP: np.exp, U_LOG: np.log, U_LOG10: np.log10, U_SIN: np.sin,
+            U_COS: np.cos, U_TAN: np.tan, U_ATAN: np.arctan,
+            U_ASIN: np.arcsin, U_ACOS: np.arccos, U_SINH: np.sinh,
+            U_COSH: np.cosh, U_TANH: np.tanh, U_ASINH: np.arcsinh,
+            U_ACOSH: np.arccosh, U_ATANH: np.arctanh, U_EXP2: np.exp2,
+            U_EXPM1: np.expm1, U_LOG2: np.log2, U_LOG1P: np.log1p,
+            U_ERF: math.erf, U_ERFC: math.erfc, U_LGAMMA: _lgamma64,
+            U_POW: np.power, U_ATAN2: np.arctan2}
+
+
+def _mp_libm(code, xs):
+    """The function of ``code`` at ``xs`` at 100 digits (mpmath), or None
+    where it is complex."""
+    mp = mpmath.mp
+    with mpmath.workdps(100):
+        a = [mpmath.mpf(float(x)) for x in xs]
+        fn = {U_EXP: mp.exp, U_LOG: mp.log, U_LOG10: mp.log10,
+              U_SIN: mp.sin, U_COS: mp.cos, U_TAN: mp.tan, U_ATAN: mp.atan,
+              U_ASIN: mp.asin, U_ACOS: mp.acos, U_SINH: mp.sinh,
+              U_COSH: mp.cosh, U_TANH: mp.tanh, U_ASINH: mp.asinh,
+              U_ACOSH: mp.acosh, U_ATANH: mp.atanh,
+              U_EXP2: lambda v: mp.power(2, v), U_EXPM1: mp.expm1,
+              U_LOG2: lambda v: mp.log(v, 2), U_LOG1P: mp.log1p,
+              U_ERF: mp.erf, U_ERFC: mp.erfc,
+              U_LGAMMA: lambda v: mp.re(mp.loggamma(v)),
+              U_POW: mp.power, U_ATAN2: mp.atan2}[code]
+        v = fn(*a)
+        return None if isinstance(v, mpmath.mpc) else +v
+
+
+def _round_exact(v, approx: float, t: str) -> float:
+    """The float of type ``t`` nearest to the exact value ``v`` (an mpmath
+    number; ``approx`` a float near it), ties to even; past the largest
+    float, inf where IEEE rounding overflows."""
+    ftype = np.float32 if t == F32 else np.float64
+    big = mpmath.mpf(2) ** (128 if t == F32 else 1024)
+    with np.errstate(over="ignore"):
+        r = ftype(approx)
+    cands = {r, np.nextafter(r, ftype(_INF)), np.nextafter(r, ftype(-_INF))}
+
+    def dist(c):
+        cv = mpmath.mpf(float(c)) if np.isfinite(c) else math.copysign(
+            1, c) * big
+        return abs(v - cv)
+
+    with mpmath.workdps(100):
+        best = sorted(cands, key=lambda c: (dist(c), int(np.asarray(
+            c).view(np.int32 if t == F32 else np.int64)) & 1))[0]
+    return float(best)
+
+
+def fold_libm(code, xs, t: str = F32) -> Optional[float]:
+    """A libm code of constants ``xs`` (values of type ``t``, float32 or
+    float64) folded to its correctly rounded value, or None (the call stays
+    in the program). The float64 libm result (numpy's, C99's special
+    values) rounds once to float32; where it lies within ``_FOLD_ULPS``
+    float64 ulps of a float32 rounding boundary (or is lgamma of a negative
+    number) it is refined at 100 digits (mpmath) and rounded from there; a
+    float64 program's value is always taken from 100 digits."""
+    if t not in (F32, F64):
+        return None
+    with np.errstate(all="ignore"):
+        r64 = float(_NP_LIBM[code](*[float(x) for x in xs]))
+    if not math.isfinite(r64) or r64 == 0.0:
+        return r64  # a special value: exact, as C99 defines it
+    if t == F32:
+        with np.errstate(over="ignore"):
+            a = np.float32(r64)
+            side = np.nextafter(a, np.float32(_INF if r64 > a else -_INF))
+        hi = float(side) if np.isfinite(side) else math.copysign(2.0 ** 128,
+                                                                 r64)
+        lo = float(a) if np.isfinite(a) else math.copysign(
+            float(np.finfo(np.float32).max), r64)
+        mid = (lo + hi) / 2
+        # lgamma of a negative argument: the C library's float64 value
+        # may lose digits near its zeros, so it is refined too
+        sure = code != U_LGAMMA or float(xs[0]) > 0
+        if sure and (r64 == float(a) or abs(r64 - mid)
+                     > _FOLD_ULPS * math.ulp(r64)):
+            return float(a)
+    v = _mp_libm(code, xs)
+    if v is None:
+        return None
+    return _round_exact(v, r64, t)
 _INF = float("inf")
 _NAN = float("nan")
 _F32_MAX = float(np.finfo(np.float32).max)
@@ -489,7 +655,7 @@ def _erfinv(s: _SSA, x: int) -> int:
 
     p = coef(0)
     for i in range(1, len(_ERFINV[0])):
-        p = s.op(U_ADD, coef(i), s.op(U_MUL, p, w))
+        p = _fma(s, p, w, coef(i))
     one = s.op(U_EQ, s.op(U_ABS, x), s.const(1.0))
     return s.op(U_SEL, one, s.op(U_MUL, x, s.const(_INF)),
                 s.op(U_MUL, p, x))
@@ -578,23 +744,34 @@ _NDTRI = {
            2.89247864745380683936E-6, 6.79019408009981274425E-9)}
 
 
+def _fma(s: _SSA, a: int, b: int, c: int) -> int:
+    """A lowered step ``a b + c``: in float32 one fused multiply-add
+    (``U_FMA``, rounded once, as XLA contracts it on the CPU); in float64 a
+    product and a sum."""
+    if s.ty[a] != F32:
+        return s.op(U_ADD, s.op(U_MUL, a, b), c)
+    if s.is_const(a) and not s.is_const(b):
+        a, b = b, a
+    return s.op(U_FMA, a, b, c)
+
+
 def _chebyshev(s: _SSA, x: int, coefs) -> int:
     """``evaluate_chebyshev_polynomial``: Clenshaw's ``b0 = x b1 - b2 +
-    c``, then ``0.5 (b0 - b2)``."""
+    c`` (``x b1 - b2`` one fused multiply-add), then ``0.5 (b0 - b2)``."""
     z = s.like(x, 0.0)
     b0 = b1 = b2 = z
     for c in coefs:
         b2, b1 = b1, b0
-        b0 = s.op(U_ADD, s.op(U_SUB, s.op(U_MUL, x, b1), b2), s.like(x, c))
+        b0 = s.op(U_ADD, _fma(s, x, b1, s.op(U_NEG, b2)), s.like(x, c))
     return s.op(U_MUL, s.like(x, 0.5), s.op(U_SUB, b0, b2))
 
 
 def _polyval(s: _SSA, coefs, x: int) -> int:
-    """``jnp.polyval``: Horner's ``y x + c`` from the leading
-    coefficient."""
+    """``jnp.polyval``: Horner's ``y x + c`` from the leading coefficient,
+    each step one fused multiply-add."""
     y = s.like(x, coefs[0])
     for c in coefs[1:]:
-        y = s.op(U_ADD, s.op(U_MUL, y, x), s.like(x, c))
+        y = _fma(s, y, x, s.like(x, c))
     return y
 
 
@@ -682,9 +859,10 @@ def _polygamma(s: _SSA, n: int, x: int) -> int:
     if n == 0:
         return _digamma(s, x)
     np1 = s.like(x, float(n + 1))
-    # (2 (n % 2) - 1) exp(lgamma(n + 1)): the sign times n!, a constant
-    # (a libm function of a constant the kernel's compiler would fold)
-    coef = s.like(x, (2.0 * (n % 2) - 1.0) * math.factorial(n))
+    # (2 (n % 2) - 1) exp(lgamma(n + 1)): libm functions of constants,
+    # folded on the host
+    coef = s.op(U_MUL, s.like(x, 2.0 * (n % 2) - 1.0),
+                s.op(U_EXP, s.op(U_LGAMMA, np1)))
     return s.op(U_MUL, coef, _zeta(s, np1, x))
 
 
@@ -739,8 +917,9 @@ def _ndtri(s: _SSA, p: int) -> int:
     san = s.op(U_SEL, s.op(U_EQ, mcp, c(0.0)), c(0.5), mcp)
     w = s.op(U_SUB, san, c(0.5))
     ww = s.op(U_MUL, w, w)
-    big = s.op(U_ADD, w, s.op(U_MUL, s.op(U_MUL, w, ww), s.op(
-        U_DIV, _polyval(s, _NDTRI["p0"], ww), _polyval(s, _NDTRI["q0"], ww))))
+    big = _fma(s, s.op(U_MUL, w, ww), s.op(
+        U_DIV, _polyval(s, _NDTRI["p0"], ww), _polyval(s, _NDTRI["q0"], ww)),
+        w)
     big = s.op(U_MUL, big, c(-np.sqrt(2.0 * np.pi)))
     z = s.op(U_SQRT, s.op(U_MUL, c(-2.0), s.op(U_LOG, san)))
     first = s.op(U_SUB, z, s.op(U_DIV, s.op(U_LOG, z), z))
@@ -780,6 +959,213 @@ def _log_ndtr(s: _SSA, x: int) -> int:
     lower = s.op(U_ADD, log_scale, s.op(U_LOG, series))
     return s.op(U_SEL, s.op(U_GT, x, hi), upper,
                 s.op(U_SEL, s.op(U_GT, x, lo), middle, lower))
+
+
+# Cephes' j0 / j1 as torch computes them (aten/src/ATen/native/Math.h,
+# bessel_j0_forward and bessel_j1_forward): a rational function in x**2 up
+# to 5 (its two zeros factored), past it the asymptotic form
+_J0 = {"PP": (7.96936729297347051624e-04, 8.28352392107440799803e-02,
+              1.23953371646414299388e+00, 5.44725003058768775090e+00,
+              8.74716500199817011941e+00, 5.30324038235394892183e+00,
+              9.99999999999999997821e-01),
+       "PQ": (9.24408810558863637013e-04, 8.56288474354474431428e-02,
+              1.25352743901058953537e+00, 5.47097740330417105182e+00,
+              8.76190883237069594232e+00, 5.30605288235394617618e+00,
+              1.00000000000000000218e+00),
+       "QP": (-1.13663838898469149931e-02, -1.28252718670509318512e+00,
+              -1.95539544257735972385e+01, -9.32060152123768231369e+01,
+              -1.77681167980488050595e+02, -1.47077505154951170175e+02,
+              -5.14105326766599330220e+01, -6.05014350600728481186e+00),
+       "QQ": (6.43178256118178023184e+01, 8.56430025976980587198e+02,
+              3.88240183605401609683e+03, 7.24046774195652478189e+03,
+              5.93072701187316984827e+03, 2.06209331660327847417e+03,
+              2.42005740240291393179e+02),
+       "RP": (-4.79443220978201773821e+09, 1.95617491946556577543e+12,
+              -2.49248344360967716204e+14, 9.70862251047306323952e+15),
+       "RQ": (4.99563147152651017219e+02, 1.73785401676374683123e+05,
+              4.84409658339962045305e+07, 1.11855537045356834862e+10,
+              2.11277520115489217587e+12, 3.10518229857422583814e+14,
+              3.18121955943204943306e+16, 1.71086294081043136091e+18),
+       "zeros": (5.78318596294678452118e+00, 3.04712623436620863991e+01),
+       "shift": 0.785398163397448309615660845819875721}
+_J1 = {"PP": (7.62125616208173112003e-04, 7.31397056940917570436e-02,
+              1.12719608129684925192e+00, 5.11207951146807644818e+00,
+              8.42404590141772420927e+00, 5.21451598682361504063e+00,
+              1.00000000000000000254e+00),
+       "PQ": (5.71323128072548699714e-04, 6.88455908754495404082e-02,
+              1.10514232634061696926e+00, 5.07386386128601488557e+00,
+              8.39985554327604159757e+00, 5.20982848682361821619e+00,
+              9.99999999999999997461e-01),
+       "QP": (5.10862594750176621635e-02, 4.98213872951233449420e+00,
+              7.58238284132545283818e+01, 3.66779609360150777800e+02,
+              7.10856304998926107277e+02, 5.97489612400613639965e+02,
+              2.11688757100572135698e+02, 2.52070205858023719784e+01),
+       "QQ": (7.42373277035675149943e+01, 1.05644886038262816351e+03,
+              4.98641058337653607651e+03, 9.56231892404756170795e+03,
+              7.99704160447350683650e+03, 2.82619278517639096600e+03,
+              3.36093607810698293419e+02),
+       "RP": (-8.99971225705559398224e+08, 4.52228297998194034323e+11,
+              -7.27494245221818276015e+13, 3.68295732863852883286e+15),
+       "RQ": (6.20836478118054335476e+02, 2.56987256757748830383e+05,
+              8.35146791431949253037e+07, 2.21511595479792499675e+10,
+              4.74914122079991414898e+12, 7.84369607876235854894e+14,
+              8.95222336184627338078e+16, 5.32278620332680085395e+18),
+       "zeros": (1.46819706421238932572e+01, 4.92184563216946036703e+01),
+       "shift": 2.356194490192344928846982537459627163}
+_SQ2OPI = 0.797884560802865355879892119868763737
+
+
+def _bessel_j(s: _SSA, x: int, order: int) -> int:
+    """``torch.special.bessel_j0`` / ``bessel_j1``: Cephes' j0 and j1 in
+    torch's own order (``bessel_j0_forward`` / ``bessel_j1_forward``), its
+    Horner steps fused multiply-adds. Of ``|x|`` (j1 negated for x < 0, so
+    that -0 keeps its sign): up to 5 a rational function of ``z = x**2``
+    times ``(z - r1) (z - r2)`` (j0 ``1 - z / 4`` below 1e-5; j1 times
+    ``x``), past it ``(P / Q cos(x - s) - 5 / x (QP / QQ) sin(x - s))
+    sqrt(2 / pi) / sqrt(x)``, P, Q, QP, QQ of ``25 / z``.
+
+    Not jnp's ``bessel_jn`` (a backward recurrence of 51 steps): in float32
+    that recurrence overflows below z = 3.45 (NaN), is within 1.2e-7 of
+    ``scipy.special.j0`` only on [5, 30) and 3.0e-3 / 0.38 off on [30, 45)
+    / [45, 60), while torch's float32 function is within 3.1e-7 everywhere.
+    The generic tier runs torch's eager function, so the fused tier follows
+    torch's form and the two tiers of the port agree."""
+    k = _J0 if order == 0 else _J1
+    c = lambda v: s.like(x, v)  # noqa: E731
+    neg = s.op(U_LT, x, c(0.0))
+    xa = s.op(U_SEL, neg, s.op(U_NEG, x), x)
+    z = s.op(U_MUL, xa, xa)
+    r1, r2 = k["zeros"]
+    near = s.op(U_DIV, _polyval(s, k["RP"], z), _polyval(s, k["RQ"], z))
+    if order == 0:
+        near = s.op(U_MUL, s.op(U_MUL, s.op(U_SUB, z, c(r1)),
+                                s.op(U_SUB, z, c(r2))), near)
+        near = s.op(U_SEL, s.op(U_LT, xa, c(0.00001)), s.op(
+            U_SUB, c(1.0), s.op(U_DIV, z, c(4.0))), near)
+        w = s.op(U_DIV, c(25.0), z)
+    else:
+        near = s.op(U_MUL, s.op(U_MUL, s.op(U_MUL, near, xa),
+                                s.op(U_SUB, z, c(r1))), s.op(U_SUB, z, c(r2)))
+        five = s.op(U_DIV, c(5.0), xa)
+        w = s.op(U_MUL, five, five)
+    xn = s.op(U_SUB, xa, c(k["shift"]))
+    p = s.op(U_MUL, s.op(U_DIV, _polyval(s, k["PP"], w),
+                         _polyval(s, k["PQ"], w)), s.op(U_COS, xn))
+    q = s.op(U_MUL, s.op(U_MUL, s.op(U_DIV, c(5.0), xa), s.op(
+        U_DIV, _polyval(s, k["QP"], w), _polyval(s, k["QQ"], w))),
+        s.op(U_SIN, xn))
+    far = s.op(U_DIV, s.op(U_MUL, s.op(U_SUB, p, q), c(_SQ2OPI)),
+               s.op(U_SQRT, xa))
+    out = s.op(U_SEL, s.op(U_LE, xa, c(5.0)), near, far)
+    return out if order == 0 else s.op(U_SEL, neg, s.op(U_NEG, out), out)
+
+
+# jnp's igamma / igammac (jax/_src/lax/special.py igamma_impl,
+# igammac_impl) in float32: machine epsilon, -log(float32 max) (folded)
+_EPS32 = float(np.finfo(np.float32).eps)
+_CF_CAP = 2000        # the continued fraction's cap (jnp's c < 2000)
+# the series' cap (jnp's loop has none): a lane still enabled after it
+# keeps its partial sum; it needs a ~ 2**20 and x within a few sqrt(a) of
+# it to get there
+_SERIES_CAP = 1 << 16
+
+
+def _igamma_series(s: _SSA, ax: int, x: int, a: int, enabled: int) -> int:
+    """``_igamma_series`` (VALUE mode): ``r`` from ``a`` up by 1, the term
+    ``c *= x / r`` added to ``ans`` while ``c / ans > eps``; ``ans ax /
+    a``. The derivative's values do not reach the value and are left
+    out."""
+    one = s.like(a, 1.0)
+
+    def body(v):
+        _, r, cc, ans = v
+        r = s.op(U_ADD, r, one)
+        cc = s.op(U_MUL, cc, s.op(U_DIV, x, r))
+        ans = s.op(U_ADD, ans, cc)
+        return [s.op(U_GT, s.op(U_DIV, cc, ans), s.like(a, _EPS32)), r, cc,
+                ans]
+
+    _, _, _, ans = s.loop([enabled, a, one, one], body, _SERIES_CAP)
+    return s.op(U_DIV, s.op(U_MUL, ans, ax), a)
+
+
+def _igammac_cf(s: _SSA, ax: int, x: int, a: int, enabled: int) -> int:
+    """``_igammac_continued_fraction`` (VALUE mode): the convergents ``pk /
+    qk``, rescaled by eps past 1 / eps, while the relative change ``t``
+    exceeds eps, at most 2000 terms; ``ans ax``."""
+    c = lambda v: s.like(x, v)  # noqa: E731
+    y = s.op(U_SUB, c(1.0), a)
+    z = s.op(U_ADD, s.op(U_ADD, x, y), c(1.0))
+    pkm1 = s.op(U_ADD, x, c(1.0))
+    qkm1 = s.op(U_MUL, z, x)
+    ans = s.op(U_DIV, pkm1, qkm1)
+    eps = c(_EPS32)
+
+    def body(v):
+        _, ans, t, y, z, cc, pkm1, qkm1, pkm2, qkm2 = v
+        cc = s.op(U_ADD, cc, c(1.0))
+        y = s.op(U_ADD, y, c(1.0))
+        z = s.op(U_ADD, z, c(2.0))
+        yc = s.op(U_MUL, y, cc)
+        pk = s.op(U_SUB, s.op(U_MUL, pkm1, z), s.op(U_MUL, pkm2, yc))
+        qk = s.op(U_SUB, s.op(U_MUL, qkm1, z), s.op(U_MUL, qkm2, yc))
+        nz = s.op(U_NE, qk, c(0.0))
+        r = s.op(U_DIV, pk, qk)
+        t = s.op(U_SEL, nz, s.op(U_ABS, s.op(U_DIV, s.op(U_SUB, ans, r), r)),
+                 c(1.0))
+        ans = s.op(U_SEL, nz, r, ans)
+        pkm2, pkm1, qkm2, qkm1 = pkm1, pk, qkm1, qk
+        big = s.op(U_GT, s.op(U_ABS, pk), c(1.0 / _EPS32))
+        pkm2, pkm1, qkm2, qkm1 = (s.op(U_SEL, big, s.op(U_MUL, v_, eps), v_)
+                                  for v_ in (pkm2, pkm1, qkm2, qkm1))
+        return [s.op(U_GT, t, eps), ans, t, y, z, cc, pkm1, qkm1, pkm2,
+                qkm2]
+
+    out = s.loop([enabled, ans, c(1.0), y, z, c(0.0), pkm1, qkm1, c(1.0), x],
+                 body, _CF_CAP)
+    return s.op(U_MUL, out[1], ax)
+
+
+def _igamma(s: _SSA, a: int, x: int, upper: bool) -> int:
+    """``jax.scipy.special.gammainc`` / ``gammaincc`` (``lax.igamma`` /
+    ``igammac``: ``igamma_impl`` / ``igammac_impl``): the series below the
+    switch (``x >= 1 and x > a`` for the lower function, ``x < 1 or x <
+    a`` the upper's series), the continued fraction past it, each a
+    bounded loop whose lanes are enabled where the inputs are in the domain
+    and ``a log x - x - lgamma(a)`` does not underflow; 0 and 1 at x = 0
+    and inf, NaN for a < 0, x < 0, a = x = 0 and NaN."""
+    c = lambda v: s.like(x, v)  # noqa: E731
+    is_nan = s.op(U_OR, s.op(U_ISNAN, a), s.op(U_ISNAN, x))
+    x_inf = s.op(U_EQ, x, c(_INF))
+    a_zero = s.op(U_EQ, a, c(0.0))
+    x_zero = s.op(U_EQ, x, c(0.0))
+    domain = s.op(U_OR, s.op(U_OR, s.op(U_OR, s.op(U_LT, x, c(0.0)), s.op(
+        U_LT, a, c(0.0))), s.op(U_AND, a_zero, x_zero)), is_nan)
+    ax = s.op(U_SUB, s.op(U_SUB, s.op(U_MUL, a, s.op(U_LOG, x)), x),
+              s.op(U_LGAMMA, a))
+    under = s.op(U_LT, ax, s.op(U_NEG, s.op(U_LOG, c(_F32_MAX))))
+    if not upper:
+        use_cf = s.op(U_AND, s.op(U_GE, x, c(1.0)), s.op(U_GT, x, a))
+        ax = s.op(U_EXP, ax)
+        enabled = s.op(U_NOT, s.op(U_OR, s.op(U_OR, s.op(
+            U_OR, x_zero, domain), under), x_inf))
+        cf = _igammac_cf(s, ax, x, a, s.op(U_AND, enabled, use_cf))
+        ser = _igamma_series(s, ax, x, a, s.op(U_AND, enabled, s.op(
+            U_NOT, use_cf)))
+        out = s.op(U_SEL, use_cf, s.op(U_SUB, c(1.0), cf), ser)
+        out = s.op(U_SEL, x_zero, c(0.0), out)
+        out = s.op(U_SEL, x_inf, c(1.0), out)
+    else:
+        use_ser = s.op(U_OR, s.op(U_LT, x, c(1.0)), s.op(U_LT, x, a))
+        enabled = s.op(U_NOT, s.op(U_OR, s.op(U_OR, s.op(
+            U_OR, domain, under), x_inf), a_zero))
+        ax = s.op(U_EXP, ax)
+        ser = _igamma_series(s, ax, x, a, s.op(U_AND, enabled, use_ser))
+        cf = _igammac_cf(s, ax, x, a, s.op(U_AND, enabled, s.op(
+            U_NOT, use_ser)))
+        out = s.op(U_SEL, use_ser, s.op(U_SUB, c(1.0), ser), cf)
+        out = s.op(U_SEL, s.op(U_OR, x_inf, a_zero), c(0.0), out)
+    return s.op(U_SEL, domain, c(_NAN), out)
 
 
 def _frexp(s: _SSA, x: int) -> Tuple[int, int]:
@@ -971,6 +1357,10 @@ def _lower_special(s: _SSA, name: str, xs: Sequence[int], opt: dict) -> int:
         return _i1e(s, x)
     if name == "special_ndtri":
         return _ndtri(s, x)
+    if name in ("special_bessel_j0", "special_bessel_j1"):
+        return _bessel_j(s, x, int(name[-1]))
+    if name in ("igamma", "igammac"):
+        return _igamma(s, x, xs[1], name == "igammac")
     if name == "special_log_ndtr":
         return _log_ndtr(s, x)
     if name == "special_entr":
@@ -987,9 +1377,8 @@ def _lower_special(s: _SSA, name: str, xs: Sequence[int], opt: dict) -> int:
         for i in range(1, d):
             total = s.op(U_ADD, total, s.op(U_LGAMMA, s.op(U_SUB, x,
                                                            c(i / 2))))
-        # log(pi) a constant (a libm function of a constant the kernel's
-        # compiler would fold)
-        return s.op(U_ADD, total, s.op(U_MUL, k, c(np.log(np.pi))))
+        # log(pi) of a constant, folded on the host
+        return s.op(U_ADD, total, s.op(U_MUL, k, s.op(U_LOG, c(np.pi))))
     if name == "logaddexp2":
         return _logaddexp(s, x, xs[1], base2=True)
     if name == "ldexp":
@@ -1038,12 +1427,14 @@ _LOWERED = {"isnan": 1, "signbit": 1, "isinf": 1, "isposinf": 1,
             "special_modified_bessel_i0": 1, "special_modified_bessel_i1": 1,
             "special_ndtri": 1, "special_log_ndtr": 1, "special_entr": 1,
             "mvlgamma": 1, "logaddexp2": 2, "ldexp": 2, "gelu": 1, "elu": 1,
-            "log_sigmoid_forward": 1}
+            "log_sigmoid_forward": 1, "special_bessel_j0": 1,
+            "special_bessel_j1": 1, "igamma": 2, "igammac": 2}
 _GROUP_C = {"digamma", "polygamma", "special_zeta", "i0", "special_i0e",
             "special_i1", "special_i1e", "special_modified_bessel_i0",
             "special_modified_bessel_i1", "special_ndtri",
             "special_log_ndtr", "special_entr", "mvlgamma", "logaddexp2",
-            "ldexp", "gelu", "elu", "log_sigmoid_forward"}
+            "ldexp", "gelu", "elu", "log_sigmoid_forward",
+            "special_bessel_j0", "special_bessel_j1", "igamma", "igammac"}
 # the lowered functions jnp computes in an integer type
 _INT_LOWERED = {"isnan", "isinf", "isposinf", "isneginf", "signbit",
                 "round", "nan_to_num", "sign", "sgn", "relu", "remainder",
@@ -1053,13 +1444,20 @@ _INT_LOWERED = {"isnan", "isinf", "isposinf", "isneginf", "signbit",
 _F32_FORMS = {"erfinv", "digamma", "polygamma", "special_zeta", "i0",
               "special_i0e", "special_i1", "special_i1e",
               "special_modified_bessel_i0", "special_modified_bessel_i1",
-              "special_ndtri", "special_log_ndtr", "ldexp"}
+              "special_ndtri", "special_log_ndtr", "ldexp",
+              "special_bessel_j0", "special_bessel_j1", "igamma", "igammac"}
 
 
 def _schedule(ssa: _SSA, n_draws: int) -> Program:
     """Drop unused values, order the instructions (a record sum right after
     its value, stores and alive clears last, after every load) and assign
-    registers by liveness."""
+    registers by liveness. A loop (:meth:`_SSA.loop`) becomes its carried
+    values' ``U_CARRY`` instructions, ``U_LOOP`` (the condition's register,
+    the cap), the body's instructions (the values that depend on a carried
+    value), one ``U_SET`` a carried value (its register, the next value's)
+    and ``U_END``; a value of the loop's outer code that the body reads, and
+    each carried value, stays in its register through ``U_END``; a loop's
+    result is its carried value's register."""
     live = set()
     stack = [e[1] for e in ssa.effects]
     while stack:
@@ -1067,8 +1465,23 @@ def _schedule(ssa: _SSA, n_draws: int) -> Program:
         if v in live:
             continue
         live.add(v)
-        code, args, _ = ssa.defs[v]
-        stack.extend(_uses(code, args, ssa))
+        code, args, y = ssa.defs[v]
+        stack.extend(_uses(code, args, ssa, y))
+    # the loop each value belongs to (it depends on the loop's carried
+    # values), and the results' carried values
+    region: Dict[int, int] = {}
+    alias: Dict[int, int] = {}
+    for v, (code, args, y) in enumerate(ssa.defs):
+        if code == U_CARRY:
+            region[v] = y[0]
+        elif code == U_OUT:
+            alias[v] = ssa.loops[ssa.defs[args[0]][2][0]][0][y]
+        elif code != U_LOOP:
+            rs = {region[a] for a in args if a in region}
+            if len(rs) > 1:
+                raise ValueError("a value of two loops' bodies")
+            if rs:
+                region[v] = rs.pop()
     accs: Dict[int, list] = {}
     tail = []
     for eff in ssa.effects:
@@ -1076,37 +1489,99 @@ def _schedule(ssa: _SSA, n_draws: int) -> Program:
             accs.setdefault(eff[1], []).append(eff)
         else:
             tail.append(eff)
-    order: List[tuple] = []  # ("v", vid) or ("e", effect)
+    # ("v", vid), ("e", effect), ("loop" / "end", loop id), ("set",
+    # (carried, next))
+    order: List[tuple] = []
     for v in range(len(ssa.defs)):
-        if v in live:
+        if v not in live:
+            continue
+        code, args, y = ssa.defs[v]
+        if code == U_LOOP:
+            lid = y[0]
+            carried = ssa.loops[lid][0]
+            order += [("v", c) for c in carried]
+            order.append(("loop", lid))
+            order += [("v", b) for b in range(v) if b in live
+                      and region.get(b) == lid and ssa.defs[b][0] != U_CARRY]
+            order += [("set", (c, n)) for c, n in zip(carried, args)]
+            order.append(("end", lid))
+        elif code != U_OUT and v not in region:
             order.append(("v", v))
-            order.extend(("e", e) for e in accs.get(v, ()))
+        order.extend(("e", e) for e in accs.get(v, ()))
     order.extend(("e", e) for e in tail)
-    last: Dict[int, int] = {}
-    for i, (kind, item) in enumerate(order):
+
+    def ref(u):
+        return alias.get(u, u)
+
+    def uses_at(kind, item):
         if kind == "v":
-            code, args, _ = ssa.defs[item]
-            for u in _uses(code, args, ssa):
-                last[u] = i
-        else:
-            last[item[1]] = i
+            code, args, y = ssa.defs[item]
+            return [ref(u) for u in _uses(code, args, ssa, y)]
+        if kind == "e":
+            return [ref(item[1])]
+        if kind == "set":
+            return [ref(item[1])]
+        if kind == "loop":
+            loop = ssa.loops[item]
+            return [loop[0][loop[3]]]
+        return []
+
+    last: Dict[int, int] = {}
+    defined: Dict[int, int] = {}
+    opened = {}
+    for i, (kind, item) in enumerate(order):
+        for u in uses_at(kind, item):
+            last[u] = i
+        if kind == "v":
+            defined[item] = i
+        elif kind == "loop":
+            opened[item] = i
+        elif kind == "end":
+            # what the body reads from outside, and the carried values,
+            # live through the loop's last instruction
+            i0 = opened[item]
+            for j in range(i0, i + 1):
+                for u in uses_at(*order[j]):
+                    if defined.get(u, -1) < i0:
+                        last[u] = max(last[u], i)
+            for c in ssa.loops[item][0]:
+                last[c] = max(last.get(c, i), i)
     reg: Dict[int, int] = {}
     free: List[int] = []
     n_regs = 0
     ins, types = [], []
+
+    def release(i, vals):
+        for u in dict.fromkeys(vals):
+            if last[u] == i:
+                free.append(reg[u])
+
     for i, (kind, item) in enumerate(order):
         if kind == "e":
             code, v, y = item
-            ins.append((code, 0, reg[v], 0, y, False))
+            ins.append((code, 0, reg[ref(v)], 0, y, False))
             types.append(F32)
-            if last[item[1]] == i:
-                free.append(reg[v])
+            release(i, [ref(v)])
+            continue
+        if kind in ("loop", "set", "end"):
+            if kind == "loop":
+                loop = ssa.loops[item]
+                ins.append((U_LOOP, 0, reg[loop[0][loop[3]]], 0, loop[2],
+                            False))
+            elif kind == "set":
+                ins.append((U_SET, reg[item[0]], reg[ref(item[1])], 0, 0,
+                            False))
+            else:
+                ins.append((U_END, 0, 0, 0, 0, False))
+            types.append(F32)
+            if kind == "end":
+                release(i, [u for u, j in last.items() if j == i])
+            else:
+                release(i, uses_at(kind, item))
             continue
         code, args, y = ssa.defs[item]
-        srcs = _uses(code, args, ssa)
-        for u in dict.fromkeys(srcs):
-            if last[u] == i:
-                free.append(reg[u])
+        args = tuple(ref(u) for u in args)
+        release(i, uses_at(kind, item))
         if free:
             free.sort(reverse=True)
             d = free.pop()
@@ -1115,7 +1590,9 @@ def _schedule(ssa: _SSA, n_draws: int) -> Program:
         reg[item] = d  # every live value has a last use
         a = b = 0
         bimm = False
-        if code == U_SEL:
+        if code == U_CARRY:
+            a, y = reg[args[0]], 0
+        elif code == U_SEL:
             # (cond, false register, true register in y), or with a
             # constant false value (cond, true register, its immediate)
             cond, tv, fv = args
@@ -1124,6 +1601,13 @@ def _schedule(ssa: _SSA, n_draws: int) -> Program:
                 b, y, bimm = reg[tv], ssa.defs[fv][2], True
             else:
                 b, y = reg[fv], reg[tv]
+        elif code == U_FMA:
+            # (a, b, the addend's register in y), or its immediate
+            a, b = reg[args[0]], reg[args[1]]
+            if ssa.is_const(args[2]):
+                bimm, y = True, ssa.defs[args[2]][2]
+            else:
+                y = reg[args[2]]
         elif len(args) == 2:
             a = reg[args[0]]
             if ssa.is_const(args[1]):
@@ -2234,7 +2718,159 @@ def record_field(fn: Callable, varnames: Tuple[str, ...], label: str,
     return FL.expr_field(prog, varnames, f"<recorded {name}>", n_out=ncomp)
 
 
+# -- branched arms ---------------------------------------------------------------
+
+
+# an arm of a select that holds one of these (a CUDA libm call) or at
+# least ARM_MIN instructions runs under a branch on the select's condition
+_LIBM_CALLS = _LIBM_FOLD | {U_FMOD}
+ARM_MIN = 12
+# the instructions that stay where the program has them: loads, draws, t
+# and dt, the effects and the loops' own
+_PINNED = {U_LD, U_T, U_DT, U_UNIF, U_ST, U_ALIVE, U_ACC, U_CARRY, U_LOOP,
+           U_SET, U_END}
+# the codes with one register operand
+_ONE_OPERAND = set(_UNARY.values()) | {U_NOT, U_BOOL, U_ROUND, U_ISNAN,
+                                       U_SIGNBIT, U_CVT, U_BITCAST, U_IPOW,
+                                       U_BNOT}
+
+
+def _operands(ins) -> list:
+    """``(register, slot)`` of an instruction's register operands (a
+    select's slots ``"c"``, ``"t"``, ``"f"``)."""
+    code, d, a, b, y, bimm = ins
+    if code in (U_CONST, U_LD, U_T, U_DT, U_UNIF, U_END):
+        return []
+    if code == U_LOOP:
+        return [(a, "c")]
+    if code == U_SEL:
+        return [(a, "c"), (b, "t")] if bimm else [(a, "c"), (y, "t"),
+                                                 (b, "f")]
+    if code == U_FMA:
+        return [(a, "a"), (b, "b")] + ([] if bimm else [(y, "c")])
+    if code in (U_ST, U_ALIVE, U_ACC, U_CARRY, U_SET):
+        return [(a, "a")]
+    if code in _ONE_OPERAND:
+        return [(a, "a")]
+    return [(a, "a")] + ([] if bimm else [(b, "b")])
+
+
+def branched_arms(prog: Program) -> dict:
+    """``{select index: (true arm, false arm)}`` of the selects whose arms
+    run under a branch: an arm is the instructions that only that operand
+    of the select needs, transitively (pure ones of the select's own loop
+    body or of the outer code; never a load, draw, effect or loop
+    instruction), and a select is branched where an arm holds a libm call
+    (``_LIBM_CALLS``) or at least ``ARM_MIN`` instructions, and neither
+    of its values is a constant (a guard of a special value, such as
+    ``ndtri``'s ``p == 0``: its other arm is the common one, and a branch
+    around it would only cost). On each lane the same instructions see the
+    same inputs, so the twin is unchanged."""
+    n = len(prog.ins)
+    defn, opnd, users, region = {}, [None] * n, [[] for _ in range(n)], []
+    loops = []
+    for i, ins in enumerate(prog.ins):
+        code = ins[0]
+        if code == U_END:
+            loops.pop()
+        region.append(loops[-1] if loops else None)
+        opnd[i] = [(defn[r], slot) for r, slot in _operands(ins)]
+        for j, slot in opnd[i]:
+            users[j].append((i, slot))
+        if code == U_LOOP:
+            loops.append(i)
+        if code not in (U_ST, U_ALIVE, U_ACC, U_LOOP, U_END, U_SET):
+            defn[ins[1]] = i
+    movable = [ins[0] not in _PINNED for ins in prog.ins]
+
+    def arm(s, slot):
+        r = next((j for j, sl in opnd[s] if sl == slot), None)
+        if r is None or not (movable[r] and region[r] == region[s]
+                             and users[r] == [(s, slot)]):
+            return set()
+        out, seen, heap = {r}, {r}, [-j for j, _ in opnd[r]]
+        heapq.heapify(heap)
+        while heap:
+            j = -heapq.heappop(heap)
+            if j in seen:
+                continue
+            seen.add(j)
+            if movable[j] and region[j] == region[s] and all(
+                    u in out for u, _ in users[j]):
+                out.add(j)
+                for k, _ in opnd[j]:
+                    heapq.heappush(heap, -k)
+        return out
+
+    branched = {}
+    for s, ins in enumerate(prog.ins):
+        if ins[0] != U_SEL or ins[5] or any(
+                prog.ins[j][0] == U_CONST for j, sl in opnd[s]
+                if sl != "c"):
+            continue  # a constant arm: a guard, the other arm the common one
+        arms = (arm(s, "t"), arm(s, "f"))
+        if any(len(a) >= ARM_MIN or any(prog.ins[j][0] in _LIBM_CALLS
+                                        for j in a) for a in arms):
+            branched[s] = arms
+    return branched
+
+
+@functools.lru_cache(maxsize=256)
+def arm_owner(prog: Program) -> dict:
+    """``{instruction: (select, side)}``: the innermost branched arm
+    (:func:`branched_arms`) each instruction runs in, ``side`` True for
+    the select's true arm; an instruction outside every arm is absent."""
+    owner = {}
+    for s, arms in sorted(branched_arms(prog).items(),
+                          key=lambda kv: -sum(map(len, kv[1]))):
+        for side, members in zip((True, False), arms):
+            for j in members:
+                owner[j] = (s, side)
+    return owner
+
+
 # -- the plain version ------------------------------------------------------------
+
+
+# when a dict, the plain versions append each run's executed lane counts
+# of a program to it, ``{id(program): [(lanes, per-instruction lane
+# counts), ...]}`` in run order: an instruction of a branched arm
+# (:func:`branched_arms`) counts the lanes that take the arm, a loop body's
+# instruction the lanes that ran each iteration (the bounds of
+# ``chip_smoke.py`` count such work on the lanes that do it)
+lane_tally: Optional[dict] = None
+
+
+def _tally(prog: Program, conds: dict, loop_lanes: dict, C: int) -> None:
+    """Append one run's lane counts of ``prog`` to :data:`lane_tally`:
+    ``conds`` each select's condition mask, ``loop_lanes`` each loop's
+    enabled lanes summed over its iterations."""
+    owner = arm_owner(prog)
+    memo = {}
+
+    def reach(key):
+        if key is None:
+            return None
+        if key not in memo:
+            s_, side = key
+            m = conds[s_] if side else ~conds[s_]
+            up = reach(owner.get(s_))
+            memo[key] = m if up is None else m & up
+        return memo[key]
+
+    took = {key: int(reach(key).sum()) for key in set(owner.values())}
+    counts = []
+    loop = None
+    for j, ins in enumerate(prog.ins):
+        if ins[0] == U_LOOP:
+            loop = j
+        elif ins[0] == U_END:
+            loop = None
+        if loop is not None and j != loop:
+            counts.append(loop_lanes.get(loop, 0))
+        else:
+            counts.append(took.get(owner.get(j), C))
+    lane_tally.setdefault(id(prog), []).append((C, counts))
 
 
 def run_user_program(prog: Program, f: list, alive: torch.Tensor, t, dt,
@@ -2260,9 +2896,19 @@ def run_user_program(prog: Program, f: list, alive: torch.Tensor, t, dt,
         dev, torch.float32).expand(C)
     regs: List[Optional[torch.Tensor]] = [None] * prog.n_regs
     base = rng.idx
-    for ins, ty in zip(prog.ins, prog.type_list()):
+    tys = prog.type_list()
+    conds, loops = ({}, {}) if lane_tally is not None else (None, None)
+    i = 0
+    while i < len(prog.ins):
+        ins, ty = prog.ins[i], tys[i]
         code, d, a, _, y, _ = ins
+        i += 1
         va = regs[a]
+        if code == U_LOOP:
+            i = _run_loop(prog, i - 1, regs, full, one, loops)
+            continue
+        if code == U_SEL and conds is not None:
+            conds[i - 1] = va != 0
         if code == U_ST:
             f[y] = va
             continue
@@ -2285,6 +2931,8 @@ def run_user_program(prog: Program, f: list, alive: torch.Tensor, t, dt,
             v = _pure(ins, regs, full, one, ty)
         regs[d] = v
     rng.idx = base + prog.n_draws
+    if conds is not None:
+        _tally(prog, conds, loops, C)
     return alive
 
 
@@ -2339,6 +2987,10 @@ def _pure(ins, regs, full, one, t=F32) -> torch.Tensor:
     va = regs[a]
     if code == U_CONST:
         return full(y, t)
+    if code == U_CARRY:
+        return va
+    if code == U_FMA:
+        return fma_f32(va, regs[b], full(y, t) if bimm else regs[y])
     if code == U_CVT:
         return _convert(va, t)
     if code == U_BITCAST:
@@ -2431,6 +3083,25 @@ def _convert(x: torch.Tensor, t: str) -> torch.Tensor:
     return x.to(dst)
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """``fmaf(a, b, c)`` of float32 tensors, rounded once (the kernel's
+    ``__fmaf_rn``): the float64 product (exact), its sum with ``c`` rounded
+    to odd (the sum, its TwoSum error, and the odd neighbour where the sum
+    is inexact and even), then one rounding to float32, which is then the
+    correctly rounded value (53 bits hold 24 and two more)."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    s = s.contiguous()
+    even = (s.view(torch.int64) & 1) == 0
+    fix = (err != 0) & even & torch.isfinite(s)
+    away = torch.where(err > 0, _INF, -_INF).to(s.dtype)
+    return torch.where(fix, torch.nextafter(s, away), s).float()
+
+
 def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root (the kernel's ``sqrtf``)."""
     return torch.sqrt(x.double()).float()
@@ -2477,15 +3148,57 @@ def run_field(prog: Program, args, n_out: int = 1):
     one = full(1.0)
     regs: List[Optional[torch.Tensor]] = [None] * prog.n_regs
     out: List[Optional[torch.Tensor]] = [None] * n_out
-    for ins, ty in zip(prog.ins, prog.type_list()):
+    tys = prog.type_list()
+    conds, loops = ({}, {}) if lane_tally is not None else (None, None)
+    i = 0
+    while i < len(prog.ins):
+        ins, ty = prog.ins[i], tys[i]
         code, d, a, _, y, _ = ins
-        if code == U_ST:
+        i += 1
+        if code == U_LOOP:
+            i = _run_loop(prog, i - 1, regs, full, one, loops)
+        elif code == U_ST:
             out[y] = regs[a]
         elif code == U_LD:
             regs[d] = args[y]
         else:
+            if code == U_SEL and conds is not None:
+                conds[i - 1] = regs[a] != 0
             regs[d] = _pure(ins, regs, full, one, ty)
+    if conds is not None:
+        _tally(prog, conds, loops, shape.numel())
     return out[0] if n_out == 1 else tuple(out)
+
+
+def _run_loop(prog: Program, i: int, regs, full, one, lanes=None) -> int:
+    """Plain version of the loop whose ``U_LOOP`` is instruction ``i``, as
+    jnp's ``while_loop`` runs it: the body over the whole tensor, each
+    carried value then kept by select where the lane was disabled at the
+    iteration's start, until no lane is enabled or the cap is reached
+    (``lanes``, a dict: the enabled lanes summed over its iterations).
+    Returns the index after its ``U_END``."""
+    tys = prog.type_list()
+    _, _, cond, _, cap, _ = prog.ins[i]
+    end = i + 1
+    while prog.ins[end][0] != U_END:
+        end += 1
+    for _ in range(cap):
+        en = regs[cond] != 0
+        n_en = int(en.sum())
+        if not n_en:
+            break
+        if lanes is not None:
+            lanes[i] = lanes.get(i, 0) + n_en
+        pending = []
+        for k in range(i + 1, end):
+            ins = prog.ins[k]
+            if ins[0] == U_SET:
+                pending.append((ins[1], regs[ins[2]]))
+            else:
+                regs[ins[1]] = _pure(ins, regs, full, one, tys[k])
+        for d, v in pending:
+            regs[d] = torch.where(en, v, regs[d])
+    return end + 1
 
 
 def _cmp(fn):

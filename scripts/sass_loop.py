@@ -11,6 +11,14 @@ or on a SASS listing made elsewhere (``cuobjdump -sass lib.so``)::
 
     python3 scripts/sass_loop.py --sass FILE 64 --ranges f80-fc0*3,1020-1060
 
+or, for a generated form source (``ops/codegen.py:form_source``, also
+written beside its library as ``_build/fused_plan_<key>.cu``), its loop's
+instructions by the generated line each came from (``attribute``: the libm
+calls, the fused multiply-adds, the programs' other instructions, the
+kernel's own code; compiled again with ``-lineinfo``)::
+
+    python3 scripts/sass_loop.py --attribute _build/fused_plan_KEY.cu --ballots 5
+
 ``--lib`` with no variant counts a form library's ``fused_form_kernel``
 (every plan outside the main path's op-sequence form runs one, generated
 per plan form by ``physicl_tpu_torch/ops/codegen.py``): its iteration loop
@@ -256,6 +264,155 @@ def form_summary(funcs: dict, ballots: int = 1, ranges=None) -> dict:
     return {"function": name, **summary(ins, ranges, ballots)}
 
 
+# a line-information comment of nvdisasm (-g, -gi): each "file", line pair,
+# the innermost first and then the sites it was inlined at
+_LOC = re.compile(r'"([^"]+)", line (\d+)')
+_LIBM = re.compile(r"\b([a-z][a-z0-9]*f)\(")
+_TEXT = re.compile(r"^\s*\.text\.(\S+):\s*$")
+_LABEL = re.compile(r"^\s*(\.L\w+):")
+_TARGET = re.compile(r"`\((\.L\w+)\)")
+
+
+def lined_functions(listing: str) -> dict:
+    """``{name: [(address, instruction, [(file, line), ...]), ...]}`` of an
+    ``nvdisasm -g -gi`` listing: each instruction with the source location
+    of the ``//##`` comment before it (innermost first, then the sites it
+    was inlined at), a branch to a label rewritten to the label's address
+    (as ``cuobjdump -sass`` prints it)."""
+    out, cur, loc, labels, pending = {}, None, [], {}, []
+    fresh = []  # the comments since the last instruction
+    for line in listing.splitlines():
+        m = _TEXT.match(line)
+        if m:
+            cur = out.setdefault(m.group(1), [])
+            loc, fresh = [], []
+            continue
+        m = _LABEL.match(line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        if "//##" in line:
+            # an inlined location is listed with its chain, then its
+            # outer sites alone: the longest chain is the instruction's
+            fresh.append([(f, int(n)) for f, n in _LOC.findall(line)])
+        m = _INS.search(line.split("//##")[0])
+        if m and cur is not None:
+            if fresh:
+                loc, fresh = max(fresh, key=len), []
+            addr = int(m.group(1), 16)
+            labels.update((lb, addr) for lb in pending)
+            pending = []
+            cur.append((addr, m.group(2).strip(), loc))
+    for ins in out.values():
+        ins[:] = [(a, _TARGET.sub(lambda m: f"0x{labels.get(m.group(1), 0):x}",
+                                  t), lc) for a, t, lc in ins]
+    return out
+
+
+def source_kind(text: str) -> str:
+    """What one line of a generated form source computes: ``libm:<name>``
+    (a CUDA libm call), ``fma`` (a fused multiply-add), ``loop`` (a bounded
+    loop's head or exit), ``branch`` (a branched arm's ``if`` / ``else``),
+    ``move`` (a branched select's result or a loop's update), ``program``
+    (another instruction of a program)."""
+    t = text.strip()
+    if t.startswith("for (int it") or t.endswith("break;") or re.match(
+            r"^const \w+(?: \w+)? n\d+_\d+ = ", t):
+        return "loop"
+    if t.startswith(("if (", "} else", "}")) or re.match(
+            r"^(float|int|long long|double) v\d+;$", t):
+        return "branch"
+    if re.match(r"^v\d+ = ", t):
+        return "move"
+    if "__fmaf_rn(" in t:
+        return "fma"
+    calls = [c for c in _LIBM.findall(t) if c not in (
+        "__int_as_float", "unit24", "nan_min", "nan_max", "hash_bits")]
+    if calls:
+        return "libm:" + calls[0]
+    return "program"
+
+
+def lined_listing(source: str, csrc=None) -> str:
+    """``nvdisasm -g -gi`` of a generated form source (``source``, a .cu
+    file) compiled to a cubin with the build's flags and ``-lineinfo``
+    (``csrc``: the directory of the sources it includes, the package's
+    ``csrc/`` by default)."""
+    import tempfile
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    from physicl_tpu_torch.ops import _build
+
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    flags = [f for f in _build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = os.path.join(tmp, "form.cubin")
+        subprocess.run([os.path.join(cuda, "bin", "nvcc"), *flags, "-cubin",
+                        "-lineinfo", "-I", csrc or _build._CSRC, "-o", cubin,
+                        source], check=True, capture_output=True, text=True)
+        return subprocess.run(
+            [os.path.join(cuda, "bin", "nvdisasm"), "-g", "-gi", cubin],
+            check=True, capture_output=True, text=True).stdout
+
+
+def attribute(source: str, ballots: int = 1, listing=None) -> dict:
+    """The SASS of a form's iteration loop attributed to its generated
+    source (``ops/codegen.py:form_source``, the file ``source``), from
+    ``listing`` (``lined_listing``'s, made now where None): each
+    fast-path instruction of ``fused_form_kernel``'s iteration loop goes to
+    the generated line it was inlined from (``source_kind``: the libm calls
+    by name, the fused multiply-adds, the programs' other instructions, the
+    branched arms' and loops' own), or to ``kernel`` (``csrc/``'s code).
+    ``by_op`` splits the generated ones by device function (``user_op_<i>``,
+    ``field_<j>``); ``if_branches`` counts the branched arms' ``if`` lines
+    and those that compiled to a branch (a ``BRA`` at that line)."""
+    if listing is None:
+        listing = lined_listing(source)
+    gen = open(source).read().splitlines()
+    owner, fn = {}, None
+    for n, text in enumerate(gen, 1):
+        m = re.search(r"\b(user_op_\d+|field_\d+|binned_op_\d+)\(", text)
+        if m and text.startswith(("__device__", "template", "void")) or (
+                m and " void " in text):
+            fn = m.group(1)
+        owner[n] = fn
+        if text == "}":
+            fn = None
+    funcs = lined_functions(listing)
+    name = next(n for n in funcs if "fused_form_kernel" in n
+                and "buf" not in n)
+    ins = funcs[name]
+    plain = [(a, t) for a, t, _ in ins]
+    (lo, hi), _ = iteration_loop(plain)
+    slow = slow_blocks(plain, lo, hi)
+    base = os.path.basename(source)
+    by_kind, by_op, ifs = {}, {}, {}
+    for i in range(lo, hi + 1):
+        if i in slow:
+            continue
+        line = next((n for f, n in ins[i][2]
+                     if os.path.basename(f) == base), None)
+        kind = "kernel" if line is None else source_kind(gen[line - 1])
+        by_kind[kind] = by_kind.get(kind, 0) + 1
+        if line is not None:
+            key = owner.get(line) or "form"
+            by_op[key] = by_op.get(key, 0) + 1
+            if source_kind(gen[line - 1]) == "branch" and gen[
+                    line - 1].strip().startswith("if ("):
+                ifs.setdefault(line, False)
+                ifs[line] |= opcode(ins[i][1]) == "BRA"
+    n_iter = max(1, sum(1 for i in range(lo, hi + 1)
+                        if opcode(plain[i][1]) == "VOTE") // ballots)
+    return {"function": name, "iterations": n_iter,
+            "fast_path": sum(by_kind.values()),
+            "by_kind": dict(sorted(by_kind.items())),
+            "by_op": dict(sorted(by_op.items())),
+            "if_branches": {"lines": len(ifs),
+                            "compiled_to_branch": sum(ifs.values())}}
+
+
 def library_sass(path: str) -> str:
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
@@ -281,7 +438,15 @@ def main(argv=None):
     ap.add_argument("--ranges", help="hex address ranges a-b,c-d (one "
                     "kernel)")
     ap.add_argument("--dump", help="write each kernel's SASS here")
+    ap.add_argument("--attribute", help="a generated form source (.cu): "
+                    "its iteration loop's SASS by source line")
+    ap.add_argument("--listing", help="with --attribute: its nvdisasm -g -gi "
+                    "listing (lined_listing), made elsewhere")
     args = ap.parse_args(argv)
+    if args.attribute:
+        print(json.dumps(attribute(args.attribute, args.ballots, open(
+            args.listing).read() if args.listing else None)))
+        return
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, here)
     sass = (open(args.sass).read() if args.sass

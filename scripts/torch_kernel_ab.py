@@ -1,8 +1,14 @@
 #!/usr/bin/env python3
 """Time the port's transport kernel from several checkouts, in turns, on one
-GPU: ``python3 scripts/torch_kernel_ab.py [--dump DIR] [--skip A,B] OLD NEW
-NEW OLD`` (``--skip``: user plans of ``chip_smoke.USER_PLANS`` not to time,
-e.g. ``past-limits``, whose build takes minutes in each turn).
+GPU: ``python3 scripts/torch_kernel_ab.py [--dump DIR] [--skip A,B]
+[--forms A,B] [--attribute A,B] OLD NEW NEW OLD`` (``--skip``: user plans of
+``chip_smoke.USER_PLANS`` not to time, e.g. ``past-limits``, whose build
+takes minutes in each turn; ``--forms``: also time these forms, each where
+the checkout plans it: ``chip_smoke.py``'s group plans (``ops-libm`` ...
+``ops-loops``, 2**20 x 256) and the ``lattice``, ``voxel-index`` and
+``aperture`` paths' first chunks (10**7 x 1024), with their registers,
+iteration-loop SASS and, for the forms ``--attribute`` names, that SASS
+by generated source line, ``scripts/sass_loop.py:attribute``).
 
 Each argument is the root of a checkout holding ``physicl_tpu_torch``. For
 each, in the order given, a fresh process imports that checkout's package,
@@ -218,6 +224,56 @@ if "custom" in F.OP_CODES:
         end.record()
         torch.cuda.synchronize()
         out[f"ms_{case}"] = start.elapsed_time(end) / 5
+# the forms of --forms: chip_smoke.py's group plans (2**20 x 256) and the
+# lattice, voxel-index and aperture paths' first chunks (10**7 x 1024),
+# where this checkout plans them; their builds started together
+FORMS = [c for c in os.environ.get("KERNEL_AB_FORMS", "").split(",") if c]
+if FORMS:
+    from physicl_tpu_torch.ops import codegen
+    paths = {"lattice": lambda: cs.lattice_sim(phys, cs.LAT_N, dev)[0],
+             "voxel-index": lambda: cs.voxel_sim(phys, cs.VOX_N, dev)[0],
+             "aperture": lambda: cs.aperture_sim(phys, cs.AP_N, dev)[0]}
+    plans = {}
+    for case in FORMS:
+        try:
+            make = paths.get(case) or (lambda: cs.ops_plan_sim(phys, case,
+                                                              dev))
+            plans[case] = cs.planned(make())[1].plan
+        except Exception as e:  # a form this checkout refuses
+            out[f"ms_{case}"] = f"not planned: {type(e).__name__}: {e}"[:200]
+    _build.start_plan_builds({c: codegen.form_source(p)
+                              for c, p in plans.items()})
+    for case in plans:
+        make = paths.get(case) or (lambda: cs.ops_plan_sim(phys, case, dev))
+        pk, sched, seed, k, plan, _ = cs.first_chunk_inputs(make(), F)
+        res = torch.empty_like(pk)
+        reps = 3 if case in paths else 5
+
+        def launch():
+            F.fused_transport(pk, res, sched, seed, k, plan)
+        launch()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            launch()
+        end.record()
+        torch.cuda.synchronize()
+        out[f"ms_{case}"] = start.elapsed_time(end) / reps
+        loop = cs.form_loop(F, plan)
+        out[f"form_{case}"] = {"registers": cs.form_regs(plan),
+                               "sass_per_iteration": loop["per_iteration"],
+                               "classes": loop["classes"]}
+        if case in os.environ.get("KERNEL_AB_ATTRIBUTE", "").split(","):
+            src = os.path.join(_build.BUILD_DIR, f"attr_{case}.cu")
+            with open(src, "w") as f:
+                f.write(codegen.form_source(plan))
+            try:
+                out[f"form_{case}"]["sass_by_source"] = sass_loop.attribute(
+                    src, cs.form_ballots(plan))
+            except Exception as e:
+                out[f"form_{case}"]["sass_by_source"] = (
+                    f"{type(e).__name__}: {e}"[:300])
+        del pk, res
 print(json.dumps(out))
 """
 
@@ -226,8 +282,10 @@ def main(args):
     dump, env = None, dict(os.environ)
     if args[:1] == ["--dump"]:
         dump, args = args[1], args[2:]
-    if args[:1] == ["--skip"]:
-        env["KERNEL_AB_SKIP"], args = args[1], args[2:]
+    keys = {"--skip": "KERNEL_AB_SKIP", "--forms": "KERNEL_AB_FORMS",
+            "--attribute": "KERNEL_AB_ATTRIBUTE"}
+    while args[:1] and args[0] in keys:
+        env[keys[args[0]]], args = args[1], args[2:]
     if not args:
         sys.exit(__doc__)
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -55,6 +55,8 @@ _HARNESS = r"""
 #define __forceinline__ inline
 #include "binned.cuh"
 using namespace physicl;
+// CUDA's correctly rounded fused multiply-add (U_FMA): the C library's
+inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
 inline float ipow(float x, int y) {
   if (y == 0) return 1.0f;
   const bool neg = y < 0;

@@ -83,6 +83,8 @@ inline float __int_as_float(uint32_t b) {
   std::memcpy(&v, &b, 4);
   return v;
 }
+// CUDA's correctly rounded fused multiply-add (U_FMA): the C library's
+inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
 inline float nan_min(float a, float b) {
   return (std::isnan(a) || std::isnan(b)) ? a + b : fminf(a, b);
 }
@@ -206,8 +208,66 @@ _TRANSCENDENTAL = {RC.U_EXP, RC.U_LOG, RC.U_LOG10, RC.U_SIN, RC.U_COS,
 # codes whose NaN (a negative operand) has no one sign bit across libms:
 # their programs take the plane as it is, not less 1
 _POSITIVE = (RC.U_SQRT, RC.U_LOG, RC.U_LOG10, RC.U_RSQRT)
+# U_OUT is a loop's result in the recorder's SSA, never an instruction
 _CODES = {name: code for name, code in vars(RC).items()
-          if name.startswith("U_") and isinstance(code, int)}
+          if name.startswith("U_") and isinstance(code, int)
+          and name != "U_OUT"}
+_LOOP_CODES = {RC.U_CARRY, RC.U_LOOP, RC.U_SET, RC.U_END}
+
+
+def _loop_program(code, field=False) -> RC.Program:
+    """A bounded loop around the loop instruction ``code``: lanes that
+    leave at different iterations and lanes that reach the cap
+    (``U_LOOP``), carried int32 and float64 values (``U_CARRY``), carried
+    values that swap, each update reading the other's old value
+    (``U_SET``), and two loops in a row, the second reading the first's
+    result (``U_END``); the results stored into planes 14, 3, 4, 15, or
+    with ``field`` a field's three outputs over its variables a and b."""
+    s = RC._SSA()
+    x = s.val(RC.U_LD, (), 0 if field else 12)
+    w = s.val(RC.U_LD, (), 1 if field else 0)
+    c = s.const
+    outs = []
+    if code == RC.U_LOOP:  # halve while above 0.05, at most 6 times
+        def body(v):
+            r = s.op(RC.U_MUL, v[1], c(0.5))
+            return [s.op(RC.U_GT, r, c(0.05)), r,
+                    s.op(RC.U_ADD, v[2], c(1.0))]
+        outs = s.loop([s.op(RC.U_GT, x, c(0.5)), x, c(0.0)], body, 6)[1:]
+    elif code == RC.U_CARRY:  # an int32 count and a float64 sum
+        def body(v):
+            k = s.op(RC.U_ADD, v[1], c(1, RC.I32))
+            tot = s.op(RC.U_ADD, v[2], s.op(RC.U_DIV, c(1.0, RC.F64),
+                                            s.cvt(k, RC.F64)))
+            return [s.op(RC.U_LT, s.cvt(k, RC.F32), s.op(
+                RC.U_MUL, w, c(4.0))), k, tot]
+        _, k, tot = s.loop([c(1.0), c(0, RC.I32), s.cvt(x, RC.F64)], body,
+                           20)
+        outs = [s.cvt(k, RC.F32), s.cvt(tot, RC.F32)]
+    elif code == RC.U_SET:  # (a, b) -> (b, a + b / 2) three or four times
+        def body(v):
+            n = s.op(RC.U_ADD, v[3], c(1.0))
+            return [s.op(RC.U_LT, n, s.op(RC.U_ADD, c(3.0), s.op(
+                RC.U_GT, x, c(1.5)))), v[2], s.op(RC.U_ADD, v[1], s.op(
+                    RC.U_MUL, v[2], c(0.5))), n]
+        outs = s.loop([c(1.0), x, w, c(0.0)], body, 10)[1:3]
+    else:  # two loops: the second starts from the first's result
+        def first(v):
+            r = s.op(RC.U_ADD, v[1], x)
+            return [s.op(RC.U_LT, r, c(7.0)), r]
+
+        _, r = s.loop([c(1.0), w], first, 50)
+
+        def second(v):
+            q = s.op(RC.U_MUL, v[1], c(0.75))
+            return [s.op(RC.U_GT, q, x), q]
+
+        outs = [r, s.loop([c(1.0), r], second, 50)[1]]
+    if field:  # a field of three outputs
+        outs = (outs + [x, x])[:3]
+    for j, o in enumerate(outs):
+        s.effects.append((RC.U_ST, o, j if field else (14, 3, 4, 15)[j]))
+    return RC._schedule(s, 0)
 
 
 def _code_program(case) -> RC.Program:
@@ -224,6 +284,13 @@ def _code_program(case) -> RC.Program:
     if case in _TYPED_CASES:
         return _typed_program(*_TYPED_CASES[case])
     code = _CODES[case]
+    if code in _LOOP_CODES:
+        return _loop_program(code)
+    if code == RC.U_FMA:  # a register addend, then an immediate one
+        ins = [ld(0, 12), ld(1, 0), ld(2, 14),
+               (RC.U_FMA, 3, 0, 1, 2, False), st(3, 14),
+               (RC.U_FMA, 4, 1, 0, -2.5, True), st(4, 3)]
+        return RC.Program(tuple(ins), 5, 0)
     if code in _TYPED_CODES:
         return _typed_program(code, RC.I32)
     if code == RC.U_SEL:
@@ -796,6 +863,8 @@ inline float __int_as_float(uint32_t b) {
   std::memcpy(&v, &b, 4);
   return v;
 }
+// CUDA's correctly rounded fused multiply-add (U_FMA): the C library's
+inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
 inline float nan_min(float a, float b) {
   return (std::isnan(a) || std::isnan(b)) ? a + b : fminf(a, b);
 }
@@ -897,11 +966,18 @@ def _field_code_spec(case):
         code, t = _TYPED_CASES.get(case, (_CODES.get(case), RC.I32))
         return FL.expr_field(_field_typed_program(code, t),
                              ("r0", "r1", "r2"), case).spec
+    elif _CODES[case] in _LOOP_CODES:
+        return FL.expr_field(_loop_program(_CODES[case], field=True),
+                             ("r0", "r1", "r2"), case, n_out=3).spec
     else:
         code = _CODES[case]
         if code == RC.U_SEL:
             ins = [ld(0, 0), ld(1, 1), (RC.U_LT, 2, 0, 1, 0, False),
                    (RC.U_SEL, 3, 2, 0, 1, False), st(3)]
+        elif code == RC.U_FMA:  # a register addend, an immediate one
+            ins = [ld(0, 0), ld(1, 1), ld(2, 2),
+                   (RC.U_FMA, 3, 0, 1, 2, False),
+                   (RC.U_FMA, 4, 3, 0, 0.5, True), st(4)]
         elif code == RC.U_LD:
             ins = [ld(0, 2), st(0)]
         elif code in (RC.U_CONST, RC.U_ST):

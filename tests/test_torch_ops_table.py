@@ -330,7 +330,8 @@ def test_op_twin_matches_torch_and_jnp(name):
     names = ("a", "b", "c")[:k]
     fn = RC.record_field(t_fn, names, name)
     codes = {ins[0] for ins in fn.spec["prog"].ins}
-    assert codes and codes <= set(range(RC.U_BITCAST + 1)), codes
+    # every code of a program (U_OUT is the recorder's own, never one)
+    assert codes and codes <= set(range(RC.U_OUT)), codes
     tx = [torch.from_numpy(x) for x in xs]
     got = fn(*tx).numpy().astype(np.float32)
     want_t = t_fn(*tx).numpy().astype(np.float32)
@@ -399,11 +400,7 @@ def test_every_op_records_in_each_user_recorder():
 
 
 @pytest.mark.parametrize("op,code", [
-    (lambda x: torch.special.gammainc(x, x + 1.0), "igamma"),
-    (lambda x: torch.special.gammaincc(x, x + 1.0), "igammac"),
     (torch.special.erfcx, "special_erfcx"),
-    (torch.special.bessel_j0, "special_bessel_j0"),
-    (torch.special.bessel_j1, "special_bessel_j1"),
     (torch.special.bessel_y0, "special_bessel_y0"),
     (torch.special.modified_bessel_k0, "special_modified_bessel_k0"),
     (torch.special.scaled_modified_bessel_k1,
@@ -412,9 +409,9 @@ def test_every_op_records_in_each_user_recorder():
     (lambda x: torch.digamma(x.double()), "digamma in float64"),
 ])
 def test_ops_left_to_port_are_refused_by_name(op, code):
-    """The ops left with no instruction (ROADMAP.md section 3: a loop jnp
-    iterates, a function jnp lacks, an integer floor division by a value
-    that may be 0, a float32 form in float64) are refused as
+    """The ops left with no instruction (ROADMAP.md section 3: a function
+    jnp lacks, an integer floor division by a value that may be 0, a
+    float32 form in float64) are refused as
     op-unsupported by every recorder, naming the op (the prover adds
     ``elementwise-``, ``reduce-`` or ``kernelstep-``)."""
     for record in (

@@ -526,11 +526,9 @@ _REFUSALS = {
         "elementwise-not-elementwise", "elementwise-not-elementwise"),
     "elementwise-trace": (_ew(_branchy), "elementwise-trace", None),
     # the ops the kernel has no instruction for (ROADMAP.md section 3:
-    # jnp iterates the incomplete gammas with a while loop; jnp has no
-    # erfcx)
+    # jnp has no erfcx, no bessel_y0 and no modified_bessel_k0)
     "elementwise-op-unsupported": (
-        _ew(lambda p: {"E": torch.special.gammainc(p.E, p.w + 1.0)},
-            lambda p: {"E": jax.scipy.special.gammainc(p.E, p.w + 1.0)}),
+        _ew(lambda p: {"E": torch.special.bessel_y0(p.E + 1.0)}),
         "elementwise-op-unsupported", None),
     "elementwise-probe-error": (
         _ew(lambda p: {"E": p.extras["nope"]}, extras=("dose",)),
@@ -546,8 +544,7 @@ _REFUSALS = {
              lambda p: {"x": p.E * 0 + jnp.sum(p.E)}),
         "reduce-not-elementwise", "reduce-not-elementwise"),
     "reduce-op-unsupported": (
-        _red(lambda p: {"x": torch.special.gammaincc(p.E, p.w + 1.0)},
-             lambda p: {"x": jax.scipy.special.gammaincc(p.E, p.w + 1.0)}),
+        _red(lambda p: {"x": torch.special.modified_bessel_k0(p.E + 1.0)}),
         "reduce-op-unsupported", None),
     "kernelstep-op-unsupported": (
         _ks(lambda s, ctx: s.replace(E=torch.special.erfcx(s.E * 0.25))),
