@@ -303,7 +303,20 @@ Phases (any failure exits non-zero and prints no result line):
     lanes that took it and a loop's body times each lane's iterations, from
     the twin's lane counts (``ops/record.py:lane_tally``; the iterations
     past the twin's at the mean of its later half, ``lane_weights``), and
-    prints the count with every arm and loop body once beside it;
+    prints the count with every arm and loop body once beside it, and
+    beside the bound of a plan with loops their trips an iteration per lane
+    and per warp, of 32 lanes and regrouped in block phases
+    (``ops/record.py:warp_tally``; the aperture chunk's also with the four
+    loops its incomplete gammas record apart, ``aperture_layouts``); then
+    the block-phase plan (``phase_plan_phase``: ``gammainc`` and
+    ``gammaincc`` of the same operands, one kind of operands a block of 256
+    slots: none enabled, every lane in one loop, every lane in both shared
+    loops, mixed; every 7th slot dead; two block phases of four loops, the
+    later one's warp counts on a result row of the earlier one,
+    ``phase_hazards``; a loop with an int32 and a float64 carried value)
+    bitwise against the twin at 2**18 - 128 slots (the
+    last block half full: the kernel takes whole 128-slot rows) and 2**18,
+    over all 64 iterations;
 31b. lattice path (a checkerboard density string, an absorber through
     -expm1 outside a soft sigmoid aperture of hypot, observables through
     atan2, erfc and tanh): 10**7 photons, 3 chunks of 1024, run twice (the
@@ -1526,7 +1539,7 @@ def main():
            "past-caps": 0.0, "ops-libm": 0.0, "ops-binary": 0.0,
            "ops-composite": 0.0, "ops-strings": 0.0, "lattice": 0.0,
            "ops-typed": 0.0, "ops-special": 0.0, "voxel-index": 0.0,
-           "ops-loops": 0.0, "aperture": 0.0,
+           "ops-loops": 0.0, "aperture": 0.0, "block-phase": 0.0,
            "shrink": 0.0, "main-injected": 0.0, "main-mesh": 0.0,
            "main-mp": 0.0}
     a_E, b_E = planck_window()
@@ -1673,6 +1686,11 @@ def main():
     explicit += list(gate_plans(F, light).items())
     explicit += [(n, p) for n, (p, _) in lorentz_plans(F, 256).items()]
     explicit += [(n, p) for n, (p, _) in pol_plans(F, light, 256).items()]
+    # the block-phase plan as recorded (its first chunk's dispatch) and
+    # with its typed loop
+    recorded = planned(phase_plan_sim(phys, "cpu", 1 << 14))[1].plan
+    explicit += [("block-phase-recorded", recorded),
+                 ("block-phase", phase_plan(recorded))]
     sources = form_sources(phys, sampler, explicit)
     t_plan = time.perf_counter() - t0
     main_build.join()
@@ -2032,6 +2050,7 @@ def main():
         streams=False, twin_iters=TWIN_ITERS)
     binned_phase(torch, phys, F, dev, card, times)
     ops = ops_plan_phase(torch, phys, F, dev, compare, card, times)
+    phase_plan_phase(torch, phys, F, dev, compare, card)
     lft = path_chunk0(
         "lattice-chunk-0", lattice_sim(phys, LAT_N, dev)[0], F, torch,
         compare, "lattice", card, ["kin", "iso", "custom", "reduce", "sign"],
@@ -2044,7 +2063,9 @@ def main():
         "aperture-chunk-0", aperture_sim(phys, AP_N, dev)[0], F, torch,
         compare, "aperture", card, ["kin", "iso", "sign", "custom",
                                     "reduce"],
-        streams=False, twin_iters=AP_TWIN_K)
+        streams=False, twin_iters=AP_TWIN_K,
+        extra=lambda packed, _: {"loop_layouts": aperture_layouts(
+            torch, packed)})
 
     phase("planck_gen vs twin (10**7 samples)")
     n_gen = 10_000_000
@@ -3202,7 +3223,8 @@ def cavity_sim(phys, n, dev, seed=29, iters=CAV_ITERS, every=CAV_EVERY,
 
 
 def path_chunk0(name, sim, F, torch, compare, path, card, kinds,
-                streams=True, cross_p=0.0, grids=None, twin_iters=None):
+                streams=True, cross_p=0.0, grids=None, twin_iters=None,
+                extra=None):
     """Phase: fused_transport against the twin on a path's first chunk, as
     its provider hands it over; returns the kernel's entry numbers (and
     stores the launch's grid in ``grids[path]`` when given). The bound
@@ -3212,7 +3234,8 @@ def path_chunk0(name, sim, F, torch, compare, path, card, kinds,
     the chunk's first that many iterations only (same inputs; the kernel
     is still timed on the whole chunk), where the twin takes over a
     minute: ``plain_ms`` is then the twin's time for those iterations, and
-    the entry says how many (``plain_iters``)."""
+    the entry says how many (``plain_iters``). ``extra(packed, plan)``
+    adds its own entries, printed."""
     phase(f"fused_transport vs twin on the {path} path's first chunk")
     packed, sched, seed, k, plan, _ = first_chunk_inputs(sim, F)
     del sim
@@ -3240,6 +3263,12 @@ def path_chunk0(name, sim, F, torch, compare, path, card, kinds,
     out = {"plain_ms": twin_tallied(compare, name, packed, sched, kc, plan,
                                     path, seed, k)}
     weights = compare.weights
+    if compare.trips:
+        out["warp_trips"] = compare.trips
+    if extra is not None:
+        more = extra(packed, plan)
+        print(f"{name}: {json.dumps(more)} [{card}]", flush=True)
+        out.update(more)
     if kc < k:
         out["plain_iters"] = kc
     res = torch.empty_like(packed)
@@ -3267,8 +3296,9 @@ def path_chunk0(name, sim, F, torch, compare, path, card, kinds,
           f"ms, bound {out['bound_ms']:.2f} ms ({out['bound_by']}; ms per "
           "term: " + ", ".join(f"{t} {v:.2f}" for t, v in terms.items())
           + f"; every arm and loop body once: "
-          f"{out['bound_all_arms_ms']:.2f} ms) per chunk [{card}]",
-          flush=True)
+          f"{out['bound_all_arms_ms']:.2f} ms) per chunk"
+          + (f"; {trips_text(out['warp_trips'])}" if "warp_trips" in out
+             else "") + f" [{card}]", flush=True)
     return out
 
 
@@ -3281,14 +3311,39 @@ def twin_tallied(compare, name, packed, sched, k, plan, path, seed,
     ``compare.weights``."""
     from physicl_tpu_torch.ops import record as RC
 
-    RC.lane_tally = {}
+    RC.lane_tally, RC.warp_tally = {}, {}
     try:
         ms = compare(name, packed, sched, k, plan, None, path, seed=seed,
                      need_bitwise=True, row_names=row_names)
         compare.weights = lane_weights(RC.lane_tally, k_timed / k)
+        compare.trips = warp_trips(RC.warp_tally)
     finally:
-        RC.lane_tally = None
+        RC.lane_tally = RC.warp_tally = None
     return ms
+
+
+def warp_trips(tally):
+    """The loops' trips per lane and per warp of the twin's runs
+    (``ops/record.py:warp_tally``, every program's loops summed an
+    iteration): ``lane`` per lane, ``warp_lanes`` per warp of 32 consecutive
+    lanes (each warp runs each loop to its slowest lane: the per-lane
+    layout), ``warp_regrouped`` per warp with each block's items in loop
+    order (the block phases), or None where no program has a loop."""
+    if not tally:
+        return None
+    runs = [r for rs in tally.values() for r in rs]
+    n_iter = len(runs) / len(tally)
+    lanes, warps = runs[0][0], runs[0][1]
+    return {"lane": sum(r[2] for r in runs) / lanes / n_iter,
+            "warp_lanes": sum(r[3] for r in runs) / warps / n_iter,
+            "warp_regrouped": sum(r[4] for r in runs) / warps / n_iter}
+
+
+def trips_text(trips):
+    """``warp_trips`` as a line's clause."""
+    return (f"loop trips an iteration: {trips['lane']:.3f} per lane, "
+            f"{trips['warp_lanes']:.3f} per warp of 32 lanes, "
+            f"{trips['warp_regrouped']:.3f} per warp regrouped")
 
 
 def run_sim(torch, sim, profile=False):
@@ -5062,7 +5117,10 @@ def form_regs(plan):
 
 def form_ballots(plan):
     """The warp votes of one iteration of a plan's form kernel: the alive
-    count and every count site of its ops."""
+    count, every count site of its ops and a ballot for each loop of its
+    user programs' block phases."""
+    from physicl_tpu_torch.ops import record as RC
+
     n = 1
     for op in plan.ops:
         has_n = bool(op.cols) and op.cols[0] >= 0
@@ -5074,6 +5132,9 @@ def form_ballots(plan):
             n += has_n + (0 if op.weighted else 1)
         elif op.kind in ("polmeas", "reduce"):
             n += has_n
+        if op.kind in ("custom", "reduce", "kstate") and op.prog is not None:
+            # a block phase's ballot a loop (csrc/phase.cuh)
+            n += sum(len(ph) for ph in RC.loop_phases(op.prog))
     return n
 
 
@@ -6197,6 +6258,239 @@ def ops_loop_group(torch):
     }
 
 
+PH_N = 1 << 18           # the block-phase plan's photons
+PH_CUT = 128             # slots cut from its first chunk: a half block
+PH_K = 64                # its iterations, all held against the twin
+PH_MODES = 6             # its operands' kinds, one a block of 256 slots
+PH_EXTRAS = ("pa", "px", "pm", "x0", "x1", "x2", "x3", "x4")
+
+
+def phase_operands(n, seed=0):
+    """Per slot the incomplete gammas' float32 ``(a, x)`` and the slot's
+    kind, its block of 256 slots modulo PH_MODES: 0 mixed (x drawn each
+    iteration by the step); 1 a < 0 (NaN: no lane of the block enabled in
+    a loop); 2 x < a (both functions' series: every lane in one loop); 3
+    x == a >= 1 (the lower function's series and the upper's continued
+    fraction: every lane enabled in both shared loops); 4 x == a < 1 (both
+    series); 5 x > a + 1 (both continued fractions)."""
+    rng = np.random.default_rng(seed)
+    mode = (np.arange(n) // 256) % PH_MODES
+    a = rng.uniform(0.5, 30.0, n)
+    x = a * rng.uniform(0.2, 3.0, n)
+    a = np.where(mode == 1, -a, a)
+    x = np.where(mode == 2, a * rng.uniform(0.1, 0.95, n), x)
+    a = np.where(mode == 3, rng.uniform(1.0, 30.0, n), a)
+    a = np.where(mode == 4, rng.uniform(0.05, 1.0, n), a)
+    x = np.where((mode == 3) | (mode == 4), a, x)
+    x = np.where(mode == 5, (a + 1.0) * rng.uniform(1.05, 3.0, n), x)
+    return (a.astype(np.float32), x.astype(np.float32),
+            mode.astype(np.float32))
+
+
+def phase_plan_sim(phys, dev, n=PH_N, seed=0):
+    """The block-phase plan's Simulation: n photons, PH_K iterations of an
+    ElementwiseStep of ``gammainc`` and ``gammaincc`` on the same operands
+    (``phase_operands``, read from extras; a NaN stored as 0.5), one of two
+    block phases (``gammainc`` of (a, x) and (x, 0.5), then of operands
+    that read their results, with fewer rows of items: ``phase_hazards``),
+    and a placeholder ElementwiseStep writing x2 and x3, whose program
+    ``phase_plan`` replaces by a loop with typed carried values."""
+    import torch
+
+    light = phys.light
+    c = float(light.c)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sim = phys.Simulation(until_t=(PH_K - 0.5) * USER_DT, seed=seed,
+                          chunk_steps=PH_K, device=dev, auto_shrink=False)
+
+    def gammas(p):
+        a, x = p.extras["pa"], p.extras["px"]
+        x = torch.where(p.extras["pm"] == 0.0, a * (0.2 + 2.8 * p.uniform()),
+                        x)
+        return {"x0": torch.nan_to_num(torch.special.gammainc(a, x),
+                                       nan=0.5),
+                "x1": torch.nan_to_num(torch.special.gammaincc(a, x),
+                                       nan=0.5)}
+
+    def chained(p):
+        a, x = p.extras["pa"], p.extras["px"]
+        half, two = torch.full_like(a, 0.5), torch.full_like(a, 2.0)
+        lo = torch.special.gammainc
+        first, second = lo(a, x), lo(x, half)
+        return {"x4": torch.nan_to_num(lo(a * first, two)
+                                       + lo(x * second, half), nan=0.5)}
+
+    def placeholder(p):
+        return {"x2": p.E * 0.0, "x3": p.E * 0.0}
+
+    steps = [phys.UpdateTimeStep(lambda st: np.double(USER_DT)),
+             phys.ElementwiseStep(gammas, extras=("pa", "px", "pm"),
+                                  extras_write=("x0", "x1")),
+             phys.ElementwiseStep(chained, extras=("pa", "px"),
+                                  extras_write=("x4",)),
+             phys.ElementwiseStep(placeholder, extras_write=("x2", "x3"))]
+    for i, st in enumerate(steps):
+        sim.add_step(i, st)
+    bulk = light.generate_photon_state(
+        n, E=torch.rand(n, generator=gen, device=dev) * 1.5 + 0.5,
+        v=isotropic_v(torch, n, c, gen, dev), device=dev)
+    a, x, mode = phase_operands(n, seed)
+    bulk["extras"] = {k: torch.zeros(n, device=dev) for k in PH_EXTRAS}
+    bulk["extras"].update(pa=torch.from_numpy(a).to(dev),
+                          px=torch.from_numpy(x).to(dev),
+                          pm=torch.from_numpy(mode).to(dev))
+    sim.add_photons(bulk)
+    return sim
+
+
+def phase_typed_program(plan):
+    """A loop with typed carried values, over the E plane: an int32 count
+    k and a float64 harmonic sum from E, while k < 12 E (at most 40 trips),
+    enabled where E > 0.8; k and the sum stored in x2 and x3."""
+    from physicl_tpu_torch.ops import record as RC
+
+    s = RC._SSA()
+    c = s.const
+    e = s.val(RC.U_LD, (), 12)
+
+    def body(v):
+        k = s.op(RC.U_ADD, v[1], c(1, RC.I32))
+        tot = s.op(RC.U_ADD, v[2], s.op(RC.U_DIV, c(1.0, RC.F64),
+                                        s.cvt(k, RC.F64)))
+        return [s.op(RC.U_LT, s.cvt(k, RC.F32), s.op(RC.U_MUL, e, c(12.0))),
+                k, tot]
+
+    _, k, tot = s.loop([s.op(RC.U_GT, e, c(0.8)), c(0, RC.I32),
+                        s.cvt(e, RC.F64)], body, 40)
+    x2, x3 = (15 + plan.extras.index(nm) for nm in ("x2", "x3"))
+    s.effects += [(RC.U_ST, s.cvt(k, RC.F32), x2),
+                  (RC.U_ST, s.cvt(tot, RC.F32), x3)]
+    return RC._schedule(s, 0)
+
+
+def phase_plan(plan):
+    """The block-phase plan: ``plan`` (``phase_plan_sim``'s) with its
+    placeholder's program replaced by ``phase_typed_program``."""
+    from physicl_tpu_torch.ops import record as RC
+
+    x2 = 15 + plan.extras.index("x2")
+    ops = list(plan.ops)
+    i = next(j for j, op in enumerate(ops) if op.prog is not None
+             and x2 in op.prog.stores())
+    ops[i] = dataclasses.replace(ops[i], prog=phase_typed_program(plan))
+    check(not any(ins[0] == RC.U_UNIF for ins in ops[i].prog.ins),
+          "the typed loop program draws")
+    return dataclasses.replace(plan, ops=type(plan.ops)(ops), _cache={})
+
+
+def phase_hazards(prog):
+    """The item rows of a program's block phases (``ops/record.py:
+    loop_phases``, ``ops/codegen.py:_phase_c``) that a later phase's warp
+    counts (its first words after its own rows) write over while they hold
+    an earlier phase's results: ``[(earlier phase, row, later phase),
+    ...]``. Each such pair needs the barrier that ends a phase."""
+    from physicl_tpu_torch.ops import record as RC
+
+    tys = prog.type_list()
+    phases = []
+    for ph in RC.loop_phases(prog):
+        rows, results = 0, []
+        for p in ph:
+            for j in p.carried + p.stored:
+                if j in p.results:
+                    results.append(rows)
+                rows += RC._words(tys[j])
+        phases.append((rows, len(ph), results))
+    lanes, warps = RC.PHASE_LANES, RC.PHASE_WARPS
+    return [(i, r, k) for i, (_, _, results) in enumerate(phases)
+            for k, (rows, m, _) in enumerate(phases) if k > i
+            for r in results if rows <= r
+            and lanes * r < lanes * rows + warps * m]
+
+
+def phase_plan_phase(torch, phys, F, dev, compare, card):
+    """Phase: the block phase of kernel 1i's loops on its hard cases
+    (``phase_operands``; every 7th slot dead; a loop with an int32 and a
+    float64 carried value), against the twin bitwise at PH_N - PH_CUT
+    slots (not a multiple of 256: the last block's tail threads run the
+    programs on no slot) and at PH_N, over all PH_K iterations; prints the
+    loops' trips an iteration and the kernel's time at PH_N."""
+    from physicl_tpu_torch.ops import record as RC
+
+    phase(f"block phase of kernel 1i's loops: hard cases against the twin "
+          f"({PH_N - PH_CUT} and {PH_N} slots, {PH_K} iterations)")
+    packed, sched, seed, k, plan, _ = first_chunk_inputs(
+        phase_plan_sim(phys, dev), F)
+    plan = phase_plan(plan)
+    packed = packed.clone()
+    packed[13, ::7] = 0.0
+    shapes = []
+    for op in plan.ops:
+        if op.prog is not None:
+            shapes.append([[len(p.carried) for p in ph]
+                           for ph in RC.loop_phases(op.prog)])
+    check(shapes == [[[10, 4]], [[10, 4, 10, 4], [10, 4, 10, 4]], [[3]]],
+          f"block-phase: loop phases {shapes}")
+    check(any(phase_hazards(op.prog) for op in plan.ops
+              if op.prog is not None),
+          "block-phase: no phase's warp counts on an earlier result row")
+    mode = phase_operands(packed.shape[1])[2]
+    cut = packed.shape[1] - PH_CUT
+    check(cut % 256 and {int(m) for m in mode[:cut:256]} == set(
+        range(PH_MODES)), "block-phase: the cut or the blocks' kinds")
+    info = form_info(F, plan, packed.shape[1], k)
+    print(f"block-phase: {form_report(plan, info, form_loop(F, plan))} "
+          f"[{card}]", flush=True)
+    for C in (cut, packed.shape[1]):
+        sub = packed[:, :C].contiguous()
+        plain_ms = twin_tallied(compare, f"block-phase at {C} slots", sub,
+                                sched, k, plan, "block-phase", seed, k)
+        print(f"block-phase at {C} slots x {k}: twin {plain_ms:.1f} ms; "
+              f"{trips_text(compare.trips)}", flush=True)
+    res = torch.empty_like(packed)
+    ms = cuda_ms(lambda: F.fused_transport(packed, res, sched, seed, k,
+                                           plan), 3, torch)
+    print(f"block-phase at {packed.shape[1]} slots x {k}: kernel {ms:.3f} "
+          f"ms [{card}]", flush=True)
+
+
+def aperture_layouts(torch, packed):
+    """The aperture pinhole's loop trips an iteration on a chunk's energies
+    (``packed`` row 12; the path scatters elastically, so every iteration
+    the same) in three layouts, from the twins of its incomplete gammas
+    alone and together (``ops/record.py:warp_tally``): per warp of 32
+    lanes with the four loops of ``gammainc`` and ``gammaincc`` recorded
+    apart (the program before the loops were shared), with the two shared
+    loops, and with the shared loops regrouped in block phases; and per
+    lane."""
+    from physicl_tpu_torch.ops import record as RC
+
+    def fn(which):
+        def g(E, b, c):
+            lam = AP_GAIN * E
+            k = torch.full_like(lam, AP_K)
+            lo, up = (torch.special.gammainc(k, lam),
+                      torch.special.gammaincc(k, lam))
+            return {"lo": lo, "up": up, "both": lo + up}[which]
+        return g
+
+    E = packed[12]
+    out = {}
+    for which in ("lo", "up", "both"):
+        field = RC.record_field(fn(which), ("a", "b", "c"), which)
+        RC.warp_tally = {}
+        try:
+            field(E, E, E)
+            out[which] = warp_trips(RC.warp_tally)
+        finally:
+            RC.warp_tally = None
+    return {"lane": out["both"]["lane"],
+            "warp_four_loops": out["lo"]["warp_lanes"]
+            + out["up"]["warp_lanes"],
+            "warp_shared": out["both"]["warp_lanes"],
+            "warp_regrouped": out["both"]["warp_regrouped"]}
+
+
 I32_MIN = -(1 << 31)
 
 
@@ -6457,6 +6751,7 @@ def ops_plan_phase(torch, phys, F, dev, compare, card, times):
               f"[{card}]", flush=True)
         plain_ms = twin_tallied(compare, case, packed, sched, OPS_TWIN_K,
                                 plan, case, seed, k, row_names=names)
+        trips = compare.trips
         res = torch.empty_like(packed)
         rec = F.fused_transport(packed, res, sched, seed, k, plan)[0]
         torch.cuda.synchronize()
@@ -6489,13 +6784,16 @@ def ops_plan_phase(torch, phys, F, dev, compare, card, times):
                      "plain_iters": OPS_TWIN_K, "bound_ms": b_ms,
                      "bound_by": b_by, "bound_all_arms_ms": all_ms,
                      "launches": launches, **info}
+        if trips:
+            out[case]["warp_trips"] = trips
         print(f"{case} at 2**20 x {k}: kernel {ms:.3f} ms, twin "
               f"{plain_ms:.3f} ms over {OPS_TWIN_K} iterations, bound "
               f"{b_ms:.3f} ms ({b_by}; every arm and loop body once: "
               f"{all_ms:.3f} ms); "
               f"{len(plan.ops)} ops, {n_ins} program instructions; "
-              f"through Simulation: {launches} launches [{card}]",
-              flush=True)
+              f"through Simulation: {launches} launches"
+              + (f"; {trips_text(trips)} (over the twin's {OPS_TWIN_K})"
+                 if trips else "") + f" [{card}]", flush=True)
     return out
 
 

@@ -241,7 +241,7 @@ def _pure_c(ins, cur, lit, t=RC.F32, ta=RC.F32, timm=RC.F32) -> str:
     raise ValueError(f"program code {code}")
 
 
-def _body_c(prog: RC.Program, lit, pinned):
+def _body_c(prog: RC.Program, lit, pinned, phase=False):
     """The C statements of a program body: one ``const`` local an
     instruction (``pinned(ins, cur)``: the line of a load's, draw's, t's,
     dt's or effect's instruction, or None to leave it out; ``lit(y, t)``
@@ -249,7 +249,9 @@ def _body_c(prog: RC.Program, lit, pinned):
     when its condition clears (its carried values mutable locals, updated
     together after the body), and each branched select's arms
     (``record.branched_arms``) inside an ``if`` / ``else`` on its
-    condition."""
+    condition. With ``phase`` (a program every thread of the block runs
+    together: kernel 1i's) each block phase of loops
+    (``record.loop_phases``) runs across the block (:func:`_phase_c`)."""
     n = len(prog.ins)
     text = [[] for _ in range(n)]
     sel = {}
@@ -313,18 +315,32 @@ def _body_c(prog: RC.Program, lit, pinned):
     members = {}
     for i in range(n):
         members.setdefault(owner.get(i), []).append(i)
+    # with phase: each phased loop's instructions (its U_LOOP to its U_END)
+    # and the phase each last loop ends
+    inside, ends = set(), {}
+    for ph in (RC.loop_phases(prog) if phase else ()):
+        for p in ph:
+            inside.update(range(p.loop, p.end + 1))
+        ends[ph[-1].end] = ph
     out = []
 
-    def emit(key, pad):
+    def emit(key, pad, span=None):
         for i in members.get(key, ()):
+            if span is not None and not span[0] <= i <= span[1]:
+                continue
+            if span is None and i in inside:
+                if i in ends:
+                    out.extend(pad + ln for ln in _phase_c(
+                        prog, ends[i], text, loop_lines))
+                continue
             if i in branched:
                 cond, tv, fv, ctype = sel[i]
                 out.append(f"{pad}{ctype} v{i};")
                 out.append(f"{pad}if ({cond} != 0.0f) {{")
-                emit((i, True), pad + "  ")
+                emit((i, True), pad + "  ", span)
                 out.append(f"{pad}  v{i} = {tv};")
                 out.append(f"{pad}}} else {{")
-                emit((i, False), pad + "  ")
+                emit((i, False), pad + "  ", span)
                 out.append(f"{pad}  v{i} = {fv};")
                 out.append(f"{pad}}}")
                 continue
@@ -337,8 +353,105 @@ def _body_c(prog: RC.Program, lit, pinned):
             if code == RC.U_LOOP:
                 pad += "  "
 
+    def loop_lines(p, pad):
+        """A phased loop's own lines: its ``for`` and its body."""
+        n0 = len(out)
+        emit(None, pad, (p.loop, p.end))
+        lines = out[n0:]
+        del out[n0:]
+        return lines
+
     emit(None, "  ")
     return out
+
+
+def _phase_c(prog: RC.Program, ph, text, loop_lines) -> list:
+    """The block phase of the loops ``ph`` (``record.loop_phases``), run by
+    every thread of the block (``csrc/phase.cuh``): each lane's enables
+    placed (``phase_place``: its item's place among each loop's, and each
+    loop's items), its items written to the block's shared words (each
+    carried and stored outer value a row of ``record.PHASE_LANES`` words,
+    two for a 64-bit value), then after a barrier thread ``q`` runs items
+    ``q``, ``q + 256``, ... in loop order (the loop's own locals, read from
+    the item, the constants, t and dt declared again; the carried values
+    the program reads after the loop written back), and after another each
+    lane reads those results; a lane not enabled in a loop keeps its
+    initial values. The items' rows come first, the loops' warp counts
+    after them; a third barrier ends the phase, as the next phase's counts
+    may take words of this one's rows."""
+    tys = prog.type_list()
+    m = len(ph)
+    lanes = RC.PHASE_LANES
+    rows = sum(RC._words(tys[j]) for p in ph for j in p.carried + p.stored)
+
+    def cells(p, only=None):
+        """(local, C type, helper suffix, word offset) of each value an
+        item holds (of ``only``'s): the carried values, then the stored
+        outer ones."""
+        out, r = [], p.row0
+        for j in p.carried + p.stored:
+            if only is None or j in only:
+                out.append((f"v{j}", _CTYPE[tys[j]], _tn(tys[j]),
+                            lanes * r))
+            r += RC._words(tys[j])
+        return out
+
+    def enable(p):
+        reg = prog.ins[p.loop][2]
+        return next(f"v{j}" for j in p.carried if prog.ins[j][1] == reg)
+
+    lines = [f"{{  // block phase: {m} loop(s), {rows} rows of items",
+             "  unsigned* const ph_w = phase_words();",
+             f"  const bool ph_en[{m}] = {{"
+             + ", ".join(f"{enable(p)} != 0.0f" for p in ph) + "};",
+             f"  int ph_pos[{m}], ph_tot[{m}];",
+             f"  phase_place<{m}>(ph_w + {lanes * rows}, ph_en, ph_pos, "
+             "ph_tot);"]
+    for k, p in enumerate(ph):
+        lines += [f"  if (ph_en[{k}]) {{",
+                  f"    unsigned* const ph_it = ph_w + ph_pos[{k}];"]
+        lines += [f"    phase_put_{tn}(ph_it + {off}, {v});"
+                  for v, _, tn, off in cells(p)]
+        lines.append("  }")
+    lines += ["  __syncthreads();",
+              f"  for (int ph_q = threadIdx.x; ph_q < "
+              f"{' + '.join(f'ph_tot[{k}]' for k in range(m))}; "
+              f"ph_q += {lanes}) {{"]
+    for k, p in enumerate(ph):
+        # the place of item ph_q among this loop's items
+        item = " - ".join(["ph_q"] + [f"ph_tot[{j}]" for j in range(k)])
+        upto = " + ".join(f"ph_tot[{j}]" for j in range(k + 1))
+        head = (f"if (ph_q < {upto}) {{" if k < m - 1 else "{") if k == 0 \
+            else (f"}} else if (ph_q < {upto}) {{" if k < m - 1
+                  else "} else {")
+        n_c = len(p.carried)
+        body = [f"unsigned* const ph_it = ph_w + ({item});"]
+        body += [f"{'const ' if c >= n_c else ''}{ct} {v} = "
+                 f"phase_get_{tn}(ph_it + {off});"
+                 for c, (v, ct, tn, off) in enumerate(cells(p))]
+        for j in p.uniform:
+            body += text[j]
+        body += loop_lines(p, "")
+        body += [f"phase_put_{tn}(ph_it + {off}, {v});"
+                 for v, _, tn, off in cells(p, p.results)]
+        lines.append("    " + head)
+        lines += ["      " + ln for ln in body]
+    lines += ["    }", "  }", "  __syncthreads();"]
+    for k, p in enumerate(ph):
+        lines += [f"  if (ph_en[{k}]) {{",
+                  f"    const unsigned* const ph_it = ph_w + ph_pos[{k}];"]
+        lines += [f"    {v} = phase_get_{tn}(ph_it + {off});"
+                  for v, _, tn, off in cells(p, p.results)]
+        lines.append("  }")
+    # every lane has read its results before the block's next phase writes
+    # its warps' counts, whose words may be this phase's result rows
+    lines += ["  __syncthreads();", "}"]
+    return lines
+
+
+def _tn(t: str) -> str:
+    """A value type's suffix in ``csrc/phase.cuh``'s item helpers."""
+    return "f32" if t == RC.F32 else t_name(t)
 
 
 def program_c(prog: RC.Program, name: str) -> str:
@@ -372,7 +485,7 @@ def program_c(prog: RC.Program, name: str) -> str:
 
     out = ["template <class Acc>",
            f"__device__ __forceinline__ void {name}({_ARGS}) {{"]
-    out += _body_c(prog, _lit, pinned)
+    out += _body_c(prog, _lit, pinned, phase=True)
     out.append("}")
     return "\n".join(out)
 
@@ -380,12 +493,12 @@ def program_c(prog: RC.Program, name: str) -> str:
 _VARS = ("a", "b", "c")
 
 
-def _fk_body(prog: RC.Program, load, k0: int):
+def _fk_body(prog: RC.Program, load, k0: int, phase=False):
     """The body of a program whose constants are read from ``plan.fk``
     from ``k0`` on (in ``ops/fields.py:field_layout`` order): its lines,
     one ``const`` local an instruction (``load(y)`` a load's expression;
-    loops and branched arms as :func:`_body_c` writes them), and its
-    outputs ``{j: local}``."""
+    loops, their block phases with ``phase``, and branched arms as
+    :func:`_body_c` writes them), and its outputs ``{j: local}``."""
     outs, k = {}, [k0]
 
     def lit(_, t=RC.F32):
@@ -404,7 +517,7 @@ def _fk_body(prog: RC.Program, load, k0: int):
             return load(y),
         return None
 
-    lines = _body_c(prog, lit, pinned)
+    lines = _body_c(prog, lit, pinned, phase)
     return lines, outs
 
 
@@ -454,7 +567,7 @@ def binned_c(op, name: str, bform: str, k0: int) -> str:
     def load(y):
         return "alive ? 1.0f : 0.0f" if y == RC.ALIVE_PLANE else _plane(y)
 
-    lines, outs = _fk_body(op.prog, load, k0)
+    lines, outs = _fk_body(op.prog, load, k0, phase=True)
     value = "1.0f" if op.bins.count else outs[1]
     return "\n".join([
         "template <class Acc>",
@@ -673,6 +786,11 @@ def form_struct(plan, ps=None, form=None, bodies=True) -> str:
               for name in ("kNK", "kBinEdges", "kBinRow", "kCols", "kFcols",
                            "kConstNorm", "kStream", "kStreamBf16", "kExtras",
                            "kOtype", "kQm", "kWb", "kUwb", "kPlanInBuffer")]
+    words = F.phase_smem_bytes(plan.ops) // 4
+    if words:
+        # the user programs' block phases' shared words (csrc/phase.cuh);
+        # a form with no loop has no such member
+        parts.append(f"  static constexpr int kPhaseWords = {words};")
     for j, sp in (expr_fields(plan) if bodies else ()):
         one = sp["n_out"] == 1
         parts += [

@@ -831,6 +831,17 @@ def bin_smem_bytes(ops) -> int:
     return 4 * (edges + (8 * (64 + row) if row else 0))
 
 
+def phase_smem_bytes(ops) -> int:
+    """The bytes of dynamic shared memory the user programs' block phases
+    take (csrc/phase.cuh: the largest program's, ahead of the count
+    tile)."""
+    from physicl_tpu_torch.ops import record as RC
+
+    return 4 * max((RC.phase_words(op.prog) for op in ops
+                    if op.kind in USER_OPS and op.prog is not None),
+                   default=0)
+
+
 def _axis(ax) -> tuple:
     """A cross op's plane as ``(axis, L, col, e_col, ecap)`` (a 4-tuple
     captures no energies)."""

@@ -1506,8 +1506,10 @@ def _build_fused(sim, steps, state: SimState) -> FusedProvider:
     # chunk over the budget is shortened (the chunk seed follows the chunk
     # index, so parity with the JAX package then needs its chunk_steps set
     # to the same length)
-    # (less the binned reduces' share, F.bin_smem_bytes)
-    tile_bytes = _MAX_REC_TILE_BYTES - F.bin_smem_bytes(ops)
+    # (less the binned reduces' share, F.bin_smem_bytes, and the user
+    # programs' block phases', F.phase_smem_bytes)
+    tile_bytes = (_MAX_REC_TILE_BYTES - F.bin_smem_bytes(ops)
+                  - F.phase_smem_bytes(ops))
     tile_chunk = tile_bytes // (next_col * 4)
     if chunk > tile_chunk:
         chunk = max(1, tile_chunk)

@@ -265,6 +265,8 @@ class _SSA:
         # the bounded loops: (carried values, U_LOOP value, cap, the
         # condition's place among the carried)
         self.loops: List[tuple] = []
+        # the incomplete gammas' loops of each (a, x): _igamma_sums
+        self.igamma: Dict[tuple, tuple] = {}
         self._in_body = False
 
     def result_type(self, code, args) -> str:
@@ -1070,11 +1072,12 @@ _CF_CAP = 2000        # the continued fraction's cap (jnp's c < 2000)
 _SERIES_CAP = 1 << 16
 
 
-def _igamma_series(s: _SSA, ax: int, x: int, a: int, enabled: int) -> int:
+def _igamma_series(s: _SSA, x: int, a: int, enabled: int) -> tuple:
     """``_igamma_series`` (VALUE mode): ``r`` from ``a`` up by 1, the term
-    ``c *= x / r`` added to ``ans`` while ``c / ans > eps``; ``ans ax /
-    a``. The derivative's values do not reach the value and are left
-    out."""
+    ``c *= x / r`` added to ``ans`` while ``c / ans > eps``; returns
+    ``ans`` after the loop and its initial value (``ans ax / a`` is the
+    function's). The derivative's values do not reach the value and are
+    left out."""
     one = s.like(a, 1.0)
 
     def body(v):
@@ -1085,14 +1088,14 @@ def _igamma_series(s: _SSA, ax: int, x: int, a: int, enabled: int) -> int:
         return [s.op(U_GT, s.op(U_DIV, cc, ans), s.like(a, _EPS32)), r, cc,
                 ans]
 
-    _, _, _, ans = s.loop([enabled, a, one, one], body, _SERIES_CAP)
-    return s.op(U_DIV, s.op(U_MUL, ans, ax), a)
+    return s.loop([enabled, a, one, one], body, _SERIES_CAP)[3], one
 
 
-def _igammac_cf(s: _SSA, ax: int, x: int, a: int, enabled: int) -> int:
+def _igammac_cf(s: _SSA, x: int, a: int, enabled: int) -> tuple:
     """``_igammac_continued_fraction`` (VALUE mode): the convergents ``pk /
     qk``, rescaled by eps past 1 / eps, while the relative change ``t``
-    exceeds eps, at most 2000 terms; ``ans ax``."""
+    exceeds eps, at most 2000 terms; returns ``ans`` after the loop and its
+    initial value (``ans ax`` is the function's)."""
     c = lambda v: s.like(x, v)  # noqa: E731
     y = s.op(U_SUB, c(1.0), a)
     z = s.op(U_ADD, s.op(U_ADD, x, y), c(1.0))
@@ -1123,7 +1126,26 @@ def _igammac_cf(s: _SSA, ax: int, x: int, a: int, enabled: int) -> int:
 
     out = s.loop([enabled, ans, c(1.0), y, z, c(0.0), pkm1, qkm1, c(1.0), x],
                  body, _CF_CAP)
-    return s.op(U_MUL, out[1], ax)
+    return out[1], ans
+
+
+def _igamma_sums(s: _SSA, a: int, x: int, on_cf: tuple,
+                 on_ser: tuple) -> tuple:
+    """The continued fraction's and the series' sums of ``(a, x)`` for the
+    lower (``[0]``) and the upper (``[1]``) function, each loop enabled on
+    its lanes ``on_cf`` / ``on_ser`` of either. Recorded once for both
+    functions (``_SSA.igamma``), so that ``gammainc`` and ``gammaincc`` of
+    the same operands share two loops, not four; each function's sum is
+    ``select(its enable, the loop's, the initial one)``, what the loop
+    enabled on its lanes alone leaves: an enabled lane's values depend only
+    on its own, and a lane not enabled keeps its initial values, as in
+    jnp's ``while_loop``."""
+    if (a, x) not in s.igamma:
+        s.igamma[a, x] = (_igammac_cf(s, x, a, s.op(U_OR, *on_cf)),
+                          _igamma_series(s, x, a, s.op(U_OR, *on_ser)))
+    (cf, cf0), (ser, ser0) = s.igamma[a, x]
+    return [(s.op(U_SEL, on_cf[k], cf, cf0),
+             s.op(U_SEL, on_ser[k], ser, ser0)) for k in (0, 1)]
 
 
 def _igamma(s: _SSA, a: int, x: int, upper: bool) -> int:
@@ -1132,8 +1154,9 @@ def _igamma(s: _SSA, a: int, x: int, upper: bool) -> int:
     switch (``x >= 1 and x > a`` for the lower function, ``x < 1 or x <
     a`` the upper's series), the continued fraction past it, each a
     bounded loop whose lanes are enabled where the inputs are in the domain
-    and ``a log x - x - lgamma(a)`` does not underflow; 0 and 1 at x = 0
-    and inf, NaN for a < 0, x < 0, a = x = 0 and NaN."""
+    and ``a log x - x - lgamma(a)`` does not underflow (the loops shared
+    with the other function of the same operands, :func:`_igamma_sums`); 0
+    and 1 at x = 0 and inf, NaN for a < 0, x < 0, a = x = 0 and NaN."""
     c = lambda v: s.like(x, v)  # noqa: E731
     is_nan = s.op(U_OR, s.op(U_ISNAN, a), s.op(U_ISNAN, x))
     x_inf = s.op(U_EQ, x, c(_INF))
@@ -1144,25 +1167,25 @@ def _igamma(s: _SSA, a: int, x: int, upper: bool) -> int:
     ax = s.op(U_SUB, s.op(U_SUB, s.op(U_MUL, a, s.op(U_LOG, x)), x),
               s.op(U_LGAMMA, a))
     under = s.op(U_LT, ax, s.op(U_NEG, s.op(U_LOG, c(_F32_MAX))))
+    ax = s.op(U_EXP, ax)
+    use_cf = s.op(U_AND, s.op(U_GE, x, c(1.0)), s.op(U_GT, x, a))
+    use_ser = s.op(U_OR, s.op(U_LT, x, c(1.0)), s.op(U_LT, x, a))
+    on = (s.op(U_NOT, s.op(U_OR, s.op(U_OR, s.op(U_OR, x_zero, domain),
+                                          under), x_inf)),
+          s.op(U_NOT, s.op(U_OR, s.op(U_OR, s.op(U_OR, domain, under),
+                                          x_inf), a_zero)))
+    cf, ser = _igamma_sums(
+        s, a, x, (s.op(U_AND, on[0], use_cf),
+                  s.op(U_AND, on[1], s.op(U_NOT, use_ser))),
+        (s.op(U_AND, on[0], s.op(U_NOT, use_cf)),
+         s.op(U_AND, on[1], use_ser)))[int(upper)]
+    ser = s.op(U_DIV, s.op(U_MUL, ser, ax), a)
+    cf = s.op(U_MUL, cf, ax)
     if not upper:
-        use_cf = s.op(U_AND, s.op(U_GE, x, c(1.0)), s.op(U_GT, x, a))
-        ax = s.op(U_EXP, ax)
-        enabled = s.op(U_NOT, s.op(U_OR, s.op(U_OR, s.op(
-            U_OR, x_zero, domain), under), x_inf))
-        cf = _igammac_cf(s, ax, x, a, s.op(U_AND, enabled, use_cf))
-        ser = _igamma_series(s, ax, x, a, s.op(U_AND, enabled, s.op(
-            U_NOT, use_cf)))
         out = s.op(U_SEL, use_cf, s.op(U_SUB, c(1.0), cf), ser)
         out = s.op(U_SEL, x_zero, c(0.0), out)
         out = s.op(U_SEL, x_inf, c(1.0), out)
     else:
-        use_ser = s.op(U_OR, s.op(U_LT, x, c(1.0)), s.op(U_LT, x, a))
-        enabled = s.op(U_NOT, s.op(U_OR, s.op(U_OR, s.op(
-            U_OR, domain, under), x_inf), a_zero))
-        ax = s.op(U_EXP, ax)
-        ser = _igamma_series(s, ax, x, a, s.op(U_AND, enabled, use_ser))
-        cf = _igammac_cf(s, ax, x, a, s.op(U_AND, enabled, s.op(
-            U_NOT, use_ser)))
         out = s.op(U_SEL, use_ser, s.op(U_SUB, c(1.0), ser), cf)
         out = s.op(U_SEL, s.op(U_OR, x_inf, a_zero), c(0.0), out)
     return s.op(U_SEL, domain, c(_NAN), out)
@@ -1448,16 +1471,8 @@ _F32_FORMS = {"erfinv", "digamma", "polygamma", "special_zeta", "i0",
               "special_bessel_j0", "special_bessel_j1", "igamma", "igammac"}
 
 
-def _schedule(ssa: _SSA, n_draws: int) -> Program:
-    """Drop unused values, order the instructions (a record sum right after
-    its value, stores and alive clears last, after every load) and assign
-    registers by liveness. A loop (:meth:`_SSA.loop`) becomes its carried
-    values' ``U_CARRY`` instructions, ``U_LOOP`` (the condition's register,
-    the cap), the body's instructions (the values that depend on a carried
-    value), one ``U_SET`` a carried value (its register, the next value's)
-    and ``U_END``; a value of the loop's outer code that the body reads, and
-    each carried value, stays in its register through ``U_END``; a loop's
-    result is its carried value's register."""
+def _live(ssa: _SSA) -> set:
+    """The values the effects need, transitively."""
     live = set()
     stack = [e[1] for e in ssa.effects]
     while stack:
@@ -1467,21 +1482,60 @@ def _schedule(ssa: _SSA, n_draws: int) -> Program:
         live.add(v)
         code, args, y = ssa.defs[v]
         stack.extend(_uses(code, args, ssa, y))
-    # the loop each value belongs to (it depends on the loop's carried
-    # values), and the results' carried values
+    return live
+
+
+def _regions(ssa: _SSA) -> Dict[int, int]:
+    """The loop each value's body belongs to: a value that depends on a
+    loop's carried values (a loop's result, ``U_OUT``, is outside it)."""
     region: Dict[int, int] = {}
-    alias: Dict[int, int] = {}
     for v, (code, args, y) in enumerate(ssa.defs):
         if code == U_CARRY:
             region[v] = y[0]
-        elif code == U_OUT:
-            alias[v] = ssa.loops[ssa.defs[args[0]][2][0]][0][y]
-        elif code != U_LOOP:
+        elif code not in (U_OUT, U_LOOP):
             rs = {region[a] for a in args if a in region}
             if len(rs) > 1:
                 raise ValueError("a value of two loops' bodies")
             if rs:
                 region[v] = rs.pop()
+    return region
+
+
+def _loop_inputs(ssa: _SSA, lid: int, region: dict, live: set) -> List[int]:
+    """The outer values loop ``lid`` reads: its initial values, then what
+    its (live) body and next values read from outside it."""
+    carried, node, _, _ = ssa.loops[lid]
+    out = [ssa.defs[c][1][0] for c in carried]
+    body = [v for v, r in region.items() if r == lid and v in live
+            and ssa.defs[v][0] != U_CARRY]
+    for v in sorted(body):
+        out += [a for a in ssa.defs[v][1] if region.get(a) != lid]
+    out += [n for n in ssa.defs[node][1] if region.get(n) != lid]
+    return list(dict.fromkeys(out))
+
+
+def _schedule(ssa: _SSA, n_draws: int) -> Program:
+    """Drop unused values, order the instructions (a record sum right after
+    its value, stores and alive clears last, after every load) and assign
+    registers by liveness. A loop (:meth:`_SSA.loop`) becomes its carried
+    values' ``U_CARRY`` instructions, ``U_LOOP`` (the condition's register,
+    the cap), the body's instructions (the values that depend on a carried
+    value), one ``U_SET`` a carried value (its register, the next value's)
+    and ``U_END``; a value of the loop's outer code that the body reads, and
+    each carried value, stays in its register through ``U_END``; a loop's
+    result is its carried value's register. The values go in rounds: those
+    that read no loop's result, the loops that read only them, then what
+    reads those loops' results, and so on, so that loops none of which
+    reads another's results follow one another (one block phase of the
+    kernel: :func:`loop_phases`); a program with no loop keeps its values'
+    order."""
+    live = _live(ssa)
+    region = _regions(ssa)
+    # the results' carried values
+    alias: Dict[int, int] = {}
+    for v, (code, args, y) in enumerate(ssa.defs):
+        if code == U_OUT:
+            alias[v] = ssa.loops[ssa.defs[args[0]][2][0]][0][y]
     accs: Dict[int, list] = {}
     tail = []
     for eff in ssa.effects:
@@ -1492,22 +1546,41 @@ def _schedule(ssa: _SSA, n_draws: int) -> Program:
     # ("v", vid), ("e", effect), ("loop" / "end", loop id), ("set",
     # (carried, next))
     order: List[tuple] = []
+    # the values in rounds: those that read no loop's result, then the
+    # loops that read only them, then the values that read those loops'
+    # results, and so on (a value's round: the most loops in a chain
+    # above it), each round in the SSA's order
+    rounds: Dict[int, int] = {}
+    stage: Dict[int, int] = {}
     for v in range(len(ssa.defs)):
-        if v not in live:
+        if v not in live or v in region:
             continue
         code, args, y = ssa.defs[v]
         if code == U_LOOP:
-            lid = y[0]
+            stage[v] = max((rounds.get(u, 0) for u in _loop_inputs(
+                ssa, y[0], region, live)), default=0)
+        elif code == U_OUT:
+            rounds[v] = stage[args[0]] + 1
+        else:
+            rounds[v] = max((rounds.get(a, 0) for a in args), default=0)
+    for r in range(max(rounds.values(), default=0) + 1):
+        for v, rv in rounds.items():
+            if rv != r:
+                continue
+            if ssa.defs[v][0] != U_OUT:
+                order.append(("v", v))
+            order.extend(("e", e) for e in accs.get(v, ()))
+        for v, sv in stage.items():
+            if sv != r:
+                continue
+            lid = ssa.defs[v][2][0]
             carried = ssa.loops[lid][0]
             order += [("v", c) for c in carried]
             order.append(("loop", lid))
             order += [("v", b) for b in range(v) if b in live
                       and region.get(b) == lid and ssa.defs[b][0] != U_CARRY]
-            order += [("set", (c, n)) for c, n in zip(carried, args)]
+            order += [("set", (c, n)) for c, n in zip(carried, ssa.defs[v][1])]
             order.append(("end", lid))
-        elif code != U_OUT and v not in region:
-            order.append(("v", v))
-        order.extend(("e", e) for e in accs.get(v, ()))
     order.extend(("e", e) for e in tail)
 
     def ref(u):
@@ -2829,6 +2902,108 @@ def arm_owner(prog: Program) -> dict:
     return owner
 
 
+# a block phase of the kernel's loops (csrc/phase.cuh): the block's
+# threads, its warps' count words per loop, and the values every lane of
+# a block holds alike, which the thread that runs an item declares again
+# rather than read from the item
+PHASE_LANES = 256
+PHASE_WARPS = PHASE_LANES // 32
+_UNIFORM = {U_CONST, U_T, U_DT}
+
+
+@dataclasses.dataclass(frozen=True)
+class PhaseLoop:
+    """One loop of a block phase (:func:`loop_phases`): the indices of its
+    ``U_LOOP`` and ``U_END``, of its carried values' ``U_CARRY`` (in
+    ``U_SET`` order), of those the program reads after the loop
+    (``results``) and of the outer values its body reads, those an item
+    stores (``stored``) and those every lane holds alike (``uniform``:
+    constants, t and dt); ``row0`` the first word of its items in the
+    phase's shared words, each value a row of :data:`PHASE_LANES` words
+    (two for an int64 or float64)."""
+
+    loop: int
+    end: int
+    carried: tuple
+    results: tuple
+    stored: tuple
+    uniform: tuple
+    row0: int
+
+
+def _words(t: str) -> int:
+    return 2 if t in (I64, F64) else 1
+
+
+def loop_phases(prog: Program) -> List[List[PhaseLoop]]:
+    """The program's loops in block phases: each phase a run of loops that
+    follow one another (one's ``U_END``, then the next one's ``U_CARRY``
+    instructions and ``U_LOOP``), none of which reads a result of an
+    earlier loop of its run. The kernel runs a phase's loops together: each
+    lane puts an item in shared memory for each loop it is enabled in, the
+    block's threads run the items in loop order, and each lane reads its
+    results back (``ops/codegen.py``); the twin's warp tally
+    (:data:`warp_tally`) groups lanes the same way."""
+    ins, tys = prog.ins, prog.type_list()
+    defn: Dict[int, int] = {}
+    loops = []
+    first_carry = None
+    open_ = None
+    read_at: Dict[int, int] = {}  # each value's last reader
+    for i, (code, d, *_rest) in enumerate(ins):
+        for r, _ in _operands(ins[i]):
+            read_at[defn[r]] = i
+        if code == U_CARRY and first_carry is None:
+            first_carry = i
+        if code == U_LOOP:
+            open_ = {"loop": i, "carry0": first_carry, "reads": [],
+                     "carried": [], "inits": []}
+            for j in range(first_carry, i):
+                open_["inits"].append(defn[ins[j][2]])
+        elif open_ is not None:
+            open_["reads"] += [defn[r] for r, _ in _operands(ins[i])]
+            if code == U_SET:
+                open_["carried"].append(defn[d])
+            if code == U_END:
+                open_["end"] = i
+                loops.append(open_)
+                open_ = None
+        if code != U_CARRY:
+            first_carry = None
+        if code not in (U_ST, U_ALIVE, U_ACC, U_LOOP, U_END, U_SET):
+            defn[d] = i
+    phases: List[List[PhaseLoop]] = []
+    prev_end, results = None, set()
+    for lp in loops:
+        outer = sorted({j for j in lp["reads"] if j < lp["carry0"]})
+        if not (phases and prev_end == lp["carry0"] - 1 and not results
+                .intersection(outer + lp["inits"])):
+            phases.append([])
+            results = set()
+        row0 = sum(_words(tys[j]) for p in phases[-1]
+                   for j in p.carried + p.stored)
+        phases[-1].append(PhaseLoop(
+            lp["loop"], lp["end"], tuple(lp["carried"]),
+            tuple(j for j in lp["carried"] if read_at.get(j, 0) > lp["end"]),
+            tuple(j for j in outer if ins[j][0] not in _UNIFORM),
+            tuple(j for j in outer if ins[j][0] in _UNIFORM), row0))
+        results.update(lp["carried"])
+        prev_end = lp["end"]
+    return phases
+
+
+def phase_words(prog: Program) -> int:
+    """The 32-bit words of shared memory the program's largest block phase
+    takes: each loop's warp counts, then its items' rows (0 without a
+    loop)."""
+    tys = prog.type_list()
+    out = 0
+    for ph in loop_phases(prog):
+        rows = sum(_words(tys[j]) for p in ph for j in p.carried + p.stored)
+        out = max(out, PHASE_WARPS * len(ph) + PHASE_LANES * rows)
+    return out
+
+
 # -- the plain version ------------------------------------------------------------
 
 
@@ -2839,12 +3014,60 @@ def arm_owner(prog: Program) -> dict:
 # instruction the lanes that ran each iteration (the bounds of
 # ``chip_smoke.py`` count such work on the lanes that do it)
 lane_tally: Optional[dict] = None
+# when a dict, the plain versions append each run's loop trips of a
+# program to it, ``{id(program): [(lanes, warps, lane trips, warp trips
+# a lane a warp, warp trips regrouped), ...]}``: the trips summed over the
+# lanes, then over the warps of 32 consecutive lanes (each warp runs each
+# loop to its slowest lane), then over the warps of the block phases
+# (:func:`loop_phases`: each block of PHASE_LANES lanes' items in loop
+# order, 32 at a time; a warp of two loops' items runs both)
+warp_tally: Optional[dict] = None
 
 
-def _tally(prog: Program, conds: dict, loop_lanes: dict, C: int) -> None:
+def warp_trips(trips: Sequence[torch.Tensor],
+               phases: Sequence[Sequence[int]]) -> Tuple[int, int, int]:
+    """``(lane trips, warp trips, regrouped warp trips)`` of one run:
+    ``trips`` each loop's iterations per lane (0 where it was not
+    enabled), ``phases`` the loops' places in ``trips``, phase by phase
+    (:data:`warp_tally`)."""
+    C = trips[0].shape[0]
+    lane = sum(int(t.sum()) for t in trips)
+    warps = -(-C // 32)
+    now = sum(int(torch.nn.functional.pad(t, (0, warps * 32 - C))
+                  .view(warps, 32).amax(1).sum()) for t in trips)
+    blocks = -(-C // PHASE_LANES)
+    regrouped = 0
+    for ph in phases:
+        T = torch.stack([torch.nn.functional.pad(
+            trips[j].long(), (0, blocks * PHASE_LANES - C)) for j in ph])
+        T = T.view(len(ph), blocks, PHASE_LANES)
+        en = (T > 0).long()
+        cnt = en.sum(2)
+        item = en.cumsum(2) - en + (cnt.cumsum(0) - cnt)[:, :, None]
+        n_chunks = len(ph) * PHASE_WARPS
+        top = torch.zeros(len(ph), blocks, n_chunks, dtype=torch.long,
+                          device=T.device)
+        top.scatter_reduce_(2, item // 32 * en, T * en, "amax")
+        regrouped += int(top.sum())
+    return lane, now, regrouped
+
+
+def _tally(prog: Program, conds: dict, loop_lanes: dict, C: int,
+           trips: Optional[dict] = None) -> None:
     """Append one run's lane counts of ``prog`` to :data:`lane_tally`:
     ``conds`` each select's condition mask, ``loop_lanes`` each loop's
-    enabled lanes summed over its iterations."""
+    enabled lanes summed over its iterations; and where :data:`warp_tally`
+    is a dict, ``trips`` (each loop's iterations per lane) as its warps
+    run them."""
+    if warp_tally is not None and trips:
+        order = sorted(trips)
+        place = {i: j for j, i in enumerate(order)}
+        phases = [[place[p.loop] for p in ph] for ph in loop_phases(prog)]
+        warp_tally.setdefault(id(prog), []).append(
+            (C, -(-C // 32), *warp_trips([trips[i] for i in order],
+                                         phases)))
+    if lane_tally is None:
+        return
     owner = arm_owner(prog)
     memo = {}
 
@@ -2898,6 +3121,7 @@ def run_user_program(prog: Program, f: list, alive: torch.Tensor, t, dt,
     base = rng.idx
     tys = prog.type_list()
     conds, loops = ({}, {}) if lane_tally is not None else (None, None)
+    trips = {} if warp_tally is not None else None
     i = 0
     while i < len(prog.ins):
         ins, ty = prog.ins[i], tys[i]
@@ -2905,7 +3129,7 @@ def run_user_program(prog: Program, f: list, alive: torch.Tensor, t, dt,
         i += 1
         va = regs[a]
         if code == U_LOOP:
-            i = _run_loop(prog, i - 1, regs, full, one, loops)
+            i = _run_loop(prog, i - 1, regs, full, one, loops, trips)
             continue
         if code == U_SEL and conds is not None:
             conds[i - 1] = va != 0
@@ -2931,8 +3155,8 @@ def run_user_program(prog: Program, f: list, alive: torch.Tensor, t, dt,
             v = _pure(ins, regs, full, one, ty)
         regs[d] = v
     rng.idx = base + prog.n_draws
-    if conds is not None:
-        _tally(prog, conds, loops, C)
+    if conds is not None or trips:
+        _tally(prog, conds, loops, C, trips)
     return alive
 
 
@@ -3150,13 +3374,14 @@ def run_field(prog: Program, args, n_out: int = 1):
     out: List[Optional[torch.Tensor]] = [None] * n_out
     tys = prog.type_list()
     conds, loops = ({}, {}) if lane_tally is not None else (None, None)
+    trips = {} if warp_tally is not None else None
     i = 0
     while i < len(prog.ins):
         ins, ty = prog.ins[i], tys[i]
         code, d, a, _, y, _ = ins
         i += 1
         if code == U_LOOP:
-            i = _run_loop(prog, i - 1, regs, full, one, loops)
+            i = _run_loop(prog, i - 1, regs, full, one, loops, trips)
         elif code == U_ST:
             out[y] = regs[a]
         elif code == U_LD:
@@ -3165,23 +3390,29 @@ def run_field(prog: Program, args, n_out: int = 1):
             if code == U_SEL and conds is not None:
                 conds[i - 1] = regs[a] != 0
             regs[d] = _pure(ins, regs, full, one, ty)
-    if conds is not None:
-        _tally(prog, conds, loops, shape.numel())
+    if conds is not None or trips:
+        _tally(prog, conds, loops, shape.numel(), {
+            k: v.reshape(-1) for k, v in (trips or {}).items()})
     return out[0] if n_out == 1 else tuple(out)
 
 
-def _run_loop(prog: Program, i: int, regs, full, one, lanes=None) -> int:
+def _run_loop(prog: Program, i: int, regs, full, one, lanes=None,
+              trips=None) -> int:
     """Plain version of the loop whose ``U_LOOP`` is instruction ``i``, as
     jnp's ``while_loop`` runs it: the body over the whole tensor, each
     carried value then kept by select where the lane was disabled at the
     iteration's start, until no lane is enabled or the cap is reached
-    (``lanes``, a dict: the enabled lanes summed over its iterations).
-    Returns the index after its ``U_END``."""
+    (``lanes``, a dict: the enabled lanes summed over its iterations;
+    ``trips``, a dict: each lane's iterations). Returns the index after
+    its ``U_END``."""
     tys = prog.type_list()
     _, _, cond, _, cap, _ = prog.ins[i]
     end = i + 1
     while prog.ins[end][0] != U_END:
         end += 1
+    if trips is not None:
+        trips[i] = torch.zeros(regs[cond].shape, dtype=torch.int32,
+                               device=regs[cond].device)
     for _ in range(cap):
         en = regs[cond] != 0
         n_en = int(en.sum())
@@ -3189,6 +3420,8 @@ def _run_loop(prog: Program, i: int, regs, full, one, lanes=None) -> int:
             break
         if lanes is not None:
             lanes[i] = lanes.get(i, 0) + n_en
+        if trips is not None:
+            trips[i] += en
         pending = []
         for k in range(i + 1, end):
             ins = prog.ins[k]

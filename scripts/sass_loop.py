@@ -312,10 +312,14 @@ def lined_functions(listing: str) -> dict:
 def source_kind(text: str) -> str:
     """What one line of a generated form source computes: ``libm:<name>``
     (a CUDA libm call), ``fma`` (a fused multiply-add), ``loop`` (a bounded
-    loop's head or exit), ``branch`` (a branched arm's ``if`` / ``else``),
-    ``move`` (a branched select's result or a loop's update), ``program``
-    (another instruction of a program)."""
+    loop's head or exit), ``phase`` (a block phase's own: its items placed,
+    written and read, its barriers and item loop,
+    ``ops/codegen.py:_phase_c``), ``branch`` (a branched arm's ``if`` /
+    ``else``), ``move`` (a branched select's result or a loop's update),
+    ``program`` (another instruction of a program)."""
     t = text.strip()
+    if "ph_" in t or "phase_" in t or t == "__syncthreads();":
+        return "phase"
     if t.startswith("for (int it") or t.endswith("break;") or re.match(
             r"^const \w+(?: \w+)? n\d+_\d+ = ", t):
         return "loop"
@@ -367,11 +371,25 @@ def attribute(source: str, ballots: int = 1, listing=None) -> dict:
     branched arms' and loops' own), or to ``kernel`` (``csrc/``'s code).
     ``by_op`` splits the generated ones by device function (``user_op_<i>``,
     ``field_<j>``); ``if_branches`` counts the branched arms' ``if`` lines
-    and those that compiled to a branch (a ``BRA`` at that line)."""
+    and those that compiled to a branch (a ``BRA`` at that line);
+    ``loop_bodies`` counts, for each bounded loop (by its ``for`` line),
+    the instructions of the lines inside it: those a lane runs on each of
+    its trips (the rest of ``fast_path`` runs once an iteration)."""
     if listing is None:
         listing = lined_listing(source)
     gen = open(source).read().splitlines()
     owner, fn = {}, None
+    # each generated line's innermost bounded loop: its for line (a loop
+    # holds the lines indented past it, up to its closing brace)
+    in_loop, open_loops = {}, []
+    for n, text in enumerate(gen, 1):
+        depth = len(text) - len(text.lstrip())
+        while open_loops and depth <= open_loops[-1][1]:
+            open_loops.pop()
+        if open_loops:
+            in_loop[n] = open_loops[-1][0]
+        if text.strip().startswith("for (int it"):
+            open_loops.append((n, depth))
     for n, text in enumerate(gen, 1):
         m = re.search(r"\b(user_op_\d+|field_\d+|binned_op_\d+)\(", text)
         if m and text.startswith(("__device__", "template", "void")) or (
@@ -388,7 +406,7 @@ def attribute(source: str, ballots: int = 1, listing=None) -> dict:
     (lo, hi), _ = iteration_loop(plain)
     slow = slow_blocks(plain, lo, hi)
     base = os.path.basename(source)
-    by_kind, by_op, ifs = {}, {}, {}
+    by_kind, by_op, ifs, bodies = {}, {}, {}, {}
     for i in range(lo, hi + 1):
         if i in slow:
             continue
@@ -399,6 +417,8 @@ def attribute(source: str, ballots: int = 1, listing=None) -> dict:
         if line is not None:
             key = owner.get(line) or "form"
             by_op[key] = by_op.get(key, 0) + 1
+            if line in in_loop:
+                bodies[in_loop[line]] = bodies.get(in_loop[line], 0) + 1
             if source_kind(gen[line - 1]) == "branch" and gen[
                     line - 1].strip().startswith("if ("):
                 ifs.setdefault(line, False)
@@ -410,7 +430,9 @@ def attribute(source: str, ballots: int = 1, listing=None) -> dict:
             "by_kind": dict(sorted(by_kind.items())),
             "by_op": dict(sorted(by_op.items())),
             "if_branches": {"lines": len(ifs),
-                            "compiled_to_branch": sum(ifs.values())}}
+                            "compiled_to_branch": sum(ifs.values())},
+            "loop_bodies": {f"line {n}: {gen[n - 1].strip()}": c
+                            for n, c in sorted(bodies.items())}}
 
 
 def library_sass(path: str) -> str:

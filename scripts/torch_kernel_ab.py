@@ -53,6 +53,12 @@ import physicl_tpu_torch as phys
 import physicl_tpu_torch.light as light
 from physicl_tpu_torch.ops import _build
 from physicl_tpu_torch.ops import fused as F
+from physicl_tpu_torch.ops import record as RC
+
+if not hasattr(RC, "loop_phases"):
+    # a checkout before the block phases: its loops run per lane, with no
+    # ballot of their own (chip_smoke.form_ballots counts a phase's)
+    RC.loop_phases = lambda prog: ()
 
 C_LIGHT = 299792458.0
 dev = torch.device("cuda:0")

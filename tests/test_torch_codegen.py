@@ -69,15 +69,36 @@ _HARNESS = r"""
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <pthread.h>
+#include <thread>
+#include <vector>
 #define __device__
 #define __forceinline__ inline
+#include "phase.cuh"
 #include "sampling.cuh"
 #include "typed.cuh"
 using physicl::hash_bits;
 using physicl::slot_term;
 using physicl::unit24;
 
-static double g_acc[128];
+// a block phase's primitives (phase.cuh): the block's lanes are host
+// threads, its barrier a pthread barrier of kPhaseLanes, the shared words
+// one array, a warp's ballot its lanes' votes read between two barriers
+thread_local PhaseThread threadIdx;
+static unsigned g_phase[1 << 20];
+static unsigned g_votes[kPhaseLanes];
+static pthread_barrier_t g_bar;
+unsigned* phase_words() { return g_phase; }
+void __syncthreads() { pthread_barrier_wait(&g_bar); }
+unsigned phase_ballot(bool p) {
+  g_votes[threadIdx.x] = p ? 1u : 0u;
+  __syncthreads();
+  const unsigned w0 = threadIdx.x & ~31u;
+  unsigned b = 0;
+  for (unsigned k = 0; k < 32; ++k) b |= g_votes[w0 + k] << k;
+  __syncthreads();
+  return b;
+}
 inline float __int_as_float(uint32_t b) {
   float v;
   std::memcpy(&v, &b, 4);
@@ -108,25 +129,58 @@ inline float ipow(float x, int y) {
   return neg ? 1.0f / acc : acc;
 }
 // the warp's record sum: here one slot's value into a float64 column sum
-struct HostAcc {};
-inline void user_sum(HostAcc&, int col, float v) { g_acc[col] += v; }
+struct HostAcc {
+  double s[128] = {};
+};
+inline void user_sum(HostAcc& a, int col, float v) { a.s[col] += v; }
+
+// one slot: its planes read, the program run, its planes written back
+template <class Fn>
+void run_slot(Fn fn, int n, int g, float* f, float* x, uint8_t* alive,
+              float t, float dt, uint32_t h0, uint32_t idx0, HostAcc& acc) {
+  float fl[15] = {}, xl[8] = {};
+  const bool valid = g < n;
+  for (int p = 0; p < 15 && valid; ++p) fl[p] = f[p * n + g];
+  for (int p = 0; p < 8 && valid; ++p) xl[p] = x[p * n + g];
+  bool a = valid && alive[g] != 0;
+  fn(fl, xl, a, t, dt, h0, idx0, slot_term(g), acc);
+  if (!valid) return;
+  for (int p = 0; p < 15; ++p) f[p * n + g] = fl[p];
+  for (int p = 0; p < 8; ++p) x[p * n + g] = xl[p];
+  alive[g] = a;
+}
 
 template <class Fn>
 void run_slots(Fn fn, int n, float* f, float* x, uint8_t* alive, float t,
                float dt, uint32_t h0, uint32_t idx0, double* acc) {
-  std::memset(g_acc, 0, sizeof g_acc);
   HostAcc host_acc;
-  for (int g = 0; g < n; ++g) {
-    float fl[15], xl[8];
-    for (int p = 0; p < 15; ++p) fl[p] = f[p * n + g];
-    for (int p = 0; p < 8; ++p) xl[p] = x[p * n + g];
-    bool a = alive[g] != 0;
-    fn(fl, xl, a, t, dt, h0, idx0, slot_term(g), host_acc);
-    for (int p = 0; p < 15; ++p) f[p * n + g] = fl[p];
-    for (int p = 0; p < 8; ++p) x[p * n + g] = xl[p];
-    alive[g] = a;
+  for (int g = 0; g < n; ++g)
+    run_slot(fn, n, g, f, x, alive, t, dt, h0, idx0, host_acc);
+  std::memcpy(acc, host_acc.s, sizeof host_acc.s);
+}
+
+// a program with a block phase: the slots in blocks of kPhaseLanes, each
+// lane a thread of the host (the lanes past n run on zero planes, dead, as
+// the kernel's tail threads do); the record sums added in lane order
+template <class Fn>
+void run_blocks(Fn fn, int n, float* f, float* x, uint8_t* alive, float t,
+                float dt, uint32_t h0, uint32_t idx0, double* acc) {
+  std::vector<HostAcc> accs(kPhaseLanes);
+  std::memset(acc, 0, 128 * sizeof(double));
+  pthread_barrier_init(&g_bar, nullptr, kPhaseLanes);
+  for (int g0 = 0; g0 < n; g0 += kPhaseLanes) {
+    std::vector<std::thread> lanes;
+    for (int q = 0; q < kPhaseLanes; ++q)
+      lanes.emplace_back([&, q] {
+        threadIdx.x = (unsigned)q;
+        accs[q] = HostAcc{};
+        run_slot(fn, n, g0 + q, f, x, alive, t, dt, h0, idx0, accs[q]);
+      });
+    for (auto& th : lanes) th.join();
+    for (int q = 0; q < kPhaseLanes && g0 + q < n; ++q)
+      for (int c = 0; c < 128; ++c) acc[c] += accs[q].s[c];
   }
-  std::memcpy(acc, g_acc, sizeof g_acc);
+  pthread_barrier_destroy(&g_bar);
 }
 """
 
@@ -140,23 +194,24 @@ def _host_library(progs: dict, tmp):
     parts = [_HARNESS]
     for name, prog in progs.items():
         parts.append(CG.program_c(prog, f"prog_{name}"))
+        run = "run_blocks" if RC.loop_phases(prog) else "run_slots"
         parts.append(
             f'extern "C" void run_{name}(int n, float* f, float* x, '
             "uint8_t* alive, float t, float dt, uint32_t h0, uint32_t idx0, "
-            f"double* acc) {{ run_slots(prog_{name}<HostAcc>, n, f, x, alive, t, dt, "
-            "h0, idx0, acc); }")
+            f"double* acc) {{ {run}(prog_{name}<HostAcc>, n, f, x, alive, t, "
+            "dt, h0, idx0, acc); }")
     src = os.path.join(tmp, "programs.cpp")
     with open(src, "w") as f:
         f.write("\n".join(parts))
     so = os.path.join(tmp, "libprograms.so")
     subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
-                    "-fPIC", "-I", CSRC, "-o", so, src], check=True,
-                   capture_output=True, text=True)
+                    "-fPIC", "-pthread", "-I", CSRC, "-o", so, src],
+                   check=True, capture_output=True, text=True)
     return ctypes.CDLL(so)
 
 
 def _run_host(lib, name, planes, alive, idx0=0):
-    """The host run of program ``name`` on ``planes`` ((23, N) float32: the
+    """The host run of program ``name`` on ``planes`` ((23, n) float32: the
     15 core planes and 8 extras) and ``alive``; returns (planes, alive,
     float64 record sums)."""
     f = np.array(planes[:15], np.float32)  # copies: the run writes them
@@ -166,7 +221,7 @@ def _run_host(lib, name, planes, alive, idx0=0):
     h0 = (SEED ^ ((K * 0x9E3779B9) & 0xFFFFFFFF)) & 0xFFFFFFFF
     vp = ctypes.c_void_p
     getattr(lib, f"run_{name}")(
-        ctypes.c_int(N), vp(f.ctypes.data), vp(x.ctypes.data),
+        ctypes.c_int(f.shape[1]), vp(f.ctypes.data), vp(x.ctypes.data),
         vp(a.ctypes.data), ctypes.c_float(T_OP), ctypes.c_float(DT_OP),
         ctypes.c_uint32(h0), ctypes.c_uint32(idx0), vp(acc.ctypes.data))
     return np.concatenate([f, x]), a.astype(bool), acc
@@ -176,7 +231,7 @@ def _run_twin(prog, planes, alive, idx0=0):
     """``run_user_program`` on the same inputs (the iteration's counter
     hash at draw index ``idx0``)."""
     f = [torch.from_numpy(p.copy()) for p in planes]
-    rng = F._HashRng(SEED, K, F._slot_term(torch.arange(N)))
+    rng = F._HashRng(SEED, K, F._slot_term(torch.arange(planes.shape[1])))
     rng.idx = idx0
     row = torch.zeros(128)
     al = RC.run_user_program(prog, f, torch.from_numpy(alive.copy()),
@@ -919,8 +974,8 @@ def _field_library(specs: dict, tmp):
         f.write("\n".join(parts))
     so = os.path.join(tmp, "libfields.so")
     subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
-                    "-fPIC", "-I", CSRC, "-o", so, src], check=True,
-                   capture_output=True, text=True)
+                    "-fPIC", "-pthread", "-I", CSRC, "-o", so, src],
+                   check=True, capture_output=True, text=True)
     return ctypes.CDLL(so)
 
 

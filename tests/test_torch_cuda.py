@@ -557,6 +557,61 @@ def test_user_plans_match_twin(dev, case):
     assert _close_f(rec_f, ref_f)
 
 
+def _bitwise_twin(packed, sched, seed, k, plan):
+    """The kernel out of place and in place against the twin: int records
+    equal, planes bitwise, rec_f within tolerance."""
+    out = torch.empty_like(packed)
+    rec, rec_f = F.fused_transport(packed, out, sched, seed, k, plan)[:2]
+    ref, ref_rec, ref_f = F.fused_chunk_reference(packed, sched, seed, k,
+                                                  plan)[:3]
+    inplace = packed.clone()
+    F.fused_transport(inplace, inplace, sched, seed, k, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(rec, ref_rec)
+    assert torch.equal(out, ref) and torch.equal(inplace, ref)
+    assert _close_f(rec_f, ref_f)
+
+
+@pytest.mark.parametrize("cut", [0, 128], ids=["whole", "half-block"])
+def test_block_phase_plan_matches_twin(dev, cut):
+    """``chip_smoke.py``'s block-phase plan (``gammainc`` and ``gammaincc``
+    on the same operands, one kind of operands a block: none enabled, one
+    loop, both loops, mixed; every 7th slot dead; two block phases, the
+    later one's warp counts on a result row of the earlier one; a loop with
+    an int32 and a float64 carried value) at 2**14 slots, or 128 fewer (the
+    last block
+    half full: its other threads run the programs on no slot), x 64
+    iterations: the loops run as block phases and equal the twin
+    bitwise."""
+    import physicl_tpu_torch as phys
+    from chip_smoke import first_chunk_inputs, phase_plan, phase_plan_sim
+
+    packed, sched, seed, k, plan, _ = first_chunk_inputs(
+        phase_plan_sim(phys, dev, n=1 << 14), F)
+    plan = phase_plan(plan)
+    packed = packed.clone()
+    packed[13, ::7] = 0.0
+    packed = packed[:, :packed.shape[1] - cut].contiguous()
+    from physicl_tpu_torch.ops import codegen as CG
+
+    assert CG.form_source(plan).count("phase_place<") == 4
+    _bitwise_twin(packed, sched, seed, k, plan)
+
+
+@pytest.mark.parametrize("case", ["ops-loops", "aperture"])
+def test_loop_plans_match_twin(dev, case):
+    """The plans whose user programs hold loops (``chip_smoke.py``'s
+    ``ops-loops`` group and the aperture path) at 2**14 x 16: their block
+    phases equal the twin bitwise."""
+    import physicl_tpu_torch as phys
+    from chip_smoke import aperture_sim, first_chunk_inputs, ops_plan_sim
+
+    sim = (ops_plan_sim(phys, case, dev, n=1 << 14, chunk=16)
+           if case == "ops-loops" else
+           aperture_sim(phys, 1 << 14, dev, iters=16, chunk=16)[0])
+    _bitwise_twin(*first_chunk_inputs(sim, F)[:5])
+
+
 def test_user_simulation_card_equals_cpu(dev):
     """The user path (drag, decay with a written-back dose, the moments
     tally) and the spectrum path at 2**14 photons on the card and on the

@@ -213,7 +213,10 @@ def _loop_field(upper):
     en = s.op(RC.U_AND, s.op(RC.U_GT, a, s.const(0.0)),
               s.op(RC.U_GT, x, s.const(0.0)))
     part = RC._igammac_cf if upper else RC._igamma_series
-    s.effects.append((RC.U_ST, part(s, s.const(1.0), x, a, en), 0))
+    out = s.op(RC.U_MUL, part(s, x, a, en)[0], s.const(1.0))
+    if not upper:
+        out = s.op(RC.U_DIV, out, a)
+    s.effects.append((RC.U_ST, out, 0))
     from physicl_tpu_torch.ops import fields as FL
 
     return FL.expr_field(RC._schedule(s, 0), ("r0", "r1", "r2"),
@@ -729,3 +732,275 @@ def test_lane_weights_count_an_early_window_once():
     np.testing.assert_allclose(cs.lane_weights(first, 8 / 4)[key], whole,
                                rtol=1e-12)
     assert max(cs.lane_weights(first)[key]) > 1.2 * max(whole)
+
+
+# -- shared loops and the block phase -------------------------------------------
+
+
+def _n_loops(prog):
+    return sum(1 for ins in prog.ins if ins[0] == RC.U_LOOP)
+
+
+def _igamma_field(fn):
+    return RC.record_field(fn, ("a", "b", "c"), "igamma").spec["prog"]
+
+
+_LOWER = _igamma_field(lambda a, x, c: torch.special.gammainc(a, x))
+_UPPER = _igamma_field(lambda a, x, c: torch.special.gammaincc(a, x))
+_PAIR = RC.record_field(lambda a, x, c: (torch.special.gammainc(a, x),
+                                         torch.special.gammaincc(a, x), c),
+                        ("a", "b", "c"), "pair", ncomp=3)
+_SHARED = {**_IGAMMA,
+           # x == a exactly: below 1 both functions' series, at or above 1
+           # the lower one's series and the upper one's continued fraction
+           "x-equals-a-below-1": ((a := _RNG.uniform(0.01, 1, _N)), a),
+           "x-equals-a-above-1": ((a := np.r_[1.0, _RNG.uniform(1, 60, _N)]),
+                                  a)}
+
+
+def test_shared_operands_record_two_loops():
+    """gammainc and gammaincc of the same operands record two loops (one
+    series, one continued fraction), where each alone records both: four
+    apart. Neither reads the other's result, so they follow one another in
+    one block phase."""
+    pair = _PAIR.spec["prog"]
+    assert _n_loops(_LOWER) == _n_loops(_UPPER) == 2
+    assert _n_loops(pair) == 2
+    caps = sorted(ins[4] for ins in pair.ins if ins[0] == RC.U_LOOP)
+    assert caps == [RC._CF_CAP, RC._SERIES_CAP]
+    assert [[len(p.carried) for p in ph]
+            for ph in RC.loop_phases(pair)] == [[10, 4]]
+    # only the sums are read after the loops: the items write back one
+    # value each
+    assert [[len(p.results) for p in ph]
+            for ph in RC.loop_phases(pair)] == [[1, 1]]
+
+
+@pytest.mark.parametrize("case", sorted(_SHARED))
+def test_shared_loops_are_bitwise_the_single_functions(case):
+    """The shared loops' twin gives each function's value bit for bit as
+    the program of that function alone, and within ``_igamma_tol`` of
+    ``jax.scipy.special``."""
+    a, x = (np.asarray(v, F32) for v in _SHARED[case])
+    ta, tx = torch.from_numpy(a), torch.from_numpy(x)
+    lo, up, _ = _PAIR(ta, tx, tx)
+    for got, prog, j_fn in ((lo, _LOWER, jsp.gammainc),
+                            (up, _UPPER, jsp.gammaincc)):
+        alone = RC.run_field(prog, [ta, tx, tx])
+        assert np.array_equal(got.numpy().view(np.int32),
+                              alone.numpy().view(np.int32))
+        want = np.asarray(j_fn(jnp.asarray(a), jnp.asarray(x)), np.float64)
+        _close(got.numpy(), want, _igamma_tol(a.astype(np.float64),
+                                              x.astype(np.float64)))
+
+
+def _lo(a, x):
+    return torch.special.gammainc(a, x)
+
+
+def _up(a, x):
+    return torch.special.gammaincc(a, x)
+
+
+# each case: the two values of planes (a, x, y) through the functions
+# (lo, up), the loops they record and their block phases
+_APART = {
+    "same": (lambda a, x, y, lo, up: (lo(a, x), up(a, x)), 2, 1),
+    "cap": (lambda a, x, y, lo, up: (lo(a, x), a), 2, 1),
+    "body-operand": (lambda a, x, y, lo, up: (lo(a, x), up(a, y)), 4, 1),
+    "init": (lambda a, x, y, lo, up: (lo(a, x), up(y, x)), 4, 1),
+    "enable-reads-the-other": (
+        lambda a, x, y, lo, up: (lo(a, x), up(a, x * lo(a, x))), 4, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(_APART))
+def test_loops_that_differ_stay_apart(case):
+    """gammainc and gammaincc share loops only on the same operands: loops
+    that differ in the cap (a function's series and continued fraction), in
+    an operand their bodies read (x), in an initial value (a, the series'
+    r) or whose enable reads the other's result (a later block phase) stay
+    apart; shared or not, each value is bit for bit the one of the
+    functions recorded alone."""
+    fn, loops, phases = _APART[case]
+    field = RC.record_field(lambda a, x, y: (*fn(a, x, y, _lo, _up), y),
+                            ("a", "b", "c"), case, ncomp=3)
+    prog = field.spec["prog"]
+    assert (_n_loops(prog), len(RC.loop_phases(prog))) == (loops, phases)
+    rng = np.random.default_rng(5)
+    a = rng.uniform(0.5, 20.0, 1 << 10)
+    x = a * rng.uniform(0.2, 3.0, a.size)
+    x[::9] = a[::9]
+    ta, tx, ty = (torch.from_numpy(v.astype(F32))
+                  for v in (a, x, rng.uniform(0.5, 20.0, a.size)))
+    got = field(ta, tx, ty)[:2]
+    want = fn(ta, tx, ty, lambda a, x: RC.run_field(_LOWER, [a, x, x]),
+              lambda a, x: RC.run_field(_UPPER, [a, x, x]))
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy().view(np.int32),
+                              w.numpy().view(np.int32))
+
+
+def test_block_phase_in_a_1i_program_not_in_a_field():
+    """A kernel 1i program's loops run as a block phase (the enables
+    placed, the items run by the block's threads between two barriers, a
+    third before the next phase); a
+    field program's keep the per-lane loop (a field is called under
+    per-lane branches, where a barrier would deadlock)."""
+    spec = _PAIR.spec
+    src = CG.program_c(spec["prog"], "p")
+    assert src.count("phase_place<2>(") == 1
+    assert src.count("__syncthreads();") == 3
+    assert "for (int ph_q = threadIdx.x;" in src
+    field = CG.field_c(spec, "f", 0)
+    assert "phase_" not in field and "__syncthreads" not in field
+    assert field.count("for (int it") == 2 and "break;" in field
+
+
+def _phase_planes(n):
+    """(23, n) planes for the pair program (a in plane 12, x in plane 0),
+    one kind a block of 256 slots: the lanes split between the series and
+    the continued fraction; every lane in both shared loops (x == a >= 1);
+    no lane enabled (a < 0); x == a below 1 and NaN."""
+    rng = np.random.default_rng(17)
+    p = rng.uniform(0.1, 3.0, (23, n)).astype(F32)
+    kind = (np.arange(n) // 256) % 4
+    a = rng.uniform(1.0, 20.0, n)
+    x = np.where(rng.uniform(size=n) < 0.5, a * 0.5, (a + 1) * 2.0)
+    x = np.where(kind == 1, a, x)
+    a = np.where(kind == 2, -a, a)
+    a = np.where(kind == 3, rng.uniform(0.01, 1.0, n), a)
+    x = np.where(kind == 3, a, x)
+    a[3::97] = np.nan
+    p[12], p[0] = a, x
+    alive = rng.uniform(size=n) < 0.8
+    p[13] = alive
+    return p, alive
+
+
+def _pair_program():
+    """The lower and upper incomplete gammas' loops of (a, x) = (plane 12,
+    plane 0) as ``record._igamma`` switches and shares them, with ``ax`` =
+    1 (no libm call: glibc's and torch's may differ by an ulp), stored in
+    planes 15 and 16: a kernel 1i program with two shared loops."""
+    s = RC._SSA()
+    c = s.const
+    a, x = s.val(RC.U_LD, (), 12), s.val(RC.U_LD, (), 0)
+    ok = s.op(RC.U_AND, s.op(RC.U_GT, a, c(0.0)), s.op(RC.U_GT, x, c(0.0)))
+    lower_cf = s.op(RC.U_AND, s.op(RC.U_GE, x, c(1.0)), s.op(RC.U_GT, x, a))
+    upper_ser = s.op(RC.U_OR, s.op(RC.U_LT, x, c(1.0)), s.op(RC.U_LT, x, a))
+    on = lambda p: s.op(RC.U_AND, ok, p)  # noqa: E731
+    (cf_lo, ser_lo), (cf_up, ser_up) = RC._igamma_sums(
+        s, a, x, (on(lower_cf), on(s.op(RC.U_NOT, upper_ser))),
+        (on(s.op(RC.U_NOT, lower_cf)), on(upper_ser)))
+    one = c(1.0)
+    lo = s.op(RC.U_SEL, lower_cf, s.op(RC.U_SUB, one, cf_lo),
+              s.op(RC.U_DIV, ser_lo, a))
+    up = s.op(RC.U_SEL, upper_ser, s.op(RC.U_SUB, one, s.op(
+        RC.U_DIV, ser_up, a)), cf_up)
+    s.effects += [(RC.U_ST, lo, 15), (RC.U_ST, up, 16)]
+    return RC._schedule(s, 0)
+
+
+def test_block_phase_host_build_is_bitwise_the_twin(tmp_path):
+    """The pair program's block phase built with g++ (the block's lanes as
+    host threads, ``test_torch_codegen._HARNESS``) on 1000 slots (a tail
+    block whose last 24 threads run on no slot): blocks whose lanes split
+    between the two loops, sit in both, or in none, bitwise the twin."""
+    prog = _pair_program()
+    assert _n_loops(prog) == 2 and len(RC.loop_phases(prog)) == 1
+    lib = _host_library({"pair": prog}, str(tmp_path))
+    planes, alive = _phase_planes(1000)
+    got, got_alive, _ = _run_host(lib, "pair", planes, alive)
+    want, want_alive, _ = _run_twin(prog, planes, alive)
+    assert np.array_equal(got_alive, want_alive)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def _two_phase_program():
+    """Two block phases of the lower function's loops (``ax`` = 1, as in
+    :func:`_pair_program`): those of (a, x) and (y, 0.5), then, reading
+    their results, those of (a r1, 2) and (y r2, 0.5), stored in planes 15
+    and 16 (a in plane 12, x in 0, y in 1). The later phase stores no x (a
+    constant is declared again), so it has one row fewer, and its warp
+    counts take the earlier phase's last row: the result of (y, 0.5)'s
+    series."""
+    s = RC._SSA()
+    c = s.const
+
+    def lower(a, x):
+        ok = s.op(RC.U_AND, s.op(RC.U_GT, a, c(0.0)),
+                  s.op(RC.U_GT, x, c(0.0)))
+        use_cf = s.op(RC.U_AND, s.op(RC.U_GE, x, c(1.0)),
+                      s.op(RC.U_GT, x, a))
+        on_cf = s.op(RC.U_AND, ok, use_cf)
+        on_ser = s.op(RC.U_AND, ok, s.op(RC.U_NOT, use_cf))
+        (cf, ser), _ = RC._igamma_sums(s, a, x, (on_cf, on_cf),
+                                       (on_ser, on_ser))
+        return s.op(RC.U_SEL, use_cf, s.op(RC.U_SUB, c(1.0), cf),
+                    s.op(RC.U_DIV, ser, a))
+
+    a, x, y = (s.val(RC.U_LD, (), k) for k in (12, 0, 1))
+    r1, r2 = lower(a, x), lower(y, c(0.5))
+    r3 = lower(s.op(RC.U_MUL, a, r1), c(2.0))
+    r4 = lower(s.op(RC.U_MUL, y, r2), c(0.5))
+    s.effects += [(RC.U_ST, s.op(RC.U_ADD, r1, r2), 15),
+                  (RC.U_ST, s.op(RC.U_ADD, r3, r4), 16)]
+    return RC._schedule(s, 0)
+
+
+def test_two_block_phases_host_build_is_bitwise_the_twin(tmp_path):
+    """A program of two block phases whose later one's warp counts take
+    words of a result row of the earlier one (``chip_smoke.phase_hazards``:
+    the phase's closing barrier keeps them apart) built with g++ on 1000
+    slots, bitwise the twin."""
+    import chip_smoke as cs
+
+    prog = _two_phase_program()
+    assert [[len(p.carried) for p in ph] for ph in RC.loop_phases(prog)] \
+        == [[10, 4, 10, 4]] * 2
+    assert cs.phase_hazards(prog) == [(0, 28, 1)]
+    lib = _host_library({"two": prog}, str(tmp_path))
+    planes, alive = _phase_planes(1000)
+    got, got_alive, _ = _run_host(lib, "two", planes, alive)
+    want, want_alive, _ = _run_twin(prog, planes, alive)
+    assert np.array_equal(got_alive, want_alive)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_warp_trip_tally_is_exact():
+    """``record.warp_trips`` on a hand-built run of 600 lanes (two full
+    blocks and one of 88; 19 warps): loop 0 takes 5 trips on lanes 0-27
+    and 7 on lane 100, loop 1 2 on lanes 0-7 and 9 on lane 599. A lane a
+    warp: loop 0's warps 0 and 3, loop 1's 0 and 18, 5 + 7 + 2 + 9. In one
+    phase block 0's items are loop 0's 29 then loop 1's 8: the first warp
+    holds 29 and 3 of them (7 + 2), the second 5 (2), and block 2's first
+    warp the last lane (9); in two phases block 0's loops take a warp each
+    (7, 2)."""
+    C = 600
+    t0 = torch.zeros(C, dtype=torch.int32)
+    t1 = torch.zeros(C, dtype=torch.int32)
+    t0[:28], t0[100] = 5, 7
+    t1[:8], t1[599] = 2, 9
+    assert RC.warp_trips([t0, t1], [[0, 1]]) == (172, 23, 20)
+    assert RC.warp_trips([t0, t1], [[0], [1]]) == (172, 23, 18)
+
+
+def test_twin_tallies_the_warp_trips():
+    """The twin's ``warp_tally``: one entry a run of a program with loops,
+    its lane trips the loops' enabled lanes summed over their iterations
+    (``lane_tally``'s count), and the regrouped warps' trips at most the
+    consecutive warps'."""
+    prog = _pair_program()
+    planes, alive = _phase_planes(1000)
+    RC.lane_tally, RC.warp_tally = {}, {}
+    try:
+        _run_twin(prog, planes, alive)
+        (runs,), (lanes,) = RC.warp_tally.values(), RC.lane_tally.values()
+    finally:
+        RC.lane_tally = RC.warp_tally = None
+    (n, warps, lane, now, regrouped), = runs
+    assert (n, warps) == (1000, 32)
+    loops = [i for i, ins in enumerate(prog.ins) if ins[0] == RC.U_LOOP]
+    assert lane == sum(lanes[0][1][i + 1] for i in loops)
+    assert 0 < regrouped <= now

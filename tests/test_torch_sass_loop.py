@@ -100,3 +100,52 @@ def test_attribute_by_source_line(tmp_path):
                               "libm:expf": 2, "move": 1}
     assert out["by_op"] == {"user_op_2": 5}
     assert out["if_branches"] == {"lines": 1, "compiled_to_branch": 1}
+
+
+# a block phase's item loop: the phase's own lines and a bounded loop's
+# body (lines 6-7 inside the for of line 5)
+PHASE_SOURCE = """// generated
+{  // block phase: 1 loop(s), 2 rows of items
+  phase_place<1>(ph_w + 512, ph_en, ph_pos, ph_tot);
+  __syncthreads();
+    for (int it9 = 0; it9 < 40; ++it9) {
+      const float v10 = v8 * 0x1p-1f;
+      v8 = v10;
+    }
+    phase_put_f32(ph_it + 0, v8);
+}
+"""
+PHASE_LINED = """
+.text._Z17fused_form_kernelI5FormAEvv:
+.L_x_0:
+        //## File "{src}", line 3 inlined at "/k/fused_transport.cu", line 20
+        /*0000*/                   VOTE.ANY R2, PT, P0 ;
+        //## File "{src}", line 4 inlined at "/k/fused_transport.cu", line 20
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+.L_x_1:
+        //## File "{src}", line 6 inlined at "/k/fused_transport.cu", line 20
+        /*0020*/                   FMUL R3, R3, 0.5 ;
+        //## File "{src}", line 7 inlined at "/k/fused_transport.cu", line 20
+        /*0030*/                   MOV R4, R3 ;
+        //## File "{src}", line 5 inlined at "/k/fused_transport.cu", line 20
+        /*0040*/              @P1  BRA `(.L_x_1) ;
+        //## File "{src}", line 9 inlined at "/k/fused_transport.cu", line 20
+        /*0050*/                   STS [R5], R3 ;
+        //## File "/k/fused_transport.cu", line 12
+        /*0060*/                   BRA `(.L_x_0) ;
+        /*0070*/                   EXIT ;
+"""
+
+
+def test_attribute_counts_the_phase_and_loop_bodies(tmp_path):
+    """A block phase's own lines are ``phase``; the lines inside a bounded
+    loop's ``for`` (indented past it) count as its body, a lane's work a
+    trip; the ``for`` line itself is the loop's head."""
+    src = tmp_path / "form.cu"
+    src.write_text(PHASE_SOURCE)
+    out = sass_loop.attribute(str(src), 1,
+                              PHASE_LINED.replace("{src}", str(src)))
+    assert out["by_kind"] == {"kernel": 1, "loop": 1, "move": 1, "phase": 3,
+                              "program": 1}
+    assert out["loop_bodies"] == {
+        "line 5: for (int it9 = 0; it9 < 40; ++it9) {": 2}
